@@ -3,20 +3,26 @@
 
     python3 chip_smoke.py
 
-Builds the flow-step CUDA kernel from ``glow_tts_tpu_torch/csrc``, holds it
-against its plain PyTorch version at the shipped width, drives the
-Vanilla serving path (``Inferencer`` at ``configs/Hyper_Parameters.yaml``
-width, random weights from a seed) through it, and times kernel and plain
-versions with CUDA events.  Exits non-zero on any failure and when no
-CUDA device is present; the last line is one JSON object naming the card.
+Builds the CUDA kernels of ``glow_tts_tpu_torch/csrc`` (the flow step and
+the monotonic alignment search), holds each against its plain PyTorch
+version at the shipped width, and drives two paths through them at
+``configs/Hyper_Parameters.yaml`` width with random weights from a seed:
+Vanilla serving (``Inferencer``, two mel buckets) and the loss/eval path
+(a from-scratch model, ActNorm's data-dependent initialisation on a batch
+from ``TrainCollater``, then ``eval_step``).  Times kernel and plain
+versions with CUDA events.  Exits non-zero on any failure and when no CUDA
+device is present; the last line is one JSON object naming the card.
 """
 
+import copy
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 SEED = 0
@@ -27,6 +33,16 @@ Z_REL_BOUND = 1e-4         # max |z_kernel - z_plain| / max |z_plain|
 LD_REL_BOUND = 1e-5        # max |ld_kernel - ld_plain| / max |ld_plain|
 ROUNDTRIP_BOUND = 1e-3     # max |reverse(forward(x)) - x| / max |x|
 MEL_MAE_BOUND = 1e-3       # the repo's fidelity bar (BASELINE.md)
+# the loss path, kernels vs plain versions, f32 on both sides
+DDI_ABS_BOUND = 1e-4       # ActNorm logs/bias after data-dependent init
+LOSS_REL_BOUND = 1e-4      # mle and duration loss of one eval batch
+# the training shape of the shipped config: Train.Batch_Size 32, up to 200
+# tokens and 1000 mel frames, padded to the 32-token and 128-frame buckets
+EVAL_BATCH, MAX_TOKENS, MAX_FRAMES = 32, 200, 1000
+EVAL_TOKENS, EVAL_FRAMES = 224, 1024       # the padded axes of such a batch
+# published peaks of one H100 SXM (NVIDIA's data sheet), for the bounds
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
 
 
 def card_line() -> str:
@@ -51,13 +67,24 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def paired_ms(kernel_fn, plain_fn, iters: int):
+def paired_ms(kernel_fn, plain_fn, iters: int, plain_iters: int = 0,
+              plain_warmup: int = 3):
     """Plain, kernel, kernel, plain on the same card; mean of each pair."""
-    p1 = cuda_ms(plain_fn, iters)
+    plain_iters = plain_iters or iters
+    p1 = cuda_ms(plain_fn, plain_iters, plain_warmup)
     k1 = cuda_ms(kernel_fn, iters)
     k2 = cuda_ms(kernel_fn, iters)
-    p2 = cuda_ms(plain_fn, iters)
+    p2 = cuda_ms(plain_fn, plain_iters, plain_warmup)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound(bytes_moved: float, flops: float):
+    """The least time in ms the card could take: each input read once and
+    each output written once at the memory rate, or the operations at the
+    f32 rate, whichever is longer; and which of the two it is."""
+    by_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    return max(by_bytes, by_ops), 'bytes' if by_bytes >= by_ops else 'operations'
 
 
 def ragged_batch(gen, b, t, c, device):
@@ -181,16 +208,25 @@ def time_all(inferencer, prior_1024, device):
                            32, 512, c, device)
     mask = torch.ones_like(mask)
     cond = step.cond(32)
+    # the step's work from its shapes: 2 FLOP per weight per valid frame
+    # (start, n × (k-tap conv + res/skip), end, mixing), every tensor once
+    weights = step.weights(False)
+    frame_flops = 2 * sum(weights[key].numel() for key in
+                          ('w_start', 'w_in', 'w_rs', 'w_end', 'mix_t'))
+    flops = frame_flops * mask.sum().item()
+    moved = 4 * (2 * x.numel() + mask.numel() + cond.numel() + x.shape[0]
+                 + sum(value.numel() for value in weights.values()))
+    bound_ms, bound_by = bound(moved, flops)
     times = {}
     for reverse in (True, False):
         w = step.weights(reverse)
         k_ms, p_ms = paired_ms(
             lambda: flow_step(x, mask, w, cond, reverse),
             lambda: flow_step_reference(x, mask, w, cond, reverse), 20)
-        flops = 3.7e6 * 32 * 512
         print(f'flow step B=32 T=512 reverse={reverse}: kernel {k_ms:.4f} ms '
-              f'({flops / k_ms / 1e9:.2f} TFLOP/s at 3.7 MFLOP/frame), '
-              f'plain {p_ms:.4f} ms')
+              f'({flops / k_ms / 1e9:.2f} TFLOP/s at '
+              f'{frame_flops / 1e6:.2f} MFLOP/frame), plain {p_ms:.4f} ms; '
+              f'bound {bound_ms:.4f} ms by {bound_by}')
         times[reverse] = (k_ms, p_ms)
 
     gen = torch.Generator(device=device)
@@ -204,15 +240,318 @@ def time_all(inferencer, prior_1024, device):
     print(f'decode phase B={b} bucket 1024: kernel {k_ms:.3f} ms '
           f'({b * 1024 / k_ms * 1e3:.0f} mel frames/s of capacity), '
           f'plain {p_ms:.3f} ms ({b * 1024 / p_ms * 1e3:.0f} mel frames/s)')
-    return times[True]
+    return {'ms': times[True][0], 'plain_ms': times[True][1],
+            'forward_ms': times[False][0], 'forward_plain_ms': times[False][1],
+            'bound_ms': bound_ms, 'bound_by': bound_by}
+
+
+def mas_problem(device):
+    """log_p [32, 224, 1024] with ragged lengths (tokens 10 … 200, frames
+    50 … 1000), one sample with more tokens than frames and one of length
+    1, masked to the lengths as the model masks it."""
+    gen = torch.Generator().manual_seed(SEED + 4)
+    b, t_tok, t_mel = EVAL_BATCH, EVAL_TOKENS, EVAL_FRAMES
+    tl = torch.linspace(10, MAX_TOKENS, b).round().int()
+    ml = torch.linspace(50, MAX_FRAMES, b).round().int()
+    tl[3], ml[3] = MAX_TOKENS // 2, MAX_FRAMES // 14
+    tl[1], ml[1] = 1, 1
+    valid = ((torch.arange(t_tok)[None, :, None] < tl[:, None, None])
+             & (torch.arange(t_mel)[None, None, :] < ml[:, None, None]))
+    log_p = 3.0 * torch.randn((b, t_tok, t_mel), generator=gen) * valid
+    return log_p.to(device), tl.to(device), ml.to(device)
+
+
+def check_path(path, tl, ml):
+    """Every sample with no more tokens than frames: one token per valid
+    frame, none elsewhere, from token 0 to the last, never skipping."""
+    t_mel = path.shape[2]
+    frames = torch.arange(t_mel, device=path.device)[None, :]
+    valid = frames < ml[:, None]
+    fits = tl <= ml
+    per_frame = path.sum(dim=1)                               # [B, T_mel]
+    assert torch.equal(per_frame[fits], valid[fits].float()), 'frame cover'
+    idx = path.argmax(dim=1)                                  # [B, T_mel]
+    step = (idx[:, 1:] - idx[:, :-1]) * valid[:, 1:]
+    assert ((step == 0) | (step == 1))[fits].all(), 'path not monotone'
+    assert (idx[fits, 0] == 0).all()
+    last = idx.gather(1, (ml.long() - 1).clamp_min(0)[:, None])[:, 0]
+    assert torch.equal(last[fits], (tl.long() - 1)[fits]), 'path end'
+
+
+def check_mas(device):
+    """The MAS kernel against its plain version at the training shape:
+    every element of the path equal."""
+    from glow_tts_tpu_torch.ops.mas import maximum_path, maximum_path_reference
+    log_p, tl, ml = mas_problem(device)
+    got = maximum_path(log_p, tl, ml)
+    torch.cuda.synchronize()
+    expected = maximum_path_reference(log_p, tl, ml)
+    differing = (got != expected).sum().item()
+    print(f'MAS kernel vs plain {tuple(log_p.shape)}, ragged lengths: '
+          f'{differing} differing elements of {got.numel()}')
+    assert differing == 0
+    check_path(got, tl, ml)
+    return float((got - expected).abs().max().item())
+
+
+def synthetic_items(config, seed):
+    """A training batch's items: seeded texts of 10 … 200 tokens and seeded
+    mels of 50 … 1000 frames, values in [−max_abs_mel, max_abs_mel]."""
+    rng = np.random.default_rng(seed)
+    letters = np.array(list('ABCDEFGHIJKLMNOPQRSTUVWXYZ'))
+    items = []
+    for n_tok, n_mel in zip(np.linspace(10, MAX_TOKENS, EVAL_BATCH).round(),
+                            np.linspace(50, MAX_FRAMES, EVAL_BATCH).round()):
+        chars = rng.choice(letters, int(n_tok) - 2)          # + <S>, <E>
+        chars[5::6] = ' '
+        a = config.sound.max_abs_mel
+        mel = rng.uniform(-a, a, (int(n_mel), config.sound.mel_dim))
+        items.append({'text': ''.join(chars), 'mel': mel.astype(np.float32)})
+    order = rng.permutation(len(items))
+    return [items[i] for i in order]
+
+
+def fresh_model(state_dict, config, device):
+    from glow_tts_tpu_torch import build_model
+    from glow_tts_tpu_torch.weights import load_state_dict
+    return load_state_dict(build_model(config), state_dict).to(device).prepare()
+
+
+def check_ddi(model, batch, config):
+    """ActNorm's data-dependent init through the kernel and through the
+    plain flow step, on copies of one model; and the first step against
+    the masked statistics of the squeezed batch computed directly."""
+    from glow_tts_tpu_torch.models.decoder import squeeze
+    from glow_tts_tpu_torch.models.layers import sequence_mask
+    from glow_tts_tpu_torch.ops.coupling import flow_step, flow_step_reference
+    plain = copy.deepcopy(model)
+    flow_step.launches = 0
+    model.data_dependent_init(batch['mels'], batch['mel_lengths'])
+    torch.cuda.synchronize()
+    launches = flow_step.launches
+    plain.data_dependent_init(batch['mels'], batch['mel_lengths'],
+                              step_fn=flow_step_reference)
+    worst = 0.0
+    steps = zip(model.layer_Dict['Decoder'].layer_Dict['Flows'],
+                plain.layer_Dict['Decoder'].layer_Dict['Flows'])
+    for k, (a, b) in enumerate(steps):
+        for name in ('logs', 'bias'):
+            got = getattr(a.layers[0], name)
+            assert torch.isfinite(got).all(), (k, name)
+            err = (got - getattr(b.layers[0], name)).abs().max().item()
+            assert err <= DDI_ABS_BOUND, (k, name, err)
+            worst = max(worst, err)
+    mels = batch['mels']
+    x, mask = squeeze(mels, sequence_mask(batch['mel_lengths'], mels.shape[1]),
+                      config.decoder.num_squeeze)
+    x, mask = x.double(), mask.double()
+    n = mask.sum()
+    mean = (x * mask).sum(dim=(0, 1)) / n
+    std = ((x * x * mask).sum(dim=(0, 1)) / n - mean ** 2).sqrt()
+    first = model.layer_Dict['Decoder'].layer_Dict['Flows'][0].layers[0]
+    direct = max((first.logs.reshape(-1) + std.log()).abs().max().item(),
+                 (first.bias.reshape(-1) + mean / std).abs().max().item())
+    print(f'ActNorm data-dependent init, {launches} flow-step launches: '
+          f'kernel vs plain max abs err {worst:.3e} over '
+          f'{config.decoder.stack} steps; first '
+          f'step vs direct statistics {direct:.3e}')
+    assert launches == config.decoder.stack, launches
+    assert direct <= DDI_ABS_BOUND, direct
+
+
+def compare_eval(name, model, batch, config):
+    """One batch through ``eval_step`` with the kernels and with their
+    plain versions: losses, and the path where ``log_p`` is the same."""
+    from glow_tts_tpu_torch import make_eval_step
+    from glow_tts_tpu_torch.ops.coupling import flow_step_reference
+    from glow_tts_tpu_torch.ops.mas import maximum_path, maximum_path_reference
+    seen = {}
+
+    def recording(label, mas_fn):
+        def mas(log_p, token_lengths, mel_lengths):
+            seen[label] = (log_p, token_lengths, mel_lengths)
+            return mas_fn(log_p, token_lengths, mel_lengths)
+        return mas
+
+    losses_k, out_k = make_eval_step(
+        config, model, mas_fn=recording('kernel', maximum_path))(batch)
+    losses_p, out_p = make_eval_step(
+        config, model, step_fn=flow_step_reference,
+        mas_fn=recording('plain', maximum_path_reference))(batch)
+    torch.cuda.synchronize()
+    # the kernel's path on the eval path's own log_p, against the plain MAS
+    log_p, tl, ml = seen['kernel']
+    assert torch.equal(out_k['attentions'],
+                       maximum_path_reference(log_p, tl, ml)), \
+        f'{name}: MAS kernel differs from plain on the eval log_p'
+    check_path(out_k['attentions'], tl, ml)
+    same_log_p = torch.equal(log_p, seen['plain'][0])
+    frames_off = int((out_k['attentions'] != out_p['attentions'])
+                     .any(dim=1).sum().item())
+    if same_log_p:
+        assert frames_off == 0, f'{name}: same log_p, other path'
+    line = (f'eval {name}: kernels mle {losses_k["mle"].item():.6f} '
+            f'duration {losses_k["duration"].item():.6f}; plain mle '
+            f'{losses_p["mle"].item():.6f} duration '
+            f'{losses_p["duration"].item():.6f}; log_p bit-equal '
+            f'{same_log_p}, max |dlog_p| '
+            f'{(log_p - seen["plain"][0]).abs().max().item():.3e}, '
+            f'{frames_off} frames aligned to another token')
+    print(line)
+    for key in ('mle', 'duration'):
+        k, p = losses_k[key].item(), losses_p[key].item()
+        assert np.isfinite(k) and np.isfinite(p), line
+        assert abs(k - p) <= LOSS_REL_BOUND * abs(p), (key, line)
+
+
+def run_eval(model, batches, config):
+    """The loss path: ``eval_step`` on each batch through the kernels."""
+    from glow_tts_tpu_torch import attention_diagonality, make_eval_step
+    from glow_tts_tpu_torch.ops.coupling import flow_step
+    from glow_tts_tpu_torch.ops.mas import maximum_path
+    eval_step = make_eval_step(config, model)
+    flow_step.launches = maximum_path.launches = 0
+    results = [eval_step(batch) for batch in batches]
+    torch.cuda.synchronize()
+    launches = flow_step.launches, maximum_path.launches
+    for batch, (losses, outputs) in zip(batches, results):
+        b, t_tok = batch['tokens'].shape
+        t_mel = batch['mels'].shape[1]
+        assert (t_tok, t_mel) == (EVAL_TOKENS, EVAL_FRAMES), (t_tok, t_mel)
+        assert outputs['z'].shape == batch['mels'].shape
+        assert outputs['attentions'].shape == (b, t_tok, t_mel)
+        assert outputs['log_dets'].shape == (b,)
+        for key, value in outputs.items():
+            assert torch.isfinite(value).all(), key
+        for key, value in losses.items():
+            assert torch.isfinite(value), key
+        assert torch.equal(outputs['attentions'].sum(dim=(1, 2)),
+                           batch['mel_lengths'].float())
+        diag = attention_diagonality(outputs['attentions'],
+                                     batch['token_lengths'],
+                                     batch['mel_lengths'])
+        print(f'eval batch B={b} tokens {t_tok} frames {t_mel}: '
+              f'mle {losses["mle"].item():.5f} duration '
+              f'{losses["duration"].item():.5f} total '
+              f'{losses["total"].item():.5f}, diagonality {diag.item():.4f}')
+    print(f'evaluated {len(batches)} batches: flow-step launches '
+          f'{launches[0]} ({config.decoder.stack} expected per batch), '
+          f'MAS launches {launches[1]} (1 expected per batch)')
+    assert launches == (config.decoder.stack * len(batches), len(batches))
+    return launches
+
+
+def time_eval(model, batch, config, device):
+    """MAS kernel vs plain at the training shape; the whole eval step with
+    kernels vs with plain versions; and the eval step's parts."""
+    from glow_tts_tpu_torch import make_eval_step
+    from glow_tts_tpu_torch.models.glow_tts import prior_log_likelihood
+    from glow_tts_tpu_torch.models.layers import sequence_mask
+    from glow_tts_tpu_torch.ops.coupling import flow_step_reference
+    from glow_tts_tpu_torch.ops.mas import maximum_path, maximum_path_reference
+    from glow_tts_tpu_torch.training.step import compute_losses
+    log_p, tl, ml = mas_problem(device)
+    k_ms, p_ms = paired_ms(lambda: maximum_path(log_p, tl, ml),
+                           lambda: maximum_path_reference(log_p, tl, ml),
+                           iters=20, plain_iters=2, plain_warmup=1)
+    # what this run's lengths need: the valid part of log_p read once, the
+    # whole path written once; per needed cell a max, an add and a compare
+    cells = (tl.long() * ml.long()).sum().item()
+    moved = 4 * (cells + log_p.numel() + 2 * tl.numel())
+    bound_ms, bound_by = bound(moved, 3 * cells)
+    print(f'MAS {tuple(log_p.shape)}: kernel {k_ms:.4f} ms, plain '
+          f'{p_ms:.2f} ms; bound {bound_ms:.4f} ms by {bound_by} '
+          f'({moved / 1e6:.1f} MB; the {int(ml.max())} dependent frames of '
+          f'the longest sample hold the kernel, not the bytes)')
+    mas_times = {'ms': k_ms, 'plain_ms': p_ms, 'bound_ms': bound_ms,
+                 'bound_by': bound_by}
+
+    eval_k = make_eval_step(config, model)
+    eval_p = make_eval_step(config, model, step_fn=flow_step_reference,
+                            mas_fn=maximum_path_reference)
+    k_ms, p_ms = paired_ms(lambda: eval_k(batch), lambda: eval_p(batch),
+                           iters=5, plain_iters=2, plain_warmup=1)
+    print(f'eval step {tuple(batch["mels"].shape)}: kernels {k_ms:.3f} ms, '
+          f'plain versions {p_ms:.2f} ms')
+
+    # the parts of one eval step, each alone, on this batch's tensors
+    with torch.no_grad():
+        tokens, mels = batch['tokens'], batch['mels']
+        token_mask = sequence_mask(batch['token_lengths'], tokens.shape[1])
+        mel_mask = sequence_mask(batch['mel_lengths'], mels.shape[1])
+        encoder = model.layer_Dict['Encoder']
+        decoder = model.layer_Dict['Decoder']
+        mean, log_std, _ = encoder(tokens, token_mask)
+        z, _, _ = decoder(mels, mel_mask)
+        attn_mask = token_mask * mel_mask[:, None, :, 0]
+        eval_log_p = prior_log_likelihood(mean, log_std, z, attn_mask)
+        _, outputs = eval_k(batch)
+        attn = outputs['attentions']
+
+        def aligned():
+            torch.einsum('bim,bij->bjm', mean, attn)
+            torch.einsum('bim,bij->bjm', log_std, attn)
+
+        parts = {
+            'encoder': lambda: encoder(tokens, token_mask),
+            f'forward flow ({config.decoder.stack} kernel launches)':
+                lambda: decoder(mels, mel_mask),
+            'log_p (two batched products)':
+                lambda: prior_log_likelihood(mean, log_std, z, attn_mask),
+            'MAS kernel on the eval log_p':
+                lambda: maximum_path(eval_log_p, batch['token_lengths'],
+                                     batch['mel_lengths']),
+            'aligned statistics (two batched products)': aligned,
+            'losses': lambda: compute_losses(config, outputs, batch),
+        }
+        for name, fn in parts.items():
+            print(f'  eval part, {name}: {cuda_ms(fn, 5):.4f} ms')
+    return mas_times, eval_k
+
+
+def profile_eval(eval_step, batch):
+    """One ``torch.profiler`` window over three eval steps: device time by
+    kernel, and the share of the window in which the device is idle."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        eval_step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(3):
+            eval_step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    # kernels only: an operator's row repeats the time of the kernels it
+    # launched
+    by_name = {}
+    for event in prof.events():
+        if event.device_type == DeviceType.CUDA:
+            total, count = by_name.get(event.name, (0.0, 0))
+            by_name[event.name] = (total + event.time_range.elapsed_us() / 1e3,
+                                   count + 1)
+    rows = sorted(((ms, count, name) for name, (ms, count) in by_name.items()),
+                  reverse=True)
+    busy_ms = sum(ms for ms, _, _ in rows)
+    if not rows:
+        print('profiler window: no device time recorded')
+        return
+    print(f'profiler window, 3 eval steps: wall {wall_ms:.2f} ms, '
+          f'{sum(count for _, count, _ in rows)} kernels busy {busy_ms:.2f} ms '
+          f'(device idle {100 * (1 - busy_ms / wall_ms):.1f} % of the window)')
+    for ms, count, key in rows[:10]:
+        print(f'  {ms:9.3f} ms  {count:5d} x  {key[:90]}')
 
 
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: no CUDA device; this script runs on a GPU only')
-    from glow_tts_tpu_torch import Inferencer, load_config, random_state_dict
-    from glow_tts_tpu_torch.ops import coupling
-    from glow_tts_tpu_torch.text import text_filtering
+    from glow_tts_tpu_torch import (Inferencer, TrainCollater,
+                                    batch_to_device, initial_state_dict,
+                                    load_config, random_state_dict)
+    from glow_tts_tpu_torch.ops import coupling, mas
+    from glow_tts_tpu_torch.text import Tokenizer, text_filtering
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -221,15 +560,20 @@ def main():
     print(f'card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}')
 
     start = time.perf_counter()
-    coupling.load_flow_step_library()
-    print(f'flow-step kernel built and loaded in '
+    with ThreadPoolExecutor(2) as pool:      # one nvcc per source, together
+        builds = [pool.submit(coupling.load_flow_step_library),
+                  pool.submit(mas.load_mas_library)]
+        for build in builds:
+            build.result()
+    print(f'flow-step and MAS kernels built and loaded in '
           f'{time.perf_counter() - start:.1f} s')
 
     config = load_config(CONFIG)
     inferencer = Inferencer(random_state_dict(config, SEED), config, device,
                             batch_size=2)
     worst = check_kernel(inferencer.model, device)
-    launches = serve(inferencer, config)
+    mas_err = check_mas(device)
+    serve_launches = serve(inferencer, config)
     compare_decode(inferencer, ['The birch canoe slid on the smooth planks.',
                                 'Glue the sheet to the dark blue background.'],
                    256)
@@ -238,14 +582,39 @@ def main():
     tokens, lengths, _ = inferencer.collate(
         [{'text': text_filtering(long_text)}] * 32)
     prior_1024 = inferencer.model.inference_prior(tokens, lengths, 4.0)
-    kernel_ms, plain_ms = time_all(inferencer, prior_1024, device)
 
-    print(json.dumps({'kernels': [{
-        'name': 'flow_step', 'route': 'cuda',
-        'source': 'glow_tts_tpu_torch/csrc/flow_step.cu',
-        'replaces': 'glow_tts_tpu/ops/coupling.py:190',
-        'launches': launches, 'max_abs_err': worst,
-        'ms': kernel_ms, 'plain_ms': plain_ms}]}))
+    # the loss path: a from-scratch model, initialised on its first batch
+    collater = TrainCollater(config, Tokenizer())
+    batches = [batch_to_device(collater(synthetic_items(config, SEED + k)),
+                               device) for k in (10, 11)]
+    model = fresh_model(initial_state_dict(config, SEED), config, device)
+    check_ddi(model, batches[0], config)
+    eval_launches = run_eval(model, batches, config)
+    compare_eval('from scratch', model, batches[0], config)
+    # and with live couplings (a nonzero end conv), which a from-scratch
+    # model does not have yet
+    live = fresh_model(random_state_dict(config, SEED), config, device)
+    live.data_dependent_init(batches[0]['mels'], batches[0]['mel_lengths'])
+    compare_eval('live couplings', live, batches[1], config)
+
+    flow_times = time_all(inferencer, prior_1024, device)
+    mas_times, eval_step = time_eval(model, batches[0], config, device)
+    profile_eval(eval_step, batches[0])
+
+    print(json.dumps({'kernels': [
+        {'name': 'flow_step', 'route': 'cuda',
+         'source': 'glow_tts_tpu_torch/csrc/flow_step.cu',
+         'replaces': 'glow_tts_tpu/ops/coupling.py:190',
+         'launches': serve_launches + eval_launches[0],
+         'launches_by_path': {'serve': serve_launches,
+                              'eval': eval_launches[0]},
+         'max_abs_err': worst, **flow_times, 'library_ms': None},
+        {'name': 'mas', 'route': 'cuda',
+         'source': 'glow_tts_tpu_torch/csrc/mas.cu',
+         'replaces': 'glow_tts_tpu/ops/mas.py:147',
+         'launches': eval_launches[1],
+         'launches_by_path': {'serve': 0, 'eval': eval_launches[1]},
+         'max_abs_err': mas_err, **mas_times, 'library_ms': None}]}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""glow_tts_tpu_torch — Glow-TTS serving in PyTorch, with the decoder's
-flow step as a CUDA kernel for Hopper (H100).
+"""glow_tts_tpu_torch — Glow-TTS in PyTorch: Vanilla serving and the
+loss/eval path, with the decoder's flow step and the monotonic alignment
+search as CUDA kernels for Hopper (H100).
 
 The port of ``glow_tts_tpu`` (JAX), which stays beside it as the
 reference: same layouts at the public functions ([B, T, C]), same
@@ -8,8 +9,15 @@ imports torch and never jax.
 """
 
 from glow_tts_tpu_torch.config import Config, load_config
+from glow_tts_tpu_torch.data.collate import TrainCollater
 from glow_tts_tpu_torch.inference import Inferencer
-from glow_tts_tpu_torch.models.glow_tts import GlowTTS, random_state_dict
+from glow_tts_tpu_torch.models.glow_tts import (GlowTTS, initial_state_dict,
+                                                random_state_dict)
+from glow_tts_tpu_torch.training.step import (attention_diagonality,
+                                              batch_to_device, build_model,
+                                              make_eval_step)
 
-__all__ = ['Config', 'GlowTTS', 'Inferencer', 'load_config',
+__all__ = ['Config', 'GlowTTS', 'Inferencer', 'TrainCollater',
+           'attention_diagonality', 'batch_to_device', 'build_model',
+           'initial_state_dict', 'load_config', 'make_eval_step',
            'random_state_dict']

@@ -1,10 +1,10 @@
-"""The slice of the configuration that the PyTorch serving path reads.
+"""The slice of the configuration that the PyTorch port reads.
 
 It loads the same YAML schema as ``glow_tts_tpu.config.load_config``
 (``configs/Hyper_Parameters.yaml``) and exposes the same attribute names
 (``config.encoder.channels``, ``config.decoder.affine_coupling`` …), so
 either object drives the port.  Only the fields of Vanilla-mode serving
-are kept; unknown keys are ignored, as there.  A CPU test holds every
+and of the loss/eval path are kept; unknown keys are ignored, as there.  A CPU test holds every
 field against ``glow_tts_tpu.config`` on the same input.
 """
 
@@ -103,6 +103,9 @@ class Config:
     # token axis padded up to a multiple of this (the YAML's
     # ``TPU.token_bucket``): one padded shape per length class
     token_bucket: int = 32
+    # mel axis of a training batch padded up to a multiple of this (the
+    # YAML's ``TPU.mel_bucket``)
+    mel_bucket: int = 128
 
 
 def _coerce(cls: type, data: Optional[Mapping]) -> Any:
@@ -141,6 +144,6 @@ def load_config(path_or_dict) -> Config:
         raise NotImplementedError(
             f'the PyTorch port serves Vanilla mode only (got {config.mode!r})')
     tpu = data.get('TPU') or data.get('tpu') or {}
-    if 'token_bucket' in tpu:
-        config = dataclasses.replace(config, token_bucket=tpu['token_bucket'])
-    return config
+    buckets = {name: tpu[name] for name in ('token_bucket', 'mel_bucket')
+               if name in tpu}
+    return dataclasses.replace(config, **buckets)

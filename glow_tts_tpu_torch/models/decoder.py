@@ -1,6 +1,7 @@
 """Normalizing-flow mel decoder: squeeze → [ActNorm → invertible 1×1 →
 WaveNet affine coupling] × K → unsqueeze (port of
-``glow_tts_tpu/models/decoder.py``, deterministic path).
+``glow_tts_tpu/models/decoder.py``, deterministic path, and ActNorm's
+data-dependent initialisation).
 
 Each flow step runs as one call of ``ops.coupling.flow_step``: the CUDA
 kernel on the card, its plain version on the CPU.  The modules here hold
@@ -48,6 +49,21 @@ class ActNorm(nn.Module):
         super().__init__()
         self.logs = nn.Parameter(torch.zeros(1, channels, 1))
         self.bias = nn.Parameter(torch.zeros(1, channels, 1))
+
+    @torch.no_grad()
+    def data_dependent_init(self, x: torch.Tensor,
+                            mask: torch.Tensor) -> None:
+        """Set ``logs``/``bias`` so that this layer's output has zero mean
+        and unit variance per channel over the valid frames of
+        ``x [B, T, C]`` (``mask [B, T, 1]``): ``logs = −log σ``,
+        ``bias = −mean·exp(logs)``, the variance clipped at 1e-7."""
+        x, mask = x.float(), mask.float()
+        denom = mask.sum().clamp_min(1.0)
+        mean = (x * mask).sum(dim=(0, 1)) / denom
+        var = (x * x * mask).sum(dim=(0, 1)) / denom - mean ** 2
+        log_std = 0.5 * torch.log(var.clamp_min(1e-7))
+        self.logs.copy_((-log_std).reshape(1, -1, 1))
+        self.bias.copy_((-mean * torch.exp(-log_std)).reshape(1, -1, 1))
 
 
 class InvertibleConv(nn.Module):
@@ -201,6 +217,19 @@ class FlowDecoder(nn.Module):
     def pack(self) -> None:
         for step in self.layer_Dict['Flows']:
             step.pack()
+
+    @torch.no_grad()
+    def data_dependent_init(self, x, mask,
+                            step_fn: FlowStepFn = flow_step) -> None:
+        """ActNorm's data-dependent initialisation on the batch
+        ``x [B, T, M]``, ``mask [B, T, 1]``, step by step: each step's
+        statistics come from its own input, so a step is set, re-packed
+        and run forward before the next one is set."""
+        x, sq_mask = squeeze(x, mask, self.num_squeeze)
+        for step in self.layer_Dict['Flows']:
+            step.layers[0].data_dependent_init(x, sq_mask)
+            step.pack()
+            x, _ = step(x, sq_mask, False, step_fn)
 
     def forward(self, x, mask, reverse: bool = False,
                 step_fn: FlowStepFn = flow_step):

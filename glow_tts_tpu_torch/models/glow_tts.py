@@ -1,7 +1,9 @@
-"""Glow-TTS for serving, Vanilla mode (port of the inference half of
-``glow_tts_tpu/models/glow_tts.py``).
+"""Glow-TTS, Vanilla mode (port of ``glow_tts_tpu/models/glow_tts.py``):
+the train forward that the loss and eval path runs
+(:meth:`GlowTTS.forward`: encoder prior, forward flow with its logdet,
+prior log-likelihood, MAS) and two-phase serving.
 
-Two phases, as the JAX package serves: :meth:`GlowTTS.inference_prior`
+Serving has two phases, as the JAX package serves: :meth:`GlowTTS.inference_prior`
 does the token-length work (encoder prior, ceiled durations), the host
 picks a mel bucket from the summed durations, and
 :meth:`GlowTTS.inference_decode` does the mel-capacity work (hard path,
@@ -10,7 +12,7 @@ z sample, inverse flow).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Callable, Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -22,6 +24,27 @@ from glow_tts_tpu_torch.models.layers import (
     Conv1d, RelativePositionMultiHeadAttention, WNConv1d, fold_weight_norm,
     sequence_mask)
 from glow_tts_tpu_torch.ops.coupling import flow_step
+from glow_tts_tpu_torch.ops.mas import maximum_path
+
+LOG_2PI = 1.8378770664093453  # log(2π)
+MasFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def prior_log_likelihood(mean: torch.Tensor, log_std: torch.Tensor,
+                         z: torch.Tensor,
+                         attn_mask: torch.Tensor) -> torch.Tensor:
+    """log N(z_j; mean_i, std_i) summed over mel channels, for every
+    (token i, frame j) pair, as two batched matrix products.
+
+    mean, log_std: [B, T_tok, M]; z: [B, T_mel, M];
+    attn_mask: [B, T_tok, T_mel].  Returns [B, T_tok, T_mel] float32."""
+    mean, log_std, z = mean.float(), log_std.float(), z.float()
+    inv_var = torch.exp(-2.0 * log_std)                     # [B, T_tok, M]
+    t_const = torch.sum(-0.5 * LOG_2PI - log_std, dim=-1)   # [B, T_tok]
+    t_mean = torch.sum(-0.5 * mean * mean * inv_var, dim=-1)
+    quad = torch.einsum('bim,bjm->bij', inv_var, -0.5 * z * z)
+    cross = torch.einsum('bim,bjm->bij', mean * inv_var, z)
+    return ((t_const + t_mean)[:, :, None] + quad + cross) * attn_mask
 
 
 def generate_path(durations: torch.Tensor,
@@ -51,6 +74,53 @@ class GlowTTS(nn.Module):
         fold_weight_norm(self)
         self.layer_Dict['Decoder'].pack()
         return self.eval()
+
+    def forward(self, tokens: torch.Tensor, token_lengths: torch.Tensor,
+                mels: torch.Tensor, mel_lengths: torch.Tensor,
+                step_fn: FlowStepFn = flow_step,
+                mas_fn: MasFn = maximum_path) -> Dict[str, torch.Tensor]:
+        """The train forward, deterministic (no dropout): tokens
+        [B, T_tok] int, mels [B, T_mel, M], lengths [B] int (mel lengths
+        multiples of ``num_squeeze``).  MAS runs on detached statistics and
+        is not differentiated through.  ``step_fn`` and ``mas_fn`` are the
+        kernels' wrappers unless a caller compares them with their plain
+        versions.  The flow-step kernel has no backward yet, so on the
+        card this runs under ``torch.no_grad()``."""
+        token_lengths = token_lengths.to(torch.int32)
+        mel_lengths = mel_lengths.to(torch.int32)
+        token_mask = sequence_mask(token_lengths, tokens.shape[1])
+        mel_mask = sequence_mask(mel_lengths, mels.shape[1])
+
+        mean, log_std, log_durations = self.layer_Dict['Encoder'](
+            tokens, token_mask)
+        z, log_dets, mel_mask = self.layer_Dict['Decoder'](
+            mels, mel_mask, step_fn=step_fn)
+
+        attn_mask = token_mask * mel_mask[:, None, :, 0]    # [B,T_tok,T_mel]
+        with torch.no_grad():
+            log_p = prior_log_likelihood(mean, log_std, z, attn_mask)
+            attentions = mas_fn(log_p, token_lengths, mel_lengths)
+
+        mel_mean = torch.einsum('bim,bij->bjm', mean, attentions)
+        mel_log_std = torch.einsum('bim,bij->bjm', log_std, attentions)
+        durations = attentions.sum(dim=-1, keepdim=True)    # [B, T_tok, 1]
+        log_duration_targets = torch.log(durations + 1e-7) * token_mask
+        return {'z': z, 'mel_mean': mel_mean, 'mel_log_std': mel_log_std,
+                'log_dets': log_dets, 'log_durations': log_durations,
+                'log_duration_targets': log_duration_targets,
+                'attentions': attentions, 'mel_mask': mel_mask}
+
+    @torch.no_grad()
+    def data_dependent_init(self, mels: torch.Tensor,
+                            mel_lengths: torch.Tensor,
+                            step_fn: FlowStepFn = flow_step) -> 'GlowTTS':
+        """Initialise every flow step's ActNorm from the batch
+        ``mels [B, T_mel, M]``, as training starts (the JAX package does it
+        inside ``create_train_state``).  Run after :meth:`prepare`."""
+        mel_mask = sequence_mask(mel_lengths, mels.shape[1])
+        self.layer_Dict['Decoder'].data_dependent_init(mels, mel_mask,
+                                                       step_fn)
+        return self
 
     @torch.no_grad()
     def inference_prior(self, tokens: torch.Tensor,
@@ -155,3 +225,16 @@ def random_state_dict(config, seed: int) -> Dict[str, torch.Tensor]:
         end.weight.mul_(0.1)
     return {key: value.detach().clone()
             for key, value in model.state_dict().items()}
+
+
+def initial_state_dict(config, seed: int) -> Dict[str, torch.Tensor]:
+    """A from-scratch state dict, as training starts from: random weights
+    from ``seed`` with every coupling's end conv zero (each coupling starts
+    as the identity) and ActNorm at zero, to be set from a batch by
+    :meth:`GlowTTS.data_dependent_init`."""
+    state = random_state_dict(config, seed)
+    for key, value in state.items():
+        if key.endswith(('.layer_Dict.End.weight', '.layer_Dict.End.bias',
+                         '.layers.0.logs', '.layers.0.bias')):
+            value.zero_()
+    return state

@@ -1,0 +1,35 @@
+"""Training losses, computed in float32 (port of
+``glow_tts_tpu/training/losses.py``, the Vanilla terms).
+
+* :func:`mle_loss`: the exact flow likelihood: negative log-likelihood of
+  z under the aligned prior minus the flow log-determinants, normalised by
+  the valid frame count × mel channels, plus the ½·log 2π constant.
+* :func:`duration_loss`: mean squared error between predicted and
+  MAS-derived log durations over all elements, padding included (both are
+  zero there).
+"""
+
+from __future__ import annotations
+
+import torch
+
+LOG_2PI = 1.8378770664093453
+
+
+def mle_loss(z: torch.Tensor, mel_mean: torch.Tensor,
+             mel_log_std: torch.Tensor, log_dets: torch.Tensor,
+             mel_lengths: torch.Tensor, num_squeeze: int,
+             mel_dim: int) -> torch.Tensor:
+    z, mean, log_std = z.float(), mel_mean.float(), mel_log_std.float()
+    nll = (torch.sum(log_std)
+           + 0.5 * torch.sum(torch.exp(-2.0 * log_std) * (z - mean) ** 2)
+           - torch.sum(log_dets.float()))
+    frames = torch.div(mel_lengths, num_squeeze, rounding_mode='floor')
+    denom = torch.sum(frames) * num_squeeze * mel_dim
+    return nll / denom + 0.5 * LOG_2PI
+
+
+def duration_loss(log_durations: torch.Tensor,
+                  log_duration_targets: torch.Tensor) -> torch.Tensor:
+    diff = log_durations.float() - log_duration_targets.float()
+    return torch.mean(diff ** 2)

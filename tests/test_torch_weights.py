@@ -1,18 +1,22 @@
 """Weights, configuration and imports of the PyTorch port:
 
-* the JAX → port bridge (the JAX package's own exporter, then
-  ``load_state_dict(strict=True)``): the port's state-dict names and
+* the JAX → port bridge (the port's own copy of the JAX exporter's name
+  map, then ``load_state_dict(strict=True)``): the copy's output equals
+  the JAX exporter's bit for bit, and the port's state-dict names and
   shapes are exactly the exporter's for Vanilla;
 * weight norm folded at load equals ``fold_weight_norm_params``;
 * an ``S_<step>.pt`` written by ``save_reference_checkpoint`` serves;
 * the port's config and text rules agree field by field with the JAX
   package's;
 * ``glow_tts_tpu_torch`` runs a decode without importing jax or the JAX
-  package.
+  package, and no source file of the port or of ``chip_smoke.py`` holds
+  such an import.
 """
 
 import dataclasses
+import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -29,6 +33,7 @@ from glow_tts_tpu_torch import text as ttext
 from glow_tts_tpu_torch.config import load_config
 from glow_tts_tpu_torch.inference import Inferencer
 from glow_tts_tpu_torch.models.glow_tts import GlowTTS
+from glow_tts_tpu_torch.weights import convert_params_to_reference as port_convert
 from glow_tts_tpu_torch.weights import load_jax_params
 from tests.torch_port_helpers import jax_model, port_config, port_model
 
@@ -52,6 +57,24 @@ def test_state_dict_names_and_shapes_are_the_exporters(setup):
     for key, value in model.state_dict().items():
         np.testing.assert_array_equal(value.numpy(), exported[key],
                                       err_msg=key)
+
+
+@pytest.mark.parametrize('config_of', ['port', 'jax'])
+def test_own_exporter_equals_the_jax_exporter(setup, config_of):
+    cfg, params = setup
+    exported = convert_params_to_reference(params, cfg)
+    own = port_convert(params, port_config(cfg) if config_of == 'port'
+                       else cfg)
+    assert list(own) == list(exported)
+    for key, value in exported.items():
+        assert own[key].dtype == value.dtype, key
+        np.testing.assert_array_equal(own[key], value, err_msg=key)
+
+
+def test_own_exporter_refuses_other_modes(setup):
+    cfg, params = setup
+    with pytest.raises(NotImplementedError, match='GR'):
+        port_convert(params, dataclasses.replace(cfg, mode='GR'))
 
 
 def test_fold_matches_jax_fold(setup):
@@ -91,10 +114,11 @@ def test_serves_from_a_reference_checkpoint_file(setup, tmp_path):
 
 def _port_fields(port_obj, jax_obj, path=''):
     """(path, port value, JAX value) for every leaf field of the port's
-    config; ``token_bucket`` lives under ``TPU`` in the JAX config."""
+    config; the two buckets live under ``TPU`` in the JAX config."""
     for f in dataclasses.fields(port_obj):
         value = getattr(port_obj, f.name)
-        ref = (jax_obj.tpu.token_bucket if f.name == 'token_bucket'
+        ref = (getattr(jax_obj.tpu, f.name)
+               if f.name in ('token_bucket', 'mel_bucket')
                else getattr(jax_obj, f.name))
         if dataclasses.is_dataclass(value):
             yield from _port_fields(value, ref, f'{path}{f.name}.')
@@ -111,9 +135,17 @@ def test_config_fields_match_jax(source, setup):
         ref = setup[0]
         port = port_config(ref)
     fields = list(_port_fields(port, ref))
-    assert len(fields) >= 20
+    assert len(fields) >= 21
+    assert 'mel_bucket' in [name for name, _, _ in fields]
     for name, value, expected in fields:
         assert value == expected, name
+
+
+def test_config_reads_both_buckets_from_the_tpu_section():
+    data = {'TPU': {'token_bucket': 16, 'mel_bucket': 64}}
+    port, ref = load_config(data), jax_load_config(data)
+    assert (port.token_bucket, port.mel_bucket) == (16, 64)
+    assert (ref.tpu.token_bucket, ref.tpu.mel_bucket) == (16, 64)
 
 
 def test_config_refuses_other_modes():
@@ -164,3 +196,25 @@ def test_port_never_imports_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert 'LOADED []' in proc.stdout, proc.stdout
+
+
+_FORBIDDEN_IMPORT = re.compile(
+    r'^\s*(?:from|import)\s+(?:jax|jaxlib|flax|optax|glow_tts_tpu)(?![\w])',
+    re.MULTILINE)
+
+
+def test_no_source_of_the_port_imports_jax_or_the_jax_package():
+    """Read the sources: ``sys.modules`` in this process is tainted by the
+    tests' own imports."""
+    sources = sorted(glob.glob(os.path.join(REPO, 'glow_tts_tpu_torch', '**',
+                                            '*.py'), recursive=True))
+    sources.append(os.path.join(REPO, 'chip_smoke.py'))
+    assert len(sources) >= 20
+    for path in sources:
+        with open(path, encoding='utf-8') as f:
+            found = _FORBIDDEN_IMPORT.findall(f.read())
+        assert not found, (path, found)
+    # the pattern does catch what it is there for, and not the port itself
+    assert _FORBIDDEN_IMPORT.search('    from glow_tts_tpu.utils import x')
+    assert _FORBIDDEN_IMPORT.search('import jax.numpy as jnp')
+    assert not _FORBIDDEN_IMPORT.search('from glow_tts_tpu_torch import x')

@@ -40,9 +40,8 @@ def jax_model(seed=0, perturb=0.03):
 
 
 def port_model(jax_cfg, params):
-    model = PortGlowTTS(port_config(jax_cfg))
-    load_jax_params(model, params, jax_cfg)
-    return model.prepare()
+    cfg = port_config(jax_cfg)
+    return load_jax_params(PortGlowTTS(cfg), params, cfg).prepare()
 
 
 def ragged(rng, b, t, c, lengths):
