@@ -3,15 +3,18 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels of ``glow_tts_tpu_torch/csrc`` (the flow step and
-the monotonic alignment search), holds each against its plain PyTorch
-version at the shipped width, and drives two paths through them at
+Builds the CUDA kernels of ``glow_tts_tpu_torch/csrc`` (the flow step, the
+monotonic alignment search, the train-direction flow stack's forward and
+its backward), holds each against its plain PyTorch version at the shipped
+width, and drives three paths through them at
 ``configs/Hyper_Parameters.yaml`` width with random weights from a seed:
-Vanilla serving (``Inferencer``, two mel buckets) and the loss/eval path
-(a from-scratch model, ActNorm's data-dependent initialisation on a batch
-from ``TrainCollater``, then ``eval_step``).  Times kernel and plain
-versions with CUDA events.  Exits non-zero on any failure and when no CUDA
-device is present; the last line is one JSON object naming the card.
+Vanilla serving (``Inferencer``, two mel buckets), the loss/eval path (a
+from-scratch model, ActNorm's data-dependent initialisation on a batch
+from ``TrainCollater``, then ``eval_step``) and training (the same
+initialisation, then ``train_step`` a few times, beside the same steps
+through the plain versions).  Times kernel and plain versions with CUDA
+events.  Exits non-zero on any failure and when no CUDA device is present;
+the last line is one JSON object naming the card.
 """
 
 import copy
@@ -36,6 +39,21 @@ MEL_MAE_BOUND = 1e-3       # the repo's fidelity bar (BASELINE.md)
 # the loss path, kernels vs plain versions, f32 on both sides
 DDI_ABS_BOUND = 1e-4       # ActNorm logs/bias after data-dependent init
 LOSS_REL_BOUND = 1e-4      # mle and duration loss of one eval batch
+# the train-direction flow stack, kernels vs plain version and autograd of
+# it, 12 steps at B=32, T=512, f32 on both sides: sums in another order
+TRAIN_Z_REL_BOUND = 1e-4   # max |z_kernel - z_plain| / max |z_plain|
+TRAIN_LD_REL_BOUND = 1e-5  # the same for the logdet
+GRAD_REL_BOUND = 1e-4      # per gradient tensor, max |dk - dp| / max |dp|
+# the train path, kernels vs plain versions from the same weights, seed and
+# generator state: per step
+TRAIN_LOSS_REL_BOUND = 1e-4
+TRAIN_NORM_REL_BOUND = 1e-3
+TRAIN_STEPS = 4
+FLOW_RATE = 0.05           # Decoder.Affine_Coupling.WaveNet.Dropout_Rate
+# kernels of csrc/flow_train_bwd.cu behind one flow step's backward, with no
+# conditioning: 11 weight-gradient GEMMs, 11 activation-gradient GEMMs, 11
+# column sums and the affine's elementwise backward
+BWD_KERNELS_PER_FLOW_STEP = 34
 # the training shape of the shipped config: Train.Batch_Size 32, up to 200
 # tokens and 1000 mel frames, padded to the 32-token and 128-frame buckets
 EVAL_BATCH, MAX_TOKENS, MAX_FRAMES = 32, 200, 1000
@@ -87,6 +105,41 @@ def bound(bytes_moved: float, flops: float):
     return max(by_bytes, by_ops), 'bytes' if by_bytes >= by_ops else 'operations'
 
 
+COUNTERS = ('flow_step', 'mas', 'train_fwd', 'train_recompute', 'train_bwd')
+
+
+def launch_counters():
+    """(function, attribute) of every kernel launch count of the port."""
+    from glow_tts_tpu_torch.ops.coupling import flow_step
+    from glow_tts_tpu_torch.ops.coupling_grad import flow_stack_train
+    from glow_tts_tpu_torch.ops.mas import maximum_path
+    return dict(zip(COUNTERS, (
+        (flow_step, 'launches'), (maximum_path, 'launches'),
+        (flow_stack_train, 'forward_launches'),
+        (flow_stack_train, 'recompute_launches'),
+        (flow_stack_train, 'backward_launches'))))
+
+
+def zero_counts():
+    for fn, name in launch_counters().values():
+        setattr(fn, name, 0)
+
+
+def read_counts():
+    torch.cuda.synchronize()
+    return {key: getattr(fn, name)
+            for key, (fn, name) in launch_counters().items()}
+
+
+def step_frame_flops(weights) -> int:
+    """Operations of one flow step on one valid frame: 2 per weight of the
+    mixing, the start conv, the n k-tap convs and res/skip 1x1s and the end
+    conv, less the last layer's res half, which is structurally zero."""
+    ch = weights['w_rs'].shape[-2]
+    return 2 * (sum(weights[key].numel() for key in
+                    ('w_start', 'w_in', 'w_rs', 'w_end', 'mix_t')) - ch * ch)
+
+
 def ragged_batch(gen, b, t, c, device):
     lengths = torch.linspace(1, t, b).round().long()
     lengths[0], lengths[-1] = 1, t
@@ -134,7 +187,6 @@ def check_kernel(model, device):
 
 def serve(inferencer, config):
     """The main path: text requests → Inferencer → mels, in two buckets."""
-    from glow_tts_tpu_torch.ops.coupling import flow_step
     requests = [
         ('short_a', 'The quick brown fox jumps over the lazy dog.', 1.0),
         ('short_b', 'Hello there, how are you today?', 1.0),
@@ -146,17 +198,17 @@ def serve(inferencer, config):
     ]
     labels, texts, scales = zip(*requests)
     n_decodes = -(-len(requests) // inferencer.batch_size)
-    flow_step.launches = 0
+    zero_counts()
     results = inferencer.inference(list(labels), list(texts), list(scales),
                                    seed=SEED)
-    torch.cuda.synchronize()
-    launches = flow_step.launches
+    launches = read_counts()
     per_decode = config.decoder.stack
     print(f'served {len(results)} requests in {n_decodes} decodes: '
-          f'flow-step kernel launches {launches} '
-          f'({per_decode} expected per decode)')
+          f'launches {launches} ({per_decode} flow steps expected per '
+          f'decode, nothing else)')
     assert len(results) == len(requests)
-    assert launches == per_decode * n_decodes, launches
+    assert launches == {**dict.fromkeys(COUNTERS, 0),
+                        'flow_step': per_decode * n_decodes}, launches
     s = config.decoder.num_squeeze
     buckets = set()
     for r in results:
@@ -208,11 +260,10 @@ def time_all(inferencer, prior_1024, device):
                            32, 512, c, device)
     mask = torch.ones_like(mask)
     cond = step.cond(32)
-    # the step's work from its shapes: 2 FLOP per weight per valid frame
-    # (start, n × (k-tap conv + res/skip), end, mixing), every tensor once
+    # the step's work from its shapes: 2 FLOP per live weight per valid
+    # frame, every tensor moved once
     weights = step.weights(False)
-    frame_flops = 2 * sum(weights[key].numel() for key in
-                          ('w_start', 'w_in', 'w_rs', 'w_end', 'mix_t'))
+    frame_flops = step_frame_flops(weights)
     flops = frame_flops * mask.sum().item()
     moved = 4 * (2 * x.numel() + mask.numel() + cond.numel() + x.shape[0]
                  + sum(value.numel() for value in weights.values()))
@@ -407,13 +458,10 @@ def compare_eval(name, model, batch, config):
 def run_eval(model, batches, config):
     """The loss path: ``eval_step`` on each batch through the kernels."""
     from glow_tts_tpu_torch import attention_diagonality, make_eval_step
-    from glow_tts_tpu_torch.ops.coupling import flow_step
-    from glow_tts_tpu_torch.ops.mas import maximum_path
     eval_step = make_eval_step(config, model)
-    flow_step.launches = maximum_path.launches = 0
+    zero_counts()
     results = [eval_step(batch) for batch in batches]
-    torch.cuda.synchronize()
-    launches = flow_step.launches, maximum_path.launches
+    launches = read_counts()
     for batch, (losses, outputs) in zip(batches, results):
         b, t_tok = batch['tokens'].shape
         t_mel = batch['mels'].shape[1]
@@ -434,10 +482,12 @@ def run_eval(model, batches, config):
               f'mle {losses["mle"].item():.5f} duration '
               f'{losses["duration"].item():.5f} total '
               f'{losses["total"].item():.5f}, diagonality {diag.item():.4f}')
-    print(f'evaluated {len(batches)} batches: flow-step launches '
-          f'{launches[0]} ({config.decoder.stack} expected per batch), '
-          f'MAS launches {launches[1]} (1 expected per batch)')
-    assert launches == (config.decoder.stack * len(batches), len(batches))
+    print(f'evaluated {len(batches)} batches: launches {launches} '
+          f'({config.decoder.stack} flow steps and 1 MAS expected per '
+          f'batch, nothing else)')
+    assert launches == {**dict.fromkeys(COUNTERS, 0),
+                        'flow_step': config.decoder.stack * len(batches),
+                        'mas': len(batches)}, launches
     return launches
 
 
@@ -509,18 +559,19 @@ def time_eval(model, batch, config, device):
     return mas_times, eval_k
 
 
-def profile_eval(eval_step, batch):
-    """One ``torch.profiler`` window over three eval steps: device time by
-    kernel, and the share of the window in which the device is idle."""
+def profile_window(label, fn, repeats, warmup=2):
+    """One ``torch.profiler`` window over ``repeats`` calls of ``fn``:
+    device time by kernel, and the share of the window in which the device
+    is idle."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(2):
-        eval_step(batch)
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        for _ in range(3):
-            eval_step(batch)
+        for _ in range(repeats):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     # kernels only: an operator's row repeats the time of the kernels it
@@ -537,11 +588,310 @@ def profile_eval(eval_step, batch):
     if not rows:
         print('profiler window: no device time recorded')
         return
-    print(f'profiler window, 3 eval steps: wall {wall_ms:.2f} ms, '
+    print(f'profiler window, {repeats} {label}: wall {wall_ms:.2f} ms, '
           f'{sum(count for _, count, _ in rows)} kernels busy {busy_ms:.2f} ms '
           f'(device idle {100 * (1 - busy_ms / wall_ms):.1f} % of the window)')
     for ms, count, key in rows[:10]:
         print(f'  {ms:9.3f} ms  {count:5d} x  {key[:90]}')
+
+
+def train_model(state_dict, config, device):
+    """A model as training holds it: weight norm unfolded."""
+    from glow_tts_tpu_torch import build_model
+    from glow_tts_tpu_torch.weights import load_state_dict
+    model = load_state_dict(build_model(config), state_dict).to(device)
+    return model.prepare(fold=False)
+
+
+def rel_err(got, ref):
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+
+
+def stack_problem(model, batch, config):
+    """The flow stack's operands as a train step hands them over: the
+    batch's squeezed mels and mask (ragged lengths), and the model's
+    stacked weights, detached."""
+    from glow_tts_tpu_torch.models.decoder import squeeze
+    from glow_tts_tpu_torch.models.layers import sequence_mask
+    mels = batch['mels']
+    x, mask = squeeze(mels, sequence_mask(batch['mel_lengths'], mels.shape[1]),
+                      config.decoder.num_squeeze)
+    with torch.no_grad():
+        weights = model.layer_Dict['Decoder'].pack_train()
+    return x.contiguous(), mask, weights
+
+
+def check_train_forward(x, mask, weights):
+    """Kernel #5 against the plain version, the whole stack, at dropout
+    rate 0.05 and 0 with the same (negative) seed; and the kernel's masks
+    read element by element through a probe stack whose pre-gate sum is the
+    keep factor itself."""
+    from glow_tts_tpu_torch.ops import dropmask
+    from glow_tts_tpu_torch.ops import coupling_grad
+    from glow_tts_tpu_torch.ops.coupling_grad import (
+        flow_stack_train, flow_stack_train_reference)
+    seed, worst = -20240229, 0.0
+    with torch.no_grad():
+        for rate in (FLOW_RATE, 0.0):
+            z_k, ld_k = flow_stack_train(x, mask, weights, seed=seed,
+                                         dropout_rate=rate)
+            z_p, ld_p = flow_stack_train_reference(x, mask, weights,
+                                                   seed=seed,
+                                                   dropout_rate=rate)
+            torch.cuda.synchronize()
+            z_rel, ld_rel = rel_err(z_k, z_p), rel_err(ld_k, ld_p)
+            line = (f'train forward kernel vs plain {tuple(x.shape)}, '
+                    f'{weights["w_in"].shape[0]} steps, rate {rate}: z max '
+                    f'abs err {(z_k - z_p).abs().max().item():.3e}, rel '
+                    f'{z_rel:.3e}; logdet rel {ld_rel:.3e}')
+            print(line)
+            assert torch.isfinite(z_k).all() and torch.isfinite(ld_k).all()
+            assert z_rel < TRAIN_Z_REL_BOUND, line
+            assert ld_rel < TRAIN_LD_REL_BOUND, line
+            worst = max(worst, (z_k - z_p).abs().max().item())
+
+        # the masks: with w_in = 0 and b_in = 1 the pre-gate sum is the keep
+        # factor, so a dropped element has tanh 0 and sigmoid 1/2 in what
+        # the backward pass's recompute leaves of the gate
+        probe = dict(weights, w_in=torch.zeros_like(weights['w_in']),
+                     b_in=torch.ones_like(weights['b_in']))
+        s_steps, n, k, ch, ch2 = weights['w_in'].shape
+        b, t, c = x.shape
+        step = s_steps - 5
+        saved = coupling_grad._saved_buffers(b * t, c, ch, n, x.device)
+        coupling_grad._recompute(
+            x, mask, None, [probe[key] for key in coupling_grad.WEIGHT_KEYS],
+            saved, step, coupling_grad._dropout_args(seed, FLOW_RATE))
+        ts = saved['ts']
+        kept_kernel = torch.cat([ts[..., :ch] != 0, ts[..., ch:] != 0.5],
+                                dim=-1).reshape(n, b, t, ch2)
+        kept_plain = torch.stack([
+            dropmask.stack_mask(seed, step, i, n, b, t, k, ch2, FLOW_RATE,
+                                x.device) != 0 for i in range(n)])
+        differing = (kept_kernel != kept_plain).sum().item()
+        dropped = 1.0 - kept_plain.float().mean().item()
+        print(f'dropout masks of flow step {step}, kernel vs plain: '
+              f'{differing} differing elements of {kept_plain.numel()} '
+              f'({100 * dropped:.3f} % dropped at rate {FLOW_RATE})')
+        assert differing == 0
+        assert abs(dropped - FLOW_RATE) < 2e-3
+    return worst
+
+
+def check_train_backward(x, mask, weights):
+    """Kernel #6 against autograd of the plain version: dx and every
+    weight gradient of a loss through z and the logdet; the last layer's
+    residual-half gradient exactly zero; two runs bit-equal."""
+    from glow_tts_tpu_torch.ops.coupling_grad import (
+        flow_stack_train, flow_stack_train_reference)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    dz = torch.randn(x.shape, generator=gen).to(x.device)
+    dld = (0.5 + torch.rand(x.shape[0], generator=gen)).to(x.device)
+
+    def gradients(fn):
+        leaves = {key: value.clone().requires_grad_()
+                  for key, value in weights.items()}
+        xl = x.clone().requires_grad_()
+        z, ld = fn(xl, mask, leaves, seed=SEED + 6, dropout_rate=FLOW_RATE)
+        (torch.sum(z * dz) + torch.sum(ld * dld)).backward()
+        torch.cuda.synchronize()
+        return {'x': xl.grad, **{key: leaf.grad
+                                 for key, leaf in leaves.items()}}
+
+    got, again = gradients(flow_stack_train), gradients(flow_stack_train)
+    ref = gradients(flow_stack_train_reference)
+    worst_abs, worst_rel, lines = 0.0, 0.0, []
+    for key, value in ref.items():
+        assert torch.isfinite(got[key]).all(), key
+        assert torch.equal(got[key], again[key]), f'd{key} differs by run'
+        rel = rel_err(got[key], value)
+        lines.append(f'd{key} {rel:.2e}')
+        assert rel < GRAD_REL_BOUND, (key, rel)
+        worst_rel = max(worst_rel, rel)
+        worst_abs = max(worst_abs, (got[key] - value).abs().max().item())
+    ch = weights['w_in'].shape[3]
+    assert (got['w_rs'][:, -1, :, :ch] == 0).all(), 'dead res half of dw_rs'
+    assert (got['b_rs'][:, -1, :ch] == 0).all(), 'dead res half of db_rs'
+    print(f'train backward kernel vs autograd of plain {tuple(x.shape)}, '
+          f'rate {FLOW_RATE}: worst gradient rel err {worst_rel:.3e} of '
+          f'its tensor\'s max-abs (bar {GRAD_REL_BOUND:.0e}); two runs '
+          f'bit-equal; last layer\'s residual-half gradient exactly 0')
+    print('  ' + ', '.join(lines))
+    return worst_abs
+
+
+def run_training(config, batch, device):
+    """The train path: ActNorm's data-dependent init, then ``TRAIN_STEPS``
+    train steps, through the kernels and, from the same initial weights,
+    seed and generator state, through the plain versions."""
+    from glow_tts_tpu_torch import (initial_state_dict, make_eval_step,
+                                    make_optimizer, make_train_step)
+    from glow_tts_tpu_torch.ops.coupling import flow_step, flow_step_reference
+    from glow_tts_tpu_torch.ops.coupling_grad import (
+        flow_stack_train, flow_stack_train_reference)
+    from glow_tts_tpu_torch.ops.mas import maximum_path, maximum_path_reference
+    state = initial_state_dict(config, SEED)
+    runs = {}
+    for name, step_fn, stack_fn, mas_fn in (
+            ('kernels', flow_step, flow_stack_train, maximum_path),
+            ('plain', flow_step_reference, flow_stack_train_reference,
+             maximum_path_reference)):
+        model = train_model(state, config, device)
+        eval_step = make_eval_step(config, model, step_fn=step_fn,
+                                   mas_fn=mas_fn)
+        train_step = make_train_step(
+            config, model, make_optimizer(config, model.parameters()),
+            seed=SEED,
+            generator=torch.Generator(device=device).manual_seed(SEED),
+            stack_fn=stack_fn, mas_fn=mas_fn)
+        # the path is the init and the steps; the eval between them (the
+        # loss before the steps) is not of the path and is not counted
+        zero_counts()
+        model.data_dependent_init(batch['mels'], batch['mel_lengths'],
+                                  step_fn=step_fn)
+        init_counts = read_counts()
+        before = eval_step(batch)[0]['total'].item()
+        zero_counts()
+        metrics = [train_step(batch) for _ in range(TRAIN_STEPS)]
+        step_counts = read_counts()
+        if name == 'kernels':
+            launches = {key: init_counts[key] + step_counts[key]
+                        for key in step_counts}
+        after = eval_step(batch)[0]['total'].item()
+        runs[name] = ([{key: value.item() for key, value in m.items()}
+                       for m in metrics], before, after)
+
+    steps = config.decoder.stack
+    print(f'train path, {TRAIN_STEPS} steps after the data-dependent init: '
+          f'launches {launches} ({steps} forward, {steps} recompute, '
+          f'{steps} x {BWD_KERNELS_PER_FLOW_STEP} backward kernels and 1 '
+          f'MAS expected per step, {steps} flow steps for the init)')
+    assert launches == {
+        'flow_step': steps, 'mas': TRAIN_STEPS,
+        'train_fwd': steps * TRAIN_STEPS,
+        'train_recompute': steps * TRAIN_STEPS,
+        'train_bwd': BWD_KERNELS_PER_FLOW_STEP * steps * TRAIN_STEPS}, launches
+    for i, (k, p) in enumerate(zip(runs['kernels'][0], runs['plain'][0])):
+        print(f'  step {i}: kernels total {k["total"]:.6f} mle '
+              f'{k["mle"]:.6f} duration {k["duration"]:.6f} grad_norm '
+              f'{k["grad_norm"]:.5f}; plain total {p["total"]:.6f} mle '
+              f'{p["mle"]:.6f} duration {p["duration"]:.6f} grad_norm '
+              f'{p["grad_norm"]:.5f}')
+        for key, bar in (('total', TRAIN_LOSS_REL_BOUND),
+                         ('mle', TRAIN_LOSS_REL_BOUND),
+                         ('duration', TRAIN_LOSS_REL_BOUND),
+                         ('grad_norm', TRAIN_NORM_REL_BOUND)):
+            assert np.isfinite(k[key]) and np.isfinite(p[key]), (i, key)
+            assert abs(k[key] - p[key]) <= bar * abs(p[key]), (i, key, k, p)
+    for name, (_, before, after) in runs.items():
+        print(f'  eval total on the batch before and after the steps, '
+              f'{name}: {before:.6f} -> {after:.6f}')
+        assert np.isfinite(after) and after < before, (name, before, after)
+    return launches
+
+
+def time_training(config, batch, x, mask, weights, device):
+    """The train step with kernels and with plain versions, its parts each
+    alone, the bounds of kernels #5 and #6 from this run's shapes, and a
+    profiler window over train steps."""
+    from glow_tts_tpu_torch import (make_optimizer, make_train_step,
+                                    random_state_dict)
+    from glow_tts_tpu_torch.models.layers import sequence_mask
+    from glow_tts_tpu_torch.ops.coupling_grad import (
+        flow_stack_train, flow_stack_train_reference)
+    from glow_tts_tpu_torch.ops.mas import maximum_path_reference
+    state = random_state_dict(config, SEED)
+
+    def stepper(stack_fn=None, mas_fn=None):
+        model = train_model(state, config, device)
+        model.data_dependent_init(batch['mels'], batch['mel_lengths'])
+        kwargs = {key: value for key, value in (
+            ('stack_fn', stack_fn), ('mas_fn', mas_fn)) if value is not None}
+        optimizer = make_optimizer(config, model.parameters())
+        step = make_train_step(
+            config, model, optimizer, seed=SEED,
+            generator=torch.Generator(device=device).manual_seed(SEED),
+            **kwargs)
+        return model, optimizer, step
+
+    model, optimizer, step_k = stepper()
+    _, _, step_p = stepper(flow_stack_train_reference, maximum_path_reference)
+    k_ms, p_ms = paired_ms(lambda: step_k(batch), lambda: step_p(batch),
+                           iters=3, plain_iters=2, plain_warmup=1)
+    shape = tuple(batch['mels'].shape)
+    print(f'train step {shape}: kernels {k_ms:.3f} ms, plain versions '
+          f'{p_ms:.2f} ms')
+
+    # the flow alone, forward and backward, kernels and plain
+    gen = torch.Generator().manual_seed(SEED + 7)
+    dz = torch.randn(x.shape, generator=gen).to(device)
+    dld = torch.ones(x.shape[0], device=device)
+    times = {}
+    for name, fn, iters in (('kernel', flow_stack_train, 3),
+                            ('plain', flow_stack_train_reference, 2)):
+        leaves = {key: value.clone().requires_grad_()
+                  for key, value in weights.items()}
+        xl = x.clone().requires_grad_()
+        inputs = [xl, *leaves.values()]
+
+        def forward():
+            return fn(xl, mask, leaves, seed=SEED, dropout_rate=FLOW_RATE)
+
+        with torch.no_grad():
+            fwd_ms = cuda_ms(forward, iters, 1)
+        z, ld = forward()
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            (z, ld), inputs, (dz, dld), retain_graph=True), iters, 1)
+        times[name] = (fwd_ms, bwd_ms)
+        del z, ld
+    s_steps = weights['w_in'].shape[0]
+    per_step = {key: value[0] for key, value in weights.items()}
+    frame_flops = step_frame_flops(per_step)
+    flops = frame_flops * mask.sum().item()
+    weight_count = sum(value.numel() for value in per_step.values())
+    fwd_bound = bound(4 * (2 * x.numel() + mask.numel() + x.shape[0]
+                           + weight_count), flops)
+    # the step's input, the cotangents in and out, weights in, gradients
+    # out; recompute, dgrad and wgrad are each the forward's operations
+    # (the recompute is work the design chose over storing activations)
+    bwd_bound = bound(4 * (3 * x.numel() + mask.numel() + x.shape[0]
+                           + 2 * weight_count), 3 * flops)
+    for label, (fwd_ms, bwd_ms) in times.items():
+        print(f'flow stack {tuple(x.shape)}, {s_steps} steps, rate '
+              f'{FLOW_RATE}, {label}: forward {fwd_ms:.3f} ms '
+              f'({fwd_ms / s_steps:.4f} per step), backward {bwd_ms:.3f} ms '
+              f'({bwd_ms / s_steps:.4f} per step)')
+    k_fwd, k_bwd = (value / s_steps for value in times['kernel'])
+    print(f'  per flow step: forward {flops / k_fwd / 1e9:.2f} TFLOP/s, bound '
+          f'{fwd_bound[0]:.4f} ms by {fwd_bound[1]}; backward '
+          f'{3 * flops / k_bwd / 1e9:.2f} TFLOP/s over recompute, dgrad and '
+          f'wgrad, bound {bwd_bound[0]:.4f} ms by {bwd_bound[1]}')
+
+    # the other parts of a train step, each alone
+    tokens = batch['tokens']
+    token_mask = sequence_mask(batch['token_lengths'], tokens.shape[1])
+    encoder = model.layer_Dict['Encoder']
+    decoder = model.layer_Dict['Decoder']
+    enc_gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def encoder_both():
+        outs = encoder(tokens, token_mask, False, enc_gen)
+        sum(out.sum() for out in outs).backward()
+
+    def pack_both():
+        packed = decoder.pack_train()
+        sum(value.sum() for value in packed.values()).backward()
+
+    parts = {'encoder forward + backward': encoder_both,
+             'weight pack forward + backward': pack_both,
+             'optimiser update': optimizer.step}
+    profile_window('train steps', lambda: step_k(batch), 5, warmup=2)
+    for name, fn in parts.items():
+        print(f'  train part, {name}: {cuda_ms(fn, 5):.4f} ms')
+    return ({'ms': k_fwd, 'plain_ms': times['plain'][0] / s_steps,
+             'bound_ms': fwd_bound[0], 'bound_by': fwd_bound[1]},
+            {'ms': k_bwd, 'plain_ms': times['plain'][1] / s_steps,
+             'bound_ms': bwd_bound[0], 'bound_by': bwd_bound[1]})
 
 
 def main():
@@ -550,7 +900,7 @@ def main():
     from glow_tts_tpu_torch import (Inferencer, TrainCollater,
                                     batch_to_device, initial_state_dict,
                                     load_config, random_state_dict)
-    from glow_tts_tpu_torch.ops import coupling, mas
+    from glow_tts_tpu_torch.ops import coupling, coupling_grad, cuda_build, mas
     from glow_tts_tpu_torch.text import Tokenizer, text_filtering
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -560,13 +910,19 @@ def main():
     print(f'card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}')
 
     start = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:      # one nvcc per source, together
+    with ThreadPoolExecutor(4) as pool:      # one nvcc per source, together
         builds = [pool.submit(coupling.load_flow_step_library),
-                  pool.submit(mas.load_mas_library)]
+                  pool.submit(mas.load_mas_library),
+                  pool.submit(coupling_grad.load_train_forward_library),
+                  pool.submit(coupling_grad.load_train_backward_library)]
         for build in builds:
             build.result()
-    print(f'flow-step and MAS kernels built and loaded in '
+    print(f'four kernel libraries built and loaded in '
           f'{time.perf_counter() - start:.1f} s')
+    for source in ('flow_step.cu', 'mas.cu', 'flow_train_fwd.cu',
+                   'flow_train_bwd.cu'):
+        for line in cuda_build.ptxas_report(source):
+            print(f'  ptxas {line}')
 
     config = load_config(CONFIG)
     inferencer = Inferencer(random_state_dict(config, SEED), config, device,
@@ -597,24 +953,53 @@ def main():
     live.data_dependent_init(batches[0]['mels'], batches[0]['mel_lengths'])
     compare_eval('live couplings', live, batches[1], config)
 
+    # the train path: kernels #5 and #6 against the plain version on the
+    # operands of a train step, then the steps themselves
+    trainee = train_model(random_state_dict(config, SEED), config, device)
+    trainee.data_dependent_init(batches[0]['mels'], batches[0]['mel_lengths'])
+    x, mask, weights = stack_problem(trainee, batches[0], config)
+    del trainee
+    fwd_err = check_train_forward(x, mask, weights)
+    bwd_err = check_train_backward(x, mask, weights)
+    train_launches = run_training(config, batches[0], device)
+
     flow_times = time_all(inferencer, prior_1024, device)
     mas_times, eval_step = time_eval(model, batches[0], config, device)
-    profile_eval(eval_step, batches[0])
+    fwd_times, bwd_times = time_training(config, batches[0], x, mask,
+                                         weights, device)
+    profile_window('eval steps', lambda: eval_step(batches[0]), 3)
+
+    by_path = {'serve': serve_launches, 'eval': eval_launches,
+               'train': train_launches}
+
+    def launches(counter):
+        paths = {path: counts[counter] for path, counts in by_path.items()}
+        return {'launches': sum(paths.values()), 'launches_by_path': paths}
 
     print(json.dumps({'kernels': [
         {'name': 'flow_step', 'route': 'cuda',
          'source': 'glow_tts_tpu_torch/csrc/flow_step.cu',
          'replaces': 'glow_tts_tpu/ops/coupling.py:190',
-         'launches': serve_launches + eval_launches[0],
-         'launches_by_path': {'serve': serve_launches,
-                              'eval': eval_launches[0]},
+         **launches('flow_step'),
          'max_abs_err': worst, **flow_times, 'library_ms': None},
         {'name': 'mas', 'route': 'cuda',
          'source': 'glow_tts_tpu_torch/csrc/mas.cu',
          'replaces': 'glow_tts_tpu/ops/mas.py:147',
-         'launches': eval_launches[1],
-         'launches_by_path': {'serve': 0, 'eval': eval_launches[1]},
-         'max_abs_err': mas_err, **mas_times, 'library_ms': None}]}))
+         **launches('mas'),
+         'max_abs_err': mas_err, **mas_times, 'library_ms': None},
+        {'name': 'flow_train_fwd', 'route': 'cuda',
+         'source': 'glow_tts_tpu_torch/csrc/flow_train_fwd.cu',
+         'replaces': 'glow_tts_tpu/ops/coupling_grad.py:97',
+         **launches('train_fwd'),
+         'max_abs_err': fwd_err, **fwd_times, 'library_ms': None},
+        # one backward call per flow step: flow_train_fwd.cu's saving
+        # instantiation once (the recompute), then this source's kernels
+        {'name': 'flow_train_bwd', 'route': 'cuda',
+         'source': 'glow_tts_tpu_torch/csrc/flow_train_bwd.cu',
+         'replaces': 'glow_tts_tpu/ops/coupling_grad.py:195',
+         **launches('train_bwd'),
+         'recompute_launches': launches('train_recompute')['launches'],
+         'max_abs_err': bwd_err, **bwd_times, 'library_ms': None}]}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-"""glow_tts_tpu_torch — Glow-TTS in PyTorch: Vanilla serving and the
-loss/eval path, with the decoder's flow step and the monotonic alignment
-search as CUDA kernels for Hopper (H100).
+"""glow_tts_tpu_torch — Glow-TTS in PyTorch: Vanilla serving, the
+loss/eval path and the train step, with the decoder's flow step, the
+monotonic alignment search and the train-direction flow stack (forward and
+backward) as CUDA kernels for Hopper (H100).
 
 The port of ``glow_tts_tpu`` (JAX), which stays beside it as the
 reference: same layouts at the public functions ([B, T, C]), same
@@ -13,11 +14,13 @@ from glow_tts_tpu_torch.data.collate import TrainCollater
 from glow_tts_tpu_torch.inference import Inferencer
 from glow_tts_tpu_torch.models.glow_tts import (GlowTTS, initial_state_dict,
                                                 random_state_dict)
+from glow_tts_tpu_torch.training.optim import make_optimizer
 from glow_tts_tpu_torch.training.step import (attention_diagonality,
                                               batch_to_device, build_model,
-                                              make_eval_step)
+                                              make_eval_step,
+                                              make_train_step)
 
 __all__ = ['Config', 'GlowTTS', 'Inferencer', 'TrainCollater',
            'attention_diagonality', 'batch_to_device', 'build_model',
            'initial_state_dict', 'load_config', 'make_eval_step',
-           'random_state_dict']
+           'make_optimizer', 'make_train_step', 'random_state_dict']

@@ -3,9 +3,10 @@
 It loads the same YAML schema as ``glow_tts_tpu.config.load_config``
 (``configs/Hyper_Parameters.yaml``) and exposes the same attribute names
 (``config.encoder.channels``, ``config.decoder.affine_coupling`` …), so
-either object drives the port.  Only the fields of Vanilla-mode serving
-and of the loss/eval path are kept; unknown keys are ignored, as there.  A CPU test holds every
-field against ``glow_tts_tpu.config`` on the same input.
+either object drives the port.  Only the fields of Vanilla-mode serving,
+of the loss/eval path and of the train step (dropout rates, optimiser) are
+kept; unknown keys are ignored, as there.  A CPU test holds every field
+against ``glow_tts_tpu.config`` on the same input.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ class SoundConfig:
 @dataclass(frozen=True)
 class PrenetConfig:
     kernel_size: int = 5
+    dropout_rate: float = 0.5
     stacks: int = 3
 
 
@@ -45,6 +47,7 @@ class TransformerConvConfig:
 class TransformerConfig:
     attention: AttentionConfig = field(default_factory=AttentionConfig)
     conv: TransformerConvConfig = field(default_factory=TransformerConvConfig)
+    dropout_rate: float = 0.1
     stacks: int = 6
 
 
@@ -53,6 +56,7 @@ class DurationPredictorConfig:
     kernel_size: int = 3
     channels: int = 256
     stacks: int = 2
+    dropout_rate: float = 0.1
 
 
 @dataclass(frozen=True)
@@ -69,6 +73,7 @@ class EncoderConfig:
 class WaveNetConfig:
     num_layers: int = 4
     kernel_size: int = 5
+    dropout_rate: float = 0.05
 
 
 @dataclass(frozen=True)
@@ -87,8 +92,26 @@ class DecoderConfig:
 
 
 @dataclass(frozen=True)
+class LearningRateConfig:
+    initial: float = 1.0e-3
+    base: int = 4000
+
+
+@dataclass(frozen=True)
+class AdamConfig:
+    beta1: float = 0.9
+    beta2: float = 0.999
+    epsilon: float = 1.0e-6
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     batch_size: int = 32
+    learning_rate: LearningRateConfig = field(
+        default_factory=LearningRateConfig)
+    adam: AdamConfig = field(default_factory=AdamConfig)
+    weight_decay: float = 1.0e-6
+    gradient_norm: float = 5.0
 
 
 @dataclass(frozen=True)
@@ -129,7 +152,8 @@ def _coerce(cls: type, data: Optional[Mapping]) -> Any:
 _SECTIONS = {cls.__name__: cls for cls in (
     SoundConfig, PrenetConfig, AttentionConfig, TransformerConvConfig,
     TransformerConfig, DurationPredictorConfig, EncoderConfig, WaveNetConfig,
-    AffineCouplingConfig, DecoderConfig, TrainConfig)}
+    AffineCouplingConfig, DecoderConfig, LearningRateConfig, AdamConfig,
+    TrainConfig)}
 
 
 def load_config(path_or_dict) -> Config:

@@ -1,13 +1,20 @@
 """Normalizing-flow mel decoder: squeeze → [ActNorm → invertible 1×1 →
 WaveNet affine coupling] × K → unsqueeze (port of
-``glow_tts_tpu/models/decoder.py``, deterministic path, and ActNorm's
-data-dependent initialisation).
+``glow_tts_tpu/models/decoder.py``, ActNorm's data-dependent
+initialisation included).
 
-Each flow step runs as one call of ``ops.coupling.flow_step``: the CUDA
-kernel on the card, its plain version on the CPU.  The modules here hold
-the reference's parameters under its state-dict names; :meth:`FlowStep.
-pack` turns them, once per loaded checkpoint, into the kernel's weight
-dict (``glow_tts_tpu/models/decoder.py::FlowStep._fused_params``).
+Deterministic (serving, evaluation): each flow step runs as one call of
+``ops.coupling.flow_step``, the CUDA kernel on the card, its plain version
+on the CPU.  The modules here hold the reference's parameters under its
+state-dict names; :meth:`FlowStep.pack` turns them, without gradients, into
+the kernel's weight dict
+(``glow_tts_tpu/models/decoder.py::FlowStep._fused_params``).
+
+Training (``deterministic=False``): the whole stack runs as one call of
+``ops.coupling_grad.flow_stack_train`` (forward and hand-written backward
+kernels on the card) on weights that :meth:`FlowDecoder.pack_train` stacks
+over the flow steps *with* autograd through weight norm, the 4×4 mixing
+weight and ActNorm (``FlowDecoder._mega_train`` there).
 """
 
 from __future__ import annotations
@@ -18,10 +25,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from glow_tts_tpu_torch.models.layers import Conv1d, WNConv1d, masked
+from glow_tts_tpu_torch.models.layers import (
+    Conv1d, WNConv1d, masked, stacked_effective_weights)
 from glow_tts_tpu_torch.ops.coupling import flow_step
+from glow_tts_tpu_torch.ops.coupling_grad import flow_stack_train
 
 FlowStepFn = Callable[..., Tuple[torch.Tensor, Optional[torch.Tensor]]]
+FlowStackFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 
 
 def squeeze(x: torch.Tensor, mask: torch.Tensor, num_squeeze: int):
@@ -187,14 +197,21 @@ class FlowStep(nn.Module):
             for direction, weights in packed.items()}
         self._b_in = self._b_in.detach().float().contiguous()
 
+    def invalidate(self) -> None:
+        """Forget the packed weights: the parameters have changed."""
+        self._packed = self._b_in = None
+
     def weights(self, reverse: bool) -> Dict[str, torch.Tensor]:
+        """The packed weights of one direction, packed now if the
+        parameters changed since (:meth:`invalidate`)."""
         if self._packed is None:
-            raise RuntimeError('FlowStep.pack() must run after the weights '
-                               'are loaded (GlowTTS.prepare() does it)')
+            self.pack()
         return self._packed[reverse]
 
     def cond(self, batch: int) -> torch.Tensor:
         """Per-layer, per-sample bias ``[n, B, 2ch]``."""
+        if self._b_in is None:
+            self.pack()
         n, ch2 = self._b_in.shape
         return self._b_in[:, None, :].expand(n, batch, ch2).contiguous()
 
@@ -211,12 +228,77 @@ class FlowDecoder(nn.Module):
     def __init__(self, config):
         super().__init__()
         self.num_squeeze = config.decoder.num_squeeze
+        self.dropout_rate = config.decoder.affine_coupling.wavenet.dropout_rate
         self.layer_Dict = nn.ModuleDict({'Flows': nn.ModuleList([
             FlowStep(config) for _ in range(config.decoder.stack)])})
 
     def pack(self) -> None:
         for step in self.layer_Dict['Flows']:
             step.pack()
+
+    def invalidate(self) -> None:
+        """Call after the parameters changed (an optimiser update): the
+        deterministic path packs again at its next use."""
+        for step in self.layer_Dict['Flows']:
+            step.invalidate()
+
+    def pack_train(self) -> Dict[str, torch.Tensor]:
+        """The forward weights of every step in the train kernels' layout,
+        stacked along a leading flow axis (``ops.coupling_grad.
+        weight_shapes``, ``b_in`` under its own key, plus ``ld_const
+        [S]``), contiguous float32, with autograd through weight norm, the
+        mixing weight and ActNorm down to the parameters.  Each kind of
+        tensor is computed for all steps at once: a few dozen launches
+        instead of a few dozen per step."""
+        steps = list(self.layer_Dict['Flows'])
+        actnorms, invconvs, couplings = zip(*(step.layers for step in steps))
+        wavenets = [c.layer_Dict['WaveNet'] for c in couplings]
+        n = wavenets[0].num_layers
+
+        def conv(name):
+            return stacked_effective_weights(
+                [wn.layer_Dict[name] for wn in wavenets])
+
+        w_in, b_in, w_rs, b_rs = [], [], [], []
+        for i in range(n):
+            w, b = conv(f'In_{i}')                       # [S, 2ch, ch, k]
+            w_in.append(w.permute(0, 3, 2, 1))           # [S, k, ch, 2ch]
+            b_in.append(b)
+            w, b = conv(f'Res_Skip_{i}')
+            w = w[..., 0].transpose(1, 2)                # [S, ch, 2ch | ch]
+            if i == n - 1:
+                # uniform [ch, 2ch]: the last layer feeds the skip half only
+                w = torch.cat([torch.zeros_like(w), w], dim=2)
+                b = torch.cat([torch.zeros_like(b), b], dim=1)
+            w_rs.append(w)
+            b_rs.append(b)
+        w_start, b_start = stacked_effective_weights(
+            [c.layer_Dict['Start'] for c in couplings])
+        ends = [c.layer_Dict['End'] for c in couplings]
+
+        c = actnorms[0].logs.shape[1]
+        logs = torch.stack([a.logs.reshape(c) for a in actnorms])
+        mix_w = torch.stack([inv.weight for inv in invconvs])    # [S, s, s]
+        group = invconvs[0]._group.to(mix_w.device)
+        member = invconvs[0]._member.to(mix_w.device)
+        mixing = (mix_w[:, group[:, None], group[None, :]]
+                  * (member[:, None] == member[None, :]))       # [S, out, in]
+        logabsdet = torch.linalg.slogdet(mix_w)[1]
+        weights = {
+            'an_logs': logs,
+            'an_bias': torch.stack([a.bias.reshape(c) for a in actnorms]),
+            'mix_t': mixing.transpose(1, 2),
+            'w_start': w_start[..., 0].transpose(1, 2), 'b_start': b_start,
+            'w_in': torch.stack(w_in, dim=1), 'b_in': torch.stack(b_in, dim=1),
+            'w_rs': torch.stack(w_rs, dim=1), 'b_rs': torch.stack(b_rs, dim=1),
+            'w_end': torch.stack([e.weight[:, :, 0] for e in ends]
+                                 ).transpose(1, 2),
+            'b_end': torch.stack([e.bias for e in ends]),
+            'ld_const': (logs.sum(dim=1)
+                         + logabsdet * (c / invconvs[0].num_split)),
+        }
+        return {key: value.float().contiguous()
+                for key, value in weights.items()}
 
     @torch.no_grad()
     def data_dependent_init(self, x, mask,
@@ -232,11 +314,23 @@ class FlowDecoder(nn.Module):
             x, _ = step(x, sq_mask, False, step_fn)
 
     def forward(self, x, mask, reverse: bool = False,
-                step_fn: FlowStepFn = flow_step):
-        """x [B, T, M]; mask [B, T, 1].  ``step_fn`` is the flow-step
-        function (the kernel wrapper unless a caller compares it with the
-        plain version).  Returns (x, logdet [B] or None, mask)."""
+                step_fn: FlowStepFn = flow_step, deterministic: bool = True,
+                seed: Optional[int] = None,
+                stack_fn: FlowStackFn = flow_stack_train):
+        """x [B, T, M]; mask [B, T, 1].  ``step_fn`` and ``stack_fn`` are
+        the kernels' wrappers unless a caller compares them with the plain
+        versions.  ``deterministic=False`` (forward only) is the
+        differentiable train route with WaveNet dropout drawn from the
+        int32 ``seed``.  Returns (x, logdet [B] or None, mask)."""
         x, sq_mask = squeeze(x, mask, self.num_squeeze)
+        if not deterministic:
+            if reverse or seed is None:
+                raise ValueError('the train route runs forward and needs '
+                                 'a seed')
+            x, logdet = stack_fn(x, sq_mask, self.pack_train(), None, None,
+                                 seed=seed, dropout_rate=self.dropout_rate)
+            x, out_mask = unsqueeze(x, sq_mask, self.num_squeeze)
+            return x, logdet, out_mask
         steps = list(self.layer_Dict['Flows'])
         logdet = None if reverse else torch.zeros(
             x.shape[0], device=x.device)

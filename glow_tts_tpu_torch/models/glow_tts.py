@@ -1,7 +1,8 @@
 """Glow-TTS, Vanilla mode (port of ``glow_tts_tpu/models/glow_tts.py``):
-the train forward that the loss and eval path runs
-(:meth:`GlowTTS.forward`: encoder prior, forward flow with its logdet,
-prior log-likelihood, MAS) and two-phase serving.
+the train forward (:meth:`GlowTTS.forward`: encoder prior, forward flow
+with its logdet, prior log-likelihood, MAS), deterministic for the loss
+and eval path and with dropout and gradients for the train step, and
+two-phase serving.
 
 Serving has two phases, as the JAX package serves: :meth:`GlowTTS.inference_prior`
 does the token-length work (encoder prior, ceiled durations), the host
@@ -18,12 +19,13 @@ import torch
 from torch import nn
 
 from glow_tts_tpu_torch.models.decoder import (
-    ActNorm, FlowDecoder, FlowStepFn, InvertibleConv)
+    ActNorm, FlowDecoder, FlowStackFn, FlowStepFn, InvertibleConv)
 from glow_tts_tpu_torch.models.encoder import TextEncoder
 from glow_tts_tpu_torch.models.layers import (
     Conv1d, RelativePositionMultiHeadAttention, WNConv1d, fold_weight_norm,
     sequence_mask)
 from glow_tts_tpu_torch.ops.coupling import flow_step
+from glow_tts_tpu_torch.ops.coupling_grad import flow_stack_train
 from glow_tts_tpu_torch.ops.mas import maximum_path
 
 LOG_2PI = 1.8378770664093453  # log(2π)
@@ -67,34 +69,45 @@ class GlowTTS(nn.Module):
             'Decoder': FlowDecoder(config)})
 
     @torch.no_grad()
-    def prepare(self) -> 'GlowTTS':
-        """Fix the loaded weights for serving: fold weight norm and pack
-        the flow-step kernel weights on the model's device.  Run after
-        ``load_state_dict`` and ``.to(device)``."""
-        fold_weight_norm(self)
+    def prepare(self, fold: bool = True) -> 'GlowTTS':
+        """Fix the loaded weights: fold weight norm (serving, evaluation)
+        or keep ``weight_g``/``weight_v`` live (``fold=False``, training),
+        and pack the flow-step kernel weights on the model's device.  Run
+        after ``load_state_dict`` and ``.to(device)``."""
+        fold_weight_norm(self, fold)
         self.layer_Dict['Decoder'].pack()
         return self.eval()
 
     def forward(self, tokens: torch.Tensor, token_lengths: torch.Tensor,
                 mels: torch.Tensor, mel_lengths: torch.Tensor,
                 step_fn: FlowStepFn = flow_step,
-                mas_fn: MasFn = maximum_path) -> Dict[str, torch.Tensor]:
-        """The train forward, deterministic (no dropout): tokens
-        [B, T_tok] int, mels [B, T_mel, M], lengths [B] int (mel lengths
-        multiples of ``num_squeeze``).  MAS runs on detached statistics and
-        is not differentiated through.  ``step_fn`` and ``mas_fn`` are the
-        kernels' wrappers unless a caller compares them with their plain
-        versions.  The flow-step kernel has no backward yet, so on the
-        card this runs under ``torch.no_grad()``."""
+                mas_fn: MasFn = maximum_path, deterministic: bool = True,
+                seed: Optional[int] = None,
+                generator: Optional[torch.Generator] = None,
+                stack_fn: FlowStackFn = flow_stack_train
+                ) -> Dict[str, torch.Tensor]:
+        """The train forward: tokens [B, T_tok] int, mels [B, T_mel, M],
+        lengths [B] int (mel lengths multiples of ``num_squeeze``).  MAS
+        runs on detached statistics and is not differentiated through.
+        ``step_fn``, ``stack_fn`` and ``mas_fn`` are the kernels' wrappers
+        unless a caller compares them with their plain versions.
+
+        Deterministic (the default) there is no dropout and the flow runs
+        step by step through ``step_fn``, which has no backward: on the
+        card that is for ``torch.no_grad()``.  ``deterministic=False`` is
+        the train step's forward: encoder dropout from ``generator`` (on
+        the tensors' device), the flow through ``stack_fn`` with WaveNet
+        dropout from the int32 ``seed``, differentiable throughout."""
         token_lengths = token_lengths.to(torch.int32)
         mel_lengths = mel_lengths.to(torch.int32)
         token_mask = sequence_mask(token_lengths, tokens.shape[1])
         mel_mask = sequence_mask(mel_lengths, mels.shape[1])
 
         mean, log_std, log_durations = self.layer_Dict['Encoder'](
-            tokens, token_mask)
+            tokens, token_mask, deterministic, generator)
         z, log_dets, mel_mask = self.layer_Dict['Decoder'](
-            mels, mel_mask, step_fn=step_fn)
+            mels, mel_mask, step_fn=step_fn, deterministic=deterministic,
+            seed=seed, stack_fn=stack_fn)
 
         attn_mask = token_mask * mel_mask[:, None, :, 0]    # [B,T_tok,T_mel]
         with torch.no_grad():

@@ -4,13 +4,15 @@ function, as in ``glow_tts_tpu/models/layers.py``.
 Parameters carry the reference's state-dict names and torch layouts
 (conv weight ``[out, in, k]``), the names ``glow_tts_tpu/utils/
 torch_export.py`` writes, so an exported checkpoint loads with
-``strict=True``.  Serving is deterministic: dropout is the identity and
-is not modelled.
+``strict=True``.  Dropout (:class:`Dropout`) is live only on the train
+path (``deterministic=False``) and draws from a ``torch.Generator`` the
+caller hands down; serving and evaluation are deterministic.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +30,32 @@ def sequence_mask(lengths: torch.Tensor, max_length: int,
     """[B] lengths → [B, T, 1] mask."""
     frames = torch.arange(max_length, device=lengths.device)
     return (frames[None, :] < lengths[:, None])[..., None].to(dtype)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout whose mask comes from an explicit generator: drop
+    each element with probability ``rate`` and scale the kept ones by
+    ``1/(1 − rate)``.  The identity when ``deterministic`` or at rate 0.
+    The contract is statistical (rate, scale, the same stream from the
+    same generator state), as ``glow_tts_tpu.models.layers.FastDropout``'s
+    is; the bits differ from JAX's."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f'dropout rate must be in [0, 1), got {rate}')
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if deterministic or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError('Dropout needs a torch.Generator on the '
+                             "tensor's device when it is not deterministic")
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) >= self.rate
+        return x * keep.to(x.dtype) * (1.0 / (1.0 - self.rate))
 
 
 class Conv1d(nn.Module):
@@ -82,22 +110,48 @@ class WNConv1d(nn.Module):
         self.folded = None
         self.folded = self.effective_weight().detach().clone()
 
+    def unfold(self) -> None:
+        """Back to ``weight_g``/``weight_v``, as training needs them."""
+        self.folded = None
 
-def fold_weight_norm(module: nn.Module) -> None:
-    """Fold weight norm into every :class:`WNConv1d` below ``module``."""
+
+def stacked_effective_weights(convs: Sequence[WNConv1d]
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The effective kernels ``[S, out, in, k]`` and biases ``[S, out]`` of
+    ``S`` unfolded convs of one shape, differentiable down to each conv's
+    ``weight_g``/``weight_v``: the arithmetic of
+    :meth:`WNConv1d.effective_weight` in one pass over the stack instead of
+    one per conv."""
+    if any(conv.folded is not None for conv in convs):
+        raise RuntimeError('weight norm is folded: the train path needs '
+                           'weight_g/weight_v live (GlowTTS.prepare('
+                           'fold=False))')
+    g = torch.stack([conv.weight_g for conv in convs])
+    v = torch.stack([conv.weight_v for conv in convs])
+    norm = v.pow(2).sum(dim=(2, 3), keepdim=True).sqrt()
+    return (g * v / norm.clamp_min(1e-12),
+            torch.stack([conv.bias for conv in convs]))
+
+
+def fold_weight_norm(module: nn.Module, fold: bool = True) -> None:
+    """Fold weight norm into every :class:`WNConv1d` below ``module``, or
+    drop the folded kernels again (``fold=False``)."""
     for sub in module.modules():
         if isinstance(sub, WNConv1d):
-            sub.fold()
+            sub.fold() if fold else sub.unfold()
 
 
 class RelativePositionMultiHeadAttention(nn.Module):
     """Self-attention with window-clipped relative position embeddings
     shared across heads (reference ``RPR_MHA.py``; JAX
-    ``layers.py:340-472``, deterministic path)."""
+    ``layers.py:340-472``); dropout on the attention weights when not
+    deterministic."""
 
-    def __init__(self, channels: int, num_heads: int, window_size: int):
+    def __init__(self, channels: int, num_heads: int, window_size: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = Dropout(dropout_rate)
         d = channels // num_heads
         self.layer_Dict = nn.ModuleDict({
             name: Conv1d(channels, channels, 1)
@@ -105,7 +159,9 @@ class RelativePositionMultiHeadAttention(nn.Module):
         self.weight_K = nn.Parameter(torch.empty(1, 2 * window_size + 1, d))
         self.weight_V = nn.Parameter(torch.empty(1, 2 * window_size + 1, d))
 
-    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor):
+    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         """x [B, T, C]; attn_mask [B, 1, T, T] (1 = attend).
         Returns (out [B, T, C], alignments [B, H, T, T])."""
         b, t, c = x.shape
@@ -126,7 +182,8 @@ class RelativePositionMultiHeadAttention(nn.Module):
         scores = (q @ k.transpose(-1, -2)
                   + torch.einsum('bhqd,qkd->bhqk', q, skew_k)) * scale
         scores = scores.masked_fill(attn_mask == 0, -1e4)
-        alignments = torch.softmax(scores, dim=-1)
+        alignments = self.dropout(torch.softmax(scores, dim=-1),
+                                  deterministic, generator)
 
         skew_v = attn_ops.skewed_relative_table(
             attn_ops.clip_relative_embedding(self.weight_V, t), t)[0]

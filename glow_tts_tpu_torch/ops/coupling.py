@@ -116,8 +116,9 @@ def flow_step(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
     if torch.is_grad_enabled() and any(
             tensor.requires_grad for tensor in (x, cond, *weights.values())):
         raise RuntimeError(
-            'flow_step: the CUDA kernel has no backward yet; run it under '
-            'torch.no_grad() or on detached tensors')
+            'flow_step: the CUDA kernel has no backward; run it under '
+            'torch.no_grad() or on detached tensors, or train through '
+            'ops.coupling_grad.flow_stack_train')
     b, t, c = x.shape
     n, k, ch, ch2 = weights['w_in'].shape
     got = {'channels': c, 'ch': ch, 'n_layers': n, 'kernel_size': k}

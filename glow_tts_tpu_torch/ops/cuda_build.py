@@ -3,18 +3,22 @@ C interface, and load it with ctypes.
 
 The library is compiled with ``nvcc`` for Hopper (``sm_90a``) at first use
 and kept in ``glow_tts_tpu_torch/_build/`` under a name that carries a hash
-of the source and the flags, so an edited source is never served stale.
+of the source, of the headers beside it (``csrc/*.cuh``) and of the flags,
+so an edited source is never served stale.
 Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
+from typing import List
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(PACKAGE_DIR, '_build')
@@ -32,6 +36,19 @@ def nvcc_path() -> str:
     raise RuntimeError('nvcc not found: set CUDA_HOME to the CUDA toolkit')
 
 
+def library_path(source: str) -> str:
+    """Where the build of ``csrc/<source>`` as it stands now lives."""
+    src_path = os.path.join(PACKAGE_DIR, 'csrc', source)
+    hashed = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    headers = sorted(glob.glob(os.path.join(PACKAGE_DIR, 'csrc', '*.cuh')))
+    for path in [src_path, *headers]:
+        with open(path, 'rb') as f:
+            hashed.update(f.read())
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR,
+                        f'lib{stem}-{hashed.hexdigest()[:12]}.so')
+
+
 def load_library(source: str) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` unless a build of the same content
     exists, and load it.  The compiler's ``-Xptxas -v`` report (registers,
@@ -39,11 +56,7 @@ def load_library(source: str) -> ctypes.CDLL:
     ``.log``.  Concurrent first builds are safe: each compiles to its own
     temporary file and the rename is atomic."""
     src_path = os.path.join(PACKAGE_DIR, 'csrc', source)
-    with open(src_path, 'rb') as f:
-        digest = hashlib.sha256(
-            f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    stem = os.path.splitext(source)[0]
-    lib_path = os.path.join(BUILD_DIR, f'lib{stem}-{digest}.so')
+    lib_path = library_path(source)
     if not os.path.exists(lib_path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
@@ -58,3 +71,23 @@ def load_library(source: str) -> ctypes.CDLL:
                 f'nvcc failed on {source}:\n{proc.stderr[-4000:]}')
         os.replace(tmp, lib_path)
     return ctypes.CDLL(lib_path)
+
+
+def ptxas_report(source: str) -> List[str]:
+    """One line per kernel of a built ``csrc/<source>``: its (mangled) name
+    without the file's prefix, then registers, barriers, shared memory and
+    spills as ``ptxas -v`` printed them into the build's ``.log``."""
+    with open(library_path(source)[:-3] + '.log', encoding='utf-8') as f:
+        text = f.read()
+    lines, name, spills = [], '?', ''
+    for line in text.splitlines():
+        if 'Compiling entry function' in line:
+            mangled = re.search(r"'(\w+)'", line).group(1)
+            name = re.sub(r'^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}', '',
+                          mangled)[:80]
+        elif 'spill' in line:
+            spills = line.strip()
+        elif 'Used' in line:
+            used = line.split(':', 1)[1].strip()
+            lines.append(f'{source} {name}: {used}; {spills}')
+    return lines

@@ -1,21 +1,25 @@
-"""The loss and eval path (port of ``glow_tts_tpu/training/step.py``,
-Vanilla terms): model construction, the loss dict, the eval step and the
-alignment-health metric the evaluation reports beside the losses.  The
-train step (gradients, optimiser, dropout) is not ported yet.
+"""The train step and the loss/eval path (port of
+``glow_tts_tpu/training/step.py``, Vanilla terms): model construction, the
+loss dict, the train step (forward with dropout → MAS → losses → backward
+→ clip → RAdam/Noam update), the eval step and the alignment-health
+metric the evaluation reports beside the losses.  The alignment-warmup
+variants of the step and the decoder freeze are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Tuple, Union
+from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from glow_tts_tpu_torch.models.decoder import FlowStepFn
+from glow_tts_tpu_torch.models.decoder import FlowStackFn, FlowStepFn
 from glow_tts_tpu_torch.models.glow_tts import GlowTTS, MasFn
 from glow_tts_tpu_torch.ops.coupling import flow_step
+from glow_tts_tpu_torch.ops.coupling_grad import flow_stack_train
 from glow_tts_tpu_torch.ops.mas import maximum_path
 from glow_tts_tpu_torch.training import losses
+from glow_tts_tpu_torch.training.optim import RAdam
 
 Batch = Mapping[str, torch.Tensor]
 
@@ -43,6 +47,56 @@ def compute_losses(config, outputs: Mapping[str, torch.Tensor],
     }
     loss_dict['total'] = loss_dict['mle'] + loss_dict['duration']
     return loss_dict
+
+
+def flow_seed(seed: int, step: int) -> int:
+    """The int32 seed of the flow's dropout masks at train step ``step``:
+    the run's seed with the step counter folded in, so every step draws
+    other masks and a resumed run draws the same ones."""
+    mixed = (int(seed) + (int(step) + 1) * 0x9E3779B9) & 0xFFFFFFFF
+    return mixed - (1 << 32) if mixed >= (1 << 31) else mixed
+
+
+def make_train_step(config, model: GlowTTS, optimizer: RAdam, *,
+                    seed: int = 0,
+                    generator: Optional[torch.Generator] = None,
+                    stack_fn: FlowStackFn = flow_stack_train,
+                    mas_fn: MasFn = maximum_path
+                    ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
+    """``train_step(batch) -> metrics`` (``mle``, ``duration``, ``total``,
+    ``grad_norm``, 0-d tensors on the model's device, read without a
+    synchronisation): one update of ``model``'s parameters, in place,
+    through ``optimizer`` (``training.optim.make_optimizer`` over
+    ``model.parameters()``).  The model must hold unfolded weight norm
+    (``prepare(fold=False)``).
+
+    Dropout is explicit: the encoder's masks come from ``generator`` (on
+    the model's device; one seeded with ``seed`` is made if none is given)
+    and the flow's from ``flow_seed(seed, step)``.  The same weights, seed
+    and generator state give the same step.  ``stack_fn`` and ``mas_fn``
+    are the kernels' wrappers unless a caller compares them with their
+    plain versions."""
+    if generator is None:
+        device = next(model.parameters()).device
+        generator = torch.Generator(device=device).manual_seed(seed)
+
+    def train_step(batch: Batch) -> Dict[str, torch.Tensor]:
+        optimizer.zero_grad()
+        outputs = model(batch['tokens'], batch['token_lengths'],
+                        batch['mels'], batch['mel_lengths'], mas_fn=mas_fn,
+                        deterministic=False,
+                        seed=flow_seed(seed, optimizer.count),
+                        generator=generator, stack_fn=stack_fn)
+        loss_dict = compute_losses(config, outputs, batch)
+        loss_dict['total'].backward()
+        grad_norm = optimizer.step()
+        # the deterministic path packs the new weights at its next use
+        model.layer_Dict['Decoder'].invalidate()
+        metrics = {key: value.detach() for key, value in loss_dict.items()}
+        metrics['grad_norm'] = grad_norm
+        return metrics
+
+    return train_step
 
 
 def make_eval_step(config, model: GlowTTS, step_fn: FlowStepFn = flow_step,

@@ -1,4 +1,4 @@
-"""Weights into the port.
+"""Weights into the port, and gradients back out.
 
 The port's modules carry the reference's state-dict names, so three
 sources load the same way, with ``load_state_dict(strict=True)``:
@@ -9,6 +9,12 @@ sources load the same way, with ``load_state_dict(strict=True)``:
   :func:`convert_params_to_reference`, this package's own copy of the
   name map of ``glow_tts_tpu/utils/torch_export.py`` (a CPU test holds the
   two equal bit for bit).
+
+:func:`reference_to_params` is the inverse map, from reference names and
+layouts back to the JAX parameter tree.  The map is a renaming and
+transposition, so it carries gradients as it carries values:
+:func:`gradients_as_jax_params` lays the port's ``.grad`` out leaf by leaf
+as ``jax.grad`` of the JAX model returns them.
 """
 
 from __future__ import annotations
@@ -139,3 +145,98 @@ def load_jax_params(model: nn.Module, params_np: Mapping,
     JAX package's has the same fields and serves as well)."""
     return load_state_dict(model,
                            convert_params_to_reference(params_np, config))
+
+
+def _to_numpy(value) -> np.ndarray:
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+def _inv_dense(sd: Mapping, prefix: str) -> Dict:
+    return {'kernel': _to_numpy(sd[f'{prefix}.weight'])[:, :, 0].T,
+            'bias': _to_numpy(sd[f'{prefix}.bias'])}
+
+
+def _inv_conv(sd: Mapping, prefix: str) -> Dict:
+    return {'conv': {
+        'kernel': _to_numpy(sd[f'{prefix}.weight']).transpose(2, 1, 0),
+        'bias': _to_numpy(sd[f'{prefix}.bias'])}}
+
+
+def _inv_wnconv(sd: Mapping, prefix: str) -> Dict:
+    return {'g': _to_numpy(sd[f'{prefix}.weight_g'])[:, 0, 0],
+            'v': _to_numpy(sd[f'{prefix}.weight_v']).transpose(2, 1, 0),
+            'b': _to_numpy(sd[f'{prefix}.bias'])}
+
+
+def _inv_layernorm(sd: Mapping, prefix: str) -> Dict:
+    return {'LayerNorm_0': {'scale': _to_numpy(sd[f'{prefix}.weight']),
+                            'bias': _to_numpy(sd[f'{prefix}.bias'])}}
+
+
+def reference_to_params(sd: Mapping, config) -> Dict:
+    """The inverse of :func:`convert_params_to_reference`: a mapping from
+    the reference's state-dict names (tensors or numpy arrays) to the JAX
+    package's parameter tree, numpy leaves in flax layouts."""
+    if config.mode.upper() != 'VANILLA':
+        raise NotImplementedError(
+            f'the PyTorch port converts Vanilla parameters only '
+            f'(got mode {config.mode!r})')
+    enc = 'layer_Dict.Encoder.layer_Dict'
+    enc_p: Dict = {
+        'embedding': {'embedding': _to_numpy(sd[f'{enc}.Embedding.weight'])},
+        'prenet': {'proj': {'dense': _inv_dense(
+            sd, f'{enc}.Prenet.layer_Dict.Conv1x1')}},
+        'project': {'dense': _inv_dense(sd, f'{enc}.Project')},
+    }
+    for i in range(config.encoder.prenet.stacks):
+        base = f'{enc}.Prenet.layer_Dict.CLRD_{i}.layer_Dict'
+        enc_p['prenet'][f'conv_{i}'] = _inv_conv(sd, f'{base}.Conv')
+        enc_p['prenet'][f'norm_{i}'] = _inv_layernorm(sd, f'{base}.LayerNorm')
+    for i in range(config.encoder.transformer.stacks):
+        base = f'{enc}.Transformer.layer_Dict.ANCRDCN_{i}.layer_Dict'
+        attention = {key: _inv_dense(
+            sd, f'{base}.Attention.layer_Dict.{name}')
+            for name, key in [('Query', 'query'), ('Key', 'key'),
+                              ('Value', 'value'), ('Projection', 'proj')]}
+        attention['rel_emb_k'] = _to_numpy(sd[f'{base}.Attention.weight_K'])
+        attention['rel_emb_v'] = _to_numpy(sd[f'{base}.Attention.weight_V'])
+        enc_p[f'block_{i}'] = {
+            'attention': attention,
+            'norm_0': _inv_layernorm(sd, f'{base}.LayerNorm_0'),
+            'norm_1': _inv_layernorm(sd, f'{base}.LayerNorm_1'),
+            'conv_0': _inv_conv(sd, f'{base}.Conv_0'),
+            'conv_1': _inv_conv(sd, f'{base}.Conv_1')}
+    dur = f'{enc}.Duration_Predictor.layer_Dict'
+    enc_p['duration_predictor'] = {
+        'proj': {'dense': _inv_dense(sd, f'{dur}.Projection')},
+        **{f'conv_{i}': _inv_conv(sd, f'{dur}.CRND_{i}.layer_Dict.Conv')
+           for i in range(config.encoder.duration_predictor.stacks)}}
+
+    dec_p: Dict = {}
+    for k in range(config.decoder.stack):
+        flow = f'layer_Dict.Decoder.layer_Dict.Flows.{k}'
+        base = f'{flow}.layers.2.layer_Dict'
+        wavenet: Dict = {}
+        for i in range(config.decoder.affine_coupling.wavenet.num_layers):
+            wn = f'{base}.WaveNet.layer_Dict'
+            wavenet[f'in_{i}'] = _inv_wnconv(sd, f'{wn}.In_{i}')
+            wavenet[f'res_skip_{i}'] = _inv_wnconv(sd, f'{wn}.Res_Skip_{i}')
+        dec_p[f'flow_{k}'] = {
+            'actnorm': {
+                'logs': _to_numpy(sd[f'{flow}.layers.0.logs'])[0, :, 0],
+                'bias': _to_numpy(sd[f'{flow}.layers.0.bias'])[0, :, 0]},
+            'invconv': {'weight': _to_numpy(sd[f'{flow}.layers.1.weight'])},
+            'coupling': {'start': _inv_wnconv(sd, f'{base}.Start'),
+                         'end': {'dense': _inv_dense(sd, f'{base}.End')},
+                         'wavenet': wavenet}}
+    return {'encoder': enc_p, 'decoder': dec_p}
+
+
+def gradients_as_jax_params(model: nn.Module, config) -> Dict:
+    """The gradients of ``model``'s parameters (``.grad``; zero where
+    there is none) named and laid out as the JAX parameter tree."""
+    grads = {name: (torch.zeros_like(p) if p.grad is None else p.grad)
+             for name, p in model.named_parameters()}
+    return reference_to_params(grads, config)

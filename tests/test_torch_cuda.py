@@ -5,7 +5,11 @@ the time tiles and their halos meet the sequence edges: T below, at and
 just above one tile, ragged lengths including 1.  MAS at small and edge
 shapes (every tokens-per-lane instantiation, T_tok not a multiple of 32,
 odd T_mel, more tokens than frames), equal bit for bit, and a raise beyond
-the kernel's limits.  Needs a GPU and nvcc; skipped without.
+the kernel's limits.  The train-direction flow stack (forward and backward
+kernels) against its plain version and autograd of it: T not a multiple of
+the tile, samples of length 1 and of full length, B = 1, dropout rates 0,
+0.05 and 0.5, per-sample conditioning, and a loss through the logdet alone
+or through z alone.  Needs a GPU and nvcc; skipped without.
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
@@ -14,6 +18,7 @@ import pytest
 import torch
 
 from glow_tts_tpu_torch.ops import coupling as tc
+from glow_tts_tpu_torch.ops import coupling_grad as tg
 from glow_tts_tpu_torch.ops import mas as tm
 
 pytestmark = pytest.mark.cuda
@@ -173,3 +178,135 @@ def test_mas_wrapper_refuses_what_the_kernel_does_not_take(device):
     # at the limit it runs
     big = torch.zeros((1, 1024, limit), device=device)
     _check_mas(big, tl[:1], ml[:1])
+
+
+def _stack_weights(gen, device, steps=2, c=160, n=4, k=5, ch=192):
+    def rnd(*shape, scale):
+        return torch.randn(shape, generator=gen) * scale
+
+    w = {
+        'w_start': rnd(steps, c // 2, ch, scale=.1),
+        'b_start': rnd(steps, ch, scale=.1),
+        'w_in': rnd(steps, n, k, ch, 2 * ch, scale=.03),
+        'b_in': rnd(steps, n, 2 * ch, scale=.1),
+        'w_rs': rnd(steps, n, ch, 2 * ch, scale=.05),
+        'b_rs': rnd(steps, n, 2 * ch, scale=.1),
+        'w_end': rnd(steps, ch, c, scale=.02),
+        'b_end': rnd(steps, c, scale=.1),
+        'an_logs': rnd(steps, c, scale=.05),
+        'an_bias': rnd(steps, c, scale=.1),
+        'mix_t': torch.stack([torch.linalg.qr(rnd(c, c, scale=1.))[0]
+                              for _ in range(steps)]),
+        'ld_const': rnd(steps, scale=.01),
+    }
+    w['w_rs'][:, -1, :, :ch] = 0
+    w['b_rs'][:, -1, :ch] = 0
+    return {key: v.to(device).contiguous() for key, v in w.items()}
+
+
+def _rel(got, ref):
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-6)).item()
+
+
+def _train_both(device, lengths, rate, with_cond=False, z_weight=1.0,
+                ld_weight=0.7, seed=11):
+    """Kernel and plain version on the same leaves; returns the two
+    results as dicts of values and gradients."""
+    gen = torch.Generator().manual_seed(sum(lengths) + len(lengths))
+    b, t = len(lengths), max(lengths)
+    weights = _stack_weights(gen, device)
+    mask = (torch.arange(t)[None, :] < torch.tensor(lengths)[:, None]
+            ).float()[..., None]
+    x = (torch.randn((b, t, 160), generator=gen) * mask).to(device)
+    zt = torch.randn((b, t, 160), generator=gen).to(device)
+    wl = torch.arange(1., b + 1.).to(device)
+    cond = (torch.randn((2, 4, b, 384), generator=gen) * .2).to(device) \
+        if with_cond else None
+    mask = mask.to(device)
+    results = []
+    for fn in (tg.flow_stack_train, tg.flow_stack_train_reference):
+        leaves = {key: v.clone().requires_grad_()
+                  for key, v in weights.items()}
+        xl = x.clone().requires_grad_()
+        cl = None if cond is None else cond.clone().requires_grad_()
+        z, ld = fn(xl, mask, leaves, cl, seed=seed, dropout_rate=rate)
+        (z_weight * torch.sum(z * zt)
+         + ld_weight * torch.sum(ld * wl)).backward()
+        torch.cuda.synchronize()
+        out = {'z': z.detach(), 'ld': ld.detach(), 'dx': xl.grad,
+               **{f'd{key}': leaf.grad for key, leaf in leaves.items()}}
+        if cl is not None:
+            out['dcond'] = cl.grad
+        results.append(out)
+    return results
+
+
+def _assert_train_agrees(got, ref):
+    assert set(got) == set(ref)
+    for key, value in ref.items():
+        assert torch.isfinite(got[key]).all(), key
+        assert _rel(got[key], value) < REL, (key, _rel(got[key], value))
+    # the last layer feeds the skip half only
+    assert (got['dw_rs'][:, -1, :, :192] == 0).all()
+    assert (got['db_rs'][:, -1, :192] == 0).all()
+
+
+@pytest.mark.parametrize('rate', [0.0, 0.05, 0.5])
+@pytest.mark.parametrize('lengths', [[1], [5, 1], [33, 1, 16, 33],
+                                     [70, 35, 1, 70, 64]])
+def test_train_kernels_match_plain_at_tile_edges(device, lengths, rate):
+    fwd, rec, bwd = (tg.flow_stack_train.forward_launches,
+                     tg.flow_stack_train.recompute_launches,
+                     tg.flow_stack_train.backward_launches)
+    got, ref = _train_both(device, lengths, rate)
+    # two flow steps: a forward and a recompute launch each, and the
+    # backward library's 34 kernels each
+    assert tg.flow_stack_train.forward_launches == fwd + 2
+    assert tg.flow_stack_train.recompute_launches == rec + 2
+    assert tg.flow_stack_train.backward_launches == bwd + 2 * 34
+    _assert_train_agrees(got, ref)
+    pad = got['z'][torch.arange(max(lengths), device=device)[None, :]
+                   >= torch.tensor(lengths, device=device)[:, None]]
+    assert (pad == 0).all()
+
+
+@pytest.mark.parametrize('rate', [0.0, 0.05])
+def test_train_kernels_with_per_sample_conditioning(device, rate):
+    got, ref = _train_both(device, [40, 17, 1], rate, with_cond=True)
+    _assert_train_agrees(got, ref)
+    assert got['dcond'].abs().max() > 0
+
+
+@pytest.mark.parametrize('z_weight,ld_weight', [(0.0, 0.7), (1.0, 0.0)])
+def test_train_backward_through_one_output_alone(device, z_weight,
+                                                 ld_weight):
+    got, ref = _train_both(device, [45, 20], 0.05, z_weight=z_weight,
+                           ld_weight=ld_weight)
+    _assert_train_agrees(got, ref)
+
+
+def test_train_gradients_are_bit_equal_across_runs(device):
+    a, _ = _train_both(device, [70, 35, 1], 0.05)
+    b, _ = _train_both(device, [70, 35, 1], 0.05)
+    for key in a:
+        assert torch.equal(a[key], b[key]), key
+
+
+def test_train_wrapper_refuses_what_the_kernels_do_not_take(device):
+    gen = torch.Generator().manual_seed(0)
+    w = _stack_weights(gen, device)
+    x = torch.zeros((2, 8, 160), device=device)
+    mask = torch.ones((2, 8, 1), device=device)
+    with pytest.raises(NotImplementedError):
+        tg.flow_stack_train(x, mask, w, None,
+                            torch.zeros((2, 8, 2), device=device), seed=0)
+    with pytest.raises(ValueError, match='float32'):
+        tg.flow_stack_train(x.double(), mask, w, seed=0)
+    with pytest.raises(ValueError, match='built for'):
+        tg.flow_stack_train(x[:, :, :80].contiguous(), mask, w, seed=0)
+    with pytest.raises(ValueError, match='cond'):
+        tg.flow_stack_train(x, mask, w,
+                            torch.zeros((2, 4, 3, 384), device=device),
+                            seed=0)
+    with pytest.raises(ValueError, match='dropout_rate'):
+        tg.flow_stack_train(x, mask, w, seed=0, dropout_rate=1.0)

@@ -4,6 +4,8 @@
   map, then ``load_state_dict(strict=True)``): the copy's output equals
   the JAX exporter's bit for bit, and the port's state-dict names and
   shapes are exactly the exporter's for Vanilla;
+* the inverse map (``reference_to_params``, which carries the port's
+  gradients onto the JAX tree's names) undoes the exporter exactly;
 * weight norm folded at load equals ``fold_weight_norm_params``;
 * an ``S_<step>.pt`` written by ``save_reference_checkpoint`` serves;
 * the port's config and text rules agree field by field with the JAX
@@ -34,7 +36,8 @@ from glow_tts_tpu_torch.config import load_config
 from glow_tts_tpu_torch.inference import Inferencer
 from glow_tts_tpu_torch.models.glow_tts import GlowTTS
 from glow_tts_tpu_torch.weights import convert_params_to_reference as port_convert
-from glow_tts_tpu_torch.weights import load_jax_params
+from glow_tts_tpu_torch.weights import (gradients_as_jax_params,
+                                        load_jax_params, reference_to_params)
 from tests.torch_port_helpers import jax_model, port_config, port_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -69,6 +72,29 @@ def test_own_exporter_equals_the_jax_exporter(setup, config_of):
     for key, value in exported.items():
         assert own[key].dtype == value.dtype, key
         np.testing.assert_array_equal(own[key], value, err_msg=key)
+
+
+def test_inverse_map_undoes_the_exporter(setup):
+    import jax
+    cfg, params = setup
+    back = reference_to_params(port_convert(params, cfg), port_config(cfg))
+    ref = dict(jax.tree_util.tree_leaves_with_path(params))
+    got = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert set(got) == set(ref)
+    for path, value in ref.items():
+        np.testing.assert_array_equal(got[path], np.asarray(value),
+                                      err_msg=jax.tree_util.keystr(path))
+    # gradients ride the same map: a parameter's .grad lands on its leaf
+    model = load_jax_params(GlowTTS(port_config(cfg)), params, cfg)
+    for p in model.parameters():
+        p.grad = 2.0 * p.detach()
+    grads = dict(jax.tree_util.tree_leaves_with_path(
+        gradients_as_jax_params(model, port_config(cfg))))
+    for path, value in ref.items():
+        np.testing.assert_array_equal(grads[path], 2.0 * np.asarray(value),
+                                      err_msg=jax.tree_util.keystr(path))
+    with pytest.raises(NotImplementedError, match='GR'):
+        reference_to_params({}, dataclasses.replace(cfg, mode='GR'))
 
 
 def test_own_exporter_refuses_other_modes(setup):
@@ -135,7 +161,8 @@ def test_config_fields_match_jax(source, setup):
         ref = setup[0]
         port = port_config(ref)
     fields = list(_port_fields(port, ref))
-    assert len(fields) >= 21
+    assert len(fields) >= 32
+    assert 'train.adam.epsilon' in [name for name, _, _ in fields]
     assert 'mel_bucket' in [name for name, _, _ in fields]
     for name, value, expected in fields:
         assert value == expected, name
