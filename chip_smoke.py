@@ -4,20 +4,22 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``glow_tts_tpu_torch/csrc`` (the flow step, the
-monotonic alignment search, the train-direction flow stack's forward and
-its backward), holds each against its plain PyTorch version at the shipped
-width, and drives three paths through them at
-``configs/Hyper_Parameters.yaml`` width with random weights from a seed:
-Vanilla serving (``Inferencer``, two mel buckets), the loss/eval path (a
-from-scratch model, ActNorm's data-dependent initialisation on a batch
-from ``TrainCollater``, then ``eval_step``) and training (the same
-initialisation, then ``train_step`` a few times, beside the same steps
-through the plain versions).  Times kernel and plain versions with CUDA
-events.  Exits non-zero on any failure and when no CUDA device is present;
-the last line is one JSON object naming the card.
+coupling alone, the whole flow stack in one launch, the monotonic alignment
+search, the train-direction flow stack's forward and its backward), holds
+each against its plain PyTorch version at the shipped width, and drives
+the port's paths through them at ``configs/Hyper_Parameters.yaml`` width
+with random weights from a seed: Vanilla serving (``Inferencer``, two mel
+buckets) and the loss/eval path (ActNorm's data-dependent initialisation on
+a batch from ``TrainCollater``, then ``eval_step``), each under every
+``coupling_backend`` route (``'fused'``, ``'modules'``, ``'mega'``), and
+training (the same initialisation, then ``train_step`` a few times, beside
+the same steps through the plain versions).  Times kernel and plain
+versions with CUDA events.  Exits non-zero on any failure and when no CUDA
+device is present; the last line is one JSON object naming the card.
 """
 
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -105,19 +107,40 @@ def bound(bytes_moved: float, flops: float):
     return max(by_bytes, by_ops), 'bytes' if by_bytes >= by_ops else 'operations'
 
 
-COUNTERS = ('flow_step', 'mas', 'train_fwd', 'train_recompute', 'train_bwd')
+COUNTERS = ('flow_step', 'coupling', 'flow_stack', 'mas', 'train_fwd',
+            'train_recompute', 'train_bwd')
+# the deterministic decoder's routes (``config.coupling_backend``): the
+# counter of the kernel each goes through
+ROUTES = {'fused': 'flow_step', 'modules': 'coupling', 'mega': 'flow_stack'}
 
 
 def launch_counters():
     """(function, attribute) of every kernel launch count of the port."""
-    from glow_tts_tpu_torch.ops.coupling import flow_step
+    from glow_tts_tpu_torch.ops.coupling import coupling, flow_stack, flow_step
     from glow_tts_tpu_torch.ops.coupling_grad import flow_stack_train
     from glow_tts_tpu_torch.ops.mas import maximum_path
     return dict(zip(COUNTERS, (
-        (flow_step, 'launches'), (maximum_path, 'launches'),
+        (flow_step, 'launches'), (coupling, 'launches'),
+        (flow_stack, 'launches'), (maximum_path, 'launches'),
         (flow_stack_train, 'forward_launches'),
         (flow_stack_train, 'recompute_launches'),
         (flow_stack_train, 'backward_launches'))))
+
+
+def route_launches(route, config, passes=1):
+    """The flow launches of ``passes`` decoder passes under ``route``: one
+    per flow step, or one in all under ``'mega'``; every other count 0."""
+    per_pass = 1 if route == 'mega' else config.decoder.stack
+    return {**dict.fromkeys(COUNTERS, 0), ROUTES[route]: per_pass * passes}
+
+
+def plain_flow_fns():
+    """The plain versions of the three routes' functions, as the keyword
+    arguments that swap them in."""
+    from glow_tts_tpu_torch.ops.coupling import (
+        coupling_reference, flow_stack_reference, flow_step_reference)
+    return {'step_fn': flow_step_reference, 'coupling_fn': coupling_reference,
+            'flow_stack_fn': flow_stack_reference}
 
 
 def zero_counts():
@@ -133,11 +156,13 @@ def read_counts():
 
 def step_frame_flops(weights) -> int:
     """Operations of one flow step on one valid frame: 2 per weight of the
-    mixing, the start conv, the n k-tap convs and res/skip 1x1s and the end
-    conv, less the last layer's res half, which is structurally zero."""
+    mixing (where the weights have one: the coupling alone does not), the
+    start conv, the n k-tap convs and res/skip 1x1s and the end conv, less
+    the last layer's res half, which is structurally zero."""
     ch = weights['w_rs'].shape[-2]
     return 2 * (sum(weights[key].numel() for key in
-                    ('w_start', 'w_in', 'w_rs', 'w_end', 'mix_t')) - ch * ch)
+                    ('w_start', 'w_in', 'w_rs', 'w_end', 'mix_t')
+                    if key in weights) - ch * ch)
 
 
 def ragged_batch(gen, b, t, c, device):
@@ -185,8 +210,95 @@ def check_kernel(model, device):
     return worst
 
 
-def serve(inferencer, config):
-    """The main path: text requests → Inferencer → mels, in two buckets."""
+def check_coupling(model, device):
+    """Kernel #2 against its plain version at full width: B = 32, T = 512,
+    ragged lengths (1 … T), both directions, the halves handed over as the
+    decoder does (views of one tensor), and the round trip."""
+    from glow_tts_tpu_torch.ops.coupling import (COUPLING_WEIGHT_KEYS,
+                                                 coupling, coupling_reference)
+    step = model.layer_Dict['Decoder'].layer_Dict['Flows'][0]
+    c = step.layers[0].logs.shape[1]
+    x, mask = ragged_batch(torch.Generator().manual_seed(SEED + 8), 32, 512,
+                           c, device)
+    x_a, x_b = x[..., :c // 2], x[..., c // 2:]
+    w = {key: step.weights(False)[key] for key in COUPLING_WEIGHT_KEYS}
+    cond = step.cond(32)
+    worst = 0.0
+    for reverse in (False, True):
+        z_k, ld_k = coupling(x_a, x_b, mask, w, cond, reverse=reverse)
+        z_p, ld_p = coupling_reference(x_a, x_b, mask, w, cond,
+                                       reverse=reverse)
+        torch.cuda.synchronize()
+        err, rel = (z_k - z_p).abs().max().item(), rel_err(z_k, z_p)
+        line = (f'coupling kernel vs plain T=512 reverse={reverse}: max abs '
+                f'err {err:.3e}, max rel err {rel:.3e}')
+        assert torch.isfinite(z_k).all(), 'kernel output not finite'
+        assert rel < Z_REL_BOUND, line
+        if not reverse:
+            ld_rel = rel_err(ld_k, ld_p)
+            line += f', logdet rel err {ld_rel:.3e}'
+            assert ld_rel < LD_REL_BOUND, line
+        print(line)
+        worst = max(worst, err)
+    z_b, _ = coupling(x_a, x_b, mask, w, cond)
+    back, _ = coupling(x_a, z_b, mask, w, cond, reverse=True)
+    trip = rel_err(back, x_b)
+    print(f'coupling kernel round trip: max rel err {trip:.3e}')
+    assert trip < ROUNDTRIP_BOUND
+    return worst
+
+
+def check_flow_stack(model, device):
+    """Kernel #4 against its plain version at full width: all the model's
+    flow steps at B = 32, T = 512, ragged lengths, both directions, the
+    round trip, and its z bit for bit against a chain of flow-step
+    launches (kernel #3), whose per-tile arithmetic it shares."""
+    from glow_tts_tpu_torch.ops.coupling import (flow_stack,
+                                                 flow_stack_reference,
+                                                 flow_step)
+    decoder = model.layer_Dict['Decoder']
+    flows = list(decoder.layer_Dict['Flows'])
+    c = flows[0].layers[0].logs.shape[1]
+    x, mask = ragged_batch(torch.Generator().manual_seed(SEED + 9), 32, 512,
+                           c, device)
+    cond = decoder.stacked_cond(32)
+    worst = 0.0
+    for reverse in (False, True):
+        w = decoder.stacked_weights(reverse)
+        z_k, ld_k = flow_stack(x, mask, w, cond, reverse=reverse)
+        z_p, ld_p = flow_stack_reference(x, mask, w, cond, reverse=reverse)
+        chained = x
+        for step in (reversed(flows) if reverse else flows):
+            chained, _ = flow_step(chained, mask, step.weights(reverse),
+                                   step.cond(32), reverse)
+        torch.cuda.synchronize()
+        err, rel = (z_k - z_p).abs().max().item(), rel_err(z_k, z_p)
+        same = torch.equal(z_k, chained)
+        line = (f'flow stack kernel vs plain, {len(flows)} steps, T=512 '
+                f'reverse={reverse}: max abs err {err:.3e}, max rel err '
+                f'{rel:.3e}; z bit-equal to {len(flows)} chained flow-step '
+                f'launches: {same}')
+        assert torch.isfinite(z_k).all(), 'kernel output not finite'
+        assert rel < Z_REL_BOUND, line
+        assert same, line
+        if not reverse:
+            ld_rel = rel_err(ld_k, ld_p)
+            line += f', logdet rel err {ld_rel:.3e}'
+            assert ld_rel < LD_REL_BOUND, line
+        print(line)
+        worst = max(worst, err)
+    z, _ = flow_stack(x, mask, decoder.stacked_weights(False), cond)
+    back, _ = flow_stack(z, mask, decoder.stacked_weights(True), cond,
+                         reverse=True)
+    trip = rel_err(back, x)
+    print(f'flow stack kernel round trip: max rel err {trip:.3e}')
+    assert trip < ROUNDTRIP_BOUND
+    return worst
+
+
+def serve(inferencer, config, route='fused'):
+    """The main path: text requests → Inferencer → mels, in two buckets,
+    under the ``coupling_backend`` route the inferencer was built with."""
     requests = [
         ('short_a', 'The quick brown fox jumps over the lazy dog.', 1.0),
         ('short_b', 'Hello there, how are you today?', 1.0),
@@ -202,13 +314,13 @@ def serve(inferencer, config):
     results = inferencer.inference(list(labels), list(texts), list(scales),
                                    seed=SEED)
     launches = read_counts()
-    per_decode = config.decoder.stack
-    print(f'served {len(results)} requests in {n_decodes} decodes: '
-          f'launches {launches} ({per_decode} flow steps expected per '
-          f'decode, nothing else)')
+    expected = route_launches(route, config, n_decodes)
+    print(f'served {len(results)} requests in {n_decodes} decodes under '
+          f'{route!r}: launches {launches} ({expected[ROUTES[route]]} '
+          f'{ROUTES[route]} expected, nothing else)')
+    assert inferencer.config.flow_route == route
     assert len(results) == len(requests)
-    assert launches == {**dict.fromkeys(COUNTERS, 0),
-                        'flow_step': per_decode * n_decodes}, launches
+    assert launches == expected, launches
     s = config.decoder.num_squeeze
     buckets = set()
     for r in results:
@@ -224,13 +336,25 @@ def serve(inferencer, config):
         assert (attn.sum(axis=0) == 1).all(), r['label']
         buckets.add(bucket)
     assert len(buckets) >= 2, buckets
-    return launches
+    return launches, results
+
+
+def compare_served(served):
+    """The same requests served under each route, same seed: every
+    request's mel under ``'modules'`` and ``'mega'`` against ``'fused'``."""
+    for route in ('modules', 'mega'):
+        worst = 0.0
+        for a, b in zip(served[route], served['fused']):
+            assert a['label'] == b['label'] and a['mel'].shape == b['mel'].shape
+            worst = max(worst, float(np.abs(a['mel'] - b['mel']).mean()))
+        print(f'served mels, {route!r} vs \'fused\': worst mel MAE of a '
+              f'request {worst:.3e}')
+        assert worst < MEL_MAE_BOUND
 
 
 def compare_decode(inferencer, texts, bucket):
-    """One batch decoded through the kernel and through the plain version,
-    same prior and noise: mel MAE over the valid frames."""
-    from glow_tts_tpu_torch.ops.coupling import flow_step_reference
+    """One batch decoded through the route's kernel and through its plain
+    version, same prior and noise: mel MAE over the valid frames."""
     from glow_tts_tpu_torch.text import text_filtering
     model = inferencer.model
     tokens, lengths, scales = inferencer.collate(
@@ -241,59 +365,155 @@ def compare_decode(inferencer, texts, bucket):
                         generator=gen, device=inferencer.device)
     out_k = model.inference_decode(prior, noise=noise, max_mel_length=bucket)
     out_p = model.inference_decode(prior, noise=noise, max_mel_length=bucket,
-                                   step_fn=flow_step_reference)
+                                   **plain_flow_fns())
     valid = (torch.arange(bucket, device=noise.device)[None, :]
              < out_k['mel_lengths'][:, None])[..., None]
     mae = ((out_k['mels'] - out_p['mels']).abs() * valid).sum() \
         / (valid.sum() * noise.shape[-1])
-    print(f'decode kernel vs plain (B={len(texts)}, bucket {bucket}): '
-          f'mel MAE {mae.item():.3e}')
+    print(f'decode under {inferencer.config.flow_route!r}, kernel vs plain '
+          f'(B={len(texts)}, bucket {bucket}): mel MAE {mae.item():.3e}')
     assert mae.item() < MEL_MAE_BOUND
 
 
-def time_all(inferencer, prior_1024, device):
-    from glow_tts_tpu_torch.ops.coupling import flow_step, flow_step_reference
-    model = inferencer.model
-    step = model.layer_Dict['Decoder'].layer_Dict['Flows'][0]
+def time_flow_kernels(model, device):
+    """Kernels #3, #2 and #4 and their plain versions at B = 32, T = 512,
+    all frames valid, both directions, each beside its bound; and the
+    reverse stack three ways: 12 flow-step launches, the same launches
+    replayed from a CUDA graph, and kernel #4's one launch."""
+    from glow_tts_tpu_torch.ops.coupling import (
+        COUPLING_WEIGHT_KEYS, coupling, coupling_reference, flow_stack,
+        flow_stack_reference, flow_step, flow_step_reference,
+        load_flow_stack_library)
+    decoder = model.layer_Dict['Decoder']
+    flows = list(decoder.layer_Dict['Flows'])
+    step = flows[0]
     c = step.layers[0].logs.shape[1]
     x, mask = ragged_batch(torch.Generator().manual_seed(SEED + 3),
                            32, 512, c, device)
     mask = torch.ones_like(mask)
+    x_a, x_b = x[..., :c // 2], x[..., c // 2:]
     cond = step.cond(32)
-    # the step's work from its shapes: 2 FLOP per live weight per valid
-    # frame, every tensor moved once
-    weights = step.weights(False)
-    frame_flops = step_frame_flops(weights)
-    flops = frame_flops * mask.sum().item()
-    moved = 4 * (2 * x.numel() + mask.numel() + cond.numel() + x.shape[0]
-                 + sum(value.numel() for value in weights.values()))
-    bound_ms, bound_by = bound(moved, flops)
-    times = {}
-    for reverse in (True, False):
-        w = step.weights(reverse)
-        k_ms, p_ms = paired_ms(
-            lambda: flow_step(x, mask, w, cond, reverse),
-            lambda: flow_step_reference(x, mask, w, cond, reverse), 20)
-        print(f'flow step B=32 T=512 reverse={reverse}: kernel {k_ms:.4f} ms '
-              f'({flops / k_ms / 1e9:.2f} TFLOP/s at '
-              f'{frame_flops / 1e6:.2f} MFLOP/frame), plain {p_ms:.4f} ms; '
-              f'bound {bound_ms:.4f} ms by {bound_by}')
-        times[reverse] = (k_ms, p_ms)
+    stacked_cond = decoder.stacked_cond(32)
+    frames = mask.sum().item()
 
-    gen = torch.Generator(device=device)
+    def weight_count(weights):
+        return sum(value.numel() for value in weights.values())
+
+    def report(name, frame_flops, n_steps, moved, kernel_fn, plain_fn, iters):
+        # the work from the shapes: 2 FLOP per live weight per valid
+        # frame and step, every tensor moved once
+        flops = frame_flops * frames * n_steps
+        bound_ms, bound_by = bound(moved, flops)
+        times = {}
+        for reverse in (True, False):
+            k_ms, p_ms = paired_ms(lambda: kernel_fn(reverse),
+                                   lambda: plain_fn(reverse), iters)
+            print(f'{name} B=32 T=512 reverse={reverse}: kernel {k_ms:.4f} ms '
+                  f'({flops / k_ms / 1e9:.2f} TFLOP/s at '
+                  f'{frame_flops / 1e6:.2f} MFLOP/frame and step), plain '
+                  f'{p_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}')
+            times[reverse] = (k_ms, p_ms)
+        return {'ms': times[True][0], 'plain_ms': times[True][1],
+                'forward_ms': times[False][0],
+                'forward_plain_ms': times[False][1],
+                'bound_ms': bound_ms, 'bound_by': bound_by}
+
+    weights = step.weights(False)
+    flow_times = report(
+        'flow step', step_frame_flops(weights), 1,
+        4 * (2 * x.numel() + mask.numel() + cond.numel() + x.shape[0]
+             + weight_count(weights)),
+        lambda r: flow_step(x, mask, step.weights(r), cond, r),
+        lambda r: flow_step_reference(x, mask, step.weights(r), cond, r), 20)
+
+    own = {key: weights[key] for key in COUPLING_WEIGHT_KEYS}
+    coupling_times = report(
+        'coupling', step_frame_flops(own), 1,
+        4 * (x.numel() + x_b.numel() + mask.numel() + cond.numel()
+             + x.shape[0] + weight_count(own)),
+        lambda r: coupling(x_a, x_b, mask, own, cond, reverse=r),
+        lambda r: coupling_reference(x_a, x_b, mask, own, cond, reverse=r),
+        20)
+
+    stacked = {r: decoder.stacked_weights(r) for r in (False, True)}
+    stack_times = report(
+        f'flow stack ({len(flows)} steps, one launch)',
+        step_frame_flops(weights), len(flows),
+        4 * (2 * x.numel() + mask.numel() + stacked_cond.numel() + x.shape[0]
+             + weight_count(stacked[False])),
+        lambda r: flow_stack(x, mask, stacked[r], stacked_cond, reverse=r),
+        lambda r: flow_stack_reference(x, mask, stacked[r], stacked_cond,
+                                       reverse=r), 5)
+
+    # the reverse stack as a decode runs it, three ways on the same input
+    packs = [(s.weights(True), s.cond(32)) for s in reversed(flows)]
+
+    def chain():
+        y = x
+        for w, step_cond in packs:
+            y, _ = flow_step(y, mask, w, step_cond, True)
+        return y
+
+    eager = chain()                  # built and warm before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = chain()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager), 'graph replay differs from launches'
+
+    def one_launch():
+        return flow_stack(x, mask, stacked[True], stacked_cond, reverse=True)
+
+    assert torch.equal(one_launch()[0], eager)
+    order = (chain, graph.replay, one_launch, one_launch, graph.replay, chain)
+    ms = [cuda_ms(fn, 5) for fn in order]
+    chain_ms, graph_ms, stack_ms = ((ms[i] + ms[5 - i]) / 2 for i in range(3))
+    blocks = load_flow_stack_library().glow_flow_stack_resident_blocks()
+    print(f'reverse stack B=32 T=512, {len(flows)} steps: {len(flows)} '
+          f'flow-step launches {chain_ms:.4f} ms, the same from a CUDA '
+          f'graph {graph_ms:.4f} ms, flow stack in one launch '
+          f'{stack_ms:.4f} ms ({blocks} persistent blocks on '
+          f'{32 * -(-512 // 32)} tiles a step); all three bit-equal')
+    stack_times.update(chain_ms=chain_ms, graph_ms=graph_ms)
+    return flow_times, coupling_times, stack_times
+
+
+def time_routes(inferencers, models, prior_1024, batch):
+    """Decode at the 1024-frame bucket and the eval step under each route,
+    through the kernels and through their plain versions, with a profiler
+    window over the decodes for the device's idle share."""
+    from glow_tts_tpu_torch import make_eval_step
+    from glow_tts_tpu_torch.ops.mas import maximum_path_reference
     b = prior_1024['durations'].shape[0]
-    k_ms, p_ms = paired_ms(
-        lambda: model.inference_decode(prior_1024, generator=gen,
-                                       max_mel_length=1024),
-        lambda: model.inference_decode(prior_1024, generator=gen,
-                                       max_mel_length=1024,
-                                       step_fn=flow_step_reference), 5)
-    print(f'decode phase B={b} bucket 1024: kernel {k_ms:.3f} ms '
-          f'({b * 1024 / k_ms * 1e3:.0f} mel frames/s of capacity), '
-          f'plain {p_ms:.3f} ms ({b * 1024 / p_ms * 1e3:.0f} mel frames/s)')
-    return {'ms': times[True][0], 'plain_ms': times[True][1],
-            'forward_ms': times[False][0], 'forward_plain_ms': times[False][1],
-            'bound_ms': bound_ms, 'bound_by': bound_by}
+    for route in ROUTES:
+        model = inferencers[route].model
+        gen = torch.Generator(device=batch['mels'].device)
+        k_ms, p_ms = paired_ms(
+            lambda: model.inference_decode(prior_1024, generator=gen,
+                                           max_mel_length=1024),
+            lambda: model.inference_decode(prior_1024, generator=gen,
+                                           max_mel_length=1024,
+                                           **plain_flow_fns()),
+            iters=5, plain_iters=2, plain_warmup=1)
+        print(f'decode phase under {route!r} B={b} bucket 1024: kernel '
+              f'{k_ms:.3f} ms ({b * 1024 / k_ms * 1e3:.0f} mel frames/s of '
+              f'capacity), plain {p_ms:.3f} ms '
+              f'({b * 1024 / p_ms * 1e3:.0f} mel frames/s)')
+        profile_window(
+            f'decodes under {route!r}',
+            lambda: model.inference_decode(prior_1024, generator=gen,
+                                           max_mel_length=1024), 3)
+        config = models[route].config
+        eval_k = make_eval_step(config, models[route])
+        eval_p = make_eval_step(config, models[route],
+                                mas_fn=maximum_path_reference,
+                                **plain_flow_fns())
+        k_ms, p_ms = paired_ms(lambda: eval_k(batch), lambda: eval_p(batch),
+                               iters=5, plain_iters=2, plain_warmup=1)
+        print(f'eval step under {route!r} {tuple(batch["mels"].shape)}: '
+              f'kernels {k_ms:.3f} ms, plain versions {p_ms:.2f} ms')
 
 
 def mas_problem(device):
@@ -414,7 +634,6 @@ def compare_eval(name, model, batch, config):
     """One batch through ``eval_step`` with the kernels and with their
     plain versions: losses, and the path where ``log_p`` is the same."""
     from glow_tts_tpu_torch import make_eval_step
-    from glow_tts_tpu_torch.ops.coupling import flow_step_reference
     from glow_tts_tpu_torch.ops.mas import maximum_path, maximum_path_reference
     seen = {}
 
@@ -427,8 +646,8 @@ def compare_eval(name, model, batch, config):
     losses_k, out_k = make_eval_step(
         config, model, mas_fn=recording('kernel', maximum_path))(batch)
     losses_p, out_p = make_eval_step(
-        config, model, step_fn=flow_step_reference,
-        mas_fn=recording('plain', maximum_path_reference))(batch)
+        config, model, mas_fn=recording('plain', maximum_path_reference),
+        **plain_flow_fns())(batch)
     torch.cuda.synchronize()
     # the kernel's path on the eval path's own log_p, against the plain MAS
     log_p, tl, ml = seen['kernel']
@@ -453,10 +672,12 @@ def compare_eval(name, model, batch, config):
         k, p = losses_k[key].item(), losses_p[key].item()
         assert np.isfinite(k) and np.isfinite(p), line
         assert abs(k - p) <= LOSS_REL_BOUND * abs(p), (key, line)
+    return losses_k
 
 
-def run_eval(model, batches, config):
-    """The loss path: ``eval_step`` on each batch through the kernels."""
+def run_eval(model, batches, config, route='fused'):
+    """The loss path: ``eval_step`` on each batch through the kernels of
+    the ``coupling_backend`` route the model was built with."""
     from glow_tts_tpu_torch import attention_diagonality, make_eval_step
     eval_step = make_eval_step(config, model)
     zero_counts()
@@ -482,22 +703,22 @@ def run_eval(model, batches, config):
               f'mle {losses["mle"].item():.5f} duration '
               f'{losses["duration"].item():.5f} total '
               f'{losses["total"].item():.5f}, diagonality {diag.item():.4f}')
-    print(f'evaluated {len(batches)} batches: launches {launches} '
-          f'({config.decoder.stack} flow steps and 1 MAS expected per '
-          f'batch, nothing else)')
-    assert launches == {**dict.fromkeys(COUNTERS, 0),
-                        'flow_step': config.decoder.stack * len(batches),
-                        'mas': len(batches)}, launches
+    expected = {**route_launches(route, config, len(batches)),
+                'mas': len(batches)}
+    print(f'evaluated {len(batches)} batches under {route!r}: launches '
+          f'{launches} ({expected[ROUTES[route]]} {ROUTES[route]} and '
+          f'{len(batches)} MAS expected, nothing else)')
+    assert model.config.flow_route == route
+    assert launches == expected, launches
     return launches
 
 
 def time_eval(model, batch, config, device):
-    """MAS kernel vs plain at the training shape; the whole eval step with
-    kernels vs with plain versions; and the eval step's parts."""
+    """MAS kernel vs plain at the training shape, and the eval step's
+    parts (the whole step is timed under each route by ``time_routes``)."""
     from glow_tts_tpu_torch import make_eval_step
     from glow_tts_tpu_torch.models.glow_tts import prior_log_likelihood
     from glow_tts_tpu_torch.models.layers import sequence_mask
-    from glow_tts_tpu_torch.ops.coupling import flow_step_reference
     from glow_tts_tpu_torch.ops.mas import maximum_path, maximum_path_reference
     from glow_tts_tpu_torch.training.step import compute_losses
     log_p, tl, ml = mas_problem(device)
@@ -517,12 +738,6 @@ def time_eval(model, batch, config, device):
                  'bound_by': bound_by}
 
     eval_k = make_eval_step(config, model)
-    eval_p = make_eval_step(config, model, step_fn=flow_step_reference,
-                            mas_fn=maximum_path_reference)
-    k_ms, p_ms = paired_ms(lambda: eval_k(batch), lambda: eval_p(batch),
-                           iters=5, plain_iters=2, plain_warmup=1)
-    print(f'eval step {tuple(batch["mels"].shape)}: kernels {k_ms:.3f} ms, '
-          f'plain versions {p_ms:.2f} ms')
 
     # the parts of one eval step, each alone, on this batch's tensors
     with torch.no_grad():
@@ -767,7 +982,7 @@ def run_training(config, batch, device):
           f'{steps} x {BWD_KERNELS_PER_FLOW_STEP} backward kernels and 1 '
           f'MAS expected per step, {steps} flow steps for the init)')
     assert launches == {
-        'flow_step': steps, 'mas': TRAIN_STEPS,
+        **dict.fromkeys(COUNTERS, 0), 'flow_step': steps, 'mas': TRAIN_STEPS,
         'train_fwd': steps * TRAIN_STEPS,
         'train_recompute': steps * TRAIN_STEPS,
         'train_bwd': BWD_KERNELS_PER_FLOW_STEP * steps * TRAIN_STEPS}, launches
@@ -910,29 +1125,43 @@ def main():
     print(f'card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}')
 
     start = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:      # one nvcc per source, together
-        builds = [pool.submit(coupling.load_flow_step_library),
-                  pool.submit(mas.load_mas_library),
-                  pool.submit(coupling_grad.load_train_forward_library),
-                  pool.submit(coupling_grad.load_train_backward_library)]
-        for build in builds:
+    sources = {'flow_step.cu': coupling.load_flow_step_library,
+               'coupling.cu': coupling.load_coupling_library,
+               'flow_stack.cu': coupling.load_flow_stack_library,
+               'mas.cu': mas.load_mas_library,
+               'flow_train_fwd.cu': coupling_grad.load_train_forward_library,
+               'flow_train_bwd.cu': coupling_grad.load_train_backward_library}
+    with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc each, together
+        for build in [pool.submit(load) for load in sources.values()]:
             build.result()
-    print(f'four kernel libraries built and loaded in '
+    print(f'{len(sources)} kernel libraries built and loaded in '
           f'{time.perf_counter() - start:.1f} s')
-    for source in ('flow_step.cu', 'mas.cu', 'flow_train_fwd.cu',
-                   'flow_train_bwd.cu'):
+    for source in sources:
         for line in cuda_build.ptxas_report(source):
             print(f'  ptxas {line}')
 
     config = load_config(CONFIG)
-    inferencer = Inferencer(random_state_dict(config, SEED), config, device,
-                            batch_size=2)
+    assert config.flow_route == 'fused'          # the shipped 'auto'
+    configs = {route: dataclasses.replace(config, coupling_backend=route)
+               for route in ROUTES}
+    state = random_state_dict(config, SEED)
+    inferencers = {route: Inferencer(state, configs[route], device,
+                                     batch_size=2) for route in ROUTES}
+    inferencer = inferencers['fused']
     worst = check_kernel(inferencer.model, device)
+    coupling_err = check_coupling(inferencer.model, device)
+    stack_err = check_flow_stack(inferencer.model, device)
     mas_err = check_mas(device)
-    serve_launches = serve(inferencer, config)
-    compare_decode(inferencer, ['The birch canoe slid on the smooth planks.',
-                                'Glue the sheet to the dark blue background.'],
-                   256)
+
+    # serving, under each route: the same requests, seed and weights
+    by_path, served = {}, {}
+    for route in ROUTES:
+        by_path[f'serve {route}'], served[route] = serve(
+            inferencers[route], config, route)
+        compare_decode(inferencers[route],
+                       ['The birch canoe slid on the smooth planks.',
+                        'Glue the sheet to the dark blue background.'], 256)
+    compare_served(served)
     long_text = ('It is easy to tell the depth of a well, and four hours '
                  'of steady work faced us on that hot and dusty day.')
     tokens, lengths, _ = inferencer.collate(
@@ -945,58 +1174,81 @@ def main():
                                device) for k in (10, 11)]
     model = fresh_model(initial_state_dict(config, SEED), config, device)
     check_ddi(model, batches[0], config)
-    eval_launches = run_eval(model, batches, config)
+    by_path['eval fused'] = run_eval(model, batches, config)
     compare_eval('from scratch', model, batches[0], config)
     # and with live couplings (a nonzero end conv), which a from-scratch
-    # model does not have yet
-    live = fresh_model(random_state_dict(config, SEED), config, device)
+    # model does not have yet, under each route from the same weights
+    live = fresh_model(state, config, device)
     live.data_dependent_init(batches[0]['mels'], batches[0]['mel_lengths'])
-    compare_eval('live couplings', live, batches[1], config)
+    models = {route: live if route == 'fused' else
+              fresh_model(live.state_dict(), configs[route], device)
+              for route in ROUTES}
+    route_losses = {}
+    for route in ROUTES:
+        if route != 'fused':
+            by_path[f'eval {route}'] = run_eval(
+                models[route], batches[1:], configs[route], route)
+        route_losses[route] = compare_eval(
+            f'live couplings under {route!r}', models[route], batches[1],
+            configs[route])
+    for route in ('modules', 'mega'):
+        for key in ('mle', 'duration'):
+            a, b = (route_losses[r][key].item() for r in (route, 'fused'))
+            assert abs(a - b) <= LOSS_REL_BOUND * abs(b), (route, key, a, b)
 
     # the train path: kernels #5 and #6 against the plain version on the
     # operands of a train step, then the steps themselves
-    trainee = train_model(random_state_dict(config, SEED), config, device)
+    trainee = train_model(state, config, device)
     trainee.data_dependent_init(batches[0]['mels'], batches[0]['mel_lengths'])
     x, mask, weights = stack_problem(trainee, batches[0], config)
     del trainee
     fwd_err = check_train_forward(x, mask, weights)
     bwd_err = check_train_backward(x, mask, weights)
-    train_launches = run_training(config, batches[0], device)
+    by_path['train'] = run_training(config, batches[0], device)
 
-    flow_times = time_all(inferencer, prior_1024, device)
+    flow_times, coupling_times, stack_times = time_flow_kernels(
+        inferencer.model, device)
+    time_routes(inferencers, models, prior_1024, batches[0])
     mas_times, eval_step = time_eval(model, batches[0], config, device)
     fwd_times, bwd_times = time_training(config, batches[0], x, mask,
                                          weights, device)
     profile_window('eval steps', lambda: eval_step(batches[0]), 3)
 
-    by_path = {'serve': serve_launches, 'eval': eval_launches,
-               'train': train_launches}
-
     def launches(counter):
         paths = {path: counts[counter] for path, counts in by_path.items()}
+        assert sum(paths.values()) > 0, f'{counter}: launched on no path'
         return {'launches': sum(paths.values()), 'launches_by_path': paths}
 
+    csrc = 'glow_tts_tpu_torch/csrc/'
     print(json.dumps({'kernels': [
-        {'name': 'flow_step', 'route': 'cuda',
-         'source': 'glow_tts_tpu_torch/csrc/flow_step.cu',
+        {'name': 'flow_step', 'route': 'cuda', 'source': csrc + 'flow_step.cu',
          'replaces': 'glow_tts_tpu/ops/coupling.py:190',
-         **launches('flow_step'),
+         'entry': 'fused_flow_step', **launches('flow_step'),
          'max_abs_err': worst, **flow_times, 'library_ms': None},
-        {'name': 'mas', 'route': 'cuda',
-         'source': 'glow_tts_tpu_torch/csrc/mas.cu',
+        {'name': 'coupling', 'route': 'cuda', 'source': csrc + 'coupling.cu',
+         'replaces': 'glow_tts_tpu/ops/coupling.py:190',
+         'entry': 'fused_coupling', **launches('coupling'),
+         'max_abs_err': coupling_err, **coupling_times, 'library_ms': None},
+        {'name': 'flow_stack', 'route': 'cuda',
+         'source': csrc + 'flow_stack.cu',
+         'replaces': 'glow_tts_tpu/ops/coupling.py:296',
+         'entry': 'fused_flow_stack', **launches('flow_stack'),
+         'max_abs_err': stack_err, **stack_times, 'library_ms': None},
+        {'name': 'mas', 'route': 'cuda', 'source': csrc + 'mas.cu',
          'replaces': 'glow_tts_tpu/ops/mas.py:147',
-         **launches('mas'),
+         'entry': 'maximum_path_pallas', **launches('mas'),
          'max_abs_err': mas_err, **mas_times, 'library_ms': None},
         {'name': 'flow_train_fwd', 'route': 'cuda',
-         'source': 'glow_tts_tpu_torch/csrc/flow_train_fwd.cu',
+         'source': csrc + 'flow_train_fwd.cu',
          'replaces': 'glow_tts_tpu/ops/coupling_grad.py:97',
-         **launches('train_fwd'),
+         'entry': 'fused_flow_stack_train', **launches('train_fwd'),
          'max_abs_err': fwd_err, **fwd_times, 'library_ms': None},
         # one backward call per flow step: flow_train_fwd.cu's saving
         # instantiation once (the recompute), then this source's kernels
         {'name': 'flow_train_bwd', 'route': 'cuda',
-         'source': 'glow_tts_tpu_torch/csrc/flow_train_bwd.cu',
+         'source': csrc + 'flow_train_bwd.cu',
          'replaces': 'glow_tts_tpu/ops/coupling_grad.py:195',
+         'entry': 'fused_flow_stack_train (backward)',
          **launches('train_bwd'),
          'recompute_launches': launches('train_recompute')['launches'],
          'max_abs_err': bwd_err, **bwd_times, 'library_ms': None}]}))

@@ -1,7 +1,9 @@
 """glow_tts_tpu_torch — Glow-TTS in PyTorch: Vanilla serving, the
-loss/eval path and the train step, with the decoder's flow step, the
-monotonic alignment search and the train-direction flow stack (forward and
-backward) as CUDA kernels for Hopper (H100).
+loss/eval path and the train step, with the decoder's flow step, its
+coupling alone, the whole flow stack in one launch (the three routes of
+``config.coupling_backend``), the monotonic alignment search and the
+train-direction flow stack (forward and backward) as CUDA kernels for
+Hopper (H100).
 
 The port of ``glow_tts_tpu`` (JAX), which stays beside it as the
 reference: same layouts at the public functions ([B, T, C]), same

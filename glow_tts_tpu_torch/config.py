@@ -7,6 +7,15 @@ either object drives the port.  Only the fields of Vanilla-mode serving,
 of the loss/eval path and of the train step (dropout rates, optimiser) are
 kept; unknown keys are ignored, as there.  A CPU test holds every field
 against ``glow_tts_tpu.config`` on the same input.
+
+``coupling_backend`` chooses the route of the deterministic flow decoder
+(serving, evaluation), each route through its own CUDA kernel on the card
+(``ops/coupling.py``) and through that kernel's plain version on the CPU:
+``'fused'`` one ``flow_step`` call per flow step, ``'mega'`` one
+``flow_stack`` call for the whole stack, ``'modules'`` ActNorm, invertible
+1×1 and ``coupling`` as three modules per step; ``'auto'`` is ``'fused'``.
+Training goes through ``ops.coupling_grad.flow_stack_train`` under every
+value.
 """
 
 from __future__ import annotations
@@ -114,6 +123,25 @@ class TrainConfig:
     gradient_norm: float = 5.0
 
 
+COUPLING_BACKENDS = ('auto', 'fused', 'mega', 'modules')
+
+
+def coupling_backend_name(value: str) -> str:
+    """A ``TPU.coupling_backend`` of the YAML as the port names it: the
+    JAX package's ``'flax'`` is ``'modules'``, and an ``'*_interpret'``
+    value is its base name (the port has no interpreter: the tensor's
+    device picks kernel or plain version)."""
+    name = str(value)
+    if name.endswith('_interpret'):
+        name = name[:-len('_interpret')]
+    name = 'modules' if name == 'flax' else name
+    if name not in COUPLING_BACKENDS:
+        raise ValueError(f'coupling_backend must be one of '
+                         f'{COUPLING_BACKENDS} (or flax, *_interpret), '
+                         f'got {value!r}')
+    return name
+
+
 @dataclass(frozen=True)
 class Config:
     sound: SoundConfig = field(default_factory=SoundConfig)
@@ -129,6 +157,20 @@ class Config:
     # mel axis of a training batch padded up to a multiple of this (the
     # YAML's ``TPU.mel_bucket``)
     mel_bucket: int = 128
+    # route of the deterministic flow decoder (the YAML's
+    # ``TPU.coupling_backend``), one of COUPLING_BACKENDS
+    coupling_backend: str = 'auto'
+
+    def __post_init__(self):
+        object.__setattr__(self, 'coupling_backend',
+                           coupling_backend_name(self.coupling_backend))
+
+    @property
+    def flow_route(self) -> str:
+        """``coupling_backend`` with ``'auto'`` resolved: ``'fused'``,
+        ``'mega'`` or ``'modules'``."""
+        return ('fused' if self.coupling_backend == 'auto'
+                else self.coupling_backend)
 
 
 def _coerce(cls: type, data: Optional[Mapping]) -> Any:
@@ -168,6 +210,6 @@ def load_config(path_or_dict) -> Config:
         raise NotImplementedError(
             f'the PyTorch port serves Vanilla mode only (got {config.mode!r})')
     tpu = data.get('TPU') or data.get('tpu') or {}
-    buckets = {name: tpu[name] for name in ('token_bucket', 'mel_bucket')
-               if name in tpu}
-    return dataclasses.replace(config, **buckets)
+    from_tpu = {name: tpu[name] for name in (
+        'token_bucket', 'mel_bucket', 'coupling_backend') if name in tpu}
+    return dataclasses.replace(config, **from_tpu)

@@ -1,8 +1,9 @@
-// Shared device code of the flow kernels (flow_step.cu, flow_train_fwd.cu):
-// the time-tile shape arithmetic, the two block-wide float32 GEMMs with A in
-// shared memory, and the body of a flow step on one tile (coupling_net and
-// affine_forward), which both kernels instantiate.  See flow_step.cu for
-// the design they serve.
+// Shared device code of the flow kernels (flow_step.cu, coupling.cu,
+// flow_stack.cu, flow_train_fwd.cu): the time-tile shape arithmetic, the two
+// block-wide float32 GEMMs with A in shared memory, and the body of a flow
+// step on one tile (coupling_net, affine_forward and, for the deterministic
+// kernels, flow_step_tile), which every kernel instantiates.  See
+// flow_step.cu for the design they serve.
 
 #pragma once
 
@@ -81,6 +82,11 @@ static_assert(Shipped::smem_bytes <= 232448, "over the 227 KB block limit");
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
+}
+// An activation: through L2 only, never the read-only path, since
+// flow_stack.cu reads what other blocks wrote earlier in the same launch.
+__device__ __forceinline__ float4 ld_act4(const float* p) {
+  return __ldcg(reinterpret_cast<const float4*>(p));
 }
 __device__ __forceinline__ float4& at4(float* p) {
   return *reinterpret_cast<float4*>(p);
@@ -282,6 +288,23 @@ struct StepWeights {
   const float* b_end;    // [C]
 };
 
+// Flow step s of a stack whose weights are stacked along a leading axis:
+// `stacked` points at step 0 of each [steps, ...] tensor.
+template <class S>
+HD StepWeights step_of_stack(const StepWeights& stacked, int s) {
+  const size_t big = static_cast<size_t>(s) * S::NL * S::CH * S::CH2;
+  return {stacked.an_logs + s * S::C,
+          stacked.an_bias + s * S::C,
+          stacked.mix_t + s * S::C * S::C,
+          stacked.w_start + s * S::C2 * S::CH,
+          stacked.b_start + s * S::CH,
+          stacked.w_in + big * S::KS,
+          stacked.w_rs + big,
+          stacked.b_rs + s * S::NL * S::CH2,
+          stacked.w_end + s * S::CH * S::C,
+          stacked.b_end + s * S::C};
+}
+
 // Where a saving instantiation leaves what a backward pass reads, each over
 // the B*T frames.
 struct SavePointers {
@@ -293,8 +316,9 @@ struct SavePointers {
   float* logs;  // [B*T, C/2]
 };
 
-// A block's buffers in shared memory and the tile it owns: the TT frames
-// from t0 + HALO of sample b; row r of a buffer is frame t0 + r.
+// A block's buffers in shared memory and the tile it works on: the TT
+// frames from t0 + HALO of sample b, tile number `index` of that sample;
+// row r of a buffer is frame t0 + r.
 template <class S>
 struct Tile {
   float* xs;    // [x_rows, C]
@@ -303,19 +327,19 @@ struct Tile {
   float* skip;  // [span(TT), CH]
   float* ms;    // [x_rows]
   float* ring;  // [kStages, kBK, 2CH]
-  int b, B, T, t0;
+  int b, index, B, T, t0;
   size_t sample;  // first frame of sample b among the B*T
 
-  __device__ Tile(float* smem, int B_, int T_)
+  __device__ Tile(float* smem, int B_, int T_, int b_, int index_)
       : xs(smem), hs(xs + S::XS), acc(hs + S::HS), skip(acc + S::AS),
-        ms(skip + S::SS), ring(ms + S::MS), b(blockIdx.y), B(B_), T(T_),
-        t0(blockIdx.x * S::TT - S::HALO),
-        sample(static_cast<size_t>(blockIdx.y) * T_) {}
+        ms(skip + S::SS), ring(ms + S::MS), b(b_), index(index_), B(B_),
+        T(T_), t0(index_ * S::TT - S::HALO),
+        sample(static_cast<size_t>(b_) * T_) {}
 
-  // Zero x, h, the skip sum and the mask, then load the rows of x [B, T, C]
-  // and mask [B, T] whose frames lie in [0, T).
-  __device__ void load(const float* x, const float* mask) const {
-    constexpr int C = S::C;
+  // Zero x, h, the skip sum and the mask, then load the rows of
+  // mask [B, T] whose frames lie in [0, T).  load_columns calls follow,
+  // then a barrier.
+  __device__ void begin(const float* mask) const {
     const int tid = threadIdx.x;
     for (int i = tid; i < S::XS + S::HS; i += kThreads) xs[i] = 0.f;
     for (int i = tid; i < S::SS + S::MS; i += kThreads) skip[i] = 0.f;
@@ -324,12 +348,25 @@ struct Tile {
       const int t = t0 + r;
       if (t >= 0 && t < T) ms[r] = mask[sample + t];
     }
-    for (int i = tid; i < S::R * (C / 4); i += kThreads) {
-      const int t = t0 + i / (C / 4);
+  }
+
+  // Columns [col0, col0 + n) of x get the rows of src [B, T, n] whose
+  // frames lie in [0, T); src's samples lie batch_stride floats apart and
+  // its frames row_stride (multiples of 4, as are col0 and n).
+  __device__ void load_columns(const float* src, size_t batch_stride,
+                               size_t row_stride, int col0, int n) const {
+    const float* rows = src + b * batch_stride;
+    for (int i = threadIdx.x; i < S::R * (n / 4); i += kThreads) {
+      const int r = i / (n / 4), c = 4 * (i % (n / 4)), t = t0 + r;
       if (t >= 0 && t < T)
-        reinterpret_cast<float4*>(xs)[i] =
-            ldg4(x + (sample + t) * C + 4 * (i % (C / 4)));
+        at4(xs + r * S::C + col0 + c) = ld_act4(rows + t * row_stride + c);
     }
+  }
+
+  // begin, then the rows of a contiguous x [B, T, C].
+  __device__ void load(const float* x, const float* mask) const {
+    begin(mask);
+    load_columns(x, static_cast<size_t>(T) * S::C, S::C, 0, S::C);
     __syncthreads();
   }
 
@@ -489,10 +526,11 @@ __device__ __forceinline__ void coupling_net(const Tile<S>& tile,
   if constexpr (SAVE) tile.store_owned(save.logs, acc + C2, C, C2);
 }
 
-// The forward affine on the owned frames after coupling_net: z = [x_a,
-// (mean + exp(logs) * x_b) * m] into z [B, T, C].  Returns, in thread 0
+// The forward affine on the owned frames after coupling_net: z_b = (mean +
+// exp(logs) * x_b) * m.  With WHOLE, z is [B, T, C] and gets [x_a, z_b];
+// without, z is [B, T, C/2] and gets z_b alone.  Returns, in thread 0
 // only, the tile's sum of logs * m, added in a fixed order.
-template <class S>
+template <class S, bool WHOLE = true>
 __device__ __forceinline__ float affine_forward(const Tile<S>& tile,
                                                 float* z) {
   constexpr int C = S::C, C2 = S::C2, TT = S::TT, HALO = S::HALO;
@@ -507,9 +545,14 @@ __device__ __forceinline__ float affine_forward(const Tile<S>& tile,
     const float mean = acc[r * C + c], logs = acc[r * C + C2 + c];
     part += logs * m;
     if (t < tile.T) {
-      float* out = z + (tile.sample + t) * C;
-      out[c] = xs[row * C + c];
-      out[C2 + c] = (mean + expf(logs) * xs[row * C + C2 + c]) * m;
+      const float zb = (mean + expf(logs) * xs[row * C + C2 + c]) * m;
+      if constexpr (WHOLE) {
+        float* out = z + (tile.sample + t) * C;
+        out[c] = xs[row * C + c];
+        out[C2 + c] = zb;
+      } else {
+        z[(tile.sample + t) * C2 + c] = zb;
+      }
     }
   }
   for (int o = 16; o > 0; o >>= 1)
@@ -520,6 +563,79 @@ __device__ __forceinline__ float affine_forward(const Tile<S>& tile,
   if (tid == 0)
     for (int w = 0; w < kWarps; ++w) total += warp_sums[w];
   return total;
+}
+
+// The deterministic in-conv epilogue: the per-sample bias row of the layer
+// (the in-conv bias plus any conditioning), cond [NL, B, 2CH].
+struct BiasPreGate {
+  const float* cond;
+  struct Layer {
+    const float* row;    // [2CH]
+    __device__ float4 operator()(int, int col, float4 v) const {
+      return add4(v, ldg4(row + col));
+    }
+  };
+  template <class S>
+  __device__ Layer layer(int i, const Tile<S>& tile) const {
+    return {cond + (static_cast<size_t>(i) * tile.B + tile.b) * S::CH2};
+  }
+};
+
+// One deterministic flow step on one tile, from x [B, T, C] to z [B, T, C]:
+// forward ActNorm -> mixing -> coupling, returning in thread 0 the tile's
+// logdet (sum of logs * m plus ld_const per valid frame); REVERSE
+// coupling^-1 -> mixing^-1 -> ActNorm^-1 with w.mix_t the inverse mixing.
+// Ends on a barrier, so a block may go on to another tile.
+template <class S, bool REVERSE>
+__device__ __forceinline__ float flow_step_tile(const Tile<S>& tile,
+                                                const float* x,
+                                                const float* mask,
+                                                const float* cond,
+                                                const StepWeights& w,
+                                                const float* ld_const,
+                                                float* z) {
+  constexpr int C = S::C, C2 = S::C2, TT = S::TT, HALO = S::HALO;
+  const int tid = threadIdx.x;
+  float logdet = 0.f;
+  tile.load(x, mask);
+  coupling_net<S, !REVERSE, false>(tile, w, SavePointers{}, BiasPreGate{cond});
+
+  if constexpr (!REVERSE) {
+    const float total = affine_forward(tile, z);
+    if (tid == 0) {
+      float frames = 0.f;
+      for (int r = 0; r < TT; ++r) frames += tile.ms[HALO + r];
+      logdet = total + __ldg(ld_const) * frames;
+    }
+  } else {
+    float* const xs = tile.xs;
+    const float* const acc = tile.acc;
+    const float* const ms = tile.ms;
+    // coupling^-1 in place on x_b, then mixing^-1 and ActNorm^-1
+    for (int i = tid; i < TT * C2; i += kThreads) {
+      const int r = i / C2, c = i % C2, row = HALO + r;
+      const float mean = acc[r * C + c], logs = acc[r * C + C2 + c];
+      float& xb = xs[row * C + C2 + c];
+      xb = (xb - mean) * expf(-logs) * ms[row];
+    }
+    __syncthreads();
+    block_gemm<S::mr(TT), lane_quads(C)>(
+        xs + HALO * C, C, C, w.mix_t, C, C / 4,
+        [&](int r, int col, float4 v) {
+          const int row = HALO + r, t = tile.t0 + row;
+          if (r >= TT || t >= tile.T) return;
+          const float m = ms[row];
+          const float4 bias = ldg4(w.an_bias + col);
+          const float4 logs = ldg4(w.an_logs + col);
+          at4(z + (tile.sample + t) * C + col) = make_float4(
+              (v.x * m - bias.x) * expf(-logs.x) * m,
+              (v.y * m - bias.y) * expf(-logs.y) * m,
+              (v.z * m - bias.z) * expf(-logs.z) * m,
+              (v.w * m - bias.w) * expf(-logs.w) * m);
+        });
+  }
+  __syncthreads();
+  return logdet;
 }
 
 }  // namespace

@@ -28,6 +28,8 @@
 //   h, so tap d, channel c of A is h[(r + d)*pitch + c].
 // * The forward logdet is written per (sample, tile) and summed by the
 //   caller: no atomics, so it does not depend on block order.
+// The step's body on one tile is flow_common.cuh's flow_step_tile, which
+// flow_stack.cu runs too.
 
 #include "flow_common.cuh"
 
@@ -44,67 +46,16 @@ struct Params {
   int B, T, n_tiles;
 };
 
-// The in-conv's epilogue: the per-sample bias row of the layer.
-struct BiasPreGate {
-  const float* cond;
-  struct Layer {
-    const float* row;    // [2CH]
-    __device__ float4 operator()(int, int col, float4 v) const {
-      return add4(v, ldg4(row + col));
-    }
-  };
-  template <class S>
-  __device__ Layer layer(int i, const Tile<S>& tile) const {
-    return {cond + (static_cast<size_t>(i) * tile.B + tile.b) * S::CH2};
-  }
-};
-
 template <class S, bool REVERSE>
 __global__ void __launch_bounds__(kThreads, 1)
     flow_step_kernel(const Params p) {
-  constexpr int C = S::C, C2 = S::C2, TT = S::TT, HALO = S::HALO;
   extern __shared__ float4 smem4[];
-  const Tile<S> tile(reinterpret_cast<float*>(smem4), p.B, p.T);
-  const int tid = threadIdx.x;
-  tile.load(p.x, p.mask);
-  coupling_net<S, !REVERSE, false>(tile, p.w, SavePointers{},
-                                   BiasPreGate{p.cond});
-
-  if constexpr (!REVERSE) {
-    const float total = affine_forward(tile, p.z);
-    if (tid == 0) {
-      float frames = 0.f;
-      for (int r = 0; r < TT; ++r) frames += tile.ms[HALO + r];
-      p.ld_part[tile.b * p.n_tiles + blockIdx.x] =
-          total + p.ld_const[0] * frames;
-    }
-  } else {
-    float* const xs = tile.xs;
-    const float* const acc = tile.acc;
-    const float* const ms = tile.ms;
-    // coupling^-1 in place on x_b, then mixing^-1 and ActNorm^-1
-    for (int i = tid; i < TT * C2; i += kThreads) {
-      const int r = i / C2, c = i % C2, row = HALO + r;
-      const float mean = acc[r * C + c], logs = acc[r * C + C2 + c];
-      float& xb = xs[row * C + C2 + c];
-      xb = (xb - mean) * expf(-logs) * ms[row];
-    }
-    __syncthreads();
-    block_gemm<S::mr(TT), lane_quads(C)>(
-        xs + HALO * C, C, C, p.w.mix_t, C, C / 4,
-        [&](int r, int col, float4 v) {
-          const int row = HALO + r, t = tile.t0 + row;
-          if (r >= TT || t >= p.T) return;
-          const float m = ms[row];
-          const float4 bias = ldg4(p.w.an_bias + col);
-          const float4 logs = ldg4(p.w.an_logs + col);
-          at4(p.z + (tile.sample + t) * C + col) = make_float4(
-              (v.x * m - bias.x) * expf(-logs.x) * m,
-              (v.y * m - bias.y) * expf(-logs.y) * m,
-              (v.z * m - bias.z) * expf(-logs.z) * m,
-              (v.w * m - bias.w) * expf(-logs.w) * m);
-        });
-  }
+  const Tile<S> tile(reinterpret_cast<float*>(smem4), p.B, p.T, blockIdx.y,
+                     blockIdx.x);
+  const float logdet = flow_step_tile<S, REVERSE>(tile, p.x, p.mask, p.cond,
+                                                  p.w, p.ld_const, p.z);
+  if (!REVERSE && threadIdx.x == 0)
+    p.ld_part[tile.b * p.n_tiles + tile.index] = logdet;
 }
 
 template <class S, bool REVERSE>

@@ -95,13 +95,14 @@ template <class S, bool SAVE>
 __global__ void __launch_bounds__(kThreads, 1)
     flow_train_fwd_kernel(const Params p) {
   extern __shared__ float4 smem4[];
-  const Tile<S> tile(reinterpret_cast<float*>(smem4), p.B, p.T);
+  const Tile<S> tile(reinterpret_cast<float*>(smem4), p.B, p.T, blockIdx.y,
+                     blockIdx.x);
   tile.load(p.x, p.mask);
   coupling_net<S, true, SAVE>(tile, p.w, p.save,
                               DropoutPreGate{p.b_in, p.cond, p.drop, p.step});
   if constexpr (!SAVE) {
     const float total = affine_forward(tile, p.z);
-    if (threadIdx.x == 0) p.ld_part[tile.b * p.n_tiles + blockIdx.x] = total;
+    if (threadIdx.x == 0) p.ld_part[tile.b * p.n_tiles + tile.index] = total;
   }
 }
 
@@ -150,6 +151,8 @@ int glow_flow_train_fwd_f32(float* acts, const float* mask, const float* cond,
   if (B <= 0 || T <= 0) return cudaSuccess;
   const int n_tiles = ceil_div(T, S::TT);
   const size_t frames = static_cast<size_t>(B) * T;
+  const StepWeights stacked{an_logs, an_bias, mix_t, w_start, b_start,
+                            w_in, w_rs, b_rs, w_end, b_end};
   for (int s = step_begin; s < step_end; ++s) {
     Params p{};
     p.x = acts + (s - step_begin) * frames * S::C;
@@ -157,16 +160,7 @@ int glow_flow_train_fwd_f32(float* acts, const float* mask, const float* cond,
     p.cond = cond ? cond + s * (static_cast<size_t>(S::NL) * B * S::CH2)
                   : nullptr;
     p.b_in = b_in + s * S::NL * S::CH2;
-    p.w = {an_logs + s * S::C,
-           an_bias + s * S::C,
-           mix_t + s * S::C * S::C,
-           w_start + s * S::C2 * S::CH,
-           b_start + s * S::CH,
-           w_in + static_cast<size_t>(s) * S::NL * S::KS * S::CH * S::CH2,
-           w_rs + static_cast<size_t>(s) * S::NL * S::CH * S::CH2,
-           b_rs + s * S::NL * S::CH2,
-           w_end + s * S::CH * S::C,
-           b_end + s * S::C};
+    p.w = step_of_stack<S>(stacked, s);
     p.drop = dropmask::Dropout{static_cast<unsigned>(seed), threshold, scale,
                                dropout};
     p.step = static_cast<unsigned>(s);

@@ -38,7 +38,8 @@ def bucket_ladder(max_mel_length: int, num_squeeze: int,
 class Inferencer:
     """``weights``: a reference-format state dict, or the path of an
     ``S_<step>.pt`` checkpoint.  ``device`` is required: a CUDA device
-    runs the flow-step kernel, a CPU device its plain version."""
+    runs the flow kernel of ``config.coupling_backend``'s route, a CPU
+    device that kernel's plain version."""
 
     def __init__(self, weights: Union[str, os.PathLike, Mapping],
                  config, device: Union[str, torch.device],

@@ -3,12 +3,16 @@ WaveNet affine coupling] × K → unsqueeze (port of
 ``glow_tts_tpu/models/decoder.py``, ActNorm's data-dependent
 initialisation included).
 
-Deterministic (serving, evaluation): each flow step runs as one call of
-``ops.coupling.flow_step``, the CUDA kernel on the card, its plain version
-on the CPU.  The modules here hold the reference's parameters under its
-state-dict names; :meth:`FlowStep.pack` turns them, without gradients, into
-the kernel's weight dict
-(``glow_tts_tpu/models/decoder.py::FlowStep._fused_params``).
+Deterministic (serving, evaluation), by ``config.coupling_backend``:
+``'fused'`` (also ``'auto'``) runs each flow step as one call of
+``ops.coupling.flow_step``; ``'mega'`` runs the whole stack as one call of
+``ops.coupling.flow_stack`` on weights stacked over the steps; ``'modules'``
+runs ActNorm, the invertible 1×1 and the coupling as three modules per
+step, the coupling through ``ops.coupling.coupling``.  Each of the three is
+a CUDA kernel on the card and its plain version on the CPU.  The modules
+here hold the reference's parameters under its state-dict names;
+:meth:`FlowStep.pack` turns them, without gradients, into the kernels'
+weight dict (``glow_tts_tpu/models/decoder.py::FlowStep._fused_params``).
 
 Training (``deterministic=False``): the whole stack runs as one call of
 ``ops.coupling_grad.flow_stack_train`` (forward and hand-written backward
@@ -27,11 +31,17 @@ from torch import nn
 
 from glow_tts_tpu_torch.models.layers import (
     Conv1d, WNConv1d, masked, stacked_effective_weights)
-from glow_tts_tpu_torch.ops.coupling import flow_step
+from glow_tts_tpu_torch.ops.coupling import (COUPLING_WEIGHT_KEYS, coupling,
+                                             flow_stack, flow_step)
 from glow_tts_tpu_torch.ops.coupling_grad import flow_stack_train
 
 FlowStepFn = Callable[..., Tuple[torch.Tensor, Optional[torch.Tensor]]]
 FlowStackFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
+
+
+def frames(mask: torch.Tensor) -> torch.Tensor:
+    """Valid frames per sample, ``[B]`` float32, of ``mask [B, T, 1]``."""
+    return mask.float().sum(dim=(1, 2))
 
 
 def squeeze(x: torch.Tensor, mask: torch.Tensor, num_squeeze: int):
@@ -75,6 +85,16 @@ class ActNorm(nn.Module):
         self.logs.copy_((-log_std).reshape(1, -1, 1))
         self.bias.copy_((-mean * torch.exp(-log_std)).reshape(1, -1, 1))
 
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                reverse: bool = False):
+        """``x [B, T, C]``, ``mask [B, T, 1]`` → ``(z, logdet [B] | None)``:
+        ``(bias + exp(logs)·x)·mask`` and its inverse."""
+        logs, bias = self.logs.reshape(-1), self.bias.reshape(-1)
+        if reverse:
+            return masked((x - bias) * torch.exp(-logs), mask), None
+        return (masked(bias + torch.exp(logs) * x, mask),
+                logs.float().sum() * frames(mask))
+
 
 class InvertibleConv(nn.Module):
     """Invertible 1×1 conv over ``num_split`` interleaved channel groups.
@@ -91,15 +111,40 @@ class InvertibleConv(nn.Module):
         half, s2 = channels // 2, num_split // 2
         idx = np.arange(channels)
         rem = idx % half
-        self._group = torch.as_tensor((idx // half) * s2 + rem % s2)
-        self._member = torch.as_tensor(rem // s2)
+        # buffers, so they move with the module (not in the state dict)
+        self.register_buffer(
+            '_group', torch.as_tensor((idx // half) * s2 + rem % s2),
+            persistent=False)
+        self.register_buffer('_member', torch.as_tensor(rem // s2),
+                             persistent=False)
 
     def mixing_matrix(self, inverse: bool = False) -> torch.Tensor:
         """[C_out, C_in] channel mixing (of W⁻¹ when ``inverse``)."""
         w = torch.linalg.inv(self.weight) if inverse else self.weight
-        g = self._group.to(w.device)
-        m = self._member.to(w.device)
+        g, m = self._group, self._member
         return w[g[:, None], g[None, :]] * (m[:, None] == m[None, :])
+
+    def frame_logdet(self, channels: int) -> torch.Tensor:
+        """log |det| of the mixing per valid frame: the weight's, once for
+        each of the ``channels / num_split`` groups it acts on."""
+        return (torch.linalg.slogdet(self.weight)[1]
+                * (channels / self.num_split))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                reverse: bool = False,
+                packed: Optional[Tuple[torch.Tensor,
+                                       Optional[torch.Tensor]]] = None):
+        """``x [B, T, C]``, ``mask [B, T, 1]`` → ``(z, logdet [B] | None)``:
+        the channel mixing as one ``[C, C]`` product, by W⁻¹ on the inverse
+        pass.  ``packed`` is ``(mix_t [C_in, C_out], frame_logdet)`` of this
+        direction where a caller keeps them; without it both are computed
+        from the weight now."""
+        if packed is None:
+            packed = (self.mixing_matrix(inverse=reverse).t(),
+                      None if reverse else self.frame_logdet(x.shape[-1]))
+        mix_t, frame_logdet = packed
+        z = masked(x @ mix_t, mask)
+        return z, (None if reverse else frame_logdet * frames(mask))
 
 
 class WaveNet(nn.Module):
@@ -157,20 +202,48 @@ class AffineCoupling(nn.Module):
         }
         return weights, torch.stack(b_in)
 
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                reverse: bool = False, coupling_fn: FlowStepFn = coupling,
+                packed: Optional[Tuple[Dict[str, torch.Tensor],
+                                       torch.Tensor]] = None):
+        """``x [B, T, C]``, ``mask [B, T, 1]`` → ``(z, logdet [B] | None)``:
+        ``x_a`` passes, ``x_b`` goes through ``coupling_fn`` (the kernel's
+        wrapper unless a caller compares it with the plain version) on
+        ``packed``, the contiguous float32 ``(weights, cond [n, B, 2ch])``
+        a caller keeps, or on this module's weights packed now, without
+        gradients."""
+        if packed is None:
+            with torch.no_grad():
+                weights, b_in = self.pack()
+                weights = {key: value.float().contiguous()
+                           for key, value in weights.items()}
+                n, ch2 = b_in.shape
+                cond = b_in.float()[:, None, :].expand(
+                    n, x.shape[0], ch2).contiguous()
+        else:
+            weights, cond = packed
+        c2 = x.shape[-1] // 2
+        x_a = x[..., :c2]
+        z_b, logdet = coupling_fn(x_a, x[..., c2:], mask, weights, cond,
+                                  reverse=reverse)
+        return torch.cat([x_a, z_b], dim=-1), logdet
+
 
 class FlowStep(nn.Module):
     """ActNorm → invertible 1×1 → affine coupling (reverse order on the
-    inverse pass), as one ``flow_step`` call on weights packed by
-    :meth:`pack`."""
+    inverse pass): as one ``flow_step`` call on weights packed by
+    :meth:`pack`, or, on the ``'modules'`` route, module by module."""
 
     def __init__(self, config):
         super().__init__()
         c = config.sound.mel_dim * config.decoder.num_squeeze
+        self.modules_route = config.flow_route == 'modules'
         self.layers = nn.ModuleList([
             ActNorm(c), InvertibleConv(c, config.decoder.num_split),
             AffineCoupling(config)])
         self._packed: Optional[Dict[bool, Dict[str, torch.Tensor]]] = None
         self._b_in: Optional[torch.Tensor] = None
+        self._mix_logdet: Optional[torch.Tensor] = None
 
     @torch.no_grad()
     def pack(self) -> None:
@@ -182,11 +255,10 @@ class FlowStep(nn.Module):
         logs = actnorm.logs.reshape(c)
         common = {**weights, 'an_logs': logs,
                   'an_bias': actnorm.bias.reshape(c)}
-        logabsdet = torch.linalg.slogdet(invconv.weight)[1]
+        self._mix_logdet = invconv.frame_logdet(c).detach().float()
         packed = {
             False: {**common, 'mix_t': invconv.mixing_matrix().t(),
-                    'ld_const': (logs.sum() + logabsdet
-                                 * (c / invconv.num_split))},
+                    'ld_const': logs.sum() + self._mix_logdet},
             True: {**common,
                    'mix_t': invconv.mixing_matrix(inverse=True).t()},
         }
@@ -199,7 +271,7 @@ class FlowStep(nn.Module):
 
     def invalidate(self) -> None:
         """Forget the packed weights: the parameters have changed."""
-        self._packed = self._b_in = None
+        self._packed = self._b_in = self._mix_logdet = None
 
     def weights(self, reverse: bool) -> Dict[str, torch.Tensor]:
         """The packed weights of one direction, packed now if the
@@ -216,9 +288,28 @@ class FlowStep(nn.Module):
         return self._b_in[:, None, :].expand(n, batch, ch2).contiguous()
 
     def forward(self, x, mask, reverse: bool = False,
-                step_fn: FlowStepFn = flow_step):
-        return step_fn(x, mask, self.weights(reverse), self.cond(x.shape[0]),
-                       reverse)
+                step_fn: FlowStepFn = flow_step,
+                coupling_fn: FlowStepFn = coupling):
+        """→ ``(z, logdet [B] | None)``.  ``step_fn`` and ``coupling_fn``
+        are the kernels' wrappers unless a caller compares them with the
+        plain versions; the route decides which of the two runs."""
+        if not self.modules_route:
+            return step_fn(x, mask, self.weights(reverse),
+                           self.cond(x.shape[0]), reverse)
+        actnorm, invconv, coupling_module = self.layers
+        weights = self.weights(reverse)
+        packed = ({key: weights[key] for key in COUPLING_WEIGHT_KEYS},
+                  self.cond(x.shape[0]))
+        mixing = (weights['mix_t'], self._mix_logdet)
+        if reverse:
+            x, _ = coupling_module(x, mask, True, coupling_fn, packed)
+            x, _ = invconv(x, mask, True, mixing)
+            return actnorm(x, mask, True)
+        x, logdet = actnorm(x, mask)
+        x, ld = invconv(x, mask, False, mixing)
+        logdet = logdet + ld
+        x, ld = coupling_module(x, mask, False, coupling_fn, packed)
+        return x, logdet + ld
 
 
 class FlowDecoder(nn.Module):
@@ -229,18 +320,45 @@ class FlowDecoder(nn.Module):
         super().__init__()
         self.num_squeeze = config.decoder.num_squeeze
         self.dropout_rate = config.decoder.affine_coupling.wavenet.dropout_rate
+        self.mega_route = config.flow_route == 'mega'
         self.layer_Dict = nn.ModuleDict({'Flows': nn.ModuleList([
             FlowStep(config) for _ in range(config.decoder.stack)])})
+        self._stacked: Dict[bool, Dict[str, torch.Tensor]] = {}
+        self._stacked_cond: Optional[torch.Tensor] = None
 
     def pack(self) -> None:
+        self.invalidate()
         for step in self.layer_Dict['Flows']:
             step.pack()
 
     def invalidate(self) -> None:
         """Call after the parameters changed (an optimiser update): the
         deterministic path packs again at its next use."""
+        self._stacked, self._stacked_cond = {}, None
         for step in self.layer_Dict['Flows']:
             step.invalidate()
+
+    def stacked_weights(self, reverse: bool) -> Dict[str, torch.Tensor]:
+        """The packed weights of one direction of every step, stacked along
+        a leading flow axis in forward order, as ``flow_stack`` takes them
+        (``glow_tts_tpu/models/decoder.py::FlowDecoder._mega``); stacked
+        once and kept until the parameters change."""
+        if reverse not in self._stacked:
+            packs = [step.weights(reverse)
+                     for step in self.layer_Dict['Flows']]
+            self._stacked[reverse] = {
+                key: torch.stack([pack[key] for pack in packs])
+                for key in packs[0]}
+        return self._stacked[reverse]
+
+    def stacked_cond(self, batch: int) -> torch.Tensor:
+        """Per-step, per-layer, per-sample bias ``[S, n, B, 2ch]``."""
+        if self._stacked_cond is None:
+            self._stacked_cond = torch.stack(
+                [step.cond(1)[:, 0] for step in self.layer_Dict['Flows']])
+        s, n, ch2 = self._stacked_cond.shape
+        return self._stacked_cond[:, :, None, :].expand(
+            s, n, batch, ch2).contiguous()
 
     def pack_train(self) -> Dict[str, torch.Tensor]:
         """The forward weights of every step in the train kernels' layout,
@@ -279,8 +397,7 @@ class FlowDecoder(nn.Module):
         c = actnorms[0].logs.shape[1]
         logs = torch.stack([a.logs.reshape(c) for a in actnorms])
         mix_w = torch.stack([inv.weight for inv in invconvs])    # [S, s, s]
-        group = invconvs[0]._group.to(mix_w.device)
-        member = invconvs[0]._member.to(mix_w.device)
+        group, member = invconvs[0]._group, invconvs[0]._member
         mixing = (mix_w[:, group[:, None], group[None, :]]
                   * (member[:, None] == member[None, :]))       # [S, out, in]
         logabsdet = torch.linalg.slogdet(mix_w)[1]
@@ -304,24 +421,31 @@ class FlowDecoder(nn.Module):
     def data_dependent_init(self, x, mask,
                             step_fn: FlowStepFn = flow_step) -> None:
         """ActNorm's data-dependent initialisation on the batch
-        ``x [B, T, M]``, ``mask [B, T, 1]``, step by step: each step's
-        statistics come from its own input, so a step is set, re-packed
-        and run forward before the next one is set."""
+        ``x [B, T, M]``, ``mask [B, T, 1]``, step by step under every
+        route: each step's statistics come from its own input, so a step
+        is set, re-packed and run forward (through ``step_fn``) before the
+        next one is set."""
         x, sq_mask = squeeze(x, mask, self.num_squeeze)
+        self.invalidate()
         for step in self.layer_Dict['Flows']:
             step.layers[0].data_dependent_init(x, sq_mask)
             step.pack()
-            x, _ = step(x, sq_mask, False, step_fn)
+            x, _ = step_fn(x, sq_mask, step.weights(False),
+                           step.cond(x.shape[0]), False)
 
     def forward(self, x, mask, reverse: bool = False,
                 step_fn: FlowStepFn = flow_step, deterministic: bool = True,
                 seed: Optional[int] = None,
-                stack_fn: FlowStackFn = flow_stack_train):
-        """x [B, T, M]; mask [B, T, 1].  ``step_fn`` and ``stack_fn`` are
-        the kernels' wrappers unless a caller compares them with the plain
-        versions.  ``deterministic=False`` (forward only) is the
-        differentiable train route with WaveNet dropout drawn from the
-        int32 ``seed``.  Returns (x, logdet [B] or None, mask)."""
+                stack_fn: FlowStackFn = flow_stack_train,
+                coupling_fn: FlowStepFn = coupling,
+                flow_stack_fn: FlowStepFn = flow_stack):
+        """x [B, T, M]; mask [B, T, 1].  ``step_fn``, ``coupling_fn`` and
+        ``flow_stack_fn`` (the deterministic routes' functions) and
+        ``stack_fn`` (the train route's) are the kernels' wrappers unless a
+        caller compares them with the plain versions.
+        ``deterministic=False`` (forward only) is the differentiable train
+        route with WaveNet dropout drawn from the int32 ``seed``.  Returns
+        (x, logdet [B] or None, mask)."""
         x, sq_mask = squeeze(x, mask, self.num_squeeze)
         if not deterministic:
             if reverse or seed is None:
@@ -329,14 +453,17 @@ class FlowDecoder(nn.Module):
                                  'a seed')
             x, logdet = stack_fn(x, sq_mask, self.pack_train(), None, None,
                                  seed=seed, dropout_rate=self.dropout_rate)
-            x, out_mask = unsqueeze(x, sq_mask, self.num_squeeze)
-            return x, logdet, out_mask
-        steps = list(self.layer_Dict['Flows'])
-        logdet = None if reverse else torch.zeros(
-            x.shape[0], device=x.device)
-        for step in (reversed(steps) if reverse else steps):
-            x, ld = step(x, sq_mask, reverse, step_fn)
-            if ld is not None:
-                logdet = logdet + ld
+        elif self.mega_route:
+            x, logdet = flow_stack_fn(
+                x, sq_mask, self.stacked_weights(reverse),
+                self.stacked_cond(x.shape[0]), reverse=reverse)
+        else:
+            steps = list(self.layer_Dict['Flows'])
+            logdet = None if reverse else torch.zeros(
+                x.shape[0], device=x.device)
+            for step in (reversed(steps) if reverse else steps):
+                x, ld = step(x, sq_mask, reverse, step_fn, coupling_fn)
+                if ld is not None:
+                    logdet = logdet + ld
         x, out_mask = unsqueeze(x, sq_mask, self.num_squeeze)
         return x, logdet, out_mask

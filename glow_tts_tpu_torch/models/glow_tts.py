@@ -24,7 +24,7 @@ from glow_tts_tpu_torch.models.encoder import TextEncoder
 from glow_tts_tpu_torch.models.layers import (
     Conv1d, RelativePositionMultiHeadAttention, WNConv1d, fold_weight_norm,
     sequence_mask)
-from glow_tts_tpu_torch.ops.coupling import flow_step
+from glow_tts_tpu_torch.ops.coupling import coupling, flow_stack, flow_step
 from glow_tts_tpu_torch.ops.coupling_grad import flow_stack_train
 from glow_tts_tpu_torch.ops.mas import maximum_path
 
@@ -84,17 +84,21 @@ class GlowTTS(nn.Module):
                 mas_fn: MasFn = maximum_path, deterministic: bool = True,
                 seed: Optional[int] = None,
                 generator: Optional[torch.Generator] = None,
-                stack_fn: FlowStackFn = flow_stack_train
+                stack_fn: FlowStackFn = flow_stack_train,
+                coupling_fn: FlowStepFn = coupling,
+                flow_stack_fn: FlowStepFn = flow_stack
                 ) -> Dict[str, torch.Tensor]:
         """The train forward: tokens [B, T_tok] int, mels [B, T_mel, M],
         lengths [B] int (mel lengths multiples of ``num_squeeze``).  MAS
         runs on detached statistics and is not differentiated through.
-        ``step_fn``, ``stack_fn`` and ``mas_fn`` are the kernels' wrappers
-        unless a caller compares them with their plain versions.
+        ``step_fn``, ``coupling_fn``, ``flow_stack_fn``, ``stack_fn`` and
+        ``mas_fn`` are the kernels' wrappers unless a caller compares them
+        with their plain versions.
 
         Deterministic (the default) there is no dropout and the flow runs
-        step by step through ``step_fn``, which has no backward: on the
-        card that is for ``torch.no_grad()``.  ``deterministic=False`` is
+        by the route of ``config.coupling_backend`` through ``step_fn``,
+        ``coupling_fn`` or ``flow_stack_fn``, which have no backward: on
+        the card that is for ``torch.no_grad()``.  ``deterministic=False`` is
         the train step's forward: encoder dropout from ``generator`` (on
         the tensors' device), the flow through ``stack_fn`` with WaveNet
         dropout from the int32 ``seed``, differentiable throughout."""
@@ -107,7 +111,8 @@ class GlowTTS(nn.Module):
             tokens, token_mask, deterministic, generator)
         z, log_dets, mel_mask = self.layer_Dict['Decoder'](
             mels, mel_mask, step_fn=step_fn, deterministic=deterministic,
-            seed=seed, stack_fn=stack_fn)
+            seed=seed, stack_fn=stack_fn, coupling_fn=coupling_fn,
+            flow_stack_fn=flow_stack_fn)
 
         attn_mask = token_mask * mel_mask[:, None, :, 0]    # [B,T_tok,T_mel]
         with torch.no_grad():
@@ -158,11 +163,14 @@ class GlowTTS(nn.Module):
                          generator: Optional[torch.Generator] = None,
                          noise_scale: float = 1.0,
                          max_mel_length: int = 1024,
-                         step_fn: FlowStepFn = flow_step
+                         step_fn: FlowStepFn = flow_step,
+                         coupling_fn: FlowStepFn = coupling,
+                         flow_stack_fn: FlowStepFn = flow_stack
                          ) -> Dict[str, torch.Tensor]:
         """Phase 2 at the static capacity ``max_mel_length``: path, z and
-        the inverse flow.  The unit-normal ``noise [B, max_mel_length, M]``
-        is drawn from ``generator`` unless given."""
+        the inverse flow by the route of ``config.coupling_backend``.  The
+        unit-normal ``noise [B, max_mel_length, M]`` is drawn from
+        ``generator`` unless given."""
         mean, log_std = prior['mean'], prior['log_std']
         durations, token_mask = prior['durations'], prior['token_mask']
         s = self.config.decoder.num_squeeze
@@ -184,7 +192,8 @@ class GlowTTS(nn.Module):
         z = (mel_mean + torch.exp(mel_log_std) * noise * noise_scale) \
             * mel_mask
         mels, _, mel_mask = self.layer_Dict['Decoder'](
-            z, mel_mask, reverse=True, step_fn=step_fn)
+            z, mel_mask, reverse=True, step_fn=step_fn,
+            coupling_fn=coupling_fn, flow_stack_fn=flow_stack_fn)
         fill = torch.full_like(mels, -self.config.sound.max_abs_mel)
         mels = torch.where(mel_mask > 0, mels, fill)
         return {'mels': mels, 'mel_lengths': mel_lengths,

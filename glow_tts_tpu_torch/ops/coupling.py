@@ -1,19 +1,29 @@
-"""One flow step of the Glow decoder as one CUDA kernel.
+"""The deterministic flow of the Glow decoder as CUDA kernels, one per
+route of ``config.coupling_backend``:
 
-Replaces ``glow_tts_tpu/ops/coupling.py::_make_kernel(flowstep=True)``
-(entry ``fused_flow_step``): ActNorm → block-sparse invertible 1×1 →
-WaveNet affine coupling, in reverse order on the inverse pass.  The kernel
-is ``glow_tts_tpu_torch/csrc/flow_step.cu``; this module holds its plain
-PyTorch version (:func:`flow_step_reference`) and the wrapper
-(:func:`flow_step`) that picks between them by the tensor's device alone.
+* :func:`flow_step` (``csrc/flow_step.cu``) replaces
+  ``glow_tts_tpu/ops/coupling.py::_make_kernel(flowstep=True)`` (entry
+  ``fused_flow_step``): ActNorm → block-sparse invertible 1×1 → WaveNet
+  affine coupling, in reverse order on the inverse pass.
+* :func:`coupling` (``csrc/coupling.cu``) replaces
+  ``_make_kernel(flowstep=False)`` (entry ``fused_coupling``): the affine
+  coupling alone, on the two halves of the channels.
+* :func:`flow_stack` (``csrc/flow_stack.cu``) replaces
+  ``_make_mega_kernel`` (entry ``fused_flow_stack``): all the flow steps in
+  one launch, over weights stacked along a leading step axis.
 
-What bounds it on an H100: arithmetic.  Per squeezed frame a step costs
-about 3.7 MFLOP (4 layers × (k=5 conv 192→384 + 1×1 192→384), plus the
+Beside each wrapper stands its plain PyTorch version (``*_reference``);
+the wrapper picks between kernel and plain version by the tensor's device
+alone: a CPU tensor takes the plain version, a CUDA tensor launches the
+kernel or raises.
+
+What bounds them on an H100: arithmetic.  Per squeezed frame a step costs
+about 3.6 MFLOP (4 layers × (k=5 conv 192→384 + 1×1 192→384), plus the
 start, end and mixing 1×1s), so one B=32 decode of 1024 mel frames
-(512 squeezed, 12 steps) is about 0.72 TFLOP, while its activations are
+(512 squeezed, 12 steps) is about 0.71 TFLOP, while its activations are
 a few MB per step and its f32 weights about 7 MB (L2 holds them).  The
 unfused version writes every ``[B, T, 384]`` intermediate to device
-memory and back; the kernel keeps a whole step's activations in shared
+memory and back; the kernels keep a whole step's activations in shared
 memory: one block per (sample, 32-frame tile) loads the tile plus the
 WaveNet's receptive-field halo (8 frames each side at k=5, 4 layers),
 recomputes the halo instead of exchanging it, and writes only the step's
@@ -37,6 +47,7 @@ Weights = Dict[str, torch.Tensor]
 KERNEL_SHAPE = {'channels': 160, 'ch': 192, 'n_layers': 4, 'kernel_size': 5}
 WEIGHT_KEYS = ('an_logs', 'an_bias', 'mix_t', 'w_start', 'b_start', 'w_in',
                'w_rs', 'b_rs', 'w_end', 'b_end')
+COUPLING_WEIGHT_KEYS = WEIGHT_KEYS[3:]         # the coupling's own
 
 
 def wavenet_stats(x_a: torch.Tensor, mask: torch.Tensor, weights: Weights,
@@ -99,6 +110,116 @@ def flow_step_reference(x: torch.Tensor, mask: torch.Tensor,
     return torch.cat([x_a, z_b], dim=-1), logdet
 
 
+def coupling_reference(x_a: torch.Tensor, x_b: torch.Tensor,
+                       mask: torch.Tensor, weights: Weights,
+                       cond: torch.Tensor,
+                       pitch: Optional[torch.Tensor] = None,
+                       reverse: bool = False
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch affine coupling, the same function as the kernel.
+
+    ``x_a``, ``x_b [B, T, C/2]`` (the WaveNet reads ``x_a``),
+    ``mask [B, T, 1]``; ``weights`` as
+    ``glow_tts_tpu.ops.coupling.fused_coupling`` takes them (those of
+    :func:`flow_step_reference` without ``an_logs``, ``an_bias``, ``mix_t``
+    and ``ld_const``).  Returns ``(z_b [B, T, C/2], logdet [B] | None)``."""
+    mean, logs = wavenet_stats(x_a, mask, weights, cond, pitch)
+    if reverse:
+        return (x_b - mean) * torch.exp(-logs) * mask, None
+    return ((mean + torch.exp(logs) * x_b) * mask,
+            (logs * mask).sum(dim=(1, 2)))
+
+
+def flow_stack_reference(x: torch.Tensor, mask: torch.Tensor,
+                         weights: Weights, cond: torch.Tensor,
+                         pitch: Optional[torch.Tensor] = None,
+                         reverse: bool = False
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch flow stack, the same function as the kernel: a loop of
+    :func:`flow_step_reference`.
+
+    ``weights`` are those of :func:`flow_step_reference`, each stacked
+    along a leading axis of ``S`` flow steps (``ld_const [S]``, forward),
+    as ``glow_tts_tpu.ops.coupling.fused_flow_stack`` takes them;
+    ``cond [S, n, B, 2ch]``.  The inverse pass runs the steps ``S − 1 … 0``.
+    Returns ``(z [B, T, C], logdet [B] summed over the steps | None)``."""
+    steps = weights['w_in'].shape[0]
+    logdet = None if reverse else torch.zeros(x.shape[0], device=x.device)
+    for s in (reversed(range(steps)) if reverse else range(steps)):
+        x, ld = flow_step_reference(
+            x, mask, {key: value[s] for key, value in weights.items()},
+            cond[s], reverse, pitch)
+        if ld is not None:
+            logdet = logdet + ld
+    return x, logdet
+
+
+def _weight_shapes(c: int, n: int, k: int, ch: int) -> Dict[str, tuple]:
+    """The shapes of one flow step's weights, in ``WEIGHT_KEYS`` order."""
+    shapes = {'an_logs': (c,), 'an_bias': (c,), 'mix_t': (c, c),
+              'w_start': (c // 2, ch), 'b_start': (ch,),
+              'w_in': (n, k, ch, 2 * ch), 'w_rs': (n, ch, 2 * ch),
+              'b_rs': (n, 2 * ch), 'w_end': (ch, c), 'b_end': (c,)}
+    return {key: shapes[key] for key in WEIGHT_KEYS}
+
+
+def _check_launch(name: str, x: torch.Tensor, pitch: Optional[torch.Tensor],
+                  channels: int, w_in_shape: Tuple[int, ...],
+                  tensors: Dict[str, Tuple[torch.Tensor, tuple]],
+                  views: Optional[Dict[str, Tuple[torch.Tensor, tuple]]] = None
+                  ) -> None:
+    """What every kernel of this module asks of a CUDA call: no pitch, no
+    tensor that requires grad, the shipped widths, and each of ``tensors``
+    (name → (tensor, shape)) a contiguous float32 tensor of its shape on
+    ``x``'s device.  ``views`` may be slices of a wider tensor's channels:
+    unit stride along the channels, every other stride and the address a
+    multiple of 4 floats, as the kernel's 16-byte loads need.  Raises
+    otherwise."""
+    views = views or {}
+    if x.device.type != 'cuda':
+        raise ValueError(f'{name}: no kernel for device {x.device}')
+    if pitch is not None:
+        raise NotImplementedError(
+            f'{name}: pitch conditioning is not in the CUDA kernel yet')
+    if torch.is_grad_enabled() and any(
+            tensor.requires_grad
+            for tensor, _ in (*tensors.values(), *views.values())):
+        raise RuntimeError(
+            f'{name}: the CUDA kernel has no backward; run it under '
+            'torch.no_grad() or on detached tensors, or train through '
+            'ops.coupling_grad.flow_stack_train')
+    n, k, ch, _ = w_in_shape
+    got = {'channels': channels, 'ch': ch, 'n_layers': n, 'kernel_size': k}
+    if got != KERNEL_SHAPE:
+        raise ValueError(f'{name} kernel is built for {KERNEL_SHAPE}, '
+                         f'got {got}')
+    for key, (tensor, shape) in tensors.items():
+        if (tensor.device != x.device or tensor.dtype != torch.float32
+                or tuple(tensor.shape) != tuple(shape)
+                or not tensor.is_contiguous()):
+            raise ValueError(
+                f'{name}: {key} must be a contiguous float32 tensor of '
+                f'shape {tuple(shape)} on {x.device}; got '
+                f'{tuple(tensor.shape)} {tensor.dtype} on {tensor.device}')
+    for key, (view, shape) in views.items():
+        if (view.device != x.device or view.dtype != torch.float32
+                or tuple(view.shape) != tuple(shape) or view.stride(-1) != 1
+                or any(stride % 4 for stride in view.stride()[:-1])
+                or view.data_ptr() % 16):
+            raise ValueError(
+                f'{name}: {key} must be a float32 tensor of shape '
+                f'{tuple(shape)} on {x.device} with unit stride along the '
+                f'channels and 16-byte aligned rows; got '
+                f'{tuple(view.shape)} {view.dtype} strides {view.stride()} '
+                f'on {view.device}')
+
+
+def _raise_on(name: str, lib: ctypes.CDLL, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f'{name} kernel launch failed: '
+                           + lib.glow_cuda_error_string(err).decode())
+
+
 def flow_step(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
               cond: torch.Tensor, reverse: bool = False,
               pitch: Optional[torch.Tensor] = None
@@ -108,40 +229,15 @@ def flow_step(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
     :func:`flow_step_reference`."""
     if x.device.type == 'cpu':
         return flow_step_reference(x, mask, weights, cond, reverse, pitch)
-    if x.device.type != 'cuda':
-        raise ValueError(f'flow_step: no kernel for device {x.device}')
-    if pitch is not None:
-        raise NotImplementedError(
-            'flow_step: pitch conditioning is not in the CUDA kernel yet')
-    if torch.is_grad_enabled() and any(
-            tensor.requires_grad for tensor in (x, cond, *weights.values())):
-        raise RuntimeError(
-            'flow_step: the CUDA kernel has no backward; run it under '
-            'torch.no_grad() or on detached tensors, or train through '
-            'ops.coupling_grad.flow_stack_train')
     b, t, c = x.shape
     n, k, ch, ch2 = weights['w_in'].shape
-    got = {'channels': c, 'ch': ch, 'n_layers': n, 'kernel_size': k}
-    if got != KERNEL_SHAPE:
-        raise ValueError(f'flow_step kernel is built for {KERNEL_SHAPE}, '
-                         f'got {got}')
-    shapes = {'an_logs': (c,), 'an_bias': (c,), 'mix_t': (c, c),
-              'w_start': (c // 2, ch), 'b_start': (ch,),
-              'w_in': (n, k, ch, ch2), 'w_rs': (n, ch, ch2),
-              'b_rs': (n, ch2), 'w_end': (ch, c), 'b_end': (c,)}
+    shapes = _weight_shapes(c, n, k, ch)
     if not reverse:
         shapes['ld_const'] = ()
-    tensors = {'x': (x, (b, t, c)), 'mask': (mask, (b, t, 1)),
-               'cond': (cond, (n, b, ch2)),
-               **{key: (weights[key], shape) for key, shape in shapes.items()}}
-    for name, (tensor, shape) in tensors.items():
-        if (tensor.device != x.device or tensor.dtype != torch.float32
-                or tuple(tensor.shape) != shape
-                or not tensor.is_contiguous()):
-            raise ValueError(
-                f'flow_step: {name} must be a contiguous float32 tensor of '
-                f'shape {shape} on {x.device}; got {tuple(tensor.shape)} '
-                f'{tensor.dtype} on {tensor.device}')
+    _check_launch('flow_step', x, pitch, c, weights['w_in'].shape, {
+        'x': (x, (b, t, c)), 'mask': (mask, (b, t, 1)),
+        'cond': (cond, (n, b, ch2)),
+        **{key: (weights[key], shape) for key, shape in shapes.items()}})
 
     lib = load_flow_step_library()
     z = torch.empty_like(x)
@@ -154,12 +250,9 @@ def flow_step(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
         ld_ptr = weights['ld_const'].data_ptr()
         part_ptr = ld_part.data_ptr()
     inputs = [x, mask, cond] + [weights[key] for key in WEIGHT_KEYS]
-    err = lib.glow_flow_step_f32(
+    _raise_on('flow_step', lib, lib.glow_flow_step_f32(
         *[p.data_ptr() for p in inputs], ld_ptr, z.data_ptr(), part_ptr,
-        b, t, int(reverse), torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError('flow_step kernel launch failed: '
-                           + lib.glow_cuda_error_string(err).decode())
+        b, t, int(reverse), torch.cuda.current_stream(x.device).cuda_stream))
     flow_step.launches += 1
     return z, (None if ld_part is None else ld_part.sum(dim=1))
 
@@ -167,17 +260,131 @@ def flow_step(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
 flow_step.launches = 0
 
 
-@functools.cache
-def load_flow_step_library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel's library, typed."""
+def coupling(x_a: torch.Tensor, x_b: torch.Tensor, mask: torch.Tensor,
+             weights: Weights, cond: torch.Tensor,
+             pitch: Optional[torch.Tensor] = None, reverse: bool = False
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The affine coupling alone: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor.  Arguments and result as
+    :func:`coupling_reference`.  On the card ``x_a`` and ``x_b`` may be the
+    two halves of one ``[B, T, C]`` tensor, read where they lie."""
+    if x_a.device.type == 'cpu':
+        return coupling_reference(x_a, x_b, mask, weights, cond, pitch,
+                                  reverse)
+    b, t, c2 = x_a.shape
+    n, k, ch, ch2 = weights['w_in'].shape
+    shapes = {key: shape
+              for key, shape in _weight_shapes(2 * c2, n, k, ch).items()
+              if key in COUPLING_WEIGHT_KEYS}
+    _check_launch('coupling', x_a, pitch, 2 * c2, weights['w_in'].shape, {
+        'mask': (mask, (b, t, 1)), 'cond': (cond, (n, b, ch2)),
+        **{key: (weights[key], shape) for key, shape in shapes.items()}},
+        views={'x_a': (x_a, (b, t, c2)), 'x_b': (x_b, (b, t, c2))})
+
+    lib = load_coupling_library()
+    z_b = torch.empty((b, t, c2), device=x_a.device)
+    ld_part = None                              # NULL: unused on reverse
+    if not reverse:
+        n_tiles = -(-t // lib.glow_coupling_time_tile())
+        ld_part = torch.empty((b, n_tiles), device=x_a.device)
+    _raise_on('coupling', lib, lib.glow_coupling_f32(
+        x_a.data_ptr(), x_a.stride(0), x_a.stride(1),
+        x_b.data_ptr(), x_b.stride(0), x_b.stride(1),
+        mask.data_ptr(), cond.data_ptr(),
+        *[weights[key].data_ptr() for key in COUPLING_WEIGHT_KEYS],
+        z_b.data_ptr(), None if ld_part is None else ld_part.data_ptr(),
+        b, t, int(reverse),
+        torch.cuda.current_stream(x_a.device).cuda_stream))
+    coupling.launches += 1
+    return z_b, (None if ld_part is None else ld_part.sum(dim=1))
+
+
+coupling.launches = 0
+
+
+def flow_stack(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
+               cond: torch.Tensor, pitch: Optional[torch.Tensor] = None,
+               reverse: bool = False
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """All the flow steps in one launch: the CUDA kernel for a CUDA tensor,
+    the plain version for a CPU tensor.  Arguments and result as
+    :func:`flow_stack_reference`."""
+    if x.device.type == 'cpu':
+        return flow_stack_reference(x, mask, weights, cond, pitch, reverse)
+    b, t, c = x.shape
+    steps, n, k, ch, ch2 = weights['w_in'].shape
+    shapes = {key: (steps, *shape)
+              for key, shape in _weight_shapes(c, n, k, ch).items()}
+    if not reverse:
+        shapes['ld_const'] = (steps,)
+    _check_launch('flow_stack', x, pitch, c, weights['w_in'].shape[1:], {
+        'x': (x, (b, t, c)), 'mask': (mask, (b, t, 1)),
+        'cond': (cond, (steps, n, b, ch2)),
+        **{key: (weights[key], shape) for key, shape in shapes.items()}})
+
+    lib = load_flow_stack_library()
+    # the steps go to and fro between two buffers (a step's neighbours may
+    # still be reading its input), the last one into z
+    z = torch.empty_like(x)
+    other = torch.empty_like(x) if steps > 1 else None
+    barrier = torch.empty(1, dtype=torch.int32, device=x.device)
+    ld_part = ld_ptr = None                     # NULL: unused on reverse
+    if not reverse:
+        # per-(sample, time tile) logdets, added over the steps in the
+        # kernel and over the tiles below, in a fixed order
+        n_tiles = -(-t // lib.glow_flow_stack_time_tile())
+        ld_part = torch.empty((b, n_tiles), device=x.device)
+        ld_ptr = weights['ld_const'].data_ptr()
+    inputs = [x, mask, cond] + [weights[key] for key in WEIGHT_KEYS]
+    _raise_on('flow_stack', lib, lib.glow_flow_stack_f32(
+        *[p.data_ptr() for p in inputs], ld_ptr, z.data_ptr(),
+        None if other is None else other.data_ptr(),
+        None if ld_part is None else ld_part.data_ptr(), barrier.data_ptr(),
+        b, t, steps, int(reverse),
+        torch.cuda.current_stream(x.device).cuda_stream))
+    flow_stack.launches += 1
+    return z, (None if ld_part is None else ld_part.sum(dim=1))
+
+
+flow_stack.launches = 0
+
+
+def _load(source: str, entry: str, argtypes: list,
+          extra: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/<source>``, typed: its entry
+    point, its time-tile query (and the other int queries in ``extra``) and
+    the error-string function every library has."""
     from glow_tts_tpu_torch.ops.cuda_build import load_library
-    lib = load_library('flow_step.cu')
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.glow_flow_step_f32.argtypes = ([vp] * (3 + len(WEIGHT_KEYS) + 3)
-                                       + [ci, ci, ci, vp])
-    lib.glow_flow_step_f32.restype = ci
-    lib.glow_flow_step_time_tile.argtypes = []
-    lib.glow_flow_step_time_tile.restype = ci
+    lib = load_library(source)
+    ci = ctypes.c_int
+    getattr(lib, entry).argtypes = argtypes
+    getattr(lib, entry).restype = ci
+    for query in (entry[:-len('f32')] + 'time_tile', *extra):
+        getattr(lib, query).argtypes = []
+        getattr(lib, query).restype = ci
     lib.glow_cuda_error_string.argtypes = [ci]
     lib.glow_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def load_flow_step_library() -> ctypes.CDLL:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return _load('flow_step.cu', 'glow_flow_step_f32',
+                 [vp] * (3 + len(WEIGHT_KEYS) + 3) + [ci, ci, ci, vp])
+
+
+@functools.cache
+def load_coupling_library() -> ctypes.CDLL:
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    return _load('coupling.cu', 'glow_coupling_f32',
+                 [vp, ll, ll] * 2 + [vp] * (2 + len(COUPLING_WEIGHT_KEYS) + 2)
+                 + [ci, ci, ci, vp])
+
+
+@functools.cache
+def load_flow_stack_library() -> ctypes.CDLL:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return _load('flow_stack.cu', 'glow_flow_stack_f32',
+                 [vp] * (3 + len(WEIGHT_KEYS) + 5) + [ci, ci, ci, ci, vp],
+                 extra=('glow_flow_stack_resident_blocks',))

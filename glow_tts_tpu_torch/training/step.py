@@ -15,7 +15,7 @@ import torch
 
 from glow_tts_tpu_torch.models.decoder import FlowStackFn, FlowStepFn
 from glow_tts_tpu_torch.models.glow_tts import GlowTTS, MasFn
-from glow_tts_tpu_torch.ops.coupling import flow_step
+from glow_tts_tpu_torch.ops.coupling import coupling, flow_stack, flow_step
 from glow_tts_tpu_torch.ops.coupling_grad import flow_stack_train
 from glow_tts_tpu_torch.ops.mas import maximum_path
 from glow_tts_tpu_torch.training import losses
@@ -100,18 +100,22 @@ def make_train_step(config, model: GlowTTS, optimizer: RAdam, *,
 
 
 def make_eval_step(config, model: GlowTTS, step_fn: FlowStepFn = flow_step,
-                   mas_fn: MasFn = maximum_path
+                   mas_fn: MasFn = maximum_path,
+                   coupling_fn: FlowStepFn = coupling,
+                   flow_stack_fn: FlowStepFn = flow_stack
                    ) -> Callable[[Batch], Tuple[Dict, Dict]]:
     """``eval_step(batch) -> (loss_dict, outputs)`` on the model's current
-    weights, without gradients.  ``step_fn`` and ``mas_fn`` are the
-    kernels' wrappers unless a caller compares them with their plain
-    versions."""
+    weights, without gradients; the flow takes the route of the model's
+    ``coupling_backend``.  ``step_fn``, ``coupling_fn``, ``flow_stack_fn``
+    and ``mas_fn`` are the kernels' wrappers unless a caller compares them
+    with their plain versions."""
 
     @torch.no_grad()
     def eval_step(batch: Batch):
         outputs = model(batch['tokens'], batch['token_lengths'],
                         batch['mels'], batch['mel_lengths'],
-                        step_fn=step_fn, mas_fn=mas_fn)
+                        step_fn=step_fn, mas_fn=mas_fn,
+                        coupling_fn=coupling_fn, flow_stack_fn=flow_stack_fn)
         return compute_losses(config, outputs, batch), outputs
 
     return eval_step

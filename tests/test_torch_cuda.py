@@ -9,7 +9,13 @@ the kernel's limits.  The train-direction flow stack (forward and backward
 kernels) against its plain version and autograd of it: T not a multiple of
 the tile, samples of length 1 and of full length, B = 1, dropout rates 0,
 0.05 and 0.5, per-sample conditioning, and a loss through the logdet alone
-or through z alone.  Needs a GPU and nvcc; skipped without.
+or through z alone.  The coupling alone: the same tile edges, its two
+halves as views of one tensor and as tensors of their own, and what its
+wrapper refuses.  The whole stack in one launch: 1, 2 and 3 steps (the
+result lands in either buffer), T below, at and above one tile, fewer and
+more (sample, tile) items than resident blocks, against the plain version
+and bit for bit against a chain of flow-step launches and against itself.
+Needs a GPU and nvcc; skipped without.
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
@@ -310,3 +316,146 @@ def test_train_wrapper_refuses_what_the_kernels_do_not_take(device):
                             seed=0)
     with pytest.raises(ValueError, match='dropout_rate'):
         tg.flow_stack_train(x, mask, w, seed=0, dropout_rate=1.0)
+
+
+def _ragged(gen, lengths, device, c=160):
+    t = max(lengths)
+    mask = (torch.arange(t)[None, :] < torch.tensor(lengths)[:, None]
+            ).float()[..., None]
+    x = torch.randn((len(lengths), t, c), generator=gen) * mask
+    return x.to(device), mask.to(device)
+
+
+@pytest.mark.parametrize('length', [1, 5, 31, 32, 33, 70])
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('views', [True, False])
+def test_coupling_kernel_matches_plain_at_tile_edges(device, length, reverse,
+                                                     views):
+    gen = torch.Generator().manual_seed(100 + length)
+    w, cond = _weights(gen, device)
+    x, mask = _ragged(gen, [length, 1, max(length // 2, 1), length], device)
+    x_a, x_b = x[..., :80], x[..., 80:]
+    if not views:
+        x_a, x_b = x_a.contiguous(), x_b.contiguous()
+    before = tc.coupling.launches
+    z_b, ld = tc.coupling(x_a, x_b, mask, w, cond, reverse=reverse)
+    torch.cuda.synchronize()
+    assert tc.coupling.launches == before + 1
+    z_ref, ld_ref = tc.coupling_reference(x_a, x_b, mask, w, cond,
+                                          reverse=reverse)
+    assert z_b.shape == (4, length, 80) and z_b.is_contiguous()
+    assert _rel(z_b, z_ref) < REL
+    assert (z_b[mask.expand_as(z_b) == 0] == 0).all()
+    if reverse:
+        assert ld is None
+    else:
+        assert _rel(ld, ld_ref) < REL
+
+
+def test_coupling_round_trip(device):
+    gen = torch.Generator().manual_seed(7)
+    w, cond = _weights(gen, device)
+    x, mask = _ragged(gen, [70, 1, 35, 64], device)
+    x_a, x_b = x[..., :80], x[..., 80:]
+    z_b, _ = tc.coupling(x_a, x_b, mask, w, cond)
+    back, _ = tc.coupling(x_a, z_b, mask, w, cond, reverse=True)
+    assert _rel(back, x_b) < 1e-5
+
+
+def test_coupling_wrapper_refuses_what_the_kernel_does_not_take(device):
+    gen = torch.Generator().manual_seed(0)
+    w, cond = _weights(gen, device)
+    x = torch.zeros((4, 8, 168), device=device)
+    x_a, x_b = x[..., :80], x[..., 80:160]
+    mask = torch.ones((4, 8, 1), device=device)
+    tc.coupling(x_a, x_b, mask, w, cond)                # a wider parent runs
+    with pytest.raises(NotImplementedError):
+        tc.coupling(x_a, x_b, mask, w, cond,
+                    pitch=torch.zeros((4, 8, 2), device=device))
+    with pytest.raises(ValueError, match='float32'):
+        tc.coupling(x_a.double(), x_b, mask, w, cond)
+    with pytest.raises(ValueError, match='built for'):
+        tc.coupling(x[..., :40], x[..., 40:80], mask, w, cond)
+    with pytest.raises(ValueError, match='16-byte'):     # rows off by 4 bytes
+        tc.coupling(x[..., 1:81], x_b, mask, w, cond)
+    with pytest.raises(ValueError, match='unit stride'):
+        tc.coupling(x[..., 0:160:2], x_b, mask, w, cond)
+    with pytest.raises(ValueError, match='cond'):
+        tc.coupling(x_a, x_b, mask, w, cond[:, :3].contiguous())
+    with pytest.raises(RuntimeError, match='no backward'):
+        tc.coupling(x_a.clone().requires_grad_(), x_b, mask, w, cond)
+
+
+def _stack_problem(gen, device, steps, lengths):
+    w = _stack_weights(gen, device, steps=steps)
+    del w['b_in']
+    x, mask = _ragged(gen, lengths, device)
+    cond = (torch.randn((steps, 4, len(lengths), 384), generator=gen) * .2
+            ).to(device)
+    return x, mask, w, cond
+
+
+def _chain(x, mask, w, cond, reverse):
+    """The same steps as one flow-step launch each."""
+    steps = w['w_in'].shape[0]
+    lds = []
+    for s in (reversed(range(steps)) if reverse else range(steps)):
+        x, ld = tc.flow_step(
+            x, mask, {key: value[s] for key, value in w.items()},
+            cond[s].contiguous(), reverse)
+        lds.append(ld)
+    return x, (None if reverse else torch.stack(lds).sum(dim=0))
+
+
+# 34 x 5 tiles is more items than an H100 has SMs: some blocks walk two
+@pytest.mark.parametrize('lengths', [[1], [33, 1, 16, 33],
+                                     [70, 35, 1, 70, 64],
+                                     [130, 7] + [100] * 32])
+@pytest.mark.parametrize('steps', [1, 2, 3])
+@pytest.mark.parametrize('reverse', [False, True])
+def test_flow_stack_kernel_matches_plain_and_the_chain(device, lengths,
+                                                       steps, reverse):
+    gen = torch.Generator().manual_seed(sum(lengths) + steps)
+    x, mask, w, cond = _stack_problem(gen, device, steps, lengths)
+    before = tc.flow_stack.launches
+    z, ld = tc.flow_stack(x, mask, w, cond, reverse=reverse)
+    torch.cuda.synchronize()
+    assert tc.flow_stack.launches == before + 1        # one for all steps
+    z_ref, ld_ref = tc.flow_stack_reference(x, mask, w, cond,
+                                            reverse=reverse)
+    assert _rel(z, z_ref) < REL
+    assert (z[mask.expand_as(z) == 0] == 0).all()
+    z_chain, ld_chain = _chain(x, mask, w, cond, reverse)
+    assert torch.equal(z, z_chain)
+    again, ld_again = tc.flow_stack(x, mask, w, cond, reverse=reverse)
+    assert torch.equal(z, again)
+    if reverse:
+        assert ld is None
+    else:
+        assert _rel(ld, ld_ref) < REL
+        assert _rel(ld, ld_chain) < 1e-5       # other order of the sums
+        assert torch.equal(ld, ld_again)
+
+
+def test_flow_stack_grid_is_the_resident_blocks(device):
+    lib = tc.load_flow_stack_library()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    assert lib.glow_flow_stack_resident_blocks() == sms    # 221 KB a block
+
+
+def test_flow_stack_wrapper_refuses_what_the_kernel_does_not_take(device):
+    gen = torch.Generator().manual_seed(0)
+    x, mask, w, cond = _stack_problem(gen, device, 2, [8, 8])
+    with pytest.raises(NotImplementedError):
+        tc.flow_stack(x, mask, w, cond,
+                      pitch=torch.zeros((2, 8, 2), device=device))
+    with pytest.raises(ValueError, match='float32'):
+        tc.flow_stack(x.double(), mask, w, cond)
+    with pytest.raises(ValueError, match='built for'):
+        tc.flow_stack(x[:, :, :80].contiguous(), mask, w, cond)
+    with pytest.raises(ValueError, match='cond'):
+        tc.flow_stack(x, mask, w, cond[:1])
+    with pytest.raises(ValueError, match='ld_const'):
+        tc.flow_stack(x, mask, dict(w, ld_const=w['ld_const'][:1]), cond)
+    with pytest.raises(RuntimeError, match='no backward'):
+        tc.flow_stack(x.clone().requires_grad_(), mask, w, cond)

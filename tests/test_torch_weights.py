@@ -9,7 +9,9 @@
 * weight norm folded at load equals ``fold_weight_norm_params``;
 * an ``S_<step>.pt`` written by ``save_reference_checkpoint`` serves;
 * the port's config and text rules agree field by field with the JAX
-  package's;
+  package's, ``coupling_backend`` under the port's names for its values;
+* the decoder's stacked pack (the ``'mega'`` route's weights) equals, key
+  by key and in both directions, what the JAX ``FlowDecoder._mega`` stacks;
 * ``glow_tts_tpu_torch`` runs a decode without importing jax or the JAX
   package, and no source file of the port or of ``chip_smoke.py`` holds
   such an import.
@@ -22,23 +24,26 @@ import re
 import subprocess
 import sys
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from glow_tts_tpu import text as jtext
 from glow_tts_tpu.config import load_config as jax_load_config
+from glow_tts_tpu.models import decoder as jd
 from glow_tts_tpu.models.layers import fold_weight_norm_params
 from glow_tts_tpu.utils.torch_export import (convert_params_to_reference,
                                              save_reference_checkpoint)
 from glow_tts_tpu_torch import text as ttext
-from glow_tts_tpu_torch.config import load_config
+from glow_tts_tpu_torch.config import coupling_backend_name, load_config
 from glow_tts_tpu_torch.inference import Inferencer
 from glow_tts_tpu_torch.models.glow_tts import GlowTTS
 from glow_tts_tpu_torch.weights import convert_params_to_reference as port_convert
 from glow_tts_tpu_torch.weights import (gradients_as_jax_params,
                                         load_jax_params, reference_to_params)
-from tests.torch_port_helpers import jax_model, port_config, port_model
+from tests.torch_port_helpers import (jax_model, port_config, port_model,
+                                      ragged, with_backend)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -125,6 +130,39 @@ def test_fold_matches_jax_fold(setup):
                 atol=1e-7)
 
 
+@pytest.mark.parametrize('reverse', [False, True])
+def test_stacked_pack_matches_what_jax_stacks(setup, reverse):
+    """``FlowDecoder.stacked_weights``/``stacked_cond`` against the JAX
+    ``FlowDecoder._mega``'s stack of ``FlowStep(..., return_params=True)``
+    per step, in forward order in both directions."""
+    cfg, params = setup
+    decoder = port_model(cfg, params).layer_Dict['Decoder']
+    c = cfg.sound.mel_dim * cfg.decoder.num_squeeze
+    x, mask = ragged(np.random.default_rng(4), 2, 6, c, [6, 3])
+    gathered = [jd.FlowStep(cfg).apply(
+        {'params': params['decoder'][f'flow_{k}']}, jnp.asarray(x),
+        jnp.asarray(mask), reverse=reverse, return_params=True)
+        for k in range(cfg.decoder.stack)]
+    ref = {key: np.stack([np.asarray(w[key]) for w, _ in gathered])
+           for key in gathered[0][0]}
+    ref_cond = np.stack([np.asarray(cond) for _, cond in gathered])
+
+    got = decoder.stacked_weights(reverse)
+    assert set(got) == set(ref)
+    assert ('ld_const' in got) == (not reverse)
+    for key, value in ref.items():
+        assert got[key].is_contiguous() and got[key].dtype == torch.float32
+        np.testing.assert_allclose(got[key].numpy(), value, rtol=1e-5,
+                                   atol=1e-6, err_msg=key)
+    cond = decoder.stacked_cond(2)
+    assert cond.is_contiguous()
+    np.testing.assert_allclose(cond.numpy(), ref_cond, rtol=0, atol=0)
+    # kept until the parameters change
+    assert decoder.stacked_weights(reverse) is got
+    decoder.invalidate()
+    assert decoder.stacked_weights(reverse) is not got
+
+
 def test_serves_from_a_reference_checkpoint_file(setup, tmp_path):
     cfg, params = setup
     path = str(tmp_path / 'S_5.pt')
@@ -140,12 +178,15 @@ def test_serves_from_a_reference_checkpoint_file(setup, tmp_path):
 
 def _port_fields(port_obj, jax_obj, path=''):
     """(path, port value, JAX value) for every leaf field of the port's
-    config; the two buckets live under ``TPU`` in the JAX config."""
+    config; the two buckets and the decoder's backend live under ``TPU``
+    in the JAX config, the backend's values under the JAX names."""
     for f in dataclasses.fields(port_obj):
         value = getattr(port_obj, f.name)
         ref = (getattr(jax_obj.tpu, f.name)
-               if f.name in ('token_bucket', 'mel_bucket')
+               if f.name in ('token_bucket', 'mel_bucket', 'coupling_backend')
                else getattr(jax_obj, f.name))
+        if f.name == 'coupling_backend':
+            ref = coupling_backend_name(ref)
         if dataclasses.is_dataclass(value):
             yield from _port_fields(value, ref, f'{path}{f.name}.')
         else:
@@ -164,6 +205,7 @@ def test_config_fields_match_jax(source, setup):
     assert len(fields) >= 32
     assert 'train.adam.epsilon' in [name for name, _, _ in fields]
     assert 'mel_bucket' in [name for name, _, _ in fields]
+    assert 'coupling_backend' in [name for name, _, _ in fields]
     for name, value, expected in fields:
         assert value == expected, name
 
@@ -173,6 +215,28 @@ def test_config_reads_both_buckets_from_the_tpu_section():
     port, ref = load_config(data), jax_load_config(data)
     assert (port.token_bucket, port.mel_bucket) == (16, 64)
     assert (ref.tpu.token_bucket, ref.tpu.mel_bucket) == (16, 64)
+
+
+@pytest.mark.parametrize('jax_value,name,route', [
+    ('auto', 'auto', 'fused'), ('flax', 'modules', 'modules'),
+    ('fused', 'fused', 'fused'), ('fused_interpret', 'fused', 'fused'),
+    ('mega', 'mega', 'mega'), ('mega_interpret', 'mega', 'mega')])
+def test_config_reads_the_coupling_backend(setup, jax_value, name, route):
+    """From the YAML's ``TPU`` section and from the JAX config's field
+    tree: the JAX package's values under the port's names, ``'auto'``
+    resolved to the per-step kernel."""
+    data = {'TPU': {'coupling_backend': jax_value}}
+    assert jax_load_config(data).tpu.coupling_backend == jax_value
+    for port in (load_config(data),
+                 port_config(with_backend(setup[0], jax_value))):
+        assert (port.coupling_backend, port.flow_route) == (name, route)
+
+
+def test_config_refuses_an_unknown_coupling_backend():
+    with pytest.raises(ValueError, match='coupling_backend'):
+        load_config({'TPU': {'coupling_backend': 'pallas'}})
+    with pytest.raises(ValueError, match='coupling_backend'):
+        dataclasses.replace(load_config({}), coupling_backend='Mega')
 
 
 def test_config_refuses_other_modes():
