@@ -13,8 +13,12 @@ buckets) and the loss/eval path (ActNorm's data-dependent initialisation on
 a batch from ``TrainCollater``, then ``eval_step``), each under every
 ``coupling_backend`` route (``'fused'``, ``'modules'``, ``'mega'``), and
 training (the same initialisation, then ``train_step`` a few times, beside
-the same steps through the plain versions).  Times kernel and plain
-versions with CUDA events.  Exits non-zero on any failure and when no CUDA
+the same steps through the plain versions).  The backward is held against
+autograd of the plain version under both of its routes (activations stored
+by the forward pass, and recomputed), which must agree bit for bit, and
+with one TF32 pass beside the shipped 3xTF32.  Times kernel and plain
+versions with CUDA events, the backward's two GEMMs alone beside
+``torch.matmul`` as a yardstick.  Exits non-zero on any failure and when no CUDA
 device is present; the last line is one JSON object naming the card.
 """
 
@@ -52,10 +56,11 @@ TRAIN_LOSS_REL_BOUND = 1e-4
 TRAIN_NORM_REL_BOUND = 1e-3
 TRAIN_STEPS = 4
 FLOW_RATE = 0.05           # Decoder.Affine_Coupling.WaveNet.Dropout_Rate
-# kernels of csrc/flow_train_bwd.cu behind one flow step's backward, with no
-# conditioning: 11 weight-gradient GEMMs, 11 activation-gradient GEMMs, 11
-# column sums and the affine's elementwise backward
-BWD_KERNELS_PER_FLOW_STEP = 34
+# kernels of csrc/flow_train_bwd.cu behind one flow step's backward, with or
+# without conditioning: 11 activation-gradient and 11 weight-gradient GEMMs
+# in 15 launches (7 of them a pair of one of each), 5 launches of column
+# sums, the affine's elementwise backward and the reduction of all partials
+BWD_KERNELS_PER_FLOW_STEP = 22
 # the training shape of the shipped config: Train.Batch_Size 32, up to 200
 # tokens and 1000 mel frames, padded to the 32-token and 128-frame buckets
 EVAL_BATCH, MAX_TOKENS, MAX_FRAMES = 32, 200, 1000
@@ -63,6 +68,7 @@ EVAL_TOKENS, EVAL_FRAMES = 224, 1024       # the padded axes of such a batch
 # published peaks of one H100 SXM (NVIDIA's data sheet), for the bounds
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12   # dense, the tensor cores
 
 
 def card_line() -> str:
@@ -98,12 +104,14 @@ def paired_ms(kernel_fn, plain_fn, iters: int, plain_iters: int = 0,
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, flops: float,
+          peak_flop_per_s: float = PEAK_F32_FLOP_PER_S):
     """The least time in ms the card could take: each input read once and
     each output written once at the memory rate, or the operations at the
-    f32 rate, whichever is longer; and which of the two it is."""
+    peak rate of the unit that does them (f32 FMA unless said), whichever
+    is longer; and which of the two it is."""
     by_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    by_ops = flops / peak_flop_per_s * 1e3
     return max(by_bytes, by_ops), 'bytes' if by_bytes >= by_ops else 'operations'
 
 
@@ -496,7 +504,7 @@ def time_routes(inferencers, models, prior_1024, batch):
             lambda: model.inference_decode(prior_1024, generator=gen,
                                            max_mel_length=1024,
                                            **plain_flow_fns()),
-            iters=5, plain_iters=2, plain_warmup=1)
+            iters=5, plain_iters=1, plain_warmup=1)
         print(f'decode phase under {route!r} B={b} bucket 1024: kernel '
               f'{k_ms:.3f} ms ({b * 1024 / k_ms * 1e3:.0f} mel frames/s of '
               f'capacity), plain {p_ms:.3f} ms '
@@ -511,7 +519,7 @@ def time_routes(inferencers, models, prior_1024, batch):
                                 mas_fn=maximum_path_reference,
                                 **plain_flow_fns())
         k_ms, p_ms = paired_ms(lambda: eval_k(batch), lambda: eval_p(batch),
-                               iters=5, plain_iters=2, plain_warmup=1)
+                               iters=5, plain_iters=1, plain_warmup=1)
         print(f'eval step under {route!r} {tuple(batch["mels"].shape)}: '
               f'kernels {k_ms:.3f} ms, plain versions {p_ms:.2f} ms')
 
@@ -724,7 +732,7 @@ def time_eval(model, batch, config, device):
     log_p, tl, ml = mas_problem(device)
     k_ms, p_ms = paired_ms(lambda: maximum_path(log_p, tl, ml),
                            lambda: maximum_path_reference(log_p, tl, ml),
-                           iters=20, plain_iters=2, plain_warmup=1)
+                           iters=20, plain_iters=1, plain_warmup=1)
     # what this run's lengths need: the valid part of log_p read once, the
     # whole path written once; per needed cell a max, an add and a compare
     cells = (tl.long() * ml.long()).sum().item()
@@ -893,10 +901,27 @@ def check_train_forward(x, mask, weights):
     return worst
 
 
+def forced_route(route, passes=None):
+    """``flow_stack_train``'s kernels with the forward pass's route
+    (``'store'`` or ``'recompute'``) and the backward GEMMs' TF32 passes
+    forced, through the wrapper's private entry."""
+    from glow_tts_tpu_torch.ops import coupling_grad
+    passes = passes or coupling_grad.TF32_PASSES
+
+    def fn(x, mask, weights, seed, dropout_rate):
+        return coupling_grad._apply_kernels(x, mask, weights, None, seed,
+                                            dropout_rate, route, passes)
+    return fn
+
+
 def check_train_backward(x, mask, weights):
     """Kernel #6 against autograd of the plain version: dx and every
-    weight gradient of a loss through z and the logdet; the last layer's
-    residual-half gradient exactly zero; two runs bit-equal."""
+    weight gradient of a loss through z and the logdet, under both routes
+    (activations stored by the forward pass, and recomputed step by step);
+    the two routes bit-equal, and two runs of each; the last layer's
+    residual-half gradient exactly zero; and the error of one TF32 pass
+    beside that of the shipped product."""
+    from glow_tts_tpu_torch.ops import coupling_grad
     from glow_tts_tpu_torch.ops.coupling_grad import (
         flow_stack_train, flow_stack_train_reference)
     gen = torch.Generator().manual_seed(SEED + 5)
@@ -913,25 +938,48 @@ def check_train_backward(x, mask, weights):
         return {'x': xl.grad, **{key: leaf.grad
                                  for key, leaf in leaves.items()}}
 
-    got, again = gradients(flow_stack_train), gradients(flow_stack_train)
+    s_steps, n, _, ch, _ = weights['w_in'].shape
+    b, t, c = x.shape
+    chosen = ('store' if coupling_grad.stores_activations(
+        s_steps, b * t, c, ch, n) else 'recompute')
+    zero_counts()
+    got = gradients(flow_stack_train)
+    counts = read_counts()
+    expected = {'train_fwd': s_steps,
+                'train_recompute': 0 if chosen == 'store' else s_steps,
+                'train_bwd': BWD_KERNELS_PER_FLOW_STEP * s_steps}
+    assert {key: counts[key] for key in expected} == expected, counts
+    runs = {route: [gradients(forced_route(route)) for _ in range(2)]
+            for route in ('store', 'recompute')}
     ref = gradients(flow_stack_train_reference)
-    worst_abs, worst_rel, lines = 0.0, 0.0, []
+    one_pass = gradients(forced_route(chosen, passes=1))
+    worst_abs, worst_rel, worst_one, lines = 0.0, 0.0, 0.0, []
     for key, value in ref.items():
         assert torch.isfinite(got[key]).all(), key
-        assert torch.equal(got[key], again[key]), f'd{key} differs by run'
+        for route, (first, second) in runs.items():
+            assert torch.equal(first[key], second[key]), \
+                f'd{key} differs by run under {route!r}'
+            assert torch.equal(first[key], got[key]), \
+                f'd{key} under {route!r} differs from the {chosen!r} route'
         rel = rel_err(got[key], value)
         lines.append(f'd{key} {rel:.2e}')
         assert rel < GRAD_REL_BOUND, (key, rel)
         worst_rel = max(worst_rel, rel)
+        worst_one = max(worst_one, rel_err(one_pass[key], value))
         worst_abs = max(worst_abs, (got[key] - value).abs().max().item())
-    ch = weights['w_in'].shape[3]
     assert (got['w_rs'][:, -1, :, :ch] == 0).all(), 'dead res half of dw_rs'
     assert (got['b_rs'][:, -1, :ch] == 0).all(), 'dead res half of db_rs'
     print(f'train backward kernel vs autograd of plain {tuple(x.shape)}, '
           f'rate {FLOW_RATE}: worst gradient rel err {worst_rel:.3e} of '
-          f'its tensor\'s max-abs (bar {GRAD_REL_BOUND:.0e}); two runs '
-          f'bit-equal; last layer\'s residual-half gradient exactly 0')
+          f'its tensor\'s max-abs (bar {GRAD_REL_BOUND:.0e}); route '
+          f'{chosen!r} by the shapes, {BWD_KERNELS_PER_FLOW_STEP} launches '
+          f'of the backward library per flow step; stored and recomputed '
+          f'routes bit-equal, two runs of each bit-equal; last layer\'s '
+          f'residual-half gradient exactly 0')
     print('  ' + ', '.join(lines))
+    print(f'backward GEMM precision: {coupling_grad.TF32_PASSES}xTF32 '
+          f'shipped, worst gradient rel err {worst_rel:.3e}; 1xTF32 '
+          f'{worst_one:.3e} (bar {GRAD_REL_BOUND:.0e})')
     return worst_abs
 
 
@@ -978,13 +1026,12 @@ def run_training(config, batch, device):
 
     steps = config.decoder.stack
     print(f'train path, {TRAIN_STEPS} steps after the data-dependent init: '
-          f'launches {launches} ({steps} forward, {steps} recompute, '
-          f'{steps} x {BWD_KERNELS_PER_FLOW_STEP} backward kernels and 1 '
-          f'MAS expected per step, {steps} flow steps for the init)')
+          f'launches {launches} ({steps} forward, no recompute (the forward '
+          f'stores), {steps} x {BWD_KERNELS_PER_FLOW_STEP} backward kernels '
+          f'and 1 MAS expected per step, {steps} flow steps for the init)')
     assert launches == {
         **dict.fromkeys(COUNTERS, 0), 'flow_step': steps, 'mas': TRAIN_STEPS,
         'train_fwd': steps * TRAIN_STEPS,
-        'train_recompute': steps * TRAIN_STEPS,
         'train_bwd': BWD_KERNELS_PER_FLOW_STEP * steps * TRAIN_STEPS}, launches
     for i, (k, p) in enumerate(zip(runs['kernels'][0], runs['plain'][0])):
         print(f'  step {i}: kernels total {k["total"]:.6f} mle '
@@ -1005,6 +1052,62 @@ def run_training(config, batch, device):
     return launches
 
 
+def time_backward_gemms(device):
+    """The backward library's two GEMMs alone, one launch each (the weight
+    gradient's with its reduction), at the dominant shapes of a flow step
+    with all 32 x 512 frames valid, with 3 and with 1 TF32 passes; and, as
+    yardsticks the port never calls, ``torch.matmul`` on the same products
+    in f32 and with TF32 allowed."""
+    from glow_tts_tpu_torch.ops import coupling_grad
+    gen = torch.Generator().manual_seed(SEED + 12)
+    b, t, ch, k = 32, 512, 192, 5
+    mask = torch.ones((b, t, 1), device=device)
+    dpre = torch.randn((b, t, 2 * ch), generator=gen).to(device)
+    xin = torch.randn((b, t, ch), generator=gen).to(device)
+    w_in = (torch.randn((k, ch, 2 * ch), generator=gen) * .03).to(device)
+    # the same products as plain matrices: im2col of the shifted rows
+    pad = (k - 1) // 2
+
+    def shifted(rows, shifts):
+        padded = torch.nn.functional.pad(rows, (0, 0, pad, pad))
+        return torch.cat([padded[:, pad + s: pad + s + t] for s in shifts],
+                         dim=-1).reshape(b * t, -1)
+
+    dgrad_a = shifted(dpre, [pad - tap for tap in range(k)])   # [M, k*2ch]
+    dgrad_b = w_in.permute(0, 2, 1).reshape(k * 2 * ch, ch)    # [k*2ch, ch]
+    wgrad_a = shifted(xin, [tap - pad for tap in range(k)]).T  # [k*ch, M]
+    wgrad_b = dpre.reshape(b * t, 2 * ch)                      # [M, 2ch]
+    flops = 2 * b * t * k * ch * 2 * ch
+    products = {
+        'gemm_nt, in-conv dgrad (16384 x 1920 . 1920 x 192)': (
+            lambda passes: coupling_grad._dgrad_product(dpre, w_in, mask,
+                                                        passes),
+            lambda: (dgrad_a @ dgrad_b).reshape(b, t, ch)),
+        'gemm_tn + reduction, dw_in (960 x 16384 . 16384 x 384)': (
+            lambda passes: coupling_grad._wgrad_product(xin, dpre, mask, k,
+                                                        passes),
+            lambda: wgrad_a @ wgrad_b)}
+    for name, (kernel_fn, matmul_fn) in products.items():
+        exact = matmul_fn()
+        errs = {passes: rel_err(kernel_fn(passes), exact) for passes in (3, 1)}
+        assert errs[3] < GRAD_REL_BOUND, (name, errs)
+        runs = [(passes, cuda_ms(lambda: kernel_fn(passes), 20))
+                for passes in (3, 1, 1, 3)]
+        ms = {passes: sum(t for p, t in runs if p == passes) / 2
+              for passes in (3, 1)}
+        f32_ms = cuda_ms(matmul_fn, 20)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32_ms = cuda_ms(matmul_fn, 20)
+        tf32_err = rel_err(matmul_fn(), exact)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(f'{name}, {flops / 1e9:.1f} GFLOP: 3xTF32 {ms[3]:.4f} ms '
+              f'({flops / ms[3] / 1e9:.1f} TFLOP/s, rel err {errs[3]:.2e} of '
+              f'torch.matmul f32), 1xTF32 {ms[1]:.4f} ms (rel err '
+              f'{errs[1]:.2e}); yardsticks torch.matmul f32 {f32_ms:.4f} ms '
+              f'({flops / f32_ms / 1e9:.1f} TFLOP/s), with TF32 allowed '
+              f'{tf32_ms:.4f} ms (rel err {tf32_err:.2e})')
+
+
 def time_training(config, batch, x, mask, weights, device):
     """The train step with kernels and with plain versions, its parts each
     alone, the bounds of kernels #5 and #6 from this run's shapes, and a
@@ -1012,6 +1115,7 @@ def time_training(config, batch, x, mask, weights, device):
     from glow_tts_tpu_torch import (make_optimizer, make_train_step,
                                     random_state_dict)
     from glow_tts_tpu_torch.models.layers import sequence_mask
+    from glow_tts_tpu_torch.ops import coupling_grad
     from glow_tts_tpu_torch.ops.coupling_grad import (
         flow_stack_train, flow_stack_train_reference)
     from glow_tts_tpu_torch.ops.mas import maximum_path_reference
@@ -1032,18 +1136,30 @@ def time_training(config, batch, x, mask, weights, device):
     model, optimizer, step_k = stepper()
     _, _, step_p = stepper(flow_stack_train_reference, maximum_path_reference)
     k_ms, p_ms = paired_ms(lambda: step_k(batch), lambda: step_p(batch),
-                           iters=3, plain_iters=2, plain_warmup=1)
+                           iters=3, plain_iters=1, plain_warmup=1)
     shape = tuple(batch['mels'].shape)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    step_k(batch)
+    torch.cuda.synchronize()
     print(f'train step {shape}: kernels {k_ms:.3f} ms, plain versions '
-          f'{p_ms:.2f} ms')
+          f'{p_ms:.2f} ms; peak memory of a step with kernels '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB '
+          f'({held / 2 ** 30:.3f} held before)')
 
-    # the flow alone, forward and backward, kernels and plain
+    # the flow alone, forward and backward: the kernels under both routes
+    # and with one TF32 pass, and the plain version
     gen = torch.Generator().manual_seed(SEED + 7)
     dz = torch.randn(x.shape, generator=gen).to(device)
     dld = torch.ones(x.shape[0], device=device)
-    times = {}
-    for name, fn, iters in (('kernel', flow_stack_train, 3),
-                            ('plain', flow_stack_train_reference, 2)):
+
+    times, peaks = {}, {}
+    for name, fn, iters in (
+            ('kernel', flow_stack_train, 3),
+            ('kernel, recompute route', forced_route('recompute'), 3),
+            ('kernel, stored, 1xTF32', forced_route('store', passes=1), 3),
+            ('plain', flow_stack_train_reference, 2)):
         leaves = {key: value.clone().requires_grad_()
                   for key, value in weights.items()}
         xl = x.clone().requires_grad_()
@@ -1053,34 +1169,52 @@ def time_training(config, batch, x, mask, weights, device):
             return fn(xl, mask, leaves, seed=SEED, dropout_rate=FLOW_RATE)
 
         with torch.no_grad():
-            fwd_ms = cuda_ms(forward, iters, 1)
+            plain_fwd_ms = cuda_ms(forward, iters, 1)
+        fwd_ms = cuda_ms(forward, iters, 1)       # as a train step runs it
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         z, ld = forward()
         bwd_ms = cuda_ms(lambda: torch.autograd.grad(
             (z, ld), inputs, (dz, dld), retain_graph=True), iters, 1)
-        times[name] = (fwd_ms, bwd_ms)
+        peaks[name] = (held, torch.cuda.max_memory_allocated())
+        times[name] = (fwd_ms, bwd_ms, plain_fwd_ms)
         del z, ld
-    s_steps = weights['w_in'].shape[0]
+    s_steps, n_layers, _, ch, _ = weights['w_in'].shape
     per_step = {key: value[0] for key, value in weights.items()}
     frame_flops = step_frame_flops(per_step)
     flops = frame_flops * mask.sum().item()
     weight_count = sum(value.numel() for value in per_step.values())
     fwd_bound = bound(4 * (2 * x.numel() + mask.numel() + x.shape[0]
                            + weight_count), flops)
-    # the step's input, the cotangents in and out, weights in, gradients
-    # out; recompute, dgrad and wgrad are each the forward's operations
-    # (the recompute is work the design chose over storing activations)
-    bwd_bound = bound(4 * (3 * x.numel() + mask.numel() + x.shape[0]
-                           + 2 * weight_count), 3 * flops)
-    for label, (fwd_ms, bwd_ms) in times.items():
+    # the backward's work is dgrad + wgrad on the valid frames, each the
+    # forward's operations, on the tensor cores (counted once, whatever the
+    # number of TF32 passes); it reads the step's input, its saved
+    # activations, the cotangent and the weights and writes the cotangent
+    # and the gradients, each once
+    saved_bytes = coupling_grad.saved_bytes_per_step(
+        x.shape[0] * x.shape[1], x.shape[2], ch, n_layers)
+    bwd_bytes = saved_bytes + 4 * (3 * x.numel() + mask.numel() + x.shape[0]
+                                   + 2 * weight_count)
+    bwd_bound = bound(bwd_bytes, 2 * flops, PEAK_TF32_FLOP_PER_S)
+    fma_bound = bound(bwd_bytes, 2 * flops)
+    for label, (fwd_ms, bwd_ms, plain_fwd_ms) in times.items():
+        held, peak = peaks[label]
         print(f'flow stack {tuple(x.shape)}, {s_steps} steps, rate '
               f'{FLOW_RATE}, {label}: forward {fwd_ms:.3f} ms '
-              f'({fwd_ms / s_steps:.4f} per step), backward {bwd_ms:.3f} ms '
-              f'({bwd_ms / s_steps:.4f} per step)')
-    k_fwd, k_bwd = (value / s_steps for value in times['kernel'])
+              f'({fwd_ms / s_steps:.4f} per step; {plain_fwd_ms:.3f} ms '
+              f'under no_grad), backward {bwd_ms:.3f} ms '
+              f'({bwd_ms / s_steps:.4f} per step); peak memory of forward + '
+              f'backward {peak / 2 ** 30:.3f} GiB ({held / 2 ** 30:.3f} held '
+              f'before)')
+    k_fwd, k_bwd, _ = (value / s_steps for value in times['kernel'])
     print(f'  per flow step: forward {flops / k_fwd / 1e9:.2f} TFLOP/s, bound '
           f'{fwd_bound[0]:.4f} ms by {fwd_bound[1]}; backward '
-          f'{3 * flops / k_bwd / 1e9:.2f} TFLOP/s over recompute, dgrad and '
-          f'wgrad, bound {bwd_bound[0]:.4f} ms by {bwd_bound[1]}')
+          f'{2 * flops / k_bwd / 1e9:.2f} TFLOP/s over dgrad and wgrad '
+          f'({2 * flops / 1e9:.1f} GFLOP, {bwd_bytes / 1e6:.0f} MB), bound '
+          f'{bwd_bound[0]:.4f} ms by {bwd_bound[1]} at the TF32 peak '
+          f'({fma_bound[0]:.4f} ms at the f32 FMA peak)')
+    time_backward_gemms(device)
 
     # the other parts of a train step, each alone
     tokens = batch['tokens']
@@ -1106,7 +1240,10 @@ def time_training(config, batch, x, mask, weights, device):
     return ({'ms': k_fwd, 'plain_ms': times['plain'][0] / s_steps,
              'bound_ms': fwd_bound[0], 'bound_by': fwd_bound[1]},
             {'ms': k_bwd, 'plain_ms': times['plain'][1] / s_steps,
-             'bound_ms': bwd_bound[0], 'bound_by': bwd_bound[1]})
+             'bound_ms': bwd_bound[0], 'bound_by': bwd_bound[1],
+             'recompute_route_ms':
+                 times['kernel, recompute route'][1] / s_steps,
+             'one_pass_ms': times['kernel, stored, 1xTF32'][1] / s_steps})
 
 
 def main():
@@ -1124,7 +1261,7 @@ def main():
     card = card_line()
     print(f'card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}')
 
-    start = time.perf_counter()
+    begun = start = time.perf_counter()
     sources = {'flow_step.cu': coupling.load_flow_step_library,
                'coupling.cu': coupling.load_coupling_library,
                'flow_stack.cu': coupling.load_flow_stack_library,
@@ -1243,15 +1380,18 @@ def main():
          'replaces': 'glow_tts_tpu/ops/coupling_grad.py:97',
          'entry': 'fused_flow_stack_train', **launches('train_fwd'),
          'max_abs_err': fwd_err, **fwd_times, 'library_ms': None},
-        # one backward call per flow step: flow_train_fwd.cu's saving
-        # instantiation once (the recompute), then this source's kernels
+        # one backward call per flow step: this source's kernels, on what
+        # the forward pass stored (no recompute at this shape)
         {'name': 'flow_train_bwd', 'route': 'cuda',
          'source': csrc + 'flow_train_bwd.cu',
          'replaces': 'glow_tts_tpu/ops/coupling_grad.py:195',
          'entry': 'fused_flow_stack_train (backward)',
          **launches('train_bwd'),
-         'recompute_launches': launches('train_recompute')['launches'],
+         'recompute_launches': sum(counts['train_recompute']
+                                   for counts in by_path.values()),
          'max_abs_err': bwd_err, **bwd_times, 'library_ms': None}]}))
+    print(f'chip_smoke: {time.perf_counter() - begun:.0f} s in all, the '
+          f'kernels\' build included')
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -4,206 +4,258 @@
 //
 // Replaces glow_tts_tpu/ops/coupling_grad.py::_make_train_bwd_kernel (the
 // Pallas kernel behind _bwd_call, the custom_vjp of
-// fused_flow_stack_train), phases 2-4; phase 1, the recompute from the
-// step's checkpoint, is flow_train_fwd.cu with SAVE.  The plain PyTorch
-// version is autograd of
+// fused_flow_stack_train), phases 2-4.  Phase 1 there is a recompute of the
+// step from its checkpoint; here the activations come from
+// flow_train_fwd.cu, which either stored them during the forward pass or
+// recomputes them step by step (the caller decides by their size).  The
+// plain PyTorch version is autograd of
 // glow_tts_tpu_torch/ops/coupling_grad.py::flow_stack_train_reference.
+//
+// What bounds it: arithmetic.  The activation gradients (dgrad) and the
+// weight gradients (wgrad) each repeat the forward's 3.6 MFLOP per valid
+// frame, while a step's activations (190 MB at 32 x 512 frames) cross
+// device memory about once: by operations it is far above the card's
+// 3.35 TB/s line, so the GEMMs go to the tensor cores.
 //
 // Design.  The TPU kernel keeps a batch block's whole step in on-chip
 // memory and emits per-block weight gradients.  On this card gradients
 // flow 8 frames each way through the 4 k=5 layers, so a time-tiled block
-// would need a 16-frame recompute halo and four saved layer inputs beside
-// it (more than 227 KB), and a per-block dW (5.9 MB for w_in) over 512
-// tiles is out of the question.  So the step is a fixed sequence of small
-// launches on one stream over activations the recompute left in device
-// memory:
-// * gemm_nt: out[M, N] = sum over taps of A[row + pad - tap, :] . W[tap]^T,
-//   the activation gradients (the conv's is the 5-tap transpose), with an
-//   epilogue per product: masks, the gate's backward with the regenerated
-//   dropout factors, ActNorm's backward;
-// * gemm_tn: dW[K, N] = sum over frames of A[frame + tap - pad, K]^T .
-//   G[frame, N], the weight gradients, organised by output tile of dW and
-//   split over the frames into chunks of kSplitRows; each chunk writes its
-//   own partial and the caller adds the partials in their order.  Every
-//   frame is counted once, and no atomics are used, so the gradients do
-//   not depend on block order and two runs give the same bits;
-// * column_sums: per-sample column sums (bias gradients, dcond, ActNorm).
-// Both GEMMs are the same 128 x 64 tile of 256 threads, 8 x 4 outputs per
-// thread, 16 deep, operands staged through shared memory, plain FMA.
-//
-// What bounds it: arithmetic.  dgrad and wgrad each repeat the forward's
-// 3.7 MFLOP per frame, while the activations of a step (about 190 MB at
-// B*T = 16,384 frames) cross device memory a few times.
+// would need a 16-frame halo and four saved layer inputs beside it (more
+// than 227 KB).  So the step is a fixed sequence of 22 launches on one
+// stream over activations in device memory:
+// * dgrad tiles (gemm_nt_tile): out[frame, n] = sum over taps and k of
+//   A[frame + pad - tap, k] . W[tap][n, k], one block per (sample, 128
+//   frames, 96 columns), with an epilogue per product: masks, the gate's
+//   backward with the regenerated dropout factors, ActNorm's backward;
+// * wgrad tiles (gemm_tn_tile): dW[kd, n] = sum over frames of P[frame +
+//   tap - pad, kd] . G[frame, n], one block per (96 x 128 tile of dW, chunk
+//   of whole samples); each chunk writes its own partial;
+// * gemm_pair: where a dgrad and a wgrad product do not depend on each
+//   other (the k-tap conv's, the end conv's, the start conv's, the
+//   mixing's) they are one launch, dgrad tiles first: the ragged batch
+//   leaves about as many live dgrad tiles as the card has SMs, one round
+//   and a few, and the wgrad tiles take the SMs that would idle;
+// * column_sums: per-sample column sums (bias gradients, dcond, ActNorm),
+//   up to four tensors a launch;
+// * reduce_partials: once a step, every partial of the chunks and of the
+//   samples added in its order into the step's gradient tensors.
+// Both GEMMs run on the tensor cores (mma.sync.m16n8k8, TF32 operands,
+// float32 accumulation; tf32_mma.cuh) as the error-compensated 3xTF32
+// product, which keeps float32 accuracy at a third of the TF32 rate; a
+// single pass is kept as a measuring option.  Operands reach shared memory
+// through a 4-deep cp.async ring of 32-deep slices with one barrier a
+// slice; the k-tap conv's shifted rows are shifted tile loads, zero-filled
+// outside the sample.  wgrad contracts over frames, so both its operands
+// lie depth-major in memory: mma.sync reads fragments by address from
+// shared memory, and nothing is transposed.  A block keeps two sets of
+// accumulators (the tensor cores' and a float32 sum of them, see
+// tf32_mma.cuh), 170-180 registers a thread: one block of 8 warps per SM.
+// Valid frames only: every gradient operand is zero past a sample's last
+// valid frame (each is produced under the mask), so a dgrad block wholly
+// past it skips its k-loop and stores the epilogue of zeros, a warp past it
+// skips its products, and a wgrad chunk walks only its samples' valid rows.
+// No value changes: the skipped terms are x . 0.
+// No atomics: every frame is counted once, chunks and partials are added in
+// a fixed order, so two runs give the same bits.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
 #include "dropmask.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int BM = 128, BN = 64, BK = 16;   // tile: rows, columns, depth
-constexpr int TM = 8, TN = 4;               // outputs per thread
-constexpr int kSplitRows = 1024;            // frames per weight-gradient chunk
-static_assert((BM / TM) * (BN / TN) == kThreads, "thread grid");
+constexpr int kStages = 4;   // depth of the cp.async ring
+constexpr int BK = 32;       // depth of a staged slice
 
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ float4 zero4() {
-  return make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-// acc += As[:, rows of this thread]^T . Bs[:, columns of this thread] for
-// one BK-deep slice: As is [BK][BM + 4], Bs is [BK][BN + 4].
-__device__ __forceinline__ void tile_fma(const float (*As)[BM + 4],
-                                         const float (*Bs)[BN + 4],
-                                         float (&acc)[TM][TN]) {
-  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
-#pragma unroll
-  for (int kk = 0; kk < BK; ++kk) {
-    const float4 a0 = ld4(&As[kk][ty * TM]), a1 = ld4(&As[kk][ty * TM + 4]);
-    const float4 b = ld4(&Bs[kk][tx * TN]);
-    const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-  }
 }
 
 // ---------------------------------------------------------------------------
 // activation gradients
 // ---------------------------------------------------------------------------
 
-// out[row, n] = sum_tap sum_k A[row + pad - tap, k] * W[tap][n, k]: rows are
-// the B*T frames (a shifted row outside its sample's [0, T) is zero), A has
-// row stride lda and kseg columns, W[tap] is [N, kseg] with row stride ldw
-// and the taps tap_stride apart.  kseg % BK == 0; N, lda, ldw % 4 == 0.
+// dgrad tile: 128 frames x 96 columns; warps 4 x 2, each 32 x 48.  Rows of
+// both operands are k-contiguous and padded to 36 floats, so a fragment
+// read (8 rows x 4 depths) touches 32 banks.
+constexpr int NT_BM = 128, NT_BN = 96, NT_LD = BK + 4;
+constexpr int NT_WM = 32, NT_WN = 48;
+constexpr size_t kNtSmem =
+    sizeof(float) * kStages * (NT_BM + NT_BN) * NT_LD;
+static_assert((NT_BM / NT_WM) * (NT_BN / NT_WN) == kThreads / 32, "warps");
+
+// out[b*T + t, n] = sum_tap sum_k A[b*T + t + pad - tap, k] * W[tap][n, k]:
+// a shifted frame outside [0, lengths[b]) is zero.  A has row stride lda and
+// kseg columns, W[tap] is [N, kseg] with row stride ldw and the taps
+// tap_stride apart.  kseg % 32 == 0; N % 2 == 0; lda, ldw % 4 == 0.
 struct NtArgs {
   const float* a;
   const float* w;
   int lda, ldw, kseg, taps, pad, tap_stride;
-  int M, N, T;
+  int N, T;
+  const int* lengths;   // [B] one past the last valid frame of each sample
 };
 
-template <class Epilogue>
-__global__ void __launch_bounds__(kThreads)
-    gemm_nt(const NtArgs g, const Epilogue epilogue) {
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN + 4];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  float acc[TM][TN] = {};
+// The tile (column tile bx, frame tile by, sample b) of the product.
+template <int PASSES, class Epilogue>
+__device__ __forceinline__ void gemm_nt_tile(const NtArgs& g,
+                                             const Epilogue& epilogue, int bx,
+                                             int by, int b, float* smem) {
+  float* const a_ring = smem;
+  float* const w_ring = a_ring + kStages * NT_BM * NT_LD;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 2, wn = warp % 2;
+  const int n0 = bx * NT_BN, t0 = by * NT_BM;
+  const int len = g.lengths[b];
+  const size_t sample = static_cast<size_t>(b) * g.T;
+  float acc[NT_WM / 16][NT_WN / 8][4] = {};   // of the slice in hand
+  float sum[NT_WM / 16][NT_WN / 8][4] = {};   // of the slices before it
 
-  for (int tap = 0; tap < g.taps; ++tap) {
+  const int kslices = g.kseg / BK;
+  // a tile wholly past the sample's valid frames has an all-zero product
+  const int n_it = t0 < len ? g.taps * kslices : 0;
+  const bool warp_live = t0 + wm * NT_WM < len;
+
+  auto stage = [&](int it) {
+    const int tap = it / kslices, k0 = (it % kslices) * BK;
     const int shift = g.pad - tap;
-    const float* w_tap = g.w + static_cast<size_t>(tap) * g.tap_stride;
-    for (int k0 = 0; k0 < g.kseg; k0 += BK) {
-      // A: BM rows x BK, a float4 along k per load, stored k-major
-      for (int i = tid; i < BM * (BK / 4); i += kThreads) {
-        const int m = i / (BK / 4), kq = 4 * (i % (BK / 4));
-        const int row = m0 + m;
-        float4 v = zero4();
-        if (row < g.M) {
-          const int t = row % g.T + shift;
-          if (t >= 0 && t < g.T)
-            v = ld4(g.a + static_cast<size_t>(row + shift) * g.lda + k0 + kq);
-        }
-        As[kq][m] = v.x;
-        As[kq + 1][m] = v.y;
-        As[kq + 2][m] = v.z;
-        As[kq + 3][m] = v.w;
-      }
-      for (int i = tid; i < BN * (BK / 4); i += kThreads) {
-        const int n = i / (BK / 4), kq = 4 * (i % (BK / 4));
-        float4 v = zero4();
-        if (n0 + n < g.N)
-          v = ld4(w_tap + static_cast<size_t>(n0 + n) * g.ldw + k0 + kq);
-        Bs[kq][n] = v.x;
-        Bs[kq + 1][n] = v.y;
-        Bs[kq + 2][n] = v.z;
-        Bs[kq + 3][n] = v.w;
-      }
-      __syncthreads();
-      tile_fma(As, Bs, acc);
-      __syncthreads();
+    float* as = a_ring + (it % kStages) * NT_BM * NT_LD;
+    float* ws = w_ring + (it % kStages) * NT_BN * NT_LD;
+    for (int i = tid; i < NT_BM * (BK / 4); i += kThreads) {
+      const int m = i / (BK / 4), q = 4 * (i % (BK / 4));
+      const int t = t0 + m + shift;
+      const bool ok = t >= 0 && t < len;
+      tf32::cp_async16_zfill(
+          as + m * NT_LD + q,
+          g.a + (sample + (ok ? t : 0)) * g.lda + k0 + q, ok);
     }
-  }
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const int col = n0 + tx * TN;
-  if (col >= g.N) return;
+    const float* w_tap = g.w + static_cast<size_t>(tap) * g.tap_stride;
+    for (int i = tid; i < NT_BN * (BK / 4); i += kThreads) {
+      const int n = i / (BK / 4), q = 4 * (i % (BK / 4));
+      const bool ok = n0 + n < g.N;
+      tf32::cp_async16_zfill(
+          ws + n * NT_LD + q,
+          w_tap + static_cast<size_t>(ok ? n0 + n : 0) * g.ldw + k0 + q, ok);
+    }
+  };
+
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = m0 + ty * TM + i;
-    if (row < g.M)
-      epilogue(row, col,
-               make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_it) stage(s);
+    tf32::cp_async_commit();
   }
+  for (int it = 0; it < n_it; ++it) {
+    tf32::cp_async_wait<kStages - 2>();   // slice `it` has landed
+    __syncthreads();                      // and every warp is done with it-1
+    if (it + kStages - 1 < n_it) stage(it + kStages - 1);
+    tf32::cp_async_commit();
+    if (!warp_live) continue;
+    const float* as =
+        a_ring + (it % kStages) * NT_BM * NT_LD + wm * NT_WM * NT_LD;
+    const float* ws =
+        w_ring + (it % kStages) * NT_BN * NT_LD + wn * NT_WN * NT_LD;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8)
+      tf32::warp_step<NT_WM / 16, NT_WN / 8, PASSES>(
+          acc, [&](int i, int k) { return as[i * NT_LD + kk + k]; },
+          [&](int k, int j) { return ws[j * NT_LD + kk + k]; });
+    tf32::flush(acc, sum);
+  }
+  tf32::cp_async_wait<0>();
+
+  const int gq = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < NT_WM / 16; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int t = t0 + wm * NT_WM + 16 * mt + gq + 8 * half;
+      if (t >= g.T) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT_WN / 8; ++nt) {
+        const int col = n0 + wn * NT_WN + 8 * nt + 2 * tq;
+        if (col < g.N)
+          epilogue(static_cast<int>(sample) + t, col, sum[mt][nt][2 * half],
+                   sum[mt][nt][2 * half + 1]);
+      }
+    }
 }
 
-// out[row, col..] = (v + add[row, col..]) * mask[row]; add may be out
+template <int PASSES, class Epilogue>
+__global__ void __launch_bounds__(kThreads, 1)
+    gemm_nt(const NtArgs g, const Epilogue epilogue) {
+  extern __shared__ float4 smem4[];
+  gemm_nt_tile<PASSES>(g, epilogue, blockIdx.x, blockIdx.y, blockIdx.z,
+                       reinterpret_cast<float*>(smem4));
+}
+
+// out[row, col..col+1] = (v + add[row, col..]) * mask[row]; add may be out
 // itself (each element is read and written by one thread) or null.
 struct MaskedStore {
   float* out;
   const float* add;
   const float* mask;
   int ld_out, ld_add;
-  __device__ void operator()(int row, int col, float4 v) const {
+  __device__ void operator()(int row, int col, float v0, float v1) const {
     if (add) {
-      const float4 a = ld4(add + static_cast<size_t>(row) * ld_add + col);
-      v = make_float4(v.x + a.x, v.y + a.y, v.z + a.z, v.w + a.w);
+      const float2 a = ld2(add + static_cast<size_t>(row) * ld_add + col);
+      v0 += a.x;
+      v1 += a.y;
     }
     const float m = mask[row];
-    st4(out + static_cast<size_t>(row) * ld_out + col,
-        make_float4(v.x * m, v.y * m, v.z * m, v.w * m));
+    st2(out + static_cast<size_t>(row) * ld_out + col, v0 * m, v1 * m);
   }
 };
 
 // The gate's backward on dg = d(tanh . sigmoid): dacc = [dg s (1 - t^2),
 // dg t s (1 - s)] (the conditioning's gradient), dpre = dacc * dropout
-// factor (the conv + bias gradient).
+// factor (the conv + bias gradient); and the gate t s itself, the res/skip
+// weight gradient's operand.
 struct GateBackward {
   const float* ts;   // [M, 2CH] tanh half, sigmoid half
   float* dpre;       // [M, 2CH]
   float* dacc;       // [M, 2CH] or null
+  float* gate;       // [M, CH]
   int ch, T;
   unsigned rows_per_sample, salt;
   dropmask::Dropout drop;
-  __device__ void operator()(int row, int col, float4 dg4) const {
+  __device__ void operator()(int row, int col, float dg0, float dg1) const {
     const size_t base = static_cast<size_t>(row) * 2 * ch;
-    const float4 t4 = ld4(ts + base + col), s4 = ld4(ts + base + ch + col);
-    const float dg[4] = {dg4.x, dg4.y, dg4.z, dg4.w};
-    const float t[4] = {t4.x, t4.y, t4.z, t4.w};
-    const float s[4] = {s4.x, s4.y, s4.z, s4.w};
-    float da1[4], da2[4];
+    const float2 t2 = ld2(ts + base + col), s2 = ld2(ts + base + ch + col);
+    const float dg[2] = {dg0, dg1};
+    const float t[2] = {t2.x, t2.y};
+    const float s[2] = {s2.x, s2.y};
+    float da1[2], da2[2];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+    for (int e = 0; e < 2; ++e) {
       da1[e] = dg[e] * s[e] * (1.f - t[e] * t[e]);
       da2[e] = dg[e] * t[e] * s[e] * (1.f - s[e]);
     }
+    st2(gate + static_cast<size_t>(row) * ch + col, t[0] * s[0], t[1] * s[1]);
     if (dacc) {
-      st4(dacc + base + col, make_float4(da1[0], da1[1], da1[2], da1[3]));
-      st4(dacc + base + ch + col,
-          make_float4(da2[0], da2[1], da2[2], da2[3]));
+      st2(dacc + base + col, da1[0], da1[1]);
+      st2(dacc + base + ch + col, da2[0], da2[1]);
     }
     if (drop.enabled) {
       const unsigned counter = dropmask::row_counter(
           row / T, row % T, rows_per_sample, 2 * ch, salt) + col;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < 2; ++e) {
         da1[e] *= dropmask::keep_factor(drop, counter + e);
         da2[e] *= dropmask::keep_factor(drop, counter + ch + e);
       }
     }
-    st4(dpre + base + col, make_float4(da1[0], da1[1], da1[2], da1[3]));
-    st4(dpre + base + ch + col, make_float4(da2[0], da2[1], da2[2], da2[3]));
+    st2(dpre + base + col, da1[0], da1[1]);
+    st2(dpre + base + ch + col, da2[0], da2[1]);
   }
 };
 
@@ -217,139 +269,358 @@ struct ActNormBackward {
   float* dx;             // [M, C]
   float* stats;          // [M, 2C]
   int c;
-  __device__ void operator()(int row, int col, float4 v4) const {
+  __device__ void operator()(int row, int col, float v0, float v1) const {
     const float m = mask[row];
-    const float4 x4 = ld4(x + static_cast<size_t>(row) * c + col);
-    const float4 l4 = ld4(an_logs + col);
-    const float v[4] = {v4.x, v4.y, v4.z, v4.w};
-    const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
-    const float lg[4] = {l4.x, l4.y, l4.z, l4.w};
-    float dy[4], dxv[4], dl[4];
+    const float2 x2 = ld2(x + static_cast<size_t>(row) * c + col);
+    const float2 l2 = ld2(an_logs + col);
+    const float v[2] = {v0, v1};
+    const float xv[2] = {x2.x, x2.y};
+    const float lg[2] = {l2.x, l2.y};
+    float dy[2], dxv[2], dl[2];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+    for (int e = 0; e < 2; ++e) {
       dy[e] = v[e] * m;
       dxv[e] = dy[e] * expf(lg[e]);
       dl[e] = dxv[e] * xv[e];
     }
-    st4(dx + static_cast<size_t>(row) * c + col,
-        make_float4(dxv[0], dxv[1], dxv[2], dxv[3]));
+    st2(dx + static_cast<size_t>(row) * c + col, dxv[0], dxv[1]);
     float* out = stats + static_cast<size_t>(row) * 2 * c;
-    st4(out + col, make_float4(dy[0], dy[1], dy[2], dy[3]));
-    st4(out + c + col, make_float4(dl[0], dl[1], dl[2], dl[3]));
+    st2(out + col, dy[0], dy[1]);
+    st2(out + c + col, dl[0], dl[1]);
   }
 };
 
-template <class Epilogue>
-cudaError_t launch_nt(const NtArgs& g, const Epilogue& epilogue,
-                      cudaStream_t stream) {
-  const dim3 grid((g.M + BM - 1) / BM, (g.N + BN - 1) / BN);
-  gemm_nt<<<grid, kThreads, 0, stream>>>(g, epilogue);
+dim3 nt_grid(const NtArgs& g, int B) {
+  return dim3((g.N + NT_BN - 1) / NT_BN, (g.T + NT_BM - 1) / NT_BM, B);
+}
+
+template <int PASSES, class Epilogue>
+cudaError_t launch_nt_as(const NtArgs& g, const Epilogue& epilogue, int B,
+                         cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      gemm_nt<PASSES, Epilogue>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kNtSmem));
+  if (err != cudaSuccess) return err;
+  gemm_nt<PASSES, Epilogue>
+      <<<nt_grid(g, B), kThreads, kNtSmem, stream>>>(g, epilogue);
   return cudaGetLastError();
+}
+
+template <class Epilogue>
+cudaError_t launch_nt(const NtArgs& g, const Epilogue& epilogue, int B,
+                      int passes, cudaStream_t stream) {
+  return passes == 1 ? launch_nt_as<1>(g, epilogue, B, stream)
+                     : launch_nt_as<3>(g, epilogue, B, stream);
 }
 
 // ---------------------------------------------------------------------------
 // weight gradients
 // ---------------------------------------------------------------------------
 
-// part[chunk][kd, n] = sum over the chunk's frames r of A(r, kd) * G[r, n]
-// with A(r, kd) = P[r + kd / kseg - pad, kd % kseg] (zero when the shifted
-// frame leaves its sample), times Q at the same place where Q is given (the
-// gate t * s).  K = taps * kseg; kseg, N % 4 == 0.
+// wgrad tile: 96 rows of dW (channels of one tap) x 128 columns, 32 frames a
+// slice; warps 2 x 4, each 48 x 32.  Both operands lie frame-major; a
+// fragment read is 4 frames x 8 neighbours, so rows are padded to 8 mod 32
+// floats.
+constexpr int TN_BM = 96, TN_BN = 128;
+constexpr int TN_LDP = TN_BM + 8, TN_LDG = TN_BN + 8;
+constexpr int TN_WM = 48, TN_WN = 32;
+constexpr size_t kTnSmem = sizeof(float) * kStages * BK * (TN_LDP + TN_LDG);
+static_assert((TN_BM / TN_WM) * (TN_BN / TN_WN) == kThreads / 32, "warps");
+
+// part[chunk][kd, n] = sum over the valid frames t of the chunk's samples of
+// P[b*T + t + kd / kseg - pad, kd % kseg] * G[b*T + t, n] (zero when the
+// shifted frame leaves [0, T)).  K = taps * kseg; kseg, N % 4 == 0.  Chunk c
+// holds the samples [c * spc, (c + 1) * spc).
 struct TnArgs {
   const float* p;
-  const float* q;
   const float* g;
   float* part;
-  int ldp, ldg, kseg, pad;
-  int K, N, M, T;
+  int ldp, ldg, kseg, taps, pad;
+  int N, T, B, spc;
+  const int* lengths;
 };
 
-__global__ void __launch_bounds__(kThreads) gemm_tn(const TnArgs g) {
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN + 4];
-  const int tid = threadIdx.x;
-  const int k0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int r_begin = blockIdx.z * kSplitRows;
-  const int r_end = min(r_begin + kSplitRows, g.M);
-  float acc[TM][TN] = {};
-
-  for (int r0 = r_begin; r0 < r_end; r0 += BK) {
-    for (int i = tid; i < BK * (BM / 4); i += kThreads) {
-      const int r = i / (BM / 4), kd = k0 + 4 * (i % (BM / 4));
-      const int row = r0 + r;
-      float4 v = zero4();
-      if (row < r_end && kd < g.K) {
-        const int shift = kd / g.kseg - g.pad, t = row % g.T + shift;
-        if (t >= 0 && t < g.T) {
-          const size_t at =
-              static_cast<size_t>(row + shift) * g.ldp + kd % g.kseg;
-          v = ld4(g.p + at);
-          if (g.q) {
-            const float4 q = ld4(g.q + at);
-            v = make_float4(v.x * q.x, v.y * q.y, v.z * q.z, v.w * q.w);
-          }
-        }
-      }
-      st4(&As[r][4 * (i % (BM / 4))], v);
-    }
-    for (int i = tid; i < BK * (BN / 4); i += kThreads) {
-      const int r = i / (BN / 4), n = n0 + 4 * (i % (BN / 4));
-      const int row = r0 + r;
-      float4 v = zero4();
-      if (row < r_end && n < g.N)
-        v = ld4(g.g + static_cast<size_t>(row) * g.ldg + n);
-      st4(&Bs[r][4 * (i % (BN / 4))], v);
-    }
-    __syncthreads();
-    tile_fma(As, Bs, acc);
-    __syncthreads();
-  }
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const int col = n0 + tx * TN;
-  if (col >= g.N) return;
-  float* out = g.part + static_cast<size_t>(blockIdx.z) * g.K * g.N;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int kd = k0 + ty * TM + i;
-    if (kd < g.K)
-      st4(out + static_cast<size_t>(kd) * g.N + col,
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-  }
+__host__ __device__ constexpr int tn_tiles_per_tap(int kseg) {
+  return (kseg + TN_BM - 1) / TN_BM;
 }
 
-cudaError_t launch_tn(const TnArgs& g, cudaStream_t stream) {
-  const dim3 grid((g.K + BM - 1) / BM, (g.N + BN - 1) / BN,
-                  (g.M + kSplitRows - 1) / kSplitRows);
-  gemm_tn<<<grid, kThreads, 0, stream>>>(g);
+// Samples per chunk: as many as leave about 512 blocks for the product, at
+// least one.  A function of the shapes alone, so the order of the sums is
+// fixed.
+int tn_samples_per_chunk(int B, int taps, int kseg, int N) {
+  const int tiles = taps * tn_tiles_per_tap(kseg) * ((N + TN_BN - 1) / TN_BN);
+  const int spc = (B * tiles + 256) / 512;
+  return spc < 1 ? 1 : (spc > B ? B : spc);
+}
+
+int tn_chunks(int B, int taps, int kseg, int N) {
+  const int spc = tn_samples_per_chunk(B, taps, kseg, N);
+  return (B + spc - 1) / spc;
+}
+
+// The tile (row tile bx, column tile by) of dW over chunk `chunk`.
+template <int PASSES>
+__device__ __forceinline__ void gemm_tn_tile(const TnArgs& g, int bx, int by,
+                                             int chunk, float* smem) {
+  float* const p_ring = smem;
+  float* const g_ring = p_ring + kStages * BK * TN_LDP;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 4, wn = warp % 4;
+  const int per_tap = tn_tiles_per_tap(g.kseg);
+  const int tap = bx / per_tap, c0 = (bx % per_tap) * TN_BM;
+  const int shift = tap - g.pad;
+  const int n0 = by * TN_BN;
+  const int b_begin = chunk * g.spc;
+  const int b_end = min(b_begin + g.spc, g.B);
+  float acc[TN_WM / 16][TN_WN / 8][4] = {};   // of the slice in hand
+  float sum[TN_WM / 16][TN_WN / 8][4] = {};   // of the slices before it
+
+  int n_it = 0;
+  for (int b = b_begin; b < b_end; ++b) n_it += (g.lengths[b] + BK - 1) / BK;
+  // where the next staged slice starts: sample, frame
+  int pb = b_begin, pr = 0;
+  while (pb < b_end && g.lengths[pb] <= 0) ++pb;
+
+  auto stage = [&](int it) {
+    const int len = g.lengths[pb];
+    const size_t sample = static_cast<size_t>(pb) * g.T;
+    float* ps = p_ring + (it % kStages) * BK * TN_LDP;
+    float* gs = g_ring + (it % kStages) * BK * TN_LDG;
+    for (int i = tid; i < BK * (TN_BM / 4); i += kThreads) {
+      const int r = i / (TN_BM / 4), q = 4 * (i % (TN_BM / 4));
+      const int t = pr + r + shift;
+      const bool ok =
+          pr + r < len && t >= 0 && t < g.T && c0 + q < g.kseg;
+      tf32::cp_async16_zfill(
+          ps + r * TN_LDP + q,
+          g.p + (sample + (ok ? t : 0)) * g.ldp + (ok ? c0 + q : 0), ok);
+    }
+    for (int i = tid; i < BK * (TN_BN / 4); i += kThreads) {
+      const int r = i / (TN_BN / 4), q = 4 * (i % (TN_BN / 4));
+      const bool ok = pr + r < len && n0 + q < g.N;
+      tf32::cp_async16_zfill(
+          gs + r * TN_LDG + q,
+          g.g + (sample + (ok ? pr + r : 0)) * g.ldg + (ok ? n0 + q : 0), ok);
+    }
+    pr += BK;
+    if (pr >= len) {
+      pr = 0;
+      ++pb;
+      while (pb < b_end && g.lengths[pb] <= 0) ++pb;
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_it) stage(s);
+    tf32::cp_async_commit();
+  }
+  for (int it = 0; it < n_it; ++it) {
+    tf32::cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (it + kStages - 1 < n_it) stage(it + kStages - 1);
+    tf32::cp_async_commit();
+    const float* ps = p_ring + (it % kStages) * BK * TN_LDP + wm * TN_WM;
+    const float* gs = g_ring + (it % kStages) * BK * TN_LDG + wn * TN_WN;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8)
+      tf32::warp_step<TN_WM / 16, TN_WN / 8, PASSES>(
+          acc, [&](int i, int k) { return ps[(kk + k) * TN_LDP + i]; },
+          [&](int k, int j) { return gs[(kk + k) * TN_LDG + j]; });
+    tf32::flush(acc, sum);
+  }
+  tf32::cp_async_wait<0>();
+
+  const int K = g.taps * g.kseg;
+  float* out = g.part + static_cast<size_t>(chunk) * K * g.N;
+  const int gq = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < TN_WM / 16; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int c = c0 + wm * TN_WM + 16 * mt + gq + 8 * half;
+      if (c >= g.kseg) continue;
+      const size_t kd = static_cast<size_t>(tap) * g.kseg + c;
+#pragma unroll
+      for (int nt = 0; nt < TN_WN / 8; ++nt) {
+        const int n = n0 + wn * TN_WN + 8 * nt + 2 * tq;
+        if (n < g.N)
+          st2(out + kd * g.N + n, sum[mt][nt][2 * half],
+              sum[mt][nt][2 * half + 1]);
+      }
+    }
+}
+
+template <int PASSES>
+__global__ void __launch_bounds__(kThreads, 1) gemm_tn(const TnArgs g) {
+  extern __shared__ float4 smem4[];
+  gemm_tn_tile<PASSES>(g, blockIdx.x, blockIdx.y, blockIdx.z,
+                       reinterpret_cast<float*>(smem4));
+}
+
+dim3 tn_grid(const TnArgs& g) {
+  return dim3(g.taps * tn_tiles_per_tap(g.kseg), (g.N + TN_BN - 1) / TN_BN,
+              (g.B + g.spc - 1) / g.spc);
+}
+
+template <int PASSES>
+cudaError_t launch_tn_as(const TnArgs& g, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      gemm_tn<PASSES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kTnSmem));
+  if (err != cudaSuccess) return err;
+  gemm_tn<PASSES><<<tn_grid(g), kThreads, kTnSmem, stream>>>(g);
   return cudaGetLastError();
 }
 
-// out[b, n] = sum over the T frames of sample b of x[b*T + t, n], the
-// frames added in a fixed order: 8 interleaved partial sums per column.
-constexpr int kSumCols = 32, kSumGroups = kThreads / kSumCols;
+// P [B*T, >= kseg] and G [B*T, >= N] into part [chunks, taps * kseg, N]
+TnArgs tn_args(const float* p, int ldp, int kseg, int taps, int pad,
+               const float* grad, int ldg, int N, float* part, int B, int T,
+               const int* lengths) {
+  return {p, grad, part, ldp, ldg, kseg, taps, pad, N, T, B,
+          tn_samples_per_chunk(B, taps, kseg, N), lengths};
+}
 
-__global__ void __launch_bounds__(kThreads)
-    column_sums(const float* x, int ldx, int N, int T, float* out) {
-  __shared__ float part[kSumGroups][kSumCols];
-  const int c = threadIdx.x % kSumCols, grp = threadIdx.x / kSumCols;
-  const int n = blockIdx.x * kSumCols + c, b = blockIdx.y;
-  float sum = 0.f;
-  if (n < N)
-    for (int t = grp; t < T; t += kSumGroups)
-      sum += x[(static_cast<size_t>(b) * T + t) * ldx + n];
-  part[grp][c] = sum;
-  __syncthreads();
-  if (grp == 0 && n < N) {
-    float total = 0.f;
-    for (int i = 0; i < kSumGroups; ++i) total += part[i][c];
-    out[static_cast<size_t>(b) * N + n] = total;
+cudaError_t launch_tn(const TnArgs& g, int passes, cudaStream_t stream) {
+  return passes == 1 ? launch_tn_as<1>(g, stream) : launch_tn_as<3>(g, stream);
+}
+
+// One launch for an activation-gradient and a weight-gradient product that
+// do not depend on each other (the k-tap conv's pair): the dgrad tiles come
+// first, and the wgrad tiles fill the SMs that the ragged batch's skipped
+// dgrad tiles leave idle.
+template <int PASSES, class Epilogue>
+__global__ void __launch_bounds__(kThreads, 1)
+    gemm_pair(const NtArgs nt, const Epilogue epilogue, const dim3 nt_blocks,
+              const TnArgs tn, const dim3 tn_blocks) {
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  int id = blockIdx.x;
+  const int nt_count = nt_blocks.x * nt_blocks.y * nt_blocks.z;
+  if (id < nt_count) {
+    gemm_nt_tile<PASSES>(nt, epilogue, id % nt_blocks.x,
+                         id / nt_blocks.x % nt_blocks.y,
+                         id / (nt_blocks.x * nt_blocks.y), smem);
+  } else {
+    id -= nt_count;
+    gemm_tn_tile<PASSES>(tn, id % tn_blocks.x, id / tn_blocks.x % tn_blocks.y,
+                         id / (tn_blocks.x * tn_blocks.y), smem);
   }
 }
 
-cudaError_t launch_sums(const float* x, int ldx, int N, int B, int T,
-                        float* out, cudaStream_t stream) {
-  column_sums<<<dim3((N + kSumCols - 1) / kSumCols, B), kThreads, 0, stream>>>(
-      x, ldx, N, T, out);
+template <int PASSES, class Epilogue>
+cudaError_t launch_pair_as(const NtArgs& nt, const Epilogue& epilogue,
+                           const TnArgs& tn, cudaStream_t stream) {
+  constexpr size_t smem = kNtSmem > kTnSmem ? kNtSmem : kTnSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      gemm_pair<PASSES, Epilogue>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 nt_blocks = nt_grid(nt, tn.B), tn_blocks = tn_grid(tn);
+  const int blocks = nt_blocks.x * nt_blocks.y * nt_blocks.z +
+                     tn_blocks.x * tn_blocks.y * tn_blocks.z;
+  gemm_pair<PASSES, Epilogue><<<blocks, kThreads, smem, stream>>>(
+      nt, epilogue, nt_blocks, tn, tn_blocks);
+  return cudaGetLastError();
+}
+
+template <class Epilogue>
+cudaError_t launch_pair(const NtArgs& nt, const Epilogue& epilogue,
+                        const TnArgs& tn, int passes, cudaStream_t stream) {
+  return passes == 1 ? launch_pair_as<1>(nt, epilogue, tn, stream)
+                     : launch_pair_as<3>(nt, epilogue, tn, stream);
+}
+
+// ---------------------------------------------------------------------------
+// column sums and the reduction of all partials
+// ---------------------------------------------------------------------------
+
+// out[b, n] = sum over the valid frames of sample b of x[b*T + t, n], the
+// frames added in a fixed order: 8 interleaved partial sums per column.  Up
+// to four tensors a launch (blockIdx.z).
+constexpr int kSumCols = 32, kSumGroups = kThreads / kSumCols;
+constexpr int kMaxSums = 4;
+
+struct SumJob {
+  const float* x;
+  float* out;
+  int ldx, N;
+};
+struct SumJobs {
+  SumJob job[kMaxSums];
+  int count;
+};
+
+__global__ void __launch_bounds__(kThreads)
+    column_sums(const SumJobs jobs, const int* lengths, int T) {
+  __shared__ float part[kSumGroups][kSumCols];
+  const SumJob job = jobs.job[blockIdx.z];
+  const int c = threadIdx.x % kSumCols, grp = threadIdx.x / kSumCols;
+  const int n = blockIdx.x * kSumCols + c, b = blockIdx.y;
+  if (static_cast<int>(blockIdx.x) * kSumCols >= job.N) return;
+  const int len = lengths[b];
+  float sum = 0.f;
+  if (n < job.N)
+    for (int t = grp; t < len; t += kSumGroups)
+      sum += job.x[(static_cast<size_t>(b) * T + t) * job.ldx + n];
+  part[grp][c] = sum;
+  __syncthreads();
+  if (grp == 0 && n < job.N) {
+    float total = 0.f;
+    for (int i = 0; i < kSumGroups; ++i) total += part[i][c];
+    job.out[static_cast<size_t>(b) * job.N + n] = total;
+  }
+}
+
+cudaError_t launch_sums(SumJobs jobs, int B, int T, const int* lengths,
+                        cudaStream_t stream) {
+  int widest = 0;
+  for (int i = 0; i < jobs.count; ++i)
+    widest = jobs.job[i].N > widest ? jobs.job[i].N : widest;
+  column_sums<<<dim3((widest + kSumCols - 1) / kSumCols, B, jobs.count),
+                kThreads, 0, stream>>>(jobs, lengths, T);
+  return cudaGetLastError();
+}
+
+// dst[j] = src[j] + src[stride + j] + ... over `parts` partials, added in
+// their order; count, stride % 4 == 0.  One job per gradient tensor
+// (blockIdx.y).
+constexpr int kMaxReduce = 32;
+constexpr int kReducePerBlock = 4 * kThreads;
+
+struct ReduceJob {
+  const float* src;
+  float* dst;
+  int count, parts, stride;
+};
+struct ReduceJobs {
+  ReduceJob job[kMaxReduce];
+  int count;
+};
+
+__global__ void __launch_bounds__(kThreads)
+    reduce_partials(const ReduceJobs jobs) {
+  const ReduceJob job = jobs.job[blockIdx.y];
+  const int j = 4 * (blockIdx.x * kThreads + threadIdx.x);
+  if (j >= job.count) return;
+  float4 sum = ld4(job.src + j);
+  for (int p = 1; p < job.parts; ++p) {
+    const float4 v = ld4(job.src + static_cast<size_t>(p) * job.stride + j);
+    sum.x += v.x;
+    sum.y += v.y;
+    sum.z += v.z;
+    sum.w += v.w;
+  }
+  *reinterpret_cast<float4*>(job.dst + j) = sum;
+}
+
+cudaError_t launch_reduce(const ReduceJobs& jobs, cudaStream_t stream) {
+  int largest = 0;
+  for (int i = 0; i < jobs.count; ++i)
+    largest = jobs.job[i].count > largest ? jobs.job[i].count : largest;
+  reduce_partials<<<dim3((largest + kReducePerBlock - 1) / kReducePerBlock,
+                         jobs.count),
+                    kThreads, 0, stream>>>(jobs);
   return cudaGetLastError();
 }
 
@@ -392,14 +663,53 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-int glow_flow_train_bwd_split_rows() { return kSplitRows; }
-
 const char* glow_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Backward of flow step `step`.  Pointers, all float32 and contiguous, with
-// M = B*T frames, c2 = C/2, ch2 = 2*ch, nsplit = ceil(M / split_rows):
+// Chunks of whole samples a weight gradient of `taps` taps of kseg rows and N
+// columns is split into at batch size B: the leading axis of its partials.
+int glow_flow_train_bwd_chunks(int B, int taps, int kseg, int N) {
+  return tn_chunks(B, taps, kseg, N);
+}
+
+// One activation-gradient product alone, for tests and timing: out[B*T, N]
+// = (sum over taps of A[frame + pad - tap, :kseg] . W[tap]^T) * mask, with
+// A [B*T, lda], W [taps, N, ldw] and out contiguous.
+int glow_flow_train_bwd_dgrad_f32(const float* a, const float* w,
+                                  const float* mask, const int* lengths,
+                                  float* out, int B, int T, int lda, int ldw,
+                                  int kseg, int taps, int N, int passes,
+                                  void* stream) {
+  if (B <= 0 || T <= 0) return cudaSuccess;
+  return launch_nt({a, w, lda, ldw, kseg, taps, (taps - 1) / 2, N * ldw, N, T,
+                    lengths},
+                   MaskedStore{out, nullptr, mask, N, 0}, B, passes,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// One weight-gradient product alone, for tests and timing: out[taps * kseg,
+// N] = sum over valid frames of P[frame + tap - pad, :kseg]^T . G[frame, :N]
+// through part [chunks, taps * kseg, N], with P [B*T, ldp] and G [B*T, ldg].
+int glow_flow_train_bwd_wgrad_f32(const float* p, const float* g,
+                                  const int* lengths, float* part, float* out,
+                                  int B, int T, int ldp, int ldg, int kseg,
+                                  int taps, int N, int passes, void* stream_) {
+  if (B <= 0 || T <= 0) return cudaSuccess;
+  auto stream = static_cast<cudaStream_t>(stream_);
+  CHECK(launch_tn(tn_args(p, ldp, kseg, taps, (taps - 1) / 2, g, ldg, N, part,
+                          B, T, lengths),
+                  passes, stream));
+  ReduceJobs jobs{};
+  const int K = taps * kseg;
+  jobs.job[0] = {part, out, K * N, tn_chunks(B, taps, kseg, N), K * N};
+  jobs.count = 1;
+  return launch_reduce(jobs, stream);
+}
+
+// Backward of flow step `step`.  Pointers, all float32 (but lengths) and
+// contiguous, with M = B*T frames, c2 = C/2, ch2 = 2*ch, and chunks(taps,
+// kseg, N) = glow_flow_train_bwd_chunks(B, taps, kseg, N):
 //
 // in[]  0 x [M,C] (the step's input)   1 y [M,C]        2 yd [M,C]
 //       3 xin [n,M,ch]                 4 ts [n,M,ch2]   5 skip [M,ch]
@@ -407,105 +717,158 @@ const char* glow_cuda_error_string(int err) {
 //       9 dz [M,C]                    10 an_logs [C]   11 mix_t [C,C]
 //      12 w_start [c2,ch]             13 w_in [n,k,ch,ch2]
 //      14 w_rs [n,ch,ch2]             15 w_end [ch,C]
+//      16 lengths [B] int32: one past each sample's last valid frame
 // out[] 0 dx [M,C]
 //       scratch: 1 douts [M,C]  2 drs [M,ch2]  3 dpre [M,ch2]
 //                4 dacc [M,ch2] or null (no conditioning)
-//                5 dyd [M,C]    6 stats [M,2C]
-//       partial weight gradients, one [K,N] per chunk of frames:
-//       7 dw_end [nsplit,ch,C]        8 dw_rs [n,nsplit,ch,ch2]
-//       9 dw_in [n,nsplit,k*ch,ch2]  10 dw_start [nsplit,c2,ch]
-//      11 dmix [nsplit,C,C]
+//                5 dyd [M,C]    6 stats [M,2C]  7 gate [M,ch]
+//       partial weight gradients, one [K,N] per chunk of samples:
+//       8 w_end [chunks(1,ch,C),ch,C]
+//       9 w_rs [n,chunks(1,ch,ch2),ch,ch2]
+//      10 w_in [n,chunks(k,ch,ch2),k*ch,ch2]
+//      11 w_start [chunks(1,c2,ch),c2,ch]   12 mix_t [chunks(1,C,C),C,C]
 //       per-sample column sums:
-//      12 db_end [B,C]   13 db_rs [n,B,ch2]   14 db_in [n,B,ch2]
-//      15 dcond [n,B,ch2] or null    16 db_start [B,ch]
-//      17 dan [B,2C] ([d an_bias, d an_logs])
-// *launched receives the number of kernels the call launched (34, or 38
-// with conditioning).  Returns a cudaError_t, 0 on success.
+//      13 b_end [B,C]   14 b_rs [n,B,ch2]   15 b_in [n,B,ch2]
+//      16 b_start [B,ch]   17 an [B,2C] ([d an_bias, d an_logs])
+//       the step's gradients:
+//      18 dcond [n,B,ch2] or null   19 an_logs [C]   20 an_bias [C]
+//      21 mix_t [C,C]   22 w_start [c2,ch]   23 b_start [ch]
+//      24 w_in [n,k,ch,ch2]   25 b_in [n,ch2]   26 w_rs [n,ch,ch2]
+//      27 b_rs [n,ch2]   28 w_end [ch,C]   29 b_end [C]
+// passes is 3 (3xTF32, float32 accuracy) or 1 (plain TF32).  *launched
+// receives the number of kernels the call launched: 6 + 4 n.  Returns a
+// cudaError_t, 0 on success.
 int glow_flow_train_bwd_step_f32(const float* const* in, float* const* out,
                                  int B, int T, int C, int ch, int n, int k,
                                  int step, int seed, unsigned threshold,
-                                 float scale, int dropout, void* stream_ptr,
-                                 int* launched) {
+                                 float scale, int dropout, int passes,
+                                 void* stream_ptr, int* launched) {
   *launched = 0;
   if (B <= 0 || T <= 0) return cudaSuccess;
+  if (7 + 4 * n > kMaxReduce) return cudaErrorInvalidValue;
   auto stream = static_cast<cudaStream_t>(stream_ptr);
   const int M = B * T, c2 = C / 2, ch2 = 2 * ch, pad = (k - 1) / 2;
-  const int nsplit = (M + kSplitRows - 1) / kSplitRows;
   const size_t frames = static_cast<size_t>(M);
   const float *x = in[0], *y = in[1], *yd = in[2], *xin = in[3], *ts = in[4],
               *skip = in[5], *logs = in[6], *mask = in[7], *dld = in[8],
               *dz = in[9], *an_logs = in[10], *mix_t = in[11],
               *w_start = in[12], *w_in = in[13], *w_rs = in[14],
               *w_end = in[15];
+  const int* lengths = reinterpret_cast<const int*>(in[16]);
   float *dx = out[0], *douts = out[1], *drs = out[2], *dpre = out[3],
-        *dacc = out[4], *dyd = out[5], *stats = out[6], *dw_end = out[7],
-        *dw_rs = out[8], *dw_in = out[9], *dw_start = out[10],
-        *dmix = out[11], *db_end = out[12], *db_rs = out[13],
-        *db_in = out[14], *dcond = out[15], *db_start = out[16],
-        *dan = out[17];
+        *dacc = out[4], *dyd = out[5], *stats = out[6], *gate = out[7],
+        *pw_end = out[8], *pw_rs = out[9], *pw_in = out[10],
+        *pw_start = out[11], *pmix = out[12], *pb_end = out[13],
+        *pb_rs = out[14], *pb_in = out[15], *pb_start = out[16],
+        *pan = out[17], *dcond = out[18];
   const dropmask::Dropout drop{static_cast<unsigned>(seed), threshold, scale,
                                dropout};
+  const int chunks_rs = tn_chunks(B, 1, ch, ch2);
+  const int chunks_in = tn_chunks(B, k, ch, ch2);
 
   // ---- the affine epilogue and the end conv -----------------------------
   affine_backward<<<(M * c2 + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
       dz, dld, mask, yd, logs, douts, dyd, M, T, c2);
   LAUNCH(cudaGetLastError());
-  LAUNCH(launch_tn({skip, nullptr, douts, dw_end, ch, C, ch, 0, ch, C, M, T},
-                  stream));
-  LAUNCH(launch_sums(douts, C, C, B, T, db_end, stream));
   // drs = [res gradient, dskip]: the res half starts at zero (the last
-  // layer has no res output), dskip = (douts . w_end^T) * m for all layers
-  CHECK(cudaMemsetAsync(drs, 0, frames * ch2 * sizeof(float), stream));
-  LAUNCH(launch_nt({douts, w_end, C, C, C, 1, 0, 0, M, ch, T},
-                  MaskedStore{drs + ch, nullptr, mask, ch2, 0}, stream));
+  // layer has no res output), dskip = (douts . w_end^T) * m for all layers;
+  // with it dW_end = skip^T . douts
+  CHECK(cudaMemset2DAsync(drs, ch2 * sizeof(float), 0, ch * sizeof(float),
+                          frames, stream));
+  LAUNCH(launch_pair(
+      {douts, w_end, C, C, C, 1, 0, 0, ch, T, lengths},
+      MaskedStore{drs + ch, nullptr, mask, ch2, 0},
+      tn_args(skip, ch, ch, 1, 0, douts, C, C, pw_end, B, T, lengths), passes,
+      stream));
 
   // ---- the WaveNet layers, last to first --------------------------------
   for (int i = n - 1; i >= 0; --i) {
     const float* ts_i = ts + i * frames * ch2;
     const float* w_in_i = w_in + static_cast<size_t>(i) * k * ch * ch2;
     const float* w_rs_i = w_rs + static_cast<size_t>(i) * ch * ch2;
-    // res/skip 1x1: dW = (t*s)^T . drs, db, dgate = drs . w_rs^T
-    LAUNCH(launch_tn({ts_i, ts_i + ch, drs,
-                     dw_rs + static_cast<size_t>(i) * nsplit * ch * ch2, ch2,
-                     ch2, ch, 0, ch, ch2, M, T},
-                    stream));
-    LAUNCH(launch_sums(drs, ch2, ch2, B, T,
-                      db_rs + static_cast<size_t>(i) * B * ch2, stream));
+    // res/skip 1x1: dgate = drs . w_rs^T, then the gate's backward
     LAUNCH(launch_nt(
-        {drs, w_rs_i, ch2, ch2, ch2, 1, 0, 0, M, ch, T},
-        GateBackward{ts_i, dpre, dacc, ch, T,
+        {drs, w_rs_i, ch2, ch2, ch2, 1, 0, 0, ch, T, lengths},
+        GateBackward{ts_i, dpre, dacc, gate, ch, T,
                      static_cast<unsigned>(T + k - 1),
                      dropmask::layer_salt(drop.seed, step, i, n), drop},
-        stream));
+        B, passes, stream));
+    // db_rs, db_in, dcond (and, beside the last layer's, db_end)
+    SumJobs sums{};
+    if (i == n - 1) sums.job[sums.count++] = {douts, pb_end, C, C};
+    sums.job[sums.count++] = {drs, pb_rs + static_cast<size_t>(i) * B * ch2,
+                              ch2, ch2};
+    sums.job[sums.count++] = {dpre, pb_in + static_cast<size_t>(i) * B * ch2,
+                              ch2, ch2};
     if (dcond)
-      LAUNCH(launch_sums(dacc, ch2, ch2, B, T,
-                        dcond + static_cast<size_t>(i) * B * ch2, stream));
-    LAUNCH(launch_sums(dpre, ch2, ch2, B, T,
-                      db_in + static_cast<size_t>(i) * B * ch2, stream));
-    // k-tap conv: dW[tap] = xin[frame + tap - pad]^T . dpre[frame], and the
-    // input gradient dpre[frame + pad - tap] . w_in[tap]^T summed over the
-    // taps; the res half of drs becomes (that + the res gradient) * m, the
-    // next layer's res gradient
-    LAUNCH(launch_tn({xin + i * frames * ch, nullptr, dpre,
-                     dw_in + static_cast<size_t>(i) * nsplit * k * ch * ch2,
-                     ch, ch2, ch, pad, k * ch, ch2, M, T},
-                    stream));
-    LAUNCH(launch_nt({dpre, w_in_i, ch2, ch2, ch2, k, pad, ch * ch2, M, ch, T},
-                    MaskedStore{drs, drs, mask, ch2, ch2}, stream));
+      sums.job[sums.count++] = {
+          dacc, dcond + static_cast<size_t>(i) * B * ch2, ch2, ch2};
+    LAUNCH(launch_sums(sums, B, T, lengths, stream));
+    // dW_rs = (t*s)^T . drs
+    LAUNCH(launch_tn(
+        tn_args(gate, ch, ch, 1, 0, drs, ch2, ch2,
+                pw_rs + static_cast<size_t>(i) * chunks_rs * ch * ch2, B, T,
+                lengths),
+        passes, stream));
+    // k-tap conv, one launch for both: the input gradient dpre[frame + pad -
+    // tap] . w_in[tap]^T summed over the taps (the res half of drs becomes
+    // (that + the res gradient) * m, the next layer's res gradient), and
+    // dW[tap] = xin[frame + tap - pad]^T . dpre[frame]
+    LAUNCH(launch_pair(
+        {dpre, w_in_i, ch2, ch2, ch2, k, pad, ch * ch2, ch, T, lengths},
+        MaskedStore{drs, drs, mask, ch2, ch2},
+        tn_args(xin + i * frames * ch, ch, ch, k, pad, dpre, ch2, ch2,
+                pw_in + static_cast<size_t>(i) * chunks_in * k * ch * ch2, B,
+                T, lengths),
+        passes, stream));
   }
 
   // ---- start conv, mixing, ActNorm ----------------------------------------
-  // drs[:, :ch] is now dh = d(start conv output) * m
-  LAUNCH(launch_tn({yd, nullptr, drs, dw_start, C, ch2, c2, 0, c2, ch, M, T},
-                  stream));
-  LAUNCH(launch_sums(drs, ch2, ch, B, T, db_start, stream));
-  // dyd[:, :c2] = (dz_a + dh . w_start^T) * m
-  LAUNCH(launch_nt({drs, w_start, ch2, ch, ch, 1, 0, 0, M, c2, T},
-                  MaskedStore{dyd, dz, mask, C, C}, stream));
-  LAUNCH(launch_tn({y, nullptr, dyd, dmix, C, C, C, 0, C, C, M, T}, stream));
-  LAUNCH(launch_nt({dyd, mix_t, C, C, C, 1, 0, 0, M, C, T},
-                  ActNormBackward{x, an_logs, mask, dx, stats, C}, stream));
-  LAUNCH(launch_sums(stats, 2 * C, 2 * C, B, T, dan, stream));
+  // drs[:, :ch] is now dh = d(start conv output) * m: dyd[:, :c2] = (dz_a +
+  // dh . w_start^T) * m, and dW_start = x_a^T . dh
+  LAUNCH(launch_pair(
+      {drs, w_start, ch2, ch, ch, 1, 0, 0, c2, T, lengths},
+      MaskedStore{dyd, dz, mask, C, C},
+      tn_args(yd, C, c2, 1, 0, drs, ch2, ch, pw_start, B, T, lengths), passes,
+      stream));
+  // the mixing's input gradient through ActNorm's backward, and dmix = y^T .
+  // dyd
+  LAUNCH(launch_pair({dyd, mix_t, C, C, C, 1, 0, 0, C, T, lengths},
+                     ActNormBackward{x, an_logs, mask, dx, stats, C},
+                     tn_args(y, C, C, 1, 0, dyd, C, C, pmix, B, T, lengths),
+                     passes, stream));
+  SumJobs sums{};
+  sums.job[sums.count++] = {drs, pb_start, ch2, ch};
+  sums.job[sums.count++] = {stats, pan, 2 * C, 2 * C};
+  LAUNCH(launch_sums(sums, B, T, lengths, stream));
+
+  // ---- every partial into the step's gradients, in order ------------------
+  ReduceJobs red{};
+  auto reduce = [&](const float* src, float* dst, int count, int parts,
+                    int stride) {
+    red.job[red.count++] = {src, dst, count, parts, stride};
+  };
+  reduce(pan + C, out[19], C, B, 2 * C);
+  reduce(pan, out[20], C, B, 2 * C);
+  reduce(pmix, out[21], C * C, tn_chunks(B, 1, C, C), C * C);
+  reduce(pw_start, out[22], c2 * ch, tn_chunks(B, 1, c2, ch), c2 * ch);
+  reduce(pb_start, out[23], ch, B, ch);
+  reduce(pw_end, out[28], ch * C, tn_chunks(B, 1, ch, C), ch * C);
+  reduce(pb_end, out[29], C, B, C);
+  for (int i = 0; i < n; ++i) {
+    const int w_in_size = k * ch * ch2, w_rs_size = ch * ch2;
+    reduce(pw_in + static_cast<size_t>(i) * chunks_in * w_in_size,
+           out[24] + static_cast<size_t>(i) * w_in_size, w_in_size, chunks_in,
+           w_in_size);
+    reduce(pb_in + static_cast<size_t>(i) * B * ch2, out[25] + i * ch2, ch2, B,
+           ch2);
+    reduce(pw_rs + static_cast<size_t>(i) * chunks_rs * w_rs_size,
+           out[26] + static_cast<size_t>(i) * w_rs_size, w_rs_size, chunks_rs,
+           w_rs_size);
+    reduce(pb_rs + static_cast<size_t>(i) * B * ch2, out[27] + i * ch2, ch2, B,
+           ch2);
+  }
+  LAUNCH(launch_reduce(red, stream));
   return cudaSuccess;
 }
 

@@ -24,10 +24,17 @@
 // * the logdet is the WaveNet's alone (sum of logs over valid frames); the
 //   per-frame ActNorm and mixing constants are added by the caller in
 //   plain PyTorch, where autograd carries their gradients.
-// With SAVE the same kernel is the backward pass's recompute: it writes,
-// for the frames a tile owns, what the backward kernels read (the ActNorm
-// and mixing outputs, every layer's input and gate halves, the masked skip
-// sum and logs) and neither z nor the logdet.
+// The kernel has three instantiations (Writes).  kOutputs is the forward
+// pass of a call that needs no gradient.  kSaved writes, for the frames a
+// tile owns, what the backward kernels read (the ActNorm and mixing
+// outputs, every layer's input and gate halves, the masked skip sum and
+// logs) and neither z nor the logdet: the backward pass's recompute of one
+// step from its checkpoint.  kBoth is the forward pass of a call that will
+// be differentiated and whose saved values fit in device memory (190 MB a
+// step at 32 x 512 frames against 80 GB): it writes z, the logdet and the
+// saved values of every step, so the backward pass recomputes nothing.
+// kSaved and kBoth run the same device code for the saved values, so the
+// two give the backward kernels the same bits.
 //
 // What bounds it: arithmetic, as flow_step.cu (3.7 MFLOP per frame and
 // step against a few bytes); the hash adds ~20 integer operations per
@@ -46,7 +53,7 @@ struct Params {
   StepWeights w;
   float* z;              // [B, T, C]
   float* ld_part;        // [B, n_tiles]
-  SavePointers save;     // SAVE only
+  SavePointers save;     // kSaved and kBoth only
   dropmask::Dropout drop;
   unsigned step;         // index of this flow step in the stack
   int B, T, n_tiles;
@@ -91,29 +98,31 @@ struct DropoutPreGate {
   }
 };
 
-template <class S, bool SAVE>
+enum class Writes { kOutputs, kSaved, kBoth };
+
+template <class S, Writes WRITES>
 __global__ void __launch_bounds__(kThreads, 1)
     flow_train_fwd_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   const Tile<S> tile(reinterpret_cast<float*>(smem4), p.B, p.T, blockIdx.y,
                      blockIdx.x);
   tile.load(p.x, p.mask);
-  coupling_net<S, true, SAVE>(tile, p.w, p.save,
-                              DropoutPreGate{p.b_in, p.cond, p.drop, p.step});
-  if constexpr (!SAVE) {
+  coupling_net<S, true, WRITES != Writes::kOutputs>(
+      tile, p.w, p.save, DropoutPreGate{p.b_in, p.cond, p.drop, p.step});
+  if constexpr (WRITES != Writes::kSaved) {
     const float total = affine_forward(tile, p.z);
     if (threadIdx.x == 0) p.ld_part[tile.b * p.n_tiles + tile.index] = total;
   }
 }
 
-template <class S, bool SAVE>
+template <class S, Writes WRITES>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flow_train_fwd_kernel<S, SAVE>,
+      flow_train_fwd_kernel<S, WRITES>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(S::smem_bytes));
   if (err != cudaSuccess) return err;
-  flow_train_fwd_kernel<S, SAVE>
+  flow_train_fwd_kernel<S, WRITES>
       <<<dim3(p.n_tiles, p.B), kThreads, S::smem_bytes, stream>>>(p);
   return cudaGetLastError();
 }
@@ -134,8 +143,10 @@ const char* glow_cuda_error_string(int err) {
 // step_begin, [B, T, C], and every step writes its output behind its
 // input: step s reads acts[s - step_begin] and writes acts[s - step_begin
 // + 1]; ld_part is [S, B, n_tiles].  With save (an array of the six
-// pointers of SavePointers, in their order) the steps write what the
-// backward pass reads instead, and neither acts nor ld_part.
+// pointers of SavePointers, in their order, each at the values of step
+// step_begin with the following steps' behind them) the steps also write
+// what the backward pass reads; with save and no ld_part they write that
+// alone, and neither acts nor ld_part.
 // Returns a cudaError_t, 0 on success.
 int glow_flow_train_fwd_f32(float* acts, const float* mask, const float* cond,
                             const float* an_logs, const float* an_bias,
@@ -167,15 +178,24 @@ int glow_flow_train_fwd_f32(float* acts, const float* mask, const float* cond,
     p.B = B;
     p.T = T;
     p.n_tiles = n_tiles;
-    cudaError_t err;
     if (save) {
-      p.save = {save[0], save[1], save[2], save[3], save[4], save[5]};
-      err = launch<S, true>(p, static_cast<cudaStream_t>(stream));
-    } else {
+      const size_t at = (s - step_begin) * frames;
+      p.save = {save[0] + at * S::C,
+                save[1] + at * S::C,
+                save[2] + at * S::NL * S::CH,
+                save[3] + at * S::NL * S::CH2,
+                save[4] + at * S::CH,
+                save[5] + at * S::C2};
+    }
+    if (ld_part) {
       p.z = acts + (s - step_begin + 1) * frames * S::C;
       p.ld_part = ld_part + static_cast<size_t>(s) * B * n_tiles;
-      err = launch<S, false>(p, static_cast<cudaStream_t>(stream));
     }
+    const auto on = static_cast<cudaStream_t>(stream);
+    const cudaError_t err =
+        !save ? launch<S, Writes::kOutputs>(p, on)
+              : ld_part ? launch<S, Writes::kBoth>(p, on)
+                        : launch<S, Writes::kSaved>(p, on);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;

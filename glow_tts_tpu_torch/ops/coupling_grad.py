@@ -9,23 +9,41 @@ module holds their plain PyTorch version
 and gradient oracle) and the entry :func:`flow_stack_train`, which picks
 between them by the tensor's device alone.
 
-What bounds the pair on an H100: arithmetic.  A step costs 3.7 MFLOP per
-squeezed frame forward; the backward pass recomputes the step from its
-checkpoint and then does the activation gradients and the weight gradients,
-each the forward's work again, so a train step's flow is about four
-forwards.  The forward keeps a step's activations in shared memory (the
-flow-step kernel's tiling); the backward runs per step as a recompute
-launch and a fixed sequence of 34 tiled GEMM and reduction launches over activations left in
-device memory (about 190 MB at 32 × 512 frames, reused by every step), with
-weight gradients split over frame chunks into partials that are added here
-in a fixed order: no atomics, so two runs give the same bits.  The math is
-plain f32 FMA; tensor cores are left to later work.
+What bounds the pair on an H100: arithmetic.  A step costs 3.6 MFLOP per
+valid squeezed frame forward, and the activation gradients and the weight
+gradients are each that work again, against a few hundred bytes per frame.
+The forward keeps a step's activations in shared memory (the flow-step
+kernel's tiling, f32 FMA).  What the design of the backward does about it:
+
+* no recompute where the activations fit.  The TPU kernel recomputes a step
+  from its checkpoint because its fast memory is small; this card has 80 GB,
+  so a forward that will be differentiated also writes what the backward
+  reads (190 MB a step at 32 x 512 frames) when that is at most
+  :data:`STORE_BUDGET_BYTES` for the whole stack (:func:`stores_activations`,
+  a function of the shapes alone), and otherwise the backward recomputes
+  step by step into one step's buffers as the TPU kernel does.  Both routes
+  run the same device code for the saved values: the gradients are the same
+  bits;
+* both GEMMs on the tensor cores, as the error-compensated 3xTF32 product
+  (:data:`TF32_PASSES`; :func:`matmul_3xtf32_reference` is its plain
+  arithmetic), which keeps f32 accuracy where one TF32 pass keeps 3 digits;
+* valid frames only: every gradient operand is zero past a sample's last
+  valid frame, so tiles, warps and weight-gradient chunks past it are
+  skipped; no value changes;
+* 22 launches per flow step (the library counts them): an activation-
+  gradient and a weight-gradient product that do not depend on each other
+  share a launch, so that the second fills the SMs the ragged batch's
+  skipped tiles leave idle; the last launch adds every partial of the
+  weight-gradient chunks (whole samples, a split that is a function of the
+  shapes) and of the per-sample column sums in a fixed order straight into
+  the gradient tensors: no atomics, so two runs give the same bits.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -129,19 +147,93 @@ def _pointers(tensors) -> ctypes.Array:
           for tensor in tensors])
 
 
-# what the backward pass recomputes per flow step, over the M = B·T frames
+# what the backward pass reads of a flow step beside its input, over the
+# M = B·T frames: written by the forward pass (stored) or recomputed
 SAVED_KEYS = ('y', 'yd', 'xin', 'ts', 'skip', 'logs')
+# the most a forward pass stores for its backward pass; above it the backward
+# recomputes step by step (2.3 GB at 12 steps of 32 x 512 frames)
+STORE_BUDGET_BYTES = 8 * 2 ** 30
+# passes of the backward GEMMs' TF32 product: 3 is the error-compensated
+# 3xTF32 (f32 accuracy), 1 a single TF32 pass (3 digits, kept for measuring)
+TF32_PASSES = 3
+# kernels the backward library launches per flow step of n WaveNet layers
+BACKWARD_LAUNCHES_PER_LAYER, BACKWARD_LAUNCHES_FIXED = 4, 6
 
 
-def _saved_buffers(m: int, c: int, ch: int, n: int,
-                   device) -> Dict[str, torch.Tensor]:
+def backward_launches_per_step(n: int) -> int:
+    """Kernels of ``csrc/flow_train_bwd.cu`` behind one flow step's backward,
+    with or without conditioning: per layer the res/skip conv's activation
+    gradient, one launch of column sums, its weight gradient, and the k-tap
+    conv's two gradients as one launch; the affine's elementwise backward,
+    three more such pairs (end conv, start conv, mixing), one launch of
+    column sums and the reduction of all partials."""
+    return BACKWARD_LAUNCHES_FIXED + BACKWARD_LAUNCHES_PER_LAYER * n
+
+
+def _saved_shapes(m: int, c: int, ch: int, n: int
+                  ) -> Dict[str, Tuple[int, ...]]:
     """ActNorm output ``y`` and mixing output ``yd`` ``[M, C]``, every
     layer's input ``xin [n, M, ch]`` and gate halves ``ts [n, M, 2ch]``
     (tanh, sigmoid), the masked skip sum ``[M, ch]``, ``logs [M, C/2]``."""
-    shapes = {'y': (m, c), 'yd': (m, c), 'xin': (n, m, ch),
-              'ts': (n, m, 2 * ch), 'skip': (m, ch), 'logs': (m, c // 2)}
-    return {key: torch.empty(shapes[key], device=device)
-            for key in SAVED_KEYS}
+    return {'y': (m, c), 'yd': (m, c), 'xin': (n, m, ch),
+            'ts': (n, m, 2 * ch), 'skip': (m, ch), 'logs': (m, c // 2)}
+
+
+def saved_bytes_per_step(m: int, c: int, ch: int, n: int) -> int:
+    """Bytes of what the backward pass reads of one flow step beside its
+    input, at ``m`` frames."""
+    shapes = _saved_shapes(m, c, ch, n)
+    return 4 * sum(math.prod(shapes[key]) for key in SAVED_KEYS)
+
+
+def stores_activations(s_steps: int, m: int, c: int, ch: int, n: int) -> bool:
+    """Whether a forward pass that will be differentiated stores every
+    step's saved values (else the backward pass recomputes them): when they
+    fit in :data:`STORE_BUDGET_BYTES`.  A function of the shapes alone."""
+    return s_steps * saved_bytes_per_step(m, c, ch, n) <= STORE_BUDGET_BYTES
+
+
+def _saved_buffers(m: int, c: int, ch: int, n: int, device,
+                   steps: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Uninitialised buffers of :func:`_saved_shapes`, for one flow step or
+    with a leading axis of ``steps``."""
+    lead = () if steps is None else (steps,)
+    return {key: torch.empty(lead + shape, device=device)
+            for key, shape in _saved_shapes(m, c, ch, n).items()}
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def matmul_3xtf32_reference(a: torch.Tensor, b: torch.Tensor,
+                            passes: int = 3) -> torch.Tensor:
+    """The arithmetic of the backward kernels' GEMMs in plain PyTorch:
+    operands in TF32, products exact, sums in f32.  With 3 passes each
+    operand is split into ``hi + lo`` (``hi`` rounded to TF32, ``lo`` the
+    remainder cut to TF32, as the tensor cores read it) and the product is
+    ``a_lo·b_hi + a_hi·b_lo + a_hi·b_hi`` (3xTF32); with 1 pass it is
+    ``a_hi·b_hi``."""
+    def cut(x):
+        return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = cut(a - a_hi), cut(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _valid_lengths(mask: torch.Tensor) -> torch.Tensor:
+    """int32 ``[B]``: one past the last frame of each sample whose mask is
+    not zero (the sample's length, for a prefix mask), on the mask's
+    device."""
+    b, t, _ = mask.shape
+    frames = torch.arange(1, t + 1, device=mask.device)
+    return ((mask.reshape(b, t) != 0) * frames).amax(dim=1).to(torch.int32)
 
 
 def _recompute(x_step, mask, cond, weights, saved, step: int, drop) -> None:
@@ -161,12 +253,17 @@ def _recompute(x_step, mask, cond, weights, saved, step: int, drop) -> None:
 
 class _FlowStackTrain(torch.autograd.Function):
     """The two kernels as one differentiable function of
-    ``(x, cond, *weights)``; returns ``(z, WaveNet logdet)``."""
+    ``(x, cond, *weights)``; returns ``(z, WaveNet logdet)``.  ``route``
+    says what the forward pass leaves for a backward pass: ``'forward'``
+    nothing but the steps' inputs (no gradient is wanted), ``'store'`` every
+    step's saved values, ``'recompute'`` the steps' inputs, from which the
+    backward pass recomputes them; ``passes`` is the number of TF32 passes of
+    the backward GEMMs."""
 
     @staticmethod
-    def forward(ctx, x, mask, cond, seed, rate, *weights):
+    def forward(ctx, x, mask, cond, seed, rate, route, passes, *weights):
         b, t, c = x.shape
-        s_steps = weights[0].shape[0]
+        s_steps, n, _, ch, _ = weights[WEIGHT_KEYS.index('w_in')].shape
         lib = load_train_forward_library()
         acts = torch.empty((s_steps + 1, b, t, c), device=x.device)
         acts[0].copy_(x)
@@ -175,49 +272,61 @@ class _FlowStackTrain(torch.autograd.Function):
         # atomics, so the result does not depend on block order
         ld_part = torch.empty((s_steps, b, n_tiles), device=x.device)
         drop = _dropout_args(seed, rate)
+        stored = (_saved_buffers(b * t, c, ch, n, x.device, s_steps)
+                  if route == 'store' else {})
         err = lib.glow_flow_train_fwd_f32(
             acts.data_ptr(), mask.data_ptr(),
             None if cond is None else cond.data_ptr(),
-            *[w.data_ptr() for w in weights], ld_part.data_ptr(), None,
+            *[w.data_ptr() for w in weights], ld_part.data_ptr(),
+            _pointers([stored[key] for key in SAVED_KEYS]) if stored else None,
             b, t, 0, s_steps, *drop,
             torch.cuda.current_stream(x.device).cuda_stream)
         _raise_on(err, lib, 'flow_stack_train forward')
         flow_stack_train.forward_launches += s_steps
-        ctx.save_for_backward(acts, mask, cond, *weights)
-        ctx.drop = drop
+        ctx.save_for_backward(acts, mask, cond, *stored.values(), *weights)
+        ctx.drop, ctx.route, ctx.passes = drop, route, passes
         return acts[s_steps], ld_part.sum(dim=(0, 2))
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dz, dld):
-        acts, mask, cond, *weights = ctx.saved_tensors
+        if ctx.route == 'forward':
+            raise RuntimeError('flow_stack_train: this forward pass was run '
+                               'for its outputs alone')
+        acts, mask, cond, *rest = ctx.saved_tensors
+        n_stored = len(SAVED_KEYS) if ctx.route == 'store' else 0
+        stored, weights = rest[:n_stored], rest[n_stored:]
         named = dict(zip(WEIGHT_KEYS, weights))
         s_steps, b, t, c = acts.shape[0] - 1, *acts.shape[1:]
         _, n, k, ch, ch2 = named['w_in'].shape
-        m = b * t
+        m, c2 = b * t, c // 2
         device = acts.device
         bwd = load_train_backward_library()
         stream = torch.cuda.current_stream(device).cuda_stream
-        nsplit = -(-m // bwd.glow_flow_train_bwd_split_rows())
 
         def empty(*shape):
             return torch.empty(shape, device=device)
 
+        def chunks(taps, kseg, width):
+            return bwd.glow_flow_train_bwd_chunks(b, taps, kseg, width)
+
         dz = (torch.zeros_like(acts[0]) if dz is None
               else dz.float().contiguous())
         dld = empty(b).zero_() if dld is None else dld.float().contiguous()
-        saved = _saved_buffers(m, c, ch, n, device)
+        lengths = _valid_lengths(mask)
+        saved = None if stored else _saved_buffers(m, c, ch, n, device)
         scratch = [empty(m, c), empty(m, ch2), empty(m, ch2),
                    None if cond is None else empty(m, ch2),
-                   empty(m, c), empty(m, 2 * c)]
-        parts = {'w_end': empty(nsplit, ch, c),
-                 'w_rs': empty(n, nsplit, ch, ch2),
-                 'w_in': empty(n, nsplit, k * ch, ch2),
-                 'w_start': empty(nsplit, c // 2, ch),
-                 'mix_t': empty(nsplit, c, c)}
-        sums = {'b_end': empty(b, c), 'b_rs': empty(n, b, ch2),
-                'b_in': empty(n, b, ch2), 'b_start': empty(b, ch),
-                'an': empty(b, 2 * c)}
+                   empty(m, c), empty(m, 2 * c), empty(m, ch)]
+        # partials of the weight gradients (one per chunk of samples) and of
+        # the column sums (one per sample), reused by every step
+        partials = [empty(chunks(1, ch, c), ch, c),
+                    empty(n, chunks(1, ch, ch2), ch, ch2),
+                    empty(n, chunks(k, ch, ch2), k * ch, ch2),
+                    empty(chunks(1, c2, ch), c2, ch),
+                    empty(chunks(1, c, c), c, c),
+                    empty(b, c), empty(n, b, ch2), empty(n, b, ch2),
+                    empty(b, ch), empty(b, 2 * c)]
         grads = {key: torch.empty_like(value) for key, value in named.items()}
         dcond = None if cond is None else torch.empty_like(cond)
         # the cotangent walks down the steps through two buffers of its own
@@ -225,37 +334,25 @@ class _FlowStackTrain(torch.autograd.Function):
         dx_in, dx_bufs = dz, [torch.empty_like(dz), torch.empty_like(dz)]
         launched = ctypes.c_int(0)
         for s in range(s_steps - 1, -1, -1):
-            _recompute(acts[s], mask, cond, weights, saved, s, ctx.drop)
-            inputs = [acts[s], *saved.values(), mask, dld, dx_in, named['an_logs'][s],
-                      named['mix_t'][s], named['w_start'][s], named['w_in'][s],
-                      named['w_rs'][s], named['w_end'][s]]
-            outputs = [dx_bufs[s % 2], *scratch, parts['w_end'], parts['w_rs'],
-                       parts['w_in'], parts['w_start'], parts['mix_t'],
-                       sums['b_end'], sums['b_rs'], sums['b_in'],
+            if stored:
+                step_saved = [tensor[s] for tensor in stored]
+            else:
+                _recompute(acts[s], mask, cond, weights, saved, s, ctx.drop)
+                step_saved = list(saved.values())
+            inputs = [acts[s], *step_saved, mask, dld, dx_in,
+                      named['an_logs'][s], named['mix_t'][s],
+                      named['w_start'][s], named['w_in'][s], named['w_rs'][s],
+                      named['w_end'][s], lengths]
+            outputs = [dx_bufs[s % 2], *scratch, *partials,
                        None if dcond is None else dcond[s],
-                       sums['b_start'], sums['an']]
+                       *[grads[key][s] for key in WEIGHT_KEYS]]
             err = bwd.glow_flow_train_bwd_step_f32(
                 _pointers(inputs), _pointers(outputs), b, t, c, ch, n, k, s,
-                *ctx.drop, stream, ctypes.byref(launched))
+                *ctx.drop, ctx.passes, stream, ctypes.byref(launched))
             flow_stack_train.backward_launches += launched.value
             _raise_on(err, bwd, 'flow_stack_train backward')
-            # the partials of the frame chunks and of the samples, added in
-            # their order
-            torch.sum(parts['w_end'], dim=0, out=grads['w_end'][s])
-            torch.sum(parts['w_rs'], dim=1, out=grads['w_rs'][s])
-            torch.sum(parts['w_in'], dim=1,
-                      out=grads['w_in'][s].view(n, k * ch, ch2))
-            torch.sum(parts['w_start'], dim=0, out=grads['w_start'][s])
-            torch.sum(parts['mix_t'], dim=0, out=grads['mix_t'][s])
-            torch.sum(sums['b_end'], dim=0, out=grads['b_end'][s])
-            torch.sum(sums['b_rs'], dim=1, out=grads['b_rs'][s])
-            torch.sum(sums['b_in'], dim=1, out=grads['b_in'][s])
-            torch.sum(sums['b_start'], dim=0, out=grads['b_start'][s])
-            dan = sums['an'].sum(dim=0)
-            grads['an_bias'][s] = dan[:c]
-            grads['an_logs'][s] = dan[c:]
             dx_in = dx_bufs[s % 2]
-        return (dx_in, None, dcond, None, None,
+        return (dx_in, None, dcond, None, None, None, None,
                 *[grads[key] for key in WEIGHT_KEYS])
 
 
@@ -289,6 +386,28 @@ def _check_cuda_inputs(x, mask, weights, cond, pitch) -> None:
                 f'{tuple(tensor.shape)} {tensor.dtype} on {tensor.device}')
 
 
+def _apply_kernels(x, mask, weights, cond, seed, dropout_rate,
+                   route: Optional[str] = None,
+                   passes: int = TF32_PASSES):
+    """``_FlowStackTrain`` on checked CUDA operands.  ``route`` is chosen
+    here: ``'forward'`` when no gradient can be asked for, else by
+    :func:`stores_activations`; tests and measurements force ``'store'`` or
+    ``'recompute'`` (and the number of TF32 passes) through this function."""
+    stack = [weights[key] for key in WEIGHT_KEYS]
+    if route is None:
+        wanted = torch.is_grad_enabled() and any(
+            tensor is not None and tensor.requires_grad
+            for tensor in (x, cond, *stack))
+        b, t, c = x.shape
+        s_steps, n, _, ch, _ = weights['w_in'].shape
+        route = ('forward' if not wanted else
+                 'store' if stores_activations(s_steps, b * t, c, ch, n)
+                 else 'recompute')
+    z, ld = _FlowStackTrain.apply(x, mask, cond, int(seed),
+                                  float(dropout_rate), route, passes, *stack)
+    return z, ld + weights['ld_const'].sum() * mask.sum(dim=(1, 2))
+
+
 def flow_stack_train(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
                      cond: Optional[torch.Tensor] = None,
                      pitch: Optional[torch.Tensor] = None, *, seed: int,
@@ -308,19 +427,74 @@ def flow_stack_train(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
                                           seed=seed,
                                           dropout_rate=dropout_rate)
     _check_cuda_inputs(x, mask, weights, cond, pitch)
-    z, ld = _FlowStackTrain.apply(x, mask, cond, int(seed),
-                                  float(dropout_rate),
-                                  *[weights[key] for key in WEIGHT_KEYS])
-    return z, ld + weights['ld_const'].sum() * mask.sum(dim=(1, 2))
+    return _apply_kernels(x, mask, weights, cond, seed, dropout_rate)
 
 
 # kernel launches of the forward pass (one per flow step); of the forward
-# kernel's saving instantiation, the backward pass's recompute (one per flow
-# step); and of the backward library's kernels, as its entry counts them: a
-# fixed sequence of 34 per flow step (38 with conditioning)
+# kernel's saving instantiation as the backward pass's recompute (one per
+# flow step, none where the forward pass stored); and of the backward
+# library's kernels, as its entry counts them: a fixed sequence of
+# backward_launches_per_step(n) per flow step
 flow_stack_train.forward_launches = 0
 flow_stack_train.recompute_launches = 0
 flow_stack_train.backward_launches = 0
+
+
+def _check_product_operands(**tensors: torch.Tensor) -> None:
+    for name, tensor in tensors.items():
+        if (tensor.device.type != 'cuda' or tensor.dtype != torch.float32
+                or not tensor.is_contiguous()):
+            raise ValueError(f'{name} must be a contiguous float32 CUDA '
+                             f'tensor; got {tensor.dtype} on {tensor.device}')
+
+
+def _dgrad_product(a: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
+                   passes: int = TF32_PASSES) -> torch.Tensor:
+    """One launch of the backward library's activation-gradient GEMM alone,
+    for tests and timing: ``a [B, T, K]``, ``w [taps, N, K]``, ``mask [B, T,
+    1]`` → ``[B, T, N]``, the k-tap transposed conv of ``a`` under the
+    mask."""
+    _check_product_operands(a=a, w=w, mask=mask)
+    b, t, kseg = a.shape
+    taps, width, depth = w.shape
+    if depth != kseg or kseg % 32 or width % 8 or mask.shape != (b, t, 1):
+        raise ValueError(f'dgrad product of a {tuple(a.shape)}, w '
+                         f'{tuple(w.shape)}, mask {tuple(mask.shape)}')
+    lib = load_train_backward_library()
+    out = torch.empty((b, t, width), device=a.device)
+    lengths = _valid_lengths(mask)
+    err = lib.glow_flow_train_bwd_dgrad_f32(
+        a.data_ptr(), w.data_ptr(), mask.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), b, t, kseg, kseg, kseg, taps, width, passes,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_on(err, lib, 'flow_stack_train dgrad')
+    return out
+
+
+def _wgrad_product(p: torch.Tensor, g: torch.Tensor, mask: torch.Tensor,
+                   taps: int = 1, passes: int = TF32_PASSES) -> torch.Tensor:
+    """The backward library's weight-gradient GEMM and its reduction alone
+    (two launches), for tests and timing: ``p [B, T, K]``, ``g [B, T, N]``,
+    ``mask [B, T, 1]`` → ``[taps · K, N]``, the sum over the frames below
+    each sample's length of ``p[frame + tap − pad]ᵀ · g[frame]``."""
+    _check_product_operands(p=p, g=g, mask=mask)
+    b, t, kseg = p.shape
+    width = g.shape[2]
+    if (g.shape[:2] != (b, t) or kseg % 4 or width % 4
+            or mask.shape != (b, t, 1)):
+        raise ValueError(f'wgrad product of p {tuple(p.shape)}, g '
+                         f'{tuple(g.shape)}, mask {tuple(mask.shape)}')
+    lib = load_train_backward_library()
+    part = torch.empty((lib.glow_flow_train_bwd_chunks(b, taps, kseg, width),
+                        taps * kseg, width), device=p.device)
+    out = torch.empty((taps * kseg, width), device=p.device)
+    lengths = _valid_lengths(mask)
+    err = lib.glow_flow_train_bwd_wgrad_f32(
+        p.data_ptr(), g.data_ptr(), lengths.data_ptr(), part.data_ptr(),
+        out.data_ptr(), b, t, kseg, width, kseg, taps, width, passes,
+        torch.cuda.current_stream(p.device).cuda_stream)
+    _raise_on(err, lib, 'flow_stack_train wgrad')
+    return out
 
 
 @functools.cache
@@ -347,11 +521,15 @@ def load_train_backward_library() -> ctypes.CDLL:
     lib = load_library('flow_train_bwd.cu')
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.glow_flow_train_bwd_step_f32.argtypes = (
-        [vp, vp] + [ci] * 8 + [ctypes.c_uint, ctypes.c_float, ci, vp,
+        [vp, vp] + [ci] * 8 + [ctypes.c_uint, ctypes.c_float, ci, ci, vp,
                                ctypes.POINTER(ci)])
     lib.glow_flow_train_bwd_step_f32.restype = ci
-    lib.glow_flow_train_bwd_split_rows.argtypes = []
-    lib.glow_flow_train_bwd_split_rows.restype = ci
+    lib.glow_flow_train_bwd_chunks.argtypes = [ci] * 4
+    lib.glow_flow_train_bwd_chunks.restype = ci
+    lib.glow_flow_train_bwd_dgrad_f32.argtypes = [vp] * 5 + [ci] * 8 + [vp]
+    lib.glow_flow_train_bwd_dgrad_f32.restype = ci
+    lib.glow_flow_train_bwd_wgrad_f32.argtypes = [vp] * 5 + [ci] * 8 + [vp]
+    lib.glow_flow_train_bwd_wgrad_f32.restype = ci
     lib.glow_cuda_error_string.argtypes = [ci]
     lib.glow_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -150,3 +150,159 @@ def test_wrapper_refuses_a_rate_outside_the_unit_interval():
         with pytest.raises(ValueError, match='dropout_rate'):
             TCG.flow_stack_train(t(x), t(mask), tw, seed=0,
                                  dropout_rate=rate)
+
+
+# ---------------------------------------------------------------------------
+# what the CUDA backward's design rests on, shown without the card
+# ---------------------------------------------------------------------------
+
+def _per_sample_gradients(x, mask, weights, cond, zt, ld_weight, lengths):
+    """Gradients of the loss of each sample alone, trimmed to its length
+    (no padded frame exists), summed over the samples for the weights and
+    put back at the sample's frames for ``dx`` and ``dcond``."""
+    total = {key: np.zeros_like(v) for key, v in weights.items()}
+    dx = np.zeros_like(x)
+    dcond = None if cond is None else np.zeros_like(cond)
+    for b, n in enumerate(lengths):
+        tw = {key: _leaf(v) for key, v in weights.items()}
+        tx = _leaf(x[b:b + 1, :n])
+        tcond = None if cond is None else _leaf(cond[:, :, b:b + 1])
+        z, ld = TCG.flow_stack_train_reference(
+            tx, t(mask[b:b + 1, :n]), tw, tcond, seed=SEED, dropout_rate=0.0)
+        (torch.sum(z * t(zt[b:b + 1, :n]))
+         + 0.7 * torch.sum(ld * float(ld_weight[b]))).backward()
+        for key in weights:
+            total[key] += tw[key].grad.numpy()
+        dx[b, :n] = tx.grad.numpy()[0]
+        if cond is not None:
+            dcond[:, :, b] = tcond.grad.numpy()[:, :, 0]
+    return total, dx, dcond
+
+
+def _assert_close_to_scale(got, ref, rtol, name):
+    """rtol on every element plus the same fraction of the tensor's max-abs
+    (f32 sums in another order leave that much on elements near zero)."""
+    np.testing.assert_allclose(got, ref, rtol=rtol,
+                               atol=rtol * np.abs(ref).max(), err_msg=name)
+
+
+@pytest.mark.parametrize('conditioning', ['none', 'cond'])
+@pytest.mark.parametrize('lengths', [[13, 7, 4], [9, 1, 9, 5]])
+def test_ragged_batch_gradients_are_the_valid_frames_alone(lengths,
+                                                           conditioning):
+    """The premise of skipping frames past a sample's length: they add
+    nothing to any gradient, so the batch's gradients are those of every
+    sample alone, trimmed to its length, summed."""
+    x, mask, weights, cond, _, zt = _problem(4, lengths, conditioning)
+    ld_weight = np.arange(1., len(lengths) + 1.).astype(np.float32)
+    tw = {key: _leaf(v) for key, v in weights.items()}
+    tx, tcond = _leaf(x), _leaf(cond)
+    z, ld = TCG.flow_stack_train_reference(tx, t(mask), tw, tcond, seed=SEED,
+                                           dropout_rate=0.0)
+    (torch.sum(z * t(zt)) + 0.7 * torch.sum(ld * t(ld_weight))).backward()
+    total, dx, dcond = _per_sample_gradients(x, mask, weights, cond, zt,
+                                             ld_weight, lengths)
+    for key in weights:
+        _assert_close_to_scale(tw[key].grad.numpy(), total[key], 1e-5, key)
+    _assert_close_to_scale(tx.grad.numpy(), dx, 1e-5, 'dx')
+    assert (tx.grad.numpy()[np.broadcast_to(mask, x.shape) == 0] == 0).all()
+    if cond is not None:
+        _assert_close_to_scale(tcond.grad.numpy(), dcond, 1e-5, 'dcond')
+
+
+@pytest.mark.parametrize('conditioning', ['none', 'cond'])
+def test_jax_ragged_batch_gradients_are_the_valid_frames_alone(conditioning):
+    """The JAX reference on the same numpy inputs agrees with the sum of the
+    port's per-sample gradients."""
+    lengths = [13, 7, 4]
+    x, mask, weights, cond, _, zt = _problem(4, lengths, conditioning)
+    ld_weight = np.arange(1., len(lengths) + 1.).astype(np.float32)
+
+    def jax_loss(w_, x_, c_):
+        z, ld = JCG.flow_stack_train_reference(
+            x_, _jnp(mask), w_, c_, None, seed=jnp.int32(SEED),
+            dropout_rate=0.0)
+        return jnp.sum(z * zt) + 0.7 * jnp.sum(ld * ld_weight)
+
+    argnums = [0, 1] + ([2] if cond is not None else [])
+    ref = dict(zip(argnums, jax.grad(jax_loss, argnums=argnums)(
+        _jnp(weights), _jnp(x), _jnp(cond))))
+    total, dx, dcond = _per_sample_gradients(x, mask, weights, cond, zt,
+                                             ld_weight, lengths)
+    for key in weights:
+        np.testing.assert_allclose(total[key], np.asarray(ref[0][key]),
+                                   **GRAD_TOL, err_msg=key)
+    np.testing.assert_allclose(dx, np.asarray(ref[1]), **GRAD_TOL)
+    if cond is not None:
+        np.testing.assert_allclose(dcond, np.asarray(ref[2]), **GRAD_TOL)
+
+
+def test_tf32_round_is_round_to_nearest_ties_away_on_ten_bits():
+    x = t(np.random.default_rng(5).standard_normal(4096).astype(np.float32))
+    r = TCG.tf32_round(x)
+    assert (r.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert torch.equal(TCG.tf32_round(r), r)
+    assert ((r - x).abs() <= x.abs() * 2.0 ** -11).all()
+    # a tie (the 13 dropped bits are 1 0...0) goes away from zero
+    tie = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)])
+    assert torch.equal(TCG.tf32_round(tie),
+                       torch.tensor([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10)]))
+    # the remainder of the split is exact in f32 and small
+    assert ((x - r) + r).eq(x).all()
+
+
+@pytest.mark.parametrize('passes,within', [(3, True), (1, False)])
+@pytest.mark.parametrize('depth', [16384, 960])
+def test_3xtf32_product_keeps_f32_accuracy_and_one_pass_does_not(depth,
+                                                                 passes,
+                                                                 within):
+    """The arithmetic of the backward GEMMs at the depths they contract
+    over (16,384 frames for a weight gradient, 960 for the k-tap conv's
+    activation gradient): against the f32 product, relative to its max-abs,
+    3xTF32 is within 1e-5 and a single TF32 pass is not."""
+    rng = np.random.default_rng(depth)
+    a = t(rng.standard_normal((48, depth)).astype(np.float32))
+    b = t(rng.standard_normal((depth, 64)).astype(np.float32))
+    exact = a @ b
+    got = TCG.matmul_3xtf32_reference(a, b, passes)
+    err = ((got - exact).abs().max() / exact.abs().max()).item()
+    assert (err < 1e-5) == within, err
+
+
+PER_FRAME_BYTES = 4 * (160 + 160 + 4 * 192 + 4 * 384 + 192 + 80)
+
+
+@pytest.mark.parametrize('steps,frames,stores', [
+    (12, 32 * 512, True),            # the training shape: 2.3 GB
+    (12, 61794, True), (12, 61795, False),
+    (1, 741534, True), (1, 741535, False),
+    (48, 32 * 512, False)])
+def test_store_or_recompute_is_a_function_of_the_shapes(steps, frames,
+                                                        stores):
+    assert TCG.saved_bytes_per_step(frames, 160, 192, 4) \
+        == frames * PER_FRAME_BYTES
+    assert (steps * frames * PER_FRAME_BYTES <= 8 * 2 ** 30) == stores
+    assert TCG.stores_activations(steps, frames, 160, 192, 4) == stores
+
+
+def test_saved_bytes_are_those_of_the_buffers():
+    for steps in (None, 3):
+        buffers = TCG._saved_buffers(24, C, CH, N, 'cpu', steps)
+        assert tuple(buffers) == TCG.SAVED_KEYS
+        assert sum(4 * v.numel() for v in buffers.values()) \
+            == (steps or 1) * TCG.saved_bytes_per_step(24, C, CH, N)
+
+
+def test_valid_lengths_are_one_past_the_last_valid_frame():
+    mask = np.zeros((4, 6, 1), np.float32)
+    mask[0, :6] = 1
+    mask[1, :1] = 1
+    mask[3, [0, 1, 4]] = 1           # not a prefix: frames up to 4 count
+    lengths = TCG._valid_lengths(t(mask))
+    assert lengths.dtype == torch.int32
+    assert lengths.tolist() == [6, 1, 0, 5]
+
+
+def test_backward_launch_count_is_fixed_by_the_layer_count():
+    assert TCG.backward_launches_per_step(4) == 22
+    assert TCG.backward_launches_per_step(1) == 10

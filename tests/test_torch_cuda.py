@@ -7,9 +7,12 @@ shapes (every tokens-per-lane instantiation, T_tok not a multiple of 32,
 odd T_mel, more tokens than frames), equal bit for bit, and a raise beyond
 the kernel's limits.  The train-direction flow stack (forward and backward
 kernels) against its plain version and autograd of it: T not a multiple of
-the tile, samples of length 1 and of full length, B = 1, dropout rates 0,
-0.05 and 0.5, per-sample conditioning, and a loss through the logdet alone
-or through z alone.  The coupling alone: the same tile edges, its two
+the tile, samples of length 1 and of full length, lengths that leave whole
+row tiles of the backward GEMMs without a valid frame and that straddle
+one, B = 1, dropout rates 0, 0.05 and 0.5, per-sample conditioning, a loss
+through the logdet alone or through z alone, the gradients bit-equal
+between the stored and the recomputed route, and the backward library's
+two GEMMs alone.  The coupling alone: the same tile edges, its two
 halves as views of one tensor and as tensors of their own, and what its
 wrapper refuses.  The whole stack in one launch: 1, 2 and 3 steps (the
 result lands in either buffer), T below, at and above one tile, fewer and
@@ -215,14 +218,24 @@ def _rel(got, ref):
 
 
 def _train_both(device, lengths, rate, with_cond=False, z_weight=1.0,
-                ld_weight=0.7, seed=11):
+                ld_weight=0.7, seed=11, route=None, holes=()):
     """Kernel and plain version on the same leaves; returns the two
-    results as dicts of values and gradients."""
+    results as dicts of values and gradients.  ``route`` forces what the
+    kernels' forward pass leaves for the backward pass (``'store'`` or
+    ``'recompute'``) instead of the rule by the shapes; ``holes`` are
+    ``(sample, first frame, end frame)`` spans masked out below the
+    sample's length."""
+    def kernels(xl, mask, leaves, cl, seed, dropout_rate):
+        return tg._apply_kernels(xl, mask, leaves, cl, seed, dropout_rate,
+                                 route)
+
     gen = torch.Generator().manual_seed(sum(lengths) + len(lengths))
     b, t = len(lengths), max(lengths)
     weights = _stack_weights(gen, device)
     mask = (torch.arange(t)[None, :] < torch.tensor(lengths)[:, None]
             ).float()[..., None]
+    for sample, first, end in holes:
+        mask[sample, first:end] = 0
     x = (torch.randn((b, t, 160), generator=gen) * mask).to(device)
     zt = torch.randn((b, t, 160), generator=gen).to(device)
     wl = torch.arange(1., b + 1.).to(device)
@@ -230,7 +243,8 @@ def _train_both(device, lengths, rate, with_cond=False, z_weight=1.0,
         if with_cond else None
     mask = mask.to(device)
     results = []
-    for fn in (tg.flow_stack_train, tg.flow_stack_train_reference):
+    for fn in (tg.flow_stack_train if route is None else kernels,
+               tg.flow_stack_train_reference):
         leaves = {key: v.clone().requires_grad_()
                   for key, v in weights.items()}
         xl = x.clone().requires_grad_()
@@ -259,17 +273,19 @@ def _assert_train_agrees(got, ref):
 
 @pytest.mark.parametrize('rate', [0.0, 0.05, 0.5])
 @pytest.mark.parametrize('lengths', [[1], [5, 1], [33, 1, 16, 33],
-                                     [70, 35, 1, 70, 64]])
+                                     [70, 35, 1, 70, 64], [200, 1, 130],
+                                     [129, 128, 127]])
 def test_train_kernels_match_plain_at_tile_edges(device, lengths, rate):
     fwd, rec, bwd = (tg.flow_stack_train.forward_launches,
                      tg.flow_stack_train.recompute_launches,
                      tg.flow_stack_train.backward_launches)
     got, ref = _train_both(device, lengths, rate)
-    # two flow steps: a forward and a recompute launch each, and the
-    # backward library's 34 kernels each
+    # two flow steps: a forward launch each, which stores at this size (no
+    # recompute), and the backward library's 22 kernels each
+    assert tg.backward_launches_per_step(4) == 22
     assert tg.flow_stack_train.forward_launches == fwd + 2
-    assert tg.flow_stack_train.recompute_launches == rec + 2
-    assert tg.flow_stack_train.backward_launches == bwd + 2 * 34
+    assert tg.flow_stack_train.recompute_launches == rec
+    assert tg.flow_stack_train.backward_launches == bwd + 2 * 22
     _assert_train_agrees(got, ref)
     pad = got['z'][torch.arange(max(lengths), device=device)[None, :]
                    >= torch.tensor(lengths, device=device)[:, None]]
@@ -296,6 +312,97 @@ def test_train_gradients_are_bit_equal_across_runs(device):
     b, _ = _train_both(device, [70, 35, 1], 0.05)
     for key in a:
         assert torch.equal(a[key], b[key]), key
+
+
+@pytest.mark.parametrize('with_cond', [False, True])
+@pytest.mark.parametrize('lengths', [[70, 35, 1], [200, 1, 130]])
+def test_train_stored_and_recomputed_routes_are_bit_equal(device, lengths,
+                                                          with_cond):
+    rec = tg.flow_stack_train.recompute_launches
+    stored, ref = _train_both(device, lengths, 0.05, with_cond=with_cond,
+                              route='store')
+    assert tg.flow_stack_train.recompute_launches == rec
+    recomputed, _ = _train_both(device, lengths, 0.05, with_cond=with_cond,
+                                route='recompute')
+    assert tg.flow_stack_train.recompute_launches == rec + 2
+    _assert_train_agrees(recomputed, ref)
+    for key in stored:
+        assert torch.equal(stored[key], recomputed[key]), key
+
+
+def test_train_kernels_take_a_mask_with_holes(device):
+    """The backward skips frames past a sample's last valid one, not every
+    masked frame: a mask that is not a prefix gives the plain version's
+    gradients too."""
+    got, ref = _train_both(device, [150, 70, 140], 0.05,
+                           holes=[(0, 10, 45), (1, 0, 3), (2, 127, 130)])
+    _assert_train_agrees(got, ref)
+
+
+def test_train_forward_without_gradient_keeps_nothing_for_backward(device):
+    """Under ``no_grad`` and with no leaf requiring grad the forward pass
+    takes the instantiation that saves nothing; its outputs are the same
+    bits as the storing one's."""
+    gen = torch.Generator().manual_seed(3)
+    w = _stack_weights(gen, device)
+    x, mask = _ragged(gen, [70, 35, 1], device)
+    z_plain, ld_plain = tg.flow_stack_train(x, mask, w, seed=5,
+                                            dropout_rate=0.05)
+    assert z_plain.grad_fn is None
+    leaves = {key: v.clone().requires_grad_() for key, v in w.items()}
+    with torch.no_grad():
+        z_off, _ = tg.flow_stack_train(x, mask, leaves, seed=5,
+                                       dropout_rate=0.05)
+    z_on, ld_on = tg.flow_stack_train(x, mask, leaves, seed=5,
+                                      dropout_rate=0.05)
+    assert z_on.grad_fn is not None
+    assert torch.equal(z_on, z_plain) and torch.equal(z_off, z_plain)
+    assert torch.equal(ld_on, ld_plain)
+
+
+@pytest.mark.parametrize('lengths', [[40], [200, 1, 130, 0],
+                                     [129, 128, 127]])
+@pytest.mark.parametrize('kseg,taps,width', [(384, 5, 192), (160, 1, 192),
+                                             (192, 1, 80), (160, 1, 160)])
+def test_backward_dgrad_product_matches_matmul(device, lengths, kseg, taps,
+                                               width):
+    gen = torch.Generator().manual_seed(kseg + taps + sum(lengths))
+    t, pad = max(lengths), (taps - 1) // 2
+    mask = (torch.arange(t)[None, :] < torch.tensor(lengths)[:, None]
+            ).float()[..., None].to(device)
+    a = torch.randn((len(lengths), t, kseg), generator=gen).to(device) * mask
+    w = (torch.randn((taps, width, kseg), generator=gen) * .1).to(device)
+    padded = torch.nn.functional.pad(a, (0, 0, pad, pad)).double()
+    ref = sum(padded[:, 2 * pad - tap: 2 * pad - tap + t]
+              @ w[tap].double().T for tap in range(taps)) * mask
+    got = tg._dgrad_product(a, w, mask)
+    # 3xTF32 against f64: the tensor cores' f32 accumulation truncates, so
+    # the error grows with the depth (1.3e-5 at 1,920); a single pass is
+    # ten times worse and more
+    assert _rel(got.double(), ref) < REL / 2
+    assert (got[(mask == 0).expand_as(got)] == 0).all()
+    one_pass = tg._dgrad_product(a, w, mask, passes=1)
+    assert REL < _rel(one_pass.double(), ref) < 5e-3
+
+
+@pytest.mark.parametrize('lengths', [[40], [200, 1, 130, 0],
+                                     [129, 128, 127]])
+@pytest.mark.parametrize('kseg,taps,width', [(192, 5, 384), (192, 1, 160),
+                                             (80, 1, 192), (160, 1, 160)])
+def test_backward_wgrad_product_matches_matmul(device, lengths, kseg, taps,
+                                               width):
+    gen = torch.Generator().manual_seed(kseg + taps + sum(lengths))
+    t, pad = max(lengths), (taps - 1) // 2
+    mask = (torch.arange(t)[None, :] < torch.tensor(lengths)[:, None]
+            ).float()[..., None].to(device)
+    p = torch.randn((len(lengths), t, kseg), generator=gen).to(device)
+    g = torch.randn((len(lengths), t, width), generator=gen).to(device) * mask
+    padded = torch.nn.functional.pad(p, (0, 0, pad, pad)).double()
+    ref = torch.cat([torch.einsum('btk,btn->kn', padded[:, tap: tap + t],
+                                  g.double()) for tap in range(taps)])
+    got = tg._wgrad_product(p, g, mask, taps)
+    assert _rel(got.double(), ref) < REL / 2
+    assert torch.equal(got, tg._wgrad_product(p, g, mask, taps))
 
 
 def test_train_wrapper_refuses_what_the_kernels_do_not_take(device):
