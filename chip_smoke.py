@@ -50,6 +50,9 @@ LOSS_REL_BOUND = 1e-4      # mle and duration loss of one eval batch
 TRAIN_Z_REL_BOUND = 1e-4   # max |z_kernel - z_plain| / max |z_plain|
 TRAIN_LD_REL_BOUND = 1e-5  # the same for the logdet
 GRAD_REL_BOUND = 1e-4      # per gradient tensor, max |dk - dp| / max |dp|
+# the shipped 3xTF32 products of #3 and #5 at least this many times closer
+# to the plain version than one TF32 pass (which may pass the bars above)
+ONE_PASS_MARGIN = 10
 # the train path, kernels vs plain versions from the same weights, seed and
 # generator state: per step
 TRAIN_LOSS_REL_BOUND = 1e-4
@@ -115,6 +118,36 @@ def bound(bytes_moved: float, flops: float,
     return max(by_bytes, by_ops), 'bytes' if by_bytes >= by_ops else 'operations'
 
 
+def body_bounds(moved, flops):
+    """The bounds of a kernel that runs the flow step's body: its
+    operations counted once at the TF32 peak of the tensor cores, which do
+    all but 4 % of them, and, beside it, at the f32 FMA peak."""
+    tf32_ms, tf32_by = bound(moved, flops, PEAK_TF32_FLOP_PER_S)
+    fma_ms, fma_by = bound(moved, flops)
+    return {'bound_ms': tf32_ms, 'bound_by': tf32_by,
+            'fma_bound_ms': fma_ms, 'fma_bound_by': fma_by}
+
+
+def live_tiles(mask, launch, steps=1):
+    """What ``launch(tiles)``, ``steps`` launches over the live tiles of
+    the mask [B, T, 1], report from the card into ``tiles``
+    (``coupling.TILE_COUNTS``: the list's live and all items, the live
+    tiles computed, the rounds, the grid's blocks), held against the
+    Python twin of their schedule."""
+    from glow_tts_tpu_torch.ops import coupling
+    tiles = coupling.tile_report(mask.device)
+    launch(tiles)
+    got = dict(zip(coupling.TILE_COUNTS, tiles.tolist()))
+    items = coupling.live_tile_schedule(
+        coupling.valid_lengths(mask).tolist(), mask.shape[1],
+        coupling.load_flow_step_library().glow_flow_step_time_tile())
+    live = sum(item[2] for item in items)
+    assert (got['live'], got['items']) == (live, len(items)), (got, live)
+    assert got['computed'] == steps * live, got
+    assert got['rounds'] == -(-live // got['blocks']), got
+    return got
+
+
 COUNTERS = ('flow_step', 'coupling', 'flow_stack', 'mas', 'train_fwd',
             'train_recompute', 'train_bwd')
 # the deterministic decoder's routes (``config.coupling_backend``): the
@@ -173,6 +206,14 @@ def step_frame_flops(weights) -> int:
                     if key in weights) - ch * ch)
 
 
+def coupling_weights(weights):
+    """The coupling's own of a flow step's packed weights, with their
+    tensor-core layout."""
+    from glow_tts_tpu_torch.ops.coupling import COUPLING_WEIGHT_KEYS, TC_KEYS
+    return {key: weights[key]
+            for key in (*COUPLING_WEIGHT_KEYS, *TC_KEYS.values())}
+
+
 def ragged_batch(gen, b, t, c, device):
     lengths = torch.linspace(1, t, b).round().long()
     lengths[0], lengths[-1] = 1, t
@@ -184,11 +225,14 @@ def ragged_batch(gen, b, t, c, device):
 def check_kernel(model, device):
     """The kernel against its plain version at full width, both
     directions, ragged lengths (1 … T), T = 512 and an odd T."""
-    from glow_tts_tpu_torch.ops.coupling import flow_step, flow_step_reference
+    from glow_tts_tpu_torch.ops.coupling import (_flow_step_kernel,
+                                                 flow_step,
+                                                 flow_step_reference)
     step = model.layer_Dict['Decoder'].layer_Dict['Flows'][0]
     c = step.layers[0].logs.shape[1]
     gen = torch.Generator().manual_seed(SEED + 1)
     worst = 0.0
+    precision = {}
     for t in (512, 333):
         x, mask = ragged_batch(gen, 32, t, c, device)
         cond = step.cond(32)
@@ -210,26 +254,35 @@ def check_kernel(model, device):
                 assert ld_rel < LD_REL_BOUND, line
             print(line)
             worst = max(worst, err)
+            one, _ = _flow_step_kernel(x, mask, w, cond, reverse, passes=1)
+            three_worst, one_worst = precision.get(reverse, (0.0, 0.0))
+            precision[reverse] = (max(three_worst, rel),
+                                  max(one_worst, rel_err(one, z_p)))
         z, _ = flow_step(x, mask, step.weights(False), cond, False)
         back, _ = flow_step(z, mask, step.weights(True), cond, True)
         trip = ((back - x).abs().max() / x.abs().max()).item()
         print(f'kernel round trip T={t}: max rel err {trip:.3e}')
         assert trip < ROUNDTRIP_BOUND
-    return worst
+    for reverse, (three, one) in precision.items():
+        line = (f'flow step precision reverse={reverse}: 3xTF32 shipped, z '
+                f'max rel err {three:.3e}; 1xTF32 {one:.3e} (bar '
+                f'{Z_REL_BOUND:.0e})')
+        print(line)
+        assert one > ONE_PASS_MARGIN * three, line
+    return worst, max(one for _, one in precision.values())
 
 
 def check_coupling(model, device):
     """Kernel #2 against its plain version at full width: B = 32, T = 512,
     ragged lengths (1 … T), both directions, the halves handed over as the
     decoder does (views of one tensor), and the round trip."""
-    from glow_tts_tpu_torch.ops.coupling import (COUPLING_WEIGHT_KEYS,
-                                                 coupling, coupling_reference)
+    from glow_tts_tpu_torch.ops.coupling import coupling, coupling_reference
     step = model.layer_Dict['Decoder'].layer_Dict['Flows'][0]
     c = step.layers[0].logs.shape[1]
     x, mask = ragged_batch(torch.Generator().manual_seed(SEED + 8), 32, 512,
                            c, device)
     x_a, x_b = x[..., :c // 2], x[..., c // 2:]
-    w = {key: step.weights(False)[key] for key in COUPLING_WEIGHT_KEYS}
+    w = coupling_weights(step.weights(False))
     cond = step.cond(32)
     worst = 0.0
     for reverse in (False, True):
@@ -383,15 +436,17 @@ def compare_decode(inferencer, texts, bucket):
     assert mae.item() < MEL_MAE_BOUND
 
 
-def time_flow_kernels(model, device):
+def time_flow_kernels(model, device, eval_mask):
     """Kernels #3, #2 and #4 and their plain versions at B = 32, T = 512,
-    all frames valid, both directions, each beside its bound; and the
-    reverse stack three ways: 12 flow-step launches, the same launches
-    replayed from a CUDA graph, and kernel #4's one launch."""
+    all frames valid, both directions, each beside its bounds; #3 also on
+    the eval step's ragged mask ``eval_mask`` (the squeezed training batch),
+    with the live tiles and rounds of both shapes; and the reverse stack
+    three ways: 12 flow-step launches, the same launches replayed from a
+    CUDA graph, and kernel #4's one launch."""
     from glow_tts_tpu_torch.ops.coupling import (
-        COUPLING_WEIGHT_KEYS, coupling, coupling_reference, flow_stack,
-        flow_stack_reference, flow_step, flow_step_reference,
-        load_flow_stack_library)
+        WEIGHT_KEYS, _flow_step_kernel, coupling, coupling_reference,
+        flow_stack, flow_stack_reference, flow_step, flow_step_reference,
+        kernel_keys, load_flow_stack_library, load_flow_step_library)
     decoder = model.layer_Dict['Decoder']
     flows = list(decoder.layer_Dict['Flows'])
     step = flows[0]
@@ -405,26 +460,31 @@ def time_flow_kernels(model, device):
     frames = mask.sum().item()
 
     def weight_count(weights):
-        return sum(value.numel() for value in weights.values())
+        # what the kernels read: w_in and w_rs in their tensor-core layout
+        return sum(weights[key].numel()
+                   for key in kernel_keys((*WEIGHT_KEYS, 'ld_const'))
+                   if key in weights)
 
-    def report(name, frame_flops, n_steps, moved, kernel_fn, plain_fn, iters):
+    def report(name, frame_flops, n_steps, moved, kernel_fn, plain_fn, iters,
+               valid=None, shape='B=32 T=512'):
         # the work from the shapes: 2 FLOP per live weight per valid
         # frame and step, every tensor moved once
-        flops = frame_flops * frames * n_steps
-        bound_ms, bound_by = bound(moved, flops)
+        flops = frame_flops * (frames if valid is None else valid) * n_steps
+        bounds = body_bounds(moved, flops)
         times = {}
         for reverse in (True, False):
             k_ms, p_ms = paired_ms(lambda: kernel_fn(reverse),
                                    lambda: plain_fn(reverse), iters)
-            print(f'{name} B=32 T=512 reverse={reverse}: kernel {k_ms:.4f} ms '
+            print(f'{name} {shape} reverse={reverse}: kernel {k_ms:.4f} ms '
                   f'({flops / k_ms / 1e9:.2f} TFLOP/s at '
                   f'{frame_flops / 1e6:.2f} MFLOP/frame and step), plain '
-                  f'{p_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}')
+                  f'{p_ms:.4f} ms; bound {bounds["bound_ms"]:.4f} ms by '
+                  f'{bounds["bound_by"]} at the TF32 peak '
+                  f'({bounds["fma_bound_ms"]:.4f} ms at the f32 FMA peak)')
             times[reverse] = (k_ms, p_ms)
         return {'ms': times[True][0], 'plain_ms': times[True][1],
                 'forward_ms': times[False][0],
-                'forward_plain_ms': times[False][1],
-                'bound_ms': bound_ms, 'bound_by': bound_by}
+                'forward_plain_ms': times[False][1], **bounds}
 
     weights = step.weights(False)
     flow_times = report(
@@ -433,8 +493,46 @@ def time_flow_kernels(model, device):
              + weight_count(weights)),
         lambda r: flow_step(x, mask, step.weights(r), cond, r),
         lambda r: flow_step_reference(x, mask, step.weights(r), cond, r), 20)
+    # the same launches at one TF32 pass: what the two further passes cost
+    for reverse in (True, False):
+        one_ms = cuda_ms(lambda: _flow_step_kernel(
+            x, mask, step.weights(reverse), cond, reverse, passes=1), 20)
+        key = 'ms' if reverse else 'forward_ms'
+        flow_times[f'one_pass_{key}'] = one_ms
+        print(f'flow step B=32 T=512 reverse={reverse}, one TF32 pass: '
+              f'kernel {one_ms:.4f} ms (3xTF32 {flow_times[key]:.4f} ms)')
+    # the same step on the eval step's ragged batch: live tiles only
+    xe = x[:, :eval_mask.shape[1]].contiguous() * eval_mask
+    eval_times = report(
+        'flow step', step_frame_flops(weights), 1,
+        4 * (2 * xe.numel() + eval_mask.numel() + cond.numel() + x.shape[0]
+             + weight_count(weights)),
+        lambda r: flow_step(xe, eval_mask, step.weights(r), cond, r),
+        lambda r: flow_step_reference(xe, eval_mask, step.weights(r), cond,
+                                      r), 20,
+        valid=eval_mask.sum().item(),
+        shape=f'eval shape {tuple(xe.shape[:2])} '
+              f'({int(eval_mask.sum().item())} valid frames)')
+    schedule = {}
+    for name, (xs, m) in (('decode', (x, mask)), ('eval', (xe, eval_mask))):
+        got = live_tiles(m, lambda tiles: _flow_step_kernel(
+            xs, m, weights, cond, False, tiles=tiles))
+        resident = load_flow_step_library().glow_flow_step_resident_blocks(
+            m.shape[0])
+        assert got['blocks'] == min(resident, got['items']), got
+        schedule[name] = {'live_tiles': got['computed'],
+                          'tiles': got['items'], 'rounds': got['rounds'],
+                          'blocks': got['blocks']}
+        print(f'flow step live tiles, {name} shape {tuple(m.shape[:2])}, '
+              f'as the kernel reports them: {got["computed"]} of '
+              f'{got["items"]} computed, {got["rounds"]} rounds on '
+              f'{got["blocks"]} blocks')
+    flow_times.update(
+        eval_shape_ms=eval_times['ms'],
+        eval_shape_forward_ms=eval_times['forward_ms'],
+        eval_shape_bound_ms=eval_times['bound_ms'], schedule=schedule)
 
-    own = {key: weights[key] for key in COUPLING_WEIGHT_KEYS}
+    own = coupling_weights(weights)
     coupling_times = report(
         'coupling', step_frame_flops(own), 1,
         4 * (x.numel() + x_b.numel() + mask.numel() + cond.numel()
@@ -872,10 +970,20 @@ def check_train_forward(x, mask, weights):
             assert z_rel < TRAIN_Z_REL_BOUND, line
             assert ld_rel < TRAIN_LD_REL_BOUND, line
             worst = max(worst, (z_k - z_p).abs().max().item())
+            if rate:
+                z_1, _ = coupling_grad._apply_kernels(
+                    x, mask, weights, None, seed, rate, forward_passes=1)
+                one_pass = rel_err(z_1, z_p)
+                line = (f'train forward precision, rate {rate}: 3xTF32 '
+                        f'shipped, z max rel err {z_rel:.3e}; 1xTF32 '
+                        f'{one_pass:.3e} (bar {TRAIN_Z_REL_BOUND:.0e})')
+                print(line)
+                assert one_pass > ONE_PASS_MARGIN * z_rel, line
 
         # the masks: with w_in = 0 and b_in = 1 the pre-gate sum is the keep
         # factor, so a dropped element has tanh 0 and sigmoid 1/2 in what
-        # the backward pass's recompute leaves of the gate
+        # the backward pass's recompute leaves of the gate; under a mask of
+        # ones every tile is live, so every element is drawn
         probe = dict(weights, w_in=torch.zeros_like(weights['w_in']),
                      b_in=torch.ones_like(weights['b_in']))
         s_steps, n, k, ch, ch2 = weights['w_in'].shape
@@ -883,7 +991,9 @@ def check_train_forward(x, mask, weights):
         step = s_steps - 5
         saved = coupling_grad._saved_buffers(b * t, c, ch, n, x.device)
         coupling_grad._recompute(
-            x, mask, None, [probe[key] for key in coupling_grad.WEIGHT_KEYS],
+            x, torch.ones_like(mask), None,
+            coupling_grad._kernel_weights(
+                [probe[key] for key in coupling_grad.WEIGHT_KEYS]),
             saved, step, coupling_grad._dropout_args(seed, FLOW_RATE))
         ts = saved['ts']
         kept_kernel = torch.cat([ts[..., :ch] != 0, ts[..., ch:] != 0.5],
@@ -898,7 +1008,7 @@ def check_train_forward(x, mask, weights):
               f'({100 * dropped:.3f} % dropped at rate {FLOW_RATE})')
         assert differing == 0
         assert abs(dropped - FLOW_RATE) < 2e-3
-    return worst
+    return worst, one_pass
 
 
 def forced_route(route, passes=None):
@@ -1185,8 +1295,8 @@ def time_training(config, batch, x, mask, weights, device):
     frame_flops = step_frame_flops(per_step)
     flops = frame_flops * mask.sum().item()
     weight_count = sum(value.numel() for value in per_step.values())
-    fwd_bound = bound(4 * (2 * x.numel() + mask.numel() + x.shape[0]
-                           + weight_count), flops)
+    fwd_bounds = body_bounds(4 * (2 * x.numel() + mask.numel() + x.shape[0]
+                                  + weight_count), flops)
     # the backward's work is dgrad + wgrad on the valid frames, each the
     # forward's operations, on the tensor cores (counted once, whatever the
     # number of TF32 passes); it reads the step's input, its saved
@@ -1208,8 +1318,17 @@ def time_training(config, batch, x, mask, weights, device):
               f'backward {peak / 2 ** 30:.3f} GiB ({held / 2 ** 30:.3f} held '
               f'before)')
     k_fwd, k_bwd, _ = (value / s_steps for value in times['kernel'])
-    print(f'  per flow step: forward {flops / k_fwd / 1e9:.2f} TFLOP/s, bound '
-          f'{fwd_bound[0]:.4f} ms by {fwd_bound[1]}; backward '
+    with torch.no_grad():           # the storing instantiation, as a step's
+        tiles = live_tiles(mask, lambda report: coupling_grad._apply_kernels(
+            x, mask, weights, None, SEED, FLOW_RATE, route='store',
+            tiles=report), steps=s_steps)
+    print(f'  per flow step: forward {flops / k_fwd / 1e9:.2f} TFLOP/s on '
+          f'{tiles["computed"] // s_steps} of {tiles["items"]} tiles '
+          f'({tiles["rounds"]} rounds on {tiles["blocks"]} blocks, as the '
+          f'kernel reports them), bound {fwd_bounds["bound_ms"]:.4f} ms by '
+          f'{fwd_bounds["bound_by"]} at the TF32 peak '
+          f'({fwd_bounds["fma_bound_ms"]:.4f} ms at the f32 FMA peak); '
+          f'backward '
           f'{2 * flops / k_bwd / 1e9:.2f} TFLOP/s over dgrad and wgrad '
           f'({2 * flops / 1e9:.1f} GFLOP, {bwd_bytes / 1e6:.0f} MB), bound '
           f'{bwd_bound[0]:.4f} ms by {bwd_bound[1]} at the TF32 peak '
@@ -1238,7 +1357,11 @@ def time_training(config, batch, x, mask, weights, device):
     for name, fn in parts.items():
         print(f'  train part, {name}: {cuda_ms(fn, 5):.4f} ms')
     return ({'ms': k_fwd, 'plain_ms': times['plain'][0] / s_steps,
-             'bound_ms': fwd_bound[0], 'bound_by': fwd_bound[1]},
+             **fwd_bounds,
+             'schedule': {'live_tiles': tiles['computed'] // s_steps,
+                          'tiles': tiles['items'],
+                          'rounds': tiles['rounds'],
+                          'blocks': tiles['blocks']}},
             {'ms': k_bwd, 'plain_ms': times['plain'][1] / s_steps,
              'bound_ms': bwd_bound[0], 'bound_by': bwd_bound[1],
              'recompute_route_ms':
@@ -1285,7 +1408,7 @@ def main():
     inferencers = {route: Inferencer(state, configs[route], device,
                                      batch_size=2) for route in ROUTES}
     inferencer = inferencers['fused']
-    worst = check_kernel(inferencer.model, device)
+    worst, step_one_pass = check_kernel(inferencer.model, device)
     coupling_err = check_coupling(inferencer.model, device)
     stack_err = check_flow_stack(inferencer.model, device)
     mas_err = check_mas(device)
@@ -1339,12 +1462,12 @@ def main():
     trainee.data_dependent_init(batches[0]['mels'], batches[0]['mel_lengths'])
     x, mask, weights = stack_problem(trainee, batches[0], config)
     del trainee
-    fwd_err = check_train_forward(x, mask, weights)
+    fwd_err, fwd_one_pass = check_train_forward(x, mask, weights)
     bwd_err = check_train_backward(x, mask, weights)
     by_path['train'] = run_training(config, batches[0], device)
 
     flow_times, coupling_times, stack_times = time_flow_kernels(
-        inferencer.model, device)
+        inferencer.model, device, mask)
     time_routes(inferencers, models, prior_1024, batches[0])
     mas_times, eval_step = time_eval(model, batches[0], config, device)
     fwd_times, bwd_times = time_training(config, batches[0], x, mask,
@@ -1361,7 +1484,8 @@ def main():
         {'name': 'flow_step', 'route': 'cuda', 'source': csrc + 'flow_step.cu',
          'replaces': 'glow_tts_tpu/ops/coupling.py:190',
          'entry': 'fused_flow_step', **launches('flow_step'),
-         'max_abs_err': worst, **flow_times, 'library_ms': None},
+         'max_abs_err': worst, 'one_pass_max_rel_err': step_one_pass,
+         **flow_times, 'library_ms': None},
         {'name': 'coupling', 'route': 'cuda', 'source': csrc + 'coupling.cu',
          'replaces': 'glow_tts_tpu/ops/coupling.py:190',
          'entry': 'fused_coupling', **launches('coupling'),
@@ -1379,7 +1503,8 @@ def main():
          'source': csrc + 'flow_train_fwd.cu',
          'replaces': 'glow_tts_tpu/ops/coupling_grad.py:97',
          'entry': 'fused_flow_stack_train', **launches('train_fwd'),
-         'max_abs_err': fwd_err, **fwd_times, 'library_ms': None},
+         'max_abs_err': fwd_err, 'one_pass_max_rel_err': fwd_one_pass,
+         **fwd_times, 'library_ms': None},
         # one backward call per flow step: this source's kernels, on what
         # the forward pass stored (no recompute at this shape)
         {'name': 'flow_train_bwd', 'route': 'cuda',

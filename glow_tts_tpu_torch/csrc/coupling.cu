@@ -7,10 +7,12 @@
 // Pallas kernel behind fused_coupling.  The plain PyTorch version of the
 // same function is glow_tts_tpu_torch/ops/coupling.py::coupling_reference.
 //
-// Design: flow_step.cu's (one block per (sample, 32-frame tile), a
-// recomputed halo, all activations in shared memory; the network is the
-// same flow_common.cuh::coupling_net) without the ActNorm/mixing prologue
-// and epilogue.  What differs:
+// Design: flow_step.cu's (32-frame tiles with a recomputed halo, all
+// activations in shared memory, the big products on the tensor cores as
+// 3xTF32 with weights split when packed; the network is the same
+// flow_common.cuh::coupling_net) without the ActNorm/mixing prologue and
+// epilogue.  What differs:
+// * one block per (sample, tile), every tile computed: no live-tile list;
 // * x_a and x_b come from two pointers, each with its own strides between
 //   samples and frames, because the caller hands over the two halves of one
 //   [B, T, C] tensor, which are not contiguous: the kernel reads them where
@@ -52,8 +54,8 @@ __global__ void __launch_bounds__(kThreads, 1) coupling_kernel(const Params p) {
   tile.load_columns(p.x_a.data, p.x_a.batch_stride, p.x_a.row_stride, 0, C2);
   tile.load_columns(p.x_b.data, p.x_b.batch_stride, p.x_b.row_stride, C2, C2);
   __syncthreads();
-  coupling_net<S, false, false>(tile, p.w, SavePointers{},
-                                BiasPreGate{p.cond});
+  coupling_net<S, false, false, 3>(tile, p.w, SavePointers{},
+                                   BiasPreGate{p.cond});
 
   if constexpr (!REVERSE) {
     const float total = affine_forward<S, false>(tile, p.z_b);
@@ -61,7 +63,7 @@ __global__ void __launch_bounds__(kThreads, 1) coupling_kernel(const Params p) {
       p.ld_part[tile.b * p.n_tiles + tile.index] = total;
   } else {
     const float* const xs = tile.xs;
-    const float* const acc = tile.acc;
+    const float* const acc = tile.gs;
     for (int i = threadIdx.x; i < TT * C2; i += kThreads) {
       const int r = i / C2, c = i % C2, row = HALO + r, t = tile.t0 + row;
       if (t >= p.T) continue;
@@ -93,9 +95,10 @@ const char* glow_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Shapes are those of Shipped (C=160, ch=192, 4 layers, k=5); the caller
-// checks them, and that the strides (in floats) and pointers of x_a and x_b
-// are multiples of 4 floats.  Returns a cudaError_t, 0 on success.
+// Shapes are those of Shipped (C=160, ch=192, 4 layers, k=5), w_in and
+// w_rs in the tensor-core layout; the caller checks them, and that the
+// strides (in floats) and pointers of x_a and x_b are multiples of 4
+// floats.  Returns a cudaError_t, 0 on success.
 int glow_coupling_f32(const float* x_a, long long a_batch_stride,
                       long long a_row_stride, const float* x_b,
                       long long b_batch_stride, long long b_row_stride,
@@ -111,8 +114,9 @@ int glow_coupling_f32(const float* x_a, long long a_batch_stride,
                  {x_b, static_cast<size_t>(b_batch_stride),
                   static_cast<size_t>(b_row_stride)},
                  mask, cond,
-                 {nullptr, nullptr, nullptr, w_start, b_start, w_in, w_rs,
-                  b_rs, w_end, b_end},
+                 {nullptr, nullptr, nullptr, w_start, b_start,
+                  reinterpret_cast<const WFrag*>(w_in),
+                  reinterpret_cast<const WFrag*>(w_rs), b_rs, w_end, b_end},
                  z_b, ld_part, B, T, ceil_div(T, Shipped::TT)};
   auto s = static_cast<cudaStream_t>(stream);
   return reverse ? launch<Shipped, true>(p, s) : launch<Shipped, false>(p, s);

@@ -1,28 +1,53 @@
 // Shared device code of the flow kernels (flow_step.cu, coupling.cu,
-// flow_stack.cu, flow_train_fwd.cu): the time-tile shape arithmetic, the two
-// block-wide float32 GEMMs with A in shared memory, and the body of a flow
+// flow_stack.cu, flow_train_fwd.cu): the time-tile shape arithmetic, the
+// block-wide float32 GEMM of the small 1x1 convs, the tensor-core GEMM of the
+// big ones, the list of live tiles of a ragged batch, and the body of a flow
 // step on one tile (coupling_net, affine_forward and, for the deterministic
-// kernels, flow_step_tile), which every kernel instantiates.  See
-// flow_step.cu for the design they serve.
+// kernels, flow_step_tile), which every kernel instantiates.
+//
+// What bounds the body on an H100: arithmetic.  The k-tap convs and the
+// res/skip 1x1s are ~95 % of a step's 3.6 MFLOP per frame; as f32 FMA they
+// ran at 37-39 % of the 67 TFLOP/s FMA peak with the tensor cores idle.
+// What the design does about it:
+// * the two big products run on the tensor cores (tc_gemm: mma.sync
+//   m16n8k8, TF32 operands, f32 sums) as the error-compensated 3xTF32
+//   product, which keeps f32 accuracy (tf32_mma.cuh; one TF32 pass keeps
+//   three digits and is kept for measuring);
+// * the weights are split into TF32 hi/lo halves once, where they are
+//   packed (ops/coupling.py::tensor_core_weights), and stored in the order
+//   of the mma B fragments, so a lane reads its hi and lo pair of one 8 x 8
+//   block as one 16-byte load and splits nothing.  The 8 warps of a block
+//   share the output columns (48 of 2CH each) and cover all rows, so each
+//   weight is read by one warp of the block, straight from L2 into
+//   registers, kAhead k-steps ahead: no weight ring in shared memory and no
+//   barrier inside a GEMM.  The activations (h, the gate) are split where
+//   they are read;
+// * the tensor cores' own f32 accumulation truncates, so every 8-deep step
+//   starts from zero and is added to the f32 sum in plain f32 (the second
+//   accumulator set of tf32_mma.cuh, one 4-register fragment at a time);
+// * the gate is fused into the k-tap conv's epilogue: w_in's tanh and
+//   sigmoid columns are interleaved when packed, so one thread holds both
+//   halves of a channel and the 2CH-wide pre-gate sum never exists;
+// * 138 KB of shared memory a block at TT = 32 (it was 221 KB with the
+//   weight ring and the pre-gate buffer).
+// Timed on an H100 and dropped (PERF.md has the times): an L2 evict-last
+// policy on the weight loads (a storing step alone up to 0.19 ms slower),
+// the saved rows written by the TMA's bulk copies instead of the threads
+// (no faster), mma issued in the order written, weights split in the warp.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// weight k-slices staged through shared memory by the big GEMMs.  Swept
-// on an H100 80GB HBM3 at a 700 W power limit, shipped shape (kBK x
-// kStages: step ms, B=32, T=512): 8x3 2.57,
-// 8x4 2.36, 8x5 2.41, 16x2 2.29, 12x3 2.26 -- fewer barriers and a deeper
-// lookahead both pay, up to the 227 KB shared-memory limit.
-constexpr int kBK = 12;
-constexpr int kStages = 3;
-static_assert(kBK % 4 == 0, "A is read as float4 along k");
 
 #define HD __host__ __device__
 
@@ -38,17 +63,22 @@ struct Shape {
   static constexpr int PAD = (KS - 1) / 2;
   static constexpr int HALO = NL * PAD;
   static constexpr int R = TT + 2 * HALO;
-  // row pitches of h and of the pre-gate sum, padded by 4 floats so the
-  // four row groups of a warp's tile read distinct banks
-  static constexpr int HP = CH + 4, AP = CH2 + 4;
-  static_assert(C % 8 == 0 && CH % 96 == 0 && CH % kBK == 0 && KS % 2 == 1,
+  // row pitches: h and the gate are read as mma A fragments (8 rows x 4
+  // columns a lane group), which a pitch of 4 mod 32 floats spreads over 32
+  // banks; the skip sum is written as column pairs (8 mod 32)
+  static constexpr int HP = CH + 4, GP = CH + 4, SP = CH + 8;
+  // n8 tiles across the 2CH columns of w_in and w_rs, and a warp's share
+  static constexpr int NB = CH2 / 8, NT = NB / kWarps;
+  static_assert(C % 8 == 0 && CH % (4 * kWarps) == 0 && KS % 2 == 1 &&
+                    NB % kWarps == 0 && NT % 2 == 0,
                 "shape");
 
   HD static constexpr int layer_lo(int i) { return PAD * (i + 1); }
   HD static constexpr int layer_rows(int i) { return R - 2 * PAD * (i + 1); }
-  // a GEMM over `rows` rows gives each warp mr(rows) of them (staged_gemm
-  // on 2CH columns too); the block computes span(rows) >= rows rows and
-  // stores the first `rows`
+  // m16 row tiles of a tensor-core GEMM over `rows` rows
+  HD static constexpr int mt(int rows) { return ceil_div(rows, 16); }
+  // a block_gemm over `rows` rows gives each warp mr(rows) of them; the
+  // block computes span(rows) >= rows rows and stores the first `rows`
   HD static constexpr int mr(int rows) { return ceil_div(rows, kWarps); }
   HD static constexpr int span(int rows) { return kWarps * mr(rows); }
 
@@ -59,26 +89,38 @@ struct Shape {
   HD static constexpr int h_rows() {
     int m = R;
     for (int i = 0; i < NL; ++i)
-      m = cmax(m, PAD * i + span(layer_rows(i)) + KS - 1);
+      m = cmax(m, layer_lo(i) - PAD + 16 * mt(layer_rows(i)) + KS - 1);
     return m;
   }
-  HD static constexpr int acc_rows() {
-    int m = cmax(span(R), span(TT));
-    for (int i = 0; i < NL; ++i) m = cmax(m, span(layer_rows(i)));
+  // the gate [rows, GP] of every layer, the mixing output [R, C] and the
+  // end conv's output [TT, C] share one buffer
+  HD static constexpr int g_floats() {
+    int m = cmax(span(R), span(TT)) * C;
+    for (int i = 0; i < NL; ++i) m = cmax(m, 16 * mt(layer_rows(i)) * GP);
     return m;
   }
   static constexpr int XS = x_rows() * C;
   static constexpr int HS = h_rows() * HP;
-  static constexpr int AS = acc_rows() * cmax(AP, C);
-  static constexpr int SS = span(TT) * CH;
+  static constexpr int GS = g_floats();
+  static constexpr int SS = span(TT) * SP;
   static constexpr int MS = ceil_div(x_rows(), 4) * 4;
-  static constexpr int RS = kStages * kBK * CH2;    // weight ring
-  static constexpr size_t smem_bytes =
-      sizeof(float) * (XS + HS + AS + SS + MS + RS);
+  static constexpr int FLOATS = XS + HS + GS + SS + MS;
+  static constexpr size_t smem_bytes = sizeof(float) * FLOATS;
+  // a saving kernel's staging of the owned rows' gate halves (tanh,
+  // sigmoid) behind the buffers, so that they leave as whole rows
+  static constexpr int TSP = CH2 + 4;
+  static constexpr int SAVE_FLOATS = TT * TSP;
+  // fragments (WFrag) of one layer's w_in and w_rs in the tensor-core
+  // layout
+  static constexpr size_t W_IN_TC = static_cast<size_t>(KS) * CH / 8 * NB * 32;
+  static constexpr size_t W_RS_TC = static_cast<size_t>(CH) / 8 * NB * 32;
 };
 
 using Shipped = Shape<160, 192, 4, 5, 32>;
-static_assert(Shipped::smem_bytes <= 232448, "over the 227 KB block limit");
+// the block's buffers, with the live-tile list of a batch of up to 1024
+static_assert(Shipped::smem_bytes + 4 * Shipped::SAVE_FLOATS +
+                      4 * (2 * 1024 + 1) <= 232448,
+              "over the 227 KB block limit");
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
@@ -91,6 +133,9 @@ __device__ __forceinline__ float4 ld_act4(const float* p) {
 __device__ __forceinline__ float4& at4(float* p) {
   return *reinterpret_cast<float4*>(p);
 }
+__device__ __forceinline__ float2& at2(float* p) {
+  return *reinterpret_cast<float2*>(p);
+}
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
@@ -101,7 +146,8 @@ __device__ __forceinline__ float sigmoidf(float v) {
   return 1.f / (1.f + expf(-v));
 }
 
-// out[rows, N] = A[rows, K] . W[K, N] for the small contractions: A in
+// out[rows, N] = A[rows, K] . W[K, N] for the small contractions (the
+// mixing, the start and the end 1x1, 4 % of the FLOPs), float32 FMA: A in
 // shared memory with row stride lda, W in global memory with row stride
 // ldw.  Warp w owns the rows [w*MR, w*MR + MR); lane l owns the float4
 // column groups l + 32*j (j < NV) that lie below N/4.  A loads are
@@ -164,125 +210,244 @@ __device__ __forceinline__ void block_gemm(const float* A, int lda, int K,
                              acc[r][j][3]));
 }
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+// W's fragments are loaded this many 8-deep steps ahead of their use
+constexpr int kAhead = 1;
+// an 8-deep step issues its products pass by pass over groups of this many
+// column tiles (and all row tiles), so that only the group's fragments
+// are in flight
+constexpr int kGroup = 2;
+// one lane's B fragment of an 8 x 8 block of W: (hi, hi', lo, lo')
+using WFrag = float4;
 
-// Rows each lane owns in a staged_gemm over `rows` rows, N columns.
-HD constexpr int staged_mr(int rows, int n) {
-  return ceil_div(rows, 4 * (kWarps / (n / 96)));
-}
-
-// out[rows, N] = A . W for the big contractions (N = 384 or 192).  Each
-// kBK-row slice of W is copied once per block into a kStages-deep ring in
-// shared memory (cp.async, overlapped with the math on earlier slices)
-// and read from there by all warps.  The warps form a (8*96/N) x (N/96)
-// grid of 96-column tiles; in a warp, lane (g = lane/8, c = lane%8) owns
-// the rows (4*wr + g)*MR + i (i < MR) and the columns 96*wc + 4*c + 32*j
-// (j < 3), so a W read is 128 contiguous bytes shared by four lanes and
-// an A read touches four rows (pitches padded against bank conflicts).
-// A may be an implicit im2col: column k of A is A[(k / kseg)*lda +
-// k % kseg] relative to the row, i.e. K = taps * kseg with consecutive
-// taps one row apart (kseg = K for a plain matrix).
-template <int MR, int N, typename Epilogue>
-__device__ __forceinline__ void staged_gemm(const float* A, int lda, int kseg,
-                                            int K, const float* __restrict__ W,
-                                            int ldw, float* ring,
-                                            Epilogue epilogue) {
-  constexpr int WC = N / 96, Q = N / 4;
-  static_assert(N % 96 == 0 && kWarps % WC == 0, "warp grid");
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row0 = ((warp / WC) * 4 + lane / 8) * MR;
-  const int col0 = (warp % WC) * 96 + (lane % 8) * 4;
-  float acc[MR][3][4];
+// The tensor-core GEMM of a warp: sum = A . W over K = 8 * NK8, for the m16
+// row tiles mt < MT and the n8 column tiles nt0 + nt (nt < NT) of W.
+//   A (row, k) = a_at(kb)[row * LDA + k - 8 kb] for k in the 8-deep block
+//   kb, in shared memory (a_at moves along k, and, for the k-tap conv,
+//   one row further at each tap);
+//   W is in the tensor-core layout of ops/coupling.py::tensor_core_weights:
+//   float4 [NK8][NB][32 lanes] = (hi(t, g), hi(t + 4, g), lo(t, g),
+//   lo(t + 4, g)) of its 8 x 8 block for lane 4 g + t.
+// Each 8-deep step's PASSES products (a_lo.b_hi, a_hi.b_lo, a_hi.b_hi, or
+// a_hi.b_hi alone) go into a fragment that starts at zero, which is then
+// added to sum in f32 (the tensor cores' own accumulation truncates).  W's
+// fragments for step kb + kAhead are loaded while step kb computes.
+template <int MT, int NT, int NK8, int LDA, int NB, int PASSES, class AAt>
+__device__ __forceinline__ void tc_gemm(float (&sum)[MT][NT][4],
+                                        const AAt& a_at,
+                                        const WFrag* __restrict__ w,
+                                        int nt0) {
+  static_assert(PASSES == 1 || PASSES == 3, "1xTF32 or 3xTF32");
+  constexpr int Q = kAhead + 1;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int i = 0; i < MR; ++i)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < 3; ++j)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int n_kb = K / kBK;
-  auto stage = [&](int kb) {
-    float* dst = ring + (kb % kStages) * kBK * N;
-    const float* src = W + static_cast<size_t>(kb) * kBK * ldw;
-    for (int i = threadIdx.x; i < kBK * Q; i += kThreads)
-      cp_async16(dst + (i / Q) * N + 4 * (i % Q),
-                 src + (i / Q) * ldw + 4 * (i % Q));
+      for (int e = 0; e < 4; ++e) sum[mt][nt][e] = 0.f;
+  const WFrag* wl = w + nt0 * 32 + lane;
+  WFrag bq[Q][NT];   // W's fragments of Q consecutive steps
+  auto load = [&](WFrag (&dst)[NT], int kb) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      dst[nt] = __ldg(wl + (static_cast<size_t>(kb) * NB + nt) * 32);
   };
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_kb) stage(s);
-    cp_async_commit();
-  }
-  for (int kb = 0; kb < n_kb; ++kb) {
-    cp_async_wait<kStages - 2>();   // slice kb has landed
-    __syncthreads();                // and every warp is done with kb - 1
-    if (kb + kStages - 1 < n_kb) stage(kb + kStages - 1);
-    cp_async_commit();
-    const int k = kb * kBK;
-    const float* a = A + (row0 + k / kseg) * lda + k % kseg;
-    const float* b = ring + (kb % kStages) * kBK * N + col0;
+  for (int j = 0; j < kAhead; ++j)
+    if (j < NK8) load(bq[j], j);
+  for (int kb0 = 0; kb0 < NK8; kb0 += Q) {
 #pragma unroll
-    for (int k4 = 0; k4 < kBK; k4 += 4) {
-      float4 av[MR];
+    for (int j = 0; j < Q; ++j) {
+      const int kb = kb0 + j;
+      if (kb < NK8) {
+        if (kb + kAhead < NK8) load(bq[(j + kAhead) % Q], kb + kAhead);
+        const float* a = a_at(kb) + g * LDA + t;
+        uint32_t a_hi[MT][4], a_lo[MT][4];
 #pragma unroll
-      for (int i = 0; i < MR; ++i)
-        av[i] = *reinterpret_cast<const float4*>(a + i * lda + k4);
+        for (int mt = 0; mt < MT; ++mt) {
+          const float* am = a + 16 * mt * LDA;
+          const float av[4] = {am[0], am[8 * LDA], am[4], am[8 * LDA + 4]};
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        float4 bv[3];
-#pragma unroll
-        for (int j = 0; j < 3; ++j)
-          bv[j] = *reinterpret_cast<const float4*>(b + (k4 + kk) * N + 32 * j);
-#pragma unroll
-        for (int i = 0; i < MR; ++i) {
-          const float x = kk == 0 ? av[i].x : kk == 1 ? av[i].y
-                        : kk == 2 ? av[i].z : av[i].w;
-#pragma unroll
-          for (int j = 0; j < 3; ++j) {
-            acc[i][j][0] = fmaf(x, bv[j].x, acc[i][j][0]);
-            acc[i][j][1] = fmaf(x, bv[j].y, acc[i][j][1]);
-            acc[i][j][2] = fmaf(x, bv[j].z, acc[i][j][2]);
-            acc[i][j][3] = fmaf(x, bv[j].w, acc[i][j][3]);
+          for (int e = 0; e < 4; ++e) {
+            if constexpr (PASSES == 3) {
+              tf32::split(av[e], a_hi[mt][e], a_lo[mt][e]);
+            } else {
+              a_hi[mt][e] = tf32::round_rna(av[e]);
+            }
           }
+        }
+        constexpr int G = NT % kGroup == 0 ? kGroup : NT;
+#pragma unroll
+        for (int n0 = 0; n0 < NT; n0 += G) {
+          uint32_t b_hi[G][2], b_lo[G][2];
+#pragma unroll
+          for (int i = 0; i < G; ++i) {
+            const WFrag b = bq[j][n0 + i];
+            b_hi[i][0] = __float_as_uint(b.x);
+            b_hi[i][1] = __float_as_uint(b.y);
+            b_lo[i][0] = __float_as_uint(b.z);
+            b_lo[i][1] = __float_as_uint(b.w);
+          }
+          float d[G][MT][4];
+#pragma unroll
+          for (int i = 0; i < G; ++i)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) d[i][mt][e] = 0.f;
+          if constexpr (PASSES == 3) {
+#pragma unroll
+            for (int i = 0; i < G; ++i)
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt)
+                tf32::mma(d[i][mt], a_lo[mt], b_hi[i]);
+#pragma unroll
+            for (int i = 0; i < G; ++i)
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt)
+                tf32::mma(d[i][mt], a_hi[mt], b_lo[i]);
+          }
+#pragma unroll
+          for (int i = 0; i < G; ++i)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              tf32::mma(d[i][mt], a_hi[mt], b_hi[i]);
+#pragma unroll
+          for (int i = 0; i < G; ++i)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) sum[mt][n0 + i][e] += d[i][mt][e];
         }
       }
     }
   }
-  cp_async_wait<0>();
-  __syncthreads();                  // the ring is free for the next GEMM
+}
+
+// epilogue(row, column, v, v') for every pair of neighbouring columns of a
+// warp's tc_gemm result (rows 16 mt + g and + 8, columns 8 (nt0 + nt) + 2 t)
+template <int MT, int NT, class Epilogue>
+__device__ __forceinline__ void tc_epilogue(const float (&sum)[MT][NT][4],
+                                            int nt0, const Epilogue& epilogue) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int i = 0; i < MR; ++i)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < 3; ++j)
-      epilogue(row0 + i, col0 + 32 * j,
-               make_float4(acc[i][j][0], acc[i][j][1], acc[i][j][2],
-                           acc[i][j][3]));
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        epilogue(16 * mt + g + 8 * half, 8 * (nt0 + nt) + 2 * t,
+                 sum[mt][nt][2 * half], sum[mt][nt][2 * half + 1]);
+}
+
+// ---------------------------------------------------------------------------
+// the live tiles of a ragged batch
+// ---------------------------------------------------------------------------
+
+// A persistent launch's work item: tile `index` of sample b, which holds a
+// frame before the sample's last valid one (live) or not (dead: every
+// output there is zero, and the tile is not computed).
+struct TileId {
+  int b, index;
+  bool live;
+};
+
+// The items of a launch over B samples of n_tiles tiles each: the live tiles
+// first (sample by sample, tile by tile), then the dead ones, so that a grid
+// walking them in steps of its size deals the live tiles out evenly.
+// before[b] is the number of live tiles of the samples before b.  The plain
+// twin is ops/coupling.py::live_tile_schedule.
+struct LiveTiles {
+  const int* before;   // [B + 1], in shared memory
+  const int* length;   // [B]: one past each sample's last valid frame
+  int B, n_tiles, live, items;
+
+  __device__ TileId at(int item) const {
+    // the last sample whose first item (live, or dead) is at most `item`
+    int lo = 0, hi = B - 1;
+    if (item < live) {
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) / 2;
+        if (before[mid] <= item) lo = mid; else hi = mid - 1;
+      }
+      return {lo, item - before[lo], true};
+    }
+    const int dead = item - live;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) / 2;
+      if (mid * n_tiles - before[mid] <= dead) lo = mid; else hi = mid - 1;
+    }
+    return {lo, before[lo + 1] - before[lo] + dead - (lo * n_tiles -
+                                                      before[lo]),
+            false};
+  }
+};
+
+// Ints of shared memory that live_tiles needs at batch size B.
+HD constexpr int live_tile_ints(int B) { return 2 * B + 1; }
+
+// Every block builds the list from the mask [B, T]: a sample's live tiles
+// are those whose first owned frame lies before one past its last frame
+// with a nonzero mask.  `ints` is live_tile_ints(B) ints of shared memory.
+// Ends on a barrier.
+template <class S>
+__device__ LiveTiles live_tiles(const float* mask, int B, int T, int* ints) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int* const before = ints;
+  int* const length = ints + B + 1;
+  for (int b = warp; b < B; b += kWarps) {
+    int last = 0;
+    for (int t = lane; t < T; t += 32)
+      if (mask[static_cast<size_t>(b) * T + t] != 0.f) last = t + 1;
+    for (int o = 16; o > 0; o >>= 1)
+      last = max(last, __shfl_xor_sync(0xffffffffu, last, o));
+    if (lane == 0) {
+      length[b] = last;
+      before[b + 1] = ceil_div(last, S::TT);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    before[0] = 0;
+    for (int b = 0; b < B; ++b) before[b + 1] += before[b];
+  }
+  __syncthreads();
+  const int n_tiles = ceil_div(T, S::TT);
+  return {before, length, B, n_tiles, before[B], B * n_tiles};
+}
+
+// What a launch over the live tiles did, reported for measuring into
+// `counts` (null in production; the caller zeroes it, and launches that
+// share it add up): [0] the list's live items, [1] all its items, [2] the
+// live tiles the blocks computed, [3] the most one block computed (the
+// rounds), [4] the blocks of the grid.  `computed` is the calling block's.
+__device__ __forceinline__ void report_tiles(int* counts,
+                                             const LiveTiles& items,
+                                             int computed) {
+  if (!counts || threadIdx.x != 0) return;
+  if (blockIdx.x == 0) {
+    counts[0] = items.live;
+    counts[1] = items.items;
+    counts[4] = gridDim.x;
+  }
+  atomicAdd(counts + 2, computed);
+  atomicMax(counts + 3, computed);
 }
 
 // ---------------------------------------------------------------------------
 // one flow step on one tile
 // ---------------------------------------------------------------------------
 
-// The weights of one flow step.
+// The weights of one flow step.  w_in and w_rs enter the tensor-core GEMMs
+// in the layout of ops/coupling.py::tensor_core_weights alone.
 struct StepWeights {
   const float* an_logs;  // [C]
   const float* an_bias;  // [C]
   const float* mix_t;    // [C, C]
   const float* w_start;  // [C/2, CH]
   const float* b_start;  // [CH]
-  const float* w_in;     // [NL, KS*CH, 2CH]
-  const float* w_rs;     // [NL, CH, 2CH], last layer's res half zero
+  const WFrag* w_in;     // [NL, KS*CH/8, 2CH/8, 32], gate columns interleaved
+  const WFrag* w_rs;     // [NL, CH/8, 2CH/8, 32], last layer's res half zero
   const float* b_rs;     // [NL, 2CH]
   const float* w_end;    // [CH, C]
   const float* b_end;    // [C]
@@ -292,14 +457,13 @@ struct StepWeights {
 // `stacked` points at step 0 of each [steps, ...] tensor.
 template <class S>
 HD StepWeights step_of_stack(const StepWeights& stacked, int s) {
-  const size_t big = static_cast<size_t>(s) * S::NL * S::CH * S::CH2;
   return {stacked.an_logs + s * S::C,
           stacked.an_bias + s * S::C,
           stacked.mix_t + s * S::C * S::C,
           stacked.w_start + s * S::C2 * S::CH,
           stacked.b_start + s * S::CH,
-          stacked.w_in + big * S::KS,
-          stacked.w_rs + big,
+          stacked.w_in + s * S::NL * S::W_IN_TC,
+          stacked.w_rs + s * S::NL * S::W_RS_TC,
           stacked.b_rs + s * S::NL * S::CH2,
           stacked.w_end + s * S::CH * S::C,
           stacked.b_end + s * S::C};
@@ -323,17 +487,18 @@ template <class S>
 struct Tile {
   float* xs;    // [x_rows, C]
   float* hs;    // [h_rows, HP]
-  float* acc;   // [acc_rows, AP or C]
-  float* skip;  // [span(TT), CH]
+  float* gs;    // the gate [rows, GP]; the mixing's and end conv's output
+  float* skip;  // [span(TT), SP]
   float* ms;    // [x_rows]
-  float* ring;  // [kStages, kBK, 2CH]
+  float* ts;    // [TT, TSP] saving kernels only: the owned rows' gate halves
   int b, index, B, T, t0;
   size_t sample;  // first frame of sample b among the B*T
 
   __device__ Tile(float* smem, int B_, int T_, int b_, int index_)
-      : xs(smem), hs(xs + S::XS), acc(hs + S::HS), skip(acc + S::AS),
-        ms(skip + S::SS), ring(ms + S::MS), b(b_), index(index_), B(B_),
-        T(T_), t0(index_ * S::TT - S::HALO),
+      : xs(smem), hs(xs + S::XS), gs(hs + S::HS), skip(gs + S::GS),
+        ms(skip + S::SS), ts(smem + S::FLOATS), b(b_), index(index_), B(B_),
+        T(T_),
+        t0(index_ * S::TT - S::HALO),
         sample(static_cast<size_t>(b_) * T_) {}
 
   // Zero x, h, the skip sum and the mask, then load the rows of
@@ -341,8 +506,10 @@ struct Tile {
   // then a barrier.
   __device__ void begin(const float* mask) const {
     const int tid = threadIdx.x;
-    for (int i = tid; i < S::XS + S::HS; i += kThreads) xs[i] = 0.f;
-    for (int i = tid; i < S::SS + S::MS; i += kThreads) skip[i] = 0.f;
+    for (int i = tid; i < (S::XS + S::HS) / 4; i += kThreads)
+      at4(xs + 4 * i) = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = tid; i < (S::SS + S::MS) / 4; i += kThreads)
+      at4(skip + 4 * i) = make_float4(0.f, 0.f, 0.f, 0.f);
     __syncthreads();
     for (int r = tid; r < S::R; r += kThreads) {
       const int t = t0 + r;
@@ -385,85 +552,118 @@ struct Tile {
                *reinterpret_cast<const float4*>(rows_c + r * pitch + c));
     }
   }
+
+  // out[B*T, n] gets zeros at the owned frames below `end` (at most T): a
+  // dead tile's output.
+  __device__ void zero_owned(float* out, int n, int end) const {
+    for (int i = threadIdx.x; i < S::TT * (n / 4); i += kThreads) {
+      const int t = t0 + S::HALO + i / (n / 4), c = 4 * (i % (n / 4));
+      if (t < end)
+        at4(out + (sample + t) * n + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  __device__ void zero_owned(float* out, int n) const {
+    zero_owned(out, n, T);
+  }
 };
 
 // WaveNet layer I and, recursively, the layers after it.
-// pre_gate.layer(I, tile) gives the conv's epilogue for this layer:
-// (tile row, column, four conv sums) -> the pre-gate sums (bias, dropout,
-// conditioning).
-template <class S, bool SAVE, int I, class PreGate>
+// pre_gate.layer(I, tile) gives the k-tap conv's epilogue for this layer:
+// (tile row, column of the [2CH] pre-gate sum, conv sum) -> the pre-gate
+// value (bias, dropout, conditioning).
+template <class S, bool SAVE, int PASSES, int I, class PreGate>
 __device__ __forceinline__ void wavenet_layers(const Tile<S>& tile,
                                                const StepWeights& w,
                                                const SavePointers& save,
                                                const PreGate& pre_gate) {
   constexpr int lo = S::layer_lo(I), rows = S::layer_rows(I);
-  constexpr int CH = S::CH, CH2 = S::CH2, HP = S::HP, AP = S::AP;
-  constexpr int MR = staged_mr(rows, CH2);
+  constexpr int MT = S::mt(rows), NB = S::NB, NT = S::NT;
+  constexpr int CH = S::CH, CH2 = S::CH2, HP = S::HP, GP = S::GP;
+  constexpr int SP = S::SP, HALO = S::HALO, TT = S::TT;
+  const int warp = threadIdx.x / 32;
   float* const hs = tile.hs;
-  float* const acc = tile.acc;
+  float* const gs = tile.gs;
   float* const skip = tile.skip;
   const float* const ms = tile.ms;
-  const float* b_rs = w.b_rs + I * CH2;
-  const float* w_rs = w.w_rs + static_cast<size_t>(I) * CH * CH2;
+  const float* const b_rs = w.b_rs + I * CH2;
   const size_t frames = static_cast<size_t>(tile.B) * tile.T;
 
   if constexpr (SAVE)
-    tile.store_owned(save.xin + I * frames * CH, hs + S::HALO * HP, HP, CH);
-  // k-tap conv, then the layer's epilogue: rows [lo, lo + rows) read h rows
-  // [lo - PAD, lo + rows + PAD)
-  const auto epilogue = pre_gate.layer(I, tile);
-  staged_gemm<MR, CH2>(
-      hs + (lo - S::PAD) * HP, HP, CH, S::KS * CH,
-      w.w_in + static_cast<size_t>(I) * S::KS * CH * CH2, CH2, tile.ring,
-      [&](int r, int col, float4 v) {
-        if (r < rows) at4(acc + r * AP + col) = epilogue(lo + r, col, v);
-      });
-  __syncthreads();
-  // gate, in place over the tanh half
-  float* ts_out = SAVE ? save.ts + I * frames * CH2 : nullptr;
-  for (int i = threadIdx.x; i < rows * CH; i += kThreads) {
-    const int r = i / CH, c = i % CH;
-    float* row = acc + r * AP;
-    const float th = tanhf(row[c]), sg = sigmoidf(row[c + CH]);
-    row[c] = th * sg;
-    if constexpr (SAVE) {
-      const int own = lo + r - S::HALO, t = tile.t0 + lo + r;
-      if (own >= 0 && own < S::TT && t < tile.T) {
-        __stcs(ts_out + (tile.sample + t) * CH2 + c, th);
-        __stcs(ts_out + (tile.sample + t) * CH2 + CH + c, sg);
+    tile.store_owned(save.xin + I * frames * CH, hs + HALO * HP, HP, CH);
+  {
+    // k-tap conv of rows [lo, lo + rows), which read h rows [lo - PAD,
+    // lo + rows + PAD): tap d of channel c is h[(row + d) * HP + c]; the
+    // epilogue is the pre-gate and the gate, into the gate buffer
+    float sum[MT][NT][4];
+    const float* h0 = hs + (lo - S::PAD) * HP;
+    tc_gemm<MT, NT, S::KS * CH / 8, HP, NB, PASSES>(
+        sum,
+        [&](int kb) {
+          const int k = 8 * kb;
+          return h0 + (k / CH) * HP + k % CH;
+        },
+        w.w_in + I * S::W_IN_TC, NT * warp);
+    const auto pre = pre_gate.layer(I, tile);
+    tc_epilogue<MT, NT>(sum, NT * warp, [&](int r, int col, float vt,
+                                            float vs) {
+      if (r >= rows) return;
+      // interleaved columns: 2c and 2c + 1 are channel c's tanh and
+      // sigmoid halves, columns c and CH + c of the pre-gate sum
+      const int c = col / 2, row = lo + r;
+      const float th = tanhf(pre(row, c, vt));
+      const float sg = sigmoidf(pre(row, CH + c, vs));
+      gs[r * GP + c] = th * sg;
+      if constexpr (SAVE) {
+        const int own = row - HALO;
+        if (own >= 0 && own < TT) {
+          tile.ts[own * S::TSP + c] = th;
+          tile.ts[own * S::TSP + CH + c] = sg;
+        }
       }
-    }
+    });
   }
   __syncthreads();
+  if constexpr (SAVE)
+    tile.store_owned(save.ts + I * frames * CH2, tile.ts, S::TSP, CH2);
   if constexpr (I < S::NL - 1) {
     // res half updates h in place (this GEMM reads only the gate); skip
     // half accumulates on the central rows
-    staged_gemm<MR, CH2>(
-        acc, AP, CH, CH, w_rs, CH2, tile.ring, [&](int r, int col, float4 v) {
-          if (r >= rows) return;
-          const int row = lo + r;
-          v = add4(v, ldg4(b_rs + col));
-          if (col < CH) {
-            float4& h = at4(hs + row * HP + col);
-            h = scale4(add4(h, v), ms[row]);
-          } else if (row >= S::HALO && row < S::HALO + S::TT) {
-            float4& s = at4(skip + (row - S::HALO) * CH + col - CH);
-            s = add4(s, v);
-          }
-        });
+    float sum[MT][NT][4];
+    tc_gemm<MT, NT, CH / 8, GP, NB, PASSES>(
+        sum, [&](int kb) { return gs + 8 * kb; },
+        w.w_rs + I * S::W_RS_TC, NT * warp);
+    tc_epilogue<MT, NT>(sum, NT * warp, [&](int r, int col, float v0,
+                                            float v1) {
+      if (r >= rows) return;
+      const int row = lo + r;
+      v0 += __ldg(b_rs + col);
+      v1 += __ldg(b_rs + col + 1);
+      if (col < CH) {
+        float2& h = at2(hs + row * HP + col);
+        h = make_float2((h.x + v0) * ms[row], (h.y + v1) * ms[row]);
+      } else if (row >= HALO && row < HALO + TT) {
+        float2& s = at2(skip + (row - HALO) * SP + col - CH);
+        s = make_float2(s.x + v0, s.y + v1);
+      }
+    });
     __syncthreads();
-    wavenet_layers<S, SAVE, I + 1>(tile, w, save, pre_gate);
+    wavenet_layers<S, SAVE, PASSES, I + 1>(tile, w, save, pre_gate);
   } else {
-    // the last layer feeds the skip sum only, and its rows are the TT
-    // central ones
-    static_assert(lo == S::HALO && rows == S::TT, "halo bookkeeping");
-    staged_gemm<staged_mr(rows, CH), CH>(
-        acc, AP, CH, CH, w_rs + CH, CH2, tile.ring,
-        [&](int r, int col, float4 v) {
-          if (r >= rows) return;
-          float4& s = at4(skip + r * CH + col);
-          s = add4(s, add4(v, ldg4(b_rs + CH + col)));
-        });
+    // the last layer feeds the skip sum only (the n8 tiles of w_rs's skip
+    // half), and its rows are the TT central ones
+    static_assert(lo == HALO && rows == TT, "halo bookkeeping");
+    constexpr int NTH = NT / 2;
+    float sum[MT][NTH][4];
+    tc_gemm<MT, NTH, CH / 8, GP, NB, PASSES>(
+        sum, [&](int kb) { return gs + 8 * kb; },
+        w.w_rs + I * S::W_RS_TC, NB / 2 + NTH * warp);
+    tc_epilogue<MT, NTH>(sum, NB / 2 + NTH * warp, [&](int r, int col,
+                                                       float v0, float v1) {
+      if (r >= rows) return;
+      float2& s = at2(skip + r * SP + col - CH);
+      s = make_float2(s.x + (v0 + __ldg(b_rs + col)),
+                      s.y + (v1 + __ldg(b_rs + col + 1)));
+    });
     __syncthreads();
   }
 }
@@ -471,19 +671,19 @@ __device__ __forceinline__ void wavenet_layers(const Tile<S>& tile,
 // The coupling's network on a loaded tile.  With PROLOGUE (the forward
 // direction) first ActNorm and the channel mixing, in place on x; then the
 // start 1x1 on x_a, the WaveNet and the end 1x1, which leaves [mean, logs]
-// of the TT owned frames in acc [TT, C].  With SAVE the owned frames'
+// of the TT owned frames in gs [TT, C].  With SAVE the owned frames'
 // intermediates go to `save` on the way.
-template <class S, bool PROLOGUE, bool SAVE, class PreGate>
+template <class S, bool PROLOGUE, bool SAVE, int PASSES, class PreGate>
 __device__ __forceinline__ void coupling_net(const Tile<S>& tile,
                                              const StepWeights& w,
                                              const SavePointers& save,
                                              const PreGate& pre_gate) {
   constexpr int C = S::C, C2 = S::C2, CH = S::CH, R = S::R, TT = S::TT;
-  constexpr int HALO = S::HALO;
+  constexpr int HALO = S::HALO, SP = S::SP;
   const int tid = threadIdx.x;
   float* const xs = tile.xs;
   float* const hs = tile.hs;
-  float* const acc = tile.acc;
+  float* const gs = tile.gs;
   float* const skip = tile.skip;
   const float* const ms = tile.ms;
 
@@ -498,10 +698,10 @@ __device__ __forceinline__ void coupling_net(const Tile<S>& tile,
     if constexpr (SAVE) tile.store_owned(save.y, xs + HALO * C, C, C);
     block_gemm<S::mr(R), lane_quads(C)>(
         xs, C, C, w.mix_t, C, C / 4, [&](int r, int col, float4 v) {
-          if (r < R) at4(acc + r * C + col) = scale4(v, ms[r]);
+          if (r < R) at4(gs + r * C + col) = scale4(v, ms[r]);
         });
     __syncthreads();
-    for (int i = tid; i < R * C; i += kThreads) xs[i] = acc[i];
+    for (int i = tid; i < R * C; i += kThreads) xs[i] = gs[i];
     __syncthreads();
     if constexpr (SAVE) tile.store_owned(save.yd, xs + HALO * C, C, C);
   }
@@ -515,18 +715,19 @@ __device__ __forceinline__ void coupling_net(const Tile<S>& tile,
       });
   __syncthreads();
 
-  wavenet_layers<S, SAVE, 0>(tile, w, save, pre_gate);
+  wavenet_layers<S, SAVE, PASSES, 0>(tile, w, save, pre_gate);
 
-  // end 1x1 on the masked skip sum: [mean, logs] -> acc [TT, C]
-  for (int i = tid; i < TT * CH; i += kThreads) skip[i] *= ms[HALO + i / CH];
+  // end 1x1 on the masked skip sum: [mean, logs] -> gs [TT, C]
+  for (int i = tid; i < TT * CH; i += kThreads)
+    skip[(i / CH) * SP + i % CH] *= ms[HALO + i / CH];
   __syncthreads();
-  if constexpr (SAVE) tile.store_owned(save.skip, skip, CH, CH);
+  if constexpr (SAVE) tile.store_owned(save.skip, skip, SP, CH);
   block_gemm<S::mr(TT), lane_quads(C)>(
-      skip, CH, CH, w.w_end, C, C / 4, [&](int r, int col, float4 v) {
-        if (r < TT) at4(acc + r * C + col) = add4(v, ldg4(w.b_end + col));
+      skip, SP, CH, w.w_end, C, C / 4, [&](int r, int col, float4 v) {
+        if (r < TT) at4(gs + r * C + col) = add4(v, ldg4(w.b_end + col));
       });
   __syncthreads();
-  if constexpr (SAVE) tile.store_owned(save.logs, acc + C2, C, C2);
+  if constexpr (SAVE) tile.store_owned(save.logs, gs + C2, C, C2);
 }
 
 // The forward affine on the owned frames after coupling_net: z_b = (mean +
@@ -540,7 +741,7 @@ __device__ __forceinline__ float affine_forward(const Tile<S>& tile,
   __shared__ float warp_sums[kWarps];
   const int tid = threadIdx.x;
   const float* const xs = tile.xs;
-  const float* const acc = tile.acc;
+  const float* const acc = tile.gs;
   float part = 0.f;
   for (int i = tid; i < TT * C2; i += kThreads) {
     const int r = i / C2, c = i % C2, row = HALO + r, t = tile.t0 + row;
@@ -574,8 +775,8 @@ struct BiasPreGate {
   const float* cond;
   struct Layer {
     const float* row;    // [2CH]
-    __device__ float4 operator()(int, int col, float4 v) const {
-      return add4(v, ldg4(row + col));
+    __device__ float operator()(int, int col, float v) const {
+      return v + __ldg(row + col);
     }
   };
   template <class S>
@@ -589,7 +790,7 @@ struct BiasPreGate {
 // logdet (sum of logs * m plus ld_const per valid frame); REVERSE
 // coupling^-1 -> mixing^-1 -> ActNorm^-1 with w.mix_t the inverse mixing.
 // Ends on a barrier, so a block may go on to another tile.
-template <class S, bool REVERSE>
+template <class S, bool REVERSE, int PASSES = 3>
 __device__ __forceinline__ float flow_step_tile(const Tile<S>& tile,
                                                 const float* x,
                                                 const float* mask,
@@ -601,7 +802,8 @@ __device__ __forceinline__ float flow_step_tile(const Tile<S>& tile,
   const int tid = threadIdx.x;
   float logdet = 0.f;
   tile.load(x, mask);
-  coupling_net<S, !REVERSE, false>(tile, w, SavePointers{}, BiasPreGate{cond});
+  coupling_net<S, !REVERSE, false, PASSES>(tile, w, SavePointers{},
+                                           BiasPreGate{cond});
 
   if constexpr (!REVERSE) {
     const float total = affine_forward(tile, z);
@@ -612,7 +814,7 @@ __device__ __forceinline__ float flow_step_tile(const Tile<S>& tile,
     }
   } else {
     float* const xs = tile.xs;
-    const float* const acc = tile.acc;
+    const float* const acc = tile.gs;
     const float* const ms = tile.ms;
     // coupling^-1 in place on x_b, then mixing^-1 and ActNorm^-1
     for (int i = tid; i < TT * C2; i += kThreads) {
@@ -639,6 +841,25 @@ __device__ __forceinline__ float flow_step_tile(const Tile<S>& tile,
   }
   __syncthreads();
   return logdet;
+}
+
+// Blocks of a kernel that are resident together on the current device, at
+// its dynamic shared memory.
+template <class Kernel>
+cudaError_t resident_blocks(Kernel kernel, size_t smem, int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  *blocks = per_sm * sms;
+  return *blocks > 0 ? cudaSuccess : cudaErrorLaunchOutOfResources;
 }
 
 }  // namespace

@@ -9,11 +9,11 @@
 // Design.  The TPU kernel keeps a batch block's whole time axis on chip
 // across the steps.  An SM cannot: one sample's [512, 160] activation is
 // 328 KB against 227 KB of shared memory, of which a step's working set
-// takes 221 KB, and step j + 1's tile needs 8 halo frames of step j's
+// takes 138 KB, and step j + 1's tile needs 8 halo frames of step j's
 // output from the tiles beside it.  So this is a persistent cooperative
 // kernel:
 // * the grid is as many blocks as are resident together (one per SM at
-//   this shared-memory size, asked of the occupancy calculator), launched
+//   this size, asked of the occupancy calculator), launched
 //   with cudaLaunchCooperativeKernel, which refuses a grid that is not;
 // * each block owns a fixed list of (sample, 32-frame tile) items, item i
 //   going to block i mod grid, and runs flow_step.cu's body
@@ -101,29 +101,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// Blocks of the kernel that are resident together on the current device.
 template <class S, bool REVERSE>
-cudaError_t resident_blocks(int* blocks) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flow_stack_kernel<S, REVERSE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(S::smem_bytes));
-  if (err != cudaSuccess) return err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, flow_stack_kernel<S, REVERSE>, kThreads, S::smem_bytes);
-  if (err != cudaSuccess) return err;
-  *blocks = per_sm * sms;
-  return *blocks > 0 ? cudaSuccess : cudaErrorLaunchOutOfResources;
+cudaError_t resident(int* blocks) {
+  return resident_blocks(flow_stack_kernel<S, REVERSE>, S::smem_bytes,
+                         blocks);
 }
 
 template <class S, bool REVERSE>
 cudaError_t launch(Params p, cudaStream_t stream) {
   int blocks = 0;
-  cudaError_t err = resident_blocks<S, REVERSE>(&blocks);
+  cudaError_t err = resident<S, REVERSE>(&blocks);
   if (err != cudaSuccess) return err;
   const int items = p.B * p.n_tiles;
   const int grid = items < blocks ? items : blocks;
@@ -149,15 +136,16 @@ const char* glow_cuda_error_string(int err) {
 // fewer when B * tiles is less), or minus a cudaError_t.
 int glow_flow_stack_resident_blocks() {
   int blocks = 0;
-  const cudaError_t err = resident_blocks<Shipped, true>(&blocks);
+  const cudaError_t err = resident<Shipped, true>(&blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 // All `steps` flow steps of stacked weights ([steps, ...] each, shapes those
-// of Shipped: C=160, ch=192, 4 layers, k=5; the caller checks them) in one
-// launch.  z gets the result; other is a second [B, T, C] buffer (may be
-// null at steps = 1), ld_part [B, tiles] and ld_const [steps] are forward
-// only, barrier is one unsigned of scratch.  Returns a cudaError_t, 0 on
+// of Shipped: C=160, ch=192, 4 layers, k=5, w_in and w_rs in the
+// tensor-core layout; the caller checks them) in one launch.  z gets the
+// result; other is a second [B, T, C] buffer (may be null at steps = 1),
+// ld_part [B, tiles] and ld_const [steps] are forward only, barrier is
+// one unsigned of scratch.  Returns a cudaError_t, 0 on
 // success.
 int glow_flow_stack_f32(const float* x, const float* mask, const float* cond,
                         const float* an_logs, const float* an_bias,
@@ -170,8 +158,9 @@ int glow_flow_stack_f32(const float* x, const float* mask, const float* cond,
                         int steps, int reverse, void* stream) {
   if (B <= 0 || T <= 0 || steps <= 0) return cudaSuccess;
   const Params p{x, mask, cond,
-                 {an_logs, an_bias, mix_t, w_start, b_start, w_in, w_rs, b_rs,
-                  w_end, b_end},
+                 {an_logs, an_bias, mix_t, w_start, b_start,
+                  reinterpret_cast<const WFrag*>(w_in),
+                  reinterpret_cast<const WFrag*>(w_rs), b_rs, w_end, b_end},
                  ld_const, z, other, ld_part, barrier, B, T,
                  ceil_div(T, Shipped::TT), steps};
   auto s = static_cast<cudaStream_t>(stream);

@@ -12,9 +12,11 @@
 // the activations resident on chip; here one launch per flow step reads
 // acts[s] and writes acts[s + 1], so the "checkpoint" is simply every
 // step's input left in device memory.  A launch is flow_step.cu's forward
-// (one block per (sample, 32-frame tile), 8 recomputed halo frames per
-// side, all activations in shared memory, see there; the body is
-// flow_common.cuh's coupling_net for both) with three changes:
+// (a persistent grid over the batch's live (sample, 32-frame tile) items, 8
+// recomputed halo frames per side, all activations in shared memory, the
+// big products on the tensor cores as 3xTF32 with weights split when
+// packed; the body is flow_common.cuh's coupling_net for both) with three
+// changes:
 // * the in-conv bias is its own operand and dropout multiplies conv + bias
 //   before the per-sample conditioning is added;
 // * the dropout factor of an element is a hash of (seed, step, layer,
@@ -36,9 +38,20 @@
 // kSaved and kBoth run the same device code for the saved values, so the
 // two give the backward kernels the same bits.
 //
+// Valid tiles only.  At the training shape about half of the 32 x 512
+// squeezed frames lie past their sample's last valid frame; a tile whose
+// first owned frame does is not computed.  Its z is written as zeros (the
+// next step reads it, and the plain version is zero there) and its logdet
+// as 0.  Of its saved values only the layers' inputs at the PAD frames past
+// the length are written (zeros): the k-tap conv's weight gradient in
+// flow_train_bwd.cu reads that far.  Nothing else there reaches a
+// gradient: the backward's tile loaders zero-fill every other row at or
+// past a sample's length, its column sums stop at the length, and its
+// elementwise passes write rows there that no later launch reads.
+//
 // What bounds it: arithmetic, as flow_step.cu (3.7 MFLOP per frame and
 // step against a few bytes); the hash adds ~20 integer operations per
-// pre-gate element, about 1 % of the step's FMAs.
+// pre-gate element.
 
 #include "dropmask.cuh"
 #include "flow_common.cuh"
@@ -53,6 +66,7 @@ struct Params {
   StepWeights w;
   float* z;              // [B, T, C]
   float* ld_part;        // [B, n_tiles]
+  int* tiles;            // [5] or null: report_tiles
   SavePointers save;     // kSaved and kBoth only
   dropmask::Dropout drop;
   unsigned step;         // index of this flow step in the stack
@@ -71,19 +85,15 @@ struct DropoutPreGate {
     dropmask::Dropout drop;
     unsigned salt, rows_per_sample, ch2;
     int b, t0;
-    __device__ float4 operator()(int row, int col, float4 v) const {
-      v = add4(v, ldg4(b_in + col));
-      if (drop.enabled) {
+    __device__ float operator()(int row, int col, float v) const {
+      v += __ldg(b_in + col);
+      if (drop.enabled)
         // frames outside [0, T) draw some bits too; their rows never
         // reach an output
-        const unsigned counter = dropmask::row_counter(
-            b, t0 + row, rows_per_sample, ch2, salt) + col;
-        v.x *= dropmask::keep_factor(drop, counter);
-        v.y *= dropmask::keep_factor(drop, counter + 1);
-        v.z *= dropmask::keep_factor(drop, counter + 2);
-        v.w *= dropmask::keep_factor(drop, counter + 3);
-      }
-      if (cond) v = add4(v, ldg4(cond + col));
+        v *= dropmask::keep_factor(
+            drop, dropmask::row_counter(b, t0 + row, rows_per_sample, ch2,
+                                        salt) + col);
+      if (cond) v += __ldg(cond + col);
       return v;
     }
   };
@@ -100,30 +110,57 @@ struct DropoutPreGate {
 
 enum class Writes { kOutputs, kSaved, kBoth };
 
-template <class S, Writes WRITES>
+template <class S, Writes WRITES, int PASSES>
 __global__ void __launch_bounds__(kThreads, 1)
     flow_train_fwd_kernel(const Params p) {
   extern __shared__ float4 smem4[];
-  const Tile<S> tile(reinterpret_cast<float*>(smem4), p.B, p.T, blockIdx.y,
-                     blockIdx.x);
-  tile.load(p.x, p.mask);
-  coupling_net<S, true, WRITES != Writes::kOutputs>(
-      tile, p.w, p.save, DropoutPreGate{p.b_in, p.cond, p.drop, p.step});
-  if constexpr (WRITES != Writes::kSaved) {
-    const float total = affine_forward(tile, p.z);
-    if (threadIdx.x == 0) p.ld_part[tile.b * p.n_tiles + tile.index] = total;
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const LiveTiles items = live_tiles<S>(
+      p.mask, p.B, p.T,
+      reinterpret_cast<int*>(smem + S::FLOATS + S::SAVE_FLOATS));
+  int computed = 0;
+  for (int item = blockIdx.x; item < items.items; item += gridDim.x) {
+    const TileId id = items.at(item);
+    const Tile<S> tile(smem, p.B, p.T, id.b, id.index);
+    if (!id.live) {
+      if constexpr (WRITES != Writes::kSaved) {
+        tile.zero_owned(p.z, S::C);
+        if (threadIdx.x == 0) p.ld_part[tile.b * p.n_tiles + tile.index] = 0.f;
+      }
+      if constexpr (WRITES != Writes::kOutputs) {
+        // the k-tap conv's weight gradient reads every layer's input up to
+        // PAD frames past the length: zero there, as the plain version is
+        const int end = min(items.length[id.b] + S::PAD, p.T);
+        const size_t frames = static_cast<size_t>(p.B) * p.T;
+        for (int i = 0; i < S::NL; ++i)
+          tile.zero_owned(p.save.xin + i * frames * S::CH, S::CH, end);
+      }
+      continue;
+    }
+    tile.load(p.x, p.mask);
+    coupling_net<S, true, WRITES != Writes::kOutputs, PASSES>(
+        tile, p.w, p.save, DropoutPreGate{p.b_in, p.cond, p.drop, p.step});
+    if constexpr (WRITES != Writes::kSaved) {
+      const float total = affine_forward(tile, p.z);
+      if (threadIdx.x == 0) p.ld_part[tile.b * p.n_tiles + tile.index] = total;
+    }
+    ++computed;
+    __syncthreads();   // the buffers are free for the next tile
   }
+  report_tiles(p.tiles, items, computed);
 }
 
-template <class S, Writes WRITES>
+template <class S, Writes WRITES, int PASSES = 3>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flow_train_fwd_kernel<S, WRITES>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(S::smem_bytes));
+  const size_t smem = S::smem_bytes + sizeof(float) * S::SAVE_FLOATS +
+                      sizeof(int) * live_tile_ints(p.B);
+  int blocks = 0;
+  const cudaError_t err = resident_blocks(
+      flow_train_fwd_kernel<S, WRITES, PASSES>, smem, &blocks);
   if (err != cudaSuccess) return err;
-  flow_train_fwd_kernel<S, WRITES>
-      <<<dim3(p.n_tiles, p.B), kThreads, S::smem_bytes, stream>>>(p);
+  const int items = p.B * p.n_tiles;
+  flow_train_fwd_kernel<S, WRITES, PASSES>
+      <<<items < blocks ? items : blocks, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -146,7 +183,11 @@ const char* glow_cuda_error_string(int err) {
 // pointers of SavePointers, in their order, each at the values of step
 // step_begin with the following steps' behind them) the steps also write
 // what the backward pass reads; with save and no ld_part they write that
-// alone, and neither acts nor ld_part.
+// alone, and neither acts nor ld_part.  w_in and w_rs are in the
+// tensor-core layout (ops/coupling.py::tensor_core_weights).  passes is 3
+// (3xTF32) or, for measuring a forward pass without save, 1.  tiles is
+// null, or 5 zeroed ints that receive what the launches did, the computed
+// tiles summed over the steps (flow_common.cuh::report_tiles).
 // Returns a cudaError_t, 0 on success.
 int glow_flow_train_fwd_f32(float* acts, const float* mask, const float* cond,
                             const float* an_logs, const float* an_bias,
@@ -155,15 +196,20 @@ int glow_flow_train_fwd_f32(float* acts, const float* mask, const float* cond,
                             const float* b_in, const float* w_rs,
                             const float* b_rs, const float* w_end,
                             const float* b_end, float* ld_part,
-                            float* const* save, int B, int T, int step_begin,
+                            float* const* save, int* tiles, int B, int T,
+                            int step_begin,
                             int step_end, int seed, unsigned threshold,
-                            float scale, int dropout, void* stream) {
+                            float scale, int dropout, int passes,
+                            void* stream) {
   using S = Shipped;
   if (B <= 0 || T <= 0) return cudaSuccess;
   const int n_tiles = ceil_div(T, S::TT);
   const size_t frames = static_cast<size_t>(B) * T;
+  if (passes != 3 && (passes != 1 || save)) return cudaErrorInvalidValue;
   const StepWeights stacked{an_logs, an_bias, mix_t, w_start, b_start,
-                            w_in, w_rs, b_rs, w_end, b_end};
+                            reinterpret_cast<const WFrag*>(w_in),
+                            reinterpret_cast<const WFrag*>(w_rs), b_rs,
+                            w_end, b_end};
   for (int s = step_begin; s < step_end; ++s) {
     Params p{};
     p.x = acts + (s - step_begin) * frames * S::C;
@@ -175,6 +221,7 @@ int glow_flow_train_fwd_f32(float* acts, const float* mask, const float* cond,
     p.drop = dropmask::Dropout{static_cast<unsigned>(seed), threshold, scale,
                                dropout};
     p.step = static_cast<unsigned>(s);
+    p.tiles = tiles;
     p.B = B;
     p.T = T;
     p.n_tiles = n_tiles;
@@ -193,7 +240,8 @@ int glow_flow_train_fwd_f32(float* acts, const float* mask, const float* cond,
     }
     const auto on = static_cast<cudaStream_t>(stream);
     const cudaError_t err =
-        !save ? launch<S, Writes::kOutputs>(p, on)
+        passes == 1 ? launch<S, Writes::kOutputs, 1>(p, on)
+        : !save ? launch<S, Writes::kOutputs>(p, on)
               : ld_part ? launch<S, Writes::kBoth>(p, on)
                         : launch<S, Writes::kSaved>(p, on);
     if (err != cudaSuccess) return err;

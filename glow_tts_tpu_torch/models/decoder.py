@@ -31,8 +31,10 @@ from torch import nn
 
 from glow_tts_tpu_torch.models.layers import (
     Conv1d, WNConv1d, masked, stacked_effective_weights)
-from glow_tts_tpu_torch.ops.coupling import (COUPLING_WEIGHT_KEYS, coupling,
-                                             flow_stack, flow_step)
+from glow_tts_tpu_torch.ops.coupling import (COUPLING_WEIGHT_KEYS, TC_KEYS,
+                                             coupling, flow_stack, flow_step,
+                                             tensor_core_weights,
+                                             with_tensor_core_weights)
 from glow_tts_tpu_torch.ops.coupling_grad import flow_stack_train
 
 FlowStepFn = Callable[..., Tuple[torch.Tensor, Optional[torch.Tensor]]]
@@ -211,12 +213,14 @@ class AffineCoupling(nn.Module):
         wrapper unless a caller compares it with the plain version) on
         ``packed``, the contiguous float32 ``(weights, cond [n, B, 2ch])``
         a caller keeps, or on this module's weights packed now, without
-        gradients."""
+        gradients (on the card with their tensor-core layout)."""
         if packed is None:
             with torch.no_grad():
                 weights, b_in = self.pack()
                 weights = {key: value.float().contiguous()
                            for key, value in weights.items()}
+                if x.device.type == 'cuda':
+                    weights = with_tensor_core_weights(weights)
                 n, ch2 = b_in.shape
                 cond = b_in.float()[:, None, :].expand(
                     n, x.shape[0], ch2).contiguous()
@@ -248,7 +252,9 @@ class FlowStep(nn.Module):
     @torch.no_grad()
     def pack(self) -> None:
         """Build both directions' kernel weights from the current
-        parameters, on their device.  Call again after loading weights."""
+        parameters, on their device (on a card with ``w_in`` and ``w_rs``
+        also in the kernels' tensor-core layout).  Call again after loading
+        weights."""
         actnorm, invconv, coupling = self.layers
         weights, self._b_in = coupling.pack()
         c = actnorm.logs.shape[1]
@@ -267,6 +273,13 @@ class FlowStep(nn.Module):
             direction: {key: value.detach().float().contiguous()
                         for key, value in weights.items()}
             for direction, weights in packed.items()}
+        if logs.device.type == 'cuda':
+            # w_in and w_rs split into TF32 halves in the kernels' layout,
+            # once per pack (both directions share them)
+            split = tensor_core_weights(self._packed[False]['w_in'],
+                                        self._packed[False]['w_rs'])
+            for weights in self._packed.values():
+                weights.update(split)
         self._b_in = self._b_in.detach().float().contiguous()
 
     def invalidate(self) -> None:
@@ -298,7 +311,9 @@ class FlowStep(nn.Module):
                            self.cond(x.shape[0]), reverse)
         actnorm, invconv, coupling_module = self.layers
         weights = self.weights(reverse)
-        packed = ({key: weights[key] for key in COUPLING_WEIGHT_KEYS},
+        packed = ({key: weights[key] for key in
+                   (*COUPLING_WEIGHT_KEYS, *TC_KEYS.values())
+                   if key in weights},
                   self.cond(x.shape[0]))
         mixing = (weights['mix_t'], self._mix_logdet)
         if reverse:

@@ -21,15 +21,18 @@ What bounds them on an H100: arithmetic.  Per squeezed frame a step costs
 about 3.6 MFLOP (4 layers × (k=5 conv 192→384 + 1×1 192→384), plus the
 start, end and mixing 1×1s), so one B=32 decode of 1024 mel frames
 (512 squeezed, 12 steps) is about 0.71 TFLOP, while its activations are
-a few MB per step and its f32 weights about 7 MB (L2 holds them).  The
-unfused version writes every ``[B, T, 384]`` intermediate to device
-memory and back; the kernels keep a whole step's activations in shared
-memory: one block per (sample, 32-frame tile) loads the tile plus the
-WaveNet's receptive-field halo (8 frames each side at k=5, 4 layers),
-recomputes the halo instead of exchanging it, and writes only the step's
-output.  The math is plain f32 FMA; the big GEMMs' weights are staged
-once per block through shared memory.  Tensor cores (TF32, bf16 via
-wgmma) are left to later work.
+a few MB per step.  The unfused version writes every ``[B, T, 384]``
+intermediate to device memory and back; the kernels keep a whole step's
+activations in shared memory: one block per (sample, 32-frame tile) loads
+the tile plus the WaveNet's receptive-field halo (8 frames each side at
+k=5, 4 layers), recomputes the halo instead of exchanging it, and writes
+only the step's output.  The k-tap convs and the res/skip 1×1s (~95 % of
+the FLOPs) run on the tensor cores as the error-compensated 3xTF32 product
+(f32 accuracy; :data:`TF32_PASSES`), on weights split into TF32 halves
+once, where they are packed (:func:`tensor_core_weights`).  ``flow_step``
+computes only the tiles that hold a valid frame (:func:`live_tile_schedule`
+is the kernel's work list); ``coupling`` and ``flow_stack`` compute every
+tile.
 """
 
 from __future__ import annotations
@@ -48,6 +51,105 @@ KERNEL_SHAPE = {'channels': 160, 'ch': 192, 'n_layers': 4, 'kernel_size': 5}
 WEIGHT_KEYS = ('an_logs', 'an_bias', 'mix_t', 'w_start', 'b_start', 'w_in',
                'w_rs', 'b_rs', 'w_end', 'b_end')
 COUPLING_WEIGHT_KEYS = WEIGHT_KEYS[3:]         # the coupling's own
+# w_in and w_rs as the kernels' tensor-core GEMMs read them
+# (:func:`tensor_core_weights`); a pack may carry them beside the f32 ones
+TC_KEYS = {'w_in': 'w_in_tc', 'w_rs': 'w_rs_tc'}
+# passes of the kernels' TF32 products: 3 is the error-compensated 3xTF32
+# (f32 accuracy), 1 a single TF32 pass (3 digits, kept for measuring)
+TF32_PASSES = 3
+# frames of a time tile of every flow kernel (Shipped::TT in
+# csrc/flow_common.cuh)
+TIME_TILE = 32
+# what a launch over the live tiles reports when asked (``tiles`` of
+# :func:`_flow_step_kernel` and ``coupling_grad._apply_kernels``;
+# csrc/flow_common.cuh::report_tiles): the list's live items and all its
+# items, the live tiles the blocks computed (summed over the launches that
+# share the report), the most one block computed, the grid's blocks
+TILE_COUNTS = ('live', 'items', 'computed', 'rounds', 'blocks')
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tensor_core_layout(w: torch.Tensor) -> torch.Tensor:
+    """``w [..., K, N]`` (K, N multiples of 8) split into TF32 halves ``hi =
+    tf32_round(w)`` and ``lo = w − hi`` (exact in f32, ``hi + lo == w``) and
+    laid out as the kernels' ``mma.sync.m16n8k8`` B fragments read them:
+    ``[..., K/8, N/8, 32, 4]``, lane ``4g + t`` of the 8 × 8 block ``(kb,
+    nb)`` holding ``(hi[8kb + t, 8nb + g], hi[8kb + t + 4, 8nb + g], lo[8kb
+    + t, 8nb + g], lo[8kb + t + 4, 8nb + g])``."""
+    *lead, k, n = w.shape
+    # k = 8 kb + 4 h + t, n = 8 nb + g  ->  [kb, nb, g, t, h]
+    blocks = w.reshape(*lead, k // 8, 2, 4, n // 8, 8)
+    d = len(lead)
+    blocks = blocks.permute(*range(d), d, d + 3, d + 4, d + 2, d + 1)
+    hi = tf32_round(blocks.contiguous())
+    pairs = torch.cat([hi, blocks - hi], dim=-1)
+    return pairs.reshape(*lead, k // 8, n // 8, 32, 4).contiguous()
+
+
+def interleave_gate(w_in: torch.Tensor) -> torch.Tensor:
+    """``w_in [..., k, ch, 2ch]`` → ``[..., k·ch, 2ch]`` with the pre-gate
+    columns interleaved: column ``2c`` is tanh column ``c``, ``2c + 1``
+    sigmoid column ``ch + c``, so the thread that holds one holds the
+    other."""
+    *lead, k, ch, ch2 = w_in.shape
+    w = w_in.reshape(*lead, k * ch, 2, ch2 // 2)
+    return w.transpose(-1, -2).reshape(*lead, k * ch, ch2)
+
+
+def tensor_core_weights(w_in: torch.Tensor, w_rs: torch.Tensor
+                        ) -> Dict[str, torch.Tensor]:
+    """The kernels' ``w_in`` (gate columns interleaved) and ``w_rs`` in
+    :func:`tensor_core_layout`, under :data:`TC_KEYS`' names; ``w_in [...,
+    n, k, ch, 2ch]``, ``w_rs [..., n, ch, 2ch]``, any leading axes (a stack
+    of flow steps).  Computed without gradient: the kernels have none."""
+    with torch.no_grad():
+        w_in, w_rs = w_in.float(), w_rs.float()
+        return {'w_in_tc': tensor_core_layout(interleave_gate(w_in)),
+                'w_rs_tc': tensor_core_layout(w_rs)}
+
+
+def with_tensor_core_weights(weights: Weights) -> Weights:
+    """``weights`` with :func:`tensor_core_weights` added, unless they
+    carry them already (a pack caches them)."""
+    if all(key in weights for key in TC_KEYS.values()):
+        return weights
+    return {**weights, **tensor_core_weights(weights['w_in'],
+                                             weights['w_rs'])}
+
+
+def kernel_keys(keys) -> Tuple[str, ...]:
+    """``keys`` as a kernel takes them: ``w_in`` and ``w_rs`` in the
+    tensor-core layout."""
+    return tuple(TC_KEYS.get(key, key) for key in keys)
+
+
+def valid_lengths(mask: torch.Tensor) -> torch.Tensor:
+    """int ``[B]``: one past the last frame of each sample whose mask
+    ``[B, T, 1]`` is not zero (the sample's length, for a prefix mask)."""
+    b, t = mask.shape[:2]
+    frames = torch.arange(1, t + 1, device=mask.device)
+    return ((mask.reshape(b, t) != 0) * frames).amax(dim=1)
+
+
+def live_tile_schedule(lengths, t: int, tile: int = TIME_TILE):
+    """The work list of a launch that computes valid tiles only
+    (``csrc/flow_common.cuh::LiveTiles``): ``(sample, tile, live)`` items,
+    the live tiles (first owned frame below the sample's length) sample by
+    sample first, then the dead ones.  A grid of G blocks gives block i the
+    items i, i + G, …; ``ceil(live / G)`` rounds of live tiles."""
+    n_tiles = -(-t // tile)
+    lengths = [int(n) for n in lengths]
+    live = [(b, i, True) for b, n in enumerate(lengths)
+            for i in range(-(-n // tile))]
+    dead = [(b, i, False) for b, n in enumerate(lengths)
+            for i in range(-(-n // tile), n_tiles)]
+    return live + dead
 
 
 def wavenet_stats(x_a: torch.Tensor, mask: torch.Tensor, weights: Weights,
@@ -155,12 +257,14 @@ def flow_stack_reference(x: torch.Tensor, mask: torch.Tensor,
 
 
 def _weight_shapes(c: int, n: int, k: int, ch: int) -> Dict[str, tuple]:
-    """The shapes of one flow step's weights, in ``WEIGHT_KEYS`` order."""
-    shapes = {'an_logs': (c,), 'an_bias': (c,), 'mix_t': (c, c),
-              'w_start': (c // 2, ch), 'b_start': (ch,),
-              'w_in': (n, k, ch, 2 * ch), 'w_rs': (n, ch, 2 * ch),
-              'b_rs': (n, 2 * ch), 'w_end': (ch, c), 'b_end': (c,)}
-    return {key: shapes[key] for key in WEIGHT_KEYS}
+    """The shapes of one flow step's weights: those of ``WEIGHT_KEYS`` and
+    the tensor-core layout of ``w_in`` and ``w_rs``."""
+    return {'an_logs': (c,), 'an_bias': (c,), 'mix_t': (c, c),
+            'w_start': (c // 2, ch), 'b_start': (ch,),
+            'w_in': (n, k, ch, 2 * ch), 'w_rs': (n, ch, 2 * ch),
+            'w_in_tc': (n, k * ch // 8, ch // 4, 32, 4),
+            'w_rs_tc': (n, ch // 8, ch // 4, 32, 4),
+            'b_rs': (n, 2 * ch), 'w_end': (ch, c), 'b_end': (c,)}
 
 
 def _check_launch(name: str, x: torch.Tensor, pitch: Optional[torch.Tensor],
@@ -214,6 +318,51 @@ def _check_launch(name: str, x: torch.Tensor, pitch: Optional[torch.Tensor],
                 f'on {view.device}')
 
 
+def _check_weights(name: str, x: torch.Tensor, pitch, channels: int,
+                   weights: Weights,
+                   tensors: Dict[str, Tuple[torch.Tensor, tuple]],
+                   shapes: Dict[str, tuple], steps: Optional[int] = None,
+                   views=None) -> None:
+    """:func:`_check_launch` on ``tensors``, the f32 ``weights`` of
+    ``shapes`` and their tensor-core layout, which ``weights`` must carry:
+    it is made once, where the weights are packed, not at every launch."""
+    w_in_shape = weights['w_in'].shape[0 if steps is None else 1:]
+    _check_launch(name, x, pitch, channels, w_in_shape, {
+        **tensors,
+        **{key: (weights[key], shape) for key, shape in shapes.items()}},
+        views)
+    missing = [key for key in TC_KEYS.values() if key not in weights]
+    if missing:
+        raise ValueError(
+            f'{name}: the weights lack {missing}, w_in and w_rs split for '
+            'the tensor cores; split them once where the weights are packed '
+            '(with_tensor_core_weights; FlowStep.pack caches them)')
+    n, k, ch, _ = w_in_shape
+    lead = () if steps is None else (steps,)
+    _check_launch(name, x, pitch, channels, w_in_shape, {
+        key: (weights[key], lead + _weight_shapes(channels, n, k, ch)[key])
+        for key in TC_KEYS.values()})
+
+
+def tile_report(device) -> torch.Tensor:
+    """Zeroed ints for a launch over the live tiles to report into
+    (:data:`TILE_COUNTS`), for measuring."""
+    return torch.zeros(len(TILE_COUNTS), dtype=torch.int32, device=device)
+
+
+def tile_report_pointer(name: str, tiles: Optional[torch.Tensor],
+                        x: torch.Tensor) -> Optional[int]:
+    """The address of ``tiles`` (:func:`tile_report` on ``x``'s device), or
+    None (NULL: no report)."""
+    if tiles is None:
+        return None
+    if (tiles.device != x.device or tiles.dtype != torch.int32
+            or tuple(tiles.shape) != (len(TILE_COUNTS),)
+            or not tiles.is_contiguous()):
+        raise ValueError(f'{name}: tiles must be tile_report({x.device})')
+    return tiles.data_ptr()
+
+
 def _raise_on(name: str, lib: ctypes.CDLL, err: int) -> None:
     if err != 0:
         raise RuntimeError(f'{name} kernel launch failed: '
@@ -226,18 +375,29 @@ def flow_step(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One flow step: the CUDA kernel for a CUDA tensor, the plain version
     for a CPU tensor.  Arguments and result as
-    :func:`flow_step_reference`."""
+    :func:`flow_step_reference`; on the card ``weights`` carry
+    :func:`tensor_core_weights` too (a pack caches them)."""
     if x.device.type == 'cpu':
         return flow_step_reference(x, mask, weights, cond, reverse, pitch)
+    return _flow_step_kernel(x, mask, weights, cond, reverse, pitch)
+
+
+def _flow_step_kernel(x, mask, weights, cond, reverse=False, pitch=None,
+                      passes: int = TF32_PASSES,
+                      tiles: Optional[torch.Tensor] = None):
+    """:func:`flow_step`'s launch, with the TF32 passes of its products
+    (1 for measuring) and, for measuring, a :func:`tile_report` to fill."""
     b, t, c = x.shape
     n, k, ch, ch2 = weights['w_in'].shape
-    shapes = _weight_shapes(c, n, k, ch)
+    shapes = {key: _weight_shapes(c, n, k, ch)[key] for key in WEIGHT_KEYS}
     if not reverse:
         shapes['ld_const'] = ()
-    _check_launch('flow_step', x, pitch, c, weights['w_in'].shape, {
+    _check_weights('flow_step', x, pitch, c, weights, {
         'x': (x, (b, t, c)), 'mask': (mask, (b, t, 1)),
-        'cond': (cond, (n, b, ch2)),
-        **{key: (weights[key], shape) for key, shape in shapes.items()}})
+        'cond': (cond, (n, b, ch2))}, shapes)
+    if passes not in (1, 3):
+        raise ValueError(f'flow_step: passes is 1 or 3, got {passes}')
+    tiles_ptr = tile_report_pointer('flow_step', tiles, x)
 
     lib = load_flow_step_library()
     z = torch.empty_like(x)
@@ -249,10 +409,12 @@ def flow_step(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
         ld_part = torch.empty((b, n_tiles), device=x.device)
         ld_ptr = weights['ld_const'].data_ptr()
         part_ptr = ld_part.data_ptr()
-    inputs = [x, mask, cond] + [weights[key] for key in WEIGHT_KEYS]
+    inputs = [x, mask, cond] + [weights[key]
+                                for key in kernel_keys(WEIGHT_KEYS)]
     _raise_on('flow_step', lib, lib.glow_flow_step_f32(
         *[p.data_ptr() for p in inputs], ld_ptr, z.data_ptr(), part_ptr,
-        b, t, int(reverse), torch.cuda.current_stream(x.device).cuda_stream))
+        tiles_ptr, b, t, int(reverse), passes,
+        torch.cuda.current_stream(x.device).cuda_stream))
     flow_step.launches += 1
     return z, (None if ld_part is None else ld_part.sum(dim=1))
 
@@ -267,19 +429,20 @@ def coupling(x_a: torch.Tensor, x_b: torch.Tensor, mask: torch.Tensor,
     """The affine coupling alone: the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor.  Arguments and result as
     :func:`coupling_reference`.  On the card ``x_a`` and ``x_b`` may be the
-    two halves of one ``[B, T, C]`` tensor, read where they lie."""
+    two halves of one ``[B, T, C]`` tensor, read where they lie; ``weights``
+    carry :func:`tensor_core_weights` too."""
     if x_a.device.type == 'cpu':
         return coupling_reference(x_a, x_b, mask, weights, cond, pitch,
                                   reverse)
     b, t, c2 = x_a.shape
     n, k, ch, ch2 = weights['w_in'].shape
-    shapes = {key: shape
-              for key, shape in _weight_shapes(2 * c2, n, k, ch).items()
-              if key in COUPLING_WEIGHT_KEYS}
-    _check_launch('coupling', x_a, pitch, 2 * c2, weights['w_in'].shape, {
-        'mask': (mask, (b, t, 1)), 'cond': (cond, (n, b, ch2)),
-        **{key: (weights[key], shape) for key, shape in shapes.items()}},
+    shapes = {key: _weight_shapes(2 * c2, n, k, ch)[key]
+              for key in COUPLING_WEIGHT_KEYS}
+    _check_weights(
+        'coupling', x_a, pitch, 2 * c2, weights,
+        {'mask': (mask, (b, t, 1)), 'cond': (cond, (n, b, ch2))}, shapes,
         views={'x_a': (x_a, (b, t, c2)), 'x_b': (x_b, (b, t, c2))})
+    own = kernel_keys(COUPLING_WEIGHT_KEYS)
 
     lib = load_coupling_library()
     z_b = torch.empty((b, t, c2), device=x_a.device)
@@ -291,7 +454,7 @@ def coupling(x_a: torch.Tensor, x_b: torch.Tensor, mask: torch.Tensor,
         x_a.data_ptr(), x_a.stride(0), x_a.stride(1),
         x_b.data_ptr(), x_b.stride(0), x_b.stride(1),
         mask.data_ptr(), cond.data_ptr(),
-        *[weights[key].data_ptr() for key in COUPLING_WEIGHT_KEYS],
+        *[weights[key].data_ptr() for key in own],
         z_b.data_ptr(), None if ld_part is None else ld_part.data_ptr(),
         b, t, int(reverse),
         torch.cuda.current_stream(x_a.device).cuda_stream))
@@ -308,19 +471,19 @@ def flow_stack(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """All the flow steps in one launch: the CUDA kernel for a CUDA tensor,
     the plain version for a CPU tensor.  Arguments and result as
-    :func:`flow_stack_reference`."""
+    :func:`flow_stack_reference`; on the card ``weights`` carry
+    :func:`tensor_core_weights` too (stacked)."""
     if x.device.type == 'cpu':
         return flow_stack_reference(x, mask, weights, cond, pitch, reverse)
     b, t, c = x.shape
     steps, n, k, ch, ch2 = weights['w_in'].shape
-    shapes = {key: (steps, *shape)
-              for key, shape in _weight_shapes(c, n, k, ch).items()}
+    shapes = {key: (steps, *_weight_shapes(c, n, k, ch)[key])
+              for key in WEIGHT_KEYS}
     if not reverse:
         shapes['ld_const'] = (steps,)
-    _check_launch('flow_stack', x, pitch, c, weights['w_in'].shape[1:], {
+    _check_weights('flow_stack', x, pitch, c, weights, {
         'x': (x, (b, t, c)), 'mask': (mask, (b, t, 1)),
-        'cond': (cond, (steps, n, b, ch2)),
-        **{key: (weights[key], shape) for key, shape in shapes.items()}})
+        'cond': (cond, (steps, n, b, ch2))}, shapes, steps=steps)
 
     lib = load_flow_stack_library()
     # the steps go to and fro between two buffers (a step's neighbours may
@@ -335,7 +498,8 @@ def flow_stack(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
         n_tiles = -(-t // lib.glow_flow_stack_time_tile())
         ld_part = torch.empty((b, n_tiles), device=x.device)
         ld_ptr = weights['ld_const'].data_ptr()
-    inputs = [x, mask, cond] + [weights[key] for key in WEIGHT_KEYS]
+    inputs = [x, mask, cond] + [weights[key]
+                                for key in kernel_keys(WEIGHT_KEYS)]
     _raise_on('flow_stack', lib, lib.glow_flow_stack_f32(
         *[p.data_ptr() for p in inputs], ld_ptr, z.data_ptr(),
         None if other is None else other.data_ptr(),
@@ -350,17 +514,20 @@ flow_stack.launches = 0
 
 
 def _load(source: str, entry: str, argtypes: list,
-          extra: Tuple[str, ...] = ()) -> ctypes.CDLL:
+          extra: Tuple[Tuple[str, list], ...] = ()) -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/<source>``, typed: its entry
-    point, its time-tile query (and the other int queries in ``extra``) and
-    the error-string function every library has."""
+    point, its time-tile query (and the other int queries in ``extra``, as
+    (name, argtypes)) and the error-string function every library has."""
     from glow_tts_tpu_torch.ops.cuda_build import load_library
     lib = load_library(source)
     ci = ctypes.c_int
     getattr(lib, entry).argtypes = argtypes
     getattr(lib, entry).restype = ci
-    for query in (entry[:-len('f32')] + 'time_tile', *extra):
-        getattr(lib, query).argtypes = []
+    lib_tile = entry[:-len('f32')] + 'time_tile'
+    getattr(lib, lib_tile).argtypes = []
+    getattr(lib, lib_tile).restype = ci
+    for query, argtypes in extra:
+        getattr(lib, query).argtypes = argtypes
         getattr(lib, query).restype = ci
     lib.glow_cuda_error_string.argtypes = [ci]
     lib.glow_cuda_error_string.restype = ctypes.c_char_p
@@ -371,7 +538,8 @@ def _load(source: str, entry: str, argtypes: list,
 def load_flow_step_library() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return _load('flow_step.cu', 'glow_flow_step_f32',
-                 [vp] * (3 + len(WEIGHT_KEYS) + 3) + [ci, ci, ci, vp])
+                 [vp] * (3 + len(WEIGHT_KEYS) + 4) + [ci, ci, ci, ci, vp],
+                 extra=(('glow_flow_step_resident_blocks', [ci]),))
 
 
 @functools.cache
@@ -387,4 +555,4 @@ def load_flow_stack_library() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return _load('flow_stack.cu', 'glow_flow_stack_f32',
                  [vp] * (3 + len(WEIGHT_KEYS) + 5) + [ci, ci, ci, ci, vp],
-                 extra=('glow_flow_stack_resident_blocks',))
+                 extra=(('glow_flow_stack_resident_blocks', []),))

@@ -13,7 +13,8 @@ What bounds the pair on an H100: arithmetic.  A step costs 3.6 MFLOP per
 valid squeezed frame forward, and the activation gradients and the weight
 gradients are each that work again, against a few hundred bytes per frame.
 The forward keeps a step's activations in shared memory (the flow-step
-kernel's tiling, f32 FMA).  What the design of the backward does about it:
+kernel's tiling and body: tensor-core GEMMs on weights split when packed,
+live tiles only).  What the design of the backward does about it:
 
 * no recompute where the activations fit.  The TPU kernel recomputes a step
   from its checkpoint because its fast memory is small; this card has 80 GB,
@@ -50,7 +51,10 @@ import torch
 import torch.nn.functional as F
 
 from glow_tts_tpu_torch.ops import dropmask
-from glow_tts_tpu_torch.ops.coupling import KERNEL_SHAPE
+from glow_tts_tpu_torch.ops.coupling import (KERNEL_SHAPE, kernel_keys,
+                                             tf32_round, tile_report_pointer,
+                                             valid_lengths,
+                                             with_tensor_core_weights)
 
 Weights = Dict[str, torch.Tensor]
 
@@ -202,13 +206,6 @@ def _saved_buffers(m: int, c: int, ch: int, n: int, device,
             for key, shape in _saved_shapes(m, c, ch, n).items()}
 
 
-def tf32_round(x: torch.Tensor) -> torch.Tensor:
-    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
-    from zero, as ``cvt.rna.tf32.f32`` rounds."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
 def matmul_3xtf32_reference(a: torch.Tensor, b: torch.Tensor,
                             passes: int = 3) -> torch.Tensor:
     """The arithmetic of the backward kernels' GEMMs in plain PyTorch:
@@ -231,22 +228,31 @@ def _valid_lengths(mask: torch.Tensor) -> torch.Tensor:
     """int32 ``[B]``: one past the last frame of each sample whose mask is
     not zero (the sample's length, for a prefix mask), on the mask's
     device."""
-    b, t, _ = mask.shape
-    frames = torch.arange(1, t + 1, device=mask.device)
-    return ((mask.reshape(b, t) != 0) * frames).amax(dim=1).to(torch.int32)
+    return valid_lengths(mask).to(torch.int32)
+
+
+def _kernel_weights(weights) -> list:
+    """The stacked weights in ``WEIGHT_KEYS`` order as the forward library
+    takes them: ``w_in`` and ``w_rs`` in the tensor-core layout
+    (:func:`~glow_tts_tpu_torch.ops.coupling.tensor_core_weights`), split
+    now, outside autograd, from the f32 weights the backward reads."""
+    named = with_tensor_core_weights(dict(zip(WEIGHT_KEYS, weights)))
+    return [named[key] for key in kernel_keys(WEIGHT_KEYS)]
 
 
 def _recompute(x_step, mask, cond, weights, saved, step: int, drop) -> None:
     """One launch of the forward kernel's saving instantiation: flow step
-    ``step`` from its input ``x_step [B, T, C]`` into ``saved``."""
+    ``step`` from its input ``x_step [B, T, C]`` into ``saved``; ``weights``
+    as :func:`_kernel_weights` gives them."""
     lib = load_train_forward_library()
     b, t, _ = x_step.shape
     err = lib.glow_flow_train_fwd_f32(
         x_step.data_ptr(), mask.data_ptr(),
         None if cond is None else cond.data_ptr(),
         *[w.data_ptr() for w in weights], None,
-        _pointers([saved[key] for key in SAVED_KEYS]), b, t, step, step + 1,
-        *drop, torch.cuda.current_stream(x_step.device).cuda_stream)
+        _pointers([saved[key] for key in SAVED_KEYS]), None, b, t, step,
+        step + 1, *drop, TF32_PASSES,
+        torch.cuda.current_stream(x_step.device).cuda_stream)
     _raise_on(err, lib, 'flow_stack_train recompute')
     flow_stack_train.recompute_launches += 1
 
@@ -258,13 +264,17 @@ class _FlowStackTrain(torch.autograd.Function):
     nothing but the steps' inputs (no gradient is wanted), ``'store'`` every
     step's saved values, ``'recompute'`` the steps' inputs, from which the
     backward pass recomputes them; ``passes`` is the number of TF32 passes of
-    the backward GEMMs."""
+    the backward GEMMs, ``forward_passes`` that of the forward's (1 only for
+    measuring the route ``'forward'``); ``tiles`` a ``coupling.tile_report``
+    the forward's launches fill, or None."""
 
     @staticmethod
-    def forward(ctx, x, mask, cond, seed, rate, route, passes, *weights):
+    def forward(ctx, x, mask, cond, seed, rate, route, passes,
+                forward_passes, tiles, *weights):
         b, t, c = x.shape
         s_steps, n, _, ch, _ = weights[WEIGHT_KEYS.index('w_in')].shape
         lib = load_train_forward_library()
+        kernel_weights = _kernel_weights(weights)
         acts = torch.empty((s_steps + 1, b, t, c), device=x.device)
         acts[0].copy_(x)
         n_tiles = -(-t // lib.glow_flow_train_time_tile())
@@ -277,14 +287,17 @@ class _FlowStackTrain(torch.autograd.Function):
         err = lib.glow_flow_train_fwd_f32(
             acts.data_ptr(), mask.data_ptr(),
             None if cond is None else cond.data_ptr(),
-            *[w.data_ptr() for w in weights], ld_part.data_ptr(),
+            *[w.data_ptr() for w in kernel_weights], ld_part.data_ptr(),
             _pointers([stored[key] for key in SAVED_KEYS]) if stored else None,
-            b, t, 0, s_steps, *drop,
+            tile_report_pointer('flow_stack_train', tiles, x), b, t, 0,
+            s_steps, *drop, forward_passes,
             torch.cuda.current_stream(x.device).cuda_stream)
         _raise_on(err, lib, 'flow_stack_train forward')
         flow_stack_train.forward_launches += s_steps
         ctx.save_for_backward(acts, mask, cond, *stored.values(), *weights)
         ctx.drop, ctx.route, ctx.passes = drop, route, passes
+        # the recompute launches read the split weights again
+        ctx.kernel_weights = kernel_weights if route == 'recompute' else None
         return acts[s_steps], ld_part.sum(dim=(0, 2))
 
     @staticmethod
@@ -337,7 +350,8 @@ class _FlowStackTrain(torch.autograd.Function):
             if stored:
                 step_saved = [tensor[s] for tensor in stored]
             else:
-                _recompute(acts[s], mask, cond, weights, saved, s, ctx.drop)
+                _recompute(acts[s], mask, cond, ctx.kernel_weights, saved, s,
+                           ctx.drop)
                 step_saved = list(saved.values())
             inputs = [acts[s], *step_saved, mask, dld, dx_in,
                       named['an_logs'][s], named['mix_t'][s],
@@ -352,7 +366,7 @@ class _FlowStackTrain(torch.autograd.Function):
             flow_stack_train.backward_launches += launched.value
             _raise_on(err, bwd, 'flow_stack_train backward')
             dx_in = dx_bufs[s % 2]
-        return (dx_in, None, dcond, None, None, None, None,
+        return (dx_in, None, dcond, None, None, None, None, None, None,
                 *[grads[key] for key in WEIGHT_KEYS])
 
 
@@ -388,11 +402,16 @@ def _check_cuda_inputs(x, mask, weights, cond, pitch) -> None:
 
 def _apply_kernels(x, mask, weights, cond, seed, dropout_rate,
                    route: Optional[str] = None,
-                   passes: int = TF32_PASSES):
+                   passes: int = TF32_PASSES,
+                   forward_passes: int = TF32_PASSES,
+                   tiles: Optional[torch.Tensor] = None):
     """``_FlowStackTrain`` on checked CUDA operands.  ``route`` is chosen
     here: ``'forward'`` when no gradient can be asked for, else by
     :func:`stores_activations`; tests and measurements force ``'store'`` or
-    ``'recompute'`` (and the number of TF32 passes) through this function."""
+    ``'recompute'`` (and the number of TF32 passes of the backward's and,
+    on the route ``'forward'``, the forward's products) through this
+    function, and may have the forward's launches report their tiles into
+    ``tiles`` (``coupling.tile_report``)."""
     stack = [weights[key] for key in WEIGHT_KEYS]
     if route is None:
         wanted = torch.is_grad_enabled() and any(
@@ -403,8 +422,12 @@ def _apply_kernels(x, mask, weights, cond, seed, dropout_rate,
         route = ('forward' if not wanted else
                  'store' if stores_activations(s_steps, b * t, c, ch, n)
                  else 'recompute')
+    if forward_passes != TF32_PASSES and route != 'forward':
+        raise ValueError('flow_stack_train: one TF32 pass in the forward '
+                         'is for measuring, on the route \'forward\' only')
     z, ld = _FlowStackTrain.apply(x, mask, cond, int(seed),
-                                  float(dropout_rate), route, passes, *stack)
+                                  float(dropout_rate), route, passes,
+                                  forward_passes, tiles, *stack)
     return z, ld + weights['ld_const'].sum() * mask.sum(dim=(1, 2))
 
 
@@ -504,8 +527,8 @@ def load_train_forward_library() -> ctypes.CDLL:
     lib = load_library('flow_train_fwd.cu')
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.glow_flow_train_fwd_f32.argtypes = (
-        [vp] * (3 + len(WEIGHT_KEYS) + 2)
-        + [ci, ci, ci, ci, ci, ctypes.c_uint, ctypes.c_float, ci, vp])
+        [vp] * (3 + len(WEIGHT_KEYS) + 3)
+        + [ci, ci, ci, ci, ci, ctypes.c_uint, ctypes.c_float, ci, ci, vp])
     lib.glow_flow_train_fwd_f32.restype = ci
     lib.glow_flow_train_time_tile.argtypes = []
     lib.glow_flow_train_time_tile.restype = ci

@@ -2,7 +2,9 @@
 
 The flow step at the shipped width (C=160, ch=192, 4 layers, k=5), where
 the time tiles and their halos meet the sequence edges: T below, at and
-just above one tile, ragged lengths including 1.  MAS at small and edge
+just above one tile, ragged lengths including 1, tiles past every sample's
+last valid frame (skipped, exact zeros) on a prefix mask and on one with
+holes, and one TF32 pass beside the shipped 3xTF32.  MAS at small and edge
 shapes (every tokens-per-lane instantiation, T_tok not a multiple of 32,
 odd T_mel, more tokens than frames), equal bit for bit, and a raise beyond
 the kernel's limits.  The train-direction flow stack (forward and backward
@@ -62,8 +64,27 @@ def _weights(gen, device, c=160, n=4, k=5, ch=192):
     w['w_rs'][-1, :, :ch] = 0
     w['b_rs'][-1, :ch] = 0
     cond = rnd(n, 4, 2 * ch, scale=.2)
-    return ({key: v.to(device).contiguous() for key, v in w.items()},
+    return (tc.with_tensor_core_weights(
+        {key: v.to(device).contiguous() for key, v in w.items()}),
             cond.to(device))
+
+
+@pytest.fixture
+def planted_nan(monkeypatch):
+    """Every float tensor that ``torch.empty`` or ``torch.empty_like``
+    make is NaN, not whatever the allocator left: a kernel that reads a
+    buffer where nothing was written shows it."""
+    def planting(make):
+        def empty(*args, **kwargs):
+            out = make(*args, **kwargs)
+            if out.is_floating_point():
+                with torch.no_grad():
+                    out.fill_(float('nan'))
+            return out
+        return empty
+
+    monkeypatch.setattr(torch, 'empty', planting(torch.empty))
+    monkeypatch.setattr(torch, 'empty_like', planting(torch.empty_like))
 
 
 @pytest.mark.parametrize('length', [1, 5, 31, 32, 33, 70])
@@ -90,6 +111,63 @@ def test_kernel_matches_plain_at_tile_edges(device, length, reverse):
                 / ld_ref.abs().max().clamp_min(1e-6)) < REL
 
 
+@pytest.mark.parametrize('holes', [False, True])
+@pytest.mark.parametrize('reverse', [False, True])
+def test_kernel_on_a_ragged_batch_computes_live_tiles_only(device, reverse,
+                                                          holes, planted_nan):
+    """Lengths 1, one tile, one tile and a frame, T, and a mask with holes
+    below the lengths: the tiles past each sample's last valid frame are
+    not computed (the kernel's own report says so), and their frames come
+    out exactly zero, as the plain version has them, over buffers that
+    start as NaN."""
+    gen = torch.Generator().manual_seed(7 + holes)
+    w, cond = _weights(gen, device)
+    t, tile = 512, tc.TIME_TILE
+    lengths = torch.tensor([1, tile, tile + 1, t])
+    mask = (torch.arange(t)[None, :] < lengths[:, None]).float()[..., None]
+    if holes:
+        mask[0, 0] = 0                      # no valid frame at all
+        mask[2, 5:20] = 0
+        mask[3, tile - 3: 3 * tile] = 0
+    x = torch.randn((4, t, 160), generator=gen) * 3    # unmasked input
+    x, mask = x.to(device), mask.to(device)
+    z, ld = tc.flow_step(x, mask, w, cond, reverse)
+    torch.cuda.synchronize()
+    z_ref, ld_ref = tc.flow_step_reference(x, mask, w, cond, reverse)
+    assert _rel(z, z_ref) < REL
+    past = (torch.arange(t, device=device)[None, :]
+            >= tc.valid_lengths(mask)[:, None])
+    assert (z[past] == 0).all() and (z_ref[past] == 0).all()
+    assert (z[mask[..., 0] == 0] == 0).all()
+    if not reverse:
+        assert _rel(ld, ld_ref) < REL
+    live = sum(item[2] for item in tc.live_tile_schedule(
+        tc.valid_lengths(mask).tolist(), t))
+    assert live == (0 if holes else 1) + 1 + 2 + t // tile
+    tiles = tc.tile_report(device)
+    again, _ = tc._flow_step_kernel(x, mask, w, cond, reverse, tiles=tiles)
+    got = dict(zip(tc.TILE_COUNTS, tiles.tolist()))
+    assert torch.equal(again, z)
+    assert got['live'] == got['computed'] == live
+    assert got['items'] == 4 * (t // tile)
+    assert got['rounds'] == -(-live // got['blocks'])
+
+
+@pytest.mark.parametrize('reverse', [False, True])
+def test_one_tf32_pass_is_kept_for_measuring(device, reverse):
+    """The kernels' one-pass product runs and is further off than the
+    shipped 3xTF32 (which holds the f32 bar; one pass may or may not)."""
+    gen = torch.Generator().manual_seed(3)
+    w, cond = _weights(gen, device)
+    x = torch.randn((4, 100, 160), generator=gen).to(device)
+    mask = torch.ones((4, 100, 1), device=device)
+    ref, _ = tc.flow_step_reference(x, mask, w, cond, reverse)
+    three, _ = tc._flow_step_kernel(x, mask, w, cond, reverse, passes=3)
+    one, _ = tc._flow_step_kernel(x, mask, w, cond, reverse, passes=1)
+    assert _rel(three, ref) < REL
+    assert 10 * _rel(three, ref) < _rel(one, ref) < 1e-2
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(device):
     gen = torch.Generator().manual_seed(0)
     w, cond = _weights(gen, device)
@@ -102,6 +180,13 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(device):
         tc.flow_step(x.double(), mask, w, cond)
     with pytest.raises(ValueError):
         tc.flow_step(x[:, :, :80].contiguous(), mask, w, cond)
+    # the tensor-core layout is made where the weights are packed, not here
+    with pytest.raises(ValueError, match='w_in_tc'):
+        tc.flow_step(x, mask, {key: value for key, value in w.items()
+                               if key not in tc.TC_KEYS.values()}, cond)
+    with pytest.raises(ValueError, match='tiles'):
+        tc._flow_step_kernel(x, mask, w, cond, tiles=torch.zeros(
+            len(tc.TILE_COUNTS), device=device))
 
 
 def test_flow_step_refuses_tensors_that_require_grad(device):
@@ -339,6 +424,59 @@ def test_train_kernels_take_a_mask_with_holes(device):
     _assert_train_agrees(got, ref)
 
 
+@pytest.mark.parametrize('route', ['store', 'recompute'])
+def test_train_gradients_ignore_rows_left_unwritten(device, planted_nan,
+                                                    route):
+    """Dead tiles write none of the saved values past a sample's length
+    (but the layers' inputs up to PAD frames on), and every buffer here
+    starts as NaN: no gradient may read those rows.  A mask with holes, a
+    sample of length 1 and one whose last tiles are dead; the routes give
+    the plain version's gradients, finite, and the same bits."""
+    lengths, holes = [150, 70, 1, 140], [(0, 10, 45), (1, 0, 3),
+                                         (3, 127, 130)]
+    got, ref = _train_both(device, lengths, 0.05, route=route, holes=holes)
+    _assert_train_agrees(got, ref)
+    other, _ = _train_both(device, lengths, 0.05, holes=holes,
+                           route={'store': 'recompute',
+                                  'recompute': 'store'}[route])
+    for key in got:
+        assert torch.equal(got[key], other[key]), key
+
+
+def test_train_forward_reports_the_live_tiles_it_computed(device):
+    gen = torch.Generator().manual_seed(6)
+    w = _stack_weights(gen, device)
+    x, mask = _ragged(gen, [70, 35, 1, 0], device)
+    tiles = tc.tile_report(device)
+    with torch.no_grad():
+        tg._apply_kernels(x, mask, w, None, 4, 0.05, 'store', tiles=tiles)
+    got = dict(zip(tc.TILE_COUNTS, tiles.tolist()))
+    live = 3 + 2 + 1
+    assert got['live'] == live and got['items'] == 4 * 3
+    assert got['computed'] == 2 * live        # two flow steps
+    assert got['rounds'] == -(-live // got['blocks'])
+
+
+def test_train_forward_one_tf32_pass_is_kept_for_measuring(device):
+    gen = torch.Generator().manual_seed(5)
+    w = _stack_weights(gen, device)
+    lengths = torch.tensor([90, 33, 1])
+    mask = (torch.arange(90)[None, :] < lengths[:, None]).float()[..., None]
+    x = (torch.randn((3, 90, 160), generator=gen) * mask).to(device)
+    mask = mask.to(device)
+    with torch.no_grad():
+        ref, _ = tg.flow_stack_train_reference(x, mask, w, seed=4,
+                                               dropout_rate=0.05)
+        three, _ = tg._apply_kernels(x, mask, w, None, 4, 0.05)
+        one, _ = tg._apply_kernels(x, mask, w, None, 4, 0.05,
+                                   forward_passes=1)
+    assert _rel(three, ref) < REL
+    assert 10 * _rel(three, ref) < _rel(one, ref) < 1e-2
+    with pytest.raises(ValueError, match='measuring'):
+        tg._apply_kernels(x, mask, w, None, 4, 0.05, 'store',
+                          forward_passes=1)
+
+
 def test_train_forward_without_gradient_keeps_nothing_for_backward(device):
     """Under ``no_grad`` and with no leaf requiring grad the forward pass
     takes the instantiation that saves nothing; its outputs are the same
@@ -496,6 +634,7 @@ def test_coupling_wrapper_refuses_what_the_kernel_does_not_take(device):
 def _stack_problem(gen, device, steps, lengths):
     w = _stack_weights(gen, device, steps=steps)
     del w['b_in']
+    w = tc.with_tensor_core_weights(w)
     x, mask = _ragged(gen, lengths, device)
     cond = (torch.randn((steps, 4, len(lengths), 384), generator=gen) * .2
             ).to(device)
