@@ -128,22 +128,30 @@ def body_bounds(moved, flops):
             'fma_bound_ms': fma_ms, 'fma_bound_by': fma_by}
 
 
-def live_tiles(mask, launch, steps=1):
-    """What ``launch(tiles)``, ``steps`` launches over the live tiles of
-    the mask [B, T, 1], report from the card into ``tiles``
+def live_tiles(mask, launch, steps=1, stack=False):
+    """What ``launch(tiles)`` reports from the card into ``tiles``
     (``coupling.TILE_COUNTS``: the list's live and all items, the live
-    tiles computed, the rounds, the grid's blocks), held against the
-    Python twin of their schedule."""
+    items computed, the rounds, the grid's blocks), held against the Python
+    twin of its schedule: ``steps`` launches over the live tiles of the
+    mask [B, T, 1] (``live_tile_schedule``), or, with ``stack``, the one
+    launch over ``steps`` flow steps (``stack_tile_schedule``)."""
     from glow_tts_tpu_torch.ops import coupling
     tiles = coupling.tile_report(mask.device)
     launch(tiles)
     got = dict(zip(coupling.TILE_COUNTS, tiles.tolist()))
-    items = coupling.live_tile_schedule(
-        coupling.valid_lengths(mask).tolist(), mask.shape[1],
-        coupling.load_flow_step_library().glow_flow_step_time_tile())
-    live = sum(item[2] for item in items)
+    lengths = coupling.valid_lengths(mask).tolist()
+    tile = coupling.load_flow_step_library().glow_flow_step_time_tile()
+    if stack:
+        items = coupling.stack_tile_schedule(lengths, mask.shape[1], steps,
+                                             tile)
+        live = sum(item.live for item in items)
+        computed = live
+    else:
+        items = coupling.live_tile_schedule(lengths, mask.shape[1], tile)
+        live = sum(item[2] for item in items)
+        computed = steps * live
     assert (got['live'], got['items']) == (live, len(items)), (got, live)
-    assert got['computed'] == steps * live, got
+    assert got['computed'] == computed, got
     assert got['rounds'] == -(-live // got['blocks']), got
     return got
 
@@ -311,9 +319,9 @@ def check_coupling(model, device):
 
 def check_flow_stack(model, device):
     """Kernel #4 against its plain version at full width: all the model's
-    flow steps at B = 32, T = 512, ragged lengths, both directions, the
-    round trip, and its z bit for bit against a chain of flow-step
-    launches (kernel #3), whose per-tile arithmetic it shares."""
+    flow steps at B = 32, T = 512, ragged lengths and all frames valid, both
+    directions, the round trip, and its z bit for bit against a chain of
+    flow-step launches (kernel #3), whose per-tile arithmetic it shares."""
     from glow_tts_tpu_torch.ops.coupling import (flow_stack,
                                                  flow_stack_reference,
                                                  flow_step)
@@ -324,30 +332,31 @@ def check_flow_stack(model, device):
                            c, device)
     cond = decoder.stacked_cond(32)
     worst = 0.0
-    for reverse in (False, True):
-        w = decoder.stacked_weights(reverse)
-        z_k, ld_k = flow_stack(x, mask, w, cond, reverse=reverse)
-        z_p, ld_p = flow_stack_reference(x, mask, w, cond, reverse=reverse)
-        chained = x
-        for step in (reversed(flows) if reverse else flows):
-            chained, _ = flow_step(chained, mask, step.weights(reverse),
-                                   step.cond(32), reverse)
-        torch.cuda.synchronize()
-        err, rel = (z_k - z_p).abs().max().item(), rel_err(z_k, z_p)
-        same = torch.equal(z_k, chained)
-        line = (f'flow stack kernel vs plain, {len(flows)} steps, T=512 '
-                f'reverse={reverse}: max abs err {err:.3e}, max rel err '
-                f'{rel:.3e}; z bit-equal to {len(flows)} chained flow-step '
-                f'launches: {same}')
-        assert torch.isfinite(z_k).all(), 'kernel output not finite'
-        assert rel < Z_REL_BOUND, line
-        assert same, line
-        if not reverse:
-            ld_rel = rel_err(ld_k, ld_p)
-            line += f', logdet rel err {ld_rel:.3e}'
-            assert ld_rel < LD_REL_BOUND, line
-        print(line)
-        worst = max(worst, err)
+    for shape, m in (('ragged', mask), ('all valid', torch.ones_like(mask))):
+        for reverse in (False, True):
+            w = decoder.stacked_weights(reverse)
+            z_k, ld_k = flow_stack(x, m, w, cond, reverse=reverse)
+            z_p, ld_p = flow_stack_reference(x, m, w, cond, reverse=reverse)
+            chained = x
+            for step in (reversed(flows) if reverse else flows):
+                chained, _ = flow_step(chained, m, step.weights(reverse),
+                                       step.cond(32), reverse)
+            torch.cuda.synchronize()
+            err, rel = (z_k - z_p).abs().max().item(), rel_err(z_k, z_p)
+            same = torch.equal(z_k, chained)
+            line = (f'flow stack kernel vs plain, {len(flows)} steps, T=512 '
+                    f'{shape} reverse={reverse}: max abs err {err:.3e}, max '
+                    f'rel err {rel:.3e}; z bit-equal to {len(flows)} chained '
+                    f'flow-step launches: {same}')
+            assert torch.isfinite(z_k).all(), 'kernel output not finite'
+            assert rel < Z_REL_BOUND, line
+            assert same, line
+            if not reverse:
+                ld_rel = rel_err(ld_k, ld_p)
+                line += f', logdet rel err {ld_rel:.3e}'
+                assert ld_rel < LD_REL_BOUND, line
+            print(line)
+            worst = max(worst, err)
     z, _ = flow_stack(x, mask, decoder.stacked_weights(False), cond)
     back, _ = flow_stack(z, mask, decoder.stacked_weights(True), cond,
                          reverse=True)
@@ -438,26 +447,34 @@ def compare_decode(inferencer, texts, bucket):
 
 def time_flow_kernels(model, device, eval_mask):
     """Kernels #3, #2 and #4 and their plain versions at B = 32, T = 512,
-    all frames valid, both directions, each beside its bounds; #3 also on
+    both directions, each beside its bounds, with all frames valid and on
     the eval step's ragged mask ``eval_mask`` (the squeezed training batch),
-    with the live tiles and rounds of both shapes; and the reverse stack
-    three ways: 12 flow-step launches, the same launches replayed from a
-    CUDA graph, and kernel #4's one launch."""
+    with the live tiles and rounds each kernel reports at both shapes; #3
+    also at one TF32 pass; and the reverse stack three ways at both shapes:
+    12 flow-step launches, the same launches replayed from a CUDA graph,
+    and kernel #4's one launch, with the time of a round of each."""
     from glow_tts_tpu_torch.ops.coupling import (
-        WEIGHT_KEYS, _flow_step_kernel, coupling, coupling_reference,
-        flow_stack, flow_stack_reference, flow_step, flow_step_reference,
-        kernel_keys, load_flow_stack_library, load_flow_step_library)
+        TIME_TILE, WEIGHT_KEYS, _coupling_kernel, _flow_stack_kernel,
+        _flow_step_kernel, coupling, coupling_reference, flow_stack,
+        flow_stack_reference, flow_step, flow_step_reference, kernel_keys,
+        load_coupling_library, load_flow_stack_library,
+        load_flow_step_library)
     decoder = model.layer_Dict['Decoder']
     flows = list(decoder.layer_Dict['Flows'])
+    n_steps = len(flows)
     step = flows[0]
     c = step.layers[0].logs.shape[1]
     x, mask = ragged_batch(torch.Generator().manual_seed(SEED + 3),
                            32, 512, c, device)
     mask = torch.ones_like(mask)
-    x_a, x_b = x[..., :c // 2], x[..., c // 2:]
+    # the same inputs on the eval step's ragged batch: live tiles only
+    xe = x[:, :eval_mask.shape[1]].contiguous() * eval_mask
+    shapes = {'decode': (x, mask), 'eval': (xe, eval_mask)}
     cond = step.cond(32)
     stacked_cond = decoder.stacked_cond(32)
-    frames = mask.sum().item()
+    weights = step.weights(False)
+    own = coupling_weights(weights)
+    stacked = {r: decoder.stacked_weights(r) for r in (False, True)}
 
     def weight_count(weights):
         # what the kernels read: w_in and w_rs in their tensor-core layout
@@ -465,34 +482,73 @@ def time_flow_kernels(model, device, eval_mask):
                    for key in kernel_keys((*WEIGHT_KEYS, 'ld_const'))
                    if key in weights)
 
-    def report(name, frame_flops, n_steps, moved, kernel_fn, plain_fn, iters,
-               valid=None, shape='B=32 T=512'):
-        # the work from the shapes: 2 FLOP per live weight per valid
-        # frame and step, every tensor moved once
-        flops = frame_flops * (frames if valid is None else valid) * n_steps
-        bounds = body_bounds(moved, flops)
-        times = {}
-        for reverse in (True, False):
-            k_ms, p_ms = paired_ms(lambda: kernel_fn(reverse),
-                                   lambda: plain_fn(reverse), iters)
-            print(f'{name} {shape} reverse={reverse}: kernel {k_ms:.4f} ms '
-                  f'({flops / k_ms / 1e9:.2f} TFLOP/s at '
-                  f'{frame_flops / 1e6:.2f} MFLOP/frame and step), plain '
-                  f'{p_ms:.4f} ms; bound {bounds["bound_ms"]:.4f} ms by '
-                  f'{bounds["bound_by"]} at the TF32 peak '
-                  f'({bounds["fma_bound_ms"]:.4f} ms at the f32 FMA peak)')
-            times[reverse] = (k_ms, p_ms)
-        return {'ms': times[True][0], 'plain_ms': times[True][1],
-                'forward_ms': times[False][0],
-                'forward_plain_ms': times[False][1], **bounds}
+    def report(name, frame_flops, steps, moved, kernel_fn, plain_fn, iters):
+        """Both shapes: the kernel and its plain version, both directions,
+        beside the bounds of the work on the shape's valid frames (2 FLOP
+        per live weight per valid frame and step, every tensor moved
+        once); ``moved(x, mask)`` is the bytes, ``kernel_fn(x, mask,
+        reverse)`` and ``plain_fn`` the calls."""
+        out = {}
+        for shape, (xs, m) in shapes.items():
+            valid = m.sum().item()
+            flops = frame_flops * valid * steps
+            bounds = body_bounds(moved(xs, m), flops)
+            label = ('B=32 T=512' if shape == 'decode' else
+                     f'eval shape {tuple(xs.shape[:2])} ({int(valid)} valid '
+                     f'frames)')
+            times = {}
+            for reverse in (True, False):
+                k_ms, p_ms = paired_ms(lambda: kernel_fn(xs, m, reverse),
+                                       lambda: plain_fn(xs, m, reverse),
+                                       iters)
+                print(f'{name} {label} reverse={reverse}: kernel {k_ms:.4f} '
+                      f'ms ({flops / k_ms / 1e9:.2f} TFLOP/s at '
+                      f'{frame_flops / 1e6:.2f} MFLOP/frame and step), plain '
+                      f'{p_ms:.4f} ms; bound {bounds["bound_ms"]:.4f} ms by '
+                      f'{bounds["bound_by"]} at the TF32 peak '
+                      f'({bounds["fma_bound_ms"]:.4f} ms at the f32 FMA '
+                      f'peak)')
+                times[reverse] = (k_ms, p_ms)
+            prefix = '' if shape == 'decode' else 'eval_shape_'
+            out.update({f'{prefix}ms': times[True][0],
+                        f'{prefix}plain_ms': times[True][1],
+                        f'{prefix}forward_ms': times[False][0],
+                        f'{prefix}forward_plain_ms': times[False][1]})
+            if shape == 'decode':
+                out.update(bounds)
+            else:
+                out['eval_shape_bound_ms'] = bounds['bound_ms']
+        return out
 
-    weights = step.weights(False)
+    def schedules(name, launch, resident, steps=1, stack=False):
+        """The tiles each shape's launch reports from the card, held against
+        the twin, and the grid against the resident blocks."""
+        out = {}
+        for shape, (xs, m) in shapes.items():
+            got = live_tiles(m, lambda tiles: launch(xs, m, tiles), steps,
+                             stack)
+            most = steps * m.shape[0] * -(-m.shape[1] // TIME_TILE) \
+                if stack else got['items']
+            assert got['blocks'] == min(resident(m.shape[0]), most), got
+            out[shape] = {'live_tiles': got['computed'] // (
+                              steps if stack else 1),
+                          'tiles': got['items'], 'rounds': got['rounds'],
+                          'blocks': got['blocks']}
+            print(f'{name} live tiles, {shape} shape {tuple(m.shape[:2])}, '
+                  f'as the kernel reports them: {got["computed"]} of '
+                  f'{got["items"]} items computed, {got["rounds"]} rounds on '
+                  f'{got["blocks"]} blocks')
+        return out
+
+    def step_bytes(xs, m):
+        return 4 * (2 * xs.numel() + m.numel() + cond.numel() + xs.shape[0]
+                    + weight_count(weights))
+
     flow_times = report(
-        'flow step', step_frame_flops(weights), 1,
-        4 * (2 * x.numel() + mask.numel() + cond.numel() + x.shape[0]
-             + weight_count(weights)),
-        lambda r: flow_step(x, mask, step.weights(r), cond, r),
-        lambda r: flow_step_reference(x, mask, step.weights(r), cond, r), 20)
+        'flow step', step_frame_flops(weights), 1, step_bytes,
+        lambda xs, m, r: flow_step(xs, m, step.weights(r), cond, r),
+        lambda xs, m, r: flow_step_reference(xs, m, step.weights(r), cond,
+                                             r), 20)
     # the same launches at one TF32 pass: what the two further passes cost
     for reverse in (True, False):
         one_ms = cuda_ms(lambda: _flow_step_kernel(
@@ -501,88 +557,86 @@ def time_flow_kernels(model, device, eval_mask):
         flow_times[f'one_pass_{key}'] = one_ms
         print(f'flow step B=32 T=512 reverse={reverse}, one TF32 pass: '
               f'kernel {one_ms:.4f} ms (3xTF32 {flow_times[key]:.4f} ms)')
-    # the same step on the eval step's ragged batch: live tiles only
-    xe = x[:, :eval_mask.shape[1]].contiguous() * eval_mask
-    eval_times = report(
-        'flow step', step_frame_flops(weights), 1,
-        4 * (2 * xe.numel() + eval_mask.numel() + cond.numel() + x.shape[0]
-             + weight_count(weights)),
-        lambda r: flow_step(xe, eval_mask, step.weights(r), cond, r),
-        lambda r: flow_step_reference(xe, eval_mask, step.weights(r), cond,
-                                      r), 20,
-        valid=eval_mask.sum().item(),
-        shape=f'eval shape {tuple(xe.shape[:2])} '
-              f'({int(eval_mask.sum().item())} valid frames)')
-    schedule = {}
-    for name, (xs, m) in (('decode', (x, mask)), ('eval', (xe, eval_mask))):
-        got = live_tiles(m, lambda tiles: _flow_step_kernel(
-            xs, m, weights, cond, False, tiles=tiles))
-        resident = load_flow_step_library().glow_flow_step_resident_blocks(
-            m.shape[0])
-        assert got['blocks'] == min(resident, got['items']), got
-        schedule[name] = {'live_tiles': got['computed'],
-                          'tiles': got['items'], 'rounds': got['rounds'],
-                          'blocks': got['blocks']}
-        print(f'flow step live tiles, {name} shape {tuple(m.shape[:2])}, '
-              f'as the kernel reports them: {got["computed"]} of '
-              f'{got["items"]} computed, {got["rounds"]} rounds on '
-              f'{got["blocks"]} blocks')
-    flow_times.update(
-        eval_shape_ms=eval_times['ms'],
-        eval_shape_forward_ms=eval_times['forward_ms'],
-        eval_shape_bound_ms=eval_times['bound_ms'], schedule=schedule)
+    flow_times['schedule'] = schedules(
+        'flow step', lambda xs, m, tiles: _flow_step_kernel(
+            xs, m, weights, cond, False, tiles=tiles),
+        load_flow_step_library().glow_flow_step_resident_blocks)
 
-    own = coupling_weights(weights)
     coupling_times = report(
         'coupling', step_frame_flops(own), 1,
-        4 * (x.numel() + x_b.numel() + mask.numel() + cond.numel()
-             + x.shape[0] + weight_count(own)),
-        lambda r: coupling(x_a, x_b, mask, own, cond, reverse=r),
-        lambda r: coupling_reference(x_a, x_b, mask, own, cond, reverse=r),
-        20)
+        lambda xs, m: 4 * (xs.numel() + xs.numel() // 2 + m.numel()
+                           + cond.numel() + xs.shape[0] + weight_count(own)),
+        lambda xs, m, r: coupling(xs[..., :c // 2], xs[..., c // 2:], m, own,
+                                  cond, reverse=r),
+        lambda xs, m, r: coupling_reference(xs[..., :c // 2],
+                                            xs[..., c // 2:], m, own, cond,
+                                            reverse=r), 20)
+    coupling_times['schedule'] = schedules(
+        'coupling', lambda xs, m, tiles: _coupling_kernel(
+            xs[..., :c // 2], xs[..., c // 2:], m, own, cond, tiles=tiles),
+        load_coupling_library().glow_coupling_resident_blocks)
 
-    stacked = {r: decoder.stacked_weights(r) for r in (False, True)}
     stack_times = report(
-        f'flow stack ({len(flows)} steps, one launch)',
-        step_frame_flops(weights), len(flows),
-        4 * (2 * x.numel() + mask.numel() + stacked_cond.numel() + x.shape[0]
-             + weight_count(stacked[False])),
-        lambda r: flow_stack(x, mask, stacked[r], stacked_cond, reverse=r),
-        lambda r: flow_stack_reference(x, mask, stacked[r], stacked_cond,
-                                       reverse=r), 5)
+        f'flow stack ({n_steps} steps, one launch)',
+        step_frame_flops(weights), n_steps,
+        lambda xs, m: 4 * (2 * xs.numel() + m.numel() + stacked_cond.numel()
+                           + xs.shape[0] + weight_count(stacked[False])),
+        lambda xs, m, r: flow_stack(xs, m, stacked[r], stacked_cond,
+                                    reverse=r),
+        lambda xs, m, r: flow_stack_reference(xs, m, stacked[r],
+                                              stacked_cond, reverse=r), 5)
+    stack_times['schedule'] = schedules(
+        'flow stack', lambda xs, m, tiles: _flow_stack_kernel(
+            xs, m, stacked[False], stacked_cond, tiles=tiles),
+        load_flow_stack_library().glow_flow_stack_resident_blocks,
+        steps=n_steps, stack=True)
 
-    # the reverse stack as a decode runs it, three ways on the same input
+    # the reverse stack as a decode runs it, three ways on the same input,
+    # at both shapes; a round is one tile's step on every block
     packs = [(s.weights(True), s.cond(32)) for s in reversed(flows)]
+    for shape, (xs, m) in shapes.items():
+        def chain():
+            y = xs
+            for w, step_cond in packs:
+                y, _ = flow_step(y, m, w, step_cond, True)
+            return y
 
-    def chain():
-        y = x
-        for w, step_cond in packs:
-            y, _ = flow_step(y, mask, w, step_cond, True)
-        return y
+        eager = chain()                  # built and warm before the capture
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = chain()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager), 'graph replay differs'
 
-    eager = chain()                  # built and warm before the capture
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        captured = chain()
-    graph.replay()
-    torch.cuda.synchronize()
-    assert torch.equal(captured, eager), 'graph replay differs from launches'
+        def one_launch():
+            return flow_stack(xs, m, stacked[True], stacked_cond,
+                              reverse=True)
 
-    def one_launch():
-        return flow_stack(x, mask, stacked[True], stacked_cond, reverse=True)
-
-    assert torch.equal(one_launch()[0], eager)
-    order = (chain, graph.replay, one_launch, one_launch, graph.replay, chain)
-    ms = [cuda_ms(fn, 5) for fn in order]
-    chain_ms, graph_ms, stack_ms = ((ms[i] + ms[5 - i]) / 2 for i in range(3))
-    blocks = load_flow_stack_library().glow_flow_stack_resident_blocks()
-    print(f'reverse stack B=32 T=512, {len(flows)} steps: {len(flows)} '
-          f'flow-step launches {chain_ms:.4f} ms, the same from a CUDA '
-          f'graph {graph_ms:.4f} ms, flow stack in one launch '
-          f'{stack_ms:.4f} ms ({blocks} persistent blocks on '
-          f'{32 * -(-512 // 32)} tiles a step); all three bit-equal')
-    stack_times.update(chain_ms=chain_ms, graph_ms=graph_ms)
+        assert torch.equal(one_launch()[0], eager)
+        order = (chain, graph.replay, one_launch, one_launch, graph.replay,
+                 chain)
+        ms = [cuda_ms(fn, 5) for fn in order]
+        chain_ms, graph_ms, stack_ms = ((ms[i] + ms[5 - i]) / 2
+                                        for i in range(3))
+        step_rounds = flow_times['schedule'][shape]['rounds']
+        stack_rounds = stack_times['schedule'][shape]['rounds']
+        chain_round = chain_ms / (n_steps * step_rounds)
+        stack_round = stack_ms / stack_rounds
+        print(f'reverse stack, {shape} shape {tuple(m.shape[:2])}, {n_steps} '
+              f'steps: {n_steps} flow-step launches {chain_ms:.4f} ms '
+              f'({n_steps} x {step_rounds} rounds, {chain_round:.4f} ms a '
+              f'round), the same from a CUDA graph {graph_ms:.4f} ms, flow '
+              f'stack in one launch {stack_ms:.4f} ms ({stack_rounds} rounds '
+              f'on {stack_times["schedule"][shape]["blocks"]} blocks, '
+              f'{stack_round:.4f} ms a round, {stack_round / chain_round:.3f}'
+              f' x the flow step\'s); all three bit-equal')
+        prefix = '' if shape == 'decode' else 'eval_shape_'
+        stack_times.update({f'{prefix}chain_ms': chain_ms,
+                            f'{prefix}graph_ms': graph_ms,
+                            f'{prefix}round_ms': stack_round,
+                            f'{prefix}chain_round_ms': chain_round})
     return flow_times, coupling_times, stack_times
 
 

@@ -12,7 +12,12 @@
 // 3xTF32 with weights split when packed; the network is the same
 // flow_common.cuh::coupling_net) without the ActNorm/mixing prologue and
 // epilogue.  What differs:
-// * one block per (sample, tile), every tile computed: no live-tile list;
+// * valid tiles only, as in flow_step.cu: the grid is persistent (as many
+//   blocks as are resident) and walks the batch's live tiles first, then
+//   its dead ones (flow_common.cuh::live_tiles, built in every block from
+//   the mask).  A dead tile (its first owned frame at or past its sample's
+//   last valid frame) is not computed: the plain version is zero there, so
+//   the block writes zeros to z_b and 0 to its logdet;
 // * x_a and x_b come from two pointers, each with its own strides between
 //   samples and frames, because the caller hands over the two halves of one
 //   [B, T, C] tensor, which are not contiguous: the kernel reads them where
@@ -41,26 +46,26 @@ struct Params {
   StepWeights w;         // an_logs, an_bias and mix_t unused (null)
   float* z_b;            // [B, T, C/2]
   float* ld_part;        // [B, n_tiles], forward only
+  int* tiles;            // [5] or null: report_tiles
   int B, T, n_tiles;
 };
 
+// The coupling on one live tile: z_b of its owned frames, and on the
+// forward pass the tile's sum of logs * m, returned in thread 0.  Ends on a
+// barrier, so the block may go on to another tile.
 template <class S, bool REVERSE>
-__global__ void __launch_bounds__(kThreads, 1) coupling_kernel(const Params p) {
+__device__ __forceinline__ float coupling_tile(const Tile<S>& tile,
+                                               const Params& p) {
   constexpr int C = S::C, C2 = S::C2, TT = S::TT, HALO = S::HALO;
-  extern __shared__ float4 smem4[];
-  const Tile<S> tile(reinterpret_cast<float*>(smem4), p.B, p.T, blockIdx.y,
-                     blockIdx.x);
   tile.begin(p.mask);
   tile.load_columns(p.x_a.data, p.x_a.batch_stride, p.x_a.row_stride, 0, C2);
   tile.load_columns(p.x_b.data, p.x_b.batch_stride, p.x_b.row_stride, C2, C2);
   __syncthreads();
   coupling_net<S, false, false, 3>(tile, p.w, SavePointers{},
                                    BiasPreGate{p.cond});
-
+  float total = 0.f;
   if constexpr (!REVERSE) {
-    const float total = affine_forward<S, false>(tile, p.z_b);
-    if (threadIdx.x == 0)
-      p.ld_part[tile.b * p.n_tiles + tile.index] = total;
+    total = affine_forward<S, false>(tile, p.z_b);
   } else {
     const float* const xs = tile.xs;
     const float* const acc = tile.gs;
@@ -72,16 +77,49 @@ __global__ void __launch_bounds__(kThreads, 1) coupling_kernel(const Params p) {
           (xs[row * C + C2 + c] - mean) * expf(-logs) * tile.ms[row];
     }
   }
+  __syncthreads();
+  return total;
+}
+
+template <class S, bool REVERSE>
+__global__ void __launch_bounds__(kThreads, 1) coupling_kernel(const Params p) {
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const LiveTiles items = live_tiles<S>(
+      p.mask, p.B, p.T, reinterpret_cast<int*>(smem + S::FLOATS));
+  int computed = 0;
+  for (int item = blockIdx.x; item < items.items; item += gridDim.x) {
+    const TileId id = items.at(item);
+    const Tile<S> tile(smem, p.B, p.T, id.b, id.index);
+    float logdet = 0.f;
+    if (id.live) {
+      logdet = coupling_tile<S, REVERSE>(tile, p);
+      ++computed;
+    } else {
+      tile.zero_owned(p.z_b, S::C2);
+    }
+    if (!REVERSE && threadIdx.x == 0)
+      p.ld_part[tile.b * p.n_tiles + tile.index] = logdet;
+  }
+  report_tiles(p.tiles, items, computed);
+}
+
+template <class S, bool REVERSE>
+cudaError_t resident(int B, int* blocks) {
+  return resident_blocks(coupling_kernel<S, REVERSE>,
+                         S::smem_bytes + sizeof(int) * live_tile_ints(B),
+                         blocks);
 }
 
 template <class S, bool REVERSE>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      coupling_kernel<S, REVERSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(S::smem_bytes));
+  int blocks = 0;
+  const cudaError_t err = resident<S, REVERSE>(p.B, &blocks);
   if (err != cudaSuccess) return err;
+  const int items = p.B * p.n_tiles;
   coupling_kernel<S, REVERSE>
-      <<<dim3(p.n_tiles, p.B), kThreads, S::smem_bytes, stream>>>(p);
+      <<<items < blocks ? items : blocks, kThreads,
+         S::smem_bytes + sizeof(int) * live_tile_ints(p.B), stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -95,10 +133,20 @@ const char* glow_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// The blocks one launch uses on the current device at batch size B (fewer
+// when B * tiles is less), or minus a cudaError_t.
+int glow_coupling_resident_blocks(int B) {
+  int blocks = 0;
+  const cudaError_t err = resident<Shipped, true>(B, &blocks);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
 // Shapes are those of Shipped (C=160, ch=192, 4 layers, k=5), w_in and
 // w_rs in the tensor-core layout; the caller checks them, and that the
 // strides (in floats) and pointers of x_a and x_b are multiples of 4
-// floats.  Returns a cudaError_t, 0 on success.
+// floats.  tiles is null, or 5 zeroed ints that receive what the launch
+// did (flow_common.cuh::report_tiles).  Returns a cudaError_t, 0 on
+// success.
 int glow_coupling_f32(const float* x_a, long long a_batch_stride,
                       long long a_row_stride, const float* x_b,
                       long long b_batch_stride, long long b_row_stride,
@@ -106,7 +154,7 @@ int glow_coupling_f32(const float* x_a, long long a_batch_stride,
                       const float* w_start, const float* b_start,
                       const float* w_in, const float* w_rs, const float* b_rs,
                       const float* w_end, const float* b_end, float* z_b,
-                      float* ld_part, int B, int T, int reverse,
+                      float* ld_part, int* tiles, int B, int T, int reverse,
                       void* stream) {
   if (B <= 0 || T <= 0) return cudaSuccess;
   const Params p{{x_a, static_cast<size_t>(a_batch_stride),
@@ -117,7 +165,7 @@ int glow_coupling_f32(const float* x_a, long long a_batch_stride,
                  {nullptr, nullptr, nullptr, w_start, b_start,
                   reinterpret_cast<const WFrag*>(w_in),
                   reinterpret_cast<const WFrag*>(w_rs), b_rs, w_end, b_end},
-                 z_b, ld_part, B, T, ceil_div(T, Shipped::TT)};
+                 z_b, ld_part, tiles, B, T, ceil_div(T, Shipped::TT)};
   auto s = static_cast<cudaStream_t>(stream);
   return reverse ? launch<Shipped, true>(p, s) : launch<Shipped, false>(p, s);
 }

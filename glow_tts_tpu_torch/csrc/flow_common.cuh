@@ -421,17 +421,21 @@ __device__ LiveTiles live_tiles(const float* mask, int B, int T, int* ints) {
 // share it add up): [0] the list's live items, [1] all its items, [2] the
 // live tiles the blocks computed, [3] the most one block computed (the
 // rounds), [4] the blocks of the grid.  `computed` is the calling block's.
-__device__ __forceinline__ void report_tiles(int* counts,
-                                             const LiveTiles& items,
+__device__ __forceinline__ void report_tiles(int* counts, int live, int items,
                                              int computed) {
   if (!counts || threadIdx.x != 0) return;
   if (blockIdx.x == 0) {
-    counts[0] = items.live;
-    counts[1] = items.items;
+    counts[0] = live;
+    counts[1] = items;
     counts[4] = gridDim.x;
   }
   atomicAdd(counts + 2, computed);
   atomicMax(counts + 3, computed);
+}
+__device__ __forceinline__ void report_tiles(int* counts,
+                                             const LiveTiles& items,
+                                             int computed) {
+  report_tiles(counts, items.live, items.items, computed);
 }
 
 // ---------------------------------------------------------------------------

@@ -29,7 +29,8 @@
 //   that is about half the tiles; the live ones are dealt out evenly.
 // * The forward logdet is written per (sample, tile) and summed by the
 //   caller: no atomics, so it does not depend on block order.
-// flow_stack.cu runs the same body (flow_step_tile) on every tile.
+// flow_stack.cu runs the same body (flow_step_tile) on the same live tiles,
+// all the steps in one launch.
 
 #include "flow_common.cuh"
 

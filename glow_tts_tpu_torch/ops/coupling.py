@@ -29,17 +29,18 @@ k=5, 4 layers), recomputes the halo instead of exchanging it, and writes
 only the step's output.  The k-tap convs and the res/skip 1×1s (~95 % of
 the FLOPs) run on the tensor cores as the error-compensated 3xTF32 product
 (f32 accuracy; :data:`TF32_PASSES`), on weights split into TF32 halves
-once, where they are packed (:func:`tensor_core_weights`).  ``flow_step``
-computes only the tiles that hold a valid frame (:func:`live_tile_schedule`
-is the kernel's work list); ``coupling`` and ``flow_stack`` compute every
-tile.
+once, where they are packed (:func:`tensor_core_weights`).  Each kernel
+computes only the tiles that hold a valid frame: :func:`live_tile_schedule`
+is the work list of ``flow_step`` and ``coupling``,
+:func:`stack_tile_schedule` that of ``flow_stack``, whose steps follow each
+other tile by tile, not launch by launch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -61,7 +62,8 @@ TF32_PASSES = 3
 # csrc/flow_common.cuh)
 TIME_TILE = 32
 # what a launch over the live tiles reports when asked (``tiles`` of
-# :func:`_flow_step_kernel` and ``coupling_grad._apply_kernels``;
+# :func:`_flow_step_kernel`, :func:`_coupling_kernel`,
+# :func:`_flow_stack_kernel` and ``coupling_grad._apply_kernels``;
 # csrc/flow_common.cuh::report_tiles): the list's live items and all its
 # items, the live tiles the blocks computed (summed over the launches that
 # share the report), the most one block computed, the grid's blocks
@@ -150,6 +152,48 @@ def live_tile_schedule(lengths, t: int, tile: int = TIME_TILE):
     dead = [(b, i, False) for b, n in enumerate(lengths)
             for i in range(-(-n // tile), n_tiles)]
     return live + dead
+
+
+class StackItem(NamedTuple):
+    """An item of :func:`stack_tile_schedule`: flow step ``step`` (in launch
+    order: on the inverse pass step 0 runs the last flow step) on tile
+    ``tile`` of sample ``sample``, or, where ``live`` is False, that dead
+    tile's zeroing, which stands for every step; ``after`` holds the
+    positions in the list of the items it waits for."""
+    step: int
+    sample: int
+    tile: int
+    live: bool
+    after: Tuple[int, ...]
+
+
+def stack_tile_schedule(lengths, t: int, steps: int,
+                        tile: int = TIME_TILE) -> List[StackItem]:
+    """The work list of the one-launch stack (``csrc/flow_stack.cu``): first
+    the dead tiles of :func:`live_tile_schedule` (zeroed in both buffers,
+    for every step), then ``(step, live tile)`` for each step in turn, the
+    live tiles in :func:`live_tile_schedule`'s order.  Step ``j + 1`` on
+    tile ``i`` waits for step ``j`` on tiles ``i − 1``, ``i`` and ``i + 1``
+    of the sample (for a dead one, its zeroing): the tiles whose rows its
+    halo reads.  A grid of G blocks gives block g the items g, g + G, …:
+    at most ``ceil(steps · live / G)`` live items a block."""
+    tiles = live_tile_schedule(lengths, t, tile)
+    dead = [(b, i) for b, i, live in tiles if not live]
+    items = [StackItem(0, b, i, False, ()) for b, i in dead]
+    # where each tile's latest item stands: its zeroing, or its last step
+    latest = {tile_id: n for n, tile_id in enumerate(dead)}
+    n_tiles = -(-t // tile)
+    for j in range(steps):
+        step_items = {}
+        for b, i, live in tiles:
+            if not live:
+                continue
+            after = () if j == 0 else tuple(
+                latest[(b, n)] for n in (i - 1, i, i + 1) if 0 <= n < n_tiles)
+            step_items[(b, i)] = len(items)
+            items.append(StackItem(j, b, i, True, after))
+        latest.update(step_items)
+    return items
 
 
 def wavenet_stats(x_a: torch.Tensor, mask: torch.Tensor, weights: Weights,
@@ -434,6 +478,13 @@ def coupling(x_a: torch.Tensor, x_b: torch.Tensor, mask: torch.Tensor,
     if x_a.device.type == 'cpu':
         return coupling_reference(x_a, x_b, mask, weights, cond, pitch,
                                   reverse)
+    return _coupling_kernel(x_a, x_b, mask, weights, cond, pitch, reverse)
+
+
+def _coupling_kernel(x_a, x_b, mask, weights, cond, pitch=None,
+                     reverse=False, tiles: Optional[torch.Tensor] = None):
+    """:func:`coupling`'s launch, with, for measuring, a
+    :func:`tile_report` to fill."""
     b, t, c2 = x_a.shape
     n, k, ch, ch2 = weights['w_in'].shape
     shapes = {key: _weight_shapes(2 * c2, n, k, ch)[key]
@@ -443,6 +494,7 @@ def coupling(x_a: torch.Tensor, x_b: torch.Tensor, mask: torch.Tensor,
         {'mask': (mask, (b, t, 1)), 'cond': (cond, (n, b, ch2))}, shapes,
         views={'x_a': (x_a, (b, t, c2)), 'x_b': (x_b, (b, t, c2))})
     own = kernel_keys(COUPLING_WEIGHT_KEYS)
+    tiles_ptr = tile_report_pointer('coupling', tiles, x_a)
 
     lib = load_coupling_library()
     z_b = torch.empty((b, t, c2), device=x_a.device)
@@ -456,7 +508,7 @@ def coupling(x_a: torch.Tensor, x_b: torch.Tensor, mask: torch.Tensor,
         mask.data_ptr(), cond.data_ptr(),
         *[weights[key].data_ptr() for key in own],
         z_b.data_ptr(), None if ld_part is None else ld_part.data_ptr(),
-        b, t, int(reverse),
+        tiles_ptr, b, t, int(reverse),
         torch.cuda.current_stream(x_a.device).cuda_stream))
     coupling.launches += 1
     return z_b, (None if ld_part is None else ld_part.sum(dim=1))
@@ -475,6 +527,14 @@ def flow_stack(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
     :func:`tensor_core_weights` too (stacked)."""
     if x.device.type == 'cpu':
         return flow_stack_reference(x, mask, weights, cond, pitch, reverse)
+    return _flow_stack_kernel(x, mask, weights, cond, pitch, reverse)
+
+
+def _flow_stack_kernel(x, mask, weights, cond, pitch=None, reverse=False,
+                       tiles: Optional[torch.Tensor] = None):
+    """:func:`flow_stack`'s launch, with, for measuring, a
+    :func:`tile_report` to fill (its live items are the steps times the
+    live tiles)."""
     b, t, c = x.shape
     steps, n, k, ch, ch2 = weights['w_in'].shape
     shapes = {key: (steps, *_weight_shapes(c, n, k, ch)[key])
@@ -484,18 +544,21 @@ def flow_stack(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
     _check_weights('flow_stack', x, pitch, c, weights, {
         'x': (x, (b, t, c)), 'mask': (mask, (b, t, 1)),
         'cond': (cond, (steps, n, b, ch2))}, shapes, steps=steps)
+    tiles_ptr = tile_report_pointer('flow_stack', tiles, x)
 
     lib = load_flow_stack_library()
+    n_tiles = -(-t // lib.glow_flow_stack_time_tile())
     # the steps go to and fro between two buffers (a step's neighbours may
     # still be reading its input), the last one into z
     z = torch.empty_like(x)
     other = torch.empty_like(x) if steps > 1 else None
-    barrier = torch.empty(1, dtype=torch.int32, device=x.device)
+    # a flag per (step, sample, tile), zeroed by the launch
+    done = torch.empty(steps * b * n_tiles, dtype=torch.int32,
+                       device=x.device)
     ld_part = ld_ptr = None                     # NULL: unused on reverse
     if not reverse:
         # per-(sample, time tile) logdets, added over the steps in the
         # kernel and over the tiles below, in a fixed order
-        n_tiles = -(-t // lib.glow_flow_stack_time_tile())
         ld_part = torch.empty((b, n_tiles), device=x.device)
         ld_ptr = weights['ld_const'].data_ptr()
     inputs = [x, mask, cond] + [weights[key]
@@ -503,8 +566,8 @@ def flow_stack(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
     _raise_on('flow_stack', lib, lib.glow_flow_stack_f32(
         *[p.data_ptr() for p in inputs], ld_ptr, z.data_ptr(),
         None if other is None else other.data_ptr(),
-        None if ld_part is None else ld_part.data_ptr(), barrier.data_ptr(),
-        b, t, steps, int(reverse),
+        None if ld_part is None else ld_part.data_ptr(), done.data_ptr(),
+        tiles_ptr, b, t, steps, int(reverse),
         torch.cuda.current_stream(x.device).cuda_stream))
     flow_stack.launches += 1
     return z, (None if ld_part is None else ld_part.sum(dim=1))
@@ -546,13 +609,14 @@ def load_flow_step_library() -> ctypes.CDLL:
 def load_coupling_library() -> ctypes.CDLL:
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     return _load('coupling.cu', 'glow_coupling_f32',
-                 [vp, ll, ll] * 2 + [vp] * (2 + len(COUPLING_WEIGHT_KEYS) + 2)
-                 + [ci, ci, ci, vp])
+                 [vp, ll, ll] * 2 + [vp] * (2 + len(COUPLING_WEIGHT_KEYS) + 3)
+                 + [ci, ci, ci, vp],
+                 extra=(('glow_coupling_resident_blocks', [ci]),))
 
 
 @functools.cache
 def load_flow_stack_library() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return _load('flow_stack.cu', 'glow_flow_stack_f32',
-                 [vp] * (3 + len(WEIGHT_KEYS) + 5) + [ci, ci, ci, ci, vp],
-                 extra=(('glow_flow_stack_resident_blocks', []),))
+                 [vp] * (3 + len(WEIGHT_KEYS) + 6) + [ci, ci, ci, ci, vp],
+                 extra=(('glow_flow_stack_resident_blocks', [ci]),))

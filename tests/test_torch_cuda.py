@@ -16,10 +16,15 @@ through the logdet alone or through z alone, the gradients bit-equal
 between the stored and the recomputed route, and the backward library's
 two GEMMs alone.  The coupling alone: the same tile edges, its two
 halves as views of one tensor and as tensors of their own, and what its
-wrapper refuses.  The whole stack in one launch: 1, 2 and 3 steps (the
-result lands in either buffer), T below, at and above one tile, fewer and
-more (sample, tile) items than resident blocks, against the plain version
-and bit for bit against a chain of flow-step launches and against itself.
+wrapper refuses; on ragged masks, with holes and with a sample of length
+0, exact zeros past each length over NaN-planted buffers and the tiles it
+reports against its twin.  The whole stack in one launch: 1, 2 and 3 steps
+(the result lands in either buffer), T below, at and above one tile, fewer
+and more (sample, tile) items than resident blocks, against the plain
+version and bit for bit against a chain of flow-step launches and against
+itself; 12 steps on the same ragged masks over NaN-planted buffers, bit for
+bit against the chain and itself, with the tiles it reports against its
+twin.
 Needs a GPU and nvcc; skipped without.
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -683,10 +688,111 @@ def test_flow_stack_kernel_matches_plain_and_the_chain(device, lengths,
         assert torch.equal(ld, ld_again)
 
 
+# (lengths, holes): frames [a, b) of sample i set to 0 inside its length
+RAGGED_STACKS = [
+    ([1, 32, 33, 512, 200], {}),
+    ([512, 70, 300, 64], {0: (40, 100), 2: (31, 140)}),
+    ([0, 512, 17, 96], {}),                      # a sample of length 0
+]
+
+
+def _ragged_mask(lengths, holes, t, device):
+    mask = (torch.arange(t)[None, :] < torch.tensor(lengths)[:, None]
+            ).float()
+    for i, (a, b) in holes.items():
+        mask[i, a:b] = 0
+    return mask[..., None].to(device)
+
+
+def _expected_report(live, items, blocks):
+    """What a launch over ``items`` with ``live`` live ones on ``blocks``
+    blocks reports (``tc.TILE_COUNTS``)."""
+    return {'live': live, 'items': items, 'computed': live,
+            'rounds': -(-live // blocks), 'blocks': blocks}
+
+
+@pytest.mark.parametrize('case', range(len(RAGGED_STACKS)))
+@pytest.mark.parametrize('reverse', [False, True])
+def test_flow_stack_on_a_ragged_batch_is_the_chain_bit_for_bit(
+        device, case, reverse, planted_nan):
+    """12 steps over ragged lengths, a mask with holes and a sample of
+    length 0, every fresh buffer NaN: z bit-equal to 12 chained flow-step
+    launches and to a second run, exact zeros past each length, the logdet
+    within f32 order of the chain's and equal to the second run's, and the
+    tiles the kernel reports equal to its twin's (every live tile once a
+    step, no dead one, ceil(12 L / G) rounds)."""
+    lengths, holes = RAGGED_STACKS[case]
+    t, steps = 512, 12
+    gen = torch.Generator().manual_seed(40 + case)
+    w = _stack_weights(gen, device, steps=steps)
+    del w['b_in']
+    w = tc.with_tensor_core_weights(w)
+    mask = _ragged_mask(lengths, holes, t, device)
+    x = (torch.randn((len(lengths), t, 160), generator=gen) * 3).to(device)
+    cond = (torch.randn((steps, 4, len(lengths), 384), generator=gen) * .2
+            ).to(device)
+    tiles = tc.tile_report(device)
+    z, ld = tc._flow_stack_kernel(x, mask, w, cond, reverse=reverse,
+                                  tiles=tiles)
+    again, ld_again = tc.flow_stack(x, mask, w, cond, reverse=reverse)
+    z_chain, ld_chain = _chain(x, mask, w, cond, reverse)
+    torch.cuda.synchronize()
+    assert torch.isfinite(z).all()
+    assert torch.equal(z, z_chain) and torch.equal(z, again)
+    past = (torch.arange(t, device=device)[None, :]
+            >= tc.valid_lengths(mask)[:, None])
+    assert (z[past] == 0).all() and (z[mask[..., 0] == 0] == 0).all()
+    if not reverse:
+        assert torch.isfinite(ld).all() and torch.equal(ld, ld_again)
+        assert _rel(ld, ld_chain) < 1e-5       # other order of the sums
+    items = tc.stack_tile_schedule(tc.valid_lengths(mask).tolist(), t, steps)
+    blocks = min(tc.load_flow_stack_library().glow_flow_stack_resident_blocks(
+        len(lengths)), steps * len(lengths) * (t // tc.TIME_TILE))
+    assert dict(zip(tc.TILE_COUNTS, tiles.tolist())) == _expected_report(
+        sum(item.live for item in items), len(items), blocks)
+
+
+@pytest.mark.parametrize('case', range(len(RAGGED_STACKS)))
+@pytest.mark.parametrize('reverse', [False, True])
+def test_coupling_on_a_ragged_batch_computes_live_tiles_only(
+        device, case, reverse, planted_nan):
+    """The coupling over the same ragged masks, NaN in every fresh buffer:
+    the plain version's result with exact zeros past each length, and the
+    tiles the kernel reports equal to its twin's."""
+    lengths, holes = RAGGED_STACKS[case]
+    t = 512
+    gen = torch.Generator().manual_seed(50 + case)
+    w, _ = _weights(gen, device)
+    mask = _ragged_mask(lengths, holes, t, device)
+    x = (torch.randn((len(lengths), t, 160), generator=gen) * 3).to(device)
+    cond = (torch.randn((4, len(lengths), 384), generator=gen) * .2
+            ).to(device)
+    x_a, x_b = x[..., :80], x[..., 80:]
+    tiles = tc.tile_report(device)
+    z_b, ld = tc._coupling_kernel(x_a, x_b, mask, w, cond, reverse=reverse,
+                                  tiles=tiles)
+    torch.cuda.synchronize()
+    z_ref, ld_ref = tc.coupling_reference(x_a, x_b, mask, w, cond,
+                                          reverse=reverse)
+    assert torch.isfinite(z_b).all()
+    assert _rel(z_b, z_ref) < REL
+    past = (torch.arange(t, device=device)[None, :]
+            >= tc.valid_lengths(mask)[:, None])
+    assert (z_b[past] == 0).all() and (z_ref[past] == 0).all()
+    if not reverse:
+        assert _rel(ld, ld_ref) < REL
+    items = tc.live_tile_schedule(tc.valid_lengths(mask).tolist(), t)
+    blocks = min(tc.load_coupling_library().glow_coupling_resident_blocks(
+        len(lengths)), len(items))
+    assert dict(zip(tc.TILE_COUNTS, tiles.tolist())) == _expected_report(
+        sum(live for _, _, live in items), len(items), blocks)
+
+
 def test_flow_stack_grid_is_the_resident_blocks(device):
     lib = tc.load_flow_stack_library()
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    assert lib.glow_flow_stack_resident_blocks() == sms    # 221 KB a block
+    for b in (1, 32, 256):                      # 138 KB a block and the list
+        assert lib.glow_flow_stack_resident_blocks(b) == sms
 
 
 def test_flow_stack_wrapper_refuses_what_the_kernel_does_not_take(device):
