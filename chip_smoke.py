@@ -709,20 +709,64 @@ def check_path(path, tl, ml):
     assert torch.equal(last[fits], (tl.long() - 1)[fits]), 'path end'
 
 
+def long_mas_problem(device):
+    """log_p [2, 600, 2400]: frames far beyond the 1,303 the kernel took at
+    1,024 tokens while its direction bits lived in shared memory."""
+    gen = torch.Generator().manual_seed(SEED + 12)
+    tl = torch.tensor([600, 450], dtype=torch.int32)
+    ml = torch.tensor([2400, 2000], dtype=torch.int32)
+    valid = ((torch.arange(600)[None, :, None] < tl[:, None, None])
+             & (torch.arange(2400)[None, None, :] < ml[:, None, None]))
+    log_p = 3.0 * torch.randn((2, 600, 2400), generator=gen) * valid
+    return log_p.to(device), tl.to(device), ml.to(device)
+
+
 def check_mas(device):
-    """The MAS kernel against its plain version at the training shape:
-    every element of the path equal."""
+    """The MAS kernels against their plain version at the training shape
+    and beyond the old frame limit: every element of the path equal, one
+    counted launch (the library's two kernels) a call."""
     from glow_tts_tpu_torch.ops.mas import maximum_path, maximum_path_reference
+    worst = 0.0
+    for log_p, tl, ml in (mas_problem(device), long_mas_problem(device)):
+        launches, kernels = maximum_path.launches, maximum_path.kernels
+        got = maximum_path(log_p, tl, ml)
+        torch.cuda.synchronize()
+        assert maximum_path.launches == launches + 1
+        assert maximum_path.kernels == kernels + 2, 'recurrence, expansion'
+        expected = maximum_path_reference(log_p, tl, ml)
+        differing = (got != expected).sum().item()
+        print(f'MAS kernels vs plain {tuple(log_p.shape)}, ragged lengths: '
+              f'{differing} differing elements of {got.numel()}')
+        assert differing == 0
+        check_path(got, tl, ml)
+        worst = max(worst, float((got - expected).abs().max().item()))
+    return worst
+
+
+def time_mas_phases(device, runs=5):
+    """The MAS kernels' timed instantiation at the training shape, held to
+    the plain path: the phases of the sample with the most frames in µs
+    and warp 0's cycles a frame of the recurrence (medians of ``runs``)."""
+    from glow_tts_tpu_torch.ops.mas import (maximum_path_reference,
+                                            maximum_path_timed)
     log_p, tl, ml = mas_problem(device)
-    got = maximum_path(log_p, tl, ml)
-    torch.cuda.synchronize()
     expected = maximum_path_reference(log_p, tl, ml)
-    differing = (got != expected).sum().item()
-    print(f'MAS kernel vs plain {tuple(log_p.shape)}, ragged lengths: '
-          f'{differing} differing elements of {got.numel()}')
-    assert differing == 0
-    check_path(got, tl, ml)
-    return float((got - expected).abs().max().item())
+    splits = []
+    for _ in range(runs):
+        path, split = maximum_path_timed(log_p, tl, ml)
+        assert torch.equal(path, expected), 'timed MAS differs from plain'
+        splits.append(split)
+    phases = {key: float(np.median([s['phases_ns'][key] for s in splits]))
+              / 1e3 for key in splits[0]['phases_ns']}
+    extra = {key: float(np.median([s[key] for s in splits]))
+             for key in ('cycles_a_frame', 'last_warp_wait_cycles', 'sm_ghz')}
+    print(f'MAS phases of the sample of {splits[0]["frames"]} frames '
+          f'(median of {runs} timed runs): '
+          + ', '.join(f'{key} {value:.2f} us' for key, value in phases.items())
+          + f'; recurrence {extra["cycles_a_frame"]:.1f} cycles a frame '
+          f'(warp 0) at {extra["sm_ghz"]:.2f} GHz, the last warp waited '
+          f'{extra["last_warp_wait_cycles"]:.0f} cycles on its ring')
+    return {'phases_us': phases, **extra}
 
 
 def synthetic_items(config, seed):
@@ -890,12 +934,12 @@ def time_eval(model, batch, config, device):
     cells = (tl.long() * ml.long()).sum().item()
     moved = 4 * (cells + log_p.numel() + 2 * tl.numel())
     bound_ms, bound_by = bound(moved, 3 * cells)
-    print(f'MAS {tuple(log_p.shape)}: kernel {k_ms:.4f} ms, plain '
+    print(f'MAS {tuple(log_p.shape)}: kernels {k_ms:.4f} ms, plain '
           f'{p_ms:.2f} ms; bound {bound_ms:.4f} ms by {bound_by} '
           f'({moved / 1e6:.1f} MB; the {int(ml.max())} dependent frames of '
-          f'the longest sample hold the kernel, not the bytes)')
+          f'the longest sample hold the kernels, then the path\'s bytes)')
     mas_times = {'ms': k_ms, 'plain_ms': p_ms, 'bound_ms': bound_ms,
-                 'bound_by': bound_by}
+                 'bound_by': bound_by, **time_mas_phases(device)}
 
     eval_k = make_eval_step(config, model)
 

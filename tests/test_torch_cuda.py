@@ -6,8 +6,11 @@ just above one tile, ragged lengths including 1, tiles past every sample's
 last valid frame (skipped, exact zeros) on a prefix mask and on one with
 holes, and one TF32 pass beside the shipped 3xTF32.  MAS at small and edge
 shapes (every tokens-per-lane instantiation, T_tok not a multiple of 32,
-odd T_mel, more tokens than frames), equal bit for bit, and a raise beyond
-the kernel's limits.  The train-direction flow stack (forward and backward
+odd T_mel, more tokens than frames, lengths out of range, frames far beyond
+the old shared-memory limit), equal bit for bit, over buffers planted with
+NaN and garbage, twice bit-equal, its timed instantiation equal to it, one
+launch (two kernels) a call, and a raise beyond the kernel's token limit.
+The train-direction flow stack (forward and backward
 kernels) against its plain version and autograd of it: T not a multiple of
 the tile, samples of length 1 and of full length, lengths that leave whole
 row tiles of the backward GEMMs without a valid frame and that straddle
@@ -270,13 +273,78 @@ def test_mas_wrapper_refuses_what_the_kernel_does_not_take(device):
     with pytest.raises(ValueError, match='at most 1024 tokens'):
         tm.maximum_path(torch.zeros((1, 1025, 4), device=device),
                         tl[:1], ml[:1])
-    limit = tm.load_mas_library().glow_mas_max_mel_frames(1024)
-    with pytest.raises(ValueError, match=f'at most {limit} mel frames'):
-        tm.maximum_path(torch.zeros((1, 1024, limit + 1), device=device),
-                        tl[:1], ml[:1])
-    # at the limit it runs
-    big = torch.zeros((1, 1024, limit), device=device)
-    _check_mas(big, tl[:1], ml[:1])
+    # no frame limit: the direction bits live in a scratch in device memory
+    # (up to 1,303 frames at 1,024 tokens while they lived in shared memory)
+    for seed, (b, t_tok, t_mel) in enumerate([(1, 1024, 1400),
+                                              (2, 600, 2400),
+                                              (1, 1024, 2000)]):
+        _check_mas(*_mas_problem(seed, b, t_tok, t_mel, device))
+
+
+@pytest.fixture
+def planted_garbage(monkeypatch):
+    """Every tensor that ``torch.empty`` or ``torch.empty_like`` make starts
+    as NaN (floats) or 0xAAAAAAAA words (integers): the MAS kernels must
+    write every element of the path and every scratch word they read."""
+    def planting(make):
+        def empty(*args, **kwargs):
+            out = make(*args, **kwargs)
+            with torch.no_grad():
+                out.fill_(float('nan') if out.is_floating_point()
+                          else -0x55555556)
+            return out
+        return empty
+
+    monkeypatch.setattr(torch, 'empty', planting(torch.empty))
+    monkeypatch.setattr(torch, 'empty_like', planting(torch.empty_like))
+
+
+@pytest.mark.parametrize('t_tok,t_mel', [(37, 93), (224, 1023), (300, 514),
+                                         (1024, 61)])
+def test_mas_writes_every_element_over_planted_buffers(device,
+                                                       planted_garbage,
+                                                       t_tok, t_mel):
+    log_p, tl, ml = _mas_problem(t_tok + t_mel, 4, t_tok, t_mel, device)
+    got = _check_mas(log_p, tl, ml)
+    assert not got.isnan().any()
+
+
+def test_mas_lengths_out_of_range_and_token_0_guard(device):
+    """No token, more tokens than log_p has, no frame and more frames than
+    it has, as the plain version has them; and a path that stays on token
+    0 while that token's value sinks below the illegal score (its
+    direction bit set, the walk's guard holding it at 0)."""
+    log_p, _, _ = _mas_problem(5, 4, 6, 12, device)
+    tl = torch.tensor([0, 7, 6, 3], dtype=torch.int32, device=device)
+    ml = torch.tensor([12, 12, 0, 20], dtype=torch.int32, device=device)
+    _check_mas(log_p, tl, ml)
+    stays = torch.zeros((1, 3, 12), device=device)
+    stays[0, 0], stays[0, 1:] = -2e8, -5e8
+    got = _check_mas(stays, tl[3:].clamp_max(3), ml[:1])
+    assert torch.equal(got[0].argmax(dim=0).cpu(),
+                       torch.tensor([0] * 10 + [1, 2]))
+
+
+def test_mas_runs_are_bit_equal_and_count_one_launch(device):
+    log_p, tl, ml = _mas_problem(9, 32, 224, 1024, device)
+    launches, kernels = tm.maximum_path.launches, tm.maximum_path.kernels
+    first = tm.maximum_path(log_p, tl, ml)
+    second = tm.maximum_path(log_p, tl, ml)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert tm.maximum_path.launches == launches + 2
+    assert tm.maximum_path.kernels == kernels + 4   # recurrence, expansion
+
+
+def test_mas_timed_instantiation_gives_the_same_path(device):
+    log_p, tl, ml = _mas_problem(10, 8, 224, 700, device)
+    launches = tm.maximum_path.launches
+    timed, split = tm.maximum_path_timed(log_p, tl, ml)
+    assert tm.maximum_path.launches == launches     # not counted
+    assert torch.equal(timed, tm.maximum_path(log_p, tl, ml))
+    assert split['frames'] == int(ml.max())
+    assert all(value >= 0 for value in split['phases_ns'].values())
+    assert split['cycles_a_frame'] > 0
 
 
 def _stack_weights(gen, device, steps=2, c=160, n=4, k=5, ch=192):
