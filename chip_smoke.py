@@ -18,8 +18,17 @@ autograd of the plain version under both of its routes (activations stored
 by the forward pass, and recomputed), which must agree bit for bit, and
 with one TF32 pass beside the shipped 3xTF32.  Times kernel and plain
 versions with CUDA events, the backward's two GEMMs alone beside
-``torch.matmul`` as a yardstick.  Exits non-zero on any failure and when no CUDA
-device is present; the last line is one JSON object naming the card.
+``torch.matmul`` as a yardstick.  Last, the trainer: on pattern archives
+it writes with the port's pattern IO (96 train, 40 eval patterns), run A
+trains 4 steps and run B 2, then a new ``Trainer`` restores ``S_2.pt`` and
+trains 2 more; A and B must agree within 1e-5 (cuDNN deterministic, as
+``Trainer`` sets it), each part of the trainer's path must launch its
+kernels, the checkpoint directory serves a TSV through ``Inferencer``, and
+the data-fed loop (over a larger archive, inside one epoch) beside the
+same batches copied and already on the card, both batch copies, a save
+and an evaluation are timed.  Exits
+non-zero on any failure and when no CUDA device is present; the last line
+is one JSON object naming the card.
 """
 
 import copy
@@ -59,6 +68,20 @@ TRAIN_LOSS_REL_BOUND = 1e-4
 TRAIN_NORM_REL_BOUND = 1e-3
 TRAIN_STEPS = 4
 FLOW_RATE = 0.05           # Decoder.Affine_Coupling.WaveNet.Dropout_Rate
+# the trainer phase: pattern archives of 3 train batches an epoch (so 4
+# steps cross an epoch and a resume at step 2 is mid-epoch) and an eval set
+# of a full and a ragged batch; run A against 2 steps, a restore and 2 more
+TRAIN_PATTERNS, EVAL_PATTERNS = 96, 40
+TRAINER_STEPS, RESUME_STEP = 4, 2
+SAVE_EVERY, EVAL_EVERY = 2, 4   # checkpoints and logs; evaluation, inference
+RESUME_REL_BOUND = 1e-5    # A against B: max |a - b| / max |a| by group
+FED_STEPS = 6              # the data-fed loop, after one warm-up step
+TIMING_BATCHES = 8         # its archive's batches an epoch: a run in one
+COPY_ITERS = 20
+INFERENCE_TEXTS = ['The birch canoe slid on the smooth planks.',
+                   'Glue the sheet to the dark blue background.',
+                   'It is easy to tell the depth of a well.',
+                   'These days a chicken leg is a rare dish.']
 # kernels of csrc/flow_train_bwd.cu behind one flow step's backward, with or
 # without conditioning: 11 activation-gradient and 11 weight-gradient GEMMs
 # in 15 launches (7 of them a pair of one of each), 5 launches of column
@@ -1467,6 +1490,385 @@ def time_training(config, batch, x, mask, weights, device):
              'one_pass_ms': times['kernel, stored, 1xTF32'][1] / s_steps})
 
 
+def write_archive(path, n, config, seed):
+    """``n`` patterns with the port's pattern IO, as ``synthetic_items``
+    makes a batch's items: texts of 10 … 200 characters, mels of 50 … 1000
+    frames uniform in [−max_abs_mel, max_abs_mel]."""
+    from glow_tts_tpu_torch.data.patterns import (build_metadata,
+                                                  save_metadata, save_pattern)
+    rng = np.random.default_rng(seed)
+    letters = np.array(list('ABCDEFGHIJKLMNOPQRSTUVWXYZ'))
+    a = config.sound.max_abs_mel
+    for i, (n_text, n_mel) in enumerate(zip(
+            rng.permutation(np.linspace(10, MAX_TOKENS, n).round()),
+            rng.permutation(np.linspace(50, MAX_FRAMES, n).round()))):
+        chars = rng.choice(letters, int(n_text))
+        chars[5::6] = ' '
+        mel = rng.uniform(-a, a, (int(n_mel), config.sound.mel_dim))
+        save_pattern(os.path.join(path, f'P{i:03d}.PICKLE'), {
+            'Audio': np.zeros(int(n_mel), np.float32),
+            'Mel': mel.astype(np.float32),
+            'Pitch': np.zeros(int(n_mel), np.float32), 'Speaker_ID': 0,
+            'Speaker': 'Synthetic', 'Dataset': 'Synthetic',
+            'Text': ''.join(chars)})
+    save_metadata(path, build_metadata(path, config.sound))
+
+
+class PartCounts:
+    """Launch counts of the trainer's path by part: a wrapped call runs
+    with every count set to 0 just before it and read just after, and the
+    part sums what its calls read."""
+
+    def __init__(self):
+        self.by_part = {}
+
+    def add(self, part, counts):
+        total = self.by_part.setdefault(part, dict.fromkeys(COUNTERS, 0))
+        for key, value in counts.items():
+            total[key] += value
+
+    def wrap(self, part, fn):
+        def counted(*args, **kwargs):
+            zero_counts()
+            out = fn(*args, **kwargs)
+            self.add(part, read_counts())
+            return out
+        counted.uncounted = fn
+        return counted
+
+    @staticmethod
+    def unwrap(trainer):
+        """The trainer's own methods back: a counted call synchronises."""
+        trainer.train_step = trainer.train_step.uncounted
+        trainer.eval_step = trainer.eval_step.uncounted
+        del trainer.model.inference_decode, trainer.run_inference_file
+
+
+def trainer_config(config, root, run, max_step):
+    from glow_tts_tpu_torch.config import PatternConfig
+    train = dataclasses.replace(
+        config.train, max_step=max_step, checkpoint_save_interval=SAVE_EVERY,
+        logging_interval=SAVE_EVERY, evaluation_interval=EVAL_EVERY,
+        inference_interval=EVAL_EVERY,
+        train_pattern=PatternConfig(path=os.path.join(root, 'train')),
+        eval_pattern=PatternConfig(path=os.path.join(root, 'eval')),
+        inference_pattern_file_in_train=os.path.join(root, 'sentences.tsv'))
+    return dataclasses.replace(
+        config, train=train,
+        checkpoint_path=os.path.join(root, run, 'checkpoint'),
+        log_path=os.path.join(root, run, 'log'),
+        inference_path=os.path.join(root, run, 'inference'))
+
+
+def new_trainer(config, root, run, max_step, device, counts=None):
+    """A ``Trainer`` with a recording writer pair; with ``counts``, its
+    construction (ActNorm's init), train steps, eval steps, free-running
+    decodes and inference runs counted by part."""
+    from glow_tts_tpu_torch import Trainer
+    from glow_tts_tpu_torch.utils.logging import MemoryWriter
+    make = lambda: Trainer(  # noqa: E731
+        trainer_config(config, root, run, max_step), device=device,
+        writers={'train': MemoryWriter(), 'eval': MemoryWriter()})
+    if counts is None:
+        return make()
+    trainer = counts.wrap('trainer init', make)()
+    trainer.train_step = counts.wrap('trainer train', trainer.train_step)
+    trainer.eval_step = counts.wrap('trainer eval', trainer.eval_step)
+    trainer.model.inference_decode = counts.wrap(
+        'trainer decode', trainer.model.inference_decode)
+    trainer.run_inference_file = counts.wrap(
+        'trainer inference', trainer.run_inference_file)
+    return trainer
+
+
+def compare_runs(a, b):
+    """B against A by group (the final parameters, each optimiser moment,
+    the logged train and eval losses after the restore): the largest
+    difference over the group relative to the group's max-abs, and the
+    tensor that holds it; and whether every tensor is bit-equal.  (A
+    tensor's own max-abs is no scale where its gradient is rounding noise,
+    as the attention's key bias's is: a bias that moves every score of a
+    query alike has no gradient through the softmax.)"""
+    sa, sb = a.optimizer.state_dict(a.model), b.optimizer.state_dict(b.model)
+    assert sa['count'] == sb['count'] == TRAINER_STEPS, (sa['count'],
+                                                         sb['count'])
+    groups = {
+        'parameters': [(name, value, dict(b.model.named_parameters())[name])
+                       for name, value in a.model.named_parameters()],
+        **{key: [(name, value, sb[key][name])
+                 for name, value in sa[key].items()] for key in ('mu', 'nu')}}
+    for kind in ('train', 'eval'):
+        logged = b.writers[kind].scalars
+        groups[f'{kind} losses'] = [
+            (tag, torch.tensor([v for step, v in values
+                                if step > RESUME_STEP]),
+             torch.tensor([v for step, v in logged[tag]
+                           if step > RESUME_STEP]))
+            for tag, values in a.writers[kind].scalars.items()
+            if tag.startswith('Loss/')]
+    errs, equal = {}, True
+    for group, pairs in groups.items():
+        assert pairs and all(want.shape == got.shape and want.numel()
+                             for _, want, got in pairs), group
+        scale = max(want.abs().max().item() for _, want, _ in pairs)
+        diffs = {name: (got - want).abs().max().item()
+                 for name, want, got in pairs}
+        worst = max(diffs, key=diffs.get)
+        errs[group] = (diffs[worst] / max(scale, 1e-30), worst)
+        equal &= all(torch.equal(want, got) for _, want, got in pairs)
+    return errs, equal
+
+
+def time_fed_loop(trainer, root, config, device, card):
+    """Steps/s of the data-fed loop (the trainer's loader, the copy and
+    ``train_step``; no checkpoint, log or evaluation) against the same
+    batches assembled beforehand and copied each step, and already on the
+    card, in alternating runs; each copy of the largest batch alone, and
+    one batch's host assembly alone.  The loader runs over an archive of
+    ``TIMING_BATCHES`` batches an epoch, so that a run (a warm-up step and
+    ``FED_STEPS``) stays inside one epoch: every run takes the same
+    batches, and no new loader waits for its first batch inside a timed
+    window."""
+    from glow_tts_tpu_torch import batch_to_device
+    from glow_tts_tpu_torch.config import PatternConfig
+    from glow_tts_tpu_torch.training.trainer import pattern_dataset
+
+    path = os.path.join(root, 'timing')
+    write_archive(path, TIMING_BATCHES * config.train.batch_size, config,
+                  SEED + 22)
+    trainer.train_dataset = pattern_dataset(PatternConfig(path=path),
+                                            use_cache=False)
+    assert len(trainer.train_loader(0)) == TIMING_BATCHES
+
+    def run(batches, copy):
+        """ms a step over ``FED_STEPS`` after a warm-up, synchronised at
+        the end; the host's wait for the next batch; the batches."""
+        start = time.perf_counter()
+        batch = next(batches)
+        first_ms = (time.perf_counter() - start) * 1e3
+        seen = [batch]
+        trainer.train_step(copy(batch))                        # warm-up
+        torch.cuda.synchronize()
+        wait = 0.0
+        start = time.perf_counter()
+        for _ in range(FED_STEPS):
+            before = time.perf_counter()
+            batch = next(batches)
+            wait += time.perf_counter() - before
+            seen.append(batch)
+            trainer.train_step(copy(batch))
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        return elapsed * 1e3 / FED_STEPS, wait * 1e3 / FED_STEPS, \
+            first_ms, seen
+
+    def fed():
+        batches = iter(trainer.train_loader(0))
+        try:
+            return run(batches, lambda b: batch_to_device(b, device))
+        finally:
+            batches.close()
+
+    ms, wait, first, seen = fed()
+    runs = {'fed': [ms], 'copied': [], 'bare': []}
+    waits, firsts = [wait], [first]
+    resident = [batch_to_device(batch, device) for batch in seen]
+    order = ['fed', 'copied', 'bare']
+    for name in order[1:] + order[::-1] + order:
+        if name == 'fed':
+            ms, wait, first, again = fed()
+            assert all(np.array_equal(x['mel_lengths'], y['mel_lengths'])
+                       for x, y in zip(seen, again)), 'the epoch moved'
+            waits.append(wait)
+            firsts.append(first)
+        elif name == 'copied':
+            ms = run(iter(seen), lambda b: batch_to_device(b, device))[0]
+        else:
+            ms = run(iter(resident), lambda b: b)[0]
+        runs[name].append(ms)
+    means = {name: float(np.mean(values)) for name, values in runs.items()}
+    wait_ms = float(np.mean(waits))
+
+    largest = max(seen, key=lambda batch: batch['mels'].size)
+    copies = {'pinned, non_blocking (batch_to_device)':
+                  lambda batch: batch_to_device(batch, device),
+              'pageable, torch.as_tensor':
+                  lambda batch: {key: torch.as_tensor(value, device=device)
+                                 for key, value in batch.items()}}
+
+    def copy_ms(copy):
+        copy(largest)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(COPY_ITERS):
+            copy(largest)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - start) * 1e3 / COPY_ITERS
+
+    # one batch's host assembly alone, on this thread: the pickles read
+    # and collated, as a producer thread does it
+    sampler = trainer.train_loader(0).sampler
+    start = time.perf_counter()
+    assembled = [trainer.collater([trainer.train_dataset[int(i)]
+                                   for i in indices]) for indices in sampler]
+    assembly_ms = (time.perf_counter() - start) * 1e3 / len(assembled)
+
+    names = list(copies)
+    copy_runs = {name: [] for name in names}
+    for name in names + names[::-1] + names:
+        copy_runs[name].append(copy_ms(copies[name]))
+    copy_times = {name: float(np.mean(values))
+                  for name, values in copy_runs.items()}
+    shapes = [batch['mels'].shape[1] for batch in seen]
+    megabytes = sum(v.nbytes for v in largest.values()) / 1e6
+    fed_ms, copied_ms, bare_ms = means['fed'], means['copied'], means['bare']
+
+    def listed(values, digits=3):
+        return ', '.join(f'{v:.{digits}f}' for v in values)
+    print(f'trainer, data-fed loop: {FED_STEPS} steps after a warm-up, '
+          f'inside one epoch of {TIMING_BATCHES} batches (frames of the '
+          f'run\'s batches {shapes}), {len(runs["fed"])} runs each in the '
+          f'order {", ".join(order[:1] + order[1:] + order[::-1] + order)}; '
+          f'{card}')
+    print(f'  fed (the trainer\'s loader, {trainer.config.train.num_workers}'
+          f' producer threads, the pinned copy, the step): {fed_ms:.3f} ms '
+          f'a step = {1e3 / fed_ms:.3f} steps/s (runs {listed(runs["fed"])})'
+          f'; the wait for the next batch {wait_ms:.3f} ms a step (runs '
+          f'{listed(waits)}); the first batch of an epoch, from a new '
+          f'loader, {float(np.mean(firsts)):.3f} ms (runs {listed(firsts)})')
+    print(f'  copied (the same batches assembled beforehand, the pinned '
+          f'copy, the step): {copied_ms:.3f} ms (runs '
+          f'{listed(runs["copied"])}); bare (the same batches already on '
+          f'the card): {bare_ms:.3f} ms = {1e3 / bare_ms:.3f} steps/s (runs '
+          f'{listed(runs["bare"])})')
+    print(f'  of a fed step: the copy {copied_ms - bare_ms:.3f} ms, the '
+          f'loader {fed_ms - copied_ms:.3f} ms ({wait_ms:.3f} of it waiting '
+          f'for a batch, {fed_ms - copied_ms - wait_ms:.3f} the step slowed '
+          f'beside the producer threads); loader and copy '
+          f'{100 * (fed_ms - bare_ms) / fed_ms:.1f} % of a fed step')
+    for name, value in copy_times.items():
+        print(f'  copy of the largest batch ({megabytes:.2f} MB), {name}: '
+              f'{value:.4f} ms (runs {listed(copy_runs[name], 4)}); {card}')
+    print(f'  host assembly of a batch alone ({config.train.batch_size} '
+          f'patterns read and collated, an epoch\'s {len(assembled)} '
+          f'batches): '
+          f'{assembly_ms:.3f} ms a batch; {card}')
+    return {'fed_step_ms': fed_ms, 'copied_step_ms': copied_ms,
+            'bare_step_ms': bare_ms, 'runs_ms': runs,
+            'loader_wait_ms': wait_ms, 'first_batch_ms': firsts,
+            'copy_ms': copy_times, 'copy_mb': megabytes,
+            'assembly_ms': assembly_ms}
+
+
+def run_trainer_phase(config, device, card):
+    """The trainer on pattern archives written here: run A (4 steps)
+    against run B (2 steps, a new trainer restoring ``S_2.pt``, 2 more),
+    the checkpoint directory served by ``Inferencer``, the launches of
+    each part of the trainer's path, and its timings."""
+    import shutil
+    import tempfile
+
+    from glow_tts_tpu_torch import Inferencer
+    root = tempfile.mkdtemp(prefix='chip_smoke_trainer_')
+    try:
+        write_archive(os.path.join(root, 'train'), TRAIN_PATTERNS, config,
+                      SEED + 20)
+        write_archive(os.path.join(root, 'eval'), EVAL_PATTERNS, config,
+                      SEED + 21)
+        with open(os.path.join(root, 'sentences.tsv'), 'w') as f:
+            f.write('Label\tText\tScale\tSpeaker\tGE2E\tProsody\tPitch\n')
+            for i, text in enumerate(INFERENCE_TEXTS):
+                f.write(f'T{i}\t{text}\t1.0\t0\tNone\tNone\tNone\n')
+
+        counts = PartCounts()
+        a = new_trainer(config, root, 'a', TRAINER_STEPS, device, counts)
+        # the runs hold the trainer's own cuDNN setting, as a user's do
+        assert torch.backends.cudnn.deterministic, 'Trainer left cuDNN free'
+        a.train()
+        free = a.free_running
+        assert torch.isfinite(free['mels']).all(), 'free-running decode'
+        assert a.checkpoints.steps() == list(range(
+            SAVE_EVERY, TRAINER_STEPS + 1, SAVE_EVERY)), a.checkpoints.steps()
+        b = new_trainer(config, root, 'b', RESUME_STEP, device)
+        b.train()
+        b = new_trainer(config, root, 'b', TRAINER_STEPS, device)
+        assert b.step == RESUME_STEP, b.step
+        b.train()
+        errs, equal = compare_runs(a, b)
+        worst = max(value for value, _ in errs.values())
+        print(f'trainer, run A ({TRAINER_STEPS} steps) against run B '
+              f'({RESUME_STEP} steps, a new trainer restoring '
+              f'S_{RESUME_STEP}.pt, {TRAINER_STEPS - RESUME_STEP} more), '
+              f'cuDNN deterministic as the trainer sets it: largest '
+              f'difference by group, relative '
+              f'to its max-abs: ' + '; '.join(
+                  f'{group} {value:.3e} ({name})'
+                  for group, (value, name) in errs.items())
+              + f'; bit-equal: {equal}')
+        assert worst <= RESUME_REL_BOUND, errs
+
+        steps = config.decoder.stack
+        flow = ROUTES[config.flow_route]
+        eval_batches = -(-EVAL_PATTERNS // config.train.batch_size)
+        evaluations = TRAINER_STEPS // EVAL_EVERY + 1   # and one at step 0
+        expected = {
+            'trainer init': {flow: steps},
+            'trainer train': {
+                'mas': TRAINER_STEPS, 'train_fwd': steps * TRAINER_STEPS,
+                'train_bwd': BWD_KERNELS_PER_FLOW_STEP * steps
+                * TRAINER_STEPS},
+            'trainer eval': {flow: steps * eval_batches * evaluations,
+                             'mas': eval_batches * evaluations},
+            'trainer decode': {flow: steps * evaluations},
+            'trainer inference': {
+                flow: steps * (TRAINER_STEPS // EVAL_EVERY)}}
+        for part, want in expected.items():
+            got = counts.by_part[part]
+            print(f'  launches, {part}: {got}')
+            assert got == {**dict.fromkeys(COUNTERS, 0), **want}, (part, got)
+
+        served_dir = os.path.join(root, 'served')
+        results = Inferencer(a.config.checkpoint_path, None, device
+                             ).inference_from_file(
+            os.path.join(root, 'sentences.tsv'), served_dir)
+        files = sorted(os.listdir(os.path.join(served_dir, 'NPY', 'Mel')))
+        assert files == [f'T{i}.npy' for i in range(len(INFERENCE_TEXTS))], \
+            files
+        for result in results:
+            mel = np.load(os.path.join(served_dir, 'NPY', 'Mel',
+                                       f'{result["label"]}.npy'))
+            assert mel.shape == (config.sound.mel_dim,
+                                 result['mel'].shape[0]), mel.shape
+            assert np.isfinite(mel).all() and mel.shape[1] > 0
+        print(f'  served the checkpoint directory (config=None): '
+              f'{len(files)} NPY mels, frames '
+              f'{[r["mel"].shape[0] for r in results]}')
+        del b
+
+        counts.unwrap(a)
+        times = time_fed_loop(a, root, config, device, card)
+        start = time.perf_counter()
+        path = a.save_checkpoint()
+        save_ms = (time.perf_counter() - start) * 1e3
+        save_mb = os.path.getsize(path) / 1e6
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        a.evaluate()
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - start) * 1e3
+        print(f'  CheckpointManager.save: {save_ms:.1f} ms for '
+              f'{save_mb:.1f} MB; evaluate() ({EVAL_PATTERNS} patterns in '
+              f'{eval_batches} batches and the free-running decode): '
+              f'{eval_ms:.1f} ms; {card}')
+        print('trainer: ' + json.dumps({
+            **times, 'save_ms': save_ms, 'save_mb': save_mb,
+            'evaluate_ms': eval_ms, 'resume_max_rel_err': worst,
+            'resume_bit_equal': equal, 'card': card}))
+        return counts.by_part
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: no CUDA device; this script runs on a GPU only')
@@ -1571,6 +1973,7 @@ def main():
     fwd_times, bwd_times = time_training(config, batches[0], x, mask,
                                          weights, device)
     profile_window('eval steps', lambda: eval_step(batches[0]), 3)
+    by_path.update(run_trainer_phase(config, device, card))
 
     def launches(counter):
         paths = {path: counts[counter] for path, counts in by_path.items()}

@@ -1,9 +1,10 @@
 """glow_tts_tpu_torch — Glow-TTS in PyTorch: Vanilla serving, the
-loss/eval path and the train step, with the decoder's flow step, its
-coupling alone, the whole flow stack in one launch (the three routes of
-``config.coupling_backend``), the monotonic alignment search and the
-train-direction flow stack (forward and backward) as CUDA kernels for
-Hopper (H100).
+loss/eval path, the train step and the trainer around it (pattern
+datasets, the loader, checkpoints with exact resume, the CLI), with the
+decoder's flow step, its coupling alone, the whole flow stack in one
+launch (the three routes of ``config.coupling_backend``), the monotonic
+alignment search and the train-direction flow stack (forward and
+backward) as CUDA kernels for Hopper (H100).
 
 The port of ``glow_tts_tpu`` (JAX), which stays beside it as the
 reference: same layouts at the public functions ([B, T, C]), same
@@ -16,13 +17,16 @@ from glow_tts_tpu_torch.data.collate import TrainCollater
 from glow_tts_tpu_torch.inference import Inferencer
 from glow_tts_tpu_torch.models.glow_tts import (GlowTTS, initial_state_dict,
                                                 random_state_dict)
+from glow_tts_tpu_torch.training.checkpoint import CheckpointManager
 from glow_tts_tpu_torch.training.optim import make_optimizer
 from glow_tts_tpu_torch.training.step import (attention_diagonality,
                                               batch_to_device, build_model,
                                               make_eval_step,
                                               make_train_step)
+from glow_tts_tpu_torch.training.trainer import Trainer
 
-__all__ = ['Config', 'GlowTTS', 'Inferencer', 'TrainCollater',
-           'attention_diagonality', 'batch_to_device', 'build_model',
-           'initial_state_dict', 'load_config', 'make_eval_step',
-           'make_optimizer', 'make_train_step', 'random_state_dict']
+__all__ = ['CheckpointManager', 'Config', 'GlowTTS', 'Inferencer',
+           'TrainCollater', 'Trainer', 'attention_diagonality',
+           'batch_to_device', 'build_model', 'initial_state_dict',
+           'load_config', 'make_eval_step', 'make_optimizer',
+           'make_train_step', 'random_state_dict']

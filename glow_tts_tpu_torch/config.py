@@ -4,9 +4,12 @@ It loads the same YAML schema as ``glow_tts_tpu.config.load_config``
 (``configs/Hyper_Parameters.yaml``) and exposes the same attribute names
 (``config.encoder.channels``, ``config.decoder.affine_coupling`` …), so
 either object drives the port.  Only the fields of Vanilla-mode serving,
-of the loss/eval path and of the train step (dropout rates, optimiser) are
-kept; unknown keys are ignored, as there.  A CPU test holds every field
-against ``glow_tts_tpu.config`` on the same input.
+of the loss/eval path, of the train step (dropout rates, optimiser) and of
+the trainer (pattern sets, intervals, output paths) are kept; unknown keys
+are ignored, as there.  A CPU test holds every field against
+``glow_tts_tpu.config`` on the same input.  :func:`save_config` writes the
+snapshot a checkpoint directory carries, which :func:`load_config` reads
+back to an equal ``Config``.
 
 ``coupling_backend`` chooses the route of the deterministic flow decoder
 (serving, evaluation), each route through its own CUDA kernel on the card
@@ -29,7 +32,11 @@ import yaml
 
 @dataclass(frozen=True)
 class SoundConfig:
+    spectrogram_dim: int = 1025
     mel_dim: int = 80
+    frame_length: int = 1024
+    frame_shift: int = 256
+    sample_rate: int = 24000
     max_abs_mel: float = 4.0
 
 
@@ -101,6 +108,17 @@ class DecoderConfig:
 
 
 @dataclass(frozen=True)
+class PatternConfig:
+    path: str = './patterns/Train'
+    metadata_file: str = 'METADATA.PICKLE'
+    mel_length_min: int = 50
+    mel_length_max: int = 1000
+    text_length_min: int = 10
+    text_length_max: int = 200
+    accumulated_dataset_epoch: int = 1
+
+
+@dataclass(frozen=True)
 class LearningRateConfig:
     initial: float = 1.0e-3
     base: int = 4000
@@ -115,12 +133,24 @@ class AdamConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
+    use_pattern_cache: bool = True
+    train_pattern: PatternConfig = field(default_factory=PatternConfig)
+    eval_pattern: PatternConfig = field(
+        default_factory=lambda: PatternConfig(path='./patterns/Eval'))
+    num_workers: int = 4
     batch_size: int = 32
     learning_rate: LearningRateConfig = field(
         default_factory=LearningRateConfig)
     adam: AdamConfig = field(default_factory=AdamConfig)
     weight_decay: float = 1.0e-6
     gradient_norm: float = 5.0
+    max_step: int = 400000
+    checkpoint_save_interval: int = 1000
+    logging_interval: int = 100
+    evaluation_interval: int = 1000
+    inference_interval: int = 1000
+    initial_inference: bool = False
+    inference_pattern_file_in_train: Optional[str] = None
 
 
 COUPLING_BACKENDS = ('auto', 'fused', 'mega', 'modules')
@@ -151,6 +181,9 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     token_path: str = './Token.yaml'
     inference_batch_size: Optional[int] = None
+    inference_path: str = './results/Inference'
+    checkpoint_path: str = './results/Checkpoint'
+    log_path: str = './results/Log'
     # token axis padded up to a multiple of this (the YAML's
     # ``TPU.token_bucket``): one padded shape per length class
     token_bucket: int = 32
@@ -183,6 +216,12 @@ def _coerce(cls: type, data: Optional[Mapping]) -> Any:
     for key, value in data.items():
         name = key.lower()
         if name not in fields:
+            # a pattern set's ``Mel_Length: {Min, Max}`` block fills the
+            # flat ``mel_length_min`` / ``mel_length_max`` fields
+            if isinstance(value, Mapping) and all(
+                    f'{name}_{k.lower()}' in fields for k in value):
+                kwargs.update({f'{name}_{k.lower()}': v
+                               for k, v in value.items()})
             continue
         ftype = fields[name].type
         sub = _SECTIONS.get(ftype)
@@ -194,8 +233,12 @@ def _coerce(cls: type, data: Optional[Mapping]) -> Any:
 _SECTIONS = {cls.__name__: cls for cls in (
     SoundConfig, PrenetConfig, AttentionConfig, TransformerConvConfig,
     TransformerConfig, DurationPredictorConfig, EncoderConfig, WaveNetConfig,
-    AffineCouplingConfig, DecoderConfig, LearningRateConfig, AdamConfig,
-    TrainConfig)}
+    AffineCouplingConfig, DecoderConfig, PatternConfig, LearningRateConfig,
+    AdamConfig, TrainConfig)}
+
+
+# the fields the YAML keeps under ``TPU``
+_TPU_FIELDS = ('token_bucket', 'mel_bucket', 'coupling_backend')
 
 
 def load_config(path_or_dict) -> Config:
@@ -210,6 +253,15 @@ def load_config(path_or_dict) -> Config:
         raise NotImplementedError(
             f'the PyTorch port serves Vanilla mode only (got {config.mode!r})')
     tpu = data.get('TPU') or data.get('tpu') or {}
-    from_tpu = {name: tpu[name] for name in (
-        'token_bucket', 'mel_bucket', 'coupling_backend') if name in tpu}
+    from_tpu = {name: tpu[name] for name in _TPU_FIELDS if name in tpu}
     return dataclasses.replace(config, **from_tpu)
+
+
+def save_config(config: Config, path: str) -> None:
+    """Write ``config`` as YAML (the snapshot beside checkpoints), in the
+    schema :func:`load_config` reads: lower-case keys, the bucket and
+    backend fields under ``tpu`` as the JAX package's snapshot has them."""
+    data = dataclasses.asdict(config)
+    data['tpu'] = {name: data.pop(name) for name in _TPU_FIELDS}
+    with open(path, 'w', encoding='utf-8') as f:
+        yaml.safe_dump(data, f, sort_keys=False)

@@ -12,7 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from glow_tts_tpu_torch.models.layers import (
-    Conv1d, Dropout, RelativePositionMultiHeadAttention, masked)
+    Conv1d, Dropout, Embedding, RelativePositionMultiHeadAttention, masked)
 
 
 def _layer_norm(channels: int) -> nn.LayerNorm:
@@ -111,7 +111,7 @@ class TextEncoder(nn.Module):
         cfg = config.encoder
         self.channels = cfg.channels
         self.layer_Dict = nn.ModuleDict({
-            'Embedding': nn.Embedding(cfg.embedding_tokens, cfg.channels),
+            'Embedding': Embedding(cfg.embedding_tokens, cfg.channels),
             'Prenet': Prenet(config),
             'Transformer': _Named(**{
                 f'ANCRDCN_{i}': TransformerBlock(config)

@@ -32,6 +32,35 @@ def sequence_mask(lengths: torch.Tensor, max_length: int,
     return (frames[None, :] < lengths[:, None])[..., None].to(dtype)
 
 
+class _Lookup(torch.autograd.Function):
+    """``F.embedding`` whose weight gradient is the tokens' one-hot matrix
+    times the output gradient: one matrix product, which sums in a fixed
+    order, where the library's backward accumulates with atomics on a card
+    and differs from run to run in the last bits."""
+
+    @staticmethod
+    def forward(ctx, tokens, weight):
+        ctx.save_for_backward(tokens)
+        ctx.num_tokens = weight.shape[0]
+        return F.embedding(tokens, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        tokens, = ctx.saved_tensors
+        one_hot = F.one_hot(tokens.reshape(-1).long(),
+                            ctx.num_tokens).to(grad.dtype)
+        return None, one_hot.t() @ grad.reshape(-1, grad.shape[-1])
+
+
+class Embedding(nn.Embedding):
+    """``nn.Embedding`` (same parameter, same values) with a weight
+    gradient that is the same in every run, so a resumed run repeats an
+    uninterrupted one on the card too."""
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return _Lookup.apply(tokens, self.weight)
+
+
 class Dropout(nn.Module):
     """Inverted dropout whose mask comes from an explicit generator: drop
     each element with probability ``rate`` and scale the kept ones by

@@ -24,7 +24,13 @@ def clip_relative_embedding(embedding: torch.Tensor,
 
 
 def skewed_relative_table(rel: torch.Tensor, length: int) -> torch.Tensor:
-    """[N, 2L-1, D] → [N, L, L, D]: out[n, i, j] = rel[n, j - i + L - 1]."""
-    pos = torch.arange(length, device=rel.device)
-    idx = pos[None, :] - pos[:, None] + length - 1
-    return rel[:, idx]
+    """[N, 2L-1, D] → [N, L, L, D]: out[n, i, j] = rel[n, j - i + L - 1].
+
+    A strided view of the table (row i is the window starting at offset
+    L-1-i), so the backward sums each entry's gradient in a fixed order:
+    the backward of an index gather (``rel[:, idx]``) accumulates in an
+    order that varies from run to run, and a resumed run would not repeat
+    an uninterrupted one bit for bit."""
+    # windows[n, i, d, t] = rel[n, 2L-2-i-t]; t = L-1-j
+    windows = rel.flip(1).unfold(1, length, 1)
+    return windows.flip(3).transpose(2, 3)

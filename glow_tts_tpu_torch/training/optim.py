@@ -23,7 +23,7 @@ waits for the card.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List
+from typing import Callable, Dict, Iterable, List, Mapping
 
 import numpy as np
 import torch
@@ -126,6 +126,42 @@ class RAdam:
         torch._foreach_mul_(updates, -self.schedule(self.count - 1))
         torch._foreach_add_(params, updates)
         return norm
+
+
+    def _names(self, model: torch.nn.Module) -> List[str]:
+        """Each parameter's name in ``model``, in this optimiser's order."""
+        names = {id(p): name for name, p in model.named_parameters()}
+        missing = [i for i, p in enumerate(self.params) if id(p) not in names]
+        if missing:
+            raise ValueError(f'{len(missing)} parameters of the optimiser '
+                             f'are not in the model')
+        return [names[id(p)] for p in self.params]
+
+    def state_dict(self, model: torch.nn.Module) -> Dict[str, object]:
+        """``count`` and the moments ``mu``/``nu`` keyed by each
+        parameter's name in ``model``, as copies on the CPU."""
+        names = self._names(model)
+
+        def by_name(tensors):
+            return {name: t.detach().to('cpu', copy=True)
+                    for name, t in zip(names, tensors)}
+        return {'count': self.count, 'mu': by_name(self.mu),
+                'nu': by_name(self.nu)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Mapping[str, object],
+                        model: torch.nn.Module) -> None:
+        """Restore what :meth:`state_dict` returned, onto the moments'
+        own device, matched by name in ``model``."""
+        names = self._names(model)
+        for key in ('mu', 'nu'):
+            if set(state[key]) != set(names):
+                raise KeyError(f'optimiser state {key!r} does not hold the '
+                               f'model\'s parameters: '
+                               f'{sorted(set(state[key]) ^ set(names))[:4]}')
+            for name, t in zip(names, getattr(self, key)):
+                t.copy_(state[key][name])
+        self.count = int(state['count'])
 
 
 def make_optimizer(config, params: Iterable[torch.nn.Parameter]) -> RAdam:

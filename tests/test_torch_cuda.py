@@ -27,7 +27,9 @@ and more (sample, tile) items than resident blocks, against the plain
 version and bit for bit against a chain of flow-step launches and against
 itself; 12 steps on the same ragged masks over NaN-planted buffers, bit for
 bit against the chain and itself, with the tiles it reports against its
-twin.
+twin.  The trainer at the shipped width, batch 2: 2 steps, a restore from
+``S_2.pt`` in a new trainer and 2 more against 4 straight steps, the CUDA
+generator's state through the checkpoint.
 Needs a GPU and nvcc; skipped without.
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -879,3 +881,63 @@ def test_flow_stack_wrapper_refuses_what_the_kernel_does_not_take(device):
         tc.flow_stack(x, mask, dict(w, ld_const=w['ld_const'][:1]), cond)
     with pytest.raises(RuntimeError, match='no backward'):
         tc.flow_stack(x.clone().requires_grad_(), mask, w, cond)
+
+
+def test_trainer_resumes_on_the_card(device, tmp_path):
+    """The trainer at the shipped width, batch 2, on 6 train patterns (3
+    batches an epoch) with dropout on: 2 steps, a new ``Trainer`` that
+    restores ``S_2.pt`` (the CUDA generator's philox state with it) and 2
+    more, against 4 straight steps, with cuDNN as the trainer sets it;
+    every parameter within 1e-5 of its max-abs, as ``chip_smoke.py``
+    holds them."""
+    import dataclasses
+    import os
+    from glow_tts_tpu_torch.config import PatternConfig, load_config
+    from glow_tts_tpu_torch.training.trainer import Trainer
+    from glow_tts_tpu_torch.utils.logging import NullWriter
+    # from the test directory, which pytest puts on the path: a package
+    # named ``tests`` elsewhere on the path may hide this one
+    from torch_patterns import write_pattern_archive
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(repo, 'configs', 'Hyper_Parameters.yaml'))
+    root = str(tmp_path)
+    write_pattern_archive(f'{root}/train', 6, cfg.sound, 0, mel=(50, 200),
+                          text=(10, 40))
+    write_pattern_archive(f'{root}/eval', 3, cfg.sound, 1, mel=(50, 200),
+                          text=(10, 40))
+
+    def trainer(run, max_step):
+        train = dataclasses.replace(
+            cfg.train, batch_size=2, num_workers=2, max_step=max_step,
+            train_pattern=PatternConfig(path=f'{root}/train'),
+            eval_pattern=PatternConfig(path=f'{root}/eval'),
+            checkpoint_save_interval=2, logging_interval=2,
+            evaluation_interval=4, inference_interval=100)
+        null = NullWriter()
+        return Trainer(dataclasses.replace(
+            cfg, train=train, checkpoint_path=f'{root}/{run}/ckpt',
+            log_path=f'{root}/{run}/log'), device=device,
+            max_mel_length=256, writers={'train': null, 'eval': null})
+
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = False
+    try:
+        whole = trainer('whole', 4)
+        assert torch.backends.cudnn.deterministic
+        assert not torch.backends.cudnn.benchmark
+        whole.train()
+        trainer('resumed', 2).train()
+        resumed = trainer('resumed', 4)
+        assert resumed.step == 2
+        resumed.train()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = cudnn
+    assert resumed.optimizer.count == whole.optimizer.count == 4
+    assert torch.equal(resumed.generator.get_state(),
+                       whole.generator.get_state())
+    for (name, a), (_, b) in zip(whole.model.named_parameters(),
+                                 resumed.model.named_parameters()):
+        assert _rel(b, a) <= 1e-5, name

@@ -93,6 +93,52 @@ def test_relative_tables(length):
         np.asarray(ja.skewed_relative_table(rel_ref, length)))
 
 
+@pytest.mark.parametrize('length', [1, 9, 64])
+def test_relative_table_gradient_is_the_same_every_run(length):
+    """The skew table's gradient against ``jax.vjp`` of the JAX one, and
+    bit-equal over repeated runs with other allocations in between (an
+    index gather's backward accumulated in a varying order at 64)."""
+    rng = np.random.default_rng(length)
+    emb = rng.standard_normal((1, 5, 8)).astype(np.float32)
+    cot = rng.standard_normal((1, length, length, 8)).astype(np.float32)
+    _, vjp = jax.vjp(lambda e: ja.skewed_relative_table(
+        ja.clip_relative_embedding(e, length), length), jnp.asarray(emb))
+    ref = vjp(jnp.asarray(cot))[0]
+
+    def grad():
+        leaf = t(emb).requires_grad_()
+        table = ta.skewed_relative_table(
+            ta.clip_relative_embedding(leaf, length), length)
+        (table * t(cot)).sum().backward()
+        return leaf.grad
+
+    first, held = grad(), []
+    _close(first, ref)
+    for i in range(20):
+        held.append(torch.empty(7 * i + 1))
+        assert torch.equal(grad(), first), i
+
+
+def test_embedding_is_the_library_lookup():
+    """The encoder's ``Embedding``: the values of ``nn.Embedding`` and its
+    weight gradient (a product with the one-hot tokens), repeated tokens
+    summed, unused rows zero."""
+    gen = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, 12, (3, 40), generator=gen, dtype=torch.int32)
+    tokens[:, -5:] = 1
+    grad = torch.randn((3, 40, 6), generator=gen)
+    ours, ref = tl.Embedding(15, 6), torch.nn.Embedding(15, 6)
+    with torch.no_grad():
+        ref.weight.copy_(ours.weight)
+    out, out_ref = ours(tokens), ref(tokens.long())
+    assert torch.equal(out, out_ref)
+    (out * grad).sum().backward()
+    (out_ref * grad).sum().backward()
+    torch.testing.assert_close(ours.weight.grad, ref.weight.grad,
+                               rtol=1e-6, atol=1e-6)
+    assert (ours.weight.grad[12:] == 0).all()
+
+
 @pytest.mark.parametrize('skew_table', [True, False])
 def test_relative_attention(skew_table, monkeypatch):
     """The port's skew-table formulation against both JAX formulations
