@@ -26,13 +26,19 @@ trains 2 more; A and B must agree within 1e-5 (cuDNN deterministic, as
 kernels, the checkpoint directory serves a TSV through ``Inferencer``, and
 the data-fed loop (over a larger archive, inside one epoch) beside the
 same batches copied and already on the card, both batch copies, a save
-and an evaluation are timed.  Exits
+and an evaluation are timed.  Before the trainer, the conditioned modes
+at the same width (``Mode`` GR, SE with the look-up table or GE2E, PE):
+the pitch builds of the flow step, the coupling and the stack against
+their plain versions and timed beside the Vanilla builds, GR served at
+B = 32 in the 1024-frame bucket under each route, SE and PE served once
+each, and the GR forward on the eval batch.  Exits
 non-zero on any failure and when no CUDA device is present; the last line
 is one JSON object naming the card.
 """
 
 import copy
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -180,10 +186,13 @@ def live_tiles(mask, launch, steps=1, stack=False):
 
 
 COUNTERS = ('flow_step', 'coupling', 'flow_stack', 'mas', 'train_fwd',
-            'train_recompute', 'train_bwd')
+            'train_recompute', 'train_bwd', 'flow_step_pitch',
+            'coupling_pitch', 'flow_stack_pitch')
 # the deterministic decoder's routes (``config.coupling_backend``): the
 # counter of the kernel each goes through
 ROUTES = {'fused': 'flow_step', 'modules': 'coupling', 'mega': 'flow_stack'}
+# and of its pitch instantiation (GR mode with a pitch track)
+PITCH_ROUTES = {route: f'{counter}_pitch' for route, counter in ROUTES.items()}
 
 
 def launch_counters():
@@ -196,14 +205,18 @@ def launch_counters():
         (flow_stack, 'launches'), (maximum_path, 'launches'),
         (flow_stack_train, 'forward_launches'),
         (flow_stack_train, 'recompute_launches'),
-        (flow_stack_train, 'backward_launches'))))
+        (flow_stack_train, 'backward_launches'),
+        (flow_step, 'pitch_launches'), (coupling, 'pitch_launches'),
+        (flow_stack, 'pitch_launches'))))
 
 
-def route_launches(route, config, passes=1):
+def route_launches(route, config, passes=1, pitch=False):
     """The flow launches of ``passes`` decoder passes under ``route``: one
-    per flow step, or one in all under ``'mega'``; every other count 0."""
+    per flow step, or one in all under ``'mega'``, of the pitch
+    instantiation with ``pitch``; every other count 0."""
     per_pass = 1 if route == 'mega' else config.decoder.stack
-    return {**dict.fromkeys(COUNTERS, 0), ROUTES[route]: per_pass * passes}
+    counter = (PITCH_ROUTES if pitch else ROUTES)[route]
+    return {**dict.fromkeys(COUNTERS, 0), counter: per_pass * passes}
 
 
 def plain_flow_fns():
@@ -242,7 +255,8 @@ def coupling_weights(weights):
     tensor-core layout."""
     from glow_tts_tpu_torch.ops.coupling import COUPLING_WEIGHT_KEYS, TC_KEYS
     return {key: weights[key]
-            for key in (*COUPLING_WEIGHT_KEYS, *TC_KEYS.values())}
+            for key in (*COUPLING_WEIGHT_KEYS, *TC_KEYS.values())
+            if key in weights}
 
 
 def ragged_batch(gen, b, t, c, device):
@@ -1035,6 +1049,7 @@ def profile_window(label, fn, repeats, warmup=2):
           f'(device idle {100 * (1 - busy_ms / wall_ms):.1f} % of the window)')
     for ms, count, key in rows[:10]:
         print(f'  {ms:9.3f} ms  {count:5d} x  {key[:90]}')
+    return 1 - busy_ms / wall_ms
 
 
 def train_model(state_dict, config, device):
@@ -1464,7 +1479,7 @@ def time_training(config, batch, x, mask, weights, device):
     enc_gen = torch.Generator(device=device).manual_seed(SEED)
 
     def encoder_both():
-        outs = encoder(tokens, token_mask, False, enc_gen)
+        outs = encoder(tokens, token_mask, None, False, enc_gen)
         sum(out.sum() for out in outs).backward()
 
     def pack_both():
@@ -1869,6 +1884,382 @@ def run_trainer_phase(config, device, card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the conditioned modes: SE (look-up table or GE2E), PE and GR
+# ---------------------------------------------------------------------------
+
+GR_BATCH = 32              # the conditioned phase's serving batch
+REF_FRAMES = 1000          # its longest prosody reference mel
+MODE_BATCH = 8             # SE-LUT, SE-GE2E and PE: one batch each
+CLASSIFIED_REL_BOUND = 1e-4
+
+
+def mode_config(mode, route='fused'):
+    """The shipped YAML in ``mode`` (``'SE-LUT'``, ``'SE-GE2E'``, ``'PE'``,
+    ``'GR'``) under ``route``."""
+    import yaml
+    from glow_tts_tpu_torch import load_config
+    with open(CONFIG, encoding='utf-8') as f:
+        data = yaml.safe_load(f)
+    data['Mode'] = mode.split('-')[0]
+    if mode == 'SE-GE2E':
+        data['Speaker_Embedding']['Type'] = 'GE2E'
+    return dataclasses.replace(load_config(data), coupling_backend=route)
+
+
+def conditioned_items(config, texts, seed):
+    """Serving items with what every mode reads, as arrays from ``seed``: a
+    speaker id, a GE2E reference mel, a prosody reference mel (the first
+    ``REF_FRAMES`` long, the others shorter) and a pitch track."""
+    from glow_tts_tpu_torch.text import text_filtering
+    rng = np.random.default_rng(seed)
+    a, m = config.sound.max_abs_mel, config.sound.mel_dim
+    return [{'label': f'c{i}', 'text': text_filtering(text),
+             'speaker_id': int(rng.integers(
+                 config.speaker_embedding.num_speakers)),
+             'mel_for_ge2e': rng.uniform(
+                 -a, a, (int(rng.integers(100, 400)), m)).astype(np.float32),
+             'mel_for_prosody': rng.uniform(
+                 -a, a, (REF_FRAMES if i == 0 else
+                         int(rng.integers(REF_FRAMES // 4, REF_FRAMES)), m)
+             ).astype(np.float32),
+             'pitch': rng.random(int(rng.integers(REF_FRAMES // 5, REF_FRAMES))
+                                 ).astype(np.float32)}
+            for i, text in enumerate(texts)]
+
+
+def prior_of(inferencer, items):
+    """Phase 1 of serving on ``items`` through the inferencer's own batch."""
+    batch = inferencer.batch(items)
+    prior = inferencer.model.inference_prior(
+        batch['tokens'], batch['token_lengths'], batch['length_scales'],
+        batch.get('mels_for_prosody'), batch.get('mel_lengths_for_prosody'),
+        batch.get('speakers'), batch.get('mels_for_ge2e'))
+    return batch, prior
+
+
+@torch.no_grad()
+def check_pitch_kernels(model, device, eval_mask):
+    """The pitch instantiations of #3, #2 and #4 against their plain
+    versions at B = 32, T = 512, all frames valid and on the eval batch's
+    ragged mask, both directions, on a GR model's weights and per-sample
+    conditioning rows; #4's z bit for bit against 12 chained launches of #3
+    with pitch.  Each is timed beside its Vanilla instantiation on the same
+    inputs (Vanilla, pitch, pitch, Vanilla), with its plain version and the
+    bounds of the work on the valid frames (the pitch term adds 2 · ps ·
+    2ch operations a frame and layer, and the pitch operand's bytes)."""
+    from glow_tts_tpu_torch.ops.coupling import (
+        PITCH_SIZE, WEIGHT_KEYS, coupling, coupling_reference, flow_stack,
+        flow_stack_reference, flow_step, flow_step_reference, kernel_keys)
+    decoder = model.layer_Dict['Decoder']
+    flows = list(decoder.layer_Dict['Flows'])
+    step = flows[0]
+    c = step.layers[0].logs.shape[1]
+    gen = torch.Generator().manual_seed(SEED + 20)
+    x, _ = ragged_batch(gen, GR_BATCH, 512, c, device)
+    speakers = torch.randint(model.config.speaker_embedding.num_speakers,
+                             (GR_BATCH,), generator=gen).to(device)
+    prosody = (torch.randn((GR_BATCH, model.config.prosody_encoder.size),
+                           generator=gen) * 0.3).to(device)
+    cond = decoder.conditioning(GR_BATCH, model.layer_Dict['LUT'](speakers),
+                                prosody, pitch=True)     # [S, n, B, 2ch]
+    pitch = torch.rand((GR_BATCH, 512, PITCH_SIZE), generator=gen).to(device)
+    xe = (x[:, :eval_mask.shape[1]] * eval_mask).contiguous()
+    shapes = {'decode': (x, torch.ones_like(x[..., :1])),
+              'eval': (xe, eval_mask)}
+    stacked = {r: decoder.stacked_weights(r) for r in (False, True)}
+    own = {**coupling_weights(step.weights(False)),
+           'w_pitch': step.weights(False)['w_pitch']}
+    n, ch2 = own['w_pitch'].shape[0], own['w_pitch'].shape[-1]
+    pitch_flops = 2 * PITCH_SIZE * ch2 * n          # a frame and step
+
+    def weight_count(weights):
+        return sum(weights[key].numel() for key in kernel_keys(
+            (*WEIGHT_KEYS, 'ld_const', 'w_pitch')) if key in weights)
+
+    kernels = {
+        'flow_step': (
+            1, lambda xs, m: 4 * (2 * xs.numel() + m.numel() + cond[0].numel()
+                                  + xs.shape[0] + pitch.numel()
+                                  + weight_count(step.weights(False))),
+            step_frame_flops(step.weights(False)),
+            lambda xs, m, r, p: flow_step(xs, m, step.weights(r), cond[0], r,
+                                          pitch=p),
+            lambda xs, m, r, p: flow_step_reference(xs, m, step.weights(r),
+                                                    cond[0], r, p), 20),
+        'coupling': (
+            1, lambda xs, m: 4 * (xs.numel() + xs.numel() // 2 + m.numel()
+                                  + cond[0].numel() + xs.shape[0]
+                                  + pitch.numel() + weight_count(own)),
+            step_frame_flops(own),
+            lambda xs, m, r, p: coupling(xs[..., :c // 2], xs[..., c // 2:],
+                                         m, own, cond[0], pitch=p, reverse=r),
+            lambda xs, m, r, p: coupling_reference(
+                xs[..., :c // 2], xs[..., c // 2:], m, own, cond[0], p, r),
+            20),
+        'flow_stack': (
+            len(flows), lambda xs, m: 4 * (2 * xs.numel() + m.numel()
+                                           + cond.numel() + xs.shape[0]
+                                           + pitch.numel()
+                                           + weight_count(stacked[False])),
+            step_frame_flops(step.weights(False)),
+            lambda xs, m, r, p: flow_stack(xs, m, stacked[r], cond, p, r),
+            lambda xs, m, r, p: flow_stack_reference(xs, m, stacked[r], cond,
+                                                     p, r), 5)}
+    rows = {}
+    for name, (steps, moved, frame_flops, kernel_fn, plain_fn,
+               iters) in kernels.items():
+        row = {'max_abs_err': 0.0}
+        for shape, (xs, m) in shapes.items():
+            for reverse in (False, True):
+                z_k, ld_k = kernel_fn(xs, m, reverse, pitch)
+                z_p, ld_p = plain_fn(xs, m, reverse, pitch)
+                torch.cuda.synchronize()
+                err, rel = (z_k - z_p).abs().max().item(), rel_err(z_k, z_p)
+                line = (f'{name} pitch instantiation vs plain, {shape} shape '
+                        f'reverse={reverse}: max abs err {err:.3e}, max rel '
+                        f'err {rel:.3e}')
+                assert torch.isfinite(z_k).all(), line
+                assert rel < Z_REL_BOUND, line
+                if not reverse:
+                    ld_rel = rel_err(ld_k, ld_p)
+                    line += f', logdet rel err {ld_rel:.3e}'
+                    assert ld_rel < LD_REL_BOUND, line
+                if name == 'flow_stack':
+                    chained = xs
+                    for k in (reversed(range(steps)) if reverse
+                              else range(steps)):
+                        chained, _ = flow_step(chained, m,
+                                               flows[k].weights(reverse),
+                                               cond[k], reverse, pitch=pitch)
+                    same = torch.equal(z_k, chained)
+                    line += (f'; z bit-equal to {steps} chained flow-step '
+                             f'launches with pitch: {same}')
+                    assert same, line
+                print(line)
+                row['max_abs_err'] = max(row['max_abs_err'], err)
+            valid = m.sum().item()
+            flops = (frame_flops + pitch_flops) * valid * steps
+            bounds = body_bounds(moved(xs, m), flops)
+            vanilla_bounds = body_bounds(moved(xs, m) - 4 * pitch.numel(),
+                                         frame_flops * valid * steps)
+            for reverse in (True, False):
+                pitch_ms, vanilla_ms = paired_ms(
+                    lambda: kernel_fn(xs, m, reverse, pitch),
+                    lambda: kernel_fn(xs, m, reverse, None), iters)
+                plain_ms = cuda_ms(lambda: plain_fn(xs, m, reverse, pitch),
+                                   1, 1)
+                print(f'{name} {shape} shape ({int(valid)} valid frames) '
+                      f'reverse={reverse}: pitch instantiation {pitch_ms:.4f}'
+                      f' ms, Vanilla instantiation {vanilla_ms:.4f} ms on '
+                      f'the same inputs (bound {vanilla_bounds["bound_ms"]:.4f}'
+                      f'), plain with pitch {plain_ms:.4f} ms; bound '
+                      f'{bounds["bound_ms"]:.4f} ms by {bounds["bound_by"]} '
+                      f'at the TF32 peak ({bounds["fma_bound_ms"]:.4f} ms at '
+                      f'the f32 FMA peak)')
+                key = ('' if shape == 'decode' else 'eval_shape_') + (
+                    '' if reverse else 'forward_')
+                row.update({f'{key}ms': pitch_ms,
+                            f'{key}vanilla_ms': vanilla_ms,
+                            f'{key}plain_ms': plain_ms})
+            if shape == 'decode':
+                row.update(bounds)
+            else:
+                row['eval_shape_bound_ms'] = bounds['bound_ms']
+        rows[name] = row
+    return rows
+
+
+def serve_gr(inferencers, vanilla_models, device):
+    """GR serving at B = 32 in the 1024-frame bucket under each route,
+    through ``Inferencer.synthesize_items`` (counted), the decode through
+    the kernels against their plain versions and between the routes, timed
+    beside a Vanilla model's decode of the same tokens and durations (so
+    the same valid frames), with a profiler window; and the prior phase
+    alone (the GST over reference mels of up to 1000 frames, the
+    encoder)."""
+    config = inferencers['fused'].config
+    items = conditioned_items(config, [INFERENCE_TEXTS[i % 4]
+                                       for i in range(GR_BATCH)], SEED + 30)
+    # one length scale that puts the longest request near 960 frames
+    _, prior = prior_of(inferencers['fused'], items)
+    scale = 960.0 / prior['durations'].sum(dim=1).max().item()
+    items = [dict(item, length_scale=scale) for item in items]
+    by_path, mels = {}, {}
+    for route, inferencer in inferencers.items():
+        zero_counts()
+        results = inferencer.synthesize_items(items, seed=SEED)
+        launches = read_counts()
+        expected = route_launches(route, config, 1, pitch=True)
+        print(f'GR: served {len(results)} requests in one decode under '
+              f'{route!r}: launches {launches}')
+        assert launches == expected, (launches, expected)
+        for r in results:
+            assert r['bucket'] == 1024, r['bucket']
+            assert np.isfinite(r['mel']).all(), r['label']
+            assert (r['attention'].sum(axis=0) == 1).all(), r['label']
+        by_path[f'serve GR {route}'] = launches
+
+        model = inferencer.model
+        batch, prior = prior_of(inferencer, items)
+        noise = torch.randn((GR_BATCH, 1024, config.sound.mel_dim),
+                            generator=torch.Generator(device=device)
+                            .manual_seed(SEED + 31), device=device)
+        pitch_args = {'pitches': batch['pitches'],
+                      'pitch_lengths': batch['pitch_lengths']}
+        out_k = model.inference_decode(prior, noise=noise,
+                                       max_mel_length=1024, **pitch_args)
+        out_p = model.inference_decode(prior, noise=noise,
+                                       max_mel_length=1024, **pitch_args,
+                                       **plain_flow_fns())
+        valid = (torch.arange(1024, device=device)[None, :]
+                 < out_k['mel_lengths'][:, None])[..., None]
+        denom = valid.sum() * config.sound.mel_dim
+
+        def mae(a, b):
+            return (((a - b).abs() * valid).sum() / denom).item()
+
+        kernel_mae = mae(out_k['mels'], out_p['mels'])
+        mels[route] = out_k['mels']
+        line = (f'GR decode under {route!r} B={GR_BATCH} bucket 1024 '
+                f'({int(valid.sum())} valid frames), kernels vs plain: mel '
+                f'MAE {kernel_mae:.3e}')
+        if route != 'fused':
+            between = mae(out_k['mels'], mels['fused'])
+            line += f'; vs \'fused\' {between:.3e}'
+            assert between < MEL_MAE_BOUND, line
+        print(line)
+        assert kernel_mae < MEL_MAE_BOUND, line
+
+        gen = torch.Generator(device=device)
+        vanilla = vanilla_models[route]
+        vanilla_prior = {**vanilla.inference_prior(
+            batch['tokens'], batch['token_lengths'], batch['length_scales']),
+            'durations': prior['durations']}
+        gr_ms, vanilla_ms = paired_ms(
+            lambda: model.inference_decode(prior, generator=gen,
+                                           max_mel_length=1024, **pitch_args),
+            lambda: vanilla.inference_decode(vanilla_prior, generator=gen,
+                                             max_mel_length=1024), 5)
+        idle = profile_window(
+            f'GR decodes under {route!r}',
+            lambda: model.inference_decode(prior, generator=gen,
+                                           max_mel_length=1024, **pitch_args),
+            3)
+        print(f'GR decode phase under {route!r} B={GR_BATCH} bucket 1024: '
+              f'{gr_ms:.3f} ms ({GR_BATCH * 1024 / gr_ms * 1e3:.0f} mel '
+              f'frames/s of capacity), device idle '
+              f'{100 * (idle or 0):.1f} % of its window; a Vanilla decode '
+              f'of the same valid frames in the same call {vanilla_ms:.3f} '
+              f'ms')
+
+    model = inferencers['fused'].model
+    batch = inferencers['fused'].batch(items)
+    gst = model.layer_Dict['Prosody_Encoder']
+    prior_ms = cuda_ms(lambda: prior_of(inferencers['fused'], items), 5)
+
+    def gst_alone():
+        with torch.no_grad():
+            gst(batch['mels_for_prosody'], batch['mel_lengths_for_prosody'])
+
+    gst_ms = cuda_ms(gst_alone, 5)
+    vanilla_prior_ms = cuda_ms(lambda: vanilla_models['fused'].inference_prior(
+        batch['tokens'], batch['token_lengths'], batch['length_scales']), 5)
+    print(f'GR prior phase B={GR_BATCH} (reference mels of up to '
+          f'{REF_FRAMES} frames, padded to '
+          f'{batch["mels_for_prosody"].shape[1]}; {batch["tokens"].shape[1]} '
+          f'token slots): {prior_ms:.3f} ms with the host\'s collation, the '
+          f'GST alone {gst_ms:.3f} ms; the Vanilla prior of the same tokens '
+          f'{vanilla_prior_ms:.3f} ms')
+    return by_path
+
+
+def serve_other_modes(device):
+    """SE with the look-up table, SE with GE2E and PE, one batch of
+    ``MODE_BATCH`` texts each through ``Inferencer`` (counted: the Vanilla
+    instantiation of #3, 12 launches): finite mels whose lengths are the
+    predicted durations' sums, cut as the decode cuts them."""
+    from glow_tts_tpu_torch import Inferencer, random_state_dict
+    by_path = {}
+    for mode in ('SE-LUT', 'SE-GE2E', 'PE'):
+        config = mode_config(mode)
+        inferencer = Inferencer(random_state_dict(config, SEED), config,
+                                device, batch_size=MODE_BATCH)
+        items = conditioned_items(config, [INFERENCE_TEXTS[i % 4] for i in
+                                           range(MODE_BATCH)], SEED + 40)
+        zero_counts()
+        results = inferencer.synthesize_items(items, seed=SEED)
+        launches = read_counts()
+        assert launches == route_launches('fused', config), launches
+        _, prior = prior_of(inferencer, items)
+        s = config.decoder.num_squeeze
+        for r, total in zip(results, prior['durations'].sum(dim=1).tolist()):
+            expected = max(int(min(max(total, 1), r['bucket'])) // s * s, s)
+            assert r['mel'].shape[0] == expected, (mode, r['label'])
+            assert np.isfinite(r['mel']).all(), (mode, r['label'])
+            assert (r['attention'].sum(axis=0) == 1).all(), (mode, r['label'])
+        print(f'{mode}: served {len(results)} requests through Inferencer, '
+              f'mel frames {[r["mel"].shape[0] for r in results]}, launches '
+              f'{launches}')
+        by_path[f'serve {mode}'] = launches
+    return by_path
+
+
+def check_gr_forward(model, batch, device):
+    """The deterministic GR forward on the eval batch (speakers and pitch
+    tracks from the seed): kernels (#3 with pitch, MAS) against the plain
+    versions, z and logdets to the kernel bars, the path equal in every
+    element, the classifier's logits."""
+    from glow_tts_tpu_torch.ops.mas import maximum_path_reference
+    gen = torch.Generator().manual_seed(SEED + 50)
+    b, t_mel = batch['mels'].shape[:2]
+    extra = {'speakers': torch.randint(
+                 model.config.speaker_embedding.num_speakers, (b,),
+                 generator=gen).to(device),
+             'pitches': torch.rand((b, t_mel), generator=gen).to(device)}
+    args = (batch['tokens'], batch['token_lengths'], batch['mels'],
+            batch['mel_lengths'])
+    with torch.no_grad():
+        zero_counts()
+        out_k = model(*args, **extra)
+        launches = read_counts()
+        out_p = model(*args, **extra, mas_fn=maximum_path_reference,
+                      **plain_flow_fns())
+    expected = {**route_launches('fused', model.config, pitch=True), 'mas': 1}
+    assert launches == expected, launches
+    z_rel = rel_err(out_k['z'], out_p['z'])
+    ld_rel = rel_err(out_k['log_dets'], out_p['log_dets'])
+    same = torch.equal(out_k['attentions'], out_p['attentions'])
+    cls_rel = rel_err(out_k['classified_speakers'],
+                      out_p['classified_speakers'])
+    line = (f'GR forward on the eval batch {tuple(batch["mels"].shape)}, '
+            f'kernels vs plain: z rel err {z_rel:.3e}, logdet rel err '
+            f'{ld_rel:.3e}, MAS path equal: {same}, classified speakers rel '
+            f'err {cls_rel:.3e}; launches {launches}')
+    print(line)
+    assert z_rel < Z_REL_BOUND and ld_rel < LD_REL_BOUND, line
+    assert same and cls_rel < CLASSIFIED_REL_BOUND, line
+    return {'forward GR': launches}
+
+
+def run_conditioned_phase(vanilla_models, eval_batch, eval_mask, device):
+    """The conditioned modes at the shipped width, random weights from
+    ``SEED``: the pitch instantiations' checks and times, GR serving under
+    each route, SE (LUT, GE2E) and PE serving, the GR forward."""
+    from glow_tts_tpu_torch import Inferencer, random_state_dict
+    gr = mode_config('GR')
+    state = random_state_dict(gr, SEED)
+    inferencers = {route: Inferencer(
+        state, dataclasses.replace(gr, coupling_backend=route), device,
+        batch_size=GR_BATCH) for route in ROUTES}
+    rows = check_pitch_kernels(inferencers['fused'].model, device, eval_mask)
+    by_path = serve_gr(inferencers, vanilla_models, device)
+    by_path.update(serve_other_modes(device))
+    by_path.update(check_gr_forward(inferencers['fused'].model, eval_batch,
+                                    device))
+    return rows, by_path
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: no CUDA device; this script runs on a GPU only')
@@ -1885,19 +2276,28 @@ def main():
     print(f'card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}')
 
     begun = start = time.perf_counter()
-    sources = {'flow_step.cu': coupling.load_flow_step_library,
-               'coupling.cu': coupling.load_coupling_library,
-               'flow_stack.cu': coupling.load_flow_stack_library,
-               'mas.cu': mas.load_mas_library,
-               'flow_train_fwd.cu': coupling_grad.load_train_forward_library,
-               'flow_train_bwd.cu': coupling_grad.load_train_backward_library}
+    # (source, defines): the six libraries, and the pitch instantiations of
+    # #3, #2 and #4 (GR mode) as libraries of their own
+    sources = {('flow_step.cu', ()): coupling.load_flow_step_library,
+               ('coupling.cu', ()): coupling.load_coupling_library,
+               ('flow_stack.cu', ()): coupling.load_flow_stack_library,
+               ('mas.cu', ()): mas.load_mas_library,
+               ('flow_train_fwd.cu', ()):
+                   coupling_grad.load_train_forward_library,
+               ('flow_train_bwd.cu', ()):
+                   coupling_grad.load_train_backward_library,
+               **{(source, coupling.PITCH_BUILD): functools.partial(load, True)
+                  for source, load in (
+                      ('flow_step.cu', coupling.load_flow_step_library),
+                      ('coupling.cu', coupling.load_coupling_library),
+                      ('flow_stack.cu', coupling.load_flow_stack_library))}}
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc each, together
         for build in [pool.submit(load) for load in sources.values()]:
             build.result()
     print(f'{len(sources)} kernel libraries built and loaded in '
           f'{time.perf_counter() - start:.1f} s')
-    for source in sources:
-        for line in cuda_build.ptxas_report(source):
+    for source, defines in sources:
+        for line in cuda_build.ptxas_report(source, defines):
             print(f'  ptxas {line}')
 
     config = load_config(CONFIG)
@@ -1973,6 +2373,11 @@ def main():
     fwd_times, bwd_times = time_training(config, batches[0], x, mask,
                                          weights, device)
     profile_window('eval steps', lambda: eval_step(batches[0]), 3)
+    # the conditioned modes: GR's pitch instantiations, serving, the forward
+    pitch_rows, conditioned_paths = run_conditioned_phase(
+        {route: inferencers[route].model for route in ROUTES}, batches[0],
+        mask, device)
+    by_path.update(conditioned_paths)
     by_path.update(run_trainer_phase(config, device, card))
 
     def launches(counter):
@@ -2015,7 +2420,20 @@ def main():
          **launches('train_bwd'),
          'recompute_launches': sum(counts['train_recompute']
                                    for counts in by_path.values()),
-         'max_abs_err': bwd_err, **bwd_times, 'library_ms': None}]}))
+         'max_abs_err': bwd_err, **bwd_times, 'library_ms': None},
+        # GR mode's pitch operand: each flow kernel's build with GLOW_PITCH
+        *({'name': f'{name}_pitch', 'route': 'cuda',
+           'source': csrc + f'{name}.cu', 'build': '-DGLOW_PITCH',
+           'replaces': replaces, 'entry': entry,
+           **launches(f'{name}_pitch'), **pitch_rows[name],
+           'library_ms': None}
+          for name, replaces, entry in (
+              ('flow_step', 'glow_tts_tpu/ops/coupling.py:190',
+               'fused_flow_step'),
+              ('coupling', 'glow_tts_tpu/ops/coupling.py:190',
+               'fused_coupling'),
+              ('flow_stack', 'glow_tts_tpu/ops/coupling.py:296',
+               'fused_flow_stack')))]}))
     print(f'chip_smoke: {time.perf_counter() - begun:.0f} s in all, the '
           f'kernels\' build included')
     print(card)

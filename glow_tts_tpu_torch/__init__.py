@@ -1,6 +1,7 @@
-"""glow_tts_tpu_torch — Glow-TTS in PyTorch: Vanilla serving, the
-loss/eval path, the train step and the trainer around it (pattern
-datasets, the loader, checkpoints with exact resume, the CLI), with the
+"""glow_tts_tpu_torch — Glow-TTS in PyTorch: serving in the four modes
+(Vanilla, SE, PE, GR) and, in Vanilla mode, the loss/eval path, the train
+step and the trainer around it (pattern datasets, the loader, checkpoints
+with exact resume, the CLI), with the
 decoder's flow step, its coupling alone, the whole flow stack in one
 launch (the three routes of ``config.coupling_backend``), the monotonic
 alignment search and the train-direction flow stack (forward and
@@ -13,7 +14,7 @@ imports torch and never jax.
 """
 
 from glow_tts_tpu_torch.config import Config, load_config
-from glow_tts_tpu_torch.data.collate import TrainCollater
+from glow_tts_tpu_torch.data.collate import InferenceCollater, TrainCollater
 from glow_tts_tpu_torch.inference import Inferencer
 from glow_tts_tpu_torch.models.glow_tts import (GlowTTS, initial_state_dict,
                                                 random_state_dict)
@@ -25,8 +26,8 @@ from glow_tts_tpu_torch.training.step import (attention_diagonality,
                                               make_train_step)
 from glow_tts_tpu_torch.training.trainer import Trainer
 
-__all__ = ['CheckpointManager', 'Config', 'GlowTTS', 'Inferencer',
-           'TrainCollater', 'Trainer', 'attention_diagonality',
+__all__ = ['CheckpointManager', 'Config', 'GlowTTS', 'InferenceCollater',
+           'Inferencer', 'TrainCollater', 'Trainer', 'attention_diagonality',
            'batch_to_device', 'build_model', 'initial_state_dict',
            'load_config', 'make_eval_step', 'make_optimizer',
            'make_train_step', 'random_state_dict']

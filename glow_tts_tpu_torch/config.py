@@ -3,10 +3,11 @@
 It loads the same YAML schema as ``glow_tts_tpu.config.load_config``
 (``configs/Hyper_Parameters.yaml``) and exposes the same attribute names
 (``config.encoder.channels``, ``config.decoder.affine_coupling`` …), so
-either object drives the port.  Only the fields of Vanilla-mode serving,
-of the loss/eval path, of the train step (dropout rates, optimiser) and of
-the trainer (pattern sets, intervals, output paths) are kept; unknown keys
-are ignored, as there.  A CPU test holds every field against
+either object drives the port.  Only the fields of serving in the four
+modes (Vanilla, SE, PE, GR: the conditioning encoders' widths), of the
+loss/eval path, of the train step (dropout rates, optimiser) and of the
+trainer (pattern sets, intervals, output paths) are kept; unknown keys are
+ignored, as there.  A CPU test holds every field against
 ``glow_tts_tpu.config`` on the same input.  :func:`save_config` writes the
 snapshot a checkpoint directory carries, which :func:`load_config` reads
 back to an equal ``Config``.
@@ -25,9 +26,11 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Mapping, Optional
+from typing import Any, Mapping, Optional, Tuple
 
 import yaml
+
+MODES = ('VANILLA', 'SE', 'PE', 'GR')
 
 
 @dataclass(frozen=True)
@@ -108,6 +111,76 @@ class DecoderConfig:
 
 
 @dataclass(frozen=True)
+class GE2ELSTMConfig:
+    sizes: int = 256
+    stacks: int = 3
+
+
+@dataclass(frozen=True)
+class GE2EInferenceConfig:
+    samples: int = 5
+    slice_length: int = 64
+    overlap_length: int = 32
+
+
+@dataclass(frozen=True)
+class GE2EConfig:
+    lstm: GE2ELSTMConfig = field(default_factory=GE2ELSTMConfig)
+    inference: GE2EInferenceConfig = field(
+        default_factory=GE2EInferenceConfig)
+    checkpoint_path: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class SpeakerEmbeddingConfig:
+    type: str = 'LUT'           # 'LUT' | 'GE2E'
+    num_speakers: int = 109
+    embedding_size: int = 256
+    ge2e: GE2EConfig = field(default_factory=GE2EConfig)
+
+
+@dataclass(frozen=True)
+class ReferenceEncoderConvConfig:
+    kernel_size: Tuple[int, ...] = (3, 3, 3, 3, 3, 3)
+    channels: Tuple[int, ...] = (32, 32, 64, 64, 128, 128)
+    strides: Tuple[int, ...] = (2, 2, 2, 2, 2, 2)
+
+
+@dataclass(frozen=True)
+class ReferenceEncoderGRUConfig:
+    size: int = 128
+    stacks: int = 1
+
+
+@dataclass(frozen=True)
+class ReferenceEncoderConfig:
+    conv: ReferenceEncoderConvConfig = field(
+        default_factory=ReferenceEncoderConvConfig)
+    gru: ReferenceEncoderGRUConfig = field(
+        default_factory=ReferenceEncoderGRUConfig)
+
+
+@dataclass(frozen=True)
+class StyleTokenConfig:
+    num_tokens: int = 128
+    size: int = 256
+    attention_head: int = 4
+
+
+@dataclass(frozen=True)
+class ProsodyEncoderConfig:
+    size: int = 256
+    reference_encoder: ReferenceEncoderConfig = field(
+        default_factory=ReferenceEncoderConfig)
+    style_token: StyleTokenConfig = field(default_factory=StyleTokenConfig)
+
+
+@dataclass(frozen=True)
+class SpeakerClassifierConfig:
+    channels: Tuple[int, ...] = (256,)
+
+
+@dataclass(frozen=True)
 class PatternConfig:
     path: str = './patterns/Train'
     metadata_file: str = 'METADATA.PICKLE'
@@ -138,6 +211,7 @@ class TrainConfig:
     eval_pattern: PatternConfig = field(
         default_factory=lambda: PatternConfig(path='./patterns/Eval'))
     num_workers: int = 4
+    adversarial_speaker_weight: float = 0.0005
     batch_size: int = 32
     learning_rate: LearningRateConfig = field(
         default_factory=LearningRateConfig)
@@ -175,9 +249,15 @@ def coupling_backend_name(value: str) -> str:
 @dataclass(frozen=True)
 class Config:
     sound: SoundConfig = field(default_factory=SoundConfig)
-    mode: str = 'Vanilla'
+    mode: str = 'Vanilla'       # 'Vanilla' | 'SE' | 'PE' | 'GR'
     encoder: EncoderConfig = field(default_factory=EncoderConfig)
     decoder: DecoderConfig = field(default_factory=DecoderConfig)
+    speaker_embedding: SpeakerEmbeddingConfig = field(
+        default_factory=SpeakerEmbeddingConfig)
+    prosody_encoder: ProsodyEncoderConfig = field(
+        default_factory=ProsodyEncoderConfig)
+    speaker_classifier_gr: SpeakerClassifierConfig = field(
+        default_factory=SpeakerClassifierConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     token_path: str = './Token.yaml'
     inference_batch_size: Optional[int] = None
@@ -195,8 +275,49 @@ class Config:
     coupling_backend: str = 'auto'
 
     def __post_init__(self):
+        if self.mode.upper() not in MODES:
+            raise ValueError(f'Mode must be one of Vanilla, SE, PE, GR; '
+                             f'got {self.mode!r}')
+        if self.uses_speaker_embedding and \
+                self.speaker_embedding.type.upper() not in ('LUT', 'GE2E'):
+            raise ValueError(f'Speaker_Embedding.Type must be LUT or GE2E, '
+                             f'got {self.speaker_embedding.type!r}')
+        if self.mode.upper() == 'GR' and (
+                self.speaker_embedding.embedding_size
+                != self.prosody_encoder.size):
+            raise ValueError('in GR mode Speaker_Embedding.Embedding_Size '
+                             'and Prosody_Encoder.Size must match')
         object.__setattr__(self, 'coupling_backend',
                            coupling_backend_name(self.coupling_backend))
+
+    @property
+    def uses_speaker_embedding(self) -> bool:
+        return self.mode.upper() in ('SE', 'GR')
+
+    @property
+    def uses_ge2e(self) -> bool:
+        """The speaker vector comes from the GE2E encoder (else the LUT)."""
+        return (self.uses_speaker_embedding
+                and self.speaker_embedding.type.upper() == 'GE2E')
+
+    @property
+    def uses_prosody_encoder(self) -> bool:
+        return self.mode.upper() in ('PE', 'GR')
+
+    @property
+    def uses_gradient_reversal(self) -> bool:
+        """GR mode: the adversarial classifier and the pitch operand."""
+        return self.mode.upper() == 'GR'
+
+    @property
+    def condition_size(self) -> int:
+        """Width of the conditioning vector the duration predictor takes
+        (0 in Vanilla mode)."""
+        if self.uses_speaker_embedding:
+            return self.speaker_embedding.embedding_size
+        if self.uses_prosody_encoder:
+            return self.prosody_encoder.size
+        return 0
 
     @property
     def flow_route(self) -> str:
@@ -225,16 +346,22 @@ def _coerce(cls: type, data: Optional[Mapping]) -> Any:
             continue
         ftype = fields[name].type
         sub = _SECTIONS.get(ftype)
-        kwargs[name] = (_coerce(sub, value) if sub is not None
-                        and isinstance(value, Mapping) else value)
+        if sub is not None and isinstance(value, Mapping):
+            value = _coerce(sub, value)
+        elif isinstance(value, list):
+            value = tuple(value)
+        kwargs[name] = value
     return cls(**kwargs)
 
 
 _SECTIONS = {cls.__name__: cls for cls in (
     SoundConfig, PrenetConfig, AttentionConfig, TransformerConvConfig,
     TransformerConfig, DurationPredictorConfig, EncoderConfig, WaveNetConfig,
-    AffineCouplingConfig, DecoderConfig, PatternConfig, LearningRateConfig,
-    AdamConfig, TrainConfig)}
+    AffineCouplingConfig, DecoderConfig, GE2ELSTMConfig, GE2EInferenceConfig,
+    GE2EConfig, SpeakerEmbeddingConfig, ReferenceEncoderConvConfig,
+    ReferenceEncoderGRUConfig, ReferenceEncoderConfig, StyleTokenConfig,
+    ProsodyEncoderConfig, SpeakerClassifierConfig, PatternConfig,
+    LearningRateConfig, AdamConfig, TrainConfig)}
 
 
 # the fields the YAML keeps under ``TPU``
@@ -249,9 +376,6 @@ def load_config(path_or_dict) -> Config:
         with open(path_or_dict, encoding='utf-8') as f:
             data = yaml.safe_load(f)
     config = _coerce(Config, data)
-    if config.mode.upper() != 'VANILLA':
-        raise NotImplementedError(
-            f'the PyTorch port serves Vanilla mode only (got {config.mode!r})')
     tpu = data.get('TPU') or data.get('tpu') or {}
     from_tpu = {name: tpu[name] for name in _TPU_FIELDS if name in tpu}
     return dataclasses.replace(config, **from_tpu)

@@ -26,6 +26,7 @@
 //   unchanged and the caller concatenates.
 // * The forward logdet has no per-frame constant: the tile's sum of
 //   logs * m, written per (sample, tile) and summed by the caller.
+// * GR mode's pitch operand is a build of its own, as in flow_step.cu.
 //
 // What bounds it: arithmetic, as flow_step.cu (it drops only the mixing
 // matmul, 51 of a step's 3,609 kFLOP per frame).
@@ -43,6 +44,8 @@ struct Params {
   Strided x_a, x_b;
   const float* mask;     // [B, T]
   const float* cond;     // [NL, B, 2CH] per-layer bias: in-conv bias (+ cond.)
+  const float* pitch;    // [B, T, kPitchSize], GLOW_PITCH builds only
+  const float* w_pitch;  // [NL, kPitchSize, 2CH], GLOW_PITCH builds only
   StepWeights w;         // an_logs, an_bias and mix_t unused (null)
   float* z_b;            // [B, T, C/2]
   float* ld_part;        // [B, n_tiles], forward only
@@ -61,8 +64,9 @@ __device__ __forceinline__ float coupling_tile(const Tile<S>& tile,
   tile.load_columns(p.x_a.data, p.x_a.batch_stride, p.x_a.row_stride, 0, C2);
   tile.load_columns(p.x_b.data, p.x_b.batch_stride, p.x_b.row_stride, C2, C2);
   __syncthreads();
-  coupling_net<S, false, false, 3>(tile, p.w, SavePointers{},
-                                   BiasPreGate{p.cond});
+  const auto pre_gate = step_pre_gate(p.cond, p.pitch, p.w_pitch);
+  pre_gate.stage(tile);
+  coupling_net<S, false, false, 3>(tile, p.w, SavePointers{}, pre_gate);
   float total = 0.f;
   if constexpr (!REVERSE) {
     total = affine_forward<S, false>(tile, p.z_b);
@@ -144,24 +148,28 @@ int glow_coupling_resident_blocks(int B) {
 // Shapes are those of Shipped (C=160, ch=192, 4 layers, k=5), w_in and
 // w_rs in the tensor-core layout; the caller checks them, and that the
 // strides (in floats) and pointers of x_a and x_b are multiples of 4
-// floats.  tiles is null, or 5 zeroed ints that receive what the launch
-// did (flow_common.cuh::report_tiles).  Returns a cudaError_t, 0 on
-// success.
+// floats.  pitch and w_pitch are null, or with a GLOW_PITCH build not null
+// (cudaErrorInvalidValue otherwise).  tiles is null, or 5 zeroed ints that
+// receive what the launch did (flow_common.cuh::report_tiles).  Returns a
+// cudaError_t, 0 on success.
 int glow_coupling_f32(const float* x_a, long long a_batch_stride,
                       long long a_row_stride, const float* x_b,
                       long long b_batch_stride, long long b_row_stride,
                       const float* mask, const float* cond,
+                      const float* pitch, const float* w_pitch,
                       const float* w_start, const float* b_start,
                       const float* w_in, const float* w_rs, const float* b_rs,
                       const float* w_end, const float* b_end, float* z_b,
                       float* ld_part, int* tiles, int B, int T, int reverse,
                       void* stream) {
+  if ((pitch != nullptr) != kPitch || (w_pitch != nullptr) != kPitch)
+    return cudaErrorInvalidValue;
   if (B <= 0 || T <= 0) return cudaSuccess;
   const Params p{{x_a, static_cast<size_t>(a_batch_stride),
                   static_cast<size_t>(a_row_stride)},
                  {x_b, static_cast<size_t>(b_batch_stride),
                   static_cast<size_t>(b_row_stride)},
-                 mask, cond,
+                 mask, cond, pitch, w_pitch,
                  {nullptr, nullptr, nullptr, w_start, b_start,
                   reinterpret_cast<const WFrag*>(w_in),
                   reinterpret_cast<const WFrag*>(w_rs), b_rs, w_end, b_end},

@@ -774,7 +774,9 @@ __device__ __forceinline__ float affine_forward(const Tile<S>& tile,
 }
 
 // The deterministic in-conv epilogue: the per-sample bias row of the layer
-// (the in-conv bias plus any conditioning), cond [NL, B, 2CH].
+// (the in-conv bias plus any conditioning), cond [NL, B, 2CH].  A pre-gate's
+// stage(tile) runs once a tile, after the tile's rows are loaded and before
+// its network: this one has nothing to stage.
 struct BiasPreGate {
   const float* cond;
   struct Layer {
@@ -784,21 +786,105 @@ struct BiasPreGate {
     }
   };
   template <class S>
+  __device__ void stage(const Tile<S>&) const {}
+  template <class S>
   __device__ Layer layer(int i, const Tile<S>& tile) const {
     return {cond + (static_cast<size_t>(i) * tile.B + tile.b) * S::CH2};
   }
 };
 
+// Width of GR mode's pitch operand: num_squeeze at the shipped config.
+constexpr int kPitchSize = 2;
+
+// A block's copy of its tile's pitch rows [R, PS] and of one flow step's
+// w_pitch [NL, PS, 2CH] (12.4 KB at the shipped shape), in static shared
+// memory beside the dynamic buffers: only a kernel that runs PitchPreGate
+// has it.
+template <class S, int PS>
+__device__ __forceinline__ float* pitch_stage() {
+  __shared__ __align__(16) float stage[S::R * PS + S::NL * PS * S::CH2];
+  return stage;
+}
+
+// GR mode's in-conv epilogue (the pitch operand of
+// glow_tts_tpu/ops/coupling.py::_coupling_body): BiasPreGate's per-sample
+// row plus, per frame, sum_p pitch[b, t, p] * w_pitch[i][p][col] with t =
+// t0 + row, for both halves of the gate.  The halo's rows read the pitch of
+// their own frames, and frames outside [0, T) count as pitch 0, as the
+// plain version's zero padding does.  The tile's pitch and the step's
+// w_pitch are staged in shared memory once a tile, so that the epilogue,
+// where the body has no registers to spare, reads no global memory for
+// them.
+template <int PS>
+struct PitchPreGate {
+  const float* cond;     // [NL, B, 2CH]
+  const float* pitch;    // [B, T, PS]
+  const float* w_pitch;  // [NL, PS, 2CH], this flow step's
+  template <class S>
+  struct Layer {
+    const float* row;    // [2CH], global memory
+    const float* p;      // [R, PS], staged
+    const float* w;      // [PS, 2CH], staged: this layer's
+    __device__ float operator()(int r, int col, float v) const {
+      float term = 0.f;
+#pragma unroll
+      for (int q = 0; q < PS; ++q)
+        term = fmaf(p[r * PS + q], w[q * S::CH2 + col], term);
+      return v + __ldg(row + col) + term;
+    }
+  };
+  // Ends on a barrier.
+  template <class S>
+  __device__ void stage(const Tile<S>& tile) const {
+    float* const st = pitch_stage<S, PS>();
+    for (int i = threadIdx.x; i < S::R * PS; i += kThreads) {
+      const int t = tile.t0 + i / PS;
+      st[i] = t >= 0 && t < tile.T
+                  ? __ldg(pitch + (tile.sample + t) * PS + i % PS)
+                  : 0.f;
+    }
+    for (int i = threadIdx.x; i < S::NL * PS * S::CH2; i += kThreads)
+      st[S::R * PS + i] = __ldg(w_pitch + i);
+    __syncthreads();
+  }
+  template <class S>
+  __device__ Layer<S> layer(int i, const Tile<S>& tile) const {
+    const float* const st = pitch_stage<S, PS>();
+    return {cond + (static_cast<size_t>(i) * tile.B + tile.b) * S::CH2, st,
+            st + S::R * PS + i * PS * S::CH2};
+  }
+};
+
+// The pre-gate of a deterministic kernel of this build: a library built
+// with GLOW_PITCH (ops/cuda_build.py: GR mode's instantiations, built only
+// when a pitch operand asks for them) takes the pitch operand, any other
+// the bias rows alone, so the Vanilla instantiations are what they were.
+#ifdef GLOW_PITCH
+constexpr bool kPitch = true;
+__device__ __forceinline__ PitchPreGate<kPitchSize> step_pre_gate(
+    const float* cond, const float* pitch, const float* w_pitch) {
+  return {cond, pitch, w_pitch};
+}
+#else
+constexpr bool kPitch = false;
+__device__ __forceinline__ BiasPreGate step_pre_gate(const float* cond,
+                                                     const float*,
+                                                     const float*) {
+  return {cond};
+}
+#endif
+
 // One deterministic flow step on one tile, from x [B, T, C] to z [B, T, C]:
 // forward ActNorm -> mixing -> coupling, returning in thread 0 the tile's
 // logdet (sum of logs * m plus ld_const per valid frame); REVERSE
 // coupling^-1 -> mixing^-1 -> ActNorm^-1 with w.mix_t the inverse mixing.
-// Ends on a barrier, so a block may go on to another tile.
-template <class S, bool REVERSE, int PASSES = 3>
+// pre_gate is the in-conv epilogue (step_pre_gate).  Ends on a barrier, so
+// a block may go on to another tile.
+template <class S, bool REVERSE, int PASSES = 3, class PreGate>
 __device__ __forceinline__ float flow_step_tile(const Tile<S>& tile,
                                                 const float* x,
                                                 const float* mask,
-                                                const float* cond,
+                                                const PreGate& pre_gate,
                                                 const StepWeights& w,
                                                 const float* ld_const,
                                                 float* z) {
@@ -806,8 +892,9 @@ __device__ __forceinline__ float flow_step_tile(const Tile<S>& tile,
   const int tid = threadIdx.x;
   float logdet = 0.f;
   tile.load(x, mask);
+  pre_gate.stage(tile);
   coupling_net<S, !REVERSE, false, PASSES>(tile, w, SavePointers{},
-                                           BiasPreGate{cond});
+                                           pre_gate);
 
   if constexpr (!REVERSE) {
     const float total = affine_forward(tile, z);

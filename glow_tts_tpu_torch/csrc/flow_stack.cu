@@ -43,7 +43,10 @@
 //   tensor, so nothing is copied (see wait_for_neighbours for why no
 //   write lands on rows still to be read);
 // * step j's weights are step j's (reverse: S - 1 - j's) slices of the
-//   stacked tensors; per-tile arithmetic is flow_step.cu's
+//   stacked tensors, GR mode's w_pitch [steps, NL, 2, 2CH] among them in a
+//   build of its own (GLOW_PITCH, as in flow_step.cu; the pitch operand
+//   [B, T, 2] is the same for every step); per-tile arithmetic is
+//   flow_step.cu's
 //   (flow_common.cuh::flow_step_tile), so z is bit-equal to S chained
 //   launches of it;
 // * the forward logdet is kept per (sample, tile) and added over the steps
@@ -66,6 +69,8 @@ struct Params {
   const float* x;        // [B, T, C]
   const float* mask;     // [B, T]
   const float* cond;     // [steps, NL, B, 2CH]
+  const float* pitch;    // [B, T, kPitchSize], GLOW_PITCH builds only
+  const float* w_pitch;  // [steps, NL, kPitchSize, 2CH], GLOW_PITCH only
   StepWeights w;         // step 0 of each stacked [steps, ...] tensor
   const float* ld_const; // [steps], forward only
   float* z;              // [B, T, C] the result: the last step writes it
@@ -121,6 +126,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int dead = list.items - list.live;
   const int items = dead + p.steps * list.live;
   const size_t cond_step = static_cast<size_t>(S::NL) * p.B * S::CH2;
+  constexpr size_t w_pitch_step = S::NL * kPitchSize * S::CH2;
   const size_t flags_step = static_cast<size_t>(p.B) * p.n_tiles;
   // step j writes z if an even number of steps follow it, so the last does
   auto output = [&](int j) {
@@ -154,7 +160,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int s = REVERSE ? p.steps - 1 - j : j;
     const Tile<S> tile(smem, p.B, p.T, id.b, id.index);
     const float logdet = flow_step_tile<S, REVERSE>(
-        tile, j == 0 ? p.x : output(j - 1), p.mask, p.cond + s * cond_step,
+        tile, j == 0 ? p.x : output(j - 1), p.mask,
+        step_pre_gate(p.cond + s * cond_step, p.pitch,
+                      kPitch ? p.w_pitch + s * w_pitch_step : nullptr),
         step_of_stack<S>(p.w, s), REVERSE ? nullptr : p.ld_const + s,
         output(j));
     const size_t slot = sample_flags + id.index;
@@ -220,8 +228,11 @@ int glow_flow_stack_resident_blocks(int B) {
 // ld_part [B, tiles] and ld_const [steps] are forward only, done is
 // steps * B * tiles unsigneds of scratch, tiles null or 5 zeroed ints that
 // receive what the launch did (flow_common.cuh::report_tiles: its live
-// items are steps * the live tiles).  Returns a cudaError_t, 0 on success.
+// items are steps * the live tiles).  pitch and w_pitch are null, or with a
+// GLOW_PITCH build not null (cudaErrorInvalidValue otherwise).  Returns a
+// cudaError_t, 0 on success.
 int glow_flow_stack_f32(const float* x, const float* mask, const float* cond,
+                        const float* pitch, const float* w_pitch,
                         const float* an_logs, const float* an_bias,
                         const float* mix_t, const float* w_start,
                         const float* b_start, const float* w_in,
@@ -230,8 +241,10 @@ int glow_flow_stack_f32(const float* x, const float* mask, const float* cond,
                         const float* ld_const, float* z, float* other,
                         float* ld_part, unsigned* done, int* tiles, int B,
                         int T, int steps, int reverse, void* stream) {
+  if ((pitch != nullptr) != kPitch || (w_pitch != nullptr) != kPitch)
+    return cudaErrorInvalidValue;
   if (B <= 0 || T <= 0 || steps <= 0) return cudaSuccess;
-  const Params p{x, mask, cond,
+  const Params p{x, mask, cond, pitch, w_pitch,
                  {an_logs, an_bias, mix_t, w_start, b_start,
                   reinterpret_cast<const WFrag*>(w_in),
                   reinterpret_cast<const WFrag*>(w_rs), b_rs, w_end, b_end},

@@ -29,6 +29,11 @@
 //   that is about half the tiles; the live ones are dealt out evenly.
 // * The forward logdet is written per (sample, tile) and summed by the
 //   caller: no atomics, so it does not depend on block order.
+// * GR mode's pitch operand (pitch [B, T, 2], w_pitch [NL, 2, 2CH]) is a
+//   build of its own (GLOW_PITCH: flow_common.cuh::PitchPreGate), so the
+//   Vanilla instantiations do not change; it adds 2 * 2 * 2CH FLOP per frame
+//   and layer, and stages the tile's pitch and the step's w_pitch in shared
+//   memory.
 // flow_stack.cu runs the same body (flow_step_tile) on the same live tiles,
 // all the steps in one launch.
 
@@ -40,6 +45,8 @@ struct Params {
   const float* x;        // [B, T, C]
   const float* mask;     // [B, T]
   const float* cond;     // [NL, B, 2CH] per-layer bias: in-conv bias (+ cond.)
+  const float* pitch;    // [B, T, kPitchSize], GLOW_PITCH builds only
+  const float* w_pitch;  // [NL, kPitchSize, 2CH], GLOW_PITCH builds only
   StepWeights w;
   const float* ld_const; // [1], forward only
   float* z;              // [B, T, C]
@@ -61,8 +68,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const Tile<S> tile(smem, p.B, p.T, id.b, id.index);
     float logdet = 0.f;
     if (id.live) {
-      logdet = flow_step_tile<S, REVERSE, PASSES>(tile, p.x, p.mask, p.cond,
-                                                  p.w, p.ld_const, p.z);
+      logdet = flow_step_tile<S, REVERSE, PASSES>(
+          tile, p.x, p.mask, step_pre_gate(p.cond, p.pitch, p.w_pitch), p.w,
+          p.ld_const, p.z);
       ++computed;
     } else {
       tile.zero_owned(p.z, S::C);
@@ -107,11 +115,14 @@ int glow_flow_step_resident_blocks(int B) {
 }
 
 // Shapes are those of Shipped (C=160, ch=192, 4 layers, k=5); w_in and w_rs
-// in the tensor-core layout; the caller checks them.  passes is 3 (3xTF32,
-// f32 accuracy) or 1 (one TF32 pass, for measuring).  tiles is null, or 5
-// zeroed ints that receive what the launch did (flow_common.cuh::
-// report_tiles).  Returns a cudaError_t, 0 on success.
+// in the tensor-core layout; the caller checks them.  pitch and w_pitch are
+// null, or with a GLOW_PITCH build not null (cudaErrorInvalidValue
+// otherwise).  passes is 3 (3xTF32, f32 accuracy) or 1 (one TF32 pass, for
+// measuring; not in a GLOW_PITCH build).  tiles is null, or 5 zeroed ints
+// that receive what the launch did (flow_common.cuh::report_tiles).
+// Returns a cudaError_t, 0 on success.
 int glow_flow_step_f32(const float* x, const float* mask, const float* cond,
+                       const float* pitch, const float* w_pitch,
                        const float* an_logs, const float* an_bias,
                        const float* mix_t, const float* w_start,
                        const float* b_start, const float* w_in,
@@ -120,17 +131,22 @@ int glow_flow_step_f32(const float* x, const float* mask, const float* cond,
                        const float* ld_const, float* z, float* ld_part,
                        int* tiles, int B, int T, int reverse, int passes,
                        void* stream) {
+  if ((pitch != nullptr) != kPitch || (w_pitch != nullptr) != kPitch)
+    return cudaErrorInvalidValue;
   if (B <= 0 || T <= 0) return cudaSuccess;
-  const Params p{x, mask, cond,
+  const Params p{x, mask, cond, pitch, w_pitch,
                  {an_logs, an_bias, mix_t, w_start, b_start,
                   reinterpret_cast<const WFrag*>(w_in),
                   reinterpret_cast<const WFrag*>(w_rs), b_rs, w_end, b_end},
                  ld_const, z, ld_part, tiles, B, T,
                  ceil_div(T, Shipped::TT)};
   auto s = static_cast<cudaStream_t>(stream);
-  if (passes == 1)
+  if constexpr (kPitch) {
+    if (passes != 3) return cudaErrorInvalidValue;
+  } else if (passes == 1) {
     return reverse ? launch<Shipped, true, 1>(p, s)
                    : launch<Shipped, false, 1>(p, s);
+  }
   return reverse ? launch<Shipped, true, 3>(p, s)
                  : launch<Shipped, false, 3>(p, s);
 }

@@ -1,11 +1,17 @@
-"""Serving front end (port of ``glow_tts_tpu/inference.py``, Vanilla mode).
+"""Serving front end (port of ``glow_tts_tpu/inference.py``), in the four
+modes.
 
-``Inferencer`` loads reference-format weights onto an explicit device and
-synthesises mels two-phase and mel-bucketed: the prior phase predicts the
-durations, the host picks the smallest mel bucket the batch fits, and the
-decode phase runs at that capacity.  Results can be exported as the NPY
-tree (``utils.plotting.export_npy``); PNG figures and reference-wav
-features are not ported yet.
+``Inferencer`` loads reference-format weights onto a device (the card
+unless the caller asks for the CPU) and synthesises mels two-phase and
+mel-bucketed: the prior phase predicts the durations, the host picks the
+smallest mel bucket the batch fits, and the decode phase runs at that
+capacity.  The conditioned modes read, per item, a ``speaker_id`` (SE and
+GR with the look-up table) and reference features as arrays:
+``mel_for_ge2e`` (GE2E), ``mel_for_prosody`` (PE, GR) and ``pitch`` (GR),
+what ``glow_tts_tpu/data/pattern_generator.py::load_reference_features``
+makes from reference wavs in the JAX package.  Wavs themselves are not
+read yet (``ROADMAP.md`` A.6).  Results can be exported as the NPY tree
+(``utils.plotting.export_npy``); PNG figures are not ported yet.
 """
 
 from __future__ import annotations
@@ -13,9 +19,11 @@ from __future__ import annotations
 import os
 from typing import Dict, List, Mapping, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from glow_tts_tpu_torch.config import load_config
+from glow_tts_tpu_torch.data.collate import InferenceCollater
 from glow_tts_tpu_torch.data.patterns import InferenceDataset
 from glow_tts_tpu_torch.models.glow_tts import GlowTTS
 from glow_tts_tpu_torch.text import Tokenizer, load_token_dict, text_filtering
@@ -45,12 +53,13 @@ class Inferencer:
     ``S_<step>.pt`` checkpoint, or a checkpoint directory, whose
     ``S_<step>.pt`` is read (``step=0``: the highest step).  ``config``
     may be ``None`` for a directory: its ``Hyper_Parameters.yaml``
-    snapshot is read.  ``device`` is required: a CUDA device runs the flow
-    kernel of ``config.coupling_backend``'s route, a CPU device that
-    kernel's plain version."""
+    snapshot is read.  ``device`` is the card unless the caller asks for
+    the CPU: a CUDA device runs the flow kernel of
+    ``config.coupling_backend``'s route, a CPU device that kernel's plain
+    version."""
 
     def __init__(self, weights: Union[str, os.PathLike, Mapping],
-                 config, device: Union[str, torch.device],
+                 config=None, device: Union[str, torch.device] = 'cuda',
                  batch_size: Optional[int] = None,
                  max_mel_length: int = 1024,
                  mel_buckets: Optional[Sequence[int]] = None,
@@ -86,6 +95,7 @@ class Inferencer:
         if config.token_path and os.path.exists(config.token_path):
             token_dict = load_token_dict(config.token_path)
         self.tokenizer = Tokenizer(token_dict)
+        self.collater = InferenceCollater(config, self.tokenizer)
 
         if not isinstance(weights, Mapping):
             weights = load_reference_checkpoint(weights)
@@ -98,19 +108,47 @@ class Inferencer:
         return next((b for b in self.mel_buckets if b >= need),
                     self.mel_buckets[-1])
 
+    # per mode: the array an item carries, and the wav it would be made of
+    _FEATURES = (('uses_ge2e', 'mel_for_ge2e', 'wav_for_ge2e'),
+                 ('uses_prosody_encoder', 'mel_for_prosody',
+                  'wav_for_prosody'),
+                 ('uses_gradient_reversal', 'pitch', 'wav_for_pitch'))
+
+    def _check_features(self, item: Mapping) -> None:
+        """Raise unless ``item`` carries the reference features the mode
+        needs as arrays."""
+        for mode, key, wav in self._FEATURES:
+            if getattr(self.config, mode) and item.get(key) is None:
+                if item.get(wav):
+                    raise NotImplementedError(
+                        f'{wav}: features from reference wavs are not in '
+                        f'the PyTorch port yet (ROADMAP.md A.6); pass '
+                        f'{key} as an array')
+                raise ValueError(f'{self.config.mode} mode needs {key!r} on '
+                                 f'every item (label '
+                                 f'{item.get("label")!r})')
+
+    def batch(self, items: Sequence[Dict]) -> Dict[str, torch.Tensor]:
+        """Items → the ``InferenceCollater`` batch as tensors on the
+        device: ``tokens [B, T_tok]`` (padded with ``<E>`` to a multiple of
+        ``config.token_bucket``), ``token_lengths``, ``length_scales`` and
+        the mode's conditioning inputs."""
+        for item in items:
+            self._check_features(item)
+        batch = {}
+        for key, value in self.collater(items).items():
+            dtype = (torch.long if np.issubdtype(value.dtype, np.integer)
+                     else torch.float32)
+            batch[key] = torch.as_tensor(value, dtype=dtype,
+                                         device=self.device)
+        return batch
+
     def collate(self, items: Sequence[Dict]):
         """Items → (tokens [B, T_tok], token_lengths [B], length_scales
-        [B]) on the device, the token axis padded with ``<E>`` to a
-        multiple of ``config.token_bucket``."""
-        texts = [item['text'] for item in items]
-        longest = max(len(text) for text in texts) + 2      # <S> … <E>
-        bucket = self.config.token_bucket
-        tokens, lengths = self.tokenizer.encode_batch(
-            texts, pad_to=-(-longest // bucket) * bucket)
-        scales = [float(item.get('length_scale', 1.0)) for item in items]
-        return (torch.as_tensor(tokens, dtype=torch.long, device=self.device),
-                torch.as_tensor(lengths, dtype=torch.long, device=self.device),
-                torch.tensor(scales, dtype=torch.float32, device=self.device))
+        [B]) on the device: :meth:`batch`'s first three."""
+        batch = self.batch(items)
+        return (batch['tokens'], batch['token_lengths'],
+                batch['length_scales'])
 
     def synthesize_items(self, items: Sequence[Dict],
                          noise_scale: float = 1.0,
@@ -121,18 +159,26 @@ class Inferencer:
         ``attention [T_tok, T]`` and the ``bucket`` its batch decoded in,
         each also written under ``out_dir`` by ``export_npy`` if given.
         Batch ``start`` draws its noise from a generator seeded with
-        ``seed + start``."""
+        ``seed + start``.  The conditioned modes' items carry their
+        ``speaker_id`` and reference features as arrays (module
+        docstring)."""
         results = []
         for start in range(0, len(items), self.batch_size):
             chunk = list(items[start:start + self.batch_size])
-            tokens, lengths, scales = self.collate(chunk)
+            batch = self.batch(chunk)
+            lengths = batch['token_lengths']
             generator = torch.Generator(device=self.device)
             generator.manual_seed(seed + start)
-            prior = self.model.inference_prior(tokens, lengths, scales)
+            prior = self.model.inference_prior(
+                batch['tokens'], lengths, batch['length_scales'],
+                batch.get('mels_for_prosody'),
+                batch.get('mel_lengths_for_prosody'), batch.get('speakers'),
+                batch.get('mels_for_ge2e'))
             bucket = self.pick_bucket(prior['durations'])
             out = self.model.inference_decode(
                 prior, generator=generator, noise_scale=noise_scale,
-                max_mel_length=bucket)
+                max_mel_length=bucket, pitches=batch.get('pitches'),
+                pitch_lengths=batch.get('pitch_lengths'))
             mels = out['mels'].cpu().numpy()
             mel_lengths = out['mel_lengths'].cpu().numpy()
             attentions = out['attentions'].cpu().numpy()
@@ -154,9 +200,12 @@ class Inferencer:
     def inference(self, labels: Sequence[str], texts: Sequence[str],
                   length_scales: Optional[Sequence[float]] = None,
                   noise_scale: float = 1.0, seed: int = 0,
-                  out_dir: Optional[str] = None) -> List[Dict]:
+                  out_dir: Optional[str] = None,
+                  speakers: Optional[Sequence[int]] = None) -> List[Dict]:
         """Programmatic batch synthesis; texts the filter rejects are
-        skipped, as in the JAX package."""
+        skipped, as in the JAX package.  ``speakers`` are the speaker ids
+        of the look-up-table modes (default 0); the modes that need
+        reference features take items through :meth:`synthesize_items`."""
         items = []
         for i, text in enumerate(texts):
             filtered = text_filtering(text)
@@ -164,12 +213,15 @@ class Inferencer:
                 continue
             items.append({'label': labels[i], 'text': filtered,
                           'length_scale': (length_scales[i] if length_scales
-                                           else 1.0)})
+                                           else 1.0),
+                          'speaker_id': (int(speakers[i])
+                                         if speakers is not None else 0)})
         return self.synthesize_items(items, noise_scale, seed, out_dir)
 
     def inference_from_file(self, tsv_path: str,
                             out_dir: Optional[str] = None) -> List[Dict]:
         """The sentences of an inference TSV (``data.patterns.
-        InferenceDataset``)."""
+        InferenceDataset``), with their speaker ids; a mode that needs the
+        reference wavs' features raises (``ROADMAP.md`` A.6)."""
         return self.synthesize_items(InferenceDataset(tsv_path).entries,
                                      out_dir=out_dir)

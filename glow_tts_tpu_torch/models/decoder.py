@@ -14,6 +14,14 @@ here hold the reference's parameters under its state-dict names;
 :meth:`FlowStep.pack` turns them, without gradients, into the kernels'
 weight dict (``glow_tts_tpu/models/decoder.py::FlowStep._fused_params``).
 
+The conditioned modes (SE, PE, GR) add to each WaveNet layer's pre-gate
+sum a per-sample row, ``speaker·W_spk + b_spk + prosody·W_pro + b_pro +
+b_pitch`` beside the in-conv bias, and in GR mode the per-frame pitch term
+``pitch·W_pitch``, which the kernels take as their pitch operand.  The rows
+of all flow steps are built per call from weights kept until the
+parameters change (:meth:`FlowDecoder.conditioning`), as
+``glow_tts_tpu/models/decoder.py::AffineCoupling._gather`` builds them.
+
 Training (``deterministic=False``): the whole stack runs as one call of
 ``ops.coupling_grad.flow_stack_train`` (forward and hand-written backward
 kernels on the card) on weights that :meth:`FlowDecoder.pack_train` stacks
@@ -149,10 +157,21 @@ class InvertibleConv(nn.Module):
         return z, (None if reverse else frame_logdet * frames(mask))
 
 
+# the conditioning 1x1 convs of a WaveNet layer: (module name, key of the
+# packed weights); a mode has those whose input width is not 0
+CONDITIONING = (('Speaker', 'spk'), ('Prosody', 'pro'), ('Pitch', 'pitch'))
+
+
 class WaveNet(nn.Module):
-    def __init__(self, channels: int, num_layers: int, kernel_size: int):
+    """The coupling's gated layers; ``widths`` gives the input width of
+    each conditioning conv of :data:`CONDITIONING` the mode has."""
+
+    def __init__(self, channels: int, num_layers: int, kernel_size: int,
+                 widths: Optional[Dict[str, int]] = None):
         super().__init__()
         self.num_layers = num_layers
+        self.conditioning = [(name, key) for name, key in CONDITIONING
+                             if (widths or {}).get(name)]
         self.layer_Dict = nn.ModuleDict()
         for i in range(num_layers):
             last = i == num_layers - 1
@@ -160,6 +179,9 @@ class WaveNet(nn.Module):
                 channels, 2 * channels, kernel_size)
             self.layer_Dict[f'Res_Skip_{i}'] = WNConv1d(
                 channels, channels if last else 2 * channels, 1)
+            for name, _ in self.conditioning:
+                self.layer_Dict[f'{name}_{i}'] = WNConv1d(
+                    widths[name], 2 * channels, 1)
 
 
 class AffineCoupling(nn.Module):
@@ -168,19 +190,37 @@ class AffineCoupling(nn.Module):
         cfg = config.decoder.affine_coupling
         c = config.sound.mel_dim * config.decoder.num_squeeze
         ch = cfg.calc_channels
+        widths = {
+            'Speaker': (config.speaker_embedding.embedding_size
+                        if config.uses_speaker_embedding else 0),
+            'Prosody': (config.prosody_encoder.size
+                        if config.uses_prosody_encoder else 0),
+            'Pitch': (config.decoder.num_squeeze
+                      if config.uses_gradient_reversal else 0)}
         self.layer_Dict = nn.ModuleDict({
             'Start': WNConv1d(c // 2, ch, 1),
             'WaveNet': WaveNet(ch, cfg.wavenet.num_layers,
-                               cfg.wavenet.kernel_size),
+                               cfg.wavenet.kernel_size, widths),
             'End': Conv1d(ch, c, 1)})
 
-    def pack(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-        """Effective coupling weights in the kernel's layout, and the
-        per-layer in-conv bias ``[n, 2ch]`` (the Vanilla conditioning)."""
+    def pack(self) -> Tuple[Dict[str, torch.Tensor],
+                            Dict[str, torch.Tensor]]:
+        """Effective coupling weights in the kernel's layout (with
+        ``w_pitch [n, ps, 2ch]`` in GR mode), and the weights the per-layer
+        conditioning rows are made of: ``b_in [n, 2ch]`` (all a Vanilla row
+        is) and, by mode, ``w_spk``/``w_pro [n, E, 2ch]``, ``b_spk``,
+        ``b_pro`` and ``b_pitch [n, 2ch]``."""
         layers = self.layer_Dict
         wn = layers['WaveNet']
         w_in, b_in, w_rs, b_rs = [], [], [], []
+        conditioning = {f'{prefix}_{key}': [] for _, key in wn.conditioning
+                        for prefix in ('w', 'b')}
         for i in range(wn.num_layers):
+            for name, key in wn.conditioning:
+                conv = wn.layer_Dict[f'{name}_{i}']
+                conditioning[f'w_{key}'].append(
+                    conv.effective_weight()[:, :, 0].t())       # [in, 2ch]
+                conditioning[f'b_{key}'].append(conv.bias)
             conv = wn.layer_Dict[f'In_{i}']
             w_in.append(conv.effective_weight().permute(2, 1, 0))  # [k,ch,2ch]
             b_in.append(conv.bias)
@@ -202,21 +242,28 @@ class AffineCoupling(nn.Module):
             'w_end': layers['End'].weight[:, :, 0].t(),
             'b_end': layers['End'].bias,
         }
-        return weights, torch.stack(b_in)
+        conditioning = {key: torch.stack(value)
+                        for key, value in conditioning.items()}
+        if 'w_pitch' in conditioning:
+            weights['w_pitch'] = conditioning.pop('w_pitch')
+        return weights, {'b_in': torch.stack(b_in), **conditioning}
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 reverse: bool = False, coupling_fn: FlowStepFn = coupling,
                 packed: Optional[Tuple[Dict[str, torch.Tensor],
-                                       torch.Tensor]] = None):
+                                       torch.Tensor]] = None,
+                pitch: Optional[torch.Tensor] = None):
         """``x [B, T, C]``, ``mask [B, T, 1]`` → ``(z, logdet [B] | None)``:
         ``x_a`` passes, ``x_b`` goes through ``coupling_fn`` (the kernel's
         wrapper unless a caller compares it with the plain version) on
         ``packed``, the contiguous float32 ``(weights, cond [n, B, 2ch])``
         a caller keeps, or on this module's weights packed now, without
-        gradients (on the card with their tensor-core layout)."""
+        gradients (on the card with their tensor-core layout), with the
+        Vanilla rows.  ``pitch [B, T, ps]`` is GR mode's pitch operand."""
         if packed is None:
             with torch.no_grad():
-                weights, b_in = self.pack()
+                weights, rows = self.pack()
+                b_in = rows['b_in']
                 weights = {key: value.float().contiguous()
                            for key, value in weights.items()}
                 if x.device.type == 'cuda':
@@ -229,7 +276,7 @@ class AffineCoupling(nn.Module):
         c2 = x.shape[-1] // 2
         x_a = x[..., :c2]
         z_b, logdet = coupling_fn(x_a, x[..., c2:], mask, weights, cond,
-                                  reverse=reverse)
+                                  pitch=pitch, reverse=reverse)
         return torch.cat([x_a, z_b], dim=-1), logdet
 
 
@@ -246,7 +293,7 @@ class FlowStep(nn.Module):
             ActNorm(c), InvertibleConv(c, config.decoder.num_split),
             AffineCoupling(config)])
         self._packed: Optional[Dict[bool, Dict[str, torch.Tensor]]] = None
-        self._b_in: Optional[torch.Tensor] = None
+        self._rows: Optional[Dict[str, torch.Tensor]] = None
         self._mix_logdet: Optional[torch.Tensor] = None
 
     @torch.no_grad()
@@ -256,7 +303,9 @@ class FlowStep(nn.Module):
         also in the kernels' tensor-core layout).  Call again after loading
         weights."""
         actnorm, invconv, coupling = self.layers
-        weights, self._b_in = coupling.pack()
+        weights, rows = coupling.pack()
+        self._rows = {key: value.detach().float().contiguous()
+                      for key, value in rows.items()}
         c = actnorm.logs.shape[1]
         logs = actnorm.logs.reshape(c)
         common = {**weights, 'an_logs': logs,
@@ -280,11 +329,17 @@ class FlowStep(nn.Module):
                                         self._packed[False]['w_rs'])
             for weights in self._packed.values():
                 weights.update(split)
-        self._b_in = self._b_in.detach().float().contiguous()
 
     def invalidate(self) -> None:
         """Forget the packed weights: the parameters have changed."""
-        self._packed = self._b_in = self._mix_logdet = None
+        self._packed = self._mix_logdet = self._rows = None
+
+    def rows(self) -> Dict[str, torch.Tensor]:
+        """The weights of the per-layer conditioning rows
+        (:meth:`AffineCoupling.pack`), detached float32."""
+        if self._rows is None:
+            self.pack()
+        return self._rows
 
     def weights(self, reverse: bool) -> Dict[str, torch.Tensor]:
         """The packed weights of one direction, packed now if the
@@ -294,36 +349,42 @@ class FlowStep(nn.Module):
         return self._packed[reverse]
 
     def cond(self, batch: int) -> torch.Tensor:
-        """Per-layer, per-sample bias ``[n, B, 2ch]``."""
-        if self._b_in is None:
-            self.pack()
-        n, ch2 = self._b_in.shape
-        return self._b_in[:, None, :].expand(n, batch, ch2).contiguous()
+        """Per-layer, per-sample bias ``[n, B, 2ch]`` of an unconditioned
+        pass: the in-conv bias alone."""
+        b_in = self.rows()['b_in']
+        n, ch2 = b_in.shape
+        return b_in[:, None, :].expand(n, batch, ch2).contiguous()
 
     def forward(self, x, mask, reverse: bool = False,
                 step_fn: FlowStepFn = flow_step,
-                coupling_fn: FlowStepFn = coupling):
+                coupling_fn: FlowStepFn = coupling,
+                cond: Optional[torch.Tensor] = None,
+                pitch: Optional[torch.Tensor] = None):
         """→ ``(z, logdet [B] | None)``.  ``step_fn`` and ``coupling_fn``
         are the kernels' wrappers unless a caller compares them with the
-        plain versions; the route decides which of the two runs."""
+        plain versions; the route decides which of the two runs.  ``cond
+        [n, B, 2ch]`` is this step's conditioning rows (default: the
+        unconditioned :meth:`cond`), ``pitch [B, T, ps]`` GR mode's pitch
+        operand."""
+        if cond is None:
+            cond = self.cond(x.shape[0])
         if not self.modules_route:
-            return step_fn(x, mask, self.weights(reverse),
-                           self.cond(x.shape[0]), reverse)
+            return step_fn(x, mask, self.weights(reverse), cond, reverse,
+                           pitch=pitch)
         actnorm, invconv, coupling_module = self.layers
         weights = self.weights(reverse)
         packed = ({key: weights[key] for key in
-                   (*COUPLING_WEIGHT_KEYS, *TC_KEYS.values())
-                   if key in weights},
-                  self.cond(x.shape[0]))
+                   (*COUPLING_WEIGHT_KEYS, *TC_KEYS.values(), 'w_pitch')
+                   if key in weights}, cond)
         mixing = (weights['mix_t'], self._mix_logdet)
         if reverse:
-            x, _ = coupling_module(x, mask, True, coupling_fn, packed)
+            x, _ = coupling_module(x, mask, True, coupling_fn, packed, pitch)
             x, _ = invconv(x, mask, True, mixing)
             return actnorm(x, mask, True)
         x, logdet = actnorm(x, mask)
         x, ld = invconv(x, mask, False, mixing)
         logdet = logdet + ld
-        x, ld = coupling_module(x, mask, False, coupling_fn, packed)
+        x, ld = coupling_module(x, mask, False, coupling_fn, packed, pitch)
         return x, logdet + ld
 
 
@@ -340,6 +401,7 @@ class FlowDecoder(nn.Module):
             FlowStep(config) for _ in range(config.decoder.stack)])})
         self._stacked: Dict[bool, Dict[str, torch.Tensor]] = {}
         self._stacked_cond: Optional[torch.Tensor] = None
+        self._stacked_rows: Optional[Dict[str, torch.Tensor]] = None
 
     def pack(self) -> None:
         self.invalidate()
@@ -349,7 +411,7 @@ class FlowDecoder(nn.Module):
     def invalidate(self) -> None:
         """Call after the parameters changed (an optimiser update): the
         deterministic path packs again at its next use."""
-        self._stacked, self._stacked_cond = {}, None
+        self._stacked, self._stacked_cond, self._stacked_rows = {}, None, None
         for step in self.layer_Dict['Flows']:
             step.invalidate()
 
@@ -367,13 +429,46 @@ class FlowDecoder(nn.Module):
         return self._stacked[reverse]
 
     def stacked_cond(self, batch: int) -> torch.Tensor:
-        """Per-step, per-layer, per-sample bias ``[S, n, B, 2ch]``."""
+        """Per-step, per-layer, per-sample bias ``[S, n, B, 2ch]`` of an
+        unconditioned pass: the in-conv biases alone."""
         if self._stacked_cond is None:
             self._stacked_cond = torch.stack(
                 [step.cond(1)[:, 0] for step in self.layer_Dict['Flows']])
         s, n, ch2 = self._stacked_cond.shape
         return self._stacked_cond[:, :, None, :].expand(
             s, n, batch, ch2).contiguous()
+
+    def conditioning(self, batch: int,
+                     speaker: Optional[torch.Tensor] = None,
+                     prosody: Optional[torch.Tensor] = None,
+                     pitch: bool = False) -> torch.Tensor:
+        """The conditioning rows of every flow step, layer and sample,
+        ``[S, n, B, 2ch]``: the in-conv bias, plus ``speaker [B, E]·W_spk +
+        b_spk``, ``prosody [B, P]·W_pro + b_pro`` and, when a pitch operand
+        goes with them, ``b_pitch``.  The weights are stacked over the steps
+        once and kept until the parameters change; the rows depend on the
+        batch and are built at every call, one product per conditioning
+        vector for all the steps."""
+        if speaker is None and prosody is None and not pitch:
+            return self.stacked_cond(batch)
+        if self._stacked_rows is None:
+            rows = [step.rows() for step in self.layer_Dict['Flows']]
+            self._stacked_rows = {key: torch.stack([r[key] for r in rows])
+                                  for key in rows[0]}
+        w = self._stacked_rows
+        bias = w['b_in']                                    # [S, n, 2ch]
+        for vector, key in ((speaker, 'spk'), (prosody, 'pro')):
+            if vector is not None:
+                bias = bias + w[f'b_{key}']
+        if pitch:
+            bias = bias + w['b_pitch']
+        s, n, ch2 = bias.shape
+        cond = bias[:, :, None, :].expand(s, n, batch, ch2)
+        for vector, key in ((speaker, 'spk'), (prosody, 'pro')):
+            if vector is not None:
+                cond = cond + torch.einsum('be,snec->snbc', vector.float(),
+                                           w[f'w_{key}'])
+        return cond.contiguous()
 
     def pack_train(self) -> Dict[str, torch.Tensor]:
         """The forward weights of every step in the train kernels' layout,
@@ -453,32 +548,51 @@ class FlowDecoder(nn.Module):
                 seed: Optional[int] = None,
                 stack_fn: FlowStackFn = flow_stack_train,
                 coupling_fn: FlowStepFn = coupling,
-                flow_stack_fn: FlowStepFn = flow_stack):
+                flow_stack_fn: FlowStepFn = flow_stack,
+                speaker: Optional[torch.Tensor] = None,
+                prosody: Optional[torch.Tensor] = None,
+                pitch: Optional[torch.Tensor] = None):
         """x [B, T, M]; mask [B, T, 1].  ``step_fn``, ``coupling_fn`` and
         ``flow_stack_fn`` (the deterministic routes' functions) and
         ``stack_fn`` (the train route's) are the kernels' wrappers unless a
         caller compares them with the plain versions.
         ``deterministic=False`` (forward only) is the differentiable train
-        route with WaveNet dropout drawn from the int32 ``seed``.  Returns
-        (x, logdet [B] or None, mask)."""
-        x, sq_mask = squeeze(x, mask, self.num_squeeze)
+        route with WaveNet dropout drawn from the int32 ``seed``.  The
+        conditioned modes pass ``speaker [B, E]``, ``prosody [B, P]`` and
+        (GR) ``pitch [B, T]``, which is squeezed to the kernels' pitch
+        operand ``[B, T/s, s]``.  Returns (x, logdet [B] or None, mask)."""
+        s = self.num_squeeze
+        if pitch is not None:
+            pitch, _ = squeeze(pitch[..., None].float(), mask, s)
+            pitch = pitch.contiguous()
+        x, sq_mask = squeeze(x, mask, s)
+        conditioned = (speaker is not None or prosody is not None
+                       or pitch is not None)
         if not deterministic:
             if reverse or seed is None:
                 raise ValueError('the train route runs forward and needs '
                                  'a seed')
+            if conditioned:
+                raise NotImplementedError(
+                    'training the conditioned modes (SE, PE, GR) is not in '
+                    'the PyTorch port yet (ROADMAP.md A.4)')
             x, logdet = stack_fn(x, sq_mask, self.pack_train(), None, None,
                                  seed=seed, dropout_rate=self.dropout_rate)
-        elif self.mega_route:
-            x, logdet = flow_stack_fn(
-                x, sq_mask, self.stacked_weights(reverse),
-                self.stacked_cond(x.shape[0]), reverse=reverse)
         else:
-            steps = list(self.layer_Dict['Flows'])
-            logdet = None if reverse else torch.zeros(
-                x.shape[0], device=x.device)
-            for step in (reversed(steps) if reverse else steps):
-                x, ld = step(x, sq_mask, reverse, step_fn, coupling_fn)
-                if ld is not None:
-                    logdet = logdet + ld
-        x, out_mask = unsqueeze(x, sq_mask, self.num_squeeze)
+            cond = self.conditioning(x.shape[0], speaker, prosody,
+                                     pitch is not None)
+            if self.mega_route:
+                x, logdet = flow_stack_fn(
+                    x, sq_mask, self.stacked_weights(reverse), cond,
+                    pitch=pitch, reverse=reverse)
+            else:
+                steps = list(enumerate(self.layer_Dict['Flows']))
+                logdet = None if reverse else torch.zeros(
+                    x.shape[0], device=x.device)
+                for k, step in (reversed(steps) if reverse else steps):
+                    x, ld = step(x, sq_mask, reverse, step_fn, coupling_fn,
+                                 cond[k], pitch)
+                    if ld is not None:
+                        logdet = logdet + ld
+        x, out_mask = unsqueeze(x, sq_mask, s)
         return x, logdet, out_mask

@@ -1,13 +1,17 @@
 """Text encoder: prenet → relative-position transformer → prior projection
-and duration predictor (port of ``glow_tts_tpu/models/encoder.py``,
-Vanilla mode: no conditioning vector).  ``deterministic=False`` turns on
-dropout at the JAX package's sites, drawn from the ``generator`` handed
-down; the duration predictor reads detached encodings."""
+and duration predictor (port of ``glow_tts_tpu/models/encoder.py``).  In
+the conditioned modes the duration predictor also reads the conditioning
+vector, broadcast over the tokens and concatenated to its input.
+``deterministic=False`` turns on dropout at the JAX package's sites, drawn
+from the ``generator`` handed down; the duration predictor reads detached
+encodings."""
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -84,7 +88,8 @@ class DurationPredictor(nn.Module):
     def __init__(self, config):
         super().__init__()
         cfg = config.encoder.duration_predictor
-        widths = [config.encoder.channels] + [cfg.channels] * cfg.stacks
+        widths = ([config.encoder.channels + config.condition_size]
+                  + [cfg.channels] * cfg.stacks)
         self.layer_Dict = nn.ModuleDict({
             **{f'CRND_{i}': _Named(Conv=Conv1d(widths[i], widths[i + 1],
                                                cfg.kernel_size))
@@ -93,8 +98,13 @@ class DurationPredictor(nn.Module):
         self.stacks = cfg.stacks
         self.dropout = Dropout(cfg.dropout_rate)
 
-    def forward(self, x, mask, deterministic=True, generator=None):
-        """x [B, T, C], already detached from the encoder."""
+    def forward(self, x, mask, condition: Optional[torch.Tensor] = None,
+                deterministic=True, generator=None):
+        """x [B, T, C], already detached from the encoder; ``condition
+        [B, E]`` or None."""
+        if condition is not None:
+            x = torch.cat([x, condition[:, None, :].expand(
+                -1, x.shape[1], -1).to(x.dtype)], dim=-1)
         for i in range(self.stacks):
             conv = self.layer_Dict[f'CRND_{i}'].layer_Dict['Conv']
             x = self.dropout(F.relu(conv(masked(x, mask))), deterministic,
@@ -119,8 +129,10 @@ class TextEncoder(nn.Module):
             'Project': Conv1d(cfg.channels, 2 * config.sound.mel_dim, 1),
             'Duration_Predictor': DurationPredictor(config)})
 
-    def forward(self, tokens, mask, deterministic=True, generator=None):
-        """tokens [B, T] int64; mask [B, T, 1].  Returns (mean [B, T, M],
+    def forward(self, tokens, mask, condition=None, deterministic=True,
+                generator=None):
+        """tokens [B, T] int64; mask [B, T, 1]; ``condition [B, E]`` (the
+        conditioned modes' vector) or None.  Returns (mean [B, T, M],
         log_std [B, T, M], log_durations [B, T, 1]).  The duration
         predictor sees detached features, so the duration loss trains the
         predictor alone."""
@@ -134,5 +146,5 @@ class TextEncoder(nn.Module):
         x = masked(x, mask)
         mean, log_std = masked(layers['Project'](x), mask).chunk(2, dim=-1)
         log_durations = layers['Duration_Predictor'](
-            x.detach(), mask, deterministic, generator)
+            x.detach(), mask, condition, deterministic, generator)
         return mean, log_std, log_durations

@@ -1,14 +1,17 @@
-"""Glow-TTS, Vanilla mode (port of ``glow_tts_tpu/models/glow_tts.py``):
-the train forward (:meth:`GlowTTS.forward`: encoder prior, forward flow
-with its logdet, prior log-likelihood, MAS), deterministic for the loss
-and eval path and with dropout and gradients for the train step, and
-two-phase serving.
+"""Glow-TTS (port of ``glow_tts_tpu/models/glow_tts.py``), in the four
+modes: Vanilla, SE (a speaker vector from the look-up table or the GE2E
+encoder), PE (a GST prosody vector from a reference mel) and GR (both, the
+adversarial speaker classifier and the pitch operand).  The train forward
+(:meth:`GlowTTS.forward`: conditioning, encoder prior, forward flow with its
+logdet, prior log-likelihood, MAS) is deterministic for the loss and eval
+path and, in Vanilla mode, has dropout and gradients for the train step;
+serving is two-phase.
 
 Serving has two phases, as the JAX package serves: :meth:`GlowTTS.inference_prior`
-does the token-length work (encoder prior, ceiled durations), the host
-picks a mel bucket from the summed durations, and
+does the token-length work (conditioning, encoder prior, ceiled
+durations), the host picks a mel bucket from the summed durations, and
 :meth:`GlowTTS.inference_decode` does the mel-capacity work (hard path,
-z sample, inverse flow).
+z sample, pitch resampled to the bucket, inverse flow).
 """
 
 from __future__ import annotations
@@ -18,6 +21,9 @@ from typing import Callable, Dict, Optional, Union
 import torch
 from torch import nn
 
+from glow_tts_tpu_torch.models.conditioning import (
+    GE2ESpeakerEncoder, GSTProsodyEncoder, SpeakerClassifier,
+    interpolate_pitch)
 from glow_tts_tpu_torch.models.decoder import (
     ActNorm, FlowDecoder, FlowStackFn, FlowStepFn, InvertibleConv)
 from glow_tts_tpu_torch.models.encoder import TextEncoder
@@ -64,9 +70,57 @@ class GlowTTS(nn.Module):
     def __init__(self, config):
         super().__init__()
         self.config = config
-        self.layer_Dict = nn.ModuleDict({
-            'Encoder': TextEncoder(config),
-            'Decoder': FlowDecoder(config)})
+        modules = {'Encoder': TextEncoder(config),
+                   'Decoder': FlowDecoder(config)}
+        cfg = config.speaker_embedding
+        if config.uses_ge2e:
+            modules['GE2E'] = GE2ESpeakerEncoder(config)
+        elif config.uses_speaker_embedding:
+            modules['LUT'] = nn.Embedding(cfg.num_speakers,
+                                          cfg.embedding_size)
+        if config.uses_prosody_encoder:
+            modules['Prosody_Encoder'] = GSTProsodyEncoder(config)
+        if config.uses_gradient_reversal:
+            modules['Speaker_Classifier_GR'] = SpeakerClassifier(config)
+        self.layer_Dict = nn.ModuleDict(modules)
+
+    def conditions(self, mels: Optional[torch.Tensor] = None,
+                   mel_lengths: Optional[torch.Tensor] = None,
+                   speakers: Optional[torch.Tensor] = None,
+                   mels_for_ge2e: Optional[torch.Tensor] = None):
+        """The mode's conditioning vectors ``(speaker [B, E] | None,
+        prosody [B, P] | None, classified speakers [B, speakers] | None)``:
+        the speaker vector from ``speakers [B]`` (LUT) or ``mels_for_ge2e
+        [B·S, T_slice, M]`` (GE2E), the prosody vector from the reference
+        ``mels [B, T, M]`` and their lengths, and GR mode's classifier on
+        the prosody vector."""
+        cfg, layers = self.config, self.layer_Dict
+        speaker = prosody = classified = None
+        if cfg.uses_ge2e:
+            if mels_for_ge2e is None:
+                raise ValueError('GE2E mode needs mels_for_ge2e')
+            speaker = layers['GE2E'].embed_utterances(mels_for_ge2e)
+        elif cfg.uses_speaker_embedding:
+            if speakers is None:
+                raise ValueError('speaker-embedding mode needs speakers')
+            speaker = layers['LUT'](speakers.long())
+        if cfg.uses_prosody_encoder:
+            if mels is None or mel_lengths is None:
+                raise ValueError('prosody mode needs reference mels and '
+                                 'their lengths')
+            prosody = layers['Prosody_Encoder'](mels, mel_lengths)
+        if cfg.uses_gradient_reversal:
+            classified = layers['Speaker_Classifier_GR'](prosody)
+        return speaker, prosody, classified
+
+    @staticmethod
+    def duration_condition(speaker: Optional[torch.Tensor],
+                           prosody: Optional[torch.Tensor]
+                           ) -> Optional[torch.Tensor]:
+        """What the duration predictor reads: the sum of the conditioning
+        vectors there are, or None."""
+        vectors = [v for v in (speaker, prosody) if v is not None]
+        return sum(vectors[1:], vectors[0]) if vectors else None
 
     @torch.no_grad()
     def prepare(self, fold: bool = True) -> 'GlowTTS':
@@ -86,11 +140,18 @@ class GlowTTS(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 stack_fn: FlowStackFn = flow_stack_train,
                 coupling_fn: FlowStepFn = coupling,
-                flow_stack_fn: FlowStepFn = flow_stack
+                flow_stack_fn: FlowStepFn = flow_stack,
+                speakers: Optional[torch.Tensor] = None,
+                mels_for_ge2e: Optional[torch.Tensor] = None,
+                pitches: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """The train forward: tokens [B, T_tok] int, mels [B, T_mel, M],
         lengths [B] int (mel lengths multiples of ``num_squeeze``).  MAS
         runs on detached statistics and is not differentiated through.
+        The conditioned modes take ``speakers [B]`` (LUT), ``mels_for_ge2e
+        [B·S, T_slice, M]`` (GE2E) and, in GR mode, ``pitches [B, T_mel]``;
+        the prosody vector comes from ``mels``.  GR mode also returns the
+        classifier's ``classified_speakers [B, speakers]``.
         ``step_fn``, ``coupling_fn``, ``flow_stack_fn``, ``stack_fn`` and
         ``mas_fn`` are the kernels' wrappers unless a caller compares them
         with their plain versions.
@@ -106,13 +167,18 @@ class GlowTTS(nn.Module):
         mel_lengths = mel_lengths.to(torch.int32)
         token_mask = sequence_mask(token_lengths, tokens.shape[1])
         mel_mask = sequence_mask(mel_lengths, mels.shape[1])
+        speaker, prosody, classified = self.conditions(
+            mels, mel_lengths, speakers, mels_for_ge2e)
+        pitch = pitches if self.config.uses_gradient_reversal else None
 
         mean, log_std, log_durations = self.layer_Dict['Encoder'](
-            tokens, token_mask, deterministic, generator)
+            tokens, token_mask, self.duration_condition(speaker, prosody),
+            deterministic, generator)
         z, log_dets, mel_mask = self.layer_Dict['Decoder'](
             mels, mel_mask, step_fn=step_fn, deterministic=deterministic,
             seed=seed, stack_fn=stack_fn, coupling_fn=coupling_fn,
-            flow_stack_fn=flow_stack_fn)
+            flow_stack_fn=flow_stack_fn, speaker=speaker, prosody=prosody,
+            pitch=pitch)
 
         attn_mask = token_mask * mel_mask[:, None, :, 0]    # [B,T_tok,T_mel]
         with torch.no_grad():
@@ -123,10 +189,13 @@ class GlowTTS(nn.Module):
         mel_log_std = torch.einsum('bim,bij->bjm', log_std, attentions)
         durations = attentions.sum(dim=-1, keepdim=True)    # [B, T_tok, 1]
         log_duration_targets = torch.log(durations + 1e-7) * token_mask
-        return {'z': z, 'mel_mean': mel_mean, 'mel_log_std': mel_log_std,
-                'log_dets': log_dets, 'log_durations': log_durations,
-                'log_duration_targets': log_duration_targets,
-                'attentions': attentions, 'mel_mask': mel_mask}
+        out = {'z': z, 'mel_mean': mel_mean, 'mel_log_std': mel_log_std,
+               'log_dets': log_dets, 'log_durations': log_durations,
+               'log_duration_targets': log_duration_targets,
+               'attentions': attentions, 'mel_mask': mel_mask}
+        if classified is not None:
+            out['classified_speakers'] = classified
+        return out
 
     @torch.no_grad()
     def data_dependent_init(self, mels: torch.Tensor,
@@ -134,7 +203,13 @@ class GlowTTS(nn.Module):
                             step_fn: FlowStepFn = flow_step) -> 'GlowTTS':
         """Initialise every flow step's ActNorm from the batch
         ``mels [B, T_mel, M]``, as training starts (the JAX package does it
-        inside ``create_train_state``).  Run after :meth:`prepare`."""
+        inside ``create_train_state``).  Run after :meth:`prepare`.
+        Vanilla mode only: the conditioned modes' training is still to be
+        ported."""
+        if self.config.mode.upper() != 'VANILLA':
+            raise NotImplementedError(
+                'training the conditioned modes (SE, PE, GR) is not in the '
+                'PyTorch port yet (ROADMAP.md A.4)')
         mel_mask = sequence_mask(mel_lengths, mels.shape[1])
         self.layer_Dict['Decoder'].data_dependent_init(mels, mel_mask,
                                                        step_fn)
@@ -143,19 +218,30 @@ class GlowTTS(nn.Module):
     @torch.no_grad()
     def inference_prior(self, tokens: torch.Tensor,
                         token_lengths: torch.Tensor,
-                        length_scale: Union[float, torch.Tensor] = 1.0
+                        length_scale: Union[float, torch.Tensor] = 1.0,
+                        mels_for_prosody: Optional[torch.Tensor] = None,
+                        mel_lengths_for_prosody: Optional[torch.Tensor] = None,
+                        speakers: Optional[torch.Tensor] = None,
+                        mels_for_ge2e: Optional[torch.Tensor] = None
                         ) -> Dict[str, torch.Tensor]:
-        """Phase 1: encoder prior and the scaled integer durations."""
+        """Phase 1: the mode's conditioning (``speakers [B]``,
+        ``mels_for_ge2e``, the reference ``mels_for_prosody [B, T, M]`` and
+        their lengths), the encoder prior and the scaled integer durations.
+        The conditioning vectors ride in the result to the decode phase."""
         token_mask = sequence_mask(token_lengths, tokens.shape[1])
+        speaker, prosody, _ = self.conditions(
+            mels_for_prosody, mel_lengths_for_prosody, speakers,
+            mels_for_ge2e)
         mean, log_std, log_durations = self.layer_Dict['Encoder'](
-            tokens, token_mask)
+            tokens, token_mask, self.duration_condition(speaker, prosody))
         scale = torch.as_tensor(length_scale, dtype=torch.float32,
                                 device=tokens.device).reshape(-1, 1)
         durations = torch.ceil(torch.exp(log_durations[..., 0])
                                * token_mask[..., 0] * scale)
         return {'mean': mean, 'log_std': log_std,
                 'log_durations': log_durations, 'durations': durations,
-                'token_mask': token_mask}
+                'token_mask': token_mask, 'speaker_vec': speaker,
+                'prosody_vec': prosody}
 
     @torch.no_grad()
     def inference_decode(self, prior: Dict[str, torch.Tensor],
@@ -165,12 +251,15 @@ class GlowTTS(nn.Module):
                          max_mel_length: int = 1024,
                          step_fn: FlowStepFn = flow_step,
                          coupling_fn: FlowStepFn = coupling,
-                         flow_stack_fn: FlowStepFn = flow_stack
+                         flow_stack_fn: FlowStepFn = flow_stack,
+                         pitches: Optional[torch.Tensor] = None,
+                         pitch_lengths: Optional[torch.Tensor] = None
                          ) -> Dict[str, torch.Tensor]:
         """Phase 2 at the static capacity ``max_mel_length``: path, z and
         the inverse flow by the route of ``config.coupling_backend``.  The
         unit-normal ``noise [B, max_mel_length, M]`` is drawn from
-        ``generator`` unless given."""
+        ``generator`` unless given.  In GR mode ``pitches [B, T_pitch]`` of
+        ``pitch_lengths [B]`` are resampled to the predicted lengths."""
         mean, log_std = prior['mean'], prior['log_std']
         durations, token_mask = prior['durations'], prior['token_mask']
         s = self.config.decoder.num_squeeze
@@ -191,9 +280,15 @@ class GlowTTS(nn.Module):
                                 device=mel_mean.device)
         z = (mel_mean + torch.exp(mel_log_std) * noise * noise_scale) \
             * mel_mask
+        pitch = None
+        if self.config.uses_gradient_reversal and pitches is not None:
+            pitch = interpolate_pitch(pitches.float(), pitch_lengths,
+                                      mel_lengths, max_mel_length)
         mels, _, mel_mask = self.layer_Dict['Decoder'](
             z, mel_mask, reverse=True, step_fn=step_fn,
-            coupling_fn=coupling_fn, flow_stack_fn=flow_stack_fn)
+            coupling_fn=coupling_fn, flow_stack_fn=flow_stack_fn,
+            speaker=prior.get('speaker_vec'), prosody=prior.get('prosody_vec'),
+            pitch=pitch)
         fill = torch.full_like(mels, -self.config.sound.max_abs_mel)
         mels = torch.where(mel_mask > 0, mels, fill)
         return {'mels': mels, 'mel_lengths': mel_lengths,
@@ -236,6 +331,17 @@ def random_state_dict(config, seed: int) -> Dict[str, torch.Tensor]:
         elif isinstance(module, ActNorm):
             normal_(module.logs, 0.05)
             normal_(module.bias, 0.05)
+        elif isinstance(module, (nn.Conv2d, nn.Linear)):
+            fan_in = module.weight[0].numel()
+            normal_(module.weight, fan_in ** -0.5)
+            if module.bias is not None:
+                normal_(module.bias, 0.02)
+        elif isinstance(module, (nn.LSTM, nn.GRU)):
+            for name, param in module.named_parameters():
+                normal_(param, 0.02 if name.startswith('bias')
+                        else module.hidden_size ** -0.5)
+        elif isinstance(module, GSTProsodyEncoder):
+            normal_(module.gst_Tokens, 0.5)
         elif isinstance(module, InvertibleConv):
             q, _ = torch.linalg.qr(torch.randn(module.weight.shape,
                                                generator=gen))

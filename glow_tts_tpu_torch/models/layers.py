@@ -220,3 +220,41 @@ class RelativePositionMultiHeadAttention(nn.Module):
                + torch.einsum('bhqk,qkd->bhqd', alignments, skew_v))
         out = out.transpose(1, 2).reshape(b, t, c)
         return layers['Projection'](out), alignments
+
+
+class MultiHeadCrossAttention(nn.Module):
+    """Plain multi-head attention of queries over keys, no relative
+    positions and no mask: the JAX ``RelativePositionMultiHeadAttention``
+    with ``window_size=None``, as the GST prosody encoder uses it over its
+    style tokens (``glow_tts_tpu/models/conditioning.py``).  Projections are
+    1×1 convs under the reference's names (Query, Key, Value, Projection)."""
+
+    def __init__(self, query_channels: int, key_channels: int,
+                 channels: int, out_channels: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.layer_Dict = nn.ModuleDict({
+            'Query': Conv1d(query_channels, channels, 1),
+            'Key': Conv1d(key_channels, channels, 1),
+            'Value': Conv1d(key_channels, channels, 1),
+            'Projection': Conv1d(channels, out_channels, 1)})
+
+    def forward(self, queries: torch.Tensor,
+                keys: torch.Tensor) -> torch.Tensor:
+        """queries [B, T_q, C_q], keys [B, T_k, C_k] (also the values) →
+        [B, T_q, out]."""
+        layers = self.layer_Dict
+        h = self.num_heads
+
+        def heads(y):
+            b, t, c = y.shape
+            return y.reshape(b, t, h, c // h).transpose(1, 2)
+
+        q = heads(layers['Query'](queries))
+        k = heads(layers['Key'](keys))
+        v = heads(layers['Value'](keys))
+        scores = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
+        out = torch.softmax(scores, dim=-1) @ v              # [B, H, Tq, d]
+        b, _, t_q, d = out.shape
+        return layers['Projection'](out.transpose(1, 2).reshape(b, t_q,
+                                                                 h * d))

@@ -12,6 +12,11 @@ route of ``config.coupling_backend``:
   ``_make_mega_kernel`` (entry ``fused_flow_stack``): all the flow steps in
   one launch, over weights stacked along a leading step axis.
 
+GR mode's pitch operand (``pitch [B, T, ps]`` with ``w_pitch [n, ps, 2ch]``
+among the weights: ``pitch·w_pitch[i]`` added per frame to layer ``i``'s
+pre-gate sum) goes to each kernel's pitch instantiation, a library of its
+own built at the first call that has a pitch operand.
+
 Beside each wrapper stands its plain PyTorch version (``*_reference``);
 the wrapper picks between kernel and plain version by the tensor's device
 alone: a CPU tensor takes the plain version, a CUDA tensor launches the
@@ -49,6 +54,11 @@ Weights = Dict[str, torch.Tensor]
 
 # shapes the compiled kernel is specialised for (the shipped config)
 KERNEL_SHAPE = {'channels': 160, 'ch': 192, 'n_layers': 4, 'kernel_size': 5}
+# width of the pitch operand the pitch instantiations take (num_squeeze;
+# kPitchSize in csrc/flow_common.cuh)
+PITCH_SIZE = 2
+# the macro a pitch instantiation's library is built with
+PITCH_BUILD = ('GLOW_PITCH',)
 WEIGHT_KEYS = ('an_logs', 'an_bias', 'mix_t', 'w_start', 'b_start', 'w_in',
                'w_rs', 'b_rs', 'w_end', 'b_end')
 COUPLING_WEIGHT_KEYS = WEIGHT_KEYS[3:]         # the coupling's own
@@ -311,24 +321,21 @@ def _weight_shapes(c: int, n: int, k: int, ch: int) -> Dict[str, tuple]:
             'b_rs': (n, 2 * ch), 'w_end': (ch, c), 'b_end': (c,)}
 
 
-def _check_launch(name: str, x: torch.Tensor, pitch: Optional[torch.Tensor],
-                  channels: int, w_in_shape: Tuple[int, ...],
+def _check_launch(name: str, x: torch.Tensor, channels: int,
+                  w_in_shape: Tuple[int, ...],
                   tensors: Dict[str, Tuple[torch.Tensor, tuple]],
                   views: Optional[Dict[str, Tuple[torch.Tensor, tuple]]] = None
                   ) -> None:
-    """What every kernel of this module asks of a CUDA call: no pitch, no
-    tensor that requires grad, the shipped widths, and each of ``tensors``
-    (name → (tensor, shape)) a contiguous float32 tensor of its shape on
-    ``x``'s device.  ``views`` may be slices of a wider tensor's channels:
-    unit stride along the channels, every other stride and the address a
+    """What every kernel of this module asks of a CUDA call: no tensor that
+    requires grad, the shipped widths, and each of ``tensors`` (name →
+    (tensor, shape)) a contiguous float32 tensor of its shape on ``x``'s
+    device.  ``views`` may be slices of a wider tensor's channels: unit
+    stride along the channels, every other stride and the address a
     multiple of 4 floats, as the kernel's 16-byte loads need.  Raises
     otherwise."""
     views = views or {}
     if x.device.type != 'cuda':
         raise ValueError(f'{name}: no kernel for device {x.device}')
-    if pitch is not None:
-        raise NotImplementedError(
-            f'{name}: pitch conditioning is not in the CUDA kernel yet')
     if torch.is_grad_enabled() and any(
             tensor.requires_grad
             for tensor, _ in (*tensors.values(), *views.values())):
@@ -369,9 +376,22 @@ def _check_weights(name: str, x: torch.Tensor, pitch, channels: int,
                    views=None) -> None:
     """:func:`_check_launch` on ``tensors``, the f32 ``weights`` of
     ``shapes`` and their tensor-core layout, which ``weights`` must carry:
-    it is made once, where the weights are packed, not at every launch."""
+    it is made once, where the weights are packed, not at every launch.
+    With a ``pitch [B, T, PITCH_SIZE]`` operand, ``weights`` carry
+    ``w_pitch [(S,) n, PITCH_SIZE, 2ch]`` too."""
     w_in_shape = weights['w_in'].shape[0 if steps is None else 1:]
-    _check_launch(name, x, pitch, channels, w_in_shape, {
+    lead = () if steps is None else (steps,)
+    tensors = dict(tensors)
+    shapes = dict(shapes)
+    if pitch is not None:
+        if 'w_pitch' not in weights:
+            raise ValueError(f'{name}: a pitch operand needs w_pitch among '
+                             'the weights')
+        b, t = tensors['mask'][1][:2]
+        n, _, _, ch2 = w_in_shape
+        tensors['pitch'] = (pitch, (b, t, PITCH_SIZE))
+        shapes['w_pitch'] = lead + (n, PITCH_SIZE, ch2)
+    _check_launch(name, x, channels, w_in_shape, {
         **tensors,
         **{key: (weights[key], shape) for key, shape in shapes.items()}},
         views)
@@ -382,8 +402,7 @@ def _check_weights(name: str, x: torch.Tensor, pitch, channels: int,
             'the tensor cores; split them once where the weights are packed '
             '(with_tensor_core_weights; FlowStep.pack caches them)')
     n, k, ch, _ = w_in_shape
-    lead = () if steps is None else (steps,)
-    _check_launch(name, x, pitch, channels, w_in_shape, {
+    _check_launch(name, x, channels, w_in_shape, {
         key: (weights[key], lead + _weight_shapes(channels, n, k, ch)[key])
         for key in TC_KEYS.values()})
 
@@ -405,6 +424,14 @@ def tile_report_pointer(name: str, tiles: Optional[torch.Tensor],
             or not tiles.is_contiguous()):
         raise ValueError(f'{name}: tiles must be tile_report({x.device})')
     return tiles.data_ptr()
+
+
+def _pitch_pointers(pitch: Optional[torch.Tensor],
+                    weights: Weights) -> Tuple[Optional[int], Optional[int]]:
+    """The addresses of the pitch operand and of ``w_pitch``, or NULLs."""
+    if pitch is None:
+        return None, None
+    return pitch.data_ptr(), weights['w_pitch'].data_ptr()
 
 
 def _raise_on(name: str, lib: ctypes.CDLL, err: int) -> None:
@@ -443,7 +470,7 @@ def _flow_step_kernel(x, mask, weights, cond, reverse=False, pitch=None,
         raise ValueError(f'flow_step: passes is 1 or 3, got {passes}')
     tiles_ptr = tile_report_pointer('flow_step', tiles, x)
 
-    lib = load_flow_step_library()
+    lib = load_flow_step_library(pitch is not None)
     z = torch.empty_like(x)
     ld_part = ld_ptr = part_ptr = None          # NULL: unused on reverse
     if not reverse:
@@ -456,14 +483,18 @@ def _flow_step_kernel(x, mask, weights, cond, reverse=False, pitch=None,
     inputs = [x, mask, cond] + [weights[key]
                                 for key in kernel_keys(WEIGHT_KEYS)]
     _raise_on('flow_step', lib, lib.glow_flow_step_f32(
-        *[p.data_ptr() for p in inputs], ld_ptr, z.data_ptr(), part_ptr,
+        *[p.data_ptr() for p in inputs[:3]], *_pitch_pointers(pitch, weights),
+        *[p.data_ptr() for p in inputs[3:]], ld_ptr, z.data_ptr(), part_ptr,
         tiles_ptr, b, t, int(reverse), passes,
         torch.cuda.current_stream(x.device).cuda_stream))
-    flow_step.launches += 1
+    if pitch is None:
+        flow_step.launches += 1
+    else:                                  # the pitch instantiation's own
+        flow_step.pitch_launches += 1
     return z, (None if ld_part is None else ld_part.sum(dim=1))
 
 
-flow_step.launches = 0
+flow_step.launches = flow_step.pitch_launches = 0
 
 
 def coupling(x_a: torch.Tensor, x_b: torch.Tensor, mask: torch.Tensor,
@@ -496,7 +527,7 @@ def _coupling_kernel(x_a, x_b, mask, weights, cond, pitch=None,
     own = kernel_keys(COUPLING_WEIGHT_KEYS)
     tiles_ptr = tile_report_pointer('coupling', tiles, x_a)
 
-    lib = load_coupling_library()
+    lib = load_coupling_library(pitch is not None)
     z_b = torch.empty((b, t, c2), device=x_a.device)
     ld_part = None                              # NULL: unused on reverse
     if not reverse:
@@ -505,16 +536,19 @@ def _coupling_kernel(x_a, x_b, mask, weights, cond, pitch=None,
     _raise_on('coupling', lib, lib.glow_coupling_f32(
         x_a.data_ptr(), x_a.stride(0), x_a.stride(1),
         x_b.data_ptr(), x_b.stride(0), x_b.stride(1),
-        mask.data_ptr(), cond.data_ptr(),
+        mask.data_ptr(), cond.data_ptr(), *_pitch_pointers(pitch, weights),
         *[weights[key].data_ptr() for key in own],
         z_b.data_ptr(), None if ld_part is None else ld_part.data_ptr(),
         tiles_ptr, b, t, int(reverse),
         torch.cuda.current_stream(x_a.device).cuda_stream))
-    coupling.launches += 1
+    if pitch is None:
+        coupling.launches += 1
+    else:                                  # the pitch instantiation's own
+        coupling.pitch_launches += 1
     return z_b, (None if ld_part is None else ld_part.sum(dim=1))
 
 
-coupling.launches = 0
+coupling.launches = coupling.pitch_launches = 0
 
 
 def flow_stack(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
@@ -546,7 +580,7 @@ def _flow_stack_kernel(x, mask, weights, cond, pitch=None, reverse=False,
         'cond': (cond, (steps, n, b, ch2))}, shapes, steps=steps)
     tiles_ptr = tile_report_pointer('flow_stack', tiles, x)
 
-    lib = load_flow_stack_library()
+    lib = load_flow_stack_library(pitch is not None)
     n_tiles = -(-t // lib.glow_flow_stack_time_tile())
     # the steps go to and fro between two buffers (a step's neighbours may
     # still be reading its input), the last one into z
@@ -564,25 +598,30 @@ def _flow_stack_kernel(x, mask, weights, cond, pitch=None, reverse=False,
     inputs = [x, mask, cond] + [weights[key]
                                 for key in kernel_keys(WEIGHT_KEYS)]
     _raise_on('flow_stack', lib, lib.glow_flow_stack_f32(
-        *[p.data_ptr() for p in inputs], ld_ptr, z.data_ptr(),
+        *[p.data_ptr() for p in inputs[:3]], *_pitch_pointers(pitch, weights),
+        *[p.data_ptr() for p in inputs[3:]], ld_ptr, z.data_ptr(),
         None if other is None else other.data_ptr(),
         None if ld_part is None else ld_part.data_ptr(), done.data_ptr(),
         tiles_ptr, b, t, steps, int(reverse),
         torch.cuda.current_stream(x.device).cuda_stream))
-    flow_stack.launches += 1
+    if pitch is None:
+        flow_stack.launches += 1
+    else:                                  # the pitch instantiation's own
+        flow_stack.pitch_launches += 1
     return z, (None if ld_part is None else ld_part.sum(dim=1))
 
 
-flow_stack.launches = 0
+flow_stack.launches = flow_stack.pitch_launches = 0
 
 
-def _load(source: str, entry: str, argtypes: list,
+def _load(source: str, entry: str, argtypes: list, pitch: bool = False,
           extra: Tuple[Tuple[str, list], ...] = ()) -> ctypes.CDLL:
-    """Build (at first use) and load ``csrc/<source>``, typed: its entry
-    point, its time-tile query (and the other int queries in ``extra``, as
-    (name, argtypes)) and the error-string function every library has."""
+    """Build (at first use) and load ``csrc/<source>``, its pitch
+    instantiation with ``pitch``, typed: its entry point, its time-tile
+    query (and the other int queries in ``extra``, as (name, argtypes)) and
+    the error-string function every library has."""
     from glow_tts_tpu_torch.ops.cuda_build import load_library
-    lib = load_library(source)
+    lib = load_library(source, PITCH_BUILD if pitch else ())
     ci = ctypes.c_int
     getattr(lib, entry).argtypes = argtypes
     getattr(lib, entry).restype = ci
@@ -598,25 +637,25 @@ def _load(source: str, entry: str, argtypes: list,
 
 
 @functools.cache
-def load_flow_step_library() -> ctypes.CDLL:
+def load_flow_step_library(pitch: bool = False) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return _load('flow_step.cu', 'glow_flow_step_f32',
-                 [vp] * (3 + len(WEIGHT_KEYS) + 4) + [ci, ci, ci, ci, vp],
-                 extra=(('glow_flow_step_resident_blocks', [ci]),))
+                 [vp] * (5 + len(WEIGHT_KEYS) + 4) + [ci, ci, ci, ci, vp],
+                 pitch, extra=(('glow_flow_step_resident_blocks', [ci]),))
 
 
 @functools.cache
-def load_coupling_library() -> ctypes.CDLL:
+def load_coupling_library(pitch: bool = False) -> ctypes.CDLL:
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     return _load('coupling.cu', 'glow_coupling_f32',
-                 [vp, ll, ll] * 2 + [vp] * (2 + len(COUPLING_WEIGHT_KEYS) + 3)
+                 [vp, ll, ll] * 2 + [vp] * (4 + len(COUPLING_WEIGHT_KEYS) + 3)
                  + [ci, ci, ci, vp],
-                 extra=(('glow_coupling_resident_blocks', [ci]),))
+                 pitch, extra=(('glow_coupling_resident_blocks', [ci]),))
 
 
 @functools.cache
-def load_flow_stack_library() -> ctypes.CDLL:
+def load_flow_stack_library(pitch: bool = False) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return _load('flow_stack.cu', 'glow_flow_stack_f32',
-                 [vp] * (3 + len(WEIGHT_KEYS) + 6) + [ci, ci, ci, ci, vp],
-                 extra=(('glow_flow_stack_resident_blocks', [ci]),))
+                 [vp] * (5 + len(WEIGHT_KEYS) + 6) + [ci, ci, ci, ci, vp],
+                 pitch, extra=(('glow_flow_stack_resident_blocks', [ci]),))

@@ -376,8 +376,8 @@ def _check_cuda_inputs(x, mask, weights, cond, pitch) -> None:
         raise ValueError(f'flow_stack_train: no kernel for device {x.device}')
     if pitch is not None:
         raise NotImplementedError(
-            'flow_stack_train: pitch conditioning is not in the CUDA kernels '
-            'yet')
+            'flow_stack_train: the pitch operand is not in the train kernels '
+            '(#5, #6) yet: GR-mode training, ROADMAP.md A.4')
     b, t, c = x.shape
     s_steps, n, k, ch, ch2 = weights['w_in'].shape
     got = {'channels': c, 'ch': ch, 'n_layers': n, 'kernel_size': k}

@@ -4,7 +4,9 @@ C interface, and load it with ctypes.
 The library is compiled with ``nvcc`` for Hopper (``sm_90a``) at first use
 and kept in ``glow_tts_tpu_torch/_build/`` under a name that carries a hash
 of the source, of the headers beside it (``csrc/*.cuh``) and of the flags,
-so an edited source is never served stale.
+so an edited source is never served stale.  A build may define macros
+(``defines``: GR mode's pitch instantiations are the flow kernels built
+with ``GLOW_PITCH``); each set of them is a library of its own.
 Nothing is built when a module is imported.
 """
 
@@ -18,7 +20,7 @@ import re
 import shutil
 import subprocess
 import tempfile
-from typing import List
+from typing import List, Sequence
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(PACKAGE_DIR, '_build')
@@ -36,32 +38,39 @@ def nvcc_path() -> str:
     raise RuntimeError('nvcc not found: set CUDA_HOME to the CUDA toolkit')
 
 
-def library_path(source: str) -> str:
-    """Where the build of ``csrc/<source>`` as it stands now lives."""
+def _flags(defines: Sequence[str]) -> List[str]:
+    return [*NVCC_FLAGS, *(f'-D{name}' for name in defines)]
+
+
+def library_path(source: str, defines: Sequence[str] = ()) -> str:
+    """Where the build of ``csrc/<source>`` with ``defines`` as it stands
+    now lives."""
     src_path = os.path.join(PACKAGE_DIR, 'csrc', source)
-    hashed = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    hashed = hashlib.sha256(' '.join(_flags(defines)).encode())
     headers = sorted(glob.glob(os.path.join(PACKAGE_DIR, 'csrc', '*.cuh')))
     for path in [src_path, *headers]:
         with open(path, 'rb') as f:
             hashed.update(f.read())
-    stem = os.path.splitext(source)[0]
+    stem = '-'.join([os.path.splitext(source)[0],
+                     *(name.lower() for name in defines)])
     return os.path.join(BUILD_DIR,
                         f'lib{stem}-{hashed.hexdigest()[:12]}.so')
 
 
-def load_library(source: str) -> ctypes.CDLL:
+def load_library(source: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` unless a build of the same content
     exists, and load it.  The compiler's ``-Xptxas -v`` report (registers,
     shared memory, spills per kernel) is written beside the library as
     ``.log``.  Concurrent first builds are safe: each compiles to its own
     temporary file and the rename is atomic."""
     src_path = os.path.join(PACKAGE_DIR, 'csrc', source)
-    lib_path = library_path(source)
+    lib_path = library_path(source, defines)
     if not os.path.exists(lib_path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
         os.close(fd)
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, '-o', tmp, src_path],
+        proc = subprocess.run([nvcc_path(), *_flags(defines), '-o', tmp,
+                               src_path],
                               capture_output=True, text=True)
         with open(lib_path[:-3] + '.log', 'w') as log:
             log.write(proc.stdout + proc.stderr)
@@ -73,11 +82,14 @@ def load_library(source: str) -> ctypes.CDLL:
     return ctypes.CDLL(lib_path)
 
 
-def ptxas_report(source: str) -> List[str]:
-    """One line per kernel of a built ``csrc/<source>``: its (mangled) name
-    without the file's prefix, then registers, barriers, shared memory and
-    spills as ``ptxas -v`` printed them into the build's ``.log``."""
-    with open(library_path(source)[:-3] + '.log', encoding='utf-8') as f:
+def ptxas_report(source: str, defines: Sequence[str] = ()) -> List[str]:
+    """One line per kernel of a built ``csrc/<source>`` (with
+    ``defines``): its (mangled) name without the file's prefix, then
+    registers, barriers, shared memory and spills as ``ptxas -v`` printed
+    them into the build's ``.log``."""
+    label = ' '.join([source, *(f'-D{name}' for name in defines)])
+    with open(library_path(source, defines)[:-3] + '.log',
+              encoding='utf-8') as f:
         text = f.read()
     lines, name, spills = [], '?', ''
     for line in text.splitlines():
@@ -89,5 +101,5 @@ def ptxas_report(source: str) -> List[str]:
             spills = line.strip()
         elif 'Used' in line:
             used = line.split(':', 1)[1].strip()
-            lines.append(f'{source} {name}: {used}; {spills}')
+            lines.append(f'{label} {name}: {used}; {spills}')
     return lines

@@ -29,7 +29,11 @@ itself; 12 steps on the same ragged masks over NaN-planted buffers, bit for
 bit against the chain and itself, with the tiles it reports against its
 twin.  The trainer at the shipped width, batch 2: 2 steps, a restore from
 ``S_2.pt`` in a new trainer and 2 more against 4 straight steps, the CUDA
-generator's state through the checkpoint.
+generator's state through the checkpoint.  GR mode's pitch operand in the
+flow step, the coupling and the stack: the same tile edges (a live tile
+whose halo crosses its sample's end and T), ragged masks with holes, the
+stack bit for bit against a chain of flow-step launches with pitch, and
+what the wrappers refuse.
 Needs a GPU and nvcc; skipped without.
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -183,7 +187,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(device):
     w, cond = _weights(gen, device)
     x = torch.zeros((4, 8, 160), device=device)
     mask = torch.ones((4, 8, 1), device=device)
-    with pytest.raises(NotImplementedError):
+    # a pitch operand goes with w_pitch among the weights
+    with pytest.raises(ValueError, match='w_pitch'):
         tc.flow_step(x, mask, w, cond, pitch=torch.zeros((4, 8, 2),
                                                          device=device))
     with pytest.raises(ValueError):
@@ -689,7 +694,7 @@ def test_coupling_wrapper_refuses_what_the_kernel_does_not_take(device):
     x_a, x_b = x[..., :80], x[..., 80:160]
     mask = torch.ones((4, 8, 1), device=device)
     tc.coupling(x_a, x_b, mask, w, cond)                # a wider parent runs
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match='w_pitch'):
         tc.coupling(x_a, x_b, mask, w, cond,
                     pitch=torch.zeros((4, 8, 2), device=device))
     with pytest.raises(ValueError, match='float32'):
@@ -868,7 +873,7 @@ def test_flow_stack_grid_is_the_resident_blocks(device):
 def test_flow_stack_wrapper_refuses_what_the_kernel_does_not_take(device):
     gen = torch.Generator().manual_seed(0)
     x, mask, w, cond = _stack_problem(gen, device, 2, [8, 8])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match='w_pitch'):
         tc.flow_stack(x, mask, w, cond,
                       pitch=torch.zeros((2, 8, 2), device=device))
     with pytest.raises(ValueError, match='float32'):
@@ -941,3 +946,115 @@ def test_trainer_resumes_on_the_card(device, tmp_path):
     for (name, a), (_, b) in zip(whole.model.named_parameters(),
                                  resumed.model.named_parameters()):
         assert _rel(b, a) <= 1e-5, name
+
+
+def _with_pitch(gen, w, b, t, device, steps=None):
+    """``w`` with a ``w_pitch [(steps,) 4, 2, 384]``, and a pitch operand
+    ``[B, T, 2]`` that is not zero past the samples' lengths either."""
+    lead = () if steps is None else (steps,)
+    w_pitch = torch.randn(lead + (4, tc.PITCH_SIZE, 384), generator=gen) * .5
+    pitch = torch.rand((b, t, tc.PITCH_SIZE), generator=gen)
+    return {**w, 'w_pitch': w_pitch.to(device)}, pitch.to(device)
+
+
+@pytest.mark.parametrize('length', [1, 33, 70])
+@pytest.mark.parametrize('reverse', [False, True])
+def test_flow_step_with_pitch_matches_plain(device, length, reverse):
+    gen = torch.Generator().manual_seed(100 + length)
+    w, cond = _weights(gen, device)
+    x, mask = _ragged(gen, [length, 1, max(length // 2, 1), length], device)
+    w, pitch = _with_pitch(gen, w, 4, length, device)
+    before = tc.flow_step.launches, tc.flow_step.pitch_launches
+    z, ld = tc.flow_step(x, mask, w, cond, reverse, pitch=pitch)
+    torch.cuda.synchronize()
+    # the pitch instantiation counts its own launches
+    assert (tc.flow_step.launches, tc.flow_step.pitch_launches) == (
+        before[0], before[1] + 1)
+    z_ref, ld_ref = tc.flow_step_reference(x, mask, w, cond, reverse, pitch)
+    assert _rel(z, z_ref) < REL
+    assert (z[mask.expand_as(z) == 0] == 0).all()
+    # the pitch term is there: without it the result is another one
+    z_without, _ = tc.flow_step_reference(x, mask, w, cond, reverse)
+    assert _rel(z_without, z_ref) > 100 * REL
+    if not reverse:
+        assert _rel(ld, ld_ref) < 1e-5
+
+
+@pytest.mark.parametrize('length', [5, 33, 70])
+@pytest.mark.parametrize('reverse', [False, True])
+def test_coupling_with_pitch_matches_plain(device, length, reverse):
+    gen = torch.Generator().manual_seed(200 + length)
+    w, cond = _weights(gen, device)
+    x, mask = _ragged(gen, [length, 1, max(length // 2, 1), length], device)
+    w, pitch = _with_pitch(gen, w, 4, length, device)
+    x_a, x_b = x[..., :80], x[..., 80:]
+    z, ld = tc.coupling(x_a, x_b, mask, w, cond, pitch=pitch,
+                        reverse=reverse)
+    torch.cuda.synchronize()
+    z_ref, ld_ref = tc.coupling_reference(x_a, x_b, mask, w, cond, pitch,
+                                          reverse)
+    assert _rel(z, z_ref) < REL
+    if not reverse:
+        assert _rel(ld, ld_ref) < 1e-5
+
+
+@pytest.mark.parametrize('lengths', [[33, 1, 16, 33], [130, 7] + [100] * 32])
+@pytest.mark.parametrize('reverse', [False, True])
+def test_flow_stack_with_pitch_matches_plain_and_the_chain(device, lengths,
+                                                           reverse):
+    gen = torch.Generator().manual_seed(300 + sum(lengths))
+    x, mask, w, cond = _stack_problem(gen, device, 3, lengths)
+    w, pitch = _with_pitch(gen, w, len(lengths), x.shape[1], device, steps=3)
+    z, ld = tc.flow_stack(x, mask, w, cond, pitch, reverse)
+    torch.cuda.synchronize()
+    z_ref, ld_ref = tc.flow_stack_reference(x, mask, w, cond, pitch, reverse)
+    assert _rel(z, z_ref) < REL
+    chain = x
+    for s in (reversed(range(3)) if reverse else range(3)):
+        chain, _ = tc.flow_step(chain, mask,
+                                {key: value[s] for key, value in w.items()},
+                                cond[s].contiguous(), reverse, pitch=pitch)
+    assert torch.equal(z, chain)
+    if not reverse:
+        assert _rel(ld, ld_ref) < REL
+
+
+@pytest.mark.parametrize('case', range(len(RAGGED_STACKS)))
+def test_flow_stack_with_pitch_on_masks_with_holes(device, planted_nan, case):
+    lengths, holes = RAGGED_STACKS[case]
+    gen = torch.Generator().manual_seed(400 + case)
+    w, _ = _weights(gen, device)
+    stacked = {key: torch.stack([value] * 2) for key, value in w.items()}
+    mask = _ragged_mask(lengths, holes, 512, device)
+    x = torch.randn((len(lengths), 512, 160), generator=gen).to(device) * mask
+    cond = (torch.randn((2, 4, len(lengths), 384), generator=gen) * .2
+            ).to(device)
+    stacked, pitch = _with_pitch(gen, stacked, len(lengths), 512, device,
+                                 steps=2)
+    for reverse in (False, True):
+        z, _ = tc.flow_stack(x, mask, stacked, cond, pitch, reverse)
+        z_ref, _ = tc.flow_stack_reference(x, mask, stacked, cond, pitch,
+                                           reverse)
+        torch.cuda.synchronize()
+        assert torch.isfinite(z).all()
+        assert _rel(z, z_ref) < REL
+
+
+def test_pitch_wrappers_refuse_what_the_kernels_do_not_take(device):
+    gen = torch.Generator().manual_seed(1)
+    w, cond = _weights(gen, device)
+    x = torch.zeros((4, 8, 160), device=device)
+    mask = torch.ones((4, 8, 1), device=device)
+    w, pitch = _with_pitch(gen, w, 4, 8, device)
+    tc.flow_step(x, mask, w, cond, pitch=pitch)
+    with pytest.raises(ValueError, match='pitch'):     # ps = num_squeeze = 2
+        tc.flow_step(x, mask, w, cond, pitch=torch.zeros((4, 8, 3),
+                                                         device=device))
+    with pytest.raises(ValueError, match='pitch'):
+        tc.flow_step(x, mask, w, cond, pitch=pitch[:, :4].contiguous())
+    with pytest.raises(ValueError, match='w_pitch'):
+        tc.flow_step(x, mask, {**w, 'w_pitch': w['w_pitch'][:3]}, cond,
+                     pitch=pitch)
+    with pytest.raises(ValueError, match='pitch'):
+        tc.coupling(x[..., :80], x[..., 80:], mask, w, cond,
+                    pitch=pitch.transpose(1, 2).contiguous().transpose(1, 2))

@@ -98,14 +98,15 @@ def test_inverse_map_undoes_the_exporter(setup):
     for path, value in ref.items():
         np.testing.assert_array_equal(grads[path], 2.0 * np.asarray(value),
                                       err_msg=jax.tree_util.keystr(path))
-    with pytest.raises(NotImplementedError, match='GR'):
-        reference_to_params({}, dataclasses.replace(cfg, mode='GR'))
+    # the four modes convert (tests/test_torch_modes.py); no other does
+    with pytest.raises(ValueError, match='XX'):
+        reference_to_params({}, dataclasses.replace(cfg, mode='XX'))
 
 
 def test_own_exporter_refuses_other_modes(setup):
     cfg, params = setup
-    with pytest.raises(NotImplementedError, match='GR'):
-        port_convert(params, dataclasses.replace(cfg, mode='GR'))
+    with pytest.raises(ValueError, match='XX'):
+        port_convert(params, dataclasses.replace(cfg, mode='XX'))
 
 
 def test_fold_matches_jax_fold(setup):
@@ -240,8 +241,10 @@ def test_config_refuses_an_unknown_coupling_backend():
 
 
 def test_config_refuses_other_modes():
-    with pytest.raises(NotImplementedError):
-        load_config({'Mode': 'GR'})
+    with pytest.raises(ValueError, match='Mode'):
+        load_config({'Mode': 'XX'})
+    with pytest.raises(ValueError, match='Type'):
+        load_config({'Mode': 'SE', 'Speaker_Embedding': {'Type': 'XX'}})
 
 
 def test_text_rules_match_jax():

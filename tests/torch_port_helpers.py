@@ -25,9 +25,26 @@ def port_config(jax_cfg):
     return port_load_config(dataclasses.asdict(jax_cfg))
 
 
-def jax_model(seed=0, perturb=0.03):
-    """(cfg, flax model, numpy params, batch) at tiny size."""
-    cfg = tiny_config()
+# the conditioned modes the tests run: the config's Mode, and GE2E in
+# place of the look-up table for the speaker vector
+MODES = ('SE-LUT', 'SE-GE2E', 'PE', 'GR')
+
+
+def mode_config(mode='Vanilla'):
+    """``tiny_config`` in one of ``'Vanilla'`` and :data:`MODES`."""
+    if mode != 'SE-GE2E':
+        return tiny_config(mode.split('-')[0])
+    speaker = tiny_config('SE').speaker_embedding
+    return tiny_config('SE', Speaker_Embedding={
+        'Type': 'GE2E', 'Num_Speakers': speaker.num_speakers,
+        'Embedding_Size': speaker.embedding_size,
+        'GE2E': dataclasses.asdict(speaker.ge2e)})
+
+
+def jax_model(seed=0, perturb=0.03, mode='Vanilla'):
+    """(cfg, flax model, numpy params, batch) at tiny size, in ``mode``
+    (:func:`mode_config`)."""
+    cfg = mode_config(mode)
     batch = synthetic_batch(cfg, batch=4)
     model, state = create_train_state(cfg, jax.random.PRNGKey(seed), batch)
     rng = np.random.default_rng(seed + 100)
