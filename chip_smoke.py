@@ -31,7 +31,14 @@ at the same width (``Mode`` GR, SE with the look-up table or GE2E, PE):
 the pitch builds of the flow step, the coupling and the stack against
 their plain versions and timed beside the Vanilla builds, GR served at
 B = 32 in the 1024-frame bucket under each route, SE and PE served once
-each, and the GR forward on the eval batch.  Exits
+each, and the GR forward on the eval batch.  Then training in those
+modes at the training shape: the pitch builds of the train forward and
+backward against their plain version (every gradient, the pitch's
+included, under both routes, bit-equal) and timed beside the Vanilla
+builds, GR trained 4 steps through the kernels and through the plain
+versions from the same weights, SE-LUT, SE-GE2E and PE 2 steps each, the
+steps timed beside a Vanilla step on the same batch, and a GR ``Trainer``
+resumed against its uninterrupted run.  Exits
 non-zero on any failure and when no CUDA device is present; the last line
 is one JSON object naming the card.
 """
@@ -93,6 +100,9 @@ INFERENCE_TEXTS = ['The birch canoe slid on the smooth planks.',
 # in 15 launches (7 of them a pair of one of each), 5 launches of column
 # sums, the affine's elementwise backward and the reduction of all partials
 BWD_KERNELS_PER_FLOW_STEP = 22
+# and in its pitch build (GR mode): one more launch a layer, the pitch
+# term's gradients
+BWD_PITCH_KERNELS_PER_FLOW_STEP = 26
 # the training shape of the shipped config: Train.Batch_Size 32, up to 200
 # tokens and 1000 mel frames, padded to the 32-token and 128-frame buckets
 EVAL_BATCH, MAX_TOKENS, MAX_FRAMES = 32, 200, 1000
@@ -187,7 +197,8 @@ def live_tiles(mask, launch, steps=1, stack=False):
 
 COUNTERS = ('flow_step', 'coupling', 'flow_stack', 'mas', 'train_fwd',
             'train_recompute', 'train_bwd', 'flow_step_pitch',
-            'coupling_pitch', 'flow_stack_pitch')
+            'coupling_pitch', 'flow_stack_pitch', 'train_fwd_pitch',
+            'train_recompute_pitch', 'train_bwd_pitch')
 # the deterministic decoder's routes (``config.coupling_backend``): the
 # counter of the kernel each goes through
 ROUTES = {'fused': 'flow_step', 'modules': 'coupling', 'mega': 'flow_stack'}
@@ -207,7 +218,10 @@ def launch_counters():
         (flow_stack_train, 'recompute_launches'),
         (flow_stack_train, 'backward_launches'),
         (flow_step, 'pitch_launches'), (coupling, 'pitch_launches'),
-        (flow_stack, 'pitch_launches'))))
+        (flow_stack, 'pitch_launches'),
+        (flow_stack_train, 'forward_pitch_launches'),
+        (flow_stack_train, 'recompute_pitch_launches'),
+        (flow_stack_train, 'backward_pitch_launches'))))
 
 
 def route_launches(route, config, passes=1, pitch=False):
@@ -1154,19 +1168,23 @@ def forced_route(route, passes=None):
     from glow_tts_tpu_torch.ops import coupling_grad
     passes = passes or coupling_grad.TF32_PASSES
 
-    def fn(x, mask, weights, seed, dropout_rate):
-        return coupling_grad._apply_kernels(x, mask, weights, None, seed,
-                                            dropout_rate, route, passes)
+    def fn(x, mask, weights, cond=None, pitch=None, *, seed, dropout_rate):
+        return coupling_grad._apply_kernels(x, mask, weights, cond, seed,
+                                            dropout_rate, route, passes,
+                                            pitch=pitch)
     return fn
 
 
-def check_train_backward(x, mask, weights):
+def check_train_backward(x, mask, weights, cond=None, pitch=None):
     """Kernel #6 against autograd of the plain version: dx and every
-    weight gradient of a loss through z and the logdet, under both routes
-    (activations stored by the forward pass, and recomputed step by step);
-    the two routes bit-equal, and two runs of each; the last layer's
-    residual-half gradient exactly zero; and the error of one TF32 pass
-    beside that of the shipped product."""
+    weight gradient of a loss through z and the logdet (and dcond, and
+    with a pitch operand, which takes #5's and #6's pitch builds, dpitch),
+    under both routes (activations stored by the forward pass, and
+    recomputed step by step); the two routes bit-equal, and two runs of
+    each; the last layer's residual-half gradient exactly zero; the error
+    of one TF32 pass beside that of the shipped product; with a pitch
+    operand that wants no gradient, dpitch skipped and every other
+    gradient the same bits."""
     from glow_tts_tpu_torch.ops import coupling_grad
     from glow_tts_tpu_torch.ops.coupling_grad import (
         flow_stack_train, flow_stack_train_reference)
@@ -1174,31 +1192,49 @@ def check_train_backward(x, mask, weights):
     dz = torch.randn(x.shape, generator=gen).to(x.device)
     dld = (0.5 + torch.rand(x.shape[0], generator=gen)).to(x.device)
 
-    def gradients(fn):
+    def gradients(fn, pitch_grad=True):
         leaves = {key: value.clone().requires_grad_()
                   for key, value in weights.items()}
         xl = x.clone().requires_grad_()
-        z, ld = fn(xl, mask, leaves, seed=SEED + 6, dropout_rate=FLOW_RATE)
+        cl = None if cond is None else cond.clone().requires_grad_()
+        pl = None if pitch is None else pitch.clone().requires_grad_(
+            pitch_grad)
+        z, ld = fn(xl, mask, leaves, cl, pl, seed=SEED + 6,
+                   dropout_rate=FLOW_RATE)
         (torch.sum(z * dz) + torch.sum(ld * dld)).backward()
         torch.cuda.synchronize()
-        return {'x': xl.grad, **{key: leaf.grad
-                                 for key, leaf in leaves.items()}}
+        out = {'x': xl.grad, **{key: leaf.grad
+                                for key, leaf in leaves.items()}}
+        for key, leaf in (('cond', cl), ('pitch', pl)):
+            if leaf is not None and leaf.requires_grad:
+                out[key] = leaf.grad
+        return out
 
     s_steps, n, _, ch, _ = weights['w_in'].shape
     b, t, c = x.shape
     chosen = ('store' if coupling_grad.stores_activations(
         s_steps, b * t, c, ch, n) else 'recompute')
+    build = '' if pitch is None else '_pitch'
+    per_step = (BWD_KERNELS_PER_FLOW_STEP if pitch is None
+                else BWD_PITCH_KERNELS_PER_FLOW_STEP)
     zero_counts()
     got = gradients(flow_stack_train)
     counts = read_counts()
-    expected = {'train_fwd': s_steps,
-                'train_recompute': 0 if chosen == 'store' else s_steps,
-                'train_bwd': BWD_KERNELS_PER_FLOW_STEP * s_steps}
-    assert {key: counts[key] for key in expected} == expected, counts
+    expected = {**dict.fromkeys(COUNTERS, 0), f'train_fwd{build}': s_steps,
+                f'train_recompute{build}': (0 if chosen == 'store'
+                                            else s_steps),
+                f'train_bwd{build}': per_step * s_steps}
+    assert counts == expected, counts
     runs = {route: [gradients(forced_route(route)) for _ in range(2)]
             for route in ('store', 'recompute')}
     ref = gradients(flow_stack_train_reference)
     one_pass = gradients(forced_route(chosen, passes=1))
+    if pitch is not None:
+        without = gradients(flow_stack_train, pitch_grad=False)
+        assert set(without) == set(got) - {'pitch'}, set(without)
+        for key, value in without.items():
+            assert torch.equal(value, got[key]), \
+                f'd{key} differs when dpitch is skipped'
     worst_abs, worst_rel, worst_one, lines = 0.0, 0.0, 0.0, []
     for key, value in ref.items():
         assert torch.isfinite(got[key]).all(), key
@@ -1215,10 +1251,13 @@ def check_train_backward(x, mask, weights):
         worst_abs = max(worst_abs, (got[key] - value).abs().max().item())
     assert (got['w_rs'][:, -1, :, :ch] == 0).all(), 'dead res half of dw_rs'
     assert (got['b_rs'][:, -1, :ch] == 0).all(), 'dead res half of db_rs'
-    print(f'train backward kernel vs autograd of plain {tuple(x.shape)}, '
+    what = ('kernel' if pitch is None
+            else 'pitch build, cond and pitch, dpitch skipped when not '
+                 'wanted with the other gradients bit-equal;')
+    print(f'train backward {what} vs autograd of plain {tuple(x.shape)}, '
           f'rate {FLOW_RATE}: worst gradient rel err {worst_rel:.3e} of '
           f'its tensor\'s max-abs (bar {GRAD_REL_BOUND:.0e}); route '
-          f'{chosen!r} by the shapes, {BWD_KERNELS_PER_FLOW_STEP} launches '
+          f'{chosen!r} by the shapes, {per_step} launches '
           f'of the backward library per flow step; stored and recomputed '
           f'routes bit-equal, two runs of each bit-equal; last layer\'s '
           f'residual-half gradient exactly 0')
@@ -1229,22 +1268,45 @@ def check_train_backward(x, mask, weights):
     return worst_abs
 
 
-def run_training(config, batch, device):
-    """The train path: ActNorm's data-dependent init, then ``TRAIN_STEPS``
-    train steps, through the kernels and, from the same initial weights,
-    seed and generator state, through the plain versions."""
+def train_path_launches(config, steps):
+    """The launches of the train path in ``config``'s mode: ActNorm's init
+    (one flow-step launch per flow step), then ``steps`` train steps (a
+    forward launch per flow step, which stores at the training shape, the
+    backward's kernels and one MAS each); GR mode's through the pitch
+    builds."""
+    flows = config.decoder.stack
+    if config.uses_gradient_reversal:
+        return {**dict.fromkeys(COUNTERS, 0), 'flow_step_pitch': flows,
+                'mas': steps, 'train_fwd_pitch': flows * steps,
+                'train_bwd_pitch': BWD_PITCH_KERNELS_PER_FLOW_STEP * flows
+                * steps}
+    return {**dict.fromkeys(COUNTERS, 0), 'flow_step': flows, 'mas': steps,
+            'train_fwd': flows * steps,
+            'train_bwd': BWD_KERNELS_PER_FLOW_STEP * flows * steps}
+
+
+def run_training(config, batch, device, steps=TRAIN_STEPS, plain=True,
+                 state=None):
+    """The train path: ActNorm's data-dependent init, then ``steps`` train
+    steps, through the kernels and, with ``plain``, from the same initial
+    weights, seed and generator state, through the plain versions, held
+    together step by step; the batch's conditioning in the conditioned
+    modes.  From-scratch weights unless ``state`` is given."""
     from glow_tts_tpu_torch import (initial_state_dict, make_eval_step,
                                     make_optimizer, make_train_step)
     from glow_tts_tpu_torch.ops.coupling import flow_step, flow_step_reference
     from glow_tts_tpu_torch.ops.coupling_grad import (
         flow_stack_train, flow_stack_train_reference)
     from glow_tts_tpu_torch.ops.mas import maximum_path, maximum_path_reference
-    state = initial_state_dict(config, SEED)
+    from glow_tts_tpu_torch.training.step import conditioning_inputs
+    state = state if state is not None else initial_state_dict(config, SEED)
+    mode = config.mode if config.mode != 'SE' else (
+        'SE-GE2E' if config.uses_ge2e else 'SE-LUT')
     runs = {}
     for name, step_fn, stack_fn, mas_fn in (
             ('kernels', flow_step, flow_stack_train, maximum_path),
             ('plain', flow_step_reference, flow_stack_train_reference,
-             maximum_path_reference)):
+             maximum_path_reference))[:2 if plain else 1]:
         model = train_model(state, config, device)
         eval_step = make_eval_step(config, model, step_fn=step_fn,
                                    mas_fn=mas_fn)
@@ -1257,11 +1319,12 @@ def run_training(config, batch, device):
         # loss before the steps) is not of the path and is not counted
         zero_counts()
         model.data_dependent_init(batch['mels'], batch['mel_lengths'],
-                                  step_fn=step_fn)
+                                  step_fn=step_fn,
+                                  **conditioning_inputs(batch))
         init_counts = read_counts()
         before = eval_step(batch)[0]['total'].item()
         zero_counts()
-        metrics = [train_step(batch) for _ in range(TRAIN_STEPS)]
+        metrics = [train_step(batch) for _ in range(steps)]
         step_counts = read_counts()
         if name == 'kernels':
             launches = {key: init_counts[key] + step_counts[key]
@@ -1270,25 +1333,33 @@ def run_training(config, batch, device):
         runs[name] = ([{key: value.item() for key, value in m.items()}
                        for m in metrics], before, after)
 
-    steps = config.decoder.stack
-    print(f'train path, {TRAIN_STEPS} steps after the data-dependent init: '
-          f'launches {launches} ({steps} forward, no recompute (the forward '
-          f'stores), {steps} x {BWD_KERNELS_PER_FLOW_STEP} backward kernels '
-          f'and 1 MAS expected per step, {steps} flow steps for the init)')
-    assert launches == {
-        **dict.fromkeys(COUNTERS, 0), 'flow_step': steps, 'mas': TRAIN_STEPS,
-        'train_fwd': steps * TRAIN_STEPS,
-        'train_bwd': BWD_KERNELS_PER_FLOW_STEP * steps * TRAIN_STEPS}, launches
+    flows = config.decoder.stack
+    bwd = (BWD_PITCH_KERNELS_PER_FLOW_STEP if config.uses_gradient_reversal
+           else BWD_KERNELS_PER_FLOW_STEP)
+    label = 'train path' if mode == 'Vanilla' else f'{mode} train path'
+    print(f'{label}, {steps} steps after the data-dependent init: '
+          f'launches {launches} ({flows} forward, no recompute (the forward '
+          f'stores), {flows} x {bwd} backward kernels '
+          f'and 1 MAS expected per step, {flows} flow steps for the init)')
+    assert launches == train_path_launches(config, steps), launches
+    keys = ['total', 'mle', 'duration'] + (
+        ['speaker'] if config.uses_gradient_reversal else [])
+    if not plain:
+        for i, k in enumerate(runs['kernels'][0]):
+            print(f'  step {i}: kernels ' + ' '.join(
+                f'{key} {k[key]:.6f}' for key in keys)
+                + f' grad_norm {k["grad_norm"]:.5f}')
+            assert all(np.isfinite(value) for value in k.values()), (i, k)
+        return launches
     for i, (k, p) in enumerate(zip(runs['kernels'][0], runs['plain'][0])):
-        print(f'  step {i}: kernels total {k["total"]:.6f} mle '
-              f'{k["mle"]:.6f} duration {k["duration"]:.6f} grad_norm '
-              f'{k["grad_norm"]:.5f}; plain total {p["total"]:.6f} mle '
-              f'{p["mle"]:.6f} duration {p["duration"]:.6f} grad_norm '
-              f'{p["grad_norm"]:.5f}')
-        for key, bar in (('total', TRAIN_LOSS_REL_BOUND),
-                         ('mle', TRAIN_LOSS_REL_BOUND),
-                         ('duration', TRAIN_LOSS_REL_BOUND),
-                         ('grad_norm', TRAIN_NORM_REL_BOUND)):
+        print(f'  step {i}: kernels ' + ' '.join(
+            f'{key} {k[key]:.6f}' for key in keys)
+            + f' grad_norm {k["grad_norm"]:.5f}; plain ' + ' '.join(
+            f'{key} {p[key]:.6f}' for key in keys)
+            + f' grad_norm {p["grad_norm"]:.5f}')
+        for key in keys + ['grad_norm']:
+            bar = (TRAIN_NORM_REL_BOUND if key == 'grad_norm'
+                   else TRAIN_LOSS_REL_BOUND)
             assert np.isfinite(k[key]) and np.isfinite(p[key]), (i, key)
             assert abs(k[key] - p[key]) <= bar * abs(p[key]), (i, key, k, p)
     for name, (_, before, after) in runs.items():
@@ -1505,13 +1576,16 @@ def time_training(config, batch, x, mask, weights, device):
              'one_pass_ms': times['kernel, stored, 1xTF32'][1] / s_steps})
 
 
-def write_archive(path, n, config, seed):
+def write_archive(path, n, config, seed, conditioned=False):
     """``n`` patterns with the port's pattern IO, as ``synthetic_items``
     makes a batch's items: texts of 10 … 200 characters, mels of 50 … 1000
-    frames uniform in [−max_abs_mel, max_abs_mel]."""
+    frames uniform in [−max_abs_mel, max_abs_mel]; ``conditioned``, with
+    seeded speaker ids (of the config's speakers) and pitch tracks, else
+    speaker 0 and zero pitch."""
     from glow_tts_tpu_torch.data.patterns import (build_metadata,
                                                   save_metadata, save_pattern)
     rng = np.random.default_rng(seed)
+    extra = np.random.default_rng(seed + 1000)
     letters = np.array(list('ABCDEFGHIJKLMNOPQRSTUVWXYZ'))
     a = config.sound.max_abs_mel
     for i, (n_text, n_mel) in enumerate(zip(
@@ -1520,12 +1594,16 @@ def write_archive(path, n, config, seed):
         chars = rng.choice(letters, int(n_text))
         chars[5::6] = ' '
         mel = rng.uniform(-a, a, (int(n_mel), config.sound.mel_dim))
+        speaker, pitch = 0, np.zeros(int(n_mel), np.float32)
+        if conditioned:
+            speaker = int(extra.integers(
+                config.speaker_embedding.num_speakers))
+            pitch = extra.random(int(n_mel)).astype(np.float32)
         save_pattern(os.path.join(path, f'P{i:03d}.PICKLE'), {
             'Audio': np.zeros(int(n_mel), np.float32),
-            'Mel': mel.astype(np.float32),
-            'Pitch': np.zeros(int(n_mel), np.float32), 'Speaker_ID': 0,
-            'Speaker': 'Synthetic', 'Dataset': 'Synthetic',
-            'Text': ''.join(chars)})
+            'Mel': mel.astype(np.float32), 'Pitch': pitch,
+            'Speaker_ID': speaker, 'Speaker': 'Synthetic',
+            'Dataset': 'Synthetic', 'Text': ''.join(chars)})
     save_metadata(path, build_metadata(path, config.sound))
 
 
@@ -1559,7 +1637,10 @@ class PartCounts:
         del trainer.model.inference_decode, trainer.run_inference_file
 
 
-def trainer_config(config, root, run, max_step):
+def trainer_config(config, root, run, max_step, inference=True):
+    """``config`` training on the archives under ``root``, its outputs
+    under ``root/run``; with ``inference``, the TSV ``sentences.tsv`` is
+    served at the inference interval."""
     from glow_tts_tpu_torch.config import PatternConfig
     train = dataclasses.replace(
         config.train, max_step=max_step, checkpoint_save_interval=SAVE_EVERY,
@@ -1567,7 +1648,8 @@ def trainer_config(config, root, run, max_step):
         inference_interval=EVAL_EVERY,
         train_pattern=PatternConfig(path=os.path.join(root, 'train')),
         eval_pattern=PatternConfig(path=os.path.join(root, 'eval')),
-        inference_pattern_file_in_train=os.path.join(root, 'sentences.tsv'))
+        inference_pattern_file_in_train=(
+            os.path.join(root, 'sentences.tsv') if inference else None))
     return dataclasses.replace(
         config, train=train,
         checkpoint_path=os.path.join(root, run, 'checkpoint'),
@@ -1575,14 +1657,16 @@ def trainer_config(config, root, run, max_step):
         inference_path=os.path.join(root, run, 'inference'))
 
 
-def new_trainer(config, root, run, max_step, device, counts=None):
+def new_trainer(config, root, run, max_step, device, counts=None,
+                inference=True):
     """A ``Trainer`` with a recording writer pair; with ``counts``, its
     construction (ActNorm's init), train steps, eval steps, free-running
     decodes and inference runs counted by part."""
     from glow_tts_tpu_torch import Trainer
     from glow_tts_tpu_torch.utils.logging import MemoryWriter
     make = lambda: Trainer(  # noqa: E731
-        trainer_config(config, root, run, max_step), device=device,
+        trainer_config(config, root, run, max_step, inference),
+        device=device,
         writers={'train': MemoryWriter(), 'eval': MemoryWriter()})
     if counts is None:
         return make()
@@ -2260,6 +2344,306 @@ def run_conditioned_phase(vanilla_models, eval_batch, eval_mask, device):
     return rows, by_path
 
 
+# ---------------------------------------------------------------------------
+# training the conditioned modes: GR (the pitch builds of #5 and #6), SE, PE
+# ---------------------------------------------------------------------------
+
+TRAIN_MODES = ('SE-LUT', 'SE-GE2E', 'PE')
+MODE_TRAIN_STEPS = 2       # SE-LUT, SE-GE2E and PE: train steps each
+
+
+def conditioned_batch(config, device, seed):
+    """A training batch of the shipped shape (``synthetic_items``) with what
+    every mode reads: seeded speaker ids, and pitch tracks a few frames
+    shorter or longer than their mels, through ``TrainCollater``."""
+    from glow_tts_tpu_torch import TrainCollater, batch_to_device
+    from glow_tts_tpu_torch.text import Tokenizer
+    rng = np.random.default_rng(seed)
+    items = [dict(item, speaker_id=int(rng.integers(
+                 config.speaker_embedding.num_speakers)),
+                  pitch=rng.random(item['mel'].shape[0] + int(
+                      rng.integers(-8, 9))).astype(np.float32))
+             for item in synthetic_items(config, seed)]
+    return batch_to_device(TrainCollater(config, Tokenizer())(items), device)
+
+
+def pitch_stack_problem(model, batch, config):
+    """The flow stack's operands as a GR train step hands them over: those
+    of ``stack_problem`` (the weights with ``w_pitch``), the train route's
+    conditioning rows of the batch's speaker and prosody vectors, and the
+    squeezed pitch operand, detached."""
+    from glow_tts_tpu_torch.models.layers import sequence_mask
+    x, mask, weights = stack_problem(model, batch, config)
+    decoder = model.layer_Dict['Decoder']
+    with torch.no_grad():
+        speaker, prosody, _ = model.conditions(
+            batch['mels'], batch['mel_lengths'], batch.get('speakers'),
+            batch.get('mels_for_ge2e'))
+        cond = decoder.train_conditioning(x.shape[0], speaker, prosody, True)
+        pitch = decoder._squeezed_pitch(
+            batch['pitches'],
+            sequence_mask(batch['mel_lengths'], batch['mels'].shape[1]))
+    return x, mask, weights, cond, pitch
+
+
+def check_train_pitch_forward(x, mask, weights, cond, pitch):
+    """#5's pitch build against the plain version on a GR train step's
+    operands, no gradient wanted, at rates 0.05 and 0."""
+    from glow_tts_tpu_torch.ops.coupling_grad import (
+        flow_stack_train, flow_stack_train_reference)
+    seed, worst = -20240301, 0.0
+    with torch.no_grad():
+        for rate in (FLOW_RATE, 0.0):
+            z_k, ld_k = flow_stack_train(x, mask, weights, cond, pitch,
+                                         seed=seed, dropout_rate=rate)
+            z_p, ld_p = flow_stack_train_reference(x, mask, weights, cond,
+                                                   pitch, seed=seed,
+                                                   dropout_rate=rate)
+            torch.cuda.synchronize()
+            z_rel, ld_rel = rel_err(z_k, z_p), rel_err(ld_k, ld_p)
+            line = (f'train forward pitch build vs plain {tuple(x.shape)}, '
+                    f'{weights["w_in"].shape[0]} steps, cond and pitch, rate '
+                    f'{rate}: z max abs err '
+                    f'{(z_k - z_p).abs().max().item():.3e}, rel {z_rel:.3e}; '
+                    f'logdet rel {ld_rel:.3e}')
+            print(line)
+            assert torch.isfinite(z_k).all() and torch.isfinite(ld_k).all()
+            assert z_rel < TRAIN_Z_REL_BOUND, line
+            assert ld_rel < TRAIN_LD_REL_BOUND, line
+            worst = max(worst, (z_k - z_p).abs().max().item())
+    return worst
+
+
+def time_train_pitch_kernels(x, mask, weights, cond, pitch):
+    """The pitch builds of #5 (storing, as a train step runs it) and #6
+    per flow step beside the Vanilla builds on the same inputs (the same
+    conditioning rows, no pitch; Vanilla, pitch, pitch, Vanilla), the
+    plain version with pitch, and the bounds of the work on the valid
+    frames (the pitch term adds 2 · ps · 2ch operations a frame and layer
+    forward, twice that backward, and the pitch operand's bytes)."""
+    from glow_tts_tpu_torch.ops import coupling_grad
+    from glow_tts_tpu_torch.ops.coupling import PITCH_SIZE
+    from glow_tts_tpu_torch.ops.coupling_grad import (
+        flow_stack_train, flow_stack_train_reference)
+    gen = torch.Generator().manual_seed(SEED + 61)
+    dz = torch.randn(x.shape, generator=gen).to(x.device)
+    dld = torch.ones(x.shape[0], device=x.device)
+    s_steps, n, _, ch, ch2 = weights['w_in'].shape
+
+    def parts(fn, with_pitch):
+        leaves = {key: value.clone().requires_grad_()
+                  for key, value in weights.items()}
+        xl, cl = x.clone().requires_grad_(), cond.clone().requires_grad_()
+        p = pitch if with_pitch else None
+        inputs = [xl, cl, *(leaves[key] for key in
+                            coupling_grad.weight_keys(with_pitch))]
+
+        def forward():
+            return fn(xl, mask, leaves, cl, p, seed=SEED,
+                      dropout_rate=FLOW_RATE)
+        z, ld = forward()
+
+        def backward():
+            torch.autograd.grad((z, ld), inputs, (dz, dld),
+                                retain_graph=True)
+        return forward, backward
+
+    fwd_p, bwd_p = parts(flow_stack_train, True)
+    fwd_v, bwd_v = parts(flow_stack_train, False)
+    fwd_ms, fwd_vanilla = paired_ms(fwd_p, fwd_v, 3)
+    bwd_ms, bwd_vanilla = paired_ms(bwd_p, bwd_v, 3)
+    fwd_plain, bwd_plain = parts(flow_stack_train_reference, True)
+    plain_fwd_ms = cuda_ms(fwd_plain, 2, 1)
+    plain_bwd_ms = cuda_ms(bwd_plain, 2, 1)
+
+    per_step = {key: value[0] for key, value in weights.items()}
+    valid = mask.sum().item()
+    pitch_flops = 2 * PITCH_SIZE * ch2 * n
+    flops = (step_frame_flops(per_step) + pitch_flops) * valid
+    weight_count = sum(value.numel() for value in per_step.values())
+    moved = 4 * (2 * x.numel() + mask.numel() + x.shape[0] + weight_count
+                 + cond[0].numel() + pitch.numel())
+    fwd_bounds = body_bounds(moved, flops)
+    saved_bytes = coupling_grad.saved_bytes_per_step(
+        x.shape[0] * x.shape[1], x.shape[2], ch, n)
+    bwd_bytes = saved_bytes + 4 * (3 * x.numel() + mask.numel() + x.shape[0]
+                                   + 2 * weight_count + 2 * cond[0].numel()
+                                   + 2 * pitch.numel())
+    bwd_bound = bound(bwd_bytes, 2 * flops, PEAK_TF32_FLOP_PER_S)
+    fwd_row = {'ms': fwd_ms / s_steps, 'vanilla_ms': fwd_vanilla / s_steps,
+               'plain_ms': plain_fwd_ms / s_steps, **fwd_bounds}
+    bwd_row = {'ms': bwd_ms / s_steps, 'vanilla_ms': bwd_vanilla / s_steps,
+               'plain_ms': plain_bwd_ms / s_steps, 'bound_ms': bwd_bound[0],
+               'bound_by': bwd_bound[1]}
+    for name, row in (('#5 forward, storing', fwd_row),
+                      ('#6 backward', bwd_row)):
+        print(f'{name}, per flow step, {tuple(x.shape)} ({int(valid)} valid '
+              f'frames), cond and pitch: pitch build {row["ms"]:.4f} ms, '
+              f'Vanilla build {row["vanilla_ms"]:.4f} ms on the same inputs '
+              f'({100 * (row["ms"] / row["vanilla_ms"] - 1):+.1f} %), plain '
+              f'with pitch {row["plain_ms"]:.4f} ms; bound '
+              f'{row["bound_ms"]:.4f} ms by {row["bound_by"]} at the TF32 '
+              f'peak')
+    return fwd_row, bwd_row
+
+
+def time_conditioned_steps(config, batches, vanilla_config, device):
+    """The GR train step by events beside a Vanilla step on the same batch
+    (Vanilla, GR, GR, Vanilla), a profiler window of GR steps (device work
+    and idle share), its peak memory; and one timing each of SE-LUT,
+    SE-GE2E and PE steps, each on its mode's batch of the same texts and
+    mels."""
+    from glow_tts_tpu_torch import (make_optimizer, make_train_step,
+                                    random_state_dict)
+    from glow_tts_tpu_torch.training.step import conditioning_inputs
+    batch = batches['GR']
+
+    def stepper(cfg, batch=batch):
+        model = train_model(random_state_dict(cfg, SEED), cfg, device)
+        model.data_dependent_init(batch['mels'], batch['mel_lengths'],
+                                  **conditioning_inputs(batch))
+        step = make_train_step(
+            cfg, model, make_optimizer(cfg, model.parameters()), seed=SEED,
+            generator=torch.Generator(device=device).manual_seed(SEED))
+        return lambda: step(batch), model
+
+    (gr_step, model), (vanilla_step, _) = stepper(config), stepper(
+        vanilla_config)
+    gr_ms, vanilla_ms = paired_ms(gr_step, vanilla_step, 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    gr_step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f'GR train step {tuple(batch["mels"].shape)}: {gr_ms:.3f} ms by '
+          f'events, a Vanilla step on the same batch {vanilla_ms:.3f} ms '
+          f'({100 * (gr_ms / vanilla_ms - 1):+.1f} %); peak memory of a GR '
+          f'step {peak / 2 ** 30:.3f} GiB ({held / 2 ** 30:.3f} held before)')
+    idle = profile_window('GR train steps', gr_step, 5)
+    times = {'gr_step_ms': gr_ms, 'vanilla_step_ms': vanilla_ms,
+             'gr_step_idle': idle, 'gr_peak_gib': peak / 2 ** 30}
+
+    # what GR adds to a step, each part alone, forward and backward
+    decoder = model.layer_Dict['Decoder']
+    mels, lengths = batch['mels'], batch['mel_lengths']
+
+    def conditions_both():
+        speaker, prosody, classified = model.conditions(
+            mels, lengths, batch['speakers'])
+        (speaker.sum() + prosody.sum() + classified.sum()).backward()
+
+    width = config.speaker_embedding.embedding_size     # = the prosody's
+
+    def rows_both():
+        vector = torch.ones((mels.shape[0], width), device=device)
+        rows = decoder.train_conditioning(mels.shape[0], vector, vector,
+                                          True)
+        w_pitch = decoder._stacked_layer_convs('Pitch')[0]
+        (rows.sum() + w_pitch.sum()).backward()
+
+    for name, fn in (('LUT, GST and classifier', conditions_both),
+                     ('train rows and w_pitch', rows_both)):
+        times[f'gr_part_{name}_ms'] = cuda_ms(fn, 5)
+        print(f'  GR train part, {name}, forward + backward: '
+              f'{times[f"gr_part_{name}_ms"]:.4f} ms')
+    del gr_step, vanilla_step, model
+    for mode in TRAIN_MODES:
+        step, _ = stepper(mode_config(mode), batches[mode])
+        times[f'{mode}_step_ms'] = cuda_ms(step, 3, 1)
+        print(f'{mode} train step, same batch: '
+              f'{times[f"{mode}_step_ms"]:.3f} ms by events')
+    return times
+
+
+def run_gr_trainer_resume(config, device):
+    """A GR ``Trainer`` on archives with speakers and pitch tracks: run A
+    (4 steps) against run B (2 steps, a new trainer restoring ``S_2.pt``,
+    2 more), within ``RESUME_REL_BOUND`` by group; its launches by part."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix='chip_smoke_gr_trainer_')
+    try:
+        write_archive(os.path.join(root, 'train'), TRAIN_PATTERNS, config,
+                      SEED + 70, conditioned=True)
+        write_archive(os.path.join(root, 'eval'), EVAL_PATTERNS, config,
+                      SEED + 71, conditioned=True)
+        # GR serves a TSV only with reference wavs, which the port does
+        # not read yet (ROADMAP.md A.6): no inference runs here
+        counts = PartCounts()
+        a = new_trainer(config, root, 'a', TRAINER_STEPS, device, counts,
+                        inference=False)
+        a.train()
+        assert torch.isfinite(a.free_running['mels']).all()
+        new_trainer(config, root, 'b', RESUME_STEP, device,
+                    inference=False).train()
+        b = new_trainer(config, root, 'b', TRAINER_STEPS, device,
+                        inference=False)
+        assert b.step == RESUME_STEP, b.step
+        b.train()
+        errs, equal = compare_runs(a, b)
+        worst = max(value for value, _ in errs.values())
+        print(f'GR trainer, run A ({TRAINER_STEPS} steps) against run B '
+              f'({RESUME_STEP} steps, a new trainer restoring '
+              f'S_{RESUME_STEP}.pt, {TRAINER_STEPS - RESUME_STEP} more): '
+              f'largest difference by group, relative to its max-abs: '
+              + '; '.join(f'{group} {value:.3e} ({name})'
+                          for group, (value, name) in errs.items())
+              + f'; bit-equal: {equal}')
+        assert worst <= RESUME_REL_BOUND, errs
+        assert 'Loss/speaker' in a.writers['train'].scalars
+        train = counts.by_part['trainer train']
+        print(f'  launches, GR trainer train: {train}')
+        assert train == {**dict.fromkeys(COUNTERS, 0), 'mas': TRAINER_STEPS,
+                         'train_fwd_pitch': config.decoder.stack
+                         * TRAINER_STEPS,
+                         'train_bwd_pitch': BWD_PITCH_KERNELS_PER_FLOW_STEP
+                         * config.decoder.stack * TRAINER_STEPS}, train
+        return {f'GR {part}': value for part, value in counts.by_part.items()
+                if part != 'trainer inference'}, worst, equal
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_conditioned_training(vanilla_config, device):
+    """Training in the conditioned modes at the shipped width and training
+    shape: the pitch builds of #5 and #6 against their plain version and
+    timed beside the Vanilla builds; GR trained through the kernels and
+    through the plain versions from the same weights; SE-LUT, SE-GE2E and
+    PE trained; the steps timed; a GR trainer's resume."""
+    from glow_tts_tpu_torch import random_state_dict
+    gr = mode_config('GR')
+    # one batch of the same texts and mels for each mode, with its fields
+    batches = {mode: conditioned_batch(mode_config(mode), device, SEED + 80)
+               for mode in ('GR',) + TRAIN_MODES}
+    batch = batches['GR']
+    model = train_model(random_state_dict(gr, SEED), gr, device)
+    model.data_dependent_init(batch['mels'], batch['mel_lengths'],
+                              speakers=batch['speakers'],
+                              pitches=batch['pitches'])
+    problem = pitch_stack_problem(model, batch, gr)
+    del model
+    fwd_err = check_train_pitch_forward(*problem)
+    bwd_err = check_train_backward(*problem)
+    fwd_row, bwd_row = time_train_pitch_kernels(*problem)
+    del problem
+    by_path = {'train GR': run_training(gr, batch, device)}
+    for mode in TRAIN_MODES:
+        by_path[f'train {mode}'] = run_training(
+            mode_config(mode), batches[mode], device, MODE_TRAIN_STEPS,
+            plain=False)
+    times = time_conditioned_steps(gr, batches, vanilla_config, device)
+    trainer_paths, resume_err, resume_equal = run_gr_trainer_resume(gr,
+                                                                    device)
+    by_path.update(trainer_paths)
+    print('conditioned training: ' + json.dumps({
+        **times, 'gr_resume_max_rel_err': resume_err,
+        'gr_resume_bit_equal': resume_equal}))
+    return ({'flow_train_fwd': {'max_abs_err': fwd_err, **fwd_row},
+             'flow_train_bwd': {'max_abs_err': bwd_err, **bwd_row}},
+            by_path)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: no CUDA device; this script runs on a GPU only')
@@ -2277,7 +2661,7 @@ def main():
 
     begun = start = time.perf_counter()
     # (source, defines): the six libraries, and the pitch instantiations of
-    # #3, #2 and #4 (GR mode) as libraries of their own
+    # #3, #2, #4, #5 and #6 (GR mode) as libraries of their own
     sources = {('flow_step.cu', ()): coupling.load_flow_step_library,
                ('coupling.cu', ()): coupling.load_coupling_library,
                ('flow_stack.cu', ()): coupling.load_flow_stack_library,
@@ -2290,7 +2674,11 @@ def main():
                   for source, load in (
                       ('flow_step.cu', coupling.load_flow_step_library),
                       ('coupling.cu', coupling.load_coupling_library),
-                      ('flow_stack.cu', coupling.load_flow_stack_library))}}
+                      ('flow_stack.cu', coupling.load_flow_stack_library),
+                      ('flow_train_fwd.cu',
+                       coupling_grad.load_train_forward_library),
+                      ('flow_train_bwd.cu',
+                       coupling_grad.load_train_backward_library))}}
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc each, together
         for build in [pool.submit(load) for load in sources.values()]:
             build.result()
@@ -2378,6 +2766,10 @@ def main():
         {route: inferencers[route].model for route in ROUTES}, batches[0],
         mask, device)
     by_path.update(conditioned_paths)
+    # training the conditioned modes: #5's and #6's pitch builds, GR, SE, PE
+    train_pitch_rows, conditioned_paths = run_conditioned_training(config,
+                                                                  device)
+    by_path.update(conditioned_paths)
     by_path.update(run_trainer_phase(config, device, card))
 
     def launches(counter):
@@ -2433,7 +2825,20 @@ def main():
               ('coupling', 'glow_tts_tpu/ops/coupling.py:190',
                'fused_coupling'),
               ('flow_stack', 'glow_tts_tpu/ops/coupling.py:296',
-               'fused_flow_stack')))]}))
+               'fused_flow_stack'))),
+        # and of the train pair: per flow step, the forward storing
+        *({'name': f'{name}_pitch', 'route': 'cuda',
+           'source': csrc + f'{name}.cu', 'build': '-DGLOW_PITCH',
+           'replaces': replaces, 'entry': entry,
+           **launches(f'{counter}_pitch'), **train_pitch_rows[name],
+           'library_ms': None}
+          for name, counter, replaces, entry in (
+              ('flow_train_fwd', 'train_fwd',
+               'glow_tts_tpu/ops/coupling_grad.py:97',
+               'fused_flow_stack_train'),
+              ('flow_train_bwd', 'train_bwd',
+               'glow_tts_tpu/ops/coupling_grad.py:195',
+               'fused_flow_stack_train (backward)')))]}))
     print(f'chip_smoke: {time.perf_counter() - begun:.0f} s in all, the '
           f'kernels\' build included')
     print(card)

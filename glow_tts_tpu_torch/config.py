@@ -7,7 +7,13 @@ either object drives the port.  Only the fields of serving in the four
 modes (Vanilla, SE, PE, GR: the conditioning encoders' widths), of the
 loss/eval path, of the train step (dropout rates, optimiser) and of the
 trainer (pattern sets, intervals, output paths) are kept; unknown keys are
-ignored, as there.  A CPU test holds every field against
+ignored, as there, except the few that would change what a run computes:
+:func:`load_config` refuses a YAML that asks for the alignment curriculum
+(``Train.Alignment_Warmup_Steps``, ``Train.Decoder_Freeze_Steps``; not
+ported, ``ROADMAP.md`` A.3) and warns once per process where the YAML asks
+for a compute dtype other than float32 (the port computes in float32,
+A.5) or for more than one device (it runs on one, A.7).  A CPU test holds
+every field against
 ``glow_tts_tpu.config`` on the same input.  :func:`save_config` writes the
 snapshot a checkpoint directory carries, which :func:`load_config` reads
 back to an equal ``Config``.
@@ -25,6 +31,7 @@ value.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Mapping, Optional, Tuple
 
@@ -368,13 +375,60 @@ _SECTIONS = {cls.__name__: cls for cls in (
 _TPU_FIELDS = ('token_bucket', 'mel_bucket', 'coupling_backend')
 
 
+def _section(data: Mapping, name: str) -> Mapping:
+    """``data``'s section ``name``, its keys lower-cased (empty if none)."""
+    section = data.get(name) or data.get(name.lower()) or {}
+    return {str(key).lower(): value for key, value in section.items()}
+
+
+# the curriculum keys of ``Train`` the port has no fields for: a run that
+# dropped them would train another recipe
+_CURRICULUM = ('alignment_warmup_steps', 'decoder_freeze_steps')
+_WARNED = set()
+
+
+def _warn_once(key: str, message: str) -> None:
+    if key not in _WARNED:
+        _WARNED.add(key)
+        warnings.warn(message, stacklevel=4)
+
+
+def _check_unported(data: Mapping) -> None:
+    """Raise on what the YAML asks for and the port cannot do; warn once
+    per process on what it runs otherwise than asked."""
+    train = _section(data, 'Train')
+    for key in _CURRICULUM:
+        if train.get(key):
+            raise NotImplementedError(
+                f'Train.{key.title()} = {train[key]}: the alignment '
+                f'curriculum (EM / linear / anchored warmup, decoder freeze) '
+                f'is not in the PyTorch port yet (ROADMAP.md A.3); set it to '
+                f'0 to train without it')
+    tpu = _section(data, 'TPU')
+    dtype = tpu.get('compute_dtype')
+    if dtype is None and 'Use_Mixed_Precision' in data:
+        dtype = 'bfloat16' if data['Use_Mixed_Precision'] else 'float32'
+    if dtype is not None and str(dtype) not in ('float32', 'fp32'):
+        _warn_once('compute_dtype', (
+            f'TPU.compute_dtype = {dtype!r}: the PyTorch port computes in '
+            f'float32 (ROADMAP.md A.5)'))
+    devices = {key: int(tpu.get(key) or 0)
+               for key in ('data_parallel', 'model_parallel')}
+    if any(count > 1 for count in devices.values()):
+        _warn_once('parallel', (
+            f'TPU {devices}: the PyTorch port runs on one device '
+            f'(ROADMAP.md A.7)'))
+
+
 def load_config(path_or_dict) -> Config:
-    """Load from a ``Hyper_Parameters.yaml`` path or an equivalent dict."""
+    """Load from a ``Hyper_Parameters.yaml`` path or an equivalent dict.
+    Raises ``NotImplementedError`` on an alignment curriculum (A.3)."""
     if isinstance(path_or_dict, Mapping):
         data = path_or_dict
     else:
         with open(path_or_dict, encoding='utf-8') as f:
             data = yaml.safe_load(f)
+    _check_unported(data)
     config = _coerce(Config, data)
     tpu = data.get('TPU') or data.get('tpu') or {}
     from_tpu = {name: tpu[name] for name in _TPU_FIELDS if name in tpu}

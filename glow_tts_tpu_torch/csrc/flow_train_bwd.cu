@@ -57,6 +57,15 @@
 // No value changes: the skipped terms are x . 0.
 // No atomics: every frame is counted once, chunks and partials are added in
 // a fixed order, so two runs give the same bits.
+// GR mode's pitch operand is a build of its own (GLOW_PITCH), so the
+// Vanilla kernels do not change.  It adds one launch per layer
+// (pitch_backward) on dacc, the pre-gate gradient after the dropout, where
+// the forward added the pitch term: dw_pitch[i] = pitch^T . dacc as
+// per-sample partials (a [2, 2CH] reduction over the valid frames, added
+// by reduce_partials in the samples' order), and, when the pitch operand's
+// gradient is wanted, dpitch += dacc . w_pitch[i]^T, a warp per frame
+// (depth 2CH, a butterfly in a fixed order), layer after layer in launch
+// order: still no atomics.
 
 #include <cuda_runtime.h>
 
@@ -582,6 +591,84 @@ cudaError_t launch_sums(SumJobs jobs, int B, int T, const int* lengths,
   return cudaGetLastError();
 }
 
+#ifdef GLOW_PITCH
+// Width of GR mode's pitch operand (flow_common.cuh's kPitchSize).
+constexpr int kPitchSize = 2;
+
+// The backward of layer i's pitch term, pitch [M, kPitchSize] . w_pitch
+// [kPitchSize, ch2] added to the pre-gate sum after the dropout, from dacc
+// [M, ch2].  Blocks [0, sum_blocks), (sample, 32 columns) each: part[b, q,
+// n] = sum over sample b's valid frames of pitch[frame, q] * dacc[frame,
+// n], 8 interleaved partial sums per column added in a fixed order (as
+// column_sums).  The blocks after them, with dpitch: a warp per frame
+// below its sample's length, dpitch[frame, q] += sum over n of
+// dacc[frame, n] * w_pitch[q, n] (dacc is zero at the other frames).
+__global__ void __launch_bounds__(kThreads)
+    pitch_backward(const float* dacc, const float* pitch,
+                   const float* w_pitch, float* part, float* dpitch,
+                   const int* lengths, int T, int ch2, int sum_blocks,
+                   size_t frames) {
+  const int tid = threadIdx.x;
+  if (static_cast<int>(blockIdx.x) < sum_blocks) {
+    __shared__ float red[kSumGroups][kPitchSize][kSumCols];
+    const int c = tid % kSumCols, grp = tid / kSumCols;
+    const int col_blocks = (ch2 + kSumCols - 1) / kSumCols;
+    const int b = blockIdx.x / col_blocks;
+    const int n = (blockIdx.x % col_blocks) * kSumCols + c;
+    const int len = lengths[b];
+    float sum[kPitchSize] = {};
+    if (n < ch2)
+      for (int t = grp; t < len; t += kSumGroups) {
+        const size_t row = static_cast<size_t>(b) * T + t;
+        const float d = dacc[row * ch2 + n];
+#pragma unroll
+        for (int q = 0; q < kPitchSize; ++q)
+          sum[q] = fmaf(pitch[row * kPitchSize + q], d, sum[q]);
+      }
+#pragma unroll
+    for (int q = 0; q < kPitchSize; ++q) red[grp][q][c] = sum[q];
+    __syncthreads();
+    if (grp < kPitchSize && n < ch2) {
+      float total = 0.f;
+      for (int i = 0; i < kSumGroups; ++i) total += red[i][grp][c];
+      part[(static_cast<size_t>(b) * kPitchSize + grp) * ch2 + n] = total;
+    }
+    return;
+  }
+  const int lane = tid % 32;
+  const size_t row = static_cast<size_t>(blockIdx.x - sum_blocks) *
+                         (kThreads / 32) + tid / 32;
+  if (row >= frames || static_cast<int>(row % T) >= lengths[row / T]) return;
+  float sum[kPitchSize] = {};
+  for (int n = lane; n < ch2; n += 32) {
+    const float d = dacc[row * ch2 + n];
+#pragma unroll
+    for (int q = 0; q < kPitchSize; ++q)
+      sum[q] = fmaf(d, __ldg(w_pitch + q * ch2 + n), sum[q]);
+  }
+#pragma unroll
+  for (int q = 0; q < kPitchSize; ++q) {
+    for (int o = 16; o > 0; o >>= 1)
+      sum[q] += __shfl_xor_sync(0xffffffffu, sum[q], o);
+    if (lane == 0) dpitch[row * kPitchSize + q] += sum[q];
+  }
+}
+
+cudaError_t launch_pitch_backward(const float* dacc, const float* pitch,
+                                  const float* w_pitch, float* part,
+                                  float* dpitch, const int* lengths, int B,
+                                  int T, int ch2, cudaStream_t stream) {
+  const int sum_blocks = B * ((ch2 + kSumCols - 1) / kSumCols);
+  const size_t frames = static_cast<size_t>(B) * T;
+  const int row_blocks =
+      dpitch ? static_cast<int>((frames + kThreads / 32 - 1) / (kThreads / 32))
+             : 0;
+  pitch_backward<<<sum_blocks + row_blocks, kThreads, 0, stream>>>(
+      dacc, pitch, w_pitch, part, dpitch, lengths, T, ch2, sum_blocks, frames);
+  return cudaGetLastError();
+}
+#endif
+
 // dst[j] = src[j] + src[stride + j] + ... over `parts` partials, added in
 // their order; count, stride % 4 == 0.  One job per gradient tensor
 // (blockIdx.y).
@@ -718,9 +805,10 @@ int glow_flow_train_bwd_wgrad_f32(const float* p, const float* g,
 //      12 w_start [c2,ch]             13 w_in [n,k,ch,ch2]
 //      14 w_rs [n,ch,ch2]             15 w_end [ch,C]
 //      16 lengths [B] int32: one past each sample's last valid frame
+//      GLOW_PITCH builds: 17 pitch [M,2]   18 w_pitch [n,2,ch2]
 // out[] 0 dx [M,C]
 //       scratch: 1 douts [M,C]  2 drs [M,ch2]  3 dpre [M,ch2]
-//                4 dacc [M,ch2] or null (no conditioning)
+//                4 dacc [M,ch2] or null (no conditioning, no pitch)
 //                5 dyd [M,C]    6 stats [M,2C]  7 gate [M,ch]
 //       partial weight gradients, one [K,N] per chunk of samples:
 //       8 w_end [chunks(1,ch,C),ch,C]
@@ -735,9 +823,12 @@ int glow_flow_train_bwd_wgrad_f32(const float* p, const float* g,
 //      21 mix_t [C,C]   22 w_start [c2,ch]   23 b_start [ch]
 //      24 w_in [n,k,ch,ch2]   25 b_in [n,ch2]   26 w_rs [n,ch,ch2]
 //      27 b_rs [n,ch2]   28 w_end [ch,C]   29 b_end [C]
+//       GLOW_PITCH builds (dacc not null):
+//      30 w_pitch [n,2,ch2]   31 dpitch [M,2], added to, or null (not
+//      wanted)   32 partials of w_pitch [n,B,2,ch2]
 // passes is 3 (3xTF32, float32 accuracy) or 1 (plain TF32).  *launched
-// receives the number of kernels the call launched: 6 + 4 n.  Returns a
-// cudaError_t, 0 on success.
+// receives the number of kernels the call launched: 6 + 4 n, and n more
+// in a GLOW_PITCH build.  Returns a cudaError_t, 0 on success.
 int glow_flow_train_bwd_step_f32(const float* const* in, float* const* out,
                                  int B, int T, int C, int ch, int n, int k,
                                  int step, int seed, unsigned threshold,
@@ -745,7 +836,15 @@ int glow_flow_train_bwd_step_f32(const float* const* in, float* const* out,
                                  void* stream_ptr, int* launched) {
   *launched = 0;
   if (B <= 0 || T <= 0) return cudaSuccess;
+#ifdef GLOW_PITCH
+  if (7 + 5 * n > kMaxReduce || !out[4] || !in[17] || !in[18] || !out[30] ||
+      !out[32])
+    return cudaErrorInvalidValue;
+  const float *pitch = in[17], *w_pitch = in[18];
+  float *dpitch = out[31], *ppitch = out[32];
+#else
   if (7 + 4 * n > kMaxReduce) return cudaErrorInvalidValue;
+#endif
   auto stream = static_cast<cudaStream_t>(stream_ptr);
   const int M = B * T, c2 = C / 2, ch2 = 2 * ch, pad = (k - 1) / 2;
   const size_t frames = static_cast<size_t>(M);
@@ -804,6 +903,13 @@ int glow_flow_train_bwd_step_f32(const float* const* in, float* const* out,
       sums.job[sums.count++] = {
           dacc, dcond + static_cast<size_t>(i) * B * ch2, ch2, ch2};
     LAUNCH(launch_sums(sums, B, T, lengths, stream));
+#ifdef GLOW_PITCH
+    // dw_pitch's per-sample partials and dpitch, from dacc
+    LAUNCH(launch_pitch_backward(
+        dacc, pitch, w_pitch + static_cast<size_t>(i) * kPitchSize * ch2,
+        ppitch + static_cast<size_t>(i) * B * kPitchSize * ch2, dpitch,
+        lengths, B, T, ch2, stream));
+#endif
     // dW_rs = (t*s)^T . drs
     LAUNCH(launch_tn(
         tn_args(gate, ch, ch, 1, 0, drs, ch2, ch2,
@@ -867,6 +973,11 @@ int glow_flow_train_bwd_step_f32(const float* const* in, float* const* out,
            w_rs_size);
     reduce(pb_rs + static_cast<size_t>(i) * B * ch2, out[27] + i * ch2, ch2, B,
            ch2);
+#ifdef GLOW_PITCH
+    const int w_pitch_size = kPitchSize * ch2;
+    reduce(ppitch + static_cast<size_t>(i) * B * w_pitch_size,
+           out[30] + i * w_pitch_size, w_pitch_size, B, w_pitch_size);
+#endif
   }
   LAUNCH(launch_reduce(red, stream));
   return cudaSuccess;

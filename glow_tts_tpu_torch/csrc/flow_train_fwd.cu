@@ -49,9 +49,19 @@
 // past a sample's length, its column sums stop at the length, and its
 // elementwise passes write rows there that no later launch reads.
 //
+// GR mode's pitch operand (pitch [B, T, 2], w_pitch [S, NL, 2, 2CH]) is a
+// build of its own (GLOW_PITCH), as for flow_step.cu, so the Vanilla
+// instantiations do not change: the pre-gate gains sum_p pitch[frame, p] *
+// w_pitch[i][p][col] after the conditioning (both are added after the
+// dropout), with the tile's pitch and the layer's w_pitch staged in static
+// shared memory once a tile (flow_common.cuh::PitchPreGate's staging;
+// frames outside [0, T) staged as 0), so the epilogue, where the body has
+// no registers to spare, reads no global memory for them.  All three
+// instantiations and the backward's recompute have it.
+//
 // What bounds it: arithmetic, as flow_step.cu (3.7 MFLOP per frame and
 // step against a few bytes); the hash adds ~20 integer operations per
-// pre-gate element.
+// pre-gate element, the pitch term 2 * 2 * 2CH FLOP per frame and layer.
 
 #include "dropmask.cuh"
 #include "flow_common.cuh"
@@ -62,6 +72,8 @@ struct Params {
   const float* x;        // [B, T, C]   this step's input
   const float* mask;     // [B, T]
   const float* cond;     // [NL, B, 2CH] per-sample conditioning, or null
+  const float* pitch;    // [B, T, kPitchSize], GLOW_PITCH builds only
+  const float* w_pitch;  // [NL, kPitchSize, 2CH], GLOW_PITCH builds only
   const float* b_in;     // [NL, 2CH]
   StepWeights w;
   float* z;              // [B, T, C]
@@ -73,18 +85,29 @@ struct Params {
   int B, T, n_tiles;
 };
 
-// The in-conv's epilogue: bias, dropout, then the per-sample conditioning.
+// The in-conv's epilogue: bias, dropout, then the per-sample conditioning
+// and, in a GLOW_PITCH build, the pitch term.  stage(tile) runs once a
+// tile, after the tile's rows are loaded and before its network.
 struct DropoutPreGate {
   const float* b_in;
   const float* cond;
   dropmask::Dropout drop;
   unsigned step;
+#ifdef GLOW_PITCH
+  // stages the tile's pitch rows and this step's w_pitch (its cond is not
+  // read)
+  PitchPreGate<kPitchSize> pitch;
+#endif
   struct Layer {
     const float* b_in;   // [2CH]
     const float* cond;   // [2CH] or null
     dropmask::Dropout drop;
     unsigned salt, rows_per_sample, ch2;
     int b, t0;
+#ifdef GLOW_PITCH
+    const float* p;      // [R, kPitchSize], staged
+    const float* w;      // [kPitchSize, 2CH], staged: this layer's
+#endif
     __device__ float operator()(int row, int col, float v) const {
       v += __ldg(b_in + col);
       if (drop.enabled)
@@ -94,17 +117,37 @@ struct DropoutPreGate {
             drop, dropmask::row_counter(b, t0 + row, rows_per_sample, ch2,
                                         salt) + col);
       if (cond) v += __ldg(cond + col);
+#ifdef GLOW_PITCH
+      float term = 0.f;
+#pragma unroll
+      for (int q = 0; q < kPitchSize; ++q)
+        term = fmaf(p[row * kPitchSize + q], w[q * ch2 + col], term);
+      v += term;
+#endif
       return v;
     }
   };
   template <class S>
+  __device__ void stage(const Tile<S>& tile) const {
+#ifdef GLOW_PITCH
+    pitch.stage(tile);
+#endif
+  }
+  template <class S>
   __device__ Layer layer(int i, const Tile<S>& tile) const {
+#ifdef GLOW_PITCH
+    const float* const st = pitch_stage<S, kPitchSize>();
+#endif
     return {b_in + i * S::CH2,
             cond ? cond + (static_cast<size_t>(i) * tile.B + tile.b) * S::CH2
                  : nullptr,
             drop, dropmask::layer_salt(drop.seed, step, i, S::NL),
             static_cast<unsigned>(tile.T + S::KS - 1), S::CH2, tile.b,
-            tile.t0};
+            tile.t0
+#ifdef GLOW_PITCH
+            , st, st + S::R * kPitchSize + i * kPitchSize * S::CH2
+#endif
+    };
   }
 };
 
@@ -138,8 +181,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       continue;
     }
     tile.load(p.x, p.mask);
+    const DropoutPreGate pre_gate{p.b_in, p.cond, p.drop, p.step
+#ifdef GLOW_PITCH
+                                  , {nullptr, p.pitch, p.w_pitch}
+#endif
+    };
+    pre_gate.stage(tile);
     coupling_net<S, true, WRITES != Writes::kOutputs, PASSES>(
-        tile, p.w, p.save, DropoutPreGate{p.b_in, p.cond, p.drop, p.step});
+        tile, p.w, p.save, pre_gate);
     if constexpr (WRITES != Writes::kSaved) {
       const float total = affine_forward(tile, p.z);
       if (threadIdx.x == 0) p.ld_part[tile.b * p.n_tiles + tile.index] = total;
@@ -187,9 +236,12 @@ const char* glow_cuda_error_string(int err) {
 // tensor-core layout (ops/coupling.py::tensor_core_weights).  passes is 3
 // (3xTF32) or, for measuring a forward pass without save, 1.  tiles is
 // null, or 5 zeroed ints that receive what the launches did, the computed
-// tiles summed over the steps (flow_common.cuh::report_tiles).
+// tiles summed over the steps (flow_common.cuh::report_tiles).  pitch
+// [B, T, 2] and w_pitch [S, NL, 2, 2CH] are null, or with a GLOW_PITCH
+// build not null (cudaErrorInvalidValue otherwise; passes is then 3).
 // Returns a cudaError_t, 0 on success.
 int glow_flow_train_fwd_f32(float* acts, const float* mask, const float* cond,
+                            const float* pitch, const float* w_pitch,
                             const float* an_logs, const float* an_bias,
                             const float* mix_t, const float* w_start,
                             const float* b_start, const float* w_in,
@@ -202,10 +254,13 @@ int glow_flow_train_fwd_f32(float* acts, const float* mask, const float* cond,
                             float scale, int dropout, int passes,
                             void* stream) {
   using S = Shipped;
+  if ((pitch != nullptr) != kPitch || (w_pitch != nullptr) != kPitch)
+    return cudaErrorInvalidValue;
   if (B <= 0 || T <= 0) return cudaSuccess;
   const int n_tiles = ceil_div(T, S::TT);
   const size_t frames = static_cast<size_t>(B) * T;
-  if (passes != 3 && (passes != 1 || save)) return cudaErrorInvalidValue;
+  if (passes != 3 && (passes != 1 || save || kPitch))
+    return cudaErrorInvalidValue;
   const StepWeights stacked{an_logs, an_bias, mix_t, w_start, b_start,
                             reinterpret_cast<const WFrag*>(w_in),
                             reinterpret_cast<const WFrag*>(w_rs), b_rs,
@@ -216,6 +271,9 @@ int glow_flow_train_fwd_f32(float* acts, const float* mask, const float* cond,
     p.mask = mask;
     p.cond = cond ? cond + s * (static_cast<size_t>(S::NL) * B * S::CH2)
                   : nullptr;
+    p.pitch = pitch;
+    p.w_pitch = kPitch ? w_pitch + s * (S::NL * kPitchSize * S::CH2)
+                       : nullptr;
     p.b_in = b_in + s * S::NL * S::CH2;
     p.w = step_of_stack<S>(stacked, s);
     p.drop = dropmask::Dropout{static_cast<unsigned>(seed), threshold, scale,
@@ -239,11 +297,17 @@ int glow_flow_train_fwd_f32(float* acts, const float* mask, const float* cond,
       p.ld_part = ld_part + static_cast<size_t>(s) * B * n_tiles;
     }
     const auto on = static_cast<cudaStream_t>(stream);
-    const cudaError_t err =
-        passes == 1 ? launch<S, Writes::kOutputs, 1>(p, on)
-        : !save ? launch<S, Writes::kOutputs>(p, on)
-              : ld_part ? launch<S, Writes::kBoth>(p, on)
-                        : launch<S, Writes::kSaved>(p, on);
+    cudaError_t err;
+    if constexpr (!kPitch) {
+      if (passes == 1) {
+        err = launch<S, Writes::kOutputs, 1>(p, on);
+        if (err != cudaSuccess) return err;
+        continue;
+      }
+    }
+    err = !save ? launch<S, Writes::kOutputs>(p, on)
+          : ld_part ? launch<S, Writes::kBoth>(p, on)
+                    : launch<S, Writes::kSaved>(p, on);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;

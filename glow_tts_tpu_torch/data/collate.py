@@ -3,9 +3,11 @@ with ``<E>``, mels truncated to a multiple of ``num_squeeze`` before their
 lengths are taken and padded with ``−max_abs_mel``, both axes rounded up to
 their buckets (``config.token_bucket`` / ``config.mel_bucket``) so that a
 small fixed set of shapes reaches the model.  :class:`TrainCollater` has
-the Vanilla fields of the loss and train paths; :class:`InferenceCollater`
-the serving fields of all four modes: speaker ids, GE2E slices of a
-reference mel, a reference mel for the prosody encoder, a pitch track.
+the fields of the loss and train paths in all four modes (speaker ids, GE2E
+slices of the training mel, the pitch track on the mel's timeline);
+:class:`InferenceCollater` the serving fields of all four modes: speaker
+ids, GE2E slices of a reference mel, a reference mel for the prosody
+encoder, a pitch track.
 """
 
 from __future__ import annotations
@@ -68,12 +70,18 @@ def _pad_rows(rows: Sequence[np.ndarray], multiple: int, value: float,
 
 
 class TrainCollater:
-    """Items (``text`` already filtered, ``mel [T, M]``) → fixed-shape
-    numpy batch dict."""
+    """Items (``text`` already filtered, ``mel [T, M]``; by mode
+    ``speaker_id``, ``pitch [T]``) → fixed-shape numpy batch dict:
+    ``tokens``, ``token_lengths``, ``mels``, ``mel_lengths`` and, by mode,
+    ``speakers`` (SE, GR), ``mels_for_ge2e [B·S, T_slice, M]`` (GE2E
+    slices of each training mel, offsets from ``batch_rng(seed, items)``)
+    and ``pitches [B, T_mel]`` (GR: zero-padded, cut to the truncated mel
+    length)."""
 
-    def __init__(self, config, tokenizer: Tokenizer):
+    def __init__(self, config, tokenizer: Tokenizer, seed: int = 0):
         self.config = config
         self.tokenizer = tokenizer
+        self.seed = seed
 
     def __call__(self, items: Sequence[Dict]) -> Dict[str, np.ndarray]:
         cfg = self.config
@@ -94,8 +102,27 @@ class TrainCollater:
         for i, (tk, mel) in enumerate(zip(tokens, mels)):
             token_pad[i, :tk.shape[0]] = tk
             mel_pad[i, :mel.shape[0]] = mel
-        return {'tokens': token_pad, 'token_lengths': token_lengths,
-                'mels': mel_pad, 'mel_lengths': mel_lengths}
+        out = {'tokens': token_pad, 'token_lengths': token_lengths,
+               'mels': mel_pad, 'mel_lengths': mel_lengths}
+        if cfg.uses_speaker_embedding:
+            out['speakers'] = np.array(
+                [item['speaker_id'] for item in items], np.int32)
+        if cfg.uses_ge2e:
+            ge2e = cfg.speaker_embedding.ge2e.inference
+            rng = batch_rng(self.seed, items)
+            out['mels_for_ge2e'] = np.concatenate([
+                slice_mel_for_ge2e(item['mel'], ge2e.samples,
+                                   ge2e.slice_length, ge2e.overlap_length,
+                                   rng)
+                for item in items]).astype(np.float32)
+        if cfg.uses_gradient_reversal:
+            # the pitch on the (truncated) mel's timeline
+            pitch_pad = np.zeros((len(items), t_mel), np.float32)
+            for i, (item, mel) in enumerate(zip(items, mels)):
+                n = min(item['pitch'].shape[0], mel.shape[0])
+                pitch_pad[i, :n] = item['pitch'][:n]
+            out['pitches'] = pitch_pad
+        return out
 
 
 class InferenceCollater:

@@ -14,6 +14,7 @@ the reference loads from a checkpoint of its own, keeps ``nn.LSTM``'s and
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -65,6 +66,11 @@ class _Conv(nn.Module):
         self.Conv = conv
 
 
+def _without_rz(grad: torch.Tensor, size: int) -> torch.Tensor:
+    """A GRU ``bias_hh`` gradient with its r and z rows zero."""
+    return torch.cat([torch.zeros_like(grad[:2 * size]), grad[2 * size:]])
+
+
 class GSTProsodyEncoder(nn.Module):
     """Global style tokens over a reference mel: strided Conv2d stack →
     GRU → its last valid step → attention over ``tanh`` of the learned
@@ -86,6 +92,13 @@ class GSTProsodyEncoder(nn.Module):
             freq = (freq + 2 * pad - k) // s + 1
         modules['GRU'] = nn.GRU(in_channels * freq, ref.gru.size,
                                 num_layers=ref.gru.stacks, batch_first=True)
+        for i in range(ref.gru.stacks):
+            # flax's GRU cell has one bias for each of r and z, the torch
+            # layer two that add up (bias_ih + bias_hh): bias_hh's r and z
+            # rows get no gradient, so training moves that sum as the JAX
+            # package moves its one bias
+            getattr(modules['GRU'], f'bias_hh_l{i}').register_hook(
+                functools.partial(_without_rz, size=ref.gru.size))
         modules['Attention'] = MultiHeadCrossAttention(
             ref.gru.size, cfg.style_token.size, cfg.size, cfg.size,
             cfg.style_token.attention_head)

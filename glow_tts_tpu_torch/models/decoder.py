@@ -26,7 +26,12 @@ Training (``deterministic=False``): the whole stack runs as one call of
 ``ops.coupling_grad.flow_stack_train`` (forward and hand-written backward
 kernels on the card) on weights that :meth:`FlowDecoder.pack_train` stacks
 over the flow steps *with* autograd through weight norm, the 4×4 mixing
-weight and ActNorm (``FlowDecoder._mega_train`` there).
+weight and ActNorm (``FlowDecoder._mega_train`` there).  In the
+conditioned modes the train kernels add the in-conv bias themselves,
+before the dropout, and the rows after it: so the train route's rows
+(:meth:`FlowDecoder.train_conditioning`, built with autograd at every
+call) carry the speaker and prosody products, their biases and ``b_pitch``,
+never ``b_in``; GR mode's ``w_pitch`` rides in the packed weights.
 """
 
 from __future__ import annotations
@@ -470,14 +475,62 @@ class FlowDecoder(nn.Module):
                                            w[f'w_{key}'])
         return cond.contiguous()
 
+    def _wavenets(self) -> list:
+        return [step.layers[2].layer_Dict['WaveNet']
+                for step in self.layer_Dict['Flows']]
+
+    def _stacked_layer_convs(self, name: str
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The 1×1 convs ``<name>_<i>`` of every step and layer, stacked with
+        autograd through weight norm: ``[S, n, in, out]`` in the kernels'
+        layout and their biases ``[S, n, out]``."""
+        wavenets = self._wavenets()
+        n = wavenets[0].num_layers
+        w, b = stacked_effective_weights([wn.layer_Dict[f'{name}_{i}']
+                                          for wn in wavenets
+                                          for i in range(n)])
+        s, out, width, _ = w.shape[0] // n, *w.shape[1:]
+        return (w[..., 0].transpose(1, 2).reshape(s, n, width, out),
+                b.reshape(s, n, out))
+
+    def train_conditioning(self, batch: int,
+                           speaker: Optional[torch.Tensor] = None,
+                           prosody: Optional[torch.Tensor] = None,
+                           pitch: bool = False) -> Optional[torch.Tensor]:
+        """The train route's conditioning rows ``[S, n, B, 2ch]``, added
+        after the dropout: ``speaker [B, E]·W_spk + b_spk``, ``prosody
+        [B, P]·W_pro + b_pro`` and, when a pitch operand goes with them,
+        ``b_pitch``; without the in-conv bias, which the train kernels add
+        before the dropout.  Built at every call with autograd down to the
+        parameters (``glow_tts_tpu/models/decoder.py::AffineCoupling.
+        _gather`` with ``split_bias``); None in Vanilla mode."""
+        if speaker is None and prosody is None and not pitch:
+            return None
+        rows = None
+        for vector, name in ((speaker, 'Speaker'), (prosody, 'Prosody')):
+            if vector is not None:
+                w, b = self._stacked_layer_convs(name)
+                term = (torch.einsum('be,snec->snbc', vector.float(), w)
+                        + b[:, :, None, :])
+                rows = term if rows is None else rows + term
+        if pitch:
+            b = torch.stack([torch.stack([
+                wn.layer_Dict[f'Pitch_{i}'].bias
+                for i in range(wn.num_layers)]) for wn in self._wavenets()])
+            rows = (b[:, :, None, :] if rows is None
+                    else rows + b[:, :, None, :])
+        s, n, _, ch2 = rows.shape
+        return rows.float().expand(s, n, batch, ch2).contiguous()
+
     def pack_train(self) -> Dict[str, torch.Tensor]:
         """The forward weights of every step in the train kernels' layout,
         stacked along a leading flow axis (``ops.coupling_grad.
         weight_shapes``, ``b_in`` under its own key, plus ``ld_const
-        [S]``), contiguous float32, with autograd through weight norm, the
-        mixing weight and ActNorm down to the parameters.  Each kind of
-        tensor is computed for all steps at once: a few dozen launches
-        instead of a few dozen per step."""
+        [S]`` and in GR mode ``w_pitch [S, n, ps, 2ch]``), contiguous
+        float32, with autograd through weight norm, the mixing weight and
+        ActNorm down to the parameters.  Each kind of tensor is computed for
+        all steps at once: a few dozen launches instead of a few dozen per
+        step."""
         steps = list(self.layer_Dict['Flows'])
         actnorms, invconvs, couplings = zip(*(step.layers for step in steps))
         wavenets = [c.layer_Dict['WaveNet'] for c in couplings]
@@ -524,24 +577,44 @@ class FlowDecoder(nn.Module):
             'ld_const': (logs.sum(dim=1)
                          + logabsdet * (c / invconvs[0].num_split)),
         }
+        if ('Pitch', 'pitch') in wavenets[0].conditioning:
+            weights['w_pitch'] = self._stacked_layer_convs('Pitch')[0]
         return {key: value.float().contiguous()
                 for key, value in weights.items()}
 
+    def _squeezed_pitch(self, pitch: Optional[torch.Tensor],
+                        mask: torch.Tensor) -> Optional[torch.Tensor]:
+        """``pitch [B, T]`` as the kernels' pitch operand ``[B, T/s, s]``."""
+        if pitch is None:
+            return None
+        pitch, _ = squeeze(pitch[..., None].float(), mask, self.num_squeeze)
+        return pitch.contiguous()
+
     @torch.no_grad()
     def data_dependent_init(self, x, mask,
-                            step_fn: FlowStepFn = flow_step) -> None:
+                            step_fn: FlowStepFn = flow_step,
+                            speaker: Optional[torch.Tensor] = None,
+                            prosody: Optional[torch.Tensor] = None,
+                            pitch: Optional[torch.Tensor] = None) -> None:
         """ActNorm's data-dependent initialisation on the batch
-        ``x [B, T, M]``, ``mask [B, T, 1]``, step by step under every
-        route: each step's statistics come from its own input, so a step
-        is set, re-packed and run forward (through ``step_fn``) before the
-        next one is set."""
+        ``x [B, T, M]``, ``mask [B, T, 1]`` and its conditioning (as
+        :meth:`forward` takes it), step by step under every route: each
+        step's statistics come from its own input, so a step is set,
+        re-packed and run forward (through ``step_fn``, with the step's
+        conditioning rows and the pitch operand) before the next one is
+        set."""
+        pitch = self._squeezed_pitch(pitch, mask)
         x, sq_mask = squeeze(x, mask, self.num_squeeze)
         self.invalidate()
-        for step in self.layer_Dict['Flows']:
+        # the rows read the WaveNets' conditioning convs, which the init
+        # does not change
+        cond = self.conditioning(x.shape[0], speaker, prosody,
+                                 pitch is not None)
+        for k, step in enumerate(self.layer_Dict['Flows']):
             step.layers[0].data_dependent_init(x, sq_mask)
             step.pack()
-            x, _ = step_fn(x, sq_mask, step.weights(False),
-                           step.cond(x.shape[0]), False)
+            x, _ = step_fn(x, sq_mask, step.weights(False), cond[k], False,
+                           pitch=pitch)
 
     def forward(self, x, mask, reverse: bool = False,
                 step_fn: FlowStepFn = flow_step, deterministic: bool = True,
@@ -562,21 +635,15 @@ class FlowDecoder(nn.Module):
         (GR) ``pitch [B, T]``, which is squeezed to the kernels' pitch
         operand ``[B, T/s, s]``.  Returns (x, logdet [B] or None, mask)."""
         s = self.num_squeeze
-        if pitch is not None:
-            pitch, _ = squeeze(pitch[..., None].float(), mask, s)
-            pitch = pitch.contiguous()
+        pitch = self._squeezed_pitch(pitch, mask)
         x, sq_mask = squeeze(x, mask, s)
-        conditioned = (speaker is not None or prosody is not None
-                       or pitch is not None)
         if not deterministic:
             if reverse or seed is None:
                 raise ValueError('the train route runs forward and needs '
                                  'a seed')
-            if conditioned:
-                raise NotImplementedError(
-                    'training the conditioned modes (SE, PE, GR) is not in '
-                    'the PyTorch port yet (ROADMAP.md A.4)')
-            x, logdet = stack_fn(x, sq_mask, self.pack_train(), None, None,
+            cond = self.train_conditioning(x.shape[0], speaker, prosody,
+                                           pitch is not None)
+            x, logdet = stack_fn(x, sq_mask, self.pack_train(), cond, pitch,
                                  seed=seed, dropout_rate=self.dropout_rate)
         else:
             cond = self.conditioning(x.shape[0], speaker, prosody,

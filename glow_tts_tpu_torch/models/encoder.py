@@ -4,7 +4,7 @@ the conditioned modes the duration predictor also reads the conditioning
 vector, broadcast over the tokens and concatenated to its input.
 ``deterministic=False`` turns on dropout at the JAX package's sites, drawn
 from the ``generator`` handed down; the duration predictor reads detached
-encodings."""
+encodings and a detached conditioning vector."""
 
 from __future__ import annotations
 
@@ -134,8 +134,8 @@ class TextEncoder(nn.Module):
         """tokens [B, T] int64; mask [B, T, 1]; ``condition [B, E]`` (the
         conditioned modes' vector) or None.  Returns (mean [B, T, M],
         log_std [B, T, M], log_durations [B, T, 1]).  The duration
-        predictor sees detached features, so the duration loss trains the
-        predictor alone."""
+        predictor sees detached features and conditioning, so the duration
+        loss trains the predictor alone."""
         layers = self.layer_Dict
         x = layers['Embedding'](tokens) * math.sqrt(self.channels)
         x = layers['Prenet'](x, mask, deterministic, generator)
@@ -146,5 +146,7 @@ class TextEncoder(nn.Module):
         x = masked(x, mask)
         mean, log_std = masked(layers['Project'](x), mask).chunk(2, dim=-1)
         log_durations = layers['Duration_Predictor'](
-            x.detach(), mask, condition, deterministic, generator)
+            x.detach(), mask,
+            None if condition is None else condition.detach(),
+            deterministic, generator)
         return mean, log_std, log_durations

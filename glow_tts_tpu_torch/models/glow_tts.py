@@ -4,8 +4,10 @@ encoder), PE (a GST prosody vector from a reference mel) and GR (both, the
 adversarial speaker classifier and the pitch operand).  The train forward
 (:meth:`GlowTTS.forward`: conditioning, encoder prior, forward flow with its
 logdet, prior log-likelihood, MAS) is deterministic for the loss and eval
-path and, in Vanilla mode, has dropout and gradients for the train step;
-serving is two-phase.
+path and has dropout and gradients for the train step, in every mode;
+serving is two-phase.  The GE2E speaker encoder is pre-trained and frozen,
+as in the JAX package: its parameters require no gradient (so the
+optimiser leaves them out) and it runs without autograd.
 
 Serving has two phases, as the JAX package serves: :meth:`GlowTTS.inference_prior`
 does the token-length work (conditioning, encoder prior, ceiled
@@ -74,7 +76,8 @@ class GlowTTS(nn.Module):
                    'Decoder': FlowDecoder(config)}
         cfg = config.speaker_embedding
         if config.uses_ge2e:
-            modules['GE2E'] = GE2ESpeakerEncoder(config)
+            # frozen (glow_tts_tpu/training/optim.py labels it so)
+            modules['GE2E'] = GE2ESpeakerEncoder(config).requires_grad_(False)
         elif config.uses_speaker_embedding:
             modules['LUT'] = nn.Embedding(cfg.num_speakers,
                                           cfg.embedding_size)
@@ -93,13 +96,15 @@ class GlowTTS(nn.Module):
         the speaker vector from ``speakers [B]`` (LUT) or ``mels_for_ge2e
         [B·S, T_slice, M]`` (GE2E), the prosody vector from the reference
         ``mels [B, T, M]`` and their lengths, and GR mode's classifier on
-        the prosody vector."""
+        the prosody vector.  The GE2E vector is computed without autograd
+        (``stop_gradient`` in the JAX package)."""
         cfg, layers = self.config, self.layer_Dict
         speaker = prosody = classified = None
         if cfg.uses_ge2e:
             if mels_for_ge2e is None:
                 raise ValueError('GE2E mode needs mels_for_ge2e')
-            speaker = layers['GE2E'].embed_utterances(mels_for_ge2e)
+            with torch.no_grad():
+                speaker = layers['GE2E'].embed_utterances(mels_for_ge2e)
         elif cfg.uses_speaker_embedding:
             if speakers is None:
                 raise ValueError('speaker-embedding mode needs speakers')
@@ -151,7 +156,8 @@ class GlowTTS(nn.Module):
         The conditioned modes take ``speakers [B]`` (LUT), ``mels_for_ge2e
         [B·S, T_slice, M]`` (GE2E) and, in GR mode, ``pitches [B, T_mel]``;
         the prosody vector comes from ``mels``.  GR mode also returns the
-        classifier's ``classified_speakers [B, speakers]``.
+        classifier's ``classified_speakers [B, speakers]``, which reads the
+        prosody vector through the gradient reversal.
         ``step_fn``, ``coupling_fn``, ``flow_stack_fn``, ``stack_fn`` and
         ``mas_fn`` are the kernels' wrappers unless a caller compares them
         with their plain versions.
@@ -200,19 +206,21 @@ class GlowTTS(nn.Module):
     @torch.no_grad()
     def data_dependent_init(self, mels: torch.Tensor,
                             mel_lengths: torch.Tensor,
-                            step_fn: FlowStepFn = flow_step) -> 'GlowTTS':
+                            step_fn: FlowStepFn = flow_step,
+                            speakers: Optional[torch.Tensor] = None,
+                            mels_for_ge2e: Optional[torch.Tensor] = None,
+                            pitches: Optional[torch.Tensor] = None
+                            ) -> 'GlowTTS':
         """Initialise every flow step's ActNorm from the batch
-        ``mels [B, T_mel, M]``, as training starts (the JAX package does it
-        inside ``create_train_state``).  Run after :meth:`prepare`.
-        Vanilla mode only: the conditioned modes' training is still to be
-        ported."""
-        if self.config.mode.upper() != 'VANILLA':
-            raise NotImplementedError(
-                'training the conditioned modes (SE, PE, GR) is not in the '
-                'PyTorch port yet (ROADMAP.md A.4)')
+        ``mels [B, T_mel, M]`` and the mode's conditioning (as
+        :meth:`forward` takes it), as training starts (the JAX package does
+        it inside ``create_train_state``).  Run after :meth:`prepare`."""
         mel_mask = sequence_mask(mel_lengths, mels.shape[1])
-        self.layer_Dict['Decoder'].data_dependent_init(mels, mel_mask,
-                                                       step_fn)
+        speaker, prosody, _ = self.conditions(mels, mel_lengths, speakers,
+                                              mels_for_ge2e)
+        self.layer_Dict['Decoder'].data_dependent_init(
+            mels, mel_mask, step_fn, speaker, prosody,
+            pitches if self.config.uses_gradient_reversal else None)
         return self
 
     @torch.no_grad()

@@ -38,6 +38,15 @@ live tiles only).  What the design of the backward does about it:
   weight-gradient chunks (whole samples, a split that is a function of the
   shapes) and of the per-sample column sums in a fixed order straight into
   the gradient tensors: no atomics, so two runs give the same bits.
+
+GR mode's pitch operand (``pitch [B, T, 2]`` with ``w_pitch [S, n, 2,
+2ch]``, added to every WaveNet layer's pre-gate sum after the dropout) is
+a build of both sources of their own (``GLOW_PITCH``, as the deterministic
+kernels' pitch builds): the wrappers load it only when a pitch operand
+arrives, and count its launches apart.  Its backward adds one launch per
+layer: ``dw_pitch`` as per-sample partials reduced in order with the other
+weight gradients, and ``dpitch`` (skipped when the pitch operand wants no
+gradient) added layer by layer in launch order.
 """
 
 from __future__ import annotations
@@ -51,7 +60,8 @@ import torch
 import torch.nn.functional as F
 
 from glow_tts_tpu_torch.ops import dropmask
-from glow_tts_tpu_torch.ops.coupling import (KERNEL_SHAPE, kernel_keys,
+from glow_tts_tpu_torch.ops.coupling import (KERNEL_SHAPE, PITCH_BUILD,
+                                             PITCH_SIZE, kernel_keys,
                                              tf32_round, tile_report_pointer,
                                              valid_lengths,
                                              with_tensor_core_weights)
@@ -64,13 +74,24 @@ WEIGHT_KEYS = ('an_logs', 'an_bias', 'mix_t', 'w_start', 'b_start', 'w_in',
                'b_in', 'w_rs', 'b_rs', 'w_end', 'b_end')
 
 
-def weight_shapes(s: int, c: int, ch: int, n: int, k: int
+def weight_keys(pitch: bool) -> Tuple[str, ...]:
+    """The stacked weights the autograd function takes, in order: those of
+    :data:`WEIGHT_KEYS` and, with a pitch operand, ``w_pitch``."""
+    return WEIGHT_KEYS + (('w_pitch',) if pitch else ())
+
+
+def weight_shapes(s: int, c: int, ch: int, n: int, k: int, ps: int = 0
                   ) -> Dict[str, Tuple[int, ...]]:
-    return {'an_logs': (s, c), 'an_bias': (s, c), 'mix_t': (s, c, c),
-            'w_start': (s, c // 2, ch), 'b_start': (s, ch),
-            'w_in': (s, n, k, ch, 2 * ch), 'b_in': (s, n, 2 * ch),
-            'w_rs': (s, n, ch, 2 * ch), 'b_rs': (s, n, 2 * ch),
-            'w_end': (s, ch, c), 'b_end': (s, c)}
+    """The shapes of :func:`weight_keys`, ``w_pitch`` with a pitch operand
+    of width ``ps``."""
+    shapes = {'an_logs': (s, c), 'an_bias': (s, c), 'mix_t': (s, c, c),
+              'w_start': (s, c // 2, ch), 'b_start': (s, ch),
+              'w_in': (s, n, k, ch, 2 * ch), 'b_in': (s, n, 2 * ch),
+              'w_rs': (s, n, ch, 2 * ch), 'b_rs': (s, n, 2 * ch),
+              'w_end': (s, ch, c), 'b_end': (s, c)}
+    if ps:
+        shapes['w_pitch'] = (s, n, ps, 2 * ch)
+    return shapes
 
 
 def flow_stack_train_reference(x: torch.Tensor, mask: torch.Tensor,
@@ -160,18 +181,23 @@ STORE_BUDGET_BYTES = 8 * 2 ** 30
 # passes of the backward GEMMs' TF32 product: 3 is the error-compensated
 # 3xTF32 (f32 accuracy), 1 a single TF32 pass (3 digits, kept for measuring)
 TF32_PASSES = 3
-# kernels the backward library launches per flow step of n WaveNet layers
+# kernels the backward library launches per flow step of n WaveNet layers,
+# and per layer more in its pitch build
 BACKWARD_LAUNCHES_PER_LAYER, BACKWARD_LAUNCHES_FIXED = 4, 6
+BACKWARD_PITCH_LAUNCHES_PER_LAYER = 1
 
 
-def backward_launches_per_step(n: int) -> int:
+def backward_launches_per_step(n: int, pitch: bool = False) -> int:
     """Kernels of ``csrc/flow_train_bwd.cu`` behind one flow step's backward,
     with or without conditioning: per layer the res/skip conv's activation
     gradient, one launch of column sums, its weight gradient, and the k-tap
-    conv's two gradients as one launch; the affine's elementwise backward,
-    three more such pairs (end conv, start conv, mixing), one launch of
-    column sums and the reduction of all partials."""
-    return BACKWARD_LAUNCHES_FIXED + BACKWARD_LAUNCHES_PER_LAYER * n
+    conv's two gradients as one launch (with a pitch operand, one more: the
+    pitch term's gradients); the affine's elementwise backward, three more
+    such pairs (end conv, start conv, mixing), one launch of column sums and
+    the reduction of all partials."""
+    per_layer = BACKWARD_LAUNCHES_PER_LAYER + (
+        BACKWARD_PITCH_LAUNCHES_PER_LAYER if pitch else 0)
+    return BACKWARD_LAUNCHES_FIXED + per_layer * n
 
 
 def _saved_shapes(m: int, c: int, ch: int, n: int
@@ -240,26 +266,34 @@ def _kernel_weights(weights) -> list:
     return [named[key] for key in kernel_keys(WEIGHT_KEYS)]
 
 
-def _recompute(x_step, mask, cond, weights, saved, step: int, drop) -> None:
+def _recompute(x_step, mask, cond, weights, saved, step: int, drop,
+               pitch=None, w_pitch=None) -> None:
     """One launch of the forward kernel's saving instantiation: flow step
     ``step`` from its input ``x_step [B, T, C]`` into ``saved``; ``weights``
-    as :func:`_kernel_weights` gives them."""
-    lib = load_train_forward_library()
+    as :func:`_kernel_weights` gives them, ``w_pitch [S, n, ps, 2ch]`` with
+    a ``pitch`` operand."""
+    lib = load_train_forward_library(pitch is not None)
     b, t, _ = x_step.shape
     err = lib.glow_flow_train_fwd_f32(
         x_step.data_ptr(), mask.data_ptr(),
-        None if cond is None else cond.data_ptr(),
+        *[None if tensor is None else tensor.data_ptr()
+          for tensor in (cond, pitch, w_pitch)],
         *[w.data_ptr() for w in weights], None,
         _pointers([saved[key] for key in SAVED_KEYS]), None, b, t, step,
         step + 1, *drop, TF32_PASSES,
         torch.cuda.current_stream(x_step.device).cuda_stream)
     _raise_on(err, lib, 'flow_stack_train recompute')
-    flow_stack_train.recompute_launches += 1
+    if pitch is None:
+        flow_stack_train.recompute_launches += 1
+    else:
+        flow_stack_train.recompute_pitch_launches += 1
 
 
 class _FlowStackTrain(torch.autograd.Function):
     """The two kernels as one differentiable function of
-    ``(x, cond, *weights)``; returns ``(z, WaveNet logdet)``.  ``route``
+    ``(x, cond, pitch, *weights)`` (``weights`` in :func:`weight_keys`
+    order; the pitch builds where ``pitch`` is not None); returns
+    ``(z, WaveNet logdet)``.  ``route``
     says what the forward pass leaves for a backward pass: ``'forward'``
     nothing but the steps' inputs (no gradient is wanted), ``'store'`` every
     step's saved values, ``'recompute'`` the steps' inputs, from which the
@@ -269,12 +303,13 @@ class _FlowStackTrain(torch.autograd.Function):
     the forward's launches fill, or None."""
 
     @staticmethod
-    def forward(ctx, x, mask, cond, seed, rate, route, passes,
+    def forward(ctx, x, mask, cond, pitch, seed, rate, route, passes,
                 forward_passes, tiles, *weights):
         b, t, c = x.shape
         s_steps, n, _, ch, _ = weights[WEIGHT_KEYS.index('w_in')].shape
-        lib = load_train_forward_library()
-        kernel_weights = _kernel_weights(weights)
+        w_pitch = None if pitch is None else weights[len(WEIGHT_KEYS)]
+        lib = load_train_forward_library(pitch is not None)
+        kernel_weights = _kernel_weights(weights[:len(WEIGHT_KEYS)])
         acts = torch.empty((s_steps + 1, b, t, c), device=x.device)
         acts[0].copy_(x)
         n_tiles = -(-t // lib.glow_flow_train_time_tile())
@@ -286,15 +321,20 @@ class _FlowStackTrain(torch.autograd.Function):
                   if route == 'store' else {})
         err = lib.glow_flow_train_fwd_f32(
             acts.data_ptr(), mask.data_ptr(),
-            None if cond is None else cond.data_ptr(),
+            *[None if tensor is None else tensor.data_ptr()
+              for tensor in (cond, pitch, w_pitch)],
             *[w.data_ptr() for w in kernel_weights], ld_part.data_ptr(),
             _pointers([stored[key] for key in SAVED_KEYS]) if stored else None,
             tile_report_pointer('flow_stack_train', tiles, x), b, t, 0,
             s_steps, *drop, forward_passes,
             torch.cuda.current_stream(x.device).cuda_stream)
         _raise_on(err, lib, 'flow_stack_train forward')
-        flow_stack_train.forward_launches += s_steps
-        ctx.save_for_backward(acts, mask, cond, *stored.values(), *weights)
+        if pitch is None:
+            flow_stack_train.forward_launches += s_steps
+        else:
+            flow_stack_train.forward_pitch_launches += s_steps
+        ctx.save_for_backward(acts, mask, cond, pitch, *stored.values(),
+                              *weights)
         ctx.drop, ctx.route, ctx.passes = drop, route, passes
         # the recompute launches read the split weights again
         ctx.kernel_weights = kernel_weights if route == 'recompute' else None
@@ -306,15 +346,16 @@ class _FlowStackTrain(torch.autograd.Function):
         if ctx.route == 'forward':
             raise RuntimeError('flow_stack_train: this forward pass was run '
                                'for its outputs alone')
-        acts, mask, cond, *rest = ctx.saved_tensors
+        acts, mask, cond, pitch, *rest = ctx.saved_tensors
         n_stored = len(SAVED_KEYS) if ctx.route == 'store' else 0
         stored, weights = rest[:n_stored], rest[n_stored:]
-        named = dict(zip(WEIGHT_KEYS, weights))
+        keys = weight_keys(pitch is not None)
+        named = dict(zip(keys, weights))
         s_steps, b, t, c = acts.shape[0] - 1, *acts.shape[1:]
         _, n, k, ch, ch2 = named['w_in'].shape
         m, c2 = b * t, c // 2
         device = acts.device
-        bwd = load_train_backward_library()
+        bwd = load_train_backward_library(pitch is not None)
         stream = torch.cuda.current_stream(device).cuda_stream
 
         def empty(*shape):
@@ -328,8 +369,10 @@ class _FlowStackTrain(torch.autograd.Function):
         dld = empty(b).zero_() if dld is None else dld.float().contiguous()
         lengths = _valid_lengths(mask)
         saved = None if stored else _saved_buffers(m, c, ch, n, device)
+        # dacc, the pre-gate gradient after the dropout, where cond and the
+        # pitch term were added
         scratch = [empty(m, c), empty(m, ch2), empty(m, ch2),
-                   None if cond is None else empty(m, ch2),
+                   None if cond is None and pitch is None else empty(m, ch2),
                    empty(m, c), empty(m, 2 * c), empty(m, ch)]
         # partials of the weight gradients (one per chunk of samples) and of
         # the column sums (one per sample), reused by every step
@@ -342,6 +385,13 @@ class _FlowStackTrain(torch.autograd.Function):
                     empty(b, ch), empty(b, 2 * c)]
         grads = {key: torch.empty_like(value) for key, value in named.items()}
         dcond = None if cond is None else torch.empty_like(cond)
+        pitch_inputs, pitch_outputs, dpitch = [], [], None
+        if pitch is not None:
+            # dpitch is added to step after step; w_pitch's per-sample
+            # partials are reused by every step
+            dpitch = (torch.zeros_like(pitch) if ctx.needs_input_grad[3]
+                      else None)
+            pitch_part = empty(n, b, PITCH_SIZE, ch2)
         # the cotangent walks down the steps through two buffers of its own
         # (the incoming dz is not written to)
         dx_in, dx_bufs = dz, [torch.empty_like(dz), torch.empty_like(dz)]
@@ -351,33 +401,39 @@ class _FlowStackTrain(torch.autograd.Function):
                 step_saved = [tensor[s] for tensor in stored]
             else:
                 _recompute(acts[s], mask, cond, ctx.kernel_weights, saved, s,
-                           ctx.drop)
+                           ctx.drop, pitch, named.get('w_pitch'))
                 step_saved = list(saved.values())
+            if pitch is not None:
+                pitch_inputs = [pitch, named['w_pitch'][s]]
+                pitch_outputs = [grads['w_pitch'][s], dpitch, pitch_part]
             inputs = [acts[s], *step_saved, mask, dld, dx_in,
                       named['an_logs'][s], named['mix_t'][s],
                       named['w_start'][s], named['w_in'][s], named['w_rs'][s],
-                      named['w_end'][s], lengths]
+                      named['w_end'][s], lengths, *pitch_inputs]
             outputs = [dx_bufs[s % 2], *scratch, *partials,
                        None if dcond is None else dcond[s],
-                       *[grads[key][s] for key in WEIGHT_KEYS]]
+                       *[grads[key][s] for key in WEIGHT_KEYS],
+                       *pitch_outputs]
             err = bwd.glow_flow_train_bwd_step_f32(
                 _pointers(inputs), _pointers(outputs), b, t, c, ch, n, k, s,
                 *ctx.drop, ctx.passes, stream, ctypes.byref(launched))
-            flow_stack_train.backward_launches += launched.value
+            if pitch is None:
+                flow_stack_train.backward_launches += launched.value
+            else:
+                flow_stack_train.backward_pitch_launches += launched.value
             _raise_on(err, bwd, 'flow_stack_train backward')
             dx_in = dx_bufs[s % 2]
-        return (dx_in, None, dcond, None, None, None, None, None, None,
-                *[grads[key] for key in WEIGHT_KEYS])
+        return (dx_in, None, dcond, dpitch, None, None, None, None, None,
+                None, *[grads[key] for key in keys])
 
 
 def _check_cuda_inputs(x, mask, weights, cond, pitch) -> None:
     """Raise on what the kernels are not built for."""
     if x.device.type != 'cuda':
         raise ValueError(f'flow_stack_train: no kernel for device {x.device}')
-    if pitch is not None:
-        raise NotImplementedError(
-            'flow_stack_train: the pitch operand is not in the train kernels '
-            '(#5, #6) yet: GR-mode training, ROADMAP.md A.4')
+    if pitch is not None and 'w_pitch' not in weights:
+        raise ValueError('flow_stack_train: a pitch operand needs w_pitch '
+                         'among the weights')
     b, t, c = x.shape
     s_steps, n, k, ch, ch2 = weights['w_in'].shape
     got = {'channels': c, 'ch': ch, 'n_layers': n, 'kernel_size': k}
@@ -387,9 +443,12 @@ def _check_cuda_inputs(x, mask, weights, cond, pitch) -> None:
     tensors = {'x': (x, (b, t, c)), 'mask': (mask, (b, t, 1)),
                'ld_const': (weights['ld_const'], (s_steps,)),
                **{key: (weights[key], shape) for key, shape
-                  in weight_shapes(s_steps, c, ch, n, k).items()}}
+                  in weight_shapes(s_steps, c, ch, n, k,
+                                   0 if pitch is None else PITCH_SIZE).items()}}
     if cond is not None:
         tensors['cond'] = (cond, (s_steps, n, b, ch2))
+    if pitch is not None:
+        tensors['pitch'] = (pitch, (b, t, PITCH_SIZE))
     for name, (tensor, shape) in tensors.items():
         if (tensor.device != x.device or tensor.dtype != torch.float32
                 or tuple(tensor.shape) != shape
@@ -404,19 +463,21 @@ def _apply_kernels(x, mask, weights, cond, seed, dropout_rate,
                    route: Optional[str] = None,
                    passes: int = TF32_PASSES,
                    forward_passes: int = TF32_PASSES,
-                   tiles: Optional[torch.Tensor] = None):
-    """``_FlowStackTrain`` on checked CUDA operands.  ``route`` is chosen
+                   tiles: Optional[torch.Tensor] = None,
+                   pitch: Optional[torch.Tensor] = None):
+    """``_FlowStackTrain`` on checked CUDA operands (the pitch builds with
+    a ``pitch`` operand).  ``route`` is chosen
     here: ``'forward'`` when no gradient can be asked for, else by
     :func:`stores_activations`; tests and measurements force ``'store'`` or
     ``'recompute'`` (and the number of TF32 passes of the backward's and,
     on the route ``'forward'``, the forward's products) through this
     function, and may have the forward's launches report their tiles into
     ``tiles`` (``coupling.tile_report``)."""
-    stack = [weights[key] for key in WEIGHT_KEYS]
+    stack = [weights[key] for key in weight_keys(pitch is not None)]
     if route is None:
         wanted = torch.is_grad_enabled() and any(
             tensor is not None and tensor.requires_grad
-            for tensor in (x, cond, *stack))
+            for tensor in (x, cond, pitch, *stack))
         b, t, c = x.shape
         s_steps, n, _, ch, _ = weights['w_in'].shape
         route = ('forward' if not wanted else
@@ -425,7 +486,7 @@ def _apply_kernels(x, mask, weights, cond, seed, dropout_rate,
     if forward_passes != TF32_PASSES and route != 'forward':
         raise ValueError('flow_stack_train: one TF32 pass in the forward '
                          'is for measuring, on the route \'forward\' only')
-    z, ld = _FlowStackTrain.apply(x, mask, cond, int(seed),
+    z, ld = _FlowStackTrain.apply(x, mask, cond, pitch, int(seed),
                                   float(dropout_rate), route, passes,
                                   forward_passes, tiles, *stack)
     return z, ld + weights['ld_const'].sum() * mask.sum(dim=(1, 2))
@@ -450,17 +511,22 @@ def flow_stack_train(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
                                           seed=seed,
                                           dropout_rate=dropout_rate)
     _check_cuda_inputs(x, mask, weights, cond, pitch)
-    return _apply_kernels(x, mask, weights, cond, seed, dropout_rate)
+    return _apply_kernels(x, mask, weights, cond, seed, dropout_rate,
+                          pitch=pitch)
 
 
 # kernel launches of the forward pass (one per flow step); of the forward
 # kernel's saving instantiation as the backward pass's recompute (one per
 # flow step, none where the forward pass stored); and of the backward
 # library's kernels, as its entry counts them: a fixed sequence of
-# backward_launches_per_step(n) per flow step
+# backward_launches_per_step(n) per flow step.  The pitch builds' launches
+# count apart, under the same names with ``_pitch``.
 flow_stack_train.forward_launches = 0
 flow_stack_train.recompute_launches = 0
 flow_stack_train.backward_launches = 0
+flow_stack_train.forward_pitch_launches = 0
+flow_stack_train.recompute_pitch_launches = 0
+flow_stack_train.backward_pitch_launches = 0
 
 
 def _check_product_operands(**tensors: torch.Tensor) -> None:
@@ -521,13 +587,14 @@ def _wgrad_product(p: torch.Tensor, g: torch.Tensor, mask: torch.Tensor,
 
 
 @functools.cache
-def load_train_forward_library() -> ctypes.CDLL:
-    """Build (at first use) and load the forward kernel's library, typed."""
+def load_train_forward_library(pitch: bool = False) -> ctypes.CDLL:
+    """Build (at first use) and load the forward kernel's library, its
+    pitch build with ``pitch``, typed."""
     from glow_tts_tpu_torch.ops.cuda_build import load_library
-    lib = load_library('flow_train_fwd.cu')
+    lib = load_library('flow_train_fwd.cu', PITCH_BUILD if pitch else ())
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.glow_flow_train_fwd_f32.argtypes = (
-        [vp] * (3 + len(WEIGHT_KEYS) + 3)
+        [vp] * (5 + len(WEIGHT_KEYS) + 3)
         + [ci, ci, ci, ci, ci, ctypes.c_uint, ctypes.c_float, ci, ci, vp])
     lib.glow_flow_train_fwd_f32.restype = ci
     lib.glow_flow_train_time_tile.argtypes = []
@@ -538,10 +605,11 @@ def load_train_forward_library() -> ctypes.CDLL:
 
 
 @functools.cache
-def load_train_backward_library() -> ctypes.CDLL:
-    """Build (at first use) and load the backward kernels' library, typed."""
+def load_train_backward_library(pitch: bool = False) -> ctypes.CDLL:
+    """Build (at first use) and load the backward kernels' library, its
+    pitch build with ``pitch``, typed."""
     from glow_tts_tpu_torch.ops.cuda_build import load_library
-    lib = load_library('flow_train_bwd.cu')
+    lib = load_library('flow_train_bwd.cu', PITCH_BUILD if pitch else ())
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.glow_flow_train_bwd_step_f32.argtypes = (
         [vp, vp] + [ci] * 8 + [ctypes.c_uint, ctypes.c_float, ci, ci, vp,

@@ -1,5 +1,6 @@
 """Training losses, computed in float32 (port of
-``glow_tts_tpu/training/losses.py``, the Vanilla terms).
+``glow_tts_tpu/training/losses.py``; the curriculum's distillation term is
+not ported, ``ROADMAP.md`` A.3).
 
 * :func:`mle_loss`: the exact flow likelihood: negative log-likelihood of
   z under the aligned prior minus the flow log-determinants, normalised by
@@ -7,6 +8,8 @@
 * :func:`duration_loss`: mean squared error between predicted and
   MAS-derived log durations over all elements, padding included (both are
   zero there).
+* :func:`speaker_ce_loss`: GR mode's adversarial classifier, the mean
+  cross-entropy of its logits against the speaker ids.
 """
 
 from __future__ import annotations
@@ -33,3 +36,9 @@ def duration_loss(log_durations: torch.Tensor,
                   log_duration_targets: torch.Tensor) -> torch.Tensor:
     diff = log_durations.float() - log_duration_targets.float()
     return torch.mean(diff ** 2)
+
+
+def speaker_ce_loss(logits: torch.Tensor,
+                    speaker_ids: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.mean(logp.gather(-1, speaker_ids.long()[:, None]))

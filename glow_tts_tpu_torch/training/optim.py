@@ -55,7 +55,11 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 
 class RAdam:
     """Clip → RAdam → weight decay → Noam rate over ``params``, updated in
-    place by :meth:`step` from their ``.grad``."""
+    place by :meth:`step` from their ``.grad``.  A parameter that requires
+    no gradient is frozen and not the optimiser's: no update, no weight
+    decay, no moments, and no part of the clipping norm (the JAX package's
+    ``frozen`` label, which holds the pre-trained GE2E encoder,
+    ``GlowTTS`` sets it so)."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], *,
                  learning_rate: float, base: int, beta1: float = 0.9,

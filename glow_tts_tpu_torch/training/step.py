@@ -1,9 +1,10 @@
 """The train step and the loss/eval path (port of
-``glow_tts_tpu/training/step.py``, Vanilla terms): model construction, the
-loss dict, the train step (forward with dropout → MAS → losses → backward
-→ clip → RAdam/Noam update), the eval step and the alignment-health
-metric the evaluation reports beside the losses.  The alignment-warmup
-variants of the step and the decoder freeze are not ported.
+``glow_tts_tpu/training/step.py``) in the four modes: model construction,
+the loss dict (GR mode adds the speaker classifier's term), the train step
+(forward with dropout → MAS → losses → backward → clip → RAdam/Noam
+update), the eval step and the alignment-health metric the evaluation
+reports beside the losses.  The alignment-warmup variants of the step and
+the decoder freeze are not ported (``ROADMAP.md`` A.3).
 """
 
 from __future__ import annotations
@@ -53,8 +54,20 @@ def compute_losses(config, outputs: Mapping[str, torch.Tensor],
         'duration': losses.duration_loss(
             outputs['log_durations'], outputs['log_duration_targets']),
     }
-    loss_dict['total'] = loss_dict['mle'] + loss_dict['duration']
+    total = loss_dict['mle'] + loss_dict['duration']
+    if outputs.get('classified_speakers') is not None:
+        loss_dict['speaker'] = losses.speaker_ce_loss(
+            outputs['classified_speakers'], batch['speakers'])
+        total = total + loss_dict['speaker']
+    loss_dict['total'] = total
     return loss_dict
+
+
+def conditioning_inputs(batch: Batch) -> Dict[str, torch.Tensor]:
+    """The batch's conditioning fields (``speakers``, ``mels_for_ge2e``,
+    ``pitches``) that it has, as ``GlowTTS.forward`` takes them."""
+    return {key: batch[key] for key in ('speakers', 'mels_for_ge2e',
+                                        'pitches') if key in batch}
 
 
 def flow_seed(seed: int, step: int) -> int:
@@ -71,9 +84,9 @@ def make_train_step(config, model: GlowTTS, optimizer: RAdam, *,
                     stack_fn: FlowStackFn = flow_stack_train,
                     mas_fn: MasFn = maximum_path
                     ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
-    """``train_step(batch) -> metrics`` (``mle``, ``duration``, ``total``,
-    ``grad_norm``, 0-d tensors on the model's device, read without a
-    synchronisation): one update of ``model``'s parameters, in place,
+    """``train_step(batch) -> metrics`` (``mle``, ``duration``, in GR mode
+    ``speaker``, ``total``, ``grad_norm``, 0-d tensors on the model's
+    device, read without a synchronisation): one update of ``model``'s parameters, in place,
     through ``optimizer`` (``training.optim.make_optimizer`` over
     ``model.parameters()``).  The model must hold unfolded weight norm
     (``prepare(fold=False)``).
@@ -90,11 +103,15 @@ def make_train_step(config, model: GlowTTS, optimizer: RAdam, *,
 
     def train_step(batch: Batch) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad()
+        # cuDNN's recurrent layers (the GST's GRU) keep what their backward
+        # reads only in training mode; no other module reads the mode
+        model.train()
         outputs = model(batch['tokens'], batch['token_lengths'],
                         batch['mels'], batch['mel_lengths'], mas_fn=mas_fn,
                         deterministic=False,
                         seed=flow_seed(seed, optimizer.count),
-                        generator=generator, stack_fn=stack_fn)
+                        generator=generator, stack_fn=stack_fn,
+                        **conditioning_inputs(batch))
         loss_dict = compute_losses(config, outputs, batch)
         loss_dict['total'].backward()
         grad_norm = optimizer.step()
@@ -123,7 +140,8 @@ def make_eval_step(config, model: GlowTTS, step_fn: FlowStepFn = flow_step,
         outputs = model(batch['tokens'], batch['token_lengths'],
                         batch['mels'], batch['mel_lengths'],
                         step_fn=step_fn, mas_fn=mas_fn,
-                        coupling_fn=coupling_fn, flow_stack_fn=flow_stack_fn)
+                        coupling_fn=coupling_fn, flow_stack_fn=flow_stack_fn,
+                        **conditioning_inputs(batch))
         return compute_losses(config, outputs, batch), outputs
 
     return eval_step

@@ -1,9 +1,12 @@
 """The training loop (port of ``glow_tts_tpu/training/trainer.py``,
-one process, Vanilla mode).
+one process, in the four modes).
 
 ``Trainer`` builds the pattern datasets, a from-scratch model whose
-ActNorm is initialised on the first unshuffled batch, the optimiser and
-the encoder's dropout generator, restores a checkpoint if there is one,
+ActNorm is initialised on the first unshuffled batch (with its
+conditioning), in GE2E mode the pre-trained speaker encoder from
+``Speaker_Embedding.GE2E.Checkpoint_Path`` when it is set and no checkpoint
+is restored, the optimiser (the GE2E encoder frozen) and the encoder's
+dropout generator, restores a checkpoint if there is one,
 and runs the train step with checkpoints, scalar logs, evaluations and
 inference at their intervals.  A resumed run repeats the uninterrupted
 one (on the card with cuDNN deterministic, which ``Trainer`` sets): the
@@ -12,7 +15,9 @@ checkpoint holds the weights, the optimiser's count and moments
 run's seed and the generator's state, and the epoch and the batches
 already consumed in it follow from the step, as the JAX trainer derives
 them.  SIGTERM and Ctrl-C stop the loop between two steps and save the
-step reached.
+step reached.  The JAX trainer's prosody check (an embedding projector of
+GST vectors) is not ported: it is a writer of images and embeddings
+(``ROADMAP.md`` A.8).
 """
 
 from __future__ import annotations
@@ -37,10 +42,11 @@ from glow_tts_tpu_torch.training.optim import (learning_rate_at,
                                                make_optimizer)
 from glow_tts_tpu_torch.training.step import (attention_diagonality,
                                               batch_to_device,
+                                              conditioning_inputs,
                                               make_eval_step,
                                               make_train_step)
 from glow_tts_tpu_torch.utils.logging import StepTimer, SummaryLogger, logger
-from glow_tts_tpu_torch.weights import load_state_dict
+from glow_tts_tpu_torch.weights import load_ge2e_checkpoint, load_state_dict
 
 # the seed of a new run's weights, dropout streams and generator (the JAX
 # trainer's ``PRNGKey(0)``); a resumed run takes its checkpoint's
@@ -103,21 +109,28 @@ class Trainer:
 
     def _build_model(self, initial_step: int) -> None:
         cfg = self.config
-        self.model = load_state_dict(
-            GlowTTS(cfg), initial_state_dict(cfg, RUN_SEED)
-        ).to(self.device).prepare(fold=False)
+        self.checkpoints = CheckpointManager(cfg.checkpoint_path, cfg)
+        payload = self.checkpoints.restore(initial_step)
+        model = load_state_dict(GlowTTS(cfg), initial_state_dict(cfg, RUN_SEED))
+        ge2e_path = cfg.speaker_embedding.ge2e.checkpoint_path
+        if payload is None and cfg.uses_ge2e and ge2e_path:
+            # a new run's pre-trained speaker encoder (a restored run has it
+            # in its checkpoint)
+            model.load_state_dict(load_ge2e_checkpoint(ge2e_path, cfg),
+                                  strict=False)
+            logger.info('Loaded the pre-trained GE2E weights from %s',
+                        ge2e_path)
+        self.model = model.to(self.device).prepare(fold=False)
         # unshuffled: the same first batch whatever the run's seed
         loader = DataLoader(self.train_dataset, self.collater,
                             cfg.train.batch_size, shuffle=False, prefetch=0)
         init = batch_to_device(next(iter(loader)), self.device)
-        self.model.data_dependent_init(init['mels'], init['mel_lengths'])
+        self.model.data_dependent_init(init['mels'], init['mel_lengths'],
+                                       **conditioning_inputs(init))
         self.optimizer = make_optimizer(cfg, self.model.parameters())
         self.seed = RUN_SEED
         self.generator = torch.Generator(self.device).manual_seed(self.seed)
         self.step = self.epoch = 0
-
-        self.checkpoints = CheckpointManager(cfg.checkpoint_path, cfg)
-        payload = self.checkpoints.restore(initial_step)
         if payload is not None:
             load_state_dict(self.model, payload['Model'])
             # the deterministic path packs the restored weights at its
@@ -268,11 +281,18 @@ class Trainer:
                                   / count).tolist()))
         self.writers['eval'].add_scalars(means, self.step)
 
+        # the conditioned modes serve from the batch's own references: its
+        # speakers and GE2E slices, its mels for the GST, its pitch tracks
         generator = torch.Generator(self.device).manual_seed(self.step)
-        prior = self.model.inference_prior(last['tokens'],
-                                           last['token_lengths'])
+        prior = self.model.inference_prior(
+            last['tokens'], last['token_lengths'],
+            mels_for_prosody=last['mels'],
+            mel_lengths_for_prosody=last['mel_lengths'],
+            speakers=last.get('speakers'),
+            mels_for_ge2e=last.get('mels_for_ge2e'))
         self.free_running = self.model.inference_decode(
-            prior, generator=generator, max_mel_length=self.max_mel_length)
+            prior, generator=generator, max_mel_length=self.max_mel_length,
+            pitches=last.get('pitches'), pitch_lengths=last['mel_lengths'])
         return means
 
     def run_inference_file(self, pattern_file: str) -> List[Dict]:

@@ -33,7 +33,14 @@ generator's state through the checkpoint.  GR mode's pitch operand in the
 flow step, the coupling and the stack: the same tile edges (a live tile
 whose halo crosses its sample's end and T), ragged masks with holes, the
 stack bit for bit against a chain of flow-step launches with pitch, and
-what the wrappers refuse.
+what the wrappers refuse.  GR mode's pitch operand in the train kernels'
+pitch builds: the forward's three instantiations (no gradient wanted,
+storing, and the backward's recompute) and the backward against the plain
+version and autograd of it at tile edges and at a train batch's ragged
+lengths, ``dw_pitch`` and ``dpitch`` included, bit-equal twice and between
+the stored and the recomputed route, ``dpitch`` skipped when the pitch
+wants no gradient, and one GR train step at the shipped width against the
+same step through the plain versions.
 Needs a GPU and nvcc; skipped without.
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -383,16 +390,19 @@ def _rel(got, ref):
 
 
 def _train_both(device, lengths, rate, with_cond=False, z_weight=1.0,
-                ld_weight=0.7, seed=11, route=None, holes=()):
+                ld_weight=0.7, seed=11, route=None, holes=(),
+                with_pitch=False, pitch_grad=True):
     """Kernel and plain version on the same leaves; returns the two
     results as dicts of values and gradients.  ``route`` forces what the
     kernels' forward pass leaves for the backward pass (``'store'`` or
     ``'recompute'``) instead of the rule by the shapes; ``holes`` are
     ``(sample, first frame, end frame)`` spans masked out below the
-    sample's length."""
-    def kernels(xl, mask, leaves, cl, seed, dropout_rate):
+    sample's length.  ``with_pitch`` adds GR mode's pitch operand (not zero
+    past the lengths) and ``w_pitch``; the pitch is a leaf that requires a
+    gradient unless ``pitch_grad`` is false."""
+    def kernels(xl, mask, leaves, cl, pl, seed, dropout_rate):
         return tg._apply_kernels(xl, mask, leaves, cl, seed, dropout_rate,
-                                 route)
+                                 route, pitch=pl)
 
     gen = torch.Generator().manual_seed(sum(lengths) + len(lengths))
     b, t = len(lengths), max(lengths)
@@ -406,6 +416,11 @@ def _train_both(device, lengths, rate, with_cond=False, z_weight=1.0,
     wl = torch.arange(1., b + 1.).to(device)
     cond = (torch.randn((2, 4, b, 384), generator=gen) * .2).to(device) \
         if with_cond else None
+    pitch = None
+    if with_pitch:
+        weights['w_pitch'] = (torch.randn((2, 4, tc.PITCH_SIZE, 384),
+                                          generator=gen) * .5).to(device)
+        pitch = torch.rand((b, t, tc.PITCH_SIZE), generator=gen).to(device)
     mask = mask.to(device)
     results = []
     for fn in (tg.flow_stack_train if route is None else kernels,
@@ -414,7 +429,9 @@ def _train_both(device, lengths, rate, with_cond=False, z_weight=1.0,
                   for key, v in weights.items()}
         xl = x.clone().requires_grad_()
         cl = None if cond is None else cond.clone().requires_grad_()
-        z, ld = fn(xl, mask, leaves, cl, seed=seed, dropout_rate=rate)
+        pl = None if pitch is None else pitch.clone().requires_grad_(
+            pitch_grad)
+        z, ld = fn(xl, mask, leaves, cl, pl, seed=seed, dropout_rate=rate)
         (z_weight * torch.sum(z * zt)
          + ld_weight * torch.sum(ld * wl)).backward()
         torch.cuda.synchronize()
@@ -422,6 +439,8 @@ def _train_both(device, lengths, rate, with_cond=False, z_weight=1.0,
                **{f'd{key}': leaf.grad for key, leaf in leaves.items()}}
         if cl is not None:
             out['dcond'] = cl.grad
+        if pl is not None and pitch_grad:
+            out['dpitch'] = pl.grad
         results.append(out)
     return results
 
@@ -628,8 +647,16 @@ def test_train_wrapper_refuses_what_the_kernels_do_not_take(device):
     w = _stack_weights(gen, device)
     x = torch.zeros((2, 8, 160), device=device)
     mask = torch.ones((2, 8, 1), device=device)
-    with pytest.raises(NotImplementedError):
+    # a pitch operand without its weight, or of another width
+    with pytest.raises(ValueError, match='w_pitch'):
         tg.flow_stack_train(x, mask, w, None,
+                            torch.zeros((2, 8, 2), device=device), seed=0)
+    w_pitch = torch.zeros((2, 4, 2, 384), device=device)
+    with pytest.raises(ValueError, match='pitch'):
+        tg.flow_stack_train(x, mask, {**w, 'w_pitch': w_pitch}, None,
+                            torch.zeros((2, 8, 3), device=device), seed=0)
+    with pytest.raises(ValueError, match='w_pitch'):
+        tg.flow_stack_train(x, mask, {**w, 'w_pitch': w_pitch[:, :3]}, None,
                             torch.zeros((2, 8, 2), device=device), seed=0)
     with pytest.raises(ValueError, match='float32'):
         tg.flow_stack_train(x.double(), mask, w, seed=0)
@@ -1058,3 +1085,162 @@ def test_pitch_wrappers_refuse_what_the_kernels_do_not_take(device):
     with pytest.raises(ValueError, match='pitch'):
         tc.coupling(x[..., :80], x[..., 80:], mask, w, cond,
                     pitch=pitch.transpose(1, 2).contiguous().transpose(1, 2))
+
+
+def _pitch_counts():
+    train = tg.flow_stack_train
+    return {name: getattr(train, name) for name in (
+        'forward_launches', 'recompute_launches', 'backward_launches',
+        'forward_pitch_launches', 'recompute_pitch_launches',
+        'backward_pitch_launches')}
+
+
+# a train batch's ragged lengths (squeezed frames of 32 samples of 25 ...
+# 500 frames in a 512-frame bucket), from a seed
+TRAIN_BATCH_LENGTHS = torch.randint(
+    25, 501, (32,), generator=torch.Generator().manual_seed(9)).tolist()
+
+
+@pytest.mark.parametrize('rate', [0.0, 0.05])
+@pytest.mark.parametrize('lengths', [[1], [33, 1, 16, 33], [200, 1, 130],
+                                     TRAIN_BATCH_LENGTHS])
+def test_train_pitch_builds_match_plain(device, lengths, rate):
+    """#5 (storing) and #6 of the pitch builds against the plain version
+    and autograd of it, with per-sample conditioning: z 1e-4 and logdet
+    1e-5 relative, every gradient (``dw_pitch`` and ``dpitch`` among them)
+    within 1e-4 of its max-abs; the launches counted as the pitch builds'
+    own, 26 backward kernels a flow step."""
+    before = _pitch_counts()
+    got, ref = _train_both(device, lengths, rate, with_cond=True,
+                           with_pitch=True)
+    counts = _pitch_counts()
+    assert tg.backward_launches_per_step(4, pitch=True) == 26
+    assert {key: counts[key] - before[key] for key in counts} == {
+        'forward_launches': 0, 'recompute_launches': 0,
+        'backward_launches': 0, 'forward_pitch_launches': 2,
+        'recompute_pitch_launches': 0, 'backward_pitch_launches': 2 * 26}
+    assert _rel(got['ld'], ref['ld']) < 1e-5
+    _assert_train_agrees(got, ref)
+    assert got['dw_pitch'].abs().max() > 0 and got['dpitch'].abs().max() > 0
+    # the pitch gradient is zero where the mask is
+    mask = (torch.arange(max(lengths), device=device)[None, :]
+            < torch.tensor(lengths, device=device)[:, None])
+    assert (got['dpitch'][~mask] == 0).all()
+
+
+def test_train_pitch_builds_are_bit_equal_across_runs_and_routes(device):
+    """The storing forward, the recompute launches and the backward of the
+    pitch builds: two runs of each route the same bits, and the two routes
+    the same bits, on a mask with holes."""
+    lengths, holes = [150, 70, 1, 140], [(0, 10, 45), (3, 127, 130)]
+    runs = {route: [_train_both(device, lengths, 0.05, with_cond=True,
+                                with_pitch=True, route=route,
+                                holes=holes)[0] for _ in range(2)]
+            for route in ('store', 'recompute')}
+    _, ref = _train_both(device, lengths, 0.05, with_cond=True,
+                         with_pitch=True, holes=holes)
+    first = runs['store'][0]
+    _assert_train_agrees(first, ref)
+    for route, (a, b) in runs.items():
+        for key in first:
+            assert torch.equal(a[key], b[key]), (route, key)
+            assert torch.equal(a[key], first[key]), (route, key)
+
+
+def test_train_pitch_builds_skip_dpitch_when_no_gradient_is_wanted(device):
+    """A pitch that wants no gradient (the model's, which comes from the
+    data): the other gradients are the same bits as with ``dpitch``; the
+    forward without any gradient (the instantiation that saves nothing) is
+    the same bits as the storing one."""
+    lengths = [70, 35, 1]
+    with_grad, _ = _train_both(device, lengths, 0.05, with_cond=True,
+                               with_pitch=True)
+    without, ref = _train_both(device, lengths, 0.05, with_cond=True,
+                               with_pitch=True, pitch_grad=False)
+    assert 'dpitch' not in without
+    _assert_train_agrees(without, ref)
+    for key in without:
+        assert torch.equal(without[key], with_grad[key]), key
+    gen = torch.Generator().manual_seed(sum(lengths) + len(lengths))
+    w = _stack_weights(gen, device)
+    x, mask = _ragged(gen, lengths, device)
+    cond = (torch.randn((2, 4, 3, 384), generator=gen) * .2).to(device)
+    w['w_pitch'] = (torch.randn((2, 4, 2, 384), generator=gen) * .5
+                    ).to(device)
+    pitch = torch.rand((3, 70, 2), generator=gen).to(device)
+    with torch.no_grad():
+        z_off, ld_off = tg.flow_stack_train(x, mask, w, cond, pitch, seed=5,
+                                            dropout_rate=0.05)
+        z_ref, _ = tg.flow_stack_train_reference(x, mask, w, cond, pitch,
+                                                 seed=5, dropout_rate=0.05)
+    leaves = {key: v.clone().requires_grad_() for key, v in w.items()}
+    z_on, ld_on = tg.flow_stack_train(x, mask, leaves, cond, pitch, seed=5,
+                                      dropout_rate=0.05)
+    assert torch.equal(z_on.detach(), z_off)
+    assert torch.equal(ld_on.detach(), ld_off)
+    assert _rel(z_off, z_ref) < REL
+
+
+def test_gr_train_step_on_the_card_matches_the_plain_versions(device):
+    """One GR train step at the shipped width (batch 4 from
+    ``TrainCollater``: speakers, pitch tracks), random weights (every
+    coupling live), after the conditioned ActNorm init, through the kernels (#3's, #5's and #6's pitch builds,
+    MAS) and through the plain versions from the same weights, seed and
+    generator state: losses within 1e-4, the gradient norm within 1e-3,
+    as ``chip_smoke.py`` holds them."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    import yaml
+    from glow_tts_tpu_torch import (TrainCollater, batch_to_device,
+                                    load_config, make_optimizer,
+                                    make_train_step, random_state_dict)
+    from glow_tts_tpu_torch.models.glow_tts import GlowTTS
+    from glow_tts_tpu_torch.text import Tokenizer
+    from glow_tts_tpu_torch.weights import load_state_dict
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, 'configs', 'Hyper_Parameters.yaml')) as f:
+        data = yaml.safe_load(f)
+    data['Mode'] = 'GR'
+    cfg = load_config(data)
+    rng = np.random.default_rng(3)
+    items = [{'text': 'THE BIRCH CANOE SLID ON THE SMOOTH PLANKS.'[:n],
+              'mel': rng.uniform(-4, 4, (m, 80)).astype(np.float32),
+              'speaker_id': int(rng.integers(cfg.speaker_embedding
+                                             .num_speakers)),
+              'pitch': rng.random(m).astype(np.float32)}
+             for n, m in ((40, 300), (12, 90), (30, 211), (20, 150))]
+    batch = batch_to_device(TrainCollater(cfg, Tokenizer())(items), device)
+    state = random_state_dict(cfg, 0)           # live couplings
+    metrics = {}
+    for name, fns in (('kernels', {}), (
+            'plain', {'stack_fn': tg.flow_stack_train_reference,
+                      'mas_fn': tm.maximum_path_reference})):
+        model = load_state_dict(GlowTTS(cfg), state).to(device).prepare(
+            fold=False)
+        model.data_dependent_init(
+            batch['mels'], batch['mel_lengths'],
+            step_fn=tc.flow_step if name == 'kernels'
+            else tc.flow_step_reference,
+            speakers=batch['speakers'], pitches=batch['pitches'])
+        step = make_train_step(
+            cfg, model, make_optimizer(cfg, model.parameters()), seed=0,
+            generator=torch.Generator(device=device).manual_seed(0), **fns)
+        before = _pitch_counts()
+        metrics[name] = {key: value.item()
+                         for key, value in step(batch).items()}
+        counts = _pitch_counts()
+        if name == 'kernels':
+            assert {key: counts[key] - before[key] for key in counts} == {
+                'forward_launches': 0, 'recompute_launches': 0,
+                'backward_launches': 0, 'forward_pitch_launches': 12,
+                'recompute_pitch_launches': 0,
+                'backward_pitch_launches': 12 * 26}
+    got, ref = metrics['kernels'], metrics['plain']
+    assert set(got) == {'mle', 'duration', 'speaker', 'total', 'grad_norm'}
+    for key, value in ref.items():
+        bar = 1e-3 if key == 'grad_norm' else 1e-4
+        assert np.isfinite(got[key]), key
+        assert abs(got[key] - value) <= bar * abs(value), (key, got, ref)

@@ -18,8 +18,6 @@ Also: the port's ``Dropout`` keeps the statistical contract of
 step, another seed another; the duration loss reaches no encoder
 parameter."""
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,24 +34,13 @@ from glow_tts_tpu_torch.training.step import (compute_losses, flow_seed,
 from glow_tts_tpu_torch.weights import (gradients_as_jax_params,
                                         load_jax_params)
 from tests.helpers import synthetic_batch, tiny_config
-from tests.torch_port_helpers import port_config, t, with_backend
+from tests.torch_port_helpers import (port_config, t, with_backend,
+                                      with_dropout)
 
 LOSS_RTOL = 2e-5
 NORM_RTOL = 2e-4
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
 STEPS = 3
-
-
-def _set_rates(cfg, rate):
-    enc, dec = cfg.encoder, cfg.decoder
-    rep = dataclasses.replace
-    enc = rep(enc, prenet=rep(enc.prenet, dropout_rate=rate),
-              transformer=rep(enc.transformer, dropout_rate=rate),
-              duration_predictor=rep(enc.duration_predictor,
-                                     dropout_rate=rate))
-    coupling = rep(dec.affine_coupling, wavenet=rep(
-        dec.affine_coupling.wavenet, dropout_rate=rate))
-    return rep(cfg, encoder=enc, decoder=rep(dec, affine_coupling=coupling))
 
 
 def _tensors(batch):
@@ -70,7 +57,7 @@ def _port(cfg, params):
 def both(request):
     """Three steps of both packages from the same perturbed parameters
     (a live end conv) on one batch, all dropout rates 0."""
-    cfg = with_backend(_set_rates(tiny_config(), 0.0), request.param)
+    cfg = with_backend(with_dropout(tiny_config(), 0.0), request.param)
     batch = synthetic_batch(cfg, batch=4)
     model, state = jstep.create_train_state(cfg, jax.random.PRNGKey(0), batch)
     rng = np.random.default_rng(100)

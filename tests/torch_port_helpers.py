@@ -71,3 +71,16 @@ def ragged(rng, b, t, c, lengths):
 
 def t(array):
     return torch.from_numpy(np.array(array))
+
+
+def with_dropout(cfg, rate):
+    """``cfg`` (the JAX config) with every dropout rate at ``rate``."""
+    enc, dec = cfg.encoder, cfg.decoder
+    rep = dataclasses.replace
+    enc = rep(enc, prenet=rep(enc.prenet, dropout_rate=rate),
+              transformer=rep(enc.transformer, dropout_rate=rate),
+              duration_predictor=rep(enc.duration_predictor,
+                                     dropout_rate=rate))
+    coupling = rep(dec.affine_coupling, wavenet=rep(
+        dec.affine_coupling.wavenet, dropout_rate=rate))
+    return rep(cfg, encoder=enc, decoder=rep(dec, affine_coupling=coupling))
