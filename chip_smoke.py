@@ -38,9 +38,19 @@ included, under both routes, bit-equal) and timed beside the Vanilla
 builds, GR trained 4 steps through the kernels and through the plain
 versions from the same weights, SE-LUT, SE-GE2E and PE 2 steps each, the
 steps timed beside a Vanilla step on the same batch, and a GR ``Trainer``
-resumed against its uninterrupted run.  Exits
-non-zero on any failure and when no CUDA device is present; the last line
-is one JSON object naming the card.
+resumed against its uninterrupted run.  Then MiniSpeech, the repo's
+converged recipe (``configs/MiniSpeech.yaml``: ``Num_Squeeze: 1``, so 80
+flow channels, the EM warmup and the decoder freeze) at its full width on
+a batch of its shape (B = 32, tokens 5 … 40, frames 50 … 600, silent
+frames where the pauses are): the 80-channel build of each flow kernel
+against its plain version to the same bars and timed, 3 EM steps with
+the decoder frozen, a released, an anchored and a linear step through
+the kernels and through the plain versions (every MAS path equal), the
+EM step timed beside a learned-prior MAS step, an eval step under each
+route, and a ``Trainer`` with the warmup and the freeze over 2 of its 4
+steps resumed from step 1 against its uninterrupted run.  Exits non-zero
+on any failure and when no CUDA device is present; the last line is one
+JSON object naming the card.
 """
 
 import copy
@@ -198,7 +208,9 @@ def live_tiles(mask, launch, steps=1, stack=False):
 COUNTERS = ('flow_step', 'coupling', 'flow_stack', 'mas', 'train_fwd',
             'train_recompute', 'train_bwd', 'flow_step_pitch',
             'coupling_pitch', 'flow_stack_pitch', 'train_fwd_pitch',
-            'train_recompute_pitch', 'train_bwd_pitch')
+            'train_recompute_pitch', 'train_bwd_pitch', 'flow_step_c80',
+            'coupling_c80', 'flow_stack_c80', 'train_fwd_c80',
+            'train_recompute_c80', 'train_bwd_c80')
 # the deterministic decoder's routes (``config.coupling_backend``): the
 # counter of the kernel each goes through
 ROUTES = {'fused': 'flow_step', 'modules': 'coupling', 'mega': 'flow_stack'}
@@ -221,16 +233,32 @@ def launch_counters():
         (flow_stack, 'pitch_launches'),
         (flow_stack_train, 'forward_pitch_launches'),
         (flow_stack_train, 'recompute_pitch_launches'),
-        (flow_stack_train, 'backward_pitch_launches'))))
+        (flow_stack_train, 'backward_pitch_launches'),
+        (flow_step, 'c80_launches'), (coupling, 'c80_launches'),
+        (flow_stack, 'c80_launches'),
+        (flow_stack_train, 'forward_c80_launches'),
+        (flow_stack_train, 'recompute_c80_launches'),
+        (flow_stack_train, 'backward_c80_launches'))))
 
 
 def route_launches(route, config, passes=1, pitch=False):
     """The flow launches of ``passes`` decoder passes under ``route``: one
     per flow step, or one in all under ``'mega'``, of the pitch
-    instantiation with ``pitch``; every other count 0."""
+    instantiation with ``pitch`` (of the 80-channel build at
+    ``Num_Squeeze: 1``); every other count 0."""
     per_pass = 1 if route == 'mega' else config.decoder.stack
-    counter = (PITCH_ROUTES if pitch else ROUTES)[route]
+    counter = (PITCH_ROUTES if pitch else ROUTES)[route] + build_suffix(
+        config)
     return {**dict.fromkeys(COUNTERS, 0), counter: per_pass * passes}
+
+
+def build_suffix(config=None, channels=None):
+    """The suffix of the counters of the flow builds ``config`` (or a flow
+    of ``channels`` channels) runs through: '' at the shipped 160, '_c80'
+    at MiniSpeech's 80."""
+    if channels is None:
+        channels = config.sound.mel_dim * config.decoder.num_squeeze
+    return '' if channels == 160 else f'_c{channels}'
 
 
 def plain_flow_fns():
@@ -496,14 +524,15 @@ def compare_decode(inferencer, texts, bucket):
     assert mae.item() < MEL_MAE_BOUND
 
 
-def time_flow_kernels(model, device, eval_mask):
+def time_flow_kernels(model, device, eval_mask, extras=True):
     """Kernels #3, #2 and #4 and their plain versions at B = 32, T = 512,
     both directions, each beside its bounds, with all frames valid and on
     the eval step's ragged mask ``eval_mask`` (the squeezed training batch),
     with the live tiles and rounds each kernel reports at both shapes; #3
     also at one TF32 pass; and the reverse stack three ways at both shapes:
     12 flow-step launches, the same launches replayed from a CUDA graph,
-    and kernel #4's one launch, with the time of a round of each."""
+    and kernel #4's one launch, with the time of a round of each (the one
+    TF32 pass and the reverse stack three ways only with ``extras``)."""
     from glow_tts_tpu_torch.ops.coupling import (
         TIME_TILE, WEIGHT_KEYS, _coupling_kernel, _flow_stack_kernel,
         _flow_step_kernel, coupling, coupling_reference, flow_stack,
@@ -515,11 +544,14 @@ def time_flow_kernels(model, device, eval_mask):
     n_steps = len(flows)
     step = flows[0]
     c = step.layers[0].logs.shape[1]
+    # the eval batch's frames may outnumber the decode shape's 512
+    # (MiniSpeech's 640 at Num_Squeeze 1)
     x, mask = ragged_batch(torch.Generator().manual_seed(SEED + 3),
-                           32, 512, c, device)
-    mask = torch.ones_like(mask)
+                           32, max(512, eval_mask.shape[1]), c, device)
     # the same inputs on the eval step's ragged batch: live tiles only
     xe = x[:, :eval_mask.shape[1]].contiguous() * eval_mask
+    x = x[:, :512].contiguous()
+    mask = torch.ones_like(mask[:, :512])
     shapes = {'decode': (x, mask), 'eval': (xe, eval_mask)}
     cond = step.cond(32)
     stacked_cond = decoder.stacked_cond(32)
@@ -601,7 +633,7 @@ def time_flow_kernels(model, device, eval_mask):
         lambda xs, m, r: flow_step_reference(xs, m, step.weights(r), cond,
                                              r), 20)
     # the same launches at one TF32 pass: what the two further passes cost
-    for reverse in (True, False):
+    for reverse in (True, False) if extras else ():
         one_ms = cuda_ms(lambda: _flow_step_kernel(
             x, mask, step.weights(reverse), cond, reverse, passes=1), 20)
         key = 'ms' if reverse else 'forward_ms'
@@ -611,7 +643,7 @@ def time_flow_kernels(model, device, eval_mask):
     flow_times['schedule'] = schedules(
         'flow step', lambda xs, m, tiles: _flow_step_kernel(
             xs, m, weights, cond, False, tiles=tiles),
-        load_flow_step_library().glow_flow_step_resident_blocks)
+        load_flow_step_library(channels=c).glow_flow_step_resident_blocks)
 
     coupling_times = report(
         'coupling', step_frame_flops(own), 1,
@@ -625,7 +657,7 @@ def time_flow_kernels(model, device, eval_mask):
     coupling_times['schedule'] = schedules(
         'coupling', lambda xs, m, tiles: _coupling_kernel(
             xs[..., :c // 2], xs[..., c // 2:], m, own, cond, tiles=tiles),
-        load_coupling_library().glow_coupling_resident_blocks)
+        load_coupling_library(channels=c).glow_coupling_resident_blocks)
 
     stack_times = report(
         f'flow stack ({n_steps} steps, one launch)',
@@ -639,13 +671,13 @@ def time_flow_kernels(model, device, eval_mask):
     stack_times['schedule'] = schedules(
         'flow stack', lambda xs, m, tiles: _flow_stack_kernel(
             xs, m, stacked[False], stacked_cond, tiles=tiles),
-        load_flow_stack_library().glow_flow_stack_resident_blocks,
+        load_flow_stack_library(channels=c).glow_flow_stack_resident_blocks,
         steps=n_steps, stack=True)
 
     # the reverse stack as a decode runs it, three ways on the same input,
     # at both shapes; a round is one tile's step on every block
     packs = [(s.weights(True), s.cond(32)) for s in reversed(flows)]
-    for shape, (xs, m) in shapes.items():
+    for shape, (xs, m) in shapes.items() if extras else ():
         def chain():
             y = xs
             for w, step_cond in packs:
@@ -1029,10 +1061,10 @@ def time_eval(model, batch, config, device):
     return mas_times, eval_k
 
 
-def profile_window(label, fn, repeats, warmup=2):
+def profile_window(label, fn, repeats, warmup=2, busy=False):
     """One ``torch.profiler`` window over ``repeats`` calls of ``fn``:
     device time by kernel, and the share of the window in which the device
-    is idle."""
+    is idle (with ``busy``, also the device's busy ms a call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -1057,12 +1089,14 @@ def profile_window(label, fn, repeats, warmup=2):
     busy_ms = sum(ms for ms, _, _ in rows)
     if not rows:
         print('profiler window: no device time recorded')
-        return
+        return (None, None) if busy else None
     print(f'profiler window, {repeats} {label}: wall {wall_ms:.2f} ms, '
           f'{sum(count for _, count, _ in rows)} kernels busy {busy_ms:.2f} ms '
           f'(device idle {100 * (1 - busy_ms / wall_ms):.1f} % of the window)')
     for ms, count, key in rows[:10]:
         print(f'  {ms:9.3f} ms  {count:5d} x  {key[:90]}')
+    if busy:
+        return 1 - busy_ms / wall_ms, busy_ms / repeats
     return 1 - busy_ms / wall_ms
 
 
@@ -1214,7 +1248,8 @@ def check_train_backward(x, mask, weights, cond=None, pitch=None):
     b, t, c = x.shape
     chosen = ('store' if coupling_grad.stores_activations(
         s_steps, b * t, c, ch, n) else 'recompute')
-    build = '' if pitch is None else '_pitch'
+    build = ('_pitch' if pitch is not None
+             else build_suffix(channels=x.shape[-1]))
     per_step = (BWD_KERNELS_PER_FLOW_STEP if pitch is None
                 else BWD_PITCH_KERNELS_PER_FLOW_STEP)
     zero_counts()
@@ -1251,7 +1286,7 @@ def check_train_backward(x, mask, weights, cond=None, pitch=None):
         worst_abs = max(worst_abs, (got[key] - value).abs().max().item())
     assert (got['w_rs'][:, -1, :, :ch] == 0).all(), 'dead res half of dw_rs'
     assert (got['b_rs'][:, -1, :ch] == 0).all(), 'dead res half of db_rs'
-    what = ('kernel' if pitch is None
+    what = (f'kernel ({x.shape[-1]}-channel build)' if pitch is None
             else 'pitch build, cond and pitch, dpitch skipped when not '
                  'wanted with the other gradients bit-equal;')
     print(f'train backward {what} vs autograd of plain {tuple(x.shape)}, '
@@ -1280,9 +1315,10 @@ def train_path_launches(config, steps):
                 'mas': steps, 'train_fwd_pitch': flows * steps,
                 'train_bwd_pitch': BWD_PITCH_KERNELS_PER_FLOW_STEP * flows
                 * steps}
-    return {**dict.fromkeys(COUNTERS, 0), 'flow_step': flows, 'mas': steps,
-            'train_fwd': flows * steps,
-            'train_bwd': BWD_KERNELS_PER_FLOW_STEP * flows * steps}
+    build = build_suffix(config)
+    return {**dict.fromkeys(COUNTERS, 0), f'flow_step{build}': flows,
+            'mas': steps, f'train_fwd{build}': flows * steps,
+            f'train_bwd{build}': BWD_KERNELS_PER_FLOW_STEP * flows * steps}
 
 
 def run_training(config, batch, device, steps=TRAIN_STEPS, plain=True,
@@ -1425,10 +1461,12 @@ def time_backward_gemms(device):
               f'{tf32_ms:.4f} ms (rel err {tf32_err:.2e})')
 
 
-def time_training(config, batch, x, mask, weights, device):
-    """The train step with kernels and with plain versions, its parts each
-    alone, the bounds of kernels #5 and #6 from this run's shapes, and a
-    profiler window over train steps."""
+def time_training(config, batch, x, mask, weights, device, extras=True):
+    """Kernels #5 and #6 and their plain version alone, with the bounds of
+    #5 and #6 from this run's shapes; with ``extras``, also the train step
+    with kernels and with plain versions, its parts each alone, a profiler
+    window over train steps, #6 under the recompute route and at one TF32
+    pass, and the backward's two GEMMs alone at the shipped width."""
     from glow_tts_tpu_torch import (make_optimizer, make_train_step,
                                     random_state_dict)
     from glow_tts_tpu_torch.models.layers import sequence_mask
@@ -1436,7 +1474,7 @@ def time_training(config, batch, x, mask, weights, device):
     from glow_tts_tpu_torch.ops.coupling_grad import (
         flow_stack_train, flow_stack_train_reference)
     from glow_tts_tpu_torch.ops.mas import maximum_path_reference
-    state = random_state_dict(config, SEED)
+    state = random_state_dict(config, SEED) if extras else None
 
     def stepper(stack_fn=None, mas_fn=None):
         model = train_model(state, config, device)
@@ -1450,20 +1488,22 @@ def time_training(config, batch, x, mask, weights, device):
             **kwargs)
         return model, optimizer, step
 
-    model, optimizer, step_k = stepper()
-    _, _, step_p = stepper(flow_stack_train_reference, maximum_path_reference)
-    k_ms, p_ms = paired_ms(lambda: step_k(batch), lambda: step_p(batch),
-                           iters=3, plain_iters=1, plain_warmup=1)
-    shape = tuple(batch['mels'].shape)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
-    step_k(batch)
-    torch.cuda.synchronize()
-    print(f'train step {shape}: kernels {k_ms:.3f} ms, plain versions '
-          f'{p_ms:.2f} ms; peak memory of a step with kernels '
-          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB '
-          f'({held / 2 ** 30:.3f} held before)')
+    if extras:
+        model, optimizer, step_k = stepper()
+        _, _, step_p = stepper(flow_stack_train_reference,
+                               maximum_path_reference)
+        k_ms, p_ms = paired_ms(lambda: step_k(batch), lambda: step_p(batch),
+                               iters=3, plain_iters=1, plain_warmup=1)
+        shape = tuple(batch['mels'].shape)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        step_k(batch)
+        torch.cuda.synchronize()
+        print(f'train step {shape}: kernels {k_ms:.3f} ms, plain versions '
+              f'{p_ms:.2f} ms; peak memory of a step with kernels '
+              f'{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB '
+              f'({held / 2 ** 30:.3f} held before)')
 
     # the flow alone, forward and backward: the kernels under both routes
     # and with one TF32 pass, and the plain version
@@ -1474,8 +1514,9 @@ def time_training(config, batch, x, mask, weights, device):
     times, peaks = {}, {}
     for name, fn, iters in (
             ('kernel', flow_stack_train, 3),
-            ('kernel, recompute route', forced_route('recompute'), 3),
-            ('kernel, stored, 1xTF32', forced_route('store', passes=1), 3),
+            *((('kernel, recompute route', forced_route('recompute'), 3),
+               ('kernel, stored, 1xTF32', forced_route('store', passes=1), 3))
+              if extras else ()),
             ('plain', flow_stack_train_reference, 2)):
         leaves = {key: value.clone().requires_grad_()
                   for key, value in weights.items()}
@@ -1529,7 +1570,8 @@ def time_training(config, batch, x, mask, weights, device):
         tiles = live_tiles(mask, lambda report: coupling_grad._apply_kernels(
             x, mask, weights, None, SEED, FLOW_RATE, route='store',
             tiles=report), steps=s_steps)
-    print(f'  per flow step: forward {flops / k_fwd / 1e9:.2f} TFLOP/s on '
+    print(f'  per flow step: {int(mask.sum().item())} valid frames; '
+          f'forward {flops / k_fwd / 1e9:.2f} TFLOP/s on '
           f'{tiles["computed"] // s_steps} of {tiles["items"]} tiles '
           f'({tiles["rounds"]} rounds on {tiles["blocks"]} blocks, as the '
           f'kernel reports them), bound {fwd_bounds["bound_ms"]:.4f} ms by '
@@ -1540,6 +1582,15 @@ def time_training(config, batch, x, mask, weights, device):
           f'({2 * flops / 1e9:.1f} GFLOP, {bwd_bytes / 1e6:.0f} MB), bound '
           f'{bwd_bound[0]:.4f} ms by {bwd_bound[1]} at the TF32 peak '
           f'({fma_bound[0]:.4f} ms at the f32 FMA peak)')
+    if not extras:
+        return ({'ms': k_fwd, 'plain_ms': times['plain'][0] / s_steps,
+                 **fwd_bounds,
+                 'schedule': {'live_tiles': tiles['computed'] // s_steps,
+                              'tiles': tiles['items'],
+                              'rounds': tiles['rounds'],
+                              'blocks': tiles['blocks']}},
+                {'ms': k_bwd, 'plain_ms': times['plain'][1] / s_steps,
+                 'bound_ms': bwd_bound[0], 'bound_by': bwd_bound[1]})
     time_backward_gemms(device)
 
     # the other parts of a train step, each alone
@@ -1680,9 +1731,11 @@ def new_trainer(config, root, run, max_step, device, counts=None,
     return trainer
 
 
-def compare_runs(a, b):
+def compare_runs(a, b, resume_step=RESUME_STEP):
     """B against A by group (the final parameters, each optimiser moment,
-    the logged train and eval losses after the restore): the largest
+    the logged train and eval losses after the restore at
+    ``resume_step``, and the 'em' warmup's statistics where the runs have
+    them): the largest
     difference over the group relative to the group's max-abs, and the
     tensor that holds it; and whether every tensor is bit-equal.  (A
     tensor's own max-abs is no scale where its gradient is rounding noise,
@@ -1700,11 +1753,15 @@ def compare_runs(a, b):
         logged = b.writers[kind].scalars
         groups[f'{kind} losses'] = [
             (tag, torch.tensor([v for step, v in values
-                                if step > RESUME_STEP]),
+                                if step > resume_step]),
              torch.tensor([v for step, v in logged[tag]
-                           if step > RESUME_STEP]))
+                           if step > resume_step]))
             for tag, values in a.writers[kind].scalars.items()
-            if tag.startswith('Loss/')]
+            if tag.startswith('Loss/')
+            and any(step > resume_step for step, _ in values)]
+    if a.em.stats is not None:
+        groups['em_stats'] = list(zip(('cnt', 's0', 's1'), a.em.stats,
+                                      b.em.stats))
     errs, equal = {}, True
     for group, pairs in groups.items():
         assert pairs and all(want.shape == got.shape and want.numel()
@@ -2644,6 +2701,531 @@ def run_conditioned_training(vanilla_config, device):
             by_path)
 
 
+# ---------------------------------------------------------------------------
+# MiniSpeech: the repo's converged recipe, at 80 flow channels
+# ---------------------------------------------------------------------------
+
+MINISPEECH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          'configs', 'MiniSpeech.yaml')
+# its vocabulary (Encoder.Embedding_Tokens 13): <S>, <E>, the space (the
+# pause, Train.Anchor_Pause_Tokens [2]) and ten letters
+MS_VOCAB = ['<S>', '<E>', ' '] + list('ABCDEFGHIJ')
+MS_BATCH = 32                  # Train.Batch_Size
+MS_TOKENS = (5, 40)            # tokens of an utterance, <S> and <E> included
+MS_FRAMES = (50, 600)          # its mel frames (Train_Pattern.Mel_Length)
+MS_SILENCE = -3.9              # a pause frame's channel mean (anchor -3.5)
+EM_STATS_REL_BOUND = 1e-4      # em_stats of kernels vs plain, per tensor
+# the curriculum steps run through the kernels and the plain versions, in
+# order: (warmup path, frozen decoder)
+CURRICULUM = (('em', True),) * 3 + ((None, False), ('anchored', False),
+                                    ('linear', False))
+MS_TRAINER_STEPS, MS_RESUME_STEP = 4, 1
+MS_WARM_STEPS = 2              # Alignment_Warmup_Steps = Decoder_Freeze_Steps
+
+
+def minispeech_config(root):
+    """``configs/MiniSpeech.yaml`` with its token dictionary (written here)
+    and its outputs under ``root``, and its pattern sets ``root/train``
+    and ``root/eval`` (its own length filters).  The YAML asks for bf16:
+    the port computes in f32 and says so once per process (A.5)."""
+    import warnings
+
+    import yaml
+    from glow_tts_tpu_torch import load_config
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')
+        config = load_config(MINISPEECH)
+    token_path = os.path.join(root, 'Token.yaml')
+    with open(token_path, 'w', encoding='utf-8') as f:
+        yaml.safe_dump({token: i for i, token in enumerate(MS_VOCAB)}, f)
+    train = config.train
+    train = dataclasses.replace(
+        train, train_pattern=dataclasses.replace(
+            train.train_pattern, path=os.path.join(root, 'train')),
+        eval_pattern=dataclasses.replace(
+            train.eval_pattern, path=os.path.join(root, 'eval')))
+    config = dataclasses.replace(
+        config, token_path=token_path, train=train,
+        checkpoint_path=os.path.join(root, 'checkpoint'),
+        log_path=os.path.join(root, 'log'),
+        inference_path=os.path.join(root, 'inference'))
+    dec, wavenet = config.decoder, config.decoder.affine_coupling.wavenet
+    shape = (config.sound.mel_dim, dec.num_squeeze, dec.stack,
+             wavenet.num_layers, wavenet.kernel_size,
+             dec.affine_coupling.calc_channels,
+             config.encoder.embedding_tokens, config.train.batch_size)
+    assert shape == (80, 1, 12, 4, 5, 192, len(MS_VOCAB), MS_BATCH), shape
+    assert (train.alignment_warmup_mode, train.anchor_pause_tokens,
+            train.alignment_warmup_steps, train.decoder_freeze_steps) == (
+        'em', (MS_VOCAB.index(' '),), 5000, 5000)
+    return config
+
+
+def minispeech_items(n, seed, text_min=MS_TOKENS[0] - 2):
+    """``n`` utterances of the MiniSpeech vocabulary with tokens (``<S>`` and
+    ``<E>`` included) and frames spread over ``MS_TOKENS`` and
+    ``MS_FRAMES``: words of letters between single spaces, each token
+    owning a random run of frames; a letter's frames carry its id's mel
+    signature with noise, a space's (and ``<S>``'s, ``<E>``'s) are silent
+    (channel mean about ``MS_SILENCE``), so the anchored path has pins."""
+    rng = np.random.default_rng(seed)
+    signatures = np.random.default_rng(SEED + 90).normal(
+        0.0, 1.5, (len(MS_VOCAB), 80))
+    items = []
+    for n_tok, n_mel in zip(
+            rng.permutation(np.linspace(text_min + 2, MS_TOKENS[1], n
+                                        ).round().astype(int)),
+            rng.permutation(np.linspace(*MS_FRAMES, n).round().astype(int))):
+        ids = rng.integers(3, len(MS_VOCAB), n_tok - 2)
+        ids[rng.random(n_tok - 2) < 0.25] = 2
+        ids[0] = ids[-1] = 3 + rng.integers(len(MS_VOCAB) - 3)
+        for i in range(1, len(ids)):             # no two spaces in a row
+            if ids[i] == 2 and ids[i - 1] == 2:
+                ids[i] = 3
+        tokens = np.concatenate([[0], ids, [1]])
+        cuts = np.sort(rng.choice(np.arange(1, n_mel), n_tok - 1,
+                                  replace=False))
+        owner = np.searchsorted(cuts, np.arange(n_mel), side='right')
+        frame_ids = tokens[owner]
+        silent = frame_ids < 3
+        mel = np.where(silent[:, None],
+                       MS_SILENCE + 0.05 * rng.standard_normal((n_mel, 80)),
+                       signatures[frame_ids]
+                       + 0.3 * rng.standard_normal((n_mel, 80)))
+        items.append({'text': ''.join(MS_VOCAB[i] for i in ids),
+                      'mel': np.clip(mel, -4.0, 4.0).astype(np.float32)})
+    return items
+
+
+def minispeech_batch(config, device):
+    """A batch of the recipe's shape through ``TrainCollater``: B = 32,
+    tokens 5 … 40 padded to 64, frames 50 … 600 padded to 640."""
+    from glow_tts_tpu_torch import TrainCollater, batch_to_device
+    from glow_tts_tpu_torch.text import Tokenizer, load_token_dict
+    collater = TrainCollater(config, Tokenizer(load_token_dict(
+        config.token_path)))
+    batch = batch_to_device(collater(minispeech_items(MS_BATCH, SEED + 92)),
+                            device)
+    assert tuple(batch['tokens'].shape) == (MS_BATCH, 64), batch['tokens'].shape
+    assert tuple(batch['mels'].shape) == (MS_BATCH, 640, 80)
+    lengths = (batch['token_lengths'].min().item(),
+               batch['token_lengths'].max().item(),
+               batch['mel_lengths'].min().item(),
+               batch['mel_lengths'].max().item())
+    assert lengths == (*MS_TOKENS, *MS_FRAMES), lengths
+    return batch
+
+
+def write_minispeech_archive(path, n, config, seed):
+    """``n`` patterns of :func:`minispeech_items` with the port's pattern
+    IO, texts long enough for the recipe's length filter."""
+    from glow_tts_tpu_torch.data.patterns import (build_metadata,
+                                                  save_metadata, save_pattern)
+    items = minispeech_items(
+        n, seed, text_min=config.train.train_pattern.text_length_min)
+    for i, item in enumerate(items):
+        save_pattern(os.path.join(path, f'P{i:03d}.PICKLE'), {
+            'Audio': np.zeros(item['mel'].shape[0], np.float32),
+            'Mel': item['mel'], 'Pitch': np.zeros(item['mel'].shape[0],
+                                                  np.float32),
+            'Speaker_ID': 0, 'Speaker': 'MiniSpeech',
+            'Dataset': 'Synthetic', 'Text': item['text']})
+    save_metadata(path, build_metadata(path, config.sound))
+
+
+def curriculum_step_fns(config, model, optimizer, em, stack_fn, mas_fn,
+                        generator=None):
+    """The curriculum's step variants of ``CURRICULUM`` over one model,
+    optimiser, encoder dropout generator (seeded here unless given) and EM
+    holder, as the trainer builds them."""
+    from glow_tts_tpu_torch import make_train_step
+    if generator is None:
+        generator = torch.Generator(device=next(model.parameters()).device
+                                    ).manual_seed(SEED)
+    return {(mode, frozen): make_train_step(
+        config, model, optimizer, seed=SEED, generator=generator,
+        stack_fn=stack_fn, mas_fn=mas_fn,
+        linear_alignment=mode == 'linear',
+        anchored_alignment=mode == 'anchored', em_alignment=mode == 'em',
+        freeze_decoder=frozen, em_state=em)
+        for mode, frozen in set(CURRICULUM)}
+
+
+def run_curriculum_steps(config, batch, state, device):
+    """3 EM steps with the decoder frozen, 1 released (learned-prior MAS),
+    1 anchored and 1 linear step at MiniSpeech's width through the
+    kernels; before each, the plain versions' model takes the kernels'
+    model's state (weights, optimiser, EM statistics, generator) and runs
+    the same step, so that both start it from the same bits (after a step
+    their weights differ in the last bits, which moves the encoder's ReLU
+    kinks: gradients of later steps cannot be compared across two runs).
+    Bars: every MAS path equal, losses within 1e-4 and the gradient norm
+    within 1e-3, the gradients within 1e-4 of their max-abs, ``em_stats``
+    within 1e-4, and the frozen decoder's weights bit-unchanged over the
+    frozen steps on both sides while its moments moved.  Returns the
+    kernels' launches."""
+    from glow_tts_tpu_torch import make_optimizer
+    from glow_tts_tpu_torch.ops.coupling import flow_step
+    from glow_tts_tpu_torch.ops.coupling_grad import (
+        flow_stack_train, flow_stack_train_reference)
+    from glow_tts_tpu_torch.ops.mas import maximum_path, maximum_path_reference
+    from glow_tts_tpu_torch.training.step import EMState, init_em_stats
+    sides = {}
+    for name, stack_fn, mas_fn in (
+            ('kernels', flow_stack_train, maximum_path),
+            ('plain', flow_stack_train_reference, maximum_path_reference)):
+        model = train_model(state, config, device)
+        optimizer = make_optimizer(config, model.parameters())
+        em = EMState(init_em_stats(config, device))
+        generator = torch.Generator(device=device).manual_seed(SEED)
+        paths = []
+
+        def recording(log_p, token_lengths, mel_lengths, mas_fn=mas_fn,
+                      paths=paths):
+            path = mas_fn(log_p, token_lengths, mel_lengths)
+            paths.append(path)
+            return path
+
+        seen = []
+        forward = model.forward
+
+        def keeping(*args, forward=forward, seen=seen, **kwargs):
+            out = forward(*args, **kwargs)
+            seen.append({key: out[key].detach().clone() for key in (
+                'z', 'mel_log_std', 'distill_mean', 'distill_log_std')
+                if key in out})
+            return out
+
+        model.forward = keeping
+        sides[name] = dict(
+            model=model, optimizer=optimizer, em=em, generator=generator,
+            paths=paths, seen=seen, steps=curriculum_step_fns(
+                config, model, optimizer, em, stack_fn, recording,
+                generator))
+    kernels, plain = sides['kernels'], sides['plain']
+    zero_counts()
+    kernels['model'].data_dependent_init(batch['mels'], batch['mel_lengths'],
+                                         step_fn=flow_step)
+    launches = read_counts()
+    first_decoder = [p.detach().clone()
+                     for p in kernels['model'].layer_Dict['Decoder'
+                                                          ].parameters()]
+    names = [name for name, _ in kernels['model'].named_parameters()]
+    for i, variant in enumerate(CURRICULUM):
+        # the plain side starts the step from the kernels' side's state
+        km, pm = kernels['model'], plain['model']
+        pm.load_state_dict(km.state_dict())
+        pm.layer_Dict['Decoder'].invalidate()
+        plain['optimizer'].load_state_dict(
+            kernels['optimizer'].state_dict(km), pm)
+        plain['em'].stats = tuple(t.clone() for t in kernels['em'].stats)
+        plain['generator'].set_state(kernels['generator'].get_state())
+        out = {}
+        for name, side in sides.items():
+            decoder = [p.detach().clone() for p in
+                       side['model'].layer_Dict['Decoder'].parameters()]
+            zero_counts()
+            metrics = side['steps'][variant](batch)
+            counts = read_counts()
+            grads = [torch.zeros_like(q) if q.grad is None
+                     else q.grad.detach().clone()
+                     for q in side['model'].parameters()]
+            unchanged = all(torch.equal(p, q) for p, q in zip(
+                side['model'].layer_Dict['Decoder'].parameters(), decoder))
+            assert unchanged == variant[1], (name, i, unchanged)
+            out[name] = ({key: value.item() for key, value in metrics.items()},
+                         grads, counts, [t.clone() for t in side['em'].stats])
+        (k, k_grads, k_counts, k_stats), (p, p_grads, _, p_stats) = (
+            out['kernels'], out['plain'])
+        scale = max(g.abs().max().item() for g in p_grads)
+        diffs = sorted(((a - b).abs().max().item(), b.abs().max().item(),
+                        name) for a, b, name in zip(k_grads, p_grads, names))
+        grad_err = diffs[-1][0] / scale
+        stats_err = max(rel_err(a, b) for a, b in zip(k_stats, p_stats))
+        outputs = ', '.join(
+            f'{key} {rel_err(kernels["seen"][i][key], value):.3e}'
+            for key, value in plain['seen'][i].items())
+        print(f'  step {i} {variant}: kernels ' + ' '.join(
+            f'{key} {k[key]:.6f}' for key in sorted(k)) + '; plain '
+            + ' '.join(f'{key} {p[key]:.6f}' for key in sorted(p))
+            + f'; gradients {grad_err:.3e} of their max-abs (furthest: '
+            f'{diffs[-1][2]}); em_stats {stats_err:.3e}; outputs {outputs}; '
+            f'launches ' + json.dumps({key: v for key, v in k_counts.items()
+                                       if v}))
+        assert set(k) == set(p) and ('distill' in k) == (variant[0] == 'em')
+        for key in k:
+            bar = (TRAIN_NORM_REL_BOUND if key == 'grad_norm'
+                   else TRAIN_LOSS_REL_BOUND)
+            assert np.isfinite(k[key]), (i, key)
+            assert abs(k[key] - p[key]) <= bar * abs(p[key]), (i, key, k, p)
+        assert grad_err <= GRAD_REL_BOUND, (i, grad_err, diffs[-3:])
+        assert stats_err <= EM_STATS_REL_BOUND, (i, stats_err)
+        flows, mas = config.decoder.stack, {'em': 2, None: 1,
+                                            'anchored': 1, 'linear': 0}
+        assert k_counts == {
+            **dict.fromkeys(COUNTERS, 0), 'mas': mas[variant[0]],
+            'train_fwd_c80': flows,
+            'train_bwd_c80': BWD_KERNELS_PER_FLOW_STEP * flows}, k_counts
+        for key, value in k_counts.items():
+            launches[key] += value
+        if i == 2:                       # the three frozen steps done
+            optimizer = kernels['optimizer']
+            frozen = {id(q) for q in km.layer_Dict['Decoder'].parameters()}
+            unchanged = all(torch.equal(q, r) for q, r in zip(
+                km.layer_Dict['Decoder'].parameters(), first_decoder))
+            moved = all((mu.abs().max() > 0).item() and
+                        (nu.abs().max() > 0).item() for q, mu, nu in
+                        zip(optimizer.params, optimizer.mu, optimizer.nu)
+                        if id(q) in frozen)
+            print(f'  decoder bit-unchanged over the 3 frozen EM steps: '
+                  f'{unchanged}; its moments (mu, nu) all moved: {moved}')
+            assert unchanged and moved
+    differing = sum((a != b).sum().item() for a, b in zip(kernels['paths'],
+                                                          plain['paths']))
+    frames = sum(a.shape[0] * a.shape[2] for a in plain['paths'])
+    print(f'curriculum steps at MiniSpeech width {tuple(batch["mels"].shape)}'
+          f': {len(plain["paths"])} MAS paths (2 an EM step, 1 a released or '
+          f'anchored step, 0 a linear one), kernels vs plain: {differing} '
+          f'differing elements ({frames} frames)')
+    assert len(kernels['paths']) == len(plain['paths']) == 8
+    assert differing == 0
+    return launches
+
+
+def time_curriculum_step(config, batch, state, device):
+    """The EM step (decoder frozen) by events and its device work in a
+    profiler window, beside a learned-prior MAS step at the same shape, and
+    the peak memory of each."""
+    from glow_tts_tpu_torch import make_optimizer
+    from glow_tts_tpu_torch.ops.coupling_grad import flow_stack_train
+    from glow_tts_tpu_torch.ops.mas import maximum_path
+    from glow_tts_tpu_torch.training.step import EMState, init_em_stats
+    model = train_model(state, config, device)
+    model.data_dependent_init(batch['mels'], batch['mel_lengths'])
+    optimizer = make_optimizer(config, model.parameters())
+    steps = curriculum_step_fns(config, model, optimizer,
+                                EMState(init_em_stats(config, device)),
+                                flow_stack_train, maximum_path)
+    em_step, plain_step = steps[('em', True)], steps[(None, False)]
+    em_ms, plain_ms = paired_ms(lambda: em_step(batch),
+                                lambda: plain_step(batch), iters=5)
+    peaks = {}
+    for name, fn in (('em', em_step), ('plain', plain_step)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        fn(batch)
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated() / 2 ** 30,
+                       held / 2 ** 30)
+    em_idle, em_busy = profile_window('MiniSpeech EM steps (decoder frozen)',
+                                      lambda: em_step(batch), 3, busy=True)
+    plain_idle, plain_busy = profile_window(
+        'MiniSpeech learned-prior MAS steps', lambda: plain_step(batch), 3,
+        busy=True)
+    print(f'MiniSpeech step {tuple(batch["mels"].shape)}: EM step, decoder '
+          f'frozen, {em_ms:.3f} ms by events ({em_busy:.3f} ms of device '
+          f'work, device idle {100 * em_idle:.1f} %, peak '
+          f'{peaks["em"][0]:.3f} GiB); learned-prior MAS step {plain_ms:.3f}'
+          f' ms ({plain_busy:.3f} ms of device work, idle '
+          f'{100 * plain_idle:.1f} %, peak {peaks["plain"][0]:.3f} GiB); '
+          f'{peaks["em"][1]:.3f} GiB held before')
+    return {'em_step_ms': em_ms, 'em_step_device_ms': em_busy,
+            'em_step_idle': em_idle, 'em_step_peak_gib': peaks['em'][0],
+            'mas_step_ms': plain_ms, 'mas_step_device_ms': plain_busy,
+            'mas_step_idle': plain_idle,
+            'mas_step_peak_gib': peaks['plain'][0]}
+
+
+def run_minispeech_trainer(config, root, device):
+    """A MiniSpeech ``Trainer`` with ``Alignment_Warmup_Steps`` =
+    ``Decoder_Freeze_Steps`` = 2: run A 4 steps against run B (1 step, a
+    new trainer restoring ``S_1.pt``, 3 more) across the release, bit for
+    bit where the card allows and within ``RESUME_REL_BOUND`` by group,
+    ``em_stats`` included; the evaluations and their free-running decodes
+    on #3's 80-channel build; the launches by part."""
+    from glow_tts_tpu_torch import Trainer
+    from glow_tts_tpu_torch.utils.logging import MemoryWriter
+    write_minispeech_archive(os.path.join(root, 'train'), TRAIN_PATTERNS,
+                             config, SEED + 93)
+    write_minispeech_archive(os.path.join(root, 'eval'), EVAL_PATTERNS,
+                             config, SEED + 94)
+
+    def trainer(run, max_step, counts=None):
+        # a checkpoint at the end of each run (run B's first at step 1)
+        train = dataclasses.replace(
+            config.train, max_step=max_step,
+            checkpoint_save_interval=max_step,
+            logging_interval=1, evaluation_interval=MS_TRAINER_STEPS,
+            alignment_warmup_steps=MS_WARM_STEPS,
+            decoder_freeze_steps=MS_WARM_STEPS)
+        cfg = dataclasses.replace(
+            config, train=train,
+            checkpoint_path=os.path.join(root, run, 'checkpoint'),
+            log_path=os.path.join(root, run, 'log'),
+            inference_path=os.path.join(root, run, 'inference'))
+        make = lambda: Trainer(  # noqa: E731
+            cfg, device=device,
+            writers={'train': MemoryWriter(), 'eval': MemoryWriter()})
+        if counts is None:
+            return make()
+        made = counts.wrap('trainer init', make)()
+        made.train_step = counts.wrap('trainer train', made.train_step)
+        for key, fn in made.curriculum_steps.items():
+            made.curriculum_steps[key] = counts.wrap('trainer train', fn)
+        made.eval_step = counts.wrap('trainer eval', made.eval_step)
+        made.model.inference_decode = counts.wrap(
+            'trainer decode', made.model.inference_decode)
+        return made
+
+    counts = PartCounts()
+    a = trainer('a', MS_TRAINER_STEPS, counts)
+    # the variants the trainer builds, as the JAX trainer does; the run
+    # takes (warmup, frozen) for its first 2 steps, then the plain step
+    assert set(a.curriculum_steps) == {(True, True), (True, False),
+                                       (False, True)}, a.curriculum_steps
+    assert [a.step_function(step) for step in range(MS_TRAINER_STEPS)] == [
+        a.curriculum_steps[(True, True)]] * MS_WARM_STEPS + [a.train_step] * (
+            MS_TRAINER_STEPS - MS_WARM_STEPS)
+    a.train()
+    assert torch.isfinite(a.free_running['mels']).all(), 'free-running decode'
+    trainer('b', MS_RESUME_STEP).train()
+    b = trainer('b', MS_TRAINER_STEPS)
+    assert b.step == MS_RESUME_STEP, b.step
+    b.train()
+    errs, equal = compare_runs(a, b, MS_RESUME_STEP)
+    worst = max(value for value, _ in errs.values())
+    logged = a.writers['train'].scalars
+    assert [step for step, _ in logged['Loss/distill']] == [1, 2], logged
+    print(f'MiniSpeech trainer, run A ({MS_TRAINER_STEPS} steps, EM warmup '
+          f'and decoder freeze over the first {MS_WARM_STEPS}) against run B '
+          f'({MS_RESUME_STEP} step, a new trainer restoring '
+          f'S_{MS_RESUME_STEP}.pt, {MS_TRAINER_STEPS - MS_RESUME_STEP} '
+          f'more, across the release): largest difference by group, '
+          f'relative to its max-abs: ' + '; '.join(
+              f'{group} {value:.3e} ({name})'
+              for group, (value, name) in errs.items())
+          + f'; bit-equal: {equal}; distill logged at steps '
+          f'{[step for step, _ in logged["Loss/distill"]]}')
+    assert worst <= RESUME_REL_BOUND and equal, errs
+    flows = config.decoder.stack
+    eval_batches = -(-EVAL_PATTERNS // config.train.batch_size)
+    warm, released = MS_WARM_STEPS, MS_TRAINER_STEPS - MS_WARM_STEPS
+    expected = {
+        'trainer init': {'flow_step_c80': flows},
+        'trainer train': {
+            'mas': 2 * warm + released,
+            'train_fwd_c80': flows * MS_TRAINER_STEPS,
+            'train_bwd_c80': BWD_KERNELS_PER_FLOW_STEP * flows
+            * MS_TRAINER_STEPS},
+        'trainer eval': {'flow_step_c80': flows * eval_batches * 2,
+                         'mas': eval_batches * 2},
+        'trainer decode': {'flow_step_c80': flows * 2}}
+    for part, want in expected.items():
+        got = counts.by_part[part]
+        print(f'  launches, MiniSpeech {part}: '
+              + json.dumps({key: v for key, v in got.items() if v}))
+        assert got == {**dict.fromkeys(COUNTERS, 0), **want}, (part, got)
+    return ({f'MiniSpeech {part}': value
+             for part, value in counts.by_part.items()}, worst, equal)
+
+
+def run_minispeech_phase(device, card):
+    """The repo's converged recipe (``configs/MiniSpeech.yaml``: 80 flow
+    channels at ``Num_Squeeze: 1``, the EM warmup and the decoder freeze)
+    at its full width: each 80-channel build of #3, #2, #4, #5 and #6
+    against its plain version to the shipped bars, timed; the curriculum's
+    steps through the kernels and the plain versions; the EM step timed
+    beside a learned-prior MAS step; an eval step under each route; and a
+    ``Trainer`` resumed across the release.  Returns the kernels' rows and
+    the launches by path."""
+    import shutil
+    import tempfile
+
+    from glow_tts_tpu_torch import make_eval_step, random_state_dict
+    from glow_tts_tpu_torch.models.layers import sequence_mask
+    root = tempfile.mkdtemp(prefix='chip_smoke_minispeech_')
+    clock, parts = time.perf_counter(), {}
+
+    def lap(part):
+        nonlocal clock
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        parts[part] = round(now - clock, 1)
+        clock = now
+
+    try:
+        config = minispeech_config(root)
+        batch = minispeech_batch(config, device)
+        state = random_state_dict(config, SEED + 95)   # live couplings
+        model = fresh_model(state, config, device)
+        model.data_dependent_init(batch['mels'], batch['mel_lengths'])
+        flow_err = check_kernel(model, device)
+        coupling_err = check_coupling(model, device)
+        stack_err = check_flow_stack(model, device)
+        trainee = train_model(state, config, device)
+        trainee.data_dependent_init(batch['mels'], batch['mel_lengths'])
+        x, mask, weights = stack_problem(trainee, batch, config)
+        del trainee
+        fwd_err, fwd_one_pass = check_train_forward(x, mask, weights)
+        bwd_err = check_train_backward(x, mask, weights)
+        lap('kernels vs plain')
+
+        by_path = {'MiniSpeech curriculum': run_curriculum_steps(
+            config, batch, state, device)}
+        lap('curriculum steps')
+        # the deterministic decoder's other routes (#2's and #4's builds)
+        # on the same weights: an eval step each, the losses held together
+        losses = {}
+        for route in ROUTES:
+            routed = dataclasses.replace(config, coupling_backend=route)
+            routed_model = fresh_model(model.state_dict(), routed, device)
+            eval_step = make_eval_step(routed, routed_model)
+            zero_counts()
+            losses[route] = {key: value.item() for key, value in
+                             eval_step(batch)[0].items()}
+            by_path[f'MiniSpeech eval {route}'] = read_counts()
+            assert by_path[f'MiniSpeech eval {route}'] == {
+                **route_launches(route, routed), 'mas': 1}, route
+        print('MiniSpeech eval step under each route: ' + json.dumps(losses))
+        lap('eval under each route')
+        for route in ('modules', 'mega'):
+            for key in ('mle', 'duration'):
+                a, b = losses[route][key], losses['fused'][key]
+                assert abs(a - b) <= LOSS_REL_BOUND * abs(b), (route, key)
+
+        eval_mask = sequence_mask(batch['mel_lengths'], batch['mels'].shape[1])
+        flow_times, coupling_times, stack_times = time_flow_kernels(
+            model, device, eval_mask, extras=False)
+        lap('kernel timings')
+        fwd_times, bwd_times = time_training(config, batch, x, mask, weights,
+                                             device, extras=False)
+        lap('train kernel timings')
+        step_times = time_curriculum_step(config, batch, state, device)
+        lap('step timings')
+        del model, x, mask, weights
+        trainer_paths, resume_err, resume_equal = run_minispeech_trainer(
+            config, root, device)
+        lap('trainer')
+        by_path.update(trainer_paths)
+        print('MiniSpeech: ' + json.dumps({
+            **step_times, 'resume_max_rel_err': resume_err,
+            'resume_bit_equal': resume_equal, 'seconds_by_part': parts,
+            'card': card}))
+        rows = {
+            'flow_step': {'max_abs_err': flow_err[0],
+                          'one_pass_max_rel_err': flow_err[1], **flow_times},
+            'coupling': {'max_abs_err': coupling_err, **coupling_times},
+            'flow_stack': {'max_abs_err': stack_err, **stack_times},
+            'flow_train_fwd': {'max_abs_err': fwd_err,
+                               'one_pass_max_rel_err': fwd_one_pass,
+                               **fwd_times},
+            'flow_train_bwd': {'max_abs_err': bwd_err, **bwd_times}}
+        return rows, by_path
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: no CUDA device; this script runs on a GPU only')
@@ -2661,7 +3243,15 @@ def main():
 
     begun = start = time.perf_counter()
     # (source, defines): the six libraries, and the pitch instantiations of
-    # #3, #2, #4, #5 and #6 (GR mode) as libraries of their own
+    # #3, #2, #4, #5 and #6 (GR mode) and their 80-channel builds
+    # (MiniSpeech) as libraries of their own
+    flow_loaders = (('flow_step.cu', coupling.load_flow_step_library),
+                    ('coupling.cu', coupling.load_coupling_library),
+                    ('flow_stack.cu', coupling.load_flow_stack_library),
+                    ('flow_train_fwd.cu',
+                     coupling_grad.load_train_forward_library),
+                    ('flow_train_bwd.cu',
+                     coupling_grad.load_train_backward_library))
     sources = {('flow_step.cu', ()): coupling.load_flow_step_library,
                ('coupling.cu', ()): coupling.load_coupling_library,
                ('flow_stack.cu', ()): coupling.load_flow_stack_library,
@@ -2671,14 +3261,10 @@ def main():
                ('flow_train_bwd.cu', ()):
                    coupling_grad.load_train_backward_library,
                **{(source, coupling.PITCH_BUILD): functools.partial(load, True)
-                  for source, load in (
-                      ('flow_step.cu', coupling.load_flow_step_library),
-                      ('coupling.cu', coupling.load_coupling_library),
-                      ('flow_stack.cu', coupling.load_flow_stack_library),
-                      ('flow_train_fwd.cu',
-                       coupling_grad.load_train_forward_library),
-                      ('flow_train_bwd.cu',
-                       coupling_grad.load_train_backward_library))}}
+                  for source, load in flow_loaders},
+               **{(source, coupling.build_defines(80)):
+                  functools.partial(load, channels=80)
+                  for source, load in flow_loaders}}
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc each, together
         for build in [pool.submit(load) for load in sources.values()]:
             build.result()
@@ -2770,6 +3356,10 @@ def main():
     train_pitch_rows, conditioned_paths = run_conditioned_training(config,
                                                                   device)
     by_path.update(conditioned_paths)
+    # MiniSpeech, the converged recipe: the 80-channel builds, the
+    # curriculum and its trainer
+    minispeech_rows, minispeech_paths = run_minispeech_phase(device, card)
+    by_path.update(minispeech_paths)
     by_path.update(run_trainer_phase(config, device, card))
 
     def launches(counter):
@@ -2833,6 +3423,26 @@ def main():
            **launches(f'{counter}_pitch'), **train_pitch_rows[name],
            'library_ms': None}
           for name, counter, replaces, entry in (
+              ('flow_train_fwd', 'train_fwd',
+               'glow_tts_tpu/ops/coupling_grad.py:97',
+               'fused_flow_stack_train'),
+              ('flow_train_bwd', 'train_bwd',
+               'glow_tts_tpu/ops/coupling_grad.py:195',
+               'fused_flow_stack_train (backward)'))),
+        # MiniSpeech's 80 flow channels: each flow kernel's build with
+        # GLOW_CHANNELS=80
+        *({'name': f'{name}_c80', 'route': 'cuda',
+           'source': csrc + f'{name}.cu', 'build': '-DGLOW_CHANNELS=80',
+           'replaces': replaces, 'entry': entry,
+           **launches(f'{counter}_c80'), **minispeech_rows[name],
+           'library_ms': None}
+          for name, counter, replaces, entry in (
+              ('flow_step', 'flow_step', 'glow_tts_tpu/ops/coupling.py:190',
+               'fused_flow_step'),
+              ('coupling', 'coupling', 'glow_tts_tpu/ops/coupling.py:190',
+               'fused_coupling'),
+              ('flow_stack', 'flow_stack',
+               'glow_tts_tpu/ops/coupling.py:296', 'fused_flow_stack'),
               ('flow_train_fwd', 'train_fwd',
                'glow_tts_tpu/ops/coupling_grad.py:97',
                'fused_flow_stack_train'),

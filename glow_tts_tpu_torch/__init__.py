@@ -1,7 +1,8 @@
-"""glow_tts_tpu_torch — Glow-TTS in PyTorch: serving in the four modes
-(Vanilla, SE, PE, GR) and, in Vanilla mode, the loss/eval path, the train
-step and the trainer around it (pattern datasets, the loader, checkpoints
-with exact resume, the CLI), with the
+"""glow_tts_tpu_torch — Glow-TTS in PyTorch: serving and training in the
+four modes (Vanilla, SE, PE, GR): the loss/eval path, the train step with
+the alignment curriculum (linear, anchored and EM warmups, the decoder
+freeze) and the trainer around it (pattern datasets, the loader,
+checkpoints with exact resume, the CLI), with the
 decoder's flow step, its coupling alone, the whole flow stack in one
 launch (the three routes of ``config.coupling_backend``), the monotonic
 alignment search and the train-direction flow stack (forward and
@@ -20,14 +21,16 @@ from glow_tts_tpu_torch.models.glow_tts import (GlowTTS, initial_state_dict,
                                                 random_state_dict)
 from glow_tts_tpu_torch.training.checkpoint import CheckpointManager
 from glow_tts_tpu_torch.training.optim import make_optimizer
-from glow_tts_tpu_torch.training.step import (attention_diagonality,
+from glow_tts_tpu_torch.training.step import (EMState,
+                                              attention_diagonality,
                                               batch_to_device, build_model,
-                                              make_eval_step,
+                                              init_em_stats, make_eval_step,
                                               make_train_step)
 from glow_tts_tpu_torch.training.trainer import Trainer
 
-__all__ = ['CheckpointManager', 'Config', 'GlowTTS', 'InferenceCollater',
-           'Inferencer', 'TrainCollater', 'Trainer', 'attention_diagonality',
-           'batch_to_device', 'build_model', 'initial_state_dict',
-           'load_config', 'make_eval_step', 'make_optimizer',
-           'make_train_step', 'random_state_dict']
+__all__ = ['CheckpointManager', 'Config', 'EMState', 'GlowTTS',
+           'InferenceCollater', 'Inferencer', 'TrainCollater', 'Trainer',
+           'attention_diagonality', 'batch_to_device', 'build_model',
+           'init_em_stats', 'initial_state_dict', 'load_config',
+           'make_eval_step', 'make_optimizer', 'make_train_step',
+           'random_state_dict']

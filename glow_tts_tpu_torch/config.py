@@ -6,13 +6,11 @@ It loads the same YAML schema as ``glow_tts_tpu.config.load_config``
 either object drives the port.  Only the fields of serving in the four
 modes (Vanilla, SE, PE, GR: the conditioning encoders' widths), of the
 loss/eval path, of the train step (dropout rates, optimiser) and of the
-trainer (pattern sets, intervals, output paths) are kept; unknown keys are
-ignored, as there, except the few that would change what a run computes:
-:func:`load_config` refuses a YAML that asks for the alignment curriculum
-(``Train.Alignment_Warmup_Steps``, ``Train.Decoder_Freeze_Steps``; not
-ported, ``ROADMAP.md`` A.3) and warns once per process where the YAML asks
-for a compute dtype other than float32 (the port computes in float32,
-A.5) or for more than one device (it runs on one, A.7).  A CPU test holds
+trainer (pattern sets, intervals, output paths, the alignment curriculum)
+are kept; unknown keys are ignored, as there, and :func:`load_config`
+warns once per process where the YAML asks for a compute dtype other than
+float32 (the port computes in float32, ``ROADMAP.md`` A.5) or for more
+than one device (it runs on one, A.7).  A CPU test holds
 every field against
 ``glow_tts_tpu.config`` on the same input.  :func:`save_config` writes the
 snapshot a checkpoint directory carries, which :func:`load_config` reads
@@ -232,6 +230,42 @@ class TrainConfig:
     inference_interval: int = 1000
     initial_inference: bool = False
     inference_pattern_file_in_train: Optional[str] = None
+    # The alignment curriculum, as the JAX package's ``TrainConfig`` has it
+    # (its comments give the measurements behind each field).  For the
+    # first ``alignment_warmup_steps`` steps the path comes from the warmup
+    # instead of learned-prior MAS: ``'linear'`` the uniform path,
+    # ``'anchored'`` MAS over a pause/silence-anchored guided-diagonal
+    # score, ``'em'`` MAS over a closed-form per-token-ID Gaussian table
+    # fitted to the detached z from the anchored path, with the network
+    # prior distilled onto the table; 0 is MAS from the first step.
+    alignment_warmup_steps: int = 0
+    alignment_warmup_mode: str = 'linear'
+    # 'em': decay of the table statistics' running sums across steps, and
+    # the weight of the distillation loss
+    em_stats_decay: float = 0.875
+    em_distill_weight: float = 1.0
+    # 'anchored', 'em': the token ids of pauses, and the frame channel-mean
+    # below which a frame is silent (on the ±max_abs_mel scale)
+    anchor_pause_tokens: Tuple[int, ...] = ()
+    anchor_silence_level: float = -3.5
+    # the flow decoder's updates are zero for the first N steps (its
+    # gradients and the optimiser's moments are not)
+    decoder_freeze_steps: int = 0
+
+    def __post_init__(self):
+        # a typo'd mode would train the warmup steps with plain
+        # learned-prior MAS, the cold start the curriculum exists to avoid
+        valid = ('linear', 'anchored', 'em')
+        if self.alignment_warmup_mode not in valid:
+            raise ValueError(
+                f'Train.Alignment_Warmup_Mode must be one of {valid}, '
+                f'got {self.alignment_warmup_mode!r}')
+
+    @property
+    def uses_em_stats(self) -> bool:
+        """The run carries the 'em' warmup's table statistics."""
+        return (self.alignment_warmup_steps > 0
+                and self.alignment_warmup_mode == 'em')
 
 
 COUPLING_BACKENDS = ('auto', 'fused', 'mega', 'modules')
@@ -381,9 +415,6 @@ def _section(data: Mapping, name: str) -> Mapping:
     return {str(key).lower(): value for key, value in section.items()}
 
 
-# the curriculum keys of ``Train`` the port has no fields for: a run that
-# dropped them would train another recipe
-_CURRICULUM = ('alignment_warmup_steps', 'decoder_freeze_steps')
 _WARNED = set()
 
 
@@ -394,16 +425,8 @@ def _warn_once(key: str, message: str) -> None:
 
 
 def _check_unported(data: Mapping) -> None:
-    """Raise on what the YAML asks for and the port cannot do; warn once
-    per process on what it runs otherwise than asked."""
-    train = _section(data, 'Train')
-    for key in _CURRICULUM:
-        if train.get(key):
-            raise NotImplementedError(
-                f'Train.{key.title()} = {train[key]}: the alignment '
-                f'curriculum (EM / linear / anchored warmup, decoder freeze) '
-                f'is not in the PyTorch port yet (ROADMAP.md A.3); set it to '
-                f'0 to train without it')
+    """Warn once per process on what the YAML asks for and the port runs
+    otherwise."""
     tpu = _section(data, 'TPU')
     dtype = tpu.get('compute_dtype')
     if dtype is None and 'Use_Mixed_Precision' in data:
@@ -422,7 +445,7 @@ def _check_unported(data: Mapping) -> None:
 
 def load_config(path_or_dict) -> Config:
     """Load from a ``Hyper_Parameters.yaml`` path or an equivalent dict.
-    Raises ``NotImplementedError`` on an alignment curriculum (A.3)."""
+    Raises ``ValueError`` on an unknown ``Train.Alignment_Warmup_Mode``."""
     if isinstance(path_or_dict, Mapping):
         data = path_or_dict
     else:

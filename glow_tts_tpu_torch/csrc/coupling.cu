@@ -131,7 +131,10 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 extern "C" {
 
-int glow_coupling_time_tile() { return Shipped::TT; }
+int glow_coupling_time_tile() { return Built::TT; }
+
+// The flow's channel count this library is built for (GLOW_CHANNELS).
+int glow_flow_channels() { return Built::C; }
 
 const char* glow_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -141,14 +144,14 @@ const char* glow_cuda_error_string(int err) {
 // when B * tiles is less), or minus a cudaError_t.
 int glow_coupling_resident_blocks(int B) {
   int blocks = 0;
-  const cudaError_t err = resident<Shipped, true>(B, &blocks);
+  const cudaError_t err = resident<Built, true>(B, &blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-// Shapes are those of Shipped (C=160, ch=192, 4 layers, k=5), w_in and
-// w_rs in the tensor-core layout; the caller checks them, and that the
-// strides (in floats) and pointers of x_a and x_b are multiples of 4
-// floats.  pitch and w_pitch are null, or with a GLOW_PITCH build not null
+// Shapes are those of Built (C = glow_flow_channels(), ch=192, 4 layers, k=5),
+// w_in and w_rs in the tensor-core layout; the caller checks them, and that the
+// strides (in floats) and pointers of x_a and x_b are multiples of 4 floats.
+// pitch and w_pitch are null, or with a GLOW_PITCH build not null
 // (cudaErrorInvalidValue otherwise).  tiles is null, or 5 zeroed ints that
 // receive what the launch did (flow_common.cuh::report_tiles).  Returns a
 // cudaError_t, 0 on success.
@@ -173,9 +176,9 @@ int glow_coupling_f32(const float* x_a, long long a_batch_stride,
                  {nullptr, nullptr, nullptr, w_start, b_start,
                   reinterpret_cast<const WFrag*>(w_in),
                   reinterpret_cast<const WFrag*>(w_rs), b_rs, w_end, b_end},
-                 z_b, ld_part, tiles, B, T, ceil_div(T, Shipped::TT)};
+                 z_b, ld_part, tiles, B, T, ceil_div(T, Built::TT)};
   auto s = static_cast<cudaStream_t>(stream);
-  return reverse ? launch<Shipped, true>(p, s) : launch<Shipped, false>(p, s);
+  return reverse ? launch<Built, true>(p, s) : launch<Built, false>(p, s);
 }
 
 }  // extern "C"

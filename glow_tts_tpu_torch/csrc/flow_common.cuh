@@ -116,9 +116,24 @@ struct Shape {
   static constexpr size_t W_RS_TC = static_cast<size_t>(CH) / 8 * NB * 32;
 };
 
-using Shipped = Shape<160, 192, 4, 5, 32>;
+// The flow's channel count of this build: the shipped config's 160
+// (Num_Squeeze 2) unless the build defines another (ops/cuda_build.py:
+// MiniSpeech's 80, Num_Squeeze 1, a library of its own with
+// -DGLOW_CHANNELS=80).  The WaveNet's widths are the shipped ones in every
+// build: ch 192, 4 layers, k 5.
+#ifndef GLOW_CHANNELS
+#define GLOW_CHANNELS 160
+#endif
+using Built = Shape<GLOW_CHANNELS, 192, 4, 5, 32>;
+static_assert(Built::C == 160 || Built::C == 80,
+              "flow widths other than 160 and 80 are not built (B.2)");
 // the block's buffers, with the live-tile list of a batch of up to 1024
-static_assert(Shipped::smem_bytes + 4 * Shipped::SAVE_FLOATS +
+static_assert(Shape<160, 192, 4, 5, 32>::smem_bytes +
+                      4 * Shape<160, 192, 4, 5, 32>::SAVE_FLOATS +
+                      4 * (2 * 1024 + 1) <= 232448,
+              "over the 227 KB block limit");
+static_assert(Shape<80, 192, 4, 5, 32>::smem_bytes +
+                      4 * Shape<80, 192, 4, 5, 32>::SAVE_FLOATS +
                       4 * (2 * 1024 + 1) <= 232448,
               "over the 227 KB block limit");
 
@@ -795,6 +810,10 @@ struct BiasPreGate {
 
 // Width of GR mode's pitch operand: num_squeeze at the shipped config.
 constexpr int kPitchSize = 2;
+#if defined(GLOW_PITCH) && GLOW_CHANNELS != 160
+// at Num_Squeeze 1 the pitch operand is 1 wide (ROADMAP.md B.2)
+#error "GR's pitch operand is built at 160 channels only"
+#endif
 
 // A block's copy of its tile's pitch rows [R, PS] and of one flow step's
 // w_pitch [NL, PS, 2CH] (12.4 KB at the shipped shape), in static shared

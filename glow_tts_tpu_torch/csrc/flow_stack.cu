@@ -206,7 +206,10 @@ cudaError_t launch(Params p, cudaStream_t stream) {
 
 extern "C" {
 
-int glow_flow_stack_time_tile() { return Shipped::TT; }
+int glow_flow_stack_time_tile() { return Built::TT; }
+
+// The flow's channel count this library is built for (GLOW_CHANNELS).
+int glow_flow_channels() { return Built::C; }
 
 const char* glow_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -217,13 +220,13 @@ const char* glow_cuda_error_string(int err) {
 // cudaError_t.
 int glow_flow_stack_resident_blocks(int B) {
   int blocks = 0;
-  const cudaError_t err = resident<Shipped, true>(B, &blocks);
+  const cudaError_t err = resident<Built, true>(B, &blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 // All `steps` flow steps of stacked weights ([steps, ...] each, shapes those
-// of Shipped: C=160, ch=192, 4 layers, k=5, w_in and w_rs in the
-// tensor-core layout; the caller checks them) in one launch.  z gets the
+// of Built: C = glow_flow_channels(), ch=192, 4 layers, k=5, w_in and w_rs
+// in the tensor-core layout; the caller checks them) in one launch.  z gets the
 // result; other is a second [B, T, C] buffer (may be null at steps = 1),
 // ld_part [B, tiles] and ld_const [steps] are forward only, done is
 // steps * B * tiles unsigneds of scratch, tiles null or 5 zeroed ints that
@@ -249,9 +252,9 @@ int glow_flow_stack_f32(const float* x, const float* mask, const float* cond,
                   reinterpret_cast<const WFrag*>(w_in),
                   reinterpret_cast<const WFrag*>(w_rs), b_rs, w_end, b_end},
                  ld_const, z, other, ld_part, done, tiles, B, T,
-                 ceil_div(T, Shipped::TT), steps};
+                 ceil_div(T, Built::TT), steps};
   auto s = static_cast<cudaStream_t>(stream);
-  return reverse ? launch<Shipped, true>(p, s) : launch<Shipped, false>(p, s);
+  return reverse ? launch<Built, true>(p, s) : launch<Built, false>(p, s);
 }
 
 }  // extern "C"

@@ -98,7 +98,10 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 extern "C" {
 
-int glow_flow_step_time_tile() { return Shipped::TT; }
+int glow_flow_step_time_tile() { return Built::TT; }
+
+// The flow's channel count this library is built for (GLOW_CHANNELS).
+int glow_flow_channels() { return Built::C; }
 
 const char* glow_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -109,18 +112,18 @@ const char* glow_cuda_error_string(int err) {
 int glow_flow_step_resident_blocks(int B) {
   int blocks = 0;
   const cudaError_t err = resident_blocks(
-      flow_step_kernel<Shipped, true, 3>,
-      Shipped::smem_bytes + sizeof(int) * live_tile_ints(B), &blocks);
+      flow_step_kernel<Built, true, 3>,
+      Built::smem_bytes + sizeof(int) * live_tile_ints(B), &blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-// Shapes are those of Shipped (C=160, ch=192, 4 layers, k=5); w_in and w_rs
-// in the tensor-core layout; the caller checks them.  pitch and w_pitch are
-// null, or with a GLOW_PITCH build not null (cudaErrorInvalidValue
+// Shapes are those of Built (C = glow_flow_channels(), ch=192, 4 layers, k=5);
+// w_in and w_rs in the tensor-core layout; the caller checks them.  pitch and
+// w_pitch are null, or with a GLOW_PITCH build not null (cudaErrorInvalidValue
 // otherwise).  passes is 3 (3xTF32, f32 accuracy) or 1 (one TF32 pass, for
-// measuring; not in a GLOW_PITCH build).  tiles is null, or 5 zeroed ints
-// that receive what the launch did (flow_common.cuh::report_tiles).
-// Returns a cudaError_t, 0 on success.
+// measuring; not in a GLOW_PITCH build).  tiles is null, or 5 zeroed ints that
+// receive what the launch did (flow_common.cuh::report_tiles). Returns a
+// cudaError_t, 0 on success.
 int glow_flow_step_f32(const float* x, const float* mask, const float* cond,
                        const float* pitch, const float* w_pitch,
                        const float* an_logs, const float* an_bias,
@@ -139,16 +142,16 @@ int glow_flow_step_f32(const float* x, const float* mask, const float* cond,
                   reinterpret_cast<const WFrag*>(w_in),
                   reinterpret_cast<const WFrag*>(w_rs), b_rs, w_end, b_end},
                  ld_const, z, ld_part, tiles, B, T,
-                 ceil_div(T, Shipped::TT)};
+                 ceil_div(T, Built::TT)};
   auto s = static_cast<cudaStream_t>(stream);
   if constexpr (kPitch) {
     if (passes != 3) return cudaErrorInvalidValue;
   } else if (passes == 1) {
-    return reverse ? launch<Shipped, true, 1>(p, s)
-                   : launch<Shipped, false, 1>(p, s);
+    return reverse ? launch<Built, true, 1>(p, s)
+                   : launch<Built, false, 1>(p, s);
   }
-  return reverse ? launch<Shipped, true, 3>(p, s)
-                 : launch<Shipped, false, 3>(p, s);
+  return reverse ? launch<Built, true, 3>(p, s)
+                 : launch<Built, false, 3>(p, s);
 }
 
 }  // extern "C"

@@ -80,6 +80,23 @@ constexpr int kThreads = 256;
 constexpr int kStages = 4;   // depth of the cp.async ring
 constexpr int BK = 32;       // depth of a staged slice
 
+// The flow's channel count C of this build: the shipped config's 160 unless
+// the build defines another (-DGLOW_CHANNELS=80: MiniSpeech, Num_Squeeze
+// 1), as for flow_common.cuh.  The products are sized at run time; what C
+// changes is the depth of two activation-gradient products, the end conv's
+// and the mixing's, which is C: at 80 it is not a multiple of a slice, and
+// only such a build has the instantiations that zero-fill a slice past the
+// depth (TAIL), so the 160-channel build's kernels are what they were.
+#ifndef GLOW_CHANNELS
+#define GLOW_CHANNELS 160
+#endif
+constexpr int kChannels = GLOW_CHANNELS;
+constexpr bool kDepthTail = kChannels % BK != 0;
+#if defined(GLOW_PITCH) && GLOW_CHANNELS != 160
+// at Num_Squeeze 1 the pitch operand is 1 wide (ROADMAP.md B.2)
+#error "GR's pitch operand is built at 160 channels only"
+#endif
+
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
@@ -106,7 +123,8 @@ static_assert((NT_BM / NT_WM) * (NT_BN / NT_WN) == kThreads / 32, "warps");
 // out[b*T + t, n] = sum_tap sum_k A[b*T + t + pad - tap, k] * W[tap][n, k]:
 // a shifted frame outside [0, lengths[b]) is zero.  A has row stride lda and
 // kseg columns, W[tap] is [N, kseg] with row stride ldw and the taps
-// tap_stride apart.  kseg % 32 == 0; N % 2 == 0; lda, ldw % 4 == 0.
+// tap_stride apart.  kseg % 32 == 0 (kseg % 4 == 0 with TAIL); N % 2 == 0;
+// lda, ldw % 4 == 0.
 struct NtArgs {
   const float* a;
   const float* w;
@@ -115,8 +133,9 @@ struct NtArgs {
   const int* lengths;   // [B] one past the last valid frame of each sample
 };
 
-// The tile (column tile bx, frame tile by, sample b) of the product.
-template <int PASSES, class Epilogue>
+// The tile (column tile bx, frame tile by, sample b) of the product.  With
+// TAIL the last slice of each tap may reach past kseg, and is zero there.
+template <int PASSES, bool TAIL, class Epilogue>
 __device__ __forceinline__ void gemm_nt_tile(const NtArgs& g,
                                              const Epilogue& epilogue, int bx,
                                              int by, int b, float* smem) {
@@ -130,7 +149,7 @@ __device__ __forceinline__ void gemm_nt_tile(const NtArgs& g,
   float acc[NT_WM / 16][NT_WN / 8][4] = {};   // of the slice in hand
   float sum[NT_WM / 16][NT_WN / 8][4] = {};   // of the slices before it
 
-  const int kslices = g.kseg / BK;
+  const int kslices = TAIL ? (g.kseg + BK - 1) / BK : g.kseg / BK;
   // a tile wholly past the sample's valid frames has an all-zero product
   const int n_it = t0 < len ? g.taps * kslices : 0;
   const bool warp_live = t0 + wm * NT_WM < len;
@@ -143,18 +162,23 @@ __device__ __forceinline__ void gemm_nt_tile(const NtArgs& g,
     for (int i = tid; i < NT_BM * (BK / 4); i += kThreads) {
       const int m = i / (BK / 4), q = 4 * (i % (BK / 4));
       const int t = t0 + m + shift;
-      const bool ok = t >= 0 && t < len;
+      const bool ok = t >= 0 && t < len && (!TAIL || k0 + q < g.kseg);
+      // (a slice past the depth reads nothing: any address will do)
       tf32::cp_async16_zfill(
           as + m * NT_LD + q,
-          g.a + (sample + (ok ? t : 0)) * g.lda + k0 + q, ok);
+          TAIL && !ok ? g.a : g.a + (sample + (ok ? t : 0)) * g.lda + k0 + q,
+          ok);
     }
     const float* w_tap = g.w + static_cast<size_t>(tap) * g.tap_stride;
     for (int i = tid; i < NT_BN * (BK / 4); i += kThreads) {
       const int n = i / (BK / 4), q = 4 * (i % (BK / 4));
-      const bool ok = n0 + n < g.N;
+      const bool ok = n0 + n < g.N && (!TAIL || k0 + q < g.kseg);
       tf32::cp_async16_zfill(
           ws + n * NT_LD + q,
-          w_tap + static_cast<size_t>(ok ? n0 + n : 0) * g.ldw + k0 + q, ok);
+          TAIL && !ok ? w_tap
+                      : w_tap + static_cast<size_t>(ok ? n0 + n : 0) * g.ldw +
+                            k0 + q,
+          ok);
     }
   };
 
@@ -203,8 +227,17 @@ template <int PASSES, class Epilogue>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm_nt(const NtArgs g, const Epilogue epilogue) {
   extern __shared__ float4 smem4[];
-  gemm_nt_tile<PASSES>(g, epilogue, blockIdx.x, blockIdx.y, blockIdx.z,
-                       reinterpret_cast<float*>(smem4));
+  gemm_nt_tile<PASSES, false>(g, epilogue, blockIdx.x, blockIdx.y,
+                              blockIdx.z, reinterpret_cast<float*>(smem4));
+}
+
+// gemm_nt over a depth that is not a multiple of a slice (kDepthTail builds)
+template <int PASSES, class Epilogue>
+__global__ void __launch_bounds__(kThreads, 1)
+    gemm_nt_tail(const NtArgs g, const Epilogue epilogue) {
+  extern __shared__ float4 smem4[];
+  gemm_nt_tile<PASSES, true>(g, epilogue, blockIdx.x, blockIdx.y, blockIdx.z,
+                             reinterpret_cast<float*>(smem4));
 }
 
 // out[row, col..col+1] = (v + add[row, col..]) * mask[row]; add may be out
@@ -303,23 +336,32 @@ dim3 nt_grid(const NtArgs& g, int B) {
   return dim3((g.N + NT_BN - 1) / NT_BN, (g.T + NT_BM - 1) / NT_BM, B);
 }
 
-template <int PASSES, class Epilogue>
+template <int PASSES, bool TAIL, class Epilogue>
 cudaError_t launch_nt_as(const NtArgs& g, const Epilogue& epilogue, int B,
                          cudaStream_t stream) {
+  void (*kernel)(const NtArgs, const Epilogue);
+  if constexpr (TAIL)
+    kernel = gemm_nt_tail<PASSES, Epilogue>;
+  else
+    kernel = gemm_nt<PASSES, Epilogue>;
   const cudaError_t err = cudaFuncSetAttribute(
-      gemm_nt<PASSES, Epilogue>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kNtSmem));
   if (err != cudaSuccess) return err;
-  gemm_nt<PASSES, Epilogue>
-      <<<nt_grid(g, B), kThreads, kNtSmem, stream>>>(g, epilogue);
+  kernel<<<nt_grid(g, B), kThreads, kNtSmem, stream>>>(g, epilogue);
   return cudaGetLastError();
 }
 
 template <class Epilogue>
 cudaError_t launch_nt(const NtArgs& g, const Epilogue& epilogue, int B,
                       int passes, cudaStream_t stream) {
-  return passes == 1 ? launch_nt_as<1>(g, epilogue, B, stream)
-                     : launch_nt_as<3>(g, epilogue, B, stream);
+  if constexpr (kDepthTail) {
+    if (g.kseg % BK)
+      return passes == 1 ? launch_nt_as<1, true>(g, epilogue, B, stream)
+                         : launch_nt_as<3, true>(g, epilogue, B, stream);
+  }
+  return passes == 1 ? launch_nt_as<1, false>(g, epilogue, B, stream)
+                     : launch_nt_as<3, false>(g, epilogue, B, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -498,18 +540,20 @@ cudaError_t launch_tn(const TnArgs& g, int passes, cudaStream_t stream) {
 // do not depend on each other (the k-tap conv's pair): the dgrad tiles come
 // first, and the wgrad tiles fill the SMs that the ragged batch's skipped
 // dgrad tiles leave idle.
-template <int PASSES, class Epilogue>
-__global__ void __launch_bounds__(kThreads, 1)
-    gemm_pair(const NtArgs nt, const Epilogue epilogue, const dim3 nt_blocks,
-              const TnArgs tn, const dim3 tn_blocks) {
+template <int PASSES, bool TAIL, class Epilogue>
+__device__ __forceinline__ void gemm_pair_block(const NtArgs& nt,
+                                                const Epilogue& epilogue,
+                                                const dim3& nt_blocks,
+                                                const TnArgs& tn,
+                                                const dim3& tn_blocks) {
   extern __shared__ float4 smem4[];
   float* const smem = reinterpret_cast<float*>(smem4);
   int id = blockIdx.x;
   const int nt_count = nt_blocks.x * nt_blocks.y * nt_blocks.z;
   if (id < nt_count) {
-    gemm_nt_tile<PASSES>(nt, epilogue, id % nt_blocks.x,
-                         id / nt_blocks.x % nt_blocks.y,
-                         id / (nt_blocks.x * nt_blocks.y), smem);
+    gemm_nt_tile<PASSES, TAIL>(nt, epilogue, id % nt_blocks.x,
+                               id / nt_blocks.x % nt_blocks.y,
+                               id / (nt_blocks.x * nt_blocks.y), smem);
   } else {
     id -= nt_count;
     gemm_tn_tile<PASSES>(tn, id % tn_blocks.x, id / tn_blocks.x % tn_blocks.y,
@@ -518,26 +562,54 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 template <int PASSES, class Epilogue>
+__global__ void __launch_bounds__(kThreads, 1)
+    gemm_pair(const NtArgs nt, const Epilogue epilogue, const dim3 nt_blocks,
+              const TnArgs tn, const dim3 tn_blocks) {
+  gemm_pair_block<PASSES, false>(nt, epilogue, nt_blocks, tn, tn_blocks);
+}
+
+// gemm_pair whose dgrad depth is not a multiple of a slice (kDepthTail
+// builds)
+template <int PASSES, class Epilogue>
+__global__ void __launch_bounds__(kThreads, 1)
+    gemm_pair_tail(const NtArgs nt, const Epilogue epilogue,
+                   const dim3 nt_blocks, const TnArgs tn,
+                   const dim3 tn_blocks) {
+  gemm_pair_block<PASSES, true>(nt, epilogue, nt_blocks, tn, tn_blocks);
+}
+
+template <int PASSES, bool TAIL, class Epilogue>
 cudaError_t launch_pair_as(const NtArgs& nt, const Epilogue& epilogue,
                            const TnArgs& tn, cudaStream_t stream) {
   constexpr size_t smem = kNtSmem > kTnSmem ? kNtSmem : kTnSmem;
+  void (*kernel)(const NtArgs, const Epilogue, const dim3, const TnArgs,
+                 const dim3);
+  if constexpr (TAIL)
+    kernel = gemm_pair_tail<PASSES, Epilogue>;
+  else
+    kernel = gemm_pair<PASSES, Epilogue>;
   const cudaError_t err = cudaFuncSetAttribute(
-      gemm_pair<PASSES, Epilogue>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 nt_blocks = nt_grid(nt, tn.B), tn_blocks = tn_grid(tn);
   const int blocks = nt_blocks.x * nt_blocks.y * nt_blocks.z +
                      tn_blocks.x * tn_blocks.y * tn_blocks.z;
-  gemm_pair<PASSES, Epilogue><<<blocks, kThreads, smem, stream>>>(
-      nt, epilogue, nt_blocks, tn, tn_blocks);
+  kernel<<<blocks, kThreads, smem, stream>>>(nt, epilogue, nt_blocks, tn,
+                                            tn_blocks);
   return cudaGetLastError();
 }
 
 template <class Epilogue>
 cudaError_t launch_pair(const NtArgs& nt, const Epilogue& epilogue,
                         const TnArgs& tn, int passes, cudaStream_t stream) {
-  return passes == 1 ? launch_pair_as<1>(nt, epilogue, tn, stream)
-                     : launch_pair_as<3>(nt, epilogue, tn, stream);
+  if constexpr (kDepthTail) {
+    if (nt.kseg % BK)
+      return passes == 1 ? launch_pair_as<1, true>(nt, epilogue, tn, stream)
+                         : launch_pair_as<3, true>(nt, epilogue, tn, stream);
+  }
+  return passes == 1 ? launch_pair_as<1, false>(nt, epilogue, tn, stream)
+                     : launch_pair_as<3, false>(nt, epilogue, tn, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -750,6 +822,9 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
+// The flow's channel count this library is built for (GLOW_CHANNELS).
+int glow_flow_channels() { return kChannels; }
+
 const char* glow_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
@@ -835,6 +910,7 @@ int glow_flow_train_bwd_step_f32(const float* const* in, float* const* out,
                                  float scale, int dropout, int passes,
                                  void* stream_ptr, int* launched) {
   *launched = 0;
+  if (C != kChannels) return cudaErrorInvalidValue;
   if (B <= 0 || T <= 0) return cudaSuccess;
 #ifdef GLOW_PITCH
   if (7 + 5 * n > kMaxReduce || !out[4] || !in[17] || !in[18] || !out[30] ||

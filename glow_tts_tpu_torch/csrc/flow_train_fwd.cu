@@ -217,29 +217,31 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 extern "C" {
 
-int glow_flow_train_time_tile() { return Shipped::TT; }
+int glow_flow_train_time_tile() { return Built::TT; }
+
+// The flow's channel count this library is built for (GLOW_CHANNELS).
+int glow_flow_channels() { return Built::C; }
 
 const char* glow_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 // Flow steps [step_begin, step_end) of a stack of stacked weights ([S, ...]
-// each, shapes those of Shipped: C=160, ch=192, 4 layers, k=5; the caller
-// checks them), one launch per step.  acts points at the input of step
-// step_begin, [B, T, C], and every step writes its output behind its
-// input: step s reads acts[s - step_begin] and writes acts[s - step_begin
-// + 1]; ld_part is [S, B, n_tiles].  With save (an array of the six
-// pointers of SavePointers, in their order, each at the values of step
-// step_begin with the following steps' behind them) the steps also write
-// what the backward pass reads; with save and no ld_part they write that
-// alone, and neither acts nor ld_part.  w_in and w_rs are in the
-// tensor-core layout (ops/coupling.py::tensor_core_weights).  passes is 3
-// (3xTF32) or, for measuring a forward pass without save, 1.  tiles is
-// null, or 5 zeroed ints that receive what the launches did, the computed
-// tiles summed over the steps (flow_common.cuh::report_tiles).  pitch
-// [B, T, 2] and w_pitch [S, NL, 2, 2CH] are null, or with a GLOW_PITCH
-// build not null (cudaErrorInvalidValue otherwise; passes is then 3).
-// Returns a cudaError_t, 0 on success.
+// each, shapes those of Built: C = glow_flow_channels(), ch=192, 4 layers, k=5;
+// the caller checks them), one launch per step.  acts points at the input of
+// step step_begin, [B, T, C], and every step writes its output behind its
+// input: step s reads acts[s - step_begin] and writes acts[s - step_begin + 1];
+// ld_part is [S, B, n_tiles].  With save (an array of the six pointers of
+// SavePointers, in their order, each at the values of step step_begin with the
+// following steps' behind them) the steps also write what the backward pass
+// reads; with save and no ld_part they write that alone, and neither acts nor
+// ld_part.  w_in and w_rs are in the tensor-core layout
+// (ops/coupling.py::tensor_core_weights).  passes is 3 (3xTF32) or, for
+// measuring a forward pass without save, 1.  tiles is null, or 5 zeroed ints
+// that receive what the launches did, the computed tiles summed over the steps
+// (flow_common.cuh::report_tiles).  pitch [B, T, 2] and w_pitch [S, NL, 2, 2CH]
+// are null, or with a GLOW_PITCH build not null (cudaErrorInvalidValue
+// otherwise; passes is then 3). Returns a cudaError_t, 0 on success.
 int glow_flow_train_fwd_f32(float* acts, const float* mask, const float* cond,
                             const float* pitch, const float* w_pitch,
                             const float* an_logs, const float* an_bias,
@@ -253,7 +255,7 @@ int glow_flow_train_fwd_f32(float* acts, const float* mask, const float* cond,
                             int step_end, int seed, unsigned threshold,
                             float scale, int dropout, int passes,
                             void* stream) {
-  using S = Shipped;
+  using S = Built;
   if ((pitch != nullptr) != kPitch || (w_pitch != nullptr) != kPitch)
     return cudaErrorInvalidValue;
   if (B <= 0 || T <= 0) return cudaSuccess;

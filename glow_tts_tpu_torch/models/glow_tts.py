@@ -4,7 +4,10 @@ encoder), PE (a GST prosody vector from a reference mel) and GR (both, the
 adversarial speaker classifier and the pitch operand).  The train forward
 (:meth:`GlowTTS.forward`: conditioning, encoder prior, forward flow with its
 logdet, prior log-likelihood, MAS) is deterministic for the loss and eval
-path and has dropout and gradients for the train step, in every mode;
+path and has dropout and gradients for the train step, in every mode, and
+takes the alignment curriculum's warmup paths (:func:`linear_alignment_path`,
+:func:`anchored_alignment_path`, :func:`em_alignment_path` with its token
+table, :func:`fit_token_table` and :func:`table_prior_log_likelihood`);
 serving is two-phase.  The GE2E speaker encoder is pre-trained and frozen,
 as in the JAX package: its parameters require no gradient (so the
 optimiser leaves them out) and it runs without autograd.
@@ -18,9 +21,11 @@ z sample, pitch resampled to the bucket, inverse flow).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Union
+import math
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from glow_tts_tpu_torch.models.conditioning import (
@@ -66,6 +71,137 @@ def generate_path(durations: torch.Tensor,
     ends = (frames[None, None, :] < cum[:, :, None]).to(attn_mask.dtype)
     starts = torch.cat([torch.zeros_like(ends[:, :1]), ends[:, :-1]], dim=1)
     return (ends - starts) * attn_mask
+
+
+def linear_alignment_path(token_lengths: torch.Tensor,
+                          mel_lengths: torch.Tensor,
+                          attn_mask: torch.Tensor) -> torch.Tensor:
+    """The 'linear' warmup's uniform left-to-right path: token ``i`` of a
+    length-``L`` utterance of ``T`` frames owns frames ``[floor(i·T/L),
+    floor((i+1)·T/L))``, in float32 as the JAX package computes it.
+    attn_mask [B, T_tok, T_mel] → path [B, T_tok, T_mel]."""
+    t_tok = attn_mask.shape[1]
+    device = attn_mask.device
+    tl = token_lengths.float().clamp_min(1.0)[:, None]
+    ml = mel_lengths.float()[:, None]
+    i = torch.arange(t_tok, dtype=torch.float32, device=device)[None, :]
+    cum = torch.where(i < tl, torch.floor((i + 1.0) * ml / tl), ml)
+    durations = cum - F.pad(cum, (1, 0))[:, :-1]
+    return generate_path(durations, attn_mask)
+
+
+def anchored_alignment_path(tokens: torch.Tensor,
+                            token_lengths: torch.Tensor,
+                            mels: torch.Tensor, mel_lengths: torch.Tensor,
+                            attn_mask: torch.Tensor,
+                            pause_tokens: Sequence[int],
+                            silence_level: float, mas_fn: MasFn,
+                            anchor_weight: float = 2.0,
+                            diag_weight: float = 10.0) -> torch.Tensor:
+    """The 'anchored' warmup's path: ``mas_fn`` on a surrogate score of
+    ±``anchor_weight`` where "this token is a pause" (``tokens`` in
+    ``pause_tokens``) agrees or not with "this frame is silent" (its
+    channel mean below ``silence_level``), plus the guided-attention
+    diagonal −``diag_weight``·(i/L − j/T)².  ``mels [B, T, M]`` on the raw
+    timeline are cut to the decoder's ``attn_mask.shape[-1]`` frames."""
+    t_mel = attn_mask.shape[-1]
+    device = attn_mask.device
+    frame_energy = mels[:, :t_mel].float().mean(dim=-1)           # [B, T_mel]
+    is_sil = frame_energy < silence_level
+    is_pause = torch.zeros(tokens.shape, dtype=torch.bool, device=device)
+    for pid in pause_tokens:
+        is_pause = is_pause | (tokens == pid)                     # [B, T_tok]
+    agree = is_pause[:, :, None] == is_sil[:, None, :]
+    anchor = torch.where(agree, anchor_weight, -anchor_weight)
+
+    tl = token_lengths.float().clamp_min(1.0)
+    ml = mel_lengths.float().clamp_min(1.0)
+    i_norm = ((torch.arange(attn_mask.shape[1], dtype=torch.float32,
+                            device=device)[None, :] + 0.5) / tl[:, None])
+    j_norm = ((torch.arange(t_mel, dtype=torch.float32,
+                            device=device)[None, :] + 0.5) / ml[:, None])
+    diag = -diag_weight * torch.square(i_norm[:, :, None]
+                                       - j_norm[:, None, :])
+    score = (anchor + diag) * attn_mask
+    return mas_fn(score, token_lengths, mel_lengths)
+
+
+EMStats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def fit_token_table(tokens: torch.Tensor, path: torch.Tensor,
+                    z: torch.Tensor, mel_mask: torch.Tensor,
+                    vocab: int) -> EMStats:
+    """The hard-EM M-step's batch statistics: each valid frame belongs to
+    the token the ``path [B, T_tok, T_mel]`` gives it, and count, sum and
+    sum of squares of ``z [B, T_mel, C]`` are gathered per token *id*, as
+    one-hot products.  Returns ``(cnt [V], s0 [V, C], s1 [V, C])``,
+    float32.  Past a sample's length the path's column is zero, its argmax
+    token 0, and ``mel_mask [B, T_mel, 1]`` takes the frame out."""
+    owner = torch.argmax(path, dim=1)                             # [B, T_mel]
+    ids = torch.gather(tokens.long(), 1, owner)                   # [B, T_mel]
+    mask = mel_mask.float()
+    onehot = F.one_hot(ids, vocab).float() * mask                 # [B, T, V]
+    z32 = z.float() * mask
+    cnt = onehot.sum(dim=(0, 1))
+    s0 = torch.einsum('btv,btc->vc', onehot, z32)
+    s1 = torch.einsum('btv,btc->vc', onehot, z32 * z32)
+    return cnt, s0, s1
+
+
+def table_prior_log_likelihood(tokens: torch.Tensor, z: torch.Tensor,
+                               stats: EMStats, attn_mask: torch.Tensor):
+    """The Gaussian log-likelihood score [B, T_tok, T_mel] of ``z`` under
+    the per-token-id table of ``stats = (cnt, s0, s1)`` (mean ``s0/cnt``,
+    variance ``s1/cnt − mean²`` floored at 1e-4), as const + quad + cross
+    (two batched products, as :func:`prior_log_likelihood`), with the
+    table's mean and log std at the batch's tokens, the distillation
+    targets.  Returns ``(log_p, mean [B, T_tok, C], log_std [B, T_tok, C])``."""
+    cnt, s0, s1 = stats
+    cc = cnt.clamp_min(1.0)[:, None]                              # [V, 1]
+    mu = s0 / cc
+    var = torch.clamp(s1 / cc - mu * mu, min=1e-4)
+    ids = tokens.long()
+    m_tok, v_tok = mu[ids], var[ids]                              # [B, T, C]
+    inv_v = 1.0 / v_tok
+    z32 = z.float()
+    const = torch.sum(-0.5 * torch.log(2.0 * math.pi * v_tok)
+                      - 0.5 * m_tok * m_tok * inv_v, dim=-1)      # [B, T_tok]
+    quad = torch.einsum('bic,bjc->bij', -0.5 * inv_v, z32 * z32)
+    cross = torch.einsum('bic,bjc->bij', m_tok * inv_v, z32)
+    log_p = (const[:, :, None] + quad + cross) * attn_mask
+    return log_p, m_tok, 0.5 * torch.log(v_tok)
+
+
+def em_alignment_path(tokens: torch.Tensor, token_lengths: torch.Tensor,
+                      mels: torch.Tensor, mel_lengths: torch.Tensor,
+                      z: torch.Tensor, attn_mask: torch.Tensor,
+                      mel_mask: torch.Tensor, em_stats: EMStats, vocab: int,
+                      pause_tokens: Sequence[int], silence_level: float,
+                      stats_decay: float, mas_fn: MasFn):
+    """The 'em' warmup's path, on the detached ``z``: the anchored path
+    (:func:`anchored_alignment_path`), the token table fitted to it and
+    pooled with the running statistics (``decay · em_stats + batch``), MAS
+    on the table's score (:func:`table_prior_log_likelihood`) as the
+    training path, and the running statistics updated with the table fitted
+    to that path.  Both MAS calls go through ``mas_fn``.  Returns ``(path,
+    new em_stats, distill_mean, distill_log_std)``, all without gradient:
+    the distillation targets are constants of the loss."""
+    with torch.no_grad():
+        z = z.detach()
+        init_path = anchored_alignment_path(
+            tokens, token_lengths, mels, mel_lengths, attn_mask,
+            pause_tokens, silence_level, mas_fn)
+        batch_stats = fit_token_table(tokens, init_path, z, mel_mask, vocab)
+        merged = tuple(stats_decay * prev + cur
+                       for prev, cur in zip(em_stats, batch_stats))
+        log_p, m_tok, log_std_tok = table_prior_log_likelihood(
+            tokens, z, merged, attn_mask)
+        path = mas_fn(log_p, token_lengths, mel_lengths)
+        final_stats = fit_token_table(tokens, path, z, mel_mask, vocab)
+        new_stats = tuple(stats_decay * prev + cur
+                          for prev, cur in zip(em_stats, final_stats))
+    return path, new_stats, m_tok, log_std_tok
 
 
 class GlowTTS(nn.Module):
@@ -148,7 +284,11 @@ class GlowTTS(nn.Module):
                 flow_stack_fn: FlowStepFn = flow_stack,
                 speakers: Optional[torch.Tensor] = None,
                 mels_for_ge2e: Optional[torch.Tensor] = None,
-                pitches: Optional[torch.Tensor] = None
+                pitches: Optional[torch.Tensor] = None,
+                linear_alignment: bool = False,
+                anchored_alignment: bool = False,
+                em_alignment: bool = False,
+                em_stats: Optional[EMStats] = None
                 ) -> Dict[str, torch.Tensor]:
         """The train forward: tokens [B, T_tok] int, mels [B, T_mel, M],
         lengths [B] int (mel lengths multiples of ``num_squeeze``).  MAS
@@ -168,7 +308,16 @@ class GlowTTS(nn.Module):
         the card that is for ``torch.no_grad()``.  ``deterministic=False`` is
         the train step's forward: encoder dropout from ``generator`` (on
         the tensors' device), the flow through ``stack_fn`` with WaveNet
-        dropout from the int32 ``seed``, differentiable throughout."""
+        dropout from the int32 ``seed``, differentiable throughout.
+
+        The alignment curriculum's warmup takes the path from elsewhere than
+        learned-prior MAS: ``linear_alignment`` the uniform path,
+        ``anchored_alignment`` MAS on the anchored score, ``em_alignment``
+        the EM table's path from the running ``em_stats`` (``(cnt, s0,
+        s1)``), which also returns ``em_stats`` updated and what the
+        distillation loss reads: ``prior_mean``, ``prior_log_std``,
+        ``distill_mean``, ``distill_log_std`` and ``token_mask``.  Every
+        MAS call goes through ``mas_fn``."""
         token_lengths = token_lengths.to(torch.int32)
         mel_lengths = mel_lengths.to(torch.int32)
         token_mask = sequence_mask(token_lengths, tokens.shape[1])
@@ -187,9 +336,34 @@ class GlowTTS(nn.Module):
             pitch=pitch)
 
         attn_mask = token_mask * mel_mask[:, None, :, 0]    # [B,T_tok,T_mel]
+        train = self.config.train
+        em_out = {}
         with torch.no_grad():
-            log_p = prior_log_likelihood(mean, log_std, z, attn_mask)
-            attentions = mas_fn(log_p, token_lengths, mel_lengths)
+            if em_alignment:
+                attentions, new_stats, distill_mean, distill_log_std = \
+                    em_alignment_path(
+                        tokens, token_lengths, mels, mel_lengths, z,
+                        attn_mask, mel_mask, em_stats,
+                        self.config.encoder.embedding_tokens,
+                        train.anchor_pause_tokens,
+                        train.anchor_silence_level, train.em_stats_decay,
+                        mas_fn)
+                em_out = {'em_stats': new_stats, 'prior_mean': mean,
+                          'prior_log_std': log_std,
+                          'distill_mean': distill_mean,
+                          'distill_log_std': distill_log_std,
+                          'token_mask': token_mask}
+            elif linear_alignment:
+                attentions = linear_alignment_path(token_lengths,
+                                                   mel_lengths, attn_mask)
+            elif anchored_alignment:
+                attentions = anchored_alignment_path(
+                    tokens, token_lengths, mels, mel_lengths, attn_mask,
+                    train.anchor_pause_tokens, train.anchor_silence_level,
+                    mas_fn)
+            else:
+                log_p = prior_log_likelihood(mean, log_std, z, attn_mask)
+                attentions = mas_fn(log_p, token_lengths, mel_lengths)
 
         mel_mean = torch.einsum('bim,bij->bjm', mean, attentions)
         mel_log_std = torch.einsum('bim,bij->bjm', log_std, attentions)
@@ -198,7 +372,7 @@ class GlowTTS(nn.Module):
         out = {'z': z, 'mel_mean': mel_mean, 'mel_log_std': mel_log_std,
                'log_dets': log_dets, 'log_durations': log_durations,
                'log_duration_targets': log_duration_targets,
-               'attentions': attentions, 'mel_mask': mel_mask}
+               'attentions': attentions, 'mel_mask': mel_mask, **em_out}
         if classified is not None:
             out['classified_speakers'] = classified
         return out

@@ -15,7 +15,11 @@ route of ``config.coupling_backend``:
 GR mode's pitch operand (``pitch [B, T, ps]`` with ``w_pitch [n, ps, 2ch]``
 among the weights: ``pitch·w_pitch[i]`` added per frame to layer ``i``'s
 pre-gate sum) goes to each kernel's pitch instantiation, a library of its
-own built at the first call that has a pitch operand.
+own built at the first call that has a pitch operand.  The flow's channel
+count picks the library too: the shipped config's 160 (``Num_Squeeze: 2``)
+or MiniSpeech's 80 (``Num_Squeeze: 1``), each built at its first call
+(:data:`KERNEL_SHAPES`, :func:`build_defines`); each build counts its
+launches apart (:func:`count_launches`).
 
 Beside each wrapper stands its plain PyTorch version (``*_reference``);
 the wrapper picks between kernel and plain version by the tensor's device
@@ -52,10 +56,17 @@ import torch.nn.functional as F
 
 Weights = Dict[str, torch.Tensor]
 
-# shapes the compiled kernel is specialised for (the shipped config)
-KERNEL_SHAPE = {'channels': 160, 'ch': 192, 'n_layers': 4, 'kernel_size': 5}
+# the flow channel count of the shipped config (Num_Squeeze 2), whose
+# libraries are built without a GLOW_CHANNELS macro
+SHIPPED_CHANNELS = 160
+# shapes the compiled kernels are specialised for, one library each
+# (GLOW_CHANNELS in csrc/flow_common.cuh): the shipped config's and
+# MiniSpeech's (Num_Squeeze 1, 80 channels); other widths raise (ROADMAP.md
+# B.2)
+KERNEL_SHAPES = tuple({'channels': c, 'ch': 192, 'n_layers': 4,
+                       'kernel_size': 5} for c in (SHIPPED_CHANNELS, 80))
 # width of the pitch operand the pitch instantiations take (num_squeeze;
-# kPitchSize in csrc/flow_common.cuh)
+# kPitchSize in csrc/flow_common.cuh), built at the shipped width only
 PITCH_SIZE = 2
 # the macro a pitch instantiation's library is built with
 PITCH_BUILD = ('GLOW_PITCH',)
@@ -78,6 +89,28 @@ TIME_TILE = 32
 # items, the live tiles the blocks computed (summed over the launches that
 # share the report), the most one block computed, the grid's blocks
 TILE_COUNTS = ('live', 'items', 'computed', 'rounds', 'blocks')
+
+
+def build_defines(channels: int = SHIPPED_CHANNELS,
+                  pitch: bool = False) -> Tuple[str, ...]:
+    """The macros of a flow kernel's library for ``channels`` flow
+    channels, its pitch instantiation with ``pitch``."""
+    return ((PITCH_BUILD if pitch else ())
+            + (() if channels == SHIPPED_CHANNELS
+               else (f'GLOW_CHANNELS={channels}',)))
+
+
+def count_launches(fn, what: str, channels: int, pitch: bool,
+                   count: int = 1) -> None:
+    """Add ``count`` to the launch count of the build of ``channels``
+    (with ``pitch``) on ``fn``: ``fn.<what>_launches`` for the shipped
+    build, ``<what>_pitch_launches`` for its pitch instantiation,
+    ``<what>_c80_launches`` for the 80-channel build (no ``what_`` where
+    ``what`` is empty)."""
+    tag = ('pitch' if pitch else
+           '' if channels == SHIPPED_CHANNELS else f'c{channels}')
+    name = '_'.join(part for part in (what, tag, 'launches') if part)
+    setattr(fn, name, getattr(fn, name) + count)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -343,11 +376,7 @@ def _check_launch(name: str, x: torch.Tensor, channels: int,
             f'{name}: the CUDA kernel has no backward; run it under '
             'torch.no_grad() or on detached tensors, or train through '
             'ops.coupling_grad.flow_stack_train')
-    n, k, ch, _ = w_in_shape
-    got = {'channels': channels, 'ch': ch, 'n_layers': n, 'kernel_size': k}
-    if got != KERNEL_SHAPE:
-        raise ValueError(f'{name} kernel is built for {KERNEL_SHAPE}, '
-                         f'got {got}')
+    check_shape(name, channels, w_in_shape)
     for key, (tensor, shape) in tensors.items():
         if (tensor.device != x.device or tensor.dtype != torch.float32
                 or tuple(tensor.shape) != tuple(shape)
@@ -369,6 +398,23 @@ def _check_launch(name: str, x: torch.Tensor, channels: int,
                 f'on {view.device}')
 
 
+def check_shape(name: str, channels: int, w_in_shape: Tuple[int, ...],
+                pitch: bool = False) -> None:
+    """Raise unless a build of :data:`KERNEL_SHAPES` takes ``channels``
+    flow channels and ``w_in [n, k, ch, 2ch]`` (with a pitch operand, the
+    shipped width alone)."""
+    n, k, ch, _ = w_in_shape
+    got = {'channels': channels, 'ch': ch, 'n_layers': n, 'kernel_size': k}
+    if got not in KERNEL_SHAPES:
+        raise ValueError(f'{name} kernel is built for {list(KERNEL_SHAPES)}, '
+                         f'got {got} (other widths: ROADMAP.md B.2)')
+    if pitch and channels != SHIPPED_CHANNELS:
+        raise ValueError(
+            f'{name}: GR\'s pitch operand is built at {SHIPPED_CHANNELS} '
+            f'channels only, got {channels} (Num_Squeeze 1 makes the pitch '
+            f'1 wide: ROADMAP.md B.2)')
+
+
 def _check_weights(name: str, x: torch.Tensor, pitch, channels: int,
                    weights: Weights,
                    tensors: Dict[str, Tuple[torch.Tensor, tuple]],
@@ -381,6 +427,7 @@ def _check_weights(name: str, x: torch.Tensor, pitch, channels: int,
     ``w_pitch [(S,) n, PITCH_SIZE, 2ch]`` too."""
     w_in_shape = weights['w_in'].shape[0 if steps is None else 1:]
     lead = () if steps is None else (steps,)
+    check_shape(name, channels, w_in_shape, pitch is not None)
     tensors = dict(tensors)
     shapes = dict(shapes)
     if pitch is not None:
@@ -470,7 +517,7 @@ def _flow_step_kernel(x, mask, weights, cond, reverse=False, pitch=None,
         raise ValueError(f'flow_step: passes is 1 or 3, got {passes}')
     tiles_ptr = tile_report_pointer('flow_step', tiles, x)
 
-    lib = load_flow_step_library(pitch is not None)
+    lib = load_flow_step_library(pitch is not None, c)
     z = torch.empty_like(x)
     ld_part = ld_ptr = part_ptr = None          # NULL: unused on reverse
     if not reverse:
@@ -487,14 +534,11 @@ def _flow_step_kernel(x, mask, weights, cond, reverse=False, pitch=None,
         *[p.data_ptr() for p in inputs[3:]], ld_ptr, z.data_ptr(), part_ptr,
         tiles_ptr, b, t, int(reverse), passes,
         torch.cuda.current_stream(x.device).cuda_stream))
-    if pitch is None:
-        flow_step.launches += 1
-    else:                                  # the pitch instantiation's own
-        flow_step.pitch_launches += 1
+    count_launches(flow_step, '', c, pitch is not None)
     return z, (None if ld_part is None else ld_part.sum(dim=1))
 
 
-flow_step.launches = flow_step.pitch_launches = 0
+flow_step.launches = flow_step.pitch_launches = flow_step.c80_launches = 0
 
 
 def coupling(x_a: torch.Tensor, x_b: torch.Tensor, mask: torch.Tensor,
@@ -527,7 +571,7 @@ def _coupling_kernel(x_a, x_b, mask, weights, cond, pitch=None,
     own = kernel_keys(COUPLING_WEIGHT_KEYS)
     tiles_ptr = tile_report_pointer('coupling', tiles, x_a)
 
-    lib = load_coupling_library(pitch is not None)
+    lib = load_coupling_library(pitch is not None, 2 * c2)
     z_b = torch.empty((b, t, c2), device=x_a.device)
     ld_part = None                              # NULL: unused on reverse
     if not reverse:
@@ -541,14 +585,11 @@ def _coupling_kernel(x_a, x_b, mask, weights, cond, pitch=None,
         z_b.data_ptr(), None if ld_part is None else ld_part.data_ptr(),
         tiles_ptr, b, t, int(reverse),
         torch.cuda.current_stream(x_a.device).cuda_stream))
-    if pitch is None:
-        coupling.launches += 1
-    else:                                  # the pitch instantiation's own
-        coupling.pitch_launches += 1
+    count_launches(coupling, '', 2 * c2, pitch is not None)
     return z_b, (None if ld_part is None else ld_part.sum(dim=1))
 
 
-coupling.launches = coupling.pitch_launches = 0
+coupling.launches = coupling.pitch_launches = coupling.c80_launches = 0
 
 
 def flow_stack(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
@@ -580,7 +621,7 @@ def _flow_stack_kernel(x, mask, weights, cond, pitch=None, reverse=False,
         'cond': (cond, (steps, n, b, ch2))}, shapes, steps=steps)
     tiles_ptr = tile_report_pointer('flow_stack', tiles, x)
 
-    lib = load_flow_stack_library(pitch is not None)
+    lib = load_flow_stack_library(pitch is not None, c)
     n_tiles = -(-t // lib.glow_flow_stack_time_tile())
     # the steps go to and fro between two buffers (a step's neighbours may
     # still be reading its input), the last one into z
@@ -604,24 +645,37 @@ def _flow_stack_kernel(x, mask, weights, cond, pitch=None, reverse=False,
         None if ld_part is None else ld_part.data_ptr(), done.data_ptr(),
         tiles_ptr, b, t, steps, int(reverse),
         torch.cuda.current_stream(x.device).cuda_stream))
-    if pitch is None:
-        flow_stack.launches += 1
-    else:                                  # the pitch instantiation's own
-        flow_stack.pitch_launches += 1
+    count_launches(flow_stack, '', c, pitch is not None)
     return z, (None if ld_part is None else ld_part.sum(dim=1))
 
 
 flow_stack.launches = flow_stack.pitch_launches = 0
+flow_stack.c80_launches = 0
+
+
+def load_flow_library(source: str, pitch: bool = False,
+                      channels: int = SHIPPED_CHANNELS) -> ctypes.CDLL:
+    """Build (at first use) and load the flow kernel source ``csrc/
+    <source>`` for ``channels`` flow channels (its pitch instantiation with
+    ``pitch``), held to the width it reports."""
+    from glow_tts_tpu_torch.ops.cuda_build import load_library
+    lib = load_library(source, build_defines(channels, pitch))
+    lib.glow_flow_channels.argtypes = []
+    lib.glow_flow_channels.restype = ctypes.c_int
+    if lib.glow_flow_channels() != channels:
+        raise RuntimeError(f'{source}: the library built for {channels} '
+                           f'channels reports {lib.glow_flow_channels()}')
+    return lib
 
 
 def _load(source: str, entry: str, argtypes: list, pitch: bool = False,
+          channels: int = SHIPPED_CHANNELS,
           extra: Tuple[Tuple[str, list], ...] = ()) -> ctypes.CDLL:
-    """Build (at first use) and load ``csrc/<source>``, its pitch
-    instantiation with ``pitch``, typed: its entry point, its time-tile
-    query (and the other int queries in ``extra``, as (name, argtypes)) and
-    the error-string function every library has."""
-    from glow_tts_tpu_torch.ops.cuda_build import load_library
-    lib = load_library(source, PITCH_BUILD if pitch else ())
+    """Build (at first use) and load ``csrc/<source>`` for ``channels``
+    flow channels, its pitch instantiation with ``pitch``, typed: its entry
+    point, its time-tile query (and the other int queries in ``extra``, as
+    (name, argtypes)) and the error-string function every library has."""
+    lib = load_flow_library(source, pitch, channels)
     ci = ctypes.c_int
     getattr(lib, entry).argtypes = argtypes
     getattr(lib, entry).restype = ci
@@ -637,25 +691,31 @@ def _load(source: str, entry: str, argtypes: list, pitch: bool = False,
 
 
 @functools.cache
-def load_flow_step_library(pitch: bool = False) -> ctypes.CDLL:
+def load_flow_step_library(pitch: bool = False,
+                           channels: int = SHIPPED_CHANNELS) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return _load('flow_step.cu', 'glow_flow_step_f32',
                  [vp] * (5 + len(WEIGHT_KEYS) + 4) + [ci, ci, ci, ci, vp],
-                 pitch, extra=(('glow_flow_step_resident_blocks', [ci]),))
+                 pitch, channels,
+                 extra=(('glow_flow_step_resident_blocks', [ci]),))
 
 
 @functools.cache
-def load_coupling_library(pitch: bool = False) -> ctypes.CDLL:
+def load_coupling_library(pitch: bool = False,
+                          channels: int = SHIPPED_CHANNELS) -> ctypes.CDLL:
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     return _load('coupling.cu', 'glow_coupling_f32',
                  [vp, ll, ll] * 2 + [vp] * (4 + len(COUPLING_WEIGHT_KEYS) + 3)
                  + [ci, ci, ci, vp],
-                 pitch, extra=(('glow_coupling_resident_blocks', [ci]),))
+                 pitch, channels,
+                 extra=(('glow_coupling_resident_blocks', [ci]),))
 
 
 @functools.cache
-def load_flow_stack_library(pitch: bool = False) -> ctypes.CDLL:
+def load_flow_stack_library(pitch: bool = False,
+                            channels: int = SHIPPED_CHANNELS) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return _load('flow_stack.cu', 'glow_flow_stack_f32',
                  [vp] * (5 + len(WEIGHT_KEYS) + 6) + [ci, ci, ci, ci, vp],
-                 pitch, extra=(('glow_flow_stack_resident_blocks', [ci]),))
+                 pitch, channels,
+                 extra=(('glow_flow_stack_resident_blocks', [ci]),))

@@ -46,7 +46,10 @@ kernels' pitch builds): the wrappers load it only when a pitch operand
 arrives, and count its launches apart.  Its backward adds one launch per
 layer: ``dw_pitch`` as per-sample partials reduced in order with the other
 weight gradients, and ``dpitch`` (skipped when the pitch operand wants no
-gradient) added layer by layer in launch order.
+gradient) added layer by layer in launch order.  MiniSpeech's 80 flow
+channels (``Num_Squeeze: 1``) are a build of both sources of their own
+too (``GLOW_CHANNELS=80``), loaded by the channel count and counted apart
+(``*_c80_launches``).
 """
 
 from __future__ import annotations
@@ -60,8 +63,9 @@ import torch
 import torch.nn.functional as F
 
 from glow_tts_tpu_torch.ops import dropmask
-from glow_tts_tpu_torch.ops.coupling import (KERNEL_SHAPE, PITCH_BUILD,
-                                             PITCH_SIZE, kernel_keys,
+from glow_tts_tpu_torch.ops.coupling import (PITCH_SIZE, SHIPPED_CHANNELS,
+                                             check_shape, count_launches,
+                                             kernel_keys, load_flow_library,
                                              tf32_round, tile_report_pointer,
                                              valid_lengths,
                                              with_tensor_core_weights)
@@ -272,8 +276,8 @@ def _recompute(x_step, mask, cond, weights, saved, step: int, drop,
     ``step`` from its input ``x_step [B, T, C]`` into ``saved``; ``weights``
     as :func:`_kernel_weights` gives them, ``w_pitch [S, n, ps, 2ch]`` with
     a ``pitch`` operand."""
-    lib = load_train_forward_library(pitch is not None)
-    b, t, _ = x_step.shape
+    b, t, c = x_step.shape
+    lib = load_train_forward_library(pitch is not None, c)
     err = lib.glow_flow_train_fwd_f32(
         x_step.data_ptr(), mask.data_ptr(),
         *[None if tensor is None else tensor.data_ptr()
@@ -283,10 +287,7 @@ def _recompute(x_step, mask, cond, weights, saved, step: int, drop,
         step + 1, *drop, TF32_PASSES,
         torch.cuda.current_stream(x_step.device).cuda_stream)
     _raise_on(err, lib, 'flow_stack_train recompute')
-    if pitch is None:
-        flow_stack_train.recompute_launches += 1
-    else:
-        flow_stack_train.recompute_pitch_launches += 1
+    count_launches(flow_stack_train, 'recompute', c, pitch is not None)
 
 
 class _FlowStackTrain(torch.autograd.Function):
@@ -308,7 +309,7 @@ class _FlowStackTrain(torch.autograd.Function):
         b, t, c = x.shape
         s_steps, n, _, ch, _ = weights[WEIGHT_KEYS.index('w_in')].shape
         w_pitch = None if pitch is None else weights[len(WEIGHT_KEYS)]
-        lib = load_train_forward_library(pitch is not None)
+        lib = load_train_forward_library(pitch is not None, c)
         kernel_weights = _kernel_weights(weights[:len(WEIGHT_KEYS)])
         acts = torch.empty((s_steps + 1, b, t, c), device=x.device)
         acts[0].copy_(x)
@@ -329,10 +330,8 @@ class _FlowStackTrain(torch.autograd.Function):
             s_steps, *drop, forward_passes,
             torch.cuda.current_stream(x.device).cuda_stream)
         _raise_on(err, lib, 'flow_stack_train forward')
-        if pitch is None:
-            flow_stack_train.forward_launches += s_steps
-        else:
-            flow_stack_train.forward_pitch_launches += s_steps
+        count_launches(flow_stack_train, 'forward', c, pitch is not None,
+                       s_steps)
         ctx.save_for_backward(acts, mask, cond, pitch, *stored.values(),
                               *weights)
         ctx.drop, ctx.route, ctx.passes = drop, route, passes
@@ -355,7 +354,7 @@ class _FlowStackTrain(torch.autograd.Function):
         _, n, k, ch, ch2 = named['w_in'].shape
         m, c2 = b * t, c // 2
         device = acts.device
-        bwd = load_train_backward_library(pitch is not None)
+        bwd = load_train_backward_library(pitch is not None, c)
         stream = torch.cuda.current_stream(device).cuda_stream
 
         def empty(*shape):
@@ -417,10 +416,8 @@ class _FlowStackTrain(torch.autograd.Function):
             err = bwd.glow_flow_train_bwd_step_f32(
                 _pointers(inputs), _pointers(outputs), b, t, c, ch, n, k, s,
                 *ctx.drop, ctx.passes, stream, ctypes.byref(launched))
-            if pitch is None:
-                flow_stack_train.backward_launches += launched.value
-            else:
-                flow_stack_train.backward_pitch_launches += launched.value
+            count_launches(flow_stack_train, 'backward', c,
+                           pitch is not None, launched.value)
             _raise_on(err, bwd, 'flow_stack_train backward')
             dx_in = dx_bufs[s % 2]
         return (dx_in, None, dcond, dpitch, None, None, None, None, None,
@@ -436,10 +433,7 @@ def _check_cuda_inputs(x, mask, weights, cond, pitch) -> None:
                          'among the weights')
     b, t, c = x.shape
     s_steps, n, k, ch, ch2 = weights['w_in'].shape
-    got = {'channels': c, 'ch': ch, 'n_layers': n, 'kernel_size': k}
-    if got != KERNEL_SHAPE:
-        raise ValueError(f'flow_stack_train kernels are built for '
-                         f'{KERNEL_SHAPE}, got {got}')
+    check_shape('flow_stack_train', c, (n, k, ch, ch2), pitch is not None)
     tensors = {'x': (x, (b, t, c)), 'mask': (mask, (b, t, 1)),
                'ld_const': (weights['ld_const'], (s_steps,)),
                **{key: (weights[key], shape) for key, shape
@@ -519,14 +513,13 @@ def flow_stack_train(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
 # kernel's saving instantiation as the backward pass's recompute (one per
 # flow step, none where the forward pass stored); and of the backward
 # library's kernels, as its entry counts them: a fixed sequence of
-# backward_launches_per_step(n) per flow step.  The pitch builds' launches
-# count apart, under the same names with ``_pitch``.
-flow_stack_train.forward_launches = 0
-flow_stack_train.recompute_launches = 0
-flow_stack_train.backward_launches = 0
-flow_stack_train.forward_pitch_launches = 0
-flow_stack_train.recompute_pitch_launches = 0
-flow_stack_train.backward_pitch_launches = 0
+# backward_launches_per_step(n) per flow step.  The pitch builds' and the
+# 80-channel builds' launches count apart, under the same names with
+# ``_pitch`` and ``_c80`` (``coupling.count_launches``).
+for _what in ('forward', 'recompute', 'backward'):
+    for _tag in ('', '_pitch', '_c80'):
+        setattr(flow_stack_train, f'{_what}{_tag}_launches', 0)
+del _what, _tag
 
 
 def _check_product_operands(**tensors: torch.Tensor) -> None:
@@ -538,18 +531,21 @@ def _check_product_operands(**tensors: torch.Tensor) -> None:
 
 
 def _dgrad_product(a: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
-                   passes: int = TF32_PASSES) -> torch.Tensor:
+                   passes: int = TF32_PASSES,
+                   channels: int = SHIPPED_CHANNELS) -> torch.Tensor:
     """One launch of the backward library's activation-gradient GEMM alone,
     for tests and timing: ``a [B, T, K]``, ``w [taps, N, K]``, ``mask [B, T,
     1]`` → ``[B, T, N]``, the k-tap transposed conv of ``a`` under the
-    mask."""
+    mask, in the library built for ``channels`` (whose depth K is a
+    multiple of 32, or, in a build whose channels are not, of 4)."""
     _check_product_operands(a=a, w=w, mask=mask)
     b, t, kseg = a.shape
     taps, width, depth = w.shape
-    if depth != kseg or kseg % 32 or width % 8 or mask.shape != (b, t, 1):
+    if (depth != kseg or kseg % (4 if channels % 32 else 32) or width % 8
+            or mask.shape != (b, t, 1)):
         raise ValueError(f'dgrad product of a {tuple(a.shape)}, w '
                          f'{tuple(w.shape)}, mask {tuple(mask.shape)}')
-    lib = load_train_backward_library()
+    lib = load_train_backward_library(channels=channels)
     out = torch.empty((b, t, width), device=a.device)
     lengths = _valid_lengths(mask)
     err = lib.glow_flow_train_bwd_dgrad_f32(
@@ -587,11 +583,12 @@ def _wgrad_product(p: torch.Tensor, g: torch.Tensor, mask: torch.Tensor,
 
 
 @functools.cache
-def load_train_forward_library(pitch: bool = False) -> ctypes.CDLL:
-    """Build (at first use) and load the forward kernel's library, its
-    pitch build with ``pitch``, typed."""
-    from glow_tts_tpu_torch.ops.cuda_build import load_library
-    lib = load_library('flow_train_fwd.cu', PITCH_BUILD if pitch else ())
+def load_train_forward_library(pitch: bool = False,
+                               channels: int = SHIPPED_CHANNELS
+                               ) -> ctypes.CDLL:
+    """Build (at first use) and load the forward kernel's library for
+    ``channels`` flow channels, its pitch build with ``pitch``, typed."""
+    lib = load_flow_library('flow_train_fwd.cu', pitch, channels)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.glow_flow_train_fwd_f32.argtypes = (
         [vp] * (5 + len(WEIGHT_KEYS) + 3)
@@ -605,11 +602,12 @@ def load_train_forward_library(pitch: bool = False) -> ctypes.CDLL:
 
 
 @functools.cache
-def load_train_backward_library(pitch: bool = False) -> ctypes.CDLL:
-    """Build (at first use) and load the backward kernels' library, its
-    pitch build with ``pitch``, typed."""
-    from glow_tts_tpu_torch.ops.cuda_build import load_library
-    lib = load_library('flow_train_bwd.cu', PITCH_BUILD if pitch else ())
+def load_train_backward_library(pitch: bool = False,
+                                channels: int = SHIPPED_CHANNELS
+                                ) -> ctypes.CDLL:
+    """Build (at first use) and load the backward kernels' library for
+    ``channels`` flow channels, its pitch build with ``pitch``, typed."""
+    lib = load_flow_library('flow_train_bwd.cu', pitch, channels)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.glow_flow_train_bwd_step_f32.argtypes = (
         [vp, vp] + [ci] * 8 + [ctypes.c_uint, ctypes.c_float, ci, ci, vp,

@@ -6,7 +6,8 @@ and kept in ``glow_tts_tpu_torch/_build/`` under a name that carries a hash
 of the source, of the headers beside it (``csrc/*.cuh``) and of the flags,
 so an edited source is never served stale.  A build may define macros
 (``defines``: GR mode's pitch instantiations are the flow kernels built
-with ``GLOW_PITCH``); each set of them is a library of its own.
+with ``GLOW_PITCH``, MiniSpeech's 80 flow channels with
+``GLOW_CHANNELS=80``); each set of them is a library of its own.
 Nothing is built when a module is imported.
 """
 
@@ -52,7 +53,7 @@ def library_path(source: str, defines: Sequence[str] = ()) -> str:
         with open(path, 'rb') as f:
             hashed.update(f.read())
     stem = '-'.join([os.path.splitext(source)[0],
-                     *(name.lower() for name in defines)])
+                     *(name.lower().replace('=', '') for name in defines)])
     return os.path.join(BUILD_DIR,
                         f'lib{stem}-{hashed.hexdigest()[:12]}.so')
 

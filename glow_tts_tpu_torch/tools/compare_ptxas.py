@@ -1,0 +1,84 @@
+"""Compare the ``ptxas`` report of the flow sources' builds (registers,
+barriers, shared memory, stack and spills, kernel by kernel) in this
+checkout with another checkout's, both built with the same flags side by
+side, each into its own ``glow_tts_tpu_torch/_build``.
+
+    python -m glow_tts_tpu_torch.tools.compare_ptxas OTHER_CHECKOUT
+
+``OTHER_CHECKOUT`` is a directory holding another tree's
+``glow_tts_tpu_torch`` package (for example ``git archive`` of the
+commit before a change, unpacked).  For each flow source, the shipped
+build and its pitch build (``-DGLOW_PITCH``) are compared and reported
+SAME or DIFFERENT (with both sides' lines where they differ); this
+checkout's 80-channel builds (``-DGLOW_CHANNELS=80``) are printed.  Exits
+1 if a compared build differs or fails.  Needs ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+HERE = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+SOURCES = ('flow_step.cu', 'coupling.cu', 'flow_stack.cu',
+           'flow_train_fwd.cu', 'flow_train_bwd.cu')
+COMPARED = ((), ('GLOW_PITCH',))
+OWN = (('GLOW_CHANNELS=80',),)
+# run in a checkout's root, so that its own package is the one imported
+REPORT = ('import sys; from glow_tts_tpu_torch.ops import cuda_build as c; '
+          'd = tuple(sys.argv[2:]); c.load_library(sys.argv[1], d); '
+          'print("\\n".join(c.ptxas_report(sys.argv[1], d)))')
+
+
+def report(root: str, source: str, defines: tuple) -> list:
+    """``cuda_build.ptxas_report`` of ``source`` built with ``defines`` in
+    the checkout ``root``, each line without its label."""
+    out = subprocess.run([sys.executable, '-c', REPORT, source, *defines],
+                         cwd=root, capture_output=True, text=True)
+    if out.returncode:
+        raise RuntimeError(f'{root}: {source} {defines}: '
+                           f'{out.stderr[-3000:]}')
+    return sorted(line.split(' ', 1 + len(defines))[-1]
+                  for line in out.stdout.strip().splitlines())
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    parser.add_argument('other', help='the other checkout\'s root')
+    args = parser.parse_args(argv)
+    other = os.path.abspath(args.other)
+    jobs = [(root, source, defines) for source in SOURCES
+            for root, defines in [(r, d) for d in COMPARED
+                                  for r in (other, HERE)]
+            + [(HERE, d) for d in OWN]]
+    with ThreadPoolExecutor(len(jobs)) as pool:   # one nvcc each, together
+        results = dict(zip(jobs, pool.map(lambda job: report(*job), jobs)))
+    same = True
+    for source in SOURCES:
+        for defines in COMPARED:
+            theirs = results[(other, source, defines)]
+            ours = results[(HERE, source, defines)]
+            label = ' '.join([source, *(f'-D{d}' for d in defines)])
+            equal = theirs == ours
+            same &= equal
+            print(f'{label}: {"SAME" if equal else "DIFFERENT"} '
+                  f'({len(theirs)} kernels there, {len(ours)} here)')
+            if not equal:
+                for line in theirs:
+                    print(f'  there {line}')
+                for line in ours:
+                    print(f'  here  {line}')
+        for defines in OWN:
+            label = ' '.join([source, *(f'-D{d}' for d in defines)])
+            for line in results[(HERE, source, defines)]:
+                print(f'  {label} {line}')
+    print(f'compared builds identical: {same}')
+    return 0 if same else 1
+
+
+if __name__ == '__main__':
+    sys.exit(main())

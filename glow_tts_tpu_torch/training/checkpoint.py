@@ -13,16 +13,20 @@
 The payload is a ``torch.save`` dict with the reference's keys ``Model``
 (the model's state dict under the reference's names, weight norm
 unfolded), ``Optimizer``, ``Steps`` and ``Epochs``, and the port's own
-``seed`` and ``generator`` (the encoder's dropout generator state):
-:func:`train_payload` builds it, and ``weights.load_reference_checkpoint``
-reads its ``Model``.
+``seed``, ``generator`` (the encoder's dropout generator state) and, in a
+run with the 'em' alignment warmup, ``em_stats`` (its table statistics
+``[cnt, s0, s1]``): :func:`train_payload` builds it,
+``weights.load_reference_checkpoint`` reads its ``Model`` and
+:func:`restored_em_stats` its ``em_stats`` under the JAX package's rule
+across configurations.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Dict, List, Optional
+import warnings
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -33,9 +37,11 @@ _FILE = re.compile(r'S_(\d+)\.pt')
 
 
 def train_payload(model: torch.nn.Module, optimizer, step: int, epoch: int,
-                  seed: int, generator: torch.Generator) -> Dict:
-    """A train state as a checkpoint holds it, copied to the CPU."""
-    return {
+                  seed: int, generator: torch.Generator,
+                  em_stats: Optional[Sequence[torch.Tensor]] = None) -> Dict:
+    """A train state as a checkpoint holds it, copied to the CPU; the 'em'
+    warmup's statistics where the run has them."""
+    payload = {
         'Model': {key: value.detach().to('cpu', copy=True)
                   for key, value in model.state_dict().items()},
         'Optimizer': optimizer.state_dict(model),
@@ -44,6 +50,31 @@ def train_payload(model: torch.nn.Module, optimizer, step: int, epoch: int,
         'seed': int(seed),
         'generator': generator.get_state(),
     }
+    if em_stats is not None:
+        payload['em_stats'] = [t.detach().to('cpu', copy=True)
+                               for t in em_stats]
+    return payload
+
+
+def restored_em_stats(payload: Dict, config, device):
+    """The 'em' warmup's statistics a run restored from ``payload``
+    continues with, on ``device``, by the JAX package's rule: a config
+    without that warmup drops a checkpoint's statistics (with a warning),
+    one with it takes the checkpoint's, or, where the checkpoint has none,
+    fresh zeros (with a warning: the running sums pool again within about
+    1/(1 − decay) batches).  None where the config does not use them."""
+    from glow_tts_tpu_torch.training.step import init_em_stats
+    stored = payload.get('em_stats')
+    if not config.train.uses_em_stats:
+        if stored is not None:
+            warnings.warn('checkpoint carries em_stats the current config '
+                          'does not use; dropping them')
+        return None
+    if stored is None:
+        warnings.warn('checkpoint has no em_stats; resuming with '
+                      'freshly-initialised EM table statistics')
+        return init_em_stats(config, device)
+    return tuple(t.to(device) for t in stored)
 
 
 class CheckpointManager:

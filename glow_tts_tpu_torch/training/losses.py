@@ -1,6 +1,5 @@
 """Training losses, computed in float32 (port of
-``glow_tts_tpu/training/losses.py``; the curriculum's distillation term is
-not ported, ``ROADMAP.md`` A.3).
+``glow_tts_tpu/training/losses.py``).
 
 * :func:`mle_loss`: the exact flow likelihood: negative log-likelihood of
   z under the aligned prior minus the flow log-determinants, normalised by
@@ -10,6 +9,9 @@ not ported, ``ROADMAP.md`` A.3).
   zero there).
 * :func:`speaker_ce_loss`: GR mode's adversarial classifier, the mean
   cross-entropy of its logits against the speaker ids.
+* :func:`prior_distill_loss`: the 'em' alignment warmup's masked mean
+  squared error of the network prior's (mean, log std) against the EM
+  table's.
 """
 
 from __future__ import annotations
@@ -36,6 +38,23 @@ def duration_loss(log_durations: torch.Tensor,
                   log_duration_targets: torch.Tensor) -> torch.Tensor:
     diff = log_durations.float() - log_duration_targets.float()
     return torch.mean(diff ** 2)
+
+
+def prior_distill_loss(prior_mean: torch.Tensor,
+                       prior_log_std: torch.Tensor,
+                       distill_mean: torch.Tensor,
+                       distill_log_std: torch.Tensor,
+                       token_mask: torch.Tensor) -> torch.Tensor:
+    """Masked MSE of the network prior's ``(mean, log_std) [B, T_tok, C]``
+    against the EM table's at the batch's tokens, over the valid tokens ×
+    channels.  Plain MSE on purpose: the MLE gradient of the mean is
+    preconditioned by exp(−2·log_std), which lets the prior underfit the
+    closed-form optimum the targets are."""
+    m = token_mask.float()
+    n = torch.sum(m).clamp_min(1.0) * prior_mean.shape[-1]
+    d_mean = (prior_mean.float() - distill_mean) * m
+    d_std = (prior_log_std.float() - distill_log_std) * m
+    return (torch.sum(d_mean ** 2) + torch.sum(d_std ** 2)) / n
 
 
 def speaker_ce_loss(logits: torch.Tensor,

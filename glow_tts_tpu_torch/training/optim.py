@@ -12,7 +12,9 @@ One update is the JAX package's optax chain, in its order:
 3. decoupled weight decay, ``+ wd · p``;
 4. ``× −lr`` with the warmup-free Noam decay ``initial · base^½ ·
    (step + base)^−½``, whose step counts from 0 and is clamped to ≥ 1 (so
-   the first two updates share a rate).
+   the first two updates share a rate);
+5. the alignment curriculum's decoder freeze: a zero update for the frozen
+   parameters (:meth:`RAdam.step`'s ``frozen``).
 
 Everything runs as ``torch._foreach_*`` passes over the parameter list; the
 scalars that depend on the step count alone are computed on the host in
@@ -95,9 +97,16 @@ class RAdam:
         return bool(n_sma >= 5.0), float(rect / bias1), float(F32(1.0) / bias1)
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
+    def step(self, frozen: Iterable[torch.nn.Parameter] = ()
+             ) -> torch.Tensor:
         """One update from the parameters' gradients (a missing gradient
-        counts as zero).  Returns the gradients' global norm before
+        counts as zero).  The parameters of ``frozen`` (the decoder, while
+        the alignment curriculum freezes it) get a zero update, weight
+        decay included, but their gradients still count in the clipping
+        norm and still move their moments, as the JAX package zeroes the
+        optax chain's updates: zeroing the gradients instead leaves the
+        second moments empty, and the first update after the release an
+        oversized sign step.  Returns the gradients' global norm before
         clipping, a 0-d tensor on the device."""
         params = self.params
         grads = [torch.zeros_like(p) if p.grad is None else p.grad.float()
@@ -128,6 +137,11 @@ class RAdam:
         if self.weight_decay:
             torch._foreach_add_(updates, params, alpha=self.weight_decay)
         torch._foreach_mul_(updates, -self.schedule(self.count - 1))
+        held = {id(p) for p in frozen}
+        if held:
+            moving = [i for i, p in enumerate(params) if id(p) not in held]
+            params = [params[i] for i in moving]
+            updates = [updates[i] for i in moving]
         torch._foreach_add_(params, updates)
         return norm
 

@@ -2,9 +2,10 @@
 ``glow_tts_tpu/training/step.py``) in the four modes: model construction,
 the loss dict (GR mode adds the speaker classifier's term), the train step
 (forward with dropout → MAS → losses → backward → clip → RAdam/Noam
-update), the eval step and the alignment-health metric the evaluation
-reports beside the losses.  The alignment-warmup variants of the step and
-the decoder freeze are not ported (``ROADMAP.md`` A.3).
+update), its alignment-curriculum variants (the 'linear', 'anchored' and
+'em' warmup paths and the decoder freeze, one step function each, which the
+trainer picks per step), the eval step and the alignment-health metric the
+evaluation reports beside the losses.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 from glow_tts_tpu_torch.models.decoder import FlowStackFn, FlowStepFn
-from glow_tts_tpu_torch.models.glow_tts import GlowTTS, MasFn
+from glow_tts_tpu_torch.models.glow_tts import EMStats, GlowTTS, MasFn
 from glow_tts_tpu_torch.ops.coupling import coupling, flow_stack, flow_step
 from glow_tts_tpu_torch.ops.coupling_grad import flow_stack_train
 from glow_tts_tpu_torch.ops.mas import maximum_path
@@ -27,6 +28,28 @@ Batch = Mapping[str, torch.Tensor]
 
 def build_model(config) -> GlowTTS:
     return GlowTTS(config)
+
+
+def init_em_stats(config, device: Union[str, torch.device] = 'cpu'
+                  ) -> EMStats:
+    """Zero table statistics of the 'em' warmup, ``(cnt [V], s0 [V, M],
+    s1 [V, M])`` in float32 on ``device`` (z is unsqueezed back to the mel
+    channels)."""
+    vocab = config.encoder.embedding_tokens
+    channels = config.sound.mel_dim
+    return (torch.zeros((vocab,), device=device),
+            torch.zeros((vocab, channels), device=device),
+            torch.zeros((vocab, channels), device=device))
+
+
+class EMState:
+    """The holder of a run's 'em' warmup statistics (``stats``: ``(cnt,
+    s0, s1)`` or None outside that mode): an EM step reads them and
+    replaces them with the updated ones, the trainer owns the holder and
+    its checkpoints save what it holds."""
+
+    def __init__(self, stats: Optional[EMStats] = None):
+        self.stats = stats
 
 
 def batch_to_device(batch: Mapping[str, np.ndarray],
@@ -59,6 +82,13 @@ def compute_losses(config, outputs: Mapping[str, torch.Tensor],
         loss_dict['speaker'] = losses.speaker_ce_loss(
             outputs['classified_speakers'], batch['speakers'])
         total = total + loss_dict['speaker']
+    if outputs.get('distill_mean') is not None:
+        # the 'em' warmup: the network prior regressed onto the EM table
+        loss_dict['distill'] = losses.prior_distill_loss(
+            outputs['prior_mean'], outputs['prior_log_std'],
+            outputs['distill_mean'], outputs['distill_log_std'],
+            outputs['token_mask'])
+        total = total + config.train.em_distill_weight * loss_dict['distill']
     loss_dict['total'] = total
     return loss_dict
 
@@ -82,14 +112,28 @@ def make_train_step(config, model: GlowTTS, optimizer: RAdam, *,
                     seed: int = 0,
                     generator: Optional[torch.Generator] = None,
                     stack_fn: FlowStackFn = flow_stack_train,
-                    mas_fn: MasFn = maximum_path
+                    mas_fn: MasFn = maximum_path,
+                    linear_alignment: bool = False,
+                    anchored_alignment: bool = False,
+                    em_alignment: bool = False,
+                    freeze_decoder: bool = False,
+                    em_state: Optional[EMState] = None
                     ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
     """``train_step(batch) -> metrics`` (``mle``, ``duration``, in GR mode
-    ``speaker``, ``total``, ``grad_norm``, 0-d tensors on the model's
-    device, read without a synchronisation): one update of ``model``'s parameters, in place,
+    ``speaker``, with ``em_alignment`` ``distill``, ``total``,
+    ``grad_norm``, 0-d tensors on the model's device, read without a
+    synchronisation): one update of ``model``'s parameters, in place,
     through ``optimizer`` (``training.optim.make_optimizer`` over
     ``model.parameters()``).  The model must hold unfolded weight norm
     (``prepare(fold=False)``).
+
+    The alignment curriculum's variants: ``linear_alignment``,
+    ``anchored_alignment`` and ``em_alignment`` take the path from that
+    warmup (``GlowTTS.forward``); ``em_alignment`` reads the statistics
+    of ``em_state`` and replaces them with the updated ones.
+    ``freeze_decoder`` gives the flow decoder's parameters a zero update
+    while their gradients still move the optimiser's moments
+    (``RAdam.step``'s ``frozen``).
 
     Dropout is explicit: the encoder's masks come from ``generator`` (on
     the model's device; one seeded with ``seed`` is made if none is given)
@@ -100,6 +144,11 @@ def make_train_step(config, model: GlowTTS, optimizer: RAdam, *,
     if generator is None:
         device = next(model.parameters()).device
         generator = torch.Generator(device=device).manual_seed(seed)
+    if em_alignment and (em_state is None or em_state.stats is None):
+        raise ValueError('an em_alignment step needs an EMState holding '
+                         'the statistics (init_em_stats)')
+    frozen = (list(model.layer_Dict['Decoder'].parameters())
+              if freeze_decoder else [])
 
     def train_step(batch: Batch) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad()
@@ -111,10 +160,16 @@ def make_train_step(config, model: GlowTTS, optimizer: RAdam, *,
                         deterministic=False,
                         seed=flow_seed(seed, optimizer.count),
                         generator=generator, stack_fn=stack_fn,
+                        linear_alignment=linear_alignment,
+                        anchored_alignment=anchored_alignment,
+                        em_alignment=em_alignment,
+                        em_stats=em_state.stats if em_alignment else None,
                         **conditioning_inputs(batch))
         loss_dict = compute_losses(config, outputs, batch)
         loss_dict['total'].backward()
-        grad_norm = optimizer.step()
+        grad_norm = optimizer.step(frozen)
+        if em_alignment:
+            em_state.stats = outputs['em_stats']
         # the deterministic path packs the new weights at its next use
         model.layer_Dict['Decoder'].invalidate()
         metrics = {key: value.detach() for key, value in loss_dict.items()}

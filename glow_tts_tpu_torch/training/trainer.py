@@ -15,7 +15,11 @@ checkpoint holds the weights, the optimiser's count and moments
 run's seed and the generator's state, and the epoch and the batches
 already consumed in it follow from the step, as the JAX trainer derives
 them.  SIGTERM and Ctrl-C stop the loop between two steps and save the
-step reached.  The JAX trainer's prosody check (an embedding projector of
+step reached.  The alignment curriculum (``Train.Alignment_Warmup_Steps``
+with its mode, ``Train.Decoder_Freeze_Steps``) builds one step function per
+variant it needs and picks one per step, as the JAX trainer does; the 'em'
+warmup's table statistics are the trainer's (``self.em``) and ride in the
+checkpoints.  The JAX trainer's prosody check (an embedding projector of
 GST vectors) is not ported: it is a writer of images and embeddings
 (``ROADMAP.md`` A.8).
 """
@@ -37,13 +41,15 @@ from glow_tts_tpu_torch.inference import Inferencer
 from glow_tts_tpu_torch.models.glow_tts import GlowTTS, initial_state_dict
 from glow_tts_tpu_torch.text import Tokenizer, load_token_dict
 from glow_tts_tpu_torch.training.checkpoint import (CheckpointManager,
+                                                    restored_em_stats,
                                                     train_payload)
 from glow_tts_tpu_torch.training.optim import (learning_rate_at,
                                                make_optimizer)
-from glow_tts_tpu_torch.training.step import (attention_diagonality,
+from glow_tts_tpu_torch.training.step import (EMState,
+                                              attention_diagonality,
                                               batch_to_device,
                                               conditioning_inputs,
-                                              make_eval_step,
+                                              init_em_stats, make_eval_step,
                                               make_train_step)
 from glow_tts_tpu_torch.utils.logging import StepTimer, SummaryLogger, logger
 from glow_tts_tpu_torch.weights import load_ge2e_checkpoint, load_state_dict
@@ -131,6 +137,8 @@ class Trainer:
         self.seed = RUN_SEED
         self.generator = torch.Generator(self.device).manual_seed(self.seed)
         self.step = self.epoch = 0
+        self.em = EMState(init_em_stats(cfg, self.device)
+                          if cfg.train.uses_em_stats else None)
         if payload is not None:
             load_state_dict(self.model, payload['Model'])
             # the deterministic path packs the restored weights at its
@@ -140,11 +148,37 @@ class Trainer:
             self.generator.set_state(payload['generator'])
             self.seed, self.step = payload['seed'], payload['Steps']
             self.epoch = payload['Epochs']
+            self.em.stats = restored_em_stats(payload, cfg, self.device)
             logger.info('Restored checkpoint at step %d', self.step)
         self.train_step = make_train_step(cfg, self.model, self.optimizer,
                                           seed=self.seed,
                                           generator=self.generator)
+        # the curriculum's variants, keyed (warmup, frozen decoder), only
+        # those its step counts ask for
+        train = cfg.train
+        mode = train.alignment_warmup_mode
+        self.curriculum_steps = {
+            (warm, frozen): make_train_step(
+                cfg, self.model, self.optimizer, seed=self.seed,
+                generator=self.generator,
+                linear_alignment=warm and mode == 'linear',
+                anchored_alignment=warm and mode == 'anchored',
+                em_alignment=warm and mode == 'em', freeze_decoder=frozen,
+                em_state=self.em)
+            for warm in (True, False) for frozen in (True, False)
+            if (warm or frozen)
+            and (train.alignment_warmup_steps or not warm)
+            and (train.decoder_freeze_steps or not frozen)}
         self.eval_step = make_eval_step(cfg, self.model)
+
+    def step_function(self, step: int):
+        """The train step that step ``step`` (0-based) runs: the
+        curriculum's variant for (``step`` < the warmup's steps, ``step`` <
+        the freeze's steps), or the plain step."""
+        train = self.config.train
+        return self.curriculum_steps.get(
+            (step < train.alignment_warmup_steps,
+             step < train.decoder_freeze_steps), self.train_step)
 
     def train_loader(self, seed: int) -> DataLoader:
         """Epoch ``seed``'s batches, ``num_workers`` producer threads."""
@@ -156,7 +190,7 @@ class Trainer:
     def save_checkpoint(self) -> str:
         return self.checkpoints.save(self.step, train_payload(
             self.model, self.optimizer, self.step, self.epoch, self.seed,
-            self.generator))
+            self.generator, self.em.stats))
 
     # ------------------------------------------------------------------
 
@@ -197,7 +231,7 @@ class Trainer:
                     if stop:
                         raise KeyboardInterrupt(stop[0])
                     frames = int(batch['mel_lengths'].sum())
-                    metrics = self.train_step(
+                    metrics = self.step_function(self.step)(
                         batch_to_device(batch, self.device))
                     self.step += 1
                     self._after_step(metrics, frames)

@@ -1,11 +1,11 @@
-"""What the port's ``load_config`` does with the YAML keys it has no field
-for and that would change what a run computes (``glow_tts_tpu_torch/
-config.py``):
+"""What the port's ``load_config`` does with the YAML keys that change what a
+run computes (``glow_tts_tpu_torch/config.py``):
 
-* an alignment curriculum (``Train.Alignment_Warmup_Steps``,
-  ``Train.Decoder_Freeze_Steps`` non-zero; ``configs/MiniSpeech.yaml``)
-  raises ``NotImplementedError`` naming ``ROADMAP.md`` A.3, where it used to
-  load as a plain run;
+* the alignment curriculum (``Train.Alignment_Warmup_Steps`` with its
+  mode, ``Train.Decoder_Freeze_Steps`` and the EM and anchor fields) loads
+  as the JAX package loads it, field for field, in either key case
+  (``configs/MiniSpeech.yaml`` among them), and an unknown warmup mode
+  raises ``ValueError`` as there;
 * a compute dtype other than float32 (``TPU.compute_dtype``, or the
   reference's ``Use_Mixed_Precision``) and more than one device
   (``data_parallel`` or ``model_parallel`` above 1; 0 means all devices)
@@ -48,30 +48,82 @@ def _load(data):
     return config, [str(w.message) for w in caught]
 
 
-def test_minispeech_curriculum_is_refused(fresh):
-    with pytest.raises(NotImplementedError, match='A.3') as err:
-        load_config(os.path.join(REPO, 'configs', 'MiniSpeech.yaml'))
-    assert 'Alignment_Warmup_Steps' in str(err.value)
+def _fields(port_obj, jax_obj, path=''):
+    """(path, port value, JAX value) for every leaf field of the port's
+    config (``tests/test_torch_weights.py::_port_fields``, the backend
+    compared by name elsewhere)."""
+    for f in dataclasses.fields(port_obj):
+        if f.name == 'coupling_backend':
+            continue
+        value = getattr(port_obj, f.name)
+        ref = (getattr(jax_obj.tpu, f.name)
+               if f.name in ('token_bucket', 'mel_bucket')
+               else getattr(jax_obj, f.name))
+        if dataclasses.is_dataclass(value):
+            yield from _fields(value, ref, f'{path}{f.name}.')
+        else:
+            yield f'{path}{f.name}', value, ref
+
+
+CURRICULUM_FIELDS = ('alignment_warmup_steps', 'alignment_warmup_mode',
+                     'em_stats_decay', 'em_distill_weight',
+                     'anchor_pause_tokens', 'anchor_silence_level',
+                     'decoder_freeze_steps')
+
+
+def test_minispeech_loads_field_for_field_like_jax(fresh):
+    """The repo's converged recipe: the EM warmup and the decoder freeze,
+    5000 steps each, the space token as the pause; one dtype warning."""
+    path = os.path.join(REPO, 'configs', 'MiniSpeech.yaml')
+    config, messages = _load(path)
+    assert len(messages) == 1 and 'compute_dtype' in messages[0]
+    ref = jax_load_config(path)
+    fields = list(_fields(config, ref))
+    names = [name for name, _, _ in fields]
+    assert all(f'train.{key}' in names for key in CURRICULUM_FIELDS)
+    for name, value, expected in fields:
+        assert value == expected, name
+    train = config.train
+    assert (train.alignment_warmup_mode, train.alignment_warmup_steps,
+            train.decoder_freeze_steps, train.anchor_pause_tokens,
+            config.decoder.num_squeeze) == ('em', 5000, 5000, (2,), 1)
+    assert train.uses_em_stats
+
+
+def test_curriculum_defaults_are_the_jax_packages(fresh):
+    config, ref = load_config({}), jax_load_config({})
+    for key in CURRICULUM_FIELDS:
+        assert getattr(config.train, key) == getattr(ref.train, key), key
+    assert not config.train.uses_em_stats
 
 
 @pytest.mark.parametrize('key', ['Alignment_Warmup_Steps',
                                  'Decoder_Freeze_Steps'])
-@pytest.mark.parametrize('value,raises', [(0, False), (1, True),
-                                          (5000, True)])
-def test_curriculum_keys_raise_when_not_zero(fresh, key, value, raises):
+@pytest.mark.parametrize('value', [0, 1, 5000])
+@pytest.mark.parametrize('lower', [False, True])
+def test_curriculum_keys_load_like_jax(fresh, key, value, lower):
     data = _yaml('Hyper_Parameters.yaml')
-    data['Train'][key] = value
-    if raises:
-        with pytest.raises(NotImplementedError, match='A.3'):
-            load_config(data)
-    else:
-        assert load_config(data) == load_config(_yaml(
-            'Hyper_Parameters.yaml'))
+    data['TPU']['compute_dtype'] = 'float32'
+    data['Train'][key.lower() if lower else key] = value
+    data['Train']['Alignment_Warmup_Mode'] = 'anchored'
+    data['Train']['Anchor_Pause_Tokens'] = [2, 5]
+    config, messages = _load(data)
+    assert messages == []
+    assert getattr(config.train, key.lower()) == value
+    ref = jax_load_config(copy.deepcopy(data))
+    for name in CURRICULUM_FIELDS:
+        assert getattr(config.train, name) == getattr(ref.train, name), name
+    assert config.train.anchor_pause_tokens == (2, 5)
 
 
-def test_lower_case_keys_raise_too(fresh):
-    with pytest.raises(NotImplementedError, match='A.3'):
-        load_config({'train': {'decoder_freeze_steps': 10}})
+@pytest.mark.parametrize('mode', ['anchor', 'EM', 'Linear'])
+def test_typod_warmup_mode_raises_like_jax(fresh, mode):
+    data = {'Train': {'Alignment_Warmup_Mode': mode,
+                      'Alignment_Warmup_Steps': 10}}
+    with pytest.raises(ValueError, match='Alignment_Warmup_Mode'):
+        jax_load_config(copy.deepcopy(data))
+    with pytest.raises(ValueError, match='Alignment_Warmup_Mode'):
+        load_config(data)
 
 
 def test_shipped_yaml_loads_unchanged_with_one_dtype_warning(fresh):

@@ -40,7 +40,15 @@ version and autograd of it at tile edges and at a train batch's ragged
 lengths, ``dw_pitch`` and ``dpitch`` included, bit-equal twice and between
 the stored and the recomputed route, ``dpitch`` skipped when the pitch
 wants no gradient, and one GR train step at the shipped width against the
-same step through the plain versions.
+same step through the plain versions.  MiniSpeech's 80-channel builds
+(``Num_Squeeze: 1``) of the flow step, the coupling, the stack and the
+train pair: each library reports its width, each against its plain
+version at tile edges and on ragged masks (the stack bit for bit against
+the chain), their launches counted apart, the backward's activation-
+gradient product over a depth of 80 (not a multiple of its 32-deep
+slice), the routes bit-equal, the pitch operand refused at 80 channels,
+and one EM + freeze train step at MiniSpeech's config against the plain
+versions.
 Needs a GPU and nvcc; skipped without.
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -391,7 +399,7 @@ def _rel(got, ref):
 
 def _train_both(device, lengths, rate, with_cond=False, z_weight=1.0,
                 ld_weight=0.7, seed=11, route=None, holes=(),
-                with_pitch=False, pitch_grad=True):
+                with_pitch=False, pitch_grad=True, c=160):
     """Kernel and plain version on the same leaves; returns the two
     results as dicts of values and gradients.  ``route`` forces what the
     kernels' forward pass leaves for the backward pass (``'store'`` or
@@ -399,20 +407,21 @@ def _train_both(device, lengths, rate, with_cond=False, z_weight=1.0,
     ``(sample, first frame, end frame)`` spans masked out below the
     sample's length.  ``with_pitch`` adds GR mode's pitch operand (not zero
     past the lengths) and ``w_pitch``; the pitch is a leaf that requires a
-    gradient unless ``pitch_grad`` is false."""
+    gradient unless ``pitch_grad`` is false.  ``c`` is the flow's width
+    (80: MiniSpeech's build)."""
     def kernels(xl, mask, leaves, cl, pl, seed, dropout_rate):
         return tg._apply_kernels(xl, mask, leaves, cl, seed, dropout_rate,
                                  route, pitch=pl)
 
     gen = torch.Generator().manual_seed(sum(lengths) + len(lengths))
     b, t = len(lengths), max(lengths)
-    weights = _stack_weights(gen, device)
+    weights = _stack_weights(gen, device, c=c)
     mask = (torch.arange(t)[None, :] < torch.tensor(lengths)[:, None]
             ).float()[..., None]
     for sample, first, end in holes:
         mask[sample, first:end] = 0
-    x = (torch.randn((b, t, 160), generator=gen) * mask).to(device)
-    zt = torch.randn((b, t, 160), generator=gen).to(device)
+    x = (torch.randn((b, t, c), generator=gen) * mask).to(device)
+    zt = torch.randn((b, t, c), generator=gen).to(device)
     wl = torch.arange(1., b + 1.).to(device)
     cond = (torch.randn((2, 4, b, 384), generator=gen) * .2).to(device) \
         if with_cond else None
@@ -661,7 +670,7 @@ def test_train_wrapper_refuses_what_the_kernels_do_not_take(device):
     with pytest.raises(ValueError, match='float32'):
         tg.flow_stack_train(x.double(), mask, w, seed=0)
     with pytest.raises(ValueError, match='built for'):
-        tg.flow_stack_train(x[:, :, :80].contiguous(), mask, w, seed=0)
+        tg.flow_stack_train(x[:, :, :96].contiguous(), mask, w, seed=0)
     with pytest.raises(ValueError, match='cond'):
         tg.flow_stack_train(x, mask, w,
                             torch.zeros((2, 4, 3, 384), device=device),
@@ -727,7 +736,7 @@ def test_coupling_wrapper_refuses_what_the_kernel_does_not_take(device):
     with pytest.raises(ValueError, match='float32'):
         tc.coupling(x_a.double(), x_b, mask, w, cond)
     with pytest.raises(ValueError, match='built for'):
-        tc.coupling(x[..., :40], x[..., 40:80], mask, w, cond)
+        tc.coupling(x[..., :48], x[..., 48:96], mask, w, cond)
     with pytest.raises(ValueError, match='16-byte'):     # rows off by 4 bytes
         tc.coupling(x[..., 1:81], x_b, mask, w, cond)
     with pytest.raises(ValueError, match='unit stride'):
@@ -906,7 +915,7 @@ def test_flow_stack_wrapper_refuses_what_the_kernel_does_not_take(device):
     with pytest.raises(ValueError, match='float32'):
         tc.flow_stack(x.double(), mask, w, cond)
     with pytest.raises(ValueError, match='built for'):
-        tc.flow_stack(x[:, :, :80].contiguous(), mask, w, cond)
+        tc.flow_stack(x[:, :, :96].contiguous(), mask, w, cond)
     with pytest.raises(ValueError, match='cond'):
         tc.flow_stack(x, mask, w, cond[:1])
     with pytest.raises(ValueError, match='ld_const'):
@@ -1244,3 +1253,262 @@ def test_gr_train_step_on_the_card_matches_the_plain_versions(device):
         bar = 1e-3 if key == 'grad_norm' else 1e-4
         assert np.isfinite(got[key]), key
         assert abs(got[key] - value) <= bar * abs(value), (key, got, ref)
+
+
+# ---------------------------------------------------------------------------
+# the 80-channel builds (MiniSpeech, Num_Squeeze 1)
+# ---------------------------------------------------------------------------
+
+C80 = 80
+
+
+def test_each_build_reports_its_width(device):
+    for load in (tc.load_flow_step_library, tc.load_coupling_library,
+                 tc.load_flow_stack_library, tg.load_train_forward_library,
+                 tg.load_train_backward_library):
+        for channels in (160, C80):
+            assert load(channels=channels).glow_flow_channels() == channels
+
+
+def _c80_counts():
+    return {f'{fn.__name__}.{name}': getattr(fn, name) for fn, names in (
+        (tc.flow_step, ('launches', 'c80_launches')),
+        (tc.coupling, ('launches', 'c80_launches')),
+        (tc.flow_stack, ('launches', 'c80_launches')),
+        (tg.flow_stack_train, ('forward_launches', 'forward_c80_launches',
+                               'backward_launches', 'backward_c80_launches',
+                               'recompute_c80_launches')))
+        for name in names}
+
+
+def _moved(before):
+    after = _c80_counts()
+    return {key: after[key] - before[key] for key in after
+            if after[key] != before[key]}
+
+
+@pytest.mark.parametrize('length', [1, 33, 70])
+@pytest.mark.parametrize('reverse', [False, True])
+def test_c80_flow_step_matches_plain(device, length, reverse):
+    gen = torch.Generator().manual_seed(200 + length)
+    w, cond = _weights(gen, device, c=C80)
+    x, mask = _ragged(gen, [length, 1, max(length // 2, 1), length], device,
+                      c=C80)
+    before = _c80_counts()
+    z, ld = tc.flow_step(x, mask, w, cond, reverse)
+    torch.cuda.synchronize()
+    assert _moved(before) == {'flow_step.c80_launches': 1}
+    z_ref, ld_ref = tc.flow_step_reference(x, mask, w, cond, reverse)
+    assert _rel(z, z_ref) < REL
+    assert (z[mask.expand_as(z) == 0] == 0).all()
+    if not reverse:
+        assert _rel(ld, ld_ref) < REL
+    # the other direction takes the inverse mixing
+    inverse = dict(w, mix_t=torch.linalg.inv(w['mix_t']).contiguous())
+    back, _ = tc.flow_step(z, mask, inverse, cond, not reverse)
+    assert _rel(back, x) < 1e-4
+
+
+@pytest.mark.parametrize('lengths', [[70, 1, 35, 64], [512, 33, 1]])
+@pytest.mark.parametrize('reverse', [False, True])
+def test_c80_coupling_matches_plain(device, lengths, reverse, planted_nan):
+    gen = torch.Generator().manual_seed(210 + len(lengths))
+    w, _ = _weights(gen, device, c=C80)
+    x, mask = _ragged(gen, lengths, device, c=C80)
+    cond = (torch.randn((4, len(lengths), 384), generator=gen) * .2
+            ).to(device)
+    x_a, x_b = x[..., :40], x[..., 40:]           # views of one tensor
+    before = _c80_counts()
+    tiles = tc.tile_report(device)
+    z_b, ld = tc._coupling_kernel(x_a, x_b, mask, w, cond, reverse=reverse,
+                                  tiles=tiles)
+    torch.cuda.synchronize()
+    z_ref, ld_ref = tc.coupling_reference(x_a, x_b, mask, w, cond,
+                                          reverse=reverse)
+    assert torch.isfinite(z_b).all() and _rel(z_b, z_ref) < REL
+    assert (z_b[mask.expand_as(z_b) == 0] == 0).all()
+    if not reverse:
+        assert _rel(ld, ld_ref) < REL
+    items = tc.live_tile_schedule(tc.valid_lengths(mask).tolist(),
+                                  x.shape[1])
+    got = dict(zip(tc.TILE_COUNTS, tiles.tolist()))
+    assert got['live'] == got['computed'] == sum(
+        live for _, _, live in items)
+    z_b2, _ = tc.coupling(x_a.contiguous(), x_b.contiguous(), mask, w, cond,
+                          reverse=reverse)
+    assert torch.equal(z_b, z_b2)
+    assert _moved(before) == {'coupling.c80_launches': 2}
+
+
+@pytest.mark.parametrize('case', range(len(RAGGED_STACKS)))
+@pytest.mark.parametrize('reverse', [False, True])
+def test_c80_flow_stack_is_the_chain_bit_for_bit(device, case, reverse,
+                                                 planted_nan):
+    lengths, holes = RAGGED_STACKS[case]
+    t, steps = 512, 12
+    gen = torch.Generator().manual_seed(220 + case)
+    w = _stack_weights(gen, device, steps=steps, c=C80)
+    del w['b_in']
+    w = tc.with_tensor_core_weights(w)
+    mask = _ragged_mask(lengths, holes, t, device)
+    x = (torch.randn((len(lengths), t, C80), generator=gen) * 3).to(device)
+    cond = (torch.randn((steps, 4, len(lengths), 384), generator=gen) * .2
+            ).to(device)
+    before = _c80_counts()
+    z, ld = tc.flow_stack(x, mask, w, cond, reverse=reverse)
+    assert _moved(before) == {'flow_stack.c80_launches': 1}
+    z_chain, ld_chain = _chain(x, mask, w, cond, reverse)
+    z_ref, ld_ref = tc.flow_stack_reference(x, mask, w, cond,
+                                            reverse=reverse)
+    torch.cuda.synchronize()
+    assert torch.isfinite(z).all() and torch.equal(z, z_chain)
+    assert _rel(z, z_ref) < REL
+    assert (z[mask[..., 0] == 0] == 0).all()
+    if not reverse:
+        assert _rel(ld, ld_chain) < 1e-5 and _rel(ld, ld_ref) < REL
+
+
+@pytest.mark.parametrize('rate', [0.0, 0.05])
+@pytest.mark.parametrize('lengths', [[1], [33, 1, 16, 33], [200, 1, 130],
+                                     [129, 128, 127]])
+def test_c80_train_kernels_match_plain(device, lengths, rate):
+    before = _c80_counts()
+    got, ref = _train_both(device, lengths, rate, c=C80)
+    assert _moved(before) == {
+        'flow_stack_train.forward_c80_launches': 2,
+        'flow_stack_train.backward_c80_launches': 2 * 22}
+    _assert_train_agrees(got, ref)
+
+
+@pytest.mark.parametrize('with_cond', [False, True])
+def test_c80_train_routes_and_runs_are_bit_equal(device, with_cond):
+    lengths = [200, 1, 130]
+    stored, ref = _train_both(device, lengths, 0.05, with_cond=with_cond,
+                              route='store', c=C80)
+    again, _ = _train_both(device, lengths, 0.05, with_cond=with_cond,
+                           route='store', c=C80)
+    before = _c80_counts()
+    recomputed, _ = _train_both(device, lengths, 0.05, with_cond=with_cond,
+                                route='recompute', c=C80)
+    assert _moved(before)[
+        'flow_stack_train.recompute_c80_launches'] == 2
+    _assert_train_agrees(recomputed, ref)
+    for key in stored:
+        assert torch.equal(stored[key], recomputed[key]), key
+        assert torch.equal(stored[key], again[key]), key
+
+
+@pytest.mark.parametrize('lengths', [[40], [200, 1, 130, 0]])
+@pytest.mark.parametrize('width', [192, 80])
+def test_c80_backward_dgrad_over_a_depth_of_80(device, lengths, width):
+    """The end conv's and the mixing's activation gradients contract over
+    C = 80, which is not a multiple of the 32-deep slice: the last slice is
+    zero-filled past the depth."""
+    gen = torch.Generator().manual_seed(230 + width + sum(lengths))
+    t = max(lengths)
+    mask = (torch.arange(t)[None, :] < torch.tensor(lengths)[:, None]
+            ).float()[..., None].to(device)
+    a = torch.randn((len(lengths), t, C80), generator=gen).to(device) * mask
+    w = (torch.randn((1, width, C80), generator=gen) * .1).to(device)
+    ref = (a.double() @ w[0].double().T) * mask
+    got = tg._dgrad_product(a, w, mask, channels=C80)
+    assert _rel(got.double(), ref) < REL / 2
+    assert (got[(mask == 0).expand_as(got)] == 0).all()
+    with pytest.raises(ValueError, match='dgrad'):
+        tg._dgrad_product(a, w, mask)          # the 160 build: 32-deep only
+
+
+def test_c80_refuses_the_pitch_operand(device):
+    gen = torch.Generator().manual_seed(240)
+    w, cond = _weights(gen, device, c=C80)
+    x, mask = _ragged(gen, [8, 8, 8, 8], device, c=C80)
+    w['w_pitch'] = torch.zeros((4, 2, 384), device=device)
+    with pytest.raises(ValueError, match='B.2'):
+        tc.flow_step(x, mask, w, cond,
+                     pitch=torch.zeros((4, 8, 2), device=device))
+    stack = _stack_weights(gen, device, c=C80)
+    stack['w_pitch'] = torch.zeros((2, 4, 2, 384), device=device)
+    with pytest.raises(ValueError, match='B.2'):
+        tg.flow_stack_train(x, mask, stack, None,
+                            torch.zeros((4, 8, 2), device=device), seed=0)
+
+
+def test_c80_em_freeze_train_step_matches_the_plain_versions(device):
+    """One EM + freeze train step at ``configs/MiniSpeech.yaml`` (80 flow
+    channels), batch 4 of the EM-lockable corpus's kind (pause token 2 on
+    silent frames), random weights, through the kernels (#5 and #6 at 80
+    channels, MAS twice) and through the plain versions from the same
+    weights, seed and generator state: losses within 1e-4, the gradient
+    norm within 1e-3, the EM statistics within 1e-4, the decoder
+    bit-unchanged in both."""
+    import os
+    import warnings
+
+    import numpy as np
+    from glow_tts_tpu_torch import (load_config, make_optimizer,
+                                    random_state_dict)
+    from glow_tts_tpu_torch.models.glow_tts import GlowTTS
+    from glow_tts_tpu_torch.training.step import (EMState, init_em_stats,
+                                                  make_train_step)
+    from glow_tts_tpu_torch.weights import load_state_dict
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')      # its bf16: the port runs f32
+        cfg = load_config(os.path.join(repo, 'configs', 'MiniSpeech.yaml'))
+    rng = np.random.default_rng(5)
+    b, t_tok, t_mel = 4, 24, 160
+    tokens = rng.integers(3, 13, (b, t_tok)).astype(np.int64)
+    tokens[:, 2::3] = 2
+    token_lengths = np.array([24, 20, 9, 15])
+    mel_lengths = np.array([160, 120, 60, 100])
+    owners = np.minimum(np.arange(t_mel)[None, :] * token_lengths[:, None]
+                        // mel_lengths[:, None], t_tok - 1)
+    signatures = rng.normal(0, 2, (13, 80))
+    mels = np.take_along_axis(tokens, owners, 1)
+    mels = np.where((mels == 2)[..., None], -4.0, signatures[mels])
+    mels = mels + rng.normal(0, 0.1, mels.shape)
+    mels[np.arange(t_mel)[None, :] >= mel_lengths[:, None]] = -4.0
+    batch = {key: torch.as_tensor(value).to(device) for key, value in {
+        'tokens': np.where(np.arange(t_tok)[None] < token_lengths[:, None],
+                           tokens, 0),
+        'token_lengths': token_lengths.astype(np.int32),
+        'mels': mels.astype(np.float32),
+        'mel_lengths': mel_lengths.astype(np.int32)}.items()}
+    state = random_state_dict(cfg, 0)
+    results = {}
+    for name, fns in (('kernels', {}), (
+            'plain', {'stack_fn': tg.flow_stack_train_reference,
+                      'mas_fn': tm.maximum_path_reference})):
+        model = load_state_dict(GlowTTS(cfg), state).to(device).prepare(
+            fold=False)
+        model.data_dependent_init(
+            batch['mels'], batch['mel_lengths'],
+            step_fn=tc.flow_step if name == 'kernels'
+            else tc.flow_step_reference)
+        decoder = {key: p.detach().clone() for key, p in
+                   model.layer_Dict['Decoder'].named_parameters()}
+        em = EMState(init_em_stats(cfg, device))
+        step = make_train_step(
+            cfg, model, make_optimizer(cfg, model.parameters()), seed=0,
+            generator=torch.Generator(device=device).manual_seed(0),
+            em_alignment=True, freeze_decoder=True, em_state=em, **fns)
+        before = _c80_counts()
+        mas_before = tm.maximum_path.launches
+        metrics = {key: value.item() for key, value in step(batch).items()}
+        if name == 'kernels':
+            assert _moved(before) == {
+                'flow_stack_train.forward_c80_launches': 12,
+                'flow_stack_train.backward_c80_launches': 12 * 22}
+            assert tm.maximum_path.launches == mas_before + 2
+        for key, p in model.layer_Dict['Decoder'].named_parameters():
+            assert torch.equal(p, decoder[key]), key
+        results[name] = metrics, em.stats
+    (got, got_stats), (ref, ref_stats) = results['kernels'], results['plain']
+    assert set(got) == {'mle', 'duration', 'distill', 'total', 'grad_norm'}
+    for key, value in ref.items():
+        bar = 1e-3 if key == 'grad_norm' else 1e-4
+        assert np.isfinite(got[key]), key
+        assert abs(got[key] - value) <= bar * abs(value), (key, got, ref)
+    for a, r in zip(got_stats, ref_stats):
+        assert _rel(a, r) < 1e-4
