@@ -48,9 +48,18 @@ the decoder frozen, a released, an anchored and a linear step through
 the kernels and through the plain versions (every MAS path equal), the
 EM step timed beside a learned-prior MAS step, an eval step under each
 route, and a ``Trainer`` with the warmup and the freeze over 2 of its 4
-steps resumed from step 1 against its uninterrupted run.  Exits non-zero
-on any failure and when no CUDA device is present; the last line is one
-JSON object naming the card.
+steps resumed from step 1 against its uninterrupted run.  Last, from wavs
+to wavs: MiniSpeech's corpus (48 utterances from
+``examples/make_minispeech.py``, a subprocess) through the port's ETL on
+the card (4 patterns held against the same ETL on the CPU: the mel within
+2e-3, the pitch equal outside its near-tie frames), the recipe's
+``Trainer`` 10 steps on those patterns (#1, #5, #6 at 80 channels) and a
+checkpoint, served through ``Inferencer`` with the Griffin-Lim export
+twice (the wavs read back, bit-equal), Griffin-Lim on the card against
+the CPU, SE-GE2E, PE and GR at the shipped width served from reference-wav
+features made on the card (held against the CPU's), and the DSP and the
+export timed.  Exits non-zero on any failure and when no CUDA device is
+present; the last line is one JSON object naming the card.
 """
 
 import copy
@@ -2625,8 +2634,8 @@ def run_gr_trainer_resume(config, device):
                       SEED + 70, conditioned=True)
         write_archive(os.path.join(root, 'eval'), EVAL_PATTERNS, config,
                       SEED + 71, conditioned=True)
-        # GR serves a TSV only with reference wavs, which the port does
-        # not read yet (ROADMAP.md A.6): no inference runs here
+        # GR serves a TSV only with reference wavs (run_wav_phase serves
+        # GR from wavs): no inference runs here
         counts = PartCounts()
         a = new_trainer(config, root, 'a', TRAINER_STEPS, device, counts,
                         inference=False)
@@ -3226,6 +3235,395 @@ def run_minispeech_phase(device, card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# from wavs to wavs: the ETL, the reference-wav features and Griffin-Lim
+# ---------------------------------------------------------------------------
+
+WAV_UTTERANCES = 48            # MiniSpeech's corpus, made by its example
+WAV_EVAL = 4                   # of them held out (the eval set)
+WAV_TRAIN_STEPS = 10           # the Trainer's steps on the ETL's patterns
+WAV_CHECKED = 4                # patterns held against the ETL on the CPU
+WAV_EXPORTS = 4                # wavs the Inferencer exports, twice
+DSP_MEL_BOUND = 2e-3           # card vs CPU mel, max-abs on the ±4 scale
+NEAR_TIE = 1e-5                # a CMND this close to a YIN decision: the
+                               # frame's pitch is not held (and counted)
+GL_ONE_REL_BOUND = 1e-4        # Griffin-Lim card vs CPU, 1 iteration
+GL_SC_REL_BOUND = 0.02         # and the spectral convergence after 60
+GL_FRAMES = 1024               # the timed Griffin-Lim's mel
+REF_MODES = ('SE-GE2E', 'PE', 'GR')
+
+
+def pitch_ties(audio, sound):
+    """Frames of ``audio``'s YIN whose pitch a last-bit difference of the
+    CMND can move (the CPU's CMND within ``NEAR_TIE`` of the threshold, or
+    of the next lag on the walk to the dip)."""
+    from glow_tts_tpu_torch.ops import yin
+    tau_min = int(sound.sample_rate / sound.pitch_max)
+    tau_max = int(sound.sample_rate / sound.pitch_min)
+    cmnd = yin.yin_cmnd(torch.as_tensor(yin.pad_for_yin(
+        audio, sound.frame_length, sound.frame_shift)), sound.frame_length,
+        sound.frame_shift, tau_max).double().numpy()
+    thresh = 1.0 - sound.confidence_threshold
+    in_range = np.arange(tau_max) >= tau_min
+    below = (cmnd < thresh) & in_range
+    first = np.where(below.any(1), below.argmax(1), tau_max)
+    on_walk = np.arange(tau_max - 1)[None] >= first[:, None]
+    step = np.abs(np.diff(cmnd, axis=1))     # equal lags (silence) tie alike
+    return (((np.abs(cmnd - thresh) < NEAR_TIE) & in_range).any(1)
+            | ((0 < step) & (step < NEAR_TIE) & on_walk).any(1))
+
+
+def hold_features(card, cpu, audios, sound, what, device):
+    """Card features against the CPU's: the mels of ``card`` and ``cpu``
+    within ``DSP_MEL_BOUND``, and the raw YIN of each of ``audios`` on the
+    card equal to the CPU's outside its near-tie frames (raw, so that a
+    tie cannot move the normalisation).  Returns (worst mel error,
+    near-tie frames, pitch frames)."""
+    from glow_tts_tpu_torch.ops import yin
+    worst, ties, frames = 0.0, 0, 0
+    for key in card:
+        if key.startswith('mel'):
+            assert card[key].shape == cpu[key].shape, (what, key)
+            worst = max(worst, float(np.abs(card[key] - cpu[key]).max()))
+    for audio in audios:
+        kwargs = dict(w_len=sound.frame_length, w_step=sound.frame_shift,
+                      f0_min=sound.pitch_min, f0_max=sound.pitch_max,
+                      confidence_threshold=sound.confidence_threshold)
+        got = yin.pitch_calc(audio, sound.sample_rate, device=device,
+                             **kwargs)
+        want = yin.pitch_calc(audio, sound.sample_rate, device='cpu',
+                              **kwargs)
+        tie = pitch_ties(audio, sound)
+        assert got.shape == want.shape == tie.shape, what
+        assert np.array_equal(got[~tie], want[~tie]), (what, np.flatnonzero(
+            got != want))
+        ties, frames = ties + int(tie.sum()), frames + tie.size
+    assert worst <= DSP_MEL_BOUND, (what, worst)
+    assert ties <= 0.05 * max(frames, 20), (what, ties, frames)
+    return worst, ties, frames
+
+
+def spectral_convergence(audio, magnitude, sound):
+    """||M - |STFT(y)||| / ||M||, in float64 on the CPU."""
+    from glow_tts_tpu_torch.ops import vocoder
+    n_fft = (sound.spectrogram_dim - 1) * 2
+    rebuilt = vocoder._stft_complex(
+        torch.as_tensor(audio, dtype=torch.float64), n_fft,
+        sound.frame_shift, sound.frame_length).abs()[:magnitude.shape[0]]
+    target = torch.as_tensor(magnitude, dtype=torch.float64)
+    return float(torch.linalg.norm(target - rebuilt)
+                 / torch.linalg.norm(target))
+
+
+def check_griffin_lim(mel, sound, device):
+    """Griffin-Lim on the card against the CPU from the same start phase:
+    within ``GL_ONE_REL_BOUND`` after one iteration; after 60, their
+    spectral convergences within ``GL_SC_REL_BOUND`` of each other."""
+    from glow_tts_tpu_torch.ops import vocoder
+    n_fft = (sound.spectrogram_dim - 1) * 2
+    magnitude = vocoder.mel_to_magnitude(
+        torch.as_tensor(mel), sound.sample_rate, sound.spectrogram_dim,
+        sound.mel_dim, sound.mel_f_min, sound.mel_f_max,
+        max_abs_value=sound.max_abs_mel)
+    angles = vocoder.start_angles(magnitude.shape)
+    out = {}
+    for iterations in (1, 60):
+        waves = [vocoder.griffin_lim(
+            magnitude.to(where), n_fft, sound.frame_shift, sound.frame_length,
+            iterations=iterations, angles=angles).cpu().numpy()
+            for where in (device, 'cpu')]
+        if iterations == 1:
+            out['one_iteration_rel_err'] = float(
+                np.abs(waves[0] - waves[1]).max() / np.abs(waves[1]).max())
+        else:
+            card, cpu = (spectral_convergence(w, magnitude, sound)
+                         for w in waves)
+            out.update(sc_card=card, sc_cpu=cpu)
+    print(f'Griffin-Lim, card against CPU from the same start phase '
+          f'({mel.shape[0]} frames): after 1 iteration '
+          f'{out["one_iteration_rel_err"]:.3e} of max-abs (bar '
+          f'{GL_ONE_REL_BOUND}); spectral convergence after 60: card '
+          f'{out["sc_card"]:.6f}, CPU {out["sc_cpu"]:.6f} (bar '
+          f'{GL_SC_REL_BOUND} relative)')
+    assert out['one_iteration_rel_err'] <= GL_ONE_REL_BOUND, out
+    assert (abs(out['sc_card'] - out['sc_cpu'])
+            <= GL_SC_REL_BOUND * out['sc_cpu']), out
+    return out
+
+
+def time_dsp(audio, mel, sound, device):
+    """Device ms, by events after warm-up: the mel and the YIN of
+    ``audio`` per second of it, and Griffin-Lim's 60 iterations on a
+    ``GL_FRAMES``-frame mel (``mel`` tiled)."""
+    from glow_tts_tpu_torch.ops import stft, vocoder, yin
+    seconds = audio.shape[0] / sound.sample_rate
+    wave = torch.as_tensor(audio, device=device)
+    padded = torch.as_tensor(yin.pad_for_yin(
+        audio, sound.frame_length, sound.frame_shift), device=device)
+    mel_ms = cuda_ms(lambda: stft.mel_spectrogram(
+        wave, sound.sample_rate, sound.spectrogram_dim, sound.mel_dim,
+        sound.frame_length, sound.frame_shift, mel_fmin=sound.mel_f_min,
+        mel_fmax=sound.mel_f_max, max_abs_value=sound.max_abs_mel), 20)
+    yin_ms = cuda_ms(lambda: yin.compute_yin_frames(
+        padded, sound.sample_rate, sound.frame_length, sound.frame_shift,
+        sound.pitch_min, sound.pitch_max,
+        1.0 - sound.confidence_threshold), 20)
+    long_mel = np.tile(mel, (-(-GL_FRAMES // mel.shape[0]), 1))[:GL_FRAMES]
+    magnitude = vocoder.mel_to_magnitude(
+        torch.as_tensor(long_mel, device=device), sound.sample_rate,
+        sound.spectrogram_dim, sound.mel_dim, sound.mel_f_min,
+        sound.mel_f_max, max_abs_value=sound.max_abs_mel)
+    angles = vocoder.start_angles(magnitude.shape, device)
+    n_fft = (sound.spectrogram_dim - 1) * 2
+    gl_ms = cuda_ms(lambda: vocoder.griffin_lim(
+        magnitude, n_fft, sound.frame_shift, sound.frame_length,
+        angles=angles), 3, warmup=1)
+    return {'mel_ms_per_audio_sec': mel_ms / seconds,
+            'yin_ms_per_audio_sec': yin_ms / seconds,
+            'dsp_audio_sec': seconds,
+            'griffin_lim_60_ms_1024_frames': gl_ms}
+
+
+def wav_trainer(config, device):
+    """The MiniSpeech ``Trainer`` on the ETL's patterns for
+    ``WAV_TRAIN_STEPS`` steps (all in the EM warmup with the decoder
+    frozen), evaluating before and after, a checkpoint at the end; its
+    launches by part."""
+    from glow_tts_tpu_torch import Trainer
+    from glow_tts_tpu_torch.utils.logging import MemoryWriter
+    train = dataclasses.replace(
+        config.train, checkpoint_save_interval=WAV_TRAIN_STEPS,
+        logging_interval=WAV_TRAIN_STEPS // 2,
+        evaluation_interval=WAV_TRAIN_STEPS)
+    config = dataclasses.replace(config, train=train)
+    counts = PartCounts()
+    trainer = counts.wrap('wavs trainer init', lambda: Trainer(
+        config, device=device,
+        writers={'train': MemoryWriter(), 'eval': MemoryWriter()}))()
+    assert set(trainer.curriculum_steps) == {(True, True), (True, False),
+                                             (False, True)}
+    for key, fn in trainer.curriculum_steps.items():
+        trainer.curriculum_steps[key] = counts.wrap('wavs trainer train', fn)
+    trainer.eval_step = counts.wrap('wavs trainer eval', trainer.eval_step)
+    trainer.model.inference_decode = counts.wrap(
+        'wavs trainer decode', trainer.model.inference_decode)
+    start = time.perf_counter()
+    trainer.train()
+    seconds = time.perf_counter() - start
+    assert trainer.checkpoints.steps() == [WAV_TRAIN_STEPS]
+    logged = trainer.writers['train'].scalars
+    assert all(np.isfinite(v) for _, v in logged['Loss/total']), logged
+    evals = trainer.writers['eval'].scalars
+    flows, steps = config.decoder.stack, WAV_TRAIN_STEPS
+    eval_batches = -(-len(trainer.eval_dataset) // config.train.batch_size)
+    expected = {
+        'wavs trainer init': {'flow_step_c80': flows},
+        'wavs trainer train': {
+            'mas': 2 * steps, 'train_fwd_c80': flows * steps,
+            'train_bwd_c80': BWD_KERNELS_PER_FLOW_STEP * flows * steps},
+        'wavs trainer eval': {'flow_step_c80': flows * eval_batches * 2,
+                              'mas': eval_batches * 2},
+        'wavs trainer decode': {'flow_step_c80': flows * 2}}
+    for part, want in expected.items():
+        got = counts.by_part[part]
+        print(f'  launches, {part}: '
+              + json.dumps({key: v for key, v in got.items() if v}))
+        assert got == {**dict.fromkeys(COUNTERS, 0), **want}, (part, got)
+    print(f'MiniSpeech Trainer on the ETL\'s patterns: {steps} EM steps '
+          f'with the decoder frozen in {seconds:.1f} s (the evaluations and '
+          f'the checkpoint included); loss '
+          f'{[round(v, 4) for _, v in logged["Loss/total"]]}; eval mle '
+          f'{[round(v, 4) for _, v in evals["Loss/mle"]]}')
+    del trainer
+    return counts.by_part, seconds
+
+
+def export_wavs(config, device, items, root):
+    """The trained checkpoint served through ``Inferencer`` with the wav
+    export, twice: the wavs read back with the port's ``audio_io`` are
+    ``hop · (frames − 1)`` samples, finite, of peak 1, and the second
+    export's files are the first's bit for bit.  The first export warms
+    the vocoder up (cuFFT plans for each length); the second is timed.
+    Returns the launches, the real-time factors and the first result's
+    mel."""
+    from glow_tts_tpu_torch import Inferencer
+    from glow_tts_tpu_torch.data.audio_io import load_audio
+    inferencer = Inferencer(config.checkpoint_path, config, device,
+                            max_mel_length=1024)
+    inferencer.synthesize_items(items)               # warm-up
+    start = time.perf_counter()
+    inferencer.synthesize_items(items)
+    mel_wall = time.perf_counter() - start
+    results = inferencer.synthesize_items(
+        items, out_dir=os.path.join(root, 'export_a'), export_wav=True)
+    zero_counts()
+    start = time.perf_counter()
+    again = inferencer.synthesize_items(
+        items, out_dir=os.path.join(root, 'export_b'), export_wav=True)
+    full_wall = time.perf_counter() - start
+    launches = read_counts()
+    assert launches == route_launches('fused', config), launches
+    sound = config.sound
+    for result, repeat in zip(results, again):
+        name = os.path.join('WAV', f'{result["label"]}.wav')
+        with open(os.path.join(root, 'export_a', name), 'rb') as f:
+            first = f.read()
+        with open(os.path.join(root, 'export_b', name), 'rb') as f:
+            assert f.read() == first, name
+        audio = load_audio(os.path.join(root, 'export_a', name),
+                           sound.sample_rate)
+        frames = result['mel'].shape[0]
+        assert audio.shape == (sound.frame_shift * (frames - 1),), (
+            name, audio.shape, frames)
+        assert np.isfinite(audio).all() and np.abs(audio).max() == 1.0, name
+        assert np.array_equal(result['audio'], repeat['audio']), name
+    audio_sec = (sum(r['mel'].shape[0] for r in results) * sound.frame_shift
+                 / sound.sample_rate)
+    times = {'rtf_mel': mel_wall / audio_sec,
+             'rtf_total_with_vocoder_export': full_wall / audio_sec,
+             'export_audio_sec': audio_sec}
+    print(f'export: {len(results)} wavs (frames '
+          f'{[r["mel"].shape[0] for r in results]}), read back: '
+          f'hop x (frames - 1) samples, finite, peak 1; a second export '
+          f'bit-equal; ' + json.dumps(times) + f'; launches {launches}')
+    return launches, times, results[0]['mel']
+
+
+def serve_from_reference_wavs(wavs, device):
+    """SE-GE2E, PE and GR at the shipped width (random weights from a
+    seed) served from features made on the card of ``wavs`` (their
+    ``wav_for_*``), held against the same features made on the CPU; GR
+    through #3's pitch build."""
+    from glow_tts_tpu_torch import Inferencer, random_state_dict
+    from glow_tts_tpu_torch.data.pattern_generator import (
+        audio_prep, load_reference_features)
+    from glow_tts_tpu_torch.text import text_filtering
+    by_path, held = {}, {}
+    for mode in REF_MODES:
+        config = mode_config(mode)
+        inferencer = Inferencer(random_state_dict(config, SEED), config,
+                                device, batch_size=WAV_EXPORTS)
+        items = [{'label': f'r{i}', 'text': text_filtering(text),
+                  'speaker_id': i, 'wav_for_ge2e': wavs[i],
+                  'wav_for_prosody': wavs[i + 1],
+                  'wav_for_pitch': wavs[i + 2]}
+                 for i, text in enumerate(INFERENCE_TEXTS[:WAV_EXPORTS])]
+        card = [inferencer.with_features(item) for item in items]
+        cpu = [load_reference_features(config, item, 'cpu')
+               for item in items]
+        worst, ties, frames = 0.0, 0, 0
+        for i, (a, b) in enumerate(zip(card, cpu)):
+            keys = {key: a[key] for key in ('mel_for_ge2e', 'mel_for_prosody')
+                    if key in a}
+            audios = ([audio_prep(items[i]['wav_for_pitch'],
+                                  config.sound.sample_rate, 30)]
+                      if 'pitch' in a else [])
+            err, tie, n = hold_features(keys, b, audios, config.sound, mode,
+                                        device)
+            if 'pitch' in a and not tie:
+                assert np.array_equal(a['pitch'], b['pitch']), mode
+            worst, ties, frames = max(worst, err), ties + tie, frames + n
+        zero_counts()
+        results = inferencer.synthesize_items(items, seed=SEED)
+        launches = read_counts()
+        assert launches == route_launches(
+            'fused', config, pitch=mode == 'GR'), (mode, launches)
+        for r in results:
+            assert np.isfinite(r['mel']).all() and r['mel'].shape[0] > 0
+        held[mode] = {'mel_max_abs_err': worst, 'pitch_near_tie_frames': ties,
+                      'pitch_frames': frames}
+        print(f'{mode} from reference wavs (features made on the card, '
+              f'held against the CPU\'s, trimmed at 30 dB): '
+              f'{json.dumps(held[mode])}; served {len(results)} requests, '
+              f'mel frames {[r["mel"].shape[0] for r in results]}, launches '
+              f'{launches}')
+        by_path[f'serve {mode} from wavs'] = launches
+        del inferencer
+    return by_path, held
+
+
+def run_wav_phase(device, card):
+    """From wavs to wavs (``ROADMAP.md`` A.6): MiniSpeech's corpus
+    (``examples/make_minispeech.py``, a subprocess) through the port's ETL
+    on the card, held against the same ETL on the CPU; the recipe's
+    ``Trainer`` on those patterns (#1, #5, #6 at 80 channels), its
+    checkpoint served through ``Inferencer`` with the Griffin-Lim export;
+    Griffin-Lim on the card against the CPU; SE-GE2E, PE and GR served at
+    the shipped width from reference-wav features made on the card; the
+    DSP timed.  Returns the launches by path."""
+    import random
+    import shutil
+    import tempfile
+
+    from glow_tts_tpu_torch.data.pattern_generator import (
+        TOP_DB, generate_patterns, pattern_generate)
+    from glow_tts_tpu_torch.tools import minispeech_e2e as e2e
+    root = tempfile.mkdtemp(prefix='chip_smoke_wavs_')
+    try:
+        start = time.perf_counter()
+        corpus = os.path.join(root, 'corpus')
+        e2e.make_corpus(corpus, WAV_UTTERANCES, SEED)
+        corpus_sec = time.perf_counter() - start
+        config = e2e.minispeech_config(root, WAV_TRAIN_STEPS)
+        random.seed(SEED)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        generate_patterns(config, {'LJ': corpus}, use_text=True,
+                          eval_ratio=WAV_EVAL / WAV_UTTERANCES,
+                          eval_min=WAV_EVAL, device=device)
+        etl_sec = time.perf_counter() - start
+        files = {split: e2e.pattern_files(path) for split, path in (
+            ('train', config.train.train_pattern.path),
+            ('eval', config.train.eval_pattern.path))}
+        assert (len(files['train']), len(files['eval'])) == (
+            WAV_UTTERANCES - WAV_EVAL, WAV_EVAL), files
+        # the same ETL on the CPU, for a few of the utterances
+        import pickle
+        worst, ties, frames = 0.0, 0, 0
+        wavs = sorted(os.path.join(corpus, 'wavs', name)
+                      for name in os.listdir(os.path.join(corpus, 'wavs')))
+        for wav in wavs[:WAV_CHECKED]:
+            stem = os.path.splitext(os.path.basename(wav))[0].upper()
+            path, = [f for split in files.values() for f in split
+                     if os.path.basename(f) == f'LJ.{stem}.PICKLE']
+            with open(path, 'rb') as f:
+                pattern = pickle.load(f)
+            audio, mel, pitch = pattern_generate(config, wav, TOP_DB['LJ'],
+                                                 'cpu')
+            assert np.array_equal(audio, pattern['Audio']), wav
+            err, tie, n = hold_features({'mel': pattern['Mel']},
+                                        {'mel': mel}, [audio], config.sound,
+                                        wav, device)
+            if not tie:
+                assert np.array_equal(pattern['Pitch'], pitch), wav
+            worst, ties, frames = max(worst, err), ties + tie, frames + n
+        etl = {'utterances': WAV_UTTERANCES, 'corpus_sec': corpus_sec,
+               'etl_sec': etl_sec,
+               'etl_ms_per_utterance': 1e3 * etl_sec / WAV_UTTERANCES,
+               'mel_max_abs_err_vs_cpu': worst, 'pitch_near_tie_frames': ties,
+               'pitch_frames_checked': frames}
+        print('ETL on the card: ' + json.dumps(etl))
+
+        by_path, train_sec = wav_trainer(config, device)
+        items = e2e.eval_texts(config.train.eval_pattern.path, WAV_EXPORTS)
+        launches, export_times, mel = export_wavs(config, device, items,
+                                                  root)
+        by_path['wavs export'] = launches
+        with open(files['train'][0], 'rb') as f:
+            pattern = pickle.load(f)
+        gl = check_griffin_lim(pattern['Mel'], config.sound, device)
+        served, held = serve_from_reference_wavs(wavs, device)
+        by_path.update(served)
+        times = time_dsp(pattern['Audio'], pattern['Mel'], config.sound,
+                         device)
+        print('wavs: ' + json.dumps({
+            **etl, 'train_sec': train_sec, **export_times, **gl,
+            'reference_features': held, **times, 'card': card}))
+        return by_path
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: no CUDA device; this script runs on a GPU only')
@@ -3361,6 +3759,8 @@ def main():
     minispeech_rows, minispeech_paths = run_minispeech_phase(device, card)
     by_path.update(minispeech_paths)
     by_path.update(run_trainer_phase(config, device, card))
+    # from wavs to wavs: the ETL, the export and the reference-wav features
+    by_path.update(run_wav_phase(device, card))
 
     def launches(counter):
         paths = {path: counts[counter] for path, counts in by_path.items()}

@@ -2,9 +2,11 @@
 four modes (Vanilla, SE, PE, GR): the loss/eval path, the train step with
 the alignment curriculum (linear, anchored and EM warmups, the decoder
 freeze) and the trainer around it (pattern datasets, the loader,
-checkpoints with exact resume, the CLI), with the
-decoder's flow step, its coupling alone, the whole flow stack in one
-launch (the three routes of ``config.coupling_backend``), the monotonic
+checkpoints with exact resume, the CLI), the ETL from wavs and the
+Griffin-Lim export (``ops/stft.py``, ``ops/yin.py``, ``ops/vocoder.py``,
+``data/pattern_generator.py``), with the decoder's flow step, its
+coupling alone, the whole flow stack in one launch (the three routes of
+``config.coupling_backend``), the monotonic
 alignment search and the train-direction flow stack (forward and
 backward) as CUDA kernels for Hopper (H100).
 

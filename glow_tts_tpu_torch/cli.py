@@ -1,10 +1,13 @@
 """Console entry points of the port (``pyproject.toml``:
-``glow-tts-torch-train``, ``glow-tts-torch-infer``), with the flags of
-``glow_tts_tpu/cli.py`` and ``--device`` (default ``cuda``; it raises
-where CUDA is absent).
+``glow-tts-torch-train``, ``glow-tts-torch-infer``, and
+``glow-tts-torch-patterns``, the ETL of ``data/pattern_generator.py``),
+with the flags of ``glow_tts_tpu/cli.py`` and ``--device`` (default
+``cuda``; it raises where CUDA is absent).
 
+    glow-tts-torch-patterns -hp configs/MiniSpeech.yaml -lj corpus -text
     glow-tts-torch-train -hp configs/Hyper_Parameters.yaml [-s STEP]
     glow-tts-torch-infer -c results/Checkpoint [-s STEP] -f lines.tsv -o out
+        [-wav]
 """
 
 from __future__ import annotations
@@ -55,13 +58,10 @@ def infer_main(argv: Optional[Sequence[str]] = None) -> None:
     parser.add_argument('-o', '--out_dir', default='./inference_results')
     parser.add_argument('-b', '--batch_size', default=None, type=int)
     parser.add_argument('-wav', '--export_wav', action='store_true',
-                        help='wav export: not in the PyTorch port yet')
+                        help='also write Griffin-Lim wavs under <out>/WAV')
     parser.add_argument('--device', default='cuda',
                         help="torch device to serve on (default 'cuda')")
     args = parser.parse_args(argv)
-    if args.export_wav:
-        parser.error('--export_wav is not in the PyTorch port yet (it '
-                     'writes NPY mels)')
     if not args.file and not args.text:
         parser.error('give -f <tsv> or -t <text>')
 
@@ -71,10 +71,18 @@ def infer_main(argv: Optional[Sequence[str]] = None) -> None:
     inferencer = Inferencer(args.checkpoint, None, args.device,
                             batch_size=args.batch_size, step=args.step)
     if args.file:
-        results = inferencer.inference_from_file(args.file, args.out_dir)
+        results = inferencer.inference_from_file(args.file, args.out_dir,
+                                                 export_wav=args.export_wav)
     else:
         results = inferencer.inference(
             labels=[f'Sentence_{i}' for i in range(len(args.text))],
-            texts=args.text, out_dir=args.out_dir)
+            texts=args.text, out_dir=args.out_dir,
+            export_wav=args.export_wav)
     for r in results:
         print(f"{r['label']}: {r['mel'].shape[0]} frames — {r['text']}")
+
+
+def patterns_main(argv: Optional[Sequence[str]] = None) -> None:
+    """``glow-tts-torch-patterns``: the ETL (``data/pattern_generator.py``)."""
+    from glow_tts_tpu_torch.data.pattern_generator import main
+    main(argv)

@@ -45,7 +45,13 @@ class SoundConfig:
     frame_length: int = 1024
     frame_shift: int = 256
     sample_rate: int = 24000
+    mel_f_min: int = 125
+    mel_f_max: int = 7600
     max_abs_mel: float = 4.0
+    confidence_threshold: float = 0.6
+    gaussian_smoothing_sigma: float = 0.0
+    pitch_min: float = 100.0
+    pitch_max: float = 500.0
 
 
 @dataclass(frozen=True)

@@ -6,12 +6,14 @@ unless the caller asks for the CPU) and synthesises mels two-phase and
 mel-bucketed: the prior phase predicts the durations, the host picks the
 smallest mel bucket the batch fits, and the decode phase runs at that
 capacity.  The conditioned modes read, per item, a ``speaker_id`` (SE and
-GR with the look-up table) and reference features as arrays:
-``mel_for_ge2e`` (GE2E), ``mel_for_prosody`` (PE, GR) and ``pitch`` (GR),
-what ``glow_tts_tpu/data/pattern_generator.py::load_reference_features``
-makes from reference wavs in the JAX package.  Wavs themselves are not
-read yet (``ROADMAP.md`` A.6).  Results can be exported as the NPY tree
-(``utils.plotting.export_npy``); PNG figures are not ported yet.
+GR with the look-up table) and reference features: ``mel_for_ge2e``
+(GE2E), ``mel_for_prosody`` (PE, GR) and ``pitch`` (GR), as arrays or made
+on the ``Inferencer``'s device from the reference wavs the item names
+(``wav_for_ge2e``, ``wav_for_prosody``, ``wav_for_pitch``;
+``data.pattern_generator.load_reference_features``).  Results can be
+exported as the NPY tree (``utils.plotting.export_npy``) and as Griffin-Lim
+wavs (``ops.vocoder``, on the same device); PNG figures are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -24,8 +26,11 @@ import torch
 
 from glow_tts_tpu_torch.config import load_config
 from glow_tts_tpu_torch.data.collate import InferenceCollater
+from glow_tts_tpu_torch.data.pattern_generator import \
+    load_reference_features
 from glow_tts_tpu_torch.data.patterns import InferenceDataset
 from glow_tts_tpu_torch.models.glow_tts import GlowTTS
+from glow_tts_tpu_torch.ops import vocoder
 from glow_tts_tpu_torch.text import Tokenizer, load_token_dict, text_filtering
 from glow_tts_tpu_torch.training.checkpoint import SNAPSHOT, CheckpointManager
 from glow_tts_tpu_torch.utils.plotting import export_npy
@@ -108,33 +113,35 @@ class Inferencer:
         return next((b for b in self.mel_buckets if b >= need),
                     self.mel_buckets[-1])
 
-    # per mode: the array an item carries, and the wav it would be made of
+    # per mode: the array an item carries, and the wav it can be made of
     _FEATURES = (('uses_ge2e', 'mel_for_ge2e', 'wav_for_ge2e'),
                  ('uses_prosody_encoder', 'mel_for_prosody',
                   'wav_for_prosody'),
                  ('uses_gradient_reversal', 'pitch', 'wav_for_pitch'))
 
-    def _check_features(self, item: Mapping) -> None:
-        """Raise unless ``item`` carries the reference features the mode
-        needs as arrays."""
-        for mode, key, wav in self._FEATURES:
-            if getattr(self.config, mode) and item.get(key) is None:
-                if item.get(wav):
-                    raise NotImplementedError(
-                        f'{wav}: features from reference wavs are not in '
-                        f'the PyTorch port yet (ROADMAP.md A.6); pass '
-                        f'{key} as an array')
-                raise ValueError(f'{self.config.mode} mode needs {key!r} on '
-                                 f'every item (label '
-                                 f'{item.get("label")!r})')
+    def with_features(self, item: Mapping) -> Mapping:
+        """``item`` with the reference features its mode needs: made on
+        the device from the reference wavs it names (each of the mode's
+        wavs, as the JAX package makes them), else as it carries them.
+        Raises ``ValueError`` where a feature is neither given nor
+        named."""
+        needed = [(key, wav) for mode, key, wav in self._FEATURES
+                  if getattr(self.config, mode)]
+        if needed and all(item.get(wav) for _, wav in needed):
+            item = load_reference_features(self.config, item, self.device)
+        for key, _ in needed:
+            if item.get(key) is None:
+                raise ValueError(f'{self.config.mode} mode needs {key!r} '
+                                 f'(or the reference wav it is made of) on '
+                                 f'every item (label {item.get("label")!r})')
+        return item
 
     def batch(self, items: Sequence[Dict]) -> Dict[str, torch.Tensor]:
         """Items → the ``InferenceCollater`` batch as tensors on the
         device: ``tokens [B, T_tok]`` (padded with ``<E>`` to a multiple of
         ``config.token_bucket``), ``token_lengths``, ``length_scales`` and
         the mode's conditioning inputs."""
-        for item in items:
-            self._check_features(item)
+        items = [self.with_features(item) for item in items]
         batch = {}
         for key, value in self.collater(items).items():
             dtype = (torch.long if np.issubdtype(value.dtype, np.integer)
@@ -153,14 +160,19 @@ class Inferencer:
     def synthesize_items(self, items: Sequence[Dict],
                          noise_scale: float = 1.0,
                          seed: int = 0,
-                         out_dir: Optional[str] = None) -> List[Dict]:
+                         out_dir: Optional[str] = None,
+                         export_wav: bool = False,
+                         griffin_lim_iterations: int = 60) -> List[Dict]:
         """Items with ``text`` (filtered), optional ``label`` and
         ``length_scale`` → one result per item: its ``mel [T, M]``,
         ``attention [T_tok, T]`` and the ``bucket`` its batch decoded in,
-        each also written under ``out_dir`` by ``export_npy`` if given.
+        each also written under ``out_dir`` by ``export_npy`` if given;
+        with ``export_wav`` as well, the Griffin-Lim waveform
+        (``griffin_lim_iterations`` on the device, the start phase from
+        seed 0) in ``result['audio']`` and ``<out_dir>/WAV/<label>.wav``.
         Batch ``start`` draws its noise from a generator seeded with
         ``seed + start``.  The conditioned modes' items carry their
-        ``speaker_id`` and reference features as arrays (module
+        ``speaker_id`` and reference features or wavs (module
         docstring)."""
         results = []
         for start in range(0, len(items), self.batch_size):
@@ -195,33 +207,52 @@ class Inferencer:
                 if out_dir:
                     export_npy(out_dir, result['label'], result['mel'],
                                result['attention'])
+                    if export_wav:
+                        sound = self.config.sound
+                        result['audio'] = vocoder.mel_to_audio(
+                            result['mel'], sound, griffin_lim_iterations,
+                            device=self.device)
+                        vocoder.save_wav(
+                            os.path.join(out_dir, 'WAV',
+                                         f'{result["label"]}.wav'),
+                            result['audio'], sound.sample_rate)
         return results
 
     def inference(self, labels: Sequence[str], texts: Sequence[str],
                   length_scales: Optional[Sequence[float]] = None,
                   noise_scale: float = 1.0, seed: int = 0,
                   out_dir: Optional[str] = None,
-                  speakers: Optional[Sequence[int]] = None) -> List[Dict]:
+                  speakers: Optional[Sequence[int]] = None,
+                  wavs_for_ge2e: Optional[Sequence[str]] = None,
+                  wavs_for_prosody: Optional[Sequence[str]] = None,
+                  wavs_for_pitch: Optional[Sequence[str]] = None,
+                  export_wav: bool = False) -> List[Dict]:
         """Programmatic batch synthesis; texts the filter rejects are
         skipped, as in the JAX package.  ``speakers`` are the speaker ids
-        of the look-up-table modes (default 0); the modes that need
-        reference features take items through :meth:`synthesize_items`."""
+        of the look-up-table modes (default 0); ``wavs_for_*`` the
+        reference wavs of the modes that read their features."""
         items = []
         for i, text in enumerate(texts):
             filtered = text_filtering(text)
             if filtered is None:
                 continue
-            items.append({'label': labels[i], 'text': filtered,
-                          'length_scale': (length_scales[i] if length_scales
-                                           else 1.0),
-                          'speaker_id': (int(speakers[i])
-                                         if speakers is not None else 0)})
-        return self.synthesize_items(items, noise_scale, seed, out_dir)
+            items.append({
+                'label': labels[i], 'text': filtered,
+                'length_scale': (length_scales[i] if length_scales
+                                 else 1.0),
+                'speaker_id': (int(speakers[i]) if speakers is not None
+                               else 0),
+                'wav_for_ge2e': wavs_for_ge2e[i] if wavs_for_ge2e else None,
+                'wav_for_prosody': (wavs_for_prosody[i] if wavs_for_prosody
+                                    else None),
+                'wav_for_pitch': wavs_for_pitch[i] if wavs_for_pitch else None})
+        return self.synthesize_items(items, noise_scale, seed, out_dir,
+                                     export_wav=export_wav)
 
     def inference_from_file(self, tsv_path: str,
-                            out_dir: Optional[str] = None) -> List[Dict]:
+                            out_dir: Optional[str] = None,
+                            export_wav: bool = False) -> List[Dict]:
         """The sentences of an inference TSV (``data.patterns.
-        InferenceDataset``), with their speaker ids; a mode that needs the
-        reference wavs' features raises (``ROADMAP.md`` A.6)."""
+        InferenceDataset``), with their speaker ids and reference wavs."""
         return self.synthesize_items(InferenceDataset(tsv_path).entries,
-                                     out_dir=out_dir)
+                                     out_dir=out_dir, export_wav=export_wav)

@@ -111,12 +111,26 @@ class ActNorm(nn.Module):
                 logs.float().sum() * frames(mask))
 
 
+def mixing_products(weight: torch.Tensor, one_hot: torch.Tensor,
+                    same_member: torch.Tensor) -> torch.Tensor:
+    """``weight [..., s, s]`` → the block-sparse ``[..., C, C]`` mixing
+    G·W·Gᵀ masked by ``same_member [C, C]``, where ``one_hot [C, s]`` is G.
+    Each entry sums one product by 1.0 and zeros, so the values are the
+    weight's bit for bit, as an index gather would give; unlike a gather's
+    backward (an indexed accumulation), the weight's gradient is a fixed
+    sum of products, the same in every run.  Written as broadcast products
+    and sums, not matmuls, so no TF32 setting rounds the weight."""
+    rows = (one_hot[:, :, None] * weight[..., None, :, :]).sum(-2)  # [.., C, s]
+    return (rows[..., :, None, :] * one_hot[None, :, :]).sum(-1) * same_member
+
+
 class InvertibleConv(nn.Module):
     """Invertible 1×1 conv over ``num_split`` interleaved channel groups.
 
     The ``s × s`` weight acts on channel c = (a, m, b') through group
     g = (a, b'); over all C channels that is the block-sparse matrix
-    M[i, j] = W[g(i), g(j)]·[m(i) = m(j)], built here by indexing."""
+    M[i, j] = W[g(i), g(j)]·[m(i) = m(j)], built here as the one-hot
+    products G·W·Gᵀ (:func:`mixing_products`)."""
 
     def __init__(self, channels: int, num_split: int):
         super().__init__()
@@ -127,17 +141,23 @@ class InvertibleConv(nn.Module):
         idx = np.arange(channels)
         rem = idx % half
         # buffers, so they move with the module (not in the state dict)
+        group = (idx // half) * s2 + rem % s2
+        member = rem // s2
+        # buffers, so they move with the module (not in the state dict):
+        # the one-hot of each channel's group, and the member equality
         self.register_buffer(
-            '_group', torch.as_tensor((idx // half) * s2 + rem % s2),
+            '_one_hot', torch.as_tensor(
+                (group[:, None] == np.arange(num_split)[None, :]),
+                dtype=torch.float32), persistent=False)
+        self.register_buffer(
+            '_same_member', torch.as_tensor(
+                member[:, None] == member[None, :], dtype=torch.float32),
             persistent=False)
-        self.register_buffer('_member', torch.as_tensor(rem // s2),
-                             persistent=False)
 
     def mixing_matrix(self, inverse: bool = False) -> torch.Tensor:
         """[C_out, C_in] channel mixing (of W⁻¹ when ``inverse``)."""
         w = torch.linalg.inv(self.weight) if inverse else self.weight
-        g, m = self._group, self._member
-        return w[g[:, None], g[None, :]] * (m[:, None] == m[None, :])
+        return mixing_products(w, self._one_hot, self._same_member)
 
     def frame_logdet(self, channels: int) -> torch.Tensor:
         """log |det| of the mixing per valid frame: the weight's, once for
@@ -560,9 +580,8 @@ class FlowDecoder(nn.Module):
         c = actnorms[0].logs.shape[1]
         logs = torch.stack([a.logs.reshape(c) for a in actnorms])
         mix_w = torch.stack([inv.weight for inv in invconvs])    # [S, s, s]
-        group, member = invconvs[0]._group, invconvs[0]._member
-        mixing = (mix_w[:, group[:, None], group[None, :]]
-                  * (member[:, None] == member[None, :]))       # [S, out, in]
+        mixing = mixing_products(mix_w, invconvs[0]._one_hot,
+                                 invconvs[0]._same_member)      # [S, out, in]
         logabsdet = torch.linalg.slogdet(mix_w)[1]
         weights = {
             'an_logs': logs,

@@ -1,12 +1,13 @@
 """Text normalisation and tokenisation for serving.
 
-The same rules and token ids as ``glow_tts_tpu.text`` (reference
-``Pattern_Generator.py:22-39`` and ``Datasets.py:17-30``); a CPU test holds
-them against it.
+The same rules, token ids and token dictionary files as ``glow_tts_tpu.text``
+(reference ``Pattern_Generator.py:22-39`` and ``Datasets.py:17-30``); a CPU
+test holds them against it.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Dict, List, Optional, Sequence
 
@@ -39,6 +40,20 @@ def default_token_dict() -> Dict[str, int]:
     """The 35-token dictionary: ``<S>``, ``<E>``, then the sorted charset."""
     letters = sorted(set(" ',-.?!" + 'ABCDEFGHIJKLMNOPQRSTUVWXYZ'))
     return {token: i for i, token in enumerate([BOS, EOS] + letters)}
+
+
+def build_token_dict(texts: Sequence[str]) -> Dict[str, int]:
+    """The letter → id dictionary of a corpus: ``<S>``, ``<E>``, then its
+    sorted letters."""
+    letters = sorted(set(''.join(texts)))
+    return {token: i for i, token in enumerate([BOS, EOS] + letters)}
+
+
+def save_token_dict(token_dict: Dict[str, int], path: str) -> None:
+    """``Token.yaml``, byte for byte as the JAX package writes it."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, 'w', encoding='utf-8') as f:
+        yaml.dump(token_dict, f, allow_unicode=True)
 
 
 def load_token_dict(path: str) -> Dict[str, int]:

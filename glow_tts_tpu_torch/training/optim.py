@@ -51,8 +51,12 @@ def learning_rate_at(config, step: int) -> float:
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """√Σ‖t‖² over the list, a 0-d tensor on their device."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+    """√Σ‖t‖² over the list, a 0-d tensor on their device.  The tensors'
+    norms are summed in the order of their values, not of the list, so an
+    optimiser over the same parameters in another order clips by the same
+    bits (a restored run continues the saved one bit for bit)."""
+    norms = torch.stack(torch._foreach_norm(tensors))
+    return torch.linalg.vector_norm(torch.sort(norms).values)
 
 
 class RAdam:

@@ -17,8 +17,9 @@ numpy inputs on both sides:
   mode's encoder under the port's names beside them) and its inverse;
 * ``Inferencer`` from a state dict, an ``S_<step>.pt`` (GE2E mode taking
   its encoder from ``Checkpoint_Path``) and a checkpoint directory, items
-  naming reference wavs refused (ROADMAP.md A.6), the TSV route serving
-  the look-up table's speaker ids;
+  naming reference wavs served from the features made of them (equal to
+  the JAX package's), the TSV route serving the look-up table's speaker
+  ids;
 * a GR YAML through ``load_config``/``save_config`` and against the JAX
   package's config, field by field.
 """
@@ -39,6 +40,7 @@ from glow_tts_tpu.training.step import make_two_phase_inference
 from glow_tts_tpu.utils.torch_export import (convert_params_to_reference,
                                              save_reference_checkpoint)
 from glow_tts_tpu_torch.config import load_config, save_config
+from glow_tts_tpu_torch.data.patterns import InferenceDataset
 from glow_tts_tpu_torch.inference import Inferencer
 from glow_tts_tpu_torch.models.glow_tts import GlowTTS
 from glow_tts_tpu_torch.ops.coupling import (coupling_reference,
@@ -313,32 +315,66 @@ def test_inferencer_serves_from_every_source(setup, tmp_path):
             np.testing.assert_array_equal(a['mel'], b['mel'])
 
 
+def _write_reference_wavs(directory, rate):
+    """Three reference wavs: harmonic stacks between silences."""
+    from scipy.io import wavfile
+    paths = []
+    for i, f0 in enumerate((150.0, 210.0, 260.0)):
+        t = np.arange(rate) / rate
+        tone = sum(np.sin(2 * np.pi * k * f0 * t) / k for k in range(1, 4))
+        audio = np.concatenate([np.zeros(rate // 4), 0.3 * tone,
+                                np.zeros(rate // 4)])
+        paths.append(str(directory / f'ref{i}.wav'))
+        wavfile.write(paths[-1], rate, (audio * 32767).astype(np.int16))
+    return paths
+
+
 def test_items_that_name_wavs_are_refused(setup, tmp_path):
+    """Items naming reference wavs are served from the features the port
+    makes of them, equal to the JAX package's (mels within 2e-3 on the
+    ±4 scale, pitch equal); an item with neither the feature nor its wav
+    is refused with ``ValueError``."""
     mode, cfg, _, params, port = setup
     inferencer = Inferencer(port.state_dict(), port.config, 'cpu',
                             max_mel_length=64)
+    wavs = _write_reference_wavs(tmp_path, cfg.sound.sample_rate)
     tsv = tmp_path / 'lines.tsv'
     tsv.write_text('Label\tText\tLength_Scale\tSpeaker\tGE2E\tProsody\t'
-                   'Pitch\nx\tHello there.\t1.0\t2\ta.wav\tb.wav\tc.wav\n'
-                   'y\tA second line.\t1.2\t1\ta.wav\tb.wav\tc.wav\n')
+                   'Pitch\nx\tHello there.\t1.0\t2\t{0}\t{1}\t{2}\n'
+                   'y\tA second line.\t1.2\t1\t{0}\t{1}\t{2}\n'
+                   .format(*wavs))
+    results = inferencer.inference_from_file(str(tsv))
+    programmatic = inferencer.inference(
+        ['x', 'y'], ['Hello there.', 'A second line.'], [1.0, 1.2],
+        speakers=[2, 1], wavs_for_ge2e=wavs[:1] * 2,
+        wavs_for_prosody=wavs[1:2] * 2, wavs_for_pitch=wavs[2:] * 2)
+    for a, b in zip(results, programmatic):
+        np.testing.assert_array_equal(a['mel'], b['mel'])
     if mode == 'SE-LUT':
-        results = inferencer.inference_from_file(str(tsv))
-        programmatic = inferencer.inference(['x', 'y'], ['Hello there.',
-                                                         'A second line.'],
-                                            [1.0, 1.2], speakers=[2, 1])
-        for a, b in zip(results, programmatic):
-            np.testing.assert_array_equal(a['mel'], b['mel'])
         return
-    with pytest.raises(NotImplementedError, match='A.6'):
-        inferencer.inference_from_file(str(tsv))
-    item = dict(_items(cfg, 1)[0])
+    from glow_tts_tpu.data.pattern_generator import \
+        load_reference_features as jax_features
+    entry = {'label': 'x', 'text': 'HELLO THERE.', 'wav_for_ge2e': wavs[0],
+             'wav_for_prosody': wavs[1], 'wav_for_pitch': wavs[2]}
+    got, want = inferencer.with_features(entry), jax_features(cfg, entry)
     feature = {'SE-GE2E': 'mel_for_ge2e', 'PE': 'mel_for_prosody',
                'GR': 'pitch'}[mode]
+    assert set(got) == set(want)
+    for key in ('mel_for_ge2e', 'mel_for_prosody'):
+        if key in want:
+            assert got[key].shape == want[key].shape
+            assert np.abs(got[key] - want[key]).max() <= 2e-3
+    if 'pitch' in want:
+        np.testing.assert_array_equal(got['pitch'], want['pitch'])
+    # the TSV's items carrying those features as arrays: the same mels
+    entries = InferenceDataset(str(tsv)).entries
+    arrays = [{key: value for key, value in
+               inferencer.with_features(entry).items()
+               if not key.startswith('wav_for_')} for entry in entries]
+    for a, b in zip(inferencer.synthesize_items(arrays), results):
+        np.testing.assert_array_equal(a['mel'], b['mel'])
+    item = dict(_items(cfg, 1)[0])
     item[feature] = None
-    item['wav_for_' + feature.replace('mel_for_', '')] = 'ref.wav'
-    with pytest.raises(NotImplementedError, match='A.6'):
-        inferencer.synthesize_items([item])
-    del item['wav_for_' + feature.replace('mel_for_', '')]
     with pytest.raises(ValueError, match=feature):
         inferencer.synthesize_items([item])
 

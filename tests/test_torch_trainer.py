@@ -30,6 +30,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from scipy.io import wavfile
 
 from glow_tts_tpu import text as jtext
 from glow_tts_tpu.data import collate as jcollate
@@ -305,9 +306,14 @@ def test_cli_trains_and_serves_on_the_cpu(root, tmp_path):
     for argv in (['--profile', '1:2'],):
         with pytest.raises(SystemExit):
             train_main(['-hp', hp, '--device', 'cpu', *argv])
-    with pytest.raises(SystemExit):
-        infer_main(['-c', cfg.checkpoint_path, '-t', 'Hi.', '-wav',
-                    '--device', 'cpu'])
+    wav_out = str(tmp_path / 'wavs')
+    infer_main(['-c', cfg.checkpoint_path, '-t', 'Hi.', '-wav', '-o',
+                wav_out, '--device', 'cpu'])
+    rate, audio = wavfile.read(os.path.join(wav_out, 'WAV', 'Sentence_0.wav'))
+    frames = np.load(os.path.join(wav_out, 'NPY', 'Mel',
+                                  'Sentence_0.npy')).shape[1]
+    assert rate == cfg.sound.sample_rate and audio.dtype == np.int16
+    assert audio.shape == (cfg.sound.frame_shift * (frames - 1),)
 
 
 def test_the_entry_points_default_to_cuda(root, tmp_path):

@@ -3,10 +3,19 @@
 coupling is the identity), and the port loaded from the same numbers."""
 
 import dataclasses
+import os
 
 import jax
 import numpy as np
 import torch
+
+# Under xdist each worker gets its share of the cores: with torch's default
+# of one thread per core in every worker, the workers' thread pools fight
+# over the same cores and a step runs many times slower.  A single-process
+# run keeps torch's default.
+_WORKERS = int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '0') or 0)
+if _WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
 
 from glow_tts_tpu.training.step import create_train_state
 from glow_tts_tpu_torch.config import load_config as port_load_config
