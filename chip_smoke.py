@@ -53,12 +53,29 @@ to wavs: MiniSpeech's corpus (48 utterances from
 ``examples/make_minispeech.py``, a subprocess) through the port's ETL on
 the card (4 patterns held against the same ETL on the CPU: the mel within
 2e-3, the pitch equal outside its near-tie frames), the recipe's
-``Trainer`` 10 steps on those patterns (#1, #5, #6 at 80 channels) and a
+``Trainer`` 6 steps on those patterns (#1, #5, #6 at 80 channels) and a
 checkpoint, served through ``Inferencer`` with the Griffin-Lim export
 twice (the wavs read back, bit-equal), Griffin-Lim on the card against
 the CPU, SE-GE2E, PE and GR at the shipped width served from reference-wav
 features made on the card (held against the CPU's), and the DSP and the
-export timed.  Exits non-zero on any failure and when no CUDA device is
+export timed.  Every phase named so far computes at float32 (each pins
+``compute_dtype='float32'``, so its checks and timings compare with the
+runs before the bfloat16 builds).  Between the conditioned training and
+MiniSpeech, the bfloat16 phase runs the shipped YAMLs as shipped
+(``TPU.compute_dtype: bfloat16``): the bf16 builds of #3, #5 and #6 (160
+and 80 channels, and the pitch builds) against their bf16 plain versions,
+the f32 plain version the reference (max|kernel - plain_bf16| <= 2
+max|plain_bf16 - plain_f32| + 1e-6; gradients within 3e-2 norm-relative
+of the f32 plain version's, and at most twice the bf16 plain version's
+distance from them, plus 1e-4), #5's dropout masks counted element by
+element, the routes bit-equal, #6 with and without its second f32
+accumulator; the ActNorm init, 4 train steps and 2 eval steps under
+'fused' at bf16 beside the same through the plain versions at bf16 and at
+f32; the bf16 builds timed beside the f32 builds on the same inputs, with
+their bounds at the bf16 peak; the train step at bf16 and at f32 on the
+same batch by CUDA events and in a profiler window; a GR train step on the
+bf16 pitch builds; and a MiniSpeech ``Trainer`` at bf16 on the 80-channel
+bf16 builds.  Exits non-zero on any failure and when no CUDA device is
 present; the last line is one JSON object naming the card.
 """
 
@@ -107,8 +124,8 @@ TRAIN_PATTERNS, EVAL_PATTERNS = 96, 40
 TRAINER_STEPS, RESUME_STEP = 4, 2
 SAVE_EVERY, EVAL_EVERY = 2, 4   # checkpoints and logs; evaluation, inference
 RESUME_REL_BOUND = 1e-5    # A against B: max |a - b| / max |a| by group
-FED_STEPS = 6              # the data-fed loop, after one warm-up step
-TIMING_BATCHES = 8         # its archive's batches an epoch: a run in one
+FED_STEPS = 4              # the data-fed loop, after one warm-up step
+TIMING_BATCHES = 6         # its archive's batches an epoch: a run in one
 COPY_ITERS = 20
 INFERENCE_TEXTS = ['The birch canoe slid on the smooth planks.',
                    'Glue the sheet to the dark blue background.',
@@ -219,7 +236,12 @@ COUNTERS = ('flow_step', 'coupling', 'flow_stack', 'mas', 'train_fwd',
             'coupling_pitch', 'flow_stack_pitch', 'train_fwd_pitch',
             'train_recompute_pitch', 'train_bwd_pitch', 'flow_step_c80',
             'coupling_c80', 'flow_stack_c80', 'train_fwd_c80',
-            'train_recompute_c80', 'train_bwd_c80')
+            'train_recompute_c80', 'train_bwd_c80',
+            # the bfloat16 builds of #3, #5 and #6, and their pitch and
+            # 80-channel builds
+            *(f'{name}_bf16{tag}' for tag in ('', '_pitch', '_c80')
+              for name in ('flow_step', 'train_fwd', 'train_recompute',
+                           'train_bwd')))
 # the deterministic decoder's routes (``config.coupling_backend``): the
 # counter of the kernel each goes through
 ROUTES = {'fused': 'flow_step', 'modules': 'coupling', 'mega': 'flow_stack'}
@@ -247,7 +269,12 @@ def launch_counters():
         (flow_stack, 'c80_launches'),
         (flow_stack_train, 'forward_c80_launches'),
         (flow_stack_train, 'recompute_c80_launches'),
-        (flow_stack_train, 'backward_c80_launches'))))
+        (flow_stack_train, 'backward_c80_launches'),
+        *((fn, f'{what}bf16{tag}_launches')
+          for tag in ('', '_pitch', '_c80')
+          for fn, what in ((flow_step, ''), (flow_stack_train, 'forward_'),
+                           (flow_stack_train, 'recompute_'),
+                           (flow_stack_train, 'backward_'))))))
 
 
 def route_launches(route, config, passes=1, pitch=False):
@@ -1206,10 +1233,11 @@ def check_train_forward(x, mask, weights):
 
 def forced_route(route, passes=None):
     """``flow_stack_train``'s kernels with the forward pass's route
-    (``'store'`` or ``'recompute'``) and the backward GEMMs' TF32 passes
-    forced, through the wrapper's private entry."""
+    (``'store'`` or ``'recompute'``) and, unless None (the wrapper's
+    default for the dtype), the backward GEMMs' TF32 passes (in a bf16
+    build, 3 adds the second f32 accumulator) forced, through the wrapper's
+    private entry."""
     from glow_tts_tpu_torch.ops import coupling_grad
-    passes = passes or coupling_grad.TF32_PASSES
 
     def fn(x, mask, weights, cond=None, pitch=None, *, seed, dropout_rate):
         return coupling_grad._apply_kernels(x, mask, weights, cond, seed,
@@ -1502,7 +1530,7 @@ def time_training(config, batch, x, mask, weights, device, extras=True):
         _, _, step_p = stepper(flow_stack_train_reference,
                                maximum_path_reference)
         k_ms, p_ms = paired_ms(lambda: step_k(batch), lambda: step_p(batch),
-                               iters=3, plain_iters=1, plain_warmup=1)
+                               iters=2, plain_iters=1, plain_warmup=1)
         shape = tuple(batch['mels'].shape)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1620,7 +1648,7 @@ def time_training(config, batch, x, mask, weights, device, extras=True):
     parts = {'encoder forward + backward': encoder_both,
              'weight pack forward + backward': pack_both,
              'optimiser update': optimizer.step}
-    profile_window('train steps', lambda: step_k(batch), 5, warmup=2)
+    profile_window('train steps', lambda: step_k(batch), 3, warmup=1)
     for name, fn in parts.items():
         print(f'  train part, {name}: {cuda_ms(fn, 5):.4f} ms')
     return ({'ms': k_fwd, 'plain_ms': times['plain'][0] / s_steps,
@@ -2044,9 +2072,10 @@ MODE_BATCH = 8             # SE-LUT, SE-GE2E and PE: one batch each
 CLASSIFIED_REL_BOUND = 1e-4
 
 
-def mode_config(mode, route='fused'):
+def mode_config(mode, route='fused', dtype='float32'):
     """The shipped YAML in ``mode`` (``'SE-LUT'``, ``'SE-GE2E'``, ``'PE'``,
-    ``'GR'``) under ``route``."""
+    ``'GR'``) under ``route``, computing at ``dtype`` (float32, as the
+    phases before the bfloat16 one pin it)."""
     import yaml
     from glow_tts_tpu_torch import load_config
     with open(CONFIG, encoding='utf-8') as f:
@@ -2054,7 +2083,8 @@ def mode_config(mode, route='fused'):
     data['Mode'] = mode.split('-')[0]
     if mode == 'SE-GE2E':
         data['Speaker_Embedding']['Type'] = 'GE2E'
-    return dataclasses.replace(load_config(data), coupling_backend=route)
+    return dataclasses.replace(load_config(data), coupling_backend=route,
+                               compute_dtype=dtype)
 
 
 def conditioned_items(config, texts, seed):
@@ -2575,7 +2605,7 @@ def time_conditioned_steps(config, batches, vanilla_config, device):
 
     (gr_step, model), (vanilla_step, _) = stepper(config), stepper(
         vanilla_config)
-    gr_ms, vanilla_ms = paired_ms(gr_step, vanilla_step, 3)
+    gr_ms, vanilla_ms = paired_ms(gr_step, vanilla_step, 2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
@@ -2586,7 +2616,7 @@ def time_conditioned_steps(config, batches, vanilla_config, device):
           f'events, a Vanilla step on the same batch {vanilla_ms:.3f} ms '
           f'({100 * (gr_ms / vanilla_ms - 1):+.1f} %); peak memory of a GR '
           f'step {peak / 2 ** 30:.3f} GiB ({held / 2 ** 30:.3f} held before)')
-    idle = profile_window('GR train steps', gr_step, 5)
+    idle = profile_window('GR train steps', gr_step, 3, warmup=1)
     times = {'gr_step_ms': gr_ms, 'vanilla_step_ms': vanilla_ms,
              'gr_step_idle': idle, 'gr_peak_gib': peak / 2 ** 30}
 
@@ -2616,7 +2646,7 @@ def time_conditioned_steps(config, batches, vanilla_config, device):
     del gr_step, vanilla_step, model
     for mode in TRAIN_MODES:
         step, _ = stepper(mode_config(mode), batches[mode])
-        times[f'{mode}_step_ms'] = cuda_ms(step, 3, 1)
+        times[f'{mode}_step_ms'] = cuda_ms(step, 2, 1)
         print(f'{mode} train step, same batch: '
               f'{times[f"{mode}_step_ms"]:.3f} ms by events')
     return times
@@ -2732,18 +2762,16 @@ MS_TRAINER_STEPS, MS_RESUME_STEP = 4, 1
 MS_WARM_STEPS = 2              # Alignment_Warmup_Steps = Decoder_Freeze_Steps
 
 
-def minispeech_config(root):
+def minispeech_config(root, dtype='float32'):
     """``configs/MiniSpeech.yaml`` with its token dictionary (written here)
     and its outputs under ``root``, and its pattern sets ``root/train``
-    and ``root/eval`` (its own length filters).  The YAML asks for bf16:
-    the port computes in f32 and says so once per process (A.5)."""
-    import warnings
-
+    and ``root/eval`` (its own length filters), computing at ``dtype``: the
+    YAML asks for bfloat16, which the bfloat16 phase runs; the phases
+    before it pin float32."""
     import yaml
     from glow_tts_tpu_torch import load_config
-    with warnings.catch_warnings():
-        warnings.simplefilter('ignore')
-        config = load_config(MINISPEECH)
+    config = dataclasses.replace(load_config(MINISPEECH),
+                                 compute_dtype=dtype)
     token_path = os.path.join(root, 'Token.yaml')
     with open(token_path, 'w', encoding='utf-8') as f:
         yaml.safe_dump({token: i for i, token in enumerate(MS_VOCAB)}, f)
@@ -3017,7 +3045,7 @@ def time_curriculum_step(config, batch, state, device):
                                 flow_stack_train, maximum_path)
     em_step, plain_step = steps[('em', True)], steps[(None, False)]
     em_ms, plain_ms = paired_ms(lambda: em_step(batch),
-                                lambda: plain_step(batch), iters=5)
+                                lambda: plain_step(batch), iters=3)
     peaks = {}
     for name, fn in (('em', em_step), ('plain', plain_step)):
         torch.cuda.synchronize()
@@ -3028,10 +3056,11 @@ def time_curriculum_step(config, batch, state, device):
         peaks[name] = (torch.cuda.max_memory_allocated() / 2 ** 30,
                        held / 2 ** 30)
     em_idle, em_busy = profile_window('MiniSpeech EM steps (decoder frozen)',
-                                      lambda: em_step(batch), 3, busy=True)
+                                      lambda: em_step(batch), 2, warmup=1,
+                                      busy=True)
     plain_idle, plain_busy = profile_window(
-        'MiniSpeech learned-prior MAS steps', lambda: plain_step(batch), 3,
-        busy=True)
+        'MiniSpeech learned-prior MAS steps', lambda: plain_step(batch), 2,
+        warmup=1, busy=True)
     print(f'MiniSpeech step {tuple(batch["mels"].shape)}: EM step, decoder '
           f'frozen, {em_ms:.3f} ms by events ({em_busy:.3f} ms of device '
           f'work, device idle {100 * em_idle:.1f} %, peak '
@@ -3241,7 +3270,7 @@ def run_minispeech_phase(device, card):
 
 WAV_UTTERANCES = 48            # MiniSpeech's corpus, made by its example
 WAV_EVAL = 4                   # of them held out (the eval set)
-WAV_TRAIN_STEPS = 10           # the Trainer's steps on the ETL's patterns
+WAV_TRAIN_STEPS = 6            # the Trainer's steps on the ETL's patterns
 WAV_CHECKED = 4                # patterns held against the ETL on the CPU
 WAV_EXPORTS = 4                # wavs the Inferencer exports, twice
 DSP_MEL_BOUND = 2e-3           # card vs CPU mel, max-abs on the ±4 scale
@@ -3564,7 +3593,9 @@ def run_wav_phase(device, card):
         corpus = os.path.join(root, 'corpus')
         e2e.make_corpus(corpus, WAV_UTTERANCES, SEED)
         corpus_sec = time.perf_counter() - start
-        config = e2e.minispeech_config(root, WAV_TRAIN_STEPS)
+        config = dataclasses.replace(
+            e2e.minispeech_config(root, WAV_TRAIN_STEPS),
+            compute_dtype='float32')
         random.seed(SEED)
         torch.cuda.synchronize()
         start = time.perf_counter()
@@ -3624,6 +3655,624 @@ def run_wav_phase(device, card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# bfloat16: the shipped YAMLs as shipped (TPU.compute_dtype bfloat16), the
+# bfloat16 builds of #3, #5 and #6
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+# kernel at bf16 against its bf16 plain version, the f32 plain version the
+# reference: max|kernel - plain_bf16| <= 2 max|plain_bf16 - plain_f32| +
+# 1e-6; gradients within 3e-2 norm-relative of the f32 plain version's and
+# at most twice the bf16 plain version's distance from them, plus 1e-4
+BF16_FACTOR, BF16_ATOL = 2.0, 1e-6
+BF16_GRAD_F32_BAR, BF16_GRAD_FACTOR, BF16_GRAD_ATOL = 3e-2, 2.0, 1e-4
+PEAK_BF16_FLOP_PER_S = 989e12   # dense, the tensor cores
+BF16_EVAL_STEPS = 2
+MS_BF16_TRAINER_STEPS = 3
+
+
+def bf16_error(kernel, plain16, plain32):
+    """(max|kernel - plain_bf16|, the bar 2 max|plain_bf16 - plain_f32| +
+    1e-6), every tensor as float32."""
+    kernel, plain16, plain32 = (v.float() for v in (kernel, plain16,
+                                                    plain32))
+    return ((kernel - plain16).abs().max().item(),
+            BF16_FACTOR * (plain16 - plain32).abs().max().item() + BF16_ATOL)
+
+
+def norm_rel(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def bf16_bounds(moved, flops):
+    """A bfloat16 body's bounds: the larger of its operations at the bf16
+    dense peak of the tensor cores and its bytes at the memory rate, and
+    each of the two."""
+    ms, by = bound(moved, flops, PEAK_BF16_FLOP_PER_S)
+    return {'bound_ms': ms, 'bound_by': by,
+            'ops_bound_ms': flops / PEAK_BF16_FLOP_PER_S * 1e3,
+            'bytes_bound_ms': moved / PEAK_BYTES_PER_S * 1e3}
+
+
+def check_bf16_step(model, device, label, pitch=False):
+    """#3's bf16 build against its bf16 plain version with the f32 plain
+    version as the reference, on check_kernel's shapes (B = 32, T = 512 and
+    333, ragged, both directions); with ``pitch`` the pitch build (GR
+    mode's weights and a pitch operand).  Beside each, the bf16 kernel's
+    distance from the f32 kernel and the bf16 plain version's from the f32
+    plain version.  Returns the worst max-abs error against the bf16 plain
+    version."""
+    from glow_tts_tpu_torch.ops.coupling import flow_step, flow_step_reference
+    step = model.layer_Dict['Decoder'].layer_Dict['Flows'][0]
+    c = step.layers[0].logs.shape[1]
+    gen = torch.Generator().manual_seed(SEED + 101)
+    worst = 0.0
+    for t in (512, 333):
+        x, mask = ragged_batch(gen, 32, t, c, device)
+        x16 = x.to(BF16)
+        cond = step.cond(32)
+        p = (torch.rand((32, t, 2), generator=gen).to(device) * mask
+             if pitch else None)
+        for reverse in (False, True):
+            w32, w16 = step.weights(reverse), step.weights(reverse, BF16)
+            k16 = flow_step(x16, mask, w16, cond, reverse, pitch=p)
+            k32 = flow_step(x16.float(), mask, w32, cond, reverse, pitch=p)
+            p16 = flow_step_reference(x16, mask, w32, cond, reverse, p)
+            p32 = flow_step_reference(x16.float(), mask, w32, cond, reverse,
+                                      p)
+            torch.cuda.synchronize()
+            assert k16[0].dtype == BF16 and torch.isfinite(
+                k16[0].float()).all()
+            err, bar = bf16_error(k16[0], p16[0], p32[0])
+            line = (f'#3 bf16 {label} T={t} reverse={reverse}: kernel vs '
+                    f'bf16 plain max abs err {err:.3e} (bar {bar:.3e}); '
+                    f'bf16 kernel vs f32 kernel '
+                    f'{(k16[0].float() - k32[0]).abs().max().item():.3e}, '
+                    f'bf16 plain vs f32 plain '
+                    f'{(p16[0].float() - p32[0]).abs().max().item():.3e}')
+            if not reverse:
+                ld_err, ld_bar = bf16_error(k16[1], p16[1], p32[1])
+                line += f'; logdet {ld_err:.3e} (bar {ld_bar:.3e})'
+                assert ld_err <= ld_bar, line
+            print(line)
+            assert err <= bar, line
+            worst = max(worst, err)
+    return worst
+
+
+def check_bf16_train(x, mask, weights, label, cond=None, pitch=None):
+    """#5 and #6's bf16 builds against the bf16 plain version, the f32
+    plain version the reference: z and the logdet at rate 0.05 and 0, the
+    dropout masks element by element (the probe of check_train_forward,
+    through the bf16 recompute), and every gradient of a loss through z and
+    the logdet without the backward's second f32 accumulator (shipped) and
+    with it; the stored and recomputed routes bit-equal.  ``x`` is the
+    f32 stack input, rounded to bf16 for all.  Returns (the forward's worst
+    max-abs error, the gradients' worst norm-relative error against the
+    f32 plain version, that with the second accumulator)."""
+    from glow_tts_tpu_torch.ops import coupling_grad, dropmask
+    from glow_tts_tpu_torch.ops.coupling_grad import (
+        flow_stack_train, flow_stack_train_reference)
+    x16 = x.to(BF16)
+    seed, fwd_worst = -20240230, 0.0
+    with torch.no_grad():
+        for rate in (FLOW_RATE, 0.0):
+            k16 = flow_stack_train(x16, mask, weights, cond, pitch,
+                                   seed=seed, dropout_rate=rate)
+            k32 = flow_stack_train(x16.float(), mask, weights, cond, pitch,
+                                   seed=seed, dropout_rate=rate)
+            p16 = flow_stack_train_reference(x16, mask, weights, cond, pitch,
+                                             seed=seed, dropout_rate=rate)
+            p32 = flow_stack_train_reference(x16.float(), mask, weights,
+                                             cond, pitch, seed=seed,
+                                             dropout_rate=rate)
+            torch.cuda.synchronize()
+            err, bar = bf16_error(k16[0], p16[0], p32[0])
+            ld_err, ld_bar = bf16_error(k16[1], p16[1], p32[1])
+            line = (f'#5 bf16 {label} {tuple(x.shape)}, rate {rate}: z vs '
+                    f'bf16 plain {err:.3e} (bar {bar:.3e}), logdet '
+                    f'{ld_err:.3e} (bar {ld_bar:.3e}); bf16 kernel vs f32 '
+                    f'kernel z '
+                    f'{(k16[0].float() - k32[0]).abs().max().item():.3e}'
+                    f', bf16 plain vs f32 plain '
+                    f'{(p16[0].float() - p32[0]).abs().max().item():.3e}')
+            print(line)
+            assert err <= bar and ld_err <= ld_bar, line
+            fwd_worst = max(fwd_worst, err)
+        probe = dict(weights, w_in=torch.zeros_like(weights['w_in']),
+                     b_in=torch.ones_like(weights['b_in']))
+        s_steps, n, k, ch, ch2 = weights['w_in'].shape
+        b, t, c = x.shape
+        step = s_steps - 5
+        saved = coupling_grad._saved_buffers(b * t, c, ch, n, x.device,
+                                             dtype=BF16)
+        coupling_grad._recompute(
+            x16, torch.ones_like(mask), None,
+            coupling_grad._kernel_weights(
+                [probe[key] for key in coupling_grad.WEIGHT_KEYS], BF16),
+            saved, step, coupling_grad._dropout_args(seed, FLOW_RATE))
+        ts = saved['ts']
+        kept_kernel = torch.cat([ts[..., :ch] != 0, ts[..., ch:] != 0.5],
+                                dim=-1).reshape(n, b, t, ch2)
+        kept_plain = torch.stack([
+            dropmask.stack_mask(seed, step, i, n, b, t, k, ch2, FLOW_RATE,
+                                x.device) != 0 for i in range(n)])
+        differing = (kept_kernel != kept_plain).sum().item()
+        print(f'#5 bf16 {label} dropout masks of flow step {step}: '
+              f'{differing} differing elements of {kept_plain.numel()}')
+        assert differing == 0
+
+    gen = torch.Generator().manual_seed(SEED + 105)
+    dz = torch.randn(x.shape, generator=gen).to(x.device)
+    dld = (0.5 + torch.rand(x.shape[0], generator=gen)).to(x.device)
+
+    def gradients(fn, dtype):
+        leaves = {key: value.clone().requires_grad_()
+                  for key, value in weights.items()}
+        xl = x16.to(dtype).detach().clone().requires_grad_()
+        cl = None if cond is None else cond.clone().requires_grad_()
+        pl = None if pitch is None else pitch.clone().requires_grad_()
+        z, ld = fn(xl, mask, leaves, cl, pl, seed=seed,
+                   dropout_rate=FLOW_RATE)
+        torch.autograd.backward((z.float(), ld), (dz, dld))
+        torch.cuda.synchronize()
+        out = {key: leaf.grad for key, leaf in leaves.items()}
+        out['x'] = xl.grad.float()
+        if cl is not None:
+            out['cond'] = cl.grad
+        if pl is not None:
+            out['pitch'] = pl.grad
+        return out
+
+    p16 = gradients(flow_stack_train_reference, BF16)
+    p32 = gradients(flow_stack_train_reference, torch.float32)
+    worst = {}
+    for name, fn in (('store', forced_route('store')),
+                     ('recompute', forced_route('recompute')),
+                     ('second f32 accumulator', forced_route('store', 3))):
+        got = gradients(fn, BF16)
+        if name == 'store':
+            stored = got
+        elif name == 'recompute':
+            equal = all(torch.equal(got[key], stored[key]) for key in got)
+            assert equal, 'stored and recomputed routes differ at bf16'
+            continue
+        to_f32 = to_bf16 = 0.0
+        for key in got:
+            if p32[key].norm() == 0:
+                continue
+            a, own = norm_rel(got[key], p32[key]), norm_rel(p16[key],
+                                                            p32[key])
+            rel16 = norm_rel(got[key], p16[key])
+            assert a < BF16_GRAD_F32_BAR, (name, key, a)
+            assert rel16 <= BF16_GRAD_FACTOR * own + BF16_GRAD_ATOL, (
+                name, key, rel16, own)
+            to_f32, to_bf16 = max(to_f32, a), max(to_bf16, rel16)
+        worst[name] = to_f32
+        print(f'#6 bf16 {label}, {name}: worst gradient norm-rel err '
+              f'{to_f32:.3e} against the f32 plain version (bar '
+              f'{BF16_GRAD_F32_BAR:.0e}), {to_bf16:.3e} against the bf16 '
+              f'plain version; stored and recomputed routes bit-equal')
+    return fwd_worst, worst['store'], worst['second f32 accumulator']
+
+
+def bf16_train_launches(config, steps, eval_steps=0):
+    """The launches of a bf16 train path: the init (a #3 bf16 launch per
+    flow step), ``steps`` train steps (#5 and #6 bf16, one MAS each) and
+    ``eval_steps`` eval steps under 'fused' (#3 bf16, one MAS each)."""
+    flows = config.decoder.stack
+    tag = ('_pitch' if config.uses_gradient_reversal
+           else build_suffix(config))
+    bwd = (BWD_PITCH_KERNELS_PER_FLOW_STEP if config.uses_gradient_reversal
+           else BWD_KERNELS_PER_FLOW_STEP)
+    return {**dict.fromkeys(COUNTERS, 0),
+            f'flow_step_bf16{tag}': flows * (1 + eval_steps),
+            'mas': steps + eval_steps,
+            f'train_fwd_bf16{tag}': flows * steps,
+            f'train_bwd_bf16{tag}': bwd * flows * steps}
+
+
+def run_bf16_training(config16, batch, device, steps=TRAIN_STEPS,
+                      state=None, eval_steps=BF16_EVAL_STEPS):
+    """The shipped YAML at bf16: the ActNorm init, ``steps`` train steps
+    and ``eval_steps`` eval steps under 'fused', through the bf16 kernels,
+    and the same init and steps through the plain versions at bf16 and at
+    f32, from the same weights, seed and generator state; the losses of
+    every step held to the bf16 bar as one vector.  Returns the kernels'
+    launches of the path, and the kernels' metrics."""
+    from glow_tts_tpu_torch import (initial_state_dict, make_eval_step,
+                                    make_optimizer, make_train_step)
+    from glow_tts_tpu_torch.ops.coupling import flow_step, flow_step_reference
+    from glow_tts_tpu_torch.ops.coupling_grad import (
+        flow_stack_train, flow_stack_train_reference)
+    from glow_tts_tpu_torch.ops.mas import maximum_path
+    from glow_tts_tpu_torch.training.step import conditioning_inputs
+    state = state if state is not None else initial_state_dict(config16,
+                                                               SEED)
+    config32 = dataclasses.replace(config16, compute_dtype='float32')
+    runs = {}
+    for name, config, step_fn, stack_fn, mas_fn in (
+            ('kernels', config16, flow_step, flow_stack_train, maximum_path),
+            # MAS through its kernel (bit-equal to its plain version, held
+            # earlier): these runs are the flow kernels' references
+            ('plain bf16', config16, flow_step_reference,
+             flow_stack_train_reference, maximum_path),
+            ('plain f32', config32, flow_step_reference,
+             flow_stack_train_reference, maximum_path)):
+        model = train_model(state, config, device)
+        assert model.dtype == (BF16 if config is config16 else torch.float32)
+        train_step = make_train_step(
+            config, model, make_optimizer(config, model.parameters()),
+            seed=SEED,
+            generator=torch.Generator(device=device).manual_seed(SEED),
+            stack_fn=stack_fn, mas_fn=mas_fn)
+        eval_step = make_eval_step(config, model, step_fn=step_fn,
+                                   mas_fn=mas_fn)
+        zero_counts()
+        model.data_dependent_init(batch['mels'], batch['mel_lengths'],
+                                  step_fn=step_fn,
+                                  **conditioning_inputs(batch))
+        metrics = [train_step(batch) for _ in range(steps)]
+        evals = [eval_step(batch)[0] for _ in range(eval_steps)]
+        counts = read_counts()
+        if name == 'kernels':
+            launches = counts
+        runs[name] = [{key: value.item() for key, value in m.items()}
+                      for m in metrics + evals]
+    keys = ['total', 'mle', 'duration'] + (
+        ['speaker'] if config16.uses_gradient_reversal else [])
+    vectors = {name: torch.tensor([[m[key] for key in keys] for m in run],
+                                  dtype=torch.float64)
+               for name, run in runs.items()}
+    err, bar = bf16_error(*(vectors[name] for name in
+                            ('kernels', 'plain bf16', 'plain f32')))
+    mode = config16.mode
+    for i, row in enumerate(runs['kernels']):
+        kind = 'train step' if i < steps else 'eval step'
+        print(f'  bf16 {mode} {kind} {i if i < steps else i - steps}: '
+              + ' '.join(f'{key} {row[key]:.6f}' for key in keys)
+              + (f' grad_norm {row["grad_norm"]:.5f}' if i < steps else '')
+              + '; plain bf16 ' + ' '.join(
+                  f'{key} {runs["plain bf16"][i][key]:.6f}' for key in keys)
+              + '; plain f32 ' + ' '.join(
+                  f'{key} {runs["plain f32"][i][key]:.6f}' for key in keys))
+    print(f'bf16 {mode} train path ({steps} steps, {eval_steps} eval steps '
+          f'under \'fused\'): losses kernels vs bf16 plain max abs err '
+          f'{err:.3e} (bar {bar:.3e}, 2 x bf16 plain vs f32 plain); '
+          f'launches {json.dumps({k: v for k, v in launches.items() if v})}')
+    assert all(np.isfinite(v) for row in runs['kernels']
+               for v in row.values())
+    assert err <= bar, (err, bar)
+    assert launches == bf16_train_launches(config16, steps, eval_steps), \
+        launches
+    return launches, runs['kernels']
+
+
+def time_bf16_kernels(model, x, mask, weights, device, label,
+                      cond=None, pitch=None, step_pitch=False, iters=3):
+    """#3, #5 (storing, and under no_grad) and #6 of the bf16 build beside
+    the f32 build on the same inputs (the stack's input rounded to bf16 for
+    both), and the bf16 plain version; the bounds of the bf16 body at the
+    bf16 peak and by its bytes (bf16 activations, f32 weights).  Returns
+    the three rows of the kernels line."""
+    from glow_tts_tpu_torch.ops import coupling_grad
+    from glow_tts_tpu_torch.ops.coupling import flow_step, flow_step_reference
+    from glow_tts_tpu_torch.ops.coupling_grad import (
+        flow_stack_train_reference)
+    step = model.layer_Dict['Decoder'].layer_Dict['Flows'][0]
+    b, t, c = x.shape
+    full = torch.ones_like(mask)
+    gen = torch.Generator().manual_seed(SEED + 107)
+    xd = torch.randn((b, t, c), generator=gen).to(device)
+    xd16, cond_d = xd.to(BF16), step.cond(b)
+    pitch_d = (torch.rand((b, t, 2), generator=gen).to(device)
+               if step_pitch else None)
+    w32, w16 = step.weights(False), step.weights(False, BF16)
+    k16, k32 = paired_ms(
+        lambda: flow_step(xd16, full, w16, cond_d, pitch=pitch_d),
+        lambda: flow_step(xd16.float(), full, w32, cond_d, pitch=pitch_d),
+        iters=5 * iters)
+    plain16 = cuda_ms(lambda: flow_step_reference(xd16, full, w32, cond_d,
+                                                  pitch=pitch_d), iters)
+    per_step = {key: value for key, value in w32.items()
+                if not key.endswith('_tc')}
+    frame_flops = step_frame_flops(per_step)
+    weight_bytes = 4 * sum(v.numel() for v in per_step.values())
+    step_bounds = bf16_bounds(2 * 2 * xd.numel() + 4 * mask.numel()
+                              + weight_bytes, frame_flops * b * t)
+    print(f'#3 bf16 {label}, decode shape ({b}, {t}, {c}): bf16 build '
+          f'{k16:.4f} ms, f32 build {k32:.4f} ms on the same inputs '
+          f'({100 * (k16 / k32 - 1):+.1f} %), bf16 plain {plain16:.4f} ms; '
+          f'bound {step_bounds["bound_ms"]:.4f} ms by '
+          f'{step_bounds["bound_by"]} (operations at the bf16 peak '
+          f'{step_bounds["ops_bound_ms"]:.4f} ms, bytes '
+          f'{step_bounds["bytes_bound_ms"]:.4f} ms)')
+
+    x16 = x.to(BF16)
+    s_steps = weights['w_in'].shape[0]
+    dz = torch.randn(x.shape, generator=gen).to(device)
+    dld = torch.ones(b, device=device)
+    times = {}
+    for name, xin, fn, n_iters in (
+            ('bf16', x16, forced_route('store'), iters),
+            ('bf16, second f32 accumulator', x16, forced_route('store', 3),
+             iters),
+            ('f32', x16.float(), forced_route('store'), iters),
+            ('bf16 plain', x16, flow_stack_train_reference, 1)):
+        leaves = {key: value.clone().requires_grad_()
+                  for key, value in weights.items()}
+        xl = xin.detach().clone().requires_grad_()
+
+        def forward():
+            return fn(xl, mask, leaves, cond, pitch, seed=SEED,
+                      dropout_rate=FLOW_RATE)
+
+        with torch.no_grad():
+            no_grad_ms = cuda_ms(forward, n_iters, 1)
+        fwd_ms = cuda_ms(forward, n_iters, 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        z, ld = forward()
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            (z.float(), ld), [xl, *leaves.values()], (dz, dld),
+            retain_graph=True), n_iters, 1)
+        peak = torch.cuda.max_memory_allocated()
+        times[name] = (fwd_ms / s_steps, no_grad_ms / s_steps,
+                       bwd_ms / s_steps)
+        print(f'flow stack {label} {tuple(x.shape)}, {s_steps} steps, '
+              f'{name}: forward storing {fwd_ms / s_steps:.4f} ms per step '
+              f'({no_grad_ms / s_steps:.4f} under no_grad), backward '
+              f'{bwd_ms / s_steps:.4f} ms per step; peak memory of forward '
+              f'+ backward {(peak - held) / 2 ** 30:.3f} GiB above the '
+              f'{held / 2 ** 30:.3f} held')
+        del z, ld
+    ch, n = weights['w_in'].shape[3], weights['w_in'].shape[1]
+    flops = frame_flops * mask.sum().item()
+    fwd_bounds = bf16_bounds(2 * 2 * x.numel() + 4 * mask.numel()
+                             + weight_bytes, flops)
+    saved = coupling_grad.saved_bytes_per_step(b * t, c, ch, n, BF16)
+    bwd_bounds = bf16_bounds(saved + 2 * x.numel() + 4 * (2 * x.numel())
+                             + 2 * weight_bytes, 2 * flops)
+    print(f'  per flow step {label}: #5 bf16 storing '
+          f'{times["bf16"][0]:.4f} ms vs f32 {times["f32"][0]:.4f} ms; #6 '
+          f'bf16 {times["bf16"][2]:.4f} ms (with the second f32 accumulator '
+          f'{times["bf16, second f32 accumulator"][2]:.4f}) vs f32 '
+          f'{times["f32"][2]:.4f} ms; bounds #5 '
+          f'{fwd_bounds["bound_ms"]:.4f} ms by {fwd_bounds["bound_by"]} '
+          f'(bytes {fwd_bounds["bytes_bound_ms"]:.4f}), #6 '
+          f'{bwd_bounds["bound_ms"]:.4f} ms by {bwd_bounds["bound_by"]} '
+          f'(bytes {bwd_bounds["bytes_bound_ms"]:.4f}); '
+          f'saved bytes a step {saved / 1e6:.0f} MB at bf16 (f32 '
+          f'{coupling_grad.saved_bytes_per_step(b * t, c, ch, n) / 1e6:.0f}'
+          f' MB)')
+    return ({'ms': k16, 'f32_build_ms': k32, 'plain_ms': plain16,
+             **step_bounds},
+            {'ms': times['bf16'][0], 'no_grad_ms': times['bf16'][1],
+             'f32_build_ms': times['f32'][0],
+             'plain_ms': times['bf16 plain'][0], **fwd_bounds},
+            {'ms': times['bf16'][2],
+             'second_accumulator_ms':
+                 times['bf16, second f32 accumulator'][2],
+             'f32_build_ms': times['f32'][2],
+             'plain_ms': times['bf16 plain'][2], **bwd_bounds})
+
+
+def time_bf16_step(config16, batch, device):
+    """The shipped YAML's train step at bf16 and at f32 on the same batch
+    and weights, by CUDA events (f32, bf16, bf16, f32) and by device work
+    (a profiler window each), with the peak memory of each."""
+    from glow_tts_tpu_torch import (make_optimizer, make_train_step,
+                                    random_state_dict)
+    state = random_state_dict(config16, SEED)
+    steps, peaks = {}, {}
+    for dtype in ('bfloat16', 'float32'):
+        config = dataclasses.replace(config16, compute_dtype=dtype)
+        model = train_model(state, config, device)
+        model.data_dependent_init(batch['mels'], batch['mel_lengths'])
+        step = make_train_step(
+            config, model, make_optimizer(config, model.parameters()),
+            seed=SEED,
+            generator=torch.Generator(device=device).manual_seed(SEED))
+        step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        step(batch)
+        torch.cuda.synchronize()
+        peaks[dtype] = (torch.cuda.max_memory_allocated() - held, held)
+        steps[dtype] = step
+    bf_ms, f_ms = paired_ms(lambda: steps['bfloat16'](batch),
+                            lambda: steps['float32'](batch), iters=2,
+                            plain_warmup=1)
+    shape = tuple(batch['mels'].shape)
+    print(f'train step {shape} by CUDA events: bf16 {bf_ms:.3f} ms, f32 '
+          f'{f_ms:.3f} ms on the same batch ({100 * (bf_ms / f_ms - 1):+.1f} '
+          f'%); peak memory above what is held, bf16 '
+          f'{peaks["bfloat16"][0] / 2 ** 30:.3f} GiB, f32 '
+          f'{peaks["float32"][0] / 2 ** 30:.3f} GiB')
+    idle = {}
+    for dtype in ('bfloat16', 'float32'):
+        idle[dtype] = profile_window(f'train steps at {dtype}',
+                                     lambda: steps[dtype](batch), 2,
+                                     warmup=1, busy=True)
+    return {'bf16_ms': bf_ms, 'f32_ms': f_ms,
+            'bf16_idle_share': idle['bfloat16'][0],
+            'bf16_busy_ms': idle['bfloat16'][1],
+            'f32_idle_share': idle['float32'][0],
+            'f32_busy_ms': idle['float32'][1],
+            'bf16_peak_gib': peaks['bfloat16'][0] / 2 ** 30,
+            'f32_peak_gib': peaks['float32'][0] / 2 ** 30}
+
+
+def run_bf16_minispeech(device):
+    """MiniSpeech at bf16 on the 80-channel bf16 builds: #3, #5 and #6
+    against their plain versions, and a ``Trainer`` of the recipe as
+    shipped for a few steps (the EM warmup and the decoder freeze over the
+    first 2), its launches by part.  Returns the rows' errors and the
+    launches by path."""
+    import shutil
+    import tempfile
+
+    from glow_tts_tpu_torch import Trainer, random_state_dict
+    from glow_tts_tpu_torch.utils.logging import MemoryWriter
+    root = tempfile.mkdtemp(prefix='chip_smoke_bf16_minispeech_')
+    try:
+        config = minispeech_config(root, 'bfloat16')
+        batch = minispeech_batch(config, device)
+        state = random_state_dict(config, SEED + 95)
+        f32 = dataclasses.replace(config, compute_dtype='float32')
+        model = fresh_model(state, f32, device)
+        model.data_dependent_init(batch['mels'], batch['mel_lengths'])
+        step_err = check_bf16_step(model, device, 'c80')
+        trainee = train_model(state, f32, device)
+        trainee.data_dependent_init(batch['mels'], batch['mel_lengths'])
+        x, mask, weights = stack_problem(trainee, batch, f32)
+        del trainee
+        fwd_err, bwd_err, _ = check_bf16_train(x, mask, weights, 'c80')
+        rows = time_bf16_kernels(model, x, mask, weights, device, 'c80',
+                                 iters=2)
+        del model, x, mask, weights
+        write_minispeech_archive(os.path.join(root, 'train'), TRAIN_PATTERNS,
+                                 config, SEED + 93)
+        write_minispeech_archive(os.path.join(root, 'eval'), EVAL_PATTERNS,
+                                 config, SEED + 94)
+        train = dataclasses.replace(
+            config.train, max_step=MS_BF16_TRAINER_STEPS,
+            checkpoint_save_interval=MS_BF16_TRAINER_STEPS,
+            logging_interval=1, evaluation_interval=MS_BF16_TRAINER_STEPS,
+            alignment_warmup_steps=MS_WARM_STEPS,
+            decoder_freeze_steps=MS_WARM_STEPS)
+        cfg = dataclasses.replace(
+            config, train=train,
+            checkpoint_path=os.path.join(root, 'bf16', 'checkpoint'),
+            log_path=os.path.join(root, 'bf16', 'log'),
+            inference_path=os.path.join(root, 'bf16', 'inference'))
+        counts = PartCounts()
+        trainer = counts.wrap('trainer init', lambda: Trainer(
+            cfg, device=device,
+            writers={'train': MemoryWriter(), 'eval': MemoryWriter()}))()
+        assert trainer.model.dtype == BF16
+        trainer.train_step = counts.wrap('trainer train',
+                                         trainer.train_step)
+        for key, fn in trainer.curriculum_steps.items():
+            trainer.curriculum_steps[key] = counts.wrap('trainer train', fn)
+        trainer.eval_step = counts.wrap('trainer eval', trainer.eval_step)
+        trainer.model.inference_decode = counts.wrap(
+            'trainer decode', trainer.model.inference_decode)
+        trainer.train()
+        logged = trainer.writers['train'].scalars
+        totals = [value for _, value in logged['Loss/total']]
+        print(f'MiniSpeech Trainer at bf16, {MS_BF16_TRAINER_STEPS} steps '
+              f'(EM warmup and decoder freeze over the first '
+              f'{MS_WARM_STEPS}): total loss by step {totals}; free-running '
+              f'decode at {cfg.serve_dtype} finite')
+        assert np.isfinite(totals).all() and len(totals) \
+            == MS_BF16_TRAINER_STEPS, totals
+        assert torch.isfinite(trainer.free_running['mels']).all()
+        flows = config.decoder.stack
+        expected = {
+            'trainer init': {'flow_step_bf16_c80': flows},
+            'trainer train': {
+                'train_fwd_bf16_c80': flows * MS_BF16_TRAINER_STEPS,
+                'train_bwd_bf16_c80': BWD_KERNELS_PER_FLOW_STEP * flows
+                * MS_BF16_TRAINER_STEPS},
+            # the free-running decodes (at steps 0 and 3) serve at
+            # inference_dtype, f32
+            'trainer decode': {'flow_step_c80': 2 * flows}}
+        for part, want in expected.items():
+            got = counts.by_part[part]
+            print(f'  launches, MiniSpeech bf16 {part}: '
+                  + json.dumps({key: v for key, v in got.items() if v}))
+            for key, value in want.items():
+                assert got[key] == value, (part, key, got)
+        assert counts.by_part['trainer eval']['flow_step_bf16_c80'] > 0
+        return ({'step': step_err, 'fwd': fwd_err, 'bwd': bwd_err},
+                rows, {f'MiniSpeech bf16 {part}': value
+                       for part, value in counts.by_part.items()})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_bf16_phase(inferencer_model, batches, device, card):
+    """The bf16 phase: #3, #5 and #6's bf16 builds against their plain
+    versions at full width (160 channels, the pitch builds, 80 channels),
+    timed beside the f32 builds; the shipped YAML trained at bf16 (init,
+    4 steps, eval steps under 'fused') beside the plain versions at bf16
+    and f32; the train step at bf16 and f32 on the same batch; MiniSpeech's
+    Trainer at bf16; one GR train step on the bf16 pitch builds.  Returns
+    the kernels line's rows and the launches by path."""
+    from glow_tts_tpu_torch import load_config, random_state_dict
+    start = time.perf_counter()
+    config16 = load_config(CONFIG)                    # as shipped
+    assert config16.compute_dtype == 'bfloat16'
+    f32 = dataclasses.replace(config16, compute_dtype='float32')
+    batch = batches[0]
+    errs, rows, by_path = {}, {}, {}
+    errs['flow_step'] = check_bf16_step(inferencer_model, device, 'c160')
+    trainee = train_model(random_state_dict(f32, SEED), f32, device)
+    trainee.data_dependent_init(batch['mels'], batch['mel_lengths'])
+    x, mask, weights = stack_problem(trainee, batch, f32)
+    del trainee
+    (errs['flow_train_fwd'], errs['flow_train_bwd'],
+     with_flush) = check_bf16_train(x, mask, weights, 'c160')
+    launches, _ = run_bf16_training(config16, batch, device)
+    by_path['bf16 train and eval'] = launches
+    (rows['flow_step'], rows['flow_train_fwd'],
+     rows['flow_train_bwd']) = time_bf16_kernels(
+        inferencer_model, x, mask, weights, device, 'c160')
+    rows['flow_train_bwd']['second_accumulator_grad_norm_rel_err'] = \
+        with_flush
+    step_times = time_bf16_step(config16, batch, device)
+    del x, mask, weights
+
+    # GR on the bf16 pitch builds: #3, #5, #6 checked, one train step
+    gr16 = mode_config('GR', dtype='bfloat16')
+    gr32 = dataclasses.replace(gr16, compute_dtype='float32')
+    gr_batch = conditioned_batch(gr32, device, SEED + 80)
+    gr_state = random_state_dict(gr32, SEED + 81)
+    gr_model = fresh_model(gr_state, gr32, device)
+    errs['flow_step_pitch'] = check_bf16_step(gr_model, device, 'pitch',
+                                              pitch=True)
+    trainee = train_model(gr_state, gr32, device)
+    from glow_tts_tpu_torch.training.step import conditioning_inputs
+    trainee.data_dependent_init(gr_batch['mels'], gr_batch['mel_lengths'],
+                                **conditioning_inputs(gr_batch))
+    x, mask, weights, cond, pitch = pitch_stack_problem(trainee, gr_batch,
+                                                        gr32)
+    del trainee
+    errs['flow_train_fwd_pitch'], errs['flow_train_bwd_pitch'], _ = \
+        check_bf16_train(x, mask, weights, 'pitch', cond, pitch)
+    launches, _ = run_bf16_training(gr16, gr_batch, device, steps=1,
+                                    state=gr_state, eval_steps=1)
+    by_path['bf16 GR train and eval'] = launches
+    (rows['flow_step_pitch'], rows['flow_train_fwd_pitch'],
+     rows['flow_train_bwd_pitch']) = time_bf16_kernels(
+        gr_model, x, mask, weights, device, 'pitch', cond, pitch,
+        step_pitch=True, iters=2)
+    del gr_model, x, mask, weights, cond, pitch
+
+    ms_errs, ms_rows, ms_paths = run_bf16_minispeech(device)
+    by_path.update(ms_paths)
+    errs.update({'flow_step_c80': ms_errs['step'],
+                 'flow_train_fwd_c80': ms_errs['fwd'],
+                 'flow_train_bwd_c80': ms_errs['bwd']})
+    (rows['flow_step_c80'], rows['flow_train_fwd_c80'],
+     rows['flow_train_bwd_c80']) = ms_rows
+    for name, err in errs.items():
+        rows[name]['max_abs_err'] = err
+        if name.startswith('flow_train_bwd'):
+            rows[name]['max_abs_err_is'] = (
+                'the worst gradient norm-relative error against the f32 '
+                'plain version')
+    print('bf16 phase: ' + json.dumps({
+        'train_step': step_times, 'seconds': round(
+            time.perf_counter() - start, 1), 'card': card}))
+    return rows, by_path
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: no CUDA device; this script runs on a GPU only')
@@ -3662,17 +4311,41 @@ def main():
                   for source, load in flow_loaders},
                **{(source, coupling.build_defines(80)):
                   functools.partial(load, channels=80)
-                  for source, load in flow_loaders}}
+                  for source, load in flow_loaders},
+               # the bfloat16 builds of #3, #5 and #6: 160 and 80 channels
+               # and the 160-channel pitch builds
+               **{(source, coupling.build_defines(channels, pitch, True)):
+                  functools.partial(load, pitch, channels, True)
+                  for source, load in flow_loaders
+                  if source in ('flow_step.cu', 'flow_train_fwd.cu',
+                                'flow_train_bwd.cu')
+                  for channels, pitch in ((160, False), (160, True),
+                                          (80, False))}}
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc each, together
         for build in [pool.submit(load) for load in sources.values()]:
             build.result()
+    phases = {}
+
+    def phase_done(name):
+        # seconds each phase took, printed at the end
+        nonlocal start
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        phases[name] = round(now - start, 1)
+        start = now
+
     print(f'{len(sources)} kernel libraries built and loaded in '
           f'{time.perf_counter() - start:.1f} s')
     for source, defines in sources:
         for line in cuda_build.ptxas_report(source, defines):
             print(f'  ptxas {line}')
+    phase_done('build')
 
-    config = load_config(CONFIG)
+    shipped = load_config(CONFIG)
+    assert shipped.compute_dtype == 'bfloat16'   # the YAML as shipped
+    # every phase before the bfloat16 one pins float32, as PRs before the
+    # bfloat16 builds ran them
+    config = dataclasses.replace(shipped, compute_dtype='float32')
     assert config.flow_route == 'fused'          # the shipped 'auto'
     configs = {route: dataclasses.replace(config, coupling_backend=route)
                for route in ROUTES}
@@ -3737,6 +4410,7 @@ def main():
     fwd_err, fwd_one_pass = check_train_forward(x, mask, weights)
     bwd_err = check_train_backward(x, mask, weights)
     by_path['train'] = run_training(config, batches[0], device)
+    phase_done('kernels, serving, eval and train paths')
 
     flow_times, coupling_times, stack_times = time_flow_kernels(
         inferencer.model, device, mask)
@@ -3745,22 +4419,33 @@ def main():
     fwd_times, bwd_times = time_training(config, batches[0], x, mask,
                                          weights, device)
     profile_window('eval steps', lambda: eval_step(batches[0]), 3)
+    phase_done('timings')
     # the conditioned modes: GR's pitch instantiations, serving, the forward
     pitch_rows, conditioned_paths = run_conditioned_phase(
         {route: inferencers[route].model for route in ROUTES}, batches[0],
         mask, device)
     by_path.update(conditioned_paths)
+    phase_done('conditioned serving')
     # training the conditioned modes: #5's and #6's pitch builds, GR, SE, PE
     train_pitch_rows, conditioned_paths = run_conditioned_training(config,
                                                                   device)
     by_path.update(conditioned_paths)
+    phase_done('conditioned training')
+    # the shipped YAMLs as shipped: bfloat16, through the bf16 builds
+    bf16_rows, bf16_paths = run_bf16_phase(inferencer.model, batches, device,
+                                           card)
+    by_path.update(bf16_paths)
+    phase_done('bf16')
     # MiniSpeech, the converged recipe: the 80-channel builds, the
     # curriculum and its trainer
     minispeech_rows, minispeech_paths = run_minispeech_phase(device, card)
     by_path.update(minispeech_paths)
+    phase_done('MiniSpeech')
     by_path.update(run_trainer_phase(config, device, card))
+    phase_done('trainer')
     # from wavs to wavs: the ETL, the export and the reference-wav features
     by_path.update(run_wav_phase(device, card))
+    phase_done('wavs')
 
     def launches(counter):
         paths = {path: counts[counter] for path, counts in by_path.items()}
@@ -3848,9 +4533,29 @@ def main():
                'fused_flow_stack_train'),
               ('flow_train_bwd', 'train_bwd',
                'glow_tts_tpu/ops/coupling_grad.py:195',
+               'fused_flow_stack_train (backward)'))),
+        # the bfloat16 builds (GLOW_BF16): 160 channels, the pitch builds,
+        # 80 channels
+        *({'name': f'{name}_bf16{tag}', 'route': 'cuda',
+           'source': csrc + f'{name}.cu',
+           'build': ' '.join(f'-D{d}' for d in defines),
+           'replaces': replaces, 'entry': entry,
+           **launches(f'{counter}_bf16{tag}'),
+           **bf16_rows[name + tag], 'library_ms': None}
+          for tag, defines in (
+              ('', ('GLOW_BF16',)), ('_pitch', ('GLOW_PITCH', 'GLOW_BF16')),
+              ('_c80', ('GLOW_CHANNELS=80', 'GLOW_BF16')))
+          for name, counter, replaces, entry in (
+              ('flow_step', 'flow_step', 'glow_tts_tpu/ops/coupling.py:190',
+               'fused_flow_step'),
+              ('flow_train_fwd', 'train_fwd',
+               'glow_tts_tpu/ops/coupling_grad.py:97',
+               'fused_flow_stack_train'),
+              ('flow_train_bwd', 'train_bwd',
+               'glow_tts_tpu/ops/coupling_grad.py:195',
                'fused_flow_stack_train (backward)')))]}))
     print(f'chip_smoke: {time.perf_counter() - begun:.0f} s in all, the '
-          f'kernels\' build included')
+          f'kernels\' build included; by phase {json.dumps(phases)}')
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

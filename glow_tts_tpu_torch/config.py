@@ -8,10 +8,14 @@ modes (Vanilla, SE, PE, GR: the conditioning encoders' widths), of the
 loss/eval path, of the train step (dropout rates, optimiser) and of the
 trainer (pattern sets, intervals, output paths, the alignment curriculum)
 are kept; unknown keys are ignored, as there, and :func:`load_config`
-warns once per process where the YAML asks for a compute dtype other than
-float32 (the port computes in float32, ``ROADMAP.md`` A.5) or for more
-than one device (it runs on one, A.7).  A CPU test holds
-every field against
+warns once per process where the YAML asks for more than one device (the
+port runs on one, ``ROADMAP.md`` A.7).  The precision fields are the JAX
+package's (``TPU.compute_dtype``, ``param_dtype``, ``inference_dtype``,
+and the reference's ``Use_Mixed_Precision`` where the ``TPU`` section
+names no compute dtype): training and evaluation compute at
+``compute_dtype``, float32 or bfloat16, serving at ``inference_dtype or
+compute_dtype``, and the parameters stay float32; any other dtype raises
+(A.5).  A CPU test holds every field against
 ``glow_tts_tpu.config`` on the same input.  :func:`save_config` writes the
 snapshot a checkpoint directory carries, which :func:`load_config` reads
 back to an equal ``Config``.
@@ -275,6 +279,9 @@ class TrainConfig:
 
 
 COUPLING_BACKENDS = ('auto', 'fused', 'mega', 'modules')
+# the compute dtypes the port runs: the JAX package's kernels know these
+# two alone (``glow_tts_tpu/ops/coupling_grad.py``'s ``gdt``)
+COMPUTE_DTYPES = ('float32', 'bfloat16')
 
 
 def coupling_backend_name(value: str) -> str:
@@ -320,6 +327,14 @@ class Config:
     # route of the deterministic flow decoder (the YAML's
     # ``TPU.coupling_backend``), one of COUPLING_BACKENDS
     coupling_backend: str = 'auto'
+    # the precision policy (the YAML's ``TPU`` fields, the JAX package's
+    # defaults): activations and products of training and evaluation at
+    # ``compute_dtype``, parameters at ``param_dtype``, serving at
+    # ``inference_dtype or compute_dtype``; logdets, the prior likelihood,
+    # MAS and the losses stay float32 at any of them
+    compute_dtype: str = 'bfloat16'
+    param_dtype: str = 'float32'
+    inference_dtype: Optional[str] = 'float32'
 
     def __post_init__(self):
         if self.mode.upper() not in MODES:
@@ -336,6 +351,16 @@ class Config:
                              'and Prosody_Encoder.Size must match')
         object.__setattr__(self, 'coupling_backend',
                            coupling_backend_name(self.coupling_backend))
+        for name in ('compute_dtype', 'inference_dtype'):
+            value = getattr(self, name)
+            if value is not None and value not in COMPUTE_DTYPES:
+                raise ValueError(
+                    f'TPU.{name} must be one of {COMPUTE_DTYPES}, got '
+                    f'{value!r}: the port computes at these (ROADMAP.md '
+                    f'A.5)')
+        if self.param_dtype != 'float32':
+            raise ValueError(f'TPU.param_dtype must be float32, got '
+                             f'{self.param_dtype!r} (ROADMAP.md A.5)')
 
     @property
     def uses_speaker_embedding(self) -> bool:
@@ -365,6 +390,12 @@ class Config:
         if self.uses_prosody_encoder:
             return self.prosody_encoder.size
         return 0
+
+    @property
+    def serve_dtype(self) -> str:
+        """The dtype serving computes at: ``inference_dtype``, else
+        ``compute_dtype`` (``glow_tts_tpu/training/step.py``'s rule)."""
+        return self.inference_dtype or self.compute_dtype
 
     @property
     def flow_route(self) -> str:
@@ -412,7 +443,8 @@ _SECTIONS = {cls.__name__: cls for cls in (
 
 
 # the fields the YAML keeps under ``TPU``
-_TPU_FIELDS = ('token_bucket', 'mel_bucket', 'coupling_backend')
+_TPU_FIELDS = ('token_bucket', 'mel_bucket', 'coupling_backend',
+               'compute_dtype', 'param_dtype', 'inference_dtype')
 
 
 def _section(data: Mapping, name: str) -> Mapping:
@@ -434,13 +466,6 @@ def _check_unported(data: Mapping) -> None:
     """Warn once per process on what the YAML asks for and the port runs
     otherwise."""
     tpu = _section(data, 'TPU')
-    dtype = tpu.get('compute_dtype')
-    if dtype is None and 'Use_Mixed_Precision' in data:
-        dtype = 'bfloat16' if data['Use_Mixed_Precision'] else 'float32'
-    if dtype is not None and str(dtype) not in ('float32', 'fp32'):
-        _warn_once('compute_dtype', (
-            f'TPU.compute_dtype = {dtype!r}: the PyTorch port computes in '
-            f'float32 (ROADMAP.md A.5)'))
     devices = {key: int(tpu.get(key) or 0)
                for key in ('data_parallel', 'model_parallel')}
     if any(count > 1 for count in devices.values()):
@@ -451,7 +476,10 @@ def _check_unported(data: Mapping) -> None:
 
 def load_config(path_or_dict) -> Config:
     """Load from a ``Hyper_Parameters.yaml`` path or an equivalent dict.
-    Raises ``ValueError`` on an unknown ``Train.Alignment_Warmup_Mode``."""
+    The reference's ``Use_Mixed_Precision`` gives the compute dtype where the
+    ``TPU`` section names none (``true``: bfloat16).  Raises ``ValueError``
+    on an unknown ``Train.Alignment_Warmup_Mode`` and on a dtype the port
+    does not compute at."""
     if isinstance(path_or_dict, Mapping):
         data = path_or_dict
     else:
@@ -461,13 +489,16 @@ def load_config(path_or_dict) -> Config:
     config = _coerce(Config, data)
     tpu = data.get('TPU') or data.get('tpu') or {}
     from_tpu = {name: tpu[name] for name in _TPU_FIELDS if name in tpu}
+    if 'compute_dtype' not in from_tpu and 'Use_Mixed_Precision' in data:
+        from_tpu['compute_dtype'] = ('bfloat16' if data['Use_Mixed_Precision']
+                                     else 'float32')
     return dataclasses.replace(config, **from_tpu)
 
 
 def save_config(config: Config, path: str) -> None:
     """Write ``config`` as YAML (the snapshot beside checkpoints), in the
-    schema :func:`load_config` reads: lower-case keys, the bucket and
-    backend fields under ``tpu`` as the JAX package's snapshot has them."""
+    schema :func:`load_config` reads: lower-case keys, the bucket, backend
+    and dtype fields under ``tpu`` as the JAX package's snapshot has them."""
     data = dataclasses.asdict(config)
     data['tpu'] = {name: data.pop(name) for name in _TPU_FIELDS}
     with open(path, 'w', encoding='utf-8') as f:

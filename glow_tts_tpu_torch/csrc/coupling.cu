@@ -33,6 +33,11 @@
 
 #include "flow_common.cuh"
 
+#ifdef GLOW_BF16
+// the coupling kernel has no bfloat16 build yet (ROADMAP.md B.3)
+#error "no GLOW_BF16 build of this source"
+#endif
+
 namespace {
 
 struct Strided {

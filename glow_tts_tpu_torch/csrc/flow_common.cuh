@@ -34,6 +34,22 @@
 // policy on the weight loads (a storing step alone up to 0.19 ms slower),
 // the saved rows written by the TMA's bulk copies instead of the threads
 // (no faster), mma issued in the order written, weights split in the warp.
+//
+// A GLOW_BF16 build (flow_step.cu, flow_train_fwd.cu; ops/coupling.py's
+// bfloat16 policy) computes what the TPU kernels compute at dt = bfloat16
+// (glow_tts_tpu/ops/coupling.py::_coupling_body): the activations in device
+// memory (the step's input and output, the saved values) are bfloat16
+// (act_t); in shared memory they stay float32, rounded to bfloat16
+// (act_round) where the TPU kernel casts them: the ActNorm output and x_a
+// before the mixing and the start conv, h after every update, the gate and
+// the masked skip sum before their products.  The two big products run on
+// the tensor cores with bfloat16 operands (tc_gemm_bf16: mma.sync m16n8k16,
+// f32 sums) on weights laid out once in bfloat16
+// (ops/coupling.py::tensor_core_layout_bf16); the small FMA products read
+// bfloat16 values held in float32 (operands rounded here, weights rounded
+// where they are packed), whose products are exact in float32.  x_b, the
+// sums and the logdet stay float32.  The float32 builds' code is what it
+// was: every bfloat16 change is a type or an inline identity there.
 
 #pragma once
 
@@ -42,12 +58,29 @@
 #include <cstddef>
 #include <cstdint>
 
+#ifdef GLOW_BF16
+#include <cuda_bf16.h>
+#endif
+
 #include "tf32_mma.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+
+// One lane's B fragment of W in the tensor-core layout: of an 8 x 8 block,
+// TF32 (hi, hi', lo, lo'); in a GLOW_BF16 build, of a 16 x 8 block, two
+// bfloat16 pairs (rows 2t, 2t+1 and 2t+8, 2t+9 of column g).  kKStep is the
+// depth of a block.
+using TfFrag = float4;
+#ifdef GLOW_BF16
+using WFrag = uint2;
+constexpr int kKStep = 16;
+#else
+using WFrag = TfFrag;
+constexpr int kKStep = 8;
+#endif
 
 #define HD __host__ __device__
 
@@ -111,9 +144,10 @@ struct Shape {
   static constexpr int TSP = CH2 + 4;
   static constexpr int SAVE_FLOATS = TT * TSP;
   // fragments (WFrag) of one layer's w_in and w_rs in the tensor-core
-  // layout
-  static constexpr size_t W_IN_TC = static_cast<size_t>(KS) * CH / 8 * NB * 32;
-  static constexpr size_t W_RS_TC = static_cast<size_t>(CH) / 8 * NB * 32;
+  // layout, a fragment per lane for every kKStep-deep block
+  static constexpr size_t W_IN_TC =
+      static_cast<size_t>(KS) * CH / kKStep * NB * 32;
+  static constexpr size_t W_RS_TC = static_cast<size_t>(CH) / kKStep * NB * 32;
 };
 
 // The flow's channel count of this build: the shipped config's 160
@@ -147,6 +181,50 @@ __device__ __forceinline__ float4 ld_act4(const float* p) {
 }
 __device__ __forceinline__ float4& at4(float* p) {
   return *reinterpret_cast<float4*>(p);
+}
+// Four activations to device memory; streamed (written once, read much
+// later) with stcs_act4.
+__device__ __forceinline__ void st_act4(float* p, float4 v) { at4(p) = v; }
+__device__ __forceinline__ void stcs_act4(float* p, float4 v) {
+  __stcs(reinterpret_cast<float4*>(p), v);
+}
+__device__ __forceinline__ float to_act(float v, float*) { return v; }
+
+// The activations' type in device memory, and v rounded to it and held in
+// float32 (the identity in a float32 build).
+#ifdef GLOW_BF16
+constexpr bool kBf16 = true;
+using act_t = __nv_bfloat16;
+__device__ __forceinline__ float act_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+using tf32::bf16_hi;
+using tf32::bf16_lo;
+using tf32::pack_bf16;
+__device__ __forceinline__ float4 ld_act4(const __nv_bfloat16* p) {
+  const uint2 u = __ldcg(reinterpret_cast<const uint2*>(p));
+  return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
+}
+__device__ __forceinline__ uint2 pack4_bf16(float4 v) {
+  return make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+__device__ __forceinline__ void st_act4(__nv_bfloat16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = pack4_bf16(v);
+}
+__device__ __forceinline__ void stcs_act4(__nv_bfloat16* p, float4 v) {
+  __stcs(reinterpret_cast<uint2*>(p), pack4_bf16(v));
+}
+__device__ __forceinline__ __nv_bfloat16 to_act(float v, __nv_bfloat16*) {
+  return __float2bfloat16_rn(v);
+}
+#else
+constexpr bool kBf16 = false;
+using act_t = float;
+__device__ __forceinline__ float act_round(float v) { return v; }
+#endif
+__device__ __forceinline__ float4 act_round4(float4 v) {
+  return make_float4(act_round(v.x), act_round(v.y), act_round(v.z),
+                     act_round(v.w));
 }
 __device__ __forceinline__ float2& at2(float* p) {
   return *reinterpret_cast<float2*>(p);
@@ -231,8 +309,6 @@ constexpr int kAhead = 1;
 // column tiles (and all row tiles), so that only the group's fragments
 // are in flight
 constexpr int kGroup = 2;
-// one lane's B fragment of an 8 x 8 block of W: (hi, hi', lo, lo')
-using WFrag = float4;
 
 // The tensor-core GEMM of a warp: sum = A . W over K = 8 * NK8, for the m16
 // row tiles mt < MT and the n8 column tiles nt0 + nt (nt < NT) of W.
@@ -249,7 +325,7 @@ using WFrag = float4;
 template <int MT, int NT, int NK8, int LDA, int NB, int PASSES, class AAt>
 __device__ __forceinline__ void tc_gemm(float (&sum)[MT][NT][4],
                                         const AAt& a_at,
-                                        const WFrag* __restrict__ w,
+                                        const TfFrag* __restrict__ w,
                                         int nt0) {
   static_assert(PASSES == 1 || PASSES == 3, "1xTF32 or 3xTF32");
   constexpr int Q = kAhead + 1;
@@ -260,9 +336,9 @@ __device__ __forceinline__ void tc_gemm(float (&sum)[MT][NT][4],
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sum[mt][nt][e] = 0.f;
-  const WFrag* wl = w + nt0 * 32 + lane;
-  WFrag bq[Q][NT];   // W's fragments of Q consecutive steps
-  auto load = [&](WFrag (&dst)[NT], int kb) {
+  const TfFrag* wl = w + nt0 * 32 + lane;
+  TfFrag bq[Q][NT];   // W's fragments of Q consecutive steps
+  auto load = [&](TfFrag (&dst)[NT], int kb) {
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
       dst[nt] = __ldg(wl + (static_cast<size_t>(kb) * NB + nt) * 32);
@@ -297,7 +373,7 @@ __device__ __forceinline__ void tc_gemm(float (&sum)[MT][NT][4],
           uint32_t b_hi[G][2], b_lo[G][2];
 #pragma unroll
           for (int i = 0; i < G; ++i) {
-            const WFrag b = bq[j][n0 + i];
+            const TfFrag b = bq[j][n0 + i];
             b_hi[i][0] = __float_as_uint(b.x);
             b_hi[i][1] = __float_as_uint(b.y);
             b_lo[i][0] = __float_as_uint(b.z);
@@ -337,6 +413,91 @@ __device__ __forceinline__ void tc_gemm(float (&sum)[MT][NT][4],
       }
     }
   }
+}
+
+#ifdef GLOW_BF16
+// tc_gemm with bfloat16 operands, a GLOW_BF16 build's: sum = A . W over K =
+// 16 * NK16 on the tensor cores (mma.sync m16n8k16, bf16 x bf16 products
+// exact, f32 sums).  A is read as tc_gemm reads it (a_at(kb) for the 8-deep
+// block kb, which a 16-deep block spans two of: a_at(2 kb) + 8 is
+// a_at(2 kb + 1)) as float pairs rounded to bfloat16 here; W is in the
+// layout of ops/coupling.py::tensor_core_layout_bf16: uint2 [NK16][NB][32
+// lanes].  As in tc_gemm, every 16-deep step's product starts at zero and is
+// added to sum in f32, and W's fragments are loaded kAhead steps ahead.
+template <int MT, int NT, int NK16, int LDA, int NB, class AAt>
+__device__ __forceinline__ void tc_gemm_bf16(float (&sum)[MT][NT][4],
+                                             const AAt& a_at,
+                                             const WFrag* __restrict__ w,
+                                             int nt0) {
+  constexpr int Q = kAhead + 1;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum[mt][nt][e] = 0.f;
+  const WFrag* wl = w + nt0 * 32 + lane;
+  WFrag bq[Q][NT];
+  auto load = [&](WFrag (&dst)[NT], int kb) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      dst[nt] = __ldg(wl + (static_cast<size_t>(kb) * NB + nt) * 32);
+  };
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j)
+    if (j < NK16) load(bq[j], j);
+  for (int kb0 = 0; kb0 < NK16; kb0 += Q) {
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      const int kb = kb0 + j;
+      if (kb < NK16) {
+        if (kb + kAhead < NK16) load(bq[(j + kAhead) % Q], kb + kAhead);
+        const float* a = a_at(2 * kb) + g * LDA + 2 * t;
+        uint32_t af[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const float* am = a + 16 * mt * LDA;
+          const float2 v0 = *reinterpret_cast<const float2*>(am);
+          const float2 v1 = *reinterpret_cast<const float2*>(am + 8 * LDA);
+          const float2 v2 = *reinterpret_cast<const float2*>(am + 8);
+          const float2 v3 =
+              *reinterpret_cast<const float2*>(am + 8 * LDA + 8);
+          af[mt][0] = pack_bf16(v0.x, v0.y);
+          af[mt][1] = pack_bf16(v1.x, v1.y);
+          af[mt][2] = pack_bf16(v2.x, v2.y);
+          af[mt][3] = pack_bf16(v3.x, v3.y);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const uint32_t b[2] = {bq[j][nt].x, bq[j][nt].y};
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            float d[4] = {0.f, 0.f, 0.f, 0.f};
+            tf32::mma_bf16(d, af[mt], b);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sum[mt][nt][e] += d[e];
+          }
+        }
+      }
+    }
+  }
+}
+#endif
+
+// The build's tensor-core GEMM of a warp over depth K (a multiple of 16):
+// tc_gemm's 3xTF32 or one TF32 pass (PASSES), or in a GLOW_BF16 build
+// tc_gemm_bf16.
+template <int MT, int NT, int K, int LDA, int NB, int PASSES, class AAt>
+__device__ __forceinline__ void tc_product(float (&sum)[MT][NT][4],
+                                           const AAt& a_at,
+                                           const WFrag* __restrict__ w,
+                                           int nt0) {
+#ifdef GLOW_BF16
+  tc_gemm_bf16<MT, NT, K / 16, LDA, NB>(sum, a_at, w, nt0);
+#else
+  tc_gemm<MT, NT, K / 8, LDA, NB, PASSES>(sum, a_at, w, nt0);
+#endif
 }
 
 // epilogue(row, column, v, v') for every pair of neighbouring columns of a
@@ -465,8 +626,10 @@ struct StepWeights {
   const float* mix_t;    // [C, C]
   const float* w_start;  // [C/2, CH]
   const float* b_start;  // [CH]
-  const WFrag* w_in;     // [NL, KS*CH/8, 2CH/8, 32], gate columns interleaved
-  const WFrag* w_rs;     // [NL, CH/8, 2CH/8, 32], last layer's res half zero
+  const WFrag* w_in;     // [NL, KS*CH/kKStep, 2CH/8, 32], gate columns
+                         // interleaved
+  const WFrag* w_rs;     // [NL, CH/kKStep, 2CH/8, 32], last layer's res
+                         // half zero
   const float* b_rs;     // [NL, 2CH]
   const float* w_end;    // [CH, C]
   const float* b_end;    // [C]
@@ -489,14 +652,14 @@ HD StepWeights step_of_stack(const StepWeights& stacked, int s) {
 }
 
 // Where a saving instantiation leaves what a backward pass reads, each over
-// the B*T frames.
+// the B*T frames, in the activations' type.
 struct SavePointers {
-  float* y;     // [B*T, C]        ActNorm output, masked
-  float* yd;    // [B*T, C]        mixing output [x_a, x_b], masked
-  float* xin;   // [NL, B*T, CH]   input of every layer
-  float* ts;    // [NL, B*T, 2CH]  tanh half, sigmoid half
-  float* skip;  // [B*T, CH]       masked skip sum
-  float* logs;  // [B*T, C/2]
+  act_t* y;     // [B*T, C]        ActNorm output, masked
+  act_t* yd;    // [B*T, C]        mixing output [x_a, x_b], masked
+  act_t* xin;   // [NL, B*T, CH]   input of every layer
+  act_t* ts;    // [NL, B*T, 2CH]  tanh half, sigmoid half
+  act_t* skip;  // [B*T, CH]       masked skip sum
+  act_t* logs;  // [B*T, C/2]
 };
 
 // A block's buffers in shared memory and the tile it works on: the TT
@@ -539,9 +702,10 @@ struct Tile {
   // Columns [col0, col0 + n) of x get the rows of src [B, T, n] whose
   // frames lie in [0, T); src's samples lie batch_stride floats apart and
   // its frames row_stride (multiples of 4, as are col0 and n).
-  __device__ void load_columns(const float* src, size_t batch_stride,
+  template <class E>
+  __device__ void load_columns(const E* src, size_t batch_stride,
                                size_t row_stride, int col0, int n) const {
-    const float* rows = src + b * batch_stride;
+    const E* rows = src + b * batch_stride;
     for (int i = threadIdx.x; i < S::R * (n / 4); i += kThreads) {
       const int r = i / (n / 4), c = 4 * (i % (n / 4)), t = t0 + r;
       if (t >= 0 && t < T)
@@ -550,7 +714,8 @@ struct Tile {
   }
 
   // begin, then the rows of a contiguous x [B, T, C].
-  __device__ void load(const float* x, const float* mask) const {
+  template <class E>
+  __device__ void load(const E* x, const float* mask) const {
     begin(mask);
     load_columns(x, static_cast<size_t>(T) * S::C, S::C, 0, S::C);
     __syncthreads();
@@ -561,27 +726,30 @@ struct Tile {
   // backward pass is written once and read much later (190 MB a step), so
   // it goes out with streaming stores: written the plain way it pushed the
   // weights out of L2 and cost a step 0.2 ms more.
-  __device__ void store_owned(float* out, const float* rows_c, int pitch,
+  template <class E>
+  __device__ void store_owned(E* out, const float* rows_c, int pitch,
                               int n) const {
     for (int i = threadIdx.x; i < S::TT * (n / 4); i += kThreads) {
       const int r = i / (n / 4), c = 4 * (i % (n / 4));
       const int t = t0 + S::HALO + r;
       if (t < T)
-        __stcs(reinterpret_cast<float4*>(out + (sample + t) * n + c),
-               *reinterpret_cast<const float4*>(rows_c + r * pitch + c));
+        stcs_act4(out + (sample + t) * n + c,
+                  *reinterpret_cast<const float4*>(rows_c + r * pitch + c));
     }
   }
 
   // out[B*T, n] gets zeros at the owned frames below `end` (at most T): a
   // dead tile's output.
-  __device__ void zero_owned(float* out, int n, int end) const {
+  template <class E>
+  __device__ void zero_owned(E* out, int n, int end) const {
     for (int i = threadIdx.x; i < S::TT * (n / 4); i += kThreads) {
       const int t = t0 + S::HALO + i / (n / 4), c = 4 * (i % (n / 4));
       if (t < end)
-        at4(out + (sample + t) * n + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+        st_act4(out + (sample + t) * n + c, make_float4(0.f, 0.f, 0.f, 0.f));
     }
   }
-  __device__ void zero_owned(float* out, int n) const {
+  template <class E>
+  __device__ void zero_owned(E* out, int n) const {
     zero_owned(out, n, T);
   }
 };
@@ -615,7 +783,7 @@ __device__ __forceinline__ void wavenet_layers(const Tile<S>& tile,
     // epilogue is the pre-gate and the gate, into the gate buffer
     float sum[MT][NT][4];
     const float* h0 = hs + (lo - S::PAD) * HP;
-    tc_gemm<MT, NT, S::KS * CH / 8, HP, NB, PASSES>(
+    tc_product<MT, NT, S::KS * CH, HP, NB, PASSES>(
         sum,
         [&](int kb) {
           const int k = 8 * kb;
@@ -631,7 +799,7 @@ __device__ __forceinline__ void wavenet_layers(const Tile<S>& tile,
       const int c = col / 2, row = lo + r;
       const float th = tanhf(pre(row, c, vt));
       const float sg = sigmoidf(pre(row, CH + c, vs));
-      gs[r * GP + c] = th * sg;
+      gs[r * GP + c] = act_round(th * sg);
       if constexpr (SAVE) {
         const int own = row - HALO;
         if (own >= 0 && own < TT) {
@@ -648,7 +816,7 @@ __device__ __forceinline__ void wavenet_layers(const Tile<S>& tile,
     // res half updates h in place (this GEMM reads only the gate); skip
     // half accumulates on the central rows
     float sum[MT][NT][4];
-    tc_gemm<MT, NT, CH / 8, GP, NB, PASSES>(
+    tc_product<MT, NT, CH, GP, NB, PASSES>(
         sum, [&](int kb) { return gs + 8 * kb; },
         w.w_rs + I * S::W_RS_TC, NT * warp);
     tc_epilogue<MT, NT>(sum, NT * warp, [&](int r, int col, float v0,
@@ -659,7 +827,8 @@ __device__ __forceinline__ void wavenet_layers(const Tile<S>& tile,
       v1 += __ldg(b_rs + col + 1);
       if (col < CH) {
         float2& h = at2(hs + row * HP + col);
-        h = make_float2((h.x + v0) * ms[row], (h.y + v1) * ms[row]);
+        h = make_float2(act_round((h.x + v0) * ms[row]),
+                        act_round((h.y + v1) * ms[row]));
       } else if (row >= HALO && row < HALO + TT) {
         float2& s = at2(skip + (row - HALO) * SP + col - CH);
         s = make_float2(s.x + v0, s.y + v1);
@@ -673,7 +842,7 @@ __device__ __forceinline__ void wavenet_layers(const Tile<S>& tile,
     static_assert(lo == HALO && rows == TT, "halo bookkeeping");
     constexpr int NTH = NT / 2;
     float sum[MT][NTH][4];
-    tc_gemm<MT, NTH, CH / 8, GP, NB, PASSES>(
+    tc_product<MT, NTH, CH, GP, NB, PASSES>(
         sum, [&](int kb) { return gs + 8 * kb; },
         w.w_rs + I * S::W_RS_TC, NB / 2 + NTH * warp);
     tc_epilogue<MT, NTH>(sum, NB / 2 + NTH * warp, [&](int r, int col,
@@ -710,8 +879,9 @@ __device__ __forceinline__ void coupling_net(const Tile<S>& tile,
     // [x_a, x_b] = ((an_bias + exp(an_logs)*x)*m) . mix_t * m
     for (int i = tid; i < R * C; i += kThreads) {
       const int c = i % C;
-      xs[i] = (__ldg(w.an_bias + c) + expf(__ldg(w.an_logs + c)) * xs[i]) *
-              ms[i / C];
+      xs[i] = act_round(
+          (__ldg(w.an_bias + c) + expf(__ldg(w.an_logs + c)) * xs[i]) *
+          ms[i / C]);
     }
     __syncthreads();
     if constexpr (SAVE) tile.store_owned(save.y, xs + HALO * C, C, C);
@@ -720,7 +890,13 @@ __device__ __forceinline__ void coupling_net(const Tile<S>& tile,
           if (r < R) at4(gs + r * C + col) = scale4(v, ms[r]);
         });
     __syncthreads();
-    for (int i = tid; i < R * C; i += kThreads) xs[i] = gs[i];
+    if constexpr (kBf16) {
+      // x_a goes on in bfloat16, x_b in float32
+      for (int i = tid; i < R * C; i += kThreads)
+        xs[i] = i % C < C2 ? act_round(gs[i]) : gs[i];
+    } else {
+      for (int i = tid; i < R * C; i += kThreads) xs[i] = gs[i];
+    }
     __syncthreads();
     if constexpr (SAVE) tile.store_owned(save.yd, xs + HALO * C, C, C);
   }
@@ -730,15 +906,17 @@ __device__ __forceinline__ void coupling_net(const Tile<S>& tile,
       xs, C, C2, w.w_start, CH, CH / 4, [&](int r, int col, float4 v) {
         if (r < R)
           at4(hs + r * S::HP + col) =
-              scale4(add4(v, ldg4(w.b_start + col)), ms[r]);
+              act_round4(scale4(add4(v, ldg4(w.b_start + col)), ms[r]));
       });
   __syncthreads();
 
   wavenet_layers<S, SAVE, PASSES, 0>(tile, w, save, pre_gate);
 
   // end 1x1 on the masked skip sum: [mean, logs] -> gs [TT, C]
-  for (int i = tid; i < TT * CH; i += kThreads)
-    skip[(i / CH) * SP + i % CH] *= ms[HALO + i / CH];
+  for (int i = tid; i < TT * CH; i += kThreads) {
+    float& s = skip[(i / CH) * SP + i % CH];
+    s = act_round(s * ms[HALO + i / CH]);
+  }
   __syncthreads();
   if constexpr (SAVE) tile.store_owned(save.skip, skip, SP, CH);
   block_gemm<S::mr(TT), lane_quads(C)>(
@@ -753,9 +931,8 @@ __device__ __forceinline__ void coupling_net(const Tile<S>& tile,
 // exp(logs) * x_b) * m.  With WHOLE, z is [B, T, C] and gets [x_a, z_b];
 // without, z is [B, T, C/2] and gets z_b alone.  Returns, in thread 0
 // only, the tile's sum of logs * m, added in a fixed order.
-template <class S, bool WHOLE = true>
-__device__ __forceinline__ float affine_forward(const Tile<S>& tile,
-                                                float* z) {
+template <class S, bool WHOLE = true, class E>
+__device__ __forceinline__ float affine_forward(const Tile<S>& tile, E* z) {
   constexpr int C = S::C, C2 = S::C2, TT = S::TT, HALO = S::HALO;
   __shared__ float warp_sums[kWarps];
   const int tid = threadIdx.x;
@@ -770,9 +947,9 @@ __device__ __forceinline__ float affine_forward(const Tile<S>& tile,
     if (t < tile.T) {
       const float zb = (mean + expf(logs) * xs[row * C + C2 + c]) * m;
       if constexpr (WHOLE) {
-        float* out = z + (tile.sample + t) * C;
-        out[c] = xs[row * C + c];
-        out[C2 + c] = zb;
+        E* out = z + (tile.sample + t) * C;
+        out[c] = to_act(xs[row * C + c], z);
+        out[C2 + c] = to_act(zb, z);
       } else {
         z[(tile.sample + t) * C2 + c] = zb;
       }
@@ -899,14 +1076,14 @@ __device__ __forceinline__ BiasPreGate step_pre_gate(const float* cond,
 // coupling^-1 -> mixing^-1 -> ActNorm^-1 with w.mix_t the inverse mixing.
 // pre_gate is the in-conv epilogue (step_pre_gate).  Ends on a barrier, so
 // a block may go on to another tile.
-template <class S, bool REVERSE, int PASSES = 3, class PreGate>
+template <class S, bool REVERSE, int PASSES = 3, class PreGate, class E>
 __device__ __forceinline__ float flow_step_tile(const Tile<S>& tile,
-                                                const float* x,
+                                                const E* x,
                                                 const float* mask,
                                                 const PreGate& pre_gate,
                                                 const StepWeights& w,
                                                 const float* ld_const,
-                                                float* z) {
+                                                E* z) {
   constexpr int C = S::C, C2 = S::C2, TT = S::TT, HALO = S::HALO;
   const int tid = threadIdx.x;
   float logdet = 0.f;
@@ -931,7 +1108,7 @@ __device__ __forceinline__ float flow_step_tile(const Tile<S>& tile,
       const int r = i / C2, c = i % C2, row = HALO + r;
       const float mean = acc[r * C + c], logs = acc[r * C + C2 + c];
       float& xb = xs[row * C + C2 + c];
-      xb = (xb - mean) * expf(-logs) * ms[row];
+      xb = act_round((xb - mean) * expf(-logs) * ms[row]);
     }
     __syncthreads();
     block_gemm<S::mr(TT), lane_quads(C)>(
@@ -942,11 +1119,11 @@ __device__ __forceinline__ float flow_step_tile(const Tile<S>& tile,
           const float m = ms[row];
           const float4 bias = ldg4(w.an_bias + col);
           const float4 logs = ldg4(w.an_logs + col);
-          at4(z + (tile.sample + t) * C + col) = make_float4(
+          st_act4(z + (tile.sample + t) * C + col, make_float4(
               (v.x * m - bias.x) * expf(-logs.x) * m,
               (v.y * m - bias.y) * expf(-logs.y) * m,
               (v.z * m - bias.z) * expf(-logs.z) * m,
-              (v.w * m - bias.w) * expf(-logs.w) * m);
+              (v.w * m - bias.w) * expf(-logs.w) * m));
         });
   }
   __syncthreads();

@@ -63,6 +63,11 @@
 
 #include "flow_common.cuh"
 
+#ifdef GLOW_BF16
+// the flow stack kernel has no bfloat16 build yet (ROADMAP.md B.3)
+#error "no GLOW_BF16 build of this source"
+#endif
+
 namespace {
 
 struct Params {

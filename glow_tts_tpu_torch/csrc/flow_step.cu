@@ -34,6 +34,10 @@
 //   Vanilla instantiations do not change; it adds 2 * 2 * 2CH FLOP per frame
 //   and layer, and stages the tile's pitch and the step's w_pitch in shared
 //   memory.
+// * A GLOW_BF16 build (the bfloat16 flow step, ops/coupling.py's policy) is
+//   this kernel on bfloat16 x and z with flow_common.cuh's bfloat16 body: the
+//   TPU kernel at dt = bfloat16, its big products on bfloat16 tensor-core
+//   operands at twice TF32's rate (one pass where the f32 build makes three).
 // flow_stack.cu runs the same body (flow_step_tile) on the same live tiles,
 // all the steps in one launch.
 
@@ -42,14 +46,14 @@
 namespace {
 
 struct Params {
-  const float* x;        // [B, T, C]
+  const act_t* x;        // [B, T, C]
   const float* mask;     // [B, T]
   const float* cond;     // [NL, B, 2CH] per-layer bias: in-conv bias (+ cond.)
   const float* pitch;    // [B, T, kPitchSize], GLOW_PITCH builds only
   const float* w_pitch;  // [NL, kPitchSize, 2CH], GLOW_PITCH builds only
   StepWeights w;
   const float* ld_const; // [1], forward only
-  float* z;              // [B, T, C]
+  act_t* z;              // [B, T, C]
   float* ld_part;        // [B, n_tiles], forward only
   int* tiles;            // [5] or null: report_tiles
   int B, T, n_tiles;
@@ -121,17 +125,19 @@ int glow_flow_step_resident_blocks(int B) {
 // w_in and w_rs in the tensor-core layout; the caller checks them.  pitch and
 // w_pitch are null, or with a GLOW_PITCH build not null (cudaErrorInvalidValue
 // otherwise).  passes is 3 (3xTF32, f32 accuracy) or 1 (one TF32 pass, for
-// measuring; not in a GLOW_PITCH build).  tiles is null, or 5 zeroed ints that
-// receive what the launch did (flow_common.cuh::report_tiles). Returns a
+// measuring; not in a GLOW_PITCH or GLOW_BF16 build).  tiles is null, or 5
+// zeroed ints that receive what the launch did (flow_common.cuh::report_tiles).
+// x and z are bfloat16 in a GLOW_BF16 build (the entry keeps its name), and
+// so are w_in and w_rs (ops/coupling.py::tensor_core_layout_bf16). Returns a
 // cudaError_t, 0 on success.
-int glow_flow_step_f32(const float* x, const float* mask, const float* cond,
+int glow_flow_step_f32(const act_t* x, const float* mask, const float* cond,
                        const float* pitch, const float* w_pitch,
                        const float* an_logs, const float* an_bias,
                        const float* mix_t, const float* w_start,
                        const float* b_start, const float* w_in,
                        const float* w_rs, const float* b_rs,
                        const float* w_end, const float* b_end,
-                       const float* ld_const, float* z, float* ld_part,
+                       const float* ld_const, act_t* z, float* ld_part,
                        int* tiles, int B, int T, int reverse, int passes,
                        void* stream) {
   if ((pitch != nullptr) != kPitch || (w_pitch != nullptr) != kPitch)
@@ -144,7 +150,7 @@ int glow_flow_step_f32(const float* x, const float* mask, const float* cond,
                  ld_const, z, ld_part, tiles, B, T,
                  ceil_div(T, Built::TT)};
   auto s = static_cast<cudaStream_t>(stream);
-  if constexpr (kPitch) {
+  if constexpr (kPitch || kBf16) {
     if (passes != 3) return cudaErrorInvalidValue;
   } else if (passes == 1) {
     return reverse ? launch<Built, true, 1>(p, s)

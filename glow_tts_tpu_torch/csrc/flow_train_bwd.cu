@@ -66,10 +66,31 @@
 // gradient is wanted, dpitch += dacc . w_pitch[i]^T, a warp per frame
 // (depth 2CH, a butterfly in a fixed order), layer after layer in launch
 // order: still no atomics.
+// A GLOW_BF16 build is the backward of flow_train_fwd.cu's GLOW_BF16 build,
+// what the TPU kernel computes at dt = bfloat16: it reads the bfloat16 values
+// that forward stored (act_t: the step's input, y, yd, the layers' inputs,
+// the gate halves, the skip sum, logs) and writes the gate it recomputes in
+// bfloat16; every GEMM runs on bfloat16 operands (mma.sync m16n8k16,
+// tf32::warp_step_bf16), each element rounded where it is read, as the TPU
+// kernel casts each dot's operands (the cotangents too) to dt; sums,
+// gradients and the elementwise backward stay float32.  A bfloat16 operand
+// is staged into the same float32 ring by the threads (load, widen, store)
+// instead of cp.async.  `passes` picks the accumulation there: 1 (the
+// wrapper's default, ops/coupling_grad.py::BF16_PASSES) accumulates in the
+// tensor cores alone, 3 adds the float32 second accumulator of
+// tf32_mma.cuh after every slice, which measured no closer to the f32
+// plain version and 1.5 % slower (PERF.md, PR 14): kept for measuring.
+// The TPU kernel's bfloat16 weight-gradient
+// partials of w_in and w_rs (its VMEM is scarce) have no counterpart: the
+// partials here are float32.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#ifdef GLOW_BF16
+#include <cuda_bf16.h>
+#endif
 
 #include "dropmask.cuh"
 #include "tf32_mma.cuh"
@@ -106,6 +127,59 @@ __device__ __forceinline__ void st2(float* p, float a, float b) {
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
+__device__ __forceinline__ float act_f(float v) { return v; }
+
+// The type of the activations the forward pass stored: float, or bfloat16
+// in a GLOW_BF16 build.
+#ifdef GLOW_BF16
+constexpr bool kBf16 = true;
+using act_t = __nv_bfloat16;
+__device__ __forceinline__ float act_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(tf32::bf16_lo(u), tf32::bf16_hi(u));
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = tf32::pack_bf16(a, b);
+}
+// 4 bfloat16 values widened to float32 in shared memory, or zeros when
+// !valid: a bfloat16 operand's share of a staged slice
+__device__ __forceinline__ void stage4_bf16(float* smem,
+                                            const __nv_bfloat16* gmem,
+                                            bool valid) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (valid) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(gmem));
+    v = make_float4(tf32::bf16_lo(u.x), tf32::bf16_hi(u.x),
+                    tf32::bf16_lo(u.y), tf32::bf16_hi(u.y));
+  }
+  *reinterpret_cast<float4*>(smem) = v;
+}
+#else
+constexpr bool kBf16 = false;
+using act_t = float;
+#endif
+
+#ifdef GLOW_BF16
+// One staged slice of a warp's GEMM in a GLOW_BF16 build: the 16-deep
+// bfloat16 steps, then, with PASSES 3, the slice's sums into `sum`
+// (tf32::flush); with PASSES 1 they stay in the tensor cores' accumulators
+// until the end.
+template <int MT, int NT, int PASSES, class LoadA, class LoadB>
+__device__ __forceinline__ void slice_product_bf16(float (&acc)[MT][NT][4],
+                                                   float (&sum)[MT][NT][4],
+                                                   const LoadA& a_at,
+                                                   const LoadB& b_at) {
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 16)
+    tf32::warp_step_bf16<MT, NT>(
+        acc, [&](int i, int k) { return a_at(i, kk + k); },
+        [&](int k, int j) { return b_at(kk + k, j); });
+  if constexpr (PASSES != 1) tf32::flush(acc, sum);
+}
+#endif
 
 // ---------------------------------------------------------------------------
 // activation gradients
@@ -197,14 +271,21 @@ __device__ __forceinline__ void gemm_nt_tile(const NtArgs& g,
         a_ring + (it % kStages) * NT_BM * NT_LD + wm * NT_WM * NT_LD;
     const float* ws =
         w_ring + (it % kStages) * NT_BN * NT_LD + wn * NT_WN * NT_LD;
+#ifdef GLOW_BF16
+    slice_product_bf16<NT_WM / 16, NT_WN / 8, PASSES>(
+        acc, sum, [&](int i, int k) { return as[i * NT_LD + k]; },
+        [&](int k, int j) { return ws[j * NT_LD + k]; });
+#else
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 8)
       tf32::warp_step<NT_WM / 16, NT_WN / 8, PASSES>(
           acc, [&](int i, int k) { return as[i * NT_LD + kk + k]; },
           [&](int k, int j) { return ws[j * NT_LD + kk + k]; });
     tf32::flush(acc, sum);
+#endif
   }
   tf32::cp_async_wait<0>();
+  if constexpr (kBf16 && PASSES == 1) tf32::flush(acc, sum);
 
   const int gq = lane / 4, tq = lane % 4;
 #pragma unroll
@@ -263,10 +344,10 @@ struct MaskedStore {
 // factor (the conv + bias gradient); and the gate t s itself, the res/skip
 // weight gradient's operand.
 struct GateBackward {
-  const float* ts;   // [M, 2CH] tanh half, sigmoid half
+  const act_t* ts;   // [M, 2CH] tanh half, sigmoid half
   float* dpre;       // [M, 2CH]
   float* dacc;       // [M, 2CH] or null
-  float* gate;       // [M, CH]
+  act_t* gate;       // [M, CH]
   int ch, T;
   unsigned rows_per_sample, salt;
   dropmask::Dropout drop;
@@ -305,7 +386,7 @@ struct GateBackward {
 // stats[row] = [dy, dy * exp(logs) * x], whose column sums are the
 // gradients of an_bias and an_logs.
 struct ActNormBackward {
-  const float* x;        // [M, C] the step's input
+  const act_t* x;        // [M, C] the step's input
   const float* an_logs;  // [C]
   const float* mask;     // [M]
   float* dx;             // [M, C]
@@ -383,7 +464,7 @@ static_assert((TN_BM / TN_WM) * (TN_BN / TN_WN) == kThreads / 32, "warps");
 // shifted frame leaves [0, T)).  K = taps * kseg; kseg, N % 4 == 0.  Chunk c
 // holds the samples [c * spc, (c + 1) * spc).
 struct TnArgs {
-  const float* p;
+  const act_t* p;
   const float* g;
   float* part;
   int ldp, ldg, kseg, taps, pad;
@@ -442,9 +523,15 @@ __device__ __forceinline__ void gemm_tn_tile(const TnArgs& g, int bx, int by,
       const int t = pr + r + shift;
       const bool ok =
           pr + r < len && t >= 0 && t < g.T && c0 + q < g.kseg;
+#ifdef GLOW_BF16
+      stage4_bf16(ps + r * TN_LDP + q,
+                  g.p + (sample + (ok ? t : 0)) * g.ldp + (ok ? c0 + q : 0),
+                  ok);
+#else
       tf32::cp_async16_zfill(
           ps + r * TN_LDP + q,
           g.p + (sample + (ok ? t : 0)) * g.ldp + (ok ? c0 + q : 0), ok);
+#endif
     }
     for (int i = tid; i < BK * (TN_BN / 4); i += kThreads) {
       const int r = i / (TN_BN / 4), q = 4 * (i % (TN_BN / 4));
@@ -473,14 +560,21 @@ __device__ __forceinline__ void gemm_tn_tile(const TnArgs& g, int bx, int by,
     tf32::cp_async_commit();
     const float* ps = p_ring + (it % kStages) * BK * TN_LDP + wm * TN_WM;
     const float* gs = g_ring + (it % kStages) * BK * TN_LDG + wn * TN_WN;
+#ifdef GLOW_BF16
+    slice_product_bf16<TN_WM / 16, TN_WN / 8, PASSES>(
+        acc, sum, [&](int i, int k) { return ps[k * TN_LDP + i]; },
+        [&](int k, int j) { return gs[k * TN_LDG + j]; });
+#else
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 8)
       tf32::warp_step<TN_WM / 16, TN_WN / 8, PASSES>(
           acc, [&](int i, int k) { return ps[(kk + k) * TN_LDP + i]; },
           [&](int k, int j) { return gs[(kk + k) * TN_LDG + j]; });
     tf32::flush(acc, sum);
+#endif
   }
   tf32::cp_async_wait<0>();
+  if constexpr (kBf16 && PASSES == 1) tf32::flush(acc, sum);
 
   const int K = g.taps * g.kseg;
   float* out = g.part + static_cast<size_t>(chunk) * K * g.N;
@@ -525,7 +619,7 @@ cudaError_t launch_tn_as(const TnArgs& g, cudaStream_t stream) {
 }
 
 // P [B*T, >= kseg] and G [B*T, >= N] into part [chunks, taps * kseg, N]
-TnArgs tn_args(const float* p, int ldp, int kseg, int taps, int pad,
+TnArgs tn_args(const act_t* p, int ldp, int kseg, int taps, int pad,
                const float* grad, int ldg, int N, float* part, int B, int T,
                const int* lengths) {
   return {p, grad, part, ldp, ldg, kseg, taps, pad, N, T, B,
@@ -792,7 +886,7 @@ cudaError_t launch_reduce(const ReduceJobs& jobs, cudaStream_t stream) {
 // gradient) and dyd[:, C/2:] = dz_b m e^logs (x_b's gradient).
 __global__ void __launch_bounds__(kThreads)
     affine_backward(const float* dz, const float* dld, const float* mask,
-                    const float* yd, const float* logs, float* douts,
+                    const act_t* yd, const act_t* logs, float* douts,
                     float* dyd, int M, int T, int c2) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= M * c2) return;
@@ -800,9 +894,9 @@ __global__ void __launch_bounds__(kThreads)
   const size_t at = static_cast<size_t>(row) * 2 * c2;
   const float m = mask[row];
   const float dzb = dz[at + c2 + c] * m;
-  const float dxb = dzb * expf(logs[i]);
+  const float dxb = dzb * expf(act_f(logs[i]));
   douts[at + c] = dzb;
-  douts[at + c2 + c] = dxb * yd[at + c2 + c] + dld[row / T] * m;
+  douts[at + c2 + c] = dxb * act_f(yd[at + c2 + c]) + dld[row / T] * m;
   dyd[at + c2 + c] = dxb;
 }
 
@@ -852,8 +946,9 @@ int glow_flow_train_bwd_dgrad_f32(const float* a, const float* w,
 
 // One weight-gradient product alone, for tests and timing: out[taps * kseg,
 // N] = sum over valid frames of P[frame + tap - pad, :kseg]^T . G[frame, :N]
-// through part [chunks, taps * kseg, N], with P [B*T, ldp] and G [B*T, ldg].
-int glow_flow_train_bwd_wgrad_f32(const float* p, const float* g,
+// through part [chunks, taps * kseg, N], with P [B*T, ldp] and G [B*T, ldg]
+// (P bfloat16 in a GLOW_BF16 build).
+int glow_flow_train_bwd_wgrad_f32(const act_t* p, const float* g,
                                   const int* lengths, float* part, float* out,
                                   int B, int T, int ldp, int ldg, int kseg,
                                   int taps, int N, int passes, void* stream_) {
@@ -901,9 +996,11 @@ int glow_flow_train_bwd_wgrad_f32(const float* p, const float* g,
 //       GLOW_PITCH builds (dacc not null):
 //      30 w_pitch [n,2,ch2]   31 dpitch [M,2], added to, or null (not
 //      wanted)   32 partials of w_pitch [n,B,2,ch2]
-// passes is 3 (3xTF32, float32 accuracy) or 1 (plain TF32).  *launched
-// receives the number of kernels the call launched: 6 + 4 n, and n more
-// in a GLOW_PITCH build.  Returns a cudaError_t, 0 on success.
+// passes is 3 (3xTF32, float32 accuracy) or 1 (plain TF32); in a GLOW_BF16
+// build, where in[0..6] and out[7] are bfloat16, 1 accumulates in the
+// tensor cores alone and 3 adds the float32 second accumulator.  *launched
+// receives the number of kernels the call launched: 6 + 4 n, and n more in
+// a GLOW_PITCH build.  Returns a cudaError_t, 0 on success.
 int glow_flow_train_bwd_step_f32(const float* const* in, float* const* out,
                                  int B, int T, int C, int ch, int n, int k,
                                  int step, int seed, unsigned threshold,
@@ -924,15 +1021,21 @@ int glow_flow_train_bwd_step_f32(const float* const* in, float* const* out,
   auto stream = static_cast<cudaStream_t>(stream_ptr);
   const int M = B * T, c2 = C / 2, ch2 = 2 * ch, pad = (k - 1) / 2;
   const size_t frames = static_cast<size_t>(M);
-  const float *x = in[0], *y = in[1], *yd = in[2], *xin = in[3], *ts = in[4],
-              *skip = in[5], *logs = in[6], *mask = in[7], *dld = in[8],
-              *dz = in[9], *an_logs = in[10], *mix_t = in[11],
-              *w_start = in[12], *w_in = in[13], *w_rs = in[14],
-              *w_end = in[15];
+  // the stored activations, in their type
+  const act_t *x = reinterpret_cast<const act_t*>(in[0]),
+              *y = reinterpret_cast<const act_t*>(in[1]),
+              *yd = reinterpret_cast<const act_t*>(in[2]),
+              *xin = reinterpret_cast<const act_t*>(in[3]),
+              *ts = reinterpret_cast<const act_t*>(in[4]),
+              *skip = reinterpret_cast<const act_t*>(in[5]),
+              *logs = reinterpret_cast<const act_t*>(in[6]);
+  const float *mask = in[7], *dld = in[8], *dz = in[9], *an_logs = in[10],
+              *mix_t = in[11], *w_start = in[12], *w_in = in[13],
+              *w_rs = in[14], *w_end = in[15];
   const int* lengths = reinterpret_cast<const int*>(in[16]);
+  act_t* gate = reinterpret_cast<act_t*>(out[7]);
   float *dx = out[0], *douts = out[1], *drs = out[2], *dpre = out[3],
-        *dacc = out[4], *dyd = out[5], *stats = out[6], *gate = out[7],
-        *pw_end = out[8], *pw_rs = out[9], *pw_in = out[10],
+        *dacc = out[4], *dyd = out[5], *stats = out[6], *pw_end = out[8], *pw_rs = out[9], *pw_in = out[10],
         *pw_start = out[11], *pmix = out[12], *pb_end = out[13],
         *pb_rs = out[14], *pb_in = out[15], *pb_start = out[16],
         *pan = out[17], *dcond = out[18];
@@ -958,7 +1061,7 @@ int glow_flow_train_bwd_step_f32(const float* const* in, float* const* out,
 
   // ---- the WaveNet layers, last to first --------------------------------
   for (int i = n - 1; i >= 0; --i) {
-    const float* ts_i = ts + i * frames * ch2;
+    const act_t* ts_i = ts + i * frames * ch2;
     const float* w_in_i = w_in + static_cast<size_t>(i) * k * ch * ch2;
     const float* w_rs_i = w_rs + static_cast<size_t>(i) * ch * ch2;
     // res/skip 1x1: dgate = drs . w_rs^T, then the gate's backward

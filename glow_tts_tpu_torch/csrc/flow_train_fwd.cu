@@ -62,6 +62,12 @@
 // What bounds it: arithmetic, as flow_step.cu (3.7 MFLOP per frame and
 // step against a few bytes); the hash adds ~20 integer operations per
 // pre-gate element, the pitch term 2 * 2 * 2CH FLOP per frame and layer.
+//
+// A GLOW_BF16 build computes what the TPU kernel computes at dt = bfloat16
+// (flow_common.cuh's bfloat16 body, bfloat16 tensor-core operands): every
+// step's input and output (acts) and the saved values are bfloat16, as the
+// TPU kernel keeps its checkpoint in dt, which halves the bytes a storing
+// step writes and the backward reads (flow_train_bwd.cu's GLOW_BF16 build).
 
 #include "dropmask.cuh"
 #include "flow_common.cuh"
@@ -69,14 +75,14 @@
 namespace {
 
 struct Params {
-  const float* x;        // [B, T, C]   this step's input
+  const act_t* x;        // [B, T, C]   this step's input
   const float* mask;     // [B, T]
   const float* cond;     // [NL, B, 2CH] per-sample conditioning, or null
   const float* pitch;    // [B, T, kPitchSize], GLOW_PITCH builds only
   const float* w_pitch;  // [NL, kPitchSize, 2CH], GLOW_PITCH builds only
   const float* b_in;     // [NL, 2CH]
   StepWeights w;
-  float* z;              // [B, T, C]
+  act_t* z;              // [B, T, C]
   float* ld_part;        // [B, n_tiles]
   int* tiles;            // [5] or null: report_tiles
   SavePointers save;     // kSaved and kBoth only
@@ -241,8 +247,10 @@ const char* glow_cuda_error_string(int err) {
 // that receive what the launches did, the computed tiles summed over the steps
 // (flow_common.cuh::report_tiles).  pitch [B, T, 2] and w_pitch [S, NL, 2, 2CH]
 // are null, or with a GLOW_PITCH build not null (cudaErrorInvalidValue
-// otherwise; passes is then 3). Returns a cudaError_t, 0 on success.
-int glow_flow_train_fwd_f32(float* acts, const float* mask, const float* cond,
+// otherwise; passes is then 3).  In a GLOW_BF16 build (the entry keeps its
+// name) acts and the saved values are bfloat16, w_in and w_rs in the bfloat16
+// layout, and passes is 3. Returns a cudaError_t, 0 on success.
+int glow_flow_train_fwd_f32(act_t* acts, const float* mask, const float* cond,
                             const float* pitch, const float* w_pitch,
                             const float* an_logs, const float* an_bias,
                             const float* mix_t, const float* w_start,
@@ -250,7 +258,7 @@ int glow_flow_train_fwd_f32(float* acts, const float* mask, const float* cond,
                             const float* b_in, const float* w_rs,
                             const float* b_rs, const float* w_end,
                             const float* b_end, float* ld_part,
-                            float* const* save, int* tiles, int B, int T,
+                            act_t* const* save, int* tiles, int B, int T,
                             int step_begin,
                             int step_end, int seed, unsigned threshold,
                             float scale, int dropout, int passes,
@@ -261,7 +269,7 @@ int glow_flow_train_fwd_f32(float* acts, const float* mask, const float* cond,
   if (B <= 0 || T <= 0) return cudaSuccess;
   const int n_tiles = ceil_div(T, S::TT);
   const size_t frames = static_cast<size_t>(B) * T;
-  if (passes != 3 && (passes != 1 || save || kPitch))
+  if (passes != 3 && (passes != 1 || save || kPitch || kBf16))
     return cudaErrorInvalidValue;
   const StepWeights stacked{an_logs, an_bias, mix_t, w_start, b_start,
                             reinterpret_cast<const WFrag*>(w_in),
@@ -300,7 +308,7 @@ int glow_flow_train_fwd_f32(float* acts, const float* mask, const float* cond,
     }
     const auto on = static_cast<cudaStream_t>(stream);
     cudaError_t err;
-    if constexpr (!kPitch) {
+    if constexpr (!kPitch && !kBf16) {
       if (passes == 1) {
         err = launch<S, Writes::kOutputs, 1>(p, on);
         if (err != cudaSuccess) return err;

@@ -145,6 +145,73 @@ __device__ __forceinline__ void warp_step(float (&acc)[MT][NT][4],
   }
 }
 
+#ifdef GLOW_BF16
+// The bfloat16 builds' pieces (flow_common.cuh's tc_gemm_bf16 and the
+// backward's warp_step_bf16).  Fragments of m16n8k16 with bfloat16
+// operands, two to a 32-bit register, the lower column (or depth) in the
+// low half:
+//   A [16 x 16] (row, k)  a0 (g, 2t..2t+1)  a1 (g + 8, 2t..2t+1)
+//                         a2 (g, 2t+8..2t+9)  a3 (g + 8, 2t+8..2t+9)
+//   B [16 x 8]  (k, col)  b0 (2t..2t+1, g)  b1 (2t+8..2t+9, g)
+//   C [16 x 8]            as m16n8k8's
+// A product of two bfloat16 values is exact in float32, so a product with
+// f32 sums is the TPU kernel's bf16 dot with preferred_element_type f32.
+
+// a pair of floats as a bfloat16x2 register, lo in the low half (cvt
+// packs its first operand in the high half), to nearest even
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+__device__ __forceinline__ float bf16_lo(uint32_t u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t u) {
+  return __uint_as_float(u & 0xFFFF0000u);
+}
+
+// d += a . b, bfloat16 operands, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One 16-deep step of a warp's [16 MT x 8 NT] tile with bfloat16 operands:
+// acc += A . B, a_at and b_at as warp_step's, each element rounded to
+// bfloat16 (to nearest even) where it is read, so that a float32 operand in
+// shared memory enters the product as the TPU kernel's .astype(bfloat16)
+// would give it.
+template <int MT, int NT, class LoadA, class LoadB>
+__device__ __forceinline__ void warp_step_bf16(float (&acc)[MT][NT][4],
+                                               const LoadA& a_at,
+                                               const LoadB& b_at) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  uint32_t a[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int r = 16 * mt + g;
+    a[mt][0] = pack_bf16(a_at(r, 2 * t), a_at(r, 2 * t + 1));
+    a[mt][1] = pack_bf16(a_at(r + 8, 2 * t), a_at(r + 8, 2 * t + 1));
+    a[mt][2] = pack_bf16(a_at(r, 2 * t + 8), a_at(r, 2 * t + 9));
+    a[mt][3] = pack_bf16(a_at(r + 8, 2 * t + 8), a_at(r + 8, 2 * t + 9));
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int col = 8 * nt + g;
+    const uint32_t b[2] = {pack_bf16(b_at(2 * t, col), b_at(2 * t + 1, col)),
+                           pack_bf16(b_at(2 * t + 8, col),
+                                     b_at(2 * t + 9, col))};
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], a[mt], b);
+  }
+}
+#endif
+
 // sum += acc in float32 round-to-nearest, then acc = 0
 template <int MT, int NT>
 __device__ __forceinline__ void flush(float (&acc)[MT][NT][4],

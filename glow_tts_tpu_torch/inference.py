@@ -61,7 +61,8 @@ class Inferencer:
     snapshot is read.  ``device`` is the card unless the caller asks for
     the CPU: a CUDA device runs the flow kernel of
     ``config.coupling_backend``'s route, a CPU device that kernel's plain
-    version."""
+    version.  The model serves at ``config.serve_dtype`` (``inference_dtype
+    or compute_dtype``), from float32 weights whatever the dtype."""
 
     def __init__(self, weights: Union[str, os.PathLike, Mapping],
                  config=None, device: Union[str, torch.device] = 'cuda',
@@ -104,7 +105,9 @@ class Inferencer:
 
         if not isinstance(weights, Mapping):
             weights = load_reference_checkpoint(weights)
-        self.model = load_state_dict(GlowTTS(config), weights)
+        # at the serving dtype: inference_dtype, else compute_dtype
+        self.model = load_state_dict(GlowTTS(config, config.serve_dtype),
+                                     weights)
         self.model.to(self.device).prepare()
 
     def pick_bucket(self, durations: torch.Tensor) -> int:

@@ -10,6 +10,15 @@ Parameters carry the reference's state-dict names and layouts (those
 ``glow_tts_tpu/utils/torch_export.py`` writes); the GE2E encoder, which
 the reference loads from a checkpoint of its own, keeps ``nn.LSTM``'s and
 ``nn.Linear``'s names under ``GE2E.layer_Dict``.
+
+At bfloat16 (the modules' ``dtype``, ``models/layers.py``) they cast as the
+JAX package's modules do: the GE2E encoder and the GST run their convs,
+dense products and gates in bfloat16 while the recurrent carry stays
+float32 (flax's cells with ``dtype``, whose carry has the parameters'
+dtype), which the library's ``nn.LSTM``/``nn.GRU`` cannot do, so the
+recurrences are written out step by step there (:func:`lstm_bf16`,
+:func:`gru_bf16`, with the same parameters); the look-up table and the
+speaker classifier have no dtype in the JAX package and stay float32.
 """
 
 from __future__ import annotations
@@ -21,8 +30,67 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from glow_tts_tpu_torch.models.layers import Conv1d, MultiHeadCrossAttention
+from glow_tts_tpu_torch.models.layers import (ComputesAt, Conv1d,
+                                              MultiHeadCrossAttention)
 from glow_tts_tpu_torch.ops.grl import gradient_reversal
+
+
+def _dense(x: torch.Tensor, weight: torch.Tensor,
+           bias=None, dtype=torch.bfloat16) -> torch.Tensor:
+    """``x . weightᵀ`` in ``dtype`` (rounded there), then ``+ bias``
+    rounded there too: flax's ``Dense`` with ``dtype``."""
+    y = F.linear(x.to(dtype), weight.to(dtype))
+    return y if bias is None else y + bias.to(dtype)
+
+
+def lstm_bf16(lstm: nn.LSTM, x: torch.Tensor) -> torch.Tensor:
+    """``lstm`` (batch first, gate order i, f, g, o) over ``x [B, T, in]``
+    at bfloat16 as flax's ``OptimizedLSTMCell(dtype=bfloat16)`` steps:
+    each gate's products and sum in bfloat16 (the bias on the recurrent
+    side), the cell and hidden state float32.  Returns the last layer's
+    outputs ``[B, T, H]`` float32."""
+    h_size = lstm.hidden_size
+    for i in range(lstm.num_layers):
+        w_ih = getattr(lstm, f'weight_ih_l{i}')
+        w_hh = getattr(lstm, f'weight_hh_l{i}')
+        bias = getattr(lstm, f'bias_ih_l{i}') + getattr(lstm, f'bias_hh_l{i}')
+        gates_x = _dense(x, w_ih)                           # [B, T, 4H]
+        c = h = x.new_zeros((x.shape[0], h_size), dtype=torch.float32)
+        outs = []
+        for t in range(x.shape[1]):
+            gates = _dense(h, w_hh, bias) + gates_x[:, t]
+            gi, gf, gg, go = gates.chunk(4, dim=-1)
+            c = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gg)
+            h = torch.sigmoid(go) * torch.tanh(c)
+            outs.append(h)
+        x = torch.stack(outs, dim=1)
+    return x
+
+
+def gru_bf16(gru: nn.GRU, x: torch.Tensor) -> torch.Tensor:
+    """``gru`` (batch first, gate order r, z, n) over ``x [B, T, in]`` at
+    bfloat16 as flax's ``GRUCell(dtype=bfloat16)`` steps: the input and
+    recurrent products, their biases and the gates in bfloat16, the hidden
+    state float32.  Returns the last layer's outputs ``[B, T, H]``
+    float32."""
+    h_size = gru.hidden_size
+    for i in range(gru.num_layers):
+        gates_x = _dense(x, getattr(gru, f'weight_ih_l{i}'),
+                         getattr(gru, f'bias_ih_l{i}'))     # [B, T, 3H]
+        w_hh = getattr(gru, f'weight_hh_l{i}')
+        b_hh = getattr(gru, f'bias_hh_l{i}')
+        h = x.new_zeros((x.shape[0], h_size), dtype=torch.float32)
+        outs = []
+        for t in range(x.shape[1]):
+            xr, xz, xn = gates_x[:, t].chunk(3, dim=-1)
+            hr, hz, hn = _dense(h, w_hh, b_hh).chunk(3, dim=-1)
+            r = torch.sigmoid(xr + hr)
+            z = torch.sigmoid(xz + hz)
+            n = torch.tanh(xn + r * hn)
+            h = (1.0 - z) * n + z * h
+            outs.append(h)
+        x = torch.stack(outs, dim=1)
+    return x
 
 
 def ge2e_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -30,7 +98,7 @@ def ge2e_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(eps)
 
 
-class GE2ESpeakerEncoder(nn.Module):
+class GE2ESpeakerEncoder(nn.Module, ComputesAt):
     """Stacked LSTM over mel slices, its last step projected and
     normalised: ``[B·S, T_slice, M]`` → ``[B·S, E]``."""
 
@@ -46,8 +114,14 @@ class GE2ESpeakerEncoder(nn.Module):
                                     cfg.embedding_size)})
 
     def forward(self, mel_slices: torch.Tensor) -> torch.Tensor:
-        x, _ = self.layer_Dict['LSTM'](mel_slices)
-        return ge2e_normalize(self.layer_Dict['Projection'](x[:, -1]))
+        lstm = self.layer_Dict['LSTM']
+        projection = self.layer_Dict['Projection']
+        if self.dtype == torch.float32:
+            x, _ = lstm(mel_slices)
+            return ge2e_normalize(projection(x[:, -1]))
+        x = lstm_bf16(lstm, mel_slices)
+        return ge2e_normalize(_dense(x[:, -1], projection.weight,
+                                     projection.bias, self.dtype))
 
     def embed_utterances(self, mel_slices: torch.Tensor) -> torch.Tensor:
         """``[B·S, T_slice, M]`` → ``[B, E]``: the S slices of each
@@ -71,7 +145,7 @@ def _without_rz(grad: torch.Tensor, size: int) -> torch.Tensor:
     return torch.cat([torch.zeros_like(grad[:2 * size]), grad[2 * size:]])
 
 
-class GSTProsodyEncoder(nn.Module):
+class GSTProsodyEncoder(nn.Module, ComputesAt):
     """Global style tokens over a reference mel: strided Conv2d stack →
     GRU → its last valid step → attention over ``tanh`` of the learned
     tokens.  ``mels [B, T, M]``, ``mel_lengths [B]`` → ``[B, P]``."""
@@ -112,11 +186,20 @@ class GSTProsodyEncoder(nn.Module):
         layers = self.layer_Dict
         x = mels.transpose(1, 2)[:, None]                  # [B, 1, M, T]
         for i in range(len(self.strides)):
-            x = F.relu(layers[f'Conv_{i}'].Conv(x))        # [B, C, F, T']
+            conv = layers[f'Conv_{i}'].Conv
+            if self.dtype == torch.float32:
+                x = F.relu(conv(x))                        # [B, C, F, T']
+            else:
+                x = F.relu(F.conv2d(x.to(self.dtype),
+                                    conv.weight.to(self.dtype), None,
+                                    conv.stride, conv.padding))
         b, c, f, t = x.shape
         # channel-major flatten of (chan, freq) at each step
         x = x.permute(0, 3, 1, 2).reshape(b, t, c * f)
-        x, _ = layers['GRU'](x)
+        if self.dtype == torch.float32:
+            x, _ = layers['GRU'](x)
+        else:
+            x = gru_bf16(layers['GRU'], x)
         total_stride = math.prod(self.strides)
         last = torch.div(mel_lengths.long() + total_stride - 1, total_stride,
                          rounding_mode='floor') - 1
@@ -143,7 +226,8 @@ class SpeakerClassifier(nn.Module):
         self.layer = nn.ModuleDict(layers)
 
     def forward(self, prosody: torch.Tensor) -> torch.Tensor:
-        x = gradient_reversal(prosody, self.weight)
+        # float32 at any compute dtype: the JAX classifier has no dtype
+        x = gradient_reversal(prosody, self.weight).float()
         for i in range(self.hidden):
             x = F.relu(self.layer[f'Hidden_{i}'](x))
         return self.layer[f'Output_{self.hidden - 1}'](x)

@@ -32,6 +32,18 @@ before the dropout, and the rows after it: so the train route's rows
 (:meth:`FlowDecoder.train_conditioning`, built with autograd at every
 call) carry the speaker and prosody products, their biases and ``b_pitch``,
 never ``b_in``; GR mode's ``w_pitch`` rides in the packed weights.
+
+The compute dtype is the decoder's ``dtype`` (``models/layers.py``).  At
+bfloat16 the flow's stream between the steps is bfloat16 and each step
+computes as the TPU kernels do at ``dt = bfloat16`` (``ops/coupling.py``,
+``ops/coupling_grad.py``): training through ``flow_stack_train``, the
+deterministic route ``'fused'`` through ``flow_step``, whose kernels have
+bfloat16 builds; ``'modules'`` and ``'mega'`` have none yet and raise
+(``ROADMAP.md`` B.3).  ActNorm's statistics are float32 and its
+data-dependent initialisation reads each step's own input; the logdets
+are float32 and ``z`` leaves the decoder in float32.  A step packs its
+weights per dtype (on a card the bfloat16 pack carries ``w_in``/``w_rs``
+in the bfloat16 kernels' layout and the weights they take rounded).
 """
 
 from __future__ import annotations
@@ -43,12 +55,14 @@ import torch
 from torch import nn
 
 from glow_tts_tpu_torch.models.layers import (
-    Conv1d, WNConv1d, masked, stacked_effective_weights)
+    ComputesAt, Conv1d, WNConv1d, masked, stacked_effective_weights)
 from glow_tts_tpu_torch.ops.coupling import (COUPLING_WEIGHT_KEYS, TC_KEYS,
                                              coupling, flow_stack, flow_step,
+                                             rounded_weights,
                                              tensor_core_weights,
                                              with_tensor_core_weights)
 from glow_tts_tpu_torch.ops.coupling_grad import flow_stack_train
+from glow_tts_tpu_torch.ops.precision import rounded
 
 FlowStepFn = Callable[..., Tuple[torch.Tensor, Optional[torch.Tensor]]]
 FlowStackFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
@@ -103,8 +117,17 @@ class ActNorm(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 reverse: bool = False):
         """``x [B, T, C]``, ``mask [B, T, 1]`` → ``(z, logdet [B] | None)``:
-        ``(bias + exp(logs)·x)·mask`` and its inverse."""
+        ``(bias + exp(logs)·x)·mask`` and its inverse, in ``x``'s dtype (at
+        bfloat16 the float32 statistics are cast to it and applied there);
+        the logdet float32."""
         logs, bias = self.logs.reshape(-1), self.bias.reshape(-1)
+        if x.dtype != torch.float32:
+            dt = x.dtype
+            if reverse:
+                return masked((x - bias.to(dt)) * torch.exp(-logs).to(dt),
+                              mask), None
+            return (masked(bias.to(dt) + torch.exp(logs).to(dt) * x, mask),
+                    logs.float().sum() * frames(mask))
         if reverse:
             return masked((x - bias) * torch.exp(-logs), mask), None
         return (masked(bias + torch.exp(logs) * x, mask),
@@ -178,7 +201,12 @@ class InvertibleConv(nn.Module):
             packed = (self.mixing_matrix(inverse=reverse).t(),
                       None if reverse else self.frame_logdet(x.shape[-1]))
         mix_t, frame_logdet = packed
-        z = masked(x @ mix_t, mask)
+        if x.dtype == torch.float32:
+            z = x @ mix_t
+        else:
+            # float32 sums of the mixing cast to x's dtype, cast back
+            z = (x.float() @ rounded(mix_t, x.dtype)).to(x.dtype)
+        z = masked(z, mask)
         return z, (None if reverse else frame_logdet * frames(mask))
 
 
@@ -318,6 +346,11 @@ class FlowStep(nn.Module):
             ActNorm(c), InvertibleConv(c, config.decoder.num_split),
             AffineCoupling(config)])
         self._packed: Optional[Dict[bool, Dict[str, torch.Tensor]]] = None
+        # the packs of the other dtypes' kernels (bfloat16): the float32
+        # pack with the weights they take rounded and, on a card, their
+        # tensor-core layout
+        self._by_dtype: Dict[torch.dtype,
+                             Dict[bool, Dict[str, torch.Tensor]]] = {}
         self._rows: Optional[Dict[str, torch.Tensor]] = None
         self._mix_logdet: Optional[torch.Tensor] = None
 
@@ -325,8 +358,10 @@ class FlowStep(nn.Module):
     def pack(self) -> None:
         """Build both directions' kernel weights from the current
         parameters, on their device (on a card with ``w_in`` and ``w_rs``
-        also in the kernels' tensor-core layout).  Call again after loading
+        also in the float32 kernels' tensor-core layout; the bfloat16 pack is
+        made from this one at its first use).  Call again after loading
         weights."""
+        self._by_dtype = {}
         actnorm, invconv, coupling = self.layers
         weights, rows = coupling.pack()
         self._rows = {key: value.detach().float().contiguous()
@@ -358,6 +393,7 @@ class FlowStep(nn.Module):
     def invalidate(self) -> None:
         """Forget the packed weights: the parameters have changed."""
         self._packed = self._mix_logdet = self._rows = None
+        self._by_dtype = {}
 
     def rows(self) -> Dict[str, torch.Tensor]:
         """The weights of the per-layer conditioning rows
@@ -366,12 +402,25 @@ class FlowStep(nn.Module):
             self.pack()
         return self._rows
 
-    def weights(self, reverse: bool) -> Dict[str, torch.Tensor]:
-        """The packed weights of one direction, packed now if the
-        parameters changed since (:meth:`invalidate`)."""
+    def weights(self, reverse: bool,
+                dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+        """The packed weights of one direction for the kernels of
+        ``dtype``, packed now if the parameters changed since
+        (:meth:`invalidate`)."""
         if self._packed is None:
             self.pack()
-        return self._packed[reverse]
+        if dtype == torch.float32:
+            return self._packed[reverse]
+        if dtype not in self._by_dtype:
+            packs = self._packed
+            split = {}
+            if packs[False]['an_logs'].device.type == 'cuda':
+                split = tensor_core_weights(packs[False]['w_in'],
+                                            packs[False]['w_rs'], dtype)
+            self._by_dtype[dtype] = {
+                direction: rounded_weights({**weights, **split}, dtype)
+                for direction, weights in packs.items()}
+        return self._by_dtype[dtype][reverse]
 
     def cond(self, batch: int) -> torch.Tensor:
         """Per-layer, per-sample bias ``[n, B, 2ch]`` of an unconditioned
@@ -394,8 +443,8 @@ class FlowStep(nn.Module):
         if cond is None:
             cond = self.cond(x.shape[0])
         if not self.modules_route:
-            return step_fn(x, mask, self.weights(reverse), cond, reverse,
-                           pitch=pitch)
+            return step_fn(x, mask, self.weights(reverse, x.dtype), cond,
+                           reverse, pitch=pitch)
         actnorm, invconv, coupling_module = self.layers
         weights = self.weights(reverse)
         packed = ({key: weights[key] for key in
@@ -413,12 +462,13 @@ class FlowStep(nn.Module):
         return x, logdet + ld
 
 
-class FlowDecoder(nn.Module):
+class FlowDecoder(nn.Module, ComputesAt):
     """mels ↔ latents.  Forward returns the summed log-determinant;
     reverse runs the steps backwards."""
 
     def __init__(self, config):
         super().__init__()
+        self.route = config.flow_route
         self.num_squeeze = config.decoder.num_squeeze
         self.dropout_rate = config.decoder.affine_coupling.wavenet.dropout_rate
         self.mega_route = config.flow_route == 'mega'
@@ -601,6 +651,18 @@ class FlowDecoder(nn.Module):
         return {key: value.float().contiguous()
                 for key, value in weights.items()}
 
+    def check_route(self, deterministic: bool = True) -> None:
+        """Raise where the decoder's dtype has no kernel build on its
+        route: at bfloat16 the deterministic routes ``'modules'`` and
+        ``'mega'`` (the coupling and stack kernels, ``ROADMAP.md`` B.3)."""
+        if (self.dtype != torch.float32 and deterministic
+                and self.route != 'fused'):
+            raise ValueError(
+                f'coupling_backend {self.route!r} has no {self.dtype} '
+                f'kernel build yet (ROADMAP.md B.3): at compute dtype '
+                f'bfloat16 the deterministic flow runs under \'fused\' '
+                f'(or \'auto\')')
+
     def _squeezed_pitch(self, pitch: Optional[torch.Tensor],
                         mask: torch.Tensor) -> Optional[torch.Tensor]:
         """``pitch [B, T]`` as the kernels' pitch operand ``[B, T/s, s]``."""
@@ -621,7 +683,8 @@ class FlowDecoder(nn.Module):
         step's statistics come from its own input, so a step is set,
         re-packed and run forward (through ``step_fn``, with the step's
         conditioning rows and the pitch operand) before the next one is
-        set."""
+        set.  At bfloat16 the steps run at it (the first step's statistics
+        come from the float32 mels, the others' from the bfloat16 stream)."""
         pitch = self._squeezed_pitch(pitch, mask)
         x, sq_mask = squeeze(x, mask, self.num_squeeze)
         self.invalidate()
@@ -632,7 +695,8 @@ class FlowDecoder(nn.Module):
         for k, step in enumerate(self.layer_Dict['Flows']):
             step.layers[0].data_dependent_init(x, sq_mask)
             step.pack()
-            x, _ = step_fn(x, sq_mask, step.weights(False), cond[k], False,
+            x, _ = step_fn(x.to(self.dtype), sq_mask,
+                           step.weights(False, self.dtype), cond[k], False,
                            pitch=pitch)
 
     def forward(self, x, mask, reverse: bool = False,
@@ -652,10 +716,13 @@ class FlowDecoder(nn.Module):
         route with WaveNet dropout drawn from the int32 ``seed``.  The
         conditioned modes pass ``speaker [B, E]``, ``prosody [B, P]`` and
         (GR) ``pitch [B, T]``, which is squeezed to the kernels' pitch
-        operand ``[B, T/s, s]``.  Returns (x, logdet [B] or None, mask)."""
+        operand ``[B, T/s, s]``.  The flow runs at the decoder's dtype and
+        returns x in float32.  Returns (x, logdet [B] or None, mask)."""
+        self.check_route(deterministic)
         s = self.num_squeeze
         pitch = self._squeezed_pitch(pitch, mask)
         x, sq_mask = squeeze(x, mask, s)
+        x = x.to(self.dtype)
         if not deterministic:
             if reverse or seed is None:
                 raise ValueError('the train route runs forward and needs '
@@ -680,5 +747,5 @@ class FlowDecoder(nn.Module):
                                  cond[k], pitch)
                     if ld is not None:
                         logdet = logdet + ld
-        x, out_mask = unsqueeze(x, sq_mask, s)
+        x, out_mask = unsqueeze(x.float(), sq_mask, s)
         return x, logdet, out_mask

@@ -4,7 +4,11 @@ the conditioned modes the duration predictor also reads the conditioning
 vector, broadcast over the tokens and concatenated to its input.
 ``deterministic=False`` turns on dropout at the JAX package's sites, drawn
 from the ``generator`` handed down; the duration predictor reads detached
-encodings and a detached conditioning vector."""
+encodings and a detached conditioning vector.  At bfloat16 (the modules'
+``dtype``, ``models/layers.py``) the embedding is cast and scaled in it,
+and the activations stay bfloat16 through every layer, as
+``glow_tts_tpu/models/encoder.py`` computes them; mean, log std and
+log-durations come out in it."""
 
 from __future__ import annotations
 
@@ -16,11 +20,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from glow_tts_tpu_torch.models.layers import (
-    Conv1d, Dropout, Embedding, RelativePositionMultiHeadAttention, masked)
+    ComputesAt, Conv1d, Dropout, Embedding, LayerNorm,
+    RelativePositionMultiHeadAttention, bf16_scale, masked)
 
 
-def _layer_norm(channels: int) -> nn.LayerNorm:
-    return nn.LayerNorm(channels, eps=1e-4)
+def _layer_norm(channels: int) -> LayerNorm:
+    return LayerNorm(channels, eps=1e-4)
 
 
 class _Named(nn.Module):
@@ -112,7 +117,7 @@ class DurationPredictor(nn.Module):
         return masked(self.layer_Dict['Projection'](masked(x, mask)), mask)
 
 
-class TextEncoder(nn.Module):
+class TextEncoder(nn.Module, ComputesAt):
     """Token ids → per-token Gaussian prior (mean, log_std) and
     log-durations."""
 
@@ -137,7 +142,12 @@ class TextEncoder(nn.Module):
         predictor sees detached features and conditioning, so the duration
         loss trains the predictor alone."""
         layers = self.layer_Dict
-        x = layers['Embedding'](tokens) * math.sqrt(self.channels)
+        x = layers['Embedding'](tokens)
+        if self.dtype == torch.float32:
+            x = x * math.sqrt(self.channels)
+        else:
+            x = x.to(self.dtype) * bf16_scale(math.sqrt(self.channels),
+                                              self.dtype).to(x.device)
         x = layers['Prenet'](x, mask, deterministic, generator)
         m = mask[..., 0]
         attn_mask = m[:, None, :, None] * m[:, None, None, :]   # [B,1,T,T]

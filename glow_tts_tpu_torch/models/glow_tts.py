@@ -12,6 +12,15 @@ serving is two-phase.  The GE2E speaker encoder is pre-trained and frozen,
 as in the JAX package: its parameters require no gradient (so the
 optimiser leaves them out) and it runs without autograd.
 
+The model computes at its ``dtype`` (``GlowTTS(config, dtype)``, float32
+unless given; ``training.step.build_model`` passes
+``config.compute_dtype``), an attribute of its modules and not of its
+parameters, which stay float32, so one state dict serves a bfloat16 train
+model and a float32 serving model (:meth:`GlowTTS.set_compute_dtype`).  At
+bfloat16 the JAX package's float32 islands stay float32 here too: the
+prior log-likelihood and MAS, the EM table, the expansion of mean and log
+std along the path, the logdets and the losses.
+
 Serving has two phases, as the JAX package serves: :meth:`GlowTTS.inference_prior`
 does the token-length work (conditioning, encoder prior, ceiled
 durations), the host picks a mel bucket from the summed durations, and
@@ -21,6 +30,7 @@ z sample, pitch resampled to the bucket, inverse flow).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
@@ -36,10 +46,11 @@ from glow_tts_tpu_torch.models.decoder import (
 from glow_tts_tpu_torch.models.encoder import TextEncoder
 from glow_tts_tpu_torch.models.layers import (
     Conv1d, RelativePositionMultiHeadAttention, WNConv1d, fold_weight_norm,
-    sequence_mask)
+    sequence_mask, set_compute_dtype)
 from glow_tts_tpu_torch.ops.coupling import coupling, flow_stack, flow_step
 from glow_tts_tpu_torch.ops.coupling_grad import flow_stack_train
 from glow_tts_tpu_torch.ops.mas import maximum_path
+from glow_tts_tpu_torch.ops.precision import torch_dtype
 
 LOG_2PI = 1.8378770664093453  # log(2π)
 MasFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -205,7 +216,7 @@ def em_alignment_path(tokens: torch.Tensor, token_lengths: torch.Tensor,
 
 
 class GlowTTS(nn.Module):
-    def __init__(self, config):
+    def __init__(self, config, dtype=torch.float32):
         super().__init__()
         self.config = config
         modules = {'Encoder': TextEncoder(config),
@@ -222,7 +233,29 @@ class GlowTTS(nn.Module):
         if config.uses_gradient_reversal:
             modules['Speaker_Classifier_GR'] = SpeakerClassifier(config)
         self.layer_Dict = nn.ModuleDict(modules)
+        self.set_compute_dtype(dtype)
 
+    def set_compute_dtype(self, dtype) -> 'GlowTTS':
+        """Compute at ``dtype`` (``'float32'``, ``'bfloat16'`` or a torch
+        dtype) from now on, on the same parameters; the speaker classifier
+        stays float32, as it has no dtype in the JAX package."""
+        self.dtype = torch_dtype(dtype)
+        set_compute_dtype(self, self.dtype)
+        if 'Speaker_Classifier_GR' in self.layer_Dict:
+            set_compute_dtype(self.layer_Dict['Speaker_Classifier_GR'],
+                              torch.float32)
+        return self
+
+    @contextlib.contextmanager
+    def computing_at(self, dtype):
+        """Compute at ``dtype`` inside the block (the trainer's decode at
+        the serving dtype), at the model's own dtype again after it."""
+        before = self.dtype
+        self.set_compute_dtype(dtype)
+        try:
+            yield self
+        finally:
+            self.set_compute_dtype(before)
     def conditions(self, mels: Optional[torch.Tensor] = None,
                    mel_lengths: Optional[torch.Tensor] = None,
                    speakers: Optional[torch.Tensor] = None,
@@ -365,8 +398,10 @@ class GlowTTS(nn.Module):
                 log_p = prior_log_likelihood(mean, log_std, z, attn_mask)
                 attentions = mas_fn(log_p, token_lengths, mel_lengths)
 
-        mel_mean = torch.einsum('bim,bij->bjm', mean, attentions)
-        mel_log_std = torch.einsum('bim,bij->bjm', log_std, attentions)
+        # float32 sums of the (possibly bfloat16) prior along the path
+        mel_mean = torch.einsum('bim,bij->bjm', mean.float(), attentions)
+        mel_log_std = torch.einsum('bim,bij->bjm', log_std.float(),
+                                   attentions)
         durations = attentions.sum(dim=-1, keepdim=True)    # [B, T_tok, 1]
         log_duration_targets = torch.log(durations + 1e-7) * token_mask
         out = {'z': z, 'mel_mean': mel_mean, 'mel_log_std': mel_log_std,
@@ -418,7 +453,7 @@ class GlowTTS(nn.Module):
             tokens, token_mask, self.duration_condition(speaker, prosody))
         scale = torch.as_tensor(length_scale, dtype=torch.float32,
                                 device=tokens.device).reshape(-1, 1)
-        durations = torch.ceil(torch.exp(log_durations[..., 0])
+        durations = torch.ceil(torch.exp(log_durations[..., 0].float())
                                * token_mask[..., 0] * scale)
         return {'mean': mean, 'log_std': log_std,
                 'log_durations': log_durations, 'durations': durations,
@@ -455,8 +490,8 @@ class GlowTTS(nn.Module):
         attentions = generate_path(durations, attn_mask)
 
         align = attentions.transpose(1, 2)                  # [B, T_mel, T_tok]
-        mel_mean = align @ mean
-        mel_log_std = align @ log_std
+        mel_mean = align @ mean.float()
+        mel_log_std = align @ log_std.float()
         if noise is None:
             noise = torch.randn(mel_mean.shape, generator=generator,
                                 device=mel_mean.device)

@@ -7,6 +7,17 @@ torch_export.py`` writes, so an exported checkpoint loads with
 ``strict=True``.  Dropout (:class:`Dropout`) is live only on the train
 path (``deterministic=False``) and draws from a ``torch.Generator`` the
 caller hands down; serving and evaluation are deterministic.
+
+The compute dtype is an attribute of the modules (:class:`ComputesAt`,
+flax's ``dtype``), which the parameters do not have: they stay float32, so
+one state dict serves a bfloat16 train model and a float32 serving model
+(:func:`set_compute_dtype`).  At bfloat16 each layer casts as its JAX
+counterpart does (``glow_tts_tpu/models/layers.py``), with explicit casts:
+the convs and projections take input, kernel and bias in bfloat16; the
+LayerNorm keeps float32 statistics and returns bfloat16; attention scores,
+the relative-position terms and the alignment products sum in float32
+(``ops/precision.py``), the alignments cast back to the values' dtype.  At
+float32 every layer computes what it did before the dtype existed.
 """
 
 from __future__ import annotations
@@ -19,6 +30,28 @@ import torch.nn.functional as F
 from torch import nn
 
 from glow_tts_tpu_torch.ops import attention as attn_ops
+from glow_tts_tpu_torch.ops.precision import rounded
+
+
+class ComputesAt:
+    """A module that computes at ``dtype`` (float32 unless
+    :func:`set_compute_dtype` says otherwise): an attribute, not a
+    parameter or a buffer."""
+    dtype: torch.dtype = torch.float32
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
+    """Every :class:`ComputesAt` below ``module`` (itself included)
+    computes at ``dtype`` from now on."""
+    for sub in module.modules():
+        if isinstance(sub, ComputesAt):
+            sub.dtype = dtype
+
+
+def bf16_scale(value: float, dtype: torch.dtype) -> torch.Tensor:
+    """A scalar constant in ``dtype`` (``jnp.asarray(value, dtype)``),
+    as a 0-d tensor."""
+    return torch.tensor(value, dtype=torch.float32).to(dtype)
 
 
 def masked(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -84,12 +117,18 @@ class Dropout(nn.Module):
                              "tensor's device when it is not deterministic")
         keep = torch.rand(x.shape, generator=generator,
                           device=x.device) >= self.rate
-        return x * keep.to(x.dtype) * (1.0 / (1.0 - self.rate))
+        if x.dtype == torch.float32:
+            return x * keep.to(x.dtype) * (1.0 / (1.0 - self.rate))
+        # the scale in the input's dtype, as FastDropout's
+        scale = bf16_scale(1.0 / (1.0 - self.rate), x.dtype).to(x.device)
+        return x * scale * keep.to(x.dtype)
 
 
-class Conv1d(nn.Module):
+class Conv1d(nn.Module, ComputesAt):
     """SAME-padded convolution over the time axis of ``x [B, T, Cin]``
-    with a torch-layout weight ``[Cout, Cin, k]``; 1×1 runs as a matmul."""
+    with a torch-layout weight ``[Cout, Cin, k]``; 1×1 runs as a matmul.
+    At bfloat16 input, kernel and bias are cast to it, and so is the
+    output (flax's ``nn.Dense``/``nn.Conv`` with ``dtype``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 1):
@@ -101,11 +140,36 @@ class Conv1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.weight.shape[-1]
+        if self.dtype != torch.float32:
+            # the product rounded to the dtype, then the bias added in it:
+            # two roundings, as XLA computes flax's bfloat16 layers
+            x, weight = x.to(self.dtype), self.weight.to(self.dtype)
+            if k == 1:
+                y = F.linear(x, weight[:, :, 0])
+            else:
+                y = F.conv1d(x.transpose(1, 2), weight,
+                             padding=(k - 1) // 2).transpose(1, 2)
+            return y + self.bias.to(self.dtype)
         if k == 1:
             return F.linear(x, self.weight[:, :, 0], self.bias)
         y = F.conv1d(x.transpose(1, 2), self.weight, self.bias,
                      padding=(k - 1) // 2)
         return y.transpose(1, 2)
+
+
+class LayerNorm(nn.LayerNorm, ComputesAt):
+    """``nn.LayerNorm`` over the channels (the reference's eps 1e-4): at
+    bfloat16 the statistics and the affine are float32 and the result is
+    cast to bfloat16 (flax's ``nn.LayerNorm(dtype=...)``)."""
+
+    def __init__(self, channels: int, eps: float = 1e-4):
+        super().__init__(channels, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype == torch.float32:
+            return super().forward(x)
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(self.dtype)
 
 
 class WNConv1d(nn.Module):
@@ -204,21 +268,30 @@ class RelativePositionMultiHeadAttention(nn.Module):
         q = heads(layers['Query'](x))
         k = heads(layers['Key'](x))
         v = heads(layers['Value'](x))
-        scale = 1.0 / math.sqrt(d)
 
         skew_k = attn_ops.skewed_relative_table(
             attn_ops.clip_relative_embedding(self.weight_K, t), t)[0]
-        scores = (q @ k.transpose(-1, -2)
-                  + torch.einsum('bhqd,qkd->bhqk', q, skew_k)) * scale
+        if q.dtype == torch.float32:
+            scale = 1.0 / math.sqrt(d)
+            scores = (q @ k.transpose(-1, -2)
+                      + torch.einsum('bhqd,qkd->bhqk', q, skew_k)) * scale
+        else:
+            # bf16 projections, float32 sums; the scale rounded to q's dtype
+            scale = (1.0 / bf16_scale(math.sqrt(d), q.dtype)).float().to(
+                q.device)
+            q, k = q.float(), k.float()
+            scores = ((q @ k.transpose(-1, -2)) * scale
+                      + torch.einsum('bhqd,qkd->bhqk', q, skew_k) * scale)
         scores = scores.masked_fill(attn_mask == 0, -1e4)
         alignments = self.dropout(torch.softmax(scores, dim=-1),
                                   deterministic, generator)
 
         skew_v = attn_ops.skewed_relative_table(
             attn_ops.clip_relative_embedding(self.weight_V, t), t)[0]
-        out = (alignments @ v
+        # the alignments meet the values in the values' dtype
+        out = (rounded(alignments, v.dtype) @ v.float()
                + torch.einsum('bhqk,qkd->bhqd', alignments, skew_v))
-        out = out.transpose(1, 2).reshape(b, t, c)
+        out = out.transpose(1, 2).reshape(b, t, c).to(x.dtype)
         return layers['Projection'](out), alignments
 
 
@@ -253,8 +326,15 @@ class MultiHeadCrossAttention(nn.Module):
         q = heads(layers['Query'](queries))
         k = heads(layers['Key'](keys))
         v = heads(layers['Value'](keys))
-        scores = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
-        out = torch.softmax(scores, dim=-1) @ v              # [B, H, Tq, d]
+        if q.dtype == torch.float32:
+            scores = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
+            out = torch.softmax(scores, dim=-1) @ v          # [B, H, Tq, d]
+        else:
+            scale = (1.0 / bf16_scale(math.sqrt(q.shape[-1]), q.dtype)
+                     ).float().to(q.device)
+            scores = (q.float() @ k.float().transpose(-1, -2)) * scale
+            out = (rounded(torch.softmax(scores, dim=-1), v.dtype)
+                   @ v.float()).to(queries.dtype)
         b, _, t_q, d = out.shape
         return layers['Projection'](out.transpose(1, 2).reshape(b, t_q,
                                                                  h * d))

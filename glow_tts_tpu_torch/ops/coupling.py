@@ -43,6 +43,22 @@ computes only the tiles that hold a valid frame: :func:`live_tile_schedule`
 is the work list of ``flow_step`` and ``coupling``,
 :func:`stack_tile_schedule` that of ``flow_stack``, whose steps follow each
 other tile by tile, not launch by launch.
+
+At bfloat16 (``x`` a bfloat16 tensor: ``config.compute_dtype`` or
+``inference_dtype``) ``flow_step`` computes what the TPU kernel computes at
+``dt = bfloat16``: input and output in bfloat16; the activations rounded to
+it where the TPU kernel casts them (the ActNorm output and ``x_a`` before
+the mixing and the start conv, the residual stream ``h``, the gate, the
+masked skip sum), and so are the weights and operands its wrapper casts
+(``mix_t``, ``w_start``, ``w_in``, ``w_rs``, ``w_end``, ``w_pitch``, the
+conditioning rows and the pitch operand); every product sums in float32,
+and ``x_b``, the sums and the logdet stay float32.  Its kernel is a build
+of ``csrc/flow_step.cu`` with ``GLOW_BF16`` (:func:`build_defines`), whose
+big products run on the tensor cores with bfloat16 operands
+(``mma.sync.m16n8k16``) on weights laid out once, where they are packed
+(:func:`tensor_core_weights` with ``dtype``).  ``coupling`` and
+``flow_stack`` have no bfloat16 build yet (``ROADMAP.md`` B.3) and raise on
+a bfloat16 tensor on the card.
 """
 
 from __future__ import annotations
@@ -53,6 +69,8 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from glow_tts_tpu_torch.ops.precision import rounded, rounded_weight
 
 Weights = Dict[str, torch.Tensor]
 
@@ -70,6 +88,12 @@ KERNEL_SHAPES = tuple({'channels': c, 'ch': 192, 'n_layers': 4,
 PITCH_SIZE = 2
 # the macro a pitch instantiation's library is built with
 PITCH_BUILD = ('GLOW_PITCH',)
+# and a bfloat16 build's (flow_step.cu, flow_train_fwd.cu, flow_train_bwd.cu)
+BF16_BUILD = ('GLOW_BF16',)
+# the weights a bfloat16 kernel takes rounded to bfloat16 (held in float32),
+# as the TPU kernels' wrappers cast them; w_in and w_rs reach it in
+# tensor_core_weights' bfloat16 layout
+BF16_ROUNDED_KEYS = ('mix_t', 'w_start', 'w_end', 'w_pitch')
 WEIGHT_KEYS = ('an_logs', 'an_bias', 'mix_t', 'w_start', 'b_start', 'w_in',
                'w_rs', 'b_rs', 'w_end', 'b_end')
 COUPLING_WEIGHT_KEYS = WEIGHT_KEYS[3:]         # the coupling's own
@@ -92,24 +116,30 @@ TILE_COUNTS = ('live', 'items', 'computed', 'rounds', 'blocks')
 
 
 def build_defines(channels: int = SHIPPED_CHANNELS,
-                  pitch: bool = False) -> Tuple[str, ...]:
+                  pitch: bool = False, bf16: bool = False) -> Tuple[str, ...]:
     """The macros of a flow kernel's library for ``channels`` flow
-    channels, its pitch instantiation with ``pitch``."""
+    channels, its pitch instantiation with ``pitch``, its bfloat16 build
+    with ``bf16``."""
     return ((PITCH_BUILD if pitch else ())
             + (() if channels == SHIPPED_CHANNELS
-               else (f'GLOW_CHANNELS={channels}',)))
+               else (f'GLOW_CHANNELS={channels}',))
+            + (BF16_BUILD if bf16 else ()))
 
 
 def count_launches(fn, what: str, channels: int, pitch: bool,
-                   count: int = 1) -> None:
+                   count: int = 1, bf16: bool = False) -> None:
     """Add ``count`` to the launch count of the build of ``channels``
-    (with ``pitch``) on ``fn``: ``fn.<what>_launches`` for the shipped
-    build, ``<what>_pitch_launches`` for its pitch instantiation,
-    ``<what>_c80_launches`` for the 80-channel build (no ``what_`` where
-    ``what`` is empty)."""
+    (with ``pitch``, at bfloat16 with ``bf16``) on ``fn``:
+    ``fn.<what>_launches`` for the shipped float32 build,
+    ``<what>_pitch_launches`` for its pitch instantiation,
+    ``<what>_c80_launches`` for the 80-channel build, each with ``bf16_``
+    before the build's part in a bfloat16 build (``<what>_bf16_launches``,
+    ``<what>_bf16_pitch_launches``, ``<what>_bf16_c80_launches``; no
+    ``what_`` where ``what`` is empty)."""
     tag = ('pitch' if pitch else
            '' if channels == SHIPPED_CHANNELS else f'c{channels}')
-    name = '_'.join(part for part in (what, tag, 'launches') if part)
+    name = '_'.join(part for part in (what, 'bf16' if bf16 else '', tag,
+                                      'launches') if part)
     setattr(fn, name, getattr(fn, name) + count)
 
 
@@ -137,6 +167,22 @@ def tensor_core_layout(w: torch.Tensor) -> torch.Tensor:
     return pairs.reshape(*lead, k // 8, n // 8, 32, 4).contiguous()
 
 
+def tensor_core_layout_bf16(w: torch.Tensor) -> torch.Tensor:
+    """``w [..., K, N]`` (K a multiple of 16, N of 8) rounded to bfloat16
+    and laid out as the bfloat16 kernels' ``mma.sync.m16n8k16`` B fragments
+    read them: ``[..., K/16, N/8, 32, 4]`` bfloat16, lane ``4g + t`` of the
+    16 × 8 block ``(kb, nb)`` holding ``w[16kb + 2t + e, 8nb + g]`` for e in
+    (0, 1, 8, 9), so that its two 32-bit registers are the pairs (2t, 2t+1)
+    and (2t+8, 2t+9) of column g."""
+    *lead, k, n = w.shape
+    # k = 16 kb + 8 h + 2 t + e, n = 8 nb + g  ->  [kb, nb, g, t, h, e]
+    blocks = w.reshape(*lead, k // 16, 2, 4, 2, n // 8, 8)
+    d = len(lead)
+    blocks = blocks.permute(*range(d), d, d + 4, d + 5, d + 2, d + 1, d + 3)
+    return blocks.to(torch.bfloat16).reshape(*lead, k // 16, n // 8, 32,
+                                             4).contiguous()
+
+
 def interleave_gate(w_in: torch.Tensor) -> torch.Tensor:
     """``w_in [..., k, ch, 2ch]`` → ``[..., k·ch, 2ch]`` with the pre-gate
     columns interleaved: column ``2c`` is tanh column ``c``, ``2c + 1``
@@ -147,25 +193,45 @@ def interleave_gate(w_in: torch.Tensor) -> torch.Tensor:
     return w.transpose(-1, -2).reshape(*lead, k * ch, ch2)
 
 
-def tensor_core_weights(w_in: torch.Tensor, w_rs: torch.Tensor
+def tensor_core_weights(w_in: torch.Tensor, w_rs: torch.Tensor,
+                        dtype: torch.dtype = torch.float32
                         ) -> Dict[str, torch.Tensor]:
     """The kernels' ``w_in`` (gate columns interleaved) and ``w_rs`` in
-    :func:`tensor_core_layout`, under :data:`TC_KEYS`' names; ``w_in [...,
-    n, k, ch, 2ch]``, ``w_rs [..., n, ch, 2ch]``, any leading axes (a stack
-    of flow steps).  Computed without gradient: the kernels have none."""
+    :func:`tensor_core_layout` (in :func:`tensor_core_layout_bf16` for the
+    bfloat16 builds, ``dtype`` bfloat16), under :data:`TC_KEYS`' names;
+    ``w_in [..., n, k, ch, 2ch]``, ``w_rs [..., n, ch, 2ch]``, any leading
+    axes (a stack of flow steps).  Computed without gradient: the kernels
+    have none."""
+    layout = (tensor_core_layout if dtype == torch.float32
+              else tensor_core_layout_bf16)
     with torch.no_grad():
         w_in, w_rs = w_in.float(), w_rs.float()
-        return {'w_in_tc': tensor_core_layout(interleave_gate(w_in)),
-                'w_rs_tc': tensor_core_layout(w_rs)}
+        return {'w_in_tc': layout(interleave_gate(w_in)),
+                'w_rs_tc': layout(w_rs)}
 
 
-def with_tensor_core_weights(weights: Weights) -> Weights:
-    """``weights`` with :func:`tensor_core_weights` added, unless they
-    carry them already (a pack caches them)."""
-    if all(key in weights for key in TC_KEYS.values()):
+def with_tensor_core_weights(weights: Weights,
+                             dtype: torch.dtype = torch.float32) -> Weights:
+    """``weights`` with :func:`tensor_core_weights` of ``dtype`` added,
+    unless they carry them already (a pack caches them); for bfloat16 also
+    with :data:`BF16_ROUNDED_KEYS` rounded to it, without gradient."""
+    tc_dtype = torch.float32 if dtype == torch.float32 else torch.bfloat16
+    if all(key in weights and weights[key].dtype == tc_dtype
+           for key in TC_KEYS.values()):
         return weights
-    return {**weights, **tensor_core_weights(weights['w_in'],
-                                             weights['w_rs'])}
+    return rounded_weights({**weights, **tensor_core_weights(
+        weights['w_in'], weights['w_rs'], dtype)}, dtype)
+
+
+def rounded_weights(weights: Weights, dtype: torch.dtype) -> Weights:
+    """``weights`` with :data:`BF16_ROUNDED_KEYS` rounded to ``dtype``,
+    without gradient, as a bfloat16 kernel takes them (``weights`` as they
+    are at float32)."""
+    if dtype == torch.float32:
+        return weights
+    with torch.no_grad():
+        return {**weights, **{key: rounded(weights[key].float(), dtype)
+                              for key in BF16_ROUNDED_KEYS if key in weights}}
 
 
 def kernel_keys(keys) -> Tuple[str, ...]:
@@ -241,28 +307,37 @@ def stack_tile_schedule(lengths, t: int, steps: int,
 
 def wavenet_stats(x_a: torch.Tensor, mask: torch.Tensor, weights: Weights,
                   cond: torch.Tensor,
-                  pitch: Optional[torch.Tensor] = None
+                  pitch: Optional[torch.Tensor] = None,
+                  dtype: torch.dtype = torch.float32
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The coupling network: start 1×1 → n gated layers → end 1×1.
     ``x_a [B, T, C/2]``; ``cond [n, B, 2ch]`` per-layer bias.  Returns
-    ``(mean, logs)``, each ``[B, T, C/2]``."""
-    w_in = weights['w_in']
-    n, k, ch, _ = w_in.shape
-    h = (x_a @ weights['w_start'] + weights['b_start']) * mask
+    ``(mean, logs)``, each ``[B, T, C/2]`` float32.  At bfloat16 ``dtype``
+    the operands of every product are rounded to it where the TPU kernel
+    casts them (``glow_tts_tpu/ops/coupling.py::_coupling_body``)."""
+    def r(v):
+        return rounded(v, dtype)
+
+    def rw(name, i=None):
+        w = weights[name] if i is None else weights[name][i]
+        return rounded_weight(w, dtype)
+
+    n, k, ch, _ = weights['w_in'].shape
+    h = r((r(x_a) @ rw('w_start') + weights['b_start']) * mask)
     skip = torch.zeros_like(h)
     for i in range(n):
-        conv_w = w_in[i].permute(2, 1, 0)                     # [2ch, ch, k]
+        conv_w = rw('w_in', i).permute(2, 1, 0)               # [2ch, ch, k]
         acc = F.conv1d(h.transpose(1, 2), conv_w,
                        padding=(k - 1) // 2).transpose(1, 2)
-        acc = acc + cond[i][:, None, :]
+        acc = acc + r(cond[i])[:, None, :]
         if pitch is not None:
-            acc = acc + pitch @ weights['w_pitch'][i]
-        gate = torch.tanh(acc[..., :ch]) * torch.sigmoid(acc[..., ch:])
-        rs = gate @ weights['w_rs'][i] + weights['b_rs'][i]
+            acc = acc + r(pitch) @ rw('w_pitch', i)
+        gate = r(torch.tanh(acc[..., :ch]) * torch.sigmoid(acc[..., ch:]))
+        rs = gate @ rw('w_rs', i) + weights['b_rs'][i]
         if i < n - 1:
-            h = (h + rs[..., :ch]) * mask
+            h = r((h + rs[..., :ch]) * mask)
         skip = skip + rs[..., ch:]
-    out = (skip * mask) @ weights['w_end'] + weights['b_end']
+    out = r(skip * mask) @ rw('w_end') + weights['b_end']
     return out.chunk(2, dim=-1)
 
 
@@ -279,24 +354,29 @@ def flow_step_reference(x: torch.Tensor, mask: torch.Tensor,
     ``w_start [C/2, ch]``, ``b_start [ch]``, ``w_in [n, k, ch, 2ch]``,
     ``w_rs [n, ch, 2ch]`` with the last layer's res half zero,
     ``b_rs [n, 2ch]``, ``w_end [ch, C]``, ``b_end [C]``).
-    Returns ``(z [B, T, C], logdet [B] | None)``."""
+    Returns ``(z [B, T, C], logdet [B] | None)``, ``z`` in ``x``'s dtype
+    (float32 or bfloat16, the module docstring's policy), the logdet
+    float32."""
+    dtype = x.dtype
     c2 = x.shape[-1] // 2
     an_logs, an_bias = weights['an_logs'], weights['an_bias']
+    mix_t = rounded_weight(weights['mix_t'], dtype)
+    x = x.float()
     if reverse:
         x_a, x_b = x[..., :c2], x[..., c2:]
     else:
         y = (an_bias + torch.exp(an_logs) * x) * mask
-        y = (y @ weights['mix_t']) * mask
-        x_a, x_b = y[..., :c2], y[..., c2:]
-    mean, logs = wavenet_stats(x_a, mask, weights, cond, pitch)
+        y = (rounded(y, dtype) @ mix_t) * mask
+        x_a, x_b = rounded(y[..., :c2], dtype), y[..., c2:]
+    mean, logs = wavenet_stats(x_a, mask, weights, cond, pitch, dtype)
     if reverse:
         z_b = (x_b - mean) * torch.exp(-logs) * mask
-        y = (torch.cat([x_a, z_b], dim=-1) @ weights['mix_t']) * mask
-        return (y - an_bias) * torch.exp(-an_logs) * mask, None
+        y = (rounded(torch.cat([x_a, z_b], dim=-1), dtype) @ mix_t) * mask
+        return ((y - an_bias) * torch.exp(-an_logs) * mask).to(dtype), None
     z_b = (mean + torch.exp(logs) * x_b) * mask
     logdet = ((logs * mask).sum(dim=(1, 2))
               + weights['ld_const'] * mask.sum(dim=(1, 2)))
-    return torch.cat([x_a, z_b], dim=-1), logdet
+    return torch.cat([x_a, z_b], dim=-1).to(dtype), logdet
 
 
 def coupling_reference(x_a: torch.Tensor, x_b: torch.Tensor,
@@ -311,11 +391,16 @@ def coupling_reference(x_a: torch.Tensor, x_b: torch.Tensor,
     ``mask [B, T, 1]``; ``weights`` as
     ``glow_tts_tpu.ops.coupling.fused_coupling`` takes them (those of
     :func:`flow_step_reference` without ``an_logs``, ``an_bias``, ``mix_t``
-    and ``ld_const``).  Returns ``(z_b [B, T, C/2], logdet [B] | None)``."""
-    mean, logs = wavenet_stats(x_a, mask, weights, cond, pitch)
+    and ``ld_const``).  Returns ``(z_b [B, T, C/2], logdet [B] | None)``,
+    ``z_b`` in ``x_b``'s dtype (at bfloat16 the module docstring's
+    policy)."""
+    dtype = x_b.dtype
+    mean, logs = wavenet_stats(x_a.float(), mask, weights, cond, pitch,
+                               dtype)
+    x_b = x_b.float()
     if reverse:
-        return (x_b - mean) * torch.exp(-logs) * mask, None
-    return ((mean + torch.exp(logs) * x_b) * mask,
+        return ((x_b - mean) * torch.exp(-logs) * mask).to(dtype), None
+    return (((mean + torch.exp(logs) * x_b) * mask).to(dtype),
             (logs * mask).sum(dim=(1, 2)))
 
 
@@ -343,29 +428,33 @@ def flow_stack_reference(x: torch.Tensor, mask: torch.Tensor,
     return x, logdet
 
 
-def _weight_shapes(c: int, n: int, k: int, ch: int) -> Dict[str, tuple]:
+def _weight_shapes(c: int, n: int, k: int, ch: int,
+                   dtype: torch.dtype = torch.float32) -> Dict[str, tuple]:
     """The shapes of one flow step's weights: those of ``WEIGHT_KEYS`` and
-    the tensor-core layout of ``w_in`` and ``w_rs``."""
+    the tensor-core layout of ``w_in`` and ``w_rs`` (a kernel of ``dtype``
+    reads 8- or, in bfloat16, 16-deep blocks)."""
+    depth = 8 if dtype == torch.float32 else 16
     return {'an_logs': (c,), 'an_bias': (c,), 'mix_t': (c, c),
             'w_start': (c // 2, ch), 'b_start': (ch,),
             'w_in': (n, k, ch, 2 * ch), 'w_rs': (n, ch, 2 * ch),
-            'w_in_tc': (n, k * ch // 8, ch // 4, 32, 4),
-            'w_rs_tc': (n, ch // 8, ch // 4, 32, 4),
+            'w_in_tc': (n, k * ch // depth, ch // 4, 32, 4),
+            'w_rs_tc': (n, ch // depth, ch // 4, 32, 4),
             'b_rs': (n, 2 * ch), 'w_end': (ch, c), 'b_end': (c,)}
 
 
 def _check_launch(name: str, x: torch.Tensor, channels: int,
                   w_in_shape: Tuple[int, ...],
                   tensors: Dict[str, Tuple[torch.Tensor, tuple]],
-                  views: Optional[Dict[str, Tuple[torch.Tensor, tuple]]] = None
-                  ) -> None:
+                  views: Optional[Dict[str, Tuple[torch.Tensor,
+                                                  tuple]]] = None,
+                  dtypes: Optional[Dict[str, torch.dtype]] = None) -> None:
     """What every kernel of this module asks of a CUDA call: no tensor that
     requires grad, the shipped widths, and each of ``tensors`` (name →
-    (tensor, shape)) a contiguous float32 tensor of its shape on ``x``'s
-    device.  ``views`` may be slices of a wider tensor's channels: unit
-    stride along the channels, every other stride and the address a
-    multiple of 4 floats, as the kernel's 16-byte loads need.  Raises
-    otherwise."""
+    (tensor, shape)) a contiguous tensor of its shape on ``x``'s device,
+    float32 unless ``dtypes`` names another for it.  ``views`` may be
+    slices of a wider tensor's channels: unit stride along the channels,
+    every other stride and the address a multiple of 4 floats, as the
+    kernel's 16-byte loads need.  Raises otherwise."""
     views = views or {}
     if x.device.type != 'cuda':
         raise ValueError(f'{name}: no kernel for device {x.device}')
@@ -377,12 +466,14 @@ def _check_launch(name: str, x: torch.Tensor, channels: int,
             'torch.no_grad() or on detached tensors, or train through '
             'ops.coupling_grad.flow_stack_train')
     check_shape(name, channels, w_in_shape)
+    dtypes = dtypes or {}
     for key, (tensor, shape) in tensors.items():
-        if (tensor.device != x.device or tensor.dtype != torch.float32
+        dtype = dtypes.get(key, torch.float32)
+        if (tensor.device != x.device or tensor.dtype != dtype
                 or tuple(tensor.shape) != tuple(shape)
                 or not tensor.is_contiguous()):
             raise ValueError(
-                f'{name}: {key} must be a contiguous float32 tensor of '
+                f'{name}: {key} must be a contiguous {dtype} tensor of '
                 f'shape {tuple(shape)} on {x.device}; got '
                 f'{tuple(tensor.shape)} {tensor.dtype} on {tensor.device}')
     for key, (view, shape) in views.items():
@@ -419,12 +510,14 @@ def _check_weights(name: str, x: torch.Tensor, pitch, channels: int,
                    weights: Weights,
                    tensors: Dict[str, Tuple[torch.Tensor, tuple]],
                    shapes: Dict[str, tuple], steps: Optional[int] = None,
-                   views=None) -> None:
-    """:func:`_check_launch` on ``tensors``, the f32 ``weights`` of
-    ``shapes`` and their tensor-core layout, which ``weights`` must carry:
-    it is made once, where the weights are packed, not at every launch.
-    With a ``pitch [B, T, PITCH_SIZE]`` operand, ``weights`` carry
-    ``w_pitch [(S,) n, PITCH_SIZE, 2ch]`` too."""
+                   views=None, dtypes=None,
+                   dtype: torch.dtype = torch.float32) -> None:
+    """:func:`_check_launch` on ``tensors`` (of ``dtypes``), the f32
+    ``weights`` of ``shapes`` and their tensor-core layout for a kernel of
+    ``dtype``, which ``weights`` must carry: it is made once, where the
+    weights are packed, not at every launch.  With a ``pitch [B, T,
+    PITCH_SIZE]`` operand, ``weights`` carry ``w_pitch [(S,) n, PITCH_SIZE,
+    2ch]`` too."""
     w_in_shape = weights['w_in'].shape[0 if steps is None else 1:]
     lead = () if steps is None else (steps,)
     check_shape(name, channels, w_in_shape, pitch is not None)
@@ -441,7 +534,7 @@ def _check_weights(name: str, x: torch.Tensor, pitch, channels: int,
     _check_launch(name, x, channels, w_in_shape, {
         **tensors,
         **{key: (weights[key], shape) for key, shape in shapes.items()}},
-        views)
+        views, dtypes)
     missing = [key for key in TC_KEYS.values() if key not in weights]
     if missing:
         raise ValueError(
@@ -449,9 +542,12 @@ def _check_weights(name: str, x: torch.Tensor, pitch, channels: int,
             'the tensor cores; split them once where the weights are packed '
             '(with_tensor_core_weights; FlowStep.pack caches them)')
     n, k, ch, _ = w_in_shape
+    tc_dtype = torch.float32 if dtype == torch.float32 else torch.bfloat16
     _check_launch(name, x, channels, w_in_shape, {
-        key: (weights[key], lead + _weight_shapes(channels, n, k, ch)[key])
-        for key in TC_KEYS.values()})
+        key: (weights[key],
+              lead + _weight_shapes(channels, n, k, ch, dtype)[key])
+        for key in TC_KEYS.values()},
+        dtypes=dict.fromkeys(TC_KEYS.values(), tc_dtype))
 
 
 def tile_report(device) -> torch.Tensor:
@@ -504,20 +600,32 @@ def _flow_step_kernel(x, mask, weights, cond, reverse=False, pitch=None,
                       passes: int = TF32_PASSES,
                       tiles: Optional[torch.Tensor] = None):
     """:func:`flow_step`'s launch, with the TF32 passes of its products
-    (1 for measuring) and, for measuring, a :func:`tile_report` to fill."""
+    (1 for measuring; a bfloat16 build has one bfloat16 pass and takes 3)
+    and, for measuring, a :func:`tile_report` to fill.  A bfloat16 ``x``
+    goes to the bfloat16 build, with the conditioning rows and the pitch
+    operand rounded to bfloat16 here, as the TPU kernel's wrapper casts
+    them."""
     b, t, c = x.shape
     n, k, ch, ch2 = weights['w_in'].shape
+    bf16 = x.dtype == torch.bfloat16
+    dtype = x.dtype if bf16 else torch.float32
     shapes = {key: _weight_shapes(c, n, k, ch)[key] for key in WEIGHT_KEYS}
     if not reverse:
         shapes['ld_const'] = ()
     _check_weights('flow_step', x, pitch, c, weights, {
         'x': (x, (b, t, c)), 'mask': (mask, (b, t, 1)),
-        'cond': (cond, (n, b, ch2))}, shapes)
-    if passes not in (1, 3):
-        raise ValueError(f'flow_step: passes is 1 or 3, got {passes}')
+        'cond': (cond, (n, b, ch2))}, shapes, dtypes={'x': dtype},
+        dtype=dtype)
+    if passes not in (1, 3) or (bf16 and passes != 3):
+        raise ValueError(f'flow_step: passes is 1 or 3 (3 at bfloat16), '
+                         f'got {passes}')
     tiles_ptr = tile_report_pointer('flow_step', tiles, x)
+    if bf16:
+        cond = rounded(cond, dtype).contiguous()
+        if pitch is not None:
+            pitch = rounded(pitch, dtype).contiguous()
 
-    lib = load_flow_step_library(pitch is not None, c)
+    lib = load_flow_step_library(pitch is not None, c, bf16)
     z = torch.empty_like(x)
     ld_part = ld_ptr = part_ptr = None          # NULL: unused on reverse
     if not reverse:
@@ -534,11 +642,22 @@ def _flow_step_kernel(x, mask, weights, cond, reverse=False, pitch=None,
         *[p.data_ptr() for p in inputs[3:]], ld_ptr, z.data_ptr(), part_ptr,
         tiles_ptr, b, t, int(reverse), passes,
         torch.cuda.current_stream(x.device).cuda_stream))
-    count_launches(flow_step, '', c, pitch is not None)
+    count_launches(flow_step, '', c, pitch is not None, bf16=bf16)
     return z, (None if ld_part is None else ld_part.sum(dim=1))
 
 
 flow_step.launches = flow_step.pitch_launches = flow_step.c80_launches = 0
+flow_step.bf16_launches = flow_step.bf16_pitch_launches = 0
+flow_step.bf16_c80_launches = 0
+
+
+def _no_bf16_build(name: str, x: torch.Tensor) -> None:
+    """Raise on a bfloat16 operand of a kernel without a bfloat16 build."""
+    if x.dtype != torch.float32:
+        raise ValueError(
+            f'{name}: no {x.dtype} build of this kernel yet (ROADMAP.md '
+            f'B.3); the flow runs at bfloat16 under coupling_backend '
+            f'\'fused\' (or \'auto\')')
 
 
 def coupling(x_a: torch.Tensor, x_b: torch.Tensor, mask: torch.Tensor,
@@ -553,6 +672,7 @@ def coupling(x_a: torch.Tensor, x_b: torch.Tensor, mask: torch.Tensor,
     if x_a.device.type == 'cpu':
         return coupling_reference(x_a, x_b, mask, weights, cond, pitch,
                                   reverse)
+    _no_bf16_build('coupling', x_a)
     return _coupling_kernel(x_a, x_b, mask, weights, cond, pitch, reverse)
 
 
@@ -602,6 +722,7 @@ def flow_stack(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
     :func:`tensor_core_weights` too (stacked)."""
     if x.device.type == 'cpu':
         return flow_stack_reference(x, mask, weights, cond, pitch, reverse)
+    _no_bf16_build('flow_stack', x)
     return _flow_stack_kernel(x, mask, weights, cond, pitch, reverse)
 
 
@@ -654,12 +775,14 @@ flow_stack.c80_launches = 0
 
 
 def load_flow_library(source: str, pitch: bool = False,
-                      channels: int = SHIPPED_CHANNELS) -> ctypes.CDLL:
+                      channels: int = SHIPPED_CHANNELS,
+                      bf16: bool = False) -> ctypes.CDLL:
     """Build (at first use) and load the flow kernel source ``csrc/
     <source>`` for ``channels`` flow channels (its pitch instantiation with
-    ``pitch``), held to the width it reports."""
+    ``pitch``, its bfloat16 build with ``bf16``), held to the width it
+    reports."""
     from glow_tts_tpu_torch.ops.cuda_build import load_library
-    lib = load_library(source, build_defines(channels, pitch))
+    lib = load_library(source, build_defines(channels, pitch, bf16))
     lib.glow_flow_channels.argtypes = []
     lib.glow_flow_channels.restype = ctypes.c_int
     if lib.glow_flow_channels() != channels:
@@ -670,12 +793,13 @@ def load_flow_library(source: str, pitch: bool = False,
 
 def _load(source: str, entry: str, argtypes: list, pitch: bool = False,
           channels: int = SHIPPED_CHANNELS,
-          extra: Tuple[Tuple[str, list], ...] = ()) -> ctypes.CDLL:
+          extra: Tuple[Tuple[str, list], ...] = (),
+          bf16: bool = False) -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/<source>`` for ``channels``
     flow channels, its pitch instantiation with ``pitch``, typed: its entry
     point, its time-tile query (and the other int queries in ``extra``, as
     (name, argtypes)) and the error-string function every library has."""
-    lib = load_flow_library(source, pitch, channels)
+    lib = load_flow_library(source, pitch, channels, bf16)
     ci = ctypes.c_int
     getattr(lib, entry).argtypes = argtypes
     getattr(lib, entry).restype = ci
@@ -692,12 +816,14 @@ def _load(source: str, entry: str, argtypes: list, pitch: bool = False,
 
 @functools.cache
 def load_flow_step_library(pitch: bool = False,
-                           channels: int = SHIPPED_CHANNELS) -> ctypes.CDLL:
+                           channels: int = SHIPPED_CHANNELS,
+                           bf16: bool = False) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return _load('flow_step.cu', 'glow_flow_step_f32',
                  [vp] * (5 + len(WEIGHT_KEYS) + 4) + [ci, ci, ci, ci, vp],
                  pitch, channels,
-                 extra=(('glow_flow_step_resident_blocks', [ci]),))
+                 extra=(('glow_flow_step_resident_blocks', [ci]),),
+                 bf16=bf16)
 
 
 @functools.cache

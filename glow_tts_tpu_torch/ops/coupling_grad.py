@@ -50,6 +50,28 @@ gradient) added layer by layer in launch order.  MiniSpeech's 80 flow
 channels (``Num_Squeeze: 1``) are a build of both sources of their own
 too (``GLOW_CHANNELS=80``), loaded by the channel count and counted apart
 (``*_c80_launches``).
+
+At bfloat16 (``x`` a bfloat16 tensor: ``config.compute_dtype``) the pair
+computes what the TPU kernels compute at ``dt = bfloat16``
+(``glow_tts_tpu/ops/coupling_grad.py``): the steps' inputs and outputs in
+bfloat16, the activations rounded to it where the TPU kernel casts them
+(the ActNorm output and ``x_a`` before their products, the residual stream
+``h``, the gate, the masked skip sum) and so are the weights, the
+conditioning rows and the pitch operand its wrapper casts; the sums
+(``acc``, the skip sum), ``x_b``, the logdet and every gradient stay
+float32.  Its kernels are builds of both sources with ``GLOW_BF16``: the
+forward's products on bfloat16 tensor-core operands, its saved values
+stored in bfloat16 (the TPU kernel keeps its checkpoint in ``dt``), and
+the backward's GEMMs on bfloat16 operands (``mma.sync.m16n8k16``: the
+cotangent rounded where it enters a product, as the TPU kernel's
+``.astype(dt)`` before each ``dot``), read from those stores.  The TPU
+kernel also writes its per-batch-block weight-gradient partials of
+``w_in`` and ``w_rs`` in bfloat16 (``gdt``), only because its VMEM is
+scarce and their partition is its batch tile: that rounding has no
+counterpart here, where every weight gradient sums in float32.  The plain
+version at bfloat16 rounds the same activations (autograd rounds their
+cotangents on the way back) and the weights by a straight-through rounding
+whose gradient is float32.
 """
 
 from __future__ import annotations
@@ -69,6 +91,7 @@ from glow_tts_tpu_torch.ops.coupling import (PITCH_SIZE, SHIPPED_CHANNELS,
                                              tf32_round, tile_report_pointer,
                                              valid_lengths,
                                              with_tensor_core_weights)
+from glow_tts_tpu_torch.ops.precision import rounded, rounded_weight
 
 Weights = Dict[str, torch.Tensor]
 
@@ -114,22 +137,32 @@ def flow_stack_train_reference(x: torch.Tensor, mask: torch.Tensor,
     ``pitch [B, T, P]``, ``w_pitch [S, n, P, 2ch]``); ``cond [S, n, B,
     2ch]`` holds only what is added after the dropout.  Every step is
     ActNorm → mixing → coupling, whose WaveNet drops ``conv + b_in`` before
-    ``cond`` and pitch are added.  Returns ``(z [B, T, C], logdet [B])``."""
+    ``cond`` and pitch are added.  Returns ``(z [B, T, C], logdet [B])``,
+    ``z`` in ``x``'s dtype: at bfloat16 the module docstring's policy, each
+    step's output rounded to it as the next step's input."""
+    dtype = x.dtype
     b, t, c = x.shape
     c2 = c // 2
     s_steps, n, k, ch, ch2 = weights['w_in'].shape
     mask = mask.float()
     xc = x.float()
     ld = torch.zeros(b, device=x.device)
+
+    def r(v):
+        return rounded(v, dtype)
+
+    def rw(name, *index):
+        return rounded_weight(weights[name][index], dtype)
+
     for sj in range(s_steps):
         y = (weights['an_bias'][sj] + torch.exp(weights['an_logs'][sj]) * xc
              ) * mask
-        yd = (y @ weights['mix_t'][sj]) * mask
-        xa, xb = yd[..., :c2], yd[..., c2:]
-        h = (xa @ weights['w_start'][sj] + weights['b_start'][sj]) * mask
+        yd = (r(y) @ rw('mix_t', sj)) * mask
+        xa, xb = r(yd[..., :c2]), yd[..., c2:]
+        h = r((xa @ rw('w_start', sj) + weights['b_start'][sj]) * mask)
         skip = torch.zeros_like(h)
         for i in range(n):
-            conv_w = weights['w_in'][sj, i].permute(2, 1, 0)   # [2ch, ch, k]
+            conv_w = rw('w_in', sj, i).permute(2, 1, 0)      # [2ch, ch, k]
             acc = F.conv1d(h.transpose(1, 2), conv_w,
                            padding=(k - 1) // 2).transpose(1, 2)
             acc = acc + weights['b_in'][sj, i]
@@ -137,21 +170,21 @@ def flow_stack_train_reference(x: torch.Tensor, mask: torch.Tensor,
                 acc = acc * dropmask.stack_mask(
                     seed, sj, i, n, b, t, k, ch2, dropout_rate, x.device)
             if cond is not None:
-                acc = acc + cond[sj, i][:, None, :]
+                acc = acc + r(cond[sj, i])[:, None, :]
             if pitch is not None:
-                acc = acc + pitch @ weights['w_pitch'][sj, i]
-            gate = torch.tanh(acc[..., :ch]) * torch.sigmoid(acc[..., ch:])
-            rs = gate @ weights['w_rs'][sj, i] + weights['b_rs'][sj, i]
+                acc = acc + r(pitch) @ rw('w_pitch', sj, i)
+            gate = r(torch.tanh(acc[..., :ch]) * torch.sigmoid(acc[..., ch:]))
+            rs = gate @ rw('w_rs', sj, i) + weights['b_rs'][sj, i]
             if i < n - 1:
-                h = (h + rs[..., :ch]) * mask
+                h = r((h + rs[..., :ch]) * mask)
             skip = skip + rs[..., ch:]
-        outs = (skip * mask) @ weights['w_end'][sj] + weights['b_end'][sj]
+        outs = r(skip * mask) @ rw('w_end', sj) + weights['b_end'][sj]
         mean, logs = outs[..., :c2], outs[..., c2:]
         zb = (mean + torch.exp(logs) * xb) * mask
         ld = ld + (logs * mask).sum(dim=(1, 2))
-        xc = torch.cat([xa, zb], dim=-1)
+        xc = r(torch.cat([xa, zb], dim=-1))
     ld = ld + weights['ld_const'].float().sum() * mask.sum(dim=(1, 2))
-    return xc, ld
+    return xc.to(dtype), ld
 
 
 def _dropout_args(seed: int, rate: float) -> Tuple[int, int, float, int]:
@@ -185,6 +218,11 @@ STORE_BUDGET_BYTES = 8 * 2 ** 30
 # passes of the backward GEMMs' TF32 product: 3 is the error-compensated
 # 3xTF32 (f32 accuracy), 1 a single TF32 pass (3 digits, kept for measuring)
 TF32_PASSES = 3
+# the bf16 build's: 1, its GEMMs accumulate in the tensor cores alone; 3
+# adds the float32 second accumulator of the f32 build, which measured no
+# closer to the f32 plain version (worst gradient 1.387e-2 either way) and
+# 1.5 % slower on an H100 (PERF.md, PR 14), so it is kept for measuring
+BF16_PASSES = 1
 # kernels the backward library launches per flow step of n WaveNet layers,
 # and per layer more in its pitch build
 BACKWARD_LAUNCHES_PER_LAYER, BACKWARD_LAUNCHES_FIXED = 4, 6
@@ -213,26 +251,35 @@ def _saved_shapes(m: int, c: int, ch: int, n: int
             'ts': (n, m, 2 * ch), 'skip': (m, ch), 'logs': (m, c // 2)}
 
 
-def saved_bytes_per_step(m: int, c: int, ch: int, n: int) -> int:
+def saved_bytes_per_step(m: int, c: int, ch: int, n: int,
+                         dtype: torch.dtype = torch.float32) -> int:
     """Bytes of what the backward pass reads of one flow step beside its
-    input, at ``m`` frames."""
+    input, at ``m`` frames, stored in ``dtype`` (the compute dtype: a
+    bfloat16 forward stores bfloat16, as the TPU kernel keeps its
+    checkpoint in ``dt``)."""
     shapes = _saved_shapes(m, c, ch, n)
-    return 4 * sum(math.prod(shapes[key]) for key in SAVED_KEYS)
+    size = torch.empty((), dtype=dtype).element_size()
+    return size * sum(math.prod(shapes[key]) for key in SAVED_KEYS)
 
 
-def stores_activations(s_steps: int, m: int, c: int, ch: int, n: int) -> bool:
+def stores_activations(s_steps: int, m: int, c: int, ch: int, n: int,
+                       dtype: torch.dtype = torch.float32) -> bool:
     """Whether a forward pass that will be differentiated stores every
     step's saved values (else the backward pass recomputes them): when they
-    fit in :data:`STORE_BUDGET_BYTES`.  A function of the shapes alone."""
-    return s_steps * saved_bytes_per_step(m, c, ch, n) <= STORE_BUDGET_BYTES
+    fit in :data:`STORE_BUDGET_BYTES`.  A function of the shapes and the
+    compute dtype alone."""
+    return (s_steps * saved_bytes_per_step(m, c, ch, n, dtype)
+            <= STORE_BUDGET_BYTES)
 
 
 def _saved_buffers(m: int, c: int, ch: int, n: int, device,
-                   steps: Optional[int] = None) -> Dict[str, torch.Tensor]:
-    """Uninitialised buffers of :func:`_saved_shapes`, for one flow step or
-    with a leading axis of ``steps``."""
+                   steps: Optional[int] = None,
+                   dtype: torch.dtype = torch.float32
+                   ) -> Dict[str, torch.Tensor]:
+    """Uninitialised buffers of :func:`_saved_shapes` in ``dtype``, for
+    one flow step or with a leading axis of ``steps``."""
     lead = () if steps is None else (steps,)
-    return {key: torch.empty(lead + shape, device=device)
+    return {key: torch.empty(lead + shape, device=device, dtype=dtype)
             for key, shape in _saved_shapes(m, c, ch, n).items()}
 
 
@@ -261,23 +308,25 @@ def _valid_lengths(mask: torch.Tensor) -> torch.Tensor:
     return valid_lengths(mask).to(torch.int32)
 
 
-def _kernel_weights(weights) -> list:
+def _kernel_weights(weights, dtype: torch.dtype = torch.float32) -> list:
     """The stacked weights in ``WEIGHT_KEYS`` order as the forward library
-    takes them: ``w_in`` and ``w_rs`` in the tensor-core layout
+    of ``dtype`` takes them: ``w_in`` and ``w_rs`` in the tensor-core layout
     (:func:`~glow_tts_tpu_torch.ops.coupling.tensor_core_weights`), split
-    now, outside autograd, from the f32 weights the backward reads."""
-    named = with_tensor_core_weights(dict(zip(WEIGHT_KEYS, weights)))
+    now, outside autograd, from the f32 weights the backward reads (and for
+    bfloat16 the mixing, start and end weights rounded to it)."""
+    named = with_tensor_core_weights(dict(zip(WEIGHT_KEYS, weights)), dtype)
     return [named[key] for key in kernel_keys(WEIGHT_KEYS)]
 
 
 def _recompute(x_step, mask, cond, weights, saved, step: int, drop,
                pitch=None, w_pitch=None) -> None:
     """One launch of the forward kernel's saving instantiation: flow step
-    ``step`` from its input ``x_step [B, T, C]`` into ``saved``; ``weights``
-    as :func:`_kernel_weights` gives them, ``w_pitch [S, n, ps, 2ch]`` with
-    a ``pitch`` operand."""
+    ``step`` from its input ``x_step [B, T, C]`` (in the compute dtype) into
+    ``saved``; ``weights`` as :func:`_kernel_weights` gives them, ``w_pitch
+    [S, n, ps, 2ch]`` with a ``pitch`` operand."""
     b, t, c = x_step.shape
-    lib = load_train_forward_library(pitch is not None, c)
+    bf16 = x_step.dtype == torch.bfloat16
+    lib = load_train_forward_library(pitch is not None, c, bf16)
     err = lib.glow_flow_train_fwd_f32(
         x_step.data_ptr(), mask.data_ptr(),
         *[None if tensor is None else tensor.data_ptr()
@@ -287,7 +336,8 @@ def _recompute(x_step, mask, cond, weights, saved, step: int, drop,
         step + 1, *drop, TF32_PASSES,
         torch.cuda.current_stream(x_step.device).cuda_stream)
     _raise_on(err, lib, 'flow_stack_train recompute')
-    count_launches(flow_stack_train, 'recompute', c, pitch is not None)
+    count_launches(flow_stack_train, 'recompute', c, pitch is not None,
+                   bf16=bf16)
 
 
 class _FlowStackTrain(torch.autograd.Function):
@@ -308,17 +358,27 @@ class _FlowStackTrain(torch.autograd.Function):
                 forward_passes, tiles, *weights):
         b, t, c = x.shape
         s_steps, n, _, ch, _ = weights[WEIGHT_KEYS.index('w_in')].shape
+        dtype = x.dtype
+        bf16 = dtype == torch.bfloat16
+        if bf16:
+            # the operands the TPU kernel's wrapper casts to dt
+            cond = None if cond is None else rounded(cond, dtype).contiguous()
+            pitch = (None if pitch is None
+                     else rounded(pitch, dtype).contiguous())
         w_pitch = None if pitch is None else weights[len(WEIGHT_KEYS)]
-        lib = load_train_forward_library(pitch is not None, c)
-        kernel_weights = _kernel_weights(weights[:len(WEIGHT_KEYS)])
-        acts = torch.empty((s_steps + 1, b, t, c), device=x.device)
+        if bf16 and w_pitch is not None:
+            w_pitch = rounded(w_pitch.detach(), dtype).contiguous()
+        lib = load_train_forward_library(pitch is not None, c, bf16)
+        kernel_weights = _kernel_weights(weights[:len(WEIGHT_KEYS)], dtype)
+        acts = torch.empty((s_steps + 1, b, t, c), device=x.device,
+                           dtype=dtype)
         acts[0].copy_(x)
         n_tiles = -(-t // lib.glow_flow_train_time_tile())
         # per-(step, sample, time tile) partial logdets, summed below: no
         # atomics, so the result does not depend on block order
         ld_part = torch.empty((s_steps, b, n_tiles), device=x.device)
         drop = _dropout_args(seed, rate)
-        stored = (_saved_buffers(b * t, c, ch, n, x.device, s_steps)
+        stored = (_saved_buffers(b * t, c, ch, n, x.device, s_steps, dtype)
                   if route == 'store' else {})
         err = lib.glow_flow_train_fwd_f32(
             acts.data_ptr(), mask.data_ptr(),
@@ -331,12 +391,14 @@ class _FlowStackTrain(torch.autograd.Function):
             torch.cuda.current_stream(x.device).cuda_stream)
         _raise_on(err, lib, 'flow_stack_train forward')
         count_launches(flow_stack_train, 'forward', c, pitch is not None,
-                       s_steps)
+                       s_steps, bf16)
         ctx.save_for_backward(acts, mask, cond, pitch, *stored.values(),
                               *weights)
         ctx.drop, ctx.route, ctx.passes = drop, route, passes
-        # the recompute launches read the split weights again
+        # the recompute launches read the split weights again; at bf16 the
+        # pitch term's backward reads w_pitch rounded, as the forward did
         ctx.kernel_weights = kernel_weights if route == 'recompute' else None
+        ctx.w_pitch = w_pitch if bf16 else None
         return acts[s_steps], ld_part.sum(dim=(0, 2))
 
     @staticmethod
@@ -354,11 +416,13 @@ class _FlowStackTrain(torch.autograd.Function):
         _, n, k, ch, ch2 = named['w_in'].shape
         m, c2 = b * t, c // 2
         device = acts.device
-        bwd = load_train_backward_library(pitch is not None, c)
+        dtype = acts.dtype
+        bf16 = dtype == torch.bfloat16
+        bwd = load_train_backward_library(pitch is not None, c, bf16)
         stream = torch.cuda.current_stream(device).cuda_stream
 
-        def empty(*shape):
-            return torch.empty(shape, device=device)
+        def empty(*shape, dtype=torch.float32):
+            return torch.empty(shape, device=device, dtype=dtype)
 
         def chunks(taps, kseg, width):
             return bwd.glow_flow_train_bwd_chunks(b, taps, kseg, width)
@@ -367,12 +431,14 @@ class _FlowStackTrain(torch.autograd.Function):
               else dz.float().contiguous())
         dld = empty(b).zero_() if dld is None else dld.float().contiguous()
         lengths = _valid_lengths(mask)
-        saved = None if stored else _saved_buffers(m, c, ch, n, device)
+        saved = (None if stored
+                 else _saved_buffers(m, c, ch, n, device, dtype=dtype))
         # dacc, the pre-gate gradient after the dropout, where cond and the
-        # pitch term were added
+        # pitch term were added; the gate (the res/skip weight gradient's
+        # operand) in the compute dtype, as the TPU kernel rounds it
         scratch = [empty(m, c), empty(m, ch2), empty(m, ch2),
                    None if cond is None and pitch is None else empty(m, ch2),
-                   empty(m, c), empty(m, 2 * c), empty(m, ch)]
+                   empty(m, c), empty(m, 2 * c), empty(m, ch, dtype=dtype)]
         # partials of the weight gradients (one per chunk of samples) and of
         # the column sums (one per sample), reused by every step
         partials = [empty(chunks(1, ch, c), ch, c),
@@ -394,16 +460,18 @@ class _FlowStackTrain(torch.autograd.Function):
         # the cotangent walks down the steps through two buffers of its own
         # (the incoming dz is not written to)
         dx_in, dx_bufs = dz, [torch.empty_like(dz), torch.empty_like(dz)]
+        w_pitch = (ctx.w_pitch if ctx.w_pitch is not None
+                   else named.get('w_pitch'))
         launched = ctypes.c_int(0)
         for s in range(s_steps - 1, -1, -1):
             if stored:
                 step_saved = [tensor[s] for tensor in stored]
             else:
                 _recompute(acts[s], mask, cond, ctx.kernel_weights, saved, s,
-                           ctx.drop, pitch, named.get('w_pitch'))
+                           ctx.drop, pitch, w_pitch)
                 step_saved = list(saved.values())
             if pitch is not None:
-                pitch_inputs = [pitch, named['w_pitch'][s]]
+                pitch_inputs = [pitch, w_pitch[s]]
                 pitch_outputs = [grads['w_pitch'][s], dpitch, pitch_part]
             inputs = [acts[s], *step_saved, mask, dld, dx_in,
                       named['an_logs'][s], named['mix_t'][s],
@@ -417,7 +485,7 @@ class _FlowStackTrain(torch.autograd.Function):
                 _pointers(inputs), _pointers(outputs), b, t, c, ch, n, k, s,
                 *ctx.drop, ctx.passes, stream, ctypes.byref(launched))
             count_launches(flow_stack_train, 'backward', c,
-                           pitch is not None, launched.value)
+                           pitch is not None, launched.value, bf16)
             _raise_on(err, bwd, 'flow_stack_train backward')
             dx_in = dx_bufs[s % 2]
         return (dx_in, None, dcond, dpitch, None, None, None, None, None,
@@ -434,7 +502,10 @@ def _check_cuda_inputs(x, mask, weights, cond, pitch) -> None:
     b, t, c = x.shape
     s_steps, n, k, ch, ch2 = weights['w_in'].shape
     check_shape('flow_stack_train', c, (n, k, ch, ch2), pitch is not None)
-    tensors = {'x': (x, (b, t, c)), 'mask': (mask, (b, t, 1)),
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f'flow_stack_train: x must be float32 or bfloat16, '
+                         f'got {x.dtype} (ROADMAP.md A.5)')
+    tensors = {'mask': (mask, (b, t, 1)),
                'ld_const': (weights['ld_const'], (s_steps,)),
                **{key: (weights[key], shape) for key, shape
                   in weight_shapes(s_steps, c, ch, n, k,
@@ -451,11 +522,14 @@ def _check_cuda_inputs(x, mask, weights, cond, pitch) -> None:
                 f'flow_stack_train: {name} must be a contiguous float32 '
                 f'tensor of shape {shape} on {x.device}; got '
                 f'{tuple(tensor.shape)} {tensor.dtype} on {tensor.device}')
+    if tuple(x.shape) != (b, t, c) or not x.is_contiguous():
+        raise ValueError(f'flow_stack_train: x must be contiguous; got '
+                         f'strides {x.stride()}')
 
 
 def _apply_kernels(x, mask, weights, cond, seed, dropout_rate,
                    route: Optional[str] = None,
-                   passes: int = TF32_PASSES,
+                   passes: Optional[int] = None,
                    forward_passes: int = TF32_PASSES,
                    tiles: Optional[torch.Tensor] = None,
                    pitch: Optional[torch.Tensor] = None):
@@ -466,7 +540,10 @@ def _apply_kernels(x, mask, weights, cond, seed, dropout_rate,
     ``'recompute'`` (and the number of TF32 passes of the backward's and,
     on the route ``'forward'``, the forward's products) through this
     function, and may have the forward's launches report their tiles into
-    ``tiles`` (``coupling.tile_report``)."""
+    ``tiles`` (``coupling.tile_report``).  ``passes`` defaults to
+    :data:`TF32_PASSES`, at bfloat16 to :data:`BF16_PASSES`."""
+    if passes is None:
+        passes = BF16_PASSES if x.dtype == torch.bfloat16 else TF32_PASSES
     stack = [weights[key] for key in weight_keys(pitch is not None)]
     if route is None:
         wanted = torch.is_grad_enabled() and any(
@@ -475,7 +552,8 @@ def _apply_kernels(x, mask, weights, cond, seed, dropout_rate,
         b, t, c = x.shape
         s_steps, n, _, ch, _ = weights['w_in'].shape
         route = ('forward' if not wanted else
-                 'store' if stores_activations(s_steps, b * t, c, ch, n)
+                 'store' if stores_activations(s_steps, b * t, c, ch, n,
+                                               x.dtype)
                  else 'recompute')
     if forward_passes != TF32_PASSES and route != 'forward':
         raise ValueError('flow_stack_train: one TF32 pass in the forward '
@@ -515,9 +593,10 @@ def flow_stack_train(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
 # library's kernels, as its entry counts them: a fixed sequence of
 # backward_launches_per_step(n) per flow step.  The pitch builds' and the
 # 80-channel builds' launches count apart, under the same names with
-# ``_pitch`` and ``_c80`` (``coupling.count_launches``).
+# ``_pitch`` and ``_c80``, and the bfloat16 builds' under ``_bf16``,
+# ``_bf16_pitch`` and ``_bf16_c80`` (``coupling.count_launches``).
 for _what in ('forward', 'recompute', 'backward'):
-    for _tag in ('', '_pitch', '_c80'):
+    for _tag in ('', '_pitch', '_c80', '_bf16', '_bf16_pitch', '_bf16_c80'):
         setattr(flow_stack_train, f'{_what}{_tag}_launches', 0)
 del _what, _tag
 
@@ -584,11 +663,12 @@ def _wgrad_product(p: torch.Tensor, g: torch.Tensor, mask: torch.Tensor,
 
 @functools.cache
 def load_train_forward_library(pitch: bool = False,
-                               channels: int = SHIPPED_CHANNELS
-                               ) -> ctypes.CDLL:
+                               channels: int = SHIPPED_CHANNELS,
+                               bf16: bool = False) -> ctypes.CDLL:
     """Build (at first use) and load the forward kernel's library for
-    ``channels`` flow channels, its pitch build with ``pitch``, typed."""
-    lib = load_flow_library('flow_train_fwd.cu', pitch, channels)
+    ``channels`` flow channels, its pitch build with ``pitch``, its
+    bfloat16 build with ``bf16``, typed."""
+    lib = load_flow_library('flow_train_fwd.cu', pitch, channels, bf16)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.glow_flow_train_fwd_f32.argtypes = (
         [vp] * (5 + len(WEIGHT_KEYS) + 3)
@@ -603,11 +683,12 @@ def load_train_forward_library(pitch: bool = False,
 
 @functools.cache
 def load_train_backward_library(pitch: bool = False,
-                                channels: int = SHIPPED_CHANNELS
-                                ) -> ctypes.CDLL:
+                                channels: int = SHIPPED_CHANNELS,
+                                bf16: bool = False) -> ctypes.CDLL:
     """Build (at first use) and load the backward kernels' library for
-    ``channels`` flow channels, its pitch build with ``pitch``, typed."""
-    lib = load_flow_library('flow_train_bwd.cu', pitch, channels)
+    ``channels`` flow channels, its pitch build with ``pitch``, its
+    bfloat16 build with ``bf16``, typed."""
+    lib = load_flow_library('flow_train_bwd.cu', pitch, channels, bf16)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.glow_flow_train_bwd_step_f32.argtypes = (
         [vp, vp] + [ci] * 8 + [ctypes.c_uint, ctypes.c_float, ci, ci, vp,

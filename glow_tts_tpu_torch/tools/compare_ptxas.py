@@ -8,10 +8,11 @@ side, each into its own ``glow_tts_tpu_torch/_build``.
 ``OTHER_CHECKOUT`` is a directory holding another tree's
 ``glow_tts_tpu_torch`` package (for example ``git archive`` of the
 commit before a change, unpacked).  For each flow source, the shipped
-build and its pitch build (``-DGLOW_PITCH``) are compared and reported
-SAME or DIFFERENT (with both sides' lines where they differ); this
-checkout's 80-channel builds (``-DGLOW_CHANNELS=80``) are printed.  Exits
-1 if a compared build differs or fails.  Needs ``nvcc``.
+build, its pitch build (``-DGLOW_PITCH``) and its 80-channel build
+(``-DGLOW_CHANNELS=80``) are compared and reported SAME or DIFFERENT (with
+both sides' lines where they differ); this checkout's bfloat16 builds
+(``-DGLOW_BF16``, of the sources that have one) are printed.  Exits 1 if a
+compared build differs or fails.  Needs ``nvcc``.
 """
 
 from __future__ import annotations
@@ -26,8 +27,12 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SOURCES = ('flow_step.cu', 'coupling.cu', 'flow_stack.cu',
            'flow_train_fwd.cu', 'flow_train_bwd.cu')
-COMPARED = ((), ('GLOW_PITCH',))
-OWN = (('GLOW_CHANNELS=80',),)
+COMPARED = ((), ('GLOW_PITCH',), ('GLOW_CHANNELS=80',))
+# this checkout's own builds: the bfloat16 ones, of the sources that have
+# them (the macros in ops/coupling.py::build_defines' order)
+BF16_SOURCES = ('flow_step.cu', 'flow_train_fwd.cu', 'flow_train_bwd.cu')
+OWN = (('GLOW_BF16',), ('GLOW_PITCH', 'GLOW_BF16'),
+       ('GLOW_CHANNELS=80', 'GLOW_BF16'))
 # run in a checkout's root, so that its own package is the one imported
 REPORT = ('import sys; from glow_tts_tpu_torch.ops import cuda_build as c; '
           'd = tuple(sys.argv[2:]); c.load_library(sys.argv[1], d); '
@@ -54,7 +59,7 @@ def main(argv=None) -> int:
     jobs = [(root, source, defines) for source in SOURCES
             for root, defines in [(r, d) for d in COMPARED
                                   for r in (other, HERE)]
-            + [(HERE, d) for d in OWN]]
+            + [(HERE, d) for d in OWN if source in BF16_SOURCES]]
     with ThreadPoolExecutor(len(jobs)) as pool:   # one nvcc each, together
         results = dict(zip(jobs, pool.map(lambda job: report(*job), jobs)))
     same = True
@@ -72,7 +77,7 @@ def main(argv=None) -> int:
                     print(f'  there {line}')
                 for line in ours:
                     print(f'  here  {line}')
-        for defines in OWN:
+        for defines in OWN if source in BF16_SOURCES else ():
             label = ' '.join([source, *(f'-D{d}' for d in defines)])
             for line in results[(HERE, source, defines)]:
                 print(f'  {label} {line}')

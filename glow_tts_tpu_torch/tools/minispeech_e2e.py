@@ -8,15 +8,19 @@
 
     python -m glow_tts_tpu_torch.tools.minispeech_e2e [--n 2000]
         [--steps 9000] [--root DIR] [--corpus DIR] [--out DIR]
-        [--eval-texts 4] [--device cuda]
+        [--eval-texts 20] [--device cuda]
 
 ``--steps`` defaults to the YAML's ``Max_Step``; ``--corpus`` skips the
 corpus's synthesis; ``--root`` (default: a new temporary directory) holds
 the corpus, the patterns and the run's checkpoints and logs.  It prints,
-and writes to ``<out>/summary.json``, one JSON object: the free-running
-length error against the corpus's deterministic phone durations, the
+and writes to ``<out>/summary.json``, one JSON object: the compute dtype
+it trained at (the YAML's, bfloat16 as shipped), the free-running length
+error against the corpus's deterministic phone durations and the
 phone-signature correlation of the synthesised mels (the keys of
-``examples/minispeech_e2e.py``), the real-time factors of the mel
+``examples/minispeech_e2e.py``) over every held-out text asked for (20 by
+default), and the same over the first 4 of them under
+``jax_protocol_4_texts`` (the JAX package's protocol), the real-time
+factors of the mel
 synthesis alone and with the Griffin-Lim export, the ETL's and the
 training's wall time, the eval trajectory (MLE, duration loss and
 attention diagonality every ``Evaluation_Interval``) and the card's name
@@ -37,7 +41,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import warnings
 from typing import Dict, List, Mapping
 
 import numpy as np
@@ -47,6 +50,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 MINISPEECH = os.path.join(REPO, 'configs', 'MiniSpeech.yaml')
 MAKE_CORPUS = os.path.join(REPO, 'examples', 'make_minispeech.py')
+
+# held-out texts the JAX package's protocol scores on
+JAX_PROTOCOL_TEXTS = 4
 
 # the corpus's phone table (examples/make_minispeech.py; a CPU test holds
 # this copy equal to it)
@@ -78,11 +84,10 @@ def make_corpus(out: str, n: int, seed: int) -> None:
 
 def minispeech_config(root: str, steps: int = 0):
     """``configs/MiniSpeech.yaml`` with its paths under ``root`` and
-    ``Max_Step`` = ``steps`` (0: the YAML's)."""
+    ``Max_Step`` = ``steps`` (0: the YAML's), at the YAML's compute
+    dtype."""
     from glow_tts_tpu_torch.config import load_config
-    with warnings.catch_warnings():
-        warnings.simplefilter('ignore')          # bf16 → f32 (A.5)
-        config = load_config(MINISPEECH)
+    config = load_config(MINISPEECH)
     patterns = os.path.join(root, 'patterns')
     train = config.train
     train = dataclasses.replace(
@@ -218,7 +223,9 @@ def main(argv=None) -> Dict:
                         help="train steps (default: the YAML's Max_Step)")
     parser.add_argument('--eval-ratio', type=float, default=0.01)
     parser.add_argument('--eval-min', type=int, default=8)
-    parser.add_argument('--eval-texts', type=int, default=4)
+    parser.add_argument('--eval-texts', type=int, default=20,
+                        help='held-out texts scored (the JAX protocol '
+                             'scores the first 4 of them)')
     parser.add_argument('--workers', type=int, default=10,
                         help="the ETL's threads")
     parser.add_argument('--device', default='cuda')
@@ -234,7 +241,8 @@ def main(argv=None) -> Dict:
     os.makedirs(out, exist_ok=True)
     config = minispeech_config(root, args.steps)
     summary: Dict = {'card': card_line() if device.type == 'cuda' else 'cpu',
-                     'device': str(device), 'steps': config.train.max_step}
+                     'device': str(device), 'steps': config.train.max_step,
+                     'compute_dtype': config.compute_dtype}
 
     start = time.perf_counter()
     corpus = args.corpus or os.path.join(root, 'corpus')
@@ -289,6 +297,7 @@ def main(argv=None) -> Dict:
     sound = config.sound
     audio_sec = (sum(r['mel'].shape[0] for r in results) * sound.frame_shift
                  / sound.sample_rate)
+    signatures = phone_signatures(config.train.eval_pattern.path)
     summary.update({
         'checkpoint_step': step,
         'n_utterances': len(results),
@@ -298,7 +307,9 @@ def main(argv=None) -> Dict:
         'audio_seconds': audio_sec,
         'rtf_mel': mel_wall / audio_sec,
         'rtf_total_with_vocoder_export': full_wall / audio_sec,
-        **score(results, phone_signatures(config.train.eval_pattern.path)),
+        **score(results, signatures),
+        'jax_protocol_4_texts': score(results[:JAX_PROTOCOL_TEXTS],
+                                      signatures),
         'wav_samples': [int(r['audio'].shape[0]) for r in results],
         'mel_frames': [int(r['mel'].shape[0]) for r in results],
         'expected_frames': [expected_frames(r['text']) for r in results]})

@@ -5,7 +5,11 @@ the loss dict (GR mode adds the speaker classifier's term), the train step
 update), its alignment-curriculum variants (the 'linear', 'anchored' and
 'em' warmup paths and the decoder freeze, one step function each, which the
 trainer picks per step), the eval step and the alignment-health metric the
-evaluation reports beside the losses.
+evaluation reports beside the losses.  The steps compute at the model's
+dtype (:func:`build_model`: ``config.compute_dtype``); the losses are
+float32 and, the parameters being float32, so are the gradients, so the
+optimiser, its clipping and its schedule are those of a float32 run and
+no gradient scaler is needed.
 """
 
 from __future__ import annotations
@@ -27,7 +31,11 @@ Batch = Mapping[str, torch.Tensor]
 
 
 def build_model(config) -> GlowTTS:
-    return GlowTTS(config)
+    """The model at ``config.compute_dtype``, as the JAX package builds
+    it (``glow_tts_tpu/training/step.py::build_model``): its train step,
+    eval step and ActNorm initialisation compute at that dtype, on float32
+    parameters."""
+    return GlowTTS(config, config.compute_dtype)
 
 
 def init_em_stats(config, device: Union[str, torch.device] = 'cpu'

@@ -19,9 +19,13 @@ step reached.  The alignment curriculum (``Train.Alignment_Warmup_Steps``
 with its mode, ``Train.Decoder_Freeze_Steps``) builds one step function per
 variant it needs and picks one per step, as the JAX trainer does; the 'em'
 warmup's table statistics are the trainer's (``self.em``) and ride in the
-checkpoints.  The JAX trainer's prosody check (an embedding projector of
-GST vectors) is not ported: it is a writer of images and embeddings
-(``ROADMAP.md`` A.8).
+checkpoints.  The model trains, evaluates and is initialised at
+``config.compute_dtype``; the evaluation's free-running decode and the
+inference at the intervals serve at ``inference_dtype or compute_dtype``
+from the same parameters, as the JAX trainer does; checkpoints hold the
+float32 parameters whatever the dtype.  The JAX trainer's prosody check
+(an embedding projector of GST vectors) is not ported: it is a writer of
+images and embeddings (``ROADMAP.md`` A.8).
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from glow_tts_tpu_torch.data.collate import TrainCollater
 from glow_tts_tpu_torch.data.loader import DataLoader
 from glow_tts_tpu_torch.data.patterns import InferenceDataset, PatternDataset
 from glow_tts_tpu_torch.inference import Inferencer
-from glow_tts_tpu_torch.models.glow_tts import GlowTTS, initial_state_dict
+from glow_tts_tpu_torch.models.glow_tts import initial_state_dict
 from glow_tts_tpu_torch.text import Tokenizer, load_token_dict
 from glow_tts_tpu_torch.training.checkpoint import (CheckpointManager,
                                                     restored_em_stats,
@@ -47,7 +51,7 @@ from glow_tts_tpu_torch.training.optim import (learning_rate_at,
                                                make_optimizer)
 from glow_tts_tpu_torch.training.step import (EMState,
                                               attention_diagonality,
-                                              batch_to_device,
+                                              batch_to_device, build_model,
                                               conditioning_inputs,
                                               init_em_stats, make_eval_step,
                                               make_train_step)
@@ -117,7 +121,9 @@ class Trainer:
         cfg = self.config
         self.checkpoints = CheckpointManager(cfg.checkpoint_path, cfg)
         payload = self.checkpoints.restore(initial_step)
-        model = load_state_dict(GlowTTS(cfg), initial_state_dict(cfg, RUN_SEED))
+        # trains, evaluates and initialises at config.compute_dtype
+        model = load_state_dict(build_model(cfg),
+                                initial_state_dict(cfg, RUN_SEED))
         ge2e_path = cfg.speaker_embedding.ge2e.checkpoint_path
         if payload is None and cfg.uses_ge2e and ge2e_path:
             # a new run's pre-trained speaker encoder (a restored run has it
@@ -316,17 +322,22 @@ class Trainer:
         self.writers['eval'].add_scalars(means, self.step)
 
         # the conditioned modes serve from the batch's own references: its
-        # speakers and GE2E slices, its mels for the GST, its pitch tracks
+        # speakers and GE2E slices, its mels for the GST, its pitch tracks;
+        # at the serving dtype (inference_dtype or compute_dtype), on the
+        # same parameters
         generator = torch.Generator(self.device).manual_seed(self.step)
-        prior = self.model.inference_prior(
-            last['tokens'], last['token_lengths'],
-            mels_for_prosody=last['mels'],
-            mel_lengths_for_prosody=last['mel_lengths'],
-            speakers=last.get('speakers'),
-            mels_for_ge2e=last.get('mels_for_ge2e'))
-        self.free_running = self.model.inference_decode(
-            prior, generator=generator, max_mel_length=self.max_mel_length,
-            pitches=last.get('pitches'), pitch_lengths=last['mel_lengths'])
+        with self.model.computing_at(self.config.serve_dtype) as model:
+            prior = model.inference_prior(
+                last['tokens'], last['token_lengths'],
+                mels_for_prosody=last['mels'],
+                mel_lengths_for_prosody=last['mel_lengths'],
+                speakers=last.get('speakers'),
+                mels_for_ge2e=last.get('mels_for_ge2e'))
+            self.free_running = model.inference_decode(
+                prior, generator=generator,
+                max_mel_length=self.max_mel_length,
+                pitches=last.get('pitches'),
+                pitch_lengths=last['mel_lengths'])
         return means
 
     def run_inference_file(self, pattern_file: str) -> List[Dict]:

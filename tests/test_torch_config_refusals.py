@@ -6,12 +6,14 @@ run computes (``glow_tts_tpu_torch/config.py``):
   as the JAX package loads it, field for field, in either key case
   (``configs/MiniSpeech.yaml`` among them), and an unknown warmup mode
   raises ``ValueError`` as there;
-* a compute dtype other than float32 (``TPU.compute_dtype``, or the
-  reference's ``Use_Mixed_Precision``) and more than one device
+* the compute dtype (``TPU.compute_dtype``, or the reference's
+  ``Use_Mixed_Precision`` where the ``TPU`` section names none) loads as the
+  JAX package reads it, with no warning, at float32 and bfloat16, and any
+  other raises naming ``ROADMAP.md`` A.5; more than one device
   (``data_parallel`` or ``model_parallel`` above 1; 0 means all devices)
-  warn once per process, and the config is the one loaded without them;
-* ``configs/Hyper_Parameters.yaml`` loads unchanged apart from a single
-  dtype warning, field by field against the JAX package's config.
+  warns once per process, and the config is the one loaded without it;
+* ``configs/Hyper_Parameters.yaml`` loads at bfloat16 with no warning,
+  field by field against the JAX package's config.
 """
 
 import copy
@@ -57,14 +59,16 @@ def _fields(port_obj, jax_obj, path=''):
             continue
         value = getattr(port_obj, f.name)
         ref = (getattr(jax_obj.tpu, f.name)
-               if f.name in ('token_bucket', 'mel_bucket')
-               else getattr(jax_obj, f.name))
+               if f.name in TPU_FIELDS else getattr(jax_obj, f.name))
         if dataclasses.is_dataclass(value):
             yield from _fields(value, ref, f'{path}{f.name}.')
         else:
             yield f'{path}{f.name}', value, ref
 
 
+# the port's fields that the JAX config keeps under ``tpu``
+TPU_FIELDS = ('token_bucket', 'mel_bucket', 'compute_dtype', 'param_dtype',
+              'inference_dtype')
 CURRICULUM_FIELDS = ('alignment_warmup_steps', 'alignment_warmup_mode',
                      'em_stats_decay', 'em_distill_weight',
                      'anchor_pause_tokens', 'anchor_silence_level',
@@ -73,14 +77,17 @@ CURRICULUM_FIELDS = ('alignment_warmup_steps', 'alignment_warmup_mode',
 
 def test_minispeech_loads_field_for_field_like_jax(fresh):
     """The repo's converged recipe: the EM warmup and the decoder freeze,
-    5000 steps each, the space token as the pause; one dtype warning."""
+    5000 steps each, the space token as the pause, at bfloat16; no
+    warning."""
     path = os.path.join(REPO, 'configs', 'MiniSpeech.yaml')
     config, messages = _load(path)
-    assert len(messages) == 1 and 'compute_dtype' in messages[0]
+    assert messages == []
+    assert config.compute_dtype == 'bfloat16'
     ref = jax_load_config(path)
     fields = list(_fields(config, ref))
     names = [name for name, _, _ in fields]
     assert all(f'train.{key}' in names for key in CURRICULUM_FIELDS)
+    assert 'compute_dtype' in names
     for name, value, expected in fields:
         assert value == expected, name
     train = config.train
@@ -127,43 +134,63 @@ def test_typod_warmup_mode_raises_like_jax(fresh, mode):
 
 
 def test_shipped_yaml_loads_unchanged_with_one_dtype_warning(fresh):
+    """``configs/Hyper_Parameters.yaml`` loads as shipped, at bfloat16, with
+    no warning (the dtype warning is gone: the port computes at it); at
+    float32 it loads to the same config but for the dtype."""
     path = os.path.join(REPO, 'configs', 'Hyper_Parameters.yaml')
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter('always')
         config = load_config(path)
-    messages = [str(w.message) for w in caught]
-    assert len(messages) == 1 and 'compute_dtype' in messages[0]
-    assert 'A.5' in messages[0]
+    assert [str(w.message) for w in caught] == []
+    assert (config.compute_dtype, config.param_dtype,
+            config.inference_dtype, config.serve_dtype) == (
+        'bfloat16', 'float32', 'float32', 'float32')
     data = _yaml('Hyper_Parameters.yaml')
     data['TPU']['compute_dtype'] = 'float32'
-    assert load_config(data) == config
+    assert load_config(data) == dataclasses.replace(config,
+                                                    compute_dtype='float32')
     ref = jax_load_config(path)
     assert (config.mode, config.decoder.stack, config.encoder.channels,
-            config.train.batch_size) == (ref.mode, ref.decoder.stack,
-                                         ref.encoder.channels,
-                                         ref.train.batch_size)
-    # once per process: loading again warns no more
+            config.train.batch_size, config.compute_dtype) == (
+        ref.mode, ref.decoder.stack, ref.encoder.channels,
+        ref.train.batch_size, ref.tpu.compute_dtype)
     assert _load(path)[1] == []
 
 
-@pytest.mark.parametrize('tpu,extra,warns', [
-    ({'compute_dtype': 'bfloat16'}, {}, 'compute_dtype'),
-    ({'compute_dtype': 'float16'}, {}, 'compute_dtype'),
-    ({'compute_dtype': 'float32'}, {}, None),
-    ({}, {'Use_Mixed_Precision': True}, 'compute_dtype'),
-    ({}, {'Use_Mixed_Precision': False}, None),
-    ({'compute_dtype': 'float32'}, {'Use_Mixed_Precision': True}, None),
+@pytest.mark.parametrize('tpu,extra,expect', [
+    # the compute dtype loads as the JAX package reads it, with no warning
+    ({'compute_dtype': 'bfloat16'}, {}, 'bfloat16'),
+    ({'compute_dtype': 'float16'}, {}, ValueError),
+    ({'compute_dtype': 'float32'}, {}, 'float32'),
+    ({}, {'Use_Mixed_Precision': True}, 'bfloat16'),
+    ({}, {'Use_Mixed_Precision': False}, 'float32'),
+    ({'compute_dtype': 'float32'}, {'Use_Mixed_Precision': True}, 'float32'),
+    # more than one device warns, and loads as without
     ({'data_parallel': 0, 'model_parallel': 1}, {}, None),
     ({'data_parallel': 1}, {}, None),
     ({'data_parallel': 2}, {}, 'A.7'),
     ({'model_parallel': 4}, {}, 'A.7'),
 ])
 def test_dtype_and_devices_warn_and_load_as_without(fresh, tpu, extra,
-                                                    warns):
+                                                    expect):
     data = {'Mode': 'GR', 'TPU': dict(tpu), **extra}
+    if expect is ValueError:
+        # the port computes at float32 and bfloat16 alone, as the JAX
+        # package's kernels do
+        with pytest.raises(ValueError, match='A.5'):
+            load_config(copy.deepcopy(data))
+        return
     config, messages = _load(copy.deepcopy(data))
-    assert len(messages) == (0 if warns is None else 1), messages
-    if warns:
-        assert warns in messages[0]
-    assert config == load_config({'Mode': 'GR'})
+    ref = jax_load_config(copy.deepcopy(data))
+    assert config.compute_dtype == ref.tpu.compute_dtype
+    if expect in ('bfloat16', 'float32'):
+        assert messages == []
+        assert config.compute_dtype == expect
+        assert config == dataclasses.replace(load_config({'Mode': 'GR'}),
+                                             compute_dtype=expect)
+    else:
+        assert len(messages) == (0 if expect is None else 1), messages
+        if expect:
+            assert expect in messages[0]
+        assert config == load_config({'Mode': 'GR'})
     assert dataclasses.asdict(config)['mode'] == 'GR'

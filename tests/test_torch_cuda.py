@@ -48,7 +48,15 @@ the chain), their launches counted apart, the backward's activation-
 gradient product over a depth of 80 (not a multiple of its 32-deep
 slice), the routes bit-equal, the pitch operand refused at 80 channels,
 and one EM + freeze train step at MiniSpeech's config against the plain
-versions.
+versions.  The bfloat16 builds (``GLOW_BF16``) of the flow step and the
+train pair at 160 and 80 channels, with the conditioning rows and the pitch
+operand: each against its bfloat16 plain version with the f32 plain version
+as the reference (max|kernel − plain_bf16| ≤ 2·max|plain_bf16 − plain_f32|
++ 1e-6 on values; gradients within 3e-2 norm-relative of the f32 ones and
+at most twice the bf16 plain version's distance from them, plus 1e-4),
+counted apart, the stored and recomputed routes bit-equal, the backward
+with its second f32 accumulator inside the same bar, the routes without
+a bfloat16 build refusing it.
 Needs a GPU and nvcc; skipped without.
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -1512,3 +1520,211 @@ def test_c80_em_freeze_train_step_matches_the_plain_versions(device):
         assert abs(got[key] - value) <= bar * abs(value), (key, got, ref)
     for a, r in zip(got_stats, ref_stats):
         assert _rel(a, r) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 builds (GLOW_BF16) of #3, #5 and #6
+# ---------------------------------------------------------------------------
+
+def _bf16_err(kernel, plain16, plain32):
+    """(max|kernel − plain_bf16|, the bar 2·max|plain_bf16 − plain_f32| +
+    1e-6): the bf16 tolerance of tests/torch_port_helpers.py, with the
+    plain versions as the reference."""
+    kernel, plain16, plain32 = (v.float() for v in (kernel, plain16,
+                                                    plain32))
+    return ((kernel - plain16).abs().max().item(),
+            2 * (plain16 - plain32).abs().max().item() + 1e-6)
+
+
+def _norm_rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(
+        1e-30)).item()
+
+
+def _bf16_counts():
+    return (tc.flow_step.bf16_launches, tc.flow_step.bf16_pitch_launches,
+            tc.flow_step.bf16_c80_launches)
+
+
+@pytest.mark.parametrize('c', [160, 80])
+@pytest.mark.parametrize('length', [1, 33, 70])
+@pytest.mark.parametrize('reverse', [False, True])
+def test_bf16_flow_step_matches_plain(device, c, length, reverse):
+    gen = torch.Generator().manual_seed(length + c)
+    w, cond = _weights(gen, device, c=c)
+    lengths = torch.tensor([length, 1, max(length // 2, 1), length])
+    mask = (torch.arange(length)[None, :] < lengths[:, None]).float()[..., None]
+    x = (torch.randn((4, length, c), generator=gen) * mask).to(device)
+    x16, mask = x.to(torch.bfloat16), mask.to(device)
+    w16 = tc.with_tensor_core_weights(w, torch.bfloat16)
+    assert w16['w_in_tc'].dtype == torch.bfloat16
+    before = _bf16_counts()
+    z, ld = tc.flow_step(x16, mask, w16, cond, reverse)
+    torch.cuda.synchronize()
+    after = _bf16_counts()
+    assert sum(after) - sum(before) == 1
+    assert (after[2] > before[2]) == (c == 80)
+    assert z.dtype == torch.bfloat16
+    z16, ld16 = tc.flow_step_reference(x16, mask, w, cond, reverse)
+    z32, ld32 = tc.flow_step_reference(x16.float(), mask, w, cond, reverse)
+    err, bar = _bf16_err(z, z16, z32)
+    assert err <= bar, (err, bar)
+    assert (z[mask.expand_as(z) == 0] == 0).all()
+    if not reverse:
+        err, bar = _bf16_err(ld, ld16, ld32)
+        assert err <= bar, (err, bar)
+
+
+@pytest.mark.parametrize('length', [33, 70])
+@pytest.mark.parametrize('reverse', [False, True])
+def test_bf16_flow_step_with_pitch_matches_plain(device, length, reverse):
+    gen = torch.Generator().manual_seed(length)
+    w, cond = _weights(gen, device)
+    mask = torch.ones((4, length, 1), device=device)
+    x = torch.randn((4, length, 160), generator=gen).to(device)
+    w, pitch = _with_pitch(gen, w, 4, length, device)
+    x16 = x.to(torch.bfloat16)
+    before = tc.flow_step.bf16_pitch_launches
+    z, _ = tc.flow_step(x16, mask, tc.with_tensor_core_weights(
+        w, torch.bfloat16), cond, reverse, pitch=pitch)
+    torch.cuda.synchronize()
+    assert tc.flow_step.bf16_pitch_launches == before + 1
+    z16, _ = tc.flow_step_reference(x16, mask, w, cond, reverse, pitch)
+    z32, _ = tc.flow_step_reference(x16.float(), mask, w, cond, reverse,
+                                    pitch)
+    err, bar = _bf16_err(z, z16, z32)
+    assert err <= bar, (err, bar)
+
+
+def _train_bf16(device, lengths, rate, with_cond=False, with_pitch=False,
+                c=160, route=None, passes=None, seed=5):
+    """The train stack's bf16 kernels, its bf16 plain version and its f32
+    plain version on the same leaves (x rounded to bf16 for all three):
+    three dicts of values and gradients."""
+    gen = torch.Generator().manual_seed(sum(lengths) + c)
+    b, t = len(lengths), max(lengths)
+    weights = _stack_weights(gen, device, c=c)
+    mask = (torch.arange(t)[None, :] < torch.tensor(lengths)[:, None]
+            ).float()[..., None].to(device)
+    x = (torch.randn((b, t, c), generator=gen).to(device) * mask).to(
+        torch.bfloat16)
+    zt = torch.randn((b, t, c), generator=gen).to(device)
+    wl = torch.arange(1., b + 1.).to(device)
+    cond = ((torch.randn((2, 4, b, 384), generator=gen) * .2).to(device)
+            if with_cond else None)
+    pitch = None
+    if with_pitch:
+        weights['w_pitch'] = (torch.randn((2, 4, tc.PITCH_SIZE, 384),
+                                          generator=gen) * .5).to(device)
+        pitch = torch.rand((b, t, tc.PITCH_SIZE), generator=gen).to(device)
+
+    def kernels(xl, mask_, leaves, cl, pl, seed, dropout_rate):
+        return tg._apply_kernels(xl, mask_, leaves, cl, seed, dropout_rate,
+                                 route, passes=passes, pitch=pl)
+
+    results = []
+    for fn, dtype in ((kernels, torch.bfloat16),
+                      (tg.flow_stack_train_reference, torch.bfloat16),
+                      (tg.flow_stack_train_reference, torch.float32)):
+        leaves = {key: v.clone().requires_grad_()
+                  for key, v in weights.items()}
+        xl = x.to(dtype).detach().clone().requires_grad_()
+        cl = None if cond is None else cond.clone().requires_grad_()
+        pl = None if pitch is None else pitch.clone().requires_grad_()
+        z, ld = fn(xl, mask, leaves, cl, pl, seed=seed, dropout_rate=rate)
+        (torch.sum(z.float() * zt) + 0.7 * torch.sum(ld * wl)).backward()
+        torch.cuda.synchronize()
+        out = {'z': z.detach().float(), 'ld': ld.detach(),
+               'dx': xl.grad.float(),
+               **{f'd{key}': leaf.grad for key, leaf in leaves.items()}}
+        if cl is not None:
+            out['dcond'] = cl.grad
+        if pl is not None:
+            out['dpitch'] = pl.grad
+        results.append(out)
+    return results
+
+
+def _assert_bf16_train_agrees(kernel, plain16, plain32):
+    """z and the logdet to the bf16 bar; every gradient within 3e-2
+    (norm-relative) of the f32 plain version and no further from the bf16
+    plain version than twice that one's distance from the f32 one, plus
+    1e-4."""
+    assert set(kernel) == set(plain16) == set(plain32)
+    for key in ('z', 'ld'):
+        err, bar = _bf16_err(kernel[key], plain16[key], plain32[key])
+        assert err <= bar, (key, err, bar)
+    for key in kernel:
+        if key in ('z', 'ld') or plain32[key].norm() == 0:
+            continue
+        assert torch.isfinite(kernel[key]).all(), key
+        to_f32 = _norm_rel(kernel[key], plain32[key])
+        own = _norm_rel(plain16[key], plain32[key])
+        to_bf16 = _norm_rel(kernel[key], plain16[key])
+        assert to_f32 < 3e-2, (key, to_f32)
+        assert to_bf16 <= 2 * own + 1e-4, (key, to_bf16, own)
+
+
+@pytest.mark.parametrize('rate', [0.0, 0.05])
+@pytest.mark.parametrize('lengths', [[1], [33, 1, 16, 33], [200, 1, 130]])
+def test_bf16_train_kernels_match_plain(device, lengths, rate):
+    before = tg.flow_stack_train.backward_bf16_launches
+    kernel, plain16, plain32 = _train_bf16(device, lengths, rate)
+    assert tg.flow_stack_train.backward_bf16_launches == before + 2 * 22
+    assert kernel['z'].dtype == torch.float32
+    _assert_bf16_train_agrees(kernel, plain16, plain32)
+
+
+@pytest.mark.parametrize('conditioning', ['cond', 'pitch'])
+def test_bf16_train_kernels_with_conditioning(device, conditioning):
+    before = tg.flow_stack_train.forward_bf16_pitch_launches
+    results = _train_bf16(device, [70, 35, 1, 70], 0.05,
+                          with_cond=conditioning == 'cond',
+                          with_pitch=conditioning == 'pitch')
+    assert (tg.flow_stack_train.forward_bf16_pitch_launches > before) == (
+        conditioning == 'pitch')
+    _assert_bf16_train_agrees(*results)
+
+
+@pytest.mark.parametrize('lengths', [[70, 35, 1, 70], [512, 33, 1]])
+def test_bf16_c80_train_kernels_match_plain(device, lengths):
+    before = tg.flow_stack_train.forward_bf16_c80_launches
+    results = _train_bf16(device, lengths, 0.05, c=80)
+    assert tg.flow_stack_train.forward_bf16_c80_launches == before + 2
+    _assert_bf16_train_agrees(*results)
+
+
+def test_bf16_train_routes_are_bit_equal_and_the_flush_is_measured(device):
+    """The stored and the recomputed route give the same bits at bf16; the
+    backward's GEMMs with the second f32 accumulator (passes 3, kept for
+    measuring) stay inside the bf16 bar too (chip_smoke.py times both)."""
+    store = _train_bf16(device, [200, 1, 130], 0.05, with_cond=True,
+                        route='store')
+    recompute = _train_bf16(device, [200, 1, 130], 0.05, with_cond=True,
+                            route='recompute')
+    for key in store[0]:
+        assert torch.equal(store[0][key], recompute[0][key]), key
+    flush = _train_bf16(device, [200, 1, 130], 0.05, with_cond=True,
+                        route='store', passes=3)
+    _assert_bf16_train_agrees(*flush)
+
+
+def test_bf16_builds_report_their_width_and_refuse_other_routes(device):
+    for channels in (160, 80):
+        for load in (tc.load_flow_step_library,
+                     tg.load_train_forward_library,
+                     tg.load_train_backward_library):
+            assert load(channels=channels, bf16=True).glow_flow_channels() \
+                == channels
+    gen = torch.Generator().manual_seed(0)
+    w, cond = _weights(gen, device)
+    x = torch.zeros((4, 8, 160), device=device, dtype=torch.bfloat16)
+    mask = torch.ones((4, 8, 1), device=device)
+    with pytest.raises(ValueError, match='B.3'):
+        tc.coupling(x[..., :80], x[..., 80:], mask, w, cond)
+    with pytest.raises(ValueError, match='bfloat16|B.3'):
+        tc.flow_stack(x, mask, {key: v[None] for key, v in w.items()},
+                      cond[None])
+    # the f32 layout is refused by the bf16 build
+    with pytest.raises(ValueError, match='w_in_tc'):
+        tc.flow_step(x, mask, w, cond)

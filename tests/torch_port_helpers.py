@@ -93,3 +93,86 @@ def with_dropout(cfg, rate):
     coupling = rep(dec.affine_coupling, wavenet=rep(
         dec.affine_coupling.wavenet, dropout_rate=rate))
     return rep(cfg, encoder=enc, decoder=rep(dec, affine_coupling=coupling))
+
+
+def at_dtype(cfg, dtype):
+    """``cfg`` (the JAX config) computing at ``dtype``
+    (``TPU.compute_dtype``)."""
+    return dataclasses.replace(
+        cfg, tpu=dataclasses.replace(cfg.tpu, compute_dtype=dtype))
+
+
+# The bf16 tolerance of the port's tests, stated once: the port at bf16 is
+# no further from the JAX package at bf16 than the JAX package at bf16 is
+# from its own f32 result, all three from the same f32 parameters and
+# inputs:  max|port_bf16 − jax_bf16| ≤ 2·max|jax_bf16 − jax_f32| + 1e-6.
+# Gradients leaf by leaf: norm-relative error against jax_f32 under 3e-2
+# (the JAX package's own bf16 bar, tests/test_coupling_train.py), and
+# against jax_bf16 at most twice jax_bf16's against jax_f32, plus 1e-4.
+BF16_FACTOR, BF16_ATOL = 2.0, 1e-6
+GRAD_F32_BAR, GRAD_FACTOR, GRAD_ATOL = 3e-2, 2.0, 1e-4
+
+
+def _f64(value):
+    if isinstance(value, torch.Tensor):
+        value = value.detach().float().numpy()
+    return np.asarray(value, np.float64)
+
+
+def bf16_error(port, j16, j32):
+    """``(max|port − jax_bf16|, the bar 2·max|jax_bf16 − jax_f32| +
+    1e-6)``."""
+    port, j16, j32 = _f64(port), _f64(j16), _f64(j32)
+    assert port.shape == j16.shape == j32.shape, (port.shape, j16.shape)
+    return (float(np.abs(port - j16).max()),
+            BF16_FACTOR * float(np.abs(j16 - j32).max()) + BF16_ATOL)
+
+
+def assert_bf16_close(port, j16, j32, name=''):
+    """The bf16 tolerance above, on one result."""
+    err, bar = bf16_error(port, j16, j32)
+    assert err <= bar, f'{name}: max|port - jax_bf16| {err:.3e} > {bar:.3e}'
+    return err, bar
+
+
+def norm_rel(a, b):
+    """‖a − b‖ / ‖b‖."""
+    a, b = _f64(a), _f64(b)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def assert_bf16_grads(port, j16, j32, zero_floor=1e-5, beyond_own=False):
+    """The gradient half of the bf16 tolerance, leaf by leaf over dicts of
+    the same keys.  A leaf whose f32 gradient is zero up to f32 rounding
+    (below ``zero_floor`` of the largest leaf's norm: the attention's key
+    bias, to which the softmax is blind) has no relative error to speak
+    of; there both bf16 results are rounding noise of the same size, held
+    to ‖port − jax_f32‖ ≤ 2·‖jax_bf16 − jax_f32‖ + 1e-4 · that
+    floor.
+    With ``beyond_own`` the bar against jax_f32 is 3e-2 beyond jax_bf16's
+    own distance from it: for the whole model's gradients at tiny size,
+    where the JAX package's bf16 step is itself up to 0.3 from its f32 one
+    on the encoder's leaves (the prior's gradient at bf16), and 3e-2 is its
+    bar for the flow stack.  Returns the largest norm-relative error
+    against jax_f32 among the other leaves."""
+    assert set(port) == set(j16) == set(j32)
+    floor = zero_floor * max(np.linalg.norm(_f64(v)) for v in j32.values())
+    worst = 0.0
+    for key in j32:
+        ref = _f64(j32[key])
+        if np.linalg.norm(ref) < floor:
+            got = np.linalg.norm(_f64(port[key]) - ref)
+            own = np.linalg.norm(_f64(j16[key]) - ref)
+            assert got <= GRAD_FACTOR * own + GRAD_ATOL * floor, (key, got,
+                                                                  own)
+            continue
+        to_f32 = norm_rel(port[key], ref)
+        to_bf16 = norm_rel(port[key], j16[key])
+        own = norm_rel(j16[key], ref)
+        bar = GRAD_F32_BAR + (own if beyond_own else 0.0)
+        assert to_f32 < bar, f'{key}: norm-rel to f32 {to_f32:.3e} > {bar:.3e}'
+        assert to_bf16 <= GRAD_FACTOR * own + GRAD_ATOL, (
+            f'{key}: norm-rel to jax bf16 {to_bf16:.3e}, jax bf16 to f32 '
+            f'{own:.3e}')
+        worst = max(worst, to_f32)
+    return worst
