@@ -68,8 +68,7 @@ the f32 plain version the reference (max|kernel - plain_bf16| <= 2
 max|plain_bf16 - plain_f32| + 1e-6; gradients within 3e-2 norm-relative
 of the f32 plain version's, and at most twice the bf16 plain version's
 distance from them, plus 1e-4), #5's dropout masks counted element by
-element, the routes bit-equal, #6 with and without its second f32
-accumulator; the ActNorm init, 4 train steps and 2 eval steps under
+element, the routes bit-equal; the ActNorm init, 4 train steps and 2 eval steps under
 'fused' at bf16 beside the same through the plain versions at bf16 and at
 f32; the bf16 builds timed beside the f32 builds on the same inputs, with
 their bounds at the bf16 peak; the train step at bf16 and at f32 on the
@@ -1234,9 +1233,8 @@ def check_train_forward(x, mask, weights):
 def forced_route(route, passes=None):
     """``flow_stack_train``'s kernels with the forward pass's route
     (``'store'`` or ``'recompute'``) and, unless None (the wrapper's
-    default for the dtype), the backward GEMMs' TF32 passes (in a bf16
-    build, 3 adds the second f32 accumulator) forced, through the wrapper's
-    private entry."""
+    default for the dtype), the backward GEMMs' TF32 passes forced,
+    through the wrapper's private entry."""
     from glow_tts_tpu_torch.ops import coupling_grad
 
     def fn(x, mask, weights, cond=None, pitch=None, *, seed, dropout_rate):
@@ -3747,11 +3745,10 @@ def check_bf16_train(x, mask, weights, label, cond=None, pitch=None):
     plain version the reference: z and the logdet at rate 0.05 and 0, the
     dropout masks element by element (the probe of check_train_forward,
     through the bf16 recompute), and every gradient of a loss through z and
-    the logdet without the backward's second f32 accumulator (shipped) and
-    with it; the stored and recomputed routes bit-equal.  ``x`` is the
+    the logdet; the stored and recomputed routes bit-equal.  ``x`` is the
     f32 stack input, rounded to bf16 for all.  Returns (the forward's worst
     max-abs error, the gradients' worst norm-relative error against the
-    f32 plain version, that with the second accumulator)."""
+    f32 plain version)."""
     from glow_tts_tpu_torch.ops import coupling_grad, dropmask
     from glow_tts_tpu_torch.ops.coupling_grad import (
         flow_stack_train, flow_stack_train_reference)
@@ -3828,34 +3825,25 @@ def check_bf16_train(x, mask, weights, label, cond=None, pitch=None):
 
     p16 = gradients(flow_stack_train_reference, BF16)
     p32 = gradients(flow_stack_train_reference, torch.float32)
-    worst = {}
-    for name, fn in (('store', forced_route('store')),
-                     ('recompute', forced_route('recompute')),
-                     ('second f32 accumulator', forced_route('store', 3))):
-        got = gradients(fn, BF16)
-        if name == 'store':
-            stored = got
-        elif name == 'recompute':
-            equal = all(torch.equal(got[key], stored[key]) for key in got)
-            assert equal, 'stored and recomputed routes differ at bf16'
+    got = gradients(forced_route('store'), BF16)
+    recomputed = gradients(forced_route('recompute'), BF16)
+    assert all(torch.equal(recomputed[key], got[key]) for key in got), \
+        'stored and recomputed routes differ at bf16'
+    to_f32 = to_bf16 = 0.0
+    for key in got:
+        if p32[key].norm() == 0:
             continue
-        to_f32 = to_bf16 = 0.0
-        for key in got:
-            if p32[key].norm() == 0:
-                continue
-            a, own = norm_rel(got[key], p32[key]), norm_rel(p16[key],
-                                                            p32[key])
-            rel16 = norm_rel(got[key], p16[key])
-            assert a < BF16_GRAD_F32_BAR, (name, key, a)
-            assert rel16 <= BF16_GRAD_FACTOR * own + BF16_GRAD_ATOL, (
-                name, key, rel16, own)
-            to_f32, to_bf16 = max(to_f32, a), max(to_bf16, rel16)
-        worst[name] = to_f32
-        print(f'#6 bf16 {label}, {name}: worst gradient norm-rel err '
-              f'{to_f32:.3e} against the f32 plain version (bar '
-              f'{BF16_GRAD_F32_BAR:.0e}), {to_bf16:.3e} against the bf16 '
-              f'plain version; stored and recomputed routes bit-equal')
-    return fwd_worst, worst['store'], worst['second f32 accumulator']
+        a, own = norm_rel(got[key], p32[key]), norm_rel(p16[key], p32[key])
+        rel16 = norm_rel(got[key], p16[key])
+        assert a < BF16_GRAD_F32_BAR, (key, a)
+        assert rel16 <= BF16_GRAD_FACTOR * own + BF16_GRAD_ATOL, (
+            key, rel16, own)
+        to_f32, to_bf16 = max(to_f32, a), max(to_bf16, rel16)
+    print(f'#6 bf16 {label}: worst gradient norm-rel err {to_f32:.3e} '
+          f'against the f32 plain version (bar {BF16_GRAD_F32_BAR:.0e}), '
+          f'{to_bf16:.3e} against the bf16 plain version; stored and '
+          f'recomputed routes bit-equal')
+    return fwd_worst, to_f32
 
 
 def bf16_train_launches(config, steps, eval_steps=0):
@@ -3997,8 +3985,6 @@ def time_bf16_kernels(model, x, mask, weights, device, label,
     times = {}
     for name, xin, fn, n_iters in (
             ('bf16', x16, forced_route('store'), iters),
-            ('bf16, second f32 accumulator', x16, forced_route('store', 3),
-             iters),
             ('f32', x16.float(), forced_route('store'), iters),
             ('bf16 plain', x16, flow_stack_train_reference, 1)):
         leaves = {key: value.clone().requires_grad_()
@@ -4038,9 +4024,8 @@ def time_bf16_kernels(model, x, mask, weights, device, label,
                              + 2 * weight_bytes, 2 * flops)
     print(f'  per flow step {label}: #5 bf16 storing '
           f'{times["bf16"][0]:.4f} ms vs f32 {times["f32"][0]:.4f} ms; #6 '
-          f'bf16 {times["bf16"][2]:.4f} ms (with the second f32 accumulator '
-          f'{times["bf16, second f32 accumulator"][2]:.4f}) vs f32 '
-          f'{times["f32"][2]:.4f} ms; bounds #5 '
+          f'bf16 {times["bf16"][2]:.4f} ms vs f32 {times["f32"][2]:.4f} ms; '
+          f'bounds #5 '
           f'{fwd_bounds["bound_ms"]:.4f} ms by {fwd_bounds["bound_by"]} '
           f'(bytes {fwd_bounds["bytes_bound_ms"]:.4f}), #6 '
           f'{bwd_bounds["bound_ms"]:.4f} ms by {bwd_bounds["bound_by"]} '
@@ -4054,8 +4039,6 @@ def time_bf16_kernels(model, x, mask, weights, device, label,
              'f32_build_ms': times['f32'][0],
              'plain_ms': times['bf16 plain'][0], **fwd_bounds},
             {'ms': times['bf16'][2],
-             'second_accumulator_ms':
-                 times['bf16, second f32 accumulator'][2],
              'f32_build_ms': times['f32'][2],
              'plain_ms': times['bf16 plain'][2], **bwd_bounds})
 
@@ -4131,7 +4114,7 @@ def run_bf16_minispeech(device):
         trainee.data_dependent_init(batch['mels'], batch['mel_lengths'])
         x, mask, weights = stack_problem(trainee, batch, f32)
         del trainee
-        fwd_err, bwd_err, _ = check_bf16_train(x, mask, weights, 'c80')
+        fwd_err, bwd_err = check_bf16_train(x, mask, weights, 'c80')
         rows = time_bf16_kernels(model, x, mask, weights, device, 'c80',
                                  iters=2)
         del model, x, mask, weights
@@ -4216,15 +4199,13 @@ def run_bf16_phase(inferencer_model, batches, device, card):
     trainee.data_dependent_init(batch['mels'], batch['mel_lengths'])
     x, mask, weights = stack_problem(trainee, batch, f32)
     del trainee
-    (errs['flow_train_fwd'], errs['flow_train_bwd'],
-     with_flush) = check_bf16_train(x, mask, weights, 'c160')
+    errs['flow_train_fwd'], errs['flow_train_bwd'] = check_bf16_train(
+        x, mask, weights, 'c160')
     launches, _ = run_bf16_training(config16, batch, device)
     by_path['bf16 train and eval'] = launches
     (rows['flow_step'], rows['flow_train_fwd'],
      rows['flow_train_bwd']) = time_bf16_kernels(
         inferencer_model, x, mask, weights, device, 'c160')
-    rows['flow_train_bwd']['second_accumulator_grad_norm_rel_err'] = \
-        with_flush
     step_times = time_bf16_step(config16, batch, device)
     del x, mask, weights
 
@@ -4243,7 +4224,7 @@ def run_bf16_phase(inferencer_model, batches, device, card):
     x, mask, weights, cond, pitch = pitch_stack_problem(trainee, gr_batch,
                                                         gr32)
     del trainee
-    errs['flow_train_fwd_pitch'], errs['flow_train_bwd_pitch'], _ = \
+    errs['flow_train_fwd_pitch'], errs['flow_train_bwd_pitch'] = \
         check_bf16_train(x, mask, weights, 'pitch', cond, pitch)
     launches, _ = run_bf16_training(gr16, gr_batch, device, steps=1,
                                     state=gr_state, eval_steps=1)

@@ -75,11 +75,10 @@
 // kernel casts each dot's operands (the cotangents too) to dt; sums,
 // gradients and the elementwise backward stay float32.  A bfloat16 operand
 // is staged into the same float32 ring by the threads (load, widen, store)
-// instead of cp.async.  `passes` picks the accumulation there: 1 (the
-// wrapper's default, ops/coupling_grad.py::BF16_PASSES) accumulates in the
-// tensor cores alone, 3 adds the float32 second accumulator of
-// tf32_mma.cuh after every slice, which measured no closer to the f32
-// plain version and 1.5 % slower (PERF.md, PR 14): kept for measuring.
+// instead of cp.async.  Its products accumulate in the tensor cores
+// alone, over the whole depth: the float32 builds' second accumulator
+// (added into after every slice) measured no closer to the f32 plain
+// version at bfloat16 and slower (PERF.md), so this build has none.
 // The TPU kernel's bfloat16 weight-gradient
 // partials of w_in and w_rs (its VMEM is scarce) have no counterpart: the
 // partials here are float32.
@@ -163,13 +162,11 @@ using act_t = float;
 #endif
 
 #ifdef GLOW_BF16
-// One staged slice of a warp's GEMM in a GLOW_BF16 build: the 16-deep
-// bfloat16 steps, then, with PASSES 3, the slice's sums into `sum`
-// (tf32::flush); with PASSES 1 they stay in the tensor cores' accumulators
-// until the end.
-template <int MT, int NT, int PASSES, class LoadA, class LoadB>
+// One staged slice of a warp's GEMM in a GLOW_BF16 build: its 16-deep
+// bfloat16 steps into the tensor cores' accumulators, which carry the sum
+// to the end of the depth (then tf32::flush moves it into `sum`).
+template <int MT, int NT, class LoadA, class LoadB>
 __device__ __forceinline__ void slice_product_bf16(float (&acc)[MT][NT][4],
-                                                   float (&sum)[MT][NT][4],
                                                    const LoadA& a_at,
                                                    const LoadB& b_at) {
 #pragma unroll
@@ -177,7 +174,6 @@ __device__ __forceinline__ void slice_product_bf16(float (&acc)[MT][NT][4],
     tf32::warp_step_bf16<MT, NT>(
         acc, [&](int i, int k) { return a_at(i, kk + k); },
         [&](int k, int j) { return b_at(kk + k, j); });
-  if constexpr (PASSES != 1) tf32::flush(acc, sum);
 }
 #endif
 
@@ -272,8 +268,8 @@ __device__ __forceinline__ void gemm_nt_tile(const NtArgs& g,
     const float* ws =
         w_ring + (it % kStages) * NT_BN * NT_LD + wn * NT_WN * NT_LD;
 #ifdef GLOW_BF16
-    slice_product_bf16<NT_WM / 16, NT_WN / 8, PASSES>(
-        acc, sum, [&](int i, int k) { return as[i * NT_LD + k]; },
+    slice_product_bf16<NT_WM / 16, NT_WN / 8>(
+        acc, [&](int i, int k) { return as[i * NT_LD + k]; },
         [&](int k, int j) { return ws[j * NT_LD + k]; });
 #else
 #pragma unroll
@@ -285,7 +281,7 @@ __device__ __forceinline__ void gemm_nt_tile(const NtArgs& g,
 #endif
   }
   tf32::cp_async_wait<0>();
-  if constexpr (kBf16 && PASSES == 1) tf32::flush(acc, sum);
+  if constexpr (kBf16) tf32::flush(acc, sum);
 
   const int gq = lane / 4, tq = lane % 4;
 #pragma unroll
@@ -436,6 +432,12 @@ cudaError_t launch_nt_as(const NtArgs& g, const Epilogue& epilogue, int B,
 template <class Epilogue>
 cudaError_t launch_nt(const NtArgs& g, const Epilogue& epilogue, int B,
                       int passes, cudaStream_t stream) {
+  if constexpr (kBf16) {   // one instantiation: passes is 1 (the entry's)
+    if constexpr (kDepthTail) {
+      if (g.kseg % BK) return launch_nt_as<1, true>(g, epilogue, B, stream);
+    }
+    return launch_nt_as<1, false>(g, epilogue, B, stream);
+  } else {
   if constexpr (kDepthTail) {
     if (g.kseg % BK)
       return passes == 1 ? launch_nt_as<1, true>(g, epilogue, B, stream)
@@ -443,6 +445,7 @@ cudaError_t launch_nt(const NtArgs& g, const Epilogue& epilogue, int B,
   }
   return passes == 1 ? launch_nt_as<1, false>(g, epilogue, B, stream)
                      : launch_nt_as<3, false>(g, epilogue, B, stream);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -561,8 +564,8 @@ __device__ __forceinline__ void gemm_tn_tile(const TnArgs& g, int bx, int by,
     const float* ps = p_ring + (it % kStages) * BK * TN_LDP + wm * TN_WM;
     const float* gs = g_ring + (it % kStages) * BK * TN_LDG + wn * TN_WN;
 #ifdef GLOW_BF16
-    slice_product_bf16<TN_WM / 16, TN_WN / 8, PASSES>(
-        acc, sum, [&](int i, int k) { return ps[k * TN_LDP + i]; },
+    slice_product_bf16<TN_WM / 16, TN_WN / 8>(
+        acc, [&](int i, int k) { return ps[k * TN_LDP + i]; },
         [&](int k, int j) { return gs[k * TN_LDG + j]; });
 #else
 #pragma unroll
@@ -574,7 +577,7 @@ __device__ __forceinline__ void gemm_tn_tile(const TnArgs& g, int bx, int by,
 #endif
   }
   tf32::cp_async_wait<0>();
-  if constexpr (kBf16 && PASSES == 1) tf32::flush(acc, sum);
+  if constexpr (kBf16) tf32::flush(acc, sum);
 
   const int K = g.taps * g.kseg;
   float* out = g.part + static_cast<size_t>(chunk) * K * g.N;
@@ -627,7 +630,11 @@ TnArgs tn_args(const act_t* p, int ldp, int kseg, int taps, int pad,
 }
 
 cudaError_t launch_tn(const TnArgs& g, int passes, cudaStream_t stream) {
+  if constexpr (kBf16) {
+    return launch_tn_as<1>(g, stream);
+  } else {
   return passes == 1 ? launch_tn_as<1>(g, stream) : launch_tn_as<3>(g, stream);
+  }
 }
 
 // One launch for an activation-gradient and a weight-gradient product that
@@ -697,6 +704,13 @@ cudaError_t launch_pair_as(const NtArgs& nt, const Epilogue& epilogue,
 template <class Epilogue>
 cudaError_t launch_pair(const NtArgs& nt, const Epilogue& epilogue,
                         const TnArgs& tn, int passes, cudaStream_t stream) {
+  if constexpr (kBf16) {
+    if constexpr (kDepthTail) {
+      if (nt.kseg % BK)
+        return launch_pair_as<1, true>(nt, epilogue, tn, stream);
+    }
+    return launch_pair_as<1, false>(nt, epilogue, tn, stream);
+  } else {
   if constexpr (kDepthTail) {
     if (nt.kseg % BK)
       return passes == 1 ? launch_pair_as<1, true>(nt, epilogue, tn, stream)
@@ -704,6 +718,7 @@ cudaError_t launch_pair(const NtArgs& nt, const Epilogue& epilogue,
   }
   return passes == 1 ? launch_pair_as<1, false>(nt, epilogue, tn, stream)
                      : launch_pair_as<3, false>(nt, epilogue, tn, stream);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -997,17 +1012,17 @@ int glow_flow_train_bwd_wgrad_f32(const act_t* p, const float* g,
 //      30 w_pitch [n,2,ch2]   31 dpitch [M,2], added to, or null (not
 //      wanted)   32 partials of w_pitch [n,B,2,ch2]
 // passes is 3 (3xTF32, float32 accuracy) or 1 (plain TF32); in a GLOW_BF16
-// build, where in[0..6] and out[7] are bfloat16, 1 accumulates in the
-// tensor cores alone and 3 adds the float32 second accumulator.  *launched
-// receives the number of kernels the call launched: 6 + 4 n, and n more in
-// a GLOW_PITCH build.  Returns a cudaError_t, 0 on success.
+// build, where in[0..6] and out[7] are bfloat16, it is 1 (one bfloat16
+// product).  *launched receives the number of kernels the call launched:
+// 6 + 4 n, and n more in a GLOW_PITCH build.  Returns a cudaError_t, 0 on
+// success.
 int glow_flow_train_bwd_step_f32(const float* const* in, float* const* out,
                                  int B, int T, int C, int ch, int n, int k,
                                  int step, int seed, unsigned threshold,
                                  float scale, int dropout, int passes,
                                  void* stream_ptr, int* launched) {
   *launched = 0;
-  if (C != kChannels) return cudaErrorInvalidValue;
+  if (C != kChannels || (kBf16 && passes != 1)) return cudaErrorInvalidValue;
   if (B <= 0 || T <= 0) return cudaSuccess;
 #ifdef GLOW_PITCH
   if (7 + 5 * n > kMaxReduce || !out[4] || !in[17] || !in[18] || !out[30] ||

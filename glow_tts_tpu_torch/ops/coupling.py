@@ -653,7 +653,7 @@ flow_step.bf16_c80_launches = 0
 
 def _no_bf16_build(name: str, x: torch.Tensor) -> None:
     """Raise on a bfloat16 operand of a kernel without a bfloat16 build."""
-    if x.dtype != torch.float32:
+    if x.dtype == torch.bfloat16:
         raise ValueError(
             f'{name}: no {x.dtype} build of this kernel yet (ROADMAP.md '
             f'B.3); the flow runs at bfloat16 under coupling_backend '

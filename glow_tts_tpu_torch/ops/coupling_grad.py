@@ -218,10 +218,9 @@ STORE_BUDGET_BYTES = 8 * 2 ** 30
 # passes of the backward GEMMs' TF32 product: 3 is the error-compensated
 # 3xTF32 (f32 accuracy), 1 a single TF32 pass (3 digits, kept for measuring)
 TF32_PASSES = 3
-# the bf16 build's: 1, its GEMMs accumulate in the tensor cores alone; 3
-# adds the float32 second accumulator of the f32 build, which measured no
-# closer to the f32 plain version (worst gradient 1.387e-2 either way) and
-# 1.5 % slower on an H100 (PERF.md, PR 14), so it is kept for measuring
+# the bf16 build's: one bfloat16 product, accumulated in the tensor cores
+# alone (the f32 build's second accumulator measured no closer to the f32
+# plain version at bf16, and slower: PERF.md)
 BF16_PASSES = 1
 # kernels the backward library launches per flow step of n WaveNet layers,
 # and per layer more in its pitch build

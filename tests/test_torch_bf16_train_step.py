@@ -10,7 +10,10 @@ other bits):
   1``, the eval step and the ActNorm init are
   ``tests/test_torch_bf16_train_modes.py``): the losses of the three
   steps, the first step's gradients leaf by leaf;
-* the f32 path untouched: one state dict built both ways.
+* the f32 path untouched: one state dict built both ways;
+* the ``Trainer`` at bf16 (it trains and evaluates at bf16, its
+  free-running decode and an ``Inferencer`` on its checkpoint serve at
+  float32 from the same float32 parameters).
 
 Tolerance (``tests/torch_port_helpers.py``): max|port − jax_bf16| ≤
 2·max|jax_bf16 − jax_f32| + 1e-6, the result of the train steps being the
@@ -268,3 +271,51 @@ def test_f32_path_is_untouched_by_a_bf16_model():
         assert torch.equal(outs['float32'][key], ref[key]), key
         assert not torch.equal(outs['bfloat16'][key].float(), ref[key]), key
     assert norm_rel(outs['bfloat16']['z'], ref['z']) < 3e-2
+
+
+def test_trainer_trains_at_bf16_and_serves_at_the_inference_dtype(
+        tmp_path):
+    """The ``Trainer`` of a bf16 config builds, initialises, trains and
+    evaluates at bf16; its free-running decode and an ``Inferencer`` on its
+    checkpoint serve at ``inference_dtype`` (float32) from the same float32
+    parameters, which is what the checkpoint holds."""
+    import os
+
+    from glow_tts_tpu_torch.inference import Inferencer
+    from glow_tts_tpu_torch.training.trainer import Trainer
+    from glow_tts_tpu_torch.utils.logging import MemoryWriter
+    from tests.torch_patterns import trainer_config, write_pattern_archive
+    jcfg = tiny_config()
+    root = str(tmp_path)
+    write_pattern_archive(os.path.join(root, 'train'), 8, jcfg.sound, 0)
+    write_pattern_archive(os.path.join(root, 'eval'), 4, jcfg.sound, 1)
+    cfg = trainer_config(
+        port_config(at_dtype(jcfg, 'bfloat16')), root, num_workers=1,
+        batch_size=4, max_step=2, checkpoint_save_interval=2,
+        logging_interval=1, evaluation_interval=2, inference_interval=100)
+    assert (cfg.compute_dtype, cfg.serve_dtype) == ('bfloat16', 'float32')
+    trainer = Trainer(cfg, device='cpu', max_mel_length=64,
+                      writers={'train': MemoryWriter(),
+                               'eval': MemoryWriter()})
+    assert trainer.model.dtype == torch.bfloat16
+    decoded_at = []
+    decode = trainer.model.inference_decode
+
+    def recording(*args, **kwargs):
+        decoded_at.append(trainer.model.layer_Dict['Decoder'].dtype)
+        return decode(*args, **kwargs)
+
+    trainer.model.inference_decode = recording
+    trainer.train()
+    totals = [v for _, v in trainer.writers['train'].scalars['Loss/total']]
+    assert len(totals) == 2 and np.isfinite(totals).all()
+    assert decoded_at and set(decoded_at) == {torch.float32}
+    assert trainer.model.dtype == torch.bfloat16     # back after the decode
+    assert all(p.dtype == torch.float32 for p in trainer.model.parameters())
+    step = trainer.checkpoints.latest_step()
+    assert step == 2
+    inferencer = Inferencer(cfg.checkpoint_path, cfg, 'cpu',
+                            max_mel_length=64, step=step)
+    assert inferencer.model.dtype == torch.float32
+    result = inferencer.inference(['a'], ['The birch canoe slid.'])[0]
+    assert np.isfinite(result['mel']).all()
