@@ -3825,11 +3825,12 @@ def check_bf16_train(x, mask, weights, label, cond=None, pitch=None):
 
     p16 = gradients(flow_stack_train_reference, BF16)
     p32 = gradients(flow_stack_train_reference, torch.float32)
+    k32 = gradients(forced_route('store'), torch.float32)
     got = gradients(forced_route('store'), BF16)
     recomputed = gradients(forced_route('recompute'), BF16)
     assert all(torch.equal(recomputed[key], got[key]) for key in got), \
         'stored and recomputed routes differ at bf16'
-    to_f32 = to_bf16 = 0.0
+    to_f32 = to_bf16 = kernels = plains = 0.0
     for key in got:
         if p32[key].norm() == 0:
             continue
@@ -3839,10 +3840,13 @@ def check_bf16_train(x, mask, weights, label, cond=None, pitch=None):
         assert rel16 <= BF16_GRAD_FACTOR * own + BF16_GRAD_ATOL, (
             key, rel16, own)
         to_f32, to_bf16 = max(to_f32, a), max(to_bf16, rel16)
+        kernels = max(kernels, norm_rel(got[key], k32[key]))
+        plains = max(plains, own)
     print(f'#6 bf16 {label}: worst gradient norm-rel err {to_f32:.3e} '
           f'against the f32 plain version (bar {BF16_GRAD_F32_BAR:.0e}), '
-          f'{to_bf16:.3e} against the bf16 plain version; stored and '
-          f'recomputed routes bit-equal')
+          f'{to_bf16:.3e} against the bf16 plain version; bf16 kernel vs '
+          f'f32 kernel {kernels:.3e}, bf16 plain vs f32 plain {plains:.3e}; '
+          f'stored and recomputed routes bit-equal')
     return fwd_worst, to_f32
 
 
