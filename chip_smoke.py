@@ -74,7 +74,18 @@ f32; the bf16 builds timed beside the f32 builds on the same inputs, with
 their bounds at the bf16 peak; the train step at bf16 and at f32 on the
 same batch by CUDA events and in a profiler window; a GR train step on the
 bf16 pitch builds; and a MiniSpeech ``Trainer`` at bf16 on the 80-channel
-bf16 builds.  Exits non-zero on any failure and when no CUDA device is
+bf16 builds.  Then bf16 under ``'modules'`` and ``'mega'``: the bf16 builds
+of #2 and #4 (the shipped YAML, MiniSpeech's 80 channels, GR's pitch
+builds) against their bf16 plain versions (#4 also bit for bit against 12
+× #3 bf16) and timed beside their f32 builds, the ActNorm init and two
+eval steps under each route beside the plain versions at bf16 and f32 and
+against 'fused', an ``Inferencer`` at ``inference_dtype`` bfloat16 under
+each route at B = 32 in the 1024-frame bucket, the eval step at bf16 by
+route.  Then GR at ``Num_Squeeze: 1`` (80 channels, the pitch operand 1
+wide: the ``GLOW_PITCH_SIZE=1`` builds of #2–#6 at f32 and bf16 against
+their plain versions and timed, 3 train steps at each dtype beside the
+plain versions, an eval step under each route, a decode).  All 41
+libraries build together before the first phase.  Exits non-zero on any failure and when no CUDA device is
 present; the last line is one JSON object naming the card.
 """
 
@@ -230,22 +241,22 @@ def live_tiles(mask, launch, steps=1, stack=False):
     return got
 
 
-COUNTERS = ('flow_step', 'coupling', 'flow_stack', 'mas', 'train_fwd',
-            'train_recompute', 'train_bwd', 'flow_step_pitch',
-            'coupling_pitch', 'flow_stack_pitch', 'train_fwd_pitch',
-            'train_recompute_pitch', 'train_bwd_pitch', 'flow_step_c80',
-            'coupling_c80', 'flow_stack_c80', 'train_fwd_c80',
-            'train_recompute_c80', 'train_bwd_c80',
-            # the bfloat16 builds of #3, #5 and #6, and their pitch and
-            # 80-channel builds
-            *(f'{name}_bf16{tag}' for tag in ('', '_pitch', '_c80')
-              for name in ('flow_step', 'train_fwd', 'train_recompute',
-                           'train_bwd')))
+# the kernels' launch counters: (counter, wrapper's attribute prefix) of
+# each flow source; each build counts apart (coupling.count_launches)
+FLOW_COUNTERS = (('flow_step', ''), ('coupling', ''), ('flow_stack', ''),
+                 ('train_fwd', 'forward_'), ('train_recompute', 'recompute_'),
+                 ('train_bwd', 'backward_'))
+# the builds of a flow source, as the suffix of its counters: the shipped
+# f32 one (''), the pitch, 80-channel and 80-channel pitch builds (the
+# pitch operand 1 wide there), and the bfloat16 build of each
+BUILD_SUFFIXES = tuple(bf16 + (f'_{tag}' if tag else '')
+                       for bf16 in ('', '_bf16')
+                       for tag in ('', 'pitch', 'c80', 'c80_pitch'))
+COUNTERS = ('mas',) + tuple(name + suffix for suffix in BUILD_SUFFIXES
+                            for name, _ in FLOW_COUNTERS)
 # the deterministic decoder's routes (``config.coupling_backend``): the
 # counter of the kernel each goes through
 ROUTES = {'fused': 'flow_step', 'modules': 'coupling', 'mega': 'flow_stack'}
-# and of its pitch instantiation (GR mode with a pitch track)
-PITCH_ROUTES = {route: f'{counter}_pitch' for route, counter in ROUTES.items()}
 
 
 def launch_counters():
@@ -253,47 +264,39 @@ def launch_counters():
     from glow_tts_tpu_torch.ops.coupling import coupling, flow_stack, flow_step
     from glow_tts_tpu_torch.ops.coupling_grad import flow_stack_train
     from glow_tts_tpu_torch.ops.mas import maximum_path
-    return dict(zip(COUNTERS, (
-        (flow_step, 'launches'), (coupling, 'launches'),
-        (flow_stack, 'launches'), (maximum_path, 'launches'),
-        (flow_stack_train, 'forward_launches'),
-        (flow_stack_train, 'recompute_launches'),
-        (flow_stack_train, 'backward_launches'),
-        (flow_step, 'pitch_launches'), (coupling, 'pitch_launches'),
-        (flow_stack, 'pitch_launches'),
-        (flow_stack_train, 'forward_pitch_launches'),
-        (flow_stack_train, 'recompute_pitch_launches'),
-        (flow_stack_train, 'backward_pitch_launches'),
-        (flow_step, 'c80_launches'), (coupling, 'c80_launches'),
-        (flow_stack, 'c80_launches'),
-        (flow_stack_train, 'forward_c80_launches'),
-        (flow_stack_train, 'recompute_c80_launches'),
-        (flow_stack_train, 'backward_c80_launches'),
-        *((fn, f'{what}bf16{tag}_launches')
-          for tag in ('', '_pitch', '_c80')
-          for fn, what in ((flow_step, ''), (flow_stack_train, 'forward_'),
-                           (flow_stack_train, 'recompute_'),
-                           (flow_stack_train, 'backward_'))))))
+    fns = {'flow_step': flow_step, 'coupling': coupling,
+           'flow_stack': flow_stack}
+    counters = {'mas': (maximum_path, 'launches')}
+    for suffix in BUILD_SUFFIXES:
+        for name, what in FLOW_COUNTERS:
+            counters[name + suffix] = (
+                fns.get(name, flow_stack_train),
+                f'{what}{suffix[1:]}{"_" if suffix else ""}launches')
+    return counters
+
+
+def build_suffix(config=None, channels=None, pitch=False, bf16=False):
+    """The suffix of the counters of the flow build ``config`` (or a flow
+    of ``channels`` channels) runs through: '' at the shipped 160, '_c80'
+    at MiniSpeech's 80, with '_pitch' for a pitch operand and '_bf16'
+    before those at bfloat16 ('_bf16_c80_pitch')."""
+    from glow_tts_tpu_torch.ops.coupling import build_tag
+    if channels is None:
+        channels = config.sound.mel_dim * config.decoder.num_squeeze
+    tag = build_tag(channels, pitch)
+    return ('_bf16' if bf16 else '') + (f'_{tag}' if tag else '')
 
 
 def route_launches(route, config, passes=1, pitch=False):
     """The flow launches of ``passes`` decoder passes under ``route``: one
     per flow step, or one in all under ``'mega'``, of the pitch
     instantiation with ``pitch`` (of the 80-channel build at
-    ``Num_Squeeze: 1``); every other count 0."""
+    ``Num_Squeeze: 1``, of the bfloat16 build at ``compute_dtype``
+    bfloat16); every other count 0."""
     per_pass = 1 if route == 'mega' else config.decoder.stack
-    counter = (PITCH_ROUTES if pitch else ROUTES)[route] + build_suffix(
-        config)
+    counter = ROUTES[route] + build_suffix(
+        config, pitch=pitch, bf16=config.compute_dtype == 'bfloat16')
     return {**dict.fromkeys(COUNTERS, 0), counter: per_pass * passes}
-
-
-def build_suffix(config=None, channels=None):
-    """The suffix of the counters of the flow builds ``config`` (or a flow
-    of ``channels`` channels) runs through: '' at the shipped 160, '_c80'
-    at MiniSpeech's 80."""
-    if channels is None:
-        channels = config.sound.mel_dim * config.decoder.num_squeeze
-    return '' if channels == 160 else f'_c{channels}'
 
 
 def plain_flow_fns():
@@ -1283,8 +1286,7 @@ def check_train_backward(x, mask, weights, cond=None, pitch=None):
     b, t, c = x.shape
     chosen = ('store' if coupling_grad.stores_activations(
         s_steps, b * t, c, ch, n) else 'recompute')
-    build = ('_pitch' if pitch is not None
-             else build_suffix(channels=x.shape[-1]))
+    build = build_suffix(channels=x.shape[-1], pitch=pitch is not None)
     per_step = (BWD_KERNELS_PER_FLOW_STEP if pitch is None
                 else BWD_PITCH_KERNELS_PER_FLOW_STEP)
     zero_counts()
@@ -1345,15 +1347,12 @@ def train_path_launches(config, steps):
     backward's kernels and one MAS each); GR mode's through the pitch
     builds."""
     flows = config.decoder.stack
-    if config.uses_gradient_reversal:
-        return {**dict.fromkeys(COUNTERS, 0), 'flow_step_pitch': flows,
-                'mas': steps, 'train_fwd_pitch': flows * steps,
-                'train_bwd_pitch': BWD_PITCH_KERNELS_PER_FLOW_STEP * flows
-                * steps}
-    build = build_suffix(config)
+    gr = config.uses_gradient_reversal
+    build = build_suffix(config, pitch=gr)
+    bwd = BWD_PITCH_KERNELS_PER_FLOW_STEP if gr else BWD_KERNELS_PER_FLOW_STEP
     return {**dict.fromkeys(COUNTERS, 0), f'flow_step{build}': flows,
             'mas': steps, f'train_fwd{build}': flows * steps,
-            f'train_bwd{build}': BWD_KERNELS_PER_FLOW_STEP * flows * steps}
+            f'train_bwd{build}': bwd * flows * steps}
 
 
 def run_training(config, batch, device, steps=TRAIN_STEPS, plain=True,
@@ -2127,7 +2126,7 @@ def check_pitch_kernels(model, device, eval_mask):
     bounds of the work on the valid frames (the pitch term adds 2 · ps ·
     2ch operations a frame and layer, and the pitch operand's bytes)."""
     from glow_tts_tpu_torch.ops.coupling import (
-        PITCH_SIZE, WEIGHT_KEYS, coupling, coupling_reference, flow_stack,
+        WEIGHT_KEYS, coupling, coupling_reference, flow_stack,
         flow_stack_reference, flow_step, flow_step_reference, kernel_keys)
     decoder = model.layer_Dict['Decoder']
     flows = list(decoder.layer_Dict['Flows'])
@@ -2141,7 +2140,8 @@ def check_pitch_kernels(model, device, eval_mask):
                            generator=gen) * 0.3).to(device)
     cond = decoder.conditioning(GR_BATCH, model.layer_Dict['LUT'](speakers),
                                 prosody, pitch=True)     # [S, n, B, 2ch]
-    pitch = torch.rand((GR_BATCH, 512, PITCH_SIZE), generator=gen).to(device)
+    ps = model.config.decoder.num_squeeze
+    pitch = torch.rand((GR_BATCH, 512, ps), generator=gen).to(device)
     xe = (x[:, :eval_mask.shape[1]] * eval_mask).contiguous()
     shapes = {'decode': (x, torch.ones_like(x[..., :1])),
               'eval': (xe, eval_mask)}
@@ -2149,7 +2149,7 @@ def check_pitch_kernels(model, device, eval_mask):
     own = {**coupling_weights(step.weights(False)),
            'w_pitch': step.weights(False)['w_pitch']}
     n, ch2 = own['w_pitch'].shape[0], own['w_pitch'].shape[-1]
-    pitch_flops = 2 * PITCH_SIZE * ch2 * n          # a frame and step
+    pitch_flops = 2 * ps * ch2 * n          # a frame and step
 
     def weight_count(weights):
         return sum(weights[key].numel() for key in kernel_keys(
@@ -2516,7 +2516,6 @@ def time_train_pitch_kernels(x, mask, weights, cond, pitch):
     frames (the pitch term adds 2 · ps · 2ch operations a frame and layer
     forward, twice that backward, and the pitch operand's bytes)."""
     from glow_tts_tpu_torch.ops import coupling_grad
-    from glow_tts_tpu_torch.ops.coupling import PITCH_SIZE
     from glow_tts_tpu_torch.ops.coupling_grad import (
         flow_stack_train, flow_stack_train_reference)
     gen = torch.Generator().manual_seed(SEED + 61)
@@ -2552,7 +2551,7 @@ def time_train_pitch_kernels(x, mask, weights, cond, pitch):
 
     per_step = {key: value[0] for key, value in weights.items()}
     valid = mask.sum().item()
-    pitch_flops = 2 * PITCH_SIZE * ch2 * n
+    pitch_flops = 2 * pitch.shape[-1] * ch2 * n
     flops = (step_frame_flops(per_step) + pitch_flops) * valid
     weight_count = sum(value.numel() for value in per_step.values())
     moved = 4 * (2 * x.numel() + mask.numel() + x.shape[0] + weight_count
@@ -3711,8 +3710,8 @@ def check_bf16_step(model, device, label, pitch=False):
         x, mask = ragged_batch(gen, 32, t, c, device)
         x16 = x.to(BF16)
         cond = step.cond(32)
-        p = (torch.rand((32, t, 2), generator=gen).to(device) * mask
-             if pitch else None)
+        p = (torch.rand((32, t, model.config.decoder.num_squeeze),
+                        generator=gen).to(device) * mask if pitch else None)
         for reverse in (False, True):
             w32, w16 = step.weights(reverse), step.weights(reverse, BF16)
             k16 = flow_step(x16, mask, w16, cond, reverse, pitch=p)
@@ -3855,8 +3854,7 @@ def bf16_train_launches(config, steps, eval_steps=0):
     flow step), ``steps`` train steps (#5 and #6 bf16, one MAS each) and
     ``eval_steps`` eval steps under 'fused' (#3 bf16, one MAS each)."""
     flows = config.decoder.stack
-    tag = ('_pitch' if config.uses_gradient_reversal
-           else build_suffix(config))
+    tag = build_suffix(config, pitch=config.uses_gradient_reversal)
     bwd = (BWD_PITCH_KERNELS_PER_FLOW_STEP if config.uses_gradient_reversal
            else BWD_KERNELS_PER_FLOW_STEP)
     return {**dict.fromkeys(COUNTERS, 0),
@@ -3959,8 +3957,8 @@ def time_bf16_kernels(model, x, mask, weights, device, label,
     gen = torch.Generator().manual_seed(SEED + 107)
     xd = torch.randn((b, t, c), generator=gen).to(device)
     xd16, cond_d = xd.to(BF16), step.cond(b)
-    pitch_d = (torch.rand((b, t, 2), generator=gen).to(device)
-               if step_pitch else None)
+    pitch_d = (torch.rand((b, t, model.config.decoder.num_squeeze),
+                          generator=gen).to(device) if step_pitch else None)
     w32, w16 = step.weights(False), step.weights(False, BF16)
     k16, k32 = paired_ms(
         lambda: flow_step(xd16, full, w16, cond_d, pitch=pitch_d),
@@ -4258,6 +4256,558 @@ def run_bf16_phase(inferencer_model, batches, device, card):
     return rows, by_path
 
 
+# ---------------------------------------------------------------------------
+# bfloat16 under every route (#2's and #4's bf16 builds), and GR at
+# Num_Squeeze 1 (the pitch operand 1 wide)
+# ---------------------------------------------------------------------------
+
+ROUTE_EVAL_STEPS = 2           # eval steps under each route at bf16
+GR1_TRAIN_STEPS = 3            # GR at Num_Squeeze 1: train steps a dtype
+
+
+@torch.no_grad()
+def flow_kernel_rows(model, device, eval_mask, label, dtype, pitch=False,
+                     names=('coupling', 'flow_stack'), iters=10):
+    """#3, #2 and #4 (those of ``names``) of the build at ``dtype`` for the
+    model's flow width, with ``pitch`` its pitch build (the operand
+    num_squeeze wide), on the model's packed weights and conditioning rows
+    at B = 32, T = 512 (all frames valid: the decode shape) and on the eval
+    batch's ragged mask, both directions.  Each against its plain version:
+    at bf16 to the bf16 bar (max|kernel - plain_bf16| <= 2 max|plain_bf16
+    - plain_f32| + 1e-6, the f32 plain version the reference), at f32 to
+    Z_REL_BOUND; #4 bit for bit against launches of #3 of the same build,
+    one a flow step.  Each timed beside a baseline on the same inputs
+    (baseline, build, build, baseline): at bf16 the f32 build (the inputs
+    rounded to bf16 for both), at f32 the build without the pitch operand;
+    with its plain version and its bounds on the valid frames (at bf16 the
+    bf16 tensor-core peak).  Returns a row a name."""
+    from glow_tts_tpu_torch.ops.coupling import (
+        WEIGHT_KEYS, coupling, coupling_reference, flow_stack,
+        flow_stack_reference, flow_step, flow_step_reference, kernel_keys)
+    decoder = model.layer_Dict['Decoder']
+    flows = list(decoder.layer_Dict['Flows'])
+    step = flows[0]
+    c = step.layers[0].logs.shape[1]
+    c2 = c // 2
+    bf16 = dtype == BF16
+    gen = torch.Generator().manual_seed(SEED + 140)
+    t_all = max(512, eval_mask.shape[1])
+    x, _ = ragged_batch(gen, GR_BATCH, t_all, c, device)
+    if pitch:
+        speakers = torch.randint(model.config.speaker_embedding.num_speakers,
+                                 (GR_BATCH,), generator=gen).to(device)
+        prosody = (torch.randn((GR_BATCH, model.config.prosody_encoder.size),
+                               generator=gen) * 0.3).to(device)
+        cond = decoder.conditioning(GR_BATCH,
+                                    model.layer_Dict['LUT'](speakers),
+                                    prosody, pitch=True)
+        p = torch.rand((GR_BATCH, t_all, model.config.decoder.num_squeeze),
+                       generator=gen).to(device)
+    else:
+        cond, p = decoder.stacked_cond(GR_BATCH), None
+    x = x.to(dtype).float()               # the same values at both dtypes
+    t_eval = eval_mask.shape[1]
+    xd = x[:, :512].contiguous()
+    xe = (x[:, :t_eval] * eval_mask).contiguous()
+    # (x, mask, pitch operand) of each shape
+    shapes = {'decode': (xd, torch.ones_like(xd[..., :1]),
+                         None if p is None else p[:, :512].contiguous()),
+              'eval': (xe, eval_mask,
+                       None if p is None else p[:, :t_eval].contiguous())}
+
+    def own(weights):
+        return {**coupling_weights(weights),
+                **({'w_pitch': weights['w_pitch']} if pitch else {})}
+
+    def fns(name, at):
+        """(kernel, plain) of ``name`` on inputs cast to ``at``."""
+        if name == 'flow_step':
+            return (lambda xs, m, r, q: flow_step(
+                        xs.to(at), m, step.weights(r, at), cond[0], r,
+                        pitch=q),
+                    lambda xs, m, r, q: flow_step_reference(
+                        xs.to(at), m, step.weights(r), cond[0], r, q))
+        if name == 'coupling':
+            return (lambda xs, m, r, q: coupling(
+                        xs.to(at)[..., :c2], xs.to(at)[..., c2:], m,
+                        own(step.weights(r, at)), cond[0], pitch=q,
+                        reverse=r),
+                    lambda xs, m, r, q: coupling_reference(
+                        xs.to(at)[..., :c2], xs.to(at)[..., c2:], m,
+                        own(step.weights(r)), cond[0], q, r))
+        return (lambda xs, m, r, q: flow_stack(
+                    xs.to(at), m, decoder.stacked_weights(r, at), cond, q, r),
+                lambda xs, m, r, q: flow_stack_reference(
+                    xs.to(at), m, decoder.stacked_weights(r), cond, q, r))
+
+    def weight_count(weights):
+        return sum(weights[key].numel() for key in kernel_keys(
+            (*WEIGHT_KEYS, 'ld_const', 'w_pitch')) if key in weights)
+
+    act = 2 if bf16 else 4
+    rows = {}
+    for name in names:
+        steps = len(flows) if name == 'flow_stack' else 1
+        kernel_fn, plain_fn = fns(name, dtype)
+        kernel32, plain32 = fns(name, torch.float32)
+        weights = (decoder.stacked_weights(False) if name == 'flow_stack'
+                   else own(step.weights(False)) if name == 'coupling'
+                   else step.weights(False))
+        frame_flops = step_frame_flops(
+            own(step.weights(False)) if name == 'coupling'
+            else step.weights(False))
+        ps = 0 if p is None else p.shape[-1]
+        pitch_flops = 2 * ps * cond.shape[-1] * cond.shape[-3]
+        row = {'max_abs_err': 0.0}
+        for shape, (xs, m, p) in shapes.items():
+            for reverse in (False, True):
+                z_k, ld_k = kernel_fn(xs, m, reverse, p)
+                z_p, ld_p = plain_fn(xs, m, reverse, p)
+                torch.cuda.synchronize()
+                assert torch.isfinite(z_k.float()).all(), (label, name)
+                line = f'{name} {label} {shape} shape reverse={reverse}: '
+                if bf16:
+                    z_32, ld_32 = plain32(xs, m, reverse, p)
+                    err, bar = bf16_error(z_k, z_p, z_32)
+                    line += (f'kernel vs bf16 plain max abs err {err:.3e} '
+                             f'(bar {bar:.3e})')
+                    ok = err <= bar
+                    if not reverse:
+                        ld_err, ld_bar = bf16_error(ld_k, ld_p, ld_32)
+                        line += f', logdet {ld_err:.3e} (bar {ld_bar:.3e})'
+                        ok = ok and ld_err <= ld_bar
+                else:
+                    err = (z_k - z_p).abs().max().item()
+                    rel = rel_err(z_k, z_p)
+                    line += (f'kernel vs plain max abs err {err:.3e}, max '
+                             f'rel err {rel:.3e}')
+                    ok = rel < Z_REL_BOUND
+                    if not reverse:
+                        ld_rel = rel_err(ld_k, ld_p)
+                        line += f', logdet rel err {ld_rel:.3e}'
+                        ok = ok and ld_rel < LD_REL_BOUND
+                if name == 'flow_stack':
+                    chained = xs.to(dtype)
+                    for k in (reversed(range(steps)) if reverse
+                              else range(steps)):
+                        chained, _ = flow_step(chained, m,
+                                               flows[k].weights(reverse,
+                                                                dtype),
+                                               cond[k], reverse, pitch=p)
+                    same = torch.equal(z_k, chained)
+                    line += (f'; z bit-equal to {steps} chained flow-step '
+                             f'launches of the same build: {same}')
+                    ok = ok and same
+                print(line)
+                assert ok, line
+                row['max_abs_err'] = max(row['max_abs_err'], err)
+            valid = m.sum().item()
+            flops = (frame_flops + pitch_flops) * valid * steps
+            # the activations in and out at the build's width (the coupling
+            # writes z_b alone), the rest f32: mask, conditioning rows,
+            # logdet, pitch operand, weights
+            out = xs.numel() // 2 if name == 'coupling' else xs.numel()
+            rows_read = (cond.numel() if name == 'flow_stack'
+                         else cond[0].numel())
+            moved = (act * (xs.numel() + out)
+                     + 4 * (m.numel() + rows_read + xs.shape[0]
+                            + ps * xs.shape[0] * xs.shape[1]
+                            + weight_count(weights)))
+            bounds = (bf16_bounds(moved, flops) if bf16
+                      else body_bounds(moved, flops))
+            for reverse in (True, False):
+                if bf16:
+                    ms, base_ms = paired_ms(
+                        lambda: kernel_fn(xs, m, reverse, p),
+                        lambda: kernel32(xs, m, reverse, p), iters)
+                    base = 'f32 build'
+                else:
+                    ms, base_ms = paired_ms(
+                        lambda: kernel_fn(xs, m, reverse, p),
+                        lambda: kernel_fn(xs, m, reverse, None), iters)
+                    base = 'build without the pitch operand'
+                plain_ms = cuda_ms(lambda: plain_fn(xs, m, reverse, p), 1, 1)
+                print(f'{name} {label} {shape} shape ({int(valid)} valid '
+                      f'frames) reverse={reverse}: {ms:.4f} ms, {base} '
+                      f'{base_ms:.4f} ms on the same inputs '
+                      f'({100 * (ms / base_ms - 1):+.1f} %), plain '
+                      f'{plain_ms:.4f} ms; bound {bounds["bound_ms"]:.4f} ms '
+                      f'by {bounds["bound_by"]}')
+                key = ('' if shape == 'decode' else 'eval_shape_') + (
+                    '' if reverse else 'forward_')
+                row.update({f'{key}ms': ms,
+                            f'{key}{"f32_build" if bf16 else "vanilla"}_ms':
+                            base_ms, f'{key}plain_ms': plain_ms})
+            if shape == 'decode':
+                row.update(bounds)
+            else:
+                row['eval_shape_bound_ms'] = bounds['bound_ms']
+        rows[name] = row
+    return rows
+
+
+def routes_eval(config, state, batch, device, label, steps=1,
+                routes=tuple(ROUTES), plain=True):
+    """The ActNorm init and ``steps`` eval steps on ``batch`` under each of
+    ``routes`` from the same weights, through the kernels of the config's
+    compute dtype (counted: init and eval apart), and, with ``plain``,
+    through the plain versions of each route at that dtype and at f32; the
+    losses held to the plain versions (at bf16 to the bf16 bar with the
+    f32 plain version the reference, at f32 to LOSS_REL_BOUND) and each
+    route against 'fused'.  Returns (the launches by path, the kernels'
+    losses by route)."""
+    from glow_tts_tpu_torch import make_eval_step
+    from glow_tts_tpu_torch.ops.coupling import flow_step
+    from glow_tts_tpu_torch.training.step import conditioning_inputs
+    bf16 = config.compute_dtype == 'bfloat16'
+    gr = config.uses_gradient_reversal
+    keys = ['mle', 'duration', 'total'] + (['speaker'] if gr else [])
+    by_path, losses = {}, {}
+    for route in routes:
+        cfg = dataclasses.replace(config, coupling_backend=route)
+        runs = {}
+        for name, run_cfg, fn_kwargs in (
+                ('kernels', cfg, {}),
+                ('plain', cfg, plain_flow_fns()),
+                ('plain f32', dataclasses.replace(cfg,
+                                                  compute_dtype='float32'),
+                 plain_flow_fns()))[:3 if plain and bf16 else
+                                    2 if plain else 1]:
+            model = fresh_model(state, run_cfg, device)
+            zero_counts()
+            model.data_dependent_init(
+                batch['mels'], batch['mel_lengths'],
+                step_fn=fn_kwargs.get('step_fn', flow_step),
+                **conditioning_inputs(batch))
+            init_counts = read_counts()
+            eval_step = make_eval_step(run_cfg, model, **fn_kwargs)
+            zero_counts()
+            results = [eval_step(batch)[0] for _ in range(steps)]
+            counts = read_counts()
+            runs[name] = torch.tensor(
+                [[r[key].item() for key in keys] for r in results],
+                dtype=torch.float64)
+            if name == 'kernels':
+                flows = cfg.decoder.stack
+                init_expected = {**dict.fromkeys(COUNTERS, 0),
+                                 'flow_step' + build_suffix(
+                                     cfg, pitch=gr, bf16=bf16): flows}
+                expected = {**route_launches(route, cfg, steps, pitch=gr),
+                            'mas': steps}
+                assert init_counts == init_expected, (route, init_counts)
+                assert counts == expected, (route, counts)
+                by_path[f'{label} init {route}'] = init_counts
+                by_path[f'{label} eval {route}'] = counts
+        assert torch.isfinite(runs['kernels']).all(), (label, route)
+        line = (f'{label} eval under {route!r} ({steps} steps): kernels '
+                + ' '.join(f'{key} {v:.6f}' for key, v in
+                           zip(keys, runs['kernels'][-1].tolist())))
+        if plain and bf16:
+            err, bar = bf16_error(runs['kernels'], runs['plain'],
+                                  runs['plain f32'])
+            line += (f'; vs bf16 plain max abs err {err:.3e} (bar {bar:.3e}'
+                     f', plain f32 total {runs["plain f32"][-1, 2]:.6f})')
+            assert err <= bar, line
+        elif plain:
+            err = (runs['kernels'] - runs['plain']).abs().max().item()
+            line += f'; vs plain max abs err {err:.3e}'
+            assert (err <= LOSS_REL_BOUND
+                    * runs['plain'].abs().max().item()), line
+        print(line)
+        losses[route] = runs
+    if 'fused' in losses:
+        for route in losses:
+            if route == 'fused':
+                continue
+            diff = (losses[route]['kernels']
+                    - losses['fused']['kernels']).abs().max().item()
+            line = (f'{label} eval {route!r} vs \'fused\': max abs diff '
+                    f'{diff:.3e}')
+            if route == 'mega' or not bf16:
+                # 'mega': the same body step after step, so z is the same
+                # bits; its logdet sums the steps' tile sums in another
+                # order
+                assert diff <= LOSS_REL_BOUND * losses['fused'][
+                    'kernels'].abs().max().item(), line
+            elif plain:
+                # two bf16 policies (ActNorm and the mixing as modules):
+                # no further apart than their distances from f32 allow
+                bar = BF16_FACTOR * max(
+                    (losses[r]['plain'] - losses[r]['plain f32']).abs()
+                    .max().item() for r in (route, 'fused')) + BF16_ATOL
+                line += f' (bar {bar:.3e})'
+                assert diff <= bar, line
+            print(line)
+    return by_path, {route: runs['kernels'] for route, runs in losses.items()}
+
+
+def time_route_evals(config, state, batch, device, label):
+    """The eval step at the config's dtype under each route, by CUDA
+    events, the routes in turn (fused, modules, mega, mega, modules,
+    fused), after one warm-up each."""
+    from glow_tts_tpu_torch import make_eval_step
+    from glow_tts_tpu_torch.training.step import conditioning_inputs
+    steps = {}
+    for route in ROUTES:
+        cfg = dataclasses.replace(config, coupling_backend=route)
+        model = fresh_model(state, cfg, device)
+        model.data_dependent_init(batch['mels'], batch['mel_lengths'],
+                                  **conditioning_inputs(batch))
+        steps[route] = make_eval_step(cfg, model)
+    order = list(ROUTES) + list(reversed(ROUTES))
+    times = {route: [] for route in ROUTES}
+    for route in order:
+        times[route].append(cuda_ms(lambda: steps[route](batch), 3, 1))
+    result = {route: sum(v) / len(v) for route, v in times.items()}
+    print(f'eval step {label} {tuple(batch["mels"].shape)} at '
+          f'{config.compute_dtype} by CUDA events: ' + ', '.join(
+              f'{route!r} {ms:.3f} ms' for route, ms in result.items()))
+    return result
+
+
+def serve_bf16_routes(config, state, items, device, label):
+    """An ``Inferencer`` at ``inference_dtype`` bfloat16 under each route
+    serving ``items`` in one decode at B = 32 in the 1024-frame bucket
+    (counted: the route's bf16 build), and the decode phase on one prior
+    (the f32 model's) and one noise at bf16 under each route and at f32:
+    'mega' bit-equal to 'fused', every route's mels no further from the f32
+    decode than twice 'fused''s (mean absolute error on the valid frames,
+    plus 1e-6)."""
+    from glow_tts_tpu_torch import Inferencer
+    gr = config.uses_gradient_reversal
+    serving = dataclasses.replace(config, compute_dtype='bfloat16',
+                                  inference_dtype='bfloat16')
+    by_path, mels = {}, {}
+    f32 = Inferencer(state, dataclasses.replace(
+        config, compute_dtype='float32', inference_dtype='float32'), device,
+        batch_size=GR_BATCH)
+    _, prior = prior_of(f32, items)
+    scale = 960.0 / prior['durations'].sum(dim=1).max().item()
+    items = [dict(item, length_scale=scale) for item in items]
+    batch, prior = prior_of(f32, items)
+    noise = torch.randn((len(items), 1024, config.sound.mel_dim),
+                        generator=torch.Generator(device=device)
+                        .manual_seed(SEED + 150), device=device)
+    extra = ({'pitches': batch['pitches'],
+              'pitch_lengths': batch['pitch_lengths']} if gr else {})
+    with torch.no_grad():
+        ref = f32.model.inference_decode(prior, noise=noise,
+                                         max_mel_length=1024, **extra)
+    for route in ROUTES:
+        cfg = dataclasses.replace(serving, coupling_backend=route)
+        inferencer = Inferencer(state, cfg, device, batch_size=GR_BATCH)
+        assert inferencer.model.dtype == BF16
+        zero_counts()
+        results = inferencer.synthesize_items(items, seed=SEED)
+        launches = read_counts()
+        expected = route_launches(route, cfg, 1, pitch=gr)
+        assert launches == expected, (label, route, launches)
+        for r in results:
+            assert r['bucket'] == 1024, r['bucket']
+            assert np.isfinite(r['mel']).all(), r['label']
+        by_path[f'{label} serve bf16 {route}'] = launches
+        with torch.no_grad():
+            mels[route] = inferencer.model.inference_decode(
+                prior, noise=noise, max_mel_length=1024, **extra)['mels']
+    valid = (torch.arange(1024, device=device)[None, :]
+             < ref['mel_lengths'][:, None])[..., None]
+
+    def mae(a, b):
+        return (((a - b).abs() * valid).sum()
+                / (valid.sum() * a.shape[-1])).item()
+
+    to_f32 = {route: mae(mel, ref['mels']) for route, mel in mels.items()}
+    print(f'{label} served at bf16 under each route (B={len(items)}, bucket '
+          f'1024): launches as expected; decode mel MAE against the f32 '
+          f'decode ' + ', '.join(f'{r!r} {v:.3e}' for r, v in to_f32.items())
+          + f'; \'mega\' bit-equal to \'fused\': '
+          f'{torch.equal(mels["mega"], mels["fused"])}')
+    assert torch.equal(mels['mega'], mels['fused'])
+    for route, value in to_f32.items():
+        assert value <= 2 * to_f32['fused'] + 1e-6, (label, route, to_f32)
+    return by_path
+
+
+def run_bf16_routes_phase(batches, device, card):
+    """bf16 under 'modules' (#2's bf16 builds) and 'mega' (#4's): at the
+    shipped YAML as loaded (Vanilla, 160 channels), at MiniSpeech's 80
+    channels and in GR mode (the pitch builds): each kernel against its
+    plain version and timed beside its f32 build; the ActNorm init and two
+    eval steps under each route beside the plain versions at bf16 and f32
+    and against 'fused'; an Inferencer at inference_dtype bfloat16 under
+    each route; the eval step at bf16 under each route timed.  Returns the
+    kernels line's rows and the launches by path."""
+    import shutil
+    import tempfile
+
+    from glow_tts_tpu_torch import load_config, random_state_dict
+    from glow_tts_tpu_torch.models.decoder import squeeze
+    from glow_tts_tpu_torch.models.layers import sequence_mask
+    from glow_tts_tpu_torch.text import text_filtering
+    from glow_tts_tpu_torch.training.step import conditioning_inputs
+    start = time.perf_counter()
+    root = tempfile.mkdtemp(prefix='chip_smoke_bf16_routes_')
+    rows, by_path, eval_ms = {}, {}, {}
+    try:
+        shipped = load_config(CONFIG)
+        assert shipped.compute_dtype == 'bfloat16'
+        gr16 = mode_config('GR', dtype='bfloat16')
+        ms16 = minispeech_config(root, 'bfloat16')
+        cases = (('c160', shipped, batches[1], SEED + 160, ''),
+                 ('c80', ms16, minispeech_batch(ms16, device), SEED + 161,
+                  '_c80'),
+                 ('pitch', gr16, conditioned_batch(gr16, device, SEED + 162),
+                  SEED + 163, '_pitch'))
+        for label, config16, batch, seed, tag in cases:
+            state = random_state_dict(config16, seed)
+            gr = config16.uses_gradient_reversal
+            f32 = dataclasses.replace(config16, compute_dtype='float32')
+            model = fresh_model(state, f32, device)
+            model.data_dependent_init(batch['mels'], batch['mel_lengths'],
+                                      **conditioning_inputs(batch))
+            _, eval_mask = squeeze(
+                batch['mels'], sequence_mask(batch['mel_lengths'],
+                                             batch['mels'].shape[1]),
+                config16.decoder.num_squeeze)
+            for name, row in flow_kernel_rows(
+                    model, device, eval_mask, f'bf16 {label}', BF16,
+                    pitch=gr).items():
+                rows[f'{name}_bf16{tag}'] = row
+            del model
+            paths, _ = routes_eval(config16, state, batch, device,
+                                   f'bf16 {label}', ROUTE_EVAL_STEPS)
+            by_path.update(paths)
+            eval_ms[label] = time_route_evals(config16, state, batch,
+                                              device, f'bf16 {label}')
+            if gr:
+                items = conditioned_items(
+                    config16, [INFERENCE_TEXTS[i % 4]
+                               for i in range(GR_BATCH)], SEED + 165)
+            else:
+                texts = ([item['text'] for item in minispeech_items(
+                    GR_BATCH, SEED + 164)] if label == 'c80' else
+                    [text_filtering(INFERENCE_TEXTS[i % 4])
+                     for i in range(GR_BATCH)])
+                items = [{'label': f'v{i}', 'text': text}
+                         for i, text in enumerate(texts)]
+            by_path.update(serve_bf16_routes(config16, state, items, device,
+                                             f'bf16 {label}'))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print('bf16 routes phase: ' + json.dumps({
+        'eval_step_ms': eval_ms,
+        'seconds': round(time.perf_counter() - start, 1), 'card': card}))
+    return rows, by_path
+
+
+def gr_squeeze1_config(dtype='float32'):
+    """The shipped YAML in GR mode with ``decoder.num_squeeze`` 1 on the
+    loaded config (no YAML edited): 80 flow channels, the shipped
+    WaveNet, the pitch operand 1 wide."""
+    config = mode_config('GR', dtype=dtype)
+    return dataclasses.replace(config, decoder=dataclasses.replace(
+        config.decoder, num_squeeze=1))
+
+
+def run_gr_squeeze1_phase(pitch_rows, train_pitch_rows, device, card):
+    """GR at ``Num_Squeeze: 1`` on the pitch builds whose operand is 1 wide
+    (``GLOW_PITCH_SIZE=1`` at 80 channels): #3, #2 and #4 at f32 and bf16
+    against their plain versions; #5 and #6 at f32 (both routes,
+    bit-equal) and bf16 against theirs; each timed beside the build
+    without the pitch operand (f32) or the f32 build (bf16), and beside
+    the 160-channel pitch build's time on the same B and T from the
+    conditioned phases; the ActNorm init and 3 train steps at f32 and at
+    bf16 beside the plain versions step by step; an eval step under each
+    route at both dtypes; one decode at each.  Returns the kernels line's
+    rows and the launches by path."""
+    from glow_tts_tpu_torch import Inferencer, random_state_dict
+    from glow_tts_tpu_torch.models.decoder import squeeze
+    from glow_tts_tpu_torch.models.layers import sequence_mask
+    from glow_tts_tpu_torch.ops.coupling import pitch_width
+    from glow_tts_tpu_torch.training.step import conditioning_inputs
+    start = time.perf_counter()
+    gr32 = gr_squeeze1_config()
+    gr16 = dataclasses.replace(gr32, compute_dtype='bfloat16')
+    c = gr32.sound.mel_dim * gr32.decoder.num_squeeze
+    assert (c, pitch_width(c)) == (80, 1), c
+    batch = conditioned_batch(gr32, device, SEED + 170)
+    state = random_state_dict(gr32, SEED + 171)
+    rows, by_path = {}, {}
+
+    model = fresh_model(state, gr32, device)
+    model.data_dependent_init(batch['mels'], batch['mel_lengths'],
+                              **conditioning_inputs(batch))
+    _, eval_mask = squeeze(batch['mels'], sequence_mask(
+        batch['mel_lengths'], batch['mels'].shape[1]), 1)
+    names = ('flow_step', 'coupling', 'flow_stack')
+    for dtype, tag in ((torch.float32, '_c80_pitch'),
+                       (BF16, '_bf16_c80_pitch')):
+        for name, row in flow_kernel_rows(
+                model, device, eval_mask, f'GR squeeze 1 {dtype}', dtype,
+                pitch=True, names=names).items():
+            row['c160_pitch_build_ms'] = pitch_rows[name]['ms']
+            rows[name + tag] = row
+
+    trainee = train_model(state, gr32, device)
+    trainee.data_dependent_init(batch['mels'], batch['mel_lengths'],
+                                **conditioning_inputs(batch))
+    x, mask, weights, cond, pitch = pitch_stack_problem(trainee, batch, gr32)
+    del trainee
+    assert pitch.shape[-1] == 1
+    fwd_err = check_train_pitch_forward(x, mask, weights, cond, pitch)
+    bwd_err = check_train_backward(x, mask, weights, cond, pitch)
+    fwd_row, bwd_row = time_train_pitch_kernels(x, mask, weights, cond, pitch)
+    fwd16, bwd16 = check_bf16_train(x, mask, weights, 'GR squeeze 1', cond,
+                                    pitch)
+    _, fwd16_row, bwd16_row = time_bf16_kernels(
+        model, x, mask, weights, device, 'GR squeeze 1', cond, pitch,
+        step_pitch=True, iters=2)
+    del x, mask, weights, cond, pitch, model
+    for name, row, err in (
+            ('flow_train_fwd_c80_pitch', fwd_row, fwd_err),
+            ('flow_train_bwd_c80_pitch', bwd_row, bwd_err),
+            ('flow_train_fwd_bf16_c80_pitch', fwd16_row, fwd16),
+            ('flow_train_bwd_bf16_c80_pitch', bwd16_row, bwd16)):
+        row['max_abs_err'] = err
+        row['c160_pitch_build_ms'] = train_pitch_rows[
+            name.split('_c80')[0].replace('_bf16', '')]['ms']
+        if 'bwd_bf16' in name:
+            row['max_abs_err_is'] = (
+                'the worst gradient norm-relative error against the f32 '
+                'plain version')
+        rows[name] = row
+
+    by_path['GR squeeze 1 train f32'] = run_training(
+        gr32, batch, device, GR1_TRAIN_STEPS, state=state)
+    by_path['GR squeeze 1 train bf16'], _ = run_bf16_training(
+        gr16, batch, device, GR1_TRAIN_STEPS, state=state, eval_steps=0)
+    for config in (gr32, gr16):
+        paths, _ = routes_eval(config, state, batch, device,
+                               f'GR squeeze 1 {config.compute_dtype}')
+        by_path.update(paths)
+    items = conditioned_items(gr32, [INFERENCE_TEXTS[i % 4]
+                                     for i in range(MODE_BATCH)], SEED + 172)
+    for dtype in ('float32', 'bfloat16'):
+        cfg = dataclasses.replace(gr32, compute_dtype=dtype,
+                                  inference_dtype=dtype)
+        inferencer = Inferencer(state, cfg, device, batch_size=MODE_BATCH)
+        zero_counts()
+        results = inferencer.synthesize_items(items, seed=SEED)
+        launches = read_counts()
+        assert launches == route_launches('fused', cfg, 1, pitch=True), \
+            launches
+        for r in results:
+            assert np.isfinite(r['mel']).all() and r['mel'].shape[1] == 80
+        print(f'GR squeeze 1 served {len(results)} requests at {dtype}: '
+              f'mels {[r["mel"].shape[0] for r in results]} frames, '
+              'launches '
+              + json.dumps({k: v for k, v in launches.items() if v}))
+        by_path[f'GR squeeze 1 serve {dtype}'] = launches
+    print('GR squeeze 1 phase: ' + json.dumps({
+        'seconds': round(time.perf_counter() - start, 1), 'card': card}))
+    return rows, by_path
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: no CUDA device; this script runs on a GPU only')
@@ -4274,9 +4824,11 @@ def main():
     print(f'card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}')
 
     begun = start = time.perf_counter()
-    # (source, defines): the six libraries, and the pitch instantiations of
-    # #3, #2, #4, #5 and #6 (GR mode) and their 80-channel builds
-    # (MiniSpeech) as libraries of their own
+    # (source, defines): every library the run loads, the MAS kernel's and
+    # each flow source's eight builds: 160 and 80 channels, each with its
+    # pitch instantiation (the pitch operand 2 and 1 wide), at float32 and
+    # at bfloat16; one nvcc each, all started together before the first
+    # phase
     flow_loaders = (('flow_step.cu', coupling.load_flow_step_library),
                     ('coupling.cu', coupling.load_coupling_library),
                     ('flow_stack.cu', coupling.load_flow_stack_library),
@@ -4284,28 +4836,12 @@ def main():
                      coupling_grad.load_train_forward_library),
                     ('flow_train_bwd.cu',
                      coupling_grad.load_train_backward_library))
-    sources = {('flow_step.cu', ()): coupling.load_flow_step_library,
-               ('coupling.cu', ()): coupling.load_coupling_library,
-               ('flow_stack.cu', ()): coupling.load_flow_stack_library,
-               ('mas.cu', ()): mas.load_mas_library,
-               ('flow_train_fwd.cu', ()):
-                   coupling_grad.load_train_forward_library,
-               ('flow_train_bwd.cu', ()):
-                   coupling_grad.load_train_backward_library,
-               **{(source, coupling.PITCH_BUILD): functools.partial(load, True)
-                  for source, load in flow_loaders},
-               **{(source, coupling.build_defines(80)):
-                  functools.partial(load, channels=80)
-                  for source, load in flow_loaders},
-               # the bfloat16 builds of #3, #5 and #6: 160 and 80 channels
-               # and the 160-channel pitch builds
-               **{(source, coupling.build_defines(channels, pitch, True)):
-                  functools.partial(load, pitch, channels, True)
-                  for source, load in flow_loaders
-                  if source in ('flow_step.cu', 'flow_train_fwd.cu',
-                                'flow_train_bwd.cu')
-                  for channels, pitch in ((160, False), (160, True),
-                                          (80, False))}}
+    sources = {('mas.cu', ()): mas.load_mas_library,
+               **{(source, coupling.library_defines(channels, pitch, bf16)):
+                  functools.partial(load, pitch, channels, bf16)
+                  for bf16 in (False, True) for channels in (160, 80)
+                  for pitch in (False, True)
+                  for source, load in flow_loaders}}
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc each, together
         for build in [pool.submit(load) for load in sources.values()]:
             build.result()
@@ -4319,7 +4855,7 @@ def main():
         phases[name] = round(now - start, 1)
         start = now
 
-    print(f'{len(sources)} kernel libraries built and loaded in '
+    print(f'kernel builds: {len(sources)} libraries built and loaded in '
           f'{time.perf_counter() - start:.1f} s')
     for source, defines in sources:
         for line in cuda_build.ptxas_report(source, defines):
@@ -4421,6 +4957,15 @@ def main():
                                            card)
     by_path.update(bf16_paths)
     phase_done('bf16')
+    # bf16 under 'modules' and 'mega': #2's and #4's bf16 builds
+    routes_rows, routes_paths = run_bf16_routes_phase(batches, device, card)
+    by_path.update(routes_paths)
+    phase_done('bf16 routes')
+    # GR at Num_Squeeze 1: the pitch operand 1 wide in every flow kernel
+    squeeze1_rows, squeeze1_paths = run_gr_squeeze1_phase(
+        pitch_rows, train_pitch_rows, device, card)
+    by_path.update(squeeze1_paths)
+    phase_done('GR squeeze 1')
     # MiniSpeech, the converged recipe: the 80-channel builds, the
     # curriculum and its trainer
     minispeech_rows, minispeech_paths = run_minispeech_phase(device, card)
@@ -4533,6 +5078,48 @@ def main():
           for name, counter, replaces, entry in (
               ('flow_step', 'flow_step', 'glow_tts_tpu/ops/coupling.py:190',
                'fused_flow_step'),
+              ('flow_train_fwd', 'train_fwd',
+               'glow_tts_tpu/ops/coupling_grad.py:97',
+               'fused_flow_stack_train'),
+              ('flow_train_bwd', 'train_bwd',
+               'glow_tts_tpu/ops/coupling_grad.py:195',
+               'fused_flow_stack_train (backward)'))),
+        # the bfloat16 builds of #2 and #4: 160 channels, the pitch builds,
+        # 80 channels
+        *({'name': f'{name}_bf16{tag}', 'route': 'cuda',
+           'source': csrc + f'{name}.cu',
+           'build': ' '.join(f'-D{d}' for d in defines),
+           'replaces': replaces, 'entry': entry,
+           **launches(f'{name}_bf16{tag}'),
+           **routes_rows[f'{name}_bf16{tag}'], 'library_ms': None}
+          for tag, defines in (
+              ('', ('GLOW_BF16',)), ('_pitch', ('GLOW_PITCH', 'GLOW_BF16')),
+              ('_c80', ('GLOW_CHANNELS=80', 'GLOW_BF16')))
+          for name, replaces, entry in (
+              ('coupling', 'glow_tts_tpu/ops/coupling.py:190',
+               'fused_coupling'),
+              ('flow_stack', 'glow_tts_tpu/ops/coupling.py:296',
+               'fused_flow_stack'))),
+        # GR at Num_Squeeze 1: the 80-channel pitch builds of every flow
+        # source (the pitch operand 1 wide), at f32 and at bf16
+        *({'name': f'{name}{tag}', 'route': 'cuda',
+           'source': csrc + f'{name}.cu',
+           'build': ' '.join(f'-D{d}' for d in defines),
+           'replaces': replaces, 'entry': entry,
+           **launches(f'{counter}{tag}'), **squeeze1_rows[f'{name}{tag}'],
+           'library_ms': None}
+          for tag, defines in (
+              ('_c80_pitch', ('GLOW_PITCH', 'GLOW_PITCH_SIZE=1',
+                              'GLOW_CHANNELS=80')),
+              ('_bf16_c80_pitch', ('GLOW_PITCH', 'GLOW_PITCH_SIZE=1',
+                                   'GLOW_CHANNELS=80', 'GLOW_BF16')))
+          for name, counter, replaces, entry in (
+              ('flow_step', 'flow_step', 'glow_tts_tpu/ops/coupling.py:190',
+               'fused_flow_step'),
+              ('coupling', 'coupling', 'glow_tts_tpu/ops/coupling.py:190',
+               'fused_coupling'),
+              ('flow_stack', 'flow_stack',
+               'glow_tts_tpu/ops/coupling.py:296', 'fused_flow_stack'),
               ('flow_train_fwd', 'train_fwd',
                'glow_tts_tpu/ops/coupling_grad.py:97',
                'fused_flow_stack_train'),

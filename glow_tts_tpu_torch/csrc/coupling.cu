@@ -1,5 +1,5 @@
 // The WaveNet affine coupling of the Glow-TTS decoder alone, as one kernel,
-// float32 throughout: start 1x1 on x_a -> gated k-tap layers -> end 1x1 ->
+// float32 results: start 1x1 on x_a -> gated k-tap layers -> end 1x1 ->
 // z_b = (mean + exp(logs) * x_b) * m with the logdet, or on the inverse
 // pass z_b = (x_b - mean) * exp(-logs) * m.
 //
@@ -27,21 +27,21 @@
 // * The forward logdet has no per-frame constant: the tile's sum of
 //   logs * m, written per (sample, tile) and summed by the caller.
 // * GR mode's pitch operand is a build of its own, as in flow_step.cu.
+// * A GLOW_BF16 build is this kernel on bfloat16 x_a, x_b and z_b with
+//   flow_common.cuh's bfloat16 body (the same coupling_net that
+//   flow_step.cu's bfloat16 build runs): the TPU kernel at dt = bfloat16,
+//   its big products on bfloat16 tensor-core operands, one pass.  The
+//   logdet's sums stay float32.
 //
 // What bounds it: arithmetic, as flow_step.cu (it drops only the mixing
 // matmul, 51 of a step's 3,609 kFLOP per frame).
 
 #include "flow_common.cuh"
 
-#ifdef GLOW_BF16
-// the coupling kernel has no bfloat16 build yet (ROADMAP.md B.3)
-#error "no GLOW_BF16 build of this source"
-#endif
-
 namespace {
 
 struct Strided {
-  const float* data;     // [B, T, C/2], unit stride along channels
+  const act_t* data;     // [B, T, C/2], unit stride along channels
   size_t batch_stride, row_stride;
 };
 
@@ -52,7 +52,7 @@ struct Params {
   const float* pitch;    // [B, T, kPitchSize], GLOW_PITCH builds only
   const float* w_pitch;  // [NL, kPitchSize, 2CH], GLOW_PITCH builds only
   StepWeights w;         // an_logs, an_bias and mix_t unused (null)
-  float* z_b;            // [B, T, C/2]
+  act_t* z_b;            // [B, T, C/2]
   float* ld_part;        // [B, n_tiles], forward only
   int* tiles;            // [5] or null: report_tiles
   int B, T, n_tiles;
@@ -82,8 +82,8 @@ __device__ __forceinline__ float coupling_tile(const Tile<S>& tile,
       const int r = i / C2, c = i % C2, row = HALO + r, t = tile.t0 + row;
       if (t >= p.T) continue;
       const float mean = acc[r * C + c], logs = acc[r * C + C2 + c];
-      p.z_b[(tile.sample + t) * C2 + c] =
-          (xs[row * C + C2 + c] - mean) * expf(-logs) * tile.ms[row];
+      p.z_b[(tile.sample + t) * C2 + c] = to_act(
+          (xs[row * C + C2 + c] - mean) * expf(-logs) * tile.ms[row], p.z_b);
     }
   }
   __syncthreads();
@@ -155,19 +155,23 @@ int glow_coupling_resident_blocks(int B) {
 
 // Shapes are those of Built (C = glow_flow_channels(), ch=192, 4 layers, k=5),
 // w_in and w_rs in the tensor-core layout; the caller checks them, and that the
-// strides (in floats) and pointers of x_a and x_b are multiples of 4 floats.
+// strides (in elements) and addresses of x_a and x_b are multiples of 4
+// elements.
 // pitch and w_pitch are null, or with a GLOW_PITCH build not null
 // (cudaErrorInvalidValue otherwise).  tiles is null, or 5 zeroed ints that
-// receive what the launch did (flow_common.cuh::report_tiles).  Returns a
-// cudaError_t, 0 on success.
-int glow_coupling_f32(const float* x_a, long long a_batch_stride,
-                      long long a_row_stride, const float* x_b,
+// receive what the launch did (flow_common.cuh::report_tiles).  x_a, x_b
+// and z_b are bfloat16 in a GLOW_BF16 build (the entry keeps its name; the
+// strides are in elements), and so are w_in and w_rs
+// (ops/coupling.py::tensor_core_layout_bf16).  Returns a cudaError_t, 0 on
+// success.
+int glow_coupling_f32(const act_t* x_a, long long a_batch_stride,
+                      long long a_row_stride, const act_t* x_b,
                       long long b_batch_stride, long long b_row_stride,
                       const float* mask, const float* cond,
                       const float* pitch, const float* w_pitch,
                       const float* w_start, const float* b_start,
                       const float* w_in, const float* w_rs, const float* b_rs,
-                      const float* w_end, const float* b_end, float* z_b,
+                      const float* w_end, const float* b_end, act_t* z_b,
                       float* ld_part, int* tiles, int B, int T, int reverse,
                       void* stream) {
   if ((pitch != nullptr) != kPitch || (w_pitch != nullptr) != kPitch)

@@ -951,7 +951,7 @@ __device__ __forceinline__ float affine_forward(const Tile<S>& tile, E* z) {
         out[c] = to_act(xs[row * C + c], z);
         out[C2 + c] = to_act(zb, z);
       } else {
-        z[(tile.sample + t) * C2 + c] = zb;
+        z[(tile.sample + t) * C2 + c] = to_act(zb, z);
       }
     }
   }
@@ -985,15 +985,19 @@ struct BiasPreGate {
   }
 };
 
-// Width of GR mode's pitch operand: num_squeeze at the shipped config.
-constexpr int kPitchSize = 2;
-#if defined(GLOW_PITCH) && GLOW_CHANNELS != 160
-// at Num_Squeeze 1 the pitch operand is 1 wide (ROADMAP.md B.2)
-#error "GR's pitch operand is built at 160 channels only"
+// Width of GR mode's pitch operand, num_squeeze: 2 at the shipped config
+// (160 channels) unless the build defines another (ops/cuda_build.py:
+// -DGLOW_PITCH_SIZE=1 beside -DGLOW_CHANNELS=80, Num_Squeeze 1).
+#ifndef GLOW_PITCH_SIZE
+#define GLOW_PITCH_SIZE 2
 #endif
+constexpr int kPitchSize = GLOW_PITCH_SIZE;
+static_assert(kPitchSize == 1 || kPitchSize == 2,
+              "the pitch operand is num_squeeze (1 or 2) wide");
 
 // A block's copy of its tile's pitch rows [R, PS] and of one flow step's
-// w_pitch [NL, PS, 2CH] (12.4 KB at the shipped shape), in static shared
+// w_pitch [NL, PS, 2CH] (12.4 KB at the shipped shape, 6.2 KB at PS = 1),
+// in static shared
 // memory beside the dynamic buffers: only a kernel that runs PitchPreGate
 // has it.
 template <class S, int PS>

@@ -1,6 +1,6 @@
 // The whole flow stack of the Glow-TTS decoder (S x [ActNorm -> mixing ->
 // WaveNet affine coupling], the steps in reverse order on the inverse pass)
-// as one kernel launch, float32 throughout.
+// as one kernel launch, float32 results.
 //
 // Replaces glow_tts_tpu/ops/coupling.py::_make_mega_kernel, the Pallas
 // kernel behind fused_flow_stack.  The plain PyTorch version of the same
@@ -43,9 +43,9 @@
 //   tensor, so nothing is copied (see wait_for_neighbours for why no
 //   write lands on rows still to be read);
 // * step j's weights are step j's (reverse: S - 1 - j's) slices of the
-//   stacked tensors, GR mode's w_pitch [steps, NL, 2, 2CH] among them in a
+//   stacked tensors, GR mode's w_pitch [steps, NL, PS, 2CH] among them in a
 //   build of its own (GLOW_PITCH, as in flow_step.cu; the pitch operand
-//   [B, T, 2] is the same for every step); per-tile arithmetic is
+//   [B, T, PS] is the same for every step); per-tile arithmetic is
 //   flow_step.cu's
 //   (flow_common.cuh::flow_step_tile), so z is bit-equal to S chained
 //   launches of it;
@@ -56,6 +56,10 @@
 //   same bits.
 // The plain twin of the list and of each item's dependencies is
 // ops/coupling.py::stack_tile_schedule.
+// A GLOW_BF16 build is this kernel on flow_step.cu's bfloat16 body: x, z
+// and the two buffers are bfloat16, so the stream is rounded to bfloat16
+// between the steps, as the TPU kernel's carry is (in dt), and z is
+// bit-equal to S chained launches of flow_step.cu's bfloat16 build.
 //
 // What bounds it: arithmetic, S times flow_step.cu's on the live tiles; a
 // step's trip through device memory, which the TPU kernel exists to save,
@@ -63,23 +67,18 @@
 
 #include "flow_common.cuh"
 
-#ifdef GLOW_BF16
-// the flow stack kernel has no bfloat16 build yet (ROADMAP.md B.3)
-#error "no GLOW_BF16 build of this source"
-#endif
-
 namespace {
 
 struct Params {
-  const float* x;        // [B, T, C]
+  const act_t* x;        // [B, T, C]
   const float* mask;     // [B, T]
   const float* cond;     // [steps, NL, B, 2CH]
   const float* pitch;    // [B, T, kPitchSize], GLOW_PITCH builds only
   const float* w_pitch;  // [steps, NL, kPitchSize, 2CH], GLOW_PITCH only
   StepWeights w;         // step 0 of each stacked [steps, ...] tensor
   const float* ld_const; // [steps], forward only
-  float* z;              // [B, T, C] the result: the last step writes it
-  float* other;          // [B, T, C] the second buffer (null at 1 step)
+  act_t* z;              // [B, T, C] the result: the last step writes it
+  act_t* other;          // [B, T, C] the second buffer (null at 1 step)
   float* ld_part;        // [B, n_tiles], forward only
   unsigned* done;        // [steps, B, n_tiles], zero at launch
   int* tiles;            // [5] or null: report_tiles
@@ -237,16 +236,18 @@ int glow_flow_stack_resident_blocks(int B) {
 // steps * B * tiles unsigneds of scratch, tiles null or 5 zeroed ints that
 // receive what the launch did (flow_common.cuh::report_tiles: its live
 // items are steps * the live tiles).  pitch and w_pitch are null, or with a
-// GLOW_PITCH build not null (cudaErrorInvalidValue otherwise).  Returns a
+// GLOW_PITCH build not null (cudaErrorInvalidValue otherwise).  x, z and
+// other are bfloat16 in a GLOW_BF16 build (the entry keeps its name), and so
+// are w_in and w_rs (ops/coupling.py::tensor_core_layout_bf16).  Returns a
 // cudaError_t, 0 on success.
-int glow_flow_stack_f32(const float* x, const float* mask, const float* cond,
+int glow_flow_stack_f32(const act_t* x, const float* mask, const float* cond,
                         const float* pitch, const float* w_pitch,
                         const float* an_logs, const float* an_bias,
                         const float* mix_t, const float* w_start,
                         const float* b_start, const float* w_in,
                         const float* w_rs, const float* b_rs,
                         const float* w_end, const float* b_end,
-                        const float* ld_const, float* z, float* other,
+                        const float* ld_const, act_t* z, act_t* other,
                         float* ld_part, unsigned* done, int* tiles, int B,
                         int T, int steps, int reverse, void* stream) {
   if ((pitch != nullptr) != kPitch || (w_pitch != nullptr) != kPitch)

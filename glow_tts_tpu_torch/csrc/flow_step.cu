@@ -29,11 +29,11 @@
 //   that is about half the tiles; the live ones are dealt out evenly.
 // * The forward logdet is written per (sample, tile) and summed by the
 //   caller: no atomics, so it does not depend on block order.
-// * GR mode's pitch operand (pitch [B, T, 2], w_pitch [NL, 2, 2CH]) is a
-//   build of its own (GLOW_PITCH: flow_common.cuh::PitchPreGate), so the
-//   Vanilla instantiations do not change; it adds 2 * 2 * 2CH FLOP per frame
-//   and layer, and stages the tile's pitch and the step's w_pitch in shared
-//   memory.
+// * GR mode's pitch operand (pitch [B, T, PS], w_pitch [NL, PS, 2CH], PS =
+//   kPitchSize, num_squeeze) is a build of its own (GLOW_PITCH:
+//   flow_common.cuh::PitchPreGate), so the Vanilla instantiations do not
+//   change; it adds 2 * PS * 2CH FLOP per frame and layer, and stages the
+//   tile's pitch and the step's w_pitch in shared memory.
 // * A GLOW_BF16 build (the bfloat16 flow step, ops/coupling.py's policy) is
 //   this kernel on bfloat16 x and z with flow_common.cuh's bfloat16 body: the
 //   TPU kernel at dt = bfloat16, its big products on bfloat16 tensor-core

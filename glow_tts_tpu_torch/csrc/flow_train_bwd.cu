@@ -61,7 +61,7 @@
 // Vanilla kernels do not change.  It adds one launch per layer
 // (pitch_backward) on dacc, the pre-gate gradient after the dropout, where
 // the forward added the pitch term: dw_pitch[i] = pitch^T . dacc as
-// per-sample partials (a [2, 2CH] reduction over the valid frames, added
+// per-sample partials (a [PS, 2CH] reduction over the valid frames, added
 // by reduce_partials in the samples' order), and, when the pitch operand's
 // gradient is wanted, dpitch += dacc . w_pitch[i]^T, a warp per frame
 // (depth 2CH, a butterfly in a fixed order), layer after layer in launch
@@ -112,10 +112,6 @@ constexpr int BK = 32;       // depth of a staged slice
 #endif
 constexpr int kChannels = GLOW_CHANNELS;
 constexpr bool kDepthTail = kChannels % BK != 0;
-#if defined(GLOW_PITCH) && GLOW_CHANNELS != 160
-// at Num_Squeeze 1 the pitch operand is 1 wide (ROADMAP.md B.2)
-#error "GR's pitch operand is built at 160 channels only"
-#endif
 
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
@@ -773,8 +769,14 @@ cudaError_t launch_sums(SumJobs jobs, int B, int T, const int* lengths,
 }
 
 #ifdef GLOW_PITCH
-// Width of GR mode's pitch operand (flow_common.cuh's kPitchSize).
-constexpr int kPitchSize = 2;
+// Width of GR mode's pitch operand (flow_common.cuh's kPitchSize): 2
+// unless the build defines another (-DGLOW_PITCH_SIZE=1, Num_Squeeze 1).
+#ifndef GLOW_PITCH_SIZE
+#define GLOW_PITCH_SIZE 2
+#endif
+constexpr int kPitchSize = GLOW_PITCH_SIZE;
+static_assert(kPitchSize == 1 || kPitchSize == 2,
+              "the pitch operand is num_squeeze (1 or 2) wide");
 
 // The backward of layer i's pitch term, pitch [M, kPitchSize] . w_pitch
 // [kPitchSize, ch2] added to the pre-gate sum after the dropout, from dacc

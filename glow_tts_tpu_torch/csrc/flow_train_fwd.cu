@@ -49,19 +49,20 @@
 // past a sample's length, its column sums stop at the length, and its
 // elementwise passes write rows there that no later launch reads.
 //
-// GR mode's pitch operand (pitch [B, T, 2], w_pitch [S, NL, 2, 2CH]) is a
-// build of its own (GLOW_PITCH), as for flow_step.cu, so the Vanilla
-// instantiations do not change: the pre-gate gains sum_p pitch[frame, p] *
-// w_pitch[i][p][col] after the conditioning (both are added after the
-// dropout), with the tile's pitch and the layer's w_pitch staged in static
-// shared memory once a tile (flow_common.cuh::PitchPreGate's staging;
+// GR mode's pitch operand (pitch [B, T, PS], w_pitch [S, NL, PS, 2CH], PS =
+// kPitchSize) is a build of its own (GLOW_PITCH), as for flow_step.cu, so
+// the Vanilla instantiations do not change: the pre-gate gains sum_p
+// pitch[frame, p] * w_pitch[i][p][col] after the conditioning (both are
+// added after the dropout), with the tile's pitch and the layer's w_pitch
+// staged in static shared memory once a tile
+// (flow_common.cuh::PitchPreGate's staging;
 // frames outside [0, T) staged as 0), so the epilogue, where the body has
 // no registers to spare, reads no global memory for them.  All three
 // instantiations and the backward's recompute have it.
 //
 // What bounds it: arithmetic, as flow_step.cu (3.7 MFLOP per frame and
 // step against a few bytes); the hash adds ~20 integer operations per
-// pre-gate element, the pitch term 2 * 2 * 2CH FLOP per frame and layer.
+// pre-gate element, the pitch term 2 * PS * 2CH FLOP per frame and layer.
 //
 // A GLOW_BF16 build computes what the TPU kernel computes at dt = bfloat16
 // (flow_common.cuh's bfloat16 body, bfloat16 tensor-core operands): every
@@ -245,8 +246,8 @@ const char* glow_cuda_error_string(int err) {
 // (ops/coupling.py::tensor_core_weights).  passes is 3 (3xTF32) or, for
 // measuring a forward pass without save, 1.  tiles is null, or 5 zeroed ints
 // that receive what the launches did, the computed tiles summed over the steps
-// (flow_common.cuh::report_tiles).  pitch [B, T, 2] and w_pitch [S, NL, 2, 2CH]
-// are null, or with a GLOW_PITCH build not null (cudaErrorInvalidValue
+// (flow_common.cuh::report_tiles).  pitch [B, T, PS] and w_pitch [S, NL, PS,
+// 2CH] are null, or with a GLOW_PITCH build not null (cudaErrorInvalidValue
 // otherwise; passes is then 3).  In a GLOW_BF16 build (the entry keeps its
 // name) acts and the saved values are bfloat16, w_in and w_rs in the bfloat16
 // layout, and passes is 3. Returns a cudaError_t, 0 on success.

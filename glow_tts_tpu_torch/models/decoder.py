@@ -37,13 +37,16 @@ The compute dtype is the decoder's ``dtype`` (``models/layers.py``).  At
 bfloat16 the flow's stream between the steps is bfloat16 and each step
 computes as the TPU kernels do at ``dt = bfloat16`` (``ops/coupling.py``,
 ``ops/coupling_grad.py``): training through ``flow_stack_train``, the
-deterministic route ``'fused'`` through ``flow_step``, whose kernels have
-bfloat16 builds; ``'modules'`` and ``'mega'`` have none yet and raise
-(``ROADMAP.md`` B.3).  ActNorm's statistics are float32 and its
-data-dependent initialisation reads each step's own input; the logdets
-are float32 and ``z`` leaves the decoder in float32.  A step packs its
-weights per dtype (on a card the bfloat16 pack carries ``w_in``/``w_rs``
-in the bfloat16 kernels' layout and the weights they take rounded).
+deterministic routes through ``flow_step`` (``'fused'``), ``coupling``
+between ActNorm and the invertible 1×1 at bfloat16 (``'modules'``) and
+``flow_stack`` (``'mega'``), each kernel with a bfloat16 build.  ActNorm's
+statistics are float32 and its data-dependent initialisation reads each
+step's own input, step by step through ``flow_step`` under every route;
+the logdets are float32 and ``z`` leaves the decoder in float32.  A step
+packs its weights per dtype (on a card the bfloat16 pack carries
+``w_in``/``w_rs`` in the bfloat16 kernels' layout and the weights they
+take rounded), and the decoder stacks them per direction and dtype for
+``'mega'``.
 """
 
 from __future__ import annotations
@@ -311,16 +314,19 @@ class AffineCoupling(nn.Module):
         wrapper unless a caller compares it with the plain version) on
         ``packed``, the contiguous float32 ``(weights, cond [n, B, 2ch])``
         a caller keeps, or on this module's weights packed now, without
-        gradients (on the card with their tensor-core layout), with the
-        Vanilla rows.  ``pitch [B, T, ps]`` is GR mode's pitch operand."""
+        gradients, for the kernels of ``x``'s dtype (on the card with their
+        tensor-core layout; at bfloat16 the weights they take rounded, as
+        :meth:`FlowStep.weights` packs them), with the Vanilla rows.
+        ``pitch [B, T, ps]`` is GR mode's pitch operand."""
         if packed is None:
             with torch.no_grad():
                 weights, rows = self.pack()
                 b_in = rows['b_in']
                 weights = {key: value.float().contiguous()
                            for key, value in weights.items()}
-                if x.device.type == 'cuda':
-                    weights = with_tensor_core_weights(weights)
+                weights = (with_tensor_core_weights(weights, x.dtype)
+                           if x.device.type == 'cuda'
+                           else rounded_weights(weights, x.dtype))
                 n, ch2 = b_in.shape
                 cond = b_in.float()[:, None, :].expand(
                     n, x.shape[0], ch2).contiguous()
@@ -446,7 +452,7 @@ class FlowStep(nn.Module):
             return step_fn(x, mask, self.weights(reverse, x.dtype), cond,
                            reverse, pitch=pitch)
         actnorm, invconv, coupling_module = self.layers
-        weights = self.weights(reverse)
+        weights = self.weights(reverse, x.dtype)
         packed = ({key: weights[key] for key in
                    (*COUPLING_WEIGHT_KEYS, *TC_KEYS.values(), 'w_pitch')
                    if key in weights}, cond)
@@ -468,13 +474,13 @@ class FlowDecoder(nn.Module, ComputesAt):
 
     def __init__(self, config):
         super().__init__()
-        self.route = config.flow_route
         self.num_squeeze = config.decoder.num_squeeze
         self.dropout_rate = config.decoder.affine_coupling.wavenet.dropout_rate
         self.mega_route = config.flow_route == 'mega'
         self.layer_Dict = nn.ModuleDict({'Flows': nn.ModuleList([
             FlowStep(config) for _ in range(config.decoder.stack)])})
-        self._stacked: Dict[bool, Dict[str, torch.Tensor]] = {}
+        self._stacked: Dict[Tuple[bool, torch.dtype],
+                            Dict[str, torch.Tensor]] = {}
         self._stacked_cond: Optional[torch.Tensor] = None
         self._stacked_rows: Optional[Dict[str, torch.Tensor]] = None
 
@@ -490,18 +496,23 @@ class FlowDecoder(nn.Module, ComputesAt):
         for step in self.layer_Dict['Flows']:
             step.invalidate()
 
-    def stacked_weights(self, reverse: bool) -> Dict[str, torch.Tensor]:
-        """The packed weights of one direction of every step, stacked along
-        a leading flow axis in forward order, as ``flow_stack`` takes them
+    def stacked_weights(self, reverse: bool,
+                        dtype: torch.dtype = torch.float32
+                        ) -> Dict[str, torch.Tensor]:
+        """The packed weights of one direction of every step for the
+        kernels of ``dtype`` (:meth:`FlowStep.weights`), stacked along a
+        leading flow axis in forward order, as ``flow_stack`` takes them
         (``glow_tts_tpu/models/decoder.py::FlowDecoder._mega``); stacked
-        once and kept until the parameters change."""
-        if reverse not in self._stacked:
-            packs = [step.weights(reverse)
+        once per direction and dtype and kept until the parameters
+        change."""
+        key = (reverse, dtype)
+        if key not in self._stacked:
+            packs = [step.weights(reverse, dtype)
                      for step in self.layer_Dict['Flows']]
-            self._stacked[reverse] = {
-                key: torch.stack([pack[key] for pack in packs])
-                for key in packs[0]}
-        return self._stacked[reverse]
+            self._stacked[key] = {
+                name: torch.stack([pack[name] for pack in packs])
+                for name in packs[0]}
+        return self._stacked[key]
 
     def stacked_cond(self, batch: int) -> torch.Tensor:
         """Per-step, per-layer, per-sample bias ``[S, n, B, 2ch]`` of an
@@ -651,18 +662,6 @@ class FlowDecoder(nn.Module, ComputesAt):
         return {key: value.float().contiguous()
                 for key, value in weights.items()}
 
-    def check_route(self, deterministic: bool = True) -> None:
-        """Raise where the decoder's dtype has no kernel build on its
-        route: at bfloat16 the deterministic routes ``'modules'`` and
-        ``'mega'`` (the coupling and stack kernels, ``ROADMAP.md`` B.3)."""
-        if (self.dtype != torch.float32 and deterministic
-                and self.route != 'fused'):
-            raise ValueError(
-                f'coupling_backend {self.route!r} has no {self.dtype} '
-                f'kernel build yet (ROADMAP.md B.3): at compute dtype '
-                f'bfloat16 the deterministic flow runs under \'fused\' '
-                f'(or \'auto\')')
-
     def _squeezed_pitch(self, pitch: Optional[torch.Tensor],
                         mask: torch.Tensor) -> Optional[torch.Tensor]:
         """``pitch [B, T]`` as the kernels' pitch operand ``[B, T/s, s]``."""
@@ -718,7 +717,6 @@ class FlowDecoder(nn.Module, ComputesAt):
         (GR) ``pitch [B, T]``, which is squeezed to the kernels' pitch
         operand ``[B, T/s, s]``.  The flow runs at the decoder's dtype and
         returns x in float32.  Returns (x, logdet [B] or None, mask)."""
-        self.check_route(deterministic)
         s = self.num_squeeze
         pitch = self._squeezed_pitch(pitch, mask)
         x, sq_mask = squeeze(x, mask, s)
@@ -736,7 +734,7 @@ class FlowDecoder(nn.Module, ComputesAt):
                                      pitch is not None)
             if self.mega_route:
                 x, logdet = flow_stack_fn(
-                    x, sq_mask, self.stacked_weights(reverse), cond,
+                    x, sq_mask, self.stacked_weights(reverse, x.dtype), cond,
                     pitch=pitch, reverse=reverse)
             else:
                 steps = list(enumerate(self.layer_Dict['Flows']))

@@ -18,8 +18,10 @@ pre-gate sum) goes to each kernel's pitch instantiation, a library of its
 own built at the first call that has a pitch operand.  The flow's channel
 count picks the library too: the shipped config's 160 (``Num_Squeeze: 2``)
 or MiniSpeech's 80 (``Num_Squeeze: 1``), each built at its first call
-(:data:`KERNEL_SHAPES`, :func:`build_defines`); each build counts its
-launches apart (:func:`count_launches`).
+(:data:`KERNEL_SHAPES`, :func:`build_defines`), and with it the pitch
+operand's width, ``ps = num_squeeze`` (:data:`PITCH_WIDTHS`: 2 at 160
+channels, 1 at 80); each build counts its launches apart
+(:func:`count_launches`).
 
 Beside each wrapper stands its plain PyTorch version (``*_reference``);
 the wrapper picks between kernel and plain version by the tensor's device
@@ -45,20 +47,19 @@ is the work list of ``flow_step`` and ``coupling``,
 other tile by tile, not launch by launch.
 
 At bfloat16 (``x`` a bfloat16 tensor: ``config.compute_dtype`` or
-``inference_dtype``) ``flow_step`` computes what the TPU kernel computes at
-``dt = bfloat16``: input and output in bfloat16; the activations rounded to
+``inference_dtype``) each of the three computes what its TPU kernel computes
+at ``dt = bfloat16``: input and output in bfloat16; the activations rounded to
 it where the TPU kernel casts them (the ActNorm output and ``x_a`` before
 the mixing and the start conv, the residual stream ``h``, the gate, the
 masked skip sum), and so are the weights and operands its wrapper casts
 (``mix_t``, ``w_start``, ``w_in``, ``w_rs``, ``w_end``, ``w_pitch``, the
 conditioning rows and the pitch operand); every product sums in float32,
-and ``x_b``, the sums and the logdet stay float32.  Its kernel is a build
-of ``csrc/flow_step.cu`` with ``GLOW_BF16`` (:func:`build_defines`), whose
-big products run on the tensor cores with bfloat16 operands
-(``mma.sync.m16n8k16``) on weights laid out once, where they are packed
-(:func:`tensor_core_weights` with ``dtype``).  ``coupling`` and
-``flow_stack`` have no bfloat16 build yet (``ROADMAP.md`` B.3) and raise on
-a bfloat16 tensor on the card.
+and ``x_b``, the sums and the logdet stay float32; ``flow_stack`` carries
+the stream between the steps in bfloat16, as the TPU kernel's carry is in
+``dt``.  Their kernels are builds of each source with ``GLOW_BF16``
+(:func:`build_defines`), whose big products run on the tensor cores with
+bfloat16 operands (``mma.sync.m16n8k16``) on weights laid out once, where
+they are packed (:func:`tensor_core_weights` with ``dtype``).
 """
 
 from __future__ import annotations
@@ -83,12 +84,13 @@ SHIPPED_CHANNELS = 160
 # B.2)
 KERNEL_SHAPES = tuple({'channels': c, 'ch': 192, 'n_layers': 4,
                        'kernel_size': 5} for c in (SHIPPED_CHANNELS, 80))
-# width of the pitch operand the pitch instantiations take (num_squeeze;
-# kPitchSize in csrc/flow_common.cuh), built at the shipped width only
-PITCH_SIZE = 2
+# width of the pitch operand (num_squeeze) a pitch instantiation of each
+# flow width takes: kPitchSize in csrc/flow_common.cuh, 2 unless the build
+# defines GLOW_PITCH_SIZE
+PITCH_WIDTHS = {SHIPPED_CHANNELS: 2, 80: 1}
 # the macro a pitch instantiation's library is built with
 PITCH_BUILD = ('GLOW_PITCH',)
-# and a bfloat16 build's (flow_step.cu, flow_train_fwd.cu, flow_train_bwd.cu)
+# and a bfloat16 build's
 BF16_BUILD = ('GLOW_BF16',)
 # the weights a bfloat16 kernel takes rounded to bfloat16 (held in float32),
 # as the TPU kernels' wrappers cast them; w_in and w_rs reach it in
@@ -115,32 +117,84 @@ TIME_TILE = 32
 TILE_COUNTS = ('live', 'items', 'computed', 'rounds', 'blocks')
 
 
-def build_defines(channels: int = SHIPPED_CHANNELS,
-                  pitch: bool = False, bf16: bool = False) -> Tuple[str, ...]:
+def pitch_width(channels: int) -> int:
+    """The pitch operand's width at ``channels`` flow channels (raises on a
+    width no build takes: ``ROADMAP.md`` B.2)."""
+    if channels not in PITCH_WIDTHS:
+        raise ValueError(f'GR\'s pitch operand is built at '
+                         f'{sorted(PITCH_WIDTHS)} channels, got {channels} '
+                         f'(other widths: ROADMAP.md B.2)')
+    return PITCH_WIDTHS[channels]
+
+
+def build_defines(channels: int = SHIPPED_CHANNELS, pitch_size: int = 0,
+                  bf16: bool = False) -> Tuple[str, ...]:
     """The macros of a flow kernel's library for ``channels`` flow
-    channels, its pitch instantiation with ``pitch``, its bfloat16 build
-    with ``bf16``."""
-    return ((PITCH_BUILD if pitch else ())
+    channels, its pitch instantiation for a pitch operand ``pitch_size``
+    wide (0: none; :data:`PITCH_WIDTHS` gives the width of each flow
+    width), its bfloat16 build with ``bf16``.  ``GLOW_PITCH_SIZE`` appears
+    only where the width is not the default 2, so the other builds' macros
+    are what they were."""
+    if pitch_size and pitch_size != pitch_width(channels):
+        raise ValueError(f'a pitch operand {pitch_size} wide at {channels} '
+                         f'channels: the width is num_squeeze, '
+                         f'{pitch_width(channels)}')
+    return ((PITCH_BUILD if pitch_size else ())
+            + (() if pitch_size in (0, PITCH_WIDTHS[SHIPPED_CHANNELS])
+               else (f'GLOW_PITCH_SIZE={pitch_size}',))
             + (() if channels == SHIPPED_CHANNELS
                else (f'GLOW_CHANNELS={channels}',))
             + (BF16_BUILD if bf16 else ()))
+
+
+def build_tag(channels: int, pitch: bool) -> str:
+    """The part of a launch count's name that names the build of
+    ``channels`` (with a pitch operand): ``''`` for the shipped float32
+    build, ``'pitch'`` for its pitch instantiation, ``'c80'`` for the
+    80-channel build and ``'c80_pitch'`` for that build's pitch
+    instantiation (its pitch operand 1 wide)."""
+    return '_'.join(part for part in (
+        '' if channels == SHIPPED_CHANNELS else f'c{channels}',
+        'pitch' if pitch else '') if part)
+
+
+# the launch counts' names of every build (flow width, pitch, bf16):
+# ``launches``, ``pitch_launches``, ..., ``bf16_c80_pitch_launches``, after
+# ``<what>_`` where there is one
+COUNT_SUFFIXES = tuple('_'.join(part for part in (
+    bf16, build_tag(c, pitch), 'launches') if part)
+    for bf16 in ('', 'bf16') for c in PITCH_WIDTHS for pitch in (False, True))
+
+
+def library_defines(channels: int, pitch: bool, bf16: bool
+                    ) -> Tuple[str, ...]:
+    """:func:`build_defines` of the library a launch at ``channels`` flow
+    channels (with a pitch operand, of that width's, :data:`PITCH_WIDTHS`;
+    at bfloat16 with ``bf16``) loads."""
+    return build_defines(channels, pitch_width(channels) if pitch else 0,
+                         bf16)
 
 
 def count_launches(fn, what: str, channels: int, pitch: bool,
                    count: int = 1, bf16: bool = False) -> None:
     """Add ``count`` to the launch count of the build of ``channels``
     (with ``pitch``, at bfloat16 with ``bf16``) on ``fn``:
-    ``fn.<what>_launches`` for the shipped float32 build,
-    ``<what>_pitch_launches`` for its pitch instantiation,
-    ``<what>_c80_launches`` for the 80-channel build, each with ``bf16_``
-    before the build's part in a bfloat16 build (``<what>_bf16_launches``,
-    ``<what>_bf16_pitch_launches``, ``<what>_bf16_c80_launches``; no
-    ``what_`` where ``what`` is empty)."""
-    tag = ('pitch' if pitch else
-           '' if channels == SHIPPED_CHANNELS else f'c{channels}')
-    name = '_'.join(part for part in (what, 'bf16' if bf16 else '', tag,
+    ``fn.<what>_<tag>_launches`` with :func:`build_tag`'s tag (none for
+    the shipped float32 build) and ``bf16_`` before it in a bfloat16 build:
+    ``<what>_launches``, ``<what>_pitch_launches``, ``<what>_c80_launches``,
+    ``<what>_c80_pitch_launches``, ``<what>_bf16_launches``, ...,
+    ``<what>_bf16_c80_pitch_launches`` (no ``what_`` where ``what`` is
+    empty)."""
+    name = '_'.join(part for part in (what, 'bf16' if bf16 else '',
+                                      build_tag(channels, pitch),
                                       'launches') if part)
     setattr(fn, name, getattr(fn, name) + count)
+
+
+def zero_launch_counts(fn, what: str = '') -> None:
+    """Set every build's launch count of ``what`` on ``fn`` to 0."""
+    for suffix in COUNT_SUFFIXES:
+        setattr(fn, f'{what}_{suffix}' if what else suffix, 0)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -451,11 +505,13 @@ def _check_launch(name: str, x: torch.Tensor, channels: int,
     """What every kernel of this module asks of a CUDA call: no tensor that
     requires grad, the shipped widths, and each of ``tensors`` (name →
     (tensor, shape)) a contiguous tensor of its shape on ``x``'s device,
-    float32 unless ``dtypes`` names another for it.  ``views`` may be
-    slices of a wider tensor's channels: unit stride along the channels,
-    every other stride and the address a multiple of 4 floats, as the
-    kernel's 16-byte loads need.  Raises otherwise."""
+    float32 unless ``dtypes`` names another for it.  ``views`` (of
+    ``dtypes`` too) may be slices of a wider tensor's channels: unit stride
+    along the channels, every other stride and the address a multiple of 4
+    elements, as the kernel's loads of 4 elements need.  Raises
+    otherwise."""
     views = views or {}
+    dtypes = dtypes or {}
     if x.device.type != 'cuda':
         raise ValueError(f'{name}: no kernel for device {x.device}')
     if torch.is_grad_enabled() and any(
@@ -466,7 +522,6 @@ def _check_launch(name: str, x: torch.Tensor, channels: int,
             'torch.no_grad() or on detached tensors, or train through '
             'ops.coupling_grad.flow_stack_train')
     check_shape(name, channels, w_in_shape)
-    dtypes = dtypes or {}
     for key, (tensor, shape) in tensors.items():
         dtype = dtypes.get(key, torch.float32)
         if (tensor.device != x.device or tensor.dtype != dtype
@@ -477,33 +532,35 @@ def _check_launch(name: str, x: torch.Tensor, channels: int,
                 f'shape {tuple(shape)} on {x.device}; got '
                 f'{tuple(tensor.shape)} {tensor.dtype} on {tensor.device}')
     for key, (view, shape) in views.items():
-        if (view.device != x.device or view.dtype != torch.float32
+        dtype = dtypes.get(key, torch.float32)
+        if (view.device != x.device or view.dtype != dtype
                 or tuple(view.shape) != tuple(shape) or view.stride(-1) != 1
                 or any(stride % 4 for stride in view.stride()[:-1])
-                or view.data_ptr() % 16):
+                or view.data_ptr() % (4 * view.element_size())):
             raise ValueError(
-                f'{name}: {key} must be a float32 tensor of shape '
+                f'{name}: {key} must be a {dtype} tensor of shape '
                 f'{tuple(shape)} on {x.device} with unit stride along the '
-                f'channels and 16-byte aligned rows; got '
+                f'channels and rows aligned to 4 elements; got '
                 f'{tuple(view.shape)} {view.dtype} strides {view.stride()} '
                 f'on {view.device}')
 
 
 def check_shape(name: str, channels: int, w_in_shape: Tuple[int, ...],
-                pitch: bool = False) -> None:
+                pitch_size: int = 0) -> None:
     """Raise unless a build of :data:`KERNEL_SHAPES` takes ``channels``
-    flow channels and ``w_in [n, k, ch, 2ch]`` (with a pitch operand, the
-    shipped width alone)."""
+    flow channels and ``w_in [n, k, ch, 2ch]``, and, with a pitch operand
+    ``pitch_size`` wide, that width is the one of ``channels``
+    (:data:`PITCH_WIDTHS`: num_squeeze, 2 at 160 channels, 1 at 80)."""
     n, k, ch, _ = w_in_shape
     got = {'channels': channels, 'ch': ch, 'n_layers': n, 'kernel_size': k}
     if got not in KERNEL_SHAPES:
         raise ValueError(f'{name} kernel is built for {list(KERNEL_SHAPES)}, '
                          f'got {got} (other widths: ROADMAP.md B.2)')
-    if pitch and channels != SHIPPED_CHANNELS:
+    if pitch_size and pitch_size != pitch_width(channels):
         raise ValueError(
-            f'{name}: GR\'s pitch operand is built at {SHIPPED_CHANNELS} '
-            f'channels only, got {channels} (Num_Squeeze 1 makes the pitch '
-            f'1 wide: ROADMAP.md B.2)')
+            f'{name}: GR\'s pitch operand is num_squeeze wide, '
+            f'{pitch_width(channels)} at {channels} channels; got '
+            f'{pitch_size}')
 
 
 def _check_weights(name: str, x: torch.Tensor, pitch, channels: int,
@@ -515,12 +572,13 @@ def _check_weights(name: str, x: torch.Tensor, pitch, channels: int,
     """:func:`_check_launch` on ``tensors`` (of ``dtypes``), the f32
     ``weights`` of ``shapes`` and their tensor-core layout for a kernel of
     ``dtype``, which ``weights`` must carry: it is made once, where the
-    weights are packed, not at every launch.  With a ``pitch [B, T,
-    PITCH_SIZE]`` operand, ``weights`` carry ``w_pitch [(S,) n, PITCH_SIZE,
-    2ch]`` too."""
+    weights are packed, not at every launch.  With a ``pitch [B, T, ps]``
+    operand (``ps`` the width of ``channels``, :data:`PITCH_WIDTHS`),
+    ``weights`` carry ``w_pitch [(S,) n, ps, 2ch]`` too."""
     w_in_shape = weights['w_in'].shape[0 if steps is None else 1:]
     lead = () if steps is None else (steps,)
-    check_shape(name, channels, w_in_shape, pitch is not None)
+    ps = 0 if pitch is None else pitch.shape[-1]
+    check_shape(name, channels, w_in_shape, ps)
     tensors = dict(tensors)
     shapes = dict(shapes)
     if pitch is not None:
@@ -529,8 +587,8 @@ def _check_weights(name: str, x: torch.Tensor, pitch, channels: int,
                              'the weights')
         b, t = tensors['mask'][1][:2]
         n, _, _, ch2 = w_in_shape
-        tensors['pitch'] = (pitch, (b, t, PITCH_SIZE))
-        shapes['w_pitch'] = lead + (n, PITCH_SIZE, ch2)
+        tensors['pitch'] = (pitch, (b, t, ps))
+        shapes['w_pitch'] = lead + (n, ps, ch2)
     _check_launch(name, x, channels, w_in_shape, {
         **tensors,
         **{key: (weights[key], shape) for key, shape in shapes.items()}},
@@ -583,6 +641,17 @@ def _raise_on(name: str, lib: ctypes.CDLL, err: int) -> None:
                            + lib.glow_cuda_error_string(err).decode())
 
 
+def _rounded_operands(cond: torch.Tensor, pitch: Optional[torch.Tensor],
+                      dtype: torch.dtype):
+    """``(cond, pitch)`` as a build of ``dtype`` takes them: at bfloat16 the
+    conditioning rows and the pitch operand rounded to it (held in
+    float32), as the TPU kernel's wrapper casts them."""
+    if dtype == torch.float32:
+        return cond, pitch
+    return (rounded(cond, dtype).contiguous(),
+            None if pitch is None else rounded(pitch, dtype).contiguous())
+
+
 def flow_step(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
               cond: torch.Tensor, reverse: bool = False,
               pitch: Optional[torch.Tensor] = None
@@ -620,10 +689,7 @@ def _flow_step_kernel(x, mask, weights, cond, reverse=False, pitch=None,
         raise ValueError(f'flow_step: passes is 1 or 3 (3 at bfloat16), '
                          f'got {passes}')
     tiles_ptr = tile_report_pointer('flow_step', tiles, x)
-    if bf16:
-        cond = rounded(cond, dtype).contiguous()
-        if pitch is not None:
-            pitch = rounded(pitch, dtype).contiguous()
+    cond, pitch = _rounded_operands(cond, pitch, dtype)
 
     lib = load_flow_step_library(pitch is not None, c, bf16)
     z = torch.empty_like(x)
@@ -646,18 +712,7 @@ def _flow_step_kernel(x, mask, weights, cond, reverse=False, pitch=None,
     return z, (None if ld_part is None else ld_part.sum(dim=1))
 
 
-flow_step.launches = flow_step.pitch_launches = flow_step.c80_launches = 0
-flow_step.bf16_launches = flow_step.bf16_pitch_launches = 0
-flow_step.bf16_c80_launches = 0
-
-
-def _no_bf16_build(name: str, x: torch.Tensor) -> None:
-    """Raise on a bfloat16 operand of a kernel without a bfloat16 build."""
-    if x.dtype == torch.bfloat16:
-        raise ValueError(
-            f'{name}: no {x.dtype} build of this kernel yet (ROADMAP.md '
-            f'B.3); the flow runs at bfloat16 under coupling_backend '
-            f'\'fused\' (or \'auto\')')
+zero_launch_counts(flow_step)
 
 
 def coupling(x_a: torch.Tensor, x_b: torch.Tensor, mask: torch.Tensor,
@@ -672,27 +727,31 @@ def coupling(x_a: torch.Tensor, x_b: torch.Tensor, mask: torch.Tensor,
     if x_a.device.type == 'cpu':
         return coupling_reference(x_a, x_b, mask, weights, cond, pitch,
                                   reverse)
-    _no_bf16_build('coupling', x_a)
     return _coupling_kernel(x_a, x_b, mask, weights, cond, pitch, reverse)
 
 
 def _coupling_kernel(x_a, x_b, mask, weights, cond, pitch=None,
                      reverse=False, tiles: Optional[torch.Tensor] = None):
     """:func:`coupling`'s launch, with, for measuring, a
-    :func:`tile_report` to fill."""
+    :func:`tile_report` to fill.  A bfloat16 ``x_a`` (and ``x_b``) goes to
+    the bfloat16 build, as in :func:`_flow_step_kernel`."""
     b, t, c2 = x_a.shape
     n, k, ch, ch2 = weights['w_in'].shape
+    bf16 = x_a.dtype == torch.bfloat16
+    dtype = x_a.dtype if bf16 else torch.float32
     shapes = {key: _weight_shapes(2 * c2, n, k, ch)[key]
               for key in COUPLING_WEIGHT_KEYS}
     _check_weights(
         'coupling', x_a, pitch, 2 * c2, weights,
         {'mask': (mask, (b, t, 1)), 'cond': (cond, (n, b, ch2))}, shapes,
-        views={'x_a': (x_a, (b, t, c2)), 'x_b': (x_b, (b, t, c2))})
+        views={'x_a': (x_a, (b, t, c2)), 'x_b': (x_b, (b, t, c2))},
+        dtypes={'x_a': dtype, 'x_b': dtype}, dtype=dtype)
     own = kernel_keys(COUPLING_WEIGHT_KEYS)
     tiles_ptr = tile_report_pointer('coupling', tiles, x_a)
+    cond, pitch = _rounded_operands(cond, pitch, dtype)
 
-    lib = load_coupling_library(pitch is not None, 2 * c2)
-    z_b = torch.empty((b, t, c2), device=x_a.device)
+    lib = load_coupling_library(pitch is not None, 2 * c2, bf16)
+    z_b = torch.empty((b, t, c2), device=x_a.device, dtype=dtype)
     ld_part = None                              # NULL: unused on reverse
     if not reverse:
         n_tiles = -(-t // lib.glow_coupling_time_tile())
@@ -705,11 +764,11 @@ def _coupling_kernel(x_a, x_b, mask, weights, cond, pitch=None,
         z_b.data_ptr(), None if ld_part is None else ld_part.data_ptr(),
         tiles_ptr, b, t, int(reverse),
         torch.cuda.current_stream(x_a.device).cuda_stream))
-    count_launches(coupling, '', 2 * c2, pitch is not None)
+    count_launches(coupling, '', 2 * c2, pitch is not None, bf16=bf16)
     return z_b, (None if ld_part is None else ld_part.sum(dim=1))
 
 
-coupling.launches = coupling.pitch_launches = coupling.c80_launches = 0
+zero_launch_counts(coupling)
 
 
 def flow_stack(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
@@ -722,7 +781,6 @@ def flow_stack(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
     :func:`tensor_core_weights` too (stacked)."""
     if x.device.type == 'cpu':
         return flow_stack_reference(x, mask, weights, cond, pitch, reverse)
-    _no_bf16_build('flow_stack', x)
     return _flow_stack_kernel(x, mask, weights, cond, pitch, reverse)
 
 
@@ -730,19 +788,25 @@ def _flow_stack_kernel(x, mask, weights, cond, pitch=None, reverse=False,
                        tiles: Optional[torch.Tensor] = None):
     """:func:`flow_stack`'s launch, with, for measuring, a
     :func:`tile_report` to fill (its live items are the steps times the
-    live tiles)."""
+    live tiles).  A bfloat16 ``x`` goes to the bfloat16 build, as in
+    :func:`_flow_step_kernel`, and the stream between the steps is
+    bfloat16."""
     b, t, c = x.shape
     steps, n, k, ch, ch2 = weights['w_in'].shape
+    bf16 = x.dtype == torch.bfloat16
+    dtype = x.dtype if bf16 else torch.float32
     shapes = {key: (steps, *_weight_shapes(c, n, k, ch)[key])
               for key in WEIGHT_KEYS}
     if not reverse:
         shapes['ld_const'] = (steps,)
     _check_weights('flow_stack', x, pitch, c, weights, {
         'x': (x, (b, t, c)), 'mask': (mask, (b, t, 1)),
-        'cond': (cond, (steps, n, b, ch2))}, shapes, steps=steps)
+        'cond': (cond, (steps, n, b, ch2))}, shapes, steps=steps,
+        dtypes={'x': dtype}, dtype=dtype)
     tiles_ptr = tile_report_pointer('flow_stack', tiles, x)
+    cond, pitch = _rounded_operands(cond, pitch, dtype)
 
-    lib = load_flow_stack_library(pitch is not None, c)
+    lib = load_flow_stack_library(pitch is not None, c, bf16)
     n_tiles = -(-t // lib.glow_flow_stack_time_tile())
     # the steps go to and fro between two buffers (a step's neighbours may
     # still be reading its input), the last one into z
@@ -766,12 +830,11 @@ def _flow_stack_kernel(x, mask, weights, cond, pitch=None, reverse=False,
         None if ld_part is None else ld_part.data_ptr(), done.data_ptr(),
         tiles_ptr, b, t, steps, int(reverse),
         torch.cuda.current_stream(x.device).cuda_stream))
-    count_launches(flow_stack, '', c, pitch is not None)
+    count_launches(flow_stack, '', c, pitch is not None, bf16=bf16)
     return z, (None if ld_part is None else ld_part.sum(dim=1))
 
 
-flow_stack.launches = flow_stack.pitch_launches = 0
-flow_stack.c80_launches = 0
+zero_launch_counts(flow_stack)
 
 
 def load_flow_library(source: str, pitch: bool = False,
@@ -779,10 +842,10 @@ def load_flow_library(source: str, pitch: bool = False,
                       bf16: bool = False) -> ctypes.CDLL:
     """Build (at first use) and load the flow kernel source ``csrc/
     <source>`` for ``channels`` flow channels (its pitch instantiation with
-    ``pitch``, its bfloat16 build with ``bf16``), held to the width it
-    reports."""
+    ``pitch``, for the pitch operand's width at ``channels``; its bfloat16
+    build with ``bf16``), held to the width it reports."""
     from glow_tts_tpu_torch.ops.cuda_build import load_library
-    lib = load_library(source, build_defines(channels, pitch, bf16))
+    lib = load_library(source, library_defines(channels, pitch, bf16))
     lib.glow_flow_channels.argtypes = []
     lib.glow_flow_channels.restype = ctypes.c_int
     if lib.glow_flow_channels() != channels:
@@ -828,20 +891,23 @@ def load_flow_step_library(pitch: bool = False,
 
 @functools.cache
 def load_coupling_library(pitch: bool = False,
-                          channels: int = SHIPPED_CHANNELS) -> ctypes.CDLL:
+                          channels: int = SHIPPED_CHANNELS,
+                          bf16: bool = False) -> ctypes.CDLL:
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     return _load('coupling.cu', 'glow_coupling_f32',
                  [vp, ll, ll] * 2 + [vp] * (4 + len(COUPLING_WEIGHT_KEYS) + 3)
                  + [ci, ci, ci, vp],
                  pitch, channels,
-                 extra=(('glow_coupling_resident_blocks', [ci]),))
+                 extra=(('glow_coupling_resident_blocks', [ci]),), bf16=bf16)
 
 
 @functools.cache
 def load_flow_stack_library(pitch: bool = False,
-                            channels: int = SHIPPED_CHANNELS) -> ctypes.CDLL:
+                            channels: int = SHIPPED_CHANNELS,
+                            bf16: bool = False) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return _load('flow_stack.cu', 'glow_flow_stack_f32',
                  [vp] * (5 + len(WEIGHT_KEYS) + 6) + [ci, ci, ci, ci, vp],
                  pitch, channels,
-                 extra=(('glow_flow_stack_resident_blocks', [ci]),))
+                 extra=(('glow_flow_stack_resident_blocks', [ci]),),
+                 bf16=bf16)

@@ -39,9 +39,9 @@ live tiles only).  What the design of the backward does about it:
   shapes) and of the per-sample column sums in a fixed order straight into
   the gradient tensors: no atomics, so two runs give the same bits.
 
-GR mode's pitch operand (``pitch [B, T, 2]`` with ``w_pitch [S, n, 2,
-2ch]``, added to every WaveNet layer's pre-gate sum after the dropout) is
-a build of both sources of their own (``GLOW_PITCH``, as the deterministic
+GR mode's pitch operand (``pitch [B, T, ps]`` with ``w_pitch [S, n, ps,
+2ch]``, ``ps`` = num_squeeze, added to every WaveNet layer's pre-gate sum
+after the dropout) is a build of both sources of their own (``GLOW_PITCH``, as the deterministic
 kernels' pitch builds): the wrappers load it only when a pitch operand
 arrives, and count its launches apart.  Its backward adds one launch per
 layer: ``dw_pitch`` as per-sample partials reduced in order with the other
@@ -49,7 +49,8 @@ weight gradients, and ``dpitch`` (skipped when the pitch operand wants no
 gradient) added layer by layer in launch order.  MiniSpeech's 80 flow
 channels (``Num_Squeeze: 1``) are a build of both sources of their own
 too (``GLOW_CHANNELS=80``), loaded by the channel count and counted apart
-(``*_c80_launches``).
+(``*_c80_launches``); its pitch builds take the pitch operand 1 wide
+(``GLOW_PITCH_SIZE=1``, ``*_c80_pitch_launches``).
 
 At bfloat16 (``x`` a bfloat16 tensor: ``config.compute_dtype``) the pair
 computes what the TPU kernels compute at ``dt = bfloat16``
@@ -85,12 +86,13 @@ import torch
 import torch.nn.functional as F
 
 from glow_tts_tpu_torch.ops import dropmask
-from glow_tts_tpu_torch.ops.coupling import (PITCH_SIZE, SHIPPED_CHANNELS,
-                                             check_shape, count_launches,
-                                             kernel_keys, load_flow_library,
-                                             tf32_round, tile_report_pointer,
+from glow_tts_tpu_torch.ops.coupling import (SHIPPED_CHANNELS, check_shape,
+                                             count_launches, kernel_keys,
+                                             load_flow_library, tf32_round,
+                                             tile_report_pointer,
                                              valid_lengths,
-                                             with_tensor_core_weights)
+                                             with_tensor_core_weights,
+                                             zero_launch_counts)
 from glow_tts_tpu_torch.ops.precision import rounded, rounded_weight
 
 Weights = Dict[str, torch.Tensor]
@@ -455,7 +457,7 @@ class _FlowStackTrain(torch.autograd.Function):
             # partials are reused by every step
             dpitch = (torch.zeros_like(pitch) if ctx.needs_input_grad[3]
                       else None)
-            pitch_part = empty(n, b, PITCH_SIZE, ch2)
+            pitch_part = empty(n, b, pitch.shape[-1], ch2)
         # the cotangent walks down the steps through two buffers of its own
         # (the incoming dz is not written to)
         dx_in, dx_bufs = dz, [torch.empty_like(dz), torch.empty_like(dz)]
@@ -500,19 +502,19 @@ def _check_cuda_inputs(x, mask, weights, cond, pitch) -> None:
                          'among the weights')
     b, t, c = x.shape
     s_steps, n, k, ch, ch2 = weights['w_in'].shape
-    check_shape('flow_stack_train', c, (n, k, ch, ch2), pitch is not None)
+    ps = 0 if pitch is None else pitch.shape[-1]
+    check_shape('flow_stack_train', c, (n, k, ch, ch2), ps)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f'flow_stack_train: x must be float32 or bfloat16, '
                          f'got {x.dtype} (ROADMAP.md A.5)')
     tensors = {'mask': (mask, (b, t, 1)),
                'ld_const': (weights['ld_const'], (s_steps,)),
                **{key: (weights[key], shape) for key, shape
-                  in weight_shapes(s_steps, c, ch, n, k,
-                                   0 if pitch is None else PITCH_SIZE).items()}}
+                  in weight_shapes(s_steps, c, ch, n, k, ps).items()}}
     if cond is not None:
         tensors['cond'] = (cond, (s_steps, n, b, ch2))
     if pitch is not None:
-        tensors['pitch'] = (pitch, (b, t, PITCH_SIZE))
+        tensors['pitch'] = (pitch, (b, t, ps))
     for name, (tensor, shape) in tensors.items():
         if (tensor.device != x.device or tensor.dtype != torch.float32
                 or tuple(tensor.shape) != shape
@@ -592,12 +594,11 @@ def flow_stack_train(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
 # library's kernels, as its entry counts them: a fixed sequence of
 # backward_launches_per_step(n) per flow step.  The pitch builds' and the
 # 80-channel builds' launches count apart, under the same names with
-# ``_pitch`` and ``_c80``, and the bfloat16 builds' under ``_bf16``,
-# ``_bf16_pitch`` and ``_bf16_c80`` (``coupling.count_launches``).
+# ``_pitch``, ``_c80`` and ``_c80_pitch``, and the bfloat16 builds' with
+# ``_bf16`` before those (``coupling.count_launches``).
 for _what in ('forward', 'recompute', 'backward'):
-    for _tag in ('', '_pitch', '_c80', '_bf16', '_bf16_pitch', '_bf16_c80'):
-        setattr(flow_stack_train, f'{_what}{_tag}_launches', 0)
-del _what, _tag
+    zero_launch_counts(flow_stack_train, _what)
+del _what
 
 
 def _check_product_operands(**tensors: torch.Tensor) -> None:

@@ -9,10 +9,12 @@ side, each into its own ``glow_tts_tpu_torch/_build``.
 ``glow_tts_tpu_torch`` package (for example ``git archive`` of the
 commit before a change, unpacked).  For each flow source, the shipped
 build, its pitch build (``-DGLOW_PITCH``) and its 80-channel build
-(``-DGLOW_CHANNELS=80``) are compared and reported SAME or DIFFERENT (with
-both sides' lines where they differ); this checkout's bfloat16 builds
-(``-DGLOW_BF16``, of the sources that have one) are printed.  Exits 1 if a
-compared build differs or fails.  Needs ``nvcc``.
+(``-DGLOW_CHANNELS=80``), and the bfloat16 builds (``-DGLOW_BF16``) of the
+sources that had them (``BF16_SOURCES``) are compared and reported SAME
+or DIFFERENT (with both sides' lines where they differ); this checkout's
+other builds (``OWN``: the bfloat16 builds of the coupling and the stack,
+and every source's 80-channel pitch builds, ``-DGLOW_PITCH_SIZE=1``) are
+printed.  Exits 1 if a compared build differs or fails.  Needs ``nvcc``.
 """
 
 from __future__ import annotations
@@ -27,12 +29,27 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SOURCES = ('flow_step.cu', 'coupling.cu', 'flow_stack.cu',
            'flow_train_fwd.cu', 'flow_train_bwd.cu')
+# the macros in ops/coupling.py::build_defines' order
 COMPARED = ((), ('GLOW_PITCH',), ('GLOW_CHANNELS=80',))
-# this checkout's own builds: the bfloat16 ones, of the sources that have
-# them (the macros in ops/coupling.py::build_defines' order)
+BF16 = (('GLOW_BF16',), ('GLOW_PITCH', 'GLOW_BF16'),
+        ('GLOW_CHANNELS=80', 'GLOW_BF16'))
+# the sources whose bfloat16 builds the other checkout may have too
 BF16_SOURCES = ('flow_step.cu', 'flow_train_fwd.cu', 'flow_train_bwd.cu')
-OWN = (('GLOW_BF16',), ('GLOW_PITCH', 'GLOW_BF16'),
-       ('GLOW_CHANNELS=80', 'GLOW_BF16'))
+C80_PITCH = ('GLOW_PITCH', 'GLOW_PITCH_SIZE=1', 'GLOW_CHANNELS=80')
+# this checkout's own builds, printed
+OWN = (C80_PITCH, C80_PITCH + ('GLOW_BF16',))
+
+
+def compared(source: str) -> tuple:
+    """The builds of ``source`` held against the other checkout's."""
+    return COMPARED + (BF16 if source in BF16_SOURCES else ())
+
+
+def own(source: str) -> tuple:
+    """The builds of ``source`` printed from this checkout alone."""
+    return OWN + (() if source in BF16_SOURCES else BF16)
+
+
 # run in a checkout's root, so that its own package is the one imported
 REPORT = ('import sys; from glow_tts_tpu_torch.ops import cuda_build as c; '
           'd = tuple(sys.argv[2:]); c.load_library(sys.argv[1], d); '
@@ -57,14 +74,14 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     other = os.path.abspath(args.other)
     jobs = [(root, source, defines) for source in SOURCES
-            for root, defines in [(r, d) for d in COMPARED
+            for root, defines in [(r, d) for d in compared(source)
                                   for r in (other, HERE)]
-            + [(HERE, d) for d in OWN if source in BF16_SOURCES]]
+            + [(HERE, d) for d in own(source)]]
     with ThreadPoolExecutor(len(jobs)) as pool:   # one nvcc each, together
         results = dict(zip(jobs, pool.map(lambda job: report(*job), jobs)))
     same = True
     for source in SOURCES:
-        for defines in COMPARED:
+        for defines in compared(source):
             theirs = results[(other, source, defines)]
             ours = results[(HERE, source, defines)]
             label = ' '.join([source, *(f'-D{d}' for d in defines)])
@@ -77,7 +94,7 @@ def main(argv=None) -> int:
                     print(f'  there {line}')
                 for line in ours:
                     print(f'  here  {line}')
-        for defines in OWN if source in BF16_SOURCES else ():
+        for defines in own(source):
             label = ' '.join([source, *(f'-D{d}' for d in defines)])
             for line in results[(HERE, source, defines)]:
                 print(f'  {label} {line}')

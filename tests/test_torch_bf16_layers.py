@@ -27,8 +27,8 @@ from glow_tts_tpu.models import layers as jl
 from glow_tts_tpu_torch.models import layers as tl
 from glow_tts_tpu_torch.models.decoder import ActNorm
 from tests.torch_port_helpers import (assert_bf16_close, at_dtype,
-                                      jax_model, port_config, port_model,
-                                      ragged, t, with_backend)
+                                      jax_model, norm_rel, port_config,
+                                      port_model, ragged, t, with_backend)
 
 BF = jnp.bfloat16
 
@@ -360,26 +360,56 @@ def test_compute_dtype_is_an_attribute_not_a_parameter(models):
 
 @pytest.mark.parametrize('route', ['modules', 'mega', 'fused'])
 def test_routes_without_a_bf16_build_raise(route):
-    """At bf16 the deterministic routes whose kernels have no bf16 build
-    (``'modules'``: #2, ``'mega'``: #4) raise naming B.3 and compute
-    nothing; ``'fused'`` evaluates, and training runs under every route
-    (the train kernels have bf16 builds)."""
+    """No route lacks a bf16 build any more (``'modules'``: #2, ``'mega'``:
+    #4, ``'fused'``: #3), so none raises: at bf16 each route's
+    deterministic forward and its inverse compute, through the wrappers
+    (the plain versions here), what the route's plain functions passed by
+    hand compute, bit for bit; ``'mega'`` is bit-equal to ``'fused'`` (a
+    loop of the same plain step), and ``'modules'`` (ActNorm and the
+    mixing at bf16 as modules: another bf16 policy, held against JAX's in
+    ``tests/test_torch_bf16_routes.py``) is, like every route, within 3e-2
+    norm-relative of the f32 forward.
+    Training runs under every route (the train kernels have bf16
+    builds)."""
     from glow_tts_tpu_torch.models.glow_tts import random_state_dict
+    from glow_tts_tpu_torch.ops.coupling import (coupling_reference,
+                                                 flow_stack_reference,
+                                                 flow_step_reference)
     from glow_tts_tpu_torch.training.step import build_model
     cfg, _, _, batch = jax_model(seed=4)
-    pcfg = dataclasses.replace(port_config(cfg), coupling_backend=route,
-                               compute_dtype='bfloat16')
-    model = build_model(pcfg)
-    model.load_state_dict(random_state_dict(pcfg, 0))
-    model.prepare(fold=False)
     args = [t(batch[key]) for key in ('tokens', 'token_lengths', 'mels',
                                       'mel_lengths')]
-    with torch.no_grad():
-        if route == 'fused':
-            assert torch.isfinite(model(*args)['z']).all()
-        else:
-            with pytest.raises(ValueError, match='B.3'):
-                model(*args)
-        out = model(*args, deterministic=False, seed=0,
-                    generator=torch.Generator().manual_seed(0))
-    assert out['z'].dtype == torch.float32 and torch.isfinite(out['z']).all()
+    plain = {'step_fn': flow_step_reference,
+             'coupling_fn': coupling_reference,
+             'flow_stack_fn': flow_stack_reference}
+    outs = {}
+    for r, dtype in ((route, 'bfloat16'), ('fused', 'bfloat16'),
+                     ('fused', 'float32')):
+        pcfg = dataclasses.replace(port_config(cfg), coupling_backend=r,
+                                   compute_dtype=dtype)
+        model = build_model(pcfg)
+        model.load_state_dict(random_state_dict(pcfg, 0))
+        model.prepare(fold=False)
+        decoder = model.layer_Dict['Decoder']
+        mask = (torch.arange(args[2].shape[1])[None, :]
+                < args[3][:, None])[..., None].float()
+        with torch.no_grad():
+            z, logdet, _ = decoder(args[2], mask)
+            z_plain, logdet_plain, _ = decoder(args[2], mask, **plain)
+            back, _, _ = decoder(z, mask, reverse=True)
+        outs[(r, dtype)] = (z, logdet, back)
+        assert torch.equal(z, z_plain) and torch.equal(logdet, logdet_plain)
+        assert z.dtype == back.dtype == torch.float32
+        assert torch.isfinite(z).all() and torch.isfinite(back).all()
+        if dtype == 'bfloat16' and r == route:
+            out = model(*args, deterministic=False, seed=0,
+                        generator=torch.Generator().manual_seed(0))
+            assert out['z'].dtype == torch.float32
+            assert torch.isfinite(out['z']).all()
+    got, fused, f32 = (outs[key] for key in ((route, 'bfloat16'),
+                                             ('fused', 'bfloat16'),
+                                             ('fused', 'float32')))
+    for name, a, b, c in zip(('z', 'logdet', 'inverse'), got, fused, f32):
+        assert norm_rel(a, c) < 3e-2, name
+        if route != 'modules':
+            assert torch.equal(a, b), name

@@ -46,17 +46,23 @@ train pair: each library reports its width, each against its plain
 version at tile edges and on ragged masks (the stack bit for bit against
 the chain), their launches counted apart, the backward's activation-
 gradient product over a depth of 80 (not a multiple of its 32-deep
-slice), the routes bit-equal, the pitch operand refused at 80 channels,
-and one EM + freeze train step at MiniSpeech's config against the plain
+slice), the routes bit-equal, the pitch operand 1 wide at 80 channels
+(a 2-wide one refused), and one EM + freeze train step at MiniSpeech's config against the plain
 versions.  The bfloat16 builds (``GLOW_BF16``) of the flow step and the
 train pair at 160 and 80 channels, with the conditioning rows and the pitch
 operand: each against its bfloat16 plain version with the f32 plain version
 as the reference (max|kernel − plain_bf16| ≤ 2·max|plain_bf16 − plain_f32|
 + 1e-6 on values; gradients within 3e-2 norm-relative of the f32 ones and
 at most twice the bf16 plain version's distance from them, plus 1e-4),
-counted apart, the stored and recomputed routes bit-equal, the routes
-without
-a bfloat16 build refusing it.
+counted apart, the stored and recomputed routes bit-equal.  The bfloat16
+builds of the coupling (#2) and of the stack (#4) at 160 and 80 channels
+and with the pitch operand: #2 against its bf16 plain version to the same
+bar, its halves as views of one bfloat16 tensor; #4 bit for bit against a
+chain of the flow step's bf16 launches (the stream bfloat16 between the
+steps) and to the bar against its plain version.  The pitch operand 1
+wide at 80 channels (``GLOW_PITCH_SIZE=1``) in every flow kernel, at f32
+and bf16, against the plain versions, and the 2-wide operand refused
+there.
 Needs a GPU and nvcc; skipped without.
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -435,9 +441,10 @@ def _train_both(device, lengths, rate, with_cond=False, z_weight=1.0,
         if with_cond else None
     pitch = None
     if with_pitch:
-        weights['w_pitch'] = (torch.randn((2, 4, tc.PITCH_SIZE, 384),
+        ps = tc.pitch_width(c)
+        weights['w_pitch'] = (torch.randn((2, 4, ps, 384),
                                           generator=gen) * .5).to(device)
-        pitch = torch.rand((b, t, tc.PITCH_SIZE), generator=gen).to(device)
+        pitch = torch.rand((b, t, ps), generator=gen).to(device)
     mask = mask.to(device)
     results = []
     for fn in (tg.flow_stack_train if route is None else kernels,
@@ -992,12 +999,14 @@ def test_trainer_resumes_on_the_card(device, tmp_path):
         assert _rel(b, a) <= 1e-5, name
 
 
-def _with_pitch(gen, w, b, t, device, steps=None):
-    """``w`` with a ``w_pitch [(steps,) 4, 2, 384]``, and a pitch operand
-    ``[B, T, 2]`` that is not zero past the samples' lengths either."""
+def _with_pitch(gen, w, b, t, device, steps=None, c=160):
+    """``w`` with a ``w_pitch [(steps,) 4, ps, 384]``, and a pitch operand
+    ``[B, T, ps]`` that is not zero past the samples' lengths either; ``ps``
+    the width at ``c`` flow channels (2 at 160, 1 at 80)."""
     lead = () if steps is None else (steps,)
-    w_pitch = torch.randn(lead + (4, tc.PITCH_SIZE, 384), generator=gen) * .5
-    pitch = torch.rand((b, t, tc.PITCH_SIZE), generator=gen)
+    ps = tc.pitch_width(c)
+    w_pitch = torch.randn(lead + (4, ps, 384), generator=gen) * .5
+    pitch = torch.rand((b, t, ps), generator=gen)
     return {**w, 'w_pitch': w_pitch.to(device)}, pitch.to(device)
 
 
@@ -1427,18 +1436,35 @@ def test_c80_backward_dgrad_over_a_depth_of_80(device, lengths, width):
 
 
 def test_c80_refuses_the_pitch_operand(device):
+    """At 80 channels (``Num_Squeeze: 1``) the pitch operand is 1 wide: the
+    flow step and the train stack take it (their ``GLOW_PITCH_SIZE=1``
+    builds, counted apart) and match their plain versions; the shipped
+    width's 2-wide operand is what they refuse."""
     gen = torch.Generator().manual_seed(240)
     w, cond = _weights(gen, device, c=C80)
-    x, mask = _ragged(gen, [8, 8, 8, 8], device, c=C80)
-    w['w_pitch'] = torch.zeros((4, 2, 384), device=device)
-    with pytest.raises(ValueError, match='B.2'):
-        tc.flow_step(x, mask, w, cond,
-                     pitch=torch.zeros((4, 8, 2), device=device))
+    x, mask = _ragged(gen, [8, 3, 8, 1], device, c=C80)
+    w, pitch = _with_pitch(gen, w, 4, 8, device, c=C80)
+    assert pitch.shape[-1] == 1
+    before = tc.flow_step.c80_pitch_launches
+    z, ld = tc.flow_step(x, mask, w, cond, pitch=pitch)
+    torch.cuda.synchronize()
+    assert tc.flow_step.c80_pitch_launches == before + 1
+    z_ref, ld_ref = tc.flow_step_reference(x, mask, w, cond, pitch=pitch)
+    assert _rel(z, z_ref) < REL and _rel(ld, ld_ref) < REL
+    with pytest.raises(ValueError, match='num_squeeze'):
+        tc.flow_step(x, mask, dict(w, w_pitch=torch.zeros(
+            (4, 2, 384), device=device)), cond,
+            pitch=torch.zeros((4, 8, 2), device=device))
     stack = _stack_weights(gen, device, c=C80)
     stack['w_pitch'] = torch.zeros((2, 4, 2, 384), device=device)
-    with pytest.raises(ValueError, match='B.2'):
+    with pytest.raises(ValueError, match='num_squeeze'):
         tg.flow_stack_train(x, mask, stack, None,
                             torch.zeros((4, 8, 2), device=device), seed=0)
+    before = tg.flow_stack_train.forward_c80_pitch_launches
+    got, ref = _train_both(device, [8, 3, 8, 1], 0.05, with_pitch=True,
+                           c=C80)
+    assert tg.flow_stack_train.forward_c80_pitch_launches == before + 2
+    _assert_train_agrees(got, ref)
 
 
 def test_c80_em_freeze_train_step_matches_the_plain_versions(device):
@@ -1614,9 +1640,10 @@ def _train_bf16(device, lengths, rate, with_cond=False, with_pitch=False,
             if with_cond else None)
     pitch = None
     if with_pitch:
-        weights['w_pitch'] = (torch.randn((2, 4, tc.PITCH_SIZE, 384),
+        ps = tc.pitch_width(c)
+        weights['w_pitch'] = (torch.randn((2, 4, ps, 384),
                                           generator=gen) * .5).to(device)
-        pitch = torch.rand((b, t, tc.PITCH_SIZE), generator=gen).to(device)
+        pitch = torch.rand((b, t, ps), generator=gen).to(device)
 
     def kernels(xl, mask_, leaves, cl, pl, seed, dropout_rate):
         return tg._apply_kernels(xl, mask_, leaves, cl, seed, dropout_rate,
@@ -1715,15 +1742,223 @@ def test_bf16_builds_report_their_width_and_refuse_other_routes(device):
                      tg.load_train_backward_library):
             assert load(channels=channels, bf16=True).glow_flow_channels() \
                 == channels
+    for load in (tc.load_coupling_library, tc.load_flow_stack_library):
+        for channels in (160, 80):
+            assert load(channels=channels, bf16=True).glow_flow_channels() \
+                == channels
     gen = torch.Generator().manual_seed(0)
     w, cond = _weights(gen, device)
-    x = torch.zeros((4, 8, 160), device=device, dtype=torch.bfloat16)
+    x = torch.randn((4, 8, 160), generator=gen).to(device, torch.bfloat16)
     mask = torch.ones((4, 8, 1), device=device)
-    with pytest.raises(ValueError, match='B.3'):
-        tc.coupling(x[..., :80], x[..., 80:], mask, w, cond)
-    with pytest.raises(ValueError, match='bfloat16|B.3'):
-        tc.flow_stack(x, mask, {key: v[None] for key, v in w.items()},
-                      cond[None])
-    # the f32 layout is refused by the bf16 build
+    # no route refuses bf16 any more: the coupling (#2) and the stack (#4)
+    # take it on their bf16 builds and agree with their plain versions
+    w16 = tc.with_tensor_core_weights(w, torch.bfloat16)
+    z_b, _ = tc.coupling(x[..., :80], x[..., 80:], mask, w16, cond)
+    ref16, _ = tc.coupling_reference(x[..., :80], x[..., 80:], mask, w, cond)
+    ref32, _ = tc.coupling_reference(x[..., :80].float(), x[..., 80:].float(),
+                                     mask, w, cond)
+    assert z_b.dtype == torch.bfloat16
+    err, bar = _bf16_err(z_b, ref16, ref32)
+    assert err <= bar, (err, bar)
+    stacked = {key: v[None] for key, v in w16.items()}
+    z, _ = tc.flow_stack(x, mask, stacked, cond[None])
+    z_step, _ = tc.flow_step(x, mask, w16, cond)
+    torch.cuda.synchronize()
+    assert z.dtype == torch.bfloat16 and torch.equal(z, z_step)
+    # the f32 layout is refused by the bf16 builds
     with pytest.raises(ValueError, match='w_in_tc'):
         tc.flow_step(x, mask, w, cond)
+    with pytest.raises(ValueError, match='w_in_tc'):
+        tc.coupling(x[..., :80], x[..., 80:], mask, w, cond)
+
+
+def test_build_defines_of_the_existing_builds_are_unchanged():
+    """The macros, and so the libraries' names and hashes, of every build
+    that existed before the pitch width became a build parameter are what
+    they were; ``GLOW_PITCH_SIZE`` appears only in the 80-channel pitch
+    builds (runs on the CPU: no card needed)."""
+    assert tc.build_defines() == ()
+    assert tc.build_defines(160, 2) == ('GLOW_PITCH',)
+    assert tc.build_defines(80) == ('GLOW_CHANNELS=80',)
+    assert tc.build_defines(160, 0, True) == ('GLOW_BF16',)
+    assert tc.build_defines(160, 2, True) == ('GLOW_PITCH', 'GLOW_BF16')
+    assert tc.build_defines(80, 0, True) == ('GLOW_CHANNELS=80', 'GLOW_BF16')
+    assert tc.build_defines(80, 1) == ('GLOW_PITCH', 'GLOW_PITCH_SIZE=1',
+                                       'GLOW_CHANNELS=80')
+    assert tc.build_defines(80, 1, True) == (
+        'GLOW_PITCH', 'GLOW_PITCH_SIZE=1', 'GLOW_CHANNELS=80', 'GLOW_BF16')
+    assert tc.library_defines(80, True, False) == tc.build_defines(80, 1)
+    assert tc.library_defines(160, True, True) == tc.build_defines(160, 2,
+                                                                   True)
+    for channels, width in ((160, 1), (80, 2)):
+        with pytest.raises(ValueError, match='num_squeeze'):
+            tc.build_defines(channels, width)
+    with pytest.raises(ValueError, match='B.2'):
+        tc.pitch_width(120)
+
+
+def _bf16_coupling_problem(gen, lengths, device, c, pitch):
+    w, _ = _weights(gen, device, c=c)
+    x, mask = _ragged(gen, lengths, device, c=c)
+    cond = (torch.randn((4, len(lengths), 384), generator=gen) * .2
+            ).to(device)
+    p = None
+    if pitch:
+        w, p = _with_pitch(gen, w, len(lengths), max(lengths), device, c=c)
+    return w, x.to(torch.bfloat16), mask, cond, p
+
+
+@pytest.mark.parametrize('pitch', [False, True])
+@pytest.mark.parametrize('c', [160, C80])
+@pytest.mark.parametrize('lengths', [[70, 1, 35, 64], [512, 33, 1]])
+@pytest.mark.parametrize('reverse', [False, True])
+def test_bf16_coupling_matches_plain(device, lengths, reverse, c, pitch,
+                                     planted_nan):
+    """#2's bf16 build (160 and 80 channels, the pitch builds: 2 wide at
+    160, 1 wide at 80) against its bf16 plain version with the f32 plain
+    version as the reference, its halves views of one bfloat16 tensor;
+    exact zeros past the lengths; one launch counted on its own build."""
+    gen = torch.Generator().manual_seed(300 + c + len(lengths) + pitch)
+    w, x, mask, cond, p = _bf16_coupling_problem(gen, lengths, device, c,
+                                                 pitch)
+    half = c // 2
+    x_a, x_b = x[..., :half], x[..., half:]
+    name = '_'.join(part for part in ('bf16', tc.build_tag(c, pitch),
+                                      'launches') if part)
+    before = getattr(tc.coupling, name)
+    z_b, ld = tc.coupling(x_a, x_b, mask, tc.with_tensor_core_weights(
+        w, torch.bfloat16), cond, pitch=p, reverse=reverse)
+    torch.cuda.synchronize()
+    assert getattr(tc.coupling, name) == before + 1
+    assert z_b.dtype == torch.bfloat16 and torch.isfinite(z_b.float()).all()
+    z16, ld16 = tc.coupling_reference(x_a, x_b, mask, w, cond, p, reverse)
+    z32, ld32 = tc.coupling_reference(x_a.float(), x_b.float(), mask, w,
+                                      cond, p, reverse)
+    err, bar = _bf16_err(z_b, z16, z32)
+    assert err <= bar, (err, bar)
+    assert (z_b[mask.expand_as(z_b) == 0] == 0).all()
+    if not reverse:
+        err, bar = _bf16_err(ld, ld16, ld32)
+        assert err <= bar, (err, bar)
+
+
+@pytest.mark.parametrize('pitch', [False, True])
+@pytest.mark.parametrize('c', [160, C80])
+@pytest.mark.parametrize('case', range(len(RAGGED_STACKS)))
+@pytest.mark.parametrize('reverse', [False, True])
+def test_bf16_flow_stack_is_the_bf16_chain_bit_for_bit(device, case,
+                                                       reverse, c, pitch,
+                                                       planted_nan):
+    """#4's bf16 build over 12 steps on ragged masks (with holes, a sample
+    of length 0) bit for bit against 12 launches of #3's bf16 build (the
+    stream bfloat16 between the steps in both), and against the bf16 plain
+    version with the f32 plain version as the reference."""
+    lengths, holes = RAGGED_STACKS[case]
+    t, steps = 512, 12
+    gen = torch.Generator().manual_seed(320 + case + c + pitch)
+    w = _stack_weights(gen, device, steps=steps, c=c)
+    del w['b_in']
+    p = None
+    if pitch:
+        w, p = _with_pitch(gen, w, len(lengths), t, device, steps=steps, c=c)
+    w16 = tc.with_tensor_core_weights(w, torch.bfloat16)
+    mask = _ragged_mask(lengths, holes, t, device)
+    x = (torch.randn((len(lengths), t, c), generator=gen) * 3).to(
+        device, torch.bfloat16)
+    cond = (torch.randn((steps, 4, len(lengths), 384), generator=gen) * .2
+            ).to(device)
+    z, ld = tc.flow_stack(x, mask, w16, cond, pitch=p, reverse=reverse)
+    chain, lds = x, []
+    for s in (reversed(range(steps)) if reverse else range(steps)):
+        chain, step_ld = tc.flow_step(
+            chain, mask, {key: value[s] for key, value in w16.items()},
+            cond[s].contiguous(), reverse, pitch=p)
+        lds.append(step_ld)
+    z16, ld16 = tc.flow_stack_reference(x, mask, w, cond, p, reverse)
+    z32, ld32 = tc.flow_stack_reference(x.float(), mask, w, cond, p,
+                                        reverse)
+    torch.cuda.synchronize()
+    assert z.dtype == torch.bfloat16 and torch.isfinite(z.float()).all()
+    assert torch.equal(z, chain)
+    assert (z[mask[..., 0] == 0] == 0).all()
+    err, bar = _bf16_err(z, z16, z32)
+    assert err <= bar, (err, bar)
+    if not reverse:
+        assert _rel(ld, torch.stack(lds).sum(dim=0)) < 1e-5
+        err, bar = _bf16_err(ld, ld16, ld32)
+        assert err <= bar, (err, bar)
+
+
+@pytest.mark.parametrize('reverse', [False, True])
+def test_c80_pitch_deterministic_kernels_match_plain(device, reverse,
+                                                     planted_nan):
+    """The pitch operand 1 wide at 80 channels in #3, #2 and #4 at f32:
+    each against its plain version, #4 bit for bit against the chain of #3
+    launches; each counted on its ``c80_pitch`` build."""
+    gen = torch.Generator().manual_seed(340 + reverse)
+    lengths, t, steps = [70, 1, 35, 64], 70, 3
+    w = _stack_weights(gen, device, steps=steps, c=C80)
+    del w['b_in']
+    w, p = _with_pitch(gen, w, len(lengths), t, device, steps=steps, c=C80)
+    w = tc.with_tensor_core_weights(w)
+    x, mask = _ragged(gen, lengths, device, c=C80)
+    cond = (torch.randn((steps, 4, len(lengths), 384), generator=gen) * .2
+            ).to(device)
+    counts = [fn.c80_pitch_launches for fn in (tc.flow_step, tc.coupling,
+                                               tc.flow_stack)]
+    z, ld = tc.flow_stack(x, mask, w, cond, pitch=p, reverse=reverse)
+    z_chain, ld_chain = _chain_with_pitch(x, mask, w, cond, p, reverse)
+    z_ref, ld_ref = tc.flow_stack_reference(x, mask, w, cond, p, reverse)
+    step = {key: value[0] for key, value in w.items()}
+    own = {key: step[key] for key in (*tc.COUPLING_WEIGHT_KEYS,
+                                      *tc.TC_KEYS.values(), 'w_pitch')}
+    z_b, _ = tc.coupling(x[..., :40], x[..., 40:], mask, own,
+                         cond[0].contiguous(), pitch=p, reverse=reverse)
+    zb_ref, _ = tc.coupling_reference(x[..., :40], x[..., 40:], mask, own,
+                                      cond[0], p, reverse)
+    torch.cuda.synchronize()
+    assert [fn.c80_pitch_launches for fn in (
+        tc.flow_step, tc.coupling, tc.flow_stack)] == [
+            counts[0] + steps, counts[1] + 1, counts[2] + 1]
+    assert torch.equal(z, z_chain) and _rel(z, z_ref) < REL
+    assert _rel(z_b, zb_ref) < REL
+    if not reverse:
+        assert _rel(ld, ld_ref) < REL and _rel(ld, ld_chain) < 1e-5
+
+
+def _chain_with_pitch(x, mask, w, cond, pitch, reverse):
+    steps = w['w_in'].shape[0]
+    lds = []
+    for s in (reversed(range(steps)) if reverse else range(steps)):
+        x, ld = tc.flow_step(x, mask, {key: value[s]
+                                       for key, value in w.items()},
+                             cond[s].contiguous(), reverse, pitch=pitch)
+        lds.append(ld)
+    return x, (None if reverse else torch.stack(lds).sum(dim=0))
+
+
+def test_bf16_c80_pitch_kernels_match_plain(device):
+    """The pitch operand 1 wide at 80 channels in the bf16 builds: #3
+    against its bf16 plain version, and the train pair (#5, #6) with every
+    gradient, ``dpitch`` included, to the bf16 bars."""
+    gen = torch.Generator().manual_seed(350)
+    w, cond = _weights(gen, device, c=C80)
+    x, mask = _ragged(gen, [70, 1, 35, 64], device, c=C80)
+    w, p = _with_pitch(gen, w, 4, 70, device, c=C80)
+    x16 = x.to(torch.bfloat16)
+    before = tc.flow_step.bf16_c80_pitch_launches
+    for reverse in (False, True):
+        z, _ = tc.flow_step(x16, mask, tc.with_tensor_core_weights(
+            w, torch.bfloat16), cond, reverse, pitch=p)
+        z16, _ = tc.flow_step_reference(x16, mask, w, cond, reverse, p)
+        z32, _ = tc.flow_step_reference(x16.float(), mask, w, cond, reverse,
+                                        p)
+        err, bar = _bf16_err(z, z16, z32)
+        assert err <= bar, (reverse, err, bar)
+    torch.cuda.synchronize()
+    assert tc.flow_step.bf16_c80_pitch_launches == before + 2
+    before = tg.flow_stack_train.forward_bf16_c80_pitch_launches
+    results = _train_bf16(device, [70, 35, 1, 70], 0.05, with_cond=True,
+                          with_pitch=True, c=C80)
+    assert tg.flow_stack_train.forward_bf16_c80_pitch_launches == before + 2
+    _assert_bf16_train_agrees(*results)
