@@ -82,7 +82,7 @@ eval steps under each route beside the plain versions at bf16 and f32 and
 against 'fused', an ``Inferencer`` at ``inference_dtype`` bfloat16 under
 each route at B = 32 in the 1024-frame bucket, the eval step at bf16 by
 route.  Then GR at ``Num_Squeeze: 1`` (80 channels, the pitch operand 1
-wide: the ``GLOW_PITCH_SIZE=1`` builds of #2–#6 at f32 and bf16 against
+wide: the 80-channel pitch builds of #2–#6 at f32 and bf16 against
 their plain versions and timed, 3 train steps at each dtype beside the
 plain versions, an eval step under each route, a decode).  All 41
 libraries build together before the first phase.  Exits non-zero on any failure and when no CUDA device is
@@ -246,14 +246,6 @@ def live_tiles(mask, launch, steps=1, stack=False):
 FLOW_COUNTERS = (('flow_step', ''), ('coupling', ''), ('flow_stack', ''),
                  ('train_fwd', 'forward_'), ('train_recompute', 'recompute_'),
                  ('train_bwd', 'backward_'))
-# the builds of a flow source, as the suffix of its counters: the shipped
-# f32 one (''), the pitch, 80-channel and 80-channel pitch builds (the
-# pitch operand 1 wide there), and the bfloat16 build of each
-BUILD_SUFFIXES = tuple(bf16 + (f'_{tag}' if tag else '')
-                       for bf16 in ('', '_bf16')
-                       for tag in ('', 'pitch', 'c80', 'c80_pitch'))
-COUNTERS = ('mas',) + tuple(name + suffix for suffix in BUILD_SUFFIXES
-                            for name, _ in FLOW_COUNTERS)
 # the deterministic decoder's routes (``config.coupling_backend``): the
 # counter of the kernel each goes through
 ROUTES = {'fused': 'flow_step', 'modules': 'coupling', 'mega': 'flow_stack'}
@@ -261,18 +253,27 @@ ROUTES = {'fused': 'flow_step', 'modules': 'coupling', 'mega': 'flow_stack'}
 
 def launch_counters():
     """(function, attribute) of every kernel launch count of the port."""
-    from glow_tts_tpu_torch.ops.coupling import coupling, flow_stack, flow_step
+    from glow_tts_tpu_torch.ops.coupling import (COUNT_SUFFIXES, coupling,
+                                                 flow_stack, flow_step)
     from glow_tts_tpu_torch.ops.coupling_grad import flow_stack_train
     from glow_tts_tpu_torch.ops.mas import maximum_path
     fns = {'flow_step': flow_step, 'coupling': coupling,
            'flow_stack': flow_stack}
     counters = {'mas': (maximum_path, 'launches')}
-    for suffix in BUILD_SUFFIXES:
+    # one counter of each flow source per build (coupling.COUNT_SUFFIXES:
+    # 'launches', 'pitch_launches', ..., 'bf16_c80_pitch_launches'), named
+    # '<source>' + build_suffix(...)
+    for suffix in COUNT_SUFFIXES:
+        tag = suffix[:-len('launches')].rstrip('_')
         for name, what in FLOW_COUNTERS:
-            counters[name + suffix] = (
-                fns.get(name, flow_stack_train),
-                f'{what}{suffix[1:]}{"_" if suffix else ""}launches')
+            counters[name + (f'_{tag}' if tag else '')] = (
+                fns.get(name, flow_stack_train), what + suffix)
     return counters
+
+
+def no_launches():
+    """Every launch count of :func:`launch_counters` at 0."""
+    return dict.fromkeys(launch_counters(), 0)
 
 
 def build_suffix(config=None, channels=None, pitch=False, bf16=False):
@@ -296,7 +297,7 @@ def route_launches(route, config, passes=1, pitch=False):
     per_pass = 1 if route == 'mega' else config.decoder.stack
     counter = ROUTES[route] + build_suffix(
         config, pitch=pitch, bf16=config.compute_dtype == 'bfloat16')
-    return {**dict.fromkeys(COUNTERS, 0), counter: per_pass * passes}
+    return {**no_launches(), counter: per_pass * passes}
 
 
 def plain_flow_fns():
@@ -1292,7 +1293,7 @@ def check_train_backward(x, mask, weights, cond=None, pitch=None):
     zero_counts()
     got = gradients(flow_stack_train)
     counts = read_counts()
-    expected = {**dict.fromkeys(COUNTERS, 0), f'train_fwd{build}': s_steps,
+    expected = {**no_launches(), f'train_fwd{build}': s_steps,
                 f'train_recompute{build}': (0 if chosen == 'store'
                                             else s_steps),
                 f'train_bwd{build}': per_step * s_steps}
@@ -1350,7 +1351,7 @@ def train_path_launches(config, steps):
     gr = config.uses_gradient_reversal
     build = build_suffix(config, pitch=gr)
     bwd = BWD_PITCH_KERNELS_PER_FLOW_STEP if gr else BWD_KERNELS_PER_FLOW_STEP
-    return {**dict.fromkeys(COUNTERS, 0), f'flow_step{build}': flows,
+    return {**no_launches(), f'flow_step{build}': flows,
             'mas': steps, f'train_fwd{build}': flows * steps,
             f'train_bwd{build}': bwd * flows * steps}
 
@@ -1701,7 +1702,7 @@ class PartCounts:
         self.by_part = {}
 
     def add(self, part, counts):
-        total = self.by_part.setdefault(part, dict.fromkeys(COUNTERS, 0))
+        total = self.by_part.setdefault(part, no_launches())
         for key, value in counts.items():
             total[key] += value
 
@@ -2015,7 +2016,7 @@ def run_trainer_phase(config, device, card):
         for part, want in expected.items():
             got = counts.by_part[part]
             print(f'  launches, {part}: {got}')
-            assert got == {**dict.fromkeys(COUNTERS, 0), **want}, (part, got)
+            assert got == {**no_launches(), **want}, (part, got)
 
         served_dir = os.path.join(root, 'served')
         results = Inferencer(a.config.checkpoint_path, None, device
@@ -2687,7 +2688,7 @@ def run_gr_trainer_resume(config, device):
         assert 'Loss/speaker' in a.writers['train'].scalars
         train = counts.by_part['trainer train']
         print(f'  launches, GR trainer train: {train}')
-        assert train == {**dict.fromkeys(COUNTERS, 0), 'mas': TRAINER_STEPS,
+        assert train == {**no_launches(), 'mas': TRAINER_STEPS,
                          'train_fwd_pitch': config.decoder.stack
                          * TRAINER_STEPS,
                          'train_bwd_pitch': BWD_PITCH_KERNELS_PER_FLOW_STEP
@@ -2997,7 +2998,7 @@ def run_curriculum_steps(config, batch, state, device):
         flows, mas = config.decoder.stack, {'em': 2, None: 1,
                                             'anchored': 1, 'linear': 0}
         assert k_counts == {
-            **dict.fromkeys(COUNTERS, 0), 'mas': mas[variant[0]],
+            **no_launches(), 'mas': mas[variant[0]],
             'train_fwd_c80': flows,
             'train_bwd_c80': BWD_KERNELS_PER_FLOW_STEP * flows}, k_counts
         for key, value in k_counts.items():
@@ -3160,7 +3161,7 @@ def run_minispeech_trainer(config, root, device):
         got = counts.by_part[part]
         print(f'  launches, MiniSpeech {part}: '
               + json.dumps({key: v for key, v in got.items() if v}))
-        assert got == {**dict.fromkeys(COUNTERS, 0), **want}, (part, got)
+        assert got == {**no_launches(), **want}, (part, got)
     return ({f'MiniSpeech {part}': value
              for part, value in counts.by_part.items()}, worst, equal)
 
@@ -3454,7 +3455,7 @@ def wav_trainer(config, device):
         got = counts.by_part[part]
         print(f'  launches, {part}: '
               + json.dumps({key: v for key, v in got.items() if v}))
-        assert got == {**dict.fromkeys(COUNTERS, 0), **want}, (part, got)
+        assert got == {**no_launches(), **want}, (part, got)
     print(f'MiniSpeech Trainer on the ETL\'s patterns: {steps} EM steps '
           f'with the decoder frozen in {seconds:.1f} s (the evaluations and '
           f'the checkpoint included); loss '
@@ -3857,7 +3858,7 @@ def bf16_train_launches(config, steps, eval_steps=0):
     tag = build_suffix(config, pitch=config.uses_gradient_reversal)
     bwd = (BWD_PITCH_KERNELS_PER_FLOW_STEP if config.uses_gradient_reversal
            else BWD_KERNELS_PER_FLOW_STEP)
-    return {**dict.fromkeys(COUNTERS, 0),
+    return {**no_launches(),
             f'flow_step_bf16{tag}': flows * (1 + eval_steps),
             'mas': steps + eval_steps,
             f'train_fwd_bf16{tag}': flows * steps,
@@ -4489,7 +4490,7 @@ def routes_eval(config, state, batch, device, label, steps=1,
                 dtype=torch.float64)
             if name == 'kernels':
                 flows = cfg.decoder.stack
-                init_expected = {**dict.fromkeys(COUNTERS, 0),
+                init_expected = {**no_launches(),
                                  'flow_step' + build_suffix(
                                      cfg, pitch=gr, bf16=bf16): flows}
                 expected = {**route_launches(route, cfg, steps, pitch=gr),
@@ -4530,7 +4531,8 @@ def routes_eval(config, state, batch, device, label, steps=1,
                 assert diff <= LOSS_REL_BOUND * losses['fused'][
                     'kernels'].abs().max().item(), line
             elif plain:
-                # two bf16 policies (ActNorm and the mixing as modules):
+                # two bf16 policies ('modules' keeps the stream in the
+                # input's dtype between its modules, as JAX's flax route):
                 # no further apart than their distances from f32 allow
                 bar = BF16_FACTOR * max(
                     (losses[r]['plain'] - losses[r]['plain f32']).abs()
@@ -4711,7 +4713,7 @@ def gr_squeeze1_config(dtype='float32'):
 
 def run_gr_squeeze1_phase(pitch_rows, train_pitch_rows, device, card):
     """GR at ``Num_Squeeze: 1`` on the pitch builds whose operand is 1 wide
-    (``GLOW_PITCH_SIZE=1`` at 80 channels): #3, #2 and #4 at f32 and bf16
+    (the 80-channel pitch builds): #3, #2 and #4 at f32 and bf16
     against their plain versions; #5 and #6 at f32 (both routes,
     bit-equal) and bf16 against theirs; each timed beside the build
     without the pitch operand (f32) or the f32 build (bf16), and beside
@@ -4837,7 +4839,7 @@ def main():
                     ('flow_train_bwd.cu',
                      coupling_grad.load_train_backward_library))
     sources = {('mas.cu', ()): mas.load_mas_library,
-               **{(source, coupling.library_defines(channels, pitch, bf16)):
+               **{(source, coupling.build_defines(channels, pitch, bf16)):
                   functools.partial(load, pitch, channels, bf16)
                   for bf16 in (False, True) for channels in (160, 80)
                   for pitch in (False, True)
@@ -5109,10 +5111,9 @@ def main():
            **launches(f'{counter}{tag}'), **squeeze1_rows[f'{name}{tag}'],
            'library_ms': None}
           for tag, defines in (
-              ('_c80_pitch', ('GLOW_PITCH', 'GLOW_PITCH_SIZE=1',
-                              'GLOW_CHANNELS=80')),
-              ('_bf16_c80_pitch', ('GLOW_PITCH', 'GLOW_PITCH_SIZE=1',
-                                   'GLOW_CHANNELS=80', 'GLOW_BF16')))
+              ('_c80_pitch', ('GLOW_PITCH', 'GLOW_CHANNELS=80')),
+              ('_bf16_c80_pitch', ('GLOW_PITCH', 'GLOW_CHANNELS=80',
+                                   'GLOW_BF16')))
           for name, counter, replaces, entry in (
               ('flow_step', 'flow_step', 'glow_tts_tpu/ops/coupling.py:190',
                'fused_flow_step'),

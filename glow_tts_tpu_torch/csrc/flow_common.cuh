@@ -985,15 +985,9 @@ struct BiasPreGate {
   }
 };
 
-// Width of GR mode's pitch operand, num_squeeze: 2 at the shipped config
-// (160 channels) unless the build defines another (ops/cuda_build.py:
-// -DGLOW_PITCH_SIZE=1 beside -DGLOW_CHANNELS=80, Num_Squeeze 1).
-#ifndef GLOW_PITCH_SIZE
-#define GLOW_PITCH_SIZE 2
-#endif
-constexpr int kPitchSize = GLOW_PITCH_SIZE;
-static_assert(kPitchSize == 1 || kPitchSize == 2,
-              "the pitch operand is num_squeeze (1 or 2) wide");
+// Width of GR mode's pitch operand, num_squeeze = C / mel_dim: 2 at the
+// shipped config (160 channels, Num_Squeeze 2), 1 at 80 (Num_Squeeze 1).
+constexpr int kPitchSize = Built::C == 160 ? 2 : 1;
 
 // A block's copy of its tile's pitch rows [R, PS] and of one flow step's
 // w_pitch [NL, PS, 2CH] (12.4 KB at the shipped shape, 6.2 KB at PS = 1),

@@ -769,14 +769,12 @@ cudaError_t launch_sums(SumJobs jobs, int B, int T, const int* lengths,
 }
 
 #ifdef GLOW_PITCH
-// Width of GR mode's pitch operand (flow_common.cuh's kPitchSize): 2
-// unless the build defines another (-DGLOW_PITCH_SIZE=1, Num_Squeeze 1).
-#ifndef GLOW_PITCH_SIZE
-#define GLOW_PITCH_SIZE 2
-#endif
-constexpr int kPitchSize = GLOW_PITCH_SIZE;
-static_assert(kPitchSize == 1 || kPitchSize == 2,
-              "the pitch operand is num_squeeze (1 or 2) wide");
+// Width of GR mode's pitch operand, num_squeeze, as flow_common.cuh's
+// kPitchSize (this source does not include that header): 2 at 160
+// channels, 1 at 80.
+static_assert(kChannels == 160 || kChannels == 80,
+              "flow widths other than 160 and 80 are not built (B.2)");
+constexpr int kPitchSize = kChannels == 160 ? 2 : 1;
 
 // The backward of layer i's pitch term, pitch [M, kPitchSize] . w_pitch
 // [kPitchSize, ch2] added to the pre-gate sum after the dropout, from dacc

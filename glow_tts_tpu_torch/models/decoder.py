@@ -34,12 +34,17 @@ call) carry the speaker and prosody products, their biases and ``b_pitch``,
 never ``b_in``; GR mode's ``w_pitch`` rides in the packed weights.
 
 The compute dtype is the decoder's ``dtype`` (``models/layers.py``).  At
-bfloat16 the flow's stream between the steps is bfloat16 and each step
-computes as the TPU kernels do at ``dt = bfloat16`` (``ops/coupling.py``,
-``ops/coupling_grad.py``): training through ``flow_stack_train``, the
-deterministic routes through ``flow_step`` (``'fused'``), ``coupling``
-between ActNorm and the invertible 1×1 at bfloat16 (``'modules'``) and
-``flow_stack`` (``'mega'``), each kernel with a bfloat16 build.  ActNorm's
+bfloat16 each step computes as the TPU kernels do at ``dt = bfloat16``
+(``ops/coupling.py``, ``ops/coupling_grad.py``), each kernel with a
+bfloat16 build: training through ``flow_stack_train``, the deterministic
+routes through ``flow_step`` (``'fused'``) and ``flow_stack``
+(``'mega'``), the flow's stream between the steps bfloat16, as the JAX
+package's kernel routes carry it.  ``'modules'`` is the JAX package's
+flax route: its stream stays in the decoder input's dtype (float32 from
+the train and eval steps' mels, bfloat16 from a decode's latent), ActNorm
+applies its bfloat16-cast statistics to it, the invertible 1×1 mixes at
+the stream's dtype, and ``coupling`` takes the halves cast to bfloat16 and
+gives ``z_b`` back in the stream's dtype.  ActNorm's
 statistics are float32 and its data-dependent initialisation reads each
 step's own input, step by step through ``flow_step`` under every route;
 the logdets are float32 and ``z`` leaves the decoder in float32.  A step
@@ -118,14 +123,15 @@ class ActNorm(nn.Module):
         self.bias.copy_((-mean * torch.exp(-log_std)).reshape(1, -1, 1))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
-                reverse: bool = False):
+                reverse: bool = False, dtype: Optional[torch.dtype] = None):
         """``x [B, T, C]``, ``mask [B, T, 1]`` → ``(z, logdet [B] | None)``:
-        ``(bias + exp(logs)·x)·mask`` and its inverse, in ``x``'s dtype (at
-        bfloat16 the float32 statistics are cast to it and applied there);
-        the logdet float32."""
+        ``(bias + exp(logs)·x)·mask`` and its inverse at the compute
+        ``dtype`` (default ``x``'s): at bfloat16 the float32 statistics are
+        cast to it and applied to ``x`` in the wider of the two dtypes, as
+        the JAX package's ``ActNorm`` promotes them; the logdet float32."""
         logs, bias = self.logs.reshape(-1), self.bias.reshape(-1)
-        if x.dtype != torch.float32:
-            dt = x.dtype
+        dt = dtype or x.dtype
+        if dt != torch.float32:
             if reverse:
                 return masked((x - bias.to(dt)) * torch.exp(-logs).to(dt),
                               mask), None
@@ -308,35 +314,40 @@ class AffineCoupling(nn.Module):
                 reverse: bool = False, coupling_fn: FlowStepFn = coupling,
                 packed: Optional[Tuple[Dict[str, torch.Tensor],
                                        torch.Tensor]] = None,
-                pitch: Optional[torch.Tensor] = None):
+                pitch: Optional[torch.Tensor] = None,
+                dtype: Optional[torch.dtype] = None):
         """``x [B, T, C]``, ``mask [B, T, 1]`` → ``(z, logdet [B] | None)``:
         ``x_a`` passes, ``x_b`` goes through ``coupling_fn`` (the kernel's
-        wrapper unless a caller compares it with the plain version) on
-        ``packed``, the contiguous float32 ``(weights, cond [n, B, 2ch])``
-        a caller keeps, or on this module's weights packed now, without
-        gradients, for the kernels of ``x``'s dtype (on the card with their
-        tensor-core layout; at bfloat16 the weights they take rounded, as
-        :meth:`FlowStep.weights` packs them), with the Vanilla rows.
-        ``pitch [B, T, ps]`` is GR mode's pitch operand."""
+        wrapper unless a caller compares it with the plain version) at the
+        compute ``dtype`` (default ``x``'s: the halves go in cast to it and
+        ``z_b`` comes back in ``x``'s dtype, as the JAX package's fused
+        coupling branch casts them) on ``packed``, the contiguous float32
+        ``(weights, cond [n, B, 2ch])`` a caller keeps, or on this module's
+        weights packed now, without gradients, for the kernels of ``dtype``
+        (on the card with their tensor-core layout; at bfloat16 the weights
+        they take rounded, as :meth:`FlowStep.weights` packs them), with
+        the Vanilla rows.  ``pitch [B, T, ps]`` is GR mode's pitch
+        operand."""
+        dt = dtype or x.dtype
         if packed is None:
             with torch.no_grad():
                 weights, rows = self.pack()
                 b_in = rows['b_in']
                 weights = {key: value.float().contiguous()
                            for key, value in weights.items()}
-                weights = (with_tensor_core_weights(weights, x.dtype)
+                weights = (with_tensor_core_weights(weights, dt)
                            if x.device.type == 'cuda'
-                           else rounded_weights(weights, x.dtype))
+                           else rounded_weights(weights, dt))
                 n, ch2 = b_in.shape
                 cond = b_in.float()[:, None, :].expand(
                     n, x.shape[0], ch2).contiguous()
         else:
             weights, cond = packed
         c2 = x.shape[-1] // 2
-        x_a = x[..., :c2]
-        z_b, logdet = coupling_fn(x_a, x[..., c2:], mask, weights, cond,
-                                  pitch=pitch, reverse=reverse)
-        return torch.cat([x_a, z_b], dim=-1), logdet
+        xc = x.to(dt)
+        z_b, logdet = coupling_fn(xc[..., :c2], xc[..., c2:], mask, weights,
+                                  cond, pitch=pitch, reverse=reverse)
+        return torch.cat([x[..., :c2], z_b.to(x.dtype)], dim=-1), logdet
 
 
 class FlowStep(nn.Module):
@@ -439,32 +450,39 @@ class FlowStep(nn.Module):
                 step_fn: FlowStepFn = flow_step,
                 coupling_fn: FlowStepFn = coupling,
                 cond: Optional[torch.Tensor] = None,
-                pitch: Optional[torch.Tensor] = None):
+                pitch: Optional[torch.Tensor] = None,
+                dtype: Optional[torch.dtype] = None):
         """→ ``(z, logdet [B] | None)``.  ``step_fn`` and ``coupling_fn``
         are the kernels' wrappers unless a caller compares them with the
         plain versions; the route decides which of the two runs.  ``cond
         [n, B, 2ch]`` is this step's conditioning rows (default: the
         unconditioned :meth:`cond`), ``pitch [B, T, ps]`` GR mode's pitch
-        operand."""
+        operand.  ``dtype`` is the compute dtype (default ``x``'s): under
+        ``'modules'`` the stream stays in ``x``'s dtype between the three
+        modules, ActNorm and the coupling compute at ``dtype`` and the
+        mixing at the stream's, as the JAX package's flax modules do."""
         if cond is None:
             cond = self.cond(x.shape[0])
         if not self.modules_route:
             return step_fn(x, mask, self.weights(reverse, x.dtype), cond,
                            reverse, pitch=pitch)
+        dt = dtype or x.dtype
         actnorm, invconv, coupling_module = self.layers
-        weights = self.weights(reverse, x.dtype)
+        weights = self.weights(reverse, dt)
         packed = ({key: weights[key] for key in
                    (*COUPLING_WEIGHT_KEYS, *TC_KEYS.values(), 'w_pitch')
                    if key in weights}, cond)
-        mixing = (weights['mix_t'], self._mix_logdet)
+        mixing = (self.weights(reverse, x.dtype)['mix_t'], self._mix_logdet)
         if reverse:
-            x, _ = coupling_module(x, mask, True, coupling_fn, packed, pitch)
+            x, _ = coupling_module(x, mask, True, coupling_fn, packed, pitch,
+                                   dt)
             x, _ = invconv(x, mask, True, mixing)
-            return actnorm(x, mask, True)
-        x, logdet = actnorm(x, mask)
+            return actnorm(x, mask, True, dt)
+        x, logdet = actnorm(x, mask, dtype=dt)
         x, ld = invconv(x, mask, False, mixing)
         logdet = logdet + ld
-        x, ld = coupling_module(x, mask, False, coupling_fn, packed, pitch)
+        x, ld = coupling_module(x, mask, False, coupling_fn, packed, pitch,
+                                dt)
         return x, logdet + ld
 
 
@@ -477,6 +495,7 @@ class FlowDecoder(nn.Module, ComputesAt):
         self.num_squeeze = config.decoder.num_squeeze
         self.dropout_rate = config.decoder.affine_coupling.wavenet.dropout_rate
         self.mega_route = config.flow_route == 'mega'
+        self.modules_route = config.flow_route == 'modules'
         self.layer_Dict = nn.ModuleDict({'Flows': nn.ModuleList([
             FlowStep(config) for _ in range(config.decoder.stack)])})
         self._stacked: Dict[Tuple[bool, torch.dtype],
@@ -715,12 +734,17 @@ class FlowDecoder(nn.Module, ComputesAt):
         route with WaveNet dropout drawn from the int32 ``seed``.  The
         conditioned modes pass ``speaker [B, E]``, ``prosody [B, P]`` and
         (GR) ``pitch [B, T]``, which is squeezed to the kernels' pitch
-        operand ``[B, T/s, s]``.  The flow runs at the decoder's dtype and
-        returns x in float32.  Returns (x, logdet [B] or None, mask)."""
+        operand ``[B, T/s, s]``.  The flow computes at the decoder's dtype
+        and returns x in float32; its stream between the steps is in that
+        dtype too, except under ``'modules'``, where it stays in ``x``'s
+        dtype as the JAX package's flax route carries it (float32 from
+        the train and eval steps' mels, the serving dtype from a decode's
+        latent).  Returns (x, logdet [B] or None, mask)."""
         s = self.num_squeeze
         pitch = self._squeezed_pitch(pitch, mask)
         x, sq_mask = squeeze(x, mask, s)
-        x = x.to(self.dtype)
+        if not (self.modules_route and deterministic):
+            x = x.to(self.dtype)
         if not deterministic:
             if reverse or seed is None:
                 raise ValueError('the train route runs forward and needs '
@@ -742,7 +766,7 @@ class FlowDecoder(nn.Module, ComputesAt):
                     x.shape[0], device=x.device)
                 for k, step in (reversed(steps) if reverse else steps):
                     x, ld = step(x, sq_mask, reverse, step_fn, coupling_fn,
-                                 cond[k], pitch)
+                                 cond[k], pitch, self.dtype)
                     if ld is not None:
                         logdet = logdet + ld
         x, out_mask = unsqueeze(x.float(), sq_mask, s)

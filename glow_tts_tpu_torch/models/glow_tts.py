@@ -501,8 +501,10 @@ class GlowTTS(nn.Module):
         if self.config.uses_gradient_reversal and pitches is not None:
             pitch = interpolate_pitch(pitches.float(), pitch_lengths,
                                       mel_lengths, max_mel_length)
+        # the latent in the compute dtype, as the JAX package hands it to
+        # the decoder
         mels, _, mel_mask = self.layer_Dict['Decoder'](
-            z, mel_mask, reverse=True, step_fn=step_fn,
+            z.to(self.dtype), mel_mask, reverse=True, step_fn=step_fn,
             coupling_fn=coupling_fn, flow_stack_fn=flow_stack_fn,
             speaker=prior.get('speaker_vec'), prosody=prior.get('prosody_vec'),
             pitch=pitch)

@@ -19,7 +19,7 @@ own built at the first call that has a pitch operand.  The flow's channel
 count picks the library too: the shipped config's 160 (``Num_Squeeze: 2``)
 or MiniSpeech's 80 (``Num_Squeeze: 1``), each built at its first call
 (:data:`KERNEL_SHAPES`, :func:`build_defines`), and with it the pitch
-operand's width, ``ps = num_squeeze`` (:data:`PITCH_WIDTHS`: 2 at 160
+operand's width, ``ps = num_squeeze`` (:func:`pitch_width`: 2 at 160
 channels, 1 at 80); each build counts its launches apart
 (:func:`count_launches`).
 
@@ -82,12 +82,9 @@ SHIPPED_CHANNELS = 160
 # (GLOW_CHANNELS in csrc/flow_common.cuh): the shipped config's and
 # MiniSpeech's (Num_Squeeze 1, 80 channels); other widths raise (ROADMAP.md
 # B.2)
+BUILT_CHANNELS = (SHIPPED_CHANNELS, 80)
 KERNEL_SHAPES = tuple({'channels': c, 'ch': 192, 'n_layers': 4,
-                       'kernel_size': 5} for c in (SHIPPED_CHANNELS, 80))
-# width of the pitch operand (num_squeeze) a pitch instantiation of each
-# flow width takes: kPitchSize in csrc/flow_common.cuh, 2 unless the build
-# defines GLOW_PITCH_SIZE
-PITCH_WIDTHS = {SHIPPED_CHANNELS: 2, 80: 1}
+                       'kernel_size': 5} for c in BUILT_CHANNELS)
 # the macro a pitch instantiation's library is built with
 PITCH_BUILD = ('GLOW_PITCH',)
 # and a bfloat16 build's
@@ -118,30 +115,23 @@ TILE_COUNTS = ('live', 'items', 'computed', 'rounds', 'blocks')
 
 
 def pitch_width(channels: int) -> int:
-    """The pitch operand's width at ``channels`` flow channels (raises on a
-    width no build takes: ``ROADMAP.md`` B.2)."""
-    if channels not in PITCH_WIDTHS:
+    """The pitch operand's width at ``channels`` flow channels, num_squeeze:
+    2 at 160, 1 at 80, as ``kPitchSize`` in ``csrc/flow_common.cuh`` works
+    it out from ``GLOW_CHANNELS`` (raises on a width no build takes:
+    ``ROADMAP.md`` B.2)."""
+    if channels not in BUILT_CHANNELS:
         raise ValueError(f'GR\'s pitch operand is built at '
-                         f'{sorted(PITCH_WIDTHS)} channels, got {channels} '
-                         f'(other widths: ROADMAP.md B.2)')
-    return PITCH_WIDTHS[channels]
+                         f'{sorted(BUILT_CHANNELS)} channels, got '
+                         f'{channels} (other widths: ROADMAP.md B.2)')
+    return 2 if channels == SHIPPED_CHANNELS else 1
 
 
-def build_defines(channels: int = SHIPPED_CHANNELS, pitch_size: int = 0,
-                  bf16: bool = False) -> Tuple[str, ...]:
+def build_defines(channels: int = SHIPPED_CHANNELS,
+                  pitch: bool = False, bf16: bool = False) -> Tuple[str, ...]:
     """The macros of a flow kernel's library for ``channels`` flow
-    channels, its pitch instantiation for a pitch operand ``pitch_size``
-    wide (0: none; :data:`PITCH_WIDTHS` gives the width of each flow
-    width), its bfloat16 build with ``bf16``.  ``GLOW_PITCH_SIZE`` appears
-    only where the width is not the default 2, so the other builds' macros
-    are what they were."""
-    if pitch_size and pitch_size != pitch_width(channels):
-        raise ValueError(f'a pitch operand {pitch_size} wide at {channels} '
-                         f'channels: the width is num_squeeze, '
-                         f'{pitch_width(channels)}')
-    return ((PITCH_BUILD if pitch_size else ())
-            + (() if pitch_size in (0, PITCH_WIDTHS[SHIPPED_CHANNELS])
-               else (f'GLOW_PITCH_SIZE={pitch_size}',))
+    channels, its pitch instantiation with ``pitch`` (the pitch operand
+    :func:`pitch_width` wide), its bfloat16 build with ``bf16``."""
+    return ((PITCH_BUILD if pitch else ())
             + (() if channels == SHIPPED_CHANNELS
                else (f'GLOW_CHANNELS={channels}',))
             + (BF16_BUILD if bf16 else ()))
@@ -163,16 +153,8 @@ def build_tag(channels: int, pitch: bool) -> str:
 # ``<what>_`` where there is one
 COUNT_SUFFIXES = tuple('_'.join(part for part in (
     bf16, build_tag(c, pitch), 'launches') if part)
-    for bf16 in ('', 'bf16') for c in PITCH_WIDTHS for pitch in (False, True))
-
-
-def library_defines(channels: int, pitch: bool, bf16: bool
-                    ) -> Tuple[str, ...]:
-    """:func:`build_defines` of the library a launch at ``channels`` flow
-    channels (with a pitch operand, of that width's, :data:`PITCH_WIDTHS`;
-    at bfloat16 with ``bf16``) loads."""
-    return build_defines(channels, pitch_width(channels) if pitch else 0,
-                         bf16)
+    for bf16 in ('', 'bf16') for c in BUILT_CHANNELS
+    for pitch in (False, True))
 
 
 def count_launches(fn, what: str, channels: int, pitch: bool,
@@ -550,7 +532,7 @@ def check_shape(name: str, channels: int, w_in_shape: Tuple[int, ...],
     """Raise unless a build of :data:`KERNEL_SHAPES` takes ``channels``
     flow channels and ``w_in [n, k, ch, 2ch]``, and, with a pitch operand
     ``pitch_size`` wide, that width is the one of ``channels``
-    (:data:`PITCH_WIDTHS`: num_squeeze, 2 at 160 channels, 1 at 80)."""
+    (:func:`pitch_width`: num_squeeze, 2 at 160 channels, 1 at 80)."""
     n, k, ch, _ = w_in_shape
     got = {'channels': channels, 'ch': ch, 'n_layers': n, 'kernel_size': k}
     if got not in KERNEL_SHAPES:
@@ -573,7 +555,7 @@ def _check_weights(name: str, x: torch.Tensor, pitch, channels: int,
     ``weights`` of ``shapes`` and their tensor-core layout for a kernel of
     ``dtype``, which ``weights`` must carry: it is made once, where the
     weights are packed, not at every launch.  With a ``pitch [B, T, ps]``
-    operand (``ps`` the width of ``channels``, :data:`PITCH_WIDTHS`),
+    operand (``ps`` the width of ``channels``, :func:`pitch_width`),
     ``weights`` carry ``w_pitch [(S,) n, ps, 2ch]`` too."""
     w_in_shape = weights['w_in'].shape[0 if steps is None else 1:]
     lead = () if steps is None else (steps,)
@@ -845,7 +827,7 @@ def load_flow_library(source: str, pitch: bool = False,
     ``pitch``, for the pitch operand's width at ``channels``; its bfloat16
     build with ``bf16``), held to the width it reports."""
     from glow_tts_tpu_torch.ops.cuda_build import load_library
-    lib = load_library(source, library_defines(channels, pitch, bf16))
+    lib = load_library(source, build_defines(channels, pitch, bf16))
     lib.glow_flow_channels.argtypes = []
     lib.glow_flow_channels.restype = ctypes.c_int
     if lib.glow_flow_channels() != channels:

@@ -50,7 +50,7 @@ gradient) added layer by layer in launch order.  MiniSpeech's 80 flow
 channels (``Num_Squeeze: 1``) are a build of both sources of their own
 too (``GLOW_CHANNELS=80``), loaded by the channel count and counted apart
 (``*_c80_launches``); its pitch builds take the pitch operand 1 wide
-(``GLOW_PITCH_SIZE=1``, ``*_c80_pitch_launches``).
+(``*_c80_pitch_launches``).
 
 At bfloat16 (``x`` a bfloat16 tensor: ``config.compute_dtype``) the pair
 computes what the TPU kernels compute at ``dt = bfloat16``

@@ -13,8 +13,9 @@ build, its pitch build (``-DGLOW_PITCH``) and its 80-channel build
 sources that had them (``BF16_SOURCES``) are compared and reported SAME
 or DIFFERENT (with both sides' lines where they differ); this checkout's
 other builds (``OWN``: the bfloat16 builds of the coupling and the stack,
-and every source's 80-channel pitch builds, ``-DGLOW_PITCH_SIZE=1``) are
-printed.  Exits 1 if a compared build differs or fails.  Needs ``nvcc``.
+and every source's 80-channel pitch builds, whose pitch operand is 1
+wide) are printed.  Exits 1 if a compared build differs or fails.  Needs
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ BF16 = (('GLOW_BF16',), ('GLOW_PITCH', 'GLOW_BF16'),
         ('GLOW_CHANNELS=80', 'GLOW_BF16'))
 # the sources whose bfloat16 builds the other checkout may have too
 BF16_SOURCES = ('flow_step.cu', 'flow_train_fwd.cu', 'flow_train_bwd.cu')
-C80_PITCH = ('GLOW_PITCH', 'GLOW_PITCH_SIZE=1', 'GLOW_CHANNELS=80')
+C80_PITCH = ('GLOW_PITCH', 'GLOW_CHANNELS=80')
 # this checkout's own builds, printed
 OWN = (C80_PITCH, C80_PITCH + ('GLOW_BF16',))
 

@@ -365,8 +365,9 @@ def test_routes_without_a_bf16_build_raise(route):
     deterministic forward and its inverse compute, through the wrappers
     (the plain versions here), what the route's plain functions passed by
     hand compute, bit for bit; ``'mega'`` is bit-equal to ``'fused'`` (a
-    loop of the same plain step), and ``'modules'`` (ActNorm and the
-    mixing at bf16 as modules: another bf16 policy, held against JAX's in
+    loop of the same plain step), and ``'modules'`` (the JAX package's
+    flax route: the stream in the input's dtype between the modules,
+    another bf16 policy, held against JAX's in
     ``tests/test_torch_bf16_routes.py``) is, like every route, within 3e-2
     norm-relative of the f32 forward.
     Training runs under every route (the train kernels have bf16

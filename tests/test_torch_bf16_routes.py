@@ -7,21 +7,20 @@ against JAX's ``'flax'`` route and its ``'mega'`` against
 ``tests/test_torch_bf16_train_modes.py`` pairs them.  Per case: the ActNorm
 data-dependent initialisation against ``create_train_state``'s at bf16;
 one eval step's losses and ``z``; the decoder's forward ``z`` and logdet
-from the mels and its inverse from a latent (the decoded mel: the inverse
-flow the decode runs after the path, with the batch's conditioning),
-against the same composition in the JAX package (for ``'modules'`` its
-flow steps as their three modules, the coupling module on its fused
-branch, the stream in bf16 as the port carries it: JAX's ``'flax'`` route
-keeps the stream in f32 between the steps).  And
+from the float32 mels (as the eval step hands them over) and its inverse
+from a latent in the compute dtype (as a decode hands it over: the
+decoded mel, with the batch's conditioning), against the JAX model's
+decoder under the same backend.  And
 the plain bf16 ``flow_stack_reference`` against ``fused_flow_stack``
 (interpret mode) at bf16, both directions, with and without the pitch
 operand.
 
 Tolerance (``tests/torch_port_helpers.py``): max|port − jax_bf16| ≤
 2·max|jax_bf16 − jax_f32| + 1e-6.  Under ``'mega'`` both sides run the
-TPU kernels' bf16 policy; under ``'modules'`` the JAX side's flax coupling
-rounds where XLA does and the port's coupling where the TPU kernel does:
-two bf16 policies of the same size of error.  One JAX compile per case and
+TPU kernels' bf16 policy; under ``'modules'`` both keep the stream in the
+decoder input's dtype between ActNorm, the mixing and the coupling, and
+the JAX side's flax coupling rounds where XLA does, the port's where the
+TPU kernel does: two bf16 policies of the same size of error.  One JAX compile per case and
 dtype (the eval step and the decoder's two directions in one jitted
 function), through a module-scoped fixture.
 """
@@ -35,7 +34,6 @@ import numpy as np
 import pytest
 import torch
 
-from glow_tts_tpu.models import decoder as jd
 from glow_tts_tpu.ops.coupling import fused_flow_stack
 from glow_tts_tpu.training import step as jstep
 from glow_tts_tpu_torch.models.layers import sequence_mask
@@ -45,7 +43,7 @@ from glow_tts_tpu_torch.weights import load_jax_params
 from tests.test_torch_bf16_train_step import _batch, _config, _perturbed
 from tests.test_torch_flow_stack import _weights as stack_weights
 from tests.torch_port_helpers import (assert_bf16_close, at_dtype,
-                                      port_config, ragged, t, with_backend)
+                                      port_config, ragged, t)
 
 DTYPES = ('float32', 'bfloat16')
 # (mode, the port's route, the JAX side's backend)
@@ -62,93 +60,46 @@ def _latent(batch, cfg):
             ).astype(np.float32)
 
 
-def _modules_flow(cfg, dtype, p, x, mask, speaker, prosody, pitch,
-                  reverse):
-    """The JAX package's flow steps as their three modules, the
-    composition the port's ``'modules'`` route runs: ``ActNorm`` and
-    ``InvertibleConv`` as flax modules and ``AffineCoupling`` on its fused
-    branch (``fused_coupling``, interpret mode), the stream in ``dtype``
-    between them as JAX's kernel routes carry it (``x.astype(dt)``).
-    Returns (x [B, T, M] float32, logdet [B] or None)."""
-    fused = with_backend(cfg, 'fused_interpret')
-    s = cfg.decoder.num_squeeze
-    x, sq = jd.squeeze(x, mask, s)
-    if pitch is not None:
-        pitch, _ = jd.squeeze(pitch[..., None], mask, s)
-    x = x.astype(dtype)
-    logdet = jnp.zeros((x.shape[0],), jnp.float32)
-    steps = range(cfg.decoder.stack)
-    for k in (reversed(steps) if reverse else steps):
-        q = p[f'flow_{k}']
-        actnorm = functools.partial(jd.ActNorm(dtype).apply,
-                                    {'params': q['actnorm']})
-        invconv = functools.partial(jd.InvertibleConv(
-            cfg.decoder.num_split, dtype,
-            identity_init=cfg.decoder.identity_mixing_init).apply,
-            {'params': q['invconv']})
-        coupling = functools.partial(jd.AffineCoupling(fused, dtype).apply,
-                                     {'params': q['coupling']})
-        if reverse:
-            x, _ = coupling(x, sq, speaker, prosody, pitch, reverse=True)
-            x, _ = invconv(x, sq, reverse=True)
-            x, _ = actnorm(x, sq, reverse=True)
-            continue
-        for module in (actnorm, invconv):
-            x, ld = module(x, sq)
-            logdet = logdet + ld
-        x, ld = coupling(x, sq, speaker, prosody, pitch)
-        logdet = logdet + ld
-    x, _ = jd.unsqueeze(x.astype(jnp.float32), sq, s)
-    return x, (None if reverse else logdet)
-
-
-def _jax_run(cfg, route, params, batch, latent):
-    """One jitted call: the eval step's losses and ``z``, and the decoder
-    of the route (``'mega'``: the JAX model's own decoder under
-    ``'mega_interpret'``; ``'modules'``: :func:`_modules_flow`) forward
-    from the mels and inverse from ``latent``, with the batch's
-    conditioning."""
+def _jax_run(cfg, params, batch, latent):
+    """The eval step's losses, ``z`` and path (one jitted call), and the
+    JAX model's decoder under the route's backend forward from the mels
+    and inverse from ``latent`` cast to the compute dtype, with the
+    batch's conditioning, op by op: under ``jit`` XLA keeps the flax
+    modules' bf16 chains in f32 and rounds only where a fusion ends, so
+    the jitted decoder is a third bf16 policy; op by op each flax op's
+    result is rounded to bf16 as its dtype says (the way
+    ``tests/test_torch_bf16_train_step.py`` takes JAX's gradients)."""
     model = jstep.build_model(cfg)
     eval_step = jstep.make_eval_step(cfg, model)
     gr = cfg.uses_gradient_reversal
-    dtype = jnp.bfloat16 if cfg.tpu.compute_dtype == 'bfloat16' \
-        else jnp.float32
 
     def conditions(m, mels, mel_lengths, speakers):
         return m._conditions(mels, mel_lengths, speakers, None, True)[:2]
 
     def flow(m, x, mask, speaker, prosody, pitch, reverse):
-        x, logdet, _ = m.decoder(x.astype(m.dtype or jnp.float32), mask,
-                                 speaker, prosody, pitch, reverse=reverse)
+        if reverse:
+            x = x.astype(m.dtype or jnp.float32)
+        x, logdet, _ = m.decoder(x, mask, speaker, prosody, pitch,
+                                 reverse=reverse)
         return x, logdet
 
-    @jax.jit
-    def run(p, jbatch, latent):
-        losses, outputs = eval_step(types.SimpleNamespace(params=p), jbatch)
-        mels, lengths = jbatch['mels'], jbatch['mel_lengths']
-        mask = (jnp.arange(mels.shape[1])[None] < lengths[:, None]
-                )[..., None].astype(jnp.float32)
-        speaker, prosody = model.apply({'params': p}, mels, lengths,
-                                       jbatch.get('speakers'),
-                                       method=conditions)
-        pitch = jbatch['pitches'] if gr else None
-        if route == 'mega':
-            z, logdet = model.apply({'params': p}, mels, mask, speaker,
-                                    prosody, pitch, False, method=flow)
-            x, _ = model.apply({'params': p}, latent, mask, speaker,
-                               prosody, pitch, True, method=flow)
-        else:
-            z, logdet = _modules_flow(cfg, dtype, p['decoder'], mels, mask,
-                                      speaker, prosody, pitch, False)
-            x, _ = _modules_flow(cfg, dtype, p['decoder'], latent, mask,
-                                 speaker, prosody, pitch, True)
-        return losses, outputs['z'], outputs['attentions'], z, logdet, x
-
+    p = jax.tree_util.tree_map(jnp.asarray, params)
     jbatch = {key: jnp.asarray(value) for key, value in batch.items()}
-    losses, *arrays = run(jax.tree_util.tree_map(jnp.asarray, params),
-                          jbatch, jnp.asarray(latent))
+    losses, outputs = jax.jit(lambda p, b: eval_step(
+        types.SimpleNamespace(params=p), b))(p, jbatch)
+    mels, lengths = jbatch['mels'], jbatch['mel_lengths']
+    mask = (jnp.arange(mels.shape[1])[None] < lengths[:, None]
+            )[..., None].astype(jnp.float32)
+    speaker, prosody = model.apply({'params': p}, mels, lengths,
+                                   jbatch.get('speakers'), method=conditions)
+    pitch = jbatch['pitches'] if gr else None
+    z, logdet = model.apply({'params': p}, mels, mask, speaker, prosody,
+                            pitch, False, method=flow)
+    x, _ = model.apply({'params': p}, jnp.asarray(latent), mask, speaker,
+                       prosody, pitch, True, method=flow)
     return ({key: float(v) for key, v in losses.items()},
-            *(np.asarray(a, np.float32) for a in arrays))
+            *(np.asarray(a, np.float32) for a in
+              (outputs['z'], outputs['attentions'], z, logdet, x)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -177,8 +128,8 @@ def case(request):
     batch = _batch(cfg, False)
     params = _perturbed(cfg, batch)
     latent = _latent(batch, cfg)
-    refs = {dtype: _jax_run(at_dtype(cfg, dtype), route, params, batch,
-                            latent) for dtype in DTYPES}
+    refs = {dtype: _jax_run(at_dtype(cfg, dtype), params, batch, latent)
+            for dtype in DTYPES}
     pcfg = port_config(at_dtype(cfg, 'bfloat16'))
     assert pcfg.flow_route == route and pcfg.compute_dtype == 'bfloat16'
     port = load_jax_params(build_model(pcfg), params, pcfg).prepare()
@@ -208,12 +159,12 @@ def test_bf16_eval_step_matches_jax(case):
 
 
 def test_bf16_decoder_both_directions_match_jax(case):
-    """The decoder's forward (``z`` and the logdet from the mels) and its
-    inverse from a latent (the decoded mel) under the route at bf16, with
-    the batch's conditioning (GR: the speaker and prosody vectors and the
-    pitch track), against the same composition in the JAX package:
-    ``'mega'`` its decoder under ``'mega_interpret'``, ``'modules'``
-    :func:`_modules_flow`."""
+    """The decoder's forward (``z`` and the logdet from the float32 mels)
+    and its inverse from a bf16 latent (the decoded mel) under the route at
+    bf16, with the batch's conditioning (GR: the speaker and prosody
+    vectors and the pitch track), against the JAX model's decoder under
+    the route's backend (``'flax'`` for ``'modules'``, whose stream is
+    float32 forward and bfloat16 inverse on both sides)."""
     port, refs, batch = case['port'], case['refs'], case['batch']
     tensors = {key: t(value) for key, value in batch.items()}
     decoder = port.layer_Dict['Decoder']
@@ -225,8 +176,9 @@ def test_bf16_decoder_both_directions_match_jax(case):
         pitch = tensors.get('pitches') if case['mode'] == 'GR' else None
         z, logdet, _ = decoder(tensors['mels'], mask, speaker=speaker,
                                prosody=prosody, pitch=pitch)
-        x, _, _ = decoder(t(case['latent']), mask, reverse=True,
-                          speaker=speaker, prosody=prosody, pitch=pitch)
+        x, _, _ = decoder(t(case['latent']).to(port.dtype), mask,
+                          reverse=True, speaker=speaker, prosody=prosody,
+                          pitch=pitch)
     assert z.dtype == x.dtype == logdet.dtype == torch.float32
     for name, got, i in (('z', z, 3), ('logdet', logdet, 4),
                          ('decoded mel', x, 5)):

@@ -60,7 +60,7 @@ and with the pitch operand: #2 against its bf16 plain version to the same
 bar, its halves as views of one bfloat16 tensor; #4 bit for bit against a
 chain of the flow step's bf16 launches (the stream bfloat16 between the
 steps) and to the bar against its plain version.  The pitch operand 1
-wide at 80 channels (``GLOW_PITCH_SIZE=1``) in every flow kernel, at f32
+wide at 80 channels (the 80-channel pitch builds) in every flow kernel, at f32
 and bf16, against the plain versions, and the 2-wide operand refused
 there.
 Needs a GPU and nvcc; skipped without.
@@ -752,7 +752,7 @@ def test_coupling_wrapper_refuses_what_the_kernel_does_not_take(device):
         tc.coupling(x_a.double(), x_b, mask, w, cond)
     with pytest.raises(ValueError, match='built for'):
         tc.coupling(x[..., :48], x[..., 48:96], mask, w, cond)
-    with pytest.raises(ValueError, match='16-byte'):     # rows off by 4 bytes
+    with pytest.raises(ValueError, match='aligned to 4'):  # rows off by 4 bytes
         tc.coupling(x[..., 1:81], x_b, mask, w, cond)
     with pytest.raises(ValueError, match='unit stride'):
         tc.coupling(x[..., 0:160:2], x_b, mask, w, cond)
@@ -1437,7 +1437,7 @@ def test_c80_backward_dgrad_over_a_depth_of_80(device, lengths, width):
 
 def test_c80_refuses_the_pitch_operand(device):
     """At 80 channels (``Num_Squeeze: 1``) the pitch operand is 1 wide: the
-    flow step and the train stack take it (their ``GLOW_PITCH_SIZE=1``
+    flow step and the train stack take it (their 80-channel pitch
     builds, counted apart) and match their plain versions; the shipped
     width's 2-wide operand is what they refuse."""
     gen = torch.Generator().manual_seed(240)
@@ -1774,25 +1774,24 @@ def test_bf16_builds_report_their_width_and_refuse_other_routes(device):
 
 def test_build_defines_of_the_existing_builds_are_unchanged():
     """The macros, and so the libraries' names and hashes, of every build
-    that existed before the pitch width became a build parameter are what
-    they were; ``GLOW_PITCH_SIZE`` appears only in the 80-channel pitch
-    builds (runs on the CPU: no card needed)."""
+    that existed before the pitch operand's width followed the flow width
+    are what they were; the 80-channel pitch builds are ``GLOW_PITCH``
+    beside ``GLOW_CHANNELS=80``, whose pitch operand ``pitch_width`` gives
+    as 1 wide (runs on the CPU: no card needed)."""
     assert tc.build_defines() == ()
-    assert tc.build_defines(160, 2) == ('GLOW_PITCH',)
+    assert tc.build_defines(160, True) == ('GLOW_PITCH',)
     assert tc.build_defines(80) == ('GLOW_CHANNELS=80',)
-    assert tc.build_defines(160, 0, True) == ('GLOW_BF16',)
-    assert tc.build_defines(160, 2, True) == ('GLOW_PITCH', 'GLOW_BF16')
-    assert tc.build_defines(80, 0, True) == ('GLOW_CHANNELS=80', 'GLOW_BF16')
-    assert tc.build_defines(80, 1) == ('GLOW_PITCH', 'GLOW_PITCH_SIZE=1',
-                                       'GLOW_CHANNELS=80')
-    assert tc.build_defines(80, 1, True) == (
-        'GLOW_PITCH', 'GLOW_PITCH_SIZE=1', 'GLOW_CHANNELS=80', 'GLOW_BF16')
-    assert tc.library_defines(80, True, False) == tc.build_defines(80, 1)
-    assert tc.library_defines(160, True, True) == tc.build_defines(160, 2,
-                                                                   True)
+    assert tc.build_defines(160, False, True) == ('GLOW_BF16',)
+    assert tc.build_defines(160, True, True) == ('GLOW_PITCH', 'GLOW_BF16')
+    assert tc.build_defines(80, False, True) == ('GLOW_CHANNELS=80',
+                                                 'GLOW_BF16')
+    assert tc.build_defines(80, True) == ('GLOW_PITCH', 'GLOW_CHANNELS=80')
+    assert tc.build_defines(80, True, True) == (
+        'GLOW_PITCH', 'GLOW_CHANNELS=80', 'GLOW_BF16')
+    assert (tc.pitch_width(160), tc.pitch_width(80)) == (2, 1)
     for channels, width in ((160, 1), (80, 2)):
         with pytest.raises(ValueError, match='num_squeeze'):
-            tc.build_defines(channels, width)
+            tc.check_shape('flow_step', channels, (4, 5, 192, 384), width)
     with pytest.raises(ValueError, match='B.2'):
         tc.pitch_width(120)
 

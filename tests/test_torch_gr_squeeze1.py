@@ -1,13 +1,14 @@
 """GR mode at ``Num_Squeeze: 1``: the flow as wide as the mel, so GR's pitch
 operand is 1 wide (at full width, MiniSpeech's 80 channels; on the card the
-flow kernels' ``GLOW_PITCH_SIZE=1`` builds).  The port against the JAX
+flow kernels' 80-channel pitch builds).  The port against the JAX
 package under ``'mega_interpret'`` (its Pallas train kernels in interpret
 mode) at float32 and at bfloat16, from the same f32 parameters and batch
 at ``tiny_config`` size with every dropout rate 0: the first train step's
 losses and gradients, leaf by leaf, and a decode (the decoder's inverse
-from a latent, with the batch's conditioning) under each route.  The port
-takes the JAX side's MAS path of the step at each dtype (a near-tie at
-bf16 moves whole frames).
+from a latent in the compute dtype, with the batch's conditioning) under
+each route, ``'modules'`` at bf16 against JAX's ``'flax'`` decode.  The
+port takes the JAX side's MAS path of the step at each dtype (a near-tie
+at bf16 moves whole frames).
 
 Tolerances: at float32 those of ``tests/test_torch_train_step.py`` (losses
 2e-5 relative, gradients rtol 2e-4 / atol 2e-5) and, on the decoded mel,
@@ -15,8 +16,10 @@ of ``tests/test_torch_modes.py`` (1e-5); at bfloat16 the bar of
 ``tests/torch_port_helpers.py`` (max|port − jax_bf16| ≤
 2·max|jax_bf16 − jax_f32| + 1e-6; the gradients leaf by leaf as
 ``assert_bf16_grads`` holds a whole model's).  JAX's gradients are taken
-op by op, as ``tests/test_torch_bf16_train_step.py`` takes them, and its
-inverse is one jitted call per dtype, through a module-scoped fixture.
+op by op, as ``tests/test_torch_bf16_train_step.py`` takes them; its
+inverse under ``'mega_interpret'`` is one jitted call per dtype, under
+``'flax'`` op by op (under ``jit`` XLA keeps the flax modules' bf16 chains
+in f32), through a module-scoped fixture.
 """
 
 import dataclasses
@@ -36,7 +39,7 @@ from glow_tts_tpu_torch.weights import gradients_as_jax_params, load_jax_params
 from tests.helpers import synthetic_batch, tiny_config
 from tests.test_torch_bf16_train_step import _perturbed
 from tests.torch_port_helpers import (assert_bf16_close, assert_bf16_grads,
-                                      at_dtype, norm_rel, port_config, t,
+                                      at_dtype, port_config, t,
                                       with_backend, with_dropout)
 
 LOSS_RTOL = 2e-5
@@ -60,8 +63,10 @@ def _config():
 
 def _jax_run(cfg, params, batch, latent):
     """The first step's losses, gradients and MAS path, and the decoder's
-    inverse from ``latent``."""
+    inverse from ``latent`` under ``cfg``'s backend and, op by op, under
+    ``'flax'``."""
     model = jstep.build_model(cfg)
+    flax_model = jstep.build_model(with_backend(cfg, 'flax'))
     jbatch = {key: jnp.asarray(value) for key, value in batch.items()}
 
     def loss_fn(p):
@@ -90,9 +95,12 @@ def _jax_run(cfg, params, batch, latent):
                                                     has_aux=True)(p)
     mel = jax.jit(lambda p, latent: model.apply(
         {'params': p}, latent, method=inverse))(p, jnp.asarray(latent))
+    flax_mel = flax_model.apply({'params': p}, jnp.asarray(latent),
+                                method=inverse)
     return dict(losses={key: float(v) for key, v in losses.items()},
                 path=np.asarray(path), grads=grads,
-                mel=np.asarray(mel, np.float32))
+                mel=np.asarray(mel, np.float32),
+                flax_mel=np.asarray(flax_mel, np.float32))
 
 
 @pytest.fixture(scope='module')
@@ -171,10 +179,11 @@ def test_first_step_gradients_match_jax(runs):
 
 @pytest.mark.parametrize('dtype', DTYPES)
 def test_decode_matches_jax_under_every_route(runs, dtype):
-    """The decoder's inverse at ``Num_Squeeze: 1`` under each route: at
-    f32 every route against JAX's; at bf16 ``'mega'`` and ``'fused'``
-    (the TPU kernels' bf16 policy, as JAX's ``'mega_interpret'``) against
-    JAX's, and ``'modules'`` within 3e-2 norm-relative of the f32 decode."""
+    """The decoder's inverse at ``Num_Squeeze: 1`` under each route, from
+    the latent in the compute dtype as a decode hands it over: at f32
+    every route against JAX's; at bf16 ``'mega'`` and ``'fused'`` (the TPU
+    kernels' bf16 policy) against JAX's ``'mega_interpret'``, and
+    ``'modules'`` against JAX's ``'flax'``."""
     ref = runs['refs'][dtype]['mel']
     ref32 = runs['refs']['float32']['mel']
     tensors = {key: t(value) for key, value in runs['batch'].items()}
@@ -187,13 +196,15 @@ def test_decode_matches_jax_under_every_route(runs, dtype):
             speaker, prosody, _ = port.conditions(
                 tensors['mels'], tensors['mel_lengths'], tensors['speakers'])
             mel, _, _ = port.layer_Dict['Decoder'](
-                t(runs['latent']), mask, reverse=True, speaker=speaker,
-                prosody=prosody, pitch=tensors['pitches'])
+                t(runs['latent']).to(port.dtype), mask, reverse=True,
+                speaker=speaker, prosody=prosody, pitch=tensors['pitches'])
         assert mel.dtype == torch.float32 and torch.isfinite(mel).all()
         if dtype == 'float32':
             np.testing.assert_allclose(mel.numpy(), ref, err_msg=route,
                                        **MEL_TOL)
         elif route == 'modules':
-            assert norm_rel(mel, ref32) < 3e-2
+            assert_bf16_close(mel, runs['refs'][dtype]['flax_mel'],
+                              runs['refs']['float32']['flax_mel'],
+                              'decoded mel modules')
         else:
             assert_bf16_close(mel, ref, ref32, f'decoded mel {route}')
