@@ -84,7 +84,17 @@ each route at B = 32 in the 1024-frame bucket, the eval step at bf16 by
 route.  Then GR at ``Num_Squeeze: 1`` (80 channels, the pitch operand 1
 wide: the 80-channel pitch builds of #2–#6 at f32 and bf16 against
 their plain versions and timed, 3 train steps at each dtype beside the
-plain versions, an eval step under each route, a decode).  All 41
+plain versions, an eval step under each route, a decode).  Last, data
+parallelism, each rank a process of this script (``--data-parallel-rank
+KIND OUT`` with torchrun's environment): the shipped YAML at bf16 over
+NCCL on every card, 3 steps of each rank's rows of a B = 32 batch,
+bit-equal to one process in a world of one (on more cards at f32 with
+dropout 0, to the train path's bars); then two ranks on card 0 over gloo
+(NCCL refuses two ranks on one card), dropout 0, each on its own
+collation of half the batch against one process at B = 32, at f32 to the
+train path's bars and at bf16 (the gradients to the bf16 bar), and the
+same for one 'em' step at MiniSpeech's config (its table included); each
+rank's launches of #1, #5 and #6 and its step time by CUDA events.  All 41
 libraries build together before the first phase.  Exits non-zero on any failure and when no CUDA device is
 present; the last line is one JSON object naming the card.
 """
@@ -4810,6 +4820,455 @@ def run_gr_squeeze1_phase(pitch_rows, train_pitch_rows, device, card):
     return rows, by_path
 
 
+# ---------------------------------------------------------------------------
+# data parallelism: each rank a process of this script
+# (``python3 chip_smoke.py --data-parallel-rank KIND OUT``, with the
+# environment torchrun gives a rank)
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 3                   # train steps of the NCCL run
+DP_TIMED = 3                   # steps a timing takes, after one warm-up
+DP_GLOO_RANKS = 2              # two ranks on the one card, over gloo
+DP_TIMEOUT = 600               # seconds a sub-run may take in all
+# the train path's bars (tests/test_torch_train_step.py), held by the
+# ranks' step against one process's on the global batch
+DP_LOSS_RTOL, DP_NORM_RTOL = 2e-5, 2e-4
+DP_GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
+DP_PARAM_TOL = dict(rtol=5e-4, atol=5e-5)
+DP_LOSS_KEYS = ('total', 'mle', 'duration')
+
+
+def without_dropout(config):
+    """``config`` (the port's) with every dropout rate 0."""
+    rep = dataclasses.replace
+    enc, dec = config.encoder, config.decoder
+    enc = rep(enc, prenet=rep(enc.prenet, dropout_rate=0.0),
+              transformer=rep(enc.transformer, dropout_rate=0.0),
+              duration_predictor=rep(enc.duration_predictor,
+                                     dropout_rate=0.0))
+    coupling = dec.affine_coupling
+    coupling = rep(coupling, wavenet=rep(coupling.wavenet, dropout_rate=0.0))
+    return rep(config, encoder=enc,
+               decoder=rep(dec, affine_coupling=coupling))
+
+
+def dp_train_launches(config, steps):
+    """The kernels ``steps`` Vanilla train steps of ``config`` launch on
+    one rank: #1 once, #5 per flow step and #6's kernels per flow step, of
+    the build of its width and dtype."""
+    flows = config.decoder.stack
+    tag = build_suffix(config, bf16=config.compute_dtype == 'bfloat16')
+    return {**no_launches(), 'mas': steps,
+            f'train_fwd{tag}': flows * steps,
+            f'train_bwd{tag}': BWD_KERNELS_PER_FLOW_STEP * flows * steps}
+
+
+def dp_trainee(state, config, batch, device):
+    """A model as training holds it, ActNorm initialised on ``batch`` (the
+    global batch, as every rank of a ``Trainer`` does)."""
+    model = train_model(state, config, device)
+    model.data_dependent_init(batch['mels'], batch['mel_lengths'])
+    return model
+
+
+def dp_step(config, model, world, em=False, device=None):
+    """``(step, gradients)``: a train step of ``model`` under ``world``,
+    seed ``SEED`` (the encoder's generator ``shard_seed(SEED, rank)``, so
+    SEED on rank 0), and a list that takes the first update's summed
+    gradients, by name (with ``em``: the 'em' warmup with the decoder
+    frozen, its statistics in ``step.em``)."""
+    from glow_tts_tpu_torch import EMState, init_em_stats, make_optimizer
+    from glow_tts_tpu_torch import make_train_step
+    optimizer = make_optimizer(config, model.parameters())
+    names = {id(p): name for name, p in model.named_parameters()}
+    grads, update = [], optimizer.step
+
+    def recording(frozen=()):
+        if not grads:
+            grads.append({names[id(p)]: p.grad.detach().clone()
+                          for p in optimizer.params})
+        return update(frozen)
+
+    optimizer.step = recording
+    holder = EMState(init_em_stats(config, device)) if em else None
+    step = make_train_step(config, model, optimizer, seed=SEED,
+                           em_alignment=em, freeze_decoder=em,
+                           em_state=holder, world=world)
+    step.em = holder
+    return step, grads
+
+
+def dp_values(metrics):
+    return {key: value.item() for key, value in metrics.items()}
+
+
+def dp_compare(got, ref, what):
+    """The ranks' metrics against one process's, to the train path's
+    bars; returns the worst relative error."""
+    worst = 0.0
+    for key in ref:
+        rtol = DP_NORM_RTOL if key == 'grad_norm' else DP_LOSS_RTOL
+        err = abs(got[key] - ref[key]) / max(abs(ref[key]), 1e-30)
+        assert np.isfinite(got[key]) and err <= rtol, (what, key, got, ref)
+        worst = max(worst, err)
+    return worst
+
+
+def dp_ratio(got, ref, tol):
+    """Tensors by name against ``ref``'s: the worst ``|a - b| / (atol +
+    rtol |b|)`` (at most 1 within the bar)."""
+    assert set(got) == set(ref)
+    return max(((got[n].double() - ref[n].double()).abs()
+                / (tol['atol'] + tol['rtol'] * ref[n].double().abs())
+                ).max().item() for n in ref)
+
+
+def dp_nccl_rank(config16):
+    """Every card over NCCL: ``DP_STEPS`` steps of this rank's rows of the
+    global batch; on rank 0 the same steps of one process on the whole
+    batch from the same weights, seed and generator; then both timed.  In
+    a world of one the shipped YAML as shipped (bf16, dropout on), held
+    bit for bit; on more cards each rank draws its own dropout and rounds
+    its bf16 gradients before the sum (``PERF.md``, PR 16), so there the
+    YAML runs at f32 with every dropout rate 0, held to the train path's
+    bars."""
+    from glow_tts_tpu_torch import (TrainCollater, batch_to_device,
+                                    make_optimizer, make_train_step,
+                                    random_state_dict)
+    from glow_tts_tpu_torch.parallel import data as pdata
+    from glow_tts_tpu_torch.text import Tokenizer
+    world = pdata.initialize(config16, 'cuda')
+    assert world.backend == 'nccl', world
+    device = world.device
+    config = config16 if world.size == 1 else without_dropout(
+        dataclasses.replace(config16, compute_dtype='float32'))
+    whole = batch_to_device(TrainCollater(config, Tokenizer())(
+        synthetic_items(config, SEED + 10)), device)
+    share = EVAL_BATCH // world.size
+    mine = {key: value[world.rank * share:(world.rank + 1) * share]
+            for key, value in whole.items()}
+    state = random_state_dict(config, SEED)
+    out = {'rank': world.rank, 'world_size': world.size,
+           'device': str(device), 'backend': world.backend,
+           'compute_dtype': config.compute_dtype}
+    if world.is_main:
+        one = dp_trainee(state, config, whole, device)
+        one_step = make_train_step(
+            config, one, make_optimizer(config, one.parameters()),
+            seed=SEED,
+            generator=torch.Generator(device=device).manual_seed(SEED))
+        ref = [dp_values(one_step(whole)) for _ in range(DP_STEPS)]
+        ref_params = {k: v.clone() for k, v in one.state_dict().items()}
+    model = dp_trainee(state, config, whole, device)
+    step, _ = dp_step(config, model, world)
+    zero_counts()
+    got = [dp_values(step(mine)) for _ in range(DP_STEPS)]
+    out['launches'] = read_counts()
+    assert out['launches'] == dp_train_launches(config, DP_STEPS), \
+        out['launches']
+    out['metrics'] = got
+    if world.is_main:
+        out['single_process_metrics'] = ref
+        params = model.state_dict()
+        if world.size == 1:
+            # every reduction is an identity: the same bits
+            assert got == ref, (got, ref)
+            for key, value in ref_params.items():
+                assert torch.equal(params[key], value), key
+            out['bit_equal'] = True
+        else:
+            out['worst_loss_rel_err'] = max(
+                dp_compare(g, r, 'nccl') for g, r in zip(got, ref))
+            out['worst_param_ratio'] = dp_ratio(params, ref_params,
+                                                DP_PARAM_TOL)
+            assert out['worst_param_ratio'] <= 1.0, out
+        dp_ms, one_ms = paired_ms(lambda: step(mine),
+                                  lambda: one_step(whole), iters=DP_TIMED,
+                                  plain_warmup=1)
+        out.update(step_ms=dp_ms, single_process_step_ms=one_ms)
+    else:
+        # in step with rank 0's two timings of this rank's step
+        out['step_ms'] = (cuda_ms(lambda: step(mine), DP_TIMED)
+                          + cuda_ms(lambda: step(mine), DP_TIMED)) / 2
+    return out
+
+
+def dp_table(step):
+    """A copy of the 'em' table statistics ``step`` holds (None outside
+    the 'em' warmup)."""
+    return None if step.em is None else [t.clone() for t in step.em.stats]
+
+
+def dp_gloo_case(world, config16, items, device, em=False):
+    """One step of this rank's own collation of its half of ``items``
+    under ``world`` and, on rank 0, of one process on all of them, from
+    the same weights, at f32 and at bf16 (``config16`` as shipped).  At
+    f32 the metrics and the summed gradients (with ``em`` also the table)
+    are held to the train path's bars; at bf16 the metrics and the table
+    too, and the gradients, whose bf16 roundings move with the batch's
+    split, to the bf16 bar: each tensor no further from one process's at
+    bf16 than twice that one's distance from f32, plus 1e-4 (norm-
+    relative; the JAX package's 2-way mesh moves its bf16 gradients by
+    the same order, ``tests/test_torch_data_parallel.py``).  On rank 0 a control: one process at bf16 on the same
+    batch with the mel axis padded to another bucket, its gradients'
+    distance printed.  The rank's bf16 step then timed by CUDA events."""
+    from glow_tts_tpu_torch import TrainCollater, batch_to_device
+    from glow_tts_tpu_torch import random_state_dict
+    from glow_tts_tpu_torch.parallel.data import SINGLE
+    from glow_tts_tpu_torch.text import Tokenizer, load_token_dict
+    token_dict = (load_token_dict(config16.token_path)
+                  if os.path.exists(config16.token_path) else None)
+    tokenizer = Tokenizer(token_dict)
+    half = len(items) // world.size
+    out, one, dp = {}, {}, {}
+    for dtype in ('float32', 'bfloat16'):
+        config = dataclasses.replace(config16, compute_dtype=dtype)
+        collate = TrainCollater(config, tokenizer)
+        whole = batch_to_device(collate(items), device)
+        mine = batch_to_device(collate(
+            items[world.rank * half:(world.rank + 1) * half]), device)
+        state = random_state_dict(config, SEED)
+        if world.is_main:
+            one_step, grads = dp_step(
+                config, dp_trainee(state, config, whole, device), SINGLE, em,
+                device)
+            one[dtype] = (dp_values(one_step(whole)), grads[0],
+                          dp_table(one_step))
+        step, grads = dp_step(config, dp_trainee(state, config, whole,
+                                                 device), world, em, device)
+        zero_counts()
+        got = dp_values(step(mine))
+        out[dtype] = {'launches': read_counts(), 'metrics': got,
+                      'shape': list(mine['mels'].shape),
+                      'single_process_shape': list(whole['mels'].shape)}
+        dp[dtype] = (got, grads[0], dp_table(step))
+    out['launches'] = out['bfloat16']['launches']
+    out['step_ms'] = cuda_ms(lambda: step(mine), DP_TIMED, warmup=1)
+    if not world.is_main:
+        return out
+    for dtype in ('float32', 'bfloat16'):
+        (got, grads, table), (ref, ref_grads, ref_table) = (dp[dtype],
+                                                            one[dtype])
+        row = out[dtype]
+        row['single_process_metrics'] = ref
+        row['worst_loss_rel_err'] = dp_compare(got, ref, f'gloo {dtype}')
+        # the train path's elementwise bar, held at f32
+        row['worst_grad_ratio'] = dp_ratio(grads, ref_grads, DP_GRAD_TOL)
+        if dtype == 'float32':
+            assert row['worst_grad_ratio'] <= 1.0, row
+        else:
+            f32_grads = one['float32'][1]
+            worst = 0.0
+            for name, want in ref_grads.items():
+                err = norm_rel(grads[name], want)
+                bar = (BF16_GRAD_FACTOR * norm_rel(want, f32_grads[name])
+                       + BF16_GRAD_ATOL)
+                assert err <= bar, ('gloo bf16 gradients', name, err, bar)
+                worst = max(worst, err / bar)
+            row['worst_grad_bar_share'] = worst
+        if em:
+            assert ref_table[0].sum() > 0
+            # frames whose token id the step's MAS paths gave otherwise
+            row['em_frames_moved'] = (table[0] - ref_table[0]).abs(
+                ).sum().item() / 2
+            row['em_stats_rel_err'] = max(
+                rel_err(a, b) for a, b in zip(table[1:], ref_table[1:]))
+            # at either dtype the table of one process: the same frames
+            # under each token, the sums to EM_STATS_REL_BOUND
+            assert row['em_frames_moved'] == 0, row
+            assert row['em_stats_rel_err'] <= EM_STATS_REL_BOUND, row
+    # the control: the same samples in one process, only the mel axis
+    # padded otherwise, at bf16
+    config = dataclasses.replace(config16, mel_bucket=3 * config16.mel_bucket)
+    whole = batch_to_device(TrainCollater(config, tokenizer)(items), device)
+    control, grads = dp_step(config, dp_trainee(
+        random_state_dict(config, SEED), config, whole, device), SINGLE, em,
+        device)
+    control(whole)
+    ref_grads = one['bfloat16'][1]
+    out['control'] = {
+        'shape': list(whole['mels'].shape),
+        'em_frames_moved': (control.em.stats[0] - one['bfloat16'][2][0]
+                            ).abs().sum().item() / 2 if em else None,
+        'worst_grad_norm_rel': max(norm_rel(grads[0][n], ref_grads[n])
+                                   for n in ref_grads),
+        'worst_grad_ratio': dp_ratio(grads[0], ref_grads, DP_GRAD_TOL)}
+    return out
+
+
+def dp_gloo_rank(config16):
+    """Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    card), every dropout rate 0, each on its own collation of half the
+    batch: the shipped YAML's step at B = 16 a rank against one process at
+    B = 32 on the same samples, and one 'em' step at MiniSpeech's config."""
+    import tempfile
+    from glow_tts_tpu_torch.parallel import data as pdata
+    world = pdata.initialize(config16, 'cuda', backend='gloo')
+    assert (world.backend, world.device) == ('gloo', torch.device('cuda', 0))
+    out = {'rank': world.rank, 'world_size': world.size,
+           'device': str(world.device), 'backend': world.backend}
+    config = without_dropout(config16)
+    out['vanilla'] = dp_gloo_case(world, config,
+                                  synthetic_items(config, SEED + 10),
+                                  world.device)
+    assert out['vanilla']['launches'] == dp_train_launches(config16, 1), \
+        out
+    root = tempfile.mkdtemp(prefix='chip_smoke_dp_')
+    ms = without_dropout(minispeech_config(root, 'bfloat16'))
+    out['em'] = dp_gloo_case(world, ms, minispeech_items(MS_BATCH, SEED + 92),
+                             world.device, em=True)
+    return out
+
+
+def data_parallel_rank(kind, out_path):
+    """One rank of a sub-run of the data-parallel phase."""
+    from glow_tts_tpu_torch import load_config
+    from glow_tts_tpu_torch.parallel import data as pdata
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # as Trainer sets it for the process
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    config16 = load_config(CONFIG)
+    assert config16.compute_dtype == 'bfloat16'
+    result = {'nccl': dp_nccl_rank, 'gloo': dp_gloo_rank}[kind](config16)
+    with open(out_path, 'w', encoding='utf-8') as f:
+        json.dump(result, f)
+    pdata.close()
+
+
+def launch_ranks(kind, ranks, local_ranks, root):
+    """Run ``ranks`` processes of :func:`data_parallel_rank` with
+    torchrun's environment, rank r on card ``local_ranks[r]``; wait for
+    all (killing them after ``DP_TIMEOUT``) and return their results, or
+    fail with their output."""
+    import socket
+    with socket.socket() as probe:
+        probe.bind(('localhost', 0))
+        port = probe.getsockname()[1]
+    procs, logs = [], []
+    start = time.perf_counter()
+    for rank in range(ranks):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(ranks),
+                   LOCAL_RANK=str(local_ranks[rank]),
+                   LOCAL_WORLD_SIZE=str(ranks), MASTER_ADDR='localhost',
+                   MASTER_PORT=str(port))
+        logs.append(os.path.join(root, f'{kind}-{rank}.log'))
+        with open(logs[-1], 'w') as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 '--data-parallel-rank', kind,
+                 os.path.join(root, f'{kind}-{rank}.json')],
+                env=env, stdout=log, stderr=subprocess.STDOUT))
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(DP_TIMEOUT - (time.perf_counter()
+                                                - start), 1))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    failed = [rank for rank, proc in enumerate(procs) if proc.returncode]
+    for rank in failed:
+        with open(logs[rank], encoding='utf-8') as f:
+            print(f'{kind} rank {rank} failed:\n{f.read()[-6000:]}')
+    assert not failed, f'{kind}: ranks {failed} failed'
+    results = []
+    for rank in range(ranks):
+        with open(os.path.join(root, f'{kind}-{rank}.json'),
+                  encoding='utf-8') as f:
+            results.append(json.load(f))
+    return results, time.perf_counter() - start
+
+
+def run_data_parallel_phase(card):
+    """The shipped YAML, Vanilla, at the global B = 32 training shape and
+    bf16 as shipped, one process per rank: (1) every card over NCCL, 3
+    steps, bit-equal to one process in a world of one; (2) two ranks on
+    card 0 over gloo at B = 16 each from its own collation, dropout 0,
+    against one process at B = 32, and the same for one 'em' step at
+    MiniSpeech's config.  Prints each rank's launches of #1, #5 and #6 and
+    the step times; returns the launches by path."""
+    import tempfile
+    root = tempfile.mkdtemp(prefix='chip_smoke_dp_runs_')
+    torch.cuda.empty_cache()       # this process's cache, for the ranks
+    cards = torch.cuda.device_count()
+    nccl, nccl_s = launch_ranks('nccl', cards, list(range(cards)), root)
+    gloo, gloo_s = launch_ranks('gloo', DP_GLOO_RANKS, [0] * DP_GLOO_RANKS,
+                                root)
+    by_path = {}
+    counted = ('mas', 'train_fwd', 'train_bwd', 'train_fwd_bf16',
+               'train_bwd_bf16', 'train_fwd_bf16_c80', 'train_bwd_bf16_c80',
+               'train_fwd_c80', 'train_bwd_c80')
+    for kind, results in (('nccl', nccl), ('gloo', gloo)):
+        for result in results:
+            runs = ([('', result)] if kind == 'nccl' else
+                    [(f' {case} {dtype}', result[case][dtype])
+                     for case in ('vanilla', 'em')
+                     for dtype in ('float32', 'bfloat16')])
+            for label, part in runs:
+                launches = part['launches']
+                by_path[f'data parallel {kind}{label} rank '
+                        f'{result["rank"]}'] = launches
+                print(f'data parallel {kind}{label}: rank {result["rank"]} '
+                      f'of {result["world_size"]} on {result["device"]} '
+                      f'({result["backend"]}): launches ' + ', '.join(
+                          f'{k} {launches[k]}' for k in counted
+                          if launches.get(k)))
+    main = nccl[0]
+    print(f'data parallel nccl: {main["world_size"]} rank(s), {DP_STEPS} '
+          f'steps of the shipped YAML at {main["compute_dtype"]}, B = '
+          f'{EVAL_BATCH} in all: '
+          + ('bit-equal to one process (losses and weights)'
+             if main.get('bit_equal') else
+             f'losses within {main["worst_loss_rel_err"]:.2e} of one '
+             f'process (bar {DP_LOSS_RTOL}), weights at '
+             f'{main["worst_param_ratio"]:.3f} of their bar')
+          + f'; step {main["step_ms"]:.3f} ms against one process\'s '
+          f'{main["single_process_step_ms"]:.3f} ms by CUDA events '
+          f'({card}); {nccl_s:.1f} s')
+    for case in ('vanilla', 'em'):
+        part = gloo[0][case]
+        for dtype in ('float32', 'bfloat16'):
+            row = part[dtype]
+            print(f'data parallel gloo {case} {dtype}: {DP_GLOO_RANKS} ranks '
+                  f'on card 0, each on its own collation {row["shape"]}, '
+                  f'against one process on {row["single_process_shape"]}: '
+                  f'losses within {row["worst_loss_rel_err"]:.2e} (bar '
+                  f'{DP_LOSS_RTOL}, grad_norm {DP_NORM_RTOL}); gradients at '
+                  f'{row["worst_grad_ratio"]:.3f} of the train path\'s bar '
+                  f'(rtol {DP_GRAD_TOL["rtol"]}, atol {DP_GRAD_TOL["atol"]})'
+                  + (' (held)' if dtype == 'float32' else
+                     f' (not held at bf16: {row["worst_grad_bar_share"]:.3f} '
+                     f'of the bf16 bar, held)')
+                  + ('' if case != 'em' else
+                     f'; em_stats {row["em_stats_rel_err"]:.2e}, '
+                     f'{row["em_frames_moved"]:.0f} frames of another token '
+                     f'(bar {EM_STATS_REL_BOUND}, 0 frames)'))
+        control = part['control']
+        print(f'data parallel gloo {case} control: one process at bf16 on '
+              f'the same samples padded to {control["shape"]}: gradients '
+              f'{control["worst_grad_norm_rel"]:.2e} norm-relative from '
+              f'those on {part["bfloat16"]["single_process_shape"]}, '
+              f'{control["worst_grad_ratio"]:.3f} of the train path\'s bar'
+              + (f', {control["em_frames_moved"]:.0f} frames of another '
+                 f'token in the EM table' if case == 'em' else ''))
+        print(f'data parallel gloo {case}: a rank\'s bf16 step '
+              + ', '.join(f'{r[case]["step_ms"]:.3f}' for r in gloo)
+              + f' ms by CUDA events ({card})')
+    print(f'data parallel phase: {nccl_s:.1f} s for the NCCL run, '
+          f'{gloo_s:.1f} s for the gloo run')
+    print('data parallel: ' + json.dumps({
+        'nccl': [{k: r[k] for k in ('rank', 'world_size', 'step_ms')}
+                 for r in nccl],
+        'nccl_single_process_step_ms': main['single_process_step_ms'],
+        'gloo_step_ms': [{case: r[case]['step_ms']
+                          for case in ('vanilla', 'em')} for r in gloo],
+        'card': card}))
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: no CUDA device; this script runs on a GPU only')
@@ -4978,6 +5437,10 @@ def main():
     # from wavs to wavs: the ETL, the export and the reference-wav features
     by_path.update(run_wav_phase(device, card))
     phase_done('wavs')
+    # data parallelism: the ranks as processes of this script, NCCL over
+    # every card, then two ranks on one card over gloo
+    by_path.update(run_data_parallel_phase(card))
+    phase_done('data parallel')
 
     def launches(counter):
         paths = {path: counts[counter] for path, counts in by_path.items()}
@@ -5136,4 +5599,7 @@ def main():
 
 
 if __name__ == '__main__':
-    main()
+    if sys.argv[1:2] == ['--data-parallel-rank']:
+        data_parallel_rank(*sys.argv[2:4])
+    else:
+        main()

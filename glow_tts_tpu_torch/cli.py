@@ -6,14 +6,23 @@ with the flags of ``glow_tts_tpu/cli.py`` and ``--device`` (default
 
     glow-tts-torch-patterns -hp configs/MiniSpeech.yaml -lj corpus -text
     glow-tts-torch-train -hp configs/Hyper_Parameters.yaml [-s STEP]
+    torchrun --nproc_per_node N -m glow_tts_tpu_torch.cli -hp ... [-s STEP]
     glow-tts-torch-infer -c results/Checkpoint [-s STEP] -f lines.tsv -o out
         [-wav]
+
+Training is data-parallel over ``TPU.data_parallel`` processes, one per
+card (0, the shipped value: every visible card; ``parallel/data.py``).
+Under ``torchrun`` each process is one rank and trains on
+``cuda:LOCAL_RANK``; with no launcher, ``glow-tts-torch-train`` starts the
+processes itself on this host when there is more than one.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
+import socket
 from typing import Optional, Sequence
 
 
@@ -28,21 +37,59 @@ def train_main(argv: Optional[Sequence[str]] = None) -> None:
                         help='profile step window: not in the PyTorch port '
                              'yet')
     parser.add_argument('--device', default='cuda',
-                        help="torch device to train on (default 'cuda')")
+                        help="torch device to train on (default 'cuda'); "
+                             "under data parallelism each rank trains on "
+                             "cuda:LOCAL_RANK (or the CPU, over gloo)")
     args = parser.parse_args(argv)
     if args.profile:
         parser.error('--profile is not in the PyTorch port yet')
 
-    logging.basicConfig(
-        level=logging.INFO,
-        format='%(asctime)s (%(module)s:%(lineno)d) %(levelname)s: '
-               '%(message)s')
     from glow_tts_tpu_torch.config import load_config
+    from glow_tts_tpu_torch.parallel.data import launched, ranks_to_launch
+
+    config = load_config(args.hyper_parameters)
+    ranks = 1 if launched() else ranks_to_launch(config, args.device)
+    if ranks == 1:
+        _train(args)
+        return
+    import torch.multiprocessing as mp
+    with socket.socket() as probe:            # a free port on this host
+        probe.bind(('localhost', 0))
+        port = probe.getsockname()[1]
+    mp.spawn(_spawned_rank, args=(args, ranks, port), nprocs=ranks)
+
+
+def _train(args: argparse.Namespace) -> None:
+    """One process's run: the whole run, or one rank of it."""
+    from glow_tts_tpu_torch.config import load_config
+    from glow_tts_tpu_torch.parallel import data
     from glow_tts_tpu_torch.training.trainer import Trainer
 
     config = load_config(args.hyper_parameters)
-    Trainer(config, initial_step=args.initial_step,
-            device=args.device).train()
+    try:
+        data.initialize(config, args.device)
+        # one log of the run: rank 0's, with the other ranks' warnings,
+        # each line tagged with its rank
+        rank, ranks = data.process_index(), data.process_count()
+        logging.basicConfig(
+            level=logging.INFO if rank == 0 else logging.WARNING,
+            format='%(asctime)s '
+                   + (f'[rank {rank}/{ranks}] ' if ranks > 1 else '')
+                   + '(%(module)s:%(lineno)d) %(levelname)s: %(message)s')
+        Trainer(config, initial_step=args.initial_step,
+                device=args.device).train()
+    finally:
+        data.close()
+
+
+def _spawned_rank(rank: int, args: argparse.Namespace, ranks: int,
+                  port: int) -> None:
+    """Rank ``rank`` of ``ranks`` started by :func:`train_main`, with the
+    environment torchrun would give it."""
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                      WORLD_SIZE=str(ranks), LOCAL_WORLD_SIZE=str(ranks),
+                      MASTER_ADDR='localhost', MASTER_PORT=str(port))
+    _train(args)
 
 
 def infer_main(argv: Optional[Sequence[str]] = None) -> None:
@@ -86,3 +133,8 @@ def patterns_main(argv: Optional[Sequence[str]] = None) -> None:
     """``glow-tts-torch-patterns``: the ETL (``data/pattern_generator.py``)."""
     from glow_tts_tpu_torch.data.pattern_generator import main
     main(argv)
+
+
+if __name__ == '__main__':
+    # ``torchrun ... -m glow_tts_tpu_torch.cli -hp <yaml>`` trains
+    train_main()

@@ -7,9 +7,12 @@ either object drives the port.  Only the fields of serving in the four
 modes (Vanilla, SE, PE, GR: the conditioning encoders' widths), of the
 loss/eval path, of the train step (dropout rates, optimiser) and of the
 trainer (pattern sets, intervals, output paths, the alignment curriculum)
-are kept; unknown keys are ignored, as there, and :func:`load_config`
-warns once per process where the YAML asks for more than one device (the
-port runs on one, ``ROADMAP.md`` A.7).  The precision fields are the JAX
+are kept; unknown keys are ignored, as there.  ``TPU.data_parallel`` is
+the number of processes, one per card, that train on shares of the global
+batch (0: every visible card; ``parallel/data.py``); a batch that does
+not divide by it raises, and :func:`load_config` warns once per process
+on ``TPU.model_parallel`` above 1 (tensor parallelism is not in the port
+yet, ``ROADMAP.md`` A.7).  The precision fields are the JAX
 package's (``TPU.compute_dtype``, ``param_dtype``, ``inference_dtype``,
 and the reference's ``Use_Mixed_Precision`` where the ``TPU`` section
 names no compute dtype): training and evaluation compute at
@@ -335,6 +338,14 @@ class Config:
     compute_dtype: str = 'bfloat16'
     param_dtype: str = 'float32'
     inference_dtype: Optional[str] = 'float32'
+    # data parallelism (the YAML's ``TPU.data_parallel``): the number of
+    # processes, one per card, that share the global ``Train.Batch_Size``;
+    # 0 is every visible card (``parallel/data.py``)
+    data_parallel: int = 0
+    # tensor parallelism (``TPU.model_parallel``): not in the port yet
+    # (``ROADMAP.md`` A.7); above 1 warns, and each card holds the whole
+    # model
+    model_parallel: int = 1
 
     def __post_init__(self):
         if self.mode.upper() not in MODES:
@@ -361,6 +372,13 @@ class Config:
         if self.param_dtype != 'float32':
             raise ValueError(f'TPU.param_dtype must be float32, got '
                              f'{self.param_dtype!r} (ROADMAP.md A.5)')
+        if self.data_parallel < 0:
+            raise ValueError(f'TPU.data_parallel must be 0 (every card) or '
+                             f'a process count, got {self.data_parallel}')
+        if self.data_parallel and self.train.batch_size % self.data_parallel:
+            raise ValueError(f'global batch size {self.train.batch_size} '
+                             f'must divide by TPU.data_parallel '
+                             f'{self.data_parallel}')
 
     @property
     def uses_speaker_embedding(self) -> bool:
@@ -444,7 +462,8 @@ _SECTIONS = {cls.__name__: cls for cls in (
 
 # the fields the YAML keeps under ``TPU``
 _TPU_FIELDS = ('token_bucket', 'mel_bucket', 'coupling_backend',
-               'compute_dtype', 'param_dtype', 'inference_dtype')
+               'compute_dtype', 'param_dtype', 'inference_dtype',
+               'data_parallel', 'model_parallel')
 
 
 def _section(data: Mapping, name: str) -> Mapping:
@@ -464,13 +483,12 @@ def _warn_once(key: str, message: str) -> None:
 
 def _check_unported(data: Mapping) -> None:
     """Warn once per process on what the YAML asks for and the port runs
-    otherwise."""
-    tpu = _section(data, 'TPU')
-    devices = {key: int(tpu.get(key) or 0)
-               for key in ('data_parallel', 'model_parallel')}
-    if any(count > 1 for count in devices.values()):
-        _warn_once('parallel', (
-            f'TPU {devices}: the PyTorch port runs on one device '
+    otherwise: tensor parallelism (``model_parallel`` above 1)."""
+    model = int(_section(data, 'TPU').get('model_parallel') or 1)
+    if model > 1:
+        _warn_once('model_parallel', (
+            f'TPU.model_parallel {model}: the PyTorch port has no tensor '
+            f'parallelism yet and holds the whole model on every card '
             f'(ROADMAP.md A.7)'))
 
 
@@ -489,6 +507,9 @@ def load_config(path_or_dict) -> Config:
     config = _coerce(Config, data)
     tpu = data.get('TPU') or data.get('tpu') or {}
     from_tpu = {name: tpu[name] for name in _TPU_FIELDS if name in tpu}
+    for name, empty in (('data_parallel', 0), ('model_parallel', 1)):
+        if name in from_tpu:
+            from_tpu[name] = int(from_tpu[name] or empty)
     if 'compute_dtype' not in from_tpu and 'Use_Mixed_Precision' in data:
         from_tpu['compute_dtype'] = ('bfloat16' if data['Use_Mixed_Precision']
                                      else 'float32')
@@ -497,8 +518,9 @@ def load_config(path_or_dict) -> Config:
 
 def save_config(config: Config, path: str) -> None:
     """Write ``config`` as YAML (the snapshot beside checkpoints), in the
-    schema :func:`load_config` reads: lower-case keys, the bucket, backend
-    and dtype fields under ``tpu`` as the JAX package's snapshot has them."""
+    schema :func:`load_config` reads: lower-case keys, the bucket, backend,
+    dtype and parallel fields under ``tpu`` as the JAX package's snapshot
+    has them."""
     data = dataclasses.asdict(config)
     data['tpu'] = {name: data.pop(name) for name in _TPU_FIELDS}
     with open(path, 'w', encoding='utf-8') as f:

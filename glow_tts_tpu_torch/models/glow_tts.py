@@ -138,6 +138,7 @@ def anchored_alignment_path(tokens: torch.Tensor,
 
 
 EMStats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+StatsReduce = Callable[[EMStats], Sequence[torch.Tensor]]
 
 
 def fit_token_table(tokens: torch.Tensor, path: torch.Tensor,
@@ -189,27 +190,35 @@ def em_alignment_path(tokens: torch.Tensor, token_lengths: torch.Tensor,
                       z: torch.Tensor, attn_mask: torch.Tensor,
                       mel_mask: torch.Tensor, em_stats: EMStats, vocab: int,
                       pause_tokens: Sequence[int], silence_level: float,
-                      stats_decay: float, mas_fn: MasFn):
+                      stats_decay: float, mas_fn: MasFn,
+                      reduce: Optional[StatsReduce] = None):
     """The 'em' warmup's path, on the detached ``z``: the anchored path
     (:func:`anchored_alignment_path`), the token table fitted to it and
     pooled with the running statistics (``decay · em_stats + batch``), MAS
     on the table's score (:func:`table_prior_log_likelihood`) as the
     training path, and the running statistics updated with the table fitted
-    to that path.  Both MAS calls go through ``mas_fn``.  Returns ``(path,
-    new em_stats, distill_mean, distill_log_std)``, all without gradient:
-    the distillation targets are constants of the loss."""
+    to that path.  Both MAS calls go through ``mas_fn``.  ``reduce`` maps
+    each fitted table's statistics to the global batch's before they are
+    merged (a sum over the data-parallel ranks, as the JAX package's sums
+    run over the sharded global batch), so every rank holds the same table
+    and its MAS reads the global fit.  Returns ``(path, new em_stats,
+    distill_mean, distill_log_std)``, all without gradient: the
+    distillation targets are constants of the loss."""
+    reduce = reduce or tuple
     with torch.no_grad():
         z = z.detach()
         init_path = anchored_alignment_path(
             tokens, token_lengths, mels, mel_lengths, attn_mask,
             pause_tokens, silence_level, mas_fn)
-        batch_stats = fit_token_table(tokens, init_path, z, mel_mask, vocab)
+        batch_stats = reduce(fit_token_table(tokens, init_path, z, mel_mask,
+                                             vocab))
         merged = tuple(stats_decay * prev + cur
                        for prev, cur in zip(em_stats, batch_stats))
         log_p, m_tok, log_std_tok = table_prior_log_likelihood(
             tokens, z, merged, attn_mask)
         path = mas_fn(log_p, token_lengths, mel_lengths)
-        final_stats = fit_token_table(tokens, path, z, mel_mask, vocab)
+        final_stats = reduce(fit_token_table(tokens, path, z, mel_mask,
+                                             vocab))
         new_stats = tuple(stats_decay * prev + cur
                           for prev, cur in zip(em_stats, final_stats))
     return path, new_stats, m_tok, log_std_tok
@@ -321,7 +330,8 @@ class GlowTTS(nn.Module):
                 linear_alignment: bool = False,
                 anchored_alignment: bool = False,
                 em_alignment: bool = False,
-                em_stats: Optional[EMStats] = None
+                em_stats: Optional[EMStats] = None,
+                em_reduce: Optional[StatsReduce] = None
                 ) -> Dict[str, torch.Tensor]:
         """The train forward: tokens [B, T_tok] int, mels [B, T_mel, M],
         lengths [B] int (mel lengths multiples of ``num_squeeze``).  MAS
@@ -349,8 +359,10 @@ class GlowTTS(nn.Module):
         the EM table's path from the running ``em_stats`` (``(cnt, s0,
         s1)``), which also returns ``em_stats`` updated and what the
         distillation loss reads: ``prior_mean``, ``prior_log_std``,
-        ``distill_mean``, ``distill_log_std`` and ``token_mask``.  Every
-        MAS call goes through ``mas_fn``."""
+        ``distill_mean``, ``distill_log_std`` and ``token_mask``;
+        ``em_reduce`` (:func:`em_alignment_path`'s ``reduce``) sums the
+        fitted statistics over the data-parallel ranks.  Every MAS call
+        goes through ``mas_fn``."""
         token_lengths = token_lengths.to(torch.int32)
         mel_lengths = mel_lengths.to(torch.int32)
         token_mask = sequence_mask(token_lengths, tokens.shape[1])
@@ -380,7 +392,7 @@ class GlowTTS(nn.Module):
                         self.config.encoder.embedding_tokens,
                         train.anchor_pause_tokens,
                         train.anchor_silence_level, train.em_stats_decay,
-                        mas_fn)
+                        mas_fn, em_reduce)
                 em_out = {'em_stats': new_stats, 'prior_mean': mean,
                           'prior_log_std': log_std,
                           'distill_mean': distill_mean,

@@ -14,6 +14,7 @@ Nothing is built when a module is imported.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -62,25 +63,34 @@ def load_library(source: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` unless a build of the same content
     exists, and load it.  The compiler's ``-Xptxas -v`` report (registers,
     shared memory, spills per kernel) is written beside the library as
-    ``.log``.  Concurrent first builds are safe: each compiles to its own
-    temporary file and the rename is atomic."""
-    src_path = os.path.join(PACKAGE_DIR, 'csrc', source)
+    ``.log``.  Concurrent first builds are safe and build once: the
+    processes of a data-parallel run (and threads) take a lock on the
+    library's name, the first compiles to a temporary file and renames it
+    into place, and the others find it there."""
     lib_path = library_path(source, defines)
     if not os.path.exists(lib_path):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-        os.close(fd)
-        proc = subprocess.run([nvcc_path(), *_flags(defines), '-o', tmp,
-                               src_path],
-                              capture_output=True, text=True)
-        with open(lib_path[:-3] + '.log', 'w') as log:
-            log.write(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f'nvcc failed on {source}:\n{proc.stderr[-4000:]}')
-        os.replace(tmp, lib_path)
+        with open(lib_path[:-3] + '.lock', 'w') as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not os.path.exists(lib_path):
+                _build(source, defines, lib_path)
     return ctypes.CDLL(lib_path)
+
+
+def _build(source: str, defines: Sequence[str], lib_path: str) -> None:
+    src_path = os.path.join(PACKAGE_DIR, 'csrc', source)
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run([nvcc_path(), *_flags(defines), '-o', tmp,
+                           src_path],
+                          capture_output=True, text=True)
+    with open(lib_path[:-3] + '.log', 'w') as log:
+        log.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f'nvcc failed on {source}:\n{proc.stderr[-4000:]}')
+    os.replace(tmp, lib_path)
 
 
 def ptxas_report(source: str, defines: Sequence[str] = ()) -> List[str]:

@@ -13,12 +13,14 @@
 The payload is a ``torch.save`` dict with the reference's keys ``Model``
 (the model's state dict under the reference's names, weight norm
 unfolded), ``Optimizer``, ``Steps`` and ``Epochs``, and the port's own
-``seed``, ``generator`` (the encoder's dropout generator state) and, in a
-run with the 'em' alignment warmup, ``em_stats`` (its table statistics
-``[cnt, s0, s1]``): :func:`train_payload` builds it,
-``weights.load_reference_checkpoint`` reads its ``Model`` and
-:func:`restored_em_stats` its ``em_stats`` under the JAX package's rule
-across configurations.
+``seed``, ``generator`` (the encoder's dropout generator state; rank 0's
+under data parallelism), ``generators`` (every rank's, in rank order),
+``world_size`` and, in a run with the 'em' alignment warmup, ``em_stats``
+(its table statistics ``[cnt, s0, s1]``, the same on every rank):
+:func:`train_payload` builds it, ``weights.load_reference_checkpoint``
+reads its ``Model``, :func:`restored_em_stats` its ``em_stats`` under the
+JAX package's rule across configurations and :func:`restore_generator`
+this rank's generator state.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from glow_tts_tpu_torch.config import save_config
+from glow_tts_tpu_torch.parallel.data import SINGLE, World, shard_seed
+from glow_tts_tpu_torch.utils.logging import logger
 
 SNAPSHOT = 'Hyper_Parameters.yaml'
 _FILE = re.compile(r'S_(\d+)\.pt')
@@ -38,9 +42,13 @@ _FILE = re.compile(r'S_(\d+)\.pt')
 
 def train_payload(model: torch.nn.Module, optimizer, step: int, epoch: int,
                   seed: int, generator: torch.Generator,
-                  em_stats: Optional[Sequence[torch.Tensor]] = None) -> Dict:
+                  em_stats: Optional[Sequence[torch.Tensor]] = None,
+                  world: World = SINGLE) -> Dict:
     """A train state as a checkpoint holds it, copied to the CPU; the 'em'
-    warmup's statistics where the run has them."""
+    warmup's statistics where the run has them.  Collective under data
+    parallelism: every rank's generator state is gathered (each rank calls
+    it; rank 0 writes the payload)."""
+    generators = world.gather_bytes(generator.get_state())
     payload = {
         'Model': {key: value.detach().to('cpu', copy=True)
                   for key, value in model.state_dict().items()},
@@ -48,7 +56,9 @@ def train_payload(model: torch.nn.Module, optimizer, step: int, epoch: int,
         'Steps': int(step),
         'Epochs': int(epoch),
         'seed': int(seed),
-        'generator': generator.get_state(),
+        'generator': generators[0],
+        'generators': generators,
+        'world_size': world.size,
     }
     if em_stats is not None:
         payload['em_stats'] = [t.detach().to('cpu', copy=True)
@@ -77,13 +87,31 @@ def restored_em_stats(payload: Dict, config, device):
     return tuple(t.to(device) for t in stored)
 
 
+def restore_generator(generator: torch.Generator, payload: Dict,
+                      world: World = SINGLE) -> None:
+    """Set ``generator`` to this rank's state in ``payload``.  A checkpoint
+    of another world size (one without ``world_size`` is of a world of
+    one) holds no state of this rank's to continue: the generator is
+    re-seeded from ``shard_seed(seed, rank)``, with a warning."""
+    saved = int(payload.get('world_size', 1))
+    if saved == world.size:
+        states = payload.get('generators', [payload['generator']])
+        generator.set_state(states[world.rank])
+        return
+    logger.warning('checkpoint of %d data-parallel ranks restored on %d: '
+                   'the encoder dropout streams restart from the seed',
+                   saved, world.size)
+    generator.manual_seed(shard_seed(payload['seed'], world.rank))
+
+
 class CheckpointManager:
     def __init__(self, directory: str, config=None,
                  max_to_keep: Optional[int] = None):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
         if config is not None:
+            # a manager without a config only reads (a rank other than 0)
+            os.makedirs(self.directory, exist_ok=True)
             snapshot = os.path.join(self.directory, SNAPSHOT)
             if not os.path.exists(snapshot):
                 save_config(config, snapshot)
@@ -93,6 +121,8 @@ class CheckpointManager:
 
     def steps(self) -> List[int]:
         """The steps that have a whole file, ascending."""
+        if not os.path.isdir(self.directory):
+            return []
         return sorted(int(match.group(1)) for match in map(
             _FILE.fullmatch, os.listdir(self.directory)) if match)
 
@@ -105,6 +135,7 @@ class CheckpointManager:
         same step) and drop the oldest beyond ``max_to_keep``."""
         path = self.path(step)
         temporary = path + '.tmp'
+        os.makedirs(self.directory, exist_ok=True)
         with open(temporary, 'wb') as f:
             torch.save(payload, f)
             f.flush()

@@ -10,10 +10,21 @@ dtype (:func:`build_model`: ``config.compute_dtype``); the losses are
 float32 and, the parameters being float32, so are the gradients, so the
 optimiser, its clipping and its schedule are those of a float32 run and
 no gradient scaler is needed.
+
+Under data parallelism (a :class:`~glow_tts_tpu_torch.parallel.data.World`
+of more than one rank) each rank steps on its share of the global batch:
+its losses are its share of the global batch's, whose counts are agreed
+before the forward (:func:`loss_denominators`; ``training/losses.py``),
+the 'em' table's statistics are summed over the ranks, the gradients are
+summed over them before the update (so the clip norm reads the same
+gradients on every rank), and the reported metrics are the global
+batch's.  Rank r's flow dropout is the JAX package's shard r's, and its
+encoder dropout a stream of its own.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
@@ -24,6 +35,7 @@ from glow_tts_tpu_torch.models.glow_tts import EMStats, GlowTTS, MasFn
 from glow_tts_tpu_torch.ops.coupling import coupling, flow_stack, flow_step
 from glow_tts_tpu_torch.ops.coupling_grad import flow_stack_train
 from glow_tts_tpu_torch.ops.mas import maximum_path
+from glow_tts_tpu_torch.parallel.data import SINGLE, World, shard_seed
 from glow_tts_tpu_torch.training import losses
 from glow_tts_tpu_torch.training.optim import RAdam
 
@@ -75,30 +87,80 @@ def batch_to_device(batch: Mapping[str, np.ndarray],
             for key, value in batch.items()}
 
 
+@dataclasses.dataclass(frozen=True)
+class LossDenominators:
+    """The global batch's counts that the losses divide by
+    (``training/losses.py``): its valid flow frames and valid tokens (on
+    the batch's device), its size, its longest padded token axis, and
+    whether this rank adds the MLE's constant (rank 0)."""
+
+    frames: torch.Tensor
+    tokens: torch.Tensor
+    batch: int
+    token_axis: int
+    main: bool = True
+
+
+def loss_denominators(config, batch: Batch, world: World = SINGLE
+                      ) -> LossDenominators:
+    """The counts of the global batch whose share under ``world`` is
+    ``batch``, agreed over the ranks before the forward: one device sum
+    of the valid frames and tokens, one host max of the padded token
+    axis; nothing to agree in a world of one."""
+    token_axis, = world.host_max(batch['tokens'].shape[1])
+    frames = torch.sum(torch.div(batch['mel_lengths'],
+                                 config.decoder.num_squeeze,
+                                 rounding_mode='floor'))
+    frames, tokens = world.all_sum(torch.stack(
+        [frames, torch.sum(batch['token_lengths'])])).unbind()
+    return LossDenominators(frames, tokens,
+                            batch['tokens'].shape[0] * world.size,
+                            token_axis, world.is_main)
+
+
 def compute_losses(config, outputs: Mapping[str, torch.Tensor],
-                   batch: Batch) -> Dict[str, torch.Tensor]:
+                   batch: Batch,
+                   denominators: Optional[LossDenominators] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """The loss dict of one batch; with the global batch's
+    ``denominators`` (:func:`loss_denominators`) this rank's share of the
+    global batch's (the ranks' dicts sum to it), by default ``batch``'s
+    own."""
+    den = denominators or loss_denominators(config, batch)
     loss_dict = {
         'mle': losses.mle_loss(
             outputs['z'], outputs['mel_mean'], outputs['mel_log_std'],
             outputs['log_dets'], batch['mel_lengths'],
-            config.decoder.num_squeeze, config.sound.mel_dim),
+            config.decoder.num_squeeze, config.sound.mel_dim,
+            frames=den.frames, constant=den.main),
         'duration': losses.duration_loss(
-            outputs['log_durations'], outputs['log_duration_targets']),
+            outputs['log_durations'], outputs['log_duration_targets'],
+            batch=den.batch, token_axis=den.token_axis),
     }
     total = loss_dict['mle'] + loss_dict['duration']
     if outputs.get('classified_speakers') is not None:
         loss_dict['speaker'] = losses.speaker_ce_loss(
-            outputs['classified_speakers'], batch['speakers'])
+            outputs['classified_speakers'], batch['speakers'],
+            batch=den.batch)
         total = total + loss_dict['speaker']
     if outputs.get('distill_mean') is not None:
         # the 'em' warmup: the network prior regressed onto the EM table
         loss_dict['distill'] = losses.prior_distill_loss(
             outputs['prior_mean'], outputs['prior_log_std'],
             outputs['distill_mean'], outputs['distill_log_std'],
-            outputs['token_mask'])
+            outputs['token_mask'], tokens=den.tokens)
         total = total + config.train.em_distill_weight * loss_dict['distill']
     loss_dict['total'] = total
     return loss_dict
+
+
+def global_metrics(loss_dict: Mapping[str, torch.Tensor],
+                   world: World = SINGLE) -> Dict[str, torch.Tensor]:
+    """The ranks' loss dicts summed (one collective), detached: the global
+    batch's losses."""
+    values = world.all_sum(torch.stack([v.detach() for v in
+                                        loss_dict.values()]))
+    return dict(zip(loss_dict, values.unbind()))
 
 
 def conditioning_inputs(batch: Batch) -> Dict[str, torch.Tensor]:
@@ -125,7 +187,8 @@ def make_train_step(config, model: GlowTTS, optimizer: RAdam, *,
                     anchored_alignment: bool = False,
                     em_alignment: bool = False,
                     freeze_decoder: bool = False,
-                    em_state: Optional[EMState] = None
+                    em_state: Optional[EMState] = None,
+                    world: World = SINGLE
                     ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
     """``train_step(batch) -> metrics`` (``mle``, ``duration``, in GR mode
     ``speaker``, with ``em_alignment`` ``distill``, ``total``,
@@ -144,14 +207,21 @@ def make_train_step(config, model: GlowTTS, optimizer: RAdam, *,
     (``RAdam.step``'s ``frozen``).
 
     Dropout is explicit: the encoder's masks come from ``generator`` (on
-    the model's device; one seeded with ``seed`` is made if none is given)
-    and the flow's from ``flow_seed(seed, step)``.  The same weights, seed
-    and generator state give the same step.  ``stack_fn`` and ``mas_fn``
-    are the kernels' wrappers unless a caller compares them with their
-    plain versions."""
+    the model's device; one seeded with ``shard_seed(seed, rank)`` is made
+    if none is given) and the flow's from ``shard_seed(flow_seed(seed,
+    step), rank)``, the JAX package's shard ``rank``'s masks.  The same
+    weights, seed and generator state give the same step.  ``stack_fn``
+    and ``mas_fn`` are the kernels' wrappers unless a caller compares them
+    with their plain versions.
+
+    ``world`` is the data-parallel world (``parallel/data.py``): the
+    batch is this rank's share of the global batch, and the step reduces
+    what the global batch needs (module docstring); a world of one
+    reduces nothing."""
     if generator is None:
         device = next(model.parameters()).device
-        generator = torch.Generator(device=device).manual_seed(seed)
+        generator = torch.Generator(device=device).manual_seed(
+            shard_seed(seed, world.rank))
     if em_alignment and (em_state is None or em_state.stats is None):
         raise ValueError('an em_alignment step needs an EMState holding '
                          'the statistics (init_em_stats)')
@@ -163,24 +233,28 @@ def make_train_step(config, model: GlowTTS, optimizer: RAdam, *,
         # cuDNN's recurrent layers (the GST's GRU) keep what their backward
         # reads only in training mode; no other module reads the mode
         model.train()
+        denominators = loss_denominators(config, batch, world)
         outputs = model(batch['tokens'], batch['token_lengths'],
                         batch['mels'], batch['mel_lengths'], mas_fn=mas_fn,
                         deterministic=False,
-                        seed=flow_seed(seed, optimizer.count),
+                        seed=shard_seed(flow_seed(seed, optimizer.count),
+                                        world.rank),
                         generator=generator, stack_fn=stack_fn,
                         linear_alignment=linear_alignment,
                         anchored_alignment=anchored_alignment,
                         em_alignment=em_alignment,
                         em_stats=em_state.stats if em_alignment else None,
+                        em_reduce=world.all_sum_each,
                         **conditioning_inputs(batch))
-        loss_dict = compute_losses(config, outputs, batch)
+        loss_dict = compute_losses(config, outputs, batch, denominators)
         loss_dict['total'].backward()
+        world.reduce_gradients(optimizer.params)
         grad_norm = optimizer.step(frozen)
         if em_alignment:
             em_state.stats = outputs['em_stats']
         # the deterministic path packs the new weights at its next use
         model.layer_Dict['Decoder'].invalidate()
-        metrics = {key: value.detach() for key, value in loss_dict.items()}
+        metrics = global_metrics(loss_dict, world)
         metrics['grad_norm'] = grad_norm
         return metrics
 
@@ -190,32 +264,39 @@ def make_train_step(config, model: GlowTTS, optimizer: RAdam, *,
 def make_eval_step(config, model: GlowTTS, step_fn: FlowStepFn = flow_step,
                    mas_fn: MasFn = maximum_path,
                    coupling_fn: FlowStepFn = coupling,
-                   flow_stack_fn: FlowStepFn = flow_stack
+                   flow_stack_fn: FlowStepFn = flow_stack,
+                   world: World = SINGLE
                    ) -> Callable[[Batch], Tuple[Dict, Dict]]:
     """``eval_step(batch) -> (loss_dict, outputs)`` on the model's current
     weights, without gradients; the flow takes the route of the model's
     ``coupling_backend``.  ``step_fn``, ``coupling_fn``, ``flow_stack_fn``
     and ``mas_fn`` are the kernels' wrappers unless a caller compares them
-    with their plain versions."""
+    with their plain versions.  Under data parallelism (``world``) the
+    batch is this rank's share and the losses are the global batch's,
+    the same on every rank; ``outputs`` are this rank's."""
 
     @torch.no_grad()
     def eval_step(batch: Batch):
+        denominators = loss_denominators(config, batch, world)
         outputs = model(batch['tokens'], batch['token_lengths'],
                         batch['mels'], batch['mel_lengths'],
                         step_fn=step_fn, mas_fn=mas_fn,
                         coupling_fn=coupling_fn, flow_stack_fn=flow_stack_fn,
                         **conditioning_inputs(batch))
-        return compute_losses(config, outputs, batch), outputs
+        return global_metrics(compute_losses(config, outputs, batch,
+                                             denominators), world), outputs
 
     return eval_step
 
 
 def attention_diagonality(attentions: torch.Tensor,
                           token_lengths: torch.Tensor,
-                          mel_lengths: torch.Tensor) -> torch.Tensor:
+                          mel_lengths: torch.Tensor,
+                          world: World = SINGLE) -> torch.Tensor:
     """Mean closeness of the MAS paths ``[B, T_tok, T_mel]`` to the ideal
     diagonal, computed where the attention lives; 1.0 is a perfectly linear
-    alignment.  Samples shorter than 2 tokens or 2 frames do not count."""
+    alignment.  Samples shorter than 2 tokens or 2 frames do not count.
+    Under data parallelism the mean over the global batch's samples."""
     t_mel = attentions.shape[2]
     tx = token_lengths.float()
     ty = mel_lengths.float()
@@ -227,4 +308,6 @@ def attention_diagonality(attentions: torch.Tensor,
     err = torch.sum(torch.abs(idx - ideal) * valid, dim=1) / ty.clamp_min(1.0)
     score = 1.0 - err / tx.clamp_min(1.0)
     ok = (token_lengths >= 2) & (mel_lengths >= 2)
-    return torch.sum(score * ok) / torch.sum(ok).clamp_min(1)
+    total, count = world.all_sum(torch.stack(
+        [torch.sum(score * ok), torch.sum(ok).float()])).unbind()
+    return total / count.clamp_min(1)

@@ -1,5 +1,6 @@
-"""The training loop (port of ``glow_tts_tpu/training/trainer.py``,
-one process, in the four modes).
+"""The training loop (port of ``glow_tts_tpu/training/trainer.py``, in
+the four modes), in one process or one process per card (data
+parallelism, ``parallel/data.py``).
 
 ``Trainer`` builds the pattern datasets, a from-scratch model whose
 ActNorm is initialised on the first unshuffled batch (with its
@@ -26,16 +27,27 @@ from the same parameters, as the JAX trainer does; checkpoints hold the
 float32 parameters whatever the dtype.  The JAX trainer's prosody check
 (an embedding projector of GST vectors) is not ported: it is a writer of
 images and embeddings (``ROADMAP.md`` A.8).
+
+Under data parallelism, as the JAX trainer on a mesh: every rank
+initialises ActNorm on the same unshuffled first batch of the global size
+and then takes rank 0's weights, so a run starts from the single-card
+weights; it trains on its stride of each epoch (``shard_index`` /
+``num_shards``) at ``Train.Batch_Size / ranks``, as many batches an epoch
+as the rank with the fewest; the frame counts and losses are the global
+batch's; a stop signal is agreed before each step, so every rank stops
+after the same one; the evaluation runs on a fixed number of whole batches
+per rank; and only rank 0 writes logs, checkpoints (which hold every
+rank's generator state) and inference, and decodes.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 import os
 import signal
 from typing import Dict, List, Mapping, Optional, Union
 
-import numpy as np
 import torch
 
 from glow_tts_tpu_torch.data.collate import TrainCollater
@@ -43,8 +55,10 @@ from glow_tts_tpu_torch.data.loader import DataLoader
 from glow_tts_tpu_torch.data.patterns import InferenceDataset, PatternDataset
 from glow_tts_tpu_torch.inference import Inferencer
 from glow_tts_tpu_torch.models.glow_tts import initial_state_dict
+from glow_tts_tpu_torch.parallel.data import initialize, shard_seed
 from glow_tts_tpu_torch.text import Tokenizer, load_token_dict
 from glow_tts_tpu_torch.training.checkpoint import (CheckpointManager,
+                                                    restore_generator,
                                                     restored_em_stats,
                                                     train_payload)
 from glow_tts_tpu_torch.training.optim import (learning_rate_at,
@@ -55,7 +69,8 @@ from glow_tts_tpu_torch.training.step import (EMState,
                                               conditioning_inputs,
                                               init_em_stats, make_eval_step,
                                               make_train_step)
-from glow_tts_tpu_torch.utils.logging import StepTimer, SummaryLogger, logger
+from glow_tts_tpu_torch.utils.logging import (NullWriter, StepTimer,
+                                              SummaryLogger, logger)
 from glow_tts_tpu_torch.weights import load_ge2e_checkpoint, load_state_dict
 
 # the seed of a new run's weights, dropout streams and generator (the JAX
@@ -78,19 +93,22 @@ class Trainer:
     """``device`` is where the model trains: ``'cuda'`` (the default)
     through the kernels, raising where CUDA is absent, with cuDNN set
     deterministic for the whole process; ``'cpu'`` through their plain
-    versions.  ``writers`` maps ``'train'`` and ``'eval'`` to
-    objects with ``utils.logging.NullWriter``'s methods; by default two
-    ``SummaryLogger``s under ``config.log_path``."""
+    versions.  Under a launcher (``torchrun``, or ``glow-tts-torch-train``
+    starting one process per card itself) the process is one rank of a
+    data-parallel run and trains on ``cuda:LOCAL_RANK``
+    (``parallel.data.initialize``).
+    ``writers`` maps ``'train'`` and ``'eval'`` to objects with
+    ``utils.logging.NullWriter``'s methods; by default two
+    ``SummaryLogger``s under ``config.log_path``; ranks other than 0 take
+    ``NullWriter``s."""
 
     def __init__(self, config, initial_step: int = 0,
                  device: Union[str, torch.device] = 'cuda',
                  max_mel_length: int = 1024,
                  writers: Optional[Mapping[str, object]] = None):
         self.config = config
-        self.device = torch.device(device)
-        if self.device.type == 'cuda' and not torch.cuda.is_available():
-            raise RuntimeError(f'device {self.device} requested but CUDA '
-                               f'is not available')
+        self.world = initialize(config, device)
+        self.device = self.world.device
         if self.device.type == 'cuda':
             # the encoder's convolutions backward by fixed algorithms, so
             # that a resumed run repeats the uninterrupted one on the card
@@ -108,18 +126,23 @@ class Trainer:
         self.eval_dataset = pattern_dataset(config.train.eval_pattern,
                                             use_cache)
         self._build_model(initial_step)
-        self.writers = dict(writers) if writers is not None else {
-            'train': SummaryLogger(os.path.join(config.log_path, 'Train')),
-            'eval': SummaryLogger(os.path.join(config.log_path,
-                                               'Evaluation'))}
+        if not self.world.is_main:
+            self.writers = {'train': NullWriter(), 'eval': NullWriter()}
+        else:
+            self.writers = dict(writers) if writers is not None else {
+                'train': SummaryLogger(os.path.join(config.log_path,
+                                                    'Train')),
+                'eval': SummaryLogger(os.path.join(config.log_path,
+                                                   'Evaluation'))}
         self.timer = StepTimer()
         self.scalar_accum: Dict[str, torch.Tensor] = {}
         # the last evaluation's free-running decode of its last batch
         self.free_running: Optional[Dict[str, torch.Tensor]] = None
 
     def _build_model(self, initial_step: int) -> None:
-        cfg = self.config
-        self.checkpoints = CheckpointManager(cfg.checkpoint_path, cfg)
+        cfg, world = self.config, self.world
+        self.checkpoints = CheckpointManager(
+            cfg.checkpoint_path, cfg if world.is_main else None)
         payload = self.checkpoints.restore(initial_step)
         # trains, evaluates and initialises at config.compute_dtype
         model = load_state_dict(build_model(cfg),
@@ -133,7 +156,8 @@ class Trainer:
             logger.info('Loaded the pre-trained GE2E weights from %s',
                         ge2e_path)
         self.model = model.to(self.device).prepare(fold=False)
-        # unshuffled: the same first batch whatever the run's seed
+        # unshuffled and unsharded, of the global size: the same first
+        # batch whatever the run's seed and on every rank
         loader = DataLoader(self.train_dataset, self.collater,
                             cfg.train.batch_size, shuffle=False, prefetch=0)
         init = batch_to_device(next(iter(loader)), self.device)
@@ -141,24 +165,29 @@ class Trainer:
                                        **conditioning_inputs(init))
         self.optimizer = make_optimizer(cfg, self.model.parameters())
         self.seed = RUN_SEED
-        self.generator = torch.Generator(self.device).manual_seed(self.seed)
+        self.generator = torch.Generator(self.device).manual_seed(
+            shard_seed(self.seed, world.rank))
         self.step = self.epoch = 0
         self.em = EMState(init_em_stats(cfg, self.device)
                           if cfg.train.uses_em_stats else None)
         if payload is not None:
             load_state_dict(self.model, payload['Model'])
-            # the deterministic path packs the restored weights at its
-            # next use, not the initialised ones it may hold
-            self.model.layer_Dict['Decoder'].invalidate()
             self.optimizer.load_state_dict(payload['Optimizer'], self.model)
-            self.generator.set_state(payload['generator'])
             self.seed, self.step = payload['seed'], payload['Steps']
             self.epoch = payload['Epochs']
+            restore_generator(self.generator, payload, world)
             self.em.stats = restored_em_stats(payload, cfg, self.device)
             logger.info('Restored checkpoint at step %d', self.step)
+        # every rank from rank 0's weights: the single-card start
+        for tensor in self.model.state_dict().values():
+            world.broadcast_(tensor)
+        # the deterministic path packs these weights at its next use, not
+        # the initialised ones it may hold
+        self.model.layer_Dict['Decoder'].invalidate()
         self.train_step = make_train_step(cfg, self.model, self.optimizer,
                                           seed=self.seed,
-                                          generator=self.generator)
+                                          generator=self.generator,
+                                          world=world)
         # the curriculum's variants, keyed (warmup, frozen decoder), only
         # those its step counts ask for
         train = cfg.train
@@ -170,12 +199,12 @@ class Trainer:
                 linear_alignment=warm and mode == 'linear',
                 anchored_alignment=warm and mode == 'anchored',
                 em_alignment=warm and mode == 'em', freeze_decoder=frozen,
-                em_state=self.em)
+                em_state=self.em, world=world)
             for warm in (True, False) for frozen in (True, False)
             if (warm or frozen)
             and (train.alignment_warmup_steps or not warm)
             and (train.decoder_freeze_steps or not frozen)}
-        self.eval_step = make_eval_step(cfg, self.model)
+        self.eval_step = make_eval_step(cfg, self.model, world=world)
 
     def step_function(self, step: int):
         """The train step that step ``step`` (0-based) runs: the
@@ -187,24 +216,34 @@ class Trainer:
              step < train.decoder_freeze_steps), self.train_step)
 
     def train_loader(self, seed: int) -> DataLoader:
-        """Epoch ``seed``'s batches, ``num_workers`` producer threads."""
+        """Epoch ``seed``'s batches of this rank (its stride of the epoch,
+        its share of the global batch), ``num_workers`` producer
+        threads."""
         workers = max(self.config.train.num_workers, 1)
+        world = self.world
         return DataLoader(self.train_dataset, self.collater,
-                          self.config.train.batch_size, shuffle=True,
-                          seed=seed, prefetch=2 * workers, workers=workers)
+                          self.config.train.batch_size // world.size,
+                          shuffle=True, seed=seed, prefetch=2 * workers,
+                          workers=workers, shard_index=world.rank,
+                          num_shards=world.size)
 
-    def save_checkpoint(self) -> str:
-        return self.checkpoints.save(self.step, train_payload(
-            self.model, self.optimizer, self.step, self.epoch, self.seed,
-            self.generator, self.em.stats))
+    def save_checkpoint(self) -> Optional[str]:
+        """Save the step reached (rank 0 writes; every rank takes part)."""
+        payload = train_payload(self.model, self.optimizer, self.step,
+                                self.epoch, self.seed, self.generator,
+                                self.em.stats, self.world)
+        if self.world.is_main:
+            return self.checkpoints.save(self.step, payload)
+        return None
 
     # ------------------------------------------------------------------
 
     def train(self) -> None:
-        cfg = self.config.train
+        cfg, world = self.config.train, self.world
         # the epoch and the batches of it already consumed follow from the
-        # step: a resumed run takes the batches the uninterrupted one took
-        batches_per_epoch = len(self.train_loader(seed=0))
+        # step: a resumed run takes the batches the uninterrupted one took;
+        # every rank takes as many as the rank with the fewest
+        batches_per_epoch, = world.host_min(len(self.train_loader(seed=0)))
         if not batches_per_epoch:
             raise ValueError(f'the train set holds fewer patterns than a '
                              f'batch ({len(self.train_dataset)} < '
@@ -212,8 +251,8 @@ class Trainer:
         self.epoch, skip_batches = divmod(self.step, batches_per_epoch)
 
         # SIGTERM and Ctrl-C stop the run between two steps, where the
-        # weights, the optimiser and ``self.step`` agree; a second signal
-        # stops it at once
+        # weights, the optimiser and ``self.step`` agree, and every rank
+        # after the same step; a second signal stops this process at once
         stop = []
 
         def on_signal(signum, frame):
@@ -226,17 +265,20 @@ class Trainer:
         try:
             if self.step == 0:
                 self.evaluate()
-                if cfg.initial_inference and \
+                if cfg.initial_inference and world.is_main and \
                         cfg.inference_pattern_file_in_train:
                     self.run_inference_file(
                         cfg.inference_pattern_file_in_train)
             while self.step < cfg.max_step:
-                for bi, batch in enumerate(self.train_loader(self.epoch)):
+                for bi, batch in enumerate(itertools.islice(
+                        self.train_loader(self.epoch), batches_per_epoch)):
                     if bi < skip_batches:
                         continue
-                    if stop:
-                        raise KeyboardInterrupt(stop[0])
-                    frames = int(batch['mel_lengths'].sum())
+                    stopping, frames = world.host_sum(
+                        len(stop), int(batch['mel_lengths'].sum()))
+                    if stopping:
+                        raise KeyboardInterrupt(
+                            stop[0] if stop else 'stopped by another rank')
                     metrics = self.step_function(self.step)(
                         batch_to_device(batch, self.device))
                     self.step += 1
@@ -289,8 +331,8 @@ class Trainer:
             self.scalar_accum = {}
         if self.step % cfg.evaluation_interval == 0:
             self.evaluate()
-        if self.step % cfg.inference_interval == 0 and \
-                cfg.inference_pattern_file_in_train:
+        if self.step % cfg.inference_interval == 0 and self.world.is_main \
+                and cfg.inference_pattern_file_in_train:
             self.run_inference_file(cfg.inference_pattern_file_in_train)
 
     # ------------------------------------------------------------------
@@ -299,19 +341,29 @@ class Trainer:
         """Mean losses and alignment diagonality over the eval set (in
         order, the last batch ragged), written to the eval writer and
         returned; then a free-running decode of the last batch with noise
-        seeded from the step (``self.free_running``)."""
-        loader = DataLoader(self.eval_dataset, self.collater,
-                            self.config.train.batch_size, shuffle=False,
-                            prefetch=0, drop_last=False)
+        seeded from the step (``self.free_running``).  Under data
+        parallelism each rank takes its stride of the set in whole batches
+        of its share, as many as every rank has (the JAX trainer's
+        count), the losses of each global batch; rank 0 decodes."""
+        world = self.world
+        local_batch = self.config.train.batch_size // world.size
+        loader = DataLoader(self.eval_dataset, self.collater, local_batch,
+                            shuffle=False, prefetch=0,
+                            drop_last=world.size > 1,
+                            shard_index=world.rank, num_shards=world.size)
+        batches = iter(loader)
+        if world.size > 1:
+            batches = itertools.islice(batches, len(self.eval_dataset)
+                                       // world.size // local_batch)
         totals: Dict[str, torch.Tensor] = {}
         count, last = 0, None
-        for batch in loader:
+        for batch in batches:
             batch = batch_to_device(batch, self.device)
             loss_dict, outputs = self.eval_step(batch)
             values = {f'Loss/{tag}': value for tag, value in loss_dict.items()}
             values['Alignment/diagonality'] = attention_diagonality(
                 outputs['attentions'], batch['token_lengths'],
-                batch['mel_lengths'])
+                batch['mel_lengths'], world)
             for tag, value in values.items():
                 totals[tag] = totals[tag] + value if tag in totals else value
             count, last = count + 1, batch
@@ -320,6 +372,8 @@ class Trainer:
         means = dict(zip(totals, (torch.stack(list(totals.values()))
                                   / count).tolist()))
         self.writers['eval'].add_scalars(means, self.step)
+        if not world.is_main:
+            return means
 
         # the conditioned modes serve from the batch's own references: its
         # speakers and GE2E slices, its mels for the GST, its pitch tracks;

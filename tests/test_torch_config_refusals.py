@@ -9,9 +9,10 @@ run computes (``glow_tts_tpu_torch/config.py``):
 * the compute dtype (``TPU.compute_dtype``, or the reference's
   ``Use_Mixed_Precision`` where the ``TPU`` section names none) loads as the
   JAX package reads it, with no warning, at float32 and bfloat16, and any
-  other raises naming ``ROADMAP.md`` A.5; more than one device
-  (``data_parallel`` or ``model_parallel`` above 1; 0 means all devices)
-  warns once per process, and the config is the one loaded without it;
+  other raises naming ``ROADMAP.md`` A.5; the parallel fields load as the
+  JAX package reads them: ``data_parallel`` (0 means all devices) with no
+  warning, ``model_parallel`` above 1 with one warning per process naming
+  A.7 (tensor parallelism is not ported);
 * ``configs/Hyper_Parameters.yaml`` loads at bfloat16 with no warning,
   field by field against the JAX package's config.
 """
@@ -68,7 +69,7 @@ def _fields(port_obj, jax_obj, path=''):
 
 # the port's fields that the JAX config keeps under ``tpu``
 TPU_FIELDS = ('token_bucket', 'mel_bucket', 'compute_dtype', 'param_dtype',
-              'inference_dtype')
+              'inference_dtype', 'data_parallel', 'model_parallel')
 CURRICULUM_FIELDS = ('alignment_warmup_steps', 'alignment_warmup_mode',
                      'em_stats_decay', 'em_distill_weight',
                      'anchor_pause_tokens', 'anchor_silence_level',
@@ -165,10 +166,12 @@ def test_shipped_yaml_loads_unchanged_with_one_dtype_warning(fresh):
     ({}, {'Use_Mixed_Precision': True}, 'bfloat16'),
     ({}, {'Use_Mixed_Precision': False}, 'float32'),
     ({'compute_dtype': 'float32'}, {'Use_Mixed_Precision': True}, 'float32'),
-    # more than one device warns, and loads as without
+    # the parallel fields load as the JAX package reads them; tensor
+    # parallelism (model_parallel above 1) warns, data parallelism no
+    # longer does (the ids are the ones these rows have always had)
     ({'data_parallel': 0, 'model_parallel': 1}, {}, None),
     ({'data_parallel': 1}, {}, None),
-    ({'data_parallel': 2}, {}, 'A.7'),
+    pytest.param({'data_parallel': 2}, {}, None, id='tpu8-extra8-A.7'),
     ({'model_parallel': 4}, {}, 'A.7'),
 ])
 def test_dtype_and_devices_warn_and_load_as_without(fresh, tpu, extra,
@@ -192,5 +195,8 @@ def test_dtype_and_devices_warn_and_load_as_without(fresh, tpu, extra,
         assert len(messages) == (0 if expect is None else 1), messages
         if expect:
             assert expect in messages[0]
-        assert config == load_config({'Mode': 'GR'})
+        assert config == dataclasses.replace(load_config({'Mode': 'GR'}),
+                                             **tpu)
+        for key, value in tpu.items():
+            assert getattr(config, key) == getattr(ref.tpu, key) == value
     assert dataclasses.asdict(config)['mode'] == 'GR'

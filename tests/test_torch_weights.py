@@ -179,15 +179,16 @@ def test_serves_from_a_reference_checkpoint_file(setup, tmp_path):
 
 def _port_fields(port_obj, jax_obj, path=''):
     """(path, port value, JAX value) for every leaf field of the port's
-    config; the two buckets, the decoder's backend and the dtypes live
-    under ``TPU`` in the JAX config, the backend's values under the JAX
-    names."""
+    config; the two buckets, the decoder's backend, the dtypes and the
+    parallel fields live under ``TPU`` in the JAX config, the backend's
+    values under the JAX names."""
     for f in dataclasses.fields(port_obj):
         value = getattr(port_obj, f.name)
         ref = (getattr(jax_obj.tpu, f.name)
                if f.name in ('token_bucket', 'mel_bucket', 'coupling_backend',
                              'compute_dtype', 'param_dtype',
-                             'inference_dtype')
+                             'inference_dtype', 'data_parallel',
+                             'model_parallel')
                else getattr(jax_obj, f.name))
         if f.name == 'coupling_backend':
             ref = coupling_backend_name(ref)
