@@ -84,7 +84,7 @@ each route at B = 32 in the 1024-frame bucket, the eval step at bf16 by
 route.  Then GR at ``Num_Squeeze: 1`` (80 channels, the pitch operand 1
 wide: the 80-channel pitch builds of #2–#6 at f32 and bf16 against
 their plain versions and timed, 3 train steps at each dtype beside the
-plain versions, an eval step under each route, a decode).  Last, data
+plain versions, an eval step under each route, a decode).  Then data
 parallelism, each rank a process of this script (``--data-parallel-rank
 KIND OUT`` with torchrun's environment): the shipped YAML at bf16 over
 NCCL on every card, 3 steps of each rank's rows of a B = 32 batch,
@@ -94,8 +94,24 @@ dropout 0, to the train path's bars); then two ranks on card 0 over gloo
 collation of half the batch against one process at B = 32, at f32 to the
 train path's bars and at bf16 (the gradients to the bf16 bar), and the
 same for one 'em' step at MiniSpeech's config (its table included); each
-rank's launches of #1, #5 and #6 and its step time by CUDA events.  All 41
-libraries build together before the first phase.  Exits non-zero on any failure and when no CUDA device is
+rank's launches of #1, #5 and #6 and its step time by CUDA events.  Last,
+what a user reads of a run: which of tensorboardX, matplotlib and sklearn
+import here; the shipped YAML as shipped (bf16) through ``Trainer`` at
+B = 32, 4 steps with evaluations at 0, 2 and 4, the inference TSV at 4 and
+``train(profile_steps=(1, 3))``, on its default ``SummaryLogger``s where
+tensorboardX imports (their event files read back: tags, steps, counts)
+and else on ``MemoryWriter``s after the default writers raise
+``ImportError``: the images equal to the eval step's and the decode's
+slices, a histogram of every parameter equal to it, a readable PNG per
+sentence (or the one warning where matplotlib does not import), the
+profiler's Chrome trace holding as many kernel events of #1, #5 and #6 as
+their launch counters grew over the window; then PE's prosody check after
+2 steps on an archive of 6 speakers × 8 utterances, its GST vectors held
+against the same weights on the CPU at f32 (1e-4 of max-abs) and bf16
+(twice the CPU's bf16-vs-f32 distance); an evaluation timed with and
+without its images and histograms, the steps inside and outside the
+window, the check per 100 mels.  All 41 libraries build together before
+the first phase.  Exits non-zero on any failure and when no CUDA device is
 present; the last line is one JSON object naming the card.
 """
 
@@ -103,6 +119,7 @@ import copy
 import dataclasses
 import functools
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -5269,6 +5286,515 @@ def run_data_parallel_phase(card):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# observability: the writers, the PNGs, the profiler window, the prosody check
+# ---------------------------------------------------------------------------
+
+OBS_STEPS = 4                  # the Vanilla trainer's steps
+OBS_EVAL_EVERY = 2             # its evaluations: steps 0, 2 and 4
+OBS_PROFILE = (1, 3)           # its profiler window: steps 1 and 2 (0-based)
+OBS_IMAGES = ('Attention/From_Inference', 'Attention/From_Train',
+              'Mel/Target')
+OBS_SPEAKERS, OBS_PER_SPEAKER = 6, 8     # the prosody check's archive
+OBS_FRAMES = (200, 800)        # its utterances' mel frames
+OBS_PE_STEPS = 2               # the PE trainer's steps; its check at the last
+GST_F32_REL_BOUND = 1e-4       # GST vectors card vs CPU at f32, of max-abs
+OBS_TIMED = 2                  # evaluations timed each way, alternating
+# the kernels of each source by their function names, as the trace names
+# them (demangled, in the sources' anonymous namespace)
+TRACE_KERNELS = {
+    'mas': ('mas_recurrence', 'mas_expand'),
+    'train_fwd': ('flow_train_fwd_kernel',),
+    'train_bwd': ('gemm_nt', 'gemm_nt_tail', 'gemm_tn', 'gemm_pair',
+                  'gemm_pair_tail', 'column_sums', 'pitch_backward',
+                  'reduce_partials', 'affine_backward')}
+
+
+def importable(name):
+    import importlib
+    try:
+        importlib.import_module(name)
+        return True
+    except ImportError:
+        return False
+
+
+class TeeWriter:
+    """Hands each call to every one of ``writers``."""
+
+    def __init__(self, *writers):
+        self.writers = writers
+
+    def __getattr__(self, name):
+        def call(*args, **kwargs):
+            for writer in self.writers:
+                getattr(writer, name)(*args, **kwargs)
+        return call
+
+
+class ScalarsOnly:
+    """``writer``'s scalars, and no images, histograms or embeddings."""
+
+    def __init__(self, writer):
+        self.writer = writer
+
+    def add_scalars(self, scalars, step):
+        self.writer.add_scalars(scalars, step)
+
+    def add_images(self, *args, **kwargs):
+        pass
+
+    add_histograms = add_embedding = add_images
+
+
+class WarningRecords(logging.Handler):
+    """The warnings the port's logger gives inside a ``with`` block."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        logging.getLogger('glow_tts_tpu_torch').addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger('glow_tts_tpu_torch').removeHandler(self)
+
+
+def read_event_files(log_dir):
+    """Every ``Event`` of the TensorBoard event files under ``log_dir``
+    (TFRecord framing: a length, its CRC, the record, its CRC)."""
+    import glob
+    import struct
+    from tensorboardX.proto import event_pb2
+    events = []
+    for path in sorted(glob.glob(os.path.join(log_dir, 'events.*'))):
+        with open(path, 'rb') as f:
+            while True:
+                header = f.read(12)
+                if len(header) < 12:
+                    break
+                length, = struct.unpack('<Q', header[:8])
+                event = event_pb2.Event()
+                event.ParseFromString(f.read(length))
+                f.read(4)
+                events.append(event)
+    return events
+
+
+def summaries(log_dir, kind):
+    """``tag → [(step, value)]`` of the summaries of ``kind``
+    (``'simple_value'``, ``'image'``, ``'histo'``) under ``log_dir``."""
+    out = {}
+    for event in read_event_files(log_dir):
+        for value in event.summary.value:
+            if value.WhichOneof('value') == kind:
+                out.setdefault(value.tag, []).append(
+                    (event.step, getattr(value, kind)))
+    return out
+
+
+def trace_kernels(path):
+    """(kernel events of the Chrome trace at ``path`` by source of
+    ``TRACE_KERNELS`` and by function name, every kernel event's name with
+    its count)."""
+    import re
+    from collections import Counter
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    names = Counter(event['name'] for event in events
+                    if event.get('cat') == 'kernel')
+    by_fn = {}
+    for fns in TRACE_KERNELS.values():
+        for fn in fns:
+            pattern = re.compile(rf'(?:^|[\s:]){fn}(?:[(<]|$)')
+            by_fn[fn] = sum(count for name, count in names.items()
+                            if pattern.search(name))
+    by_source = {source: sum(by_fn[fn] for fn in fns)
+                 for source, fns in TRACE_KERNELS.items()}
+    return by_source, by_fn, names
+
+
+def write_speaker_archive(path, config, seed):
+    """``OBS_SPEAKERS`` × ``OBS_PER_SPEAKER`` patterns of ``OBS_FRAMES``
+    mel frames (a folder per speaker) with the port's pattern IO, texts of
+    10 … 200 characters."""
+    from glow_tts_tpu_torch.data.patterns import (build_metadata,
+                                                  save_metadata, save_pattern)
+    rng = np.random.default_rng(seed)
+    letters = np.array(list('ABCDEFGHIJKLMNOPQRSTUVWXYZ'))
+    a = config.sound.max_abs_mel
+    for s in range(OBS_SPEAKERS):
+        for i in range(OBS_PER_SPEAKER):
+            n_mel = int(rng.integers(OBS_FRAMES[0], OBS_FRAMES[1] + 1))
+            chars = rng.choice(letters, int(rng.integers(10, 201)))
+            chars[5::6] = ' '
+            save_pattern(os.path.join(path, f'Speaker{s}', f'P{i:02d}.PICKLE'),
+                         {'Audio': np.zeros(n_mel, np.float32),
+                          'Mel': rng.uniform(-a, a, (n_mel, config.sound.mel_dim)
+                                             ).astype(np.float32),
+                          'Pitch': np.zeros(n_mel, np.float32),
+                          'Speaker_ID': s, 'Speaker': f'Speaker{s}',
+                          'Dataset': 'Synthetic', 'Text': ''.join(chars)})
+    save_metadata(path, build_metadata(path, config.sound))
+
+
+def observe_trainer(shipped, root, device, card, packages):
+    """The shipped YAML as shipped (bf16, Vanilla) through ``Trainer`` at
+    B = 32: ``OBS_STEPS`` steps, evaluations at 0, 2 and 4, the inference
+    TSV at 4, ``train(profile_steps=OBS_PROFILE)``, its default writers
+    (``SummaryLogger``s) where tensorboardX imports, each teed into a
+    ``MemoryWriter``.  Checks the writers, the trace against the launch
+    counters and the PNGs; times an evaluation with and without its
+    images and histograms, and the steps inside and outside the window.
+    Returns the launches and the numbers."""
+    import glob
+
+    from glow_tts_tpu_torch import Trainer
+    from glow_tts_tpu_torch.utils import plotting
+    from glow_tts_tpu_torch.utils.logging import MemoryWriter, histogram_tag
+    config = trainer_config(shipped, root, 'observed', OBS_STEPS)
+    config = dataclasses.replace(config, train=dataclasses.replace(
+        config.train, evaluation_interval=OBS_EVAL_EVERY,
+        inference_interval=OBS_STEPS))
+    assert config.compute_dtype == 'bfloat16'
+    memory = {'train': MemoryWriter(), 'eval': MemoryWriter()}
+    # the one warning of a machine without matplotlib, in this run
+    plotting._MISSING.clear()
+    zero_counts()
+    with WarningRecords() as warned:
+        if packages['tensorboardX']:
+            trainer = Trainer(config, device=device)
+            default = trainer.writers
+            assert {type(w).__name__ for w in default.values()} == {
+                'SummaryLogger'}, default
+            trainer.writers = {kind: TeeWriter(writer, memory[kind])
+                               for kind, writer in default.items()}
+        else:
+            try:
+                Trainer(config, device=device)
+            except ImportError as error:
+                assert 'tensorboardX' in str(error), error
+            else:
+                raise AssertionError('SummaryLogger built without '
+                                     'tensorboardX')
+            trainer = Trainer(config, device=device, writers=memory)
+            default = memory
+        edges, step_events, evals = {}, {}, {}
+        step_function, after_step = trainer.step_function, \
+            trainer._after_step
+        eval_step = trainer.eval_step
+
+        def timed_step_function(step):
+            if step == OBS_PROFILE[0]:         # the window has just begun
+                edges['start'] = read_counts()
+            fn = step_function(step)
+
+            def run(batch):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(batch)
+                end.record()
+                step_events[step] = (start, end)
+                return out
+            return run
+
+        def counted_after_step(metrics, frames):
+            if trainer.step == OBS_PROFILE[1]:     # the window has ended
+                edges['stop'] = read_counts()
+            return after_step(metrics, frames)
+
+        def recorded_eval(batch):
+            out = eval_step(batch)
+            evals[trainer.step] = (batch, out[1])
+            return out
+
+        trainer.step_function = timed_step_function
+        trainer._after_step = counted_after_step
+        trainer.eval_step = recorded_eval
+        trainer.train(profile_steps=OBS_PROFILE)
+        launches = read_counts()
+    step_ms = {step: start.elapsed_time(end)
+               for step, (start, end) in sorted(step_events.items())}
+
+    # the trace against the launch counters over the same window
+    traces = glob.glob(os.path.join(config.log_path, 'profile',
+                                    'rank0.*.pt.trace.json'))
+    assert len(traces) == 1, traces
+    by_source, by_fn, names = trace_kernels(traces[0])
+    grew = {key: edges['stop'][key] - edges['start'][key]
+            for key in edges['stop']}
+    counted = {'mas': 2 * grew['mas'],
+               'train_fwd': sum(v for k, v in grew.items()
+                                if k.startswith(('train_fwd',
+                                                 'train_recompute'))),
+               'train_bwd': sum(v for k, v in grew.items()
+                                if k.startswith('train_bwd'))}
+    window = OBS_PROFILE[1] - OBS_PROFILE[0]
+    eval_batches = -(-EVAL_PATTERNS // config.train.batch_size)
+    steps = config.decoder.stack
+    print(f'observability, profiler window of steps {OBS_PROFILE[0]}–'
+          f'{OBS_PROFILE[1] - 1} ({window} train steps and the evaluation '
+          f'at step {OBS_EVAL_EVERY}): {sum(names.values())} kernel events '
+          f'in {os.path.basename(traces[0])} '
+          f'({os.path.getsize(traces[0]) / 1e6:.1f} MB); by source, trace '
+          f'{by_source} against the launch counters\' increase {counted} '
+          f'(#1 two kernels a launch; by function {by_fn})')
+    for name, count in names.most_common(12):
+        print(f'  {count:6d} x  {name[:100]}')
+    assert by_source == counted, (by_source, counted)
+    assert by_fn['mas_recurrence'] == by_fn['mas_expand'] == grew['mas']
+    assert grew['train_fwd_bf16'] == window * steps, grew
+    assert grew['train_bwd_bf16'] == (window * steps
+                                      * BWD_KERNELS_PER_FLOW_STEP), grew
+    assert grew['mas'] == window + eval_batches, grew
+
+    # what the writers hold: the images' arrays are the eval step's and
+    # the decode's slices, the histograms the parameters on the card
+    eval_steps = list(range(0, OBS_STEPS + 1, OBS_EVAL_EVERY))
+    images = memory['eval'].images
+    assert sorted(images) == list(OBS_IMAGES), sorted(images)
+    for tag, entries in images.items():
+        assert [step for step, _ in entries] == eval_steps, (tag, entries)
+    for i, step in enumerate(eval_steps):
+        batch, outputs = evals[step]
+        t_tok = int(batch['token_lengths'][0])
+        t_mel = int(batch['mel_lengths'][0])
+        assert np.array_equal(
+            images['Attention/From_Train'][i][1],
+            outputs['attentions'][0, :t_tok, :t_mel].float().cpu().numpy())
+        assert np.array_equal(images['Mel/Target'][i][1],
+                              batch['mels'][0, :t_mel].float().cpu()
+                              .numpy().T)
+    assert np.array_equal(
+        images['Attention/From_Inference'][-1][1],
+        trainer.free_running['attentions'][0, :t_tok].float().cpu().numpy())
+    params = dict(trainer.model.named_parameters())
+    histograms = memory['eval'].histograms
+    assert set(histograms) == {histogram_tag(n) for n in params}
+    for name, value in params.items():
+        entries = histograms[histogram_tag(name)]
+        assert [step for step, _ in entries] == eval_steps, name
+        assert np.array_equal(entries[-1][1], value.detach().cpu().numpy()), \
+            name
+    events = {}
+    if packages['tensorboardX']:
+        for writer in default.values():     # the writers' queued events
+            writer.writer.flush()
+        log = {kind: os.path.join(config.log_path, sub)
+               for kind, sub in (('train', 'Train'), ('eval', 'Evaluation'))}
+        for kind in ('train', 'eval'):
+            scalars = summaries(log[kind], 'simple_value')
+            want = memory[kind].scalars
+            assert set(scalars) == set(want), (kind, set(scalars))
+            for tag, values in want.items():
+                assert [(s, np.float32(v)) for s, v in values] == [
+                    (s, np.float32(v)) for s, v in scalars[tag]], (kind, tag)
+        pictures = summaries(log['eval'], 'image')
+        histos = summaries(log['eval'], 'histo')
+        assert sorted(pictures) == (list(OBS_IMAGES) if packages['matplotlib']
+                                    else []), sorted(pictures)
+        for tag, entries in pictures.items():
+            assert [s for s, _ in entries] == eval_steps, tag
+            assert all(image.height > 100 and image.width > 100
+                       for _, image in entries), tag
+        assert set(histos) == {histogram_tag(n) for n in params}
+        for name, value in params.items():
+            entries = histos[histogram_tag(name)]
+            assert [s for s, _ in entries] == eval_steps, name
+            histo = entries[-1][1]
+            host = value.detach().cpu()
+            assert (histo.num, histo.min, histo.max) == (
+                host.numel(), float(host.min()), float(host.max())), name
+        events = {'eval_images': sum(map(len, pictures.values())),
+                  'eval_histograms': sum(map(len, histos.values())),
+                  'scalar_tags': sum(len(summaries(log[k], 'simple_value'))
+                                     for k in log)}
+        print(f'observability, event files read back: {events}; '
+              f'{len(params)} parameters')
+
+    # the PNGs of the inference at the last step
+    png_dir = os.path.join(config.inference_path, f'Step-{OBS_STEPS}', 'PNG')
+    matplotlib_warnings = [m for m in warned.messages if 'matplotlib' in m]
+    if packages['matplotlib']:
+        from matplotlib.image import imread
+        files = sorted(os.listdir(png_dir))
+        assert files == [f'T{i}.png' for i in range(len(INFERENCE_TEXTS))], \
+            files
+        shapes = [imread(os.path.join(png_dir, f)).shape for f in files]
+        assert all(len(s) == 3 and s[0] > 100 for s in shapes), shapes
+        assert not matplotlib_warnings, matplotlib_warnings
+        print(f'observability, inference at step {OBS_STEPS}: {len(files)} '
+              f'PNGs read back, {shapes[0]}')
+    else:
+        assert not os.path.exists(png_dir), png_dir
+        assert len(matplotlib_warnings) == 1, warned.messages
+        print(f'observability: matplotlib does not import; the PNGs and '
+              f'image summaries skipped with one warning: '
+              f'{matplotlib_warnings[0]}')
+
+    # an evaluation with its images and histograms against one without
+    eval_writer = default['eval']
+    with_ms, without_ms = [], []
+    for _ in range(OBS_TIMED):
+        trainer.writers = dict(default)
+        with_ms.append(cuda_ms(trainer.evaluate, 1, warmup=0))
+        trainer.writers = {**default, 'eval': ScalarsOnly(eval_writer)}
+        without_ms.append(cuda_ms(trainer.evaluate, 1, warmup=0))
+    print(f'observability, evaluate() ({EVAL_PATTERNS} patterns, the '
+          f'decode, by CUDA events) with its images and {len(params)} '
+          f'histograms ({type(eval_writer).__name__}): '
+          f'{", ".join(f"{ms:.1f}" for ms in with_ms)} ms; scalars only: '
+          f'{", ".join(f"{ms:.1f}" for ms in without_ms)} ms; train steps '
+          f'by CUDA events, outside / inside the profiler window: '
+          + ', '.join(f'step {s} {ms:.2f}'
+                      + (' (in)' if OBS_PROFILE[0] <= s < OBS_PROFILE[1]
+                         else '') for s, ms in step_ms.items())
+          + f' ms; {card}')
+    return launches, {'evaluate_ms': with_ms, 'evaluate_scalars_only_ms':
+                      without_ms, 'step_ms': step_ms, 'trace': by_source,
+                      'events': events}
+
+
+def observe_prosody_check(root, device, card, packages):
+    """PE at the shipped width and dtype: a ``Trainer`` on an archive of
+    ``OBS_SPEAKERS`` speakers (its eval set too) trains ``OBS_PE_STEPS``
+    steps and runs its prosody check at the last; the GST vectors of the
+    card held against the same weights on the CPU, at f32 and at bf16;
+    the check timed.  Returns the launches and the numbers."""
+    from glow_tts_tpu_torch import GlowTTS, Trainer
+    from glow_tts_tpu_torch.data.collate import ProsodyCheckCollater
+    from glow_tts_tpu_torch.data.patterns import ProsodyCheckDataset
+    from glow_tts_tpu_torch.utils.logging import MemoryWriter
+    from glow_tts_tpu_torch.weights import load_state_dict
+    config = mode_config('PE', dtype='bfloat16')
+    for part, seed in (('train', SEED + 40), ('eval', SEED + 41)):
+        write_speaker_archive(os.path.join(root, part), config, seed)
+    config = trainer_config(config, root, 'pe', OBS_PE_STEPS,
+                            inference=False)
+    config = dataclasses.replace(config, train=dataclasses.replace(
+        config.train, prosody_check_interval=OBS_PE_STEPS,
+        evaluation_interval=100))
+    memory = {'train': MemoryWriter(), 'eval': MemoryWriter()}
+    zero_counts()
+    trainer = Trainer(config, device=device, writers=memory)
+    trainer.train()
+    launches = read_counts()
+    (step, card16, labels), = memory['eval'].embeddings['GST']
+    assert step == OBS_PE_STEPS
+    n = len(labels)
+    assert n >= OBS_SPEAKERS * OBS_PER_SPEAKER * 0.9, n
+    check_ms = [cuda_ms(trainer.prosody_check, 1, warmup=0)
+                for _ in range(2)]
+    with trainer.model.computing_at('float32'):
+        card32, labels32 = trainer.prosody_check()
+
+    # the same weights and mels on the CPU
+    cpu = load_state_dict(GlowTTS(config),
+                          {k: v.detach().cpu() for k, v in
+                           trainer.model.state_dict().items()}).eval()
+    pattern = config.train.eval_pattern
+    dataset = ProsodyCheckDataset(
+        pattern.path, mel_length_min=pattern.mel_length_min,
+        mel_length_max=pattern.mel_length_max)
+    collate = ProsodyCheckCollater(config)
+    size = config.train.batch_size
+    batches = [collate([dataset[i] for i in range(s, min(s + size, n))])
+               for s in range(0, len(dataset), size)]
+    cpu_labels = [label for b in batches for label in b['labels']]
+    assert labels == labels32 == cpu_labels
+    assert len(set(labels)) == OBS_SPEAKERS, set(labels)
+    plain = {}
+    for dtype in ('float32', 'bfloat16'):
+        with cpu.computing_at(dtype):
+            plain[dtype] = torch.cat([cpu.encode_prosody(
+                torch.from_numpy(b['mels']),
+                torch.from_numpy(b['mel_lengths'])).float()
+                for b in batches]).numpy()
+    scale = np.abs(plain['float32']).max()
+    err32 = np.abs(card32 - plain['float32']).max() / scale
+    err16 = float(np.abs(card16 - plain['bfloat16']).max())
+    bar16 = 2 * float(np.abs(plain['bfloat16'] - plain['float32']).max()) \
+        + 1e-6
+    frames = sum(int(b['mel_lengths'].sum()) for b in batches)
+    print(f'observability, PE prosody check at step {step} ({n} mels of '
+          f'{len(set(labels))} speakers, {frames} frames, batches of '
+          f'{size}): card vs CPU on the same weights: f32 '
+          f'{err32:.2e} of max-abs (bar {GST_F32_REL_BOUND}), bf16 '
+          f'max-abs {err16:.3e} (bar {bar16:.3e}: 2 × the CPU\'s bf16 vs '
+          f'f32 + 1e-6); labels equal; the check at bf16 '
+          f'{", ".join(f"{ms:.1f}" for ms in check_ms)} ms by CUDA events '
+          f'({min(check_ms) * 100 / n:.2f} ms per 100 mels); {card}')
+    assert err32 <= GST_F32_REL_BOUND, err32
+    assert err16 <= bar16, (err16, bar16)
+    viz = None
+    if packages['sklearn'] and packages['matplotlib']:
+        from matplotlib.image import imread
+        from glow_tts_tpu_torch.utils import prosody_viz
+        out = os.path.join(root, 'prosody_tsne.png')
+        embeddings, viz_labels = prosody_viz.embed_prosody_dataset(
+            config.checkpoint_path, device=str(device))
+        viz = float(np.abs(embeddings - card32).max() / scale)
+        assert viz_labels == labels and viz <= GST_F32_REL_BOUND, viz
+        prosody_viz.plot_embeddings(embeddings, viz_labels, out)
+        print(f'observability, prosody_viz on the checkpoint (the served '
+              f'model, f32): {viz:.2e} of max-abs from the check\'s; '
+              f't-SNE PNG {imread(out).shape}')
+    return launches, {'f32_rel_err': float(err32), 'bf16_err': err16,
+                      'bf16_bar': bar16, 'check_ms': check_ms,
+                      'ms_per_100_mels': min(check_ms) * 100 / n,
+                      'mels': n, 'viz_rel_err': viz}
+
+
+def run_observability_phase(card):
+    """What a user reads of a run: which of tensorboardX, matplotlib and
+    sklearn import here, the Vanilla trainer's writers, PNGs and profiler
+    trace (:func:`observe_trainer`), and PE's prosody check
+    (:func:`observe_prosody_check`).  Returns the launches by path."""
+    import shutil
+    import tempfile
+
+    from glow_tts_tpu_torch import load_config
+    packages = {name: importable(name)
+                for name in ('tensorboardX', 'matplotlib', 'sklearn')}
+    print('observability packages: ' + ', '.join(
+        f'{name} {"imports" if ok else "does not import"}'
+        for name, ok in packages.items()))
+    device = torch.device('cuda', 0)
+    # as main() sets them, also when the phase runs alone: the GST
+    # vectors are held against the CPU at f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = tempfile.mkdtemp(prefix='chip_smoke_observed_')
+    try:
+        shipped = load_config(CONFIG)
+        write_archive(os.path.join(root, 'train'), TRAIN_PATTERNS, shipped,
+                      SEED + 30)
+        write_archive(os.path.join(root, 'eval'), EVAL_PATTERNS, shipped,
+                      SEED + 31)
+        with open(os.path.join(root, 'sentences.tsv'), 'w') as f:
+            f.write('Label\tText\tScale\tSpeaker\tGE2E\tProsody\tPitch\n')
+            for i, text in enumerate(INFERENCE_TEXTS):
+                f.write(f'T{i}\t{text}\t1.0\t0\tNone\tNone\tNone\n')
+        by_path = {}
+        by_path['observability trainer'], trained = observe_trainer(
+            shipped, root, device, card, packages)
+        by_path['observability prosody check'], checked = \
+            observe_prosody_check(os.path.join(root, 'pe'), device, card,
+                                  packages)
+        print('observability: ' + json.dumps({
+            'packages': packages, **trained, 'prosody_check': checked,
+            'card': card}))
+        return by_path
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: no CUDA device; this script runs on a GPU only')
@@ -5441,6 +5967,10 @@ def main():
     # every card, then two ranks on one card over gloo
     by_path.update(run_data_parallel_phase(card))
     phase_done('data parallel')
+    # what a user reads of a run: the writers, the PNGs, the profiler
+    # window and the prosody check
+    by_path.update(run_observability_phase(card))
+    phase_done('observability')
 
     def launches(counter):
         paths = {path: counts[counter] for path, counts in by_path.items()}

@@ -6,6 +6,7 @@ with the flags of ``glow_tts_tpu/cli.py`` and ``--device`` (default
 
     glow-tts-torch-patterns -hp configs/MiniSpeech.yaml -lj corpus -text
     glow-tts-torch-train -hp configs/Hyper_Parameters.yaml [-s STEP]
+        [--profile START:STOP]
     torchrun --nproc_per_node N -m glow_tts_tpu_torch.cli -hp ... [-s STEP]
     glow-tts-torch-infer -c results/Checkpoint [-s STEP] -f lines.tsv -o out
         [-wav]
@@ -15,6 +16,8 @@ card (0, the shipped value: every visible card; ``parallel/data.py``).
 Under ``torchrun`` each process is one rank and trains on
 ``cuda:LOCAL_RANK``; with no launcher, ``glow-tts-torch-train`` starts the
 processes itself on this host when there is more than one.
+``--profile a:b`` traces steps ``a`` to ``b`` with ``torch.profiler`` into
+a Chrome trace per rank under ``<Log_Path>/profile``.
 """
 
 from __future__ import annotations
@@ -34,15 +37,21 @@ def train_main(argv: Optional[Sequence[str]] = None) -> None:
     parser.add_argument('-s', '--initial_step', default=0, type=int,
                         help='resume step; 0 = latest checkpoint')
     parser.add_argument('--profile', default=None,
-                        help='profile step window: not in the PyTorch port '
-                             'yet')
+                        help='profile step window, e.g. 100:110: a Chrome '
+                             'trace per rank under <Log_Path>/profile')
     parser.add_argument('--device', default='cuda',
                         help="torch device to train on (default 'cuda'); "
                              "under data parallelism each rank trains on "
                              "cuda:LOCAL_RANK (or the CPU, over gloo)")
     args = parser.parse_args(argv)
+    args.profile_steps = None
     if args.profile:
-        parser.error('--profile is not in the PyTorch port yet')
+        try:
+            start, stop = args.profile.split(':')
+            args.profile_steps = (int(start), int(stop))
+        except ValueError:
+            parser.error(f'--profile takes START:STOP, two step numbers; '
+                         f'got {args.profile!r}')
 
     from glow_tts_tpu_torch.config import load_config
     from glow_tts_tpu_torch.parallel.data import launched, ranks_to_launch
@@ -77,7 +86,7 @@ def _train(args: argparse.Namespace) -> None:
                    + (f'[rank {rank}/{ranks}] ' if ranks > 1 else '')
                    + '(%(module)s:%(lineno)d) %(levelname)s: %(message)s')
         Trainer(config, initial_step=args.initial_step,
-                device=args.device).train()
+                device=args.device).train(profile_steps=args.profile_steps)
     finally:
         data.close()
 

@@ -243,6 +243,9 @@ class TrainConfig:
     inference_interval: int = 1000
     initial_inference: bool = False
     inference_pattern_file_in_train: Optional[str] = None
+    # PE and GR: steps between two GST embedding projectors of the eval
+    # set's sampled speakers (``Trainer.prosody_check``)
+    prosody_check_interval: int = 5000
     # The alignment curriculum, as the JAX package's ``TrainConfig`` has it
     # (its comments give the measurements behind each field).  For the
     # first ``alignment_warmup_steps`` steps the path comes from the warmup

@@ -7,7 +7,8 @@ the fields of the loss and train paths in all four modes (speaker ids, GE2E
 slices of the training mel, the pitch track on the mel's timeline);
 :class:`InferenceCollater` the serving fields of all four modes: speaker
 ids, GE2E slices of a reference mel, a reference mel for the prosody
-encoder, a pitch track.
+encoder, a pitch track; :class:`ProsodyCheckCollater` the reference mels of
+the prosody check.
 """
 
 from __future__ import annotations
@@ -172,3 +173,21 @@ class InferenceCollater:
             out['pitches'], out['pitch_lengths'] = _pad_rows(
                 [item['pitch'] for item in items], cfg.mel_bucket, 0.0)
         return out
+
+
+class ProsodyCheckCollater:
+    """Prosody-check items (``mel [T, M]``, ``speaker``) → ``mels [B, T,
+    M]`` padded with ``−max_abs_mel`` to the longest rounded up to
+    ``config.mel_bucket``, ``mel_lengths [B]`` and the speakers as
+    ``labels``."""
+
+    def __init__(self, config):
+        self.config = config
+
+    def __call__(self, items: Sequence[Dict]) -> Dict:
+        cfg = self.config
+        mels, lengths = _pad_rows([item['mel'] for item in items],
+                                  cfg.mel_bucket, -cfg.sound.max_abs_mel,
+                                  (cfg.sound.mel_dim,))
+        return {'mels': mels, 'mel_lengths': lengths,
+                'labels': [item['speaker'] for item in items]}

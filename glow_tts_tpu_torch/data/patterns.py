@@ -15,6 +15,7 @@ from __future__ import annotations
 import math
 import os
 import pickle
+import random
 from dataclasses import dataclass, field
 from typing import Dict, List
 
@@ -143,6 +144,47 @@ class PatternDataset:
         if self.use_cache:
             self._cache[key] = item
         return item
+
+
+@dataclass
+class ProsodyCheckDataset:
+    """The prosody check's mels: up to ``check_speakers`` speakers drawn
+    by ``random.Random(seed)``, then up to ``sample_per_speaker`` files of
+    each, kept where their mel length passes the filter; the same draws,
+    so the same file list, as the JAX package's."""
+    pattern_path: str
+    metadata_file: str = 'METADATA.PICKLE'
+    check_speakers: int = 50
+    sample_per_speaker: int = 100
+    mel_length_min: float = -math.inf
+    mel_length_max: float = math.inf
+    seed: int = 0
+
+    def __post_init__(self):
+        metadata = load_metadata(self.pattern_path, self.metadata_file)
+        rng = random.Random(self.seed)
+        by_speaker = metadata['File_List_by_Speaker_Dict']
+        speakers = rng.sample(list(by_speaker.keys()),
+                              min(self.check_speakers, len(by_speaker)))
+        self.files: List[str] = [
+            f
+            for speaker in speakers
+            for f in rng.sample(by_speaker[speaker],
+                                min(self.sample_per_speaker,
+                                    len(by_speaker[speaker])))
+            if (self.mel_length_min <= metadata['Mel_Length_Dict'][f]
+                <= self.mel_length_max)
+        ]
+        self.metadata = metadata
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def __getitem__(self, idx: int) -> Dict:
+        pattern = load_pattern(os.path.join(self.pattern_path,
+                                            self.files[idx]))
+        return {'mel': np.asarray(pattern['Mel'], np.float32),
+                'speaker': pattern['Speaker']}
 
 
 @dataclass

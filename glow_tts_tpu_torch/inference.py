@@ -11,9 +11,10 @@ GR with the look-up table) and reference features: ``mel_for_ge2e``
 on the ``Inferencer``'s device from the reference wavs the item names
 (``wav_for_ge2e``, ``wav_for_prosody``, ``wav_for_pitch``;
 ``data.pattern_generator.load_reference_features``).  Results can be
-exported as the NPY tree (``utils.plotting.export_npy``) and as Griffin-Lim
-wavs (``ops.vocoder``, on the same device); PNG figures are not ported
-yet.
+exported as the NPY tree (``utils.plotting.export_npy``), a PNG figure per
+item (``utils.plotting.export_mel_figure``: the mel above its attention;
+skipped, with one warning per process, where matplotlib does not import)
+and Griffin-Lim wavs (``ops.vocoder``, on the same device).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from glow_tts_tpu_torch.models.glow_tts import GlowTTS
 from glow_tts_tpu_torch.ops import vocoder
 from glow_tts_tpu_torch.text import Tokenizer, load_token_dict, text_filtering
 from glow_tts_tpu_torch.training.checkpoint import SNAPSHOT, CheckpointManager
-from glow_tts_tpu_torch.utils.plotting import export_npy
+from glow_tts_tpu_torch.utils.plotting import export_mel_figure, export_npy
 from glow_tts_tpu_torch.weights import (load_reference_checkpoint,
                                         load_state_dict)
 
@@ -169,7 +170,8 @@ class Inferencer:
         """Items with ``text`` (filtered), optional ``label`` and
         ``length_scale`` → one result per item: its ``mel [T, M]``,
         ``attention [T_tok, T]`` and the ``bucket`` its batch decoded in,
-        each also written under ``out_dir`` by ``export_npy`` if given;
+        each also written under ``out_dir`` if given, as the NPY tree and
+        ``<out_dir>/PNG/<label>.png`` (titled with the text);
         with ``export_wav`` as well, the Griffin-Lim waveform
         (``griffin_lim_iterations`` on the device, the start phase from
         seed 0) in ``result['audio']`` and ``<out_dir>/WAV/<label>.wav``.
@@ -208,6 +210,11 @@ class Inferencer:
                 }
                 results.append(result)
                 if out_dir:
+                    export_mel_figure(
+                        os.path.join(out_dir, 'PNG',
+                                     f'{result["label"]}.png'),
+                        result['mel'], result['attention'],
+                        title=item['text'])
                     export_npy(out_dir, result['label'], result['mel'],
                                result['attention'])
                     if export_wav:

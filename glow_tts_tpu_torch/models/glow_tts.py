@@ -445,6 +445,17 @@ class GlowTTS(nn.Module):
         return self
 
     @torch.no_grad()
+    def encode_prosody(self, mels: torch.Tensor,
+                       mel_lengths: torch.Tensor) -> torch.Tensor:
+        """The GST prosody vectors ``[B, P]`` of reference ``mels [B, T,
+        M]`` and their lengths, at the model's compute dtype, without
+        autograd (PE and GR; the trainer's prosody check)."""
+        if not self.config.uses_prosody_encoder:
+            raise ValueError(f'{self.config.mode} mode has no prosody '
+                             f'encoder (PE and GR have)')
+        return self.layer_Dict['Prosody_Encoder'](mels, mel_lengths)
+
+    @torch.no_grad()
     def inference_prior(self, tokens: torch.Tensor,
                         token_lengths: torch.Tensor,
                         length_scale: Union[float, torch.Tensor] = 1.0,

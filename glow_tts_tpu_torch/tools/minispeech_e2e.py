@@ -46,6 +46,8 @@ from typing import Dict, List, Mapping
 import numpy as np
 import torch
 
+from glow_tts_tpu_torch.utils.logging import MemoryWriter, NullWriter
+
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 MINISPEECH = os.path.join(REPO, 'configs', 'MiniSpeech.yaml')
@@ -179,12 +181,12 @@ def card_line() -> str:
         return f'nvidia-smi unavailable ({error})'
 
 
-class TrajectoryWriter:
+class TrajectoryWriter(NullWriter):
     """Keeps the scalars (``utils.logging.MemoryWriter``) and appends each
-    call's as one JSON line to ``path``."""
+    call's as one JSON line to ``path``; images, histograms and embeddings
+    are dropped."""
 
     def __init__(self, path: str, kind: str):
-        from glow_tts_tpu_torch.utils.logging import MemoryWriter
         self.memory, self.path, self.kind = MemoryWriter(), path, kind
 
     def add_scalars(self, scalars: Mapping[str, float], step: int) -> None:
@@ -193,9 +195,6 @@ class TrajectoryWriter:
             f.write(json.dumps({'kind': self.kind, 'step': int(step),
                                 **{k: float(v) for k, v in scalars.items()}})
                     + '\n')
-
-    def __getattr__(self, name):         # images, histograms: not written
-        return getattr(self.memory, name)
 
 
 def eval_trajectory(writer: TrajectoryWriter) -> List[Dict]:

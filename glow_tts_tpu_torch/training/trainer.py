@@ -8,8 +8,11 @@ conditioning), in GE2E mode the pre-trained speaker encoder from
 ``Speaker_Embedding.GE2E.Checkpoint_Path`` when it is set and no checkpoint
 is restored, the optimiser (the GE2E encoder frozen) and the encoder's
 dropout generator, restores a checkpoint if there is one,
-and runs the train step with checkpoints, scalar logs, evaluations and
-inference at their intervals.  A resumed run repeats the uninterrupted
+and runs the train step with checkpoints, scalar logs, evaluations (with
+their images and parameter histograms), inference (with a PNG figure per
+sentence) and, in PE and GR modes, the prosody check at their intervals,
+and with ``train(profile_steps=(a, b))`` a ``torch.profiler`` trace of
+steps ``a`` to ``b``.  A resumed run repeats the uninterrupted
 one (on the card with cuDNN deterministic, which ``Trainer`` sets): the
 checkpoint holds the weights, the optimiser's count and moments
 (the flow's dropout masks and the learning rate follow the count), the
@@ -24,9 +27,9 @@ checkpoints.  The model trains, evaluates and is initialised at
 ``config.compute_dtype``; the evaluation's free-running decode and the
 inference at the intervals serve at ``inference_dtype or compute_dtype``
 from the same parameters, as the JAX trainer does; checkpoints hold the
-float32 parameters whatever the dtype.  The JAX trainer's prosody check
-(an embedding projector of GST vectors) is not ported: it is a writer of
-images and embeddings (``ROADMAP.md`` A.8).
+float32 parameters whatever the dtype.  The prosody check
+(:meth:`Trainer.prosody_check`) writes an embedding projector of the GST
+vectors of the eval set's sampled speakers.
 
 Under data parallelism, as the JAX trainer on a mesh: every rank
 initialises ActNorm on the same unshuffled first batch of the global size
@@ -36,8 +39,9 @@ weights; it trains on its stride of each epoch (``shard_index`` /
 as the rank with the fewest; the frame counts and losses are the global
 batch's; a stop signal is agreed before each step, so every rank stops
 after the same one; the evaluation runs on a fixed number of whole batches
-per rank; and only rank 0 writes logs, checkpoints (which hold every
-rank's generator state) and inference, and decodes.
+per rank; only rank 0 writes logs, checkpoints (which hold every rank's
+generator state) and inference, decodes and runs the prosody check; and
+each rank writes its own profiler trace.
 """
 
 from __future__ import annotations
@@ -46,13 +50,17 @@ import itertools
 import math
 import os
 import signal
-from typing import Dict, List, Mapping, Optional, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
-from glow_tts_tpu_torch.data.collate import TrainCollater
+from glow_tts_tpu_torch.data.collate import (ProsodyCheckCollater,
+                                             TrainCollater)
 from glow_tts_tpu_torch.data.loader import DataLoader
-from glow_tts_tpu_torch.data.patterns import InferenceDataset, PatternDataset
+from glow_tts_tpu_torch.data.patterns import (InferenceDataset,
+                                              PatternDataset,
+                                              ProsodyCheckDataset)
 from glow_tts_tpu_torch.inference import Inferencer
 from glow_tts_tpu_torch.models.glow_tts import initial_state_dict
 from glow_tts_tpu_torch.parallel.data import initialize, shard_seed
@@ -238,8 +246,39 @@ class Trainer:
 
     # ------------------------------------------------------------------
 
-    def train(self) -> None:
+    def _start_profiler(self):
+        """A started ``torch.profiler`` window of CPU and (on the card)
+        CUDA activity, whose Chrome trace goes to ``<log_path>/profile/
+        rank<r>.<ns>.pt.trace.json`` when it stops."""
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == 'cuda':
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(
+            activities=activities,
+            on_trace_ready=tensorboard_trace_handler(
+                os.path.join(self.config.log_path, 'profile'),
+                worker_name=f'rank{self.world.rank}'))
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler) -> None:
+        """Wait for the device's queued work, then stop ``profiler``
+        (which writes its trace)."""
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        logger.info('Profiler trace of steps up to %d written under %s',
+                    self.step, os.path.join(self.config.log_path, 'profile'))
+
+    def train(self, profile_steps: Optional[Sequence[int]] = None) -> None:
+        """Train to ``Train.Max_Step``.  With ``profile_steps (a, b)`` a
+        profiler window starts before step ``a`` (0-based, as ``self.step``
+        counts) and stops once ``self.step`` reaches ``b``, before that
+        step's checkpoint, logs and evaluation."""
         cfg, world = self.config.train, self.world
+        profiler = None
         # the epoch and the batches of it already consumed follow from the
         # step: a resumed run takes the batches the uninterrupted one took;
         # every rank takes as many as the rank with the fewest
@@ -279,9 +318,15 @@ class Trainer:
                     if stopping:
                         raise KeyboardInterrupt(
                             stop[0] if stop else 'stopped by another rank')
+                    if profile_steps and self.step == profile_steps[0]:
+                        profiler = self._start_profiler()
                     metrics = self.step_function(self.step)(
                         batch_to_device(batch, self.device))
                     self.step += 1
+                    if profiler is not None and \
+                            self.step == profile_steps[1]:
+                        self._stop_profiler(profiler)
+                        profiler = None
                     self._after_step(metrics, frames)
                     if self.step >= cfg.max_step:
                         break
@@ -298,6 +343,8 @@ class Trainer:
                                'checkpoint stands', self.step + 1)
             raise
         finally:
+            if profiler is not None:    # the run ended inside the window
+                self._stop_profiler(profiler)
             for signum, handler in handlers.items():
                 signal.signal(signum, handler)
         self.save_checkpoint()
@@ -334,6 +381,9 @@ class Trainer:
         if self.step % cfg.inference_interval == 0 and self.world.is_main \
                 and cfg.inference_pattern_file_in_train:
             self.run_inference_file(cfg.inference_pattern_file_in_train)
+        if self.config.uses_prosody_encoder and self.world.is_main and \
+                self.step % cfg.prosody_check_interval == 0:
+            self.prosody_check()
 
     # ------------------------------------------------------------------
 
@@ -341,10 +391,15 @@ class Trainer:
         """Mean losses and alignment diagonality over the eval set (in
         order, the last batch ragged), written to the eval writer and
         returned; then a free-running decode of the last batch with noise
-        seeded from the step (``self.free_running``).  Under data
-        parallelism each rank takes its stride of the set in whole batches
-        of its share, as many as every rank has (the JAX trainer's
-        count), the losses of each global batch; rank 0 decodes."""
+        seeded from the step (``self.free_running``), and for its first
+        sample the eval writer's images ``Mel/Target`` (the target mel
+        transposed, cut to its length), ``Attention/From_Train`` (the eval
+        step's MAS path) and ``Attention/From_Inference`` (the free-running
+        path), and a histogram of every parameter.  Under data parallelism
+        each rank takes its stride of the set in whole batches of its
+        share, as many as every rank has (the JAX trainer's count), the
+        losses of each global batch; rank 0 decodes and writes the images
+        and histograms."""
         world = self.world
         local_batch = self.config.train.batch_size // world.size
         loader = DataLoader(self.eval_dataset, self.collater, local_batch,
@@ -356,7 +411,7 @@ class Trainer:
             batches = itertools.islice(batches, len(self.eval_dataset)
                                        // world.size // local_batch)
         totals: Dict[str, torch.Tensor] = {}
-        count, last = 0, None
+        count, last, last_outputs = 0, None, None
         for batch in batches:
             batch = batch_to_device(batch, self.device)
             loss_dict, outputs = self.eval_step(batch)
@@ -366,7 +421,7 @@ class Trainer:
                 batch['mel_lengths'], world)
             for tag, value in values.items():
                 totals[tag] = totals[tag] + value if tag in totals else value
-            count, last = count + 1, batch
+            count, last, last_outputs = count + 1, batch, outputs
         if not count:
             return {}
         means = dict(zip(totals, (torch.stack(list(totals.values()))
@@ -392,11 +447,24 @@ class Trainer:
                 max_mel_length=self.max_mel_length,
                 pitches=last.get('pitches'),
                 pitch_lengths=last['mel_lengths'])
+        t_tok = int(last['token_lengths'][0])
+        t_mel = int(last['mel_lengths'][0])
+
+        def host(tensor):
+            return tensor.detach().float().cpu().numpy()
+        self.writers['eval'].add_images({
+            'Mel/Target': host(last['mels'][0, :t_mel]).T,
+            'Attention/From_Train': host(
+                last_outputs['attentions'][0, :t_tok, :t_mel]),
+            'Attention/From_Inference': host(
+                self.free_running['attentions'][0, :t_tok])}, self.step)
+        self.writers['eval'].add_histograms(self.model, self.step)
         return means
 
     def run_inference_file(self, pattern_file: str) -> List[Dict]:
         """Synthesise the TSV's sentences on the current weights into
-        ``<inference_path>/Step-<step>/NPY``."""
+        ``<inference_path>/Step-<step>``: the NPY tree and a PNG figure
+        per sentence (``PNG/<label>.png``, where matplotlib imports)."""
         dataset = InferenceDataset(pattern_file)
         if not len(dataset):
             return []
@@ -407,3 +475,34 @@ class Trainer:
                                f'Step-{self.step}')
         return inferencer.synthesize_items(dataset.entries, out_dir=out_dir,
                                            seed=self.step)
+
+    def prosody_check(self) -> Optional[Tuple[np.ndarray, List[str]]]:
+        """The GST vectors ``[N, P]`` (float32) of the eval pattern set's
+        sampled speakers (``ProsodyCheckDataset``, its mel-length filter),
+        computed in batches of ``Train.Batch_Size`` at the model's compute
+        dtype without autograd, written to the eval writer as the
+        embedding ``'GST'`` with the speakers as labels, and returned with
+        the labels; None where the set samples nothing.  Holds no
+        collective: under data parallelism the trainer runs it on rank 0
+        alone."""
+        pattern = self.config.train.eval_pattern
+        dataset = ProsodyCheckDataset(
+            pattern_path=pattern.path, metadata_file=pattern.metadata_file,
+            mel_length_min=pattern.mel_length_min,
+            mel_length_max=pattern.mel_length_max)
+        if not len(dataset):
+            return None
+        loader = DataLoader(dataset, ProsodyCheckCollater(self.config),
+                            self.config.train.batch_size, shuffle=False,
+                            prefetch=0, drop_last=False)
+        embeddings, labels = [], []
+        for batch in loader:
+            embeddings.append(self.model.encode_prosody(
+                torch.as_tensor(batch['mels'], device=self.device),
+                torch.as_tensor(batch['mel_lengths'],
+                                device=self.device)).float())
+            labels.extend(batch['labels'])
+        embeddings = torch.cat(embeddings).cpu().numpy()
+        self.writers['eval'].add_embedding(embeddings, labels, self.step,
+                                           tag='GST')
+        return embeddings, labels

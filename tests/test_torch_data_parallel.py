@@ -142,24 +142,33 @@ def _halves(batch):
              for key, value in batch.items()} for r in range(RANKS)]
 
 
-@pytest.fixture(scope='module')
-def stepped(tmp_path_factory):
-    """The JAX mesh step, the ranks' steps in every scenario, and one rank
-    on the whole batch where it is the reference."""
+def dp_problem():
+    """The batch and weights of these tests: ``tiny_config`` under
+    ``'flax'`` with every dropout rate 0 (the JAX config, and the port's
+    with the buckets above), the items, the whole batch collated, and the
+    JAX model, train state and parameters (perturbed by 0.03, numpy)."""
     jcfg = with_backend(with_dropout(tiny_config(), 0.0), 'flax')
     pcfg = dataclasses.replace(port_config(jcfg), **BUCKETS)
     items = _items(pcfg)
-    collate = TrainCollater(pcfg, Tokenizer())
-    whole = collate(items)
-    apart = [collate(items[r * 2:(r + 1) * 2]) for r in range(RANKS)]
-
-    # the JAX package's step on the whole batch, sharded over 'data'
+    whole = TrainCollater(pcfg, Tokenizer())(items)
     model, state = jstep.create_train_state(jcfg, jax.random.PRNGKey(0),
                                             whole)
     rng = np.random.default_rng(100)
     params = jax.tree_util.tree_map(
         lambda p: np.asarray(p, np.float32) + 0.03 * rng.standard_normal(
             p.shape).astype(np.float32), state.params)
+    return jcfg, pcfg, items, whole, model, state, params
+
+
+@pytest.fixture(scope='module')
+def stepped(tmp_path_factory):
+    """The JAX mesh step, the ranks' steps in every scenario, and one rank
+    on the whole batch where it is the reference."""
+    jcfg, pcfg, items, whole, model, state, params = dp_problem()
+    collate = TrainCollater(pcfg, Tokenizer())
+    apart = [collate(items[r * 2:(r + 1) * 2]) for r in range(RANKS)]
+
+    # the JAX package's step on the whole batch, sharded over 'data'
     state = state.replace(
         params=jax.tree_util.tree_map(jnp.asarray, params),
         opt_state=jax_make_optimizer(jcfg).init(params))
@@ -340,7 +349,10 @@ def test_bf16_ranks_split_like_the_jax_mesh(stepped):
     bf16-vs-f32 distance from JAX's bf16, plus 1e-4) is not held here:
     on this batch one process misses it on 18 of 113 leaves, at most 1.70
     times over, and so do the 2 ranks; leaves near it cross it either way
-    with the split (``PERF.md`` §7, PR 16)."""
+    with the split (``PERF.md`` §6).  The miss is XLA's excess
+    precision in JAX's jitted step, not a cast of the port's:
+    ``tests/test_torch_bf16_encoder_walk.py`` walks the encoder layer by
+    layer on this batch and names the op (``ROADMAP.md`` C.2)."""
     pcfg, jg = stepped['pcfg'], stepped['jax_grads']
     two = _port_grads(stepped['ranks'][0]['bf16'], pcfg)
     one = _port_grads(stepped['one']['bf16'], pcfg)

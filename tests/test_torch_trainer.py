@@ -17,7 +17,8 @@ at step 2 is mid-epoch) and 6 eval patterns (a batch of 4 and a ragged 2).
 * Ctrl-C and SIGTERM inside the loop leave ``S_<step>.pt`` at the current
   step; a NaN loss raises ``FloatingPointError`` at the logging interval.
 * ``train_main``/``infer_main`` with ``--device cpu`` write checkpoints,
-  logs and NPY files; without ``--device`` (CUDA by default) they raise
+  logs and NPY files, and ``--profile`` that is not ``START:STOP`` exits
+  with a usage error; without ``--device`` (CUDA by default) they raise
   here, where CUDA is absent, as ``Trainer(device='cuda')`` does.
 """
 
@@ -303,7 +304,7 @@ def test_cli_trains_and_serves_on_the_cpu(root, tmp_path):
     for name in mels:
         mel = np.load(os.path.join(out, 'NPY', 'Mel', name))
         assert mel.shape[0] == cfg.sound.mel_dim and np.isfinite(mel).all()
-    for argv in (['--profile', '1:2'],):
+    for argv in (['--profile', '2'], ['--profile', 'a:b']):
         with pytest.raises(SystemExit):
             train_main(['-hp', hp, '--device', 'cpu', *argv])
     wav_out = str(tmp_path / 'wavs')

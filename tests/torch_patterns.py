@@ -12,11 +12,12 @@ LETTERS = np.array(list('ABCDEFGHIJKLMNOPQRSTUVWXYZ'))
 
 
 def write_pattern_archive(path, n, sound, seed, mel=(50, 120),
-                          text=(10, 30)):
-    """``n`` synthetic patterns under ``path`` (two speaker folders) and
-    their ``METADATA.PICKLE`` for the config section ``sound``, written
-    with the port's pattern IO: texts of ``text`` characters (letters and
-    spaces), mels of ``mel`` frames uniform in [−4, 4]."""
+                          text=(10, 30), speakers=2):
+    """``n`` synthetic patterns under ``path`` (a folder per speaker,
+    pattern i speaker ``i % speakers``) and their ``METADATA.PICKLE`` for
+    the config section ``sound``, written with the port's pattern IO:
+    texts of ``text`` characters (letters and spaces), mels of ``mel``
+    frames uniform in [−4, 4]."""
     from glow_tts_tpu_torch.data.patterns import (build_metadata,
                                                   save_metadata,
                                                   save_pattern)
@@ -26,12 +27,13 @@ def write_pattern_archive(path, n, sound, seed, mel=(50, 120),
         n_mel = int(rng.integers(mel[0], mel[1] + 1))
         chars = rng.choice(LETTERS, n_text)
         chars[3::5] = ' '
-        save_pattern(os.path.join(path, f'S{i % 2}', f'P{i:03d}.PICKLE'), {
+        speaker = i % speakers
+        save_pattern(os.path.join(path, f'S{speaker}', f'P{i:03d}.PICKLE'), {
             'Audio': np.zeros(n_mel * 4, np.float32),
             'Mel': rng.uniform(-4, 4, (n_mel, sound.mel_dim)
                                ).astype(np.float32),
             'Pitch': rng.random(n_mel).astype(np.float32),
-            'Speaker_ID': i % 2, 'Speaker': f'S{i % 2}',
+            'Speaker_ID': speaker, 'Speaker': f'S{speaker}',
             'Dataset': 'Synthetic', 'Text': ''.join(chars)})
     save_metadata(path, build_metadata(path, sound))
     return path
