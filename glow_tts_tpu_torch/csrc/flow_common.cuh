@@ -50,6 +50,11 @@
 // where they are packed), whose products are exact in float32.  x_b, the
 // sums and the logdet stay float32.  The float32 builds' code is what it
 // was: every bfloat16 change is a type or an inline identity there.
+// flow_train_fwd.cu's bfloat16 build (#5) defines GLOW_BF16_TILES for a
+// body of its own (see there): h and the gate in bfloat16 in shared memory
+// (hb, gb, over hs's and gs's room), read by ldmatrix in
+// tc_gemm_bf16_tiles (the same sums as tc_gemm_bf16, bit for bit); the
+// other kernels' bfloat16 builds keep tc_gemm_bf16.
 
 #pragma once
 
@@ -63,6 +68,9 @@
 #endif
 
 #include "tf32_mma.cuh"
+#ifdef GLOW_BF16_TILES
+#include "bf16_mma.cuh"
+#endif
 
 namespace {
 
@@ -100,6 +108,10 @@ struct Shape {
   // columns a lane group), which a pitch of 4 mod 32 floats spreads over 32
   // banks; the skip sum is written as column pairs (8 mod 32)
   static constexpr int HP = CH + 4, GP = CH + 4, SP = CH + 8;
+  // #5's bfloat16 copies of h and the gate (GLOW_BF16_TILES), over the
+  // float32 buffers' room: rows of CH + 8 bfloat16, 16 mod 128 bytes, so an
+  // ldmatrix read of 8 rows' 16 bytes touches 32 banks
+  static constexpr int HPB = CH + 8, GPB = CH + 8;
   // n8 tiles across the 2CH columns of w_in and w_rs, and a warp's share
   static constexpr int NB = CH2 / 8, NT = NB / kWarps;
   static_assert(C % 8 == 0 && CH % (4 * kWarps) == 0 && KS % 2 == 1 &&
@@ -485,6 +497,70 @@ __device__ __forceinline__ void tc_gemm_bf16(float (&sum)[MT][NT][4],
 }
 #endif
 
+#ifdef GLOW_BF16_TILES
+// #5's bfloat16 body (flow_train_fwd.cu defines GLOW_BF16_TILES in its
+// GLOW_BF16 build; the other kernels' bfloat16 builds keep tc_gemm_bf16):
+// sum = A . W over K = 16 NK16 with A in bfloat16 in shared memory, rows
+// PITCH bytes apart (a_at(kb) the shared address of row 0 at depth 16 kb),
+// its fragments read by ldmatrix.x4, one per m16 row tile and 16-deep step;
+// W as tc_gemm_bf16 reads it, kAhead steps ahead.  As in tc_gemm_bf16, every
+// 16-deep product starts at zero and is added to sum in f32 (so the sums,
+// and z, are tc_gemm_bf16's bit for bit): the tensor cores' own f32
+// accumulation truncates, and accumulating the whole depth there moved the
+// bf16 train path's losses past chip_smoke.py's bar (PERF.md).
+template <int MT, int NT, int NK16, int PITCH, int NB, class AAt>
+__device__ __forceinline__ void tc_gemm_bf16_tiles(float (&sum)[MT][NT][4],
+                                                   const AAt& a_at,
+                                                   const WFrag* __restrict__ w,
+                                                   int nt0) {
+  constexpr int Q = kAhead + 1;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum[mt][nt][e] = 0.f;
+  const WFrag* wl = w + nt0 * 32 + lane;
+  WFrag bq[Q][NT];
+  auto load = [&](WFrag (&dst)[NT], int kb) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      dst[nt] = __ldg(wl + (static_cast<size_t>(kb) * NB + nt) * 32);
+  };
+  // lane l gives row (l % 8) + 8 ((l / 8) % 2), depths 8 (l / 16) + 0..7 of
+  // a 16 x 16 block: ldmatrix's matrices are then a0, a1, a2, a3
+  const uint32_t lane_at =
+      ((lane % 8) + 8 * ((lane / 8) % 2)) * PITCH + 16 * (lane / 16);
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j)
+    if (j < NK16) load(bq[j], j);
+  for (int kb0 = 0; kb0 < NK16; kb0 += Q) {
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      const int kb = kb0 + j;
+      if (kb < NK16) {
+        if (kb + kAhead < NK16) load(bq[(j + kAhead) % Q], kb + kAhead);
+        const uint32_t a = a_at(kb) + lane_at;
+        uint32_t af[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          bf16mma::ldsm_x4(af[mt], a + 16 * mt * PITCH);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            float d[4] = {0.f, 0.f, 0.f, 0.f};
+            bf16mma::mma(d, af[mt], bq[j][nt].x, bq[j][nt].y);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sum[mt][nt][e] += d[e];
+          }
+      }
+    }
+  }
+}
+#endif
+
 // The build's tensor-core GEMM of a warp over depth K (a multiple of 16):
 // tc_gemm's 3xTF32 or one TF32 pass (PASSES), or in a GLOW_BF16 build
 // tc_gemm_bf16.
@@ -673,12 +749,20 @@ struct Tile {
   float* skip;  // [span(TT), SP]
   float* ms;    // [x_rows]
   float* ts;    // [TT, TSP] saving kernels only: the owned rows' gate halves
+#ifdef GLOW_BF16_TILES
+  act_t* hb;    // [h_rows, HPB] h in bfloat16, in hs's room
+  act_t* gb;    // the gate [rows, GPB] in bfloat16, in gs's room
+#endif
   int b, index, B, T, t0;
   size_t sample;  // first frame of sample b among the B*T
 
   __device__ Tile(float* smem, int B_, int T_, int b_, int index_)
       : xs(smem), hs(xs + S::XS), gs(hs + S::HS), skip(gs + S::GS),
-        ms(skip + S::SS), ts(smem + S::FLOATS), b(b_), index(index_), B(B_),
+        ms(skip + S::SS), ts(smem + S::FLOATS),
+#ifdef GLOW_BF16_TILES
+        hb(reinterpret_cast<act_t*>(hs)), gb(reinterpret_cast<act_t*>(gs)),
+#endif
+        b(b_), index(index_), B(B_),
         T(T_),
         t0(index_ * S::TT - S::HALO),
         sample(static_cast<size_t>(b_) * T_) {}
@@ -775,13 +859,40 @@ __device__ __forceinline__ void wavenet_layers(const Tile<S>& tile,
   const float* const b_rs = w.b_rs + I * CH2;
   const size_t frames = static_cast<size_t>(tile.B) * tile.T;
 
+#ifdef GLOW_BF16_TILES
+  constexpr int HPB = S::HPB, GPB = S::GPB;
+  act_t* const hb = tile.hb;
+  act_t* const gb = tile.gb;
+  if constexpr (SAVE) {
+    // the owned rows of h, 16 bytes at a time as they lie
+    for (int i = threadIdx.x; i < TT * (CH / 8); i += kThreads) {
+      const int r = i / (CH / 8), c = 8 * (i % (CH / 8));
+      const int t = tile.t0 + HALO + r;
+      if (t < tile.T)
+        __stcs(reinterpret_cast<uint4*>(save.xin + I * frames * CH +
+                                        (tile.sample + t) * CH + c),
+               *reinterpret_cast<const uint4*>(hb + (HALO + r) * HPB + c));
+    }
+  }
+#else
   if constexpr (SAVE)
     tile.store_owned(save.xin + I * frames * CH, hs + HALO * HP, HP, CH);
+#endif
   {
     // k-tap conv of rows [lo, lo + rows), which read h rows [lo - PAD,
     // lo + rows + PAD): tap d of channel c is h[(row + d) * HP + c]; the
     // epilogue is the pre-gate and the gate, into the gate buffer
     float sum[MT][NT][4];
+#ifdef GLOW_BF16_TILES
+    const uint32_t h0 = bf16mma::smem_u32(hb + (lo - S::PAD) * HPB);
+    tc_gemm_bf16_tiles<MT, NT, S::KS * CH / 16, 2 * HPB, NB>(
+        sum,
+        [&](int kb) {
+          const int k = 16 * kb;
+          return h0 + 2 * ((k / CH) * HPB + k % CH);
+        },
+        w.w_in + I * S::W_IN_TC, NT * warp);
+#else
     const float* h0 = hs + (lo - S::PAD) * HP;
     tc_product<MT, NT, S::KS * CH, HP, NB, PASSES>(
         sum,
@@ -790,6 +901,7 @@ __device__ __forceinline__ void wavenet_layers(const Tile<S>& tile,
           return h0 + (k / CH) * HP + k % CH;
         },
         w.w_in + I * S::W_IN_TC, NT * warp);
+#endif
     const auto pre = pre_gate.layer(I, tile);
     tc_epilogue<MT, NT>(sum, NT * warp, [&](int r, int col, float vt,
                                             float vs) {
@@ -799,7 +911,11 @@ __device__ __forceinline__ void wavenet_layers(const Tile<S>& tile,
       const int c = col / 2, row = lo + r;
       const float th = tanhf(pre(row, c, vt));
       const float sg = sigmoidf(pre(row, CH + c, vs));
+#ifdef GLOW_BF16_TILES
+      gb[r * GPB + c] = __float2bfloat16_rn(th * sg);
+#else
       gs[r * GP + c] = act_round(th * sg);
+#endif
       if constexpr (SAVE) {
         const int own = row - HALO;
         if (own >= 0 && own < TT) {
@@ -816,9 +932,16 @@ __device__ __forceinline__ void wavenet_layers(const Tile<S>& tile,
     // res half updates h in place (this GEMM reads only the gate); skip
     // half accumulates on the central rows
     float sum[MT][NT][4];
+#ifdef GLOW_BF16_TILES
+    const uint32_t g0 = bf16mma::smem_u32(gb);
+    tc_gemm_bf16_tiles<MT, NT, CH / 16, 2 * GPB, NB>(
+        sum, [&](int kb) { return g0 + 32 * kb; }, w.w_rs + I * S::W_RS_TC,
+        NT * warp);
+#else
     tc_product<MT, NT, CH, GP, NB, PASSES>(
         sum, [&](int kb) { return gs + 8 * kb; },
         w.w_rs + I * S::W_RS_TC, NT * warp);
+#endif
     tc_epilogue<MT, NT>(sum, NT * warp, [&](int r, int col, float v0,
                                             float v1) {
       if (r >= rows) return;
@@ -826,9 +949,14 @@ __device__ __forceinline__ void wavenet_layers(const Tile<S>& tile,
       v0 += __ldg(b_rs + col);
       v1 += __ldg(b_rs + col + 1);
       if (col < CH) {
+#ifdef GLOW_BF16_TILES
+        uint32_t& h = *reinterpret_cast<uint32_t*>(hb + row * HPB + col);
+        h = pack_bf16((bf16_lo(h) + v0) * ms[row], (bf16_hi(h) + v1) * ms[row]);
+#else
         float2& h = at2(hs + row * HP + col);
         h = make_float2(act_round((h.x + v0) * ms[row]),
                         act_round((h.y + v1) * ms[row]));
+#endif
       } else if (row >= HALO && row < HALO + TT) {
         float2& s = at2(skip + (row - HALO) * SP + col - CH);
         s = make_float2(s.x + v0, s.y + v1);
@@ -842,9 +970,16 @@ __device__ __forceinline__ void wavenet_layers(const Tile<S>& tile,
     static_assert(lo == HALO && rows == TT, "halo bookkeeping");
     constexpr int NTH = NT / 2;
     float sum[MT][NTH][4];
+#ifdef GLOW_BF16_TILES
+    const uint32_t g0 = bf16mma::smem_u32(gb);
+    tc_gemm_bf16_tiles<MT, NTH, CH / 16, 2 * GPB, NB>(
+        sum, [&](int kb) { return g0 + 32 * kb; }, w.w_rs + I * S::W_RS_TC,
+        NB / 2 + NTH * warp);
+#else
     tc_product<MT, NTH, CH, GP, NB, PASSES>(
         sum, [&](int kb) { return gs + 8 * kb; },
         w.w_rs + I * S::W_RS_TC, NB / 2 + NTH * warp);
+#endif
     tc_epilogue<MT, NTH>(sum, NB / 2 + NTH * warp, [&](int r, int col,
                                                        float v0, float v1) {
       if (r >= rows) return;
@@ -905,8 +1040,13 @@ __device__ __forceinline__ void coupling_net(const Tile<S>& tile,
   block_gemm<S::mr(R), lane_quads(CH)>(
       xs, C, C2, w.w_start, CH, CH / 4, [&](int r, int col, float4 v) {
         if (r < R)
+#ifdef GLOW_BF16_TILES
+          *reinterpret_cast<uint2*>(tile.hb + r * S::HPB + col) =
+              pack4_bf16(scale4(add4(v, ldg4(w.b_start + col)), ms[r]));
+#else
           at4(hs + r * S::HP + col) =
               act_round4(scale4(add4(v, ldg4(w.b_start + col)), ms[r]));
+#endif
       });
   __syncthreads();
 

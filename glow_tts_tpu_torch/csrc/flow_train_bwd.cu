@@ -70,16 +70,47 @@
 // what the TPU kernel computes at dt = bfloat16: it reads the bfloat16 values
 // that forward stored (act_t: the step's input, y, yd, the layers' inputs,
 // the gate halves, the skip sum, logs) and writes the gate it recomputes in
-// bfloat16; every GEMM runs on bfloat16 operands (mma.sync m16n8k16,
-// tf32::warp_step_bf16), each element rounded where it is read, as the TPU
-// kernel casts each dot's operands (the cotangents too) to dt; sums,
-// gradients and the elementwise backward stay float32.  A bfloat16 operand
-// is staged into the same float32 ring by the threads (load, widen, store)
-// instead of cp.async.  Its products accumulate in the tensor cores
-// alone, over the whole depth: the float32 builds' second accumulator
-// (added into after every slice) measured no closer to the f32 plain
-// version at bfloat16 and slower (PERF.md), so this build has none.
-// The TPU kernel's bfloat16 weight-gradient
+// bfloat16; every GEMM runs on bfloat16 operands, as the TPU kernel casts
+// each dot's operands (the cotangents too) to dt; sums, gradients and the
+// elementwise backward stay float32.  What bounds it at bf16: the same 2 x
+// 3.6 MFLOP a valid frame at the 989 TFLOP/s bf16 peak, about 0.06 ms a
+// flow step at the training shape, against 0.04 ms of bytes; what held the
+// first bf16 build at 1/33 of that was the operand path, not the tensor
+// cores (threads widening each bf16 operand into a float32 ring, fragments
+// read one element at a time and packed by cvt, every cotangent re-rounded
+// by every tile that read it).  The design does about it:
+// * every cotangent a product reads (douts, drs, dpre, dyd) is written in
+//   bfloat16 by the epilogue that makes it (round to nearest even, the
+//   value the TPU kernel's .astype(dt) gives), beside the float32 value the
+//   column sums and the elementwise backward read; the weights arrive in
+//   bfloat16 (ops/coupling_grad.py::backward_weights_bf16);
+// * tiles go to shared memory as they lie in device memory, 16 bytes a
+//   cp.async, zero-filled at the edges: half the bytes of the float32 ring,
+//   no thread work;
+// * the activation gradients (dgrad, the larger half) run on wgmma
+//   (m64n96k16, two warpgroups a 128 x 96 tile, both operands K-major in
+//   the 128-byte swizzle through matrix descriptors, bf16_mma.cuh): the
+//   k-tap conv's shift is applied where a slice is loaded, so every staged
+//   tile starts on a swizzle atom;
+// * the weight gradients (wgrad) run on mma.sync.m16n8k16 fed by
+//   ldmatrix.trans: both operands are frame-major, their tile is 96 rows
+//   (one tap's channels) and a chunk walks 32-frame slices of whole samples,
+//   so a wgmma version would need the transposed (MN-major) swizzle atoms
+//   and a 128-row re-tiling; this build keeps the f32 design's chunks and
+//   tiles and reads every fragment with one ldmatrix per 16 x 16 block;
+// * two blocks an SM (at most 128 registers a thread; the dgrad ring 3
+//   slices deep, 85 KB): 12 % off a flow step against one block with a
+//   4-deep ring (PERF.md);
+// * the epilogues whose rows past a sample's length no launch reads
+//   (GateBackward, MaskedStore: the products zero-fill those rows, the
+//   column sums stop at the length) store none there; ActNormBackward's
+//   dx is the caller's gradient and is written at every frame.
+// Kept from the float32 design: live tiles only, the dgrad/wgrad pairs in
+// one launch, per-chunk partials added in a fixed order (no atomics), the
+// pitch build's pitch_backward.  Its products accumulate in the tensor
+// cores alone over the whole depth, one instantiation each (passes 1;
+// PASSES and TAIL are the float32 builds': the depth predicate of the
+// staging zero-fills any tail).  The TPU kernel's bfloat16 weight-gradient
 // partials of w_in and w_rs (its VMEM is scarce) have no counterpart: the
 // partials here are float32.
 
@@ -93,6 +124,9 @@
 
 #include "dropmask.cuh"
 #include "tf32_mma.cuh"
+#ifdef GLOW_BF16
+#include "bf16_mma.cuh"
+#endif
 
 namespace {
 
@@ -139,39 +173,13 @@ __device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
 __device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = tf32::pack_bf16(a, b);
 }
-// 4 bfloat16 values widened to float32 in shared memory, or zeros when
-// !valid: a bfloat16 operand's share of a staged slice
-__device__ __forceinline__ void stage4_bf16(float* smem,
-                                            const __nv_bfloat16* gmem,
-                                            bool valid) {
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (valid) {
-    const uint2 u = __ldg(reinterpret_cast<const uint2*>(gmem));
-    v = make_float4(tf32::bf16_lo(u.x), tf32::bf16_hi(u.x),
-                    tf32::bf16_lo(u.y), tf32::bf16_hi(u.y));
-  }
-  *reinterpret_cast<float4*>(smem) = v;
-}
 #else
 constexpr bool kBf16 = false;
 using act_t = float;
 #endif
-
-#ifdef GLOW_BF16
-// One staged slice of a warp's GEMM in a GLOW_BF16 build: its 16-deep
-// bfloat16 steps into the tensor cores' accumulators, which carry the sum
-// to the end of the depth (then tf32::flush moves it into `sum`).
-template <int MT, int NT, class LoadA, class LoadB>
-__device__ __forceinline__ void slice_product_bf16(float (&acc)[MT][NT][4],
-                                                   const LoadA& a_at,
-                                                   const LoadB& b_at) {
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16)
-    tf32::warp_step_bf16<MT, NT>(
-        acc, [&](int i, int k) { return a_at(i, kk + k); },
-        [&](int k, int j) { return b_at(kk + k, j); });
-}
-#endif
+// blocks of the GEMM kernels resident on an SM: a GLOW_BF16 build's fit two
+// (at most 128 registers a thread, 85 KB of shared memory a block)
+constexpr int kMinBlocks = kBf16 ? 2 : 1;
 
 // ---------------------------------------------------------------------------
 // activation gradients
@@ -182,23 +190,133 @@ __device__ __forceinline__ void slice_product_bf16(float (&acc)[MT][NT][4],
 // read (8 rows x 4 depths) touches 32 banks.
 constexpr int NT_BM = 128, NT_BN = 96, NT_LD = BK + 4;
 constexpr int NT_WM = 32, NT_WN = 48;
+#ifdef GLOW_BF16
+// A GLOW_BF16 build's dgrad tile: the same 128 x 96, two warpgroups of 64
+// frames each over all 96 columns (wgmma m64n96k16), slices 64 deep: one
+// 128-byte row a frame or a column in the 128-byte swizzle (bf16_mma.cuh),
+// 28 KB a stage; 1 KB more to align the ring to 1024 bytes.
+constexpr int NT_BK = 64, NT_STAGES = 3;
+constexpr int NT_A_BYTES = NT_BM * 128, NT_W_BYTES = NT_BN * 128;
+constexpr size_t kNtSmem = NT_STAGES * (NT_A_BYTES + NT_W_BYTES) + 1024;
+static_assert(NT_BM == 2 * 64 && kThreads == 2 * 128, "two warpgroups");
+#else
 constexpr size_t kNtSmem =
     sizeof(float) * kStages * (NT_BM + NT_BN) * NT_LD;
 static_assert((NT_BM / NT_WM) * (NT_BN / NT_WN) == kThreads / 32, "warps");
+#endif
 
 // out[b*T + t, n] = sum_tap sum_k A[b*T + t + pad - tap, k] * W[tap][n, k]:
 // a shifted frame outside [0, lengths[b]) is zero.  A has row stride lda and
 // kseg columns, W[tap] is [N, kseg] with row stride ldw and the taps
 // tap_stride apart.  kseg % 32 == 0 (kseg % 4 == 0 with TAIL); N % 2 == 0;
-// lda, ldw % 4 == 0.
+// lda, ldw % 4 == 0.  In a GLOW_BF16 build A and W are bfloat16 and kseg,
+// lda, ldw % 8 == 0 (any depth: the slice past kseg is zero-filled).
 struct NtArgs {
-  const float* a;
-  const float* w;
+  const act_t* a;
+  const act_t* w;
   int lda, ldw, kseg, taps, pad, tap_stride;
   int N, T;
   const int* lengths;   // [B] one past the last valid frame of each sample
 };
 
+#ifdef GLOW_BF16
+// The tile (column tile bx, frame tile by, sample b) of the product, on
+// wgmma: both operands K-major in the 128-byte swizzle, every frame and
+// column a 128-byte row of a 64-deep slice staged by cp.async as it lies in
+// device memory, zero-filled outside the sample, past N and past kseg (so
+// one instantiation takes every depth: PASSES and TAIL are the float32
+// builds').  The k-tap conv's shifted rows are shifted tile loads, so each
+// staged tile starts on a swizzle atom.  Warpgroup w owns frames [64 w,
+// 64 w + 64) and skips its products when they lie past the sample's length;
+// its accumulators take the whole depth.  One wgmma group is in flight at a
+// time: it is waited for before the barrier after which its slot is staged
+// again.
+template <int PASSES, bool TAIL, class Epilogue>
+__device__ __forceinline__ void gemm_nt_tile(const NtArgs& g,
+                                             const Epilogue& epilogue, int bx,
+                                             int by, int b, float* smem) {
+  using namespace bf16mma;
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  const uint32_t a_ring = base, w_ring = base + NT_STAGES * NT_A_BYTES;
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int warp = tid % 128 / 32;
+  const int n0 = bx * NT_BN, t0 = by * NT_BM;
+  const int len = g.lengths[b];
+  const size_t sample = static_cast<size_t>(b) * g.T;
+  float acc[48];
+#pragma unroll
+  for (int i = 0; i < 48; ++i) acc[i] = 0.f;
+
+  const int kslices = (g.kseg + NT_BK - 1) / NT_BK;
+  // a tile wholly past the sample's valid frames has an all-zero product
+  const int n_it = t0 < len ? g.taps * kslices : 0;
+  const bool wg_live = t0 + wg * 64 < len;
+
+  auto stage = [&](int it) {
+    const int tap = it / kslices, k0 = (it % kslices) * NT_BK;
+    const int shift = g.pad - tap;
+    const uint32_t as = a_ring + (it % NT_STAGES) * NT_A_BYTES;
+    const uint32_t ws = w_ring + (it % NT_STAGES) * NT_W_BYTES;
+    for (int i = tid; i < NT_BM * 8; i += kThreads) {
+      const int m = i / 8, c = i % 8, k = k0 + 8 * c;
+      const int t = t0 + m + shift;
+      const bool ok = t >= 0 && t < len && k < g.kseg;
+      cp_async16(as + sw128(m, c),
+                 ok ? g.a + (sample + t) * g.lda + k : g.a, ok);
+    }
+    const act_t* w_tap = g.w + static_cast<size_t>(tap) * g.tap_stride;
+    for (int i = tid; i < NT_BN * 8; i += kThreads) {
+      const int n = i / 8, c = i % 8, k = k0 + 8 * c;
+      const bool ok = n0 + n < g.N && k < g.kseg;
+      cp_async16(ws + sw128(n, c),
+                 ok ? w_tap + static_cast<size_t>(n0 + n) * g.ldw + k : w_tap,
+                 ok);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < NT_STAGES - 1; ++s) {
+    if (s < n_it) stage(s);
+    tf32::cp_async_commit();
+  }
+  for (int it = 0; it < n_it; ++it) {
+    tf32::cp_async_wait<NT_STAGES - 2>();   // slice `it` has landed
+    fence_proxy_async();                  // for wgmma's reads
+    __syncthreads();                      // and every wgmma of it-1 is done
+    if (it + NT_STAGES - 1 < n_it) stage(it + NT_STAGES - 1);
+    tf32::cp_async_commit();
+    if (!wg_live) continue;
+    const uint32_t as = a_ring + (it % NT_STAGES) * NT_A_BYTES + wg * 64 * 128;
+    const uint32_t ws = w_ring + (it % NT_STAGES) * NT_W_BYTES;
+    wgmma_fence();
+    fence_operands(acc);
+#pragma unroll
+    for (int kk = 0; kk < NT_BK / 16; ++kk)
+      wgmma_m64n96k16(acc, sw128_desc(as + 32 * kk), sw128_desc(ws + 32 * kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+  }
+  tf32::cp_async_wait<0>();
+
+  // an epilogue whose rows past the sample's length no launch reads stores
+  // none there (a tile wholly past it does nothing)
+  const int rows = Epilogue::kValidRowsOnly ? len : g.T;
+  const int gq = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int t = t0 + wg * 64 + warp * 16 + gq + 8 * half;
+    if (t >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < NT_BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * tq;
+      if (col < g.N)
+        epilogue(static_cast<int>(sample) + t, col, acc[4 * j + 2 * half],
+                 acc[4 * j + 2 * half + 1]);
+    }
+  }
+}
+#else
 // The tile (column tile bx, frame tile by, sample b) of the product.  With
 // TAIL the last slice of each tap may reach past kseg, and is zero there.
 template <int PASSES, bool TAIL, class Epilogue>
@@ -263,21 +381,14 @@ __device__ __forceinline__ void gemm_nt_tile(const NtArgs& g,
         a_ring + (it % kStages) * NT_BM * NT_LD + wm * NT_WM * NT_LD;
     const float* ws =
         w_ring + (it % kStages) * NT_BN * NT_LD + wn * NT_WN * NT_LD;
-#ifdef GLOW_BF16
-    slice_product_bf16<NT_WM / 16, NT_WN / 8>(
-        acc, [&](int i, int k) { return as[i * NT_LD + k]; },
-        [&](int k, int j) { return ws[j * NT_LD + k]; });
-#else
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 8)
       tf32::warp_step<NT_WM / 16, NT_WN / 8, PASSES>(
           acc, [&](int i, int k) { return as[i * NT_LD + kk + k]; },
           [&](int k, int j) { return ws[j * NT_LD + kk + k]; });
     tf32::flush(acc, sum);
-#endif
   }
   tf32::cp_async_wait<0>();
-  if constexpr (kBf16) tf32::flush(acc, sum);
 
   const int gq = lane / 4, tq = lane % 4;
 #pragma unroll
@@ -296,8 +407,10 @@ __device__ __forceinline__ void gemm_nt_tile(const NtArgs& g,
     }
 }
 
+#endif
+
 template <int PASSES, class Epilogue>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     gemm_nt(const NtArgs g, const Epilogue epilogue) {
   extern __shared__ float4 smem4[];
   gemm_nt_tile<PASSES, false>(g, epilogue, blockIdx.x, blockIdx.y,
@@ -306,7 +419,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // gemm_nt over a depth that is not a multiple of a slice (kDepthTail builds)
 template <int PASSES, class Epilogue>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     gemm_nt_tail(const NtArgs g, const Epilogue epilogue) {
   extern __shared__ float4 smem4[];
   gemm_nt_tile<PASSES, true>(g, epilogue, blockIdx.x, blockIdx.y, blockIdx.z,
@@ -314,12 +427,21 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // out[row, col..col+1] = (v + add[row, col..]) * mask[row]; add may be out
-// itself (each element is read and written by one thread) or null.
+// itself (each element is read and written by one thread) or null.  In a
+// GLOW_BF16 build out_bf (or null) gets the same values rounded to
+// bfloat16, the operand of the products that read them, and out may be
+// null.
 struct MaskedStore {
   float* out;
   const float* add;
   const float* mask;
   int ld_out, ld_add;
+#ifdef GLOW_BF16
+  act_t* out_bf;
+  // what it writes past a sample's length is never read: the products
+  // zero-fill those rows, the column sums stop at the length
+  static constexpr bool kValidRowsOnly = true;
+#endif
   __device__ void operator()(int row, int col, float v0, float v1) const {
     if (add) {
       const float2 a = ld2(add + static_cast<size_t>(row) * ld_add + col);
@@ -327,7 +449,13 @@ struct MaskedStore {
       v1 += a.y;
     }
     const float m = mask[row];
+#ifdef GLOW_BF16
+    const size_t at = static_cast<size_t>(row) * ld_out + col;
+    if (out) st2(out + at, v0 * m, v1 * m);
+    if (out_bf) st2(out_bf + at, v0 * m, v1 * m);
+#else
     st2(out + static_cast<size_t>(row) * ld_out + col, v0 * m, v1 * m);
+#endif
   }
 };
 
@@ -343,6 +471,10 @@ struct GateBackward {
   int ch, T;
   unsigned rows_per_sample, salt;
   dropmask::Dropout drop;
+#ifdef GLOW_BF16
+  act_t* dpre_bf;    // [M, 2CH] dpre rounded to bfloat16
+  static constexpr bool kValidRowsOnly = true;   // as MaskedStore's
+#endif
   __device__ void operator()(int row, int col, float dg0, float dg1) const {
     const size_t base = static_cast<size_t>(row) * 2 * ch;
     const float2 t2 = ld2(ts + base + col), s2 = ld2(ts + base + ch + col);
@@ -371,6 +503,10 @@ struct GateBackward {
     }
     st2(dpre + base + col, da1[0], da1[1]);
     st2(dpre + base + ch + col, da2[0], da2[1]);
+#ifdef GLOW_BF16
+    st2(dpre_bf + base + col, da1[0], da1[1]);
+    st2(dpre_bf + base + ch + col, da2[0], da2[1]);
+#endif
   }
 };
 
@@ -384,6 +520,10 @@ struct ActNormBackward {
   float* dx;             // [M, C]
   float* stats;          // [M, 2C]
   int c;
+#ifdef GLOW_BF16
+  // dx is the step's input gradient, the caller's at every frame
+  static constexpr bool kValidRowsOnly = false;
+#endif
   __device__ void operator()(int row, int col, float v0, float v1) const {
     const float m = mask[row];
     const float2 x2 = ld2(x + static_cast<size_t>(row) * c + col);
@@ -429,9 +569,6 @@ template <class Epilogue>
 cudaError_t launch_nt(const NtArgs& g, const Epilogue& epilogue, int B,
                       int passes, cudaStream_t stream) {
   if constexpr (kBf16) {   // one instantiation: passes is 1 (the entry's)
-    if constexpr (kDepthTail) {
-      if (g.kseg % BK) return launch_nt_as<1, true>(g, epilogue, B, stream);
-    }
     return launch_nt_as<1, false>(g, epilogue, B, stream);
   } else {
   if constexpr (kDepthTail) {
@@ -452,19 +589,22 @@ cudaError_t launch_nt(const NtArgs& g, const Epilogue& epilogue, int B,
 // slice; warps 2 x 4, each 48 x 32.  Both operands lie frame-major; a
 // fragment read is 4 frames x 8 neighbours, so rows are padded to 8 mod 32
 // floats.
+// In a GLOW_BF16 build the same pitches hold bfloat16, 208 and 272 bytes: an
+// ldmatrix read of 8 frames' 16 bytes touches 32 banks.
 constexpr int TN_BM = 96, TN_BN = 128;
 constexpr int TN_LDP = TN_BM + 8, TN_LDG = TN_BN + 8;
 constexpr int TN_WM = 48, TN_WN = 32;
-constexpr size_t kTnSmem = sizeof(float) * kStages * BK * (TN_LDP + TN_LDG);
+constexpr size_t kTnSmem = sizeof(act_t) * kStages * BK * (TN_LDP + TN_LDG);
 static_assert((TN_BM / TN_WM) * (TN_BN / TN_WN) == kThreads / 32, "warps");
 
 // part[chunk][kd, n] = sum over the valid frames t of the chunk's samples of
 // P[b*T + t + kd / kseg - pad, kd % kseg] * G[b*T + t, n] (zero when the
 // shifted frame leaves [0, T)).  K = taps * kseg; kseg, N % 4 == 0.  Chunk c
-// holds the samples [c * spc, (c + 1) * spc).
+// holds the samples [c * spc, (c + 1) * spc).  In a GLOW_BF16 build P and G
+// are bfloat16 and kseg, N, ldp, ldg % 8 == 0.
 struct TnArgs {
   const act_t* p;
-  const float* g;
+  const act_t* g;
   float* part;
   int ldp, ldg, kseg, taps, pad;
   int N, T, B, spc;
@@ -489,6 +629,121 @@ int tn_chunks(int B, int taps, int kseg, int N) {
   return (B + spc - 1) / spc;
 }
 
+#ifdef GLOW_BF16
+// The tile (row tile bx, column tile by) of dW over chunk `chunk` from
+// bfloat16 operands, on mma.sync.m16n8k16: each 32-frame slice of P and G
+// staged by cp.async as it lies in device memory (frame-major, zero-filled
+// past the sample's length, outside [0, T) and past kseg or N), both
+// operands' fragments read by ldmatrix.trans, the products accumulated in
+// the tensor cores over the whole chunk.
+template <int PASSES>
+__device__ __forceinline__ void gemm_tn_tile(const TnArgs& g, int bx, int by,
+                                             int chunk, float* smem) {
+  using namespace bf16mma;
+  act_t* const p_ring = reinterpret_cast<act_t*>(smem);
+  act_t* const g_ring = p_ring + kStages * BK * TN_LDP;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 4, wn = warp % 4;
+  const int per_tap = tn_tiles_per_tap(g.kseg);
+  const int tap = bx / per_tap, c0 = (bx % per_tap) * TN_BM;
+  const int shift = tap - g.pad;
+  const int n0 = by * TN_BN;
+  const int b_begin = chunk * g.spc;
+  const int b_end = min(b_begin + g.spc, g.B);
+  constexpr int MT = TN_WM / 16, NT = TN_WN / 8;
+  float acc[MT][NT][4] = {};
+
+  int n_it = 0;
+  for (int b = b_begin; b < b_end; ++b) n_it += (g.lengths[b] + BK - 1) / BK;
+  // where the next staged slice starts: sample, frame
+  int pb = b_begin, pr = 0;
+  while (pb < b_end && g.lengths[pb] <= 0) ++pb;
+
+  auto stage = [&](int it) {
+    const int len = g.lengths[pb];
+    const size_t sample = static_cast<size_t>(pb) * g.T;
+    act_t* ps = p_ring + (it % kStages) * BK * TN_LDP;
+    act_t* gs = g_ring + (it % kStages) * BK * TN_LDG;
+    for (int i = tid; i < BK * (TN_BM / 8); i += kThreads) {
+      const int r = i / (TN_BM / 8), q = 8 * (i % (TN_BM / 8));
+      const int t = pr + r + shift;
+      const bool ok =
+          pr + r < len && t >= 0 && t < g.T && c0 + q < g.kseg;
+      cp_async16(smem_u32(ps + r * TN_LDP + q),
+                 ok ? g.p + (sample + t) * g.ldp + c0 + q : g.p, ok);
+    }
+    for (int i = tid; i < BK * (TN_BN / 8); i += kThreads) {
+      const int r = i / (TN_BN / 8), q = 8 * (i % (TN_BN / 8));
+      const bool ok = pr + r < len && n0 + q < g.N;
+      cp_async16(smem_u32(gs + r * TN_LDG + q),
+                 ok ? g.g + (sample + pr + r) * g.ldg + n0 + q : g.g, ok);
+    }
+    pr += BK;
+    if (pr >= len) {
+      pr = 0;
+      ++pb;
+      while (pb < b_end && g.lengths[pb] <= 0) ++pb;
+    }
+  };
+
+  // lane l gives the address of row l % 8 of ldmatrix's matrix l / 8:
+  // A = P^T's (16 kd x 16 frames) as a0..a3, B = G's (16 frames x 16
+  // columns) as b0, b1 of two n8 tiles
+  const int mi = lane / 8, mr = lane % 8;
+  const int a_off = (mr + 8 * (mi / 2)) * TN_LDP + wm * TN_WM + 8 * (mi % 2);
+  const int b_off = (mr + 8 * (mi % 2)) * TN_LDG + wn * TN_WN + 8 * (mi / 2);
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_it) stage(s);
+    tf32::cp_async_commit();
+  }
+  for (int it = 0; it < n_it; ++it) {
+    tf32::cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (it + kStages - 1 < n_it) stage(it + kStages - 1);
+    tf32::cp_async_commit();
+    const uint32_t ps = smem_u32(p_ring + (it % kStages) * BK * TN_LDP + a_off);
+    const uint32_t gs = smem_u32(g_ring + (it % kStages) * BK * TN_LDG + b_off);
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t a[MT][4], b[NT / 2][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_x4_trans(a[mt], ps + 2 * (kk * TN_LDP + 16 * mt));
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np)
+        ldsm_x4_trans(b[np], gs + 2 * (kk * TN_LDG + 16 * np));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mma(acc[mt][nt], a[mt], b[nt / 2][2 * (nt % 2)],
+              b[nt / 2][2 * (nt % 2) + 1]);
+    }
+  }
+  tf32::cp_async_wait<0>();
+
+  const int K = g.taps * g.kseg;
+  float* out = g.part + static_cast<size_t>(chunk) * K * g.N;
+  const int gq = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int c = c0 + wm * TN_WM + 16 * mt + gq + 8 * half;
+      if (c >= g.kseg) continue;
+      const size_t kd = static_cast<size_t>(tap) * g.kseg + c;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int n = n0 + wn * TN_WN + 8 * nt + 2 * tq;
+        if (n < g.N)
+          st2(out + kd * g.N + n, acc[mt][nt][2 * half],
+              acc[mt][nt][2 * half + 1]);
+      }
+    }
+}
+#else
 // The tile (row tile bx, column tile by) of dW over chunk `chunk`.
 template <int PASSES>
 __device__ __forceinline__ void gemm_tn_tile(const TnArgs& g, int bx, int by,
@@ -522,15 +777,9 @@ __device__ __forceinline__ void gemm_tn_tile(const TnArgs& g, int bx, int by,
       const int t = pr + r + shift;
       const bool ok =
           pr + r < len && t >= 0 && t < g.T && c0 + q < g.kseg;
-#ifdef GLOW_BF16
-      stage4_bf16(ps + r * TN_LDP + q,
-                  g.p + (sample + (ok ? t : 0)) * g.ldp + (ok ? c0 + q : 0),
-                  ok);
-#else
       tf32::cp_async16_zfill(
           ps + r * TN_LDP + q,
           g.p + (sample + (ok ? t : 0)) * g.ldp + (ok ? c0 + q : 0), ok);
-#endif
     }
     for (int i = tid; i < BK * (TN_BN / 4); i += kThreads) {
       const int r = i / (TN_BN / 4), q = 4 * (i % (TN_BN / 4));
@@ -559,21 +808,14 @@ __device__ __forceinline__ void gemm_tn_tile(const TnArgs& g, int bx, int by,
     tf32::cp_async_commit();
     const float* ps = p_ring + (it % kStages) * BK * TN_LDP + wm * TN_WM;
     const float* gs = g_ring + (it % kStages) * BK * TN_LDG + wn * TN_WN;
-#ifdef GLOW_BF16
-    slice_product_bf16<TN_WM / 16, TN_WN / 8>(
-        acc, [&](int i, int k) { return ps[k * TN_LDP + i]; },
-        [&](int k, int j) { return gs[k * TN_LDG + j]; });
-#else
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 8)
       tf32::warp_step<TN_WM / 16, TN_WN / 8, PASSES>(
           acc, [&](int i, int k) { return ps[(kk + k) * TN_LDP + i]; },
           [&](int k, int j) { return gs[(kk + k) * TN_LDG + j]; });
     tf32::flush(acc, sum);
-#endif
   }
   tf32::cp_async_wait<0>();
-  if constexpr (kBf16) tf32::flush(acc, sum);
 
   const int K = g.taps * g.kseg;
   float* out = g.part + static_cast<size_t>(chunk) * K * g.N;
@@ -595,8 +837,10 @@ __device__ __forceinline__ void gemm_tn_tile(const TnArgs& g, int bx, int by,
     }
 }
 
+#endif
+
 template <int PASSES>
-__global__ void __launch_bounds__(kThreads, 1) gemm_tn(const TnArgs g) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks) gemm_tn(const TnArgs g) {
   extern __shared__ float4 smem4[];
   gemm_tn_tile<PASSES>(g, blockIdx.x, blockIdx.y, blockIdx.z,
                        reinterpret_cast<float*>(smem4));
@@ -619,7 +863,7 @@ cudaError_t launch_tn_as(const TnArgs& g, cudaStream_t stream) {
 
 // P [B*T, >= kseg] and G [B*T, >= N] into part [chunks, taps * kseg, N]
 TnArgs tn_args(const act_t* p, int ldp, int kseg, int taps, int pad,
-               const float* grad, int ldg, int N, float* part, int B, int T,
+               const act_t* grad, int ldg, int N, float* part, int B, int T,
                const int* lengths) {
   return {p, grad, part, ldp, ldg, kseg, taps, pad, N, T, B,
           tn_samples_per_chunk(B, taps, kseg, N), lengths};
@@ -659,7 +903,7 @@ __device__ __forceinline__ void gemm_pair_block(const NtArgs& nt,
 }
 
 template <int PASSES, class Epilogue>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     gemm_pair(const NtArgs nt, const Epilogue epilogue, const dim3 nt_blocks,
               const TnArgs tn, const dim3 tn_blocks) {
   gemm_pair_block<PASSES, false>(nt, epilogue, nt_blocks, tn, tn_blocks);
@@ -668,7 +912,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // gemm_pair whose dgrad depth is not a multiple of a slice (kDepthTail
 // builds)
 template <int PASSES, class Epilogue>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     gemm_pair_tail(const NtArgs nt, const Epilogue epilogue,
                    const dim3 nt_blocks, const TnArgs tn,
                    const dim3 tn_blocks) {
@@ -701,10 +945,6 @@ template <class Epilogue>
 cudaError_t launch_pair(const NtArgs& nt, const Epilogue& epilogue,
                         const TnArgs& tn, int passes, cudaStream_t stream) {
   if constexpr (kBf16) {
-    if constexpr (kDepthTail) {
-      if (nt.kseg % BK)
-        return launch_pair_as<1, true>(nt, epilogue, tn, stream);
-    }
     return launch_pair_as<1, false>(nt, epilogue, tn, stream);
   } else {
   if constexpr (kDepthTail) {
@@ -898,11 +1138,17 @@ cudaError_t launch_reduce(const ReduceJobs& jobs, cudaStream_t stream) {
 
 // From dz = [dz_a, dz_b] [M, C] and the logdet cotangent dld [B]:
 // douts = [dz_b m, dz_b m e^logs x_b + dld m] (the end conv's output
-// gradient) and dyd[:, C/2:] = dz_b m e^logs (x_b's gradient).
+// gradient) and dyd[:, C/2:] = dz_b m e^logs (x_b's gradient).  In a
+// GLOW_BF16 build dyd is bfloat16 (only products read it) and douts_bf gets
+// douts rounded to bfloat16.
 __global__ void __launch_bounds__(kThreads)
     affine_backward(const float* dz, const float* dld, const float* mask,
                     const act_t* yd, const act_t* logs, float* douts,
-                    float* dyd, int M, int T, int c2) {
+                    act_t* dyd, int M, int T, int c2
+#ifdef GLOW_BF16
+                    , act_t* douts_bf
+#endif
+                    ) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= M * c2) return;
   const int row = i / c2, c = i % c2;
@@ -910,9 +1156,18 @@ __global__ void __launch_bounds__(kThreads)
   const float m = mask[row];
   const float dzb = dz[at + c2 + c] * m;
   const float dxb = dzb * expf(act_f(logs[i]));
+#ifdef GLOW_BF16
+  const float dlogs = dxb * act_f(yd[at + c2 + c]) + dld[row / T] * m;
+  douts[at + c] = dzb;
+  douts[at + c2 + c] = dlogs;
+  douts_bf[at + c] = __float2bfloat16_rn(dzb);
+  douts_bf[at + c2 + c] = __float2bfloat16_rn(dlogs);
+  dyd[at + c2 + c] = __float2bfloat16_rn(dxb);
+#else
   douts[at + c] = dzb;
   douts[at + c2 + c] = dxb * act_f(yd[at + c2 + c]) + dld[row / T] * m;
   dyd[at + c2 + c] = dxb;
+#endif
 }
 
 #define CHECK(call)                         \
@@ -926,6 +1181,12 @@ __global__ void __launch_bounds__(kThreads)
     CHECK(call);     \
     ++*launched;     \
   } while (0)
+// an argument only a GLOW_BF16 build has: the bfloat16 copy of a cotangent
+#ifdef GLOW_BF16
+#define BF16_ARG(x) , x
+#else
+#define BF16_ARG(x)
+#endif
 
 }  // namespace
 
@@ -946,8 +1207,10 @@ int glow_flow_train_bwd_chunks(int B, int taps, int kseg, int N) {
 
 // One activation-gradient product alone, for tests and timing: out[B*T, N]
 // = (sum over taps of A[frame + pad - tap, :kseg] . W[tap]^T) * mask, with
-// A [B*T, lda], W [taps, N, ldw] and out contiguous.
-int glow_flow_train_bwd_dgrad_f32(const float* a, const float* w,
+// A [B*T, lda], W [taps, N, ldw] (bfloat16 in a GLOW_BF16 build, which
+// leaves out's rows past each sample's length as they were) and out
+// contiguous.
+int glow_flow_train_bwd_dgrad_f32(const act_t* a, const act_t* w,
                                   const float* mask, const int* lengths,
                                   float* out, int B, int T, int lda, int ldw,
                                   int kseg, int taps, int N, int passes,
@@ -962,8 +1225,8 @@ int glow_flow_train_bwd_dgrad_f32(const float* a, const float* w,
 // One weight-gradient product alone, for tests and timing: out[taps * kseg,
 // N] = sum over valid frames of P[frame + tap - pad, :kseg]^T . G[frame, :N]
 // through part [chunks, taps * kseg, N], with P [B*T, ldp] and G [B*T, ldg]
-// (P bfloat16 in a GLOW_BF16 build).
-int glow_flow_train_bwd_wgrad_f32(const act_t* p, const float* g,
+// (both bfloat16 in a GLOW_BF16 build).
+int glow_flow_train_bwd_wgrad_f32(const act_t* p, const act_t* g,
                                   const int* lengths, float* part, float* out,
                                   int B, int T, int ldp, int ldg, int kseg,
                                   int taps, int N, int passes, void* stream_) {
@@ -990,7 +1253,7 @@ int glow_flow_train_bwd_wgrad_f32(const act_t* p, const float* g,
 //      12 w_start [c2,ch]             13 w_in [n,k,ch,ch2]
 //      14 w_rs [n,ch,ch2]             15 w_end [ch,C]
 //      16 lengths [B] int32: one past each sample's last valid frame
-//      GLOW_PITCH builds: 17 pitch [M,2]   18 w_pitch [n,2,ch2]
+//      GLOW_PITCH builds: 17 pitch [M,PS]   18 w_pitch [n,PS,ch2]
 // out[] 0 dx [M,C]
 //       scratch: 1 douts [M,C]  2 drs [M,ch2]  3 dpre [M,ch2]
 //                4 dacc [M,ch2] or null (no conditioning, no pitch)
@@ -1009,13 +1272,15 @@ int glow_flow_train_bwd_wgrad_f32(const act_t* p, const float* g,
 //      24 w_in [n,k,ch,ch2]   25 b_in [n,ch2]   26 w_rs [n,ch,ch2]
 //      27 b_rs [n,ch2]   28 w_end [ch,C]   29 b_end [C]
 //       GLOW_PITCH builds (dacc not null):
-//      30 w_pitch [n,2,ch2]   31 dpitch [M,2], added to, or null (not
-//      wanted)   32 partials of w_pitch [n,B,2,ch2]
+//      30 w_pitch [n,PS,ch2]   31 dpitch [M,PS], added to, or null (not
+//      wanted)   32 partials of w_pitch [n,B,PS,ch2]
+//       GLOW_BF16 builds, the cotangents rounded to bfloat16 as the products
+//       read them:   33 douts [M,C]   34 drs [M,ch2]   35 dpre [M,ch2]
 // passes is 3 (3xTF32, float32 accuracy) or 1 (plain TF32); in a GLOW_BF16
-// build, where in[0..6] and out[7] are bfloat16, it is 1 (one bfloat16
-// product).  *launched receives the number of kernels the call launched:
-// 6 + 4 n, and n more in a GLOW_PITCH build.  Returns a cudaError_t, 0 on
-// success.
+// build, where in[0..6], in[11..15], out[5] and out[7] are bfloat16, it is 1
+// (one bfloat16 product).  *launched receives the number of kernels the
+// call launched: 6 + 4 n, and n more in a GLOW_PITCH build.  Returns a
+// cudaError_t, 0 on success.
 int glow_flow_train_bwd_step_f32(const float* const* in, float* const* out,
                                  int B, int T, int C, int ch, int n, int k,
                                  int step, int seed, unsigned threshold,
@@ -1044,13 +1309,28 @@ int glow_flow_train_bwd_step_f32(const float* const* in, float* const* out,
               *ts = reinterpret_cast<const act_t*>(in[4]),
               *skip = reinterpret_cast<const act_t*>(in[5]),
               *logs = reinterpret_cast<const act_t*>(in[6]);
-  const float *mask = in[7], *dld = in[8], *dz = in[9], *an_logs = in[10],
-              *mix_t = in[11], *w_start = in[12], *w_in = in[13],
-              *w_rs = in[14], *w_end = in[15];
+  const float *mask = in[7], *dld = in[8], *dz = in[9], *an_logs = in[10];
+  // the weights the activation gradients read, in their type
+  const act_t *mix_t = reinterpret_cast<const act_t*>(in[11]),
+              *w_start = reinterpret_cast<const act_t*>(in[12]),
+              *w_in = reinterpret_cast<const act_t*>(in[13]),
+              *w_rs = reinterpret_cast<const act_t*>(in[14]),
+              *w_end = reinterpret_cast<const act_t*>(in[15]);
   const int* lengths = reinterpret_cast<const int*>(in[16]);
   act_t* gate = reinterpret_cast<act_t*>(out[7]);
+  act_t* dyd = reinterpret_cast<act_t*>(out[5]);
+#ifdef GLOW_BF16
+  if (!out[33] || !out[34] || !out[35]) return cudaErrorInvalidValue;
+  act_t *douts_bf = reinterpret_cast<act_t*>(out[33]),
+        *drs_bf = reinterpret_cast<act_t*>(out[34]),
+        *dpre_bf = reinterpret_cast<act_t*>(out[35]);
+  // what the products read of each cotangent
+  const act_t *douts_in = douts_bf, *drs_in = drs_bf, *dpre_in = dpre_bf;
+#else
+  const float *douts_in = out[1], *drs_in = out[2], *dpre_in = out[3];
+#endif
   float *dx = out[0], *douts = out[1], *drs = out[2], *dpre = out[3],
-        *dacc = out[4], *dyd = out[5], *stats = out[6], *pw_end = out[8], *pw_rs = out[9], *pw_in = out[10],
+        *dacc = out[4], *stats = out[6], *pw_end = out[8], *pw_rs = out[9], *pw_in = out[10],
         *pw_start = out[11], *pmix = out[12], *pb_end = out[13],
         *pb_rs = out[14], *pb_in = out[15], *pb_start = out[16],
         *pan = out[17], *dcond = out[18];
@@ -1061,30 +1341,35 @@ int glow_flow_train_bwd_step_f32(const float* const* in, float* const* out,
 
   // ---- the affine epilogue and the end conv -----------------------------
   affine_backward<<<(M * c2 + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      dz, dld, mask, yd, logs, douts, dyd, M, T, c2);
+      dz, dld, mask, yd, logs, douts, dyd, M, T, c2 BF16_ARG(douts_bf));
   LAUNCH(cudaGetLastError());
   // drs = [res gradient, dskip]: the res half starts at zero (the last
   // layer has no res output), dskip = (douts . w_end^T) * m for all layers;
   // with it dW_end = skip^T . douts
   CHECK(cudaMemset2DAsync(drs, ch2 * sizeof(float), 0, ch * sizeof(float),
                           frames, stream));
+#ifdef GLOW_BF16
+  CHECK(cudaMemset2DAsync(drs_bf, ch2 * sizeof(act_t), 0, ch * sizeof(act_t),
+                          frames, stream));
+#endif
   LAUNCH(launch_pair(
-      {douts, w_end, C, C, C, 1, 0, 0, ch, T, lengths},
-      MaskedStore{drs + ch, nullptr, mask, ch2, 0},
-      tn_args(skip, ch, ch, 1, 0, douts, C, C, pw_end, B, T, lengths), passes,
-      stream));
+      {douts_in, w_end, C, C, C, 1, 0, 0, ch, T, lengths},
+      MaskedStore{drs + ch, nullptr, mask, ch2, 0 BF16_ARG(drs_bf + ch)},
+      tn_args(skip, ch, ch, 1, 0, douts_in, C, C, pw_end, B, T, lengths),
+      passes, stream));
 
   // ---- the WaveNet layers, last to first --------------------------------
   for (int i = n - 1; i >= 0; --i) {
     const act_t* ts_i = ts + i * frames * ch2;
-    const float* w_in_i = w_in + static_cast<size_t>(i) * k * ch * ch2;
-    const float* w_rs_i = w_rs + static_cast<size_t>(i) * ch * ch2;
+    const act_t* w_in_i = w_in + static_cast<size_t>(i) * k * ch * ch2;
+    const act_t* w_rs_i = w_rs + static_cast<size_t>(i) * ch * ch2;
     // res/skip 1x1: dgate = drs . w_rs^T, then the gate's backward
     LAUNCH(launch_nt(
-        {drs, w_rs_i, ch2, ch2, ch2, 1, 0, 0, ch, T, lengths},
+        {drs_in, w_rs_i, ch2, ch2, ch2, 1, 0, 0, ch, T, lengths},
         GateBackward{ts_i, dpre, dacc, gate, ch, T,
                      static_cast<unsigned>(T + k - 1),
-                     dropmask::layer_salt(drop.seed, step, i, n), drop},
+                     dropmask::layer_salt(drop.seed, step, i, n),
+                     drop BF16_ARG(dpre_bf)},
         B, passes, stream));
     // db_rs, db_in, dcond (and, beside the last layer's, db_end)
     SumJobs sums{};
@@ -1106,7 +1391,7 @@ int glow_flow_train_bwd_step_f32(const float* const* in, float* const* out,
 #endif
     // dW_rs = (t*s)^T . drs
     LAUNCH(launch_tn(
-        tn_args(gate, ch, ch, 1, 0, drs, ch2, ch2,
+        tn_args(gate, ch, ch, 1, 0, drs_in, ch2, ch2,
                 pw_rs + static_cast<size_t>(i) * chunks_rs * ch * ch2, B, T,
                 lengths),
         passes, stream));
@@ -1115,9 +1400,9 @@ int glow_flow_train_bwd_step_f32(const float* const* in, float* const* out,
     // (that + the res gradient) * m, the next layer's res gradient), and
     // dW[tap] = xin[frame + tap - pad]^T . dpre[frame]
     LAUNCH(launch_pair(
-        {dpre, w_in_i, ch2, ch2, ch2, k, pad, ch * ch2, ch, T, lengths},
-        MaskedStore{drs, drs, mask, ch2, ch2},
-        tn_args(xin + i * frames * ch, ch, ch, k, pad, dpre, ch2, ch2,
+        {dpre_in, w_in_i, ch2, ch2, ch2, k, pad, ch * ch2, ch, T, lengths},
+        MaskedStore{drs, drs, mask, ch2, ch2 BF16_ARG(drs_bf)},
+        tn_args(xin + i * frames * ch, ch, ch, k, pad, dpre_in, ch2, ch2,
                 pw_in + static_cast<size_t>(i) * chunks_in * k * ch * ch2, B,
                 T, lengths),
         passes, stream));
@@ -1127,10 +1412,14 @@ int glow_flow_train_bwd_step_f32(const float* const* in, float* const* out,
   // drs[:, :ch] is now dh = d(start conv output) * m: dyd[:, :c2] = (dz_a +
   // dh . w_start^T) * m, and dW_start = x_a^T . dh
   LAUNCH(launch_pair(
-      {drs, w_start, ch2, ch, ch, 1, 0, 0, c2, T, lengths},
+      {drs_in, w_start, ch2, ch, ch, 1, 0, 0, c2, T, lengths},
+#ifdef GLOW_BF16
+      MaskedStore{nullptr, dz, mask, C, C, dyd},
+#else
       MaskedStore{dyd, dz, mask, C, C},
-      tn_args(yd, C, c2, 1, 0, drs, ch2, ch, pw_start, B, T, lengths), passes,
-      stream));
+#endif
+      tn_args(yd, C, c2, 1, 0, drs_in, ch2, ch, pw_start, B, T, lengths),
+      passes, stream));
   // the mixing's input gradient through ActNorm's backward, and dmix = y^T .
   // dyd
   LAUNCH(launch_pair({dyd, mix_t, C, C, C, 1, 0, 0, C, T, lengths},

@@ -64,11 +64,38 @@
 // step against a few bytes); the hash adds ~20 integer operations per
 // pre-gate element, the pitch term 2 * PS * 2CH FLOP per frame and layer.
 //
-// A GLOW_BF16 build computes what the TPU kernel computes at dt = bfloat16
-// (flow_common.cuh's bfloat16 body, bfloat16 tensor-core operands): every
-// step's input and output (acts) and the saved values are bfloat16, as the
-// TPU kernel keeps its checkpoint in dt, which halves the bytes a storing
-// step writes and the backward reads (flow_train_bwd.cu's GLOW_BF16 build).
+// A GLOW_BF16 build computes what the TPU kernel computes at dt = bfloat16:
+// every step's input and output (acts) and the saved values are bfloat16,
+// as the TPU kernel keeps its checkpoint in dt, which halves the bytes a
+// storing step writes and the backward reads (flow_train_bwd.cu's GLOW_BF16
+// build).  What bounds it at bf16: the same 3.7 MFLOP a valid frame at the
+// 989 TFLOP/s bf16 peak (0.03 ms a flow step at the training shape); the
+// shared bfloat16 body of the other kernels (tc_gemm_bf16) sits far from
+// that: the layer input and the gate kept in float32 in shared memory, A
+// fragments packed from float pairs by cvt at every 16-deep step.  So this
+// build has a body of its own (GLOW_BF16_TILES in flow_common.cuh): h and
+// the gate live in shared memory in bfloat16 (the values are bf16 already:
+// the TPU kernel rounds both), their A fragments are read by ldmatrix.x4,
+// and the saved layer inputs leave shared memory 16 bytes at a time as
+// they lie (tc_gemm_bf16_tiles, mma.sync m16n8k16).  Each 16-deep product
+// is still added into the f32 sum (one FADD an accumulator element an
+// mma), so z is tc_gemm_bf16's bit for bit: accumulating the whole depth
+// in the tensor cores, whose f32 accumulation truncates, took 12 % more
+// off a flow step but moved the bf16 train path's losses past
+// chip_smoke.py's bar, and W two steps ahead, a further 3 % there, spills
+// with the f32 adds (PERF.md).  Re-reading the weights from L1
+// instead of L2 (a timing probe) took only ~15 % off, so the weight stream
+// is not what bounds it; the epilogues, the f32 adds and the halo are.
+// Not wgmma: its warp tile is 48 rows (the TT + halo frames) by 48 of the
+// 2CH columns; a wgmma M of 64 would pad a third of the rows, and the
+// transposed product (the weights as register A, h from shared memory)
+// would split each channel's interleaved tanh and sigmoid columns across
+// two lanes of the accumulator, where the gate's epilogue needs both in
+// one.
+
+#ifdef GLOW_BF16
+#define GLOW_BF16_TILES
+#endif
 
 #include "dropmask.cuh"
 #include "flow_common.cuh"

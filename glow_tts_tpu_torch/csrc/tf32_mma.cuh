@@ -146,10 +146,10 @@ __device__ __forceinline__ void warp_step(float (&acc)[MT][NT][4],
 }
 
 #ifdef GLOW_BF16
-// The bfloat16 builds' pieces (flow_common.cuh's tc_gemm_bf16 and the
-// backward's warp_step_bf16).  Fragments of m16n8k16 with bfloat16
-// operands, two to a 32-bit register, the lower column (or depth) in the
-// low half:
+// The bfloat16 builds' pieces (flow_common.cuh's tc_gemm_bf16, and the
+// packing both train kernels' epilogues use).  Fragments of m16n8k16 with
+// bfloat16 operands, two to a 32-bit register, the lower column (or depth)
+// in the low half:
 //   A [16 x 16] (row, k)  a0 (g, 2t..2t+1)  a1 (g + 8, 2t..2t+1)
 //                         a2 (g, 2t+8..2t+9)  a3 (g + 8, 2t+8..2t+9)
 //   B [16 x 8]  (k, col)  b0 (2t..2t+1, g)  b1 (2t+8..2t+9, g)
@@ -181,35 +181,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// One 16-deep step of a warp's [16 MT x 8 NT] tile with bfloat16 operands:
-// acc += A . B, a_at and b_at as warp_step's, each element rounded to
-// bfloat16 (to nearest even) where it is read, so that a float32 operand in
-// shared memory enters the product as the TPU kernel's .astype(bfloat16)
-// would give it.
-template <int MT, int NT, class LoadA, class LoadB>
-__device__ __forceinline__ void warp_step_bf16(float (&acc)[MT][NT][4],
-                                               const LoadA& a_at,
-                                               const LoadB& b_at) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  uint32_t a[MT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const int r = 16 * mt + g;
-    a[mt][0] = pack_bf16(a_at(r, 2 * t), a_at(r, 2 * t + 1));
-    a[mt][1] = pack_bf16(a_at(r + 8, 2 * t), a_at(r + 8, 2 * t + 1));
-    a[mt][2] = pack_bf16(a_at(r, 2 * t + 8), a_at(r, 2 * t + 9));
-    a[mt][3] = pack_bf16(a_at(r + 8, 2 * t + 8), a_at(r + 8, 2 * t + 9));
-  }
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int col = 8 * nt + g;
-    const uint32_t b[2] = {pack_bf16(b_at(2 * t, col), b_at(2 * t + 1, col)),
-                           pack_bf16(b_at(2 * t + 8, col),
-                                     b_at(2 * t + 9, col))};
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], a[mt], b);
-  }
-}
 #endif
 
 // sum += acc in float32 round-to-nearest, then acc = 0

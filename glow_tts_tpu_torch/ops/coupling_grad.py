@@ -61,11 +61,16 @@ bfloat16, the activations rounded to it where the TPU kernel casts them
 conditioning rows and the pitch operand its wrapper casts; the sums
 (``acc``, the skip sum), ``x_b``, the logdet and every gradient stay
 float32.  Its kernels are builds of both sources with ``GLOW_BF16``: the
-forward's products on bfloat16 tensor-core operands, its saved values
-stored in bfloat16 (the TPU kernel keeps its checkpoint in ``dt``), and
-the backward's GEMMs on bfloat16 operands (``mma.sync.m16n8k16``: the
-cotangent rounded where it enters a product, as the TPU kernel's
-``.astype(dt)`` before each ``dot``), read from those stores.  The TPU
+forward's products on bfloat16 tensor-core operands (``h`` and the gate
+kept in bfloat16 in shared memory, their fragments read by ``ldmatrix``),
+its saved values stored in bfloat16 (the TPU kernel keeps its checkpoint
+in ``dt``), and the backward's GEMMs on bfloat16 tiles staged as they lie
+(the activation gradients on ``wgmma``, the weight gradients on
+``mma.sync.m16n8k16`` fed by ``ldmatrix.trans``), read from those stores,
+from the weights rounded to bfloat16 (:func:`backward_weights_bf16`) and
+from bfloat16 copies of the cotangents (:func:`cotangent_copies_bf16`)
+that the epilogue making each one writes beside its float32 value: the
+rounding the TPU kernel's ``.astype(dt)`` gives before each ``dot``.  The TPU
 kernel also writes its per-batch-block weight-gradient partials of
 ``w_in`` and ``w_rs`` in bfloat16 (``gdt``), only because its VMEM is
 scarce and their partition is its batch tile: that rounding has no
@@ -309,6 +314,32 @@ def _valid_lengths(mask: torch.Tensor) -> torch.Tensor:
     return valid_lengths(mask).to(torch.int32)
 
 
+# the weights the backward library's activation-gradient products read (its
+# in[11..15]), f32 or, in the bf16 build, bfloat16
+PRODUCT_WEIGHT_KEYS = ('mix_t', 'w_start', 'w_in', 'w_rs', 'w_end')
+
+
+def backward_weights_bf16(weights: Weights) -> Weights:
+    """The stacked weights of :data:`PRODUCT_WEIGHT_KEYS` rounded to
+    bfloat16 (to nearest even: ``tensor.to(torch.bfloat16)``, the TPU
+    kernel's cast of each dot's weight to ``dt``), in their own layout: the
+    bf16 backward stages their rows (depth contiguous) into shared memory as
+    they lie, so the rounding is all it needs.  Made once a backward pass,
+    outside autograd."""
+    return {key: weights[key].detach().to(torch.bfloat16).contiguous()
+            for key in PRODUCT_WEIGHT_KEYS}
+
+
+def cotangent_copies_bf16(m: int, c: int, ch2: int, device
+                          ) -> Tuple[torch.Tensor, ...]:
+    """Scratch of the bf16 backward (its out[33..35]): ``douts [m, c]``,
+    ``drs [m, ch2]`` and ``dpre [m, ch2]`` in bfloat16, which the epilogues
+    that make each float32 cotangent fill with its rounding, the operand of
+    the products that read it."""
+    return tuple(torch.empty((m, width), device=device, dtype=torch.bfloat16)
+                 for width in (c, ch2, ch2))
+
+
 def _kernel_weights(weights, dtype: torch.dtype = torch.float32) -> list:
     """The stacked weights in ``WEIGHT_KEYS`` order as the forward library
     of ``dtype`` takes them: ``w_in`` and ``w_rs`` in the tensor-core layout
@@ -435,11 +466,20 @@ class _FlowStackTrain(torch.autograd.Function):
         saved = (None if stored
                  else _saved_buffers(m, c, ch, n, device, dtype=dtype))
         # dacc, the pre-gate gradient after the dropout, where cond and the
-        # pitch term were added; the gate (the res/skip weight gradient's
-        # operand) in the compute dtype, as the TPU kernel rounds it
+        # pitch term were added; dyd (read by products alone) and the gate
+        # (the res/skip weight gradient's operand) in the compute dtype, as
+        # the TPU kernel rounds them
         scratch = [empty(m, c), empty(m, ch2), empty(m, ch2),
                    None if cond is None and pitch is None else empty(m, ch2),
-                   empty(m, c), empty(m, 2 * c), empty(m, ch, dtype=dtype)]
+                   empty(m, c, dtype=dtype), empty(m, 2 * c),
+                   empty(m, ch, dtype=dtype)]
+        # the bf16 build's weights and cotangent copies (in[11..15] and
+        # out[33..35]); out[30..32] are the pitch build's
+        product_weights = (backward_weights_bf16(named) if bf16 else
+                           {key: named[key] for key in PRODUCT_WEIGHT_KEYS})
+        copies = ([None] * (3 if pitch is None else 0)
+                  + list(cotangent_copies_bf16(m, c, ch2, device))
+                  if bf16 else [])
         # partials of the weight gradients (one per chunk of samples) and of
         # the column sums (one per sample), reused by every step
         partials = [empty(chunks(1, ch, c), ch, c),
@@ -475,13 +515,14 @@ class _FlowStackTrain(torch.autograd.Function):
                 pitch_inputs = [pitch, w_pitch[s]]
                 pitch_outputs = [grads['w_pitch'][s], dpitch, pitch_part]
             inputs = [acts[s], *step_saved, mask, dld, dx_in,
-                      named['an_logs'][s], named['mix_t'][s],
-                      named['w_start'][s], named['w_in'][s], named['w_rs'][s],
-                      named['w_end'][s], lengths, *pitch_inputs]
+                      named['an_logs'][s],
+                      *[product_weights[key][s]
+                        for key in PRODUCT_WEIGHT_KEYS],
+                      lengths, *pitch_inputs]
             outputs = [dx_bufs[s % 2], *scratch, *partials,
                        None if dcond is None else dcond[s],
                        *[grads[key][s] for key in WEIGHT_KEYS],
-                       *pitch_outputs]
+                       *pitch_outputs, *copies]
             err = bwd.glow_flow_train_bwd_step_f32(
                 _pointers(inputs), _pointers(outputs), b, t, c, ch, n, k, s,
                 *ctx.drop, ctx.passes, stream, ctypes.byref(launched))

@@ -7,15 +7,15 @@ side, each into its own ``glow_tts_tpu_torch/_build``.
 
 ``OTHER_CHECKOUT`` is a directory holding another tree's
 ``glow_tts_tpu_torch`` package (for example ``git archive`` of the
-commit before a change, unpacked).  For each flow source, the shipped
-build, its pitch build (``-DGLOW_PITCH``) and its 80-channel build
-(``-DGLOW_CHANNELS=80``), and the bfloat16 builds (``-DGLOW_BF16``) of the
-sources that had them (``BF16_SOURCES``) are compared and reported SAME
-or DIFFERENT (with both sides' lines where they differ); this checkout's
-other builds (``OWN``: the bfloat16 builds of the coupling and the stack,
-and every source's 80-channel pitch builds, whose pitch operand is 1
-wide) are printed.  Exits 1 if a compared build differs or fails.  Needs
-``nvcc``.
+commit before a change, unpacked).  For each kernel source, every build
+the port makes of it is compared and reported SAME or DIFFERENT (with
+both sides' lines where they differ): MAS's one build, and each flow
+source's shipped build, its pitch build (``-DGLOW_PITCH``), its
+80-channel build (``-DGLOW_CHANNELS=80``), the two together, and the
+bfloat16 builds (``-DGLOW_BF16``) of the four; except the bfloat16
+builds of the sources in ``REDESIGNED_BF16``, whose designs this tree
+changed (#5 and #6, which have bfloat16 designs of their own), which are
+printed.  Exits 1 if a compared build differs or fails.  Needs ``nvcc``.
 """
 
 from __future__ import annotations
@@ -28,27 +28,28 @@ from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-SOURCES = ('flow_step.cu', 'coupling.cu', 'flow_stack.cu',
+SOURCES = ('mas.cu', 'flow_step.cu', 'coupling.cu', 'flow_stack.cu',
            'flow_train_fwd.cu', 'flow_train_bwd.cu')
-# the macros in ops/coupling.py::build_defines' order
-COMPARED = ((), ('GLOW_PITCH',), ('GLOW_CHANNELS=80',))
-BF16 = (('GLOW_BF16',), ('GLOW_PITCH', 'GLOW_BF16'),
-        ('GLOW_CHANNELS=80', 'GLOW_BF16'))
-# the sources whose bfloat16 builds the other checkout may have too
-BF16_SOURCES = ('flow_step.cu', 'flow_train_fwd.cu', 'flow_train_bwd.cu')
-C80_PITCH = ('GLOW_PITCH', 'GLOW_CHANNELS=80')
-# this checkout's own builds, printed
-OWN = (C80_PITCH, C80_PITCH + ('GLOW_BF16',))
+# the flow sources' builds, the macros in ops/coupling.py::build_defines'
+# order
+F32_BUILDS = ((), ('GLOW_PITCH',), ('GLOW_CHANNELS=80',),
+              ('GLOW_PITCH', 'GLOW_CHANNELS=80'))
+BF16_BUILDS = tuple(d + ('GLOW_BF16',) for d in F32_BUILDS)
+# the sources whose bfloat16 builds have designs of their own in this
+# tree: printed, not compared
+REDESIGNED_BF16 = ('flow_train_fwd.cu', 'flow_train_bwd.cu')
 
 
 def compared(source: str) -> tuple:
     """The builds of ``source`` held against the other checkout's."""
-    return COMPARED + (BF16 if source in BF16_SOURCES else ())
+    if source == 'mas.cu':
+        return ((),)
+    return F32_BUILDS + (() if source in REDESIGNED_BF16 else BF16_BUILDS)
 
 
 def own(source: str) -> tuple:
     """The builds of ``source`` printed from this checkout alone."""
-    return OWN + (() if source in BF16_SOURCES else BF16)
+    return BF16_BUILDS if source in REDESIGNED_BF16 else ()
 
 
 # run in a checkout's root, so that its own package is the one imported
@@ -78,7 +79,9 @@ def main(argv=None) -> int:
             for root, defines in [(r, d) for d in compared(source)
                                   for r in (other, HERE)]
             + [(HERE, d) for d in own(source)]]
-    with ThreadPoolExecutor(len(jobs)) as pool:   # one nvcc each, together
+    # one nvcc a core: some 80 builds at once would hold more memory than
+    # the machine has
+    with ThreadPoolExecutor(os.cpu_count() or 8) as pool:
         results = dict(zip(jobs, pool.map(lambda job: report(*job), jobs)))
     same = True
     for source in SOURCES:

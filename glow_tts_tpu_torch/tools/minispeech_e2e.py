@@ -22,8 +22,10 @@ default), and the same over the first 4 of them under
 ``jax_protocol_4_texts`` (the JAX package's protocol), the real-time
 factors of the mel
 synthesis alone and with the Griffin-Lim export, the ETL's and the
-training's wall time, the eval trajectory (MLE, duration loss and
-attention diagonality every ``Evaluation_Interval``) and the card's name
+training's wall time, the eval trajectory (every ``Evaluation_Interval``:
+MLE, duration loss and attention diagonality, and the durations' two
+errors of :class:`DurationMetrics`: MAS's against the corpus's phone
+durations, the duration predictor's against MAS's) and the card's name
 and power limit.  Each logged step is also appended to
 ``<out>/trajectory.jsonl`` while it trains.
 """
@@ -171,6 +173,71 @@ def score(results: List[Mapping], signatures: Mapping) -> Dict:
         'n_phones_checked': len(correlations)}
 
 
+def token_frames(token_dict: Mapping[str, int]) -> torch.Tensor:
+    """``[vocabulary]`` int64: the frames the corpus's generator gives each
+    token id (a letter its phone's duration, the space a pause), -1 for
+    the tokens it gives no frames of their own (``<S>``, ``<E>``)."""
+    frames = torch.full((max(token_dict.values()) + 1,), -1,
+                        dtype=torch.int64)
+    for symbol, index in token_dict.items():
+        if symbol == ' ':
+            frames[index] = PAUSE_FRAMES
+        elif len(symbol) == 1 and symbol in LETTERS:
+            frames[index] = phone_params(LETTERS.index(symbol))[4]
+    return frames
+
+
+def duration_errors(outputs: Mapping, batch: Mapping,
+                    frames: torch.Tensor) -> Dict[str, float]:
+    """Sums over one eval batch of the durations' two errors, in frames a
+    token (the JAX gate's ``mas_duration_abs_err``, and the predictor's
+    counterpart): ``|MAS − corpus|`` over the tokens the corpus times
+    (:func:`token_frames` not -1) and ``|exp(predictor) − MAS|`` over every
+    valid token, with the counts of each.  MAS's durations are the eval
+    path's frames per token (``outputs['attentions']`` summed over frames),
+    the predictor's ``exp(outputs['log_durations'])``."""
+    tokens = batch['tokens']
+    valid = (torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+             < batch['token_lengths'][:, None])
+    mas = outputs['attentions'].float().sum(dim=-1)
+    truth = frames.to(tokens.device)[tokens]
+    timed = valid & (truth >= 0)
+    predicted = torch.exp(outputs['log_durations'][..., 0].float())
+    return {'mas_vs_corpus': ((mas - truth).abs() * timed).sum().item(),
+            'timed_tokens': timed.sum().item(),
+            'predictor_vs_mas': ((predicted - mas).abs() * valid
+                                 ).sum().item(),
+            'tokens': valid.sum().item()}
+
+
+class DurationMetrics:
+    """Wraps a ``Trainer``'s ``eval_step`` to add up :func:`duration_errors`
+    over an evaluation's batches; :meth:`take` gives their means (frames a
+    token) as the eval scalars ``Duration/mas_vs_corpus_abs_err`` and
+    ``Duration/predictor_vs_mas_abs_err`` and starts over."""
+
+    def __init__(self, frames: torch.Tensor):
+        self.frames, self.sums = frames, {}
+
+    def wrap(self, eval_step):
+        def step(batch):
+            loss_dict, outputs = eval_step(batch)
+            for key, value in duration_errors(outputs, batch,
+                                              self.frames).items():
+                self.sums[key] = self.sums.get(key, 0.0) + value
+            return loss_dict, outputs
+        return step
+
+    def take(self) -> Dict[str, float]:
+        sums, self.sums = self.sums, {}
+        if not sums:
+            return {}
+        return {'Duration/mas_vs_corpus_abs_err':
+                sums['mas_vs_corpus'] / max(sums['timed_tokens'], 1),
+                'Duration/predictor_vs_mas_abs_err':
+                sums['predictor_vs_mas'] / max(sums['tokens'], 1)}
+
+
 def card_line() -> str:
     try:
         return subprocess.run(
@@ -184,12 +251,17 @@ def card_line() -> str:
 class TrajectoryWriter(NullWriter):
     """Keeps the scalars (``utils.logging.MemoryWriter``) and appends each
     call's as one JSON line to ``path``; images, histograms and embeddings
-    are dropped."""
+    are dropped.  With ``durations`` (a :class:`DurationMetrics`), each
+    call adds what it took since the last one."""
 
-    def __init__(self, path: str, kind: str):
+    def __init__(self, path: str, kind: str,
+                 durations: 'DurationMetrics' = None):
         self.memory, self.path, self.kind = MemoryWriter(), path, kind
+        self.durations = durations
 
     def add_scalars(self, scalars: Mapping[str, float], step: int) -> None:
+        if self.durations is not None:
+            scalars = {**scalars, **self.durations.take()}
         self.memory.add_scalars(scalars, step)
         with open(self.path, 'a', encoding='utf-8') as f:
             f.write(json.dumps({'kind': self.kind, 'step': int(step),
@@ -201,7 +273,11 @@ def eval_trajectory(writer: TrajectoryWriter) -> List[Dict]:
     scalars = writer.memory.scalars
     rows = {}
     for tag, key in (('Loss/mle', 'mle'), ('Loss/duration', 'duration'),
-                     ('Alignment/diagonality', 'attention_diagonality')):
+                     ('Alignment/diagonality', 'attention_diagonality'),
+                     ('Duration/mas_vs_corpus_abs_err',
+                      'mas_duration_abs_err_frames'),
+                     ('Duration/predictor_vs_mas_abs_err',
+                      'predictor_duration_abs_err_frames')):
         for step, value in scalars.get(tag, []):
             rows.setdefault(step, {'step': step})[key] = value
     return [rows[step] for step in sorted(rows)]
@@ -265,10 +341,14 @@ def main(argv=None) -> Dict:
     trajectory = os.path.join(out, 'trajectory.jsonl')
     if os.path.exists(trajectory):
         os.remove(trajectory)
-    writers = {kind: TrajectoryWriter(trajectory, kind)
-               for kind in ('train', 'eval')}
+    from glow_tts_tpu_torch.text import load_token_dict
+    durations = DurationMetrics(token_frames(load_token_dict(
+        config.token_path)))
+    writers = {'train': TrajectoryWriter(trajectory, 'train'),
+               'eval': TrajectoryWriter(trajectory, 'eval', durations)}
     start = time.perf_counter()
     trainer = Trainer(config, device=device, writers=writers)
+    trainer.eval_step = durations.wrap(trainer.eval_step)
     trainer.train()
     summary['train_sec'] = time.perf_counter() - start
     summary['eval_trajectory'] = eval_trajectory(writers['eval'])

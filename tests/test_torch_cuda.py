@@ -1961,3 +1961,43 @@ def test_bf16_c80_pitch_kernels_match_plain(device):
                           with_pitch=True, c=C80)
     assert tg.flow_stack_train.forward_bf16_c80_pitch_launches == before + 2
     _assert_bf16_train_agrees(*results)
+
+
+@pytest.mark.parametrize('build', ['c160', 'c80', 'pitch', 'width1'])
+def test_bf16_train_redesign_at_each_build(device, build):
+    """#5 and #6 bf16 (bf16 tiles in shared memory; #6's dgrads on wgmma,
+    its wgrads on ldmatrix.trans) at each build on a ragged batch with a
+    sample of length 1 and a full one: to the bf16 bars against the plain
+    versions, the stored and recomputed routes bit-equal, two runs
+    bit-equal, and #6's launches 22 a flow step (26 with pitch)."""
+    c = C80 if build in ('c80', 'width1') else 160
+    pitch = build in ('pitch', 'width1')
+    tag = '_'.join(part for part in ('bf16', 'c80' if c == C80 else '',
+                                     'pitch' if pitch else '') if part)
+    counter = f'backward_{tag}_launches'
+    lengths = [130, 1, 57, 130, 96]
+    before = getattr(tg.flow_stack_train, counter)
+    store = _train_bf16(device, lengths, 0.05, with_cond=True,
+                        with_pitch=pitch, c=c, route='store')
+    per_step = 26 if pitch else 22
+    assert getattr(tg.flow_stack_train, counter) == before + 2 * per_step
+    _assert_bf16_train_agrees(*store)
+    again = _train_bf16(device, lengths, 0.05, with_cond=True,
+                        with_pitch=pitch, c=c, route='store')
+    recompute = _train_bf16(device, lengths, 0.05, with_cond=True,
+                            with_pitch=pitch, c=c, route='recompute')
+    for key in store[0]:
+        assert torch.equal(store[0][key], again[0][key]), key
+        assert torch.equal(store[0][key], recompute[0][key]), key
+
+
+@pytest.mark.parametrize('route', ['store', 'recompute'])
+def test_bf16_train_gradients_ignore_rows_left_unwritten(device, planted_nan,
+                                                         route):
+    """At bf16 the backward's epilogues leave the cotangents' rows past a
+    sample's length unwritten (nothing reads them) and every buffer here
+    starts as NaN: the gradients stay finite, to the bf16 bars, with
+    conditioning and a sample of length 1."""
+    results = _train_bf16(device, [150, 70, 1, 140], 0.05, with_cond=True,
+                          route=route)
+    _assert_bf16_train_agrees(*results)
