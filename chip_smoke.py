@@ -75,9 +75,11 @@ their bounds at the bf16 peak; the train step at bf16 and at f32 on the
 same batch by CUDA events and in a profiler window; a GR train step on the
 bf16 pitch builds; and a MiniSpeech ``Trainer`` at bf16 on the 80-channel
 bf16 builds.  Then bf16 under ``'modules'`` and ``'mega'``: the bf16 builds
-of #2 and #4 (the shipped YAML, MiniSpeech's 80 channels, GR's pitch
-builds) against their bf16 plain versions (#4 also bit for bit against 12
-× #3 bf16) and timed beside their f32 builds, the ActNorm init and two
+of #3, #2 and #4 (the shipped YAML, MiniSpeech's 80 channels, GR's pitch
+builds; #3's and #4's run the Hopper body of ``csrc/flow_ring.cuh``)
+against their bf16 plain versions (#4 also bit for bit against 12 × #3
+bf16) and timed beside their f32 builds, both directions, on the decode
+and the eval batch's shapes, each beside its bound, the ActNorm init and two
 eval steps under each route beside the plain versions at bf16 and f32 and
 against 'fused', an ``Inferencer`` at ``inference_dtype`` bfloat16 under
 each route at B = 32 in the 1024-frame bucket, the eval step at bf16 by
@@ -4700,7 +4702,8 @@ def run_bf16_routes_phase(batches, device, card):
                 config16.decoder.num_squeeze)
             for name, row in flow_kernel_rows(
                     model, device, eval_mask, f'bf16 {label}', BF16,
-                    pitch=gr).items():
+                    pitch=gr, names=('flow_step', 'coupling',
+                                     'flow_stack')).items():
                 rows[f'{name}_bf16{tag}'] = row
             del model
             paths, _ = routes_eval(config16, state, batch, device,
@@ -5978,6 +5981,12 @@ def main():
         return {'launches': sum(paths.values()), 'launches_by_path': paths}
 
     csrc = 'glow_tts_tpu_torch/csrc/'
+    # the body the bfloat16 builds of #3 and #4 run
+    ring = {'body': csrc + 'flow_ring.cuh (GLOW_BF16_RING)'}
+
+    def ring_body(name, defines):
+        return ring if (name in ('flow_step', 'flow_stack')
+                        and 'GLOW_BF16' in defines) else {}
     print(json.dumps({'kernels': [
         {'name': 'flow_step', 'route': 'cuda', 'source': csrc + 'flow_step.cu',
          'replaces': 'glow_tts_tpu/ops/coupling.py:190',
@@ -6066,7 +6075,12 @@ def main():
            'build': ' '.join(f'-D{d}' for d in defines),
            'replaces': replaces, 'entry': entry,
            **launches(f'{counter}_bf16{tag}'),
-           **bf16_rows[name + tag], 'library_ms': None}
+           **bf16_rows[name + tag], **ring_body(name, defines),
+           # both directions on the decode and the eval batch's shapes,
+           # each beside its bound (the bf16 routes phase)
+           **({'shapes': routes_rows[f'{name}_bf16{tag}']}
+              if name == 'flow_step' else {}),
+           'library_ms': None}
           for tag, defines in (
               ('', ('GLOW_BF16',)), ('_pitch', ('GLOW_PITCH', 'GLOW_BF16')),
               ('_c80', ('GLOW_CHANNELS=80', 'GLOW_BF16')))
@@ -6086,7 +6100,8 @@ def main():
            'build': ' '.join(f'-D{d}' for d in defines),
            'replaces': replaces, 'entry': entry,
            **launches(f'{name}_bf16{tag}'),
-           **routes_rows[f'{name}_bf16{tag}'], 'library_ms': None}
+           **routes_rows[f'{name}_bf16{tag}'], **ring_body(name, defines),
+           'library_ms': None}
           for tag, defines in (
               ('', ('GLOW_BF16',)), ('_pitch', ('GLOW_PITCH', 'GLOW_BF16')),
               ('_c80', ('GLOW_CHANNELS=80', 'GLOW_BF16')))
@@ -6102,7 +6117,7 @@ def main():
            'build': ' '.join(f'-D{d}' for d in defines),
            'replaces': replaces, 'entry': entry,
            **launches(f'{counter}{tag}'), **squeeze1_rows[f'{name}{tag}'],
-           'library_ms': None}
+           **ring_body(name, defines), 'library_ms': None}
           for tag, defines in (
               ('_c80_pitch', ('GLOW_PITCH', 'GLOW_CHANNELS=80')),
               ('_bf16_c80_pitch', ('GLOW_PITCH', 'GLOW_CHANNELS=80',

@@ -61,11 +61,23 @@
 // between the steps, as the TPU kernel's carry is (in dt), and z is
 // bit-equal to S chained launches of flow_step.cu's bfloat16 build.
 //
+// The GLOW_BF16 build runs flow_step.cu's bfloat16 body of its own
+// (GLOW_BF16_RING, flow_ring.cuh) per item: its tiles are 48 frames, and
+// each item's weight ring starts anew, the step's slices issued as the item
+// begins.
+//
 // What bounds it: arithmetic, S times flow_step.cu's on the live tiles; a
 // step's trip through device memory, which the TPU kernel exists to save,
 // is 21 MB against 59 GFLOP here.
 
+#ifdef GLOW_BF16
+#define GLOW_BF16_RING
+#endif
+
 #include "flow_common.cuh"
+#ifdef GLOW_BF16_RING
+#include "flow_ring.cuh"
+#endif
 
 namespace {
 
@@ -181,9 +193,79 @@ __global__ void __launch_bounds__(kThreads, 1)
   report_tiles(p.tiles, p.steps * list.live, items, computed);
 }
 
+#ifdef GLOW_BF16_RING
+// The bfloat16 build's kernel: flow_stack_kernel's list, flags and buffers
+// on flow_ring.cuh's body, its ring and buffers set up once a block.
+template <class S, bool REVERSE>
+__global__ void __launch_bounds__(kThreads, 1)
+    flow_stack_ring_kernel(const Params p) {
+  extern __shared__ float4 smem4[];
+  Ring ring;
+  char* const aligned = ring_block<S>(smem4, ring);
+  const LiveTiles list = live_tiles<S>(
+      p.mask, p.B, p.T, reinterpret_cast<int*>(aligned + S::BYTES));
+  const RingWeights stacked = ring_weights(p.w);
+  PhaseClock<false> clock(nullptr);
+  const int dead = list.items - list.live;
+  const int items = dead + p.steps * list.live;
+  const size_t cond_step = static_cast<size_t>(S::NL) * p.B * S::CH2;
+  constexpr size_t w_pitch_step = S::NL * kPitchSize * S::CH2;
+  const size_t flags_step = static_cast<size_t>(p.B) * p.n_tiles;
+  auto output = [&](int j) {
+    return (p.steps - 1 - j) % 2 == 0 ? p.z : p.other;
+  };
+  int computed = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    if (item < dead) {
+      const TileId id = list.at(list.live + item);
+      const RingTile<S> tile(aligned, p.B, p.T, id.b, id.index);
+      const size_t slot = static_cast<size_t>(id.b) * p.n_tiles + id.index;
+      tile.zero_owned(p.z);
+      if (p.other) tile.zero_owned(p.other);
+      if (!REVERSE && threadIdx.x == 0) p.ld_part[slot] = 0.f;
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        __threadfence();
+        for (int j = 0; j < p.steps; ++j)
+          store_release(p.done + j * flags_step + slot, 1u);
+      }
+      continue;
+    }
+    const int j = (item - dead) / list.live;
+    const TileId id = list.at((item - dead) % list.live);
+    const size_t sample_flags = static_cast<size_t>(id.b) * p.n_tiles;
+    if (j > 0)
+      wait_for_neighbours(p.done + (j - 1) * flags_step + sample_flags,
+                          id.index, p.n_tiles);
+    const int s = REVERSE ? p.steps - 1 - j : j;
+    const RingTile<S> tile(aligned, p.B, p.T, id.b, id.index);
+    const RingWeights w = ring_step_of_stack<S>(stacked, s);
+    const float logdet = ring_flow_step_tile<S, REVERSE, false>(
+        tile, ring, j == 0 ? p.x : output(j - 1), p.mask,
+        step_pre_gate(p.cond + s * cond_step, p.pitch,
+                      kPitch ? p.w_pitch + s * w_pitch_step : nullptr),
+        w, REVERSE ? nullptr : p.ld_const + s, output(j), clock);
+    const size_t slot = sample_flags + id.index;
+    if (!REVERSE && threadIdx.x == 0)
+      p.ld_part[slot] = j == 0 ? logdet : __ldcg(p.ld_part + slot) + logdet;
+    ++computed;
+    if (threadIdx.x == 0) {
+      __threadfence();
+      store_release(p.done + j * flags_step + slot, 1u);
+    }
+  }
+  report_tiles(p.tiles, p.steps * list.live, items, computed);
+}
+#define STACK_KERNEL flow_stack_ring_kernel
+using StackShape = RingBuilt;
+#else
+#define STACK_KERNEL flow_stack_kernel
+using StackShape = Built;
+#endif
+
 template <class S, bool REVERSE>
 cudaError_t resident(int B, int* blocks) {
-  return resident_blocks(flow_stack_kernel<S, REVERSE>,
+  return resident_blocks(STACK_KERNEL<S, REVERSE>,
                          S::smem_bytes + sizeof(int) * live_tile_ints(B),
                          blocks);
 }
@@ -201,7 +283,7 @@ cudaError_t launch(Params p, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   void* args[] = {&p};
   return cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(flow_stack_kernel<S, REVERSE>), dim3(grid),
+      reinterpret_cast<const void*>(STACK_KERNEL<S, REVERSE>), dim3(grid),
       dim3(kThreads), args, S::smem_bytes + sizeof(int) * live_tile_ints(p.B),
       stream);
 }
@@ -210,7 +292,7 @@ cudaError_t launch(Params p, cudaStream_t stream) {
 
 extern "C" {
 
-int glow_flow_stack_time_tile() { return Built::TT; }
+int glow_flow_stack_time_tile() { return StackShape::TT; }
 
 // The flow's channel count this library is built for (GLOW_CHANNELS).
 int glow_flow_channels() { return Built::C; }
@@ -224,7 +306,7 @@ const char* glow_cuda_error_string(int err) {
 // cudaError_t.
 int glow_flow_stack_resident_blocks(int B) {
   int blocks = 0;
-  const cudaError_t err = resident<Built, true>(B, &blocks);
+  const cudaError_t err = resident<StackShape, true>(B, &blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
@@ -237,9 +319,10 @@ int glow_flow_stack_resident_blocks(int B) {
 // receive what the launch did (flow_common.cuh::report_tiles: its live
 // items are steps * the live tiles).  pitch and w_pitch are null, or with a
 // GLOW_PITCH build not null (cudaErrorInvalidValue otherwise).  x, z and
-// other are bfloat16 in a GLOW_BF16 build (the entry keeps its name), and so
-// are w_in and w_rs (ops/coupling.py::tensor_core_layout_bf16).  Returns a
-// cudaError_t, 0 on success.
+// other are bfloat16 in a GLOW_BF16 build (the entry keeps its name), and
+// mix_t, w_start, w_in, w_rs and w_end are the ring body's packed slices
+// (ops/coupling.py::ring_layout_bf16).  Returns a cudaError_t, 0 on
+// success.
 int glow_flow_stack_f32(const act_t* x, const float* mask, const float* cond,
                         const float* pitch, const float* w_pitch,
                         const float* an_logs, const float* an_bias,
@@ -258,9 +341,10 @@ int glow_flow_stack_f32(const act_t* x, const float* mask, const float* cond,
                   reinterpret_cast<const WFrag*>(w_in),
                   reinterpret_cast<const WFrag*>(w_rs), b_rs, w_end, b_end},
                  ld_const, z, other, ld_part, done, tiles, B, T,
-                 ceil_div(T, Built::TT), steps};
+                 ceil_div(T, StackShape::TT), steps};
   auto s = static_cast<cudaStream_t>(stream);
-  return reverse ? launch<Built, true>(p, s) : launch<Built, false>(p, s);
+  return reverse ? launch<StackShape, true>(p, s)
+                 : launch<StackShape, false>(p, s);
 }
 
 }  // extern "C"

@@ -38,10 +38,22 @@
 //   this kernel on bfloat16 x and z with flow_common.cuh's bfloat16 body: the
 //   TPU kernel at dt = bfloat16, its big products on bfloat16 tensor-core
 //   operands at twice TF32's rate (one pass where the f32 build makes three).
-// flow_stack.cu runs the same body (flow_step_tile) on the same live tiles,
-// all the steps in one launch.
+//   That build runs a body of its own, designed for Hopper
+//   (GLOW_BF16_RING, flow_ring.cuh: 48-frame tiles, bfloat16 tiles, every
+//   product on wgmma with the weights staged through a ring of bulk
+//   copies); it has a timed instantiation besides (glow_flow_step_timed:
+//   the cycles of each phase of a tile, never launched by flow_step).
+// flow_stack.cu runs the same body (flow_step_tile, or ring_flow_step_tile)
+// on the same live tiles, all the steps in one launch.
+
+#ifdef GLOW_BF16
+#define GLOW_BF16_RING
+#endif
 
 #include "flow_common.cuh"
+#ifdef GLOW_BF16_RING
+#include "flow_ring.cuh"
+#endif
 
 namespace {
 
@@ -57,6 +69,9 @@ struct Params {
   float* ld_part;        // [B, n_tiles], forward only
   int* tiles;            // [5] or null: report_tiles
   int B, T, n_tiles;
+#ifdef GLOW_BF16_RING
+  long long* clocks;     // [grid, kClockSlots]: the timed instantiation's
+#endif
 };
 
 template <class S, bool REVERSE, int PASSES>
@@ -98,11 +113,105 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+#ifdef GLOW_BF16_RING
+// The bfloat16 build's kernel: the same walk over the live tiles on
+// flow_ring.cuh's body, its ring and buffers set up once a block.
+template <class S, bool REVERSE, bool TIMED>
+__global__ void __launch_bounds__(kThreads, 1)
+    flow_step_ring_kernel(const Params p) {
+  extern __shared__ float4 smem4[];
+  Ring ring;
+  char* const aligned = ring_block<S>(smem4, ring);
+  const LiveTiles items = live_tiles<S>(
+      p.mask, p.B, p.T, reinterpret_cast<int*>(aligned + S::BYTES));
+  const RingWeights w = ring_weights(p.w);
+  PhaseClock<TIMED> clock(p.clocks);
+  int computed = 0;
+  for (int item = blockIdx.x; item < items.items; item += gridDim.x) {
+    const TileId id = items.at(item);
+    const RingTile<S> tile(aligned, p.B, p.T, id.b, id.index);
+    float logdet = 0.f;
+    if (id.live) {
+      logdet = ring_flow_step_tile<S, REVERSE, TIMED>(
+          tile, ring, p.x, p.mask, step_pre_gate(p.cond, p.pitch, p.w_pitch),
+          w, p.ld_const, p.z, clock);
+      ++computed;
+    } else {
+      tile.zero_owned(p.z);
+    }
+    if (!REVERSE && threadIdx.x == 0)
+      p.ld_part[tile.b * p.n_tiles + tile.index] = logdet;
+  }
+  clock.finish();
+  report_tiles(p.tiles, items, computed);
+}
+
+template <class S, bool REVERSE, bool TIMED>
+cudaError_t launch_ring(const Params& p, cudaStream_t stream) {
+  const size_t smem = S::smem_bytes + sizeof(int) * live_tile_ints(p.B);
+  int blocks = 0;
+  const cudaError_t err = resident_blocks(
+      flow_step_ring_kernel<S, REVERSE, TIMED>, smem, &blocks);
+  if (err != cudaSuccess) return err;
+  const int items = p.B * p.n_tiles;
+  flow_step_ring_kernel<S, REVERSE, TIMED>
+      <<<items < blocks ? items : blocks, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+using StepShape = RingBuilt;
+#else
+using StepShape = Built;
+#endif
+
+// A launch of the entry points' arguments; clocks non-null only for the
+// timed instantiation of a GLOW_BF16 build.
+int run_step(const act_t* x, const float* mask, const float* cond,
+             const float* pitch, const float* w_pitch, const float* an_logs,
+             const float* an_bias, const float* mix_t, const float* w_start,
+             const float* b_start, const float* w_in, const float* w_rs,
+             const float* b_rs, const float* w_end, const float* b_end,
+             const float* ld_const, act_t* z, float* ld_part, int* tiles,
+             int B, int T, int reverse, int passes, void* stream,
+             long long* clocks) {
+  if ((pitch != nullptr) != kPitch || (w_pitch != nullptr) != kPitch)
+    return cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0) return cudaSuccess;
+  const Params p{x, mask, cond, pitch, w_pitch,
+                 {an_logs, an_bias, mix_t, w_start, b_start,
+                  reinterpret_cast<const WFrag*>(w_in),
+                  reinterpret_cast<const WFrag*>(w_rs), b_rs, w_end, b_end},
+                 ld_const, z, ld_part, tiles, B, T,
+                 ceil_div(T, StepShape::TT)
+#ifdef GLOW_BF16_RING
+                 , clocks
+#endif
+  };
+  auto s = static_cast<cudaStream_t>(stream);
+#ifdef GLOW_BF16_RING
+  if (passes != 3) return cudaErrorInvalidValue;
+  if (clocks)
+    return reverse ? launch_ring<RingBuilt, true, true>(p, s)
+                   : launch_ring<RingBuilt, false, true>(p, s);
+  return reverse ? launch_ring<RingBuilt, true, false>(p, s)
+                 : launch_ring<RingBuilt, false, false>(p, s);
+#else
+  (void)clocks;
+  if constexpr (kPitch || kBf16) {
+    if (passes != 3) return cudaErrorInvalidValue;
+  } else if (passes == 1) {
+    return reverse ? launch<Built, true, 1>(p, s)
+                   : launch<Built, false, 1>(p, s);
+  }
+  return reverse ? launch<Built, true, 3>(p, s)
+                 : launch<Built, false, 3>(p, s);
+#endif
+}
+
 }  // namespace
 
 extern "C" {
 
-int glow_flow_step_time_tile() { return Built::TT; }
+int glow_flow_step_time_tile() { return StepShape::TT; }
 
 // The flow's channel count this library is built for (GLOW_CHANNELS).
 int glow_flow_channels() { return Built::C; }
@@ -115,9 +224,15 @@ const char* glow_cuda_error_string(int err) {
 // when B * tiles is less), or minus a cudaError_t.
 int glow_flow_step_resident_blocks(int B) {
   int blocks = 0;
+#ifdef GLOW_BF16_RING
+  const cudaError_t err = resident_blocks(
+      flow_step_ring_kernel<RingBuilt, true, false>,
+      RingBuilt::smem_bytes + sizeof(int) * live_tile_ints(B), &blocks);
+#else
   const cudaError_t err = resident_blocks(
       flow_step_kernel<Built, true, 3>,
       Built::smem_bytes + sizeof(int) * live_tile_ints(B), &blocks);
+#endif
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
@@ -128,8 +243,8 @@ int glow_flow_step_resident_blocks(int B) {
 // measuring; not in a GLOW_PITCH or GLOW_BF16 build).  tiles is null, or 5
 // zeroed ints that receive what the launch did (flow_common.cuh::report_tiles).
 // x and z are bfloat16 in a GLOW_BF16 build (the entry keeps its name), and
-// so are w_in and w_rs (ops/coupling.py::tensor_core_layout_bf16). Returns a
-// cudaError_t, 0 on success.
+// mix_t, w_start, w_in, w_rs and w_end are the ring body's packed slices
+// (ops/coupling.py::ring_layout_bf16). Returns a cudaError_t, 0 on success.
 int glow_flow_step_f32(const act_t* x, const float* mask, const float* cond,
                        const float* pitch, const float* w_pitch,
                        const float* an_logs, const float* an_bias,
@@ -140,24 +255,34 @@ int glow_flow_step_f32(const act_t* x, const float* mask, const float* cond,
                        const float* ld_const, act_t* z, float* ld_part,
                        int* tiles, int B, int T, int reverse, int passes,
                        void* stream) {
-  if ((pitch != nullptr) != kPitch || (w_pitch != nullptr) != kPitch)
-    return cudaErrorInvalidValue;
-  if (B <= 0 || T <= 0) return cudaSuccess;
-  const Params p{x, mask, cond, pitch, w_pitch,
-                 {an_logs, an_bias, mix_t, w_start, b_start,
-                  reinterpret_cast<const WFrag*>(w_in),
-                  reinterpret_cast<const WFrag*>(w_rs), b_rs, w_end, b_end},
-                 ld_const, z, ld_part, tiles, B, T,
-                 ceil_div(T, Built::TT)};
-  auto s = static_cast<cudaStream_t>(stream);
-  if constexpr (kPitch || kBf16) {
-    if (passes != 3) return cudaErrorInvalidValue;
-  } else if (passes == 1) {
-    return reverse ? launch<Built, true, 1>(p, s)
-                   : launch<Built, false, 1>(p, s);
-  }
-  return reverse ? launch<Built, true, 3>(p, s)
-                 : launch<Built, false, 3>(p, s);
+  return run_step(x, mask, cond, pitch, w_pitch, an_logs, an_bias, mix_t,
+                  w_start, b_start, w_in, w_rs, b_rs, w_end, b_end, ld_const,
+                  z, ld_part, tiles, B, T, reverse, passes, stream, nullptr);
 }
+
+#ifdef GLOW_BF16_RING
+// The long longs of a block's row of the timed instantiation's clocks.
+int glow_flow_step_clock_slots() { return kClockSlots; }
+
+// glow_flow_step_f32 through the timed instantiation: clocks [grid,
+// glow_flow_step_clock_slots()] long longs, zeroed, grid at least the
+// launch's (glow_flow_step_resident_blocks), receive each block's cycles a
+// phase (flow_ring.cuh::PhaseClock).
+int glow_flow_step_timed(const act_t* x, const float* mask, const float* cond,
+                         const float* pitch, const float* w_pitch,
+                         const float* an_logs, const float* an_bias,
+                         const float* mix_t, const float* w_start,
+                         const float* b_start, const float* w_in,
+                         const float* w_rs, const float* b_rs,
+                         const float* w_end, const float* b_end,
+                         const float* ld_const, act_t* z, float* ld_part,
+                         int* tiles, int B, int T, int reverse, void* stream,
+                         long long* clocks) {
+  if (!clocks) return cudaErrorInvalidValue;
+  return run_step(x, mask, cond, pitch, w_pitch, an_logs, an_bias, mix_t,
+                  w_start, b_start, w_in, w_rs, b_rs, w_end, b_end, ld_const,
+                  z, ld_part, tiles, B, T, reverse, 3, stream, clocks);
+}
+#endif
 
 }  // extern "C"

@@ -66,6 +66,7 @@ from glow_tts_tpu_torch.models.layers import (
     ComputesAt, Conv1d, WNConv1d, masked, stacked_effective_weights)
 from glow_tts_tpu_torch.ops.coupling import (COUPLING_WEIGHT_KEYS, TC_KEYS,
                                              coupling, flow_stack, flow_step,
+                                             ring_weights,
                                              rounded_weights,
                                              tensor_core_weights,
                                              with_tensor_core_weights)
@@ -431,11 +432,20 @@ class FlowStep(nn.Module):
         if dtype not in self._by_dtype:
             packs = self._packed
             split = {}
+            rings = {direction: {} for direction in packs}
             if packs[False]['an_logs'].device.type == 'cuda':
                 split = tensor_core_weights(packs[False]['w_in'],
                                             packs[False]['w_rs'], dtype)
+                # the ring body's slices (the bfloat16 flow_step and
+                # flow_stack): both directions share all but the mixing's
+                common = ring_weights({key: packs[False][key] for key in (
+                    'w_start', 'w_in', 'w_rs', 'w_end')})
+                rings = {direction: {**common, **ring_weights(
+                    {'mix_t': weights['mix_t']})}
+                    for direction, weights in packs.items()}
             self._by_dtype[dtype] = {
-                direction: rounded_weights({**weights, **split}, dtype)
+                direction: rounded_weights(
+                    {**weights, **split, **rings[direction]}, dtype)
                 for direction, weights in packs.items()}
         return self._by_dtype[dtype][reverse]
 

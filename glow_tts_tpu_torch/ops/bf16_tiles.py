@@ -17,6 +17,13 @@ and the fragment addressing that only the card runs.
   bf16 body.
 * :func:`wgrad_slices`: the weight gradients' walk of a chunk's samples in
   32-frame slices.
+* The ring body of the bfloat16 flow step (``csrc/flow_ring.cuh``):
+  :func:`ring_slice_operand`, a product's B operand as ``wgmma`` reads a
+  warpgroup's columns from a staged slice; :func:`ring_lane_rows`, the rows
+  and depth each lane hands to ``ldmatrix`` for A, the k-tap conv's tap
+  one row further each; :func:`ring_accumulator_cells`, the (row, column)
+  of each accumulator register of a warpgroup's product, and
+  :func:`ring_gate_channels`, the gate's channel of each column pair.
 
 Nothing here runs in the port's paths; each function mirrors a line of
 device code named in its docstring.
@@ -151,4 +158,86 @@ def wgrad_slices(lengths: List[int], samples_per_chunk: int
         for b in range(begin, min(begin + samples_per_chunk, b_count)):
             for frame in range(0, lengths[b], WGRAD_SLICE):
                 out.append((chunk, b, frame))
+    return out
+
+
+def ring_slice_operand(image: torch.Tensor, warpgroup: int, nw: int,
+                       j: int, k: int) -> torch.Tensor:
+    """``[96, 16]``: the B operand (columns by depths) of the ``wgmma``
+    that warpgroup ``warpgroup`` issues for its ``j``-th 96 columns of a
+    product whose warpgroups take ``nw`` x 96 columns each, at the 16-deep
+    step ``k`` of a staged slice ``image`` (a ring slot, 1024-byte aligned,
+    64-deep rows in the 128-byte swizzle): the descriptor's start is the
+    slot's plus ``128 (warpgroup nw + j) 96 + 32 k`` bytes (``ring_gemm``'s
+    ``b0``)."""
+    return wgmma_k_major_rows(image, (warpgroup * nw + j) * 96, 96, k)
+
+
+def ring_lane_rows(pitch: int, tap: int = 0) -> torch.Tensor:
+    """``[4, 32]``: the byte offset, from a bfloat16 tile's row 0, each lane
+    of warp ``w`` of a warpgroup hands to ``ldmatrix.x4`` for its 16 rows
+    of a 16 x 16 A block (rows ``pitch`` bytes apart), with the k-tap
+    conv's tap ``tap`` ``tap`` rows further on (``ring_lane_at`` plus the
+    tap's rows in ``ring_flow_step_tile``): row ``16 w + (l % 8) + 8 ((l /
+    8) % 2) + tap``, depth ``8 (l / 16)``."""
+    lane = torch.arange(32)[None, :]
+    warp = torch.arange(4)[:, None]
+    return ((16 * warp + lane % 8 + 8 * ((lane // 8) % 2) + tap) * pitch
+            + 16 * (lane // 16))
+
+
+def ring_accumulator_cells(nw: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(rows, columns)``, each ``[4, 32, nw, 48]``: the tile row and the
+    column of its warpgroup's half of register ``e`` of accumulator ``j``
+    of lane ``l`` of warp ``w`` of a warpgroup (``ring_gemm``'s epilogue
+    calls): row ``16 w + g + 8 h``, column ``96 j + 8 n + 2 t + p`` for
+    ``e = 4 n + 2 h + p``, lane ``4 g + t``."""
+    w = torch.arange(4)[:, None, None, None]
+    lane = torch.arange(32)[None, :, None, None]
+    j = torch.arange(nw)[None, None, :, None]
+    e = torch.arange(48)[None, None, None, :]
+    g, t = lane // 4, lane % 4
+    n, h, p = e // 4, (e // 2) % 2, e % 2
+    rows = 16 * w + g + 8 * h + 0 * j
+    cols = 96 * j + 8 * n + 2 * t + p + 0 * w
+    return rows.expand(4, 32, nw, 48), cols.expand(4, 32, nw, 48)
+
+
+def ring_gate_channels(warpgroup: int, columns: torch.Tensor) -> torch.Tensor:
+    """The gate's channel whose tanh (even column) or sigmoid (odd) half a
+    k-tap conv column of warpgroup ``warpgroup``'s half holds (its
+    epilogue's ``(192 wg + col) / 2``)."""
+    return (192 * warpgroup + columns) // 2
+
+
+def ring_program(channels: int, reverse: bool, layers: int = 4,
+                 taps: int = 5, ch: int = 192
+                 ) -> List[Tuple[str, object, int]]:
+    """``(ring weight, layer or None, slice)`` of each position ``p`` of a
+    tile's program as ``ring_slice`` maps it (forward: the mixing first;
+    then the start conv, each layer's k-tap and res/skip slices, the end
+    conv; reverse: the mixing last), one entry a position."""
+    def slices(depth):
+        return -(-depth // (ROW_BYTES // 2))
+    s_mix, s_start = slices(channels), slices(channels // 2)
+    s_in, s_rs, s_end = slices(taps * ch), slices(ch), slices(ch)
+    out = []
+    for p in range(s_mix + s_start + layers * (s_in + s_rs) + s_end):
+        if not reverse:
+            if p < s_mix:
+                out.append(('mix_ring', None, p))
+                continue
+            p -= s_mix
+        if p < s_start:
+            out.append(('start_ring', None, p))
+            continue
+        p -= s_start
+        if p < layers * (s_in + s_rs):
+            layer, q = divmod(p, s_in + s_rs)
+            out.append(('in_ring', layer, q) if q < s_in
+                       else ('rs_ring', layer, q - s_in))
+            continue
+        p -= layers * (s_in + s_rs)
+        out.append(('end_ring', None, p) if p < s_end
+                   else ('mix_ring', None, p - s_end))
     return out

@@ -59,7 +59,13 @@ the stream between the steps in bfloat16, as the TPU kernel's carry is in
 ``dt``.  Their kernels are builds of each source with ``GLOW_BF16``
 (:func:`build_defines`), whose big products run on the tensor cores with
 bfloat16 operands (``mma.sync.m16n8k16``) on weights laid out once, where
-they are packed (:func:`tensor_core_weights` with ``dtype``).
+they are packed (:func:`tensor_core_weights` with ``dtype``).  Those of
+``flow_step`` and ``flow_stack`` run a body of their own for Hopper
+(``csrc/flow_ring.cuh``: :data:`RING_TIME_TILE`-frame tiles, every product
+on ``wgmma`` over weight slices staged through a ring in shared memory),
+which takes its products' weights in :func:`ring_layout_bf16`
+(:func:`ring_weights`, under :data:`RING_KEYS`' names, packed once by
+``FlowStep.weights``).
 """
 
 from __future__ import annotations
@@ -103,8 +109,34 @@ TC_KEYS = {'w_in': 'w_in_tc', 'w_rs': 'w_rs_tc'}
 # (f32 accuracy), 1 a single TF32 pass (3 digits, kept for measuring)
 TF32_PASSES = 3
 # frames of a time tile of every flow kernel (Shipped::TT in
-# csrc/flow_common.cuh)
+# csrc/flow_common.cuh) but the bfloat16 builds of flow_step and flow_stack
 TIME_TILE = 32
+# and of theirs (RingShape::TT in csrc/flow_ring.cuh: with the halo, one
+# 64-row block of wgmma)
+RING_TIME_TILE = 48
+# the ring body's weights (csrc/flow_ring.cuh::RingWeights): the five
+# products' in ring_layout_bf16, in the kernel's slots of the weights whose
+# layout they hold
+RING_KEYS = {'mix_t': 'mix_ring', 'w_start': 'start_ring', 'w_in': 'in_ring',
+             'w_rs': 'rs_ring', 'w_end': 'end_ring'}
+# a ring slice's depth (flow_ring.cuh's kRingDepth: a 128-byte row of B a
+# column), and the columns (rows of B) a warpgroup takes of a 1x1 conv
+# (each output half padded to it) and of a WaveNet product
+RING_DEPTH = 64
+RING_HALF_SMALL = 96
+RING_HALF_BIG = 192
+# the sources whose bfloat16 builds run the ring body
+RING_SOURCES = ('flow_step.cu', 'flow_stack.cu')
+# for measuring (tools/time_flow.py bars): the ring body's summing depth
+# (GLOW_RING_SUM_DEPTH: 16, 64 or 0 for a product's whole depth), None the
+# one csrc/flow_ring.cuh ships; set before the first bfloat16 launch
+RING_SUM_DEPTH: Optional[int] = None
+# the phases a tile of the ring body's timed instantiation clocks
+# (csrc/flow_ring.cuh::RingPhase), in order
+RING_PHASES = ('load (forward: ActNorm, mixing)', 'start conv',
+               *(f'layer {i} {part}' for i in range(4)
+                 for part in ('k-tap conv + gate', 'res/skip conv')),
+               'skip sum + end conv', 'affine + store (reverse: mixing)')
 # what a launch over the live tiles reports when asked (``tiles`` of
 # :func:`_flow_step_kernel`, :func:`_coupling_kernel`,
 # :func:`_flow_stack_kernel` and ``coupling_grad._apply_kernels``;
@@ -217,6 +249,75 @@ def tensor_core_layout_bf16(w: torch.Tensor) -> torch.Tensor:
     blocks = blocks.permute(*range(d), d, d + 4, d + 5, d + 2, d + 1, d + 3)
     return blocks.to(torch.bfloat16).reshape(*lead, k // 16, n // 8, 32,
                                              4).contiguous()
+
+
+def ring_layout_bf16(w: torch.Tensor, half_rows: int) -> torch.Tensor:
+    """``w [..., K, N]`` (N even, ``N / 2 <= half_rows``) rounded to
+    bfloat16 and laid out as the ring body stages it (``csrc/flow_ring.cuh``):
+    ``[..., S, 2 half_rows, D]``, the depth padded with zeros to ``S``
+    slices of ``D`` = :data:`RING_DEPTH`.  Slice ``s`` is the B operand of
+    ``wgmma`` for the depths ``D s ..``, K-major: row ``n`` holds column
+    ``h N/2 + j`` of ``w`` for ``n = h half_rows + j`` (``j < N/2``; the
+    rest of each half zero), its 16-byte chunk ``c`` (depths ``D s + 8 c
+    ..``) stored at chunk ``c ^ (n % 8)`` of the row: the 128-byte swizzle
+    (``bf16_mma.cuh::sw128``), so that one bulk copy stages a slice as it
+    lies.  A permutation of ``w``'s values and zeros."""
+    *lead, k, n = w.shape
+    half = n // 2
+    chunks = RING_DEPTH // 8
+    depth = -(-k // RING_DEPTH) * RING_DEPTH
+    rows = w.new_zeros((*lead, depth, 2, half_rows), dtype=torch.float32)
+    rows[..., :k, :, :half] = w.float().reshape(*lead, k, 2, half)
+    rows = rows.reshape(*lead, depth // RING_DEPTH, chunks, 8, 2 * half_rows)
+    d = len(lead)
+    # [..., slice, chunk, element, row] -> [..., slice, row, chunk, element]
+    rows = rows.permute(*range(d), d, d + 3, d + 1, d + 2)
+    row = torch.arange(2 * half_rows, device=w.device)[:, None]
+    chunk = torch.arange(chunks, device=w.device)[None, :]
+    # the chunk stored at c came from chunk c ^ (row % 8)
+    swizzled = rows[..., row, chunk ^ (row % chunks), :]
+    return swizzled.reshape(*lead, depth // RING_DEPTH, 2 * half_rows,
+                            RING_DEPTH).to(torch.bfloat16).contiguous()
+
+
+def ring_weights(weights: Weights) -> Dict[str, torch.Tensor]:
+    """The ring body's weights (:data:`RING_KEYS`) of those among
+    ``mix_t``, ``w_start``, ``w_in`` (gate columns interleaved), ``w_rs``
+    and ``w_end`` that ``weights`` hold, any leading axes (a stack of flow
+    steps), in :func:`ring_layout_bf16`: the 1x1 convs' output halves each
+    padded to :data:`RING_HALF_SMALL` columns, the WaveNet products' halves
+    :data:`RING_HALF_BIG` wide.  Computed without gradient."""
+    halves = {'mix_t': RING_HALF_SMALL, 'w_start': RING_HALF_SMALL,
+              'w_in': RING_HALF_BIG, 'w_rs': RING_HALF_BIG,
+              'w_end': RING_HALF_SMALL}
+    with torch.no_grad():
+        out = {}
+        for key, name in RING_KEYS.items():
+            if key not in weights:
+                continue
+            w = weights[key].float()
+            if key == 'w_in':
+                w = interleave_gate(w)
+            out[name] = ring_layout_bf16(w, halves[key])
+        return out
+
+
+def ring_shapes(c: int, n: int, k: int, ch: int) -> Dict[str, tuple]:
+    """The shapes of one flow step's :func:`ring_weights` at ``c`` flow
+    channels and the WaveNet's ``n`` layers of ``k`` taps, ``ch`` wide."""
+    def slices(depth):
+        return -(-depth // RING_DEPTH)
+    small, big = 2 * RING_HALF_SMALL, 2 * RING_HALF_BIG
+    return {'mix_ring': (slices(c), small, RING_DEPTH),
+            'start_ring': (slices(c // 2), small, RING_DEPTH),
+            'in_ring': (n, slices(k * ch), big, RING_DEPTH),
+            'rs_ring': (n, slices(ch), big, RING_DEPTH),
+            'end_ring': (slices(ch), small, RING_DEPTH)}
+
+
+def ring_keys(keys) -> Tuple[str, ...]:
+    """``keys`` as the ring body takes them (:data:`RING_KEYS`)."""
+    return tuple(RING_KEYS.get(key, key) for key in keys)
 
 
 def interleave_gate(w_in: torch.Tensor) -> torch.Tensor:
@@ -550,13 +651,15 @@ def _check_weights(name: str, x: torch.Tensor, pitch, channels: int,
                    tensors: Dict[str, Tuple[torch.Tensor, tuple]],
                    shapes: Dict[str, tuple], steps: Optional[int] = None,
                    views=None, dtypes=None,
-                   dtype: torch.dtype = torch.float32) -> None:
+                   dtype: torch.dtype = torch.float32,
+                   ring: bool = False) -> None:
     """:func:`_check_launch` on ``tensors`` (of ``dtypes``), the f32
     ``weights`` of ``shapes`` and their tensor-core layout for a kernel of
-    ``dtype``, which ``weights`` must carry: it is made once, where the
-    weights are packed, not at every launch.  With a ``pitch [B, T, ps]``
-    operand (``ps`` the width of ``channels``, :func:`pitch_width`),
-    ``weights`` carry ``w_pitch [(S,) n, ps, 2ch]`` too."""
+    ``dtype`` (with ``ring``, the ring body's :func:`ring_weights`), which
+    ``weights`` must carry: it is made once, where the weights are packed,
+    not at every launch.  With a ``pitch [B, T, ps]`` operand (``ps`` the
+    width of ``channels``, :func:`pitch_width`), ``weights`` carry
+    ``w_pitch [(S,) n, ps, 2ch]`` too."""
     w_in_shape = weights['w_in'].shape[0 if steps is None else 1:]
     lead = () if steps is None else (steps,)
     ps = 0 if pitch is None else pitch.shape[-1]
@@ -575,13 +678,25 @@ def _check_weights(name: str, x: torch.Tensor, pitch, channels: int,
         **tensors,
         **{key: (weights[key], shape) for key, shape in shapes.items()}},
         views, dtypes)
+    n, k, ch, _ = w_in_shape
+    if ring:
+        missing = [key for key in RING_KEYS.values() if key not in weights]
+        if missing:
+            raise ValueError(
+                f'{name}: the weights lack {missing}, the ring body\'s '
+                'slices; lay them out once where the weights are packed '
+                '(ring_weights; FlowStep.weights caches them)')
+        _check_launch(name, x, channels, w_in_shape, {
+            key: (weights[key], lead + ring_shapes(channels, n, k, ch)[key])
+            for key in RING_KEYS.values()},
+            dtypes=dict.fromkeys(RING_KEYS.values(), torch.bfloat16))
+        return
     missing = [key for key in TC_KEYS.values() if key not in weights]
     if missing:
         raise ValueError(
             f'{name}: the weights lack {missing}, w_in and w_rs split for '
             'the tensor cores; split them once where the weights are packed '
             '(with_tensor_core_weights; FlowStep.pack caches them)')
-    n, k, ch, _ = w_in_shape
     tc_dtype = torch.float32 if dtype == torch.float32 else torch.bfloat16
     _check_launch(name, x, channels, w_in_shape, {
         key: (weights[key],
@@ -649,13 +764,16 @@ def flow_step(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
 
 def _flow_step_kernel(x, mask, weights, cond, reverse=False, pitch=None,
                       passes: int = TF32_PASSES,
-                      tiles: Optional[torch.Tensor] = None):
+                      tiles: Optional[torch.Tensor] = None,
+                      clocks: Optional[torch.Tensor] = None):
     """:func:`flow_step`'s launch, with the TF32 passes of its products
     (1 for measuring; a bfloat16 build has one bfloat16 pass and takes 3)
     and, for measuring, a :func:`tile_report` to fill.  A bfloat16 ``x``
-    goes to the bfloat16 build, with the conditioning rows and the pitch
-    operand rounded to bfloat16 here, as the TPU kernel's wrapper casts
-    them."""
+    goes to the bfloat16 build (the ring body, on :func:`ring_weights`),
+    with the conditioning rows and the pitch operand rounded to bfloat16
+    here, as the TPU kernel's wrapper casts them.  ``clocks`` (bfloat16
+    only, for measuring: :func:`flow_step_phases`) launches the timed
+    instantiation, which no launch count counts."""
     b, t, c = x.shape
     n, k, ch, ch2 = weights['w_in'].shape
     bf16 = x.dtype == torch.bfloat16
@@ -666,10 +784,13 @@ def _flow_step_kernel(x, mask, weights, cond, reverse=False, pitch=None,
     _check_weights('flow_step', x, pitch, c, weights, {
         'x': (x, (b, t, c)), 'mask': (mask, (b, t, 1)),
         'cond': (cond, (n, b, ch2))}, shapes, dtypes={'x': dtype},
-        dtype=dtype)
+        dtype=dtype, ring=bf16)
     if passes not in (1, 3) or (bf16 and passes != 3):
         raise ValueError(f'flow_step: passes is 1 or 3 (3 at bfloat16), '
                          f'got {passes}')
+    if clocks is not None and not bf16:
+        raise ValueError('flow_step: the timed instantiation is the '
+                         'bfloat16 build\'s')
     tiles_ptr = tile_report_pointer('flow_step', tiles, x)
     cond, pitch = _rounded_operands(cond, pitch, dtype)
 
@@ -683,15 +804,49 @@ def _flow_step_kernel(x, mask, weights, cond, reverse=False, pitch=None,
         ld_part = torch.empty((b, n_tiles), device=x.device)
         ld_ptr = weights['ld_const'].data_ptr()
         part_ptr = ld_part.data_ptr()
-    inputs = [x, mask, cond] + [weights[key]
-                                for key in kernel_keys(WEIGHT_KEYS)]
-    _raise_on('flow_step', lib, lib.glow_flow_step_f32(
-        *[p.data_ptr() for p in inputs[:3]], *_pitch_pointers(pitch, weights),
-        *[p.data_ptr() for p in inputs[3:]], ld_ptr, z.data_ptr(), part_ptr,
-        tiles_ptr, b, t, int(reverse), passes,
-        torch.cuda.current_stream(x.device).cuda_stream))
-    count_launches(flow_step, '', c, pitch is not None, bf16=bf16)
+    keys = ring_keys(WEIGHT_KEYS) if bf16 else kernel_keys(WEIGHT_KEYS)
+    inputs = [x, mask, cond] + [weights[key] for key in keys]
+    pointers = [*[p.data_ptr() for p in inputs[:3]],
+                *_pitch_pointers(pitch, weights),
+                *[p.data_ptr() for p in inputs[3:]], ld_ptr, z.data_ptr(),
+                part_ptr, tiles_ptr, b, t, int(reverse)]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if clocks is not None:
+        _raise_on('flow_step', lib, lib.glow_flow_step_timed(
+            *pointers, stream, clocks.data_ptr()))
+    else:
+        _raise_on('flow_step', lib, lib.glow_flow_step_f32(
+            *pointers, passes, stream))
+        count_launches(flow_step, '', c, pitch is not None, bf16=bf16)
     return z, (None if ld_part is None else ld_part.sum(dim=1))
+
+
+def flow_step_phases(x, mask, weights, cond, reverse=False, pitch=None):
+    """The bfloat16 ``flow_step``'s timed instantiation (a CUDA bfloat16
+    ``x``; not counted): ``(z, logdet, phases)``, ``phases`` the mean
+    cycles a computed tile spends in each of :data:`RING_PHASES`, the
+    tiles and rounds the launch reports, and the SM clock in GHz (cycles
+    over ``%globaltimer`` ns, over the blocks' whole runs)."""
+    b, t, c = x.shape
+    lib = load_flow_step_library(pitch is not None, c, True)
+    blocks = lib.glow_flow_step_resident_blocks(b)
+    if blocks < 0:
+        raise RuntimeError('flow_step: ' + lib.glow_cuda_error_string(
+            -blocks).decode())
+    clocks = torch.zeros((blocks, lib.glow_flow_step_clock_slots()),
+                         dtype=torch.int64, device=x.device)
+    tiles = tile_report(x.device)
+    z, ld = _flow_step_kernel(x, mask, weights, cond, reverse, pitch,
+                              tiles=tiles, clocks=clocks)
+    torch.cuda.synchronize(x.device)
+    report = dict(zip(TILE_COUNTS, tiles.tolist()))
+    sums = clocks.sum(dim=0).tolist()
+    n = len(RING_PHASES)
+    return z, ld, {
+        'cycles': {phase: sums[i] / max(report['computed'], 1)
+                   for i, phase in enumerate(RING_PHASES)},
+        'tiles': report['computed'], 'rounds': report['rounds'],
+        'sm_ghz': sums[n] / max(sums[n + 1], 1)}
 
 
 zero_launch_counts(flow_step)
@@ -784,7 +939,7 @@ def _flow_stack_kernel(x, mask, weights, cond, pitch=None, reverse=False,
     _check_weights('flow_stack', x, pitch, c, weights, {
         'x': (x, (b, t, c)), 'mask': (mask, (b, t, 1)),
         'cond': (cond, (steps, n, b, ch2))}, shapes, steps=steps,
-        dtypes={'x': dtype}, dtype=dtype)
+        dtypes={'x': dtype}, dtype=dtype, ring=bf16)
     tiles_ptr = tile_report_pointer('flow_stack', tiles, x)
     cond, pitch = _rounded_operands(cond, pitch, dtype)
 
@@ -803,8 +958,8 @@ def _flow_stack_kernel(x, mask, weights, cond, pitch=None, reverse=False,
         # kernel and over the tiles below, in a fixed order
         ld_part = torch.empty((b, n_tiles), device=x.device)
         ld_ptr = weights['ld_const'].data_ptr()
-    inputs = [x, mask, cond] + [weights[key]
-                                for key in kernel_keys(WEIGHT_KEYS)]
+    keys = ring_keys(WEIGHT_KEYS) if bf16 else kernel_keys(WEIGHT_KEYS)
+    inputs = [x, mask, cond] + [weights[key] for key in keys]
     _raise_on('flow_stack', lib, lib.glow_flow_stack_f32(
         *[p.data_ptr() for p in inputs[:3]], *_pitch_pointers(pitch, weights),
         *[p.data_ptr() for p in inputs[3:]], ld_ptr, z.data_ptr(),
@@ -825,9 +980,13 @@ def load_flow_library(source: str, pitch: bool = False,
     """Build (at first use) and load the flow kernel source ``csrc/
     <source>`` for ``channels`` flow channels (its pitch instantiation with
     ``pitch``, for the pitch operand's width at ``channels``; its bfloat16
-    build with ``bf16``), held to the width it reports."""
+    build with ``bf16``, the ring body's at :data:`RING_SUM_DEPTH` where
+    that is set), held to the width it reports."""
     from glow_tts_tpu_torch.ops.cuda_build import load_library
-    lib = load_library(source, build_defines(channels, pitch, bf16))
+    defines = build_defines(channels, pitch, bf16)
+    if bf16 and source in RING_SOURCES and RING_SUM_DEPTH is not None:
+        defines += (f'GLOW_RING_SUM_DEPTH={RING_SUM_DEPTH}',)
+    lib = load_library(source, defines)
     lib.glow_flow_channels.argtypes = []
     lib.glow_flow_channels.restype = ctypes.c_int
     if lib.glow_flow_channels() != channels:
@@ -864,11 +1023,18 @@ def load_flow_step_library(pitch: bool = False,
                            channels: int = SHIPPED_CHANNELS,
                            bf16: bool = False) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    return _load('flow_step.cu', 'glow_flow_step_f32',
-                 [vp] * (5 + len(WEIGHT_KEYS) + 4) + [ci, ci, ci, ci, vp],
-                 pitch, channels,
-                 extra=(('glow_flow_step_resident_blocks', [ci]),),
-                 bf16=bf16)
+    lib = _load('flow_step.cu', 'glow_flow_step_f32',
+                [vp] * (5 + len(WEIGHT_KEYS) + 4) + [ci, ci, ci, ci, vp],
+                pitch, channels,
+                extra=(('glow_flow_step_resident_blocks', [ci]),), bf16=bf16)
+    if bf16:
+        # the ring body's timed instantiation
+        lib.glow_flow_step_timed.argtypes = (
+            [vp] * (5 + len(WEIGHT_KEYS) + 4) + [ci, ci, ci, vp, vp])
+        lib.glow_flow_step_timed.restype = ci
+        lib.glow_flow_step_clock_slots.argtypes = []
+        lib.glow_flow_step_clock_slots.restype = ci
+    return lib
 
 
 @functools.cache

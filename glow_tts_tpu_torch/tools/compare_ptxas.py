@@ -13,9 +13,9 @@ both sides' lines where they differ): MAS's one build, and each flow
 source's shipped build, its pitch build (``-DGLOW_PITCH``), its
 80-channel build (``-DGLOW_CHANNELS=80``), the two together, and the
 bfloat16 builds (``-DGLOW_BF16``) of the four; except the bfloat16
-builds of the sources in ``REDESIGNED_BF16``, whose designs this tree
-changed (#5 and #6, which have bfloat16 designs of their own), which are
-printed.  Exits 1 if a compared build differs or fails.  Needs ``nvcc``.
+builds of the sources in ``REDESIGNED_BF16``, which have bfloat16 designs
+of their own (#3, #4, #5 and #6) and are printed.  Exits 1 if a compared
+build differs or fails.  Needs ``nvcc``.
 """
 
 from __future__ import annotations
@@ -36,8 +36,9 @@ F32_BUILDS = ((), ('GLOW_PITCH',), ('GLOW_CHANNELS=80',),
               ('GLOW_PITCH', 'GLOW_CHANNELS=80'))
 BF16_BUILDS = tuple(d + ('GLOW_BF16',) for d in F32_BUILDS)
 # the sources whose bfloat16 builds have designs of their own in this
-# tree: printed, not compared
-REDESIGNED_BF16 = ('flow_train_fwd.cu', 'flow_train_bwd.cu')
+# tree: printed, not compared (#3 and #4 run flow_ring.cuh's body)
+REDESIGNED_BF16 = ('flow_step.cu', 'flow_stack.cu', 'flow_train_fwd.cu',
+                   'flow_train_bwd.cu')
 
 
 def compared(source: str) -> tuple:

@@ -62,7 +62,12 @@ chain of the flow step's bf16 launches (the stream bfloat16 between the
 steps) and to the bar against its plain version.  The pitch operand 1
 wide at 80 channels (the 80-channel pitch builds) in every flow kernel, at f32
 and bf16, against the plain versions, and the 2-wide operand refused
-there.
+there.  The Hopper body of #3's and #4's bf16 builds (``csrc/flow_ring.cuh``)
+at every build and in both directions: two runs bit-equal, NaN planted in x
+past each sample's length and in the dead tiles reaching neither z nor the
+logdet, #4 bit for bit against 12 launches of #3, a ragged B = 33 with T
+not a multiple of its 48-frame tile, B = 1 at the tile's edges, and its
+timed instantiation equal to it.
 Needs a GPU and nvcc; skipped without.
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -1567,6 +1572,14 @@ def _norm_rel(a, b):
         1e-30)).item()
 
 
+def _bf16_pack(w):
+    """``w`` as the bfloat16 builds take it: the tensor-core layout and the
+    rounded weights, and the ring body's slices (``FlowStep.weights``
+    packs the same once)."""
+    return {**tc.with_tensor_core_weights(w, torch.bfloat16),
+            **tc.ring_weights(w)}
+
+
 def _bf16_counts():
     return (tc.flow_step.bf16_launches, tc.flow_step.bf16_pitch_launches,
             tc.flow_step.bf16_c80_launches)
@@ -1582,7 +1595,7 @@ def test_bf16_flow_step_matches_plain(device, c, length, reverse):
     mask = (torch.arange(length)[None, :] < lengths[:, None]).float()[..., None]
     x = (torch.randn((4, length, c), generator=gen) * mask).to(device)
     x16, mask = x.to(torch.bfloat16), mask.to(device)
-    w16 = tc.with_tensor_core_weights(w, torch.bfloat16)
+    w16 = _bf16_pack(w)
     assert w16['w_in_tc'].dtype == torch.bfloat16
     before = _bf16_counts()
     z, ld = tc.flow_step(x16, mask, w16, cond, reverse)
@@ -1611,8 +1624,7 @@ def test_bf16_flow_step_with_pitch_matches_plain(device, length, reverse):
     w, pitch = _with_pitch(gen, w, 4, length, device)
     x16 = x.to(torch.bfloat16)
     before = tc.flow_step.bf16_pitch_launches
-    z, _ = tc.flow_step(x16, mask, tc.with_tensor_core_weights(
-        w, torch.bfloat16), cond, reverse, pitch=pitch)
+    z, _ = tc.flow_step(x16, mask, _bf16_pack(w), cond, reverse, pitch=pitch)
     torch.cuda.synchronize()
     assert tc.flow_step.bf16_pitch_launches == before + 1
     z16, _ = tc.flow_step_reference(x16, mask, w, cond, reverse, pitch)
@@ -1752,7 +1764,7 @@ def test_bf16_builds_report_their_width_and_refuse_other_routes(device):
     mask = torch.ones((4, 8, 1), device=device)
     # no route refuses bf16 any more: the coupling (#2) and the stack (#4)
     # take it on their bf16 builds and agree with their plain versions
-    w16 = tc.with_tensor_core_weights(w, torch.bfloat16)
+    w16 = _bf16_pack(w)
     z_b, _ = tc.coupling(x[..., :80], x[..., 80:], mask, w16, cond)
     ref16, _ = tc.coupling_reference(x[..., :80], x[..., 80:], mask, w, cond)
     ref32, _ = tc.coupling_reference(x[..., :80].float(), x[..., 80:].float(),
@@ -1765,8 +1777,9 @@ def test_bf16_builds_report_their_width_and_refuse_other_routes(device):
     z_step, _ = tc.flow_step(x, mask, w16, cond)
     torch.cuda.synchronize()
     assert z.dtype == torch.bfloat16 and torch.equal(z, z_step)
-    # the f32 layout is refused by the bf16 builds
-    with pytest.raises(ValueError, match='w_in_tc'):
+    # the f32 layout is refused by the bf16 builds (the flow step's takes
+    # the ring body's slices)
+    with pytest.raises(ValueError, match='ring'):
         tc.flow_step(x, mask, w, cond)
     with pytest.raises(ValueError, match='w_in_tc'):
         tc.coupling(x[..., :80], x[..., 80:], mask, w, cond)
@@ -1860,7 +1873,7 @@ def test_bf16_flow_stack_is_the_bf16_chain_bit_for_bit(device, case,
     p = None
     if pitch:
         w, p = _with_pitch(gen, w, len(lengths), t, device, steps=steps, c=c)
-    w16 = tc.with_tensor_core_weights(w, torch.bfloat16)
+    w16 = _bf16_pack(w)
     mask = _ragged_mask(lengths, holes, t, device)
     x = (torch.randn((len(lengths), t, c), generator=gen) * 3).to(
         device, torch.bfloat16)
@@ -1947,8 +1960,7 @@ def test_bf16_c80_pitch_kernels_match_plain(device):
     x16 = x.to(torch.bfloat16)
     before = tc.flow_step.bf16_c80_pitch_launches
     for reverse in (False, True):
-        z, _ = tc.flow_step(x16, mask, tc.with_tensor_core_weights(
-            w, torch.bfloat16), cond, reverse, pitch=p)
+        z, _ = tc.flow_step(x16, mask, _bf16_pack(w), cond, reverse, pitch=p)
         z16, _ = tc.flow_step_reference(x16, mask, w, cond, reverse, p)
         z32, _ = tc.flow_step_reference(x16.float(), mask, w, cond, reverse,
                                         p)
@@ -2001,3 +2013,128 @@ def test_bf16_train_gradients_ignore_rows_left_unwritten(device, planted_nan,
     results = _train_bf16(device, [150, 70, 1, 140], 0.05, with_cond=True,
                           route=route)
     _assert_bf16_train_agrees(*results)
+
+
+# the ring body's builds (csrc/flow_ring.cuh): flow channels, pitch operand
+RING_BUILDS = [(160, False), (160, True), (C80, False), (C80, True)]
+
+
+def _ring_problem(gen, device, lengths, t, c, pitch, steps=12):
+    """Stacked weights of ``steps`` flow steps with the ring body's slices,
+    conditioning rows, a pitch operand or None, bfloat16 x on the ragged
+    mask (zero past each length) and the mask."""
+    w = _stack_weights(gen, device, steps=steps, c=c)
+    del w['b_in']
+    p = None
+    if pitch:
+        w, p = _with_pitch(gen, w, len(lengths), t, device, steps=steps, c=c)
+    w16 = _bf16_pack(w)
+    mask = _ragged_mask(lengths, {}, t, device)
+    x = (torch.randn((len(lengths), t, c), generator=gen) * 3).to(device)
+    cond = (torch.randn((steps, 4, len(lengths), 384), generator=gen) * .2
+            ).to(device)
+    return w, w16, cond, p, (x * mask).to(torch.bfloat16), mask
+
+
+@pytest.mark.parametrize('c,pitch', RING_BUILDS)
+@pytest.mark.parametrize('reverse', [False, True])
+def test_bf16_ring_body_ignores_what_lies_past_each_length(device, c, pitch,
+                                                           reverse,
+                                                           planted_nan):
+    """#3's and #4's bf16 ring body on a ragged B = 33 with T = 333 (not a
+    multiple of its 48-frame tile): two runs bit-equal; x planted with NaN
+    past each sample's length (the live tiles' tails and the dead tiles)
+    gives z and the logdet bit for bit as x with zeros there, zeros past
+    each length; #4 bit for bit against 12 launches of #3, and both to the
+    bar against their bf16 plain versions."""
+    gen = torch.Generator().manual_seed(400 + c + 2 * pitch + reverse)
+    t = 333
+    lengths = torch.linspace(1, t, 33).round().long().tolist()
+    lengths[5] = 47
+    w, w16, cond, p, x, mask = _ring_problem(gen, device, lengths, t, c,
+                                             pitch)
+    planted = x.masked_fill(mask == 0, float('nan'))
+    step = {key: value[0] for key, value in w16.items()}
+    z, ld = tc.flow_step(x, mask, step, cond[0].contiguous(), reverse,
+                         pitch=p)
+    again, ld_again = tc.flow_step(x, mask, step, cond[0].contiguous(),
+                                   reverse, pitch=p)
+    nan_z, nan_ld = tc.flow_step(planted, mask, step, cond[0].contiguous(),
+                                 reverse, pitch=p)
+    stack, stack_ld = tc.flow_stack(x, mask, w16, cond, pitch=p,
+                                    reverse=reverse)
+    nan_stack, _ = tc.flow_stack(planted, mask, w16, cond, pitch=p,
+                                 reverse=reverse)
+    chain = x
+    for s in (reversed(range(12)) if reverse else range(12)):
+        chain, _ = tc.flow_step(chain, mask, {key: value[s] for key, value
+                                              in w16.items()},
+                                cond[s].contiguous(), reverse, pitch=p)
+    plain = {key: value[0] for key, value in w.items()}
+    z16, _ = tc.flow_step_reference(x, mask, plain, cond[0], reverse, p)
+    z32, _ = tc.flow_step_reference(x.float(), mask, plain, cond[0],
+                                    reverse, p)
+    s16, _ = tc.flow_stack_reference(x, mask, w, cond, p, reverse)
+    s32, _ = tc.flow_stack_reference(x.float(), mask, w, cond, p, reverse)
+    torch.cuda.synchronize()
+    for got in (again, nan_z):
+        assert torch.equal(got, z)
+    assert torch.equal(nan_stack, stack) and torch.equal(stack, chain)
+    assert (z[mask[..., 0] == 0] == 0).all()
+    assert (stack[mask[..., 0] == 0] == 0).all()
+    if not reverse:
+        assert torch.equal(ld, ld_again) and torch.equal(ld, nan_ld)
+    for got, p16, p32 in ((z, z16, z32), (stack, s16, s32)):
+        err, bar = _bf16_err(got, p16, p32)
+        assert err <= bar, (err, bar)
+
+
+@pytest.mark.parametrize('c,pitch', RING_BUILDS)
+@pytest.mark.parametrize('t', [1, 47, 48, 49, 512])
+def test_bf16_ring_body_at_batch_one(device, c, pitch, t):
+    """B = 1 at tile edges (below, at and above one 48-frame tile, and the
+    decode shape's 512), both directions, #4 over 3 steps bit for bit
+    against the chain of #3 and both to the bar against their plain
+    versions."""
+    gen = torch.Generator().manual_seed(450 + t + c + pitch)
+    w, w16, cond, p, x, mask = _ring_problem(gen, device, [t], t, c, pitch,
+                                             steps=3)
+    for reverse in (False, True):
+        stack, _ = tc.flow_stack(x, mask, w16, cond, pitch=p,
+                                 reverse=reverse)
+        chain = x
+        for s in (reversed(range(3)) if reverse else range(3)):
+            chain, _ = tc.flow_step(chain, mask, {key: value[s] for key, value
+                                                  in w16.items()},
+                                    cond[s].contiguous(), reverse, pitch=p)
+        s16, _ = tc.flow_stack_reference(x, mask, w, cond, p, reverse)
+        s32, _ = tc.flow_stack_reference(x.float(), mask, w, cond, p,
+                                         reverse)
+        torch.cuda.synchronize()
+        assert torch.equal(stack, chain), reverse
+        err, bar = _bf16_err(stack, s16, s32)
+        assert err <= bar, (reverse, err, bar)
+
+
+def test_bf16_ring_timed_instantiation_is_the_kernel(device):
+    """The timed instantiation of #3's bf16 build gives the kernel's z and
+    logdet bit for bit, uncounted, with a cycle count for every phase of
+    every tile it reports."""
+    gen = torch.Generator().manual_seed(470)
+    lengths = [100, 1, 512, 300]
+    w, w16, cond, p, x, mask = _ring_problem(gen, device, lengths, 512, 160,
+                                             False, steps=1)
+    step = {key: value[0] for key, value in w16.items()}
+    for reverse in (False, True):
+        z, ld = tc.flow_step(x, mask, step, cond[0].contiguous(), reverse)
+        before = tc.flow_step.bf16_launches
+        z_t, ld_t, phases = tc.flow_step_phases(x, mask, step,
+                                                cond[0].contiguous(), reverse)
+        assert tc.flow_step.bf16_launches == before
+        assert torch.equal(z, z_t)
+        assert reverse or torch.equal(ld, ld_t)
+        assert phases['tiles'] == sum(-(-n // tc.RING_TIME_TILE)
+                                      for n in lengths)
+        assert set(phases['cycles']) == set(tc.RING_PHASES)
+        assert all(cycles > 0 for cycles in phases['cycles'].values())
+        assert 0.5 < phases['sm_ghz'] < 3.0

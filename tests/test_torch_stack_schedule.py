@@ -43,6 +43,9 @@ MASKS = {
 }
 GRIDS = ['1', '3', 'L', 'all']        # L: the live tiles of a step; all: more
                                       # blocks than items
+# the float32 builds' time tile and the bfloat16 build's (its ring body)
+TILES = pytest.mark.parametrize('tile', [tc.TIME_TILE, tc.RING_TIME_TILE],
+                                ids=['tt32', 'tt48'])
 
 
 def _mask(name):
@@ -97,13 +100,14 @@ def _interleave(items, grid, rng):
             running[g] = None
 
 
+@TILES
 @pytest.mark.parametrize('name', MASKS)
-def test_stack_schedule_lists_each_item_once_after_what_it_reads(name):
-    items, lengths, frames = _schedule(name)
-    tiles = tc.live_tile_schedule(lengths, frames)
+def test_stack_schedule_lists_each_item_once_after_what_it_reads(name, tile):
+    items, lengths, frames = _schedule(name, tile)
+    tiles = tc.live_tile_schedule(lengths, frames, tile)
     live = [(b, i) for b, i, alive in tiles if alive]
     dead = [(b, i) for b, i, alive in tiles if not alive]
-    n_tiles = -(-frames // tc.TIME_TILE)
+    n_tiles = -(-frames // tile)
     # the dead tiles first, once each, then each step's live tiles in the
     # live-tile order
     assert [(it.sample, it.tile) for it in items[:len(dead)]] == dead
@@ -126,11 +130,13 @@ def test_stack_schedule_lists_each_item_once_after_what_it_reads(name):
         assert not any(it.sample == 0 and it.live for it in items)
 
 
+@TILES
 @pytest.mark.parametrize('grid', GRIDS)
 @pytest.mark.parametrize('name', MASKS)
 def test_blocks_taking_items_in_order_finish_in_the_predicted_rounds(name,
-                                                                    grid):
-    items, _, _ = _schedule(name)
+                                                                    grid,
+                                                                    tile):
+    items, _, _ = _schedule(name, tile)
     blocks = _grid(grid, items)
     order = list(_interleave(items, blocks, np.random.default_rng(0)))
     finished = [n for kind, n in order if kind == 'finish']
@@ -142,11 +148,12 @@ def test_blocks_taking_items_in_order_finish_in_the_predicted_rounds(name,
     assert sum(per_block) == live
 
 
+@TILES
 @pytest.mark.parametrize('grid', GRIDS)
 @pytest.mark.parametrize('name', MASKS)
-def test_no_buffer_region_is_overwritten_before_it_is_read(name, grid):
-    items, lengths, frames = _schedule(name)
-    n_tiles = -(-frames // tc.TIME_TILE)
+def test_no_buffer_region_is_overwritten_before_it_is_read(name, grid, tile):
+    items, lengths, frames = _schedule(name, tile)
+    n_tiles = -(-frames // tile)
     blocks = _grid(grid, items)
     for seed in range(8):
         last_write = {}                   # (buffer, sample, tile) -> item

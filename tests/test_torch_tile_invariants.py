@@ -241,11 +241,13 @@ def test_packed_weights_leave_the_plain_flow_step_equal(reverse):
     assert (ld is None and ld2 is None) or torch.equal(ld, ld2)
 
 
+@pytest.mark.parametrize('tile', [tc.TIME_TILE, tc.RING_TIME_TILE])
 @pytest.mark.parametrize('lengths,frames', [
-    ([1, 32, 33, 512], 512), ([0, 5, 64], 70), ([100] * 3, 100), ([7], 7)])
+    ([1, 32, 33, 512], 512), ([0, 5, 64], 70), ([100] * 3, 100), ([7], 7),
+    ([47, 48, 49, 333], 333)])
 def test_live_tile_schedule_covers_the_tiles_below_each_length(lengths,
-                                                               frames):
-    tile = tc.TIME_TILE
+                                                               frames, tile):
+    """At the float32 builds' tile and at the bfloat16 flow step's."""
     items = tc.live_tile_schedule(lengths, frames, tile)
     n_tiles = -(-frames // tile)
     assert sorted((b, i) for b, i, _ in items) == [
