@@ -76,9 +76,11 @@ same batch by CUDA events and in a profiler window; a GR train step on the
 bf16 pitch builds; and a MiniSpeech ``Trainer`` at bf16 on the 80-channel
 bf16 builds.  Then bf16 under ``'modules'`` and ``'mega'``: the bf16 builds
 of #3, #2 and #4 (the shipped YAML, MiniSpeech's 80 channels, GR's pitch
-builds; #3's and #4's run the Hopper body of ``csrc/flow_ring.cuh``)
+builds; all three run the Hopper body of ``csrc/flow_ring.cuh``)
 against their bf16 plain versions (#4 also bit for bit against 12 × #3
-bf16) and timed beside their f32 builds, both directions, on the decode
+bf16; #2's z_b and logdet bit for bit against #3 bf16's on an identity
+ActNorm and mixing, and its tiles against its 48-frame schedule) and timed
+beside their f32 builds, both directions, on the decode
 and the eval batch's shapes, each beside its bound, the ActNorm init and two
 eval steps under each route beside the plain versions at bf16 and f32 and
 against 'fused', an ``Inferencer`` at ``inference_dtype`` bfloat16 under
@@ -242,19 +244,21 @@ def body_bounds(moved, flops):
             'fma_bound_ms': fma_ms, 'fma_bound_by': fma_by}
 
 
-def live_tiles(mask, launch, steps=1, stack=False):
+def live_tiles(mask, launch, steps=1, stack=False, tile=None):
     """What ``launch(tiles)`` reports from the card into ``tiles``
     (``coupling.TILE_COUNTS``: the list's live and all items, the live
     items computed, the rounds, the grid's blocks), held against the Python
     twin of its schedule: ``steps`` launches over the live tiles of the
     mask [B, T, 1] (``live_tile_schedule``), or, with ``stack``, the one
-    launch over ``steps`` flow steps (``stack_tile_schedule``)."""
+    launch over ``steps`` flow steps (``stack_tile_schedule``), at the time
+    tile of the library launched (default: the float32 builds')."""
     from glow_tts_tpu_torch.ops import coupling
     tiles = coupling.tile_report(mask.device)
     launch(tiles)
     got = dict(zip(coupling.TILE_COUNTS, tiles.tolist()))
     lengths = coupling.valid_lengths(mask).tolist()
-    tile = coupling.load_flow_step_library().glow_flow_step_time_tile()
+    if tile is None:
+        tile = coupling.load_flow_step_library().glow_flow_step_time_tile()
     if stack:
         items = coupling.stack_tile_schedule(lengths, mask.shape[1], steps,
                                              tile)
@@ -362,11 +366,10 @@ def step_frame_flops(weights) -> int:
 
 def coupling_weights(weights):
     """The coupling's own of a flow step's packed weights, with their
-    tensor-core layout."""
-    from glow_tts_tpu_torch.ops.coupling import COUPLING_WEIGHT_KEYS, TC_KEYS
-    return {key: weights[key]
-            for key in (*COUPLING_WEIGHT_KEYS, *TC_KEYS.values())
-            if key in weights}
+    tensor-core layout (float32) or the ring body's slices (bfloat16)."""
+    from glow_tts_tpu_torch.ops.coupling import COUPLING_PACK_KEYS
+    return {key: weights[key] for key in COUPLING_PACK_KEYS
+            if key in weights and key != 'w_pitch'}
 
 
 def ragged_batch(gen, b, t, c, device):
@@ -4472,8 +4475,77 @@ def flow_kernel_rows(model, device, eval_mask, label, dtype, pitch=False,
                 row.update(bounds)
             else:
                 row['eval_shape_bound_ms'] = bounds['bound_ms']
+        if bf16 and name == 'coupling':
+            row['schedule'] = check_coupling_identity(step, shapes, cond[0],
+                                                      label)
         rows[name] = row
     return rows
+
+
+def check_coupling_identity(step, shapes, cond, label):
+    """#2 bf16 against #3 bf16 on an identity ActNorm (logs and bias 0) and
+    mixing (I, zero-padded in the ring's slices) with no per-frame logdet
+    constant, on each of ``shapes`` (name: (x, mask, pitch operand)) in both
+    directions: #3's z must be [x_a, z_b of #2] bit for bit and the forward
+    logdets equal, since both run the ring body's WaveNet and affine; and
+    the tiles #2 reports held against its 48-frame schedule.  Returns the
+    tiles and rounds of each shape."""
+    from glow_tts_tpu_torch.ops.coupling import (RING_TIME_TILE,
+                                                 _coupling_kernel, flow_step,
+                                                 load_coupling_library,
+                                                 ring_weights)
+    c = step.layers[0].logs.shape[1]
+    c2 = c // 2
+    eye = torch.eye(c, device=cond.device)
+
+    def own(weights, p):
+        return {**coupling_weights(weights),
+                **({'w_pitch': weights['w_pitch']} if p is not None else {})}
+    out = {}
+    for shape, (xs, m, p) in shapes.items():
+        x16 = xs.to(BF16)
+        for reverse in (False, True):
+            w = dict(step.weights(reverse, BF16))
+            w.update(an_logs=torch.zeros_like(w['an_logs']),
+                     an_bias=torch.zeros_like(w['an_bias']), mix_t=eye,
+                     **ring_weights({'mix_t': eye}))
+            if not reverse:
+                w['ld_const'] = torch.zeros_like(w['ld_const'])
+            z, ld = flow_step(x16, m, w, cond, reverse, pitch=p)
+            z_b, ld_b = _coupling_kernel(x16[..., :c2], x16[..., c2:], m,
+                                         own(w, p), cond, p, reverse)
+            torch.cuda.synchronize()
+            # elements apart: z_b, x_a passed through #3, the logdets
+            apart = [(z[..., c2:] != z_b).sum().item(),
+                     (z[..., :c2] != (x16[..., :c2].float() * m).to(BF16)
+                      ).sum().item(),
+                     0 if reverse else (ld != ld_b).sum().item()]
+            ok = not any(apart)
+            line = (f'coupling {label} {shape} shape reverse={reverse}: #2 '
+                    f'bf16 z_b and logdet bit-equal to #3 bf16 on an identity'
+                    f' ActNorm and mixing: {ok} (elements apart: z_b '
+                    f'{apart[0]}, x_a {apart[1]}, logdet {apart[2]})')
+            print(line)
+            assert ok, line
+        lib = load_coupling_library(p is not None, c, True)
+        tile = lib.glow_coupling_time_tile()
+        w16 = own(step.weights(False, BF16), p)
+        got = live_tiles(m, lambda tiles: _coupling_kernel(
+            x16[..., :c2], x16[..., c2:], m, w16, cond, p, tiles=tiles),
+            tile=tile)
+        n_tiles = -(-m.shape[1] // tile)
+        assert tile == RING_TIME_TILE, tile
+        assert got['items'] == m.shape[0] * n_tiles, got
+        assert got['blocks'] == min(lib.glow_coupling_resident_blocks(
+            m.shape[0]), got['items']), got
+        print(f'coupling {label} live tiles, {shape} shape '
+              f'{tuple(m.shape[:2])}, as the kernel reports them: '
+              f'{got["computed"]} of {got["items"]} items ({tile}-frame '
+              f'tiles, {n_tiles} a sample) computed, {got["rounds"]} rounds '
+              f'on {got["blocks"]} blocks')
+        out[shape] = {'live_tiles': got['computed'], 'tiles': got['items'],
+                      'rounds': got['rounds'], 'blocks': got['blocks']}
+    return out
 
 
 def routes_eval(config, state, batch, device, label, steps=1,
@@ -5981,11 +6053,11 @@ def main():
         return {'launches': sum(paths.values()), 'launches_by_path': paths}
 
     csrc = 'glow_tts_tpu_torch/csrc/'
-    # the body the bfloat16 builds of #3 and #4 run
+    # the body the bfloat16 builds of #3, #4 and #2 run
     ring = {'body': csrc + 'flow_ring.cuh (GLOW_BF16_RING)'}
 
     def ring_body(name, defines):
-        return ring if (name in ('flow_step', 'flow_stack')
+        return ring if (name in ('flow_step', 'flow_stack', 'coupling')
                         and 'GLOW_BF16' in defines) else {}
     print(json.dumps({'kernels': [
         {'name': 'flow_step', 'route': 'cuda', 'source': csrc + 'flow_step.cu',

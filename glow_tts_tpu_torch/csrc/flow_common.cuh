@@ -35,16 +35,16 @@
 // the saved rows written by the TMA's bulk copies instead of the threads
 // (no faster), mma issued in the order written, weights split in the warp.
 //
-// A GLOW_BF16 build (flow_step.cu, flow_train_fwd.cu; ops/coupling.py's
-// bfloat16 policy) computes what the TPU kernels compute at dt = bfloat16
+// A GLOW_BF16 build (flow_train_fwd.cu's, #5; ops/coupling.py's bfloat16
+// policy) computes what the TPU kernels compute at dt = bfloat16
 // (glow_tts_tpu/ops/coupling.py::_coupling_body): the activations in device
 // memory (the step's input and output, the saved values) are bfloat16
 // (act_t); in shared memory they stay float32, rounded to bfloat16
 // (act_round) where the TPU kernel casts them: the ActNorm output and x_a
 // before the mixing and the start conv, h after every update, the gate and
 // the masked skip sum before their products.  The two big products run on
-// the tensor cores with bfloat16 operands (tc_gemm_bf16: mma.sync m16n8k16,
-// f32 sums) on weights laid out once in bfloat16
+// the tensor cores with bfloat16 operands (tc_gemm_bf16_tiles: mma.sync
+// m16n8k16, f32 sums) on weights laid out once in bfloat16
 // (ops/coupling.py::tensor_core_layout_bf16); the small FMA products read
 // bfloat16 values held in float32 (operands rounded here, weights rounded
 // where they are packed), whose products are exact in float32.  x_b, the
@@ -53,8 +53,8 @@
 // flow_train_fwd.cu's bfloat16 build (#5) defines GLOW_BF16_TILES for a
 // body of its own (see there): h and the gate in bfloat16 in shared memory
 // (hb, gb, over hs's and gs's room), read by ldmatrix in
-// tc_gemm_bf16_tiles (the same sums as tc_gemm_bf16, bit for bit); the
-// other kernels' bfloat16 builds keep tc_gemm_bf16.
+// tc_gemm_bf16_tiles.  The bfloat16 builds of flow_step.cu, flow_stack.cu
+// and coupling.cu run flow_ring.cuh's body instead (GLOW_BF16_RING).
 
 #pragma once
 
@@ -427,87 +427,20 @@ __device__ __forceinline__ void tc_gemm(float (&sum)[MT][NT][4],
   }
 }
 
-#ifdef GLOW_BF16
-// tc_gemm with bfloat16 operands, a GLOW_BF16 build's: sum = A . W over K =
-// 16 * NK16 on the tensor cores (mma.sync m16n8k16, bf16 x bf16 products
-// exact, f32 sums).  A is read as tc_gemm reads it (a_at(kb) for the 8-deep
-// block kb, which a 16-deep block spans two of: a_at(2 kb) + 8 is
-// a_at(2 kb + 1)) as float pairs rounded to bfloat16 here; W is in the
-// layout of ops/coupling.py::tensor_core_layout_bf16: uint2 [NK16][NB][32
-// lanes].  As in tc_gemm, every 16-deep step's product starts at zero and is
-// added to sum in f32, and W's fragments are loaded kAhead steps ahead.
-template <int MT, int NT, int NK16, int LDA, int NB, class AAt>
-__device__ __forceinline__ void tc_gemm_bf16(float (&sum)[MT][NT][4],
-                                             const AAt& a_at,
-                                             const WFrag* __restrict__ w,
-                                             int nt0) {
-  constexpr int Q = kAhead + 1;
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sum[mt][nt][e] = 0.f;
-  const WFrag* wl = w + nt0 * 32 + lane;
-  WFrag bq[Q][NT];
-  auto load = [&](WFrag (&dst)[NT], int kb) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      dst[nt] = __ldg(wl + (static_cast<size_t>(kb) * NB + nt) * 32);
-  };
-#pragma unroll
-  for (int j = 0; j < kAhead; ++j)
-    if (j < NK16) load(bq[j], j);
-  for (int kb0 = 0; kb0 < NK16; kb0 += Q) {
-#pragma unroll
-    for (int j = 0; j < Q; ++j) {
-      const int kb = kb0 + j;
-      if (kb < NK16) {
-        if (kb + kAhead < NK16) load(bq[(j + kAhead) % Q], kb + kAhead);
-        const float* a = a_at(2 * kb) + g * LDA + 2 * t;
-        uint32_t af[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const float* am = a + 16 * mt * LDA;
-          const float2 v0 = *reinterpret_cast<const float2*>(am);
-          const float2 v1 = *reinterpret_cast<const float2*>(am + 8 * LDA);
-          const float2 v2 = *reinterpret_cast<const float2*>(am + 8);
-          const float2 v3 =
-              *reinterpret_cast<const float2*>(am + 8 * LDA + 8);
-          af[mt][0] = pack_bf16(v0.x, v0.y);
-          af[mt][1] = pack_bf16(v1.x, v1.y);
-          af[mt][2] = pack_bf16(v2.x, v2.y);
-          af[mt][3] = pack_bf16(v3.x, v3.y);
-        }
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const uint32_t b[2] = {bq[j][nt].x, bq[j][nt].y};
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            float d[4] = {0.f, 0.f, 0.f, 0.f};
-            tf32::mma_bf16(d, af[mt], b);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) sum[mt][nt][e] += d[e];
-          }
-        }
-      }
-    }
-  }
-}
-#endif
-
 #ifdef GLOW_BF16_TILES
 // #5's bfloat16 body (flow_train_fwd.cu defines GLOW_BF16_TILES in its
-// GLOW_BF16 build; the other kernels' bfloat16 builds keep tc_gemm_bf16):
+// GLOW_BF16 build; the other kernels' bfloat16 builds run flow_ring.cuh):
 // sum = A . W over K = 16 NK16 with A in bfloat16 in shared memory, rows
 // PITCH bytes apart (a_at(kb) the shared address of row 0 at depth 16 kb),
-// its fragments read by ldmatrix.x4, one per m16 row tile and 16-deep step;
-// W as tc_gemm_bf16 reads it, kAhead steps ahead.  As in tc_gemm_bf16, every
-// 16-deep product starts at zero and is added to sum in f32 (so the sums,
-// and z, are tc_gemm_bf16's bit for bit): the tensor cores' own f32
-// accumulation truncates, and accumulating the whole depth there moved the
-// bf16 train path's losses past chip_smoke.py's bar (PERF.md).
+// its fragments read by ldmatrix.x4, one per m16 row tile and 16-deep step
+// (mma.sync m16n8k16, bf16 x bf16 products exact); W in the layout of
+// ops/coupling.py::tensor_core_layout_bf16 (uint2 [NK16][NB][32 lanes]),
+// loaded kAhead steps ahead.  As in tc_gemm, every 16-deep product starts at
+// zero and is added to sum in f32 (so the sums, and z, are those of the
+// first bfloat16 body's, which widened A from float pairs, bit for bit):
+// the tensor cores' own f32 accumulation truncates, and accumulating the
+// whole depth there moved the bf16 train path's losses past
+// chip_smoke.py's bar (PERF.md).
 template <int MT, int NT, int NK16, int PITCH, int NB, class AAt>
 __device__ __forceinline__ void tc_gemm_bf16_tiles(float (&sum)[MT][NT][4],
                                                    const AAt& a_at,
@@ -561,19 +494,15 @@ __device__ __forceinline__ void tc_gemm_bf16_tiles(float (&sum)[MT][NT][4],
 }
 #endif
 
-// The build's tensor-core GEMM of a warp over depth K (a multiple of 16):
-// tc_gemm's 3xTF32 or one TF32 pass (PASSES), or in a GLOW_BF16 build
-// tc_gemm_bf16.
+// The float32 builds' tensor-core GEMM of a warp over depth K (a multiple
+// of 8): tc_gemm's 3xTF32 or one TF32 pass (PASSES).  The bfloat16 builds
+// run tc_gemm_bf16_tiles (#5) or flow_ring.cuh's body (#2, #3, #4).
 template <int MT, int NT, int K, int LDA, int NB, int PASSES, class AAt>
 __device__ __forceinline__ void tc_product(float (&sum)[MT][NT][4],
                                            const AAt& a_at,
                                            const WFrag* __restrict__ w,
                                            int nt0) {
-#ifdef GLOW_BF16
-  tc_gemm_bf16<MT, NT, K / 16, LDA, NB>(sum, a_at, w, nt0);
-#else
   tc_gemm<MT, NT, K / 8, LDA, NB, PASSES>(sum, a_at, w, nt0);
-#endif
 }
 
 // epilogue(row, column, v, v') for every pair of neighbouring columns of a

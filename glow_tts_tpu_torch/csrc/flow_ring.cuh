@@ -1,13 +1,18 @@
-// The bfloat16 body of the deterministic flow step on Hopper (GLOW_BF16_RING,
-// defined by the GLOW_BF16 builds of flow_step.cu and flow_stack.cu, #3 and
-// #4 at bfloat16): the step of flow_common.cuh's flow_step_tile on one time
-// tile, with every product on the tensor cores through wgmma and the weights
-// streamed through shared memory.  coupling.cu's and the train kernels'
-// builds do not include it.
+// The bfloat16 body of the deterministic flow step and of the affine coupling
+// alone on Hopper (GLOW_BF16_RING, defined by the GLOW_BF16 builds of
+// flow_step.cu, flow_stack.cu and coupling.cu: #3, #4 and #2 at bfloat16):
+// the step of flow_common.cuh's flow_step_tile on one time tile
+// (ring_flow_step_tile), or its coupling without ActNorm and the mixing
+// (ring_coupling_tile), with every product on the tensor cores through
+// wgmma and the weights streamed through shared memory.  Both run the same
+// WaveNet (ring_wavenet: start conv through end conv) and the same affine
+// (ring_affine, ring_unaffine); the coupling's program is the flow step's
+// without the mixing's slices.  The train kernels' builds do not include
+// it.
 //
 // What bounds it on an H100: the tensor cores' rate (3.6 MFLOP a frame,
 // 0.06 ms at B = 32 x T = 512 at the bf16 peak).  The earlier bf16 body
-// (flow_common.cuh's tc_gemm_bf16, which coupling.cu's build still runs)
+// (flow_common.cuh's coupling_net with bfloat16 operands, since removed)
 // read each warp's weights from L2 into registers for a 48-row tile,
 // widened h and the gate from float32 at every 16-deep step, added every
 // mma.sync product into float32 and ran the three 1x1 convs as f32 FMA (a
@@ -97,7 +102,9 @@ struct RingShape {
   static constexpr int S_IN = KS * CH / SK, S_RS = CH / SK, S_END = CH / SK;
   static constexpr int S_TAP = CH / SK;   // a k-tap conv's slices a tap
   static constexpr int S_LAYER = S_IN + S_RS;
-  static constexpr int S_TILE = S_MIX + S_START + NL * S_LAYER + S_END;
+  // a coupling's slices (start conv .. end conv), and a flow step's
+  static constexpr int S_NET = S_START + NL * S_LAYER + S_END;
+  static constexpr int S_TILE = S_MIX + S_NET;
   // a slice's rows of B (the product's columns): a 1x1's two halves each
   // padded to 96, or the 384 of a WaveNet product
   static constexpr int N_SMALL = 192, N_BIG = CH2;
@@ -262,15 +269,23 @@ __device__ __forceinline__ RingWeights ring_step_of_stack(const RingWeights& w,
           w.end + s * S::END_ELEMS,     w.b_end + s * S::C};
 }
 
-// Slice p (0 .. S_TILE - 1) of a tile's products in the order of use:
-// forward the mixing, the start conv, per layer the k-tap conv's and the
-// res/skip conv's slices, the end conv; reverse the mixing last.
-template <class S, bool REVERSE>
+// The slices of a tile's program: a flow step's (MIXING), or the coupling's
+// alone (coupling.cu: no mixing slices).
+template <class S, bool MIXING>
+HD constexpr int ring_tile_slices() {
+  return MIXING ? S::S_TILE : S::S_NET;
+}
+
+// Slice p (0 .. ring_tile_slices - 1) of a tile's products in the order of
+// use: forward the mixing, the start conv, per layer the k-tap conv's and
+// the res/skip conv's slices, the end conv; reverse the mixing last.
+// Without MIXING, the same program without the mixing's slices.
+template <class S, bool REVERSE, bool MIXING>
 __device__ __forceinline__ const act_t* ring_slice(const RingWeights& w,
                                                    int p, uint32_t& bytes) {
   constexpr int SMALL = S::SK * S::N_SMALL, BIG = S::SK * S::N_BIG;
   bytes = S::SMALL_BYTES;
-  if (!REVERSE) {
+  if (MIXING && !REVERSE) {
     if (p < S::S_MIX) return w.mix + p * SMALL;
     p -= S::S_MIX;
   }
@@ -285,7 +300,7 @@ __device__ __forceinline__ const act_t* ring_slice(const RingWeights& w,
                      static_cast<size_t>(layer * S::S_RS + q - S::S_IN) * BIG;
   }
   p -= S::NL * S::S_LAYER;
-  if (p < S::S_END) return w.end + p * SMALL;
+  if (!MIXING || p < S::S_END) return w.end + p * SMALL;
   return w.mix + (p - S::S_END) * SMALL;
 }
 
@@ -311,14 +326,24 @@ struct Ring {
   __device__ uint32_t full(uint32_t slot) const { return bars + 8 * slot; }
   // One thread: slice q (position p of the tile's program) into its slot,
   // which slice q - STAGES has left.
-  template <class S, bool REVERSE>
+  template <class S, bool REVERSE, bool MIXING>
   __device__ void issue(uint32_t slice, int p) const {
     static_assert(S::STAGES == kRingStages, "the ring's barriers");
     const uint32_t slot = slice % S::STAGES;
     uint32_t bytes;
-    const act_t* src = ring_slice<S, REVERSE>(*w, p, bytes);
+    const act_t* src = ring_slice<S, REVERSE, MIXING>(*w, p, bytes);
     mbar_expect_tx(full(slot), bytes);
     bulk_load(slots + slot * S::BIG_BYTES, src, bytes, full(slot));
+  }
+  // A tile's program on `weights`: its end, and its first STAGES slices
+  // issued by thread 0 (their slots are free: the block's last tile ended
+  // on a barrier).  q runs on across the block's tiles.
+  template <class S, bool REVERSE, bool MIXING>
+  __device__ void begin(const RingWeights& weights) {
+    w = &weights;
+    end = q + ring_tile_slices<S, MIXING>();
+    if (threadIdx.x == 0)
+      for (int p = 0; p < S::STAGES; ++p) issue<S, REVERSE, MIXING>(q + p, p);
   }
 };
 
@@ -328,8 +353,10 @@ struct Ring {
 // slice.  ACTIVE false: the warpgroup takes the slices without a product
 // (its columns are all zero weights), out untouched.  With the whole depth
 // summed in the tensor cores out is wgmma's accumulator; else a partial
-// sum is added into out every kSumDepth16 steps.
-template <class S, bool REVERSE, int NW, int SLICES, class AAt>
+// sum is added into out every kSumDepth16 steps.  REVERSE and MIXING name
+// the tile's program (ring_slice), whose slices the last warp to release a
+// slot issues.
+template <class S, bool REVERSE, bool MIXING, int NW, int SLICES, class AAt>
 __device__ __forceinline__ void ring_gemm(Ring& ring, bool active,
                                           const AAt& a_at,
                                           float (&out)[NW][48]) {
@@ -395,8 +422,9 @@ __device__ __forceinline__ void ring_gemm(Ring& ring, bool active,
               kWarps * (q / S::STAGES + 1) - 1 &&
           q + S::STAGES < ring.end) {
         __threadfence_block();
-        ring.issue<S, REVERSE>(q + S::STAGES,
-                               q + S::STAGES - (ring.end - S::S_TILE));
+        ring.issue<S, REVERSE, MIXING>(
+            q + S::STAGES,
+            q + S::STAGES - (ring.end - ring_tile_slices<S, MIXING>()));
       }
     }
     __syncwarp();
@@ -502,12 +530,14 @@ struct RingTile {
 
   __device__ act_t* xa() const { return reinterpret_cast<act_t*>(s); }
 
-  // z[B*T, C] gets zeros at the owned frames below T: a dead tile's output.
+  // z[B*T, W] (a flow step's C, a coupling's C2) gets zeros at the owned
+  // frames below T: a dead tile's output.
+  template <int W = S::C>
   __device__ void zero_owned(act_t* z) const {
-    for (int i = threadIdx.x; i < S::TT * (S::C / 8); i += kThreads) {
-      const int t = t0 + S::HALO + i / (S::C / 8), c = 8 * (i % (S::C / 8));
+    for (int i = threadIdx.x; i < S::TT * (W / 8); i += kThreads) {
+      const int t = t0 + S::HALO + i / (W / 8), c = 8 * (i % (W / 8));
       if (t < T)
-        *reinterpret_cast<uint4*>(z + (sample + t) * S::C + c) =
+        *reinterpret_cast<uint4*>(z + (sample + t) * W + c) =
             make_uint4(0u, 0u, 0u, 0u);
     }
   }
@@ -624,135 +654,66 @@ __device__ __forceinline__ uint4 ring_x8(const RingTile<S>& tile,
                                                c));
 }
 
+// The same of rows with strides of their own (ring_coupling_tile's halves:
+// Rows' data, batch_stride and row_stride, the strides in elements and
+// multiples of 8, the address 16-byte aligned, as ops/coupling.py checks)
+template <class S, class Rows>
+__device__ __forceinline__ uint4 ring_rows8(const RingTile<S>& tile,
+                                            const Rows& x, int r, int c) {
+  const int t = tile.t0 + r;
+  if (t < 0 || t >= tile.T || tile.m[r] == 0.f) return make_uint4(0, 0, 0, 0);
+  return __ldg(reinterpret_cast<const uint4*>(
+      x.data + tile.b * x.batch_stride + t * x.row_stride + c));
+}
+
 __device__ __forceinline__ float bf_at(const uint4& u, int e) {
   const uint32_t w = e < 2 ? u.x : e < 4 ? u.y : e < 6 ? u.z : u.w;
   return e % 2 ? tf32::bf16_hi(w) : tf32::bf16_lo(w);
 }
 
-// The deterministic flow step on one tile (flow_common.cuh::flow_step_tile
-// in this body): forward ActNorm -> mixing -> coupling, returning in thread
-// 0 the tile's logdet; REVERSE coupling^-1 -> mixing^-1 -> ActNorm^-1 with
-// w.mix the inverse mixing's slices.  The ring's slices for the tile are
-// issued on entry; ends on a barrier.
-template <class S, bool REVERSE, bool TIMED, class PreGate>
-__device__ __forceinline__ float ring_flow_step_tile(
-    const RingTile<S>& tile, Ring& ring, const act_t* x, const float* mask,
-    const PreGate& pre_gate, const RingWeights& w, const float* ld_const,
-    act_t* z, PhaseClock<TIMED>& clock) {
+// x_a's padding to the start conv's depth: zeros in the columns C2 ..
+// KSTART of every row of tile.xa()
+template <class S>
+__device__ __forceinline__ void ring_pad_xa(const RingTile<S>& tile) {
+  constexpr int CHUNKS = (S::KSTART - S::C2) / 8;
+  act_t* const xa = tile.xa();
+  for (int i = threadIdx.x; i < S::R * CHUNKS; i += kThreads) {
+    const int r = i / CHUNKS, c = S::C2 + 8 * (i % CHUNKS);
+    *reinterpret_cast<uint4*>(xa + r * S::AP + c) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// The coupling network on a tile, the part a flow step and a coupling share
+// (flow_common.cuh::coupling_net in this body): start 1x1 on x_a (tile.xa(),
+// all R rows, rounded, zero from C2 to KSTART) -> NL gated k-tap layers ->
+// end 1x1 on the masked skip sum, leaving mean and logs of the owned rows in
+// tile.s [TT, C] (float32).  Takes the mask, the staged pre-gate and x_a
+// published by a barrier, and the start conv's slices next on the ring
+// (REVERSE and MIXING: the tile's program); clocks kStart .. kEnd; ends on
+// a barrier.
+template <class S, bool REVERSE, bool MIXING, bool TIMED, class PreGate>
+__device__ __forceinline__ void ring_wavenet(const RingTile<S>& tile,
+                                             Ring& ring,
+                                             const PreGate& pre_gate,
+                                             const RingWeights& w,
+                                             PhaseClock<TIMED>& clock) {
   constexpr int C = S::C, C2 = S::C2, CH = S::CH, TT = S::TT, R = S::R;
   constexpr int HALO = S::HALO, PAD = S::PAD;
   const int tid = threadIdx.x, wg = tid / 128;
-  clock.begin();
-  ring.w = &w;
-  ring.end = ring.q + S::S_TILE;
-  if (tid == 0)
-    for (int p = 0; p < S::STAGES; ++p) ring.issue<S, REVERSE>(ring.q + p, p);
-  // ActNorm's scale (exp(logs), reverse exp(-logs)) and shift a channel
-  __shared__ __align__(16) float an_scale[C], an_shift[C];
-  for (int c = tid; c < C; c += kThreads) {
-    const float logs = __ldg(w.an_logs + c);
-    an_scale[c] = expf(REVERSE ? -logs : logs);
-    an_shift[c] = __ldg(w.an_bias + c);
-  }
-  ring_load_mask(tile, mask);
-  // a thread's rows and column pairs of a product (ring_cols): their masks
-  // as tile rows and as owned rows
+  // a thread's rows and column pairs of a product (ring_cols), the rows'
+  // masks
   const int row0 = ring_row0(), col0 = ring_col0();
   const float m0 = tile.m[row0], m1 = tile.m[row0 + 8];
-  const float mo0 = tile.m[HALO + row0], mo1 = tile.m[HALO + row0 + 8];
   act_t* const h = tile.h;
   act_t* const g = tile.g;
-  act_t* const xa = tile.xa();
   const float* const m = tile.m;
   const uint32_t h_at = tile.base + S::H_OFF + ring_lane_at(2 * S::HP);
   const uint32_t g_at = tile.base + S::G_OFF + ring_lane_at(2 * S::GP);
-  const uint32_t x_at = tile.base + S::G_OFF + ring_lane_at(2 * S::XP);
   const uint32_t a_at = tile.base + S::S_OFF + ring_lane_at(2 * S::AP);
-
-  // x_a's padding to the start conv's depth
-  for (int i = tid; i < R * ((S::KSTART - C2) / 8); i += kThreads) {
-    const int r = i / ((S::KSTART - C2) / 8);
-    const int c = C2 + 8 * (i % ((S::KSTART - C2) / 8));
-    *reinterpret_cast<uint4*>(xa + r * S::AP + c) = make_uint4(0, 0, 0, 0);
-  }
-  ring_stage(pre_gate, tile);
-  if constexpr (!REVERSE) {
-    // the mixing's input: ActNorm, rounded, zero past C
-    for (int i = tid; i < R * (S::KMIX / 8); i += kThreads) {
-      const int r = i / (S::KMIX / 8), c = 8 * (i % (S::KMIX / 8));
-      uint4 out = make_uint4(0, 0, 0, 0);
-      if (c < C) {
-        const uint4 in = ring_x8(tile, x, r, c);
-        float v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          v[e] = (an_shift[c + e] + an_scale[c + e] * bf_at(in, e)) * m[r];
-        out = make_uint4(tf32::pack_bf16(v[0], v[1]),
-                         tf32::pack_bf16(v[2], v[3]),
-                         tf32::pack_bf16(v[4], v[5]),
-                         tf32::pack_bf16(v[6], v[7]));
-      }
-      *reinterpret_cast<uint4*>(g + r * S::XP + c) = out;
-    }
-    __syncthreads();
-    // [x_a, x_b] = y . mix_t * m: warpgroup 0 makes x_a (rounded; z's first
-    // half), warpgroup 1 x_b (float32, the owned rows)
-    float y[1][48];
-    ring_gemm<S, REVERSE, 1, S::S_MIX>(
-        ring, true,
-        [&](int s, int kk) { return x_at + 2 * (S::SK * s + 16 * kk); }, y);
-    if (wg == 0) {
-      act_t* const xa0 = xa + row0 * S::AP + col0;
-      // z's rows of the thread's two rows, where they are owned frames
-      auto z_row = [&](int r) -> act_t* {
-        const int t = tile.t0 + r;
-        return r >= HALO && r < HALO + TT && t < tile.T
-                   ? z + (tile.sample + t) * C + col0 : nullptr;
-      };
-      act_t* const z0 = z_row(row0);
-      act_t* const z1 = z_row(row0 + 8);
-      ring_cols(y, [&](int k, float2 v, float2 u) {
-        if (k >= C2) return;
-        const uint32_t p = tf32::pack_bf16(v.x * m0, v.y * m0);
-        const uint32_t q = tf32::pack_bf16(u.x * m1, u.y * m1);
-        *reinterpret_cast<uint32_t*>(xa0 + k) = p;
-        *reinterpret_cast<uint32_t*>(xa0 + 8 * S::AP + k) = q;
-        if (z0) *reinterpret_cast<uint32_t*>(z0 + k) = p;
-        if (z1) *reinterpret_cast<uint32_t*>(z1 + k) = q;
-      });
-    } else {
-      // x_b of the thread's rows that are owned
-      const bool own0 = row0 >= HALO && row0 < HALO + TT;
-      const bool own1 = row0 + 8 >= HALO && row0 + 8 < HALO + TT;
-      float* const xb0 = tile.xb + (row0 - HALO) * C2 + col0;
-      ring_cols(y, [&](int k, float2 v, float2 u) {
-        if (k >= C2) return;
-        if (own0)
-          *reinterpret_cast<float2*>(xb0 + k) = make_float2(v.x * m0, v.y * m0);
-        if (own1)
-          *reinterpret_cast<float2*>(xb0 + 8 * C2 + k) =
-              make_float2(u.x * m1, u.y * m1);
-      });
-    }
-  } else {
-    // x_a (all rows, rounded as it is) and x_b (the owned rows)
-    for (int i = tid; i < R * (C2 / 8); i += kThreads) {
-      const int r = i / (C2 / 8), c = 8 * (i % (C2 / 8));
-      *reinterpret_cast<uint4*>(xa + r * S::AP + c) = ring_x8(tile, x, r, c);
-    }
-    for (int i = tid; i < TT * (C2 / 8); i += kThreads) {
-      const int r = i / (C2 / 8), c = 8 * (i % (C2 / 8));
-      const uint4 in = ring_x8(tile, x, HALO + r, C2 + c);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) tile.xb[r * C2 + c + e] = bf_at(in, e);
-    }
-  }
-  __syncthreads();
-  clock.mark(kLoad);
 
   // start 1x1 on x_a: h = (x_a . w_start + b_start) * m, all R rows
   float small[1][48];
-  ring_gemm<S, REVERSE, 1, S::S_START>(
+  ring_gemm<S, REVERSE, MIXING, 1, S::S_START>(
       ring, true,
       [&](int s, int kk) { return a_at + 2 * (S::SK * s + 16 * kk); },
       small);
@@ -776,7 +737,7 @@ __device__ __forceinline__ float ring_flow_step_tile(
     // buffer's row r + d; the epilogue is the pre-gate and the gate
     const auto pre = ring_layer(pre_gate, i, tile);
     float big[2][48];
-    ring_gemm<S, REVERSE, 2, S::S_IN>(
+    ring_gemm<S, REVERSE, MIXING, 2, S::S_IN>(
         ring, true,
         [&](int s, int kk) {
           return h_at + 2 * ((s / S::S_TAP) * S::HP +
@@ -804,7 +765,7 @@ __device__ __forceinline__ float ring_flow_step_tile(
     // layer's res half is zero and warpgroup 0 computes nothing.
     const float* const b_rs = w.b_rs + i * S::CH2;
     const bool last = i == S::NL - 1;
-    ring_gemm<S, REVERSE, 2, S::S_RS>(
+    ring_gemm<S, REVERSE, MIXING, 2, S::S_RS>(
         ring, !(last && wg == 0),
         [&](int s, int kk) { return g_at + 2 * (S::SK * s + 16 * kk); },
         big);
@@ -859,7 +820,7 @@ __device__ __forceinline__ float ring_flow_step_tile(
   }
   __syncthreads();
   // [mean, logs] of the owned rows -> tile.s [TT, C]
-  ring_gemm<S, REVERSE, 1, S::S_END>(
+  ring_gemm<S, REVERSE, MIXING, 1, S::S_END>(
       ring, true,
       [&](int s, int kk) { return g_at + 2 * (S::SK * s + 16 * kk); },
       small);
@@ -878,30 +839,170 @@ __device__ __forceinline__ float ring_flow_step_tile(
   }
   __syncthreads();
   clock.mark(kEnd);
+}
 
+// The affine of one x_b value on its mean and logs and its frame's mask:
+// forward (mean + exp(logs) x_b) m, reverse (x_b - mean) exp(-logs) m; one
+// function each, so that a flow step and a coupling compute the same values.
+__device__ __forceinline__ float ring_affine(float xb, float mean, float logs,
+                                             float m) {
+  return (mean + expf(logs) * xb) * m;
+}
+__device__ __forceinline__ float ring_unaffine(float xb, float mean,
+                                               float logs, float m) {
+  return (xb - mean) * expf(-logs) * m;
+}
+
+// The forward affine on the owned frames below T from ring_wavenet's mean
+// and logs and x_b (tile.xb): z_b of frame t, rounded, at zb(t)[c]; returns
+// in thread 0 the tile's sum of logs m over its owned rows, in a fixed
+// order (a thread's cells, its warp's, the warps' in turn).
+template <class S, class ZAt>
+__device__ __forceinline__ float ring_affine_forward(const RingTile<S>& tile,
+                                                     const ZAt& zb) {
+  constexpr int C = S::C, C2 = S::C2, TT = S::TT, HALO = S::HALO;
+  const int tid = threadIdx.x;
   const float* const stats = tile.s;
+  __shared__ float warp_sums[kWarps];
+  float part = 0.f;
+  for (int i = tid; i < TT * C2; i += kThreads) {
+    const int r = i / C2, c = i % C2, row = HALO + r, t = tile.t0 + row;
+    const float mr = tile.m[row];
+    const float mean = stats[r * C + c], logs = stats[r * C + C2 + c];
+    part += logs * mr;
+    if (t < tile.T)
+      zb(t)[c] = __float2bfloat16_rn(
+          ring_affine(tile.xb[r * C2 + c], mean, logs, mr));
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    part += __shfl_xor_sync(0xffffffffu, part, o);
+  if (tid % 32 == 0) warp_sums[tid / 32] = part;
+  __syncthreads();
+  float total = 0.f;
+  if (tid == 0)
+    for (int k = 0; k < kWarps; ++k) total += warp_sums[k];
+  return total;
+}
+
+// The deterministic flow step on one tile (flow_common.cuh::flow_step_tile
+// in this body): forward ActNorm -> mixing -> coupling, returning in thread
+// 0 the tile's logdet; REVERSE coupling^-1 -> mixing^-1 -> ActNorm^-1 with
+// w.mix the inverse mixing's slices.  The ring's slices for the tile are
+// issued on entry; ends on a barrier.
+template <class S, bool REVERSE, bool TIMED, class PreGate>
+__device__ __forceinline__ float ring_flow_step_tile(
+    const RingTile<S>& tile, Ring& ring, const act_t* x, const float* mask,
+    const PreGate& pre_gate, const RingWeights& w, const float* ld_const,
+    act_t* z, PhaseClock<TIMED>& clock) {
+  constexpr int C = S::C, C2 = S::C2, TT = S::TT, R = S::R;
+  constexpr int HALO = S::HALO;
+  const int tid = threadIdx.x, wg = tid / 128;
+  clock.begin();
+  ring.begin<S, REVERSE, true>(w);
+  // ActNorm's scale (exp(logs), reverse exp(-logs)) and shift a channel
+  __shared__ __align__(16) float an_scale[C], an_shift[C];
+  for (int c = tid; c < C; c += kThreads) {
+    const float logs = __ldg(w.an_logs + c);
+    an_scale[c] = expf(REVERSE ? -logs : logs);
+    an_shift[c] = __ldg(w.an_bias + c);
+  }
+  ring_load_mask(tile, mask);
+  // a thread's rows and column pairs of a product (ring_cols): their masks
+  // as tile rows and as owned rows
+  const int row0 = ring_row0(), col0 = ring_col0();
+  const float m0 = tile.m[row0], m1 = tile.m[row0 + 8];
+  const float mo0 = tile.m[HALO + row0], mo1 = tile.m[HALO + row0 + 8];
+  act_t* const g = tile.g;
+  act_t* const xa = tile.xa();
+  const float* const m = tile.m;
+  const uint32_t x_at = tile.base + S::G_OFF + ring_lane_at(2 * S::XP);
+
+  ring_pad_xa(tile);
+  ring_stage(pre_gate, tile);
+  if constexpr (!REVERSE) {
+    // the mixing's input: ActNorm, rounded, zero past C
+    for (int i = tid; i < R * (S::KMIX / 8); i += kThreads) {
+      const int r = i / (S::KMIX / 8), c = 8 * (i % (S::KMIX / 8));
+      uint4 out = make_uint4(0, 0, 0, 0);
+      if (c < C) {
+        const uint4 in = ring_x8(tile, x, r, c);
+        float v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[e] = (an_shift[c + e] + an_scale[c + e] * bf_at(in, e)) * m[r];
+        out = make_uint4(tf32::pack_bf16(v[0], v[1]),
+                         tf32::pack_bf16(v[2], v[3]),
+                         tf32::pack_bf16(v[4], v[5]),
+                         tf32::pack_bf16(v[6], v[7]));
+      }
+      *reinterpret_cast<uint4*>(g + r * S::XP + c) = out;
+    }
+    __syncthreads();
+    // [x_a, x_b] = y . mix_t * m: warpgroup 0 makes x_a (rounded; z's first
+    // half), warpgroup 1 x_b (float32, the owned rows)
+    float y[1][48];
+    ring_gemm<S, REVERSE, true, 1, S::S_MIX>(
+        ring, true,
+        [&](int s, int kk) { return x_at + 2 * (S::SK * s + 16 * kk); }, y);
+    if (wg == 0) {
+      act_t* const xa0 = xa + row0 * S::AP + col0;
+      // z's rows of the thread's two rows, where they are owned frames
+      auto z_row = [&](int r) -> act_t* {
+        const int t = tile.t0 + r;
+        return r >= HALO && r < HALO + TT && t < tile.T
+                   ? z + (tile.sample + t) * C + col0 : nullptr;
+      };
+      act_t* const z0 = z_row(row0);
+      act_t* const z1 = z_row(row0 + 8);
+      ring_cols(y, [&](int k, float2 v, float2 u) {
+        if (k >= C2) return;
+        const uint32_t p = tf32::pack_bf16(v.x * m0, v.y * m0);
+        const uint32_t q = tf32::pack_bf16(u.x * m1, u.y * m1);
+        *reinterpret_cast<uint32_t*>(xa0 + k) = p;
+        *reinterpret_cast<uint32_t*>(xa0 + 8 * S::AP + k) = q;
+        if (z0) *reinterpret_cast<uint32_t*>(z0 + k) = p;
+        if (z1) *reinterpret_cast<uint32_t*>(z1 + k) = q;
+      });
+    } else {
+      // x_b of the thread's rows that are owned
+      const bool own0 = row0 >= HALO && row0 < HALO + TT;
+      const bool own1 = row0 + 8 >= HALO && row0 + 8 < HALO + TT;
+      float* const xb0 = tile.xb + (row0 - HALO) * C2 + col0;
+      ring_cols(y, [&](int k, float2 v, float2 u) {
+        if (k >= C2) return;
+        if (own0)
+          *reinterpret_cast<float2*>(xb0 + k) = make_float2(v.x * m0, v.y * m0);
+        if (own1)
+          *reinterpret_cast<float2*>(xb0 + 8 * C2 + k) =
+              make_float2(u.x * m1, u.y * m1);
+      });
+    }
+  } else {
+    // x_a (all rows, rounded as it is) and x_b (the owned rows)
+    for (int i = tid; i < R * (C2 / 8); i += kThreads) {
+      const int r = i / (C2 / 8), c = 8 * (i % (C2 / 8));
+      *reinterpret_cast<uint4*>(xa + r * S::AP + c) = ring_x8(tile, x, r, c);
+    }
+    for (int i = tid; i < TT * (C2 / 8); i += kThreads) {
+      const int r = i / (C2 / 8), c = 8 * (i % (C2 / 8));
+      const uint4 in = ring_x8(tile, x, HALO + r, C2 + c);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) tile.xb[r * C2 + c + e] = bf_at(in, e);
+    }
+  }
+  __syncthreads();
+  clock.mark(kLoad);
+
+  ring_wavenet<S, REVERSE, true>(tile, ring, pre_gate, w, clock);
+
   float logdet = 0.f;
   if constexpr (!REVERSE) {
     // z_b = (mean + exp(logs) x_b) m on the owned frames below T; the
-    // tile's sum of logs m in a fixed order
-    __shared__ float warp_sums[kWarps];
-    float part = 0.f;
-    for (int i = tid; i < TT * C2; i += kThreads) {
-      const int r = i / C2, c = i % C2, row = HALO + r, t = tile.t0 + row;
-      const float mr = m[row];
-      const float mean = stats[r * C + c], logs = stats[r * C + C2 + c];
-      part += logs * mr;
-      if (t < tile.T)
-        z[(tile.sample + t) * C + C2 + c] = __float2bfloat16_rn(
-            (mean + expf(logs) * tile.xb[r * C2 + c]) * mr);
-    }
-    for (int o = 16; o > 0; o >>= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, o);
-    if (tid % 32 == 0) warp_sums[tid / 32] = part;
-    __syncthreads();
+    // logdet adds ld_const a valid frame to the tile's sum of logs m
+    const float total = ring_affine_forward(
+        tile, [&](int t) { return z + (tile.sample + t) * C + C2; });
     if (tid == 0) {
-      float total = 0.f, frames = 0.f;
-      for (int k = 0; k < kWarps; ++k) total += warp_sums[k];
+      float frames = 0.f;
       for (int r = 0; r < TT; ++r) frames += m[HALO + r];
       logdet = total + __ldg(ld_const) * frames;
     }
@@ -910,6 +1011,7 @@ __device__ __forceinline__ float ring_flow_step_tile(
     // on the owned rows (rows TT.. and the depth past C zero); x_a read
     // again where it lies (no item writes those rows of x before this one
     // is done: flow_stack.cu)
+    const float* const stats = tile.s;
     for (int i = tid; i < R * (S::KMIX / 8); i += kThreads) {
       const int r = i / (S::KMIX / 8), c = 8 * (i % (S::KMIX / 8));
       uint4 out = make_uint4(0, 0, 0, 0);
@@ -921,8 +1023,8 @@ __device__ __forceinline__ float ring_flow_step_tile(
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
           const int k = c - C2 + e;
-          v[e] = (tile.xb[r * C2 + k] - stats[r * C + k]) *
-                 expf(-stats[r * C + C2 + k]) * mr;
+          v[e] = ring_unaffine(tile.xb[r * C2 + k], stats[r * C + k],
+                               stats[r * C + C2 + k], mr);
         }
         out = make_uint4(tf32::pack_bf16(v[0], v[1]),
                          tf32::pack_bf16(v[2], v[3]),
@@ -933,7 +1035,8 @@ __device__ __forceinline__ float ring_flow_step_tile(
     }
     __syncthreads();
     // mixing^-1 then ActNorm^-1 into z, the owned frames below T
-    ring_gemm<S, REVERSE, 1, S::S_MIX>(
+    float small[1][48];
+    ring_gemm<S, REVERSE, true, 1, S::S_MIX>(
         ring, true,
         [&](int s, int kk) { return x_at + 2 * (S::SK * s + 16 * kk); },
         small);
@@ -961,6 +1064,64 @@ __device__ __forceinline__ float ring_flow_step_tile(
             tf32::pack_bf16((u.x * mo1 - b.x) * a.x * mo1,
                             (u.y * mo1 - b.y) * a.y * mo1);
     });
+  }
+  __syncthreads();
+  clock.mark(kStore);
+  return logdet;
+}
+
+// The affine coupling alone on one tile (coupling.cu's bfloat16 build): the
+// flow step's program without the mixing's slices, ActNorm or the mixing.
+// x_a (all R rows) and x_b (the owned rows) are read where they lie through
+// strides of their own (Rows: data, batch_stride, row_stride; the caller's
+// halves of one [B, T, C] tensor), and z_b [B*T, C2] written on the owned
+// frames below T: forward z_b = (mean + exp(logs) x_b) m, returning in
+// thread 0 the tile's sum of logs m (ring_flow_step_tile's logdet before
+// its per-frame constant); reverse z_b = (x_b - mean) exp(-logs) m.  The
+// ring's slices for the tile are issued on entry; ends on a barrier.
+template <class S, bool REVERSE, bool TIMED, class Rows, class PreGate>
+__device__ __forceinline__ float ring_coupling_tile(
+    const RingTile<S>& tile, Ring& ring, const Rows& x_a, const Rows& x_b,
+    const float* mask, const PreGate& pre_gate, const RingWeights& w,
+    act_t* z_b, PhaseClock<TIMED>& clock) {
+  constexpr int C = S::C, C2 = S::C2, TT = S::TT, R = S::R, HALO = S::HALO;
+  const int tid = threadIdx.x;
+  clock.begin();
+  ring.begin<S, REVERSE, false>(w);
+  ring_load_mask(tile, mask);
+  ring_pad_xa(tile);
+  ring_stage(pre_gate, tile);
+  // x_a (all rows, as it is) and x_b (the owned rows)
+  act_t* const xa = tile.xa();
+  for (int i = tid; i < R * (C2 / 8); i += kThreads) {
+    const int r = i / (C2 / 8), c = 8 * (i % (C2 / 8));
+    *reinterpret_cast<uint4*>(xa + r * S::AP + c) =
+        ring_rows8(tile, x_a, r, c);
+  }
+  for (int i = tid; i < TT * (C2 / 8); i += kThreads) {
+    const int r = i / (C2 / 8), c = 8 * (i % (C2 / 8));
+    const uint4 in = ring_rows8(tile, x_b, HALO + r, c);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) tile.xb[r * C2 + c + e] = bf_at(in, e);
+  }
+  __syncthreads();
+  clock.mark(kLoad);
+
+  ring_wavenet<S, REVERSE, false>(tile, ring, pre_gate, w, clock);
+
+  float logdet = 0.f;
+  if constexpr (!REVERSE) {
+    logdet = ring_affine_forward(
+        tile, [&](int t) { return z_b + (tile.sample + t) * C2; });
+  } else {
+    const float* const stats = tile.s;
+    for (int i = tid; i < TT * C2; i += kThreads) {
+      const int r = i / C2, c = i % C2, row = HALO + r, t = tile.t0 + row;
+      if (t < tile.T)
+        z_b[(tile.sample + t) * C2 + c] = __float2bfloat16_rn(
+            ring_unaffine(tile.xb[r * C2 + c], stats[r * C + c],
+                          stats[r * C + C2 + c], tile.m[row]));
+    }
   }
   __syncthreads();
   clock.mark(kStore);

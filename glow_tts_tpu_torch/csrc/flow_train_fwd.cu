@@ -70,16 +70,16 @@
 // storing step writes and the backward reads (flow_train_bwd.cu's GLOW_BF16
 // build).  What bounds it at bf16: the same 3.7 MFLOP a valid frame at the
 // 989 TFLOP/s bf16 peak (0.03 ms a flow step at the training shape); the
-// shared bfloat16 body of the other kernels (tc_gemm_bf16) sits far from
-// that: the layer input and the gate kept in float32 in shared memory, A
-// fragments packed from float pairs by cvt at every 16-deep step.  So this
+// first shared bfloat16 body of the flow kernels sat far from that: the
+// layer input and the gate kept in float32 in shared memory, A fragments
+// packed from float pairs by cvt at every 16-deep step.  So this
 // build has a body of its own (GLOW_BF16_TILES in flow_common.cuh): h and
 // the gate live in shared memory in bfloat16 (the values are bf16 already:
 // the TPU kernel rounds both), their A fragments are read by ldmatrix.x4,
 // and the saved layer inputs leave shared memory 16 bytes at a time as
 // they lie (tc_gemm_bf16_tiles, mma.sync m16n8k16).  Each 16-deep product
 // is still added into the f32 sum (one FADD an accumulator element an
-// mma), so z is tc_gemm_bf16's bit for bit: accumulating the whole depth
+// mma), so z is the first body's bit for bit: accumulating the whole depth
 // in the tensor cores, whose f32 accumulation truncates, took 12 % more
 // off a flow step but moved the bf16 train path's losses past
 // chip_smoke.py's bar, and W two steps ahead, a further 3 % there, spills

@@ -146,10 +146,9 @@ __device__ __forceinline__ void warp_step(float (&acc)[MT][NT][4],
 }
 
 #ifdef GLOW_BF16
-// The bfloat16 builds' pieces (flow_common.cuh's tc_gemm_bf16, and the
-// packing both train kernels' epilogues use).  Fragments of m16n8k16 with
-// bfloat16 operands, two to a 32-bit register, the lower column (or depth)
-// in the low half:
+// The bfloat16 builds' packing (the train kernels' epilogues, flow_ring.cuh).
+// Fragments of m16n8k16 with bfloat16 operands (bf16_mma.cuh), two to a
+// 32-bit register, the lower column (or depth) in the low half:
 //   A [16 x 16] (row, k)  a0 (g, 2t..2t+1)  a1 (g + 8, 2t..2t+1)
 //                         a2 (g, 2t+8..2t+9)  a3 (g + 8, 2t+8..2t+9)
 //   B [16 x 8]  (k, col)  b0 (2t..2t+1, g)  b1 (2t+8..2t+9, g)
@@ -169,16 +168,6 @@ __device__ __forceinline__ float bf16_lo(uint32_t u) {
 }
 __device__ __forceinline__ float bf16_hi(uint32_t u) {
   return __uint_as_float(u & 0xFFFF0000u);
-}
-
-// d += a . b, bfloat16 operands, float32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 #endif

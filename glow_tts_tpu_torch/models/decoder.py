@@ -64,12 +64,11 @@ from torch import nn
 
 from glow_tts_tpu_torch.models.layers import (
     ComputesAt, Conv1d, WNConv1d, masked, stacked_effective_weights)
-from glow_tts_tpu_torch.ops.coupling import (COUPLING_WEIGHT_KEYS, TC_KEYS,
+from glow_tts_tpu_torch.ops.coupling import (COUPLING_PACK_KEYS, TC_KEYS,
                                              coupling, flow_stack, flow_step,
-                                             ring_weights,
-                                             rounded_weights,
+                                             ring_weights, rounded_weights,
                                              tensor_core_weights,
-                                             with_tensor_core_weights)
+                                             with_kernel_weights)
 from glow_tts_tpu_torch.ops.coupling_grad import flow_stack_train
 from glow_tts_tpu_torch.ops.precision import rounded
 
@@ -325,10 +324,10 @@ class AffineCoupling(nn.Module):
         coupling branch casts them) on ``packed``, the contiguous float32
         ``(weights, cond [n, B, 2ch])`` a caller keeps, or on this module's
         weights packed now, without gradients, for the kernels of ``dtype``
-        (on the card with their tensor-core layout; at bfloat16 the weights
-        they take rounded, as :meth:`FlowStep.weights` packs them), with
-        the Vanilla rows.  ``pitch [B, T, ps]`` is GR mode's pitch
-        operand."""
+        (on the card with their tensor-core layout, at bfloat16 the ring
+        body's slices; at bfloat16 the weights they take rounded, as
+        :meth:`FlowStep.weights` packs them), with the Vanilla rows.
+        ``pitch [B, T, ps]`` is GR mode's pitch operand."""
         dt = dtype or x.dtype
         if packed is None:
             with torch.no_grad():
@@ -336,7 +335,7 @@ class AffineCoupling(nn.Module):
                 b_in = rows['b_in']
                 weights = {key: value.float().contiguous()
                            for key, value in weights.items()}
-                weights = (with_tensor_core_weights(weights, dt)
+                weights = (with_kernel_weights(weights, dt)
                            if x.device.type == 'cuda'
                            else rounded_weights(weights, dt))
                 n, ch2 = b_in.shape
@@ -365,8 +364,8 @@ class FlowStep(nn.Module):
             AffineCoupling(config)])
         self._packed: Optional[Dict[bool, Dict[str, torch.Tensor]]] = None
         # the packs of the other dtypes' kernels (bfloat16): the float32
-        # pack with the weights they take rounded and, on a card, their
-        # tensor-core layout
+        # pack with the weights they take rounded and, on a card, the ring
+        # body's slices
         self._by_dtype: Dict[torch.dtype,
                              Dict[bool, Dict[str, torch.Tensor]]] = {}
         self._rows: Optional[Dict[str, torch.Tensor]] = None
@@ -431,21 +430,24 @@ class FlowStep(nn.Module):
             return self._packed[reverse]
         if dtype not in self._by_dtype:
             packs = self._packed
-            split = {}
             rings = {direction: {} for direction in packs}
             if packs[False]['an_logs'].device.type == 'cuda':
-                split = tensor_core_weights(packs[False]['w_in'],
-                                            packs[False]['w_rs'], dtype)
-                # the ring body's slices (the bfloat16 flow_step and
-                # flow_stack): both directions share all but the mixing's
+                # the ring body's slices (the bfloat16 flow_step, coupling
+                # and flow_stack): both directions share all but the
+                # mixing's
                 common = ring_weights({key: packs[False][key] for key in (
                     'w_start', 'w_in', 'w_rs', 'w_end')})
                 rings = {direction: {**common, **ring_weights(
                     {'mix_t': weights['mix_t']})}
                     for direction, weights in packs.items()}
+            # without the float32 tensor-core layout, which no bfloat16
+            # build reads
             self._by_dtype[dtype] = {
                 direction: rounded_weights(
-                    {**weights, **split, **rings[direction]}, dtype)
+                    {**{key: value for key, value in weights.items()
+                        if key not in TC_KEYS.values()},
+                     **rings[direction]},
+                    dtype)
                 for direction, weights in packs.items()}
         return self._by_dtype[dtype][reverse]
 
@@ -479,8 +481,7 @@ class FlowStep(nn.Module):
         dt = dtype or x.dtype
         actnorm, invconv, coupling_module = self.layers
         weights = self.weights(reverse, dt)
-        packed = ({key: weights[key] for key in
-                   (*COUPLING_WEIGHT_KEYS, *TC_KEYS.values(), 'w_pitch')
+        packed = ({key: weights[key] for key in COUPLING_PACK_KEYS
                    if key in weights}, cond)
         mixing = (self.weights(reverse, x.dtype)['mix_t'], self._mix_logdet)
         if reverse:

@@ -17,13 +17,16 @@ and the fragment addressing that only the card runs.
   bf16 body.
 * :func:`wgrad_slices`: the weight gradients' walk of a chunk's samples in
   32-frame slices.
-* The ring body of the bfloat16 flow step (``csrc/flow_ring.cuh``):
+* The ring body of the bfloat16 flow step and coupling
+  (``csrc/flow_ring.cuh``):
   :func:`ring_slice_operand`, a product's B operand as ``wgmma`` reads a
   warpgroup's columns from a staged slice; :func:`ring_lane_rows`, the rows
   and depth each lane hands to ``ldmatrix`` for A, the k-tap conv's tap
   one row further each; :func:`ring_accumulator_cells`, the (row, column)
   of each accumulator register of a warpgroup's product, and
-  :func:`ring_gate_channels`, the gate's channel of each column pair.
+  :func:`ring_gate_channels`, the gate's channel of each column pair;
+  :func:`ring_program`, the slices a tile stages in turn (the flow
+  step's, or the coupling's without the mixing).
 
 Nothing here runs in the port's paths; each function mirrors a line of
 device code named in its docstring.
@@ -211,19 +214,22 @@ def ring_gate_channels(warpgroup: int, columns: torch.Tensor) -> torch.Tensor:
 
 
 def ring_program(channels: int, reverse: bool, layers: int = 4,
-                 taps: int = 5, ch: int = 192
+                 taps: int = 5, ch: int = 192, mixing: bool = True
                  ) -> List[Tuple[str, object, int]]:
     """``(ring weight, layer or None, slice)`` of each position ``p`` of a
     tile's program as ``ring_slice`` maps it (forward: the mixing first;
     then the start conv, each layer's k-tap and res/skip slices, the end
-    conv; reverse: the mixing last), one entry a position."""
+    conv; reverse: the mixing last), one entry a position; without
+    ``mixing`` the coupling's program (``ring_coupling_tile``: no mixing
+    slices)."""
     def slices(depth):
         return -(-depth // (ROW_BYTES // 2))
-    s_mix, s_start = slices(channels), slices(channels // 2)
+    s_mix = slices(channels) if mixing else 0
+    s_start = slices(channels // 2)
     s_in, s_rs, s_end = slices(taps * ch), slices(ch), slices(ch)
     out = []
     for p in range(s_mix + s_start + layers * (s_in + s_rs) + s_end):
-        if not reverse:
+        if mixing and not reverse:
             if p < s_mix:
                 out.append(('mix_ring', None, p))
                 continue
@@ -238,6 +244,6 @@ def ring_program(channels: int, reverse: bool, layers: int = 4,
                        else ('rs_ring', layer, q - s_in))
             continue
         p -= layers * (s_in + s_rs)
-        out.append(('end_ring', None, p) if p < s_end
+        out.append(('end_ring', None, p) if not mixing or p < s_end
                    else ('mix_ring', None, p - s_end))
     return out

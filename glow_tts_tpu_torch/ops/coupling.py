@@ -59,13 +59,15 @@ the stream between the steps in bfloat16, as the TPU kernel's carry is in
 ``dt``.  Their kernels are builds of each source with ``GLOW_BF16``
 (:func:`build_defines`), whose big products run on the tensor cores with
 bfloat16 operands (``mma.sync.m16n8k16``) on weights laid out once, where
-they are packed (:func:`tensor_core_weights` with ``dtype``).  Those of
-``flow_step`` and ``flow_stack`` run a body of their own for Hopper
-(``csrc/flow_ring.cuh``: :data:`RING_TIME_TILE`-frame tiles, every product
-on ``wgmma`` over weight slices staged through a ring in shared memory),
-which takes its products' weights in :func:`ring_layout_bf16`
-(:func:`ring_weights`, under :data:`RING_KEYS`' names, packed once by
-``FlowStep.weights``).
+they are packed (:func:`tensor_core_weights` with ``dtype``).  All three
+run one body of their own for Hopper (``csrc/flow_ring.cuh``:
+:data:`RING_TIME_TILE`-frame tiles, every product on ``wgmma`` over weight
+slices staged through a ring in shared memory; ``coupling`` the flow step's
+WaveNet and affine without ActNorm and the mixing, on ``x_a`` and ``x_b``
+read where they lie), which takes its products' weights in
+:func:`ring_layout_bf16` (:func:`ring_weights`, under :data:`RING_KEYS`'
+names, packed once by ``FlowStep.weights``; :func:`with_kernel_weights`
+for a hand-made dict).
 """
 
 from __future__ import annotations
@@ -109,7 +111,8 @@ TC_KEYS = {'w_in': 'w_in_tc', 'w_rs': 'w_rs_tc'}
 # (f32 accuracy), 1 a single TF32 pass (3 digits, kept for measuring)
 TF32_PASSES = 3
 # frames of a time tile of every flow kernel (Shipped::TT in
-# csrc/flow_common.cuh) but the bfloat16 builds of flow_step and flow_stack
+# csrc/flow_common.cuh) but the bfloat16 builds of flow_step, flow_stack and
+# coupling
 TIME_TILE = 32
 # and of theirs (RingShape::TT in csrc/flow_ring.cuh: with the halo, one
 # 64-row block of wgmma)
@@ -119,6 +122,15 @@ RING_TIME_TILE = 48
 # layout they hold
 RING_KEYS = {'mix_t': 'mix_ring', 'w_start': 'start_ring', 'w_in': 'in_ring',
              'w_rs': 'rs_ring', 'w_end': 'end_ring'}
+# those of the coupling's own weights (no mixing)
+COUPLING_RING_KEYS = tuple(RING_KEYS[key] for key in COUPLING_WEIGHT_KEYS
+                           if key in RING_KEYS)
+# what the 'modules' route hands the coupling of a flow step's pack
+# (``models/decoder.py::FlowStep.forward``): the coupling's own weights,
+# their tensor-core layout (the float32 build's), their ring slices (the
+# bfloat16 build's) and GR's pitch weights, those of them the pack holds
+COUPLING_PACK_KEYS = (*COUPLING_WEIGHT_KEYS, *TC_KEYS.values(),
+                      *COUPLING_RING_KEYS, 'w_pitch')
 # a ring slice's depth (flow_ring.cuh's kRingDepth: a 128-byte row of B a
 # column), and the columns (rows of B) a warpgroup takes of a 1x1 conv
 # (each output half padded to it) and of a WaveNet product
@@ -126,7 +138,7 @@ RING_DEPTH = 64
 RING_HALF_SMALL = 96
 RING_HALF_BIG = 192
 # the sources whose bfloat16 builds run the ring body
-RING_SOURCES = ('flow_step.cu', 'flow_stack.cu')
+RING_SOURCES = ('flow_step.cu', 'flow_stack.cu', 'coupling.cu')
 # for measuring (tools/time_flow.py bars): the ring body's summing depth
 # (GLOW_RING_SUM_DEPTH: 16, 64 or 0 for a product's whole depth), None the
 # one csrc/flow_ring.cuh ships; set before the first bfloat16 launch
@@ -137,6 +149,9 @@ RING_PHASES = ('load (forward: ActNorm, mixing)', 'start conv',
                *(f'layer {i} {part}' for i in range(4)
                  for part in ('k-tap conv + gate', 'res/skip conv')),
                'skip sum + end conv', 'affine + store (reverse: mixing)')
+# and a tile of the coupling's (csrc/coupling.cu's bfloat16 build): the same
+# without ActNorm and the mixing
+COUPLING_PHASES = ('load', *RING_PHASES[1:-1], 'affine + store')
 # what a launch over the live tiles reports when asked (``tiles`` of
 # :func:`_flow_step_kernel`, :func:`_coupling_kernel`,
 # :func:`_flow_stack_kernel` and ``coupling_grad._apply_kernels``;
@@ -358,6 +373,18 @@ def with_tensor_core_weights(weights: Weights,
         return weights
     return rounded_weights({**weights, **tensor_core_weights(
         weights['w_in'], weights['w_rs'], dtype)}, dtype)
+
+
+def with_kernel_weights(weights: Weights, dtype: torch.dtype) -> Weights:
+    """``weights`` (a flow step's or the coupling's own, float32) as the
+    deterministic kernels of ``dtype`` take them, without gradient: at
+    float32 with :func:`tensor_core_weights`, at bfloat16 with
+    :data:`BF16_ROUNDED_KEYS` rounded and the ring body's slices
+    (:func:`ring_weights`) of the products it holds, as
+    ``FlowStep.weights`` packs them."""
+    if dtype == torch.float32:
+        return with_tensor_core_weights(weights)
+    return rounded_weights({**weights, **ring_weights(weights)}, dtype)
 
 
 def rounded_weights(weights: Weights, dtype: torch.dtype) -> Weights:
@@ -590,9 +617,9 @@ def _check_launch(name: str, x: torch.Tensor, channels: int,
     (tensor, shape)) a contiguous tensor of its shape on ``x``'s device,
     float32 unless ``dtypes`` names another for it.  ``views`` (of
     ``dtypes`` too) may be slices of a wider tensor's channels: unit stride
-    along the channels, every other stride and the address a multiple of 4
-    elements, as the kernel's loads of 4 elements need.  Raises
-    otherwise."""
+    along the channels, every other stride and the address a multiple of 16
+    bytes (4 float32 elements, 8 bfloat16), as the kernels' 16-byte loads
+    need.  Raises otherwise."""
     views = views or {}
     dtypes = dtypes or {}
     if x.device.type != 'cuda':
@@ -616,16 +643,19 @@ def _check_launch(name: str, x: torch.Tensor, channels: int,
                 f'{tuple(tensor.shape)} {tensor.dtype} on {tensor.device}')
     for key, (view, shape) in views.items():
         dtype = dtypes.get(key, torch.float32)
+        # a 16-byte load's elements at this dtype
+        chunk = 16 // view.element_size()
         if (view.device != x.device or view.dtype != dtype
                 or tuple(view.shape) != tuple(shape) or view.stride(-1) != 1
-                or any(stride % 4 for stride in view.stride()[:-1])
-                or view.data_ptr() % (4 * view.element_size())):
+                or any(stride % chunk for stride in view.stride()[:-1])
+                or view.data_ptr() % 16):
             raise ValueError(
                 f'{name}: {key} must be a {dtype} tensor of shape '
                 f'{tuple(shape)} on {x.device} with unit stride along the '
-                f'channels and rows aligned to 4 elements; got '
-                f'{tuple(view.shape)} {view.dtype} strides {view.stride()} '
-                f'on {view.device}')
+                f'channels and rows aligned to {chunk} elements (16 bytes); '
+                f'got {tuple(view.shape)} {view.dtype} strides '
+                f'{view.stride()} at byte {view.data_ptr() % 16} of 16 on '
+                f'{view.device}')
 
 
 def check_shape(name: str, channels: int, w_in_shape: Tuple[int, ...],
@@ -655,11 +685,12 @@ def _check_weights(name: str, x: torch.Tensor, pitch, channels: int,
                    ring: bool = False) -> None:
     """:func:`_check_launch` on ``tensors`` (of ``dtypes``), the f32
     ``weights`` of ``shapes`` and their tensor-core layout for a kernel of
-    ``dtype`` (with ``ring``, the ring body's :func:`ring_weights`), which
-    ``weights`` must carry: it is made once, where the weights are packed,
-    not at every launch.  With a ``pitch [B, T, ps]`` operand (``ps`` the
-    width of ``channels``, :func:`pitch_width`), ``weights`` carry
-    ``w_pitch [(S,) n, ps, 2ch]`` too."""
+    ``dtype`` (with ``ring``, the ring body's :func:`ring_weights` of the
+    products among ``shapes``), which ``weights`` must carry: it is made
+    once, where the weights are packed, not at every launch.  With a
+    ``pitch [B, T, ps]`` operand (``ps`` the width of ``channels``,
+    :func:`pitch_width`), ``weights`` carry ``w_pitch [(S,) n, ps, 2ch]``
+    too."""
     w_in_shape = weights['w_in'].shape[0 if steps is None else 1:]
     lead = () if steps is None else (steps,)
     ps = 0 if pitch is None else pitch.shape[-1]
@@ -680,16 +711,16 @@ def _check_weights(name: str, x: torch.Tensor, pitch, channels: int,
         views, dtypes)
     n, k, ch, _ = w_in_shape
     if ring:
-        missing = [key for key in RING_KEYS.values() if key not in weights]
+        keys = ring_keys(key for key in shapes if key in RING_KEYS)
+        missing = [key for key in keys if key not in weights]
         if missing:
             raise ValueError(
                 f'{name}: the weights lack {missing}, the ring body\'s '
                 'slices; lay them out once where the weights are packed '
-                '(ring_weights; FlowStep.weights caches them)')
+                '(with_kernel_weights; FlowStep.weights caches them)')
         _check_launch(name, x, channels, w_in_shape, {
             key: (weights[key], lead + ring_shapes(channels, n, k, ch)[key])
-            for key in RING_KEYS.values()},
-            dtypes=dict.fromkeys(RING_KEYS.values(), torch.bfloat16))
+            for key in keys}, dtypes=dict.fromkeys(keys, torch.bfloat16))
         return
     missing = [key for key in TC_KEYS.values() if key not in weights]
     if missing:
@@ -827,26 +858,11 @@ def flow_step_phases(x, mask, weights, cond, reverse=False, pitch=None):
     cycles a computed tile spends in each of :data:`RING_PHASES`, the
     tiles and rounds the launch reports, and the SM clock in GHz (cycles
     over ``%globaltimer`` ns, over the blocks' whole runs)."""
-    b, t, c = x.shape
-    lib = load_flow_step_library(pitch is not None, c, True)
-    blocks = lib.glow_flow_step_resident_blocks(b)
-    if blocks < 0:
-        raise RuntimeError('flow_step: ' + lib.glow_cuda_error_string(
-            -blocks).decode())
-    clocks = torch.zeros((blocks, lib.glow_flow_step_clock_slots()),
-                         dtype=torch.int64, device=x.device)
-    tiles = tile_report(x.device)
-    z, ld = _flow_step_kernel(x, mask, weights, cond, reverse, pitch,
-                              tiles=tiles, clocks=clocks)
-    torch.cuda.synchronize(x.device)
-    report = dict(zip(TILE_COUNTS, tiles.tolist()))
-    sums = clocks.sum(dim=0).tolist()
-    n = len(RING_PHASES)
-    return z, ld, {
-        'cycles': {phase: sums[i] / max(report['computed'], 1)
-                   for i, phase in enumerate(RING_PHASES)},
-        'tiles': report['computed'], 'rounds': report['rounds'],
-        'sm_ghz': sums[n] / max(sums[n + 1], 1)}
+    lib = load_flow_step_library(pitch is not None, x.shape[-1], True)
+    return _phases('flow_step', lib, x.device, x.shape[0], RING_PHASES,
+                   lambda tiles, clocks: _flow_step_kernel(
+                       x, mask, weights, cond, reverse, pitch, tiles=tiles,
+                       clocks=clocks))
 
 
 zero_launch_counts(flow_step)
@@ -860,7 +876,8 @@ def coupling(x_a: torch.Tensor, x_b: torch.Tensor, mask: torch.Tensor,
     plain version for a CPU tensor.  Arguments and result as
     :func:`coupling_reference`.  On the card ``x_a`` and ``x_b`` may be the
     two halves of one ``[B, T, C]`` tensor, read where they lie; ``weights``
-    carry :func:`tensor_core_weights` too."""
+    carry :func:`tensor_core_weights` too (at bfloat16 the ring body's
+    slices: :func:`with_kernel_weights`)."""
     if x_a.device.type == 'cpu':
         return coupling_reference(x_a, x_b, mask, weights, cond, pitch,
                                   reverse)
@@ -868,10 +885,14 @@ def coupling(x_a: torch.Tensor, x_b: torch.Tensor, mask: torch.Tensor,
 
 
 def _coupling_kernel(x_a, x_b, mask, weights, cond, pitch=None,
-                     reverse=False, tiles: Optional[torch.Tensor] = None):
+                     reverse=False, tiles: Optional[torch.Tensor] = None,
+                     clocks: Optional[torch.Tensor] = None):
     """:func:`coupling`'s launch, with, for measuring, a
     :func:`tile_report` to fill.  A bfloat16 ``x_a`` (and ``x_b``) goes to
-    the bfloat16 build, as in :func:`_flow_step_kernel`."""
+    the bfloat16 build (the ring body, on the coupling's
+    :data:`COUPLING_RING_KEYS`), as in :func:`_flow_step_kernel`.
+    ``clocks`` (bfloat16 only, for measuring: :func:`coupling_phases`)
+    launches the timed instantiation, which no launch count counts."""
     b, t, c2 = x_a.shape
     n, k, ch, ch2 = weights['w_in'].shape
     bf16 = x_a.dtype == torch.bfloat16
@@ -882,8 +903,12 @@ def _coupling_kernel(x_a, x_b, mask, weights, cond, pitch=None,
         'coupling', x_a, pitch, 2 * c2, weights,
         {'mask': (mask, (b, t, 1)), 'cond': (cond, (n, b, ch2))}, shapes,
         views={'x_a': (x_a, (b, t, c2)), 'x_b': (x_b, (b, t, c2))},
-        dtypes={'x_a': dtype, 'x_b': dtype}, dtype=dtype)
-    own = kernel_keys(COUPLING_WEIGHT_KEYS)
+        dtypes={'x_a': dtype, 'x_b': dtype}, dtype=dtype, ring=bf16)
+    if clocks is not None and not bf16:
+        raise ValueError('coupling: the timed instantiation is the '
+                         'bfloat16 build\'s')
+    own = (ring_keys(COUPLING_WEIGHT_KEYS) if bf16
+           else kernel_keys(COUPLING_WEIGHT_KEYS))
     tiles_ptr = tile_report_pointer('coupling', tiles, x_a)
     cond, pitch = _rounded_operands(cond, pitch, dtype)
 
@@ -893,16 +918,64 @@ def _coupling_kernel(x_a, x_b, mask, weights, cond, pitch=None,
     if not reverse:
         n_tiles = -(-t // lib.glow_coupling_time_tile())
         ld_part = torch.empty((b, n_tiles), device=x_a.device)
-    _raise_on('coupling', lib, lib.glow_coupling_f32(
+    pointers = [
         x_a.data_ptr(), x_a.stride(0), x_a.stride(1),
         x_b.data_ptr(), x_b.stride(0), x_b.stride(1),
         mask.data_ptr(), cond.data_ptr(), *_pitch_pointers(pitch, weights),
         *[weights[key].data_ptr() for key in own],
         z_b.data_ptr(), None if ld_part is None else ld_part.data_ptr(),
-        tiles_ptr, b, t, int(reverse),
-        torch.cuda.current_stream(x_a.device).cuda_stream))
-    count_launches(coupling, '', 2 * c2, pitch is not None, bf16=bf16)
+        tiles_ptr, b, t, int(reverse)]
+    stream = torch.cuda.current_stream(x_a.device).cuda_stream
+    if clocks is not None:
+        _raise_on('coupling', lib, lib.glow_coupling_timed(
+            *pointers, stream, clocks.data_ptr()))
+    else:
+        _raise_on('coupling', lib, lib.glow_coupling_f32(*pointers, stream))
+        count_launches(coupling, '', 2 * c2, pitch is not None, bf16=bf16)
     return z_b, (None if ld_part is None else ld_part.sum(dim=1))
+
+
+def _phases(name: str, lib, device, batch: int, phases: Tuple[str, ...],
+            launch) -> tuple:
+    """The timed instantiation of a bfloat16 ring build (``lib``'s
+    ``glow_<name>_resident_blocks`` and ``_clock_slots``): ``launch(tiles,
+    clocks)`` fills a :func:`tile_report` and the blocks' clocks and
+    returns ``(z, logdet)``; returns ``(z, logdet, report)``, the report
+    the mean cycles a computed tile spends in each of ``phases``, the tiles
+    and rounds the launch reports, and the SM clock in GHz (cycles over
+    ``%globaltimer`` ns, over the blocks' whole runs)."""
+    blocks = getattr(lib, f'glow_{name}_resident_blocks')(batch)
+    if blocks < 0:
+        raise RuntimeError(f'{name}: ' + lib.glow_cuda_error_string(
+            -blocks).decode())
+    clocks = torch.zeros(
+        (blocks, getattr(lib, f'glow_{name}_clock_slots')()),
+        dtype=torch.int64, device=device)
+    tiles = tile_report(device)
+    z, ld = launch(tiles, clocks)
+    torch.cuda.synchronize(device)
+    report = dict(zip(TILE_COUNTS, tiles.tolist()))
+    sums = clocks.sum(dim=0).tolist()
+    # the slots past the phases: a block's cycles, then its ns
+    n = len(RING_PHASES)
+    return z, ld, {
+        'cycles': {phase: sums[i] / max(report['computed'], 1)
+                   for i, phase in enumerate(phases)},
+        'tiles': report['computed'], 'rounds': report['rounds'],
+        'sm_ghz': sums[n] / max(sums[n + 1], 1)}
+
+
+def coupling_phases(x_a, x_b, mask, weights, cond, pitch=None,
+                    reverse=False):
+    """The bfloat16 ``coupling``'s timed instantiation (CUDA bfloat16
+    halves; not counted): ``(z_b, logdet, phases)``, ``phases`` as
+    :func:`flow_step_phases`' over :data:`COUPLING_PHASES`."""
+    lib = load_coupling_library(pitch is not None, 2 * x_a.shape[-1], True)
+    return _phases('coupling', lib, x_a.device, x_a.shape[0],
+                   COUPLING_PHASES,
+                   lambda tiles, clocks: _coupling_kernel(
+                       x_a, x_b, mask, weights, cond, pitch, reverse,
+                       tiles=tiles, clocks=clocks))
 
 
 zero_launch_counts(coupling)
@@ -1042,11 +1115,17 @@ def load_coupling_library(pitch: bool = False,
                           channels: int = SHIPPED_CHANNELS,
                           bf16: bool = False) -> ctypes.CDLL:
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    return _load('coupling.cu', 'glow_coupling_f32',
-                 [vp, ll, ll] * 2 + [vp] * (4 + len(COUPLING_WEIGHT_KEYS) + 3)
-                 + [ci, ci, ci, vp],
-                 pitch, channels,
-                 extra=(('glow_coupling_resident_blocks', [ci]),), bf16=bf16)
+    args = ([vp, ll, ll] * 2 + [vp] * (4 + len(COUPLING_WEIGHT_KEYS) + 3)
+            + [ci, ci, ci, vp])
+    lib = _load('coupling.cu', 'glow_coupling_f32', args, pitch, channels,
+                extra=(('glow_coupling_resident_blocks', [ci]),), bf16=bf16)
+    if bf16:
+        # the ring body's timed instantiation
+        lib.glow_coupling_timed.argtypes = args + [vp]
+        lib.glow_coupling_timed.restype = ci
+        lib.glow_coupling_clock_slots.argtypes = []
+        lib.glow_coupling_clock_slots.restype = ci
+    return lib
 
 
 @functools.cache

@@ -1,7 +1,8 @@
-"""Time and check the bfloat16 flow step (#3, ``csrc/flow_step.cu``) and flow
-stack (#4, ``csrc/flow_stack.cu``) alone on one NVIDIA GPU, build by build:
-the measuring script behind the redesign of their bfloat16 body that
-``PERF.md`` compares.
+"""Time and check the bfloat16 flow step (#3, ``csrc/flow_step.cu``), flow
+stack (#4, ``csrc/flow_stack.cu``) and affine coupling (#2,
+``csrc/coupling.cu``) alone on one NVIDIA GPU, build by build: the measuring
+script behind the redesign of their bfloat16 body that ``PERF.md``
+compares.
 
     python3 -m glow_tts_tpu_torch.tools.time_flow [BUILD,...]
     python3 -m glow_tts_tpu_torch.tools.time_flow bars [DEPTH]
@@ -17,15 +18,19 @@ and ``chip_smoke.py`` are the ones measured, this file only drives them.
 The first form.  For each build asked for (``c160``: the shipped YAML;
 ``c160_pitch``: GR's; ``c80``: MiniSpeech's; ``c80_pitch``: GR at
 Num_Squeeze 1; default all four), on a model of that config with random
-weights after its ActNorm init: #3 and #4 bf16 in both directions, at B =
-32 x T = 512 with every frame valid and on the eval batch's ragged lengths,
-each against its bf16 plain version (``chip_smoke.py``'s bar; #4 bit for
-bit against 12 launches of #3), timed beside the f32 build on the same
-inputs and beside its plain version, with its bounds
-(``chip_smoke.flow_kernel_rows``); then, where the tree's ``flow_step``
-has a timed instantiation (``ops/coupling.py::flow_step_phases``), the
-cycles and microseconds a computed tile spends in each phase, both
-directions, both shapes; first the ``ptxas`` lines of the builds.
+weights after its ActNorm init: #3, #4 and #2 bf16 in both directions, at
+B = 32 x T = 512 with every frame valid and on the eval batch's ragged
+lengths, each against its bf16 plain version (``chip_smoke.py``'s bar; #4
+bit for bit against 12 launches of #3; where the tree's ``chip_smoke.py``
+has it, #2 bit for bit against #3 on an identity ActNorm and mixing),
+timed beside the f32 build on the same inputs and beside its plain
+version, with its bounds (``chip_smoke.flow_kernel_rows``); then #3 and
+#2 launched 20 at a time from a CUDA graph (their device time without the
+host's share between launches) and, where the tree's ``flow_step`` and
+``coupling`` have a timed instantiation (``ops/coupling.py::
+flow_step_phases``, ``coupling_phases``), the cycles and microseconds a
+computed tile spends in each phase, both directions, both shapes; first
+the ``ptxas`` lines of the builds.
 
 The second form.  Every bar of ``chip_smoke.py`` that the bfloat16 flow
 step and stack feed (its bf16 phase and bf16 routes phase: the kernels
@@ -47,7 +52,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 BUILDS = ('c160', 'c160_pitch', 'c80', 'c80_pitch')
-SOURCES = ('flow_step.cu', 'flow_stack.cu')
+SOURCES = ('flow_step.cu', 'flow_stack.cu', 'coupling.cu')
 
 
 def problem(cs, build, device, root):
@@ -81,9 +86,35 @@ def problem(cs, build, device, root):
     return model, eval_mask, config.uses_gradient_reversal
 
 
+def graph_ms(fn, launches=20, replays=10):
+    """Device ms a call of ``fn`` takes: ``launches`` calls captured in one
+    CUDA graph (no host work between the launches), replayed ``replays``
+    times after a warm replay, timed by CUDA events."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (launches * replays)
+
+
 @torch.no_grad()
 def phases(cs, model, eval_mask, pitch, build, device):
-    """The timed instantiation's cycles a tile, by phase."""
+    """#3 and #2 bf16 launched from a CUDA graph (device time alone, both
+    directions and shapes), and the timed instantiations' cycles a tile,
+    by phase, where the tree has them."""
     from glow_tts_tpu_torch.ops import coupling
     decoder = model.layer_Dict['Decoder']
     step = decoder.layer_Dict['Flows'][0]
@@ -109,23 +140,48 @@ def phases(cs, model, eval_mask, pitch, build, device):
               f'eval {tuple(eval_mask.shape[:2])}':
                   ((x[:, :eval_mask.shape[1]].float() * eval_mask).to(
                       torch.bfloat16).contiguous(), eval_mask)}
+    c2 = c // 2
+
+    def own(w, q):
+        return {**cs.coupling_weights(w),
+                **({'w_pitch': w['w_pitch']} if q is not None else {})}
+    # (the wrapper's call, the timed instantiation or None) of each kernel
+    kernels = {
+        '#3': (lambda xs, m, w, r, q: coupling.flow_step(
+                   xs, m, w, cond, r, pitch=q),
+               lambda xs, m, w, r, q: coupling.flow_step_phases(
+                   xs, m, w, cond, r, q)),
+        '#2': (lambda xs, m, w, r, q: coupling.coupling(
+                   xs[..., :c2], xs[..., c2:], m, own(w, q), cond, pitch=q,
+                   reverse=r),
+               (lambda xs, m, w, r, q: coupling.coupling_phases(
+                   xs[..., :c2], xs[..., c2:], m, own(w, q), cond, q, r))
+               if hasattr(coupling, 'coupling_phases') else None)}
     for shape, (xs, m) in shapes.items():
         q = None if p is None else p[:, :xs.shape[1]].contiguous()
         for reverse in (False, True):
             w = step.weights(reverse, torch.bfloat16)
-            coupling.flow_step_phases(xs, m, w, cond, reverse, q)  # warm-up
-            _, _, got = coupling.flow_step_phases(xs, m, w, cond, reverse, q)
-            ghz = got['sm_ghz']
-            total = sum(got['cycles'].values())
-            print(f'#3 bf16 {build} {shape} reverse={reverse}: '
-                  f'{got["tiles"]} tiles, {got["rounds"]} rounds, SM clock '
-                  f'{ghz:.3f} GHz; a tile {total:.0f} cycles = '
-                  f'{total / ghz / 1e3:.2f} us, x rounds '
-                  f'{got["rounds"] * total / ghz / 1e6:.4f} ms:')
-            for name, cycles in got['cycles'].items():
-                print(f'  {name:34s} {cycles:9.0f} cycles '
-                      f'{cycles / ghz / 1e3:7.3f} us '
-                      f'({100 * cycles / max(total, 1):5.1f} %)')
+            for kernel, (call, run) in kernels.items():
+                ms = graph_ms(lambda: call(xs, m, w, reverse, q))
+                print(f'{kernel} bf16 {build} {shape} reverse={reverse}: '
+                      f'{ms:.4f} ms a launch from a CUDA graph')
+                if run is None:
+                    print(f'{kernel} bf16 {build}: this tree has no timed '
+                          'instantiation')
+                    continue
+                run(xs, m, w, reverse, q)                   # warm-up
+                _, _, got = run(xs, m, w, reverse, q)
+                ghz = got['sm_ghz']
+                total = sum(got['cycles'].values())
+                print(f'{kernel} bf16 {build} {shape} reverse={reverse}: '
+                      f'{got["tiles"]} tiles, {got["rounds"]} rounds, SM '
+                      f'clock {ghz:.3f} GHz; a tile {total:.0f} cycles = '
+                      f'{total / ghz / 1e3:.2f} us, x rounds '
+                      f'{got["rounds"] * total / ghz / 1e6:.4f} ms:')
+                for name, cycles in got['cycles'].items():
+                    print(f'  {name:34s} {cycles:9.0f} cycles '
+                          f'{cycles / ghz / 1e3:7.3f} us '
+                          f'({100 * cycles / max(total, 1):5.1f} %)')
 
 
 @torch.no_grad()
@@ -149,12 +205,8 @@ def run_builds(cs, builds, device):
             model, eval_mask, pitch = problem(cs, build, device, root)
             cs.flow_kernel_rows(model, device, eval_mask, f'bf16 {build}',
                                 torch.bfloat16, pitch=pitch,
-                                names=('flow_step', 'flow_stack'))
-            if hasattr(coupling, 'flow_step_phases'):
-                phases(cs, model, eval_mask, pitch, build, device)
-            else:
-                print(f'{build}: this tree\'s flow_step has no timed '
-                      'instantiation')
+                                names=('flow_step', 'flow_stack', 'coupling'))
+            phases(cs, model, eval_mask, pitch, build, device)
             del model
     finally:
         shutil.rmtree(root, ignore_errors=True)

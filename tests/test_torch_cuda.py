@@ -62,12 +62,16 @@ chain of the flow step's bf16 launches (the stream bfloat16 between the
 steps) and to the bar against its plain version.  The pitch operand 1
 wide at 80 channels (the 80-channel pitch builds) in every flow kernel, at f32
 and bf16, against the plain versions, and the 2-wide operand refused
-there.  The Hopper body of #3's and #4's bf16 builds (``csrc/flow_ring.cuh``)
-at every build and in both directions: two runs bit-equal, NaN planted in x
-past each sample's length and in the dead tiles reaching neither z nor the
-logdet, #4 bit for bit against 12 launches of #3, a ragged B = 33 with T
-not a multiple of its 48-frame tile, B = 1 at the tile's edges, and its
-timed instantiation equal to it.
+there.  The Hopper body of #3's, #4's and #2's bf16 builds
+(``csrc/flow_ring.cuh``) at every build and in both directions: two runs
+bit-equal, NaN planted in x past each sample's length and in the dead tiles
+reaching neither z nor the logdet (and, for #2, in the other columns of the
+wider tensor its halves are views of), #4 bit for bit against 12 launches
+of #3, #2's z_b and logdet bit for bit against #3's on an identity ActNorm
+and mixing with its tiles against its 48-frame schedule, a ragged B = 33
+with T not a multiple of its 48-frame tile, B = 1 at the tile's edges, a
+bf16 view off 16-byte alignment refused, and the timed instantiations equal
+to the kernels.
 Needs a GPU and nvcc; skipped without.
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -1781,7 +1785,7 @@ def test_bf16_builds_report_their_width_and_refuse_other_routes(device):
     # the ring body's slices)
     with pytest.raises(ValueError, match='ring'):
         tc.flow_step(x, mask, w, cond)
-    with pytest.raises(ValueError, match='w_in_tc'):
+    with pytest.raises(ValueError, match='ring'):
         tc.coupling(x[..., :80], x[..., 80:], mask, w, cond)
 
 
@@ -1838,7 +1842,7 @@ def test_bf16_coupling_matches_plain(device, lengths, reverse, c, pitch,
     name = '_'.join(part for part in ('bf16', tc.build_tag(c, pitch),
                                       'launches') if part)
     before = getattr(tc.coupling, name)
-    z_b, ld = tc.coupling(x_a, x_b, mask, tc.with_tensor_core_weights(
+    z_b, ld = tc.coupling(x_a, x_b, mask, tc.with_kernel_weights(
         w, torch.bfloat16), cond, pitch=p, reverse=reverse)
     torch.cuda.synchronize()
     assert getattr(tc.coupling, name) == before + 1
@@ -2019,6 +2023,22 @@ def test_bf16_train_gradients_ignore_rows_left_unwritten(device, planted_nan,
 RING_BUILDS = [(160, False), (160, True), (C80, False), (C80, True)]
 
 
+def _coupling_pack(step):
+    """The coupling's share of a flow step's pack, as the ``'modules'``
+    route hands it over."""
+    return {key: step[key] for key in tc.COUPLING_PACK_KEYS if key in step}
+
+
+def _nan_padded_halves(x, half):
+    """``x [B, T, C]``'s two halves as views of a wider bfloat16 tensor
+    whose other 16 columns are NaN (its rows 16 bytes apart)."""
+    b, t, c = x.shape
+    wide = torch.full((b, t, c + 16), float('nan'), dtype=x.dtype,
+                      device=x.device)
+    wide[..., :c] = x
+    return wide[..., :half], wide[..., half:c]
+
+
 def _ring_problem(gen, device, lengths, t, c, pitch, steps=12):
     """Stacked weights of ``steps`` flow steps with the ring body's slices,
     conditioning rows, a pitch operand or None, bfloat16 x on the ragged
@@ -2041,12 +2061,14 @@ def _ring_problem(gen, device, lengths, t, c, pitch, steps=12):
 def test_bf16_ring_body_ignores_what_lies_past_each_length(device, c, pitch,
                                                            reverse,
                                                            planted_nan):
-    """#3's and #4's bf16 ring body on a ragged B = 33 with T = 333 (not a
-    multiple of its 48-frame tile): two runs bit-equal; x planted with NaN
-    past each sample's length (the live tiles' tails and the dead tiles)
-    gives z and the logdet bit for bit as x with zeros there, zeros past
-    each length; #4 bit for bit against 12 launches of #3, and both to the
-    bar against their bf16 plain versions."""
+    """#3's, #4's and #2's bf16 ring body on a ragged B = 33 with T = 333
+    (not a multiple of its 48-frame tile): two runs bit-equal; x planted
+    with NaN past each sample's length (the live tiles' tails and the dead
+    tiles) gives z and the logdet bit for bit as x with zeros there, zeros
+    past each length; #4 bit for bit against 12 launches of #3, and all
+    three to the bar against their bf16 plain versions.  #2's halves are
+    views of a wider tensor whose other columns are NaN, and give what
+    halves of their own give."""
     gen = torch.Generator().manual_seed(400 + c + 2 * pitch + reverse)
     t = 333
     lengths = torch.linspace(1, t, 33).round().long().tolist()
@@ -2076,15 +2098,35 @@ def test_bf16_ring_body_ignores_what_lies_past_each_length(device, c, pitch,
                                     reverse, p)
     s16, _ = tc.flow_stack_reference(x, mask, w, cond, p, reverse)
     s32, _ = tc.flow_stack_reference(x.float(), mask, w, cond, p, reverse)
+    # #2 on the halves of x, of planted x and of x's own copies
+    half = c // 2
+    own = _coupling_pack(step)
+    z_b, ld_b = tc.coupling(*_nan_padded_halves(x, half), mask, own,
+                            cond[0].contiguous(), pitch=p, reverse=reverse)
+    nan_b, nan_ld_b = tc.coupling(*_nan_padded_halves(planted, half), mask,
+                                  own, cond[0].contiguous(), pitch=p,
+                                  reverse=reverse)
+    apart, _ = tc.coupling(x[..., :half].contiguous(),
+                           x[..., half:].contiguous(), mask, own,
+                           cond[0].contiguous(), pitch=p, reverse=reverse)
+    b16, _ = tc.coupling_reference(x[..., :half], x[..., half:], mask, plain,
+                                   cond[0], p, reverse)
+    b32, _ = tc.coupling_reference(x[..., :half].float(),
+                                   x[..., half:].float(), mask, plain,
+                                   cond[0], p, reverse)
     torch.cuda.synchronize()
     for got in (again, nan_z):
         assert torch.equal(got, z)
     assert torch.equal(nan_stack, stack) and torch.equal(stack, chain)
+    assert torch.equal(nan_b, z_b) and torch.equal(apart, z_b)
     assert (z[mask[..., 0] == 0] == 0).all()
     assert (stack[mask[..., 0] == 0] == 0).all()
+    assert (z_b[mask[..., 0] == 0] == 0).all()
     if not reverse:
         assert torch.equal(ld, ld_again) and torch.equal(ld, nan_ld)
-    for got, p16, p32 in ((z, z16, z32), (stack, s16, s32)):
+        assert torch.equal(ld_b, nan_ld_b)
+    for got, p16, p32 in ((z, z16, z32), (stack, s16, s32),
+                          (z_b, b16, b32)):
         err, bar = _bf16_err(got, p16, p32)
         assert err <= bar, (err, bar)
 
@@ -2095,11 +2137,25 @@ def test_bf16_ring_body_at_batch_one(device, c, pitch, t):
     """B = 1 at tile edges (below, at and above one 48-frame tile, and the
     decode shape's 512), both directions, #4 over 3 steps bit for bit
     against the chain of #3 and both to the bar against their plain
-    versions."""
+    versions; #2 on the halves of a wider tensor whose other columns are
+    NaN, to the bar against its plain version."""
     gen = torch.Generator().manual_seed(450 + t + c + pitch)
     w, w16, cond, p, x, mask = _ring_problem(gen, device, [t], t, c, pitch,
                                              steps=3)
+    half = c // 2
+    step = {key: value[0] for key, value in w16.items()}
+    plain = {key: value[0] for key, value in w.items()}
     for reverse in (False, True):
+        z_b, _ = tc.coupling(*_nan_padded_halves(x, half), mask,
+                             _coupling_pack(step), cond[0].contiguous(),
+                             pitch=p, reverse=reverse)
+        b16, _ = tc.coupling_reference(x[..., :half], x[..., half:], mask,
+                                       plain, cond[0], p, reverse)
+        b32, _ = tc.coupling_reference(x[..., :half].float(),
+                                       x[..., half:].float(), mask, plain,
+                                       cond[0], p, reverse)
+        err, bar = _bf16_err(z_b, b16, b32)
+        assert err <= bar, (reverse, err, bar)
         stack, _ = tc.flow_stack(x, mask, w16, cond, pitch=p,
                                  reverse=reverse)
         chain = x
@@ -2136,5 +2192,100 @@ def test_bf16_ring_timed_instantiation_is_the_kernel(device):
         assert phases['tiles'] == sum(-(-n // tc.RING_TIME_TILE)
                                       for n in lengths)
         assert set(phases['cycles']) == set(tc.RING_PHASES)
+        assert all(cycles > 0 for cycles in phases['cycles'].values())
+        assert 0.5 < phases['sm_ghz'] < 3.0
+
+
+@pytest.mark.parametrize('c,pitch', RING_BUILDS)
+@pytest.mark.parametrize('lengths', [[512, 512, 512], [1, 47, 333, 512, 0]])
+@pytest.mark.parametrize('reverse', [False, True])
+def test_bf16_coupling_is_the_flow_step_on_an_identity_actnorm_and_mixing(
+        device, c, pitch, lengths, reverse):
+    """On an identity ActNorm (logs and bias 0) and mixing (I, zero-padded
+    in the ring's slices) with no per-frame logdet constant, #3 bf16's z
+    is [x_a, z_b] of #2 bf16 bit for bit, and so are the forward logdets:
+    both run the same WaveNet and affine on the ring body.  #2 also
+    reports the live tiles of its 48-frame schedule."""
+    gen = torch.Generator().manual_seed(480 + c + pitch + len(lengths))
+    t = max(lengths)
+    w = _stack_weights(gen, device, steps=1, c=c)
+    del w['b_in']
+    w['an_logs'].zero_()
+    w['an_bias'].zero_()
+    w['ld_const'].zero_()
+    w['mix_t'] = torch.eye(c, device=device)[None]
+    p = None
+    if pitch:
+        w, p = _with_pitch(gen, w, len(lengths), t, device, steps=1, c=c)
+    step = {key: value[0] for key, value in _bf16_pack(w).items()}
+    mask = _ragged_mask(lengths, {}, t, device)
+    x = ((torch.randn((len(lengths), t, c), generator=gen) * 3).to(device)
+         * mask).to(torch.bfloat16)
+    cond = (torch.randn((4, len(lengths), 384), generator=gen) * .2
+            ).to(device)
+    half = c // 2
+    z, ld = tc.flow_step(x, mask, step, cond, reverse, pitch=p)
+    tiles = tc.tile_report(device)
+    z_b, ld_b = tc._coupling_kernel(x[..., :half], x[..., half:], mask,
+                                    _coupling_pack(step), cond, p, reverse,
+                                    tiles=tiles)
+    torch.cuda.synchronize()
+    assert torch.isfinite(z_b.float()).all()
+    assert torch.equal(z[..., half:], z_b)
+    assert torch.equal(z[..., :half], x[..., :half])
+    if not reverse:
+        assert torch.equal(ld, ld_b)
+    items = tc.live_tile_schedule(lengths, t, tc.RING_TIME_TILE)
+    blocks = min(tc.load_coupling_library(
+        pitch, c, True).glow_coupling_resident_blocks(len(lengths)),
+        len(items))
+    assert dict(zip(tc.TILE_COUNTS, tiles.tolist())) == _expected_report(
+        sum(item[2] for item in items), len(items), blocks)
+    assert len(items) == len(lengths) * -(-t // tc.RING_TIME_TILE)
+
+
+def test_bf16_coupling_refuses_a_misaligned_view(device):
+    """The bfloat16 coupling reads its halves 16 bytes at a time: a view 4
+    elements (8 bytes) off, or rows a multiple of 4 but not of 8 elements
+    apart, raises instead of being read."""
+    gen = torch.Generator().manual_seed(0)
+    w, cond = _weights(gen, device)
+    w16 = tc.with_kernel_weights(w, torch.bfloat16)
+    mask = torch.ones((4, 8, 1), device=device)
+    x = torch.zeros((4, 8, 168), device=device, dtype=torch.bfloat16)
+    x_a, x_b = x[..., :80], x[..., 80:160]
+    tc.coupling(x_a, x_b, mask, w16, cond)              # a wider parent runs
+    with pytest.raises(ValueError, match='aligned to 8'):
+        tc.coupling(x[..., 4:84], x_b, mask, w16, cond)
+    with pytest.raises(ValueError, match='aligned to 8'):
+        tc.coupling(x_a, x[..., 84:164], mask, w16, cond)
+    rows = torch.zeros((4, 8, 164), device=device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='aligned to 8'):
+        tc.coupling(rows[..., :80], rows[..., 80:160], mask, w16, cond)
+
+
+def test_bf16_coupling_timed_instantiation_is_the_kernel(device):
+    """The timed instantiation of #2's bf16 build gives the kernel's z_b and
+    logdet bit for bit, uncounted, with a cycle count for every phase of
+    every tile it reports."""
+    gen = torch.Generator().manual_seed(490)
+    lengths = [100, 1, 512, 300]
+    w, w16, cond, p, x, mask = _ring_problem(gen, device, lengths, 512, 160,
+                                             False, steps=1)
+    own = _coupling_pack({key: value[0] for key, value in w16.items()})
+    halves = (x[..., :80], x[..., 80:])
+    for reverse in (False, True):
+        z_b, ld = tc.coupling(*halves, mask, own, cond[0].contiguous(),
+                              reverse=reverse)
+        before = tc.coupling.bf16_launches
+        z_t, ld_t, phases = tc.coupling_phases(*halves, mask, own,
+                                               cond[0].contiguous(),
+                                               reverse=reverse)
+        assert tc.coupling.bf16_launches == before
+        assert torch.equal(z_b, z_t)
+        assert reverse or torch.equal(ld, ld_t)
+        assert phases['tiles'] == sum(-(-n // tc.RING_TIME_TILE)
+                                      for n in lengths)
+        assert set(phases['cycles']) == set(tc.COUPLING_PHASES)
         assert all(cycles > 0 for cycles in phases['cycles'].values())
         assert 0.5 < phases['sm_ghz'] < 3.0

@@ -1,7 +1,7 @@
 """The layouts of the bfloat16 flow step's ring body (``csrc/flow_ring.cuh``,
-the ``GLOW_BF16`` builds of ``flow_step.cu`` and ``flow_stack.cu``) that only
-the card runs, held on the CPU through their plain twins
-(``glow_tts_tpu_torch/ops/bf16_tiles.py``) at the built widths:
+the ``GLOW_BF16`` builds of ``flow_step.cu``, ``flow_stack.cu`` and
+``coupling.cu``) that only the card runs, held on the CPU through their plain
+twins (``glow_tts_tpu_torch/ops/bf16_tiles.py``) at the built widths:
 
 * the packing (``ops/coupling.py::ring_layout_bf16``, ``ring_weights``): the
   kernel's shapes, a permutation of the weights and their zero padding (the
@@ -12,7 +12,10 @@ the card runs, held on the CPU through their plain twins
 * the A fragments each lane's ``ldmatrix`` gives, the k-tap conv's tap one
   row further each, and one ``wgmma`` of a slice against the plain product;
 * the accumulator's cells, and the gate's (tanh, sigmoid) pair of each
-  channel in one thread.
+  channel in one thread;
+* the coupling's program and weights: the flow step's without the mixing,
+  the ring slices its wrapper reads, and those the ``'modules'`` route
+  hands it.
 """
 
 import numpy as np
@@ -120,14 +123,18 @@ def test_staged_slices_read_back_as_each_warpgroups_operand(c, product):
                     assert torch.equal(got, want), (s, wg, j, kk)
 
 
+@pytest.mark.parametrize('mixing', [True, False],
+                         ids=['flow step', 'coupling'])
 @pytest.mark.parametrize('c', tc.BUILT_CHANNELS)
 @pytest.mark.parametrize('reverse', [False, True])
-def test_the_ring_stages_every_slice_once_in_the_bodys_order(c, reverse):
+def test_the_ring_stages_every_slice_once_in_the_bodys_order(c, reverse,
+                                                            mixing):
     """``ring_slice``'s program (``bt.ring_program``) against the products'
     slices: each once, mixing first (last on the inverse pass), then the
-    start conv, each layer's k-tap and res/skip convs, the end conv."""
+    start conv, each layer's k-tap and res/skip convs, the end conv; the
+    coupling's (no ``mixing``) the same without the mixing's slices."""
     shapes = tc.ring_shapes(c, N, K, CH)
-    program = bt.ring_program(c, reverse)
+    program = bt.ring_program(c, reverse, mixing=mixing)
     slices = {'mix_ring': shapes['mix_ring'][0],
               'start_ring': shapes['start_ring'][0],
               'end_ring': shapes['end_ring'][0]}
@@ -136,7 +143,8 @@ def test_the_ring_stages_every_slice_once_in_the_bodys_order(c, reverse):
         want += [('in_ring', layer, s) for s in range(shapes['in_ring'][1])]
         want += [('rs_ring', layer, s) for s in range(shapes['rs_ring'][1])]
     want += [('end_ring', None, s) for s in range(slices['end_ring'])]
-    mix = [('mix_ring', None, s) for s in range(slices['mix_ring'])]
+    mix = [('mix_ring', None, s) for s in range(slices['mix_ring'])
+           if mixing]
     want = want + mix if reverse else mix + want
     assert program == want
     assert len(program) == len(set(program))
@@ -238,3 +246,71 @@ def test_the_twins_constants_are_the_kernels():
     assert phases[-1] == 'kRingPhases'
     # kLayer0 stands for its 8 phases, kRingPhases for none
     assert len(phases) - 2 + layers == len(tc.RING_PHASES)
+
+
+def _coupling_pack(c):
+    """A coupling's own float32 weights (``COUPLING_WEIGHT_KEYS``)."""
+    w = _weights(c, 6)
+    return {'w_start': w['w_start'], 'b_start': torch.zeros(CH),
+            'w_in': w['w_in'], 'w_rs': w['w_rs'],
+            'b_rs': torch.zeros(N, 2 * CH), 'w_end': w['w_end'],
+            'b_end': torch.zeros(c)}
+
+
+@pytest.mark.parametrize('c', tc.BUILT_CHANNELS)
+def test_the_coupling_reads_the_ring_slices_of_its_own_weights(c):
+    """The ring slices the bfloat16 coupling's wrapper reads (its weights'
+    ``ring_keys``) are exactly those ``ring_weights`` makes of a coupling's
+    pack, at ``ring_shapes``' shapes, with no mixing; ``with_kernel_weights``
+    packs them beside the rounded weights, as ``FlowStep.weights`` does."""
+    pack = _coupling_pack(c)
+    assert set(pack) == set(tc.COUPLING_WEIGHT_KEYS)
+    ring = tc.ring_weights(pack)
+    read = [key for key in tc.ring_keys(tc.COUPLING_WEIGHT_KEYS)
+            if key in tc.RING_KEYS.values()]
+    assert read == list(tc.COUPLING_RING_KEYS) == list(ring)
+    assert 'mix_ring' not in ring and len(ring) == 4
+    shapes = tc.ring_shapes(c, N, K, CH)
+    for name, tensor in ring.items():
+        assert tuple(tensor.shape) == shapes[name], name
+        assert tensor.dtype == torch.bfloat16 and tensor.is_contiguous()
+    kernel = tc.with_kernel_weights(pack, torch.bfloat16)
+    assert set(kernel) == set(pack) | set(ring)
+    for name, tensor in ring.items():
+        assert torch.equal(kernel[name], tensor)
+    for key in tc.BF16_ROUNDED_KEYS:
+        if key in pack:
+            assert torch.equal(kernel[key],
+                               pack[key].to(torch.bfloat16).float())
+    # and at float32 the tensor-core layout, no ring
+    f32 = tc.with_kernel_weights(pack, torch.float32)
+    assert set(f32) == set(pack) | set(tc.TC_KEYS.values())
+
+
+def test_the_modules_route_hands_the_coupling_its_ring_slices():
+    """What ``FlowStep.forward``'s ``'modules'`` route passes the coupling
+    of a step's pack is ``COUPLING_PACK_KEYS``: the coupling's own weights,
+    their float32 tensor-core layout, their ring slices and GR's pitch
+    weights; of a bfloat16 pack, the ring slices but no mixing or
+    ActNorm."""
+    from glow_tts_tpu_torch.models import decoder
+    assert decoder.COUPLING_PACK_KEYS is tc.COUPLING_PACK_KEYS
+    keys = set(tc.COUPLING_PACK_KEYS)
+    assert set(tc.COUPLING_RING_KEYS) <= keys
+    assert set(tc.COUPLING_WEIGHT_KEYS) | set(tc.TC_KEYS.values()) <= keys
+    assert 'w_pitch' in keys
+    step = {**_coupling_pack(160), 'an_logs': torch.zeros(160),
+            'an_bias': torch.zeros(160), 'mix_t': _weights(160)['mix_t']}
+    pack = tc.with_kernel_weights(step, torch.bfloat16)
+    handed = {key for key in tc.COUPLING_PACK_KEYS if key in pack}
+    assert handed == set(tc.COUPLING_WEIGHT_KEYS) | set(
+        tc.COUPLING_RING_KEYS)
+
+
+def test_the_couplings_phases_are_the_flow_steps_without_the_mixing():
+    """The timed coupling clocks the ring body's phases (one enum), named
+    without the flow step's ActNorm and mixing."""
+    assert len(tc.COUPLING_PHASES) == len(tc.RING_PHASES)
+    assert tc.COUPLING_PHASES[1:-1] == tc.RING_PHASES[1:-1]
+    assert not any('mixing' in name or 'ActNorm' in name
+                   for name in tc.COUPLING_PHASES)
