@@ -98,8 +98,19 @@ dropout 0, to the train path's bars); then two ranks on card 0 over gloo
 collation of half the batch against one process at B = 32, at f32 to the
 train path's bars and at bf16 (the gradients to the bf16 bar), and the
 same for one 'em' step at MiniSpeech's config (its table included); each
-rank's launches of #1, #5 and #6 and its step time by CUDA events.  Last,
-what a user reads of a run: which of tensorboardX, matplotlib and sklearn
+rank's launches of #1, #5 and #6 and its step time by CUDA events.  Then
+tensor parallelism: two ranks on card 0 over gloo as one model group
+(data 1 × model 2, the same script's ranks, ``--data-parallel-rank tp``)
+at the shipped widths, B = 8 (texts padded to 224 tokens, mels up to 512
+frames), at f32 and at bf16 against one process on the same card through
+the kernels: 2 train steps (losses, gradient norm, the weights after), an
+eval step under 'fused' and a decode in the 512 bucket (durations equal,
+then the mels), to ``tests/test_tp.py``'s bars at f32 and the port's bf16
+bar at bf16; the replicated gradients and the MAS paths bit-equal across
+the ranks, more than 30 % of the parameters sharded, each rank's launches
+(#1 alone: no flow kernel runs under tensor parallelism), the model
+group's collectives of a step and the step times.  Last, what a user
+reads of a run: which of tensorboardX, matplotlib and sklearn
 import here; the shipped YAML as shipped (bf16) through ``Trainer`` at
 B = 32, 4 steps with evaluations at 0, 2 and 4, the inference TSV at 4 and
 ``train(profile_steps=(1, 3))``, on its default ``SummaryLogger``s where
@@ -5223,7 +5234,8 @@ def data_parallel_rank(kind, out_path):
     torch.backends.cudnn.benchmark = False
     config16 = load_config(CONFIG)
     assert config16.compute_dtype == 'bfloat16'
-    result = {'nccl': dp_nccl_rank, 'gloo': dp_gloo_rank}[kind](config16)
+    result = {'nccl': dp_nccl_rank, 'gloo': dp_gloo_rank,
+              'tp': tp_gloo_rank}[kind](config16)
     with open(out_path, 'w', encoding='utf-8') as f:
         json.dump(result, f)
     pdata.close()
@@ -5358,6 +5370,365 @@ def run_data_parallel_phase(card):
         'gloo_step_ms': [{case: r[case]['step_ms']
                           for case in ('vanilla', 'em')} for r in gloo],
         'card': card}))
+    return by_path
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: two ranks on card 0 over gloo as one model group
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 2                   # data 1 × model 2, both ranks on card 0
+TP_BATCH, TP_TOKENS, TP_FRAMES = 8, 220, 512   # texts padded to 224 tokens
+TP_STEPS = 2                   # train steps held against one process
+TP_TIMED = 2                   # steps a timing takes, after one warm-up
+TP_LOSS_RTOL = TP_NORM_RTOL = 2e-4             # tests/test_tp.py's bars
+TP_PARAM_TOL = dict(rtol=5e-3, atol=1e-5)
+TP_EVAL_TOL = dict(rtol=5e-5, atol=1e-6)
+
+
+def tp_items(config, seed):
+    """``TP_BATCH`` seeded items: texts of 10 … ``TP_TOKENS`` tokens and
+    mels of 64 … ``TP_FRAMES`` frames."""
+    rng = np.random.default_rng(seed)
+    letters = np.array(list('ABCDEFGHIJKLMNOPQRSTUVWXYZ'))
+    items = []
+    for n_tok, n_mel in zip(np.linspace(10, TP_TOKENS, TP_BATCH).round(),
+                            np.linspace(64, TP_FRAMES, TP_BATCH).round()):
+        chars = rng.choice(letters, int(n_tok) - 2)          # + <S>, <E>
+        chars[5::6] = ' '
+        a = config.sound.max_abs_mel
+        mel = rng.uniform(-a, a, (int(n_mel), config.sound.mel_dim))
+        items.append({'text': ''.join(chars), 'mel': mel.astype(np.float32)})
+    return items
+
+
+def tp_model(state, config, world, train):
+    """A model of ``state`` sharded over ``world``'s model group (whole in
+    a world of one) on its device: weight norm unfolded to train, folded
+    to serve."""
+    from glow_tts_tpu_torch import build_model
+    from glow_tts_tpu_torch.parallel import tp
+    from glow_tts_tpu_torch.weights import load_state_dict
+    model = load_state_dict(build_model(config), state).to(world.device)
+    return tp.shard_model(model, world).prepare(fold=not train)
+
+
+def tp_train(config, model, world, batch):
+    """``TP_STEPS`` train steps of ``model`` under ``world``, seed
+    ``SEED``: the step, its metrics, the first update's gradients by name,
+    the MAS paths, and the model group's collectives of the first step."""
+    from glow_tts_tpu_torch import make_optimizer, make_train_step
+    from glow_tts_tpu_torch.ops.mas import maximum_path
+    from glow_tts_tpu_torch.parallel import tp
+    optimizer = make_optimizer(config, model.parameters())
+    names = {id(p): name for name, p in model.named_parameters()}
+    grads, paths, update = [], [], optimizer.step
+
+    def recording(frozen=()):
+        if not grads:
+            grads.append({names[id(p)]: p.grad.detach().clone()
+                          for p in optimizer.params})
+        return update(frozen)
+
+    def mas(*args):
+        paths.append(maximum_path(*args))
+        return paths[-1]
+
+    optimizer.step = recording
+    step = make_train_step(
+        config, model, optimizer, seed=SEED, mas_fn=mas, world=world,
+        generator=torch.Generator(device=world.device).manual_seed(SEED))
+    tp.reset_collectives()
+    metrics = [dp_values(step(batch))]
+    collectives = dict(tp.COLLECTIVES)
+    metrics += [dp_values(step(batch)) for _ in range(TP_STEPS - 1)]
+    return step, metrics, grads[0], paths, collectives
+
+
+def tp_serve(model, world, batch, noise, durations=None):
+    """The eval step's losses, the prior, and one decode in the
+    ``TP_FRAMES`` bucket from ``noise`` (from the durations given, where
+    they are), under ``world``."""
+    from glow_tts_tpu_torch import make_eval_step
+    losses, _ = make_eval_step(model.config, model, world=world)(batch)
+    prior = model.inference_prior(batch['tokens'], batch['token_lengths'])
+    given = prior if durations is None else {**prior,
+                                             'durations': durations}
+    out = model.inference_decode(given, noise=noise,
+                                 max_mel_length=TP_FRAMES)
+    return dp_values(losses), prior, out
+
+
+def tp_same_on_every_rank(world, tensors):
+    """The elements in which this model group's ranks differ, over the
+    float32 ``tensors`` concatenated (0: bit-equal)."""
+    flat = torch.cat([t.detach().float().reshape(-1) for t in tensors]).cpu()
+    copies = world.gather_bytes(flat.view(torch.uint8))
+    return sum(int((copy.view(torch.float32) != flat).sum())
+               for copy in copies)
+
+
+def tp_gloo_rank(config16):
+    """Two ranks on card 0 over gloo as one model group (data 1 × model 2)
+    at the shipped YAML's widths, B = ``TP_BATCH``: at f32 and at bf16,
+    ``TP_STEPS`` train steps, an eval step and a decode in the
+    ``TP_FRAMES`` bucket, held on rank 0 against one process on the same
+    card (the kernels' routes), same weights, batch, seeds and noise; the
+    replicated gradients and the MAS paths bit-equal across the ranks;
+    each rank's step timed, and one process's beside it."""
+    from glow_tts_tpu_torch import (TrainCollater, batch_to_device,
+                                    random_state_dict)
+    from glow_tts_tpu_torch.parallel import data as pdata
+    from glow_tts_tpu_torch.parallel import tp
+    from glow_tts_tpu_torch.text import Tokenizer, load_token_dict
+    shipped = dataclasses.replace(config16, data_parallel=1,
+                                  model_parallel=TP_RANKS)
+    world = pdata.initialize(shipped, 'cuda', backend='gloo')
+    assert (world.backend, world.device, world.model_size) == (
+        'gloo', torch.device('cuda', 0), TP_RANKS), world
+    device = world.device
+    token_dict = (load_token_dict(config16.token_path)
+                  if os.path.exists(config16.token_path) else None)
+    out = {'rank': world.rank, 'world_size': world.size,
+           'device': str(device), 'backend': world.backend}
+    single = dataclasses.replace(pdata.SINGLE, device=device)
+    one = {}
+    for dtype in ('float32', 'bfloat16'):
+        config = dataclasses.replace(shipped, compute_dtype=dtype)
+        alone = dataclasses.replace(config, data_parallel=0,
+                                    model_parallel=1)
+        batch = batch_to_device(TrainCollater(config, Tokenizer(token_dict))(
+            tp_items(config, SEED + 30)), device)
+        state = random_state_dict(config, SEED)
+        noise = torch.randn(
+            (TP_BATCH, TP_FRAMES, config.sound.mel_dim), device=device,
+            generator=torch.Generator(device=device).manual_seed(SEED + 3))
+        row = {'shape': list(batch['mels'].shape),
+               'tokens': list(batch['tokens'].shape)}
+        if world.is_main:
+            # one process on the same card, through the kernels
+            model = tp_model(state, alone, single, train=True)
+            step, metrics, grads, _, _ = tp_train(alone, model, single,
+                                                  batch)
+            served = tp_serve(tp_model(state, alone, single, False), single,
+                              batch, noise)
+            one[dtype] = {'step': step, 'metrics': metrics, 'grads': grads,
+                          'params': {k: v.clone() for k, v in
+                                     model.state_dict().items()},
+                          'losses': served[0], 'prior': served[1],
+                          'mels': served[2]['mels'],
+                          'mel_lengths': served[2]['mel_lengths']}
+            durations = served[1]['durations'].cpu()
+        else:
+            durations = torch.empty((TP_BATCH, batch['tokens'].shape[1]))
+        # every rank decodes from the world of one's durations: the same as
+        # its own but where a ceil flips at an edge (below)
+        torch.distributed.broadcast(durations, 0, group=world.host_group)
+        model = tp_model(state, config, world, train=True)
+        sharded, total = tp.sharded_param_count(model.tp_specs,
+                                                model.tp_shapes)
+        zero_counts()
+        step, metrics, grads, paths, collectives = tp_train(config, model,
+                                                            world, batch)
+        losses, prior, decoded = tp_serve(
+            tp_model(state, config, world, False), world, batch, noise,
+            durations.to(device))
+        row['launches'] = read_counts()
+        assert row['launches'] == {**no_launches(),
+                                   'mas': TP_STEPS + 1}, row['launches']
+        replicated = [name for name, dim in model.tp_specs.items()
+                      if dim is None]
+        row.update(
+            metrics=metrics, collectives=collectives,
+            sharded_share=sharded / total,
+            replicated_grads_differing=tp_same_on_every_rank(
+                world, [grads[name] for name in replicated]),
+            paths_differing=tp_same_on_every_rank(world, paths))
+        assert row['sharded_share'] > 0.3, row
+        assert row['replicated_grads_differing'] == 0, row
+        assert row['paths_differing'] == 0, row
+        params = tp.full_state_dict(model, world)
+        if world.is_main:
+            ref = one[dtype]
+            # the row-parallel duration predictor sums in another order:
+            # its log-durations to the eval bar (f32) or the bf16 bar; a
+            # ceil of two durations that close may still flip, by one
+            log_d, ref_log_d = (p['log_durations'][..., 0].float()
+                                for p in (prior, ref['prior']))
+            row['log_duration_max_abs'] = (log_d - ref_log_d).abs().max(
+                ).item()
+            if dtype == 'float32':
+                assert torch.allclose(log_d, ref_log_d,
+                                      **TP_EVAL_TOL), row
+            else:
+                f32_log_d = one['float32']['prior']['log_durations'][
+                    ..., 0].float()
+                assert row['log_duration_max_abs'] <= BF16_FACTOR * (
+                    ref_log_d - f32_log_d).abs().max().item() + BF16_ATOL, \
+                    row
+            apart = (prior['durations'] - ref['prior']['durations']).abs()
+            row['durations_flipped'] = int((apart > 0).sum())
+            row['durations_valid'] = int(batch['token_lengths'].sum())
+            assert apart.max().item() <= 1, row
+            assert torch.equal(decoded['mel_lengths'], ref['mel_lengths'])
+            valid = (torch.arange(TP_FRAMES, device=device)[None, :]
+                     < ref['mel_lengths'][:, None])[..., None]
+            mel_err = (decoded['mels'] - ref['mels']).abs() * valid
+            row['mel_mae'] = (mel_err.sum() / (valid.sum()
+                              * config.sound.mel_dim)).item()
+            row['mel_max_abs'] = mel_err.max().item()
+            specs = model.tp_specs
+            mine = tp.shard_state_dict(ref['grads'], world, specs)
+            if dtype == 'float32':
+                worst = 0.0
+                for got, want in zip(metrics, ref['metrics']):
+                    for key in want:
+                        rtol = (TP_NORM_RTOL if key == 'grad_norm'
+                                else TP_LOSS_RTOL)
+                        err = abs(got[key] - want[key]) / abs(want[key])
+                        assert err <= rtol, ('tp', key, got, want)
+                        worst = max(worst, err)
+                row['worst_loss_rel_err'] = worst
+                for key, want in ref['losses'].items():
+                    err = abs(losses[key] - want)
+                    assert err <= TP_EVAL_TOL['atol'] + TP_EVAL_TOL['rtol'] \
+                        * abs(want), ('tp eval', key, losses[key], want)
+                row['worst_param_ratio'] = dp_ratio(params, ref['params'],
+                                                    TP_PARAM_TOL)
+                assert row['worst_param_ratio'] <= 1.0, row
+                assert row['mel_mae'] <= MEL_MAE_BOUND, row
+            else:
+                f32 = one['float32']
+
+                def bar(got, want, base, keys):
+                    # the port's bf16 bar over the values of ``keys`` as
+                    # one tensor: the largest error at most twice the
+                    # largest of one process's bf16 distances from its
+                    # f32, plus 1e-6
+                    err = max(abs(got[key] - want[key]) for key in keys)
+                    most = BF16_FACTOR * max(abs(want[key] - base[key])
+                                             for key in keys) + BF16_ATOL
+                    assert err <= most, ('tp bf16', keys, got, want, base)
+                losses_of = list(ref['losses'])
+                for got, want, base in zip(metrics, ref['metrics'],
+                                           f32['metrics']):
+                    bar(got, want, base, losses_of)
+                    bar(got, want, base, ['grad_norm'])
+                bar(losses, ref['losses'], f32['losses'], losses_of)
+                params_err = max((params[k] - v).abs().max().item()
+                                 for k, v in ref['params'].items())
+                params_bar = BF16_FACTOR * max(
+                    (v - f32['params'][k]).abs().max().item()
+                    for k, v in ref['params'].items()) + BF16_ATOL
+                row['params_bar_share'] = params_err / params_bar
+                assert params_err <= params_bar, row
+                mels_bar = BF16_FACTOR * ((ref['mels'] - f32['mels']).abs()
+                                          * valid).max().item() + BF16_ATOL
+                row['mels_bar_share'] = row['mel_max_abs'] / mels_bar
+                assert row['mel_max_abs'] <= mels_bar, row
+                # the gradients leaf by leaf: no further from one
+                # process's bf16 than twice its bf16 distance from f32, plus
+                # 1e-4; and within 3e-2 norm-relative of its f32 wherever
+                # one process's bf16 is (the leaves where bf16 itself
+                # misses 3e-2 are counted, held by the first bar alone)
+                f32_grads = tp.shard_state_dict(f32['grads'], world, specs)
+                worst, worst_f32, missed = (0.0, ''), (0.0, ''), []
+                for name, want in mine.items():
+                    own = norm_rel(want, f32_grads[name])
+                    err = norm_rel(grads[name], want)
+                    most = BF16_GRAD_FACTOR * own + BF16_GRAD_ATOL
+                    assert err <= most, ('tp bf16 gradients', name, err,
+                                         most)
+                    worst = max(worst, (err / most, name))
+                    if own >= BF16_GRAD_F32_BAR:
+                        missed.append(name)
+                        continue
+                    worst_f32 = max(worst_f32, (norm_rel(
+                        grads[name], f32_grads[name]), name))
+                assert worst_f32[0] < BF16_GRAD_F32_BAR, worst_f32
+                row['worst_grad_bar_share'], row['worst_grad'] = worst
+                row['worst_grad_vs_f32'], row['worst_grad_f32'] = worst_f32
+                row['bf16_itself_past_f32_bar'] = len(missed)
+                row['bf16_leaves'] = len(mine)
+        # each rank's step, then one process's alone
+        row['step_ms'] = cuda_ms(lambda: step(batch), TP_TIMED, warmup=1)
+        if world.is_main:
+            row['single_process_step_ms'] = cuda_ms(
+                lambda: one[dtype]['step'](batch), TP_TIMED, warmup=1)
+        out[dtype] = row
+    return out
+
+
+def run_tensor_parallel_phase(card):
+    """The shipped YAML's widths, Vanilla, at f32 and at bf16: two ranks on
+    card 0 over gloo as one model group (NCCL refuses two ranks on one
+    card), against one process on the same card (module of the ranks:
+    :func:`tp_gloo_rank`).  Prints the bars held, each rank's launches
+    (MAS alone: under tensor parallelism no flow kernel runs), the
+    collectives of a step and the step times; returns the launches by
+    path."""
+    import tempfile
+    root = tempfile.mkdtemp(prefix='chip_smoke_tp_')
+    torch.cuda.empty_cache()       # this process's cache, for the ranks
+    ranks, seconds = launch_ranks('tp', TP_RANKS, [0] * TP_RANKS, root)
+    by_path = {}
+    main = ranks[0]
+    for dtype in ('float32', 'bfloat16'):
+        for result in ranks:
+            launches = result[dtype]['launches']
+            by_path[f'tensor parallel {dtype} rank {result["rank"]}'] = \
+                launches
+            print(f'tensor parallel {dtype}: rank {result["rank"]} of '
+                  f'{result["world_size"]} on {result["device"]} '
+                  f'({result["backend"]}): launches ' + ', '.join(
+                      f'{k} {v}' for k, v in launches.items() if v))
+        row = main[dtype]
+        coll = row['collectives']
+        held = (f'losses within {row["worst_loss_rel_err"]:.2e} (bar '
+                f'{TP_LOSS_RTOL}, grad_norm {TP_NORM_RTOL}), eval losses '
+                f'(rtol {TP_EVAL_TOL["rtol"]}, atol {TP_EVAL_TOL["atol"]}), '
+                f'weights after at {row["worst_param_ratio"]:.3f} of their '
+                f'bar (rtol {TP_PARAM_TOL["rtol"]}, atol '
+                f'{TP_PARAM_TOL["atol"]}), decode mel MAE '
+                f'{row["mel_mae"]:.3e} (bar {MEL_MAE_BOUND})'
+                if dtype == 'float32' else
+                f'losses, eval losses and weights after within the bf16 '
+                f'bar (weights at {row["params_bar_share"]:.3f} of it), '
+                f'gradients at {row["worst_grad_bar_share"]:.3f} of theirs '
+                f'({row["worst_grad"]}) and at most '
+                f'{row["worst_grad_vs_f32"]:.2e} norm-relative from one '
+                f'process\'s f32 (bar {BF16_GRAD_F32_BAR}; '
+                f'{row["worst_grad_f32"]}; one process at bf16 itself past '
+                f'that bar on {row["bf16_itself_past_f32_bar"]} of this '
+                f'rank\'s {row["bf16_leaves"]} leaves), decode mels at '
+                f'{row["mels_bar_share"]:.3f} of theirs (MAE '
+                f'{row["mel_mae"]:.3e})')
+        print(f'tensor parallel {dtype}: {TP_RANKS} ranks on card 0, '
+              f'batch {row["shape"]} (tokens {row["tokens"]}), '
+              f'{row["sharded_share"] * 100:.1f} % of the parameters '
+              f'sharded, against one process on the same card: {held}; '
+              f'log-durations within {row["log_duration_max_abs"]:.2e} '
+              f'(held), {row["durations_flipped"]} of the '
+              f'{row["durations_valid"]} ceiled durations flipped by one '
+              f'(both decoded from one process\'s durations); replicated '
+              f'gradients and MAS paths bit-equal across the ranks')
+        print(f'tensor parallel {dtype}: a step\'s model-group collectives '
+              f'{coll["all_reduce"]} all-reduces of '
+              f'{coll["all_reduce_bytes"] / 1e6:.1f} MB and '
+              f'{coll["all_gather"]} all-gathers of '
+              f'{coll["all_gather_bytes"] / 1e6:.1f} MB; step '
+              + ', '.join(f'{r[dtype]["step_ms"]:.1f}' for r in ranks)
+              + f' ms by rank against one process\'s '
+              f'{row["single_process_step_ms"]:.1f} ms by CUDA events '
+              f'({card}); gloo through the host, two ranks on one card: '
+              f'not a speed of tensor parallelism')
+    print(f'tensor parallel phase: {seconds:.1f} s')
+    print('tensor parallel: ' + json.dumps({
+        dtype: {'step_ms': [r[dtype]['step_ms'] for r in ranks],
+                'single_process_step_ms': main[dtype][
+                    'single_process_step_ms'],
+                'collectives': main[dtype]['collectives']}
+        for dtype in ('float32', 'bfloat16')} | {'card': card}))
     return by_path
 
 
@@ -6042,6 +6413,10 @@ def main():
     # every card, then two ranks on one card over gloo
     by_path.update(run_data_parallel_phase(card))
     phase_done('data parallel')
+    # tensor parallelism: two ranks of one model group on one card over
+    # gloo, against one process
+    by_path.update(run_tensor_parallel_phase(card))
+    phase_done('tensor parallel')
     # what a user reads of a run: the writers, the PNGs, the profiler
     # window and the prosody check
     by_path.update(run_observability_phase(card))

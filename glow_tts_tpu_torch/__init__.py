@@ -8,7 +8,8 @@ Griffin-Lim export (``ops/stft.py``, ``ops/yin.py``, ``ops/vocoder.py``,
 coupling alone, the whole flow stack in one launch (the three routes of
 ``config.coupling_backend``), the monotonic
 alignment search and the train-direction flow stack (forward and
-backward) as CUDA kernels for Hopper (H100).
+backward) as CUDA kernels for Hopper (H100); data-parallel over cards and
+tensor-parallel over groups of ranks (``parallel/``).
 
 The port of ``glow_tts_tpu`` (JAX), which stays beside it as the
 reference: same layouts at the public functions ([B, T, C]), same

@@ -11,11 +11,15 @@ with the flags of ``glow_tts_tpu/cli.py`` and ``--device`` (default
     glow-tts-torch-infer -c results/Checkpoint [-s STEP] -f lines.tsv -o out
         [-wav]
 
-Training is data-parallel over ``TPU.data_parallel`` processes, one per
-card (0, the shipped value: every visible card; ``parallel/data.py``).
-Under ``torchrun`` each process is one rank and trains on
-``cuda:LOCAL_RANK``; with no launcher, ``glow-tts-torch-train`` starts the
-processes itself on this host when there is more than one.
+Training runs on ``TPU.data_parallel × TPU.model_parallel`` processes, one
+per card: data-parallel over the first (0, the shipped value: every
+visible card the model groups leave; ``parallel/data.py``), the model
+sharded over groups of the second (``parallel/tp.py``).  Under
+``torchrun`` each process is one rank and trains on ``cuda:LOCAL_RANK``;
+with no launcher, ``glow-tts-torch-train`` starts the processes itself on
+this host when there is more than one, and ``glow-tts-torch-infer``
+starts the ranks of one model group (the ``Inferencer`` serves no data
+axis).
 ``--profile a:b`` traces steps ``a`` to ``b`` with ``torch.profiler`` into
 a Chrome trace per rank under ``<Log_Path>/profile``.
 """
@@ -58,14 +62,20 @@ def train_main(argv: Optional[Sequence[str]] = None) -> None:
 
     config = load_config(args.hyper_parameters)
     ranks = 1 if launched() else ranks_to_launch(config, args.device)
+    _launch(_train, args, ranks)
+
+
+def _launch(run, args: argparse.Namespace, ranks: int) -> None:
+    """``run(args)`` in this process, or in ``ranks`` processes started
+    here with the environment torchrun would give them."""
     if ranks == 1:
-        _train(args)
+        run(args)
         return
     import torch.multiprocessing as mp
     with socket.socket() as probe:            # a free port on this host
         probe.bind(('localhost', 0))
         port = probe.getsockname()[1]
-    mp.spawn(_spawned_rank, args=(args, ranks, port), nprocs=ranks)
+    mp.spawn(_spawned_rank, args=(run, args, ranks, port), nprocs=ranks)
 
 
 def _train(args: argparse.Namespace) -> None:
@@ -91,14 +101,14 @@ def _train(args: argparse.Namespace) -> None:
         data.close()
 
 
-def _spawned_rank(rank: int, args: argparse.Namespace, ranks: int,
+def _spawned_rank(rank: int, run, args: argparse.Namespace, ranks: int,
                   port: int) -> None:
-    """Rank ``rank`` of ``ranks`` started by :func:`train_main`, with the
+    """Rank ``rank`` of ``ranks`` started by :func:`_launch`, with the
     environment torchrun would give it."""
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
                       WORLD_SIZE=str(ranks), LOCAL_WORLD_SIZE=str(ranks),
                       MASTER_ADDR='localhost', MASTER_PORT=str(port))
-    _train(args)
+    run(args)
 
 
 def infer_main(argv: Optional[Sequence[str]] = None) -> None:
@@ -121,11 +131,43 @@ def infer_main(argv: Optional[Sequence[str]] = None) -> None:
     if not args.file and not args.text:
         parser.error('give -f <tsv> or -t <text>')
 
-    logging.basicConfig(level=logging.INFO)
-    from glow_tts_tpu_torch.inference import Inferencer
+    from glow_tts_tpu_torch.parallel.data import launched, ranks_to_launch
 
-    inferencer = Inferencer(args.checkpoint, None, args.device,
-                            batch_size=args.batch_size, step=args.step)
+    ranks = (1 if launched() else ranks_to_launch(
+        _serving_config(args.checkpoint), args.device))
+    _launch(_infer, args, ranks)
+
+
+def _serving_config(checkpoint: str):
+    """The config of a checkpoint directory's snapshot as it is served:
+    one model group (the ``Inferencer`` serves no data axis)."""
+    import dataclasses
+    from glow_tts_tpu_torch.config import load_config
+    from glow_tts_tpu_torch.training.checkpoint import SNAPSHOT
+    return dataclasses.replace(
+        load_config(os.path.join(checkpoint, SNAPSHOT)), data_parallel=1)
+
+
+def _infer(args: argparse.Namespace) -> None:
+    """One process's serving: the whole of it, or one rank of a model
+    group (rank 0 prints and writes)."""
+    from glow_tts_tpu_torch.inference import Inferencer
+    from glow_tts_tpu_torch.parallel import data
+
+    logging.basicConfig(level=logging.INFO)
+    config = _serving_config(args.checkpoint)
+    try:
+        world = (data.initialize(config, args.device)
+                 if data.launched() else data.SINGLE)
+        inferencer = Inferencer(args.checkpoint, config, args.device,
+                                batch_size=args.batch_size, step=args.step,
+                                world=world)
+        _serve(args, inferencer, world)
+    finally:
+        data.close()
+
+
+def _serve(args: argparse.Namespace, inferencer, world) -> None:
     if args.file:
         results = inferencer.inference_from_file(args.file, args.out_dir,
                                                  export_wav=args.export_wav)
@@ -134,8 +176,10 @@ def infer_main(argv: Optional[Sequence[str]] = None) -> None:
             labels=[f'Sentence_{i}' for i in range(len(args.text))],
             texts=args.text, out_dir=args.out_dir,
             export_wav=args.export_wav)
-    for r in results:
-        print(f"{r['label']}: {r['mel'].shape[0]} frames — {r['text']}")
+    if world.is_main:
+        for r in results:
+            print(f"{r['label']}: {r['mel'].shape[0]} frames — "
+                  f"{r['text']}")
 
 
 def patterns_main(argv: Optional[Sequence[str]] = None) -> None:

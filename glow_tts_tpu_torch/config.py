@@ -10,9 +10,10 @@ trainer (pattern sets, intervals, output paths, the alignment curriculum)
 are kept; unknown keys are ignored, as there.  ``TPU.data_parallel`` is
 the number of processes, one per card, that train on shares of the global
 batch (0: every visible card; ``parallel/data.py``); a batch that does
-not divide by it raises, and :func:`load_config` warns once per process
-on ``TPU.model_parallel`` above 1 (tensor parallelism is not in the port
-yet, ``ROADMAP.md`` A.7).  The precision fields are the JAX
+not divide by it raises.  ``TPU.model_parallel`` is the size of the model
+groups that tensor parallelism shards the model over
+(``parallel/tp.py``): a run is ``data_parallel × model_parallel``
+processes.  The precision fields are the JAX
 package's (``TPU.compute_dtype``, ``param_dtype``, ``inference_dtype``,
 and the reference's ``Use_Mixed_Precision`` where the ``TPU`` section
 names no compute dtype): training and evaluation compute at
@@ -345,9 +346,8 @@ class Config:
     # processes, one per card, that share the global ``Train.Batch_Size``;
     # 0 is every visible card (``parallel/data.py``)
     data_parallel: int = 0
-    # tensor parallelism (``TPU.model_parallel``): not in the port yet
-    # (``ROADMAP.md`` A.7); above 1 warns, and each card holds the whole
-    # model
+    # tensor parallelism (``TPU.model_parallel``): the ranks of a model
+    # group, over which the model is sharded (``parallel/tp.py``)
     model_parallel: int = 1
 
     def __post_init__(self):
@@ -484,17 +484,6 @@ def _warn_once(key: str, message: str) -> None:
         warnings.warn(message, stacklevel=4)
 
 
-def _check_unported(data: Mapping) -> None:
-    """Warn once per process on what the YAML asks for and the port runs
-    otherwise: tensor parallelism (``model_parallel`` above 1)."""
-    model = int(_section(data, 'TPU').get('model_parallel') or 1)
-    if model > 1:
-        _warn_once('model_parallel', (
-            f'TPU.model_parallel {model}: the PyTorch port has no tensor '
-            f'parallelism yet and holds the whole model on every card '
-            f'(ROADMAP.md A.7)'))
-
-
 def load_config(path_or_dict) -> Config:
     """Load from a ``Hyper_Parameters.yaml`` path or an equivalent dict.
     The reference's ``Use_Mixed_Precision`` gives the compute dtype where the
@@ -506,7 +495,6 @@ def load_config(path_or_dict) -> Config:
     else:
         with open(path_or_dict, encoding='utf-8') as f:
             data = yaml.safe_load(f)
-    _check_unported(data)
     config = _coerce(Config, data)
     tpu = data.get('TPU') or data.get('tpu') or {}
     from_tpu = {name: tpu[name] for name in _TPU_FIELDS if name in tpu}

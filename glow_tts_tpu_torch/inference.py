@@ -15,6 +15,12 @@ exported as the NPY tree (``utils.plotting.export_npy``), a PNG figure per
 item (``utils.plotting.export_mel_figure``: the mel above its attention;
 skipped, with one warning per process, where matplotlib does not import)
 and Griffin-Lim wavs (``ops.vocoder``, on the same device).
+
+Under a launcher with ``TPU.model_parallel`` above 1 (``parallel/tp.py``)
+each rank of a model group loads the full weights, keeps its shard and
+runs the same items; every rank returns the same results and rank 0
+writes them.  The ``Inferencer`` shards no batch over a data axis (the
+JAX package's shards its batch over ``data`` too).
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ from glow_tts_tpu_torch.data.pattern_generator import \
 from glow_tts_tpu_torch.data.patterns import InferenceDataset
 from glow_tts_tpu_torch.models.glow_tts import GlowTTS
 from glow_tts_tpu_torch.ops import vocoder
+from glow_tts_tpu_torch.parallel import data as parallel_data
+from glow_tts_tpu_torch.parallel import tp
 from glow_tts_tpu_torch.text import Tokenizer, load_token_dict, text_filtering
 from glow_tts_tpu_torch.training.checkpoint import SNAPSHOT, CheckpointManager
 from glow_tts_tpu_torch.utils.plotting import export_mel_figure, export_npy
@@ -63,14 +71,18 @@ class Inferencer:
     the CPU: a CUDA device runs the flow kernel of
     ``config.coupling_backend``'s route, a CPU device that kernel's plain
     version.  The model serves at ``config.serve_dtype`` (``inference_dtype
-    or compute_dtype``), from float32 weights whatever the dtype."""
+    or compute_dtype``), from float32 weights whatever the dtype.
+    ``world`` (default: the launched world, ``parallel.data.initialize``,
+    where a launcher set one, else a world of one) shards the model over
+    its model group, which then serves on the world's device; its rank 0
+    writes the results."""
 
     def __init__(self, weights: Union[str, os.PathLike, Mapping],
                  config=None, device: Union[str, torch.device] = 'cuda',
                  batch_size: Optional[int] = None,
                  max_mel_length: int = 1024,
                  mel_buckets: Optional[Sequence[int]] = None,
-                 step: int = 0):
+                 step: int = 0, world=None):
         self.device = torch.device(device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError(f'device {self.device} requested but CUDA '
@@ -93,6 +105,12 @@ class Inferencer:
         if config is None:
             raise ValueError('config is needed unless weights is a '
                              'checkpoint directory')
+        if world is None:
+            world = (parallel_data.initialize(config, self.device)
+                     if parallel_data.launched() else parallel_data.SINGLE)
+        if world.model_size > 1:
+            self.device = world.device
+        self.world = world
         self.config = config
         self.batch_size = (batch_size or config.inference_batch_size
                            or config.train.batch_size)
@@ -109,7 +127,7 @@ class Inferencer:
         # at the serving dtype: inference_dtype, else compute_dtype
         self.model = load_state_dict(GlowTTS(config, config.serve_dtype),
                                      weights)
-        self.model.to(self.device).prepare()
+        tp.shard_model(self.model.to(self.device), world).prepare()
 
     def pick_bucket(self, durations: torch.Tensor) -> int:
         """Smallest bucket holding the longest utterance (host sync)."""
@@ -199,6 +217,8 @@ class Inferencer:
             mels = out['mels'].cpu().numpy()
             mel_lengths = out['mel_lengths'].cpu().numpy()
             attentions = out['attentions'].cpu().numpy()
+            # rank 0 writes (a model group's other ranks computed the same)
+            write = out_dir and self.world.is_main
             for i, item in enumerate(chunk):
                 n_mel, n_tok = int(mel_lengths[i]), int(lengths[i])
                 result = {
@@ -209,7 +229,7 @@ class Inferencer:
                     'bucket': bucket,
                 }
                 results.append(result)
-                if out_dir:
+                if write:
                     export_mel_figure(
                         os.path.join(out_dir, 'PNG',
                                      f'{result["label"]}.png'),

@@ -52,10 +52,21 @@ packs its weights per dtype (on a card the bfloat16 pack carries
 ``w_in``/``w_rs`` in the bfloat16 kernels' layout and the weights they
 take rounded), and the decoder stacks them per direction and dtype for
 ``'mega'``.
+
+Under tensor parallelism (:meth:`FlowDecoder.shard`, ``parallel/tp.py``)
+every route, deterministic and train, resolves to the plain stack
+(``ops.coupling.flow_stack_reference``, the train route
+``ops.coupling_grad.flow_stack_train_reference``) with the WaveNet's
+hidden stream sharded over the model group, as the JAX package's gates
+resolve every backend to flax under a ``model`` axis (the flow kernels see
+whole weights only).  Its weights are the same packs, of this rank's
+slices: ``w_start [C/2, ch/M]`` and ``w_in [n, k, ch/M, 2ch]``, whose
+weight norm sums its squares over the group.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -65,12 +76,17 @@ from torch import nn
 from glow_tts_tpu_torch.models.layers import (
     ComputesAt, Conv1d, WNConv1d, masked, stacked_effective_weights)
 from glow_tts_tpu_torch.ops.coupling import (COUPLING_PACK_KEYS, TC_KEYS,
-                                             coupling, flow_stack, flow_step,
+                                             coupling, flow_stack,
+                                             flow_stack_reference, flow_step,
+                                             flow_step_reference,
                                              ring_weights, rounded_weights,
                                              tensor_core_weights,
                                              with_kernel_weights)
-from glow_tts_tpu_torch.ops.coupling_grad import flow_stack_train
+from glow_tts_tpu_torch.ops.coupling_grad import (flow_stack_train,
+                                                  flow_stack_train_reference)
 from glow_tts_tpu_torch.ops.precision import rounded
+
+logger = logging.getLogger(__name__)
 
 FlowStepFn = Callable[..., Tuple[torch.Tensor, Optional[torch.Tensor]]]
 FlowStackFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
@@ -355,6 +371,10 @@ class FlowStep(nn.Module):
     inverse pass): as one ``flow_step`` call on weights packed by
     :meth:`pack`, or, on the ``'modules'`` route, module by module."""
 
+    # the world of the model group its coupling is sharded over (None:
+    # whole), set by FlowDecoder.shard
+    tp = None
+
     def __init__(self, config):
         super().__init__()
         c = config.sound.mel_dim * config.decoder.num_squeeze
@@ -399,7 +419,7 @@ class FlowStep(nn.Module):
             direction: {key: value.detach().float().contiguous()
                         for key, value in weights.items()}
             for direction, weights in packed.items()}
-        if logs.device.type == 'cuda':
+        if logs.device.type == 'cuda' and self.tp is None:
             # w_in and w_rs split into TF32 halves in the kernels' layout,
             # once per pack (both directions share them)
             split = tensor_core_weights(self._packed[False]['w_in'],
@@ -497,9 +517,17 @@ class FlowStep(nn.Module):
         return x, logdet + ld
 
 
+# the process logs once that the sharded stack takes every route
+_TP_LOGGED: list = []
+
+
 class FlowDecoder(nn.Module, ComputesAt):
     """mels ↔ latents.  Forward returns the summed log-determinant;
     reverse runs the steps backwards."""
+
+    # the world of the model group the couplings are sharded over (None:
+    # whole), set by :meth:`shard`
+    tp = None
 
     def __init__(self, config):
         super().__init__()
@@ -518,6 +546,25 @@ class FlowDecoder(nn.Module, ComputesAt):
         self.invalidate()
         for step in self.layer_Dict['Flows']:
             step.pack()
+
+    def shard(self, world) -> None:
+        """Run every coupling with its WaveNet's hidden stream sharded over
+        ``world``'s model group, on this rank's slices of ``Start``
+        (column-parallel) and of each ``In_i`` (row-parallel, its weight
+        norm summed over the group): every route resolves to the plain
+        stack sharded over ``world``."""
+        self.tp = world
+        for step in self.layer_Dict['Flows']:
+            step.tp = world
+            wavenet = step.layers[2].layer_Dict['WaveNet']
+            for i in range(wavenet.num_layers):
+                wavenet.layer_Dict[f'In_{i}'].norm_over = world
+        self.invalidate()
+        if not _TP_LOGGED:
+            _TP_LOGGED.append(True)
+            logger.info('tensor parallel over model=%d: every coupling '
+                        'route runs the plain stack (no flow kernel)',
+                        world.model_size)
 
     def invalidate(self) -> None:
         """Call after the parameters changed (an optimiser update): the
@@ -716,6 +763,14 @@ class FlowDecoder(nn.Module, ComputesAt):
         come from the float32 mels, the others' from the bfloat16 stream)."""
         pitch = self._squeezed_pitch(pitch, mask)
         x, sq_mask = squeeze(x, mask, self.num_squeeze)
+        pack_dtype = self.dtype
+        if self.tp is not None:
+            # the plain step, sharded, on the float32 pack
+            pack_dtype = torch.float32
+
+            def step_fn(x, mask, weights, cond, reverse, pitch=None):
+                return flow_step_reference(x, mask, weights, cond, reverse,
+                                           pitch, world=self.tp)
         self.invalidate()
         # the rows read the WaveNets' conditioning convs, which the init
         # does not change
@@ -725,7 +780,7 @@ class FlowDecoder(nn.Module, ComputesAt):
             step.layers[0].data_dependent_init(x, sq_mask)
             step.pack()
             x, _ = step_fn(x.to(self.dtype), sq_mask,
-                           step.weights(False, self.dtype), cond[k], False,
+                           step.weights(False, pack_dtype), cond[k], False,
                            pitch=pitch)
 
     def forward(self, x, mask, reverse: bool = False,
@@ -754,12 +809,25 @@ class FlowDecoder(nn.Module, ComputesAt):
         s = self.num_squeeze
         pitch = self._squeezed_pitch(pitch, mask)
         x, sq_mask = squeeze(x, mask, s)
-        if not (self.modules_route and deterministic):
+        if not (self.modules_route and deterministic) or self.tp is not None:
             x = x.to(self.dtype)
-        if not deterministic:
-            if reverse or seed is None:
-                raise ValueError('the train route runs forward and needs '
-                                 'a seed')
+        if not deterministic and (reverse or seed is None):
+            raise ValueError('the train route runs forward and needs a seed')
+        if self.tp is not None:
+            # every route: the plain stack, sharded
+            if deterministic:
+                cond = self.conditioning(x.shape[0], speaker, prosody,
+                                         pitch is not None)
+                x, logdet = flow_stack_reference(
+                    x, sq_mask, self.stacked_weights(reverse), cond, pitch,
+                    reverse, world=self.tp)
+            else:
+                cond = self.train_conditioning(x.shape[0], speaker, prosody,
+                                               pitch is not None)
+                x, logdet = flow_stack_train_reference(
+                    x, sq_mask, self.pack_train(), cond, pitch, seed=seed,
+                    dropout_rate=self.dropout_rate, world=self.tp)
+        elif not deterministic:
             cond = self.train_conditioning(x.shape[0], speaker, prosody,
                                            pitch is not None)
             x, logdet = stack_fn(x, sq_mask, self.pack_train(), cond, pitch,

@@ -8,7 +8,12 @@ encodings and a detached conditioning vector.  At bfloat16 (the modules'
 ``dtype``, ``models/layers.py``) the embedding is cast and scaled in it,
 and the activations stay bfloat16 through every layer, as
 ``glow_tts_tpu/models/encoder.py`` computes them; mean, log std and
-log-durations come out in it."""
+log-durations come out in it.  Under tensor parallelism
+(``parallel/tp.py``) a transformer block's FFN and the duration
+predictor's first two convs are column- and row-parallel pairs over the
+model group (:meth:`TransformerBlock.shard`,
+:meth:`DurationPredictor.shard`), and the attention computes its rank's
+heads."""
 
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from torch import nn
 from glow_tts_tpu_torch.models.layers import (
     ComputesAt, Conv1d, Dropout, Embedding, LayerNorm,
     RelativePositionMultiHeadAttention, bf16_scale, masked)
+from glow_tts_tpu_torch.parallel.tp import copy_to_model
 
 
 def _layer_norm(channels: int) -> LayerNorm:
@@ -60,6 +66,8 @@ class Prenet(nn.Module):
 
 
 class TransformerBlock(nn.Module):
+    tp = None
+
     def __init__(self, config):
         super().__init__()
         c = config.encoder.channels
@@ -74,22 +82,32 @@ class TransformerBlock(nn.Module):
             'LayerNorm_1': _layer_norm(c)})
         self.dropout = Dropout(cfg.dropout_rate)
 
+    def shard(self, world) -> None:
+        """The FFN over ``world``'s model group: ``Conv_0`` column-parallel
+        over the hidden channels, ``Conv_1`` row-parallel."""
+        self.tp = world
+        self.layer_Dict['Conv_1'].reduce_over = world
+
     def forward(self, x, mask, attn_mask, deterministic=True,
                 generator=None):
         layers = self.layer_Dict
 
-        def drop(y):
-            return self.dropout(y, deterministic, generator)
+        def drop(y, shard=None):
+            return self.dropout(y, deterministic, generator, shard)
 
         x = masked(x, mask)
         y, _ = layers['Attention'](x, attn_mask, deterministic, generator)
         x = layers['LayerNorm_0'](drop(y) + x)
-        y = drop(F.relu(layers['Conv_0'](masked(x, mask))))
+        y = drop(F.relu(layers['Conv_0'](masked(copy_to_model(x, self.tp),
+                                                mask))),
+                 None if self.tp is None else (2, self.tp))
         y = drop(layers['Conv_1'](masked(y, mask)))
         return layers['LayerNorm_1'](masked(y, mask) + x)
 
 
 class DurationPredictor(nn.Module):
+    tp = None
+
     def __init__(self, config):
         super().__init__()
         cfg = config.encoder.duration_predictor
@@ -103,6 +121,12 @@ class DurationPredictor(nn.Module):
         self.stacks = cfg.stacks
         self.dropout = Dropout(cfg.dropout_rate)
 
+    def shard(self, world) -> None:
+        """``CRND_0`` column-parallel over ``world``'s model group and
+        ``CRND_1`` row-parallel; the projection stays whole."""
+        self.tp = world
+        self.layer_Dict['CRND_1'].layer_Dict['Conv'].reduce_over = world
+
     def forward(self, x, mask, condition: Optional[torch.Tensor] = None,
                 deterministic=True, generator=None):
         """x [B, T, C], already detached from the encoder; ``condition
@@ -110,10 +134,13 @@ class DurationPredictor(nn.Module):
         if condition is not None:
             x = torch.cat([x, condition[:, None, :].expand(
                 -1, x.shape[1], -1).to(x.dtype)], dim=-1)
+        x = copy_to_model(x, self.tp)
         for i in range(self.stacks):
             conv = self.layer_Dict[f'CRND_{i}'].layer_Dict['Conv']
+            # CRND_0's output is sharded over the model group
+            shard = (2, self.tp) if self.tp is not None and i == 0 else None
             x = self.dropout(F.relu(conv(masked(x, mask))), deterministic,
-                             generator)
+                             generator, shard)
         return masked(self.layer_Dict['Projection'](masked(x, mask)), mask)
 
 

@@ -18,6 +18,15 @@ LayerNorm keeps float32 statistics and returns bfloat16; attention scores,
 the relative-position terms and the alignment products sum in float32
 (``ops/precision.py``), the alignments cast back to the values' dtype.  At
 float32 every layer computes what it did before the dtype existed.
+
+Under tensor parallelism (``parallel/tp.py``) a module of a sharded family
+holds its slice of the weights and takes its model group's world
+(``shard``): the attention computes its rank's heads, a row-parallel
+:class:`Conv1d` sums its partial products over the group in float32 before
+it rounds and adds the bias, a row-sharded :class:`WNConv1d` sums the
+squares of its weight norm over the group, and a dropout on a sharded
+activation draws the whole mask and keeps its slice, so the masks are a
+world of one's.
 """
 
 from __future__ import annotations
@@ -30,7 +39,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from glow_tts_tpu_torch.ops import attention as attn_ops
+from glow_tts_tpu_torch.ops.coupling import tap_conv
 from glow_tts_tpu_torch.ops.precision import rounded
+from glow_tts_tpu_torch.parallel.tp import copy_to_model, reduce_from_model
 
 
 class ComputesAt:
@@ -109,14 +120,27 @@ class Dropout(nn.Module):
         self.rate = float(rate)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                shard: Optional[Tuple[int, object]] = None) -> torch.Tensor:
+        """``shard`` ``(dim, world)``: ``x`` is this rank's slice along
+        ``dim`` of an activation sharded over ``world``'s model group; the
+        whole activation's mask is drawn (every rank draws the same) and
+        this rank's slice of it kept."""
         if deterministic or self.rate == 0.0:
             return x
         if generator is None:
             raise ValueError('Dropout needs a torch.Generator on the '
                              "tensor's device when it is not deterministic")
-        keep = torch.rand(x.shape, generator=generator,
-                          device=x.device) >= self.rate
+        if shard is None or shard[1].model_size == 1:
+            keep = torch.rand(x.shape, generator=generator,
+                              device=x.device) >= self.rate
+        else:
+            dim, world = shard
+            shape = list(x.shape)
+            part = shape[dim]
+            shape[dim] = part * world.model_size
+            keep = (torch.rand(shape, generator=generator, device=x.device)
+                    >= self.rate).narrow(dim, world.model_index * part, part)
         if x.dtype == torch.float32:
             return x * keep.to(x.dtype) * (1.0 / (1.0 - self.rate))
         # the scale in the input's dtype, as FastDropout's
@@ -128,7 +152,12 @@ class Conv1d(nn.Module, ComputesAt):
     """SAME-padded convolution over the time axis of ``x [B, T, Cin]``
     with a torch-layout weight ``[Cout, Cin, k]``; 1×1 runs as a matmul.
     At bfloat16 input, kernel and bias are cast to it, and so is the
-    output (flax's ``nn.Dense``/``nn.Conv`` with ``dtype``)."""
+    output (flax's ``nn.Dense``/``nn.Conv`` with ``dtype``).  Row-parallel
+    (``reduce_over``, a world whose model group shares the input
+    channels): the partial products summed over the group in float32,
+    then rounded to the dtype, then the bias added."""
+
+    reduce_over = None
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 1):
@@ -140,6 +169,15 @@ class Conv1d(nn.Module, ComputesAt):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.weight.shape[-1]
+        if self.reduce_over is not None:
+            # bf16 operands multiply exactly in float32: the partial sums
+            # in float32 (products, not cuDNN's TF32 convolution), rounded
+            # once after the group's sum
+            x = x.to(self.dtype).float()
+            weight = self.weight.to(self.dtype).float()
+            y = tap_conv(x, weight.permute(2, 1, 0))
+            y = reduce_from_model(y, self.reduce_over)
+            return y.to(self.dtype) + self.bias.to(self.dtype)
         if self.dtype != torch.float32:
             # the product rounded to the dtype, then the bias added in it:
             # two roundings, as XLA computes flax's bfloat16 layers
@@ -180,7 +218,11 @@ class WNConv1d(nn.Module):
     Only the coupling WaveNet uses it, and only through the packed
     flow-step weights, so it exposes the effective kernel rather than a
     forward.  :meth:`fold` fixes that kernel once for serving, as
-    ``fold_weight_norm_params`` does in the JAX package."""
+    ``fold_weight_norm_params`` does in the JAX package.  A row-sharded
+    ``weight_v`` (``norm_over``, the world of its model group) sums the
+    squares of its norm over the group before the division."""
+
+    norm_over = None
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 1):
@@ -194,9 +236,7 @@ class WNConv1d(nn.Module):
     def effective_weight(self) -> torch.Tensor:
         if self.folded is not None:
             return self.folded
-        v = self.weight_v
-        norm = v.pow(2).sum(dim=(1, 2), keepdim=True).sqrt()
-        return self.weight_g * v / norm.clamp_min(1e-12)
+        return _weight_norm(self.weight_g, self.weight_v, self.norm_over)
 
     @torch.no_grad()
     def fold(self) -> None:
@@ -221,9 +261,23 @@ def stacked_effective_weights(convs: Sequence[WNConv1d]
                            'fold=False))')
     g = torch.stack([conv.weight_g for conv in convs])
     v = torch.stack([conv.weight_v for conv in convs])
-    norm = v.pow(2).sum(dim=(2, 3), keepdim=True).sqrt()
-    return (g * v / norm.clamp_min(1e-12),
+    return (_weight_norm(g, v, convs[0].norm_over),
             torch.stack([conv.bias for conv in convs]))
+
+
+def _weight_norm(g: torch.Tensor, v: torch.Tensor, world=None
+                 ) -> torch.Tensor:
+    """``g · v / ‖v‖``, the norm over the last two axes (in, k) of ``v
+    [..., out, in, k]``.  Over a model group (``world``) that shares the
+    input rows the squares are summed over it; the norm and ``g`` are then
+    replicated values entering this rank's slice, so both pass
+    ``copy_to_model`` and their gradients add up over the group."""
+    squares = v.pow(2).sum(dim=(-2, -1), keepdim=True)
+    if world is None or world.model_size == 1:
+        return g * v / squares.sqrt().clamp_min(1e-12)
+    norm = reduce_from_model(squares, world).sqrt().clamp_min(1e-12)
+    g, norm = copy_to_model(torch.stack([g, norm]), world).unbind()
+    return g * v / norm
 
 
 def fold_weight_norm(module: nn.Module, fold: bool = True) -> None:
@@ -238,7 +292,10 @@ class RelativePositionMultiHeadAttention(nn.Module):
     """Self-attention with window-clipped relative position embeddings
     shared across heads (reference ``RPR_MHA.py``; JAX
     ``layers.py:340-472``); dropout on the attention weights when not
-    deterministic."""
+    deterministic.  Sharded (:meth:`shard`) it computes its rank's heads:
+    the relative tables, shared across heads, stay whole."""
+
+    tp = None
 
     def __init__(self, channels: int, num_heads: int, window_size: int,
                  dropout_rate: float = 0.0):
@@ -252,25 +309,37 @@ class RelativePositionMultiHeadAttention(nn.Module):
         self.weight_K = nn.Parameter(torch.empty(1, 2 * window_size + 1, d))
         self.weight_V = nn.Parameter(torch.empty(1, 2 * window_size + 1, d))
 
+    def shard(self, world) -> None:
+        """Compute the heads of this rank of ``world``'s model group, on
+        Query/Key/Value sliced by whole heads and the projection's input
+        rows (``parallel/tp.py``): the projection's partial sums are added
+        over the group before its bias, and the relative tables, which
+        every head reads, sum their gradients over the group."""
+        self.tp = world
+        self.layer_Dict['Projection'].reduce_over = world
+
     def forward(self, x: torch.Tensor, attn_mask: torch.Tensor,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
         """x [B, T, C]; attn_mask [B, 1, T, T] (1 = attend).
         Returns (out [B, T, C], alignments [B, H, T, T])."""
         b, t, c = x.shape
-        h = self.num_heads
-        d = c // h
+        d = c // self.num_heads
+        # this rank's heads (all of them in a world of one)
+        h = self.num_heads // (self.tp.model_size if self.tp else 1)
         layers = self.layer_Dict
 
         def heads(y):
             return y.reshape(b, t, h, d).transpose(1, 2)     # [B, H, T, d]
 
+        x = copy_to_model(x, self.tp)
         q = heads(layers['Query'](x))
         k = heads(layers['Key'](x))
         v = heads(layers['Value'](x))
 
         skew_k = attn_ops.skewed_relative_table(
-            attn_ops.clip_relative_embedding(self.weight_K, t), t)[0]
+            attn_ops.clip_relative_embedding(
+                copy_to_model(self.weight_K, self.tp), t), t)[0]
         if q.dtype == torch.float32:
             scale = 1.0 / math.sqrt(d)
             scores = (q @ k.transpose(-1, -2)
@@ -284,14 +353,16 @@ class RelativePositionMultiHeadAttention(nn.Module):
                       + torch.einsum('bhqd,qkd->bhqk', q, skew_k) * scale)
         scores = scores.masked_fill(attn_mask == 0, -1e4)
         alignments = self.dropout(torch.softmax(scores, dim=-1),
-                                  deterministic, generator)
+                                  deterministic, generator,
+                                  None if self.tp is None else (1, self.tp))
 
         skew_v = attn_ops.skewed_relative_table(
-            attn_ops.clip_relative_embedding(self.weight_V, t), t)[0]
+            attn_ops.clip_relative_embedding(
+                copy_to_model(self.weight_V, self.tp), t), t)[0]
         # the alignments meet the values in the values' dtype
         out = (rounded(alignments, v.dtype) @ v.float()
                + torch.einsum('bhqk,qkd->bhqd', alignments, skew_v))
-        out = out.transpose(1, 2).reshape(b, t, c).to(x.dtype)
+        out = out.transpose(1, 2).reshape(b, t, h * d).to(x.dtype)
         return layers['Projection'](out), alignments
 
 

@@ -74,12 +74,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from glow_tts_tpu_torch.ops.precision import rounded, rounded_weight
+from glow_tts_tpu_torch.parallel.tp import (copy_to_model, reduce_from_model,
+                                            scatter_to_model)
 
 Weights = Dict[str, torch.Tensor]
 
@@ -469,16 +471,42 @@ def stack_tile_schedule(lengths, t: int, steps: int,
     return items
 
 
+def tap_conv(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The WaveNet's k-tap convolution over time, padded to keep ``T``:
+    ``h [B, T, i]``, ``w [k, i, o]`` → ``[B, T, o]``, one float32 product
+    of ``h`` shifted by each tap.  Products follow torch's matmul precision
+    (float32 unless a caller lowers it); cuDNN's convolution would take
+    TF32 on a card by default."""
+    k, t = w.shape[0], h.shape[1]
+    pad = (k - 1) // 2
+    hp = F.pad(h, (0, 0, pad, k - 1 - pad))
+    out = hp[:, :t] @ w[0]
+    for j in range(1, k):
+        out = out + hp[:, j:j + t] @ w[j]
+    return out
+
+
 def wavenet_stats(x_a: torch.Tensor, mask: torch.Tensor, weights: Weights,
-                  cond: torch.Tensor,
+                  cond: Optional[torch.Tensor],
                   pitch: Optional[torch.Tensor] = None,
-                  dtype: torch.dtype = torch.float32
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  dtype: torch.dtype = torch.float32, *,
+                  b_in: Optional[torch.Tensor] = None,
+                  drop: Optional[Callable[[int], torch.Tensor]] = None,
+                  world=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The coupling network: start 1×1 → n gated layers → end 1×1.
-    ``x_a [B, T, C/2]``; ``cond [n, B, 2ch]`` per-layer bias.  Returns
-    ``(mean, logs)``, each ``[B, T, C/2]`` float32.  At bfloat16 ``dtype``
-    the operands of every product are rounded to it where the TPU kernel
-    casts them (``glow_tts_tpu/ops/coupling.py::_coupling_body``)."""
+    ``x_a [B, T, C/2]``; layer ``i``'s conv output gets ``b_in [n, 2ch]``
+    (the train route's packs carry it apart), is multiplied by the dropout
+    mask ``drop(i)`` and gets ``cond [n, B, 2ch]`` (the deterministic
+    routes' rows hold the in-conv bias too).  Returns ``(mean, logs)``,
+    each ``[B, T, C/2]`` float32.  At bfloat16 ``dtype`` the operands of
+    every product are rounded to it where the TPU kernel casts them
+    (``glow_tts_tpu/ops/coupling.py::_coupling_body``).
+
+    Under ``world`` with a model group of M ranks (``parallel/tp.py``) the
+    hidden stream ``h`` lives sharded: ``w_start [C/2, ch/M]``, ``b_start``
+    and ``w_in [n, k, ch/M, 2ch]`` are this rank's slices, each layer's
+    conv partials are summed over the group in float32 before the bias,
+    and the gate, ``res_skip`` and the skip sum are whole."""
     def r(v):
         return rounded(v, dtype)
 
@@ -486,20 +514,25 @@ def wavenet_stats(x_a: torch.Tensor, mask: torch.Tensor, weights: Weights,
         w = weights[name] if i is None else weights[name][i]
         return rounded_weight(w, dtype)
 
-    n, k, ch, _ = weights['w_in'].shape
-    h = r((r(x_a) @ rw('w_start') + weights['b_start']) * mask)
-    skip = torch.zeros_like(h)
+    n = weights['w_in'].shape[0]
+    ch = weights['w_in'].shape[-1] // 2
+    h = r((copy_to_model(r(x_a), world) @ rw('w_start')
+           + weights['b_start']) * mask)
+    skip = 0.0
     for i in range(n):
-        conv_w = rw('w_in', i).permute(2, 1, 0)               # [2ch, ch, k]
-        acc = F.conv1d(h.transpose(1, 2), conv_w,
-                       padding=(k - 1) // 2).transpose(1, 2)
-        acc = acc + r(cond[i])[:, None, :]
+        acc = reduce_from_model(tap_conv(h, rw('w_in', i)), world)
+        if b_in is not None:
+            acc = acc + b_in[i]
+        if drop is not None:
+            acc = acc * drop(i)
+        if cond is not None:
+            acc = acc + r(cond[i])[:, None, :]
         if pitch is not None:
             acc = acc + r(pitch) @ rw('w_pitch', i)
         gate = r(torch.tanh(acc[..., :ch]) * torch.sigmoid(acc[..., ch:]))
         rs = gate @ rw('w_rs', i) + weights['b_rs'][i]
         if i < n - 1:
-            h = r((h + rs[..., :ch]) * mask)
+            h = r((h + scatter_to_model(rs[..., :ch], 2, world)) * mask)
         skip = skip + rs[..., ch:]
     out = r(skip * mask) @ rw('w_end') + weights['b_end']
     return out.chunk(2, dim=-1)
@@ -508,7 +541,7 @@ def wavenet_stats(x_a: torch.Tensor, mask: torch.Tensor, weights: Weights,
 def flow_step_reference(x: torch.Tensor, mask: torch.Tensor,
                         weights: Weights, cond: torch.Tensor,
                         reverse: bool = False,
-                        pitch: Optional[torch.Tensor] = None
+                        pitch: Optional[torch.Tensor] = None, world=None
                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain PyTorch flow step, the same function as the kernel.
 
@@ -520,7 +553,8 @@ def flow_step_reference(x: torch.Tensor, mask: torch.Tensor,
     ``b_rs [n, 2ch]``, ``w_end [ch, C]``, ``b_end [C]``).
     Returns ``(z [B, T, C], logdet [B] | None)``, ``z`` in ``x``'s dtype
     (float32 or bfloat16, the module docstring's policy), the logdet
-    float32."""
+    float32.  Under ``world`` the WaveNet runs sharded over its model
+    group (:func:`wavenet_stats`)."""
     dtype = x.dtype
     c2 = x.shape[-1] // 2
     an_logs, an_bias = weights['an_logs'], weights['an_bias']
@@ -532,7 +566,8 @@ def flow_step_reference(x: torch.Tensor, mask: torch.Tensor,
         y = (an_bias + torch.exp(an_logs) * x) * mask
         y = (rounded(y, dtype) @ mix_t) * mask
         x_a, x_b = rounded(y[..., :c2], dtype), y[..., c2:]
-    mean, logs = wavenet_stats(x_a, mask, weights, cond, pitch, dtype)
+    mean, logs = wavenet_stats(x_a, mask, weights, cond, pitch, dtype,
+                               world=world)
     if reverse:
         z_b = (x_b - mean) * torch.exp(-logs) * mask
         y = (rounded(torch.cat([x_a, z_b], dim=-1), dtype) @ mix_t) * mask
@@ -571,10 +606,10 @@ def coupling_reference(x_a: torch.Tensor, x_b: torch.Tensor,
 def flow_stack_reference(x: torch.Tensor, mask: torch.Tensor,
                          weights: Weights, cond: torch.Tensor,
                          pitch: Optional[torch.Tensor] = None,
-                         reverse: bool = False
+                         reverse: bool = False, world=None
                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain PyTorch flow stack, the same function as the kernel: a loop of
-    :func:`flow_step_reference`.
+    :func:`flow_step_reference` (under ``world``, sharded as it is).
 
     ``weights`` are those of :func:`flow_step_reference`, each stacked
     along a leading axis of ``S`` flow steps (``ld_const [S]``, forward),
@@ -586,7 +621,7 @@ def flow_stack_reference(x: torch.Tensor, mask: torch.Tensor,
     for s in (reversed(range(steps)) if reverse else range(steps)):
         x, ld = flow_step_reference(
             x, mask, {key: value[s] for key, value in weights.items()},
-            cond[s], reverse, pitch)
+            cond[s], reverse, pitch, world)
         if ld is not None:
             logdet = logdet + ld
     return x, logdet

@@ -88,14 +88,13 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from glow_tts_tpu_torch.ops import dropmask
 from glow_tts_tpu_torch.ops.coupling import (SHIPPED_CHANNELS, check_shape,
                                              count_launches, kernel_keys,
                                              load_flow_library, tf32_round,
                                              tile_report_pointer,
-                                             valid_lengths,
+                                             valid_lengths, wavenet_stats,
                                              with_tensor_core_weights,
                                              zero_launch_counts)
 from glow_tts_tpu_torch.ops.precision import rounded, rounded_weight
@@ -132,7 +131,8 @@ def flow_stack_train_reference(x: torch.Tensor, mask: torch.Tensor,
                                weights: Weights,
                                cond: Optional[torch.Tensor] = None,
                                pitch: Optional[torch.Tensor] = None, *,
-                               seed: int, dropout_rate: float = 0.0
+                               seed: int, dropout_rate: float = 0.0,
+                               world=None
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch train-direction flow stack, the same function as the
     kernels, differentiable by autograd (twin of
@@ -146,11 +146,13 @@ def flow_stack_train_reference(x: torch.Tensor, mask: torch.Tensor,
     ActNorm → mixing → coupling, whose WaveNet drops ``conv + b_in`` before
     ``cond`` and pitch are added.  Returns ``(z [B, T, C], logdet [B])``,
     ``z`` in ``x``'s dtype: at bfloat16 the module docstring's policy, each
-    step's output rounded to it as the next step's input."""
+    step's output rounded to it as the next step's input.  Under ``world``
+    the WaveNets run sharded over its model group
+    (``ops.coupling.wavenet_stats``), with the same masks."""
     dtype = x.dtype
     b, t, c = x.shape
     c2 = c // 2
-    s_steps, n, k, ch, ch2 = weights['w_in'].shape
+    s_steps, n, k, _, ch2 = weights['w_in'].shape
     mask = mask.float()
     xc = x.float()
     ld = torch.zeros(b, device=x.device)
@@ -166,27 +168,15 @@ def flow_stack_train_reference(x: torch.Tensor, mask: torch.Tensor,
              ) * mask
         yd = (r(y) @ rw('mix_t', sj)) * mask
         xa, xb = r(yd[..., :c2]), yd[..., c2:]
-        h = r((xa @ rw('w_start', sj) + weights['b_start'][sj]) * mask)
-        skip = torch.zeros_like(h)
-        for i in range(n):
-            conv_w = rw('w_in', sj, i).permute(2, 1, 0)      # [2ch, ch, k]
-            acc = F.conv1d(h.transpose(1, 2), conv_w,
-                           padding=(k - 1) // 2).transpose(1, 2)
-            acc = acc + weights['b_in'][sj, i]
-            if dropout_rate > 0.0:
-                acc = acc * dropmask.stack_mask(
-                    seed, sj, i, n, b, t, k, ch2, dropout_rate, x.device)
-            if cond is not None:
-                acc = acc + r(cond[sj, i])[:, None, :]
-            if pitch is not None:
-                acc = acc + r(pitch) @ rw('w_pitch', sj, i)
-            gate = r(torch.tanh(acc[..., :ch]) * torch.sigmoid(acc[..., ch:]))
-            rs = gate @ rw('w_rs', sj, i) + weights['b_rs'][sj, i]
-            if i < n - 1:
-                h = r((h + rs[..., :ch]) * mask)
-            skip = skip + rs[..., ch:]
-        outs = r(skip * mask) @ rw('w_end', sj) + weights['b_end'][sj]
-        mean, logs = outs[..., :c2], outs[..., c2:]
+        drop = None
+        if dropout_rate > 0.0:
+            def drop(i, sj=sj):
+                return dropmask.stack_mask(seed, sj, i, n, b, t, k, ch2,
+                                           dropout_rate, x.device)
+        mean, logs = wavenet_stats(
+            xa, mask, {key: value[sj] for key, value in weights.items()},
+            None if cond is None else cond[sj], pitch, dtype,
+            b_in=weights['b_in'][sj], drop=drop, world=world)
         zb = (mean + torch.exp(logs) * xb) * mask
         ld = ld + (logs * mask).sum(dim=(1, 2))
         xc = r(torch.cat([xa, zb], dim=-1))

@@ -1,5 +1,6 @@
 """Data parallelism, one process per card (the data axis of
-``glow_tts_tpu/parallel/mesh.py``).
+``glow_tts_tpu/parallel/mesh.py``), and the grid of ranks that tensor
+parallelism (``parallel/tp.py``) adds a model axis to.
 
 The JAX package shards the global batch over a mesh's ``data`` axis and
 lets XLA insert the gradient sum.  Here every rank is a process with its
@@ -16,8 +17,17 @@ On a card the backend is NCCL, and a CUDA build of torch without NCCL
 raises; on the CPU it is gloo.  Another backend is taken only when the
 caller names it (``initialize(..., backend='gloo')`` runs two ranks on one
 card, which NCCL refuses).  Host values (the stop flag, batch counts,
-generator states) go through a gloo group, so agreeing on them never waits
-for the card.
+generator states) go through a gloo group of the whole world, so agreeing
+on them never waits for the card.
+
+With ``TPU.model_parallel`` M above 1 the launched world is a ``data ×
+model`` grid: rank r has data index ``r // M`` and model index ``r % M``,
+the order of ``mesh.make_mesh``'s ``reshape(data, model)``.  The M ranks of
+one data index form a model group, which holds one copy of the model
+sharded (``parallel/tp.py``) and sees one share of the batch; the ranks of
+one model index form a data group, over which every reduction of this
+module runs (the losses' denominators, the gradients, the metrics, the EM
+table).
 """
 
 from __future__ import annotations
@@ -45,11 +55,13 @@ def shard_seed(seed: int, rank: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class World:
-    """This process's place among the ranks of a data-parallel run:
-    ``rank`` of ``size``, ``local_rank`` on its node, the ``device`` it
-    trains on, the process ``group`` of the device collectives (None: a
-    world of one that reduces nothing), its ``backend``, and the gloo
-    ``host_group`` of host values."""
+    """This process's place among the ranks of a run: ``rank`` of
+    ``size``, ``local_rank`` on its node, the ``device`` it trains on, the
+    process ``group`` of the data group's device collectives (None: a data
+    group of one rank, which reduces nothing), its ``backend``, the gloo
+    ``host_group`` of host values (the whole world), the ``model_size``
+    ranks of its model group and that group's ``model_group`` (None where
+    it has one rank)."""
 
     rank: int = 0
     size: int = 1
@@ -58,11 +70,34 @@ class World:
     group: Optional[object] = None
     backend: Optional[str] = None
     host_group: Optional[object] = None
+    model_size: int = 1
+    model_group: Optional[object] = None
 
     @property
     def is_main(self) -> bool:
         """Rank 0, the one that writes logs, checkpoints and inference."""
         return self.rank == 0
+
+    @property
+    def data_index(self) -> int:
+        """This rank's share of the batch: its index in its data group."""
+        return self.rank // self.model_size
+
+    @property
+    def model_index(self) -> int:
+        """This rank's shard of the model: its index in its model group."""
+        return self.rank % self.model_size
+
+    @property
+    def data_size(self) -> int:
+        """The ranks of a data group: the shares the global batch splits
+        into."""
+        return self.size // self.model_size
+
+    @property
+    def data_group(self):
+        """The process group of the data reductions (:attr:`group`)."""
+        return self.group
 
     def all_sum(self, tensor: torch.Tensor) -> torch.Tensor:
         """``tensor`` summed over the ranks, in place, and returned."""
@@ -99,9 +134,11 @@ class World:
 
     def broadcast_(self, tensor: torch.Tensor, src: int = 0
                    ) -> torch.Tensor:
-        """``tensor`` overwritten with rank ``src``'s, in place."""
+        """``tensor`` overwritten with that of the rank of data index
+        ``src`` in this rank's data group, in place."""
         if self.group is not None:
-            dist.broadcast(tensor, src, group=self.group)
+            dist.broadcast(tensor, src * self.model_size + self.model_index,
+                           group=self.group)
         return tensor
 
     # host values (Python ints), through the gloo group: the sum, max and
@@ -187,28 +224,68 @@ def initialize(config, device='cuda', backend: Optional[str] = None
         dist.init_process_group(
             backend, init_method=f'tcp://{address}:{env["MASTER_PORT"]}',
             world_size=size, rank=rank)
-        group = dist.group.WORLD
-        host_group = (group if backend == 'gloo'
+        host_group = (dist.group.WORLD if backend == 'gloo'
                       else dist.new_group(backend='gloo'))
+        model = max(config.model_parallel, 1)
+        if size % model:
+            raise ValueError(f'TPU.model_parallel {model} does not divide '
+                             f'the {size} processes launched')
+        group, model_group = _grid_groups(rank, size, model)
         world = World(rank, size, local_rank, device, group, backend,
-                      host_group)
+                      host_group, model, model_group)
         _CURRENT.append(world)
     check_world(config, world)
     return world
 
 
+def _grid_groups(rank: int, size: int, model: int):
+    """(this rank's data group, its model group) of the ``size // model ×
+    model`` grid: every group made once, with ``dist.new_group``, in the
+    same order on every rank (a rank takes part in making the groups it is
+    not in).  A data group is the whole world where ``model`` is 1, and
+    None (an identity) where it has one rank; no model group is made where
+    ``model`` is 1."""
+    if model == 1:
+        return dist.group.WORLD, None
+    data = size // model
+    groups = {}
+    for d in range(data):
+        members = [d * model + m for m in range(model)]
+        made = dist.new_group(members)
+        if rank in members:
+            groups['model'] = made
+    if data > 1:
+        for m in range(model):
+            members = [d * model + m for d in range(data)]
+            made = dist.new_group(members)
+            if rank in members:
+                groups['data'] = made
+    return groups.get('data'), groups['model']
+
+
 def check_world(config, world: World) -> None:
-    """Raise where ``config`` does not fit ``world``: ``TPU.data_parallel``
-    above 0 and not the launched world size, or a global
-    ``Train.Batch_Size`` that does not divide by it."""
-    wanted = config.data_parallel
-    if wanted and wanted != world.size:
-        raise ValueError(f'TPU.data_parallel is {wanted} but {world.size} '
-                         f'processes were launched; set it to 0 (every '
-                         f'launched process) or launch {wanted}')
-    if config.train.batch_size % world.size:
+    """Raise where ``config`` does not fit ``world``: a world that is not
+    ``data × model`` ranks (``TPU.data_parallel`` × ``TPU.model_parallel``,
+    data 0 taking every launched rank as in ``mesh.make_mesh``), a model
+    group of another size, or a global ``Train.Batch_Size`` that does not
+    divide by the data size."""
+    model = max(config.model_parallel, 1)
+    if world.model_size != model:
+        raise ValueError(f'TPU.model_parallel is {model} but this world\'s '
+                         f'model groups have {world.model_size} ranks')
+    data = config.data_parallel or world.size // model
+    if data * model != world.size:
+        grid = '' if model == 1 else f' × TPU.model_parallel {model}'
+        raise ValueError(f'TPU.data_parallel is {config.data_parallel}{grid} '
+                         f'but {world.size} processes were launched; set '
+                         f'data_parallel to 0 (every launched process) or '
+                         f'launch {data * model}')
+    if config.train.batch_size % data:
         raise ValueError(f'global batch size {config.train.batch_size} '
-                         f'must divide by process count {world.size}')
+                         f'must divide by process count {data}'
+                         + ('' if model == 1 else
+                            f' (the data size of {world.size} ranks in '
+                            f'model groups of {model})'))
 
 
 def close() -> None:
@@ -228,19 +305,23 @@ def process_count() -> int:
     return _CURRENT[0].size if _CURRENT else 1
 
 
-def ranks_to_launch(config, device) -> int:
+def ranks_to_launch(config, device, backend: Optional[str] = None) -> int:
     """The processes a run of ``config`` on ``device`` takes with no
-    launcher: ``TPU.data_parallel``, where 0 is every visible card (one
-    on the CPU).  NCCL takes one card per rank, so more ranks than
-    visible cards raises, as CUDA asked for and absent does."""
+    launcher: ``data × model``, ``TPU.data_parallel`` × ``TPU.model_parallel``,
+    where data 0 is every visible card left over by the model groups (one
+    on the CPU, and at least one).  NCCL takes one card per rank, so more
+    ranks than visible cards raises, as CUDA asked for and absent does,
+    unless the caller names ``backend`` gloo (ranks sharing a card)."""
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(f'device {device} requested but CUDA is not '
                            f'available')
     visible = torch.cuda.device_count() if device.type == 'cuda' else 1
-    wanted = config.data_parallel or visible
-    if device.type == 'cuda' and wanted > visible:
-        raise ValueError(f'TPU.data_parallel {wanted} needs {wanted} '
-                         f'cards (NCCL takes one card per rank); '
-                         f'{visible} visible')
+    model = max(config.model_parallel, 1)
+    wanted = (config.data_parallel or max(visible // model, 1)) * model
+    if device.type == 'cuda' and wanted > visible and backend != 'gloo':
+        raise ValueError(f'TPU.data_parallel × TPU.model_parallel {wanted} '
+                         f'needs {wanted} cards (NCCL takes one card per '
+                         f'rank); {visible} visible (gloo runs ranks on '
+                         f'one card)')
     return wanted

@@ -20,7 +20,10 @@ under data parallelism), ``generators`` (every rank's, in rank order),
 :func:`train_payload` builds it, ``weights.load_reference_checkpoint``
 reads its ``Model``, :func:`restored_em_stats` its ``em_stats`` under the
 JAX package's rule across configurations and :func:`restore_generator`
-this rank's generator state.
+this rank's generator state.  Under tensor parallelism the payload holds
+the full weights and moments, gathered over the model group: a world of
+one's layout, which a world of one resumes from, and a sharded run shards
+again after loading (:func:`restore_train_state`).
 """
 
 from __future__ import annotations
@@ -33,8 +36,10 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from glow_tts_tpu_torch.config import save_config
+from glow_tts_tpu_torch.parallel import tp
 from glow_tts_tpu_torch.parallel.data import SINGLE, World, shard_seed
 from glow_tts_tpu_torch.utils.logging import logger
+from glow_tts_tpu_torch.weights import load_state_dict
 
 SNAPSHOT = 'Hyper_Parameters.yaml'
 _FILE = re.compile(r'S_(\d+)\.pt')
@@ -47,12 +52,19 @@ def train_payload(model: torch.nn.Module, optimizer, step: int, epoch: int,
     """A train state as a checkpoint holds it, copied to the CPU; the 'em'
     warmup's statistics where the run has them.  Collective under data
     parallelism: every rank's generator state is gathered (each rank calls
-    it; rank 0 writes the payload)."""
+    it; rank 0 writes the payload); under tensor parallelism the weights
+    and the moments are gathered whole over the model group too."""
     generators = world.gather_bytes(generator.get_state())
+    specs = tp.specs_of(model)
+    optimizer_state = optimizer.state_dict(model)
+    for key in ('mu', 'nu'):
+        optimizer_state[key] = {
+            name: value.to('cpu') for name, value in tp.gather_state_dict(
+                optimizer_state[key], world, specs).items()}
     payload = {
         'Model': {key: value.detach().to('cpu', copy=True)
-                  for key, value in model.state_dict().items()},
-        'Optimizer': optimizer.state_dict(model),
+                  for key, value in tp.full_state_dict(model, world).items()},
+        'Optimizer': optimizer_state,
         'Steps': int(step),
         'Epochs': int(epoch),
         'seed': int(seed),
@@ -85,6 +97,20 @@ def restored_em_stats(payload: Dict, config, device):
                       'freshly-initialised EM table statistics')
         return init_em_stats(config, device)
     return tuple(t.to(device) for t in stored)
+
+
+def restore_train_state(model: torch.nn.Module, optimizer, payload: Dict,
+                        world: World = SINGLE) -> None:
+    """Load ``payload``'s full weights and moments into ``model`` and
+    ``optimizer``, each rank keeping its shard where the model is sharded
+    over ``world``'s model group."""
+    specs = tp.specs_of(model)
+    load_state_dict(model, tp.shard_state_dict(payload['Model'], world,
+                                               specs))
+    state = dict(payload['Optimizer'])
+    for key in ('mu', 'nu'):
+        state[key] = tp.shard_state_dict(state[key], world, specs)
+    optimizer.load_state_dict(state, model)
 
 
 def restore_generator(generator: torch.Generator, payload: Dict,

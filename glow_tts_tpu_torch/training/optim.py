@@ -20,15 +20,20 @@ Everything runs as ``torch._foreach_*`` passes over the parameter list; the
 scalars that depend on the step count alone are computed on the host in
 float32, as the JAX package computes them, and the one scalar that depends
 on the gradients (their global norm) stays on the device, so a step never
-waits for the card.
+waits for the card.  Under tensor parallelism (``parallel/tp.py``) a
+sharded parameter's moments are its shard's (the update is elementwise),
+and the clipping norm takes each sharded tensor's norm over the model
+group.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Mapping
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+
+from glow_tts_tpu_torch.parallel.tp import Shard, reduce_from_model, shard_dims
 
 F32 = np.float32
 
@@ -50,12 +55,24 @@ def learning_rate_at(config, step: int) -> float:
     return modified_noam_schedule(rate.initial, rate.base)(step)
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: List[torch.Tensor],
+                shards: Optional[Sequence[Optional[Shard]]] = None
+                ) -> torch.Tensor:
     """√Σ‖t‖² over the list, a 0-d tensor on their device.  The tensors'
     norms are summed in the order of their values, not of the list, so an
     optimiser over the same parameters in another order clips by the same
-    bits (a restored run continues the saved one bit for bit)."""
+    bits (a restored run continues the saved one bit for bit).  A tensor
+    with a :class:`~glow_tts_tpu_torch.parallel.tp.Shard` in ``shards`` is
+    a slice of one sharded over a model group: its norm is the square root
+    of its squared slice norms summed over the group (one all-reduce of
+    all of them), the whole tensor's norm."""
     norms = torch.stack(torch._foreach_norm(tensors))
+    sharded = [i for i, shard in enumerate(shards or ()) if shard is not None]
+    if sharded:
+        index = torch.tensor(sharded, device=norms.device)
+        squares = reduce_from_model(norms[index] ** 2,
+                                    shards[sharded[0]].world)
+        norms = norms.index_copy(0, index, squares.sqrt())
     return torch.linalg.vector_norm(torch.sort(norms).values)
 
 
@@ -115,7 +132,7 @@ class RAdam:
         params = self.params
         grads = [torch.zeros_like(p) if p.grad is None else p.grad.float()
                  for p in params]
-        norm = global_norm(grads)
+        norm = global_norm(grads, shard_dims(params))
         # g / norm * max where norm >= max, else g / 1 * 1: exact either way
         within = norm < self.max_grad_norm
         one = torch.ones_like(norm)

@@ -20,6 +20,14 @@ summed over them before the update (so the clip norm reads the same
 gradients on every rank), and the reported metrics are the global
 batch's.  Rank r's flow dropout is the JAX package's shard r's, and its
 encoder dropout a stream of its own.
+
+Under tensor parallelism (``parallel/tp.py``) the ranks of a model group
+hold one model between them and step on the same share: every reduction
+above runs over the data group alone, the seeds and the encoder's
+generator follow the data index, so the ranks of a model group draw the
+same masks, and no gradient is summed over the model group (the
+collectives' backward passes already give every rank the whole gradient
+of a replicated parameter).
 """
 
 from __future__ import annotations
@@ -114,8 +122,8 @@ def loss_denominators(config, batch: Batch, world: World = SINGLE
     frames, tokens = world.all_sum(torch.stack(
         [frames, torch.sum(batch['token_lengths'])])).unbind()
     return LossDenominators(frames, tokens,
-                            batch['tokens'].shape[0] * world.size,
-                            token_axis, world.is_main)
+                            batch['tokens'].shape[0] * world.data_size,
+                            token_axis, world.data_index == 0)
 
 
 def compute_losses(config, outputs: Mapping[str, torch.Tensor],
@@ -207,21 +215,22 @@ def make_train_step(config, model: GlowTTS, optimizer: RAdam, *,
     (``RAdam.step``'s ``frozen``).
 
     Dropout is explicit: the encoder's masks come from ``generator`` (on
-    the model's device; one seeded with ``shard_seed(seed, rank)`` is made
-    if none is given) and the flow's from ``shard_seed(flow_seed(seed,
-    step), rank)``, the JAX package's shard ``rank``'s masks.  The same
+    the model's device; one seeded with ``shard_seed(seed, data_index)``
+    is made if none is given) and the flow's from ``shard_seed(flow_seed(
+    seed, step), data_index)``, the JAX package's shard ``data_index``'s
+    masks.  The same
     weights, seed and generator state give the same step.  ``stack_fn``
     and ``mas_fn`` are the kernels' wrappers unless a caller compares them
     with their plain versions.
 
-    ``world`` is the data-parallel world (``parallel/data.py``): the
-    batch is this rank's share of the global batch, and the step reduces
-    what the global batch needs (module docstring); a world of one
-    reduces nothing."""
+    ``world`` is the run's world (``parallel/data.py``): the batch is
+    this rank's data group's share of the global batch, and the step
+    reduces what the global batch needs (module docstring); a world of
+    one reduces nothing."""
     if generator is None:
         device = next(model.parameters()).device
         generator = torch.Generator(device=device).manual_seed(
-            shard_seed(seed, world.rank))
+            shard_seed(seed, world.data_index))
     if em_alignment and (em_state is None or em_state.stats is None):
         raise ValueError('an em_alignment step needs an EMState holding '
                          'the statistics (init_em_stats)')
@@ -238,7 +247,7 @@ def make_train_step(config, model: GlowTTS, optimizer: RAdam, *,
                         batch['mels'], batch['mel_lengths'], mas_fn=mas_fn,
                         deterministic=False,
                         seed=shard_seed(flow_seed(seed, optimizer.count),
-                                        world.rank),
+                                        world.data_index),
                         generator=generator, stack_fn=stack_fn,
                         linear_alignment=linear_alignment,
                         anchored_alignment=anchored_alignment,

@@ -42,6 +42,16 @@ after the same one; the evaluation runs on a fixed number of whole batches
 per rank; only rank 0 writes logs, checkpoints (which hold every rank's
 generator state) and inference, decodes and runs the prosody check; and
 each rank writes its own profiler trace.
+
+Under tensor parallelism (``TPU.model_parallel`` M above 1,
+``parallel/tp.py``) the world is a ``data × model`` grid: the model is
+sharded over each model group before its ActNorm initialisation (which
+then runs through the sharded stack, on the replicated stream), the
+data-parallel rules above hold over the data index in place of the rank,
+checkpoints hold the gathered full weights and moments (a world of one's
+layout) and are sharded again on restore, and the evaluation's decode, its
+histograms and the inference run on every rank of rank 0's model group,
+which the sharded model needs; rank 0 writes.
 """
 
 from __future__ import annotations
@@ -63,10 +73,12 @@ from glow_tts_tpu_torch.data.patterns import (InferenceDataset,
                                               ProsodyCheckDataset)
 from glow_tts_tpu_torch.inference import Inferencer
 from glow_tts_tpu_torch.models.glow_tts import initial_state_dict
+from glow_tts_tpu_torch.parallel import tp
 from glow_tts_tpu_torch.parallel.data import initialize, shard_seed
 from glow_tts_tpu_torch.text import Tokenizer, load_token_dict
 from glow_tts_tpu_torch.training.checkpoint import (CheckpointManager,
                                                     restore_generator,
+                                                    restore_train_state,
                                                     restored_em_stats,
                                                     train_payload)
 from glow_tts_tpu_torch.training.optim import (learning_rate_at,
@@ -163,7 +175,9 @@ class Trainer:
                                   strict=False)
             logger.info('Loaded the pre-trained GE2E weights from %s',
                         ge2e_path)
-        self.model = model.to(self.device).prepare(fold=False)
+        # this rank's shard where the model group has more than one rank
+        self.model = tp.shard_model(model.to(self.device),
+                                    world).prepare(fold=False)
         # unshuffled and unsharded, of the global size: the same first
         # batch whatever the run's seed and on every rank
         loader = DataLoader(self.train_dataset, self.collater,
@@ -174,19 +188,19 @@ class Trainer:
         self.optimizer = make_optimizer(cfg, self.model.parameters())
         self.seed = RUN_SEED
         self.generator = torch.Generator(self.device).manual_seed(
-            shard_seed(self.seed, world.rank))
+            shard_seed(self.seed, world.data_index))
         self.step = self.epoch = 0
         self.em = EMState(init_em_stats(cfg, self.device)
                           if cfg.train.uses_em_stats else None)
         if payload is not None:
-            load_state_dict(self.model, payload['Model'])
-            self.optimizer.load_state_dict(payload['Optimizer'], self.model)
+            restore_train_state(self.model, self.optimizer, payload, world)
             self.seed, self.step = payload['seed'], payload['Steps']
             self.epoch = payload['Epochs']
             restore_generator(self.generator, payload, world)
             self.em.stats = restored_em_stats(payload, cfg, self.device)
             logger.info('Restored checkpoint at step %d', self.step)
-        # every rank from rank 0's weights: the single-card start
+        # every rank from its data group's first rank's weights: the
+        # single-card start
         for tensor in self.model.state_dict().values():
             world.broadcast_(tensor)
         # the deterministic path packs these weights at its next use, not
@@ -230,10 +244,10 @@ class Trainer:
         workers = max(self.config.train.num_workers, 1)
         world = self.world
         return DataLoader(self.train_dataset, self.collater,
-                          self.config.train.batch_size // world.size,
+                          self.config.train.batch_size // world.data_size,
                           shuffle=True, seed=seed, prefetch=2 * workers,
-                          workers=workers, shard_index=world.rank,
-                          num_shards=world.size)
+                          workers=workers, shard_index=world.data_index,
+                          num_shards=world.data_size)
 
     def save_checkpoint(self) -> Optional[str]:
         """Save the step reached (rank 0 writes; every rank takes part)."""
@@ -304,7 +318,7 @@ class Trainer:
         try:
             if self.step == 0:
                 self.evaluate()
-                if cfg.initial_inference and world.is_main and \
+                if cfg.initial_inference and world.data_index == 0 and \
                         cfg.inference_pattern_file_in_train:
                     self.run_inference_file(
                         cfg.inference_pattern_file_in_train)
@@ -315,6 +329,8 @@ class Trainer:
                         continue
                     stopping, frames = world.host_sum(
                         len(stop), int(batch['mel_lengths'].sum()))
+                    # a model group's ranks share one batch
+                    frames //= world.model_size
                     if stopping:
                         raise KeyboardInterrupt(
                             stop[0] if stop else 'stopped by another rank')
@@ -378,7 +394,8 @@ class Trainer:
             self.scalar_accum = {}
         if self.step % cfg.evaluation_interval == 0:
             self.evaluate()
-        if self.step % cfg.inference_interval == 0 and self.world.is_main \
+        if self.step % cfg.inference_interval == 0 and \
+                self.world.data_index == 0 \
                 and cfg.inference_pattern_file_in_train:
             self.run_inference_file(cfg.inference_pattern_file_in_train)
         if self.config.uses_prosody_encoder and self.world.is_main and \
@@ -399,17 +416,19 @@ class Trainer:
         each rank takes its stride of the set in whole batches of its
         share, as many as every rank has (the JAX trainer's count), the
         losses of each global batch; rank 0 decodes and writes the images
-        and histograms."""
+        and histograms (under tensor parallelism with the rest of its
+        model group, which decodes and gathers the parameters with it)."""
         world = self.world
-        local_batch = self.config.train.batch_size // world.size
+        local_batch = self.config.train.batch_size // world.data_size
         loader = DataLoader(self.eval_dataset, self.collater, local_batch,
                             shuffle=False, prefetch=0,
-                            drop_last=world.size > 1,
-                            shard_index=world.rank, num_shards=world.size)
+                            drop_last=world.data_size > 1,
+                            shard_index=world.data_index,
+                            num_shards=world.data_size)
         batches = iter(loader)
-        if world.size > 1:
+        if world.data_size > 1:
             batches = itertools.islice(batches, len(self.eval_dataset)
-                                       // world.size // local_batch)
+                                       // world.data_size // local_batch)
         totals: Dict[str, torch.Tensor] = {}
         count, last, last_outputs = 0, None, None
         for batch in batches:
@@ -427,7 +446,7 @@ class Trainer:
         means = dict(zip(totals, (torch.stack(list(totals.values()))
                                   / count).tolist()))
         self.writers['eval'].add_scalars(means, self.step)
-        if not world.is_main:
+        if world.data_index != 0:
             return means
 
         # the conditioned modes serve from the batch's own references: its
@@ -458,7 +477,9 @@ class Trainer:
                 last_outputs['attentions'][0, :t_tok, :t_mel]),
             'Attention/From_Inference': host(
                 self.free_running['attentions'][0, :t_tok])}, self.step)
-        self.writers['eval'].add_histograms(self.model, self.step)
+        self.writers['eval'].add_histograms(
+            tp.gather_state_dict(dict(self.model.named_parameters()), world,
+                                 tp.specs_of(self.model)), self.step)
         return means
 
     def run_inference_file(self, pattern_file: str) -> List[Dict]:
@@ -468,9 +489,12 @@ class Trainer:
         dataset = InferenceDataset(pattern_file)
         if not len(dataset):
             return []
-        inferencer = Inferencer(self.model.state_dict(), self.config,
-                                self.device,
-                                max_mel_length=self.max_mel_length)
+        # the full weights, sharded again by the Inferencer over this
+        # rank's model group
+        inferencer = Inferencer(tp.full_state_dict(self.model, self.world),
+                                self.config, self.device,
+                                max_mel_length=self.max_mel_length,
+                                world=self.world)
         out_dir = os.path.join(self.config.inference_path,
                                f'Step-{self.step}')
         return inferencer.synthesize_items(dataset.entries, out_dir=out_dir,

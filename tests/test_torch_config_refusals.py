@@ -166,13 +166,13 @@ def test_shipped_yaml_loads_unchanged_with_one_dtype_warning(fresh):
     ({}, {'Use_Mixed_Precision': True}, 'bfloat16'),
     ({}, {'Use_Mixed_Precision': False}, 'float32'),
     ({'compute_dtype': 'float32'}, {'Use_Mixed_Precision': True}, 'float32'),
-    # the parallel fields load as the JAX package reads them; tensor
-    # parallelism (model_parallel above 1) warns, data parallelism no
-    # longer does (the ids are the ones these rows have always had)
+    # the parallel fields load as the JAX package reads them, with no
+    # warning: neither data nor tensor parallelism warns any longer (the
+    # ids are the ones these rows have always had)
     ({'data_parallel': 0, 'model_parallel': 1}, {}, None),
     ({'data_parallel': 1}, {}, None),
     pytest.param({'data_parallel': 2}, {}, None, id='tpu8-extra8-A.7'),
-    ({'model_parallel': 4}, {}, 'A.7'),
+    pytest.param({'model_parallel': 4}, {}, None, id='tpu9-extra9-A.7'),
 ])
 def test_dtype_and_devices_warn_and_load_as_without(fresh, tpu, extra,
                                                     expect):

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from glow_tts_tpu.ops import coupling_grad as JCG
+from glow_tts_tpu_torch.ops import coupling as TC
 from glow_tts_tpu_torch.ops import coupling_grad as TCG
 from tests.torch_port_helpers import ragged, t
 
@@ -306,3 +307,40 @@ def test_valid_lengths_are_one_past_the_last_valid_frame():
 def test_backward_launch_count_is_fixed_by_the_layer_count():
     assert TCG.backward_launches_per_step(4) == 22
     assert TCG.backward_launches_per_step(1) == 10
+
+
+@pytest.mark.parametrize('k', [1, 3, 5])
+def test_the_wavenets_tap_conv_is_the_padded_convolution(k):
+    """``ops.coupling.tap_conv`` (one product a tap) is the 'same'-padded
+    convolution the WaveNet's in-layers compute, to float32 rounding."""
+    rng = np.random.default_rng(k)
+    h = t(rng.standard_normal((3, 11, 6)).astype(np.float32))
+    w = t(rng.standard_normal((k, 6, 10)).astype(np.float32))
+    ref = torch.nn.functional.conv1d(h.transpose(1, 2), w.permute(2, 1, 0),
+                                     padding=(k - 1) // 2).transpose(1, 2)
+    np.testing.assert_allclose(TC.tap_conv(h, w).numpy(), ref.numpy(),
+                               rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize('stack', ['train', 'forward', 'inverse'])
+def test_the_plain_stacks_take_no_cudnn_convolution(stack, monkeypatch):
+    """The plain stacks (which run the model under tensor parallelism)
+    make no ``conv1d`` call, so cuDNN's TF32 default on a card cannot
+    reach their float32 products; with ``conv1d`` refused they still
+    compute."""
+    def refused(*args, **kwargs):
+        raise AssertionError('conv1d called')
+
+    x, mask, weights, cond, _, _ = _problem(3, [9, 7, 4], 'cond')
+    w = {key: t(v) for key, v in weights.items()}
+    monkeypatch.setattr(torch.nn.functional, 'conv1d', refused)
+    monkeypatch.setattr(torch, 'conv1d', refused)
+    if stack == 'train':
+        z, ld = TCG.flow_stack_train_reference(t(x), t(mask), w, t(cond),
+                                               seed=SEED, dropout_rate=0.3)
+    else:
+        del w['b_in']
+        z, ld = TC.flow_stack_reference(t(x), t(mask), w, t(cond),
+                                        reverse=stack == 'inverse')
+    assert torch.isfinite(z).all()
+    assert (ld is None) == (stack == 'inverse')

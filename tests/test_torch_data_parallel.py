@@ -32,8 +32,9 @@ rate 0 where results are compared across frameworks.
   ranks there, and resumed it repeats the uninterrupted run bit for bit
   (losses, weights, each rank's own generator state).
 * (f) ``load_config`` takes ``TPU.data_parallel`` without a warning (both
-  shipped YAMLs), still warns on ``model_parallel`` above 1, raises on a
-  batch that does not divide; ``check_world`` and ``ranks_to_launch`` (0
+  shipped YAMLs), and ``model_parallel`` above 1 too (tensor parallelism,
+  ``tests/test_torch_tensor_parallel.py``), raises on a batch that does
+  not divide; ``check_world`` and ``ranks_to_launch`` (0
   is every visible card); ``glow-tts-torch-train`` with no launcher and
   ``data_parallel`` 2 starts both ranks itself; a checkpoint restored at
   another world size re-seeds each rank's generator.
@@ -501,8 +502,10 @@ def test_shipped_yamls_take_every_card_without_a_warning(fresh, name):
 
 
 def test_model_parallel_still_warns(fresh):
+    """Named for what it checked before tensor parallelism was ported:
+    ``model_parallel`` 2 now loads with no warning, and is honoured."""
     config, messages = _load({'TPU': {'model_parallel': 2}})
-    assert len(messages) == 1 and 'A.7' in messages[0]
+    assert messages == []
     assert config.model_parallel == 2
 
 
