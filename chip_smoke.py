@@ -109,7 +109,24 @@ then the mels), to ``tests/test_tp.py``'s bars at f32 and the port's bf16
 bar at bf16; the replicated gradients and the MAS paths bit-equal across
 the ranks, more than 30 % of the parameters sharded, each rank's launches
 (#1 alone: no flow kernel runs under tensor parallelism), the model
-group's collectives of a step and the step times.  Last, what a user
+group's collectives of a step and the step times.  Then data-parallel
+serving (``--data-parallel-rank serve``): two ranks on card 0 over gloo
+(data 2 × model 1) serve 32 items in one global batch (the 1024-frame
+bucket) under 'fused' at f32 (with the Griffin-Lim export, each rank on
+its own items) and at bf16, rank 0's gathered mels and the ranks'
+log-durations held against one process on the same card (f32 mel MAE
+within 1e-3, bf16 to the bf16 bar, at most one ceil flipped), each rank's
+launches (12 ``flow_step`` a decode), the bytes gathered and the decode and
+Griffin-Lim times beside one process's.  After the timings, ROADMAP C.5:
+PyTorch's default flags (cuDNN's TF32 on) around the f32 prior phase and
+an f32 eval step at the shipped widths, held against the port on the CPU
+at 1e-4 of max-abs, the same reading through the library's ``F.conv1d``
+shown past that bar, cuDNN's LSTM, GRU and Conv2d under those flags, and
+the train step and prior phase timed with the shipped float32 taps, with
+the library conv in TF32 and with it in float32.  The wav phase also
+writes a few utterances as FLAC with the port's encoder: the native and
+the pure decoders bit-equal, the ETL's mels from the FLAC files equal to
+those from the WAVs, both decoders timed.  Last, what a user
 reads of a run: which of tensorboardX, matplotlib and sklearn
 import here; the shipped YAML as shipped (bf16) through ``Trainer`` at
 B = 32, 4 steps with evaluations at 0, 2 and 4, the inference TSV at 4 and
@@ -130,6 +147,7 @@ the first phase.  Exits non-zero on any failure and when no CUDA device is
 present; the last line is one JSON object naming the card.
 """
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -3321,6 +3339,8 @@ GL_ONE_REL_BOUND = 1e-4        # Griffin-Lim card vs CPU, 1 iteration
 GL_SC_REL_BOUND = 0.02         # and the spectral convergence after 60
 GL_FRAMES = 1024               # the timed Griffin-Lim's mel
 REF_MODES = ('SE-GE2E', 'PE', 'GR')
+WAV_FLAC = 2                   # utterances also written and read as FLAC
+FLAC_MEL_BOUND = 1e-4          # ETL mel from the FLAC vs from the WAV
 
 
 def pitch_ties(audio, sound):
@@ -3612,6 +3632,58 @@ def serve_from_reference_wavs(wavs, device):
     return by_path, held
 
 
+def check_flac(config, wavs, root, device):
+    """``wavs`` written as FLAC by the port's encoder (``data/flac.py``):
+    the native decoder (``data/flac_native.py``, built at first use) and
+    the pure codec bit-equal and lossless; the ETL's mels of each FLAC file
+    (``pattern_generate``: soundfile where it imports, else the native
+    decoder) against those of its WAV, within ``FLAC_MEL_BOUND``; each
+    decoder's host ms per second of audio (the native library built or
+    loaded first, apart)."""
+    from scipy.io import wavfile
+
+    from glow_tts_tpu_torch.data import flac, flac_native
+    from glow_tts_tpu_torch.data.pattern_generator import (TOP_DB,
+                                                           pattern_generate)
+    start = time.perf_counter()
+    flac_native._load_library()          # built at first use: not timed
+    build_sec = time.perf_counter() - start
+    seconds, host, worst = 0.0, {'native': 0.0, 'pure': 0.0}, 0.0
+    for wav in wavs:
+        rate, samples = wavfile.read(wav)
+        assert samples.dtype == np.int16, samples.dtype
+        path = os.path.join(root, os.path.basename(wav)[:-4] + '.flac')
+        flac.write(path, samples, rate)
+        seconds += len(samples) / rate
+        decoded = {}
+        for name, read in (('native', flac_native.read),
+                           ('pure', flac.read)):
+            start = time.perf_counter()
+            decoded[name] = read(path)[0]
+            host[name] += time.perf_counter() - start
+        assert np.array_equal(decoded['native'], decoded['pure']), wav
+        assert np.array_equal(decoded['native'] * 32768.0,
+                              samples.astype(np.float32)), wav
+        mels = [pattern_generate(config, source, TOP_DB['LJ'], device)[1]
+                for source in (path, wav)]
+        assert mels[0].shape == mels[1].shape, (wav, mels[0].shape,
+                                                mels[1].shape)
+        worst = max(worst, float(np.abs(mels[0] - mels[1]).max()))
+    row = {'utterances': len(wavs), 'audio_sec': seconds,
+           'native_build_or_load_sec': build_sec,
+           'etl_decoder': ('soundfile' if importable('soundfile')
+                           else 'native'),
+           'native_vs_pure': 'bit-equal', 'mel_max_abs_err_vs_wav': worst,
+           'native_host_ms_per_audio_sec': 1e3 * host['native'] / seconds,
+           'pure_host_ms_per_audio_sec': 1e3 * host['pure'] / seconds,
+           'library': os.path.relpath(flac_native.library_path(),
+                                      os.path.dirname(
+                                          os.path.abspath(__file__)))}
+    print('FLAC: ' + json.dumps(row))
+    assert worst <= FLAC_MEL_BOUND, row
+    return row
+
+
 def run_wav_phase(device, card):
     """From wavs to wavs (``ROADMAP.md`` A.6): MiniSpeech's corpus
     (``examples/make_minispeech.py``, a subprocess) through the port's ETL
@@ -3675,6 +3747,7 @@ def run_wav_phase(device, card):
                'mel_max_abs_err_vs_cpu': worst, 'pitch_near_tie_frames': ties,
                'pitch_frames_checked': frames}
         print('ETL on the card: ' + json.dumps(etl))
+        etl['flac'] = check_flac(config, wavs[:WAV_FLAC], root, device)
 
         by_path, train_sec = wav_trainer(config, device)
         items = e2e.eval_texts(config.train.eval_pattern.path, WAV_EXPORTS)
@@ -3694,6 +3767,212 @@ def run_wav_phase(device, card):
         return by_path
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# ROADMAP C.5: the f32 encoder under PyTorch's default flags
+# ---------------------------------------------------------------------------
+
+F32_ITEMS = 4                  # eval items held against the CPU
+F32_TIMED = 5                  # calls a timing takes, after one warm-up
+F32_ROUNDS = 3                 # rounds of the three ways, in turn
+
+
+@contextlib.contextmanager
+def tf32_flags(cudnn, matmul=False):
+    """cuDNN's and the matmuls' TF32 flags for the block, the caller's
+    back after it (PyTorch's defaults: ``cudnn`` True, ``matmul``
+    False)."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = cudnn
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@contextlib.contextmanager
+def conv1d_forward(kind):
+    """``Conv1d``'s float32 k-tap forward, for the block, another way than
+    the shipped ``conv_float32``: ``'library'``, the library's
+    ``F.conv1d`` with autograd's backward, both as the flags say (the port
+    before the repair of ROADMAP C.5), or ``'taps'``, k float32 products
+    (``ops.coupling.tap_conv``, the other repair measured)."""
+    import torch.nn.functional as F
+
+    from glow_tts_tpu_torch.models.layers import Conv1d
+    from glow_tts_tpu_torch.ops.coupling import tap_conv
+    shipped = Conv1d.forward
+
+    def other(self, x):
+        k = self.weight.shape[-1]
+        if (self.dtype != torch.float32 or k == 1
+                or self.reduce_over is not None):
+            return shipped(self, x)
+        if kind == 'taps':
+            return tap_conv(x, self.weight.permute(2, 1, 0)) + self.bias
+        return F.conv1d(x.transpose(1, 2), self.weight, self.bias,
+                        padding=(k - 1) // 2).transpose(1, 2)
+    Conv1d.forward = other
+    try:
+        yield
+    finally:
+        Conv1d.forward = shipped
+
+
+def library_modules_under_default_flags(config, device):
+    """cuDNN's own float32 LSTM (GE2E's widths), GRU (the GST's) and
+    Conv2d (a conv of the GST's stack) under PyTorch's default flags and
+    with cuDNN's TF32 off, and the port's ways under the default flags
+    (the LSTM in ``cudnn_float32``, the written-out GRU, ``conv_float32``),
+    each against the same module on the CPU (max error over max-abs); the
+    LSTM's time in ``cudnn_float32`` beside its written-out steps."""
+    from torch import nn
+
+    from glow_tts_tpu_torch.models.conditioning import (
+        GSTProsodyEncoder, gru_steps, lstm_steps)
+    from glow_tts_tpu_torch.ops.precision import conv_float32, cudnn_float32
+
+    def scoped_lstm(m, x):
+        with cudnn_float32():
+            return m(x)[0]
+    gen = torch.Generator().manual_seed(SEED + 40)
+    ge2e = config.speaker_embedding.ge2e
+    gst = GSTProsodyEncoder(config).layer_Dict
+    gru, conv = gst['GRU'], gst['Conv_1'].Conv
+    cases = {
+        'lstm': (nn.LSTM(config.sound.mel_dim, ge2e.lstm.sizes,
+                         ge2e.lstm.stacks, batch_first=True),
+                 (8, ge2e.inference.slice_length, config.sound.mel_dim),
+                 lambda m, x: m(x)[0], scoped_lstm),
+        'gru': (gru, (8, 64, gru.input_size), lambda m, x: m(x)[0],
+                lambda m, x: gru_steps(m, x, torch.float32)),
+        'conv2d': (conv, (8, conv.in_channels, 40, 500), lambda m, x: m(x),
+                   lambda m, x: conv_float32(x, m.weight, None, m.stride,
+                                             m.padding))}
+    out = {}
+    for name, (module, shape, library, port) in cases.items():
+        x = torch.randn(shape, generator=gen)
+        with torch.no_grad():
+            want = library(module, x)
+            module = module.to(device)
+            xd = x.to(device)
+            with tf32_flags(cudnn=True):
+                out[f'{name}_cudnn_default_flags'] = rel_err(
+                    library(module, xd).cpu(), want)
+                out[f'{name}_port_default_flags'] = rel_err(
+                    port(module, xd).cpu(), want)
+                if name == 'lstm':
+                    out['lstm_cudnn_float32_ms'] = cuda_ms(
+                        lambda: port(module, xd), F32_TIMED, warmup=1)
+                    out['lstm_written_out_ms'] = cuda_ms(
+                        lambda: lstm_steps(module, xd, torch.float32),
+                        F32_TIMED, warmup=1)
+            with tf32_flags(cudnn=False):
+                out[f'{name}_cudnn_tf32_off'] = rel_err(
+                    library(module, xd).cpu(), want)
+    return out
+
+
+def run_f32_default_flags_phase(state, config, batches, device, card):
+    """ROADMAP C.5 under PyTorch's default flags (cuDNN's TF32 on, the
+    matmuls' off), restored around each reading: the f32 prior phase on
+    the eval batch's tokens (B = 32) and one f32 eval step on its first
+    ``F32_ITEMS`` items (224 tokens × 1024 frames) at the shipped widths,
+    held against the port on the CPU at 1e-4 of max-abs (mean, log std and
+    log-durations of both, the eval's z; the losses to
+    ``LOSS_REL_BOUND``); the same reading through the library's
+    ``F.conv1d`` shown past that bar; cuDNN's LSTM, GRU and Conv2d under
+    those flags; the f32 train step (B = 32) and the prior phase timed by
+    CUDA events three ways, ``F32_ROUNDS`` rounds in turn: the shipped
+    ``conv_float32`` (cuDNN in float32, forward and backward), k float32
+    products a conv (``tap_conv``, the other repair) and the library conv
+    under the default flags (the port before the repair)."""
+    from glow_tts_tpu_torch import (make_eval_step, make_optimizer,
+                                    make_train_step)
+    full = batches[0]
+    batch = {key: value[:F32_ITEMS] for key, value in full.items()}
+    cpu = {'model': fresh_model(state, config, 'cpu'),
+           'batch': {key: value.cpu() for key, value in batch.items()},
+           'full': {key: value.cpu() for key, value in full.items()}}
+    model = fresh_model(state, config, device)
+
+    def reading(m, b, prior_batch):
+        prior = m.inference_prior(prior_batch['tokens'],
+                                  prior_batch['token_lengths'])
+        losses, out = make_eval_step(config, m)(b)
+        tensors = {f'prior {key}': prior[key].float()
+                   for key in ('mean', 'log_std', 'log_durations')}
+        tensors.update({'eval z': out['z'],
+                        'eval log_durations': out['log_durations'].float()})
+        return tensors, {key: losses[key].item()
+                         for key in ('mle', 'duration')}
+
+    ref, ref_losses = reading(cpu['model'], cpu['batch'], cpu['full'])
+
+    def errors():
+        got, losses = reading(model, batch, full)
+        row = {key: rel_err(got[key].cpu(), ref[key]) for key in ref}
+        row.update({f'{key} loss': abs(losses[key] - want) / abs(want)
+                    for key, want in ref_losses.items()})
+        return row
+
+    with tf32_flags(cudnn=True):
+        shipped = errors()
+        with conv1d_forward('library'):
+            before = errors()
+    tensors = [key for key in ref]
+    losses = [f'{key} loss' for key in ref_losses]
+    print('f32 under the default flags (cuDNN TF32 on), against the CPU, '
+          'max err / max-abs: shipped conv_float32 ' + ', '.join(
+              f'{key} {shipped[key]:.2e}' for key in tensors + losses)
+          + f' (bars {Z_REL_BOUND}, losses {LOSS_REL_BOUND}: held); the '
+          'library conv1d ' + ', '.join(
+              f'{key} {before[key]:.2e}' for key in tensors + losses)
+          + ' (past the bar: the reading bites)')
+    assert max(shipped[key] for key in tensors) <= Z_REL_BOUND, shipped
+    assert max(shipped[key] for key in losses) <= LOSS_REL_BOUND, shipped
+    encoder = [key for key in tensors if key != 'eval z']
+    assert max(before[key] for key in encoder) > Z_REL_BOUND, before
+    modules = library_modules_under_default_flags(config, device)
+    print('cuDNN float32 modules under the default flags vs CPU, max err / '
+          'max-abs: ' + json.dumps(modules))
+
+    trainee = train_model(state, config, device)
+    trainee.data_dependent_init(full['mels'], full['mel_lengths'])
+    step = make_train_step(
+        config, trainee, make_optimizer(config, trainee.parameters()),
+        seed=SEED, generator=torch.Generator(device=device).manual_seed(SEED))
+    ways = {'conv_float32': contextlib.nullcontext,
+            'taps': functools.partial(conv1d_forward, 'taps'),
+            'library_tf32': functools.partial(conv1d_forward, 'library')}
+    times = {way: {'train_step_ms': [], 'prior_ms': []} for way in ways}
+    with tf32_flags(cudnn=True):
+        for _ in range(F32_ROUNDS):
+            for way, scope in ways.items():
+                with scope():
+                    times[way]['train_step_ms'].append(cuda_ms(
+                        lambda: step(full), F32_TIMED, warmup=1))
+                    times[way]['prior_ms'].append(cuda_ms(
+                        lambda: model.inference_prior(
+                            full['tokens'], full['token_lengths']),
+                        F32_TIMED * 4, warmup=1))
+    medians = {way: {key: float(np.median(values))
+                     for key, values in row.items()}
+               for way, row in times.items()}
+    print('f32 under the default flags, median of '
+          f'{F32_ROUNDS} rounds by CUDA events ({card}): ' + '; '.join(
+              f'{way}: train step {m["train_step_ms"]:.2f} ms, prior '
+              f'{m["prior_ms"]:.2f} ms' for way, m in medians.items()))
+    row = {'shipped': shipped, 'library_conv1d': before, **modules,
+           'times': times, 'medians': medians,
+           'batch': list(full['mels'].shape),
+           'tokens': list(full['tokens'].shape), 'card': card}
+    print('f32 default flags: ' + json.dumps(row))
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -5235,7 +5514,7 @@ def data_parallel_rank(kind, out_path):
     config16 = load_config(CONFIG)
     assert config16.compute_dtype == 'bfloat16'
     result = {'nccl': dp_nccl_rank, 'gloo': dp_gloo_rank,
-              'tp': tp_gloo_rank}[kind](config16)
+              'tp': tp_gloo_rank, 'serve': dp_serve_rank}[kind](config16)
     with open(out_path, 'w', encoding='utf-8') as f:
         json.dump(result, f)
     pdata.close()
@@ -5728,6 +6007,285 @@ def run_tensor_parallel_phase(card):
                 'single_process_step_ms': main[dtype][
                     'single_process_step_ms'],
                 'collectives': main[dtype]['collectives']}
+        for dtype in ('float32', 'bfloat16')} | {'card': card}))
+    return by_path
+
+
+# ---------------------------------------------------------------------------
+# data-parallel serving: two gloo ranks on one card against one process
+# ---------------------------------------------------------------------------
+
+SERVE_RANKS = 2                # data 2 × model 1, both ranks on card 0
+SERVE_ITEMS = 32               # one global batch, in the 1024-frame bucket
+SERVE_NOISE = 0.667
+SERVE_TIMED = 2                # calls a timing takes, after one warm-up
+SERVE_LD_TOL = TP_EVAL_TOL     # f32 log-durations against one process
+SERVE_AUDIO_BOUND = 1e-3       # Griffin-Lim's waveform from those mels, max
+                               # err over max-abs
+
+
+def serve_items():
+    """``SERVE_ITEMS`` requests: the serving texts cycled at length scales
+    1 … 4, and last the longest at ``bench.py``'s length scale 8, which
+    takes the 1024-frame bucket."""
+    from glow_tts_tpu_torch.text import text_filtering
+    texts = INFERENCE_TEXTS + [
+        'It was a bright cold day in April, and the clocks were striking '
+        'thirteen.']
+    longest = ('It is easy to tell the depth of a well, and four hours of '
+               'steady work faced us on that hot and dusty day.')
+    return [{'label': f'serve_{i:02d}',
+             'text': text_filtering(longest if i == SERVE_ITEMS - 1
+                                    else texts[i % len(texts)]),
+             'length_scale': 8.0 if i == SERVE_ITEMS - 1 else 1.0 + i % 4}
+            for i in range(SERVE_ITEMS)]
+
+
+def serve_log_durations(inferencer, items):
+    """This rank's rows of the items' log-durations ``[rows, T_tok]``, as
+    the ``Inferencer`` splits them."""
+    world = inferencer.world
+    n = len(items)
+    share = -(-n // world.data_size)
+    rows = [min(j, n - 1) for j in range(world.data_index * share,
+                                         (world.data_index + 1) * share)]
+    batch = inferencer.rows_of(inferencer.batch(items), n, rows)
+    prior = inferencer.model.inference_prior(
+        batch['tokens'], batch['token_lengths'], batch['length_scales'])
+    return prior['log_durations'][..., 0].float().cpu()
+
+
+def dp_serve_rank(config16):
+    """Two ranks on card 0 over gloo as two data groups (data 2 × model
+    1) at the shipped YAML's widths: ``SERVE_ITEMS`` items in one global
+    batch under 'fused', at f32 (with the Griffin-Lim export) and at bf16
+    (``inference_dtype`` too); rank 0 serves the same items as one
+    process on the same card and holds the gathered results against it.
+    Each rank's launches, log-durations, decode and Griffin-Lim times."""
+    import tempfile
+
+    from glow_tts_tpu_torch import Inferencer, random_state_dict
+    from glow_tts_tpu_torch.ops import vocoder
+    from glow_tts_tpu_torch.parallel import data as pdata
+    shipped = dataclasses.replace(config16, data_parallel=SERVE_RANKS,
+                                  model_parallel=1, coupling_backend='fused')
+    world = pdata.initialize(shipped, 'cuda', backend='gloo')
+    assert (world.backend, world.device, world.data_size) == (
+        'gloo', torch.device('cuda', 0), SERVE_RANKS), world
+    device = world.device
+    single = dataclasses.replace(pdata.SINGLE, device=device)
+    items = serve_items()
+    out = {'rank': world.rank, 'world_size': world.size,
+           'device': str(device), 'backend': world.backend}
+    one = {}
+    for dtype in ('float32', 'bfloat16'):
+        config = dataclasses.replace(shipped, compute_dtype=dtype,
+                                     inference_dtype=dtype)
+        state = random_state_dict(config, SEED)
+        inferencer = Inferencer(state, config, device,
+                                batch_size=SERVE_ITEMS, world=world)
+        wav = dtype == 'float32'
+        # the files (rank 0's) under a directory of the rank's own
+        out_dir = tempfile.mkdtemp(prefix='chip_smoke_serve_')
+        zero_counts()
+        results = inferencer.synthesize_items(
+            items, noise_scale=SERVE_NOISE, seed=SEED, out_dir=out_dir,
+            export_wav=wav)
+        row = {'launches': read_counts()}
+        assert row['launches'] == route_launches('fused', config, 1), row
+        share = SERVE_ITEMS // SERVE_RANKS
+        mine = range(world.data_index * share,
+                     (world.data_index + 1) * share)
+        row['bytes_gathered'] = sum(
+            r['mel'].nbytes + r['attention'].nbytes
+            + (r['audio'].nbytes if wav else 0)
+            for i, r in enumerate(results) if i not in mine)
+        row['bucket'] = results[0]['bucket']
+        assert {r['bucket'] for r in results} == {1024}, row
+        log_d = torch.cat(world.gather_data(
+            serve_log_durations(inferencer, items)))
+
+        def serving(model_inferencer):
+            return lambda: model_inferencer.synthesize_items(
+                items, noise_scale=SERVE_NOISE, seed=SEED)
+
+        def griffin(mels):
+            return lambda: [vocoder.mel_to_audio(mel, config.sound,
+                                                 device=device)
+                            for mel in mels]
+        row['decode_ms'] = cuda_ms(serving(inferencer), SERVE_TIMED,
+                                   warmup=0)
+        if wav:
+            row['griffin_lim_ms'] = cuda_ms(
+                griffin([results[i]['mel'] for i in mine]), 1, warmup=0)
+        if world.is_main:
+            alone = Inferencer(state, config, device,
+                               batch_size=SERVE_ITEMS, world=single)
+            ref = alone.synthesize_items(
+                items, noise_scale=SERVE_NOISE, seed=SEED,
+                out_dir=tempfile.mkdtemp(prefix='chip_smoke_serve_one_'),
+                export_wav=wav)
+            ref_log_d = serve_log_durations(alone, items)
+            one[dtype] = {'results': ref, 'log_d': ref_log_d}
+            row['single_process_decode_ms'] = cuda_ms(serving(alone),
+                                                      SERVE_TIMED, warmup=0)
+            if wav:
+                row['single_process_griffin_lim_ms'] = cuda_ms(
+                    griffin([r['mel'] for r in ref]), 1, warmup=0)
+            scales = torch.tensor([item['length_scale'] for item in items])
+            lengths = alone.batch(items)['token_lengths'].cpu()
+            mask = (torch.arange(ref_log_d.shape[1])[None, :]
+                    < lengths[:, None]).float()
+            row.update(compare_dp_served(results, ref, log_d, ref_log_d,
+                                         dtype, one, mask, scales))
+        out[dtype] = row
+    return out
+
+
+def serve_durations(log_d, mask, scales):
+    """The ceiled durations ``[B, T_tok]`` of log-durations at the items'
+    token ``mask`` and length scales, as ``inference_prior`` makes
+    them."""
+    return torch.ceil(torch.exp(log_d) * mask * scales[:, None])
+
+
+def compare_dp_served(results, ref, log_d, ref_log_d, dtype, one, mask,
+                      scales):
+    """The gathered results against one process's: labels in order; the
+    log-durations within their bar (f32: ``SERVE_LD_TOL``; bf16: twice one
+    process's bf16 distance from its f32, plus 1e-6); the ceiled durations
+    equal but where a ceil flips by one within that bar, at most one at
+    f32 (at bf16 the encoder's products on 16 rows and on 32 round apart
+    by an ulp, and the flips are counted); on every item whose durations
+    agree, the mels (f32: MAE within ``MEL_MAE_BOUND``; bf16: MAE within
+    twice one process's bf16 MAE from its f32, plus 1e-6, on the items
+    whose durations agree there, or on every item over the frames both
+    decoded where none does) and the audio (f32, within
+    ``SERVE_AUDIO_BOUND`` of max-abs)."""
+    assert [r['label'] for r in results] == [r['label'] for r in ref]
+    row = {'log_duration_max_abs': (log_d - ref_log_d).abs().max().item()}
+    if dtype == 'float32':
+        assert torch.allclose(log_d, ref_log_d, **SERVE_LD_TOL), row
+        bar = SERVE_LD_TOL['atol'] + SERVE_LD_TOL['rtol'] * ref_log_d.abs()
+    else:
+        bar = BF16_FACTOR * (ref_log_d - one['float32']['log_d']).abs(
+            ).max().item() + BF16_ATOL
+        row['log_duration_bar'] = bar
+        assert row['log_duration_max_abs'] <= bar, row
+    got_d, want_d = (serve_durations(d, mask, scales)
+                     for d in (log_d, ref_log_d))
+    # a flip must straddle an integer that the bar around one process's
+    # log-duration reaches
+    lo, hi = (serve_durations(ref_log_d + sign * bar, mask, scales)
+              for sign in (-1, 1))
+    flips = got_d != want_d
+    row['durations_flipped'] = int(flips.sum())
+    row['durations_valid'] = int(mask.sum())
+    assert ((got_d - want_d).abs() <= 1).all(), row
+    assert (lo[flips] != hi[flips]).all(), row
+    if dtype == 'float32':
+        assert row['durations_flipped'] <= 1, row
+
+    def mel_errors(a_results, b_results, same):
+        # over the items of ``same``, each over the frames both decoded
+        err_sum, count, worst, audio, items = 0.0, 0, 0.0, 0.0, 0
+        for a, b, keep in zip(a_results, b_results, same):
+            if not keep:
+                continue
+            n = min(a['mel'].shape[0], b['mel'].shape[0])
+            diff = np.abs(a['mel'][:n] - b['mel'][:n])
+            err_sum, count = err_sum + diff.sum(), count + diff.size
+            worst, items = max(worst, float(diff.max())), items + 1
+            if 'audio' in a and 'audio' in b:
+                audio = max(audio, float(np.abs(a['audio'] - b['audio']).max()
+                                         / np.abs(b['audio']).max()))
+        return float(err_sum / max(count, 1)), worst, audio, items
+
+    same = (~flips).all(dim=1).tolist()
+    row['mel_mae'], row['mel_max_abs'], audio, row['items_compared'] = \
+        mel_errors(results, ref, same)
+    if dtype == 'float32':
+        assert row['mel_mae'] <= MEL_MAE_BOUND, row
+        row['audio_max_rel_err'] = audio
+        assert audio <= SERVE_AUDIO_BOUND, row
+    else:
+        f32 = one['float32']
+        same_f32 = (serve_durations(f32['log_d'], mask, scales)
+                    == want_d).all(dim=1).tolist()
+        if not any(same_f32):
+            # every item's bf16 durations differ somewhere from its f32:
+            # every item, over the frames both decoded
+            same_f32 = [True] * len(ref)
+        base, _, _, row['items_bf16_as_f32'] = mel_errors(
+            ref, f32['results'], same_f32)
+        row['mel_mae_bar'] = BF16_FACTOR * base + BF16_ATOL
+        assert row['mel_mae'] <= row['mel_mae_bar'], row
+    return row
+
+
+def run_data_parallel_serving_phase(card):
+    """The shipped YAML's widths, Vanilla, at f32 and at bf16: two ranks
+    on card 0 over gloo as two data groups (NCCL refuses two ranks on one
+    card; module of the ranks: :func:`dp_serve_rank`) serve one global
+    batch of ``SERVE_ITEMS`` items, each rank 16 of them through 12
+    ``flow_step`` launches, against one process on the same card.  Prints
+    the bars held, each rank's launches, the bytes gathered and the decode
+    and Griffin-Lim times; returns the launches by path."""
+    import tempfile
+    root = tempfile.mkdtemp(prefix='chip_smoke_serve_')
+    torch.cuda.empty_cache()       # this process's cache, for the ranks
+    ranks, seconds = launch_ranks('serve', SERVE_RANKS, [0] * SERVE_RANKS,
+                                  root)
+    by_path = {}
+    main = ranks[0]
+    for dtype in ('float32', 'bfloat16'):
+        for result in ranks:
+            row = result[dtype]
+            by_path[f'data-parallel serving {dtype} rank '
+                    f'{result["rank"]}'] = row['launches']
+            print(f'data-parallel serving {dtype}: rank {result["rank"]} of '
+                  f'{result["world_size"]} on {result["device"]} '
+                  f'({result["backend"]}): launches ' + ', '.join(
+                      f'{k} {v}' for k, v in row['launches'].items() if v)
+                  + f'; {row["bytes_gathered"] / 1e6:.2f} MB gathered from '
+                  f'the other rank; bucket {row["bucket"]}')
+        row = main[dtype]
+        held = (f'mel MAE {row["mel_mae"]:.3e} (bar {MEL_MAE_BOUND}), '
+                f'audio max err {row["audio_max_rel_err"]:.2e} of max-abs '
+                f'(bar {SERVE_AUDIO_BOUND})' if dtype == 'float32' else
+                f'mel MAE {row["mel_mae"]:.3e} (bf16 bar '
+                f'{row["mel_mae_bar"]:.3e}, from one process\'s bf16 '
+                f'against its f32 over {row["items_bf16_as_f32"]} '
+                f'items), max-abs {row["mel_max_abs"]:.3e}; '
+                f'log-durations bar {row["log_duration_bar"]:.3e}')
+        print(f'data-parallel serving {dtype}: {SERVE_RANKS} ranks on card '
+              f'0, {SERVE_ITEMS} items in one global batch, gathered on rank '
+              f'0 against one process on the same card: {held}; '
+              f'log-durations within {row["log_duration_max_abs"]:.2e}, '
+              f'{row["durations_flipped"]} of {row["durations_valid"]} '
+              f'ceiled durations flipped by one within that bar, '
+              f'{row["items_compared"]} items of equal durations compared')
+        times = ', '.join(f'{r[dtype]["decode_ms"]:.1f}' for r in ranks)
+        line = (f'data-parallel serving {dtype}: serving call (prior, '
+                f'decode, gather) {times} ms by rank against one process\'s '
+                f'{row["single_process_decode_ms"]:.1f} ms')
+        if dtype == 'float32':
+            line += (', Griffin-Lim of its own items ' + ', '.join(
+                f'{r[dtype]["griffin_lim_ms"]:.1f}' for r in ranks)
+                + f' ms by rank against one process\'s '
+                f'{row["single_process_griffin_lim_ms"]:.1f} ms for all '
+                f'{SERVE_ITEMS}')
+        print(line + f', by CUDA events ({card}); gloo ranks sharing one '
+              f'card: not a speed')
+    print(f'data-parallel serving phase: {seconds:.1f} s')
+    print('data-parallel serving: ' + json.dumps({
+        dtype: {key: [r[dtype].get(key) for r in ranks]
+                for key in ('decode_ms', 'griffin_lim_ms',
+                            'bytes_gathered')}
+        | {key: main[dtype].get(key) for key in (
+            'single_process_decode_ms', 'single_process_griffin_lim_ms',
+            'mel_mae', 'mel_max_abs', 'log_duration_max_abs',
+            'durations_flipped')}
         for dtype in ('float32', 'bfloat16')} | {'card': card}))
     return by_path
 
@@ -6374,6 +6932,9 @@ def main():
                                          weights, device)
     profile_window('eval steps', lambda: eval_step(batches[0]), 3)
     phase_done('timings')
+    # ROADMAP C.5: the f32 encoder under PyTorch's default flags
+    run_f32_default_flags_phase(state, config, batches, device, card)
+    phase_done('f32 under default flags')
     # the conditioned modes: GR's pitch instantiations, serving, the forward
     pitch_rows, conditioned_paths = run_conditioned_phase(
         {route: inferencers[route].model for route in ROUTES}, batches[0],
@@ -6417,6 +6978,10 @@ def main():
     # gloo, against one process
     by_path.update(run_tensor_parallel_phase(card))
     phase_done('tensor parallel')
+    # data-parallel serving: two data groups on one card over gloo, against
+    # one process
+    by_path.update(run_data_parallel_serving_phase(card))
+    phase_done('data-parallel serving')
     # what a user reads of a run: the writers, the PNGs, the profiler
     # window and the prosody check
     by_path.update(run_observability_phase(card))

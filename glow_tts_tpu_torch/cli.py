@@ -11,15 +11,16 @@ with the flags of ``glow_tts_tpu/cli.py`` and ``--device`` (default
     glow-tts-torch-infer -c results/Checkpoint [-s STEP] -f lines.tsv -o out
         [-wav]
 
-Training runs on ``TPU.data_parallel × TPU.model_parallel`` processes, one
-per card: data-parallel over the first (0, the shipped value: every
-visible card the model groups leave; ``parallel/data.py``), the model
-sharded over groups of the second (``parallel/tp.py``).  Under
-``torchrun`` each process is one rank and trains on ``cuda:LOCAL_RANK``;
-with no launcher, ``glow-tts-torch-train`` starts the processes itself on
-this host when there is more than one, and ``glow-tts-torch-infer``
-starts the ranks of one model group (the ``Inferencer`` serves no data
-axis).
+Training and serving run on ``TPU.data_parallel × TPU.model_parallel``
+processes, one per card: data-parallel over the first (0, the shipped
+value: every visible card the model groups leave; ``parallel/data.py``),
+the model sharded over groups of the second (``parallel/tp.py``).  Under
+``torchrun`` each process is one rank on ``cuda:LOCAL_RANK``; with no
+launcher, ``glow-tts-torch-train`` and ``glow-tts-torch-infer`` start the
+processes themselves on this host when there is more than one (the
+serving config is the checkpoint's snapshot: its ``TPU`` section says how
+many).  ``glow-tts-torch-infer`` splits each global batch over the data
+groups (``inference.py``) and prints and writes once, from rank 0.
 ``--profile a:b`` traces steps ``a`` to ``b`` with ``torch.profiler`` into
 a Chrome trace per rank under ``<Log_Path>/profile``.
 """
@@ -87,18 +88,21 @@ def _train(args: argparse.Namespace) -> None:
     config = load_config(args.hyper_parameters)
     try:
         data.initialize(config, args.device)
-        # one log of the run: rank 0's, with the other ranks' warnings,
-        # each line tagged with its rank
-        rank, ranks = data.process_index(), data.process_count()
-        logging.basicConfig(
-            level=logging.INFO if rank == 0 else logging.WARNING,
-            format='%(asctime)s '
-                   + (f'[rank {rank}/{ranks}] ' if ranks > 1 else '')
-                   + '(%(module)s:%(lineno)d) %(levelname)s: %(message)s')
+        _log_as(data.process_index(), data.process_count())
         Trainer(config, initial_step=args.initial_step,
                 device=args.device).train(profile_steps=args.profile_steps)
     finally:
         data.close()
+
+
+def _log_as(rank: int, ranks: int) -> None:
+    """One log of the run: rank 0's, with the other ranks' warnings, each
+    line tagged with its rank."""
+    logging.basicConfig(
+        level=logging.INFO if rank == 0 else logging.WARNING,
+        format='%(asctime)s '
+               + (f'[rank {rank}/{ranks}] ' if ranks > 1 else '')
+               + '(%(module)s:%(lineno)d) %(levelname)s: %(message)s')
 
 
 def _spawned_rank(rank: int, run, args: argparse.Namespace, ranks: int,
@@ -139,26 +143,23 @@ def infer_main(argv: Optional[Sequence[str]] = None) -> None:
 
 
 def _serving_config(checkpoint: str):
-    """The config of a checkpoint directory's snapshot as it is served:
-    one model group (the ``Inferencer`` serves no data axis)."""
-    import dataclasses
+    """The config of a checkpoint directory's snapshot."""
     from glow_tts_tpu_torch.config import load_config
     from glow_tts_tpu_torch.training.checkpoint import SNAPSHOT
-    return dataclasses.replace(
-        load_config(os.path.join(checkpoint, SNAPSHOT)), data_parallel=1)
+    return load_config(os.path.join(checkpoint, SNAPSHOT))
 
 
 def _infer(args: argparse.Namespace) -> None:
-    """One process's serving: the whole of it, or one rank of a model
-    group (rank 0 prints and writes)."""
+    """One process's serving: the whole of it, or one rank of the
+    ``data × model`` grid (rank 0 prints and writes)."""
     from glow_tts_tpu_torch.inference import Inferencer
     from glow_tts_tpu_torch.parallel import data
 
-    logging.basicConfig(level=logging.INFO)
     config = _serving_config(args.checkpoint)
     try:
         world = (data.initialize(config, args.device)
                  if data.launched() else data.SINGLE)
+        _log_as(world.rank, world.size)
         inferencer = Inferencer(args.checkpoint, config, args.device,
                                 batch_size=args.batch_size, step=args.step,
                                 world=world)

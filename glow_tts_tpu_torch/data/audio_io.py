@@ -2,9 +2,11 @@
 own copy of ``glow_tts_tpu/data/audio_io.py``):
 
 * ``.wav``: scipy, always there;
-* ``.flac``: soundfile where it is installed, else the pure codec of
-  :mod:`glow_tts_tpu_torch.data.flac`, so flac corpora (LibriTTS) need no
-  external package;
+* ``.flac``: soundfile where it is installed, else the native decoder
+  (:mod:`glow_tts_tpu_torch.data.flac_native`, built with ``g++`` at first
+  use), so flac corpora (LibriTTS) need no external package; the pure codec
+  of :mod:`glow_tts_tpu_torch.data.flac` only for a stream the native one
+  declines by design;
 * anything else (``.m4a`` AAC, ogg, ...): soundfile → audioread → an
   ``ffmpeg`` subprocess → a loud error that names every decoder tried and
   how to install one.
@@ -42,8 +44,15 @@ def _decode_soundfile(path: str) -> Tuple[np.ndarray, int]:
 
 
 def _decode_flac(path: str) -> Tuple[np.ndarray, int]:
-    from glow_tts_tpu_torch.data import flac
-    return flac.read(path)
+    """The native decoder (two orders of magnitude faster than the pure
+    codec), the pure codec only for a stream the native one declines
+    (``UnsupportedStream``: no declared total sample count).  A malformed
+    stream raises ``ValueError`` from either; a failed build raises."""
+    from glow_tts_tpu_torch.data import flac, flac_native
+    try:
+        return flac_native.read(path)
+    except flac_native.UnsupportedStream:
+        return flac.read(path)
 
 
 def _decode_audioread(path: str) -> Tuple[np.ndarray, int]:

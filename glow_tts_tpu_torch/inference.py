@@ -16,11 +16,22 @@ item (``utils.plotting.export_mel_figure``: the mel above its attention;
 skipped, with one warning per process, where matplotlib does not import)
 and Griffin-Lim wavs (``ops.vocoder``, on the same device).
 
-Under a launcher with ``TPU.model_parallel`` above 1 (``parallel/tp.py``)
-each rank of a model group loads the full weights, keeps its shard and
-runs the same items; every rank returns the same results and rank 0
-writes them.  The ``Inferencer`` shards no batch over a data axis (the
-JAX package's shards its batch over ``data`` too).
+Under a launcher (``torchrun``, or ``glow-tts-torch-infer`` itself) the
+ranks form the ``data × model`` grid of ``parallel/data.py``, and serving
+keeps the semantics of the JAX package's data mesh
+(``glow_tts_tpu/inference.py``).  ``batch_size`` is the global batch:
+every rank collates the whole chunk (one token padding), a ragged chunk is
+padded to a multiple of the data size with its last item repeated, and
+data index d decodes rows ``[d·B/D, (d+1)·B/D)``.  The mel bucket is the
+largest any data rank picks, the one a world of one picks for the chunk,
+and every rank draws the noise a world of one draws for the chunk and
+decodes its own rows of it, so a data-parallel decode equals a world of
+one's at any ``noise_scale``.  Griffin-Lim runs on each rank's own items on
+its own card.  Mels, attentions and audio are gathered over the gloo group
+of host values; every rank returns the whole list in item order, and rank 0
+alone writes the files.  With ``TPU.model_parallel`` above 1
+(``parallel/tp.py``) each rank of a model group loads the full weights,
+keeps its shard and runs its data index's rows.
 """
 
 from __future__ import annotations
@@ -73,9 +84,10 @@ class Inferencer:
     version.  The model serves at ``config.serve_dtype`` (``inference_dtype
     or compute_dtype``), from float32 weights whatever the dtype.
     ``world`` (default: the launched world, ``parallel.data.initialize``,
-    where a launcher set one, else a world of one) shards the model over
-    its model group, which then serves on the world's device; its rank 0
-    writes the results."""
+    where a launcher set one, else a world of one) splits each batch over
+    its data groups and shards the model over its model group, which then
+    serve on the world's device; its rank 0 writes the results (module
+    docstring)."""
 
     def __init__(self, weights: Union[str, os.PathLike, Mapping],
                  config=None, device: Union[str, torch.device] = 'cuda',
@@ -108,7 +120,7 @@ class Inferencer:
         if world is None:
             world = (parallel_data.initialize(config, self.device)
                      if parallel_data.launched() else parallel_data.SINGLE)
-        if world.model_size > 1:
+        if world.size > 1:
             self.device = world.device
         self.world = world
         self.config = config
@@ -190,63 +202,101 @@ class Inferencer:
         ``attention [T_tok, T]`` and the ``bucket`` its batch decoded in,
         each also written under ``out_dir`` if given, as the NPY tree and
         ``<out_dir>/PNG/<label>.png`` (titled with the text);
-        with ``export_wav`` as well, the Griffin-Lim waveform
+        with ``out_dir`` and ``export_wav``, the Griffin-Lim waveform
         (``griffin_lim_iterations`` on the device, the start phase from
         seed 0) in ``result['audio']`` and ``<out_dir>/WAV/<label>.wav``.
         Batch ``start`` draws its noise from a generator seeded with
         ``seed + start``.  The conditioned modes' items carry their
         ``speaker_id`` and reference features or wavs (module
-        docstring)."""
+        docstring).  Over a data axis each rank decodes its share of every
+        batch and returns the gathered whole (module docstring)."""
+        world = self.world
         results = []
         for start in range(0, len(items), self.batch_size):
             chunk = list(items[start:start + self.batch_size])
-            batch = self.batch(chunk)
-            lengths = batch['token_lengths']
-            generator = torch.Generator(device=self.device)
-            generator.manual_seed(seed + start)
+            n = len(chunk)
+            # the chunk padded to a multiple of the data size with its
+            # last item; this data index's rows of it
+            share = -(-n // world.data_size)
+            rows = [min(j, n - 1) for j in range(
+                world.data_index * share, (world.data_index + 1) * share)]
+            batch = self.rows_of(self.batch(chunk), n, rows)
             prior = self.model.inference_prior(
-                batch['tokens'], lengths, batch['length_scales'],
-                batch.get('mels_for_prosody'),
+                batch['tokens'], batch['token_lengths'],
+                batch['length_scales'], batch.get('mels_for_prosody'),
                 batch.get('mel_lengths_for_prosody'), batch.get('speakers'),
                 batch.get('mels_for_ge2e'))
-            bucket = self.pick_bucket(prior['durations'])
+            # the bucket of the longest utterance on any data rank
+            bucket = world.host_max(self.pick_bucket(prior['durations']))[0]
+            # the noise a world of one draws for the chunk, this rank's rows
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(seed + start)
+            noise = torch.randn((n, bucket, self.config.sound.mel_dim),
+                                generator=generator, device=self.device)
             out = self.model.inference_decode(
-                prior, generator=generator, noise_scale=noise_scale,
+                prior, noise=noise[rows], noise_scale=noise_scale,
                 max_mel_length=bucket, pitches=batch.get('pitches'),
                 pitch_lengths=batch.get('pitch_lengths'))
             mels = out['mels'].cpu().numpy()
             mel_lengths = out['mel_lengths'].cpu().numpy()
             attentions = out['attentions'].cpu().numpy()
-            # rank 0 writes (a model group's other ranks computed the same)
-            write = out_dir and self.world.is_main
-            for i, item in enumerate(chunk):
-                n_mel, n_tok = int(mel_lengths[i]), int(lengths[i])
+            token_lengths = batch['token_lengths'].cpu().numpy()
+            own = []
+            for i, j in enumerate(range(world.data_index * share,
+                                        min((world.data_index + 1) * share,
+                                            n))):
+                n_mel, n_tok = int(mel_lengths[i]), int(token_lengths[i])
+                item = chunk[j]
                 result = {
-                    'label': item.get('label', str(start + i)),
+                    'label': item.get('label', str(start + j)),
                     'text': item['text'],
                     'mel': mels[i, :n_mel],
                     'attention': attentions[i, :n_tok, :n_mel],
                     'bucket': bucket,
                 }
-                results.append(result)
-                if write:
-                    export_mel_figure(
-                        os.path.join(out_dir, 'PNG',
-                                     f'{result["label"]}.png'),
-                        result['mel'], result['attention'],
-                        title=item['text'])
-                    export_npy(out_dir, result['label'], result['mel'],
-                               result['attention'])
-                    if export_wav:
-                        sound = self.config.sound
-                        result['audio'] = vocoder.mel_to_audio(
-                            result['mel'], sound, griffin_lim_iterations,
-                            device=self.device)
-                        vocoder.save_wav(
-                            os.path.join(out_dir, 'WAV',
-                                         f'{result["label"]}.wav'),
-                            result['audio'], sound.sample_rate)
+                if export_wav and out_dir:
+                    result['audio'] = vocoder.mel_to_audio(
+                        result['mel'], self.config.sound,
+                        griffin_lim_iterations, device=self.device)
+                own.append(result)
+            # every data index's results in item order (a model group's
+            # ranks computed the same)
+            chunk_results = ([r for part in world.gather_data(own)
+                              for r in part]
+                             if world.data_size > 1 else own)
+            results.extend(chunk_results)
+            if out_dir and world.is_main:
+                for result in chunk_results:
+                    self.write(out_dir, result)
         return results
+
+    @staticmethod
+    def rows_of(batch: Mapping[str, torch.Tensor], n: int,
+                rows: Sequence[int]) -> Dict[str, torch.Tensor]:
+        """The rows of items ``rows`` of a batch of ``n`` items (every
+        entry holds the same number of rows per item: one, or the GE2E
+        slices of ``mels_for_ge2e``); all of it where ``rows`` are all."""
+        if list(rows) == list(range(n)):
+            return dict(batch)
+        out = {}
+        for key, value in batch.items():
+            per = value.shape[0] // n
+            index = torch.tensor([j * per + r for j in rows
+                                  for r in range(per)], device=value.device)
+            out[key] = value.index_select(0, index)
+        return out
+
+    def write(self, out_dir: str, result: Mapping) -> None:
+        """One result's files under ``out_dir``: the PNG figure, the NPY
+        tree and, where it carries audio, the wav."""
+        label = result['label']
+        export_mel_figure(os.path.join(out_dir, 'PNG', f'{label}.png'),
+                          result['mel'], result['attention'],
+                          title=result['text'])
+        export_npy(out_dir, label, result['mel'], result['attention'])
+        if 'audio' in result:
+            vocoder.save_wav(os.path.join(out_dir, 'WAV', f'{label}.wav'),
+                             result['audio'], self.config.sound.sample_rate)
 
     def inference(self, labels: Sequence[str], texts: Sequence[str],
                   length_scales: Optional[Sequence[float]] = None,

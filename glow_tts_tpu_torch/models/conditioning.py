@@ -16,9 +16,14 @@ JAX package's modules do: the GE2E encoder and the GST run their convs,
 dense products and gates in bfloat16 while the recurrent carry stays
 float32 (flax's cells with ``dtype``, whose carry has the parameters'
 dtype), which the library's ``nn.LSTM``/``nn.GRU`` cannot do, so the
-recurrences are written out step by step there (:func:`lstm_bf16`,
-:func:`gru_bf16`, with the same parameters); the look-up table and the
+recurrences are written out step by step (:func:`lstm_steps`,
+:func:`gru_steps`, with the same parameters); the look-up table and the
 speaker classifier have no dtype in the JAX package and stay float32.
+At float32 nothing reaches cuDNN's TF32, which its float32 convolutions
+and RNNs take under PyTorch's default flags: the GST's convs run through
+``ops.precision.conv_float32`` (float32 forward and backward), its GRU
+takes the written-out steps, and the GE2E LSTM, which is frozen and takes
+no backward, runs cuDNN's LSTM inside ``ops.precision.cudnn_float32``.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from torch import nn
 from glow_tts_tpu_torch.models.layers import (ComputesAt, Conv1d,
                                               MultiHeadCrossAttention)
 from glow_tts_tpu_torch.ops.grl import gradient_reversal
+from glow_tts_tpu_torch.ops.precision import conv_float32, cudnn_float32
 
 
 def _dense(x: torch.Tensor, weight: torch.Tensor,
@@ -43,22 +49,23 @@ def _dense(x: torch.Tensor, weight: torch.Tensor,
     return y if bias is None else y + bias.to(dtype)
 
 
-def lstm_bf16(lstm: nn.LSTM, x: torch.Tensor) -> torch.Tensor:
+def lstm_steps(lstm: nn.LSTM, x: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
     """``lstm`` (batch first, gate order i, f, g, o) over ``x [B, T, in]``
-    at bfloat16 as flax's ``OptimizedLSTMCell(dtype=bfloat16)`` steps:
-    each gate's products and sum in bfloat16 (the bias on the recurrent
-    side), the cell and hidden state float32.  Returns the last layer's
-    outputs ``[B, T, H]`` float32."""
+    at ``dtype`` as flax's ``OptimizedLSTMCell(dtype=...)`` steps: each
+    gate's products and sum in ``dtype`` (the bias on the recurrent side),
+    the cell and hidden state float32.  Returns the last layer's outputs
+    ``[B, T, H]`` float32."""
     h_size = lstm.hidden_size
     for i in range(lstm.num_layers):
         w_ih = getattr(lstm, f'weight_ih_l{i}')
         w_hh = getattr(lstm, f'weight_hh_l{i}')
         bias = getattr(lstm, f'bias_ih_l{i}') + getattr(lstm, f'bias_hh_l{i}')
-        gates_x = _dense(x, w_ih)                           # [B, T, 4H]
+        gates_x = _dense(x, w_ih, dtype=dtype)              # [B, T, 4H]
         c = h = x.new_zeros((x.shape[0], h_size), dtype=torch.float32)
         outs = []
         for t in range(x.shape[1]):
-            gates = _dense(h, w_hh, bias) + gates_x[:, t]
+            gates = _dense(h, w_hh, bias, dtype) + gates_x[:, t]
             gi, gf, gg, go = gates.chunk(4, dim=-1)
             c = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gg)
             h = torch.sigmoid(go) * torch.tanh(c)
@@ -67,23 +74,24 @@ def lstm_bf16(lstm: nn.LSTM, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def gru_bf16(gru: nn.GRU, x: torch.Tensor) -> torch.Tensor:
+def gru_steps(gru: nn.GRU, x: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
     """``gru`` (batch first, gate order r, z, n) over ``x [B, T, in]`` at
-    bfloat16 as flax's ``GRUCell(dtype=bfloat16)`` steps: the input and
-    recurrent products, their biases and the gates in bfloat16, the hidden
+    ``dtype`` as flax's ``GRUCell(dtype=...)`` steps: the input and
+    recurrent products, their biases and the gates in ``dtype``, the hidden
     state float32.  Returns the last layer's outputs ``[B, T, H]``
     float32."""
     h_size = gru.hidden_size
     for i in range(gru.num_layers):
         gates_x = _dense(x, getattr(gru, f'weight_ih_l{i}'),
-                         getattr(gru, f'bias_ih_l{i}'))     # [B, T, 3H]
+                         getattr(gru, f'bias_ih_l{i}'), dtype)  # [B, T, 3H]
         w_hh = getattr(gru, f'weight_hh_l{i}')
         b_hh = getattr(gru, f'bias_hh_l{i}')
         h = x.new_zeros((x.shape[0], h_size), dtype=torch.float32)
         outs = []
         for t in range(x.shape[1]):
             xr, xz, xn = gates_x[:, t].chunk(3, dim=-1)
-            hr, hz, hn = _dense(h, w_hh, b_hh).chunk(3, dim=-1)
+            hr, hz, hn = _dense(h, w_hh, b_hh, dtype).chunk(3, dim=-1)
             r = torch.sigmoid(xr + hr)
             z = torch.sigmoid(xz + hz)
             n = torch.tanh(xn + r * hn)
@@ -117,9 +125,10 @@ class GE2ESpeakerEncoder(nn.Module, ComputesAt):
         lstm = self.layer_Dict['LSTM']
         projection = self.layer_Dict['Projection']
         if self.dtype == torch.float32:
-            x, _ = lstm(mel_slices)
+            with cudnn_float32():
+                x, _ = lstm(mel_slices)
             return ge2e_normalize(projection(x[:, -1]))
-        x = lstm_bf16(lstm, mel_slices)
+        x = lstm_steps(lstm, mel_slices, self.dtype)
         return ge2e_normalize(_dense(x[:, -1], projection.weight,
                                      projection.bias, self.dtype))
 
@@ -188,7 +197,8 @@ class GSTProsodyEncoder(nn.Module, ComputesAt):
         for i in range(len(self.strides)):
             conv = layers[f'Conv_{i}'].Conv
             if self.dtype == torch.float32:
-                x = F.relu(conv(x))                        # [B, C, F, T']
+                x = F.relu(conv_float32(x, conv.weight, None, conv.stride,
+                                        conv.padding))     # [B, C, F, T']
             else:
                 x = F.relu(F.conv2d(x.to(self.dtype),
                                     conv.weight.to(self.dtype), None,
@@ -196,10 +206,7 @@ class GSTProsodyEncoder(nn.Module, ComputesAt):
         b, c, f, t = x.shape
         # channel-major flatten of (chan, freq) at each step
         x = x.permute(0, 3, 1, 2).reshape(b, t, c * f)
-        if self.dtype == torch.float32:
-            x, _ = layers['GRU'](x)
-        else:
-            x = gru_bf16(layers['GRU'], x)
+        x = gru_steps(layers['GRU'], x, self.dtype)
         total_stride = math.prod(self.strides)
         last = torch.div(mel_lengths.long() + total_stride - 1, total_stride,
                          rounding_mode='floor') - 1

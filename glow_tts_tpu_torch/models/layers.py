@@ -40,7 +40,7 @@ from torch import nn
 
 from glow_tts_tpu_torch.ops import attention as attn_ops
 from glow_tts_tpu_torch.ops.coupling import tap_conv
-from glow_tts_tpu_torch.ops.precision import rounded
+from glow_tts_tpu_torch.ops.precision import conv_float32, rounded
 from glow_tts_tpu_torch.parallel.tp import copy_to_model, reduce_from_model
 
 
@@ -150,8 +150,10 @@ class Dropout(nn.Module):
 
 class Conv1d(nn.Module, ComputesAt):
     """SAME-padded convolution over the time axis of ``x [B, T, Cin]``
-    with a torch-layout weight ``[Cout, Cin, k]``; 1×1 runs as a matmul.
-    At bfloat16 input, kernel and bias are cast to it, and so is the
+    with a torch-layout weight ``[Cout, Cin, k]``; 1×1 runs as a matmul,
+    k taps at float32 in float32 forward and backward
+    (``ops.precision.conv_float32``: cuDNN takes TF32 on a card under
+    PyTorch's default flags).  At bfloat16 input, kernel and bias are cast to it, and so is the
     output (flax's ``nn.Dense``/``nn.Conv`` with ``dtype``).  Row-parallel
     (``reduce_over``, a world whose model group shares the input
     channels): the partial products summed over the group in float32,
@@ -190,9 +192,8 @@ class Conv1d(nn.Module, ComputesAt):
             return y + self.bias.to(self.dtype)
         if k == 1:
             return F.linear(x, self.weight[:, :, 0], self.bias)
-        y = F.conv1d(x.transpose(1, 2), self.weight, self.bias,
-                     padding=(k - 1) // 2)
-        return y.transpose(1, 2)
+        return conv_float32(x.transpose(1, 2), self.weight, self.bias, 1,
+                            (k - 1) // 2).transpose(1, 2)
 
 
 class LayerNorm(nn.LayerNorm, ComputesAt):

@@ -171,6 +171,26 @@ class World:
         return out
 
 
+    def gather_data(self, obj) -> List:
+        """Each data index's ``obj`` (any picklable host value), in data
+        order, on every rank: model index 0's of each model group, through
+        the gloo group of host values."""
+        if self.host_group is None:
+            return [obj]
+        out = [None] * self.size
+        dist.all_gather_object(out, obj, group=self.host_group)
+        return out[::self.model_size]
+
+    def within_model_group(self) -> 'World':
+        """This rank's model group as a world of its own: the same model
+        shards and device, data size 1, no data group and no host group
+        (for what the ranks of one data index run alone, as the trainer's
+        inference)."""
+        return dataclasses.replace(self, rank=self.model_index,
+                                   size=self.model_size, group=None,
+                                   host_group=None)
+
+
 SINGLE = World()
 
 # the world this process initialised (a process group is made once)

@@ -490,11 +490,12 @@ class Trainer:
         if not len(dataset):
             return []
         # the full weights, sharded again by the Inferencer over this
-        # rank's model group
+        # rank's model group, which serves alone (the other data indices
+        # skip the inference)
         inferencer = Inferencer(tp.full_state_dict(self.model, self.world),
                                 self.config, self.device,
                                 max_mel_length=self.max_mel_length,
-                                world=self.world)
+                                world=self.world.within_model_group())
         out_dir = os.path.join(self.config.inference_path,
                                f'Step-{self.step}')
         return inferencer.synthesize_items(dataset.entries, out_dir=out_dir,

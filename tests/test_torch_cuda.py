@@ -2289,3 +2289,78 @@ def test_bf16_coupling_timed_instantiation_is_the_kernel(device):
         assert set(phases['cycles']) == set(tc.COUPLING_PHASES)
         assert all(cycles > 0 for cycles in phases['cycles'].values())
         assert 0.5 < phases['sm_ghz'] < 3.0
+
+
+def test_f32_convs_ignore_cudnn_tf32(device):
+    """Under PyTorch's default flags (cuDNN's TF32 on, the matmuls' off),
+    the port's float32 k-tap ``Conv1d`` (the prenet's 5 taps and the
+    duration predictor's 3, at the shipped encoder width) with its input
+    gradient, the GST and the GE2E encoder at the shipped widths equal the
+    same modules on the CPU to 1e-5 of the max-abs; the library's
+    ``F.conv1d`` under the same flags misses that bar (TF32), and holds it
+    inside ``cudnn_float32``, after which the flags are the caller's
+    again."""
+    import os
+
+    import torch.nn.functional as F
+
+    from glow_tts_tpu_torch import load_config
+    from glow_tts_tpu_torch.models import conditioning as tcond
+    from glow_tts_tpu_torch.models.layers import Conv1d
+    from glow_tts_tpu_torch.ops.precision import cudnn_float32
+    config = load_config(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        'configs', 'Hyper_Parameters.yaml'))
+    gen = torch.Generator().manual_seed(500)
+
+    def randomised(module):
+        with torch.no_grad():
+            for p in module.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen)
+                        * p.shape[-1] ** -0.5)
+        return module
+
+    def rel(got, want):
+        return ((got.float().cpu() - want).abs().max()
+                / want.abs().max()).item()
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        width = config.encoder.channels
+        for k in (5, 3):
+            conv = randomised(Conv1d(width, width, k))
+            x = torch.randn((8, 200, width), generator=gen)
+            cotangent = torch.randn((8, 200, width), generator=gen)
+            xc = x.clone().requires_grad_(True)
+            want = conv(xc)
+            (want * cotangent).sum().backward()
+            want = want.detach()
+            xd = x.to(device).requires_grad_(True)
+            got = conv.to(device)(xd)
+            (got * cotangent.to(device)).sum().backward()
+            assert rel(got.detach(), want) <= 1e-5, k
+            assert rel(xd.grad, xc.grad) <= 1e-5, k
+
+            def library():
+                return F.conv1d(x.to(device).transpose(1, 2), conv.weight,
+                                conv.bias, padding=k // 2).transpose(1, 2)
+            assert rel(library().detach(), want) > 1e-4, k
+            with cudnn_float32():
+                assert rel(library().detach(), want) <= 1e-5, k
+            assert rel(library().detach(), want) > 1e-4, k
+        gst = randomised(tcond.GSTProsodyEncoder(config))
+        mels = torch.randn((4, 400, config.sound.mel_dim), generator=gen)
+        lengths = torch.tensor([400, 333, 64, 1])
+        want = gst(mels, lengths)
+        assert rel(gst.to(device)(mels.to(device), lengths.to(device)),
+                   want) <= 1e-5
+        ge2e = randomised(tcond.GE2ESpeakerEncoder(config))
+        slices = torch.randn((6, 50, config.sound.mel_dim), generator=gen)
+        want = ge2e(slices)
+        assert rel(ge2e.to(device)(slices.to(device)), want) <= 1e-5
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved

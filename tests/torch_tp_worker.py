@@ -24,16 +24,17 @@ def _free_port() -> int:
         return probe.getsockname()[1]
 
 
-def spawn(job, job_dir, ranks=2, timeout=300):
-    """Run ``job`` on ``ranks`` gloo ranks, each a spawned process, and
-    return their results in rank order.  A rank that raises fails the
+def spawn(job, job_dir, ranks=2, timeout=300, rank_fn=None):
+    """Run ``job`` on ``ranks`` gloo ranks, each a spawned process running
+    ``rank_fn(rank, ranks, port, job_dir)`` (default :func:`run_rank`),
+    and return their results in rank order.  A rank that raises fails the
     call with its traceback; ranks still running after ``timeout``
     seconds are killed and the call fails."""
     import torch.multiprocessing as mp
     os.makedirs(job_dir, exist_ok=True)
     torch.save(job, os.path.join(job_dir, 'job.pt'))
-    context = mp.start_processes(run_rank, args=(ranks, _free_port(),
-                                                 job_dir),
+    context = mp.start_processes(rank_fn or run_rank,
+                                 args=(ranks, _free_port(), job_dir),
                                  nprocs=ranks, join=False,
                                  start_method='spawn')
     deadline = time.monotonic() + timeout
