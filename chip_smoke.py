@@ -142,9 +142,19 @@ their launch counters grew over the window; then PE's prosody check after
 against the same weights on the CPU at f32 (1e-4 of max-abs) and bf16
 (twice the CPU's bf16-vs-f32 distance); an evaluation timed with and
 without its images and histograms, the steps inside and outside the
-window, the check per 100 mels.  All 41 libraries build together before
-the first phase.  Exits non-zero on any failure and when no CUDA device is
-present; the last line is one JSON object naming the card.
+window, the check per 100 mels.  After GR at ``Num_Squeeze: 1``, ROADMAP
+B.2: #3, #2 and #4 at decoder shapes besides the shipped two (100-bin
+mels, C = 200, with and without GR's pitch operand; ``tiny_config``'s
+decoder, C 16, ch 16, 2 layers; a WaveNet of 16 layers of k 3, 128 wide),
+each build at f32 and bf16 against its plain version at B = 32 x 512 and
+on the eval batch's ragged mask, #4 bit-equal to 12 chained #3 launches,
+#2 bf16 bit-equal to #3 bf16 on an identity, timed by CUDA graph beside
+its bound; the ActNorm init and an eval step under each route; at C = 200
+the losses against the plain versions, 32 items served in the 1024
+bucket under each route at f32 and bf16, and a train step refused with
+B.2's error.  All 65 libraries build together before the first phase.
+Exits non-zero on any failure and when no CUDA device is present; the last
+line is one JSON object naming the card.
 """
 
 import contextlib
@@ -311,12 +321,20 @@ FLOW_COUNTERS = (('flow_step', ''), ('coupling', ''), ('flow_stack', ''),
 # the deterministic decoder's routes (``config.coupling_backend``): the
 # counter of the kernel each goes through
 ROUTES = {'fused': 'flow_step', 'modules': 'coupling', 'mega': 'flow_stack'}
+# the deterministic kernels' builds at other decoder shapes (ROADMAP B.2):
+# label -> ((C, ch, layers, k), the pitch operand's width or 0); each a
+# config of the shipped YAML with the overrides of B2_OVERRIDES
+B2_SHAPES = {'c200': ((200, 192, 4, 5), 0),
+             'c200_pitch': ((200, 192, 4, 5), 2),
+             'c16_ch16_l2_k5': ((16, 16, 2, 5), 0),
+             'c160_ch128_l16_k3': ((160, 128, 16, 3), 0)}
 
 
 def launch_counters():
     """(function, attribute) of every kernel launch count of the port."""
     from glow_tts_tpu_torch.ops.coupling import (COUNT_SUFFIXES, coupling,
-                                                 flow_stack, flow_step)
+                                                 count_suffix, flow_stack,
+                                                 flow_step)
     from glow_tts_tpu_torch.ops.coupling_grad import flow_stack_train
     from glow_tts_tpu_torch.ops.mas import maximum_path
     fns = {'flow_step': flow_step, 'coupling': coupling,
@@ -330,6 +348,13 @@ def launch_counters():
         for name, what in FLOW_COUNTERS:
             counters[name + (f'_{tag}' if tag else '')] = (
                 fns.get(name, flow_stack_train), what + suffix)
+    # and the deterministic kernels' builds at the B.2 shapes
+    for label, (shape, pitch) in B2_SHAPES.items():
+        for bf16 in (False, True):
+            suffix = count_suffix(shape, pitch, bf16)
+            for name, fn in fns.items():
+                counters[f'{name}_{suffix[:-len("_launches")]}'] = (fn,
+                                                                   suffix)
     return counters
 
 
@@ -342,10 +367,13 @@ def build_suffix(config=None, channels=None, pitch=False, bf16=False):
     """The suffix of the counters of the flow build ``config`` (or a flow
     of ``channels`` channels) runs through: '' at the shipped 160, '_c80'
     at MiniSpeech's 80, with '_pitch' for a pitch operand and '_bf16'
-    before those at bfloat16 ('_bf16_c80_pitch')."""
-    from glow_tts_tpu_torch.ops.coupling import build_tag
+    before those at bfloat16 ('_bf16_c80_pitch'); '_c200',
+    '_c16_ch16_l2_k5', ... at the B.2 shapes."""
+    from glow_tts_tpu_torch.ops.coupling import (build_tag, config_shape,
+                                                 pitch_width)
     if channels is None:
-        channels = config.sound.mel_dim * config.decoder.num_squeeze
+        channels = config_shape(config)
+        pitch = pitch and pitch_width(config)
     tag = build_tag(channels, pitch)
     return ('_bf16' if bf16 else '') + (f'_{tag}' if tag else '')
 
@@ -4590,7 +4618,8 @@ GR1_TRAIN_STEPS = 3            # GR at Num_Squeeze 1: train steps a dtype
 
 @torch.no_grad()
 def flow_kernel_rows(model, device, eval_mask, label, dtype, pitch=False,
-                     names=('coupling', 'flow_stack'), iters=10):
+                     names=('coupling', 'flow_stack'), iters=10,
+                     graph=False):
     """#3, #2 and #4 (those of ``names``) of the build at ``dtype`` for the
     model's flow width, with ``pitch`` its pitch build (the operand
     num_squeeze wide), on the model's packed weights and conditioning rows
@@ -4603,7 +4632,11 @@ def flow_kernel_rows(model, device, eval_mask, label, dtype, pitch=False,
     (baseline, build, build, baseline): at bf16 the f32 build (the inputs
     rounded to bf16 for both), at f32 the build without the pitch operand;
     with its plain version and its bounds on the valid frames (at bf16 the
-    bf16 tensor-core peak).  Returns a row a name."""
+    bf16 tensor-core peak).  With ``graph``, #3 and #2 at the decode shape
+    also by CUDA graph (20 launches a replay: the device time without the
+    host's share between launches; ``graph_ms``, ``forward_graph_ms``) and
+    #4 by CUDA events.  Returns a row a name."""
+    from glow_tts_tpu_torch.tools.time_flow import graph_ms
     from glow_tts_tpu_torch.ops.coupling import (
         WEIGHT_KEYS, coupling, coupling_reference, flow_stack,
         flow_stack_reference, flow_step, flow_step_reference, kernel_keys)
@@ -4763,6 +4796,18 @@ def flow_kernel_rows(model, device, eval_mask, label, dtype, pitch=False,
                             base_ms, f'{key}plain_ms': plain_ms})
             if shape == 'decode':
                 row.update(bounds)
+                for reverse in (True, False) if graph else ():
+                    key = '' if reverse else 'forward_'
+                    stack = name == 'flow_stack'
+                    row[f'{key}graph_ms'] = (
+                        cuda_ms(lambda: kernel_fn(xs, m, reverse, p), 3)
+                        if stack else
+                        graph_ms(lambda: kernel_fn(xs, m, reverse, p)))
+                    print(f'{name} {label} decode shape reverse={reverse}: '
+                          f'{row[f"{key}graph_ms"]:.4f} ms by CUDA '
+                          f'{"events" if stack else "graph"}, bound '
+                          f'{bounds["bound_ms"]:.4f} ms by '
+                          f'{bounds["bound_by"]}')
             else:
                 row['eval_shape_bound_ms'] = bounds['bound_ms']
         if bf16 and name == 'coupling':
@@ -4778,14 +4823,16 @@ def check_coupling_identity(step, shapes, cond, label):
     constant, on each of ``shapes`` (name: (x, mask, pitch operand)) in both
     directions: #3's z must be [x_a, z_b of #2] bit for bit and the forward
     logdets equal, since both run the ring body's WaveNet and affine; and
-    the tiles #2 reports held against its 48-frame schedule.  Returns the
-    tiles and rounds of each shape."""
-    from glow_tts_tpu_torch.ops.coupling import (RING_TIME_TILE,
-                                                 _coupling_kernel, flow_step,
+    the tiles #2 reports held against its schedule of the ring body's time
+    tile (48 frames at the shipped halo).  Returns the tiles and rounds of
+    each shape."""
+    from glow_tts_tpu_torch.ops.coupling import (_coupling_kernel, flow_step,
+                                                 geometry,
                                                  load_coupling_library,
-                                                 ring_weights)
+                                                 ring_weights, shape_of)
     c = step.layers[0].logs.shape[1]
     c2 = c // 2
+    flow_shape = shape_of(c, step.weights(False)['w_in'].shape)
     eye = torch.eye(c, device=cond.device)
 
     def own(weights, p):
@@ -4817,14 +4864,15 @@ def check_coupling_identity(step, shapes, cond, label):
                     f'{apart[0]}, x_a {apart[1]}, logdet {apart[2]})')
             print(line)
             assert ok, line
-        lib = load_coupling_library(p is not None, c, True)
+        lib = load_coupling_library(0 if p is None else p.shape[-1],
+                                    flow_shape, True)
         tile = lib.glow_coupling_time_tile()
         w16 = own(step.weights(False, BF16), p)
         got = live_tiles(m, lambda tiles: _coupling_kernel(
             x16[..., :c2], x16[..., c2:], m, w16, cond, p, tiles=tiles),
             tile=tile)
         n_tiles = -(-m.shape[1] // tile)
-        assert tile == RING_TIME_TILE, tile
+        assert tile == geometry(flow_shape, True)['time_tile'], tile
         assert got['items'] == m.shape[0] * n_tiles, got
         assert got['blocks'] == min(lib.glow_coupling_resident_blocks(
             m.shape[0]), got['items']), got
@@ -5123,7 +5171,7 @@ def run_gr_squeeze1_phase(pitch_rows, train_pitch_rows, device, card):
     gr32 = gr_squeeze1_config()
     gr16 = dataclasses.replace(gr32, compute_dtype='bfloat16')
     c = gr32.sound.mel_dim * gr32.decoder.num_squeeze
-    assert (c, pitch_width(c)) == (80, 1), c
+    assert (c, pitch_width(gr32)) == (80, 1), c
     batch = conditioned_batch(gr32, device, SEED + 170)
     state = random_state_dict(gr32, SEED + 171)
     rows, by_path = {}, {}
@@ -5207,6 +5255,200 @@ def run_gr_squeeze1_phase(pitch_rows, train_pitch_rows, device, card):
 # (``python3 chip_smoke.py --data-parallel-rank KIND OUT``, with the
 # environment torchrun gives a rank)
 # ---------------------------------------------------------------------------
+
+# the B.2 phase: the config's overrides of each of B2_SHAPES (the shipped
+# YAML's dict, no new YAML), and its mode
+B2_OVERRIDES = {
+    'c200': ('Vanilla', {'Sound': {'Mel_Dim': 100}}),
+    'c200_pitch': ('GR', {'Sound': {'Mel_Dim': 100}}),
+    'c16_ch16_l2_k5': ('Vanilla', {'Sound': {'Mel_Dim': 8}, 'Decoder': {
+        'Affine_Coupling': {'Calc_Channels': 16, 'WaveNet': {
+            'Num_Layers': 2, 'Kernel_Size': 5}}}}),
+    'c160_ch128_l16_k3': ('Vanilla', {'Decoder': {'Affine_Coupling': {
+        'Calc_Channels': 128, 'WaveNet': {'Num_Layers': 16,
+                                          'Kernel_Size': 3}}}}),
+}
+B2_KERNEL_ITERS = 3            # timed launches a pair (flow_kernel_rows)
+
+
+def b2_config(label, dtype='float32', route='fused'):
+    """The shipped YAML with ``B2_OVERRIDES[label]`` merged into its dict
+    (100-bin mels; tiny_config's decoder; another WaveNet), in its mode,
+    under ``route`` at ``dtype``."""
+    import yaml
+    from glow_tts_tpu_torch import load_config
+
+    def merge(into, new):
+        for key, value in new.items():
+            if isinstance(value, dict):
+                merge(into.setdefault(key, {}), value)
+            else:
+                into[key] = value
+    with open(CONFIG, encoding='utf-8') as f:
+        data = yaml.safe_load(f)
+    mode, overrides = B2_OVERRIDES[label]
+    data['Mode'] = mode
+    merge(data, overrides)
+    return dataclasses.replace(load_config(data), coupling_backend=route,
+                               compute_dtype=dtype)
+
+
+def serve_b2_f32(config, state, items, device, label):
+    """An ``Inferencer`` at f32 under each route serving ``items`` in one
+    decode at B = 32 in the 1024-frame bucket (counted: the route's f32
+    build), and the decode phase on one prior and one noise through each
+    route's kernel and its plain version: mel MAE over the valid frames
+    within MEL_MAE_BOUND, 'mega' bit-equal to 'fused'."""
+    from glow_tts_tpu_torch import Inferencer
+    serving = dataclasses.replace(config, compute_dtype='float32',
+                                  inference_dtype='float32')
+    by_path, mels = {}, {}
+    noise = torch.randn((len(items), 1024, config.sound.mel_dim),
+                        generator=torch.Generator(device=device)
+                        .manual_seed(SEED + 250), device=device)
+    prior = None
+    for route in ROUTES:
+        cfg = dataclasses.replace(serving, coupling_backend=route)
+        inferencer = Inferencer(state, cfg, device, batch_size=GR_BATCH)
+        if prior is None:
+            _, prior = prior_of(inferencer, items)
+            scale = 960.0 / prior['durations'].sum(dim=1).max().item()
+            items = [dict(item, length_scale=scale) for item in items]
+            _, prior = prior_of(inferencer, items)
+        zero_counts()
+        results = inferencer.synthesize_items(items, seed=SEED)
+        launches = read_counts()
+        assert launches == route_launches(route, cfg, 1), (label, launches)
+        for r in results:
+            assert r['bucket'] == 1024, r['bucket']
+            assert np.isfinite(r['mel']).all(), r['label']
+        by_path[f'{label} serve f32 {route}'] = launches
+        with torch.no_grad():
+            out_k = inferencer.model.inference_decode(
+                prior, noise=noise, max_mel_length=1024)
+            out_p = inferencer.model.inference_decode(
+                prior, noise=noise, max_mel_length=1024, **plain_flow_fns())
+        valid = (torch.arange(1024, device=device)[None, :]
+                 < out_k['mel_lengths'][:, None])[..., None]
+        mae = (((out_k['mels'] - out_p['mels']).abs() * valid).sum()
+               / (valid.sum() * noise.shape[-1])).item()
+        print(f'{label} served at f32 under {route!r} (B={len(items)}, '
+              f'bucket 1024): launches as expected; decode kernel vs plain '
+              f'mel MAE {mae:.3e} (bar {MEL_MAE_BOUND:.0e})')
+        assert mae < MEL_MAE_BOUND, (label, route, mae)
+        mels[route] = out_k['mels']
+    assert torch.equal(mels['mega'], mels['fused']), label
+    return by_path
+
+
+def check_b2_train_refused(config, batch, device, label):
+    """A train step at a shape the train kernels (#5, #6) are not built
+    for raises ROADMAP.md B.2's error on the card, caught exactly: a
+    ValueError from ``flow_stack_train`` that names B.2's train half;
+    nothing falls back to the plain version."""
+    from glow_tts_tpu_torch import make_optimizer, make_train_step
+    from glow_tts_tpu_torch.training.step import conditioning_inputs
+    model = train_model(random_state_dict_of(config), config, device)
+    model.data_dependent_init(batch['mels'], batch['mel_lengths'],
+                              **conditioning_inputs(batch))
+    step = make_train_step(config, model,
+                           make_optimizer(config, model.parameters()),
+                           seed=SEED)
+    zero_counts()
+    try:
+        step(batch)
+    except ValueError as err:
+        message = str(err)
+        assert message.startswith('flow_stack_train: the train kernels'), \
+            message
+        assert 'ROADMAP.md B.2, the train half' in message, message
+    else:
+        raise AssertionError(f'{label}: a train step ran at a shape the '
+                             'train kernels are not built for')
+    counts = read_counts()
+    assert not any(value for key, value in counts.items()
+                   if key.startswith('train')), counts
+    print(f'{label} train step at {config.compute_dtype}: refused on the '
+          f'card as ROADMAP.md B.2\'s train half ({message[:120]}...)')
+
+
+def random_state_dict_of(config):
+    from glow_tts_tpu_torch import random_state_dict
+    return random_state_dict(dataclasses.replace(
+        config, compute_dtype='float32'), SEED + 260)
+
+
+def run_b2_shapes_phase(card, device=None):
+    """The deterministic kernels (#3, #2, #4) at decoder shapes besides the
+    shipped two (ROADMAP B.2), each build at f32 and bf16 (B2_SHAPES):
+    each kernel against its plain version at B = 32 x T_f = 512, all
+    frames valid and on the eval batch's ragged mask, both directions, #4
+    bit-equal to 12 chained #3 launches, #2 bf16 bit-equal to #3 bf16 on an
+    identity ActNorm and mixing, each timed (by CUDA graph at the decode
+    shape) beside its bound; the ActNorm init and one eval step at B = 32
+    x 224 tokens x 1024 frames under each route (counted).  At C = 200
+    (100-bin mels, the shipped WaveNet) the init and eval are held to the
+    plain versions (loss bars), and an Inferencer serves B = 32 in the
+    1024 bucket under each route at f32 and bf16; a train step there
+    raises B.2's error.  Returns the kernels line's rows (by build and
+    dtype) and the launches by path."""
+    from glow_tts_tpu_torch import TrainCollater, batch_to_device
+    from glow_tts_tpu_torch.models.decoder import squeeze
+    from glow_tts_tpu_torch.models.layers import sequence_mask
+    from glow_tts_tpu_torch.ops.coupling import config_shape
+    from glow_tts_tpu_torch.text import Tokenizer, text_filtering
+    from glow_tts_tpu_torch.training.step import conditioning_inputs
+    device = device or torch.device('cuda', 0)
+    start = time.perf_counter()
+    rows, by_path, seconds = {}, {}, {}
+    for label, (shape, ps) in B2_SHAPES.items():
+        begun = time.perf_counter()
+        f32 = b2_config(label)
+        assert tuple(config_shape(f32)) == shape, (label, config_shape(f32))
+        gr = f32.uses_gradient_reversal
+        assert (f32.decoder.num_squeeze if gr else 0) == ps, label
+        state = random_state_dict_of(f32)
+        batch = (conditioned_batch(f32, device, SEED + 261) if gr else
+                 batch_to_device(TrainCollater(f32, Tokenizer())(
+                     synthetic_items(f32, SEED + 262)), device))
+        model = fresh_model(state, f32, device)
+        model.data_dependent_init(batch['mels'], batch['mel_lengths'],
+                                  **conditioning_inputs(batch))
+        _, eval_mask = squeeze(batch['mels'], sequence_mask(
+            batch['mel_lengths'], batch['mels'].shape[1]),
+            f32.decoder.num_squeeze)
+        full = label == 'c200'
+        for dtype in (torch.float32, BF16):
+            at = 'bfloat16' if dtype == BF16 else 'float32'
+            tag = ('_bf16_' if dtype == BF16 else '_') + label
+            for name, row in flow_kernel_rows(
+                    model, device, eval_mask, f'B.2 {label} {at}', dtype,
+                    pitch=gr, names=('flow_step', 'coupling', 'flow_stack'),
+                    iters=B2_KERNEL_ITERS, graph=True).items():
+                rows[name + tag] = row
+            config = dataclasses.replace(f32, compute_dtype=at)
+            paths, _ = routes_eval(config, state, batch, device,
+                                   f'B.2 {label} {at}', 1, plain=full)
+            by_path.update(paths)
+        del model
+        if full:
+            items = [{'label': f'v{i}',
+                      'text': text_filtering(INFERENCE_TEXTS[i % 4])}
+                     for i in range(GR_BATCH)]
+            by_path.update(serve_b2_f32(f32, state, items, device,
+                                        f'B.2 {label}'))
+            by_path.update(serve_bf16_routes(f32, state, items, device,
+                                             f'B.2 {label}'))
+            for at in ('float32', 'bfloat16'):
+                check_b2_train_refused(
+                    dataclasses.replace(f32, compute_dtype=at), batch,
+                    device, f'B.2 {label}')
+        seconds[label] = round(time.perf_counter() - begun, 1)
+    print('B.2 shapes phase: ' + json.dumps({
+        'seconds_by_build': seconds,
+        'seconds': round(time.perf_counter() - start, 1), 'card': card}))
+    return rows, by_path
+
 
 DP_STEPS = 3                   # train steps of the NCCL run
 DP_TIMED = 3                   # steps a timing takes, after one warm-up
@@ -6832,7 +7074,14 @@ def main():
                   functools.partial(load, pitch, channels, bf16)
                   for bf16 in (False, True) for channels in (160, 80)
                   for pitch in (False, True)
-                  for source, load in flow_loaders}}
+                  for source, load in flow_loaders},
+               # the deterministic kernels at the B.2 shapes, each at f32
+               # and bf16
+               **{(source, coupling.build_defines(shape, ps, bf16)):
+                  functools.partial(load, ps, shape, bf16)
+                  for bf16 in (False, True)
+                  for shape, ps in B2_SHAPES.values()
+                  for source, load in flow_loaders[:3]}}
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc each, together
         for build in [pool.submit(load) for load in sources.values()]:
             build.result()
@@ -6847,7 +7096,8 @@ def main():
         start = now
 
     print(f'kernel builds: {len(sources)} libraries built and loaded in '
-          f'{time.perf_counter() - start:.1f} s')
+          f'{time.perf_counter() - start:.1f} s ({len(B2_SHAPES) * 6} of '
+          f'them the B.2 shapes\' builds)')
     for source, defines in sources:
         for line in cuda_build.ptxas_report(source, defines):
             print(f'  ptxas {line}')
@@ -6960,6 +7210,11 @@ def main():
         pitch_rows, train_pitch_rows, device, card)
     by_path.update(squeeze1_paths)
     phase_done('GR squeeze 1')
+    # ROADMAP B.2: #3, #2 and #4 at other decoder shapes (100-bin mels,
+    # tiny_config's decoder, another WaveNet); serving and eval at C = 200
+    b2_rows, b2_paths = run_b2_shapes_phase(card, device)
+    by_path.update(b2_paths)
+    phase_done('B.2 shapes')
     # MiniSpeech, the converged recipe: the 80-channel builds, the
     # curriculum and its trainer
     minispeech_rows, minispeech_paths = run_minispeech_phase(device, card)
@@ -7146,7 +7401,28 @@ def main():
                'fused_flow_stack_train'),
               ('flow_train_bwd', 'train_bwd',
                'glow_tts_tpu/ops/coupling_grad.py:195',
-               'fused_flow_stack_train (backward)')))]}))
+               'fused_flow_stack_train (backward)'))),
+        # ROADMAP B.2: the deterministic kernels at other decoder shapes,
+        # each a build of its own at f32 and bf16
+        *({'name': f'{name}{tag}', 'route': 'cuda',
+           'source': csrc + f'{name}.cu',
+           'build': ' '.join(f'-D{d}' for d in defines) or '(shipped)',
+           'shape': dict(zip(('channels', 'ch', 'n_layers', 'kernel_size'),
+                             shape), pitch_size=ps),
+           'replaces': replaces, 'entry': entry,
+           **launches(f'{name}{tag}'), **b2_rows[f'{name}{tag}'],
+           **ring_body(name, defines), 'library_ms': None}
+          for label, (shape, ps) in B2_SHAPES.items()
+          for bf16 in (False, True)
+          for tag, defines in [(('_bf16_' if bf16 else '_') + label,
+                                coupling.build_defines(shape, ps, bf16))]
+          for name, replaces, entry in (
+              ('flow_step', 'glow_tts_tpu/ops/coupling.py:190',
+               'fused_flow_step'),
+              ('coupling', 'glow_tts_tpu/ops/coupling.py:190',
+               'fused_coupling'),
+              ('flow_stack', 'glow_tts_tpu/ops/coupling.py:296',
+               'fused_flow_stack')))]}))
     print(f'chip_smoke: {time.perf_counter() - begun:.0f} s in all, the '
           f'kernels\' build included; by phase {json.dumps(phases)}')
     print(card)

@@ -150,15 +150,6 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 }
 
 #ifdef GLOW_BF16_RING
-// the buffers, the static pitch stage and the live-tile list of a batch of
-// up to 1024 within the 227 KB of a block (flow_ring.cuh's sum for the flow
-// step, less its ActNorm tables)
-static_assert(RingShape<160>::smem_bytes +
-                      4 * (RingShape<160>::R * 2 +
-                           RingShape<160>::NL * 2 * RingShape<160>::CH2) +
-                      4 * (2 * 1024 + 1) + 128 <= 232448,
-              "over the 227 KB block limit");
-
 // The bfloat16 build's kernel: the same walk over the live tiles on
 // flow_ring.cuh's body (ring_coupling_tile), its ring and buffers set up
 // once a block; the ring's slice count runs on across the block's tiles.
@@ -183,7 +174,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           step_pre_gate(p.cond, p.pitch, p.w_pitch), w, p.z_b, clock);
       ++computed;
     } else {
-      tile.template zero_owned<S::C2>(p.z_b);
+      tile.template zero_owned<S::C2, S::VEC>(p.z_b);
     }
     if (!REVERSE && threadIdx.x == 0)
       p.ld_part[tile.b * p.n_tiles + tile.index] = logdet;
@@ -244,9 +235,14 @@ int run_coupling(const act_t* x_a, long long a_batch_stride,
   };
   auto s = static_cast<cudaStream_t>(stream);
 #ifdef GLOW_BF16_RING
-  if (clocks)
+  if (clocks) {
+#if GLOW_SHIPPED_SHAPE
     return reverse ? launch_ring<RingBuilt, true, true>(p, s)
                    : launch_ring<RingBuilt, false, true>(p, s);
+#else
+    return cudaErrorNotSupported;
+#endif
+  }
   return reverse ? launch_ring<RingBuilt, true, false>(p, s)
                  : launch_ring<RingBuilt, false, false>(p, s);
 #else
@@ -264,6 +260,13 @@ int glow_coupling_time_tile() { return CouplingShape::TT; }
 // The flow's channel count this library is built for (GLOW_CHANNELS).
 int glow_flow_channels() { return Built::C; }
 
+// The geometry this library is built with (flow_common.cuh::write_geometry,
+// ops/coupling.py::GEOMETRY_FIELDS): at most n ints into out; returns how
+// many it has.
+int glow_flow_geometry(int* out, int n) {
+  return write_geometry<CouplingShape>(out, n);
+}
+
 const char* glow_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
@@ -280,10 +283,12 @@ int glow_coupling_resident_blocks(int B) {
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-// Shapes are those of Built (C = glow_flow_channels(), ch=192, 4 layers, k=5),
+// Shapes are those of the build's geometry (glow_flow_geometry; w_start,
+// b_start, b_rs, w_end, w_pitch and cond at the WaveNet width ch_pad),
 // w_in and w_rs in the tensor-core layout; the caller checks them, and that the
 // strides and addresses of x_a and x_b are multiples of 16 bytes (4 float32
-// elements, 8 bfloat16).
+// elements, 8 bfloat16), or of 8 bytes in a bfloat16 build whose halves are
+// C/2 = 4 mod 8 wide (RingShape::VEC).
 // pitch and w_pitch are null, or with a GLOW_PITCH build not null
 // (cudaErrorInvalidValue otherwise).  tiles is null, or 5 zeroed ints that
 // receive what the launch did (flow_common.cuh::report_tiles).  x_a, x_b

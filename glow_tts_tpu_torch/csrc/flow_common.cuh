@@ -160,28 +160,58 @@ struct Shape {
   static constexpr size_t W_IN_TC =
       static_cast<size_t>(KS) * CH / kKStep * NB * 32;
   static constexpr size_t W_RS_TC = static_cast<size_t>(CH) / kKStep * NB * 32;
+  // a block's static shared memory besides a pitch stage (the warps' sums:
+  // a bound, as ops/coupling.py::geometry counts it), and what
+  // write_geometry reports of a ring it has not
+  static constexpr int STATIC_BYTES = 128;
+  static constexpr int RING_DEPTH = 0, HALF_SMALL = 0, HALF_BIG = 0;
 };
 
-// The flow's channel count of this build: the shipped config's 160
-// (Num_Squeeze 2) unless the build defines another (ops/cuda_build.py:
-// MiniSpeech's 80, Num_Squeeze 1, a library of its own with
-// -DGLOW_CHANNELS=80).  The WaveNet's widths are the shipped ones in every
-// build: ch 192, 4 layers, k 5.
+// The shape of this build (ops/coupling.py::build_defines passes each
+// macro that differs from the shipped one): the flow's channel count, the
+// shipped config's 160 (Num_Squeeze 2) unless the build defines another
+// (MiniSpeech's 80, Num_Squeeze 1; 100-bin mels' 200), and the WaveNet's
+// ch 192, 4 layers and k 5 unless it defines others.  C is a multiple of 8
+// up to 256, ch at most 192, k odd, the halo NL (k - 1) / 2 at most 16
+// (ops/coupling.py::ENVELOPE; each body's block budget is asserted below
+// and in flow_ring.cuh).
 #ifndef GLOW_CHANNELS
 #define GLOW_CHANNELS 160
 #endif
-using Built = Shape<GLOW_CHANNELS, 192, 4, 5, 32>;
-static_assert(Built::C == 160 || Built::C == 80,
-              "flow widths other than 160 and 80 are not built (B.2)");
-// the block's buffers, with the live-tile list of a batch of up to 1024
-static_assert(Shape<160, 192, 4, 5, 32>::smem_bytes +
-                      4 * Shape<160, 192, 4, 5, 32>::SAVE_FLOATS +
-                      4 * (2 * 1024 + 1) <= 232448,
-              "over the 227 KB block limit");
-static_assert(Shape<80, 192, 4, 5, 32>::smem_bytes +
-                      4 * Shape<80, 192, 4, 5, 32>::SAVE_FLOATS +
-                      4 * (2 * 1024 + 1) <= 232448,
-              "over the 227 KB block limit");
+#ifndef GLOW_CH
+#define GLOW_CH 192
+#endif
+#ifndef GLOW_LAYERS
+#define GLOW_LAYERS 4
+#endif
+#ifndef GLOW_KSIZE
+#define GLOW_KSIZE 5
+#endif
+static_assert(GLOW_CHANNELS % 8 == 0 && GLOW_CHANNELS <= 256 &&
+                  GLOW_CH >= 1 && GLOW_CH <= 192 && GLOW_LAYERS >= 1 &&
+                  GLOW_KSIZE % 2 == 1 &&
+                  GLOW_LAYERS * (GLOW_KSIZE - 1) / 2 <= 16,
+              "outside the flow kernels' envelope (ROADMAP.md B.2)");
+// The float32 body computes the WaveNet at ch padded to the tensor-core
+// tiles' grain (a multiple of 64: 2CH / 8 column tiles, an even share of
+// the 8 warps), on weights, conditioning rows and pitch weights padded with
+// zeros (ops/coupling.py::padded_wavenet): the padded channels of h, the
+// gate, the res/skip sums stay exact zeros (tanh 0 * sigmoid 0 = 0), so z
+// and the logdet are the unpadded computation's.  At ch 192 it is ch.
+constexpr int kChPad = ceil_div(GLOW_CH, 64) * 64;
+// The shipped shapes (160 and 80 channels at the shipped WaveNet) carry the
+// measuring instantiations besides (the float32 flow step's one TF32 pass,
+// the ring body's timed instantiation); the other shapes build the kernels
+// the wrappers launch, in half the compile time.
+#define GLOW_SHIPPED_SHAPE                                              \
+  (GLOW_CH == 192 && GLOW_LAYERS == 4 && GLOW_KSIZE == 5 &&             \
+   (GLOW_CHANNELS == 160 || GLOW_CHANNELS == 80))
+using Built = Shape<GLOW_CHANNELS, kChPad, GLOW_LAYERS, GLOW_KSIZE, 32>;
+
+// a block's shared memory on an H100 (227 KB), and the batch a launch's
+// live-tile list is budgeted for
+constexpr int kBlockBytes = 232448;
+constexpr int kMaxBatch = 1024;
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
@@ -1054,18 +1084,42 @@ struct BiasPreGate {
   }
 };
 
-// Width of GR mode's pitch operand, num_squeeze = C / mel_dim: 2 at the
-// shipped config (160 channels, Num_Squeeze 2), 1 at 80 (Num_Squeeze 1).
-constexpr int kPitchSize = Built::C == 160 ? 2 : 1;
+// Width of GR mode's pitch operand, num_squeeze, as the JAX package
+// squeezes the pitch: GLOW_PITCH_SIZE, which ops/coupling.py::build_defines
+// passes from the config unless it is the 160-channel build's 2 (the
+// shipped Num_Squeeze 2) or the 80-channel build's 1 (MiniSpeech,
+// Num_Squeeze 1).
+#ifndef GLOW_PITCH_SIZE
+#if GLOW_CHANNELS == 160
+#define GLOW_PITCH_SIZE 2
+#elif GLOW_CHANNELS == 80 || !defined(GLOW_PITCH)
+#define GLOW_PITCH_SIZE 1
+#else
+#error "a pitch build of this width names its num_squeeze (GLOW_PITCH_SIZE)"
+#endif
+#endif
+constexpr int kPitchSize = GLOW_PITCH_SIZE;
 
-// A block's copy of its tile's pitch rows [R, PS] and of one flow step's
-// w_pitch [NL, PS, 2CH] (12.4 KB at the shipped shape, 6.2 KB at PS = 1),
-// in static shared
-// memory beside the dynamic buffers: only a kernel that runs PitchPreGate
-// has it.
+// Whether a block of shape S stages a flow step's w_pitch [NL, PS, 2CH]
+// beside its tile's pitch rows [R, PS] (12.4 KB at the shipped shape, 6.2
+// KB at PS = 1): where the buffers, the live-tile list of kMaxBatch
+// samples, the static arrays and that stage fit the block; else the
+// epilogue reads w_pitch where it lies.  ops/coupling.py::geometry decides
+// the same (stage_w_pitch) and the library reports it.
+template <class S, int PS>
+HD constexpr bool stages_w_pitch() {
+  return S::smem_bytes + 4 * (2 * kMaxBatch + 1) + S::STATIC_BYTES +
+             4 * PS * (S::R + S::NL * S::CH2) <=
+         static_cast<size_t>(kBlockBytes);
+}
+
+// A block's copy of its tile's pitch rows [R, PS] and, where it stages it,
+// of one flow step's w_pitch, in static shared memory beside the dynamic
+// buffers: only a kernel that runs PitchPreGate has it.
 template <class S, int PS>
 __device__ __forceinline__ float* pitch_stage() {
-  __shared__ __align__(16) float stage[S::R * PS + S::NL * PS * S::CH2];
+  __shared__ __align__(16) float
+      stage[S::R * PS + (stages_w_pitch<S, PS>() ? S::NL * PS * S::CH2 : 0)];
   return stage;
 }
 
@@ -1106,15 +1160,17 @@ struct PitchPreGate {
                   ? __ldg(pitch + (tile.sample + t) * PS + i % PS)
                   : 0.f;
     }
-    for (int i = threadIdx.x; i < S::NL * PS * S::CH2; i += kThreads)
-      st[S::R * PS + i] = __ldg(w_pitch + i);
+    if constexpr (stages_w_pitch<S, PS>())
+      for (int i = threadIdx.x; i < S::NL * PS * S::CH2; i += kThreads)
+        st[S::R * PS + i] = __ldg(w_pitch + i);
     __syncthreads();
   }
   template <class S>
   __device__ Layer<S> layer(int i, const Tile<S>& tile) const {
     const float* const st = pitch_stage<S, PS>();
     return {cond + (static_cast<size_t>(i) * tile.B + tile.b) * S::CH2, st,
-            st + S::R * PS + i * PS * S::CH2};
+            stages_w_pitch<S, PS>() ? st + S::R * PS + i * PS * S::CH2
+                                    : w_pitch + i * PS * S::CH2};
   }
 };
 
@@ -1136,6 +1192,48 @@ __device__ __forceinline__ BiasPreGate step_pre_gate(const float* cond,
   return {cond};
 }
 #endif
+
+// A block's pitch stage's bytes at shape S (0 without a pitch operand).
+template <class S>
+HD constexpr size_t pitch_stage_bytes() {
+  return !kPitch ? 0
+         : stages_w_pitch<S, kPitchSize>()
+             ? 4 * kPitchSize * (S::R + S::NL * S::CH2)
+             : 4 * kPitchSize * S::R;
+}
+
+// The float32 body's block: the buffers, the live-tile list of kMaxBatch
+// samples, the static arrays and the pitch stage within the 227 KB (a
+// saving kernel adds its staging: flow_train_fwd.cu)
+static_assert(Built::smem_bytes + 4 * (2 * kMaxBatch + 1) +
+                      Built::STATIC_BYTES + pitch_stage_bytes<Built>() <=
+                  static_cast<size_t>(kBlockBytes),
+              "over the 227 KB block limit");
+
+// What a deterministic flow library reports of its build, as
+// ops/coupling.py::geometry computes it (GEOMETRY_FIELDS, in order): the
+// shape's macros, the pitch operand's width (0 without), then the body S's
+// time tile, WaveNet width, ring slice depth and half widths (0 in the
+// float32 body), dynamic buffers' bytes and whether it stages w_pitch.
+// Writes at most n ints; returns how many it has.
+template <class S>
+int write_geometry(int* out, int n) {
+  const int fields[] = {GLOW_CHANNELS,
+                        GLOW_CH,
+                        GLOW_LAYERS,
+                        GLOW_KSIZE,
+                        kPitch ? kPitchSize : 0,
+                        S::TT,
+                        S::CH,
+                        S::RING_DEPTH,
+                        S::HALF_SMALL,
+                        S::HALF_BIG,
+                        static_cast<int>(S::smem_bytes),
+                        kPitch && stages_w_pitch<S, kPitchSize>()};
+  constexpr int count = sizeof(fields) / sizeof(fields[0]);
+  for (int i = 0; i < n && i < count; ++i) out[i] = fields[i];
+  return count;
+}
 
 // One deterministic flow step on one tile, from x [B, T, C] to z [B, T, C]:
 // forward ActNorm -> mixing -> coupling, returning in thread 0 the tile's

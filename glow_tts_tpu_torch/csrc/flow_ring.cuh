@@ -60,6 +60,22 @@
 // dropped (PERF.md): four 24 KB slots of 32-deep slices (slower), a slice
 // in several copies (slower), a third slot (no faster), the slices staged
 // by every thread's cp.async (no faster).
+//
+// Other decoder shapes (ROADMAP B.2; RingShape<C, CH, NL, KS>, the build's
+// GLOW_CHANNELS, GLOW_LAYERS and GLOW_KSIZE): the WaveNet always computes
+// at 192 channels, ch up to 192 zero-padded (ops/coupling.py::
+// padded_wavenet: weights, biases, conditioning rows and w_pitch; the
+// padded channels stay exact zeros), so the two warpgroups' 96-column
+// halves and a tap's whole 64-deep slices hold at any ch.  A tile owns TT =
+// 64 - 2 halo frames, at most 48 (the f32 buffers of TT rows keep the
+// shipped room).  The mixing's and the end conv's output halves are 96
+// columns, or 2 x 96 where C/2 is over 96 (NWS; the start conv's stay 96).
+// A half's rows are read 16 bytes at a time, or 8 where C/2 = 4 mod 8
+// (VEC: 100-bin mels' C = 200), and the epilogues of the 1x1 convs drop
+// the column pairs past C/2 (ring_past).  w_pitch is staged where the
+// block has room for it, else the epilogue reads it where it lies.  The
+// block fits every shape of the envelope up to C = 192, and C = 200 but for
+// a single layer of 15 taps or more; C = 256 does not (ROADMAP B.2).
 
 #pragma once
 
@@ -85,13 +101,24 @@ HD constexpr int round_up(int a, int b) { return ceil_div(a, b) * b; }
 // four 24 KB ones of 32-deep slices in the same room: PERF.md)
 constexpr int kRingDepth = 64, kRingStages = 2;
 
-template <int C_>
+// The ring body's shape: C flow channels, the WaveNet at CH = 192 (ch up to
+// 192 padded with zeros: ops/coupling.py::padded_wavenet; the products' two
+// warpgroups take 96-column halves, and a tap's depth is whole 64-deep
+// slices), NL layers of KS taps.
+template <int C_, int CH_, int NL_, int KS_>
 struct RingShape {
-  static constexpr int C = C_, C2 = C / 2, CH = 192, CH2 = 2 * CH, NL = 4,
-                       KS = 5;
-  static constexpr int PAD = (KS - 1) / 2, HALO = NL * PAD, TT = 48;
-  static constexpr int R = TT + 2 * HALO;
-  static_assert(R == 64, "one m64 row block a tile");
+  static constexpr int C = C_, C2 = C / 2, CH = CH_, CH2 = 2 * CH, NL = NL_,
+                       KS = KS_;
+  static_assert(CH == 192, "the ring body's WaveNet width: ch padded to 192");
+  static constexpr int PAD = (KS - 1) / 2, HALO = NL * PAD;
+  // a tile is one m64 row block with its halo: TT = 64 - 2 HALO owned
+  // frames (48 at the shipped 4 layers of k 5; 32 at the halo of 16), at
+  // most 48 (a smaller halo leaves rows past the halo that no owned row
+  // reads: the f32 buffers of TT rows, x_b, the skip sum, mean and logs,
+  // keep the shipped room)
+  static constexpr int R = 64, TT = R - 2 * HALO < 48 ? R - 2 * HALO : 48;
+  static_assert(TT >= 32 && TT + 2 * HALO <= R && KS % 2 == 1,
+                "a halo of at most 16 frames");
   // a slice's depth (a 128-byte row of B a column, in the 128-byte
   // swizzle), its 16-deep steps, and the ring's slots
   static constexpr int SK = kRingDepth, KK = SK / 16, STAGES = kRingStages;
@@ -105,12 +132,20 @@ struct RingShape {
   // a coupling's slices (start conv .. end conv), and a flow step's
   static constexpr int S_NET = S_START + NL * S_LAYER + S_END;
   static constexpr int S_TILE = S_MIX + S_NET;
-  // a slice's rows of B (the product's columns): a 1x1's two halves each
-  // padded to 96, or the 384 of a WaveNet product
-  static constexpr int N_SMALL = 192, N_BIG = CH2;
+  // a slice's rows of B (the product's columns): the mixing's and the end
+  // conv's two halves (x_a and x_b, mean and logs) each padded to NWS 96
+  // columns (NWS = 1 up to C/2 = 96, 2 up to 192); the start conv's 192 in
+  // two halves of 96; the 384 of a WaveNet product
+  static constexpr int NWS = ceil_div(C2, 96);
+  static_assert(C % 8 == 0 && NWS <= 2, "C a multiple of 8, C/2 <= 192");
+  static constexpr int N_SMALL = 2 * 96 * NWS, N_START = CH, N_BIG = CH2;
   static constexpr int SMALL_BYTES = 2 * SK * N_SMALL,
+                       START_BYTES = 2 * SK * N_START,
                        BIG_BYTES = 2 * SK * N_BIG;
-  static_assert(C2 <= 96 && CH == 2 * 96, "a half within 96 columns");
+  static_assert(SMALL_BYTES <= BIG_BYTES, "a slice within a slot");
+  // bfloat16 elements of a half's row that one load moves: 16 bytes, or 8
+  // where the row (C/2 elements) is not a multiple of 16 bytes (C = 200)
+  static constexpr int VEC = C2 % 8 == 0 ? 8 : 4;
   // bfloat16 row pitches (elements): an odd number of 16-byte chunks, so
   // an ldmatrix read of 8 rows touches 32 banks
   static constexpr int XP = KMIX + 8, AP = KSTART + 8, HP = CH + 8,
@@ -130,9 +165,14 @@ struct RingShape {
   static constexpr int BYTES = M_OFF + 4 * R;
   // dynamic shared memory: the buffers, 1 KB to align them, the list
   static constexpr size_t smem_bytes = BYTES + 1024;
+  // static shared memory besides a pitch stage: the ActNorm tables (a
+  // flow step's), the warps' sums and the ring's barriers (a bound)
+  static constexpr int STATIC_BYTES = 8 * C + 128;
+  // what write_geometry reports of the ring
+  static constexpr int RING_DEPTH = SK, HALF_SMALL = 96 * NWS, HALF_BIG = CH;
   // elements (bfloat16) of a step's packed weights, a slice's
   static constexpr size_t MIX_ELEMS = S_MIX * SK * N_SMALL;
-  static constexpr size_t START_ELEMS = S_START * SK * N_SMALL;
+  static constexpr size_t START_ELEMS = S_START * SK * N_START;
   static constexpr size_t IN_ELEMS = NL * S_IN * SK * N_BIG;
   static constexpr size_t RS_ELEMS = NL * S_RS * SK * N_BIG;
   static constexpr size_t END_ELEMS = S_END * SK * N_SMALL;
@@ -140,13 +180,13 @@ struct RingShape {
                 "ldmatrix pitches");
 };
 
-using RingBuilt = RingShape<Built::C>;
-// the buffers, the static pitch stage and the live-tile list of a batch of
-// up to 1024 within the 227 KB of a block
-static_assert(RingShape<160>::smem_bytes +
-                      4 * (RingShape<160>::R * 2 +
-                           RingShape<160>::NL * 2 * RingShape<160>::CH2) +
-                      4 * (2 * 1024 + 1) + 4 * 2 * 160 + 128 <= 232448,
+using RingBuilt = RingShape<GLOW_CHANNELS, 192, GLOW_LAYERS, GLOW_KSIZE>;
+// the buffers, the static arrays, the pitch stage and the live-tile list
+// of a batch of up to kMaxBatch within the 227 KB of a block
+static_assert(RingBuilt::smem_bytes + 4 * (2 * kMaxBatch + 1) +
+                      RingBuilt::STATIC_BYTES +
+                      pitch_stage_bytes<RingBuilt>() <=
+                  static_cast<size_t>(kBlockBytes),
               "over the 227 KB block limit");
 
 constexpr long long kRingTimeoutCycles = 1LL << 31;   // over a second
@@ -284,12 +324,16 @@ template <class S, bool REVERSE, bool MIXING>
 __device__ __forceinline__ const act_t* ring_slice(const RingWeights& w,
                                                    int p, uint32_t& bytes) {
   constexpr int SMALL = S::SK * S::N_SMALL, BIG = S::SK * S::N_BIG;
+  constexpr int START = S::SK * S::N_START;
   bytes = S::SMALL_BYTES;
   if (MIXING && !REVERSE) {
     if (p < S::S_MIX) return w.mix + p * SMALL;
     p -= S::S_MIX;
   }
-  if (p < S::S_START) return w.start + p * SMALL;
+  if (p < S::S_START) {
+    bytes = S::START_BYTES;
+    return w.start + p * START;
+  }
   p -= S::S_START;
   if (p < S::NL * S::S_LAYER) {
     bytes = S::BIG_BYTES;
@@ -459,6 +503,16 @@ __device__ __forceinline__ void ring_cols(const float (&v)[NW][48],
         make_float2(v[j][4 * n + 2], v[j][4 * n + 3]));
 }
 
+// Whether the column pair col0 + k of a 1x1 conv's output half lies past
+// its C2 columns (C2 even: a pair lies wholly within or past them).  Where
+// C2 is a multiple of 8 that is k past them, a constant once ring_cols is
+// unrolled; at C2 = 4 mod 8 (C = 200) one 8-column group straddles C2.
+template <class S>
+__device__ __forceinline__ bool ring_past(int k, int col0) {
+  if constexpr (S::C2 % 8 == 0) return k >= S::C2;
+  return col0 + k >= S::C2;
+}
+
 // The gate tanh(a) sigmoid(b) with two ex2.approx and one rcp.approx
 // (denormals flushed: they only ever reach 0 or 1 here), where tanhf and
 // sigmoidf take some sixty instructions: in the k-tap conv's epilogue the
@@ -502,6 +556,18 @@ __device__ __forceinline__ uint32_t ring_lane_at(int pitch) {
 // a tile
 // ---------------------------------------------------------------------------
 
+// V bfloat16 as one load or store: 16 bytes (8) or 8 bytes (4)
+template <int V>
+struct BfVec;
+template <>
+struct BfVec<8> {
+  using T = uint4;
+};
+template <>
+struct BfVec<4> {
+  using T = uint2;
+};
+
 // A block's buffers and the tile it works on: the TT frames from t0 + HALO
 // of sample b; row r of a buffer of R rows is frame t0 + r, row r of a
 // buffer of TT rows frame t0 + HALO + r.
@@ -531,14 +597,13 @@ struct RingTile {
   __device__ act_t* xa() const { return reinterpret_cast<act_t*>(s); }
 
   // z[B*T, W] (a flow step's C, a coupling's C2) gets zeros at the owned
-  // frames below T: a dead tile's output.
-  template <int W = S::C>
+  // frames below T: a dead tile's output, V elements a store.
+  template <int W = S::C, int V = 8>
   __device__ void zero_owned(act_t* z) const {
-    for (int i = threadIdx.x; i < S::TT * (W / 8); i += kThreads) {
-      const int t = t0 + S::HALO + i / (W / 8), c = 8 * (i % (W / 8));
-      if (t < T)
-        *reinterpret_cast<uint4*>(z + (sample + t) * W + c) =
-            make_uint4(0u, 0u, 0u, 0u);
+    using Vec = typename BfVec<V>::T;
+    for (int i = threadIdx.x; i < S::TT * (W / V); i += kThreads) {
+      const int t = t0 + S::HALO + i / (W / V), c = V * (i % (W / V));
+      if (t < T) *reinterpret_cast<Vec*>(z + (sample + t) * W + c) = Vec{};
     }
   }
 };
@@ -564,15 +629,19 @@ __device__ __forceinline__ void ring_stage(const PitchPreGate<PS>& pre,
                 ? __ldg(pre.pitch + (tile.sample + t) * PS + i % PS)
                 : 0.f;
   }
-  for (int i = threadIdx.x; i < S::NL * PS * S::CH2; i += kThreads)
-    st[S::R * PS + i] = __ldg(pre.w_pitch + i);
+  if constexpr (stages_w_pitch<S, PS>())
+    for (int i = threadIdx.x; i < S::NL * PS * S::CH2; i += kThreads)
+      st[S::R * PS + i] = __ldg(pre.w_pitch + i);
 }
+// w_pitch staged where the block has room for it (stages_w_pitch), else
+// read where it lies
 template <class S, int PS>
 __device__ __forceinline__ typename PitchPreGate<PS>::template Layer<S>
 ring_layer(const PitchPreGate<PS>& pre, int i, const RingTile<S>& tile) {
   const float* const st = pitch_stage<S, PS>();
   return {pre.cond + (static_cast<size_t>(i) * tile.B + tile.b) * S::CH2, st,
-          st + S::R * PS + i * PS * S::CH2};
+          stages_w_pitch<S, PS>() ? st + S::R * PS + i * PS * S::CH2
+                                  : pre.w_pitch + i * PS * S::CH2};
 }
 
 // The phases of a tile that a timed instantiation clocks, in order.
@@ -642,27 +711,36 @@ __device__ __forceinline__ void ring_load_mask(const RingTile<S>& tile,
   __syncthreads();
 }
 
-// 8 bfloat16 of x at frame t0 + r, channel c (a multiple of 8), or zeros
+// V elements of x at frame t0 + r, channel c (a multiple of V), or zeros
 // where the frame lies outside [0, T) or its mask is 0 (rows past a
-// sample's length never reach a valid row, even as NaN)
+// sample's length never reach a valid row, even as NaN): one 16-byte load
+// of 8 bfloat16, or an 8-byte one of 4 (S::VEC where a half's rows are not
+// whole 16-byte chunks)
+template <class S, int V = 8>
+__device__ __forceinline__ typename BfVec<V>::T ring_x(
+    const RingTile<S>& tile, const act_t* x, int r, int c) {
+  using Vec = typename BfVec<V>::T;
+  const int t = tile.t0 + r;
+  if (t < 0 || t >= tile.T || tile.m[r] == 0.f) return Vec{};
+  return __ldcg(reinterpret_cast<const Vec*>(x + (tile.sample + t) * S::C +
+                                             c));
+}
 template <class S>
 __device__ __forceinline__ uint4 ring_x8(const RingTile<S>& tile,
                                          const act_t* x, int r, int c) {
-  const int t = tile.t0 + r;
-  if (t < 0 || t >= tile.T || tile.m[r] == 0.f) return make_uint4(0, 0, 0, 0);
-  return __ldcg(reinterpret_cast<const uint4*>(x + (tile.sample + t) * S::C +
-                                               c));
+  return ring_x<S, 8>(tile, x, r, c);
 }
 
 // The same of rows with strides of their own (ring_coupling_tile's halves:
 // Rows' data, batch_stride and row_stride, the strides in elements and
-// multiples of 8, the address 16-byte aligned, as ops/coupling.py checks)
-template <class S, class Rows>
-__device__ __forceinline__ uint4 ring_rows8(const RingTile<S>& tile,
-                                            const Rows& x, int r, int c) {
+// multiples of V, the address 2 V-byte aligned, as ops/coupling.py checks)
+template <class S, int V, class Rows>
+__device__ __forceinline__ typename BfVec<V>::T ring_rows(
+    const RingTile<S>& tile, const Rows& x, int r, int c) {
+  using Vec = typename BfVec<V>::T;
   const int t = tile.t0 + r;
-  if (t < 0 || t >= tile.T || tile.m[r] == 0.f) return make_uint4(0, 0, 0, 0);
-  return __ldg(reinterpret_cast<const uint4*>(
+  if (t < 0 || t >= tile.T || tile.m[r] == 0.f) return Vec{};
+  return __ldg(reinterpret_cast<const Vec*>(
       x.data + tile.b * x.batch_stride + t * x.row_stride + c));
 }
 
@@ -670,16 +748,30 @@ __device__ __forceinline__ float bf_at(const uint4& u, int e) {
   const uint32_t w = e < 2 ? u.x : e < 4 ? u.y : e < 6 ? u.z : u.w;
   return e % 2 ? tf32::bf16_hi(w) : tf32::bf16_lo(w);
 }
+__device__ __forceinline__ float bf_at(const uint2& u, int e) {
+  const uint32_t w = e < 2 ? u.x : u.y;
+  return e % 2 ? tf32::bf16_hi(w) : tf32::bf16_lo(w);
+}
+// V floats rounded to bfloat16, packed as one store
+__device__ __forceinline__ void bf_pack(const float (&v)[8], uint4& out) {
+  out = make_uint4(tf32::pack_bf16(v[0], v[1]), tf32::pack_bf16(v[2], v[3]),
+                   tf32::pack_bf16(v[4], v[5]), tf32::pack_bf16(v[6], v[7]));
+}
+__device__ __forceinline__ void bf_pack(const float (&v)[4], uint2& out) {
+  out = make_uint2(tf32::pack_bf16(v[0], v[1]), tf32::pack_bf16(v[2], v[3]));
+}
 
 // x_a's padding to the start conv's depth: zeros in the columns C2 ..
-// KSTART of every row of tile.xa()
+// KSTART of every row of tile.xa(), S::VEC at a time
 template <class S>
 __device__ __forceinline__ void ring_pad_xa(const RingTile<S>& tile) {
-  constexpr int CHUNKS = (S::KSTART - S::C2) / 8;
+  constexpr int V = S::VEC;
+  using Vec = typename BfVec<V>::T;
+  constexpr int CHUNKS = (S::KSTART - S::C2) / V;
   act_t* const xa = tile.xa();
   for (int i = threadIdx.x; i < S::R * CHUNKS; i += kThreads) {
-    const int r = i / CHUNKS, c = S::C2 + 8 * (i % CHUNKS);
-    *reinterpret_cast<uint4*>(xa + r * S::AP + c) = make_uint4(0, 0, 0, 0);
+    const int r = i / CHUNKS, c = S::C2 + V * (i % CHUNKS);
+    *reinterpret_cast<Vec*>(xa + r * S::AP + c) = Vec{};
   }
 }
 
@@ -820,15 +912,16 @@ __device__ __forceinline__ void ring_wavenet(const RingTile<S>& tile,
   }
   __syncthreads();
   // [mean, logs] of the owned rows -> tile.s [TT, C]
-  ring_gemm<S, REVERSE, MIXING, 1, S::S_END>(
+  float halves[S::NWS][48];
+  ring_gemm<S, REVERSE, MIXING, S::NWS, S::S_END>(
       ring, true,
       [&](int s, int kk) { return g_at + 2 * (S::SK * s + 16 * kk); },
-      small);
+      halves);
   {
     float* const st0 = tile.s + row0 * C + C2 * wg + col0;
     const float* const bias = w.b_end + C2 * wg + col0;
-    ring_cols(small, [&](int k, float2 v, float2 u) {
-      if (k >= C2) return;
+    ring_cols(halves, [&](int k, float2 v, float2 u) {
+      if (ring_past<S>(k, col0)) return;
       const float2 b = ldg2(bias + k);
       if (row0 < TT)
         *reinterpret_cast<float2*>(st0 + k) = make_float2(v.x + b.x, v.y + b.y);
@@ -940,8 +1033,8 @@ __device__ __forceinline__ float ring_flow_step_tile(
     __syncthreads();
     // [x_a, x_b] = y . mix_t * m: warpgroup 0 makes x_a (rounded; z's first
     // half), warpgroup 1 x_b (float32, the owned rows)
-    float y[1][48];
-    ring_gemm<S, REVERSE, true, 1, S::S_MIX>(
+    float y[S::NWS][48];
+    ring_gemm<S, REVERSE, true, S::NWS, S::S_MIX>(
         ring, true,
         [&](int s, int kk) { return x_at + 2 * (S::SK * s + 16 * kk); }, y);
     if (wg == 0) {
@@ -955,7 +1048,7 @@ __device__ __forceinline__ float ring_flow_step_tile(
       act_t* const z0 = z_row(row0);
       act_t* const z1 = z_row(row0 + 8);
       ring_cols(y, [&](int k, float2 v, float2 u) {
-        if (k >= C2) return;
+        if (ring_past<S>(k, col0)) return;
         const uint32_t p = tf32::pack_bf16(v.x * m0, v.y * m0);
         const uint32_t q = tf32::pack_bf16(u.x * m1, u.y * m1);
         *reinterpret_cast<uint32_t*>(xa0 + k) = p;
@@ -969,7 +1062,7 @@ __device__ __forceinline__ float ring_flow_step_tile(
       const bool own1 = row0 + 8 >= HALO && row0 + 8 < HALO + TT;
       float* const xb0 = tile.xb + (row0 - HALO) * C2 + col0;
       ring_cols(y, [&](int k, float2 v, float2 u) {
-        if (k >= C2) return;
+        if (ring_past<S>(k, col0)) return;
         if (own0)
           *reinterpret_cast<float2*>(xb0 + k) = make_float2(v.x * m0, v.y * m0);
         if (own1)
@@ -978,16 +1071,20 @@ __device__ __forceinline__ float ring_flow_step_tile(
       });
     }
   } else {
-    // x_a (all rows, rounded as it is) and x_b (the owned rows)
-    for (int i = tid; i < R * (C2 / 8); i += kThreads) {
-      const int r = i / (C2 / 8), c = 8 * (i % (C2 / 8));
-      *reinterpret_cast<uint4*>(xa + r * S::AP + c) = ring_x8(tile, x, r, c);
+    // x_a (all rows, rounded as it is) and x_b (the owned rows), V at a
+    // time
+    constexpr int V = S::VEC;
+    using Vec = typename BfVec<V>::T;
+    for (int i = tid; i < R * (C2 / V); i += kThreads) {
+      const int r = i / (C2 / V), c = V * (i % (C2 / V));
+      *reinterpret_cast<Vec*>(xa + r * S::AP + c) =
+          ring_x<S, V>(tile, x, r, c);
     }
-    for (int i = tid; i < TT * (C2 / 8); i += kThreads) {
-      const int r = i / (C2 / 8), c = 8 * (i % (C2 / 8));
-      const uint4 in = ring_x8(tile, x, HALO + r, C2 + c);
+    for (int i = tid; i < TT * (C2 / V); i += kThreads) {
+      const int r = i / (C2 / V), c = V * (i % (C2 / V));
+      const Vec in = ring_x<S, V>(tile, x, HALO + r, C2 + c);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) tile.xb[r * C2 + c + e] = bf_at(in, e);
+      for (int e = 0; e < V; ++e) tile.xb[r * C2 + c + e] = bf_at(in, e);
     }
   }
   __syncthreads();
@@ -1011,32 +1108,32 @@ __device__ __forceinline__ float ring_flow_step_tile(
     // on the owned rows (rows TT.. and the depth past C zero); x_a read
     // again where it lies (no item writes those rows of x before this one
     // is done: flow_stack.cu)
+    // (V at a time: a chunk lies within x_a or x_b)
     const float* const stats = tile.s;
-    for (int i = tid; i < R * (S::KMIX / 8); i += kThreads) {
-      const int r = i / (S::KMIX / 8), c = 8 * (i % (S::KMIX / 8));
-      uint4 out = make_uint4(0, 0, 0, 0);
+    constexpr int V = S::VEC;
+    using Vec = typename BfVec<V>::T;
+    for (int i = tid; i < R * (S::KMIX / V); i += kThreads) {
+      const int r = i / (S::KMIX / V), c = V * (i % (S::KMIX / V));
+      Vec out{};
       if (r < TT && c < C2) {
-        out = ring_x8(tile, x, HALO + r, c);
+        out = ring_x<S, V>(tile, x, HALO + r, c);
       } else if (r < TT && c < C) {
         const float mr = m[HALO + r];
-        float v[8];
+        float v[V];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
+        for (int e = 0; e < V; ++e) {
           const int k = c - C2 + e;
           v[e] = ring_unaffine(tile.xb[r * C2 + k], stats[r * C + k],
                                stats[r * C + C2 + k], mr);
         }
-        out = make_uint4(tf32::pack_bf16(v[0], v[1]),
-                         tf32::pack_bf16(v[2], v[3]),
-                         tf32::pack_bf16(v[4], v[5]),
-                         tf32::pack_bf16(v[6], v[7]));
+        bf_pack(v, out);
       }
-      *reinterpret_cast<uint4*>(g + r * S::XP + c) = out;
+      *reinterpret_cast<Vec*>(g + r * S::XP + c) = out;
     }
     __syncthreads();
     // mixing^-1 then ActNorm^-1 into z, the owned frames below T
-    float small[1][48];
-    ring_gemm<S, REVERSE, true, 1, S::S_MIX>(
+    float small[S::NWS][48];
+    ring_gemm<S, REVERSE, true, S::NWS, S::S_MIX>(
         ring, true,
         [&](int s, int kk) { return x_at + 2 * (S::SK * s + 16 * kk); },
         small);
@@ -1052,7 +1149,7 @@ __device__ __forceinline__ float ring_flow_step_tile(
     const float* const scale = an_scale + C2 * wg + col0;
     const float* const shift = an_shift + C2 * wg + col0;
     ring_cols(small, [&](int k, float2 v, float2 u) {
-      if (k >= C2) return;
+      if (ring_past<S>(k, col0)) return;
       const float2 a = *reinterpret_cast<const float2*>(scale + k);
       const float2 b = *reinterpret_cast<const float2*>(shift + k);
       if (z0)
@@ -1091,18 +1188,20 @@ __device__ __forceinline__ float ring_coupling_tile(
   ring_load_mask(tile, mask);
   ring_pad_xa(tile);
   ring_stage(pre_gate, tile);
-  // x_a (all rows, as it is) and x_b (the owned rows)
+  // x_a (all rows, as it is) and x_b (the owned rows), V at a time
+  constexpr int V = S::VEC;
+  using Vec = typename BfVec<V>::T;
   act_t* const xa = tile.xa();
-  for (int i = tid; i < R * (C2 / 8); i += kThreads) {
-    const int r = i / (C2 / 8), c = 8 * (i % (C2 / 8));
-    *reinterpret_cast<uint4*>(xa + r * S::AP + c) =
-        ring_rows8(tile, x_a, r, c);
+  for (int i = tid; i < R * (C2 / V); i += kThreads) {
+    const int r = i / (C2 / V), c = V * (i % (C2 / V));
+    *reinterpret_cast<Vec*>(xa + r * S::AP + c) =
+        ring_rows<S, V>(tile, x_a, r, c);
   }
-  for (int i = tid; i < TT * (C2 / 8); i += kThreads) {
-    const int r = i / (C2 / 8), c = 8 * (i % (C2 / 8));
-    const uint4 in = ring_rows8(tile, x_b, HALO + r, c);
+  for (int i = tid; i < TT * (C2 / V); i += kThreads) {
+    const int r = i / (C2 / V), c = V * (i % (C2 / V));
+    const Vec in = ring_rows<S, V>(tile, x_b, HALO + r, c);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) tile.xb[r * C2 + c + e] = bf_at(in, e);
+    for (int e = 0; e < V; ++e) tile.xb[r * C2 + c + e] = bf_at(in, e);
   }
   __syncthreads();
   clock.mark(kLoad);

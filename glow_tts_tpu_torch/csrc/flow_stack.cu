@@ -297,6 +297,13 @@ int glow_flow_stack_time_tile() { return StackShape::TT; }
 // The flow's channel count this library is built for (GLOW_CHANNELS).
 int glow_flow_channels() { return Built::C; }
 
+// The geometry this library is built with (flow_common.cuh::write_geometry,
+// ops/coupling.py::GEOMETRY_FIELDS): at most n ints into out; returns how
+// many it has.
+int glow_flow_geometry(int* out, int n) {
+  return write_geometry<StackShape>(out, n);
+}
+
 const char* glow_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -189,9 +189,14 @@ int run_step(const act_t* x, const float* mask, const float* cond,
   auto s = static_cast<cudaStream_t>(stream);
 #ifdef GLOW_BF16_RING
   if (passes != 3) return cudaErrorInvalidValue;
-  if (clocks)
+  if (clocks) {
+#if GLOW_SHIPPED_SHAPE
     return reverse ? launch_ring<RingBuilt, true, true>(p, s)
                    : launch_ring<RingBuilt, false, true>(p, s);
+#else
+    return cudaErrorNotSupported;
+#endif
+  }
   return reverse ? launch_ring<RingBuilt, true, false>(p, s)
                  : launch_ring<RingBuilt, false, false>(p, s);
 #else
@@ -199,8 +204,12 @@ int run_step(const act_t* x, const float* mask, const float* cond,
   if constexpr (kPitch || kBf16) {
     if (passes != 3) return cudaErrorInvalidValue;
   } else if (passes == 1) {
+#if GLOW_SHIPPED_SHAPE
     return reverse ? launch<Built, true, 1>(p, s)
                    : launch<Built, false, 1>(p, s);
+#else
+    return cudaErrorNotSupported;
+#endif
   }
   return reverse ? launch<Built, true, 3>(p, s)
                  : launch<Built, false, 3>(p, s);
@@ -215,6 +224,13 @@ int glow_flow_step_time_tile() { return StepShape::TT; }
 
 // The flow's channel count this library is built for (GLOW_CHANNELS).
 int glow_flow_channels() { return Built::C; }
+
+// The geometry this library is built with (flow_common.cuh::write_geometry,
+// ops/coupling.py::GEOMETRY_FIELDS): at most n ints into out; returns how
+// many it has.
+int glow_flow_geometry(int* out, int n) {
+  return write_geometry<StepShape>(out, n);
+}
 
 const char* glow_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -236,8 +252,10 @@ int glow_flow_step_resident_blocks(int B) {
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-// Shapes are those of Built (C = glow_flow_channels(), ch=192, 4 layers, k=5);
-// w_in and w_rs in the tensor-core layout; the caller checks them.  pitch and
+// Shapes are those of the build's geometry (glow_flow_geometry: C, ch, the
+// layers and taps, and the WaveNet width the body computes at, ch_pad, which
+// w_start, b_start, b_rs, w_end, w_pitch and cond come padded to where it is
+// not ch); w_in and w_rs in the tensor-core layout; the caller checks them.  pitch and
 // w_pitch are null, or with a GLOW_PITCH build not null (cudaErrorInvalidValue
 // otherwise).  passes is 3 (3xTF32, f32 accuracy) or 1 (one TF32 pass, for
 // measuring; not in a GLOW_PITCH or GLOW_BF16 build).  tiles is null, or 5

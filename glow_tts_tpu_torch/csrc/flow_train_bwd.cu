@@ -1010,11 +1010,14 @@ cudaError_t launch_sums(SumJobs jobs, int B, int T, const int* lengths,
 
 #ifdef GLOW_PITCH
 // Width of GR mode's pitch operand, num_squeeze, as flow_common.cuh's
-// kPitchSize (this source does not include that header): 2 at 160
-// channels, 1 at 80.
+// kPitchSize (this source does not include that header): GLOW_PITCH_SIZE,
+// or 2 at 160 channels and 1 at 80 where the build does not name it.
 static_assert(kChannels == 160 || kChannels == 80,
               "flow widths other than 160 and 80 are not built (B.2)");
-constexpr int kPitchSize = kChannels == 160 ? 2 : 1;
+#ifndef GLOW_PITCH_SIZE
+#define GLOW_PITCH_SIZE (kChannels == 160 ? 2 : 1)
+#endif
+constexpr int kPitchSize = GLOW_PITCH_SIZE;
 
 // The backward of layer i's pitch term, pitch [M, kPitchSize] . w_pitch
 // [kPitchSize, ch2] added to the pre-gate sum after the dropout, from dacc

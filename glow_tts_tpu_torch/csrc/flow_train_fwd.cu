@@ -102,6 +102,21 @@
 
 namespace {
 
+// The train kernels are built at the shipped WaveNet for 160 and 80 flow
+// channels (other shapes: ROADMAP.md B.2's train half); the block's
+// buffers with the saving kernels' staging, the live-tile list of a batch
+// of up to kMaxBatch, and the whole pitch stage (DropoutPreGate reads
+// w_pitch staged) within the 227 KB.
+static_assert((Built::C == 160 || Built::C == 80) && GLOW_CH == 192 &&
+                  GLOW_LAYERS == 4 && GLOW_KSIZE == 5,
+              "the train kernels' shapes: 160 and 80 (ROADMAP.md B.2)");
+static_assert(Built::smem_bytes + 4 * Built::SAVE_FLOATS +
+                      4 * (2 * kMaxBatch + 1) <=
+                  static_cast<size_t>(kBlockBytes),
+              "over the 227 KB block limit");
+static_assert(!kPitch || stages_w_pitch<Built, kPitchSize>(),
+              "the pitch stage holds w_pitch");
+
 struct Params {
   const act_t* x;        // [B, T, C]   this step's input
   const float* mask;     // [B, T]

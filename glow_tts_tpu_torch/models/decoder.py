@@ -75,13 +75,15 @@ from torch import nn
 
 from glow_tts_tpu_torch.models.layers import (
     ComputesAt, Conv1d, WNConv1d, masked, stacked_effective_weights)
-from glow_tts_tpu_torch.ops.coupling import (COUPLING_PACK_KEYS, TC_KEYS,
+from glow_tts_tpu_torch.ops.coupling import (COUPLING_PACK_KEYS, PAD_KEYS,
+                                             RING_HALF_BIG, TC_KEYS,
                                              coupling, flow_stack,
                                              flow_stack_reference, flow_step,
-                                             flow_step_reference,
-                                             ring_weights, rounded_weights,
-                                             tensor_core_weights,
-                                             with_kernel_weights)
+                                             flow_step_reference, padded_key,
+                                             padded_weights, ring_weights,
+                                             rounded_weights,
+                                             with_kernel_weights,
+                                             with_tensor_core_weights)
 from glow_tts_tpu_torch.ops.coupling_grad import (flow_stack_train,
                                                   flow_stack_train_reference)
 from glow_tts_tpu_torch.ops.precision import rounded
@@ -420,12 +422,19 @@ class FlowStep(nn.Module):
                         for key, value in weights.items()}
             for direction, weights in packed.items()}
         if logs.device.type == 'cuda' and self.tp is None:
-            # w_in and w_rs split into TF32 halves in the kernels' layout,
-            # once per pack (both directions share them)
-            split = tensor_core_weights(self._packed[False]['w_in'],
-                                        self._packed[False]['w_rs'])
+            # w_in and w_rs split into TF32 halves in the kernels' layout
+            # and, at a WaveNet width off the float32 body's grain, the
+            # padded copies it reads, once per pack (both directions share
+            # them)
+            split = {key: value for key, value in with_tensor_core_weights(
+                self._packed[False]).items()
+                if key in TC_KEYS.values() or key in self._padded}
             for weights in self._packed.values():
                 weights.update(split)
+
+    # the names of the padded copies a pack may carry (ops/coupling.py's
+    # padded_weights), each body's own
+    _padded = tuple(padded_key(key) for key in PAD_KEYS)
 
     def invalidate(self) -> None:
         """Forget the packed weights: the parameters have changed."""
@@ -453,19 +462,21 @@ class FlowStep(nn.Module):
             rings = {direction: {} for direction in packs}
             if packs[False]['an_logs'].device.type == 'cuda':
                 # the ring body's slices (the bfloat16 flow_step, coupling
-                # and flow_stack): both directions share all but the
-                # mixing's
-                common = ring_weights({key: packs[False][key] for key in (
-                    'w_start', 'w_in', 'w_rs', 'w_end')})
+                # and flow_stack) and the copies it reads at its WaveNet
+                # width: both directions share all but the mixing's
+                common = {**ring_weights({key: packs[False][key] for key in (
+                    'w_start', 'w_in', 'w_rs', 'w_end')}),
+                    **padded_weights(packs[False], RING_HALF_BIG)}
                 rings = {direction: {**common, **ring_weights(
                     {'mix_t': weights['mix_t']})}
                     for direction, weights in packs.items()}
-            # without the float32 tensor-core layout, which no bfloat16
-            # build reads
+            # without the float32 tensor-core layout and padded copies,
+            # which no bfloat16 build reads
             self._by_dtype[dtype] = {
                 direction: rounded_weights(
                     {**{key: value for key, value in weights.items()
-                        if key not in TC_KEYS.values()},
+                        if key not in TC_KEYS.values()
+                        and key not in self._padded},
                      **rings[direction]},
                     dtype)
                 for direction, weights in packs.items()}

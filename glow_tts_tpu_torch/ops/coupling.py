@@ -14,14 +14,21 @@ route of ``config.coupling_backend``:
 
 GR mode's pitch operand (``pitch [B, T, ps]`` with ``w_pitch [n, ps, 2ch]``
 among the weights: ``pitch·w_pitch[i]`` added per frame to layer ``i``'s
-pre-gate sum) goes to each kernel's pitch instantiation, a library of its
-own built at the first call that has a pitch operand.  The flow's channel
-count picks the library too: the shipped config's 160 (``Num_Squeeze: 2``)
-or MiniSpeech's 80 (``Num_Squeeze: 1``), each built at its first call
-(:data:`KERNEL_SHAPES`, :func:`build_defines`), and with it the pitch
-operand's width, ``ps = num_squeeze`` (:func:`pitch_width`: 2 at 160
-channels, 1 at 80); each build counts its launches apart
-(:func:`count_launches`).
+pre-gate sum, ``ps = num_squeeze``: :func:`pitch_width`) goes to each
+kernel's pitch instantiation, a library of its own built at the first call
+that has a pitch operand.  The decoder's shape picks the library too
+(:class:`FlowShape`: the flow's channels and the WaveNet's width, layers
+and taps): the shipped config's 160 channels, MiniSpeech's 80, 100-bin
+mels' 200, any shape of the envelope (:func:`check_envelope`; others raise
+naming ``ROADMAP.md`` B.2), each built at its first call with its shape's
+macros (:func:`build_defines`) and held at load to the tile geometry
+Python computes for it (:func:`geometry`); each build counts its launches
+apart (:func:`count_launches`).  A body computes the WaveNet at a padded
+width (:func:`padded_wavenet`: zero weights, biases, conditioning rows and
+pitch weights, so the padded channels carry exact zeros), on weights
+padded once where they are packed.  The train kernels
+(``ops/coupling_grad.py``) are built at the shipped two shapes alone
+(:func:`check_train_shape`).
 
 Beside each wrapper stands its plain PyTorch version (``*_reference``);
 the wrapper picks between kernel and plain version by the tensor's device
@@ -88,21 +95,330 @@ Weights = Dict[str, torch.Tensor]
 # the flow channel count of the shipped config (Num_Squeeze 2), whose
 # libraries are built without a GLOW_CHANNELS macro
 SHIPPED_CHANNELS = 160
-# shapes the compiled kernels are specialised for, one library each
-# (GLOW_CHANNELS in csrc/flow_common.cuh): the shipped config's and
-# MiniSpeech's (Num_Squeeze 1, 80 channels); other widths raise (ROADMAP.md
-# B.2)
+
+
+class FlowShape(NamedTuple):
+    """The widths a flow kernel's library is compiled for: the flow's
+    channels (``mel_dim · num_squeeze``) and the WaveNet's ``ch`` channels,
+    ``n_layers`` layers and ``kernel_size`` taps."""
+    channels: int
+    ch: int = 192
+    n_layers: int = 4
+    kernel_size: int = 5
+
+    @property
+    def halo(self) -> int:
+        """Frames of receptive field a side: ``n_layers·(kernel_size−1)/2``."""
+        return self.n_layers * (self.kernel_size - 1) // 2
+
+
+SHIPPED_SHAPE = FlowShape(SHIPPED_CHANNELS)
+# the shipped shapes, the shipped config's and MiniSpeech's (Num_Squeeze 1,
+# 80 channels): the train kernels' (#5, #6: flow_train_fwd.cu and
+# flow_train_bwd.cu; other shapes raise, ROADMAP.md B.2's train half), and
+# the builds that carry the measuring instantiations (one TF32 pass, the
+# ring body's timed one: GLOW_SHIPPED_SHAPE in csrc/flow_common.cuh)
 BUILT_CHANNELS = (SHIPPED_CHANNELS, 80)
-KERNEL_SHAPES = tuple({'channels': c, 'ch': 192, 'n_layers': 4,
-                       'kernel_size': 5} for c in BUILT_CHANNELS)
+SHIPPED_SHAPES = tuple(FlowShape(c) for c in BUILT_CHANNELS)
+# the pitch operand's width (num_squeeze) that the 160- and 80-channel
+# builds take without a GLOW_PITCH_SIZE macro (csrc/flow_common.cuh)
+SHIPPED_PITCH_SIZE = {SHIPPED_CHANNELS: 2, 80: 1}
+# the shapes the deterministic kernels (#2, #3, #4) are built for, each at
+# its first use: C a multiple of 8 up to 256 (the bodies' 16-byte loads of
+# a half; 100-bin mels at Num_Squeeze 2 are 200), ch up to 192 (each body's
+# WaveNet width, zero-padded), k odd and a halo of at most 16 frames a side
+# (the ring body's 64-row tile keeps 32 owned frames); the bfloat16 builds
+# besides fit a block at every such shape up to C = 192, and beyond where
+# budget_error finds room (C = 200 but for a single layer of 15 taps or
+# more)
+ENVELOPE = {'channels': 256, 'ch': 192, 'halo': 16}
+# the shared memory of a block on an H100 (227 KB)
+BLOCK_BYTES = 232448
+# the live-tile list's ints in a block (csrc/flow_common.cuh::live_tiles)
+# for the largest batch a launch takes
+MAX_BATCH = 1024
 # the macro a pitch instantiation's library is built with
 PITCH_BUILD = ('GLOW_PITCH',)
 # and a bfloat16 build's
 BF16_BUILD = ('GLOW_BF16',)
+# the build macros of a shape, beside its field, each omitted where it
+# equals the shipped value (so the 160- and 80-channel libraries keep their
+# names and their hashes' inputs)
+SHAPE_MACROS = (('channels', 'GLOW_CHANNELS'), ('ch', 'GLOW_CH'),
+                ('n_layers', 'GLOW_LAYERS'), ('kernel_size', 'GLOW_KSIZE'))
+# what a deterministic flow library reports of its build
+# (glow_flow_geometry: csrc/flow_common.cuh::write_geometry), in order
+GEOMETRY_FIELDS = ('channels', 'ch', 'n_layers', 'kernel_size', 'pitch_size',
+                   'time_tile', 'ch_pad', 'ring_depth', 'half_small',
+                   'half_big', 'smem_bytes', 'stage_w_pitch')
+# the sources whose libraries report it (the train kernels' do not)
+GEOMETRY_SOURCES = ('flow_step.cu', 'coupling.cu', 'flow_stack.cu')
+
+
+def as_shape(shape) -> FlowShape:
+    """``shape`` as a :class:`FlowShape`: a flow channel count alone is the
+    shipped WaveNet's (ch 192, 4 layers, k 5) at that width."""
+    if isinstance(shape, FlowShape):
+        return shape
+    if isinstance(shape, int):
+        return FlowShape(shape)
+    return FlowShape(*shape)
+
+
+def shape_of(channels: int, w_in_shape: Tuple[int, ...]) -> FlowShape:
+    """The :class:`FlowShape` of ``channels`` flow channels and a WaveNet
+    whose ``w_in`` is ``[n, k, ch, 2ch]``."""
+    n, k, ch = w_in_shape[:3]
+    return FlowShape(channels, ch, n, k)
+
+
+def config_shape(config) -> FlowShape:
+    """The decoder's :class:`FlowShape` of ``config``."""
+    wavenet = config.decoder.affine_coupling.wavenet
+    return FlowShape(config.sound.mel_dim * config.decoder.num_squeeze,
+                     config.decoder.affine_coupling.calc_channels,
+                     wavenet.num_layers, wavenet.kernel_size)
+
+
+def pitch_width(squeeze) -> int:
+    """The pitch operand's width: num_squeeze (``squeeze``, or a config's
+    ``decoder.num_squeeze``), as the JAX package squeezes the pitch."""
+    if not isinstance(squeeze, int):
+        squeeze = squeeze.decoder.num_squeeze
+    if squeeze < 1:
+        raise ValueError(f'num_squeeze is at least 1, got {squeeze}')
+    return squeeze
+
+
+def default_pitch_size(channels: int) -> int:
+    """The pitch width a build of ``channels`` channels is named by without
+    a number (:func:`build_tag`) and takes for ``pitch=True``: the 160- or
+    80-channel build's own (:data:`SHIPPED_PITCH_SIZE`), else 2 (the
+    shipped YAML's Num_Squeeze)."""
+    return SHIPPED_PITCH_SIZE.get(channels, 2)
+
+
+def pitch_size(shape, pitch) -> int:
+    """The pitch operand's width of a build: ``pitch`` False (or 0) for
+    none, an int for that width, True for :func:`default_pitch_size`."""
+    if pitch is True:
+        return default_pitch_size(as_shape(shape).channels)
+    return int(pitch or 0)
+
+
+def envelope_error(shape) -> Optional[str]:
+    """Why no build of the deterministic kernels takes ``shape``, or None
+    where one does (:data:`ENVELOPE`)."""
+    shape = as_shape(shape)
+    c, ch, n, k = shape
+    if c % 8 or not 0 < c <= ENVELOPE['channels']:
+        return f'channels {c}: a multiple of 8 up to {ENVELOPE["channels"]}'
+    if not 0 < ch <= ENVELOPE['ch']:
+        return f'ch {ch}: up to {ENVELOPE["ch"]}'
+    if n < 1 or k < 1 or k % 2 == 0:
+        return f'n_layers {n}, kernel_size {k}: at least one layer, k odd'
+    if shape.halo > ENVELOPE['halo']:
+        return (f'halo n_layers·(k−1)/2 = {shape.halo}: at most '
+                f'{ENVELOPE["halo"]} frames')
+    return None
+
+
+def budget_error(shape, bf16: bool, pitch: int = 0) -> Optional[str]:
+    """Why the build of ``shape`` (bfloat16 with ``bf16``, a pitch operand
+    ``pitch`` wide) does not fit a block's shared memory, or None."""
+    need = geometry(shape, bf16, pitch)['block_bytes']
+    if need > BLOCK_BYTES:
+        return (f'the {"bfloat16" if bf16 else "float32"} build needs '
+                f'{need} bytes of shared memory a block, over the '
+                f'{BLOCK_BYTES} of an H100')
+    return None
+
+
+def check_envelope(name: str, shape, pitch_size: int = 0,
+                   bf16: Optional[bool] = None) -> FlowShape:
+    """``shape`` as a :class:`FlowShape`, or raise naming ``ROADMAP.md`` B.2
+    if no build of the deterministic kernels takes it (or a pitch operand
+    ``pitch_size`` wide, which must divide the channels: num_squeeze; or,
+    for the build of ``bf16`` where it is given, over a block's shared
+    memory: :func:`budget_error`)."""
+    shape = as_shape(shape)
+    why = envelope_error(shape)
+    if why is None and pitch_size and shape.channels % pitch_size:
+        why = (f'a pitch operand {pitch_size} wide (num_squeeze) does not '
+               f'divide {shape.channels} channels')
+    if why is None and bf16 is not None:
+        why = budget_error(shape, bf16, pitch_size)
+    if why is not None:
+        raise ValueError(f'{name}: no flow kernel build takes {shape}: {why} '
+                         '(other shapes: ROADMAP.md B.2)')
+    return shape
+
+
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def f32_smem_bytes(c: int, ch: int, n: int, k: int, tt: int) -> int:
+    """``Shape<c, ch, n, k, tt>::smem_bytes`` of ``csrc/flow_common.cuh``:
+    the float32 body's dynamic buffers of a block (``ch`` padded)."""
+    pad = (k - 1) // 2
+    halo = n * pad
+    r = tt + 2 * halo
+    hp = gp = ch + 4
+    sp = ch + 8
+
+    def mt(rows):
+        return -(-rows // 16)
+
+    def span(rows):
+        return 8 * -(-rows // 8)
+
+    def layer_rows(i):
+        return r - 2 * pad * (i + 1)
+
+    x_rows = max(span(r), halo + span(tt))
+    h_rows = max([r] + [pad * (i + 1) - pad + 16 * mt(layer_rows(i)) + k - 1
+                        for i in range(n)])
+    g_floats = max([max(span(r), span(tt)) * c]
+                   + [16 * mt(layer_rows(i)) * gp for i in range(n)])
+    floats = (x_rows * c + h_rows * hp + g_floats + span(tt) * sp
+              + _round_up(x_rows, 4))
+    return 4 * floats
+
+
+def ring_smem_bytes(c: int, n: int, k: int) -> int:
+    """``RingShape<c, 192, n, k>::smem_bytes`` of ``csrc/flow_ring.cuh``:
+    the ring body's dynamic buffers of a block, the ring and 1 KB to align
+    them included."""
+    pad = (k - 1) // 2
+    tt = min(48, 64 - 2 * n * pad)
+    r, ch, depth = 64, 192, 64
+    big = 2 * depth * 2 * ch
+    hp = gp = sp = ch + 8
+    xp = _round_up(c, depth) + 8
+    ap = _round_up(c // 2, depth) + 8
+    h = 2 * (r + 2 * pad) * hp
+    g = 2 * r * max(gp, xp)
+    s = max(4 * tt * sp, 2 * r * ap, 4 * tt * c)
+    return 2 * big + h + g + s + 4 * tt * (c // 2) + 4 * r + 1024
+
+
+def geometry(shape, bf16: bool = False, pitch: int = 0) -> Dict[str, int]:
+    """The tile geometry of the build of ``shape`` (:class:`FlowShape` or a
+    flow channel count) at bfloat16 (the ring body) or float32, with a
+    pitch operand ``pitch`` wide (0: none): one function for every build,
+    which :func:`build_defines` hands to ``nvcc`` as the shape's macros and
+    which each library reports back (:data:`GEOMETRY_FIELDS`; the loader
+    raises on a difference).
+
+    * ``time_tile``: owned frames of a tile (the float32 body's 32; the
+      ring body's 64 − 2·halo, at most 48, so a tile with its halo is one
+      64-row ``wgmma`` block);
+    * ``ch_pad``: the WaveNet width the body computes at, ``ch`` padded with
+      zero weights (float32: to a multiple of 64, the tensor-core tiles'
+      grain; ring: 192, the two warpgroups' 96-column halves);
+    * ``ring_depth``, ``half_small``, ``half_big`` (ring only, else 0): a
+      weight slice's depth, and the columns a warpgroup takes of a 1x1
+      conv (each output half padded to 96, or 192 where C/2 > 96) and of a
+      WaveNet product;
+    * ``smem_bytes``: the block's dynamic buffers (without the live-tile
+      list); ``stage_w_pitch``: 1 where the step's ``w_pitch`` is staged in
+      shared memory beside them (where it fits the block), 0 where the
+      epilogue reads it from global memory."""
+    c, ch, n, k = as_shape(shape)
+    halo = n * (k - 1) // 2
+    if bf16:
+        tt = min(48, 64 - 2 * halo)
+        out = {'time_tile': tt, 'ch_pad': 192, 'ring_depth': 64,
+               'half_small': 96 * -(-(c // 2) // 96), 'half_big': 192,
+               'smem_bytes': ring_smem_bytes(c, n, k)}
+        # the ActNorm tables; the warps' sums and the ring's barriers
+        static = 8 * c + 128
+    else:
+        tt = 32
+        out = {'time_tile': tt, 'ch_pad': _round_up(ch, 64), 'ring_depth': 0,
+               'half_small': 0, 'half_big': 0,
+               'smem_bytes': f32_smem_bytes(c, _round_up(ch, 64), n, k, tt)}
+        static = 128
+    # the block's shared memory besides the buffers: the live-tile list of
+    # MAX_BATCH samples, the static arrays and the pitch stage (the tile's
+    # pitch rows, and the step's w_pitch where that fits)
+    rows = tt + 2 * halo
+    base = out['smem_bytes'] + 4 * (2 * MAX_BATCH + 1) + static
+    w_stage = 4 * pitch * n * 2 * out['ch_pad']
+    out['stage_w_pitch'] = int(bool(pitch) and base + 4 * pitch * rows
+                               + w_stage <= BLOCK_BYTES)
+    out['block_bytes'] = (base + 4 * pitch * rows
+                          + w_stage * out['stage_w_pitch'])
+    return out
+
+
+def build_defines(shape=SHIPPED_CHANNELS, pitch=False,
+                  bf16: bool = False) -> Tuple[str, ...]:
+    """The macros of a flow kernel's library for ``shape`` (a
+    :class:`FlowShape`, or a flow channel count at the shipped WaveNet),
+    its pitch instantiation with ``pitch`` (True, or the operand's width:
+    :func:`pitch_size`), its bfloat16 build with ``bf16``: each of
+    :data:`SHAPE_MACROS` that differs from the shipped shape's, and
+    ``GLOW_PITCH_SIZE`` unless the width is the one the 160- or
+    80-channel build takes by default (:data:`SHIPPED_PITCH_SIZE`)."""
+    shape = as_shape(shape)
+    ps = pitch_size(shape, pitch)
+    sized = () if not ps or SHIPPED_PITCH_SIZE.get(shape.channels) == ps \
+        else (f'GLOW_PITCH_SIZE={ps}',)
+    return ((PITCH_BUILD if ps else ())
+            + tuple(f'{macro}={getattr(shape, field)}'
+                    for field, macro in SHAPE_MACROS
+                    if getattr(shape, field) != getattr(SHIPPED_SHAPE, field))
+            + sized + (BF16_BUILD if bf16 else ()))
+
+
+def shape_tag(shape) -> str:
+    """The part of a build's name that names its shape: ``''`` for the
+    shipped one, ``'c80'`` for another flow width at the shipped WaveNet,
+    ``'c16_ch16_l2_k5'`` for another WaveNet."""
+    shape = as_shape(shape)
+    if shape[1:] == SHIPPED_SHAPE[1:]:
+        return '' if shape == SHIPPED_SHAPE else f'c{shape.channels}'
+    return '_'.join(f'{prefix}{value}' for prefix, value in
+                    zip(('c', 'ch', 'l', 'k'), shape))
+
+
+def build_tag(shape, pitch) -> str:
+    """The part of a launch count's name that names the build of ``shape``
+    (with a pitch operand ``pitch``: True or its width): ``''`` for the
+    shipped float32 build, ``'pitch'`` for its pitch instantiation,
+    ``'c80'`` for the 80-channel build and ``'c80_pitch'`` for that build's
+    pitch instantiation (its pitch operand 1 wide), ``'c200'``,
+    ``'c16_ch16_l2_k5_pitch'``, ...; a pitch width other than
+    :func:`default_pitch_size`'s is named, as ``'c160_pitch1'``."""
+    shape = as_shape(shape)
+    ps = pitch_size(shape, pitch)
+    pitch_part = ('' if not ps else 'pitch'
+                  if ps == default_pitch_size(shape.channels)
+                  else f'pitch{ps}')
+    tag = shape_tag(shape) or ('c160' if pitch_part not in ('', 'pitch')
+                               else '')
+    return '_'.join(part for part in (tag, pitch_part) if part)
+
+
 # the weights a bfloat16 kernel takes rounded to bfloat16 (held in float32),
 # as the TPU kernels' wrappers cast them; w_in and w_rs reach it in
 # tensor_core_weights' bfloat16 layout
-BF16_ROUNDED_KEYS = ('mix_t', 'w_start', 'w_end', 'w_pitch')
+BF16_ROUNDED_KEYS = ('mix_t', 'w_start', 'w_end', 'w_pitch', 'w_start_pad',
+                     'w_end_pad', 'w_pitch_pad')
+# the weights a body reads as they lie whose WaveNet width it pads (the
+# float32 body: all five; the ring body: b_start, b_rs and w_pitch, the
+# others through its slices), copied once where the weights are packed
+# under padded_key's name (padded_weights) where the width is not ch
+PAD_KEYS = ('w_start', 'b_start', 'b_rs', 'w_end', 'w_pitch')
+
+
+def padded_key(key: str) -> str:
+    """The name of ``key``'s copy at a body's padded WaveNet width."""
+    return f'{key}_pad'
+
+
 WEIGHT_KEYS = ('an_logs', 'an_bias', 'mix_t', 'w_start', 'b_start', 'w_in',
                'w_rs', 'b_rs', 'w_end', 'b_end')
 COUPLING_WEIGHT_KEYS = WEIGHT_KEYS[3:]         # the coupling's own
@@ -112,13 +428,12 @@ TC_KEYS = {'w_in': 'w_in_tc', 'w_rs': 'w_rs_tc'}
 # passes of the kernels' TF32 products: 3 is the error-compensated 3xTF32
 # (f32 accuracy), 1 a single TF32 pass (3 digits, kept for measuring)
 TF32_PASSES = 3
-# frames of a time tile of every flow kernel (Shipped::TT in
-# csrc/flow_common.cuh) but the bfloat16 builds of flow_step, flow_stack and
+# frames of a time tile of every flow kernel at the shipped shape (the
+# float32 body's) but the bfloat16 builds of flow_step, flow_stack and
 # coupling
-TIME_TILE = 32
-# and of theirs (RingShape::TT in csrc/flow_ring.cuh: with the halo, one
-# 64-row block of wgmma)
-RING_TIME_TILE = 48
+TIME_TILE = geometry(SHIPPED_SHAPE)['time_tile']
+# and of theirs (the ring body's: with the halo, one 64-row block of wgmma)
+RING_TIME_TILE = geometry(SHIPPED_SHAPE, True)['time_tile']
 # the ring body's weights (csrc/flow_ring.cuh::RingWeights): the five
 # products' in ring_layout_bf16, in the kernel's slots of the weights whose
 # layout they hold
@@ -132,13 +447,15 @@ COUPLING_RING_KEYS = tuple(RING_KEYS[key] for key in COUPLING_WEIGHT_KEYS
 # their tensor-core layout (the float32 build's), their ring slices (the
 # bfloat16 build's) and GR's pitch weights, those of them the pack holds
 COUPLING_PACK_KEYS = (*COUPLING_WEIGHT_KEYS, *TC_KEYS.values(),
-                      *COUPLING_RING_KEYS, 'w_pitch')
+                      *COUPLING_RING_KEYS, 'w_pitch',
+                      *(padded_key(key) for key in PAD_KEYS))
 # a ring slice's depth (flow_ring.cuh's kRingDepth: a 128-byte row of B a
 # column), and the columns (rows of B) a warpgroup takes of a 1x1 conv
-# (each output half padded to it) and of a WaveNet product
-RING_DEPTH = 64
-RING_HALF_SMALL = 96
-RING_HALF_BIG = 192
+# (each output half padded to it) and of a WaveNet product, at the shipped
+# shape (geometry gives them at any)
+RING_DEPTH = geometry(SHIPPED_SHAPE, True)['ring_depth']
+RING_HALF_SMALL = geometry(SHIPPED_SHAPE, True)['half_small']
+RING_HALF_BIG = geometry(SHIPPED_SHAPE, True)['half_big']
 # the sources whose bfloat16 builds run the ring body
 RING_SOURCES = ('flow_step.cu', 'flow_stack.cu', 'coupling.cu')
 # for measuring (tools/time_flow.py bars): the ring body's summing depth
@@ -163,69 +480,46 @@ COUPLING_PHASES = ('load', *RING_PHASES[1:-1], 'affine + store')
 TILE_COUNTS = ('live', 'items', 'computed', 'rounds', 'blocks')
 
 
-def pitch_width(channels: int) -> int:
-    """The pitch operand's width at ``channels`` flow channels, num_squeeze:
-    2 at 160, 1 at 80, as ``kPitchSize`` in ``csrc/flow_common.cuh`` works
-    it out from ``GLOW_CHANNELS`` (raises on a width no build takes:
-    ``ROADMAP.md`` B.2)."""
-    if channels not in BUILT_CHANNELS:
-        raise ValueError(f'GR\'s pitch operand is built at '
-                         f'{sorted(BUILT_CHANNELS)} channels, got '
-                         f'{channels} (other widths: ROADMAP.md B.2)')
-    return 2 if channels == SHIPPED_CHANNELS else 1
-
-
-def build_defines(channels: int = SHIPPED_CHANNELS,
-                  pitch: bool = False, bf16: bool = False) -> Tuple[str, ...]:
-    """The macros of a flow kernel's library for ``channels`` flow
-    channels, its pitch instantiation with ``pitch`` (the pitch operand
-    :func:`pitch_width` wide), its bfloat16 build with ``bf16``."""
-    return ((PITCH_BUILD if pitch else ())
-            + (() if channels == SHIPPED_CHANNELS
-               else (f'GLOW_CHANNELS={channels}',))
-            + (BF16_BUILD if bf16 else ()))
-
-
-def build_tag(channels: int, pitch: bool) -> str:
-    """The part of a launch count's name that names the build of
-    ``channels`` (with a pitch operand): ``''`` for the shipped float32
-    build, ``'pitch'`` for its pitch instantiation, ``'c80'`` for the
-    80-channel build and ``'c80_pitch'`` for that build's pitch
-    instantiation (its pitch operand 1 wide)."""
-    return '_'.join(part for part in (
-        '' if channels == SHIPPED_CHANNELS else f'c{channels}',
-        'pitch' if pitch else '') if part)
-
-
-# the launch counts' names of every build (flow width, pitch, bf16):
-# ``launches``, ``pitch_launches``, ..., ``bf16_c80_pitch_launches``, after
-# ``<what>_`` where there is one
+# the launch counts' names of the 160- and 80-channel builds (flow width,
+# pitch, bf16): ``launches``, ``pitch_launches``, ...,
+# ``bf16_c80_pitch_launches``, after ``<what>_`` where there is one; every
+# other build's count is made at its first launch (:func:`count_launches`)
 COUNT_SUFFIXES = tuple('_'.join(part for part in (
     bf16, build_tag(c, pitch), 'launches') if part)
     for bf16 in ('', 'bf16') for c in BUILT_CHANNELS
     for pitch in (False, True))
 
 
-def count_launches(fn, what: str, channels: int, pitch: bool,
-                   count: int = 1, bf16: bool = False) -> None:
-    """Add ``count`` to the launch count of the build of ``channels``
-    (with ``pitch``, at bfloat16 with ``bf16``) on ``fn``:
-    ``fn.<what>_<tag>_launches`` with :func:`build_tag`'s tag (none for
-    the shipped float32 build) and ``bf16_`` before it in a bfloat16 build:
-    ``<what>_launches``, ``<what>_pitch_launches``, ``<what>_c80_launches``,
-    ``<what>_c80_pitch_launches``, ``<what>_bf16_launches``, ...,
-    ``<what>_bf16_c80_pitch_launches`` (no ``what_`` where ``what`` is
-    empty)."""
-    name = '_'.join(part for part in (what, 'bf16' if bf16 else '',
-                                      build_tag(channels, pitch),
-                                      'launches') if part)
-    setattr(fn, name, getattr(fn, name) + count)
+def count_suffix(shape, pitch, bf16: bool = False) -> str:
+    """The launch count's name of a build after ``<what>_``:
+    ``'launches'``, ``'bf16_c200_pitch_launches'``, ..."""
+    return '_'.join(part for part in ('bf16' if bf16 else '',
+                                      build_tag(shape, pitch), 'launches')
+                    if part)
+
+
+def count_launches(fn, what: str, shape, pitch, count: int = 1,
+                   bf16: bool = False) -> None:
+    """Add ``count`` to the launch count of the build of ``shape`` (a
+    :class:`FlowShape` or a flow channel count; with ``pitch``, at
+    bfloat16 with ``bf16``) on ``fn``: ``fn.<what>_<suffix>`` with
+    :func:`count_suffix` (``<what>_launches``, ``<what>_pitch_launches``,
+    ``<what>_c80_launches``, ``<what>_bf16_c200_pitch_launches``, ...; no
+    ``what_`` where ``what`` is empty)."""
+    suffix = count_suffix(shape, pitch, bf16)
+    name = f'{what}_{suffix}' if what else suffix
+    setattr(fn, name, getattr(fn, name, 0) + count)
 
 
 def zero_launch_counts(fn, what: str = '') -> None:
-    """Set every build's launch count of ``what`` on ``fn`` to 0."""
-    for suffix in COUNT_SUFFIXES:
-        setattr(fn, f'{what}_{suffix}' if what else suffix, 0)
+    """Set every build's launch count of ``what`` on ``fn`` to 0: those of
+    :data:`COUNT_SUFFIXES` and any other build's that has counted."""
+    prefix = f'{what}_' if what else ''
+    names = {prefix + suffix for suffix in COUNT_SUFFIXES}
+    names.update(name for name in vars(fn)
+                 if name.startswith(prefix) and name.endswith('launches'))
+    for name in names:
+        setattr(fn, name, 0)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -297,44 +591,90 @@ def ring_layout_bf16(w: torch.Tensor, half_rows: int) -> torch.Tensor:
                             RING_DEPTH).to(torch.bfloat16).contiguous()
 
 
+def pad_gate(w: torch.Tensor, ch_pad: int) -> torch.Tensor:
+    """``w [..., 2ch]`` (a pre-gate's or res/skip's columns: two halves
+    ``ch`` wide) with each half padded with zeros to ``ch_pad``:
+    ``[..., 2 ch_pad]``, half ``h`` at ``h·ch_pad``."""
+    ch = w.shape[-1] // 2
+    halves = w.reshape(*w.shape[:-1], 2, ch)
+    return F.pad(halves, (0, ch_pad - ch)).reshape(*w.shape[:-1], 2 * ch_pad)
+
+
+def pad_rows(w: torch.Tensor, ch_pad: int, axis: int = -2) -> torch.Tensor:
+    """``w`` with its ``axis`` (the WaveNet's ``ch`` channels) padded with
+    zeros to ``ch_pad``."""
+    axis %= w.dim()
+    widths = [0, 0] * (w.dim() - 1 - axis) + [0, ch_pad - w.shape[axis]]
+    return F.pad(w, widths)
+
+
+def padded_wavenet(key: str, w: torch.Tensor, ch_pad: int) -> torch.Tensor:
+    """The weight ``key`` of a flow step (any leading axes) at the WaveNet
+    width ``ch_pad`` (``ch`` padded with zeros: every padded channel of h,
+    the gate, the res/skip sum and the conditioning rows then stays an
+    exact zero, tanh 0 · σ 0 = 0, and z and the logdet are the unpadded
+    computation's): ``w_start [C/2, ch]`` and ``b_start [ch]`` along their
+    last axis, ``w_end [ch, C]`` along its rows, ``w_in [n, k, ch, 2ch]``
+    and ``w_rs [n, ch, 2ch]`` along both, ``b_rs``, ``w_pitch`` and the
+    conditioning rows (``[..., 2ch]``) half by half; the rest as it is."""
+    if key in ('w_start', 'b_start'):
+        return pad_rows(w, ch_pad, -1)
+    if key == 'w_end':
+        return pad_rows(w, ch_pad)
+    if key in ('w_in', 'w_rs'):
+        return pad_gate(pad_rows(w, ch_pad), ch_pad)
+    if key in ('b_rs', 'w_pitch', 'cond'):
+        return pad_gate(w, ch_pad)
+    return w
+
+
+def ring_half(n: int) -> int:
+    """The rows of B a warpgroup takes of a 1x1 conv with ``n`` output
+    columns (two halves): each half padded to 96, or to 192 where it is
+    wider (C/2 up to 128 in the envelope)."""
+    return 96 * -(-(n // 2) // 96)
+
+
 def ring_weights(weights: Weights) -> Dict[str, torch.Tensor]:
     """The ring body's weights (:data:`RING_KEYS`) of those among
     ``mix_t``, ``w_start``, ``w_in`` (gate columns interleaved), ``w_rs``
     and ``w_end`` that ``weights`` hold, any leading axes (a stack of flow
-    steps), in :func:`ring_layout_bf16`: the 1x1 convs' output halves each
-    padded to :data:`RING_HALF_SMALL` columns, the WaveNet products' halves
-    :data:`RING_HALF_BIG` wide.  Computed without gradient."""
-    halves = {'mix_t': RING_HALF_SMALL, 'w_start': RING_HALF_SMALL,
-              'w_in': RING_HALF_BIG, 'w_rs': RING_HALF_BIG,
-              'w_end': RING_HALF_SMALL}
+    steps), in :func:`ring_layout_bf16`: the WaveNet at the ring body's
+    width (:func:`geometry`'s ``ch_pad``, 192: :func:`padded_wavenet`), the
+    mixing's and the end conv's output halves each padded to
+    :func:`ring_half` columns, the start conv's to 96 and the WaveNet
+    products' :data:`RING_HALF_BIG` wide.  Computed without gradient."""
+    ch_pad = RING_HALF_BIG
     with torch.no_grad():
         out = {}
         for key, name in RING_KEYS.items():
             if key not in weights:
                 continue
-            w = weights[key].float()
+            w = padded_wavenet(key, weights[key].float(), ch_pad)
+            half = {'mix_t': ring_half(w.shape[-1]), 'w_start': ch_pad // 2,
+                    'w_in': ch_pad, 'w_rs': ch_pad,
+                    'w_end': ring_half(w.shape[-1])}[key]
             if key == 'w_in':
                 w = interleave_gate(w)
-            out[name] = ring_layout_bf16(w, halves[key])
+            out[name] = ring_layout_bf16(w, half)
         return out
 
 
 def ring_shapes(c: int, n: int, k: int, ch: int) -> Dict[str, tuple]:
     """The shapes of one flow step's :func:`ring_weights` at ``c`` flow
-    channels and the WaveNet's ``n`` layers of ``k`` taps, ``ch`` wide."""
-    def slices(depth):
-        return -(-depth // RING_DEPTH)
-    small, big = 2 * RING_HALF_SMALL, 2 * RING_HALF_BIG
-    return {'mix_ring': (slices(c), small, RING_DEPTH),
-            'start_ring': (slices(c // 2), small, RING_DEPTH),
-            'in_ring': (n, slices(k * ch), big, RING_DEPTH),
-            'rs_ring': (n, slices(ch), big, RING_DEPTH),
-            'end_ring': (slices(ch), small, RING_DEPTH)}
+    channels and the WaveNet's ``n`` layers of ``k`` taps, ``ch`` wide (at
+    the ring body's width :data:`RING_HALF_BIG`, whatever ``ch``)."""
+    g = geometry(FlowShape(c, ch, n, k), True)
+    depth, ch_pad = g['ring_depth'], g['ch_pad']
 
-
-def ring_keys(keys) -> Tuple[str, ...]:
-    """``keys`` as the ring body takes them (:data:`RING_KEYS`)."""
-    return tuple(RING_KEYS.get(key, key) for key in keys)
+    def slices(d):
+        return -(-d // depth)
+    small, big = 2 * g['half_small'], 2 * g['half_big']
+    return {'mix_ring': (slices(c), small, depth),
+            'start_ring': (slices(c // 2), ch_pad, depth),
+            'in_ring': (n, slices(k * ch_pad), big, depth),
+            'rs_ring': (n, slices(ch_pad), big, depth),
+            'end_ring': (slices(ch_pad), small, depth)}
 
 
 def interleave_gate(w_in: torch.Tensor) -> torch.Tensor:
@@ -354,39 +694,60 @@ def tensor_core_weights(w_in: torch.Tensor, w_rs: torch.Tensor,
     :func:`tensor_core_layout` (in :func:`tensor_core_layout_bf16` for the
     bfloat16 builds, ``dtype`` bfloat16), under :data:`TC_KEYS`' names;
     ``w_in [..., n, k, ch, 2ch]``, ``w_rs [..., n, ch, 2ch]``, any leading
-    axes (a stack of flow steps).  Computed without gradient: the kernels
-    have none."""
+    axes (a stack of flow steps), the WaveNet at the float32 body's width
+    (``ch`` padded to a multiple of 64: :func:`padded_wavenet`).  Computed
+    without gradient: the kernels have none."""
     layout = (tensor_core_layout if dtype == torch.float32
               else tensor_core_layout_bf16)
+    ch_pad = _round_up(w_rs.shape[-2], 64)
     with torch.no_grad():
-        w_in, w_rs = w_in.float(), w_rs.float()
+        w_in = padded_wavenet('w_in', w_in.float(), ch_pad)
+        w_rs = padded_wavenet('w_rs', w_rs.float(), ch_pad)
         return {'w_in_tc': layout(interleave_gate(w_in)),
                 'w_rs_tc': layout(w_rs)}
+
+
+def padded_weights(weights: Weights, ch_pad: int) -> Weights:
+    """The kernel's copies (``<key>_pad``, :data:`PAD_KEYS`) of those of
+    ``weights`` that a body reads as they lie, at the WaveNet width
+    ``ch_pad`` (:func:`padded_wavenet`), where that is not ``ch``; none
+    where it is.  Computed without gradient."""
+    if weights['b_start'].shape[-1] == ch_pad:
+        return {}
+    with torch.no_grad():
+        return {padded_key(key): padded_wavenet(key, weights[key].float(),
+                                                ch_pad).contiguous()
+                for key in PAD_KEYS if key in weights}
 
 
 def with_tensor_core_weights(weights: Weights,
                              dtype: torch.dtype = torch.float32) -> Weights:
     """``weights`` with :func:`tensor_core_weights` of ``dtype`` added,
-    unless they carry them already (a pack caches them); for bfloat16 also
-    with :data:`BF16_ROUNDED_KEYS` rounded to it, without gradient."""
+    unless they carry them already (a pack caches them), and the padded
+    copies the float32 body reads (:func:`padded_weights`); for bfloat16
+    also with :data:`BF16_ROUNDED_KEYS` rounded to it, without
+    gradient."""
     tc_dtype = torch.float32 if dtype == torch.float32 else torch.bfloat16
     if all(key in weights and weights[key].dtype == tc_dtype
            for key in TC_KEYS.values()):
         return weights
+    ch_pad = _round_up(weights['w_rs'].shape[-2], 64)
     return rounded_weights({**weights, **tensor_core_weights(
-        weights['w_in'], weights['w_rs'], dtype)}, dtype)
+        weights['w_in'], weights['w_rs'], dtype),
+        **padded_weights(weights, ch_pad)}, dtype)
 
 
 def with_kernel_weights(weights: Weights, dtype: torch.dtype) -> Weights:
     """``weights`` (a flow step's or the coupling's own, float32) as the
     deterministic kernels of ``dtype`` take them, without gradient: at
-    float32 with :func:`tensor_core_weights`, at bfloat16 with
-    :data:`BF16_ROUNDED_KEYS` rounded and the ring body's slices
-    (:func:`ring_weights`) of the products it holds, as
-    ``FlowStep.weights`` packs them."""
+    float32 with :func:`tensor_core_weights` (and :func:`padded_weights`),
+    at bfloat16 with :data:`BF16_ROUNDED_KEYS` rounded, the ring body's
+    slices (:func:`ring_weights`) of the products it holds and the padded
+    copies at its width, as ``FlowStep.weights`` packs them."""
     if dtype == torch.float32:
         return with_tensor_core_weights(weights)
-    return rounded_weights({**weights, **ring_weights(weights)}, dtype)
+    return rounded_weights({**weights, **ring_weights(weights),
+                            **padded_weights(weights, RING_HALF_BIG)}, dtype)
 
 
 def rounded_weights(weights: Weights, dtype: torch.dtype) -> Weights:
@@ -629,32 +990,37 @@ def flow_stack_reference(x: torch.Tensor, mask: torch.Tensor,
 
 def _weight_shapes(c: int, n: int, k: int, ch: int,
                    dtype: torch.dtype = torch.float32) -> Dict[str, tuple]:
-    """The shapes of one flow step's weights: those of ``WEIGHT_KEYS`` and
-    the tensor-core layout of ``w_in`` and ``w_rs`` (a kernel of ``dtype``
-    reads 8- or, in bfloat16, 16-deep blocks)."""
+    """The shapes of one flow step's weights at the WaveNet width ``ch``:
+    those of ``WEIGHT_KEYS``, the tensor-core layout of ``w_in`` and
+    ``w_rs`` (a kernel of ``dtype`` reads 8- or, in bfloat16, 16-deep
+    blocks) and the padded copies (:data:`PAD_KEYS`)."""
     depth = 8 if dtype == torch.float32 else 16
     return {'an_logs': (c,), 'an_bias': (c,), 'mix_t': (c, c),
             'w_start': (c // 2, ch), 'b_start': (ch,),
             'w_in': (n, k, ch, 2 * ch), 'w_rs': (n, ch, 2 * ch),
             'w_in_tc': (n, k * ch // depth, ch // 4, 32, 4),
             'w_rs_tc': (n, ch // depth, ch // 4, 32, 4),
+            **{padded_key(key): shape for key, shape in (
+                ('w_start', (c // 2, ch)), ('b_start', (ch,)),
+                ('b_rs', (n, 2 * ch)), ('w_end', (ch, c)))},
             'b_rs': (n, 2 * ch), 'w_end': (ch, c), 'b_end': (c,)}
 
 
-def _check_launch(name: str, x: torch.Tensor, channels: int,
-                  w_in_shape: Tuple[int, ...],
+def _check_launch(name: str, x: torch.Tensor,
                   tensors: Dict[str, Tuple[torch.Tensor, tuple]],
                   views: Optional[Dict[str, Tuple[torch.Tensor,
                                                   tuple]]] = None,
-                  dtypes: Optional[Dict[str, torch.dtype]] = None) -> None:
+                  dtypes: Optional[Dict[str, torch.dtype]] = None,
+                  load_bytes: int = 16) -> None:
     """What every kernel of this module asks of a CUDA call: no tensor that
-    requires grad, the shipped widths, and each of ``tensors`` (name →
-    (tensor, shape)) a contiguous tensor of its shape on ``x``'s device,
-    float32 unless ``dtypes`` names another for it.  ``views`` (of
-    ``dtypes`` too) may be slices of a wider tensor's channels: unit stride
-    along the channels, every other stride and the address a multiple of 16
-    bytes (4 float32 elements, 8 bfloat16), as the kernels' 16-byte loads
-    need.  Raises otherwise."""
+    requires grad, and each of ``tensors`` (name → (tensor, shape)) a
+    contiguous tensor of its shape on ``x``'s device, float32 unless
+    ``dtypes`` names another for it.  ``views`` (of ``dtypes`` too) may be
+    slices of a wider tensor's channels: unit stride along the channels,
+    every other stride and the address a multiple of ``load_bytes``, the
+    width of the build's loads of a half (:func:`half_load_bytes`: 16
+    bytes, 8 where a bfloat16 half's rows are not a multiple of 16 bytes).
+    Raises otherwise."""
     views = views or {}
     dtypes = dtypes or {}
     if x.device.type != 'cuda':
@@ -666,7 +1032,6 @@ def _check_launch(name: str, x: torch.Tensor, channels: int,
             f'{name}: the CUDA kernel has no backward; run it under '
             'torch.no_grad() or on detached tensors, or train through '
             'ops.coupling_grad.flow_stack_train')
-    check_shape(name, channels, w_in_shape)
     for key, (tensor, shape) in tensors.items():
         dtype = dtypes.get(key, torch.float32)
         if (tensor.device != x.device or tensor.dtype != dtype
@@ -678,97 +1043,145 @@ def _check_launch(name: str, x: torch.Tensor, channels: int,
                 f'{tuple(tensor.shape)} {tensor.dtype} on {tensor.device}')
     for key, (view, shape) in views.items():
         dtype = dtypes.get(key, torch.float32)
-        # a 16-byte load's elements at this dtype
-        chunk = 16 // view.element_size()
+        # a load's elements at this dtype
+        chunk = load_bytes // view.element_size()
         if (view.device != x.device or view.dtype != dtype
                 or tuple(view.shape) != tuple(shape) or view.stride(-1) != 1
                 or any(stride % chunk for stride in view.stride()[:-1])
-                or view.data_ptr() % 16):
+                or view.data_ptr() % load_bytes):
             raise ValueError(
                 f'{name}: {key} must be a {dtype} tensor of shape '
                 f'{tuple(shape)} on {x.device} with unit stride along the '
-                f'channels and rows aligned to {chunk} elements (16 bytes); '
-                f'got {tuple(view.shape)} {view.dtype} strides '
-                f'{view.stride()} at byte {view.data_ptr() % 16} of 16 on '
+                f'channels and rows aligned to {chunk} elements '
+                f'({load_bytes} bytes); got {tuple(view.shape)} '
+                f'{view.dtype} strides {view.stride()} at byte '
+                f'{view.data_ptr() % load_bytes} of {load_bytes} on '
                 f'{view.device}')
 
 
+def half_load_bytes(channels: int, bf16: bool) -> int:
+    """The bytes a build loads of a half's row at a time (``csrc/
+    flow_ring.cuh::RingShape::VEC``; the float32 body's 16-byte float4):
+    16, or 8 in a bfloat16 build whose halves are C/2 ≡ 4 (mod 8) wide."""
+    return 8 if bf16 and (channels // 2) % 8 else 16
+
+
 def check_shape(name: str, channels: int, w_in_shape: Tuple[int, ...],
-                pitch_size: int = 0) -> None:
-    """Raise unless a build of :data:`KERNEL_SHAPES` takes ``channels``
-    flow channels and ``w_in [n, k, ch, 2ch]``, and, with a pitch operand
-    ``pitch_size`` wide, that width is the one of ``channels``
-    (:func:`pitch_width`: num_squeeze, 2 at 160 channels, 1 at 80)."""
-    n, k, ch, _ = w_in_shape
-    got = {'channels': channels, 'ch': ch, 'n_layers': n, 'kernel_size': k}
-    if got not in KERNEL_SHAPES:
-        raise ValueError(f'{name} kernel is built for {list(KERNEL_SHAPES)}, '
-                         f'got {got} (other widths: ROADMAP.md B.2)')
-    if pitch_size and pitch_size != pitch_width(channels):
+                pitch_size: int = 0, bf16: Optional[bool] = None
+                ) -> FlowShape:
+    """The :class:`FlowShape` of ``channels`` flow channels and ``w_in [n,
+    k, ch, 2ch]``, or raise naming ``ROADMAP.md`` B.2 unless the
+    deterministic kernels build for it (:func:`check_envelope`; with
+    ``bf16`` given, within a block's shared memory at that dtype and
+    ``pitch_size``)."""
+    return check_envelope(name, shape_of(channels, w_in_shape), pitch_size,
+                          bf16)
+
+
+def check_train_shape(name: str, channels: int, w_in_shape: Tuple[int, ...],
+                      pitch_size: int = 0) -> None:
+    """Raise unless the train kernels (#5, #6) are built for ``channels``
+    flow channels and ``w_in [n, k, ch, 2ch]``: :data:`SHIPPED_SHAPES`, the
+    pitch operand ``pitch_size`` wide the one of that build
+    (:data:`SHIPPED_PITCH_SIZE`: 2 at 160 channels, 1 at 80).  Other
+    shapes are ``ROADMAP.md`` B.2's train half; nothing falls back to the
+    plain version on the card."""
+    shape = shape_of(channels, w_in_shape)
+    if shape not in SHIPPED_SHAPES:
         raise ValueError(
-            f'{name}: GR\'s pitch operand is num_squeeze wide, '
-            f'{pitch_width(channels)} at {channels} channels; got '
-            f'{pitch_size}')
+            f'{name}: the train kernels (#5, #6) are built for '
+            f'{[tuple(s) for s in SHIPPED_SHAPES]}, got {tuple(shape)} '
+            '(other shapes: ROADMAP.md B.2, the train half: #5 and #6 at '
+            'other shapes are the next slice)')
+    if pitch_size and pitch_size != SHIPPED_PITCH_SIZE[shape.channels]:
+        raise ValueError(
+            f'{name}: the train kernels take a pitch operand '
+            f'{SHIPPED_PITCH_SIZE[shape.channels]} wide at {shape.channels} '
+            f'channels, got {pitch_size} (ROADMAP.md B.2, the train half)')
+
+
+def kernel_key(key: str, bf16: bool, padded: bool) -> str:
+    """The name in a pack of what a kernel reads for ``key``: the ring
+    body's slices (bfloat16), the tensor-core layout (float32), the padded
+    copy where the body's WaveNet width is not ``ch``, or ``key``."""
+    if bf16 and key in RING_KEYS:
+        return RING_KEYS[key]
+    if not bf16 and key in TC_KEYS:
+        return TC_KEYS[key]
+    if padded and key in PAD_KEYS:
+        return padded_key(key)
+    return key
 
 
 def _check_weights(name: str, x: torch.Tensor, pitch, channels: int,
                    weights: Weights,
                    tensors: Dict[str, Tuple[torch.Tensor, tuple]],
-                   shapes: Dict[str, tuple], steps: Optional[int] = None,
+                   keys: Tuple[str, ...], steps: Optional[int] = None,
                    views=None, dtypes=None,
-                   dtype: torch.dtype = torch.float32,
-                   ring: bool = False) -> None:
-    """:func:`_check_launch` on ``tensors`` (of ``dtypes``), the f32
-    ``weights`` of ``shapes`` and their tensor-core layout for a kernel of
-    ``dtype`` (with ``ring``, the ring body's :func:`ring_weights` of the
-    products among ``shapes``), which ``weights`` must carry: it is made
-    once, where the weights are packed, not at every launch.  With a
-    ``pitch [B, T, ps]`` operand (``ps`` the width of ``channels``,
-    :func:`pitch_width`), ``weights`` carry ``w_pitch [(S,) n, ps, 2ch]``
-    too."""
+                   dtype: torch.dtype = torch.float32
+                   ) -> Tuple[Dict[str, str], Dict[str, int]]:
+    """:func:`_check_launch` on ``tensors`` (of ``dtypes``) and on what the
+    kernel of ``dtype`` reads of the weights ``keys`` (with ``ld_const``:
+    one a step, forward), after :func:`check_shape` at that dtype: the
+    ring body's :func:`ring_weights` (bfloat16) or the tensor-core layout
+    (float32) of its products, the padded copies
+    (:func:`padded_weights`) where its WaveNet width is not ``ch``, the
+    rest as they are.  ``weights`` must carry them: they are made once,
+    where the weights are packed, not at every launch.  With a ``pitch [B,
+    T, ps]`` operand (``ps`` num_squeeze), ``weights`` carry ``w_pitch
+    [(S,) n, ps, 2ch]`` too.  Returns ``(names, geometry)``: each key's
+    name in the pack (:func:`kernel_key`), ``w_pitch`` among them with a
+    pitch operand, and the build's :func:`geometry`."""
     w_in_shape = weights['w_in'].shape[0 if steps is None else 1:]
     lead = () if steps is None else (steps,)
     ps = 0 if pitch is None else pitch.shape[-1]
-    check_shape(name, channels, w_in_shape, ps)
+    bf16 = dtype != torch.float32
+    shape = check_shape(name, channels, w_in_shape, ps, bf16)
+    g = geometry(shape, bf16, ps)
+    c, ch, n, k = shape
+    padded = g['ch_pad'] != ch
+    keys = tuple(keys)
     tensors = dict(tensors)
-    shapes = dict(shapes)
     if pitch is not None:
         if 'w_pitch' not in weights:
             raise ValueError(f'{name}: a pitch operand needs w_pitch among '
                              'the weights')
         b, t = tensors['mask'][1][:2]
-        n, _, _, ch2 = w_in_shape
         tensors['pitch'] = (pitch, (b, t, ps))
-        shapes['w_pitch'] = lead + (n, ps, ch2)
-    _check_launch(name, x, channels, w_in_shape, {
-        **tensors,
-        **{key: (weights[key], shape) for key, shape in shapes.items()}},
-        views, dtypes)
-    n, k, ch, _ = w_in_shape
-    if ring:
-        keys = ring_keys(key for key in shapes if key in RING_KEYS)
-        missing = [key for key in keys if key not in weights]
-        if missing:
-            raise ValueError(
-                f'{name}: the weights lack {missing}, the ring body\'s '
-                'slices; lay them out once where the weights are packed '
-                '(with_kernel_weights; FlowStep.weights caches them)')
-        _check_launch(name, x, channels, w_in_shape, {
-            key: (weights[key], lead + ring_shapes(channels, n, k, ch)[key])
-            for key in keys}, dtypes=dict.fromkeys(keys, torch.bfloat16))
-        return
-    missing = [key for key in TC_KEYS.values() if key not in weights]
+        keys += ('w_pitch',)
+    names = {key: kernel_key(key, bf16, padded) for key in keys}
+    # the shapes of one step's weights at the body's WaveNet width
+    shapes = {**_weight_shapes(c, n, k, g['ch_pad'], dtype),
+              'w_pitch': (n, ps, 2 * g['ch_pad']), 'ld_const': ()}
+    if bf16:
+        shapes.update(ring_shapes(c, n, k, ch))
+    missing = [names[key] for key in keys if names[key] not in weights]
     if missing:
         raise ValueError(
-            f'{name}: the weights lack {missing}, w_in and w_rs split for '
-            'the tensor cores; split them once where the weights are packed '
-            '(with_tensor_core_weights; FlowStep.pack caches them)')
-    tc_dtype = torch.float32 if dtype == torch.float32 else torch.bfloat16
-    _check_launch(name, x, channels, w_in_shape, {
-        key: (weights[key],
-              lead + _weight_shapes(channels, n, k, ch, dtype)[key])
-        for key in TC_KEYS.values()},
-        dtypes=dict.fromkeys(TC_KEYS.values(), tc_dtype))
+            f'{name}: the weights lack {missing}; lay them out once where '
+            'the weights are packed (with_kernel_weights; FlowStep.weights '
+            'caches them)')
+    kernel_dtypes = {**dict.fromkeys(RING_KEYS.values(), torch.bfloat16),
+                     **dict.fromkeys(TC_KEYS.values(), torch.float32
+                                     if not bf16 else torch.bfloat16),
+                     **(dtypes or {})}
+    _check_launch(name, x, {
+        **tensors,
+        **{names[key]: (weights[names[key]],
+                        lead + shapes[names[key] if names[key] in shapes
+                                      else key])
+           for key in keys}}, views, kernel_dtypes,
+        half_load_bytes(c, bf16))
+    return names, g
+
+
+def kernel_cond(cond: torch.Tensor, ch_pad: int) -> torch.Tensor:
+    """The conditioning rows ``[..., 2ch]`` as a body of WaveNet width
+    ``ch_pad`` reads them: each half padded with zeros (a copy) where
+    that is not ``ch``."""
+    if cond.shape[-1] == 2 * ch_pad:
+        return cond
+    return padded_wavenet('cond', cond, ch_pad).contiguous()
 
 
 def tile_report(device) -> torch.Tensor:
@@ -790,12 +1203,14 @@ def tile_report_pointer(name: str, tiles: Optional[torch.Tensor],
     return tiles.data_ptr()
 
 
-def _pitch_pointers(pitch: Optional[torch.Tensor],
-                    weights: Weights) -> Tuple[Optional[int], Optional[int]]:
-    """The addresses of the pitch operand and of ``w_pitch``, or NULLs."""
+def _pitch_pointers(pitch: Optional[torch.Tensor], weights: Weights,
+                    names: Dict[str, str]
+                    ) -> Tuple[Optional[int], Optional[int]]:
+    """The addresses of the pitch operand and of the kernel's ``w_pitch``
+    (its name in ``names``), or NULLs."""
     if pitch is None:
         return None, None
-    return pitch.data_ptr(), weights['w_pitch'].data_ptr()
+    return pitch.data_ptr(), weights[names['w_pitch']].data_ptr()
 
 
 def _raise_on(name: str, lib: ctypes.CDLL, err: int) -> None:
@@ -844,23 +1259,29 @@ def _flow_step_kernel(x, mask, weights, cond, reverse=False, pitch=None,
     n, k, ch, ch2 = weights['w_in'].shape
     bf16 = x.dtype == torch.bfloat16
     dtype = x.dtype if bf16 else torch.float32
-    shapes = {key: _weight_shapes(c, n, k, ch)[key] for key in WEIGHT_KEYS}
-    if not reverse:
-        shapes['ld_const'] = ()
-    _check_weights('flow_step', x, pitch, c, weights, {
-        'x': (x, (b, t, c)), 'mask': (mask, (b, t, 1)),
-        'cond': (cond, (n, b, ch2))}, shapes, dtypes={'x': dtype},
-        dtype=dtype, ring=bf16)
+    names, g = _check_weights(
+        'flow_step', x, pitch, c, weights, {
+            'x': (x, (b, t, c)), 'mask': (mask, (b, t, 1)),
+            'cond': (cond, (n, b, ch2))},
+        WEIGHT_KEYS + (() if reverse else ('ld_const',)),
+        dtypes={'x': dtype}, dtype=dtype)
+    shape = FlowShape(c, ch, n, k)
     if passes not in (1, 3) or (bf16 and passes != 3):
         raise ValueError(f'flow_step: passes is 1 or 3 (3 at bfloat16), '
                          f'got {passes}')
+    if (clocks is not None or passes == 1) and shape not in SHIPPED_SHAPES:
+        raise ValueError('flow_step: the measuring instantiations (one TF32 '
+                         'pass, the timed one) are built at the shipped '
+                         f'shapes {[tuple(s) for s in SHIPPED_SHAPES]}')
     if clocks is not None and not bf16:
         raise ValueError('flow_step: the timed instantiation is the '
                          'bfloat16 build\'s')
     tiles_ptr = tile_report_pointer('flow_step', tiles, x)
     cond, pitch = _rounded_operands(cond, pitch, dtype)
+    cond = kernel_cond(cond, g['ch_pad'])
+    ps = 0 if pitch is None else pitch.shape[-1]
 
-    lib = load_flow_step_library(pitch is not None, c, bf16)
+    lib = load_flow_step_library(ps, shape, bf16)
     z = torch.empty_like(x)
     ld_part = ld_ptr = part_ptr = None          # NULL: unused on reverse
     if not reverse:
@@ -870,10 +1291,9 @@ def _flow_step_kernel(x, mask, weights, cond, reverse=False, pitch=None,
         ld_part = torch.empty((b, n_tiles), device=x.device)
         ld_ptr = weights['ld_const'].data_ptr()
         part_ptr = ld_part.data_ptr()
-    keys = ring_keys(WEIGHT_KEYS) if bf16 else kernel_keys(WEIGHT_KEYS)
-    inputs = [x, mask, cond] + [weights[key] for key in keys]
+    inputs = [x, mask, cond] + [weights[names[key]] for key in WEIGHT_KEYS]
     pointers = [*[p.data_ptr() for p in inputs[:3]],
-                *_pitch_pointers(pitch, weights),
+                *_pitch_pointers(pitch, weights, names),
                 *[p.data_ptr() for p in inputs[3:]], ld_ptr, z.data_ptr(),
                 part_ptr, tiles_ptr, b, t, int(reverse)]
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -883,7 +1303,7 @@ def _flow_step_kernel(x, mask, weights, cond, reverse=False, pitch=None,
     else:
         _raise_on('flow_step', lib, lib.glow_flow_step_f32(
             *pointers, passes, stream))
-        count_launches(flow_step, '', c, pitch is not None, bf16=bf16)
+        count_launches(flow_step, '', shape, ps, bf16=bf16)
     return z, (None if ld_part is None else ld_part.sum(dim=1))
 
 
@@ -893,7 +1313,9 @@ def flow_step_phases(x, mask, weights, cond, reverse=False, pitch=None):
     cycles a computed tile spends in each of :data:`RING_PHASES`, the
     tiles and rounds the launch reports, and the SM clock in GHz (cycles
     over ``%globaltimer`` ns, over the blocks' whole runs)."""
-    lib = load_flow_step_library(pitch is not None, x.shape[-1], True)
+    lib = load_flow_step_library(
+        0 if pitch is None else pitch.shape[-1],
+        shape_of(x.shape[-1], weights['w_in'].shape), True)
     return _phases('flow_step', lib, x.device, x.shape[0], RING_PHASES,
                    lambda tiles, clocks: _flow_step_kernel(
                        x, mask, weights, cond, reverse, pitch, tiles=tiles,
@@ -932,22 +1354,25 @@ def _coupling_kernel(x_a, x_b, mask, weights, cond, pitch=None,
     n, k, ch, ch2 = weights['w_in'].shape
     bf16 = x_a.dtype == torch.bfloat16
     dtype = x_a.dtype if bf16 else torch.float32
-    shapes = {key: _weight_shapes(2 * c2, n, k, ch)[key]
-              for key in COUPLING_WEIGHT_KEYS}
-    _check_weights(
+    names, g = _check_weights(
         'coupling', x_a, pitch, 2 * c2, weights,
-        {'mask': (mask, (b, t, 1)), 'cond': (cond, (n, b, ch2))}, shapes,
+        {'mask': (mask, (b, t, 1)), 'cond': (cond, (n, b, ch2))},
+        COUPLING_WEIGHT_KEYS,
         views={'x_a': (x_a, (b, t, c2)), 'x_b': (x_b, (b, t, c2))},
-        dtypes={'x_a': dtype, 'x_b': dtype}, dtype=dtype, ring=bf16)
+        dtypes={'x_a': dtype, 'x_b': dtype}, dtype=dtype)
+    shape = FlowShape(2 * c2, ch, n, k)
     if clocks is not None and not bf16:
         raise ValueError('coupling: the timed instantiation is the '
                          'bfloat16 build\'s')
-    own = (ring_keys(COUPLING_WEIGHT_KEYS) if bf16
-           else kernel_keys(COUPLING_WEIGHT_KEYS))
+    if clocks is not None and shape not in SHIPPED_SHAPES:
+        raise ValueError('coupling: the timed instantiation is built at the '
+                         f'shipped shapes {[tuple(s) for s in SHIPPED_SHAPES]}')
     tiles_ptr = tile_report_pointer('coupling', tiles, x_a)
     cond, pitch = _rounded_operands(cond, pitch, dtype)
+    cond = kernel_cond(cond, g['ch_pad'])
+    ps = 0 if pitch is None else pitch.shape[-1]
 
-    lib = load_coupling_library(pitch is not None, 2 * c2, bf16)
+    lib = load_coupling_library(ps, shape, bf16)
     z_b = torch.empty((b, t, c2), device=x_a.device, dtype=dtype)
     ld_part = None                              # NULL: unused on reverse
     if not reverse:
@@ -956,8 +1381,9 @@ def _coupling_kernel(x_a, x_b, mask, weights, cond, pitch=None,
     pointers = [
         x_a.data_ptr(), x_a.stride(0), x_a.stride(1),
         x_b.data_ptr(), x_b.stride(0), x_b.stride(1),
-        mask.data_ptr(), cond.data_ptr(), *_pitch_pointers(pitch, weights),
-        *[weights[key].data_ptr() for key in own],
+        mask.data_ptr(), cond.data_ptr(),
+        *_pitch_pointers(pitch, weights, names),
+        *[weights[names[key]].data_ptr() for key in COUPLING_WEIGHT_KEYS],
         z_b.data_ptr(), None if ld_part is None else ld_part.data_ptr(),
         tiles_ptr, b, t, int(reverse)]
     stream = torch.cuda.current_stream(x_a.device).cuda_stream
@@ -966,7 +1392,7 @@ def _coupling_kernel(x_a, x_b, mask, weights, cond, pitch=None,
             *pointers, stream, clocks.data_ptr()))
     else:
         _raise_on('coupling', lib, lib.glow_coupling_f32(*pointers, stream))
-        count_launches(coupling, '', 2 * c2, pitch is not None, bf16=bf16)
+        count_launches(coupling, '', shape, ps, bf16=bf16)
     return z_b, (None if ld_part is None else ld_part.sum(dim=1))
 
 
@@ -1005,7 +1431,9 @@ def coupling_phases(x_a, x_b, mask, weights, cond, pitch=None,
     """The bfloat16 ``coupling``'s timed instantiation (CUDA bfloat16
     halves; not counted): ``(z_b, logdet, phases)``, ``phases`` as
     :func:`flow_step_phases`' over :data:`COUPLING_PHASES`."""
-    lib = load_coupling_library(pitch is not None, 2 * x_a.shape[-1], True)
+    lib = load_coupling_library(
+        0 if pitch is None else pitch.shape[-1],
+        shape_of(2 * x_a.shape[-1], weights['w_in'].shape), True)
     return _phases('coupling', lib, x_a.device, x_a.shape[0],
                    COUPLING_PHASES,
                    lambda tiles, clocks: _coupling_kernel(
@@ -1040,18 +1468,19 @@ def _flow_stack_kernel(x, mask, weights, cond, pitch=None, reverse=False,
     steps, n, k, ch, ch2 = weights['w_in'].shape
     bf16 = x.dtype == torch.bfloat16
     dtype = x.dtype if bf16 else torch.float32
-    shapes = {key: (steps, *_weight_shapes(c, n, k, ch)[key])
-              for key in WEIGHT_KEYS}
-    if not reverse:
-        shapes['ld_const'] = (steps,)
-    _check_weights('flow_stack', x, pitch, c, weights, {
-        'x': (x, (b, t, c)), 'mask': (mask, (b, t, 1)),
-        'cond': (cond, (steps, n, b, ch2))}, shapes, steps=steps,
-        dtypes={'x': dtype}, dtype=dtype, ring=bf16)
+    names, g = _check_weights(
+        'flow_stack', x, pitch, c, weights, {
+            'x': (x, (b, t, c)), 'mask': (mask, (b, t, 1)),
+            'cond': (cond, (steps, n, b, ch2))},
+        WEIGHT_KEYS + (() if reverse else ('ld_const',)), steps=steps,
+        dtypes={'x': dtype}, dtype=dtype)
+    shape = FlowShape(c, ch, n, k)
     tiles_ptr = tile_report_pointer('flow_stack', tiles, x)
     cond, pitch = _rounded_operands(cond, pitch, dtype)
+    cond = kernel_cond(cond, g['ch_pad'])
+    ps = 0 if pitch is None else pitch.shape[-1]
 
-    lib = load_flow_stack_library(pitch is not None, c, bf16)
+    lib = load_flow_stack_library(ps, shape, bf16)
     n_tiles = -(-t // lib.glow_flow_stack_time_tile())
     # the steps go to and fro between two buffers (a step's neighbours may
     # still be reading its input), the last one into z
@@ -1066,45 +1495,74 @@ def _flow_stack_kernel(x, mask, weights, cond, pitch=None, reverse=False,
         # kernel and over the tiles below, in a fixed order
         ld_part = torch.empty((b, n_tiles), device=x.device)
         ld_ptr = weights['ld_const'].data_ptr()
-    keys = ring_keys(WEIGHT_KEYS) if bf16 else kernel_keys(WEIGHT_KEYS)
-    inputs = [x, mask, cond] + [weights[key] for key in keys]
+    inputs = [x, mask, cond] + [weights[names[key]] for key in WEIGHT_KEYS]
     _raise_on('flow_stack', lib, lib.glow_flow_stack_f32(
-        *[p.data_ptr() for p in inputs[:3]], *_pitch_pointers(pitch, weights),
+        *[p.data_ptr() for p in inputs[:3]],
+        *_pitch_pointers(pitch, weights, names),
         *[p.data_ptr() for p in inputs[3:]], ld_ptr, z.data_ptr(),
         None if other is None else other.data_ptr(),
         None if ld_part is None else ld_part.data_ptr(), done.data_ptr(),
         tiles_ptr, b, t, steps, int(reverse),
         torch.cuda.current_stream(x.device).cuda_stream))
-    count_launches(flow_stack, '', c, pitch is not None, bf16=bf16)
+    count_launches(flow_stack, '', shape, ps, bf16=bf16)
     return z, (None if ld_part is None else ld_part.sum(dim=1))
 
 
 zero_launch_counts(flow_stack)
 
 
-def load_flow_library(source: str, pitch: bool = False,
-                      channels: int = SHIPPED_CHANNELS,
+def load_flow_library(source: str, pitch=False, channels=SHIPPED_CHANNELS,
                       bf16: bool = False) -> ctypes.CDLL:
     """Build (at first use) and load the flow kernel source ``csrc/
-    <source>`` for ``channels`` flow channels (its pitch instantiation with
-    ``pitch``, for the pitch operand's width at ``channels``; its bfloat16
-    build with ``bf16``, the ring body's at :data:`RING_SUM_DEPTH` where
-    that is set), held to the width it reports."""
+    <source>`` for ``channels`` (a :class:`FlowShape`, or a flow channel
+    count at the shipped WaveNet; its pitch instantiation with ``pitch``:
+    True or the operand's width, :func:`pitch_size`; its bfloat16 build
+    with ``bf16``, the ring body's at :data:`RING_SUM_DEPTH` where that is
+    set), held to the width it reports and, for the deterministic kernels'
+    sources (:data:`GEOMETRY_SOURCES`), to the :func:`geometry` it was
+    compiled with: raises on any difference."""
     from glow_tts_tpu_torch.ops.cuda_build import load_library
-    defines = build_defines(channels, pitch, bf16)
+    shape = as_shape(channels)
+    defines = build_defines(shape, pitch, bf16)
     if bf16 and source in RING_SOURCES and RING_SUM_DEPTH is not None:
         defines += (f'GLOW_RING_SUM_DEPTH={RING_SUM_DEPTH}',)
     lib = load_library(source, defines)
     lib.glow_flow_channels.argtypes = []
     lib.glow_flow_channels.restype = ctypes.c_int
-    if lib.glow_flow_channels() != channels:
-        raise RuntimeError(f'{source}: the library built for {channels} '
-                           f'channels reports {lib.glow_flow_channels()}')
+    if lib.glow_flow_channels() != shape.channels:
+        raise RuntimeError(f'{source}: the library built for '
+                           f'{shape.channels} channels reports '
+                           f'{lib.glow_flow_channels()}')
+    if source in GEOMETRY_SOURCES:
+        ps = pitch_size(shape, pitch)
+        want = {**shape._asdict(), 'pitch_size': ps,
+                **geometry(shape, bf16, ps)}
+        got = library_geometry(lib)
+        wrong = {key: (got[key], want[key]) for key in GEOMETRY_FIELDS
+                 if got[key] != want[key]}
+        if wrong:
+            raise RuntimeError(
+                f'{source} {" ".join(defines)}: the library\'s geometry '
+                f'differs from ops/coupling.py::geometry\'s (field: '
+                f'(library, Python)): {wrong}')
     return lib
 
 
-def _load(source: str, entry: str, argtypes: list, pitch: bool = False,
-          channels: int = SHIPPED_CHANNELS,
+def library_geometry(lib: ctypes.CDLL) -> Dict[str, int]:
+    """What a deterministic flow library reports of its build
+    (``glow_flow_geometry``: :data:`GEOMETRY_FIELDS`)."""
+    out = (ctypes.c_int * len(GEOMETRY_FIELDS))()
+    lib.glow_flow_geometry.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.glow_flow_geometry.restype = ctypes.c_int
+    written = lib.glow_flow_geometry(out, len(GEOMETRY_FIELDS))
+    if written != len(GEOMETRY_FIELDS):
+        raise RuntimeError(f'the library reports {written} geometry fields, '
+                           f'ops/coupling.py reads {len(GEOMETRY_FIELDS)}')
+    return dict(zip(GEOMETRY_FIELDS, out))
+
+
+def _load(source: str, entry: str, argtypes: list, pitch=False,
+          channels=SHIPPED_CHANNELS,
           extra: Tuple[Tuple[str, list], ...] = (),
           bf16: bool = False) -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/<source>`` for ``channels``
@@ -1127,8 +1585,7 @@ def _load(source: str, entry: str, argtypes: list, pitch: bool = False,
 
 
 @functools.cache
-def load_flow_step_library(pitch: bool = False,
-                           channels: int = SHIPPED_CHANNELS,
+def load_flow_step_library(pitch=False, channels=SHIPPED_CHANNELS,
                            bf16: bool = False) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib = _load('flow_step.cu', 'glow_flow_step_f32',
@@ -1146,8 +1603,7 @@ def load_flow_step_library(pitch: bool = False,
 
 
 @functools.cache
-def load_coupling_library(pitch: bool = False,
-                          channels: int = SHIPPED_CHANNELS,
+def load_coupling_library(pitch=False, channels=SHIPPED_CHANNELS,
                           bf16: bool = False) -> ctypes.CDLL:
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     args = ([vp, ll, ll] * 2 + [vp] * (4 + len(COUPLING_WEIGHT_KEYS) + 3)
@@ -1164,8 +1620,7 @@ def load_coupling_library(pitch: bool = False,
 
 
 @functools.cache
-def load_flow_stack_library(pitch: bool = False,
-                            channels: int = SHIPPED_CHANNELS,
+def load_flow_stack_library(pitch=False, channels=SHIPPED_CHANNELS,
                             bf16: bool = False) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return _load('flow_stack.cu', 'glow_flow_stack_f32',

@@ -90,7 +90,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from glow_tts_tpu_torch.ops import dropmask
-from glow_tts_tpu_torch.ops.coupling import (SHIPPED_CHANNELS, check_shape,
+from glow_tts_tpu_torch.ops.coupling import (SHIPPED_CHANNELS,
+                                             check_train_shape,
                                              count_launches, kernel_keys,
                                              load_flow_library, tf32_round,
                                              tile_report_pointer,
@@ -534,7 +535,7 @@ def _check_cuda_inputs(x, mask, weights, cond, pitch) -> None:
     b, t, c = x.shape
     s_steps, n, k, ch, ch2 = weights['w_in'].shape
     ps = 0 if pitch is None else pitch.shape[-1]
-    check_shape('flow_stack_train', c, (n, k, ch, ch2), ps)
+    check_train_shape('flow_stack_train', c, (n, k, ch, ch2), ps)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f'flow_stack_train: x must be float32 or bfloat16, '
                          f'got {x.dtype} (ROADMAP.md A.5)')

@@ -17,7 +17,10 @@ and ``chip_smoke.py`` are the ones measured, this file only drives them.
 
 The first form.  For each build asked for (``c160``: the shipped YAML;
 ``c160_pitch``: GR's; ``c80``: MiniSpeech's; ``c80_pitch``: GR at
-Num_Squeeze 1; default all four), on a model of that config with random
+Num_Squeeze 1; default all four; or a shape of ROADMAP B.2 where the
+tree's ``chip_smoke.py`` names it in ``B2_SHAPES``: ``c200`` for 100-bin
+mels, ``c200_pitch``, ``c16_ch16_l2_k5``, ``c160_ch128_l16_k3``), on a
+model of that config with random
 weights after its ActNorm init: #3, #4 and #2 bf16 in both directions, at
 B = 32 x T = 512 with every frame valid and on the eval batch's ragged
 lengths, each against its bf16 plain version (``chip_smoke.py``'s bar; #4
@@ -64,7 +67,10 @@ def problem(cs, build, device, root):
     from glow_tts_tpu_torch.models.decoder import squeeze
     from glow_tts_tpu_torch.models.layers import sequence_mask
     from glow_tts_tpu_torch.training.step import conditioning_inputs
-    if build == 'c160':
+    if build in getattr(cs, 'B2_SHAPES', {}):
+        config = cs.b2_config(build, 'bfloat16')
+        batch = cs.conditioned_batch(config, device, cs.SEED + 160)
+    elif build == 'c160':
         config = load_config(cs.CONFIG)
         batch = cs.conditioned_batch(config, device, cs.SEED + 160)
     elif build == 'c80':
@@ -119,6 +125,11 @@ def phases(cs, model, eval_mask, pitch, build, device):
     decoder = model.layer_Dict['Decoder']
     step = decoder.layer_Dict['Flows'][0]
     c = step.layers[0].logs.shape[1]
+    # the timed instantiations are built at the shipped shapes (a tree
+    # before other shapes built only those)
+    timed = coupling.config_shape(model.config) in getattr(
+        coupling, 'SHIPPED_SHAPES', [coupling.config_shape(model.config)]) \
+        if hasattr(coupling, 'config_shape') else True
     gen = torch.Generator().manual_seed(cs.SEED + 141)
     t_all = max(512, eval_mask.shape[1])
     x, _ = cs.ragged_batch(gen, 32, t_all, c, device)
@@ -149,14 +160,14 @@ def phases(cs, model, eval_mask, pitch, build, device):
     kernels = {
         '#3': (lambda xs, m, w, r, q: coupling.flow_step(
                    xs, m, w, cond, r, pitch=q),
-               lambda xs, m, w, r, q: coupling.flow_step_phases(
-                   xs, m, w, cond, r, q)),
+               (lambda xs, m, w, r, q: coupling.flow_step_phases(
+                   xs, m, w, cond, r, q)) if timed else None),
         '#2': (lambda xs, m, w, r, q: coupling.coupling(
                    xs[..., :c2], xs[..., c2:], m, own(w, q), cond, pitch=q,
                    reverse=r),
                (lambda xs, m, w, r, q: coupling.coupling_phases(
                    xs[..., :c2], xs[..., c2:], m, own(w, q), cond, q, r))
-               if hasattr(coupling, 'coupling_phases') else None)}
+               if timed and hasattr(coupling, 'coupling_phases') else None)}
     for shape, (xs, m) in shapes.items():
         q = None if p is None else p[:, :xs.shape[1]].contiguous()
         for reverse in (False, True):
@@ -166,8 +177,8 @@ def phases(cs, model, eval_mask, pitch, build, device):
                 print(f'{kernel} bf16 {build} {shape} reverse={reverse}: '
                       f'{ms:.4f} ms a launch from a CUDA graph')
                 if run is None:
-                    print(f'{kernel} bf16 {build}: this tree has no timed '
-                          'instantiation')
+                    print(f'{kernel} bf16 {build}: no timed instantiation '
+                          '(this tree has none, or not at this shape)')
                     continue
                 run(xs, m, w, reverse, q)                   # warm-up
                 _, _, got = run(xs, m, w, reverse, q)
@@ -187,8 +198,13 @@ def phases(cs, model, eval_mask, pitch, build, device):
 @torch.no_grad()
 def run_builds(cs, builds, device):
     from glow_tts_tpu_torch.ops import coupling, cuda_build
-    libs = [(source, 80 if name.startswith('c80') else 160,
-             name.endswith('pitch')) for name in builds for source in SOURCES]
+    b2 = getattr(cs, 'B2_SHAPES', {})
+    # (source, shape or flow width, pitch: its width or whether it has one)
+    libs = [(source, *((coupling.FlowShape(*b2[name][0]), b2[name][1])
+                       if name in b2 else
+                       (80 if name.startswith('c80') else 160,
+                        name.endswith('pitch'))))
+            for name in builds for source in SOURCES]
     # the bf16 builds and the f32 builds they are timed beside, one nvcc
     # each, all together
     with ThreadPoolExecutor(2 * len(libs)) as pool:
@@ -259,7 +275,7 @@ def main(argv):
     if argv and argv[0] == 'bars':
         return run_bars(cs, int(argv[1]) if len(argv) > 1 else None, device)
     builds = argv[0].split(',') if argv else BUILDS
-    unknown = set(builds) - set(BUILDS)
+    unknown = set(builds) - set(BUILDS) - set(getattr(cs, 'B2_SHAPES', {}))
     if unknown:
         sys.exit(f'time_flow: unknown builds {sorted(unknown)}')
     run_builds(cs, builds, device)

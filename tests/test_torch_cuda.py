@@ -71,7 +71,14 @@ of #3, #2's z_b and logdet bit for bit against #3's on an identity ActNorm
 and mixing with its tiles against its 48-frame schedule, a ragged B = 33
 with T not a multiple of its 48-frame tile, B = 1 at the tile's edges, a
 bf16 view off 16-byte alignment refused, and the timed instantiations equal
-to the kernels.
+to the kernels.  #3, #2 and #4 at the decoder shapes of ROADMAP B.2
+(100-bin mels' C = 200 with and without the pitch operand, tiny_config's
+decoder, a WaveNet of 16 layers of k 3, 128 wide), f32 and bf16: each
+against its plain version on a ragged batch, #4 bit for bit against
+chained #3 launches, #2 bf16 bit for bit against #3 bf16 on an identity,
+the C = 200 bf16 halves read as they lie (8-byte loads) and a view off
+that alignment refused, and each library's geometry equal to
+``ops/coupling.py::geometry``'s.
 Needs a GPU and nvcc; skipped without.
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -450,7 +457,7 @@ def _train_both(device, lengths, rate, with_cond=False, z_weight=1.0,
         if with_cond else None
     pitch = None
     if with_pitch:
-        ps = tc.pitch_width(c)
+        ps = tc.default_pitch_size(c)
         weights['w_pitch'] = (torch.randn((2, 4, ps, 384),
                                           generator=gen) * .5).to(device)
         pitch = torch.rand((b, t, ps), generator=gen).to(device)
@@ -759,7 +766,11 @@ def test_coupling_wrapper_refuses_what_the_kernel_does_not_take(device):
                     pitch=torch.zeros((4, 8, 2), device=device))
     with pytest.raises(ValueError, match='float32'):
         tc.coupling(x_a.double(), x_b, mask, w, cond)
-    with pytest.raises(ValueError, match='built for'):
+    # a width outside the envelope (not a multiple of 8); one inside it
+    # whose weights are another width's
+    with pytest.raises(ValueError, match='ROADMAP.md B.2'):
+        tc.coupling(x[..., :50], x[..., 50:100], mask, w, cond)
+    with pytest.raises(ValueError, match='w_start'):
         tc.coupling(x[..., :48], x[..., 48:96], mask, w, cond)
     with pytest.raises(ValueError, match='aligned to 4'):  # rows off by 4 bytes
         tc.coupling(x[..., 1:81], x_b, mask, w, cond)
@@ -938,7 +949,9 @@ def test_flow_stack_wrapper_refuses_what_the_kernel_does_not_take(device):
                       pitch=torch.zeros((2, 8, 2), device=device))
     with pytest.raises(ValueError, match='float32'):
         tc.flow_stack(x.double(), mask, w, cond)
-    with pytest.raises(ValueError, match='built for'):
+    with pytest.raises(ValueError, match='ROADMAP.md B.2'):
+        tc.flow_stack(x[:, :, :100].contiguous(), mask, w, cond)
+    with pytest.raises(ValueError, match='an_logs'):
         tc.flow_stack(x[:, :, :96].contiguous(), mask, w, cond)
     with pytest.raises(ValueError, match='cond'):
         tc.flow_stack(x, mask, w, cond[:1])
@@ -1013,7 +1026,7 @@ def _with_pitch(gen, w, b, t, device, steps=None, c=160):
     ``[B, T, ps]`` that is not zero past the samples' lengths either; ``ps``
     the width at ``c`` flow channels (2 at 160, 1 at 80)."""
     lead = () if steps is None else (steps,)
-    ps = tc.pitch_width(c)
+    ps = tc.default_pitch_size(c)
     w_pitch = torch.randn(lead + (4, ps, 384), generator=gen) * .5
     pitch = torch.rand((b, t, ps), generator=gen)
     return {**w, 'w_pitch': w_pitch.to(device)}, pitch.to(device)
@@ -1447,8 +1460,10 @@ def test_c80_backward_dgrad_over_a_depth_of_80(device, lengths, width):
 def test_c80_refuses_the_pitch_operand(device):
     """At 80 channels (``Num_Squeeze: 1``) the pitch operand is 1 wide: the
     flow step and the train stack take it (their 80-channel pitch
-    builds, counted apart) and match their plain versions; the shipped
-    width's 2-wide operand is what they refuse."""
+    builds, counted apart) and match their plain versions.  A 2-wide
+    operand (num_squeeze 2, 40 mel bins) is what the train stack refuses
+    (ROADMAP.md B.2's train half); the flow step takes it, in the build
+    of that width (``GLOW_PITCH_SIZE=2``), as the JAX package does."""
     gen = torch.Generator().manual_seed(240)
     w, cond = _weights(gen, device, c=C80)
     x, mask = _ragged(gen, [8, 3, 8, 1], device, c=C80)
@@ -1460,13 +1475,16 @@ def test_c80_refuses_the_pitch_operand(device):
     assert tc.flow_step.c80_pitch_launches == before + 1
     z_ref, ld_ref = tc.flow_step_reference(x, mask, w, cond, pitch=pitch)
     assert _rel(z, z_ref) < REL and _rel(ld, ld_ref) < REL
-    with pytest.raises(ValueError, match='num_squeeze'):
-        tc.flow_step(x, mask, dict(w, w_pitch=torch.zeros(
-            (4, 2, 384), device=device)), cond,
-            pitch=torch.zeros((4, 8, 2), device=device))
+    w2 = dict(w, w_pitch=torch.randn((4, 2, 384), generator=gen).to(device))
+    pitch2 = torch.rand((4, 8, 2), generator=gen).to(device)
+    z2, ld2 = tc.flow_step(x, mask, w2, cond, pitch=pitch2)
+    torch.cuda.synchronize()
+    assert tc.flow_step.c80_pitch2_launches >= 1
+    z_ref, ld_ref = tc.flow_step_reference(x, mask, w2, cond, pitch=pitch2)
+    assert _rel(z2, z_ref) < REL and _rel(ld2, ld_ref) < REL
     stack = _stack_weights(gen, device, c=C80)
     stack['w_pitch'] = torch.zeros((2, 4, 2, 384), device=device)
-    with pytest.raises(ValueError, match='num_squeeze'):
+    with pytest.raises(ValueError, match='B.2, the train half'):
         tg.flow_stack_train(x, mask, stack, None,
                             torch.zeros((4, 8, 2), device=device), seed=0)
     before = tg.flow_stack_train.forward_c80_pitch_launches
@@ -1656,7 +1674,7 @@ def _train_bf16(device, lengths, rate, with_cond=False, with_pitch=False,
             if with_cond else None)
     pitch = None
     if with_pitch:
-        ps = tc.pitch_width(c)
+        ps = tc.default_pitch_size(c)
         weights['w_pitch'] = (torch.randn((2, 4, ps, 384),
                                           generator=gen) * .5).to(device)
         pitch = torch.rand((b, t, ps), generator=gen).to(device)
@@ -1793,8 +1811,8 @@ def test_build_defines_of_the_existing_builds_are_unchanged():
     """The macros, and so the libraries' names and hashes, of every build
     that existed before the pitch operand's width followed the flow width
     are what they were; the 80-channel pitch builds are ``GLOW_PITCH``
-    beside ``GLOW_CHANNELS=80``, whose pitch operand ``pitch_width`` gives
-    as 1 wide (runs on the CPU: no card needed)."""
+    beside ``GLOW_CHANNELS=80``, whose pitch operand is 1 wide by default
+    (runs on the CPU: no card needed)."""
     assert tc.build_defines() == ()
     assert tc.build_defines(160, True) == ('GLOW_PITCH',)
     assert tc.build_defines(80) == ('GLOW_CHANNELS=80',)
@@ -1805,12 +1823,16 @@ def test_build_defines_of_the_existing_builds_are_unchanged():
     assert tc.build_defines(80, True) == ('GLOW_PITCH', 'GLOW_CHANNELS=80')
     assert tc.build_defines(80, True, True) == (
         'GLOW_PITCH', 'GLOW_CHANNELS=80', 'GLOW_BF16')
-    assert (tc.pitch_width(160), tc.pitch_width(80)) == (2, 1)
+    # the pitch operand is num_squeeze wide, as the JAX package squeezes it
+    # (the shipped YAML's 2, MiniSpeech's 1), whatever the flow width; the
+    # train kernels take the width of their build alone
+    assert (tc.pitch_width(2), tc.pitch_width(1)) == (2, 1)
     for channels, width in ((160, 1), (80, 2)):
-        with pytest.raises(ValueError, match='num_squeeze'):
-            tc.check_shape('flow_step', channels, (4, 5, 192, 384), width)
-    with pytest.raises(ValueError, match='B.2'):
-        tc.pitch_width(120)
+        with pytest.raises(ValueError, match='B.2'):
+            tc.check_train_shape('flow_stack_train', channels,
+                                 (4, 5, 192, 384), width)
+    with pytest.raises(ValueError, match='num_squeeze'):
+        tc.pitch_width(0)
 
 
 def _bf16_coupling_problem(gen, lengths, device, c, pitch):
@@ -2364,3 +2386,204 @@ def test_f32_convs_ignore_cudnn_tf32(device):
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+# --- ROADMAP B.2: #3, #2 and #4 at other decoder shapes ---------------------
+
+# each build: the shape (C, ch, layers, k) and the pitch operand's width
+B2_BUILDS = [pytest.param((200, 192, 4, 5), 0, id='c200'),
+             pytest.param((200, 192, 4, 5), 2, id='c200_pitch'),
+             pytest.param((16, 16, 2, 5), 0, id='c16_ch16_l2_k5'),
+             pytest.param((160, 128, 16, 3), 0, id='c160_ch128_l16_k3')]
+B2_DTYPES = [pytest.param(torch.float32, id='f32'),
+             pytest.param(torch.bfloat16, id='bf16')]
+B2_LENGTHS = [97, 60, 1, 33]
+
+
+def _b2_problem(gen, device, shape, ps, steps=3, lengths=B2_LENGTHS):
+    """Stacked float32 weights of ``steps`` flow steps at ``shape`` (scaled
+    to their fan-in), the conditioning rows [steps, n, B, 2ch], the pitch
+    operand (or None), x [B, T, C] and the mask of ``lengths``."""
+    c, ch, n, k = shape
+
+    def rnd(*dims, scale=1.):
+        return torch.randn((steps, *dims), generator=gen) * scale
+    w = {'w_start': rnd(c // 2, ch, scale=(c / 2) ** -.5),
+         'b_start': rnd(ch, scale=.1),
+         'w_in': rnd(n, k, ch, 2 * ch, scale=(k * ch) ** -.5),
+         'w_rs': rnd(n, ch, 2 * ch, scale=ch ** -.5),
+         'b_rs': rnd(n, 2 * ch, scale=.1),
+         'w_end': rnd(ch, c, scale=.3 * ch ** -.5), 'b_end': rnd(c, scale=.1),
+         'an_logs': rnd(c, scale=.05), 'an_bias': rnd(c, scale=.1),
+         'mix_t': torch.stack([torch.linalg.qr(torch.randn(
+             (c, c), generator=gen))[0] for _ in range(steps)]),
+         'ld_const': rnd(scale=.01)}
+    w['w_rs'][:, -1, :, :ch] = 0
+    w['b_rs'][:, -1, :ch] = 0
+    if ps:
+        w['w_pitch'] = rnd(n, ps, 2 * ch, scale=.5)
+    w = {key: value.to(device).contiguous() for key, value in w.items()}
+    x, mask = _ragged(gen, lengths, device, c=c)
+    cond = (torch.randn((steps, n, len(lengths), 2 * ch), generator=gen)
+            * .2).to(device)
+    pitch = (torch.rand((len(lengths), x.shape[1], ps), generator=gen)
+             .to(device) if ps else None)
+    return w, cond, pitch, x, mask
+
+
+def _b2_step(w, s):
+    return {key: value[s] for key, value in w.items()}
+
+
+def _b2_bar(kernel, plain, plain32, dtype):
+    """(error, bar): at f32 the relative error and REL; at bf16 the
+    absolute error and twice the bf16 plain version's from the f32 one."""
+    if dtype == torch.float32:
+        err = ((kernel - plain).abs().max()
+               / plain.abs().max().clamp_min(1e-30)).item()
+        return err, REL
+    kernel, plain, plain32 = (v.float() for v in (kernel, plain, plain32))
+    return ((kernel - plain).abs().max().item(),
+            2 * (plain - plain32).abs().max().item() + 1e-6)
+
+
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('dtype', B2_DTYPES)
+@pytest.mark.parametrize('shape,ps', B2_BUILDS)
+def test_b2_kernels_match_plain(device, shape, ps, dtype, reverse):
+    """#3, #2 and #4 of the build at ``shape`` against their plain
+    versions on a ragged batch (a sample of length 1, T not a multiple of
+    any tile), at f32 to REL and at bf16 to the bar of twice the bf16 plain
+    version's distance from the f32 one."""
+    gen = torch.Generator().manual_seed(600 + sum(shape) + ps)
+    w, cond, pitch, x, mask = _b2_problem(gen, device, shape, ps)
+    c2 = shape[0] // 2
+    stacked = tc.with_kernel_weights(w, dtype)
+    step = tc.with_kernel_weights(_b2_step(w, 0), dtype)
+    own = {key: step[key] for key in tc.COUPLING_PACK_KEYS if key in step}
+    xd = x.to(dtype)
+    for name, kernel, plain in (
+            ('flow_step', lambda at, ws: tc.flow_step(
+                xd.to(at), mask, ws, cond[0], reverse, pitch),
+             lambda at: tc.flow_step_reference(
+                 xd.to(at), mask, _b2_step(w, 0), cond[0], reverse, pitch)),
+            ('coupling', lambda at, ws: tc.coupling(
+                xd.to(at)[..., :c2], xd.to(at)[..., c2:], mask, ws, cond[0],
+                pitch, reverse),
+             lambda at: tc.coupling_reference(
+                 xd.to(at)[..., :c2], xd.to(at)[..., c2:], mask,
+                 _b2_step(w, 0), cond[0], pitch, reverse)),
+            ('flow_stack', lambda at, ws: tc.flow_stack(
+                xd.to(at), mask, ws, cond, pitch, reverse),
+             lambda at: tc.flow_stack_reference(
+                 xd.to(at), mask, w, cond, pitch, reverse))):
+        weights = (stacked if name == 'flow_stack' else
+                   own if name == 'coupling' else step)
+        z, ld = kernel(dtype, weights)
+        z_p, ld_p = plain(dtype)
+        z_32, ld_32 = plain(torch.float32)
+        torch.cuda.synchronize()
+        assert z.dtype == dtype and torch.isfinite(z.float()).all(), name
+        err, bar = _b2_bar(z, z_p, z_32, dtype)
+        assert err <= bar, (name, err, bar)
+        if not reverse:
+            err, bar = _b2_bar(ld, ld_p, ld_32, dtype)
+            assert err <= bar, (name, 'logdet', err, bar)
+
+
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('dtype', B2_DTYPES)
+@pytest.mark.parametrize('shape,ps', B2_BUILDS)
+def test_b2_stack_is_chained_flow_steps(device, shape, ps, dtype, reverse):
+    """#4 of the build is bit for bit the chain of #3 launches of the same
+    build, one a flow step (the stream in the build's dtype between
+    them)."""
+    steps = 3
+    gen = torch.Generator().manual_seed(640 + sum(shape) + ps)
+    w, cond, pitch, x, mask = _b2_problem(gen, device, shape, ps, steps)
+    stacked = tc.with_kernel_weights(w, dtype)
+    z, _ = tc.flow_stack(x.to(dtype), mask, stacked, cond, pitch, reverse)
+    chained = x.to(dtype)
+    for s in (reversed(range(steps)) if reverse else range(steps)):
+        chained, _ = tc.flow_step(
+            chained, mask, tc.with_kernel_weights(_b2_step(w, s), dtype),
+            cond[s], reverse, pitch)
+    torch.cuda.synchronize()
+    assert (z != chained).sum().item() == 0
+
+
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('shape,ps', B2_BUILDS)
+def test_b2_bf16_coupling_is_the_flow_step_on_an_identity(device, shape, ps,
+                                                          reverse):
+    """On an identity ActNorm and mixing with no per-frame logdet constant,
+    #2 bf16's z_b and logdet are #3 bf16's bit for bit at every build, and
+    #2 reports the live tiles of its time tile's schedule."""
+    gen = torch.Generator().manual_seed(680 + sum(shape) + ps)
+    w, cond, pitch, x, mask = _b2_problem(gen, device, shape, ps, steps=1)
+    c = shape[0]
+    w['an_logs'].zero_()
+    w['an_bias'].zero_()
+    w['ld_const'].zero_()
+    w['mix_t'] = torch.eye(c, device=device)[None]
+    step = tc.with_kernel_weights(_b2_step(w, 0), torch.bfloat16)
+    own = {key: step[key] for key in tc.COUPLING_PACK_KEYS if key in step}
+    x16 = (x * 3).to(torch.bfloat16)
+    z, ld = tc.flow_step(x16, mask, step, cond[0], reverse, pitch)
+    tiles = tc.tile_report(device)
+    z_b, ld_b = tc._coupling_kernel(x16[..., :c // 2], x16[..., c // 2:],
+                                    mask, own, cond[0], pitch, reverse,
+                                    tiles=tiles)
+    torch.cuda.synchronize()
+    assert (z[..., c // 2:] != z_b).sum().item() == 0
+    assert (z[..., :c // 2] != x16[..., :c // 2]).sum().item() == 0
+    if not reverse:
+        assert (ld != ld_b).sum().item() == 0
+    tile = tc.geometry(tc.FlowShape(*shape), True)['time_tile']
+    items = tc.live_tile_schedule(B2_LENGTHS, x.shape[1], tile)
+    got = dict(zip(tc.TILE_COUNTS, tiles.tolist()))
+    assert (got['live'], got['items']) == (sum(i[2] for i in items),
+                                           len(items))
+
+
+def test_b2_bf16_coupling_reads_the_c200_halves_where_they_lie(device):
+    """At C = 200 a bfloat16 half's rows are 200 bytes, not a multiple of
+    16: the build reads x_a and x_b 8 bytes at a time, so the decoder's own
+    halves of one [B, T, 200] tensor are taken as they lie (and give what
+    contiguous copies give), and a view 2 elements off is refused."""
+    gen = torch.Generator().manual_seed(700)
+    w, cond, _, x, mask = _b2_problem(gen, device, (200, 192, 4, 5), 0,
+                                      steps=1)
+    own = tc.with_kernel_weights(
+        {key: w[key][0] for key in tc.COUPLING_WEIGHT_KEYS}, torch.bfloat16)
+    x16 = x.to(torch.bfloat16)
+    x_a, x_b = x16[..., :100], x16[..., 100:]
+    assert x_b.data_ptr() % 16 == 8
+    z_b, ld = tc.coupling(x_a, x_b, mask, own, cond[0])
+    z_c, ld_c = tc.coupling(x_a.contiguous(), x_b.contiguous(), mask, own,
+                            cond[0])
+    torch.cuda.synchronize()
+    assert (z_b != z_c).sum().item() == 0 and torch.equal(ld, ld_c)
+    wide = torch.zeros((x.shape[0], x.shape[1], 204), device=device,
+                       dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='aligned to 4'):
+        tc.coupling(wide[..., 2:102], wide[..., 102:202], mask, own, cond[0])
+
+
+@pytest.mark.parametrize('dtype', B2_DTYPES)
+@pytest.mark.parametrize('source', ['flow_step.cu', 'coupling.cu',
+                                    'flow_stack.cu'])
+@pytest.mark.parametrize('shape,ps', B2_BUILDS)
+def test_b2_library_geometry_is_pythons(device, shape, ps, source, dtype):
+    """Each library reports the geometry it was compiled with, and it is
+    ops/coupling.py::geometry's (the loader raises otherwise)."""
+    from glow_tts_tpu_torch.ops.cuda_build import load_library
+    shape = tc.FlowShape(*shape)
+    bf16 = dtype == torch.bfloat16
+    tc.load_flow_library(source, ps, shape, bf16)
+    lib = load_library(source, tc.build_defines(shape, ps, bf16))
+    got = tc.library_geometry(lib)
+    assert got == {**shape._asdict(), 'pitch_size': ps,
+                   **{key: value for key, value in
+                      tc.geometry(shape, bf16, ps).items()
+                      if key in tc.GEOMETRY_FIELDS}}

@@ -143,7 +143,8 @@ def test_the_pitch_operand_is_one_wide(runs):
     mask = sequence_mask(tensors['mel_lengths'], tensors['mels'].shape[1])
     pitch = decoder._squeezed_pitch(tensors['pitches'], mask)
     assert pitch.shape[-1] == 1
-    assert pitch_width(80) == 1 and pitch_width(160) == 2
+    # num_squeeze wide, as the JAX package squeezes it, at any flow width
+    assert pitch_width(pcfg) == pitch_width(1) == 1 and pitch_width(2) == 2
 
 
 def test_first_step_losses_match_jax(runs):

@@ -25,31 +25,53 @@ import torch
 from glow_tts_tpu_torch.ops import bf16_tiles as bt
 from glow_tts_tpu_torch.ops import coupling as tc
 
-CH, K, N = 192, 5, 4                 # the built WaveNet
+CH, K, N = 192, 5, 4                 # the shipped WaveNet
 SK = tc.RING_DEPTH                   # a ring slice's depth
 HP = CH + 8                          # RingShape::HP, h's pitch in bf16
 H_ROWS = 64 + 2 * (K - 1) // 2 * 2   # tile rows -2 .. 65
 # each product: its weight, the warpgroups' 96-column blocks, a layer's
+# (the mixing's and the end conv's 2 where C/2 is over 96: ``tc.ring_half``)
 PRODUCTS = {'mixing': ('mix_t', 1), 'start conv': ('w_start', 1),
             'k-tap conv': ('w_in', 2), 'res/skip conv': ('w_rs', 2),
             'end conv': ('w_end', 1)}
+# the builds' shapes: the shipped two (under their channel counts' ids) and
+# those of ROADMAP B.2 (100-bin mels, tiny_config's decoder, another
+# WaveNet), whose WaveNet the ring pads to 192
+SHAPES = [pytest.param(tc.FlowShape(160), id='160'),
+          pytest.param(tc.FlowShape(80), id='80'),
+          pytest.param(tc.FlowShape(200), id='c200'),
+          pytest.param(tc.FlowShape(16, 16, 2, 5), id='c16_ch16_l2_k5'),
+          pytest.param(tc.FlowShape(160, 128, 16, 3),
+                       id='c160_ch128_l16_k3')]
 
 
-def _weights(c, seed=0):
+def _weights(shape, seed=0):
+    c, ch, n, k = tc.as_shape(shape)
     rng = np.random.default_rng(seed)
 
-    def randn(*shape):
+    def randn(*dims):
         return torch.from_numpy(
-            rng.standard_normal(shape).astype(np.float32) * 0.1)
-    w_rs = randn(N, CH, 2 * CH)
-    w_rs[-1, :, :CH] = 0.0                 # the last layer's res half
-    return {'mix_t': randn(c, c), 'w_start': randn(c // 2, CH),
-            'w_in': randn(N, K, CH, 2 * CH), 'w_rs': w_rs,
-            'w_end': randn(CH, c)}
+            rng.standard_normal(dims).astype(np.float32) * 0.1)
+    w_rs = randn(n, ch, 2 * ch)
+    w_rs[-1, :, :ch] = 0.0                 # the last layer's res half
+    return {'mix_t': randn(c, c), 'w_start': randn(c // 2, ch),
+            'w_in': randn(n, k, ch, 2 * ch), 'w_rs': w_rs,
+            'w_end': randn(ch, c)}
+
+
+def _nw(shape, key):
+    """A warpgroup's 96-column blocks of ``key``'s product at ``shape``."""
+    if key in ('mix_t', 'w_end'):
+        return tc.ring_half(tc.as_shape(shape).channels) // 96
+    return PRODUCTS[next(name for name, (k, _) in PRODUCTS.items()
+                         if k == key)][1]
 
 
 def _product(w, key):
-    """One layer's ``[K, N]`` weight of a product as the ring packs it."""
+    """One layer's ``[K, N]`` weight of a product as the ring packs it: the
+    WaveNet at the ring body's width (192, zero-padded)."""
+    if key in ('w_start', 'w_in', 'w_rs', 'w_end'):
+        w = {key: tc.padded_wavenet(key, w[key], tc.RING_HALF_BIG)}
     if key == 'w_in':
         return tc.interleave_gate(w['w_in'])[0]
     return w[key][0] if key == 'w_rs' else w[key]
@@ -61,11 +83,11 @@ def _packed(w, key):
     return packed[0] if key in ('w_in', 'w_rs') else packed
 
 
-@pytest.mark.parametrize('c', tc.BUILT_CHANNELS)
+@pytest.mark.parametrize('c', SHAPES)
 def test_ring_weights_take_the_kernels_shapes(c):
     w = _weights(c)
     packed = tc.ring_weights(w)
-    want = tc.ring_shapes(c, N, K, CH)
+    want = tc.ring_shapes(c.channels, c.n_layers, c.kernel_size, c.ch)
     assert set(packed) == set(tc.RING_KEYS.values())
     for name, tensor in packed.items():
         assert tuple(tensor.shape) == want[name], name
@@ -78,7 +100,7 @@ def test_ring_weights_take_the_kernels_shapes(c):
 
 
 @pytest.mark.parametrize('product', PRODUCTS)
-@pytest.mark.parametrize('c', tc.BUILT_CHANNELS)
+@pytest.mark.parametrize('c', SHAPES)
 def test_ring_layout_is_a_permutation_of_the_weights(c, product):
     key, _ = PRODUCTS[product]
     w = _weights(c, 1)
@@ -87,7 +109,7 @@ def test_ring_layout_is_a_permutation_of_the_weights(c, product):
     zeros = packed.numel() - plain.numel()
     want = torch.cat([plain.flatten(), torch.zeros(zeros)])
     assert torch.equal(packed.flatten().sort().values, want.sort().values)
-    if key in ('w_in', 'w_rs'):
+    if key in ('w_in', 'w_rs') and c.ch == CH:
         # no padding: the values of the mma.sync layout, reordered
         layout = tc.tensor_core_weights(w['w_in'], w['w_rs'],
                                         torch.bfloat16)[tc.TC_KEYS[key]][0]
@@ -97,9 +119,10 @@ def test_ring_layout_is_a_permutation_of_the_weights(c, product):
 
 
 @pytest.mark.parametrize('product', PRODUCTS)
-@pytest.mark.parametrize('c', tc.BUILT_CHANNELS)
+@pytest.mark.parametrize('c', SHAPES)
 def test_staged_slices_read_back_as_each_warpgroups_operand(c, product):
-    key, nw = PRODUCTS[product]
+    key, _ = PRODUCTS[product]
+    nw = _nw(c, key)
     w = _weights(c, 2)
     plain = _product(w, key).to(torch.bfloat16)
     depth, n = plain.shape
@@ -125,7 +148,7 @@ def test_staged_slices_read_back_as_each_warpgroups_operand(c, product):
 
 @pytest.mark.parametrize('mixing', [True, False],
                          ids=['flow step', 'coupling'])
-@pytest.mark.parametrize('c', tc.BUILT_CHANNELS)
+@pytest.mark.parametrize('c', SHAPES)
 @pytest.mark.parametrize('reverse', [False, True])
 def test_the_ring_stages_every_slice_once_in_the_bodys_order(c, reverse,
                                                             mixing):
@@ -133,13 +156,14 @@ def test_the_ring_stages_every_slice_once_in_the_bodys_order(c, reverse,
     slices: each once, mixing first (last on the inverse pass), then the
     start conv, each layer's k-tap and res/skip convs, the end conv; the
     coupling's (no ``mixing``) the same without the mixing's slices."""
-    shapes = tc.ring_shapes(c, N, K, CH)
-    program = bt.ring_program(c, reverse, mixing=mixing)
+    shapes = tc.ring_shapes(c.channels, c.n_layers, c.kernel_size, c.ch)
+    program = bt.ring_program(c.channels, reverse, c.n_layers,
+                              c.kernel_size, tc.RING_HALF_BIG, mixing=mixing)
     slices = {'mix_ring': shapes['mix_ring'][0],
               'start_ring': shapes['start_ring'][0],
               'end_ring': shapes['end_ring'][0]}
     want = [('start_ring', None, s) for s in range(slices['start_ring'])]
-    for layer in range(N):
+    for layer in range(c.n_layers):
         want += [('in_ring', layer, s) for s in range(shapes['in_ring'][1])]
         want += [('rs_ring', layer, s) for s in range(shapes['rs_ring'][1])]
     want += [('end_ring', None, s) for s in range(slices['end_ring'])]
@@ -236,10 +260,14 @@ def test_the_twins_constants_are_the_kernels():
         source = f.read()
     depth = int(re.search(r'kRingDepth = (\d+)', source).group(1))
     assert depth == tc.RING_DEPTH and bt.ROW_BYTES == 2 * depth
-    assert int(re.search(r'TT = (\d+);', source).group(1)) == \
-        tc.RING_TIME_TILE
-    assert int(re.search(r'N_SMALL = (\d+)', source).group(1)) == \
-        2 * tc.RING_HALF_SMALL
+    # a tile is one 64-row block with its halo, at most 48 owned frames:
+    # 48 at the shipped halo of 8 (4 layers of k 5)
+    rows, cap = map(int, re.search(
+        r'R = (\d+), TT = R - 2 \* HALO < (\d+)', source).groups())
+    assert min(cap, rows - 2 * tc.SHIPPED_SHAPE.halo) == tc.RING_TIME_TILE
+    # the 1x1s' halves: 96 columns each up to C/2 = 96
+    half = int(re.search(r'N_SMALL = 2 \* (\d+) \* NWS', source).group(1))
+    assert 2 * half == 2 * tc.RING_HALF_SMALL
     enum = re.search(r'enum RingPhase \{(.*?)\};', source, re.S).group(1)
     phases = re.findall(r'^\s*(k\w+)', enum, re.M)
     layers = int(re.search(r'kEnd = kLayer0 \+ (\d+)', enum).group(1))
@@ -248,34 +276,40 @@ def test_the_twins_constants_are_the_kernels():
     assert len(phases) - 2 + layers == len(tc.RING_PHASES)
 
 
-def _coupling_pack(c):
+def _coupling_pack(shape):
     """A coupling's own float32 weights (``COUPLING_WEIGHT_KEYS``)."""
-    w = _weights(c, 6)
-    return {'w_start': w['w_start'], 'b_start': torch.zeros(CH),
+    c, ch, n, _ = tc.as_shape(shape)
+    w = _weights(shape, 6)
+    return {'w_start': w['w_start'], 'b_start': torch.zeros(ch),
             'w_in': w['w_in'], 'w_rs': w['w_rs'],
-            'b_rs': torch.zeros(N, 2 * CH), 'w_end': w['w_end'],
+            'b_rs': torch.zeros(n, 2 * ch), 'w_end': w['w_end'],
             'b_end': torch.zeros(c)}
 
 
-@pytest.mark.parametrize('c', tc.BUILT_CHANNELS)
+@pytest.mark.parametrize('c', SHAPES)
 def test_the_coupling_reads_the_ring_slices_of_its_own_weights(c):
     """The ring slices the bfloat16 coupling's wrapper reads (its weights'
-    ``ring_keys``) are exactly those ``ring_weights`` makes of a coupling's
+    ``kernel_key``) are exactly those ``ring_weights`` makes of a coupling's
     pack, at ``ring_shapes``' shapes, with no mixing; ``with_kernel_weights``
     packs them beside the rounded weights, as ``FlowStep.weights`` does."""
     pack = _coupling_pack(c)
     assert set(pack) == set(tc.COUPLING_WEIGHT_KEYS)
     ring = tc.ring_weights(pack)
-    read = [key for key in tc.ring_keys(tc.COUPLING_WEIGHT_KEYS)
-            if key in tc.RING_KEYS.values()]
+    read = [tc.kernel_key(key, True, False)
+            for key in tc.COUPLING_WEIGHT_KEYS if key in tc.RING_KEYS]
     assert read == list(tc.COUPLING_RING_KEYS) == list(ring)
     assert 'mix_ring' not in ring and len(ring) == 4
-    shapes = tc.ring_shapes(c, N, K, CH)
+    shapes = tc.ring_shapes(c.channels, c.n_layers, c.kernel_size, c.ch)
     for name, tensor in ring.items():
         assert tuple(tensor.shape) == shapes[name], name
         assert tensor.dtype == torch.bfloat16 and tensor.is_contiguous()
     kernel = tc.with_kernel_weights(pack, torch.bfloat16)
-    assert set(kernel) == set(pack) | set(ring)
+    # and, at a WaveNet narrower than the ring body's, the padded copies
+    # it reads as they lie
+    pads = tc.padded_weights(pack, tc.RING_HALF_BIG)
+    assert set(pads) == ({tc.padded_key(key) for key in tc.PAD_KEYS
+                          if key in pack} if c.ch != CH else set())
+    assert set(kernel) == set(pack) | set(ring) | set(pads)
     for name, tensor in ring.items():
         assert torch.equal(kernel[name], tensor)
     for key in tc.BF16_ROUNDED_KEYS:
@@ -284,7 +318,8 @@ def test_the_coupling_reads_the_ring_slices_of_its_own_weights(c):
                                pack[key].to(torch.bfloat16).float())
     # and at float32 the tensor-core layout, no ring
     f32 = tc.with_kernel_weights(pack, torch.float32)
-    assert set(f32) == set(pack) | set(tc.TC_KEYS.values())
+    assert set(f32) == set(pack) | set(tc.TC_KEYS.values()) | set(
+        tc.padded_weights(pack, tc.geometry(c)['ch_pad']))
 
 
 def test_the_modules_route_hands_the_coupling_its_ring_slices():

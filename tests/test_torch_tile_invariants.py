@@ -229,16 +229,30 @@ def test_packed_weights_leave_the_plain_flow_step_equal(reverse):
     cond = t((rng.standard_normal((N, b, 2 * CH)) * .2).astype(np.float32))
     packed = tc.with_tensor_core_weights(w)
     assert tc.with_tensor_core_weights(packed) is packed
-    unpacked = dict(w,
-                    w_in=deinterleave_gate(
-                        from_tensor_core_layout(packed['w_in_tc']), K),
-                    w_rs=from_tensor_core_layout(packed['w_rs_tc']))
+    # at ch 16 the float32 body computes at 64 channels, zero-padded
+    chp = tc.geometry(tc.FlowShape(C, CH, N, K))['ch_pad']
+    w_in = deinterleave_gate(from_tensor_core_layout(packed['w_in_tc']), K)
+    w_rs = from_tensor_core_layout(packed['w_rs_tc'])
+    assert torch.equal(w_in, tc.padded_wavenet('w_in', w['w_in'], chp))
+    assert torch.equal(w_rs, tc.padded_wavenet('w_rs', w['w_rs'], chp))
+    unpacked = dict(w, w_in=torch.cat([w_in[..., :CH, :CH],
+                                       w_in[..., :CH, chp:chp + CH]], -1),
+                    w_rs=torch.cat([w_rs[..., :CH, :CH],
+                                    w_rs[..., :CH, chp:chp + CH]], -1))
     assert torch.equal(unpacked['w_in'], w['w_in'])
     assert torch.equal(unpacked['w_rs'], w['w_rs'])
     z, ld = tc.flow_step_reference(x, t(mask), w, cond, reverse)
     z2, ld2 = tc.flow_step_reference(x, t(mask), unpacked, cond, reverse)
     assert torch.equal(z, z2)
     assert (ld is None and ld2 is None) or torch.equal(ld, ld2)
+    # and the padded weights the body reads give the same step
+    padded = {**w, **{key: tc.padded_wavenet(key, w[key], chp)
+                      for key in w}}
+    z3, ld3 = tc.flow_step_reference(
+        x, t(mask), padded, tc.kernel_cond(cond, chp), reverse)
+    torch.testing.assert_close(z3, z, rtol=1e-6, atol=1e-6)
+    if ld is not None:
+        torch.testing.assert_close(ld3, ld, rtol=1e-6, atol=1e-5)
 
 
 @pytest.mark.parametrize('tile', [tc.TIME_TILE, tc.RING_TIME_TILE])
