@@ -143,16 +143,22 @@ against the same weights on the CPU at f32 (1e-4 of max-abs) and bf16
 (twice the CPU's bf16-vs-f32 distance); an evaluation timed with and
 without its images and histograms, the steps inside and outside the
 window, the check per 100 mels.  After GR at ``Num_Squeeze: 1``, ROADMAP
-B.2: #3, #2 and #4 at decoder shapes besides the shipped two (100-bin
+B.2: every flow kernel at decoder shapes besides the shipped two (100-bin
 mels, C = 200, with and without GR's pitch operand; ``tiny_config``'s
 decoder, C 16, ch 16, 2 layers; a WaveNet of 16 layers of k 3, 128 wide),
-each build at f32 and bf16 against its plain version at B = 32 x 512 and
-on the eval batch's ragged mask, #4 bit-equal to 12 chained #3 launches,
-#2 bf16 bit-equal to #3 bf16 on an identity, timed by CUDA graph beside
-its bound; the ActNorm init and an eval step under each route; at C = 200
-the losses against the plain versions, 32 items served in the 1024
-bucket under each route at f32 and bf16, and a train step refused with
-B.2's error.  All 65 libraries build together before the first phase.
+each build at f32 and bf16: #3, #2 and #4 against their plain versions at
+B = 32 x 512 and on the eval batch's ragged mask, #4 bit-equal to 12
+chained #3 launches, #2 bf16 bit-equal to #3 bf16 on an identity, timed by
+CUDA graph beside their bounds; the ActNorm init and an eval step under
+each route; #5 (storing and not) and #6 against their plain versions on a
+train step's operands at dropout 0.05 (the masks element by element, the
+routes and two runs bit-equal), timed per flow step beside their bounds,
+and a train step through them, counted; at C = 200 the losses against
+the plain versions, the train step's losses and decoder gradients too
+(Vanilla f32 and bf16, GR bf16) and 3 more steps, 32 items served in the
+1024 bucket under each route at f32 and bf16; and a train step at a shape
+no train build takes (C = 200 at 8 layers) refused with B.2's error.  All
+81 libraries build together before the first phase.
 Exits non-zero on any failure and when no CUDA device is present; the last
 line is one JSON object naming the card.
 """
@@ -348,13 +354,13 @@ def launch_counters():
         for name, what in FLOW_COUNTERS:
             counters[name + (f'_{tag}' if tag else '')] = (
                 fns.get(name, flow_stack_train), what + suffix)
-    # and the deterministic kernels' builds at the B.2 shapes
+    # and every flow source's builds at the B.2 shapes
     for label, (shape, pitch) in B2_SHAPES.items():
         for bf16 in (False, True):
             suffix = count_suffix(shape, pitch, bf16)
-            for name, fn in fns.items():
-                counters[f'{name}_{suffix[:-len("_launches")]}'] = (fn,
-                                                                   suffix)
+            for name, what in FLOW_COUNTERS:
+                counters[f'{name}_{suffix[:-len("_launches")]}'] = (
+                    fns.get(name, flow_stack_train), what + suffix)
     return counters
 
 
@@ -1254,12 +1260,43 @@ def stack_problem(model, batch, config):
     return x.contiguous(), mask, weights
 
 
+def dropout_mask_errors(xd, mask, weights, seed, dtype=torch.float32):
+    """#5's dropout masks of flow step S - 5 read element by element and
+    held to ``dropmask.stack_mask``'s (the JAX package's, over the true
+    2ch): with w_in = 0 and b_in = 1 the pre-gate sum is the keep factor,
+    so a dropped element leaves tanh 0 and sigmoid 1/2 in the gate halves
+    the backward's recompute saves; under a mask of ones every tile is
+    live, so every element is drawn.  ``xd`` is the stack's input in the
+    build's dtype.  Returns (the step, the differing elements, all of
+    them, the share dropped)."""
+    from glow_tts_tpu_torch.ops import coupling_grad, dropmask
+    probe = dict(weights, w_in=torch.zeros_like(weights['w_in']),
+                 b_in=torch.ones_like(weights['b_in']))
+    s_steps, n, k, ch, ch2 = weights['w_in'].shape
+    b, t, c = xd.shape
+    step = s_steps - 5
+    saved = coupling_grad._saved_buffers(b * t, c, ch, n, xd.device,
+                                         dtype=dtype)
+    coupling_grad._recompute(
+        xd, torch.ones_like(mask), None,
+        coupling_grad._kernel_weights(
+            [probe[key] for key in coupling_grad.WEIGHT_KEYS], dtype),
+        saved, step, coupling_grad._dropout_args(seed, FLOW_RATE))
+    ts = saved['ts'].float()
+    kept_kernel = torch.cat([ts[..., :ch] != 0, ts[..., ch:] != 0.5],
+                            dim=-1).reshape(n, b, t, ch2)
+    kept_plain = torch.stack([
+        dropmask.stack_mask(seed, step, i, n, b, t, k, ch2, FLOW_RATE,
+                            xd.device) != 0 for i in range(n)])
+    return (step, (kept_kernel != kept_plain).sum().item(),
+            kept_plain.numel(), 1.0 - kept_plain.float().mean().item())
+
+
 def check_train_forward(x, mask, weights):
     """Kernel #5 against the plain version, the whole stack, at dropout
     rate 0.05 and 0 with the same (negative) seed; and the kernel's masks
     read element by element through a probe stack whose pre-gate sum is the
     keep factor itself."""
-    from glow_tts_tpu_torch.ops import dropmask
     from glow_tts_tpu_torch.ops import coupling_grad
     from glow_tts_tpu_torch.ops.coupling_grad import (
         flow_stack_train, flow_stack_train_reference)
@@ -1292,31 +1329,10 @@ def check_train_forward(x, mask, weights):
                 print(line)
                 assert one_pass > ONE_PASS_MARGIN * z_rel, line
 
-        # the masks: with w_in = 0 and b_in = 1 the pre-gate sum is the keep
-        # factor, so a dropped element has tanh 0 and sigmoid 1/2 in what
-        # the backward pass's recompute leaves of the gate; under a mask of
-        # ones every tile is live, so every element is drawn
-        probe = dict(weights, w_in=torch.zeros_like(weights['w_in']),
-                     b_in=torch.ones_like(weights['b_in']))
-        s_steps, n, k, ch, ch2 = weights['w_in'].shape
-        b, t, c = x.shape
-        step = s_steps - 5
-        saved = coupling_grad._saved_buffers(b * t, c, ch, n, x.device)
-        coupling_grad._recompute(
-            x, torch.ones_like(mask), None,
-            coupling_grad._kernel_weights(
-                [probe[key] for key in coupling_grad.WEIGHT_KEYS]),
-            saved, step, coupling_grad._dropout_args(seed, FLOW_RATE))
-        ts = saved['ts']
-        kept_kernel = torch.cat([ts[..., :ch] != 0, ts[..., ch:] != 0.5],
-                                dim=-1).reshape(n, b, t, ch2)
-        kept_plain = torch.stack([
-            dropmask.stack_mask(seed, step, i, n, b, t, k, ch2, FLOW_RATE,
-                                x.device) != 0 for i in range(n)])
-        differing = (kept_kernel != kept_plain).sum().item()
-        dropped = 1.0 - kept_plain.float().mean().item()
+        step, differing, elements, dropped = dropout_mask_errors(
+            x, mask, weights, seed)
         print(f'dropout masks of flow step {step}, kernel vs plain: '
-              f'{differing} differing elements of {kept_plain.numel()} '
+              f'{differing} differing elements of {elements} '
               f'({100 * dropped:.3f} % dropped at rate {FLOW_RATE})')
         assert differing == 0
         assert abs(dropped - FLOW_RATE) < 2e-3
@@ -4099,7 +4115,6 @@ def check_bf16_train(x, mask, weights, label, cond=None, pitch=None):
     f32 stack input, rounded to bf16 for all.  Returns (the forward's worst
     max-abs error, the gradients' worst norm-relative error against the
     f32 plain version)."""
-    from glow_tts_tpu_torch.ops import coupling_grad, dropmask
     from glow_tts_tpu_torch.ops.coupling_grad import (
         flow_stack_train, flow_stack_train_reference)
     x16 = x.to(BF16)
@@ -4128,27 +4143,10 @@ def check_bf16_train(x, mask, weights, label, cond=None, pitch=None):
             print(line)
             assert err <= bar and ld_err <= ld_bar, line
             fwd_worst = max(fwd_worst, err)
-        probe = dict(weights, w_in=torch.zeros_like(weights['w_in']),
-                     b_in=torch.ones_like(weights['b_in']))
-        s_steps, n, k, ch, ch2 = weights['w_in'].shape
-        b, t, c = x.shape
-        step = s_steps - 5
-        saved = coupling_grad._saved_buffers(b * t, c, ch, n, x.device,
-                                             dtype=BF16)
-        coupling_grad._recompute(
-            x16, torch.ones_like(mask), None,
-            coupling_grad._kernel_weights(
-                [probe[key] for key in coupling_grad.WEIGHT_KEYS], BF16),
-            saved, step, coupling_grad._dropout_args(seed, FLOW_RATE))
-        ts = saved['ts']
-        kept_kernel = torch.cat([ts[..., :ch] != 0, ts[..., ch:] != 0.5],
-                                dim=-1).reshape(n, b, t, ch2)
-        kept_plain = torch.stack([
-            dropmask.stack_mask(seed, step, i, n, b, t, k, ch2, FLOW_RATE,
-                                x.device) != 0 for i in range(n)])
-        differing = (kept_kernel != kept_plain).sum().item()
+        step, differing, elements, _ = dropout_mask_errors(
+            x16, mask, weights, seed, BF16)
         print(f'#5 bf16 {label} dropout masks of flow step {step}: '
-              f'{differing} differing elements of {kept_plain.numel()}')
+              f'{differing} differing elements of {elements}')
         assert differing == 0
 
     gen = torch.Generator().manual_seed(SEED + 105)
@@ -5271,10 +5269,9 @@ B2_OVERRIDES = {
 B2_KERNEL_ITERS = 3            # timed launches a pair (flow_kernel_rows)
 
 
-def b2_config(label, dtype='float32', route='fused'):
-    """The shipped YAML with ``B2_OVERRIDES[label]`` merged into its dict
-    (100-bin mels; tiny_config's decoder; another WaveNet), in its mode,
-    under ``route`` at ``dtype``."""
+def shipped_with(mode, overrides, dtype='float32', route='fused'):
+    """The shipped YAML with ``overrides`` merged into its dict, in
+    ``mode``, under ``route`` at ``dtype``."""
     import yaml
     from glow_tts_tpu_torch import load_config
 
@@ -5286,11 +5283,17 @@ def b2_config(label, dtype='float32', route='fused'):
                 into[key] = value
     with open(CONFIG, encoding='utf-8') as f:
         data = yaml.safe_load(f)
-    mode, overrides = B2_OVERRIDES[label]
     data['Mode'] = mode
     merge(data, overrides)
     return dataclasses.replace(load_config(data), coupling_backend=route,
                                compute_dtype=dtype)
+
+
+def b2_config(label, dtype='float32', route='fused'):
+    """The shipped YAML with ``B2_OVERRIDES[label]`` merged into its dict
+    (100-bin mels; tiny_config's decoder; another WaveNet), in its mode,
+    under ``route`` at ``dtype``."""
+    return shipped_with(*B2_OVERRIDES[label], dtype, route)
 
 
 def serve_b2_f32(config, state, items, device, label):
@@ -5341,16 +5344,34 @@ def serve_b2_f32(config, state, items, device, label):
     return by_path
 
 
-def check_b2_train_refused(config, batch, device, label):
-    """A train step at a shape the train kernels (#5, #6) are not built
-    for raises ROADMAP.md B.2's error on the card, caught exactly: a
-    ValueError from ``flow_stack_train`` that names B.2's train half;
-    nothing falls back to the plain version."""
-    from glow_tts_tpu_torch import make_optimizer, make_train_step
-    from glow_tts_tpu_torch.training.step import conditioning_inputs
+# a decoder shape no train build takes (ROADMAP B.2, the train half): 100-bin
+# mels at 8 layers of the shipped WaveNet, whose saving block is 242.7 KB
+B2_REFUSED = ((200, 192, 8, 5), {'Sound': {'Mel_Dim': 100}, 'Decoder': {
+    'Affine_Coupling': {'WaveNet': {'Num_Layers': 8}}}})
+# the train paths held to the plain path at full width (label, dtype): one
+# step's losses and gradients, then B2_MORE_STEPS more; every other build
+# trains one step through its kernels, counted
+B2_TRAIN_FULL = (('c200', 'float32'), ('c200', 'bfloat16'),
+                 ('c200_pitch', 'bfloat16'))
+B2_MORE_STEPS = 3
+B2_TIMED = 3                   # timed calls of #5 and #6, after a warm-up
+
+
+def check_b2_train_refused(device):
+    """A train step at a shape no train build takes (B2_REFUSED) raises
+    ROADMAP.md B.2's train-half error on the card before any launch: a
+    ValueError from ``flow_stack_train``, caught exactly; nothing falls
+    back to the plain version and no library is built."""
+    from glow_tts_tpu_torch import (TrainCollater, batch_to_device,
+                                    make_optimizer, make_train_step)
+    from glow_tts_tpu_torch.ops.coupling import config_shape
+    from glow_tts_tpu_torch.text import Tokenizer
+    shape, overrides = B2_REFUSED
+    config = shipped_with('Vanilla', overrides)
+    assert tuple(config_shape(config)) == shape, config_shape(config)
+    batch = batch_to_device(TrainCollater(config, Tokenizer())(
+        synthetic_items(config, SEED + 263)), device)
     model = train_model(random_state_dict_of(config), config, device)
-    model.data_dependent_init(batch['mels'], batch['mel_lengths'],
-                              **conditioning_inputs(batch))
     step = make_train_step(config, model,
                            make_optimizer(config, model.parameters()),
                            seed=SEED)
@@ -5359,17 +5380,311 @@ def check_b2_train_refused(config, batch, device, label):
         step(batch)
     except ValueError as err:
         message = str(err)
-        assert message.startswith('flow_stack_train: the train kernels'), \
-            message
+        assert message.startswith('flow_stack_train: no build of the train '
+                                  'kernels'), message
         assert 'ROADMAP.md B.2, the train half' in message, message
     else:
-        raise AssertionError(f'{label}: a train step ran at a shape the '
-                             'train kernels are not built for')
+        raise AssertionError(f'{shape}: a train step ran at a shape no '
+                             'train build takes')
     counts = read_counts()
-    assert not any(value for key, value in counts.items()
-                   if key.startswith('train')), counts
-    print(f'{label} train step at {config.compute_dtype}: refused on the '
-          f'card as ROADMAP.md B.2\'s train half ({message[:120]}...)')
+    assert not any(value for key, value in counts.items() if key != 'mas'), \
+        counts
+    print(f'B.2 train step at {shape}: refused on the card before any '
+          f'flow launch ({message[:160]}...)')
+
+
+def b2_train_problem(label, config, state, batch, device):
+    """The flow stack's operands of a train step of ``config`` at B.2's
+    ``label`` (f32): the squeezed mels and mask, the stacked weights after
+    the ActNorm init, and in GR mode the conditioning rows and the pitch
+    operand (else None)."""
+    from glow_tts_tpu_torch.training.step import conditioning_inputs
+    model = train_model(state, config, device)
+    model.data_dependent_init(batch['mels'], batch['mel_lengths'],
+                              **conditioning_inputs(batch))
+    if config.uses_gradient_reversal:
+        return pitch_stack_problem(model, batch, config)
+    return (*stack_problem(model, batch, config), None, None)
+
+
+def check_b2_train_kernels(problem, dtype, label):
+    """#5 (storing, and not) and #6 of the B.2 build against their plain
+    versions on a train step's operands at dropout FLOW_RATE: z, the
+    logdet and every gradient of a loss through both (at f32 by
+    TRAIN_Z_REL_BOUND, TRAIN_LD_REL_BOUND and GRAD_REL_BOUND of max-abs; at
+    bf16 by the bf16 bars, the f32 plain version the reference); the
+    dropout masks of a flow step element by element (check_train_forward's
+    probe: they are the true 2ch's, which the JAX package draws); the
+    stored and the recomputed route bit-equal, and two runs; each timed
+    per flow step beside its bound and the plain version.  Returns the
+    kernels line's rows of #5 and #6 (launches added by the caller)."""
+    from glow_tts_tpu_torch.ops import coupling_grad
+    from glow_tts_tpu_torch.ops.coupling_grad import (
+        flow_stack_train, flow_stack_train_reference)
+    x, mask, weights, cond, pitch = problem
+    bf16 = dtype == BF16
+    xd = x.to(dtype)
+    s_steps, n, k, ch, ch2 = weights['w_in'].shape
+    b, t, c = x.shape
+    seed = -20240331
+    gen = torch.Generator().manual_seed(SEED + 264)
+    dz = torch.randn(x.shape, generator=gen).to(x.device)
+    dld = (0.5 + torch.rand(b, generator=gen)).to(x.device)
+
+    def run(fn, at=dtype):
+        leaves = {key: value.clone().requires_grad_()
+                  for key, value in weights.items()}
+        xl = xd.to(at).detach().clone().requires_grad_()
+        cl = None if cond is None else cond.clone().requires_grad_()
+        pl = None if pitch is None else pitch.clone().requires_grad_()
+        z, ld = fn(xl, mask, leaves, cl, pl, seed=seed,
+                   dropout_rate=FLOW_RATE)
+        torch.autograd.backward((z.float(), ld), (dz, dld))
+        torch.cuda.synchronize()
+        out = {'z': z.detach().float(), 'ld': ld.detach(),
+               'x': xl.grad.float(),
+               **{key: leaf.grad for key, leaf in leaves.items()}}
+        for key, leaf in (('cond', cl), ('pitch', pl)):
+            if leaf is not None:
+                out[key] = leaf.grad
+        return out
+
+    with torch.no_grad():
+        z_fwd, ld_fwd = flow_stack_train(xd, mask, weights, cond, pitch,
+                                         seed=seed, dropout_rate=FLOW_RATE)
+    stored = [run(forced_route('store')) for _ in range(2)]
+    recomputed = run(forced_route('recompute'))
+    plain = run(flow_stack_train_reference)
+    plain32 = run(flow_stack_train_reference, torch.float32) if bf16 else None
+    got = stored[0]
+    for key in got:
+        assert (stored[1][key] != got[key]).sum().item() == 0, \
+            f'{label}: d{key} differs between two runs'
+        assert (recomputed[key] != got[key]).sum().item() == 0, \
+            f'{label}: d{key} differs between the stored and recomputed route'
+    assert (z_fwd.float() != got['z']).sum().item() == 0, \
+        f'{label}: the forward without gradient differs from the storing one'
+    assert torch.equal(ld_fwd, got['ld'])
+    worst = {'z': 0.0, 'grad': 0.0}
+    lines = []
+    for key, value in plain.items():
+        assert torch.isfinite(got[key]).all(), (label, key)
+        if not bf16:
+            rel = rel_err(got[key], value)
+            bar = (TRAIN_Z_REL_BOUND if key == 'z' else TRAIN_LD_REL_BOUND
+                   if key == 'ld' else GRAD_REL_BOUND)
+            assert rel < bar, (label, key, rel, bar)
+            lines.append(f'{key} {rel:.2e}')
+        elif key in ('z', 'ld'):
+            err, bar = bf16_error(got[key], value, plain32[key])
+            assert err <= bar, (label, key, err, bar)
+            lines.append(f'{key} {err:.2e} (bar {bar:.2e})')
+        elif plain32[key].norm() > 0:
+            to_f32 = norm_rel(got[key], plain32[key])
+            own = norm_rel(value, plain32[key])
+            to_plain = norm_rel(got[key], value)
+            assert to_f32 < BF16_GRAD_F32_BAR, (label, key, to_f32)
+            assert to_plain <= BF16_GRAD_FACTOR * own + BF16_GRAD_ATOL, (
+                label, key, to_plain, own)
+            lines.append(f'd{key} {to_plain:.2e} (own {own:.2e})')
+        err = (got[key] - value).abs().max().item()
+        worst['z' if key in ('z', 'ld') else 'grad'] = max(
+            worst['z' if key in ('z', 'ld') else 'grad'], err)
+
+    # the masks, element by element (the true 2ch's at a padded width)
+    step, differing, elements, _ = dropout_mask_errors(xd, mask, weights,
+                                                       seed, dtype)
+    assert differing == 0, (label, differing)
+
+    # per flow step: #5 storing (as a train step runs it) and under no_grad,
+    # #6, and the plain version, with the bounds of this run's work
+    leaves = {key: value.clone().requires_grad_()
+              for key, value in weights.items()}
+    xl = xd.detach().clone().requires_grad_()
+    cl = None if cond is None else cond.clone().requires_grad_()
+    inputs = [xl, *leaves.values()] + ([cl] if cl is not None else [])
+    times = {}
+    for name, fn, iters in (('kernel', flow_stack_train, B2_TIMED),
+                            ('plain', flow_stack_train_reference, 1)):
+        def forward():
+            return fn(xl, mask, leaves, cl, pitch, seed=SEED,
+                      dropout_rate=FLOW_RATE)
+        with torch.no_grad():
+            no_grad_ms = cuda_ms(forward, iters, 1)
+        fwd_ms = cuda_ms(forward, iters, 1)
+        z, ld = forward()
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            (z.float(), ld), inputs, (dz, dld), retain_graph=True), iters, 1)
+        times[name] = (fwd_ms / s_steps, no_grad_ms / s_steps,
+                       bwd_ms / s_steps)
+        del z, ld
+    per_step = {key: value[0] for key, value in weights.items()}
+    valid = mask.sum().item()
+    pitch_flops = 0 if pitch is None else 2 * pitch.shape[-1] * ch2 * n
+    flops = (step_frame_flops(per_step) + pitch_flops) * valid
+    weight_bytes = 4 * sum(value.numel() for value in per_step.values())
+    act = 2 if bf16 else 4
+    extra = 4 * ((0 if cond is None else cond[0].numel())
+                 + (0 if pitch is None else pitch.numel()))
+    moved = (2 * act * x.numel() + 4 * (mask.numel() + b) + weight_bytes
+             + extra)
+    saved_bytes = coupling_grad.saved_bytes_per_step(b * t, c, ch, n, dtype)
+    bwd_moved = (saved_bytes + act * x.numel() + 4 * 2 * x.numel()
+                 + 2 * weight_bytes + 2 * extra)
+    if bf16:
+        fwd_bounds = bf16_bounds(moved, flops)
+        bwd_bounds = bf16_bounds(bwd_moved, 2 * flops)
+    else:
+        fwd_bounds = body_bounds(moved, flops)
+        ms, by = bound(bwd_moved, 2 * flops, PEAK_TF32_FLOP_PER_S)
+        bwd_bounds = {'bound_ms': ms, 'bound_by': by}
+    at = 'bf16' if bf16 else 'f32'
+    print(f'B.2 {label} #5/#6 {at} vs plain {tuple(x.shape)}, {s_steps} '
+          f'steps of {n} layers (k {k}, ch {ch}), rate {FLOW_RATE}, '
+          f'{"cond and pitch" if pitch is not None else "no conditioning"}'
+          f': ' + ', '.join(lines) + f'; dropout masks of flow step {step}: '
+          f'{differing} differing of {elements}; stored and recomputed '
+          f'routes bit-equal, two runs bit-equal, the forward without '
+          f'gradient bit-equal to the storing one')
+    print(f'  per flow step ({int(valid)} valid frames): #5 storing '
+          f'{times["kernel"][0]:.4f} ms ({times["kernel"][1]:.4f} under '
+          f'no_grad), bound {fwd_bounds["bound_ms"]:.4f} ms by '
+          f'{fwd_bounds["bound_by"]}; #6 {times["kernel"][2]:.4f} ms, bound '
+          f'{bwd_bounds["bound_ms"]:.4f} ms by {bwd_bounds["bound_by"]}; '
+          f'plain forward {times["plain"][0]:.4f} ms, backward '
+          f'{times["plain"][2]:.4f} ms; saved '
+          f'{saved_bytes / 1e6:.0f} MB a step')
+    return ({'max_abs_err': worst['z'], 'ms': times['kernel'][0],
+             'no_grad_ms': times['kernel'][1], 'plain_ms': times['plain'][0],
+             **fwd_bounds},
+            {'max_abs_err': worst['grad'], 'ms': times['kernel'][2],
+             'plain_ms': times['plain'][2], **bwd_bounds})
+
+
+def b2_train_path(config, state, batch, device, label):
+    """The train path of ``config`` at B.2's ``label``: the ActNorm init,
+    then a train step through the kernels, counted: a #5 launch and
+    ``backward_launches_per_step`` #6 kernels a flow step on the build's
+    own counters, one MAS, nothing else.  At B2_TRAIN_FULL's builds the
+    same init and step also through the plain versions (and at bf16 the
+    plain versions at f32, the reference of the bf16 bars), with no
+    launch counted, from the same weights, seed and generator state: the
+    losses and grad_norm held to them (at f32 TRAIN_LOSS_REL_BOUND and
+    TRAIN_NORM_REL_BOUND, at bf16 the bf16 bar), and every gradient of
+    the flow decoder (norm-relative: 1e-3 at f32, the bf16 gradient bars);
+    then B2_MORE_STEPS more steps through the kernels with finite losses.
+    (At bf16 each decoder gradient is held to twice the bf16 plain
+    version's own distance from f32, not to the stack's 3e-2 of f32: a
+    whole step's weight-norm gradients sit further from f32 than that.)
+    Returns the launches by path."""
+    from glow_tts_tpu_torch import make_optimizer, make_train_step
+    from glow_tts_tpu_torch.ops.coupling import flow_step, flow_step_reference
+    from glow_tts_tpu_torch.ops.coupling_grad import (
+        backward_launches_per_step, flow_stack_train,
+        flow_stack_train_reference)
+    from glow_tts_tpu_torch.ops.mas import maximum_path, maximum_path_reference
+    from glow_tts_tpu_torch.training.step import conditioning_inputs
+    bf16 = config.compute_dtype == 'bfloat16'
+    gr = config.uses_gradient_reversal
+    full = (label, config.compute_dtype) in B2_TRAIN_FULL
+    flows = config.decoder.stack
+    n_layers = config.decoder.affine_coupling.wavenet.num_layers
+    tag = build_suffix(config, pitch=gr, bf16=bf16)
+    expected = {**no_launches(), f'train_fwd{tag}': flows,
+                f'train_bwd{tag}': flows * backward_launches_per_step(
+                    n_layers, gr), 'mas': 1}
+    runs = [('kernels', config, flow_step, flow_stack_train, maximum_path)]
+    if full:
+        runs.append(('plain', config, flow_step_reference,
+                     flow_stack_train_reference, maximum_path_reference))
+        if bf16:
+            runs.append(('plain f32', dataclasses.replace(
+                config, compute_dtype='float32'), flow_step_reference,
+                flow_stack_train_reference, maximum_path_reference))
+    keys = ['total', 'mle', 'duration'] + (['speaker'] if gr else [])
+    results, by_path = {}, {}
+    for name, cfg, step_fn, stack_fn, mas_fn in runs:
+        model = train_model(state, cfg, device)
+        model.data_dependent_init(batch['mels'], batch['mel_lengths'],
+                                  step_fn=step_fn,
+                                  **conditioning_inputs(batch))
+        train_step = make_train_step(
+            cfg, model, make_optimizer(cfg, model.parameters()), seed=SEED,
+            generator=torch.Generator(device=device).manual_seed(SEED),
+            stack_fn=stack_fn, mas_fn=mas_fn)
+        zero_counts()
+        metrics = train_step(batch)
+        counts = read_counts()
+        decoder = model.layer_Dict['Decoder']
+        grads = {key: p.grad.detach().float().clone()
+                 for key, p in decoder.named_parameters()
+                 if p.grad is not None}
+        if name == 'kernels':
+            assert counts == expected, (label, counts)
+            by_path[f'B.2 {label} train {cfg.compute_dtype}'] = counts
+            more = [train_step(batch) for _ in range(B2_MORE_STEPS if full
+                                                     else 0)]
+            for m in [metrics, *more]:
+                assert all(np.isfinite(v.item()) for v in m.values()), (
+                    label, m)
+        else:
+            assert not any(counts.values()), (label, name, counts)
+        results[name] = ({key: metrics[key].item()
+                          for key in keys + ['grad_norm']}, grads)
+        del model, train_step
+    k, k_grads = results['kernels']
+    line = (f'B.2 {label} train step at {config.compute_dtype} (B = '
+            f'{batch["mels"].shape[0]}, {batch["mels"].shape[1]} frames): '
+            + ' '.join(f'{key} {k[key]:.6f}' for key in keys)
+            + f' grad_norm {k["grad_norm"]:.5f}; launches '
+            + json.dumps({key: v for key, v in expected.items() if v}))
+    if not full:
+        print(line + ' (kernels only)')
+        return by_path
+    p, p_grads = results['plain']
+    worst = 0.0
+    if bf16:
+        p32, p32_grads = results['plain f32']
+        vec = {name: torch.tensor([r[0][key] for key in keys],
+                                  dtype=torch.float64)
+               for name, r in results.items()}
+        err, bar = bf16_error(vec['kernels'], vec['plain'], vec['plain f32'])
+        assert err <= bar, (label, err, bar)
+        # a whole step's parameter gradients at bf16 (weight norm's g
+        # among them) sit further from f32 than the stack's gradients: each
+        # is held to twice the bf16 plain version's own distance from f32
+        worst_own = 0.0
+        for key, value in k_grads.items():
+            if p32_grads[key].norm() == 0:
+                continue
+            own = norm_rel(p_grads[key], p32_grads[key])
+            to_plain = norm_rel(value, p_grads[key])
+            assert to_plain <= BF16_GRAD_FACTOR * own + BF16_GRAD_ATOL, (
+                label, key, to_plain, own)
+            worst, worst_own = max(worst, to_plain), max(worst_own, own)
+        line += (f'; losses vs bf16 plain max abs err {err:.3e} (bar '
+                 f'{bar:.3e}); decoder gradients norm-rel to bf16 plain at '
+                 f'most {worst:.3e} (bf16 plain to f32 plain at most '
+                 f'{worst_own:.3e})')
+    else:
+        for key in keys + ['grad_norm']:
+            bar = (TRAIN_NORM_REL_BOUND if key == 'grad_norm'
+                   else TRAIN_LOSS_REL_BOUND)
+            assert abs(k[key] - p[key]) <= bar * abs(p[key]), (label, key,
+                                                               k, p)
+        for key, value in k_grads.items():
+            if p_grads[key].norm() == 0:
+                assert value.norm() == 0, (label, key)
+                continue
+            rel = norm_rel(value, p_grads[key])
+            assert rel < TRAIN_NORM_REL_BOUND, (label, key, rel)
+            worst = max(worst, rel)
+        line += ('; plain ' + ' '.join(f'{key} {p[key]:.6f}' for key in keys)
+                 + f' grad_norm {p["grad_norm"]:.5f}; decoder gradients '
+                 f'norm-rel at most {worst:.3e} (bar '
+                 f'{TRAIN_NORM_REL_BOUND:.0e})')
+    print(line + f'; then {B2_MORE_STEPS} more steps, losses finite')
+    return by_path
 
 
 def random_state_dict_of(config):
@@ -5379,19 +5694,23 @@ def random_state_dict_of(config):
 
 
 def run_b2_shapes_phase(card, device=None):
-    """The deterministic kernels (#3, #2, #4) at decoder shapes besides the
-    shipped two (ROADMAP B.2), each build at f32 and bf16 (B2_SHAPES):
-    each kernel against its plain version at B = 32 x T_f = 512, all
-    frames valid and on the eval batch's ragged mask, both directions, #4
-    bit-equal to 12 chained #3 launches, #2 bf16 bit-equal to #3 bf16 on an
-    identity ActNorm and mixing, each timed (by CUDA graph at the decode
-    shape) beside its bound; the ActNorm init and one eval step at B = 32
-    x 224 tokens x 1024 frames under each route (counted).  At C = 200
-    (100-bin mels, the shipped WaveNet) the init and eval are held to the
-    plain versions (loss bars), and an Inferencer serves B = 32 in the
-    1024 bucket under each route at f32 and bf16; a train step there
-    raises B.2's error.  Returns the kernels line's rows (by build and
-    dtype) and the launches by path."""
+    """Every flow kernel at decoder shapes besides the shipped two
+    (ROADMAP B.2), each build at f32 and bf16 (B2_SHAPES).  The
+    deterministic ones (#3, #2, #4): each against its plain version at B =
+    32 x T_f = 512, all frames valid and on the eval batch's ragged mask,
+    both directions, #4 bit-equal to 12 chained #3 launches, #2 bf16
+    bit-equal to #3 bf16 on an identity ActNorm and mixing, each timed (by
+    CUDA graph at the decode shape) beside its bound; the ActNorm init and
+    one eval step at B = 32 x 224 tokens x 1024 frames under each route
+    (counted).  The train pair (#5, #6): against their plain versions on
+    the train batch's operands (check_b2_train_kernels), and a train step
+    through them (counted; b2_train_path).  At C = 200 (100-bin mels, the
+    shipped WaveNet) the init and eval are held to the plain versions
+    (loss bars), the train step too (B2_TRAIN_FULL), and an Inferencer
+    serves B = 32 in the 1024 bucket under each route at f32 and bf16; a
+    train step at a shape no train build takes raises B.2's error.
+    Returns the kernels line's rows (by build and dtype) and the launches
+    by path."""
     from glow_tts_tpu_torch import TrainCollater, batch_to_device
     from glow_tts_tpu_torch.models.decoder import squeeze
     from glow_tts_tpu_torch.models.layers import sequence_mask
@@ -5431,6 +5750,18 @@ def run_b2_shapes_phase(card, device=None):
                                    f'B.2 {label} {at}', 1, plain=full)
             by_path.update(paths)
         del model
+        # the train pair: against the plain versions on a train step's
+        # operands, then a train step through it (counted), at each dtype
+        problem = b2_train_problem(label, f32, state, batch, device)
+        for dtype in (torch.float32, BF16):
+            at = 'bfloat16' if dtype == BF16 else 'float32'
+            tag = ('_bf16_' if dtype == BF16 else '_') + label
+            fwd_row, bwd_row = check_b2_train_kernels(problem, dtype, label)
+            rows['flow_train_fwd' + tag] = fwd_row
+            rows['flow_train_bwd' + tag] = bwd_row
+            by_path.update(b2_train_path(dataclasses.replace(
+                f32, compute_dtype=at), state, batch, device, label))
+        del problem
         if full:
             items = [{'label': f'v{i}',
                       'text': text_filtering(INFERENCE_TEXTS[i % 4])}
@@ -5439,11 +5770,8 @@ def run_b2_shapes_phase(card, device=None):
                                         f'B.2 {label}'))
             by_path.update(serve_bf16_routes(f32, state, items, device,
                                              f'B.2 {label}'))
-            for at in ('float32', 'bfloat16'):
-                check_b2_train_refused(
-                    dataclasses.replace(f32, compute_dtype=at), batch,
-                    device, f'B.2 {label}')
         seconds[label] = round(time.perf_counter() - begun, 1)
+    check_b2_train_refused(device)
     print('B.2 shapes phase: ' + json.dumps({
         'seconds_by_build': seconds,
         'seconds': round(time.perf_counter() - start, 1), 'card': card}))
@@ -7075,13 +7403,13 @@ def main():
                   for bf16 in (False, True) for channels in (160, 80)
                   for pitch in (False, True)
                   for source, load in flow_loaders},
-               # the deterministic kernels at the B.2 shapes, each at f32
-               # and bf16
+               # every flow source at the B.2 shapes, each at f32 and
+               # bf16
                **{(source, coupling.build_defines(shape, ps, bf16)):
                   functools.partial(load, ps, shape, bf16)
                   for bf16 in (False, True)
                   for shape, ps in B2_SHAPES.values()
-                  for source, load in flow_loaders[:3]}}
+                  for source, load in flow_loaders}}
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc each, together
         for build in [pool.submit(load) for load in sources.values()]:
             build.result()
@@ -7096,7 +7424,7 @@ def main():
         start = now
 
     print(f'kernel builds: {len(sources)} libraries built and loaded in '
-          f'{time.perf_counter() - start:.1f} s ({len(B2_SHAPES) * 6} of '
+          f'{time.perf_counter() - start:.1f} s ({len(B2_SHAPES) * 10} of '
           f'them the B.2 shapes\' builds)')
     for source, defines in sources:
         for line in cuda_build.ptxas_report(source, defines):
@@ -7210,8 +7538,9 @@ def main():
         pitch_rows, train_pitch_rows, device, card)
     by_path.update(squeeze1_paths)
     phase_done('GR squeeze 1')
-    # ROADMAP B.2: #3, #2 and #4 at other decoder shapes (100-bin mels,
-    # tiny_config's decoder, another WaveNet); serving and eval at C = 200
+    # ROADMAP B.2: every flow kernel at other decoder shapes (100-bin mels,
+    # tiny_config's decoder, another WaveNet); serving, eval and training
+    # at C = 200 held to the plain versions
     b2_rows, b2_paths = run_b2_shapes_phase(card, device)
     by_path.update(b2_paths)
     phase_done('B.2 shapes')
@@ -7402,27 +7731,34 @@ def main():
               ('flow_train_bwd', 'train_bwd',
                'glow_tts_tpu/ops/coupling_grad.py:195',
                'fused_flow_stack_train (backward)'))),
-        # ROADMAP B.2: the deterministic kernels at other decoder shapes,
-        # each a build of its own at f32 and bf16
+        # ROADMAP B.2: every flow kernel at other decoder shapes, each a
+        # build of its own at f32 and bf16 (the train pair's rows per flow
+        # step, the forward storing)
         *({'name': f'{name}{tag}', 'route': 'cuda',
            'source': csrc + f'{name}.cu',
            'build': ' '.join(f'-D{d}' for d in defines) or '(shipped)',
            'shape': dict(zip(('channels', 'ch', 'n_layers', 'kernel_size'),
                              shape), pitch_size=ps),
            'replaces': replaces, 'entry': entry,
-           **launches(f'{name}{tag}'), **b2_rows[f'{name}{tag}'],
+           **launches(f'{counter}{tag}'), **b2_rows[f'{name}{tag}'],
            **ring_body(name, defines), 'library_ms': None}
           for label, (shape, ps) in B2_SHAPES.items()
           for bf16 in (False, True)
           for tag, defines in [(('_bf16_' if bf16 else '_') + label,
                                 coupling.build_defines(shape, ps, bf16))]
-          for name, replaces, entry in (
-              ('flow_step', 'glow_tts_tpu/ops/coupling.py:190',
+          for name, counter, replaces, entry in (
+              ('flow_step', 'flow_step', 'glow_tts_tpu/ops/coupling.py:190',
                'fused_flow_step'),
-              ('coupling', 'glow_tts_tpu/ops/coupling.py:190',
+              ('coupling', 'coupling', 'glow_tts_tpu/ops/coupling.py:190',
                'fused_coupling'),
-              ('flow_stack', 'glow_tts_tpu/ops/coupling.py:296',
-               'fused_flow_stack')))]}))
+              ('flow_stack', 'flow_stack',
+               'glow_tts_tpu/ops/coupling.py:296', 'fused_flow_stack'),
+              ('flow_train_fwd', 'train_fwd',
+               'glow_tts_tpu/ops/coupling_grad.py:97',
+               'fused_flow_stack_train'),
+              ('flow_train_bwd', 'train_bwd',
+               'glow_tts_tpu/ops/coupling_grad.py:195',
+               'fused_flow_stack_train (backward)')))]}))
     print(f'chip_smoke: {time.perf_counter() - begun:.0f} s in all, the '
           f'kernels\' build included; by phase {json.dumps(phases)}')
     print(card)

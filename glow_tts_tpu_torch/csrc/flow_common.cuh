@@ -207,6 +207,11 @@ constexpr int kChPad = ceil_div(GLOW_CH, 64) * 64;
   (GLOW_CH == 192 && GLOW_LAYERS == 4 && GLOW_KSIZE == 5 &&             \
    (GLOW_CHANNELS == 160 || GLOW_CHANNELS == 80))
 using Built = Shape<GLOW_CHANNELS, kChPad, GLOW_LAYERS, GLOW_KSIZE, 32>;
+// The width a saving instantiation (flow_train_fwd.cu) stores every
+// layer's input, gate halves and the skip sum at: the true ch, not the
+// body's padded one, so neither the stored bytes nor flow_train_bwd.cu's
+// products (sized at ch) grow with the padding.
+constexpr int kSavedCh = GLOW_CH;
 
 // a block's shared memory on an H100 (227 KB), and the batch a launch's
 // live-tile list is budgeted for
@@ -687,13 +692,13 @@ HD StepWeights step_of_stack(const StepWeights& stacked, int s) {
 }
 
 // Where a saving instantiation leaves what a backward pass reads, each over
-// the B*T frames, in the activations' type.
+// the B*T frames, in the activations' type; ch is kSavedCh (the true ch).
 struct SavePointers {
   act_t* y;     // [B*T, C]        ActNorm output, masked
   act_t* yd;    // [B*T, C]        mixing output [x_a, x_b], masked
-  act_t* xin;   // [NL, B*T, CH]   input of every layer
-  act_t* ts;    // [NL, B*T, 2CH]  tanh half, sigmoid half
-  act_t* skip;  // [B*T, CH]       masked skip sum
+  act_t* xin;   // [NL, B*T, ch]   input of every layer
+  act_t* ts;    // [NL, B*T, 2ch]  tanh half, sigmoid half
+  act_t* skip;  // [B*T, ch]       masked skip sum
   act_t* logs;  // [B*T, C/2]
 };
 
@@ -818,24 +823,26 @@ __device__ __forceinline__ void wavenet_layers(const Tile<S>& tile,
   const float* const b_rs = w.b_rs + I * CH2;
   const size_t frames = static_cast<size_t>(tile.B) * tile.T;
 
+  // the saved values' width (the true ch: kSavedCh)
+  constexpr int SCH = kSavedCh;
 #ifdef GLOW_BF16_TILES
   constexpr int HPB = S::HPB, GPB = S::GPB;
   act_t* const hb = tile.hb;
   act_t* const gb = tile.gb;
   if constexpr (SAVE) {
     // the owned rows of h, 16 bytes at a time as they lie
-    for (int i = threadIdx.x; i < TT * (CH / 8); i += kThreads) {
-      const int r = i / (CH / 8), c = 8 * (i % (CH / 8));
+    for (int i = threadIdx.x; i < TT * (SCH / 8); i += kThreads) {
+      const int r = i / (SCH / 8), c = 8 * (i % (SCH / 8));
       const int t = tile.t0 + HALO + r;
       if (t < tile.T)
-        __stcs(reinterpret_cast<uint4*>(save.xin + I * frames * CH +
-                                        (tile.sample + t) * CH + c),
+        __stcs(reinterpret_cast<uint4*>(save.xin + I * frames * SCH +
+                                        (tile.sample + t) * SCH + c),
                *reinterpret_cast<const uint4*>(hb + (HALO + r) * HPB + c));
     }
   }
 #else
   if constexpr (SAVE)
-    tile.store_owned(save.xin + I * frames * CH, hs + HALO * HP, HP, CH);
+    tile.store_owned(save.xin + I * frames * SCH, hs + HALO * HP, HP, SCH);
 #endif
   {
     // k-tap conv of rows [lo, lo + rows), which read h rows [lo - PAD,
@@ -876,17 +883,20 @@ __device__ __forceinline__ void wavenet_layers(const Tile<S>& tile,
       gs[r * GP + c] = act_round(th * sg);
 #endif
       if constexpr (SAVE) {
+        // staged as the saved row [tanh, sigmoid], each half SCH wide: a
+        // padded channel's halves are not stored
         const int own = row - HALO;
-        if (own >= 0 && own < TT) {
+        if (own >= 0 && own < TT && (SCH == CH || c < SCH)) {
           tile.ts[own * S::TSP + c] = th;
-          tile.ts[own * S::TSP + CH + c] = sg;
+          tile.ts[own * S::TSP + SCH + c] = sg;
         }
       }
     });
   }
   __syncthreads();
   if constexpr (SAVE)
-    tile.store_owned(save.ts + I * frames * CH2, tile.ts, S::TSP, CH2);
+    tile.store_owned(save.ts + I * frames * 2 * SCH, tile.ts, S::TSP,
+                     2 * SCH);
   if constexpr (I < S::NL - 1) {
     // res half updates h in place (this GEMM reads only the gate); skip
     // half accumulates on the central rows
@@ -1017,7 +1027,7 @@ __device__ __forceinline__ void coupling_net(const Tile<S>& tile,
     s = act_round(s * ms[HALO + i / CH]);
   }
   __syncthreads();
-  if constexpr (SAVE) tile.store_owned(save.skip, skip, SP, CH);
+  if constexpr (SAVE) tile.store_owned(save.skip, skip, SP, kSavedCh);
   block_gemm<S::mr(TT), lane_quads(C)>(
       skip, SP, CH, w.w_end, C, C / 4, [&](int r, int col, float4 v) {
         if (r < TT) at4(gs + r * C + col) = add4(v, ldg4(w.b_end + col));
@@ -1100,16 +1110,30 @@ struct BiasPreGate {
 #endif
 constexpr int kPitchSize = GLOW_PITCH_SIZE;
 
+// The bytes a block of shape S stages a saving instantiation's gate halves
+// in, behind its buffers (Shape::SAVE_FLOATS): flow_train_fwd.cu defines
+// GLOW_SAVE_STAGE, and each of its kernels has the stage, saving or not.
+// 0 in every other source.
+template <class S>
+HD constexpr size_t save_stage_bytes() {
+#ifdef GLOW_SAVE_STAGE
+  return sizeof(float) * S::SAVE_FLOATS;
+#else
+  return 0;
+#endif
+}
+
 // Whether a block of shape S stages a flow step's w_pitch [NL, PS, 2CH]
 // beside its tile's pitch rows [R, PS] (12.4 KB at the shipped shape, 6.2
-// KB at PS = 1): where the buffers, the live-tile list of kMaxBatch
-// samples, the static arrays and that stage fit the block; else the
-// epilogue reads w_pitch where it lies.  ops/coupling.py::geometry decides
-// the same (stage_w_pitch) and the library reports it.
+// KB at PS = 1): where the buffers (and a saving stage), the live-tile
+// list of kMaxBatch samples, the static arrays and that stage fit the
+// block; else the epilogue reads w_pitch where it lies.
+// ops/coupling.py::geometry decides the same (stage_w_pitch) and the
+// library reports it.
 template <class S, int PS>
 HD constexpr bool stages_w_pitch() {
-  return S::smem_bytes + 4 * (2 * kMaxBatch + 1) + S::STATIC_BYTES +
-             4 * PS * (S::R + S::NL * S::CH2) <=
+  return S::smem_bytes + save_stage_bytes<S>() + 4 * (2 * kMaxBatch + 1) +
+             S::STATIC_BYTES + 4 * PS * (S::R + S::NL * S::CH2) <=
          static_cast<size_t>(kBlockBytes);
 }
 
@@ -1202,19 +1226,22 @@ HD constexpr size_t pitch_stage_bytes() {
              : 4 * kPitchSize * S::R;
 }
 
-// The float32 body's block: the buffers, the live-tile list of kMaxBatch
-// samples, the static arrays and the pitch stage within the 227 KB (a
-// saving kernel adds its staging: flow_train_fwd.cu)
-static_assert(Built::smem_bytes + 4 * (2 * kMaxBatch + 1) +
-                      Built::STATIC_BYTES + pitch_stage_bytes<Built>() <=
+// The float32 body's block: the buffers (and flow_train_fwd.cu's saving
+// stage), the live-tile list of kMaxBatch samples, the static arrays and the
+// pitch stage within the 227 KB
+static_assert(Built::smem_bytes + save_stage_bytes<Built>() +
+                      4 * (2 * kMaxBatch + 1) + Built::STATIC_BYTES +
+                      pitch_stage_bytes<Built>() <=
                   static_cast<size_t>(kBlockBytes),
-              "over the 227 KB block limit");
+              "over the 227 KB block limit (ROADMAP.md B.2)");
 
-// What a deterministic flow library reports of its build, as
-// ops/coupling.py::geometry computes it (GEOMETRY_FIELDS, in order): the
+// What a flow library (a deterministic one, or flow_train_fwd.cu's) reports
+// of its build, as ops/coupling.py::geometry computes it (GEOMETRY_FIELDS,
+// in order): the
 // shape's macros, the pitch operand's width (0 without), then the body S's
 // time tile, WaveNet width, ring slice depth and half widths (0 in the
-// float32 body), dynamic buffers' bytes and whether it stages w_pitch.
+// float32 body), dynamic buffers' bytes (a saving stage included) and
+// whether it stages w_pitch.
 // Writes at most n ints; returns how many it has.
 template <class S>
 int write_geometry(int* out, int n) {
@@ -1228,7 +1255,8 @@ int write_geometry(int* out, int n) {
                         S::RING_DEPTH,
                         S::HALF_SMALL,
                         S::HALF_BIG,
-                        static_cast<int>(S::smem_bytes),
+                        static_cast<int>(S::smem_bytes +
+                                         save_stage_bytes<S>()),
                         kPitch && stages_w_pitch<S, kPitchSize>()};
   constexpr int count = sizeof(fields) / sizeof(fields[0]);
   for (int i = 0; i < n && i < count; ++i) out[i] = fields[i];

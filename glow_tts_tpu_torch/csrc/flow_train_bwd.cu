@@ -134,18 +134,40 @@ constexpr int kThreads = 256;
 constexpr int kStages = 4;   // depth of the cp.async ring
 constexpr int BK = 32;       // depth of a staged slice
 
-// The flow's channel count C of this build: the shipped config's 160 unless
-// the build defines another (-DGLOW_CHANNELS=80: MiniSpeech, Num_Squeeze
-// 1), as for flow_common.cuh.  The products are sized at run time; what C
-// changes is the depth of two activation-gradient products, the end conv's
-// and the mixing's, which is C: at 80 it is not a multiple of a slice, and
-// only such a build has the instantiations that zero-fill a slice past the
-// depth (TAIL), so the 160-channel build's kernels are what they were.
+// The decoder shape of this build, as for flow_common.cuh: the flow's
+// channel count C (the shipped config's 160 unless the build defines
+// another: -DGLOW_CHANNELS=80 for MiniSpeech's Num_Squeeze 1, 200 for
+// 100-bin mels) and the WaveNet's ch, layers and taps (192, 4, 5 unless
+// defined; ops/coupling.py::build_defines).  The products are sized at run
+// time from the entry's arguments, which must be these.  What the shape
+// changes in the device code: the depth of the activation-gradient
+// products is C (the end conv's and the mixing's), ch (the start conv's)
+// or 2ch (the res/skip and k-tap convs'); where one of them is not a
+// multiple of a slice, the build has the float32 instantiations that
+// zero-fill a slice past the depth (TAIL), so the builds whose depths all
+// are (160 channels at the shipped WaveNet) keep the kernels they had.
 #ifndef GLOW_CHANNELS
 #define GLOW_CHANNELS 160
 #endif
+#ifndef GLOW_CH
+#define GLOW_CH 192
+#endif
+#ifndef GLOW_LAYERS
+#define GLOW_LAYERS 4
+#endif
+#ifndef GLOW_KSIZE
+#define GLOW_KSIZE 5
+#endif
 constexpr int kChannels = GLOW_CHANNELS;
-constexpr bool kDepthTail = kChannels % BK != 0;
+constexpr bool kDepthTail = kChannels % BK != 0 || GLOW_CH % BK != 0;
+// The TF32 passes of the float32 builds' measuring instantiations (one
+// pass): 1 in the builds of the shipped shapes (160 and 80 channels at the
+// shipped WaveNet), which keep them; every other shape's build compiles the
+// shipped 3 passes alone, in half the time, and its entries refuse 1.
+constexpr bool kShippedShape = GLOW_CH == 192 && GLOW_LAYERS == 4 &&
+                               GLOW_KSIZE == 5 &&
+                               (kChannels == 160 || kChannels == 80);
+constexpr int kOnePass = kShippedShape ? 1 : 3;
 
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
@@ -573,10 +595,10 @@ cudaError_t launch_nt(const NtArgs& g, const Epilogue& epilogue, int B,
   } else {
   if constexpr (kDepthTail) {
     if (g.kseg % BK)
-      return passes == 1 ? launch_nt_as<1, true>(g, epilogue, B, stream)
+      return passes == 1 ? launch_nt_as<kOnePass, true>(g, epilogue, B, stream)
                          : launch_nt_as<3, true>(g, epilogue, B, stream);
   }
-  return passes == 1 ? launch_nt_as<1, false>(g, epilogue, B, stream)
+  return passes == 1 ? launch_nt_as<kOnePass, false>(g, epilogue, B, stream)
                      : launch_nt_as<3, false>(g, epilogue, B, stream);
   }
 }
@@ -873,7 +895,8 @@ cudaError_t launch_tn(const TnArgs& g, int passes, cudaStream_t stream) {
   if constexpr (kBf16) {
     return launch_tn_as<1>(g, stream);
   } else {
-  return passes == 1 ? launch_tn_as<1>(g, stream) : launch_tn_as<3>(g, stream);
+  return passes == 1 ? launch_tn_as<kOnePass>(g, stream)
+                     : launch_tn_as<3>(g, stream);
   }
 }
 
@@ -949,10 +972,12 @@ cudaError_t launch_pair(const NtArgs& nt, const Epilogue& epilogue,
   } else {
   if constexpr (kDepthTail) {
     if (nt.kseg % BK)
-      return passes == 1 ? launch_pair_as<1, true>(nt, epilogue, tn, stream)
+      return passes == 1 ? launch_pair_as<kOnePass, true>(nt, epilogue, tn,
+                                                          stream)
                          : launch_pair_as<3, true>(nt, epilogue, tn, stream);
   }
-  return passes == 1 ? launch_pair_as<1, false>(nt, epilogue, tn, stream)
+  return passes == 1 ? launch_pair_as<kOnePass, false>(nt, epilogue, tn,
+                                                      stream)
                      : launch_pair_as<3, false>(nt, epilogue, tn, stream);
   }
 }
@@ -1012,10 +1037,14 @@ cudaError_t launch_sums(SumJobs jobs, int B, int T, const int* lengths,
 // Width of GR mode's pitch operand, num_squeeze, as flow_common.cuh's
 // kPitchSize (this source does not include that header): GLOW_PITCH_SIZE,
 // or 2 at 160 channels and 1 at 80 where the build does not name it.
-static_assert(kChannels == 160 || kChannels == 80,
-              "flow widths other than 160 and 80 are not built (B.2)");
 #ifndef GLOW_PITCH_SIZE
-#define GLOW_PITCH_SIZE (kChannels == 160 ? 2 : 1)
+#if GLOW_CHANNELS == 160
+#define GLOW_PITCH_SIZE 2
+#elif GLOW_CHANNELS == 80
+#define GLOW_PITCH_SIZE 1
+#else
+#error "a pitch build of this width names its num_squeeze (GLOW_PITCH_SIZE)"
+#endif
 #endif
 constexpr int kPitchSize = GLOW_PITCH_SIZE;
 
@@ -1095,8 +1124,12 @@ cudaError_t launch_pitch_backward(const float* dacc, const float* pitch,
 
 // dst[j] = src[j] + src[stride + j] + ... over `parts` partials, added in
 // their order; count, stride % 4 == 0.  One job per gradient tensor
-// (blockIdx.y).
-constexpr int kMaxReduce = 32;
+// (blockIdx.y): 7 + 4 n of a step of n layers, 7 + 5 n in a pitch build, so
+// the jobs are sized by the build's layers (32 bytes each: a 16-layer
+// pitch build's 87 fit the 4 KB of a launch's parameters), and at least
+// the 32 the builds of 4 layers have.
+constexpr int kMaxReduce = 7 + 5 * GLOW_LAYERS > 32 ? 7 + 5 * GLOW_LAYERS
+                                                    : 32;
 constexpr int kReducePerBlock = 4 * kThreads;
 
 struct ReduceJob {
@@ -1198,6 +1231,10 @@ extern "C" {
 // The flow's channel count this library is built for (GLOW_CHANNELS).
 int glow_flow_channels() { return kChannels; }
 
+// The reduction's jobs a launch takes (kMaxReduce): the entry refuses a
+// step that needs more.
+int glow_flow_train_bwd_max_reduce() { return kMaxReduce; }
+
 const char* glow_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
@@ -1218,6 +1255,7 @@ int glow_flow_train_bwd_dgrad_f32(const act_t* a, const act_t* w,
                                   float* out, int B, int T, int lda, int ldw,
                                   int kseg, int taps, int N, int passes,
                                   void* stream) {
+  if (passes == 1 && !kBf16 && !kShippedShape) return cudaErrorInvalidValue;
   if (B <= 0 || T <= 0) return cudaSuccess;
   return launch_nt({a, w, lda, ldw, kseg, taps, (taps - 1) / 2, N * ldw, N, T,
                     lengths},
@@ -1233,6 +1271,7 @@ int glow_flow_train_bwd_wgrad_f32(const act_t* p, const act_t* g,
                                   const int* lengths, float* part, float* out,
                                   int B, int T, int ldp, int ldg, int kseg,
                                   int taps, int N, int passes, void* stream_) {
+  if (passes == 1 && !kBf16 && !kShippedShape) return cudaErrorInvalidValue;
   if (B <= 0 || T <= 0) return cudaSuccess;
   auto stream = static_cast<cudaStream_t>(stream_);
   CHECK(launch_tn(tn_args(p, ldp, kseg, taps, (taps - 1) / 2, g, ldg, N, part,
@@ -1279,7 +1318,8 @@ int glow_flow_train_bwd_wgrad_f32(const act_t* p, const act_t* g,
 //      wanted)   32 partials of w_pitch [n,B,PS,ch2]
 //       GLOW_BF16 builds, the cotangents rounded to bfloat16 as the products
 //       read them:   33 douts [M,C]   34 drs [M,ch2]   35 dpre [M,ch2]
-// passes is 3 (3xTF32, float32 accuracy) or 1 (plain TF32); in a GLOW_BF16
+// passes is 3 (3xTF32, float32 accuracy) or, at a shipped shape
+// (kShippedShape), 1 (plain TF32); in a GLOW_BF16
 // build, where in[0..6], in[11..15], out[5] and out[7] are bfloat16, it is 1
 // (one bfloat16 product).  *launched receives the number of kernels the
 // call launched: 6 + 4 n, and n more in a GLOW_PITCH build.  Returns a
@@ -1290,7 +1330,10 @@ int glow_flow_train_bwd_step_f32(const float* const* in, float* const* out,
                                  float scale, int dropout, int passes,
                                  void* stream_ptr, int* launched) {
   *launched = 0;
-  if (C != kChannels || (kBf16 && passes != 1)) return cudaErrorInvalidValue;
+  if (C != kChannels || ch != GLOW_CH || n != GLOW_LAYERS ||
+      k != GLOW_KSIZE || (kBf16 && passes != 1) ||
+      (!kBf16 && passes == 1 && !kShippedShape))
+    return cudaErrorInvalidValue;
   if (B <= 0 || T <= 0) return cudaSuccess;
 #ifdef GLOW_PITCH
   if (7 + 5 * n > kMaxReduce || !out[4] || !in[17] || !in[18] || !out[30] ||

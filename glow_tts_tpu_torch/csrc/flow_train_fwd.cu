@@ -57,8 +57,10 @@
 // staged in static shared memory once a tile
 // (flow_common.cuh::PitchPreGate's staging;
 // frames outside [0, T) staged as 0), so the epilogue, where the body has
-// no registers to spare, reads no global memory for them.  All three
-// instantiations and the backward's recompute have it.
+// no registers to spare, reads no global memory for them; at a shape whose
+// block has no room for w_pitch beside the saving stage (C = 256, or k = 9,
+// with the shipped WaveNet) the epilogue reads w_pitch where it lies.  All
+// three instantiations and the backward's recompute have it.
 //
 // What bounds it: arithmetic, as flow_step.cu (3.7 MFLOP per frame and
 // step against a few bytes); the hash adds ~20 integer operations per
@@ -96,26 +98,36 @@
 #ifdef GLOW_BF16
 #define GLOW_BF16_TILES
 #endif
+// every kernel of this source has the saving stage (flow_common.cuh counts
+// it in the block's budget and in whether w_pitch is staged)
+#define GLOW_SAVE_STAGE
 
 #include "dropmask.cuh"
 #include "flow_common.cuh"
 
 namespace {
 
-// The train kernels are built at the shipped WaveNet for 160 and 80 flow
-// channels (other shapes: ROADMAP.md B.2's train half); the block's
-// buffers with the saving kernels' staging, the live-tile list of a batch
-// of up to kMaxBatch, and the whole pitch stage (DropoutPreGate reads
-// w_pitch staged) within the 227 KB.
-static_assert((Built::C == 160 || Built::C == 80) && GLOW_CH == 192 &&
-                  GLOW_LAYERS == 4 && GLOW_KSIZE == 5,
-              "the train kernels' shapes: 160 and 80 (ROADMAP.md B.2)");
-static_assert(Built::smem_bytes + 4 * Built::SAVE_FLOATS +
-                      4 * (2 * kMaxBatch + 1) <=
-                  static_cast<size_t>(kBlockBytes),
-              "over the 227 KB block limit");
-static_assert(!kPitch || stages_w_pitch<Built, kPitchSize>(),
-              "the pitch stage holds w_pitch");
+// Other decoder shapes (ROADMAP.md B.2): the body computes the WaveNet at ch
+// padded to kChPad, on weights, b_in, conditioning rows and pitch weights
+// padded with zeros (ops/coupling.py::padded_wavenet), and stores the saved
+// values at the true ch (kSavedCh), 16 bytes (bf16) or a float4 at a time;
+// ops/coupling.py::train_error refuses the widths these stores do not take.
+static_assert(kSavedCh % (kBf16 ? 8 : 4) == 0,
+              "the saved rows' width (ROADMAP.md B.2)");
+
+// The column of the true pre-gate sum [2ch] that column col of the padded
+// one [2CH] (two halves CH wide) is: the counter of its dropout bit, as
+// glow_tts_tpu's masks are laid out over the true 2ch
+// (ops/dropmask.py::stack_mask).  A padded column is zero before and after
+// the dropout, so its counter does not matter.  The identity at ch = CH.
+template <class S>
+__device__ __forceinline__ int true_column(int col) {
+  if constexpr (S::CH == kSavedCh) {
+    return col;
+  } else {
+    return col < S::CH ? col : col - (S::CH - kSavedCh);
+  }
+}
 
 struct Params {
   const act_t* x;        // [B, T, C]   this step's input
@@ -155,16 +167,18 @@ struct DropoutPreGate {
     int b, t0;
 #ifdef GLOW_PITCH
     const float* p;      // [R, kPitchSize], staged
-    const float* w;      // [kPitchSize, 2CH], staged: this layer's
+    const float* w;      // [kPitchSize, 2CH]: this layer's, staged where
+                         // the block has room
 #endif
     __device__ float operator()(int row, int col, float v) const {
       v += __ldg(b_in + col);
       if (drop.enabled)
         // frames outside [0, T) draw some bits too; their rows never
-        // reach an output
+        // reach an output.  The counter runs over the true 2ch.
         v *= dropmask::keep_factor(
-            drop, dropmask::row_counter(b, t0 + row, rows_per_sample, ch2,
-                                        salt) + col);
+            drop, dropmask::row_counter(b, t0 + row, rows_per_sample,
+                                        2 * kSavedCh, salt) +
+                      true_column<Built>(col));
       if (cond) v += __ldg(cond + col);
 #ifdef GLOW_PITCH
       float term = 0.f;
@@ -185,7 +199,12 @@ struct DropoutPreGate {
   template <class S>
   __device__ Layer layer(int i, const Tile<S>& tile) const {
 #ifdef GLOW_PITCH
+    // w_pitch staged where the block has room for it (stages_w_pitch),
+    // else read where it lies
     const float* const st = pitch_stage<S, kPitchSize>();
+    const float* const w =
+        stages_w_pitch<S, kPitchSize>() ? st + S::R * kPitchSize
+                                        : pitch.w_pitch;
 #endif
     return {b_in + i * S::CH2,
             cond ? cond + (static_cast<size_t>(i) * tile.B + tile.b) * S::CH2
@@ -194,7 +213,7 @@ struct DropoutPreGate {
             static_cast<unsigned>(tile.T + S::KS - 1), S::CH2, tile.b,
             tile.t0
 #ifdef GLOW_PITCH
-            , st, st + S::R * kPitchSize + i * kPitchSize * S::CH2
+            , st, w + i * kPitchSize * S::CH2
 #endif
     };
   }
@@ -225,7 +244,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int end = min(items.length[id.b] + S::PAD, p.T);
         const size_t frames = static_cast<size_t>(p.B) * p.T;
         for (int i = 0; i < S::NL; ++i)
-          tile.zero_owned(p.save.xin + i * frames * S::CH, S::CH, end);
+          tile.zero_owned(p.save.xin + i * frames * kSavedCh, kSavedCh, end);
       }
       continue;
     }
@@ -271,22 +290,30 @@ int glow_flow_train_time_tile() { return Built::TT; }
 // The flow's channel count this library is built for (GLOW_CHANNELS).
 int glow_flow_channels() { return Built::C; }
 
+// What the build is (flow_common.cuh::write_geometry; the dynamic buffers
+// with the saving stage): ops/coupling.py::geometry(..., train=True).
+int glow_flow_geometry(int* out, int n) { return write_geometry<Built>(out, n); }
+
 const char* glow_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 // Flow steps [step_begin, step_end) of a stack of stacked weights ([S, ...]
-// each, shapes those of Built: C = glow_flow_channels(), ch=192, 4 layers, k=5;
-// the caller checks them), one launch per step.  acts points at the input of
+// each, shapes those of the build's geometry: C, the layers and taps, and
+// the WaveNet width the body computes at, ch_pad, which w_start, b_start,
+// b_in, w_rs, b_rs, w_end, w_pitch and cond come padded to where it is not
+// ch; the caller checks them), one launch per step.  acts points at the input of
 // step step_begin, [B, T, C], and every step writes its output behind its
 // input: step s reads acts[s - step_begin] and writes acts[s - step_begin + 1];
 // ld_part is [S, B, n_tiles].  With save (an array of the six pointers of
 // SavePointers, in their order, each at the values of step step_begin with the
 // following steps' behind them) the steps also write what the backward pass
-// reads; with save and no ld_part they write that alone, and neither acts nor
+// reads, at the true ch (SavePointers); with save and no ld_part they write
+// that alone, and neither acts nor
 // ld_part.  w_in and w_rs are in the tensor-core layout
 // (ops/coupling.py::tensor_core_weights).  passes is 3 (3xTF32) or, for
-// measuring a forward pass without save, 1.  tiles is null, or 5 zeroed ints
+// measuring a forward pass without save at a shipped shape
+// (GLOW_SHIPPED_SHAPE), 1.  tiles is null, or 5 zeroed ints
 // that receive what the launches did, the computed tiles summed over the steps
 // (flow_common.cuh::report_tiles).  pitch [B, T, PS] and w_pitch [S, NL, PS,
 // 2CH] are null, or with a GLOW_PITCH build not null (cudaErrorInvalidValue
@@ -312,7 +339,8 @@ int glow_flow_train_fwd_f32(act_t* acts, const float* mask, const float* cond,
   if (B <= 0 || T <= 0) return cudaSuccess;
   const int n_tiles = ceil_div(T, S::TT);
   const size_t frames = static_cast<size_t>(B) * T;
-  if (passes != 3 && (passes != 1 || save || kPitch || kBf16))
+  if (passes != 3 &&
+      (passes != 1 || save || kPitch || kBf16 || !GLOW_SHIPPED_SHAPE))
     return cudaErrorInvalidValue;
   const StepWeights stacked{an_logs, an_bias, mix_t, w_start, b_start,
                             reinterpret_cast<const WFrag*>(w_in),
@@ -340,9 +368,9 @@ int glow_flow_train_fwd_f32(act_t* acts, const float* mask, const float* cond,
       const size_t at = (s - step_begin) * frames;
       p.save = {save[0] + at * S::C,
                 save[1] + at * S::C,
-                save[2] + at * S::NL * S::CH,
-                save[3] + at * S::NL * S::CH2,
-                save[4] + at * S::CH,
+                save[2] + at * S::NL * kSavedCh,
+                save[3] + at * S::NL * 2 * kSavedCh,
+                save[4] + at * kSavedCh,
                 save[5] + at * S::C2};
     }
     if (ld_part) {
@@ -351,7 +379,7 @@ int glow_flow_train_fwd_f32(act_t* acts, const float* mask, const float* cond,
     }
     const auto on = static_cast<cudaStream_t>(stream);
     cudaError_t err;
-    if constexpr (!kPitch && !kBf16) {
+    if constexpr (!kPitch && !kBf16 && GLOW_SHIPPED_SHAPE) {
       if (passes == 1) {
         err = launch<S, Writes::kOutputs, 1>(p, on);
         if (err != cudaSuccess) return err;

@@ -27,8 +27,9 @@ apart (:func:`count_launches`).  A body computes the WaveNet at a padded
 width (:func:`padded_wavenet`: zero weights, biases, conditioning rows and
 pitch weights, so the padded channels carry exact zeros), on weights
 padded once where they are packed.  The train kernels
-(``ops/coupling_grad.py``) are built at the shipped two shapes alone
-(:func:`check_train_shape`).
+(``ops/coupling_grad.py``) build for the same shapes, less those whose
+saving block or stored rows they cannot take (:func:`train_error`), each
+library reporting its :func:`geometry` with ``train=True``.
 
 Beside each wrapper stands its plain PyTorch version (``*_reference``);
 the wrapper picks between kernel and plain version by the tensor's device
@@ -114,10 +115,9 @@ class FlowShape(NamedTuple):
 
 SHIPPED_SHAPE = FlowShape(SHIPPED_CHANNELS)
 # the shipped shapes, the shipped config's and MiniSpeech's (Num_Squeeze 1,
-# 80 channels): the train kernels' (#5, #6: flow_train_fwd.cu and
-# flow_train_bwd.cu; other shapes raise, ROADMAP.md B.2's train half), and
-# the builds that carry the measuring instantiations (one TF32 pass, the
-# ring body's timed one: GLOW_SHIPPED_SHAPE in csrc/flow_common.cuh)
+# 80 channels): the builds that carry the measuring instantiations (one
+# TF32 pass of #3 and #5, the ring body's timed one: GLOW_SHIPPED_SHAPE in
+# csrc/flow_common.cuh)
 BUILT_CHANNELS = (SHIPPED_CHANNELS, 80)
 SHIPPED_SHAPES = tuple(FlowShape(c) for c in BUILT_CHANNELS)
 # the pitch operand's width (num_squeeze) that the 160- and 80-channel
@@ -151,8 +151,16 @@ SHAPE_MACROS = (('channels', 'GLOW_CHANNELS'), ('ch', 'GLOW_CH'),
 GEOMETRY_FIELDS = ('channels', 'ch', 'n_layers', 'kernel_size', 'pitch_size',
                    'time_tile', 'ch_pad', 'ring_depth', 'half_small',
                    'half_big', 'smem_bytes', 'stage_w_pitch')
-# the sources whose libraries report it (the train kernels' do not)
-GEOMETRY_SOURCES = ('flow_step.cu', 'coupling.cu', 'flow_stack.cu')
+# the sources whose libraries report it: the deterministic kernels', and
+# the train forward's (TRAIN_GEOMETRY_SOURCES: geometry(..., train=True))
+GEOMETRY_SOURCES = ('flow_step.cu', 'coupling.cu', 'flow_stack.cu',
+                    'flow_train_fwd.cu')
+TRAIN_GEOMETRY_SOURCES = ('flow_train_fwd.cu',)
+# the most WaveNet layers a train build takes: flow_train_bwd.cu adds every
+# gradient in one launch of 7 + 5 n jobs (a pitch build's), 32 bytes each,
+# within the 4 KB of a launch's parameters (only k = 1 has a halo that
+# lets n past 16)
+TRAIN_MAX_LAYERS = ((4096 - 8) // 32 - 7) // 5
 
 
 def as_shape(shape) -> FlowShape:
@@ -258,6 +266,13 @@ def _round_up(a: int, b: int) -> int:
     return -(-a // b) * b
 
 
+def body_width(ch: int) -> int:
+    """The WaveNet width the float32 body (and #5's bfloat16 one) computes
+    at: ch padded to a multiple of 64, the tensor-core tiles' grain
+    (``csrc/flow_common.cuh::kChPad``)."""
+    return _round_up(ch, 64)
+
+
 def f32_smem_bytes(c: int, ch: int, n: int, k: int, tt: int) -> int:
     """``Shape<c, ch, n, k, tt>::smem_bytes`` of ``csrc/flow_common.cuh``:
     the float32 body's dynamic buffers of a block (``ch`` padded)."""
@@ -303,13 +318,19 @@ def ring_smem_bytes(c: int, n: int, k: int) -> int:
     return 2 * big + h + g + s + 4 * tt * (c // 2) + 4 * r + 1024
 
 
-def geometry(shape, bf16: bool = False, pitch: int = 0) -> Dict[str, int]:
+def geometry(shape, bf16: bool = False, pitch: int = 0,
+             train: bool = False) -> Dict[str, int]:
     """The tile geometry of the build of ``shape`` (:class:`FlowShape` or a
     flow channel count) at bfloat16 (the ring body) or float32, with a
     pitch operand ``pitch`` wide (0: none): one function for every build,
     which :func:`build_defines` hands to ``nvcc`` as the shape's macros and
     which each library reports back (:data:`GEOMETRY_FIELDS`; the loader
-    raises on a difference).
+    raises on a difference).  With ``train``, the train forward's
+    (``csrc/flow_train_fwd.cu``, #5): the float32 body at both dtypes (its
+    bfloat16 build keeps h and the gate in bfloat16 over the same buffers)
+    with the saving stage of the owned rows' gate halves
+    (``Shape::SAVE_FLOATS``, ``4·TT·(2·ch_pad + 4)`` bytes) in
+    ``smem_bytes``.
 
     * ``time_tile``: owned frames of a tile (the float32 body's 32; the
       ring body's 64 − 2·halo, at most 48, so a tile with its halo is one
@@ -327,7 +348,7 @@ def geometry(shape, bf16: bool = False, pitch: int = 0) -> Dict[str, int]:
       epilogue reads it from global memory."""
     c, ch, n, k = as_shape(shape)
     halo = n * (k - 1) // 2
-    if bf16:
+    if bf16 and not train:
         tt = min(48, 64 - 2 * halo)
         out = {'time_tile': tt, 'ch_pad': 192, 'ring_depth': 64,
                'half_small': 96 * -(-(c // 2) // 96), 'half_big': 192,
@@ -335,10 +356,11 @@ def geometry(shape, bf16: bool = False, pitch: int = 0) -> Dict[str, int]:
         # the ActNorm tables; the warps' sums and the ring's barriers
         static = 8 * c + 128
     else:
-        tt = 32
-        out = {'time_tile': tt, 'ch_pad': _round_up(ch, 64), 'ring_depth': 0,
+        tt, ch_pad = 32, body_width(ch)
+        save = 4 * tt * (2 * ch_pad + 4) if train else 0
+        out = {'time_tile': tt, 'ch_pad': ch_pad, 'ring_depth': 0,
                'half_small': 0, 'half_big': 0,
-               'smem_bytes': f32_smem_bytes(c, _round_up(ch, 64), n, k, tt)}
+               'smem_bytes': f32_smem_bytes(c, ch_pad, n, k, tt) + save}
         static = 128
     # the block's shared memory besides the buffers: the live-tile list of
     # MAX_BATCH samples, the static arrays and the pitch stage (the tile's
@@ -699,7 +721,7 @@ def tensor_core_weights(w_in: torch.Tensor, w_rs: torch.Tensor,
     without gradient: the kernels have none."""
     layout = (tensor_core_layout if dtype == torch.float32
               else tensor_core_layout_bf16)
-    ch_pad = _round_up(w_rs.shape[-2], 64)
+    ch_pad = body_width(w_rs.shape[-2])
     with torch.no_grad():
         w_in = padded_wavenet('w_in', w_in.float(), ch_pad)
         w_rs = padded_wavenet('w_rs', w_rs.float(), ch_pad)
@@ -731,7 +753,7 @@ def with_tensor_core_weights(weights: Weights,
     if all(key in weights and weights[key].dtype == tc_dtype
            for key in TC_KEYS.values()):
         return weights
-    ch_pad = _round_up(weights['w_rs'].shape[-2], 64)
+    ch_pad = body_width(weights['w_rs'].shape[-2])
     return rounded_weights({**weights, **tensor_core_weights(
         weights['w_in'], weights['w_rs'], dtype),
         **padded_weights(weights, ch_pad)}, dtype)
@@ -1078,26 +1100,56 @@ def check_shape(name: str, channels: int, w_in_shape: Tuple[int, ...],
                           bf16)
 
 
+def train_error(shape, bf16: bool, pitch: int = 0) -> Optional[str]:
+    """Why no build of the train kernels (#5, #6) takes ``shape`` at
+    bfloat16 (``bf16``) or float32 with a pitch operand ``pitch`` wide, or
+    None where one does: the deterministic envelope
+    (:func:`envelope_error`) and a pitch width that divides the channels,
+    less what the train builds cannot take: a saved row ``ch`` wide that
+    #5 stores and #6 stages 16 bytes at a time (ch a multiple of 4 at
+    float32, of 8 at bfloat16), more than :data:`TRAIN_MAX_LAYERS` layers,
+    and #5's block over an H100's shared memory with its saving stage
+    (:func:`geometry` with ``train``; where w_pitch does not fit beside it
+    the block reads w_pitch from global memory, so only the buffers count:
+    ch 192 at 8 layers of 5 taps and C = 200, for one)."""
+    shape = as_shape(shape)
+    why = envelope_error(shape)
+    if why is None and pitch and shape.channels % pitch:
+        why = (f'a pitch operand {pitch} wide (num_squeeze) does not '
+               f'divide {shape.channels} channels')
+    grain = 8 if bf16 else 4
+    if why is None and shape.ch % grain:
+        why = (f'ch {shape.ch}: the {"bfloat16" if bf16 else "float32"} '
+               f'train builds store and read the saved rows {grain} '
+               'channels at a time (a multiple of it)')
+    if why is None and shape.n_layers > TRAIN_MAX_LAYERS:
+        why = (f'{shape.n_layers} layers: the backward adds the gradients '
+               f'of at most {TRAIN_MAX_LAYERS} in one launch')
+    if why is None:
+        need = geometry(shape, bf16, pitch, train=True)['block_bytes']
+        if need > BLOCK_BYTES:
+            why = (f'the train forward needs {need} bytes of shared memory '
+                   f'a block with its saving stage, over the {BLOCK_BYTES} '
+                   'of an H100')
+    return why
+
+
 def check_train_shape(name: str, channels: int, w_in_shape: Tuple[int, ...],
-                      pitch_size: int = 0) -> None:
-    """Raise unless the train kernels (#5, #6) are built for ``channels``
-    flow channels and ``w_in [n, k, ch, 2ch]``: :data:`SHIPPED_SHAPES`, the
-    pitch operand ``pitch_size`` wide the one of that build
-    (:data:`SHIPPED_PITCH_SIZE`: 2 at 160 channels, 1 at 80).  Other
-    shapes are ``ROADMAP.md`` B.2's train half; nothing falls back to the
-    plain version on the card."""
+                      pitch_size: int = 0, bf16: bool = False) -> FlowShape:
+    """The :class:`FlowShape` of ``channels`` flow channels and ``w_in [n,
+    k, ch, 2ch]``, or raise naming ``ROADMAP.md`` B.2's train half unless
+    the train kernels (#5, #6) build for it at bfloat16 (``bf16``) or
+    float32 with a pitch operand ``pitch_size`` wide
+    (:func:`train_error`).  Nothing falls back to the plain version on the
+    card."""
     shape = shape_of(channels, w_in_shape)
-    if shape not in SHIPPED_SHAPES:
+    why = train_error(shape, bf16, pitch_size)
+    if why is not None:
         raise ValueError(
-            f'{name}: the train kernels (#5, #6) are built for '
-            f'{[tuple(s) for s in SHIPPED_SHAPES]}, got {tuple(shape)} '
-            '(other shapes: ROADMAP.md B.2, the train half: #5 and #6 at '
-            'other shapes are the next slice)')
-    if pitch_size and pitch_size != SHIPPED_PITCH_SIZE[shape.channels]:
-        raise ValueError(
-            f'{name}: the train kernels take a pitch operand '
-            f'{SHIPPED_PITCH_SIZE[shape.channels]} wide at {shape.channels} '
-            f'channels, got {pitch_size} (ROADMAP.md B.2, the train half)')
+            f'{name}: no build of the train kernels (#5, #6) takes '
+            f'{shape}: {why} (other shapes: ROADMAP.md B.2, the train '
+            'half)')
+    return shape
 
 
 def kernel_key(key: str, bf16: bool, padded: bool) -> str:
@@ -1518,9 +1570,10 @@ def load_flow_library(source: str, pitch=False, channels=SHIPPED_CHANNELS,
     count at the shipped WaveNet; its pitch instantiation with ``pitch``:
     True or the operand's width, :func:`pitch_size`; its bfloat16 build
     with ``bf16``, the ring body's at :data:`RING_SUM_DEPTH` where that is
-    set), held to the width it reports and, for the deterministic kernels'
-    sources (:data:`GEOMETRY_SOURCES`), to the :func:`geometry` it was
-    compiled with: raises on any difference."""
+    set), held to the width it reports and, for the sources that report
+    their geometry (:data:`GEOMETRY_SOURCES`), to the :func:`geometry` it
+    was compiled with (the train forward's, :data:`TRAIN_GEOMETRY_SOURCES`,
+    with ``train``): raises on any difference."""
     from glow_tts_tpu_torch.ops.cuda_build import load_library
     shape = as_shape(channels)
     defines = build_defines(shape, pitch, bf16)
@@ -1536,7 +1589,8 @@ def load_flow_library(source: str, pitch=False, channels=SHIPPED_CHANNELS,
     if source in GEOMETRY_SOURCES:
         ps = pitch_size(shape, pitch)
         want = {**shape._asdict(), 'pitch_size': ps,
-                **geometry(shape, bf16, ps)}
+                **geometry(shape, bf16, ps,
+                           train=source in TRAIN_GEOMETRY_SOURCES)}
         got = library_geometry(lib)
         wrong = {key: (got[key], want[key]) for key in GEOMETRY_FIELDS
                  if got[key] != want[key]}

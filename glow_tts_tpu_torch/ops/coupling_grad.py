@@ -50,7 +50,16 @@ gradient) added layer by layer in launch order.  MiniSpeech's 80 flow
 channels (``Num_Squeeze: 1``) are a build of both sources of their own
 too (``GLOW_CHANNELS=80``), loaded by the channel count and counted apart
 (``*_c80_launches``); its pitch builds take the pitch operand 1 wide
-(``*_c80_pitch_launches``).
+(``*_c80_pitch_launches``).  Every other decoder shape the train builds
+take (``ops/coupling.py::train_error``: 100-bin mels' C = 200, another
+WaveNet) is a build of both sources of its own, made at its first use from
+the shape's macros (``coupling.build_defines``) and counted under its
+``coupling.build_tag`` (``*_c200_launches``, ...).  The forward computes the
+WaveNet at ch padded to a multiple of 64 on zero-padded weights, ``b_in``,
+conditioning rows and pitch weights (``coupling.padded_wavenet``), with the
+dropout bits of the true columns, and stores what the backward reads at the
+true ch; the backward computes at the true ch, so every gradient is at the
+true width.
 
 At bfloat16 (``x`` a bfloat16 tensor: ``config.compute_dtype``) the pair
 computes what the TPU kernels compute at ``dt = bfloat16``
@@ -90,10 +99,14 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from glow_tts_tpu_torch.ops import dropmask
-from glow_tts_tpu_torch.ops.coupling import (SHIPPED_CHANNELS,
+from glow_tts_tpu_torch.ops.coupling import (SHIPPED_CHANNELS, SHIPPED_SHAPES,
+                                             TC_KEYS, FlowShape, as_shape,
+                                             body_width,
                                              check_train_shape,
-                                             count_launches, kernel_keys,
-                                             load_flow_library, tf32_round,
+                                             count_launches, kernel_cond,
+                                             load_flow_library, pad_gate,
+                                             padded_key, pitch_size,
+                                             tf32_round,
                                              tile_report_pointer,
                                              valid_lengths, wavenet_stats,
                                              with_tensor_core_weights,
@@ -336,20 +349,55 @@ def _kernel_weights(weights, dtype: torch.dtype = torch.float32) -> list:
     of ``dtype`` takes them: ``w_in`` and ``w_rs`` in the tensor-core layout
     (:func:`~glow_tts_tpu_torch.ops.coupling.tensor_core_weights`), split
     now, outside autograd, from the f32 weights the backward reads (and for
-    bfloat16 the mixing, start and end weights rounded to it)."""
+    bfloat16 the mixing, start and end weights rounded to it), and the
+    WaveNet at the body's width ``ch_pad`` (ch padded to a multiple of 64:
+    the padded copies of ``coupling.padded_weights`` and ``b_in`` padded
+    half by half) where that is not ch."""
     named = with_tensor_core_weights(dict(zip(WEIGHT_KEYS, weights)), dtype)
-    return [named[key] for key in kernel_keys(WEIGHT_KEYS)]
+    ch_pad = body_width(named['w_rs'].shape[-2])
+    if ch_pad != named['w_rs'].shape[-2]:
+        with torch.no_grad():
+            named['b_in'] = pad_gate(named['b_in'].float(),
+                                     ch_pad).contiguous()
+        named.update({key: named[padded_key(key)]
+                      for key in ('w_start', 'b_start', 'b_rs', 'w_end')})
+    return [named[TC_KEYS.get(key, key)] for key in WEIGHT_KEYS]
+
+
+def _kernel_operands(cond, w_pitch, ch: int):
+    """The conditioning rows ``[S, n, B, 2ch]`` and ``w_pitch [S, n, ps,
+    2ch]`` (either None) as the forward library reads them: each gate half
+    padded with zeros to the body's width where that is not ch (copies,
+    outside autograd)."""
+    ch_pad = body_width(ch)
+    with torch.no_grad():
+        return (None if cond is None else kernel_cond(cond, ch_pad),
+                None if w_pitch is None
+                else kernel_cond(w_pitch.detach(), ch_pad))
+
+
+def _step_shape(c: int, weights) -> FlowShape:
+    """The :class:`FlowShape` of a stack whose stacked weights ``weights``
+    are in :data:`WEIGHT_KEYS` order (``w_in [S, n, k, ch, 2ch]``)."""
+    _, n, k, ch, _ = weights[WEIGHT_KEYS.index('w_in')].shape
+    return FlowShape(c, ch, n, k)
 
 
 def _recompute(x_step, mask, cond, weights, saved, step: int, drop,
                pitch=None, w_pitch=None) -> None:
     """One launch of the forward kernel's saving instantiation: flow step
     ``step`` from its input ``x_step [B, T, C]`` (in the compute dtype) into
-    ``saved``; ``weights`` as :func:`_kernel_weights` gives them, ``w_pitch
-    [S, n, ps, 2ch]`` with a ``pitch`` operand."""
+    ``saved`` (:func:`_saved_buffers`, at the true ch); ``weights`` as
+    :func:`_kernel_weights` gives them, ``cond`` and ``w_pitch [S, n, ps,
+    2ch]`` (with a ``pitch`` operand) as :func:`_kernel_operands` does."""
     b, t, c = x_step.shape
+    n, _, ch = saved['xin'].shape
+    # w_in_tc [S, n, k·ch_pad/d, ...] over w_rs_tc [S, n, ch_pad/d, ...]
+    w_in, w_rs = (weights[WEIGHT_KEYS.index(key)] for key in ('w_in', 'w_rs'))
+    shape = FlowShape(c, ch, n, w_in.shape[2] // w_rs.shape[2])
     bf16 = x_step.dtype == torch.bfloat16
-    lib = load_train_forward_library(pitch is not None, c, bf16)
+    ps = 0 if pitch is None else pitch.shape[-1]
+    lib = load_train_forward_library(ps, shape, bf16)
     err = lib.glow_flow_train_fwd_f32(
         x_step.data_ptr(), mask.data_ptr(),
         *[None if tensor is None else tensor.data_ptr()
@@ -359,8 +407,7 @@ def _recompute(x_step, mask, cond, weights, saved, step: int, drop,
         step + 1, *drop, TF32_PASSES,
         torch.cuda.current_stream(x_step.device).cuda_stream)
     _raise_on(err, lib, 'flow_stack_train recompute')
-    count_launches(flow_stack_train, 'recompute', c, pitch is not None,
-                   bf16=bf16)
+    count_launches(flow_stack_train, 'recompute', shape, ps, bf16=bf16)
 
 
 class _FlowStackTrain(torch.autograd.Function):
@@ -381,6 +428,7 @@ class _FlowStackTrain(torch.autograd.Function):
                 forward_passes, tiles, *weights):
         b, t, c = x.shape
         s_steps, n, _, ch, _ = weights[WEIGHT_KEYS.index('w_in')].shape
+        shape = _step_shape(c, weights)
         dtype = x.dtype
         bf16 = dtype == torch.bfloat16
         if bf16:
@@ -388,11 +436,16 @@ class _FlowStackTrain(torch.autograd.Function):
             cond = None if cond is None else rounded(cond, dtype).contiguous()
             pitch = (None if pitch is None
                      else rounded(pitch, dtype).contiguous())
+        ps = 0 if pitch is None else pitch.shape[-1]
         w_pitch = None if pitch is None else weights[len(WEIGHT_KEYS)]
         if bf16 and w_pitch is not None:
             w_pitch = rounded(w_pitch.detach(), dtype).contiguous()
-        lib = load_train_forward_library(pitch is not None, c, bf16)
+        lib = load_train_forward_library(ps, shape, bf16)
         kernel_weights = _kernel_weights(weights[:len(WEIGHT_KEYS)], dtype)
+        # at the forward's padded WaveNet width; the backward reads cond and
+        # w_pitch at the true one
+        kernel_cond_rows, kernel_w_pitch = _kernel_operands(cond, w_pitch,
+                                                            ch)
         acts = torch.empty((s_steps + 1, b, t, c), device=x.device,
                            dtype=dtype)
         acts[0].copy_(x)
@@ -406,21 +459,23 @@ class _FlowStackTrain(torch.autograd.Function):
         err = lib.glow_flow_train_fwd_f32(
             acts.data_ptr(), mask.data_ptr(),
             *[None if tensor is None else tensor.data_ptr()
-              for tensor in (cond, pitch, w_pitch)],
+              for tensor in (kernel_cond_rows, pitch, kernel_w_pitch)],
             *[w.data_ptr() for w in kernel_weights], ld_part.data_ptr(),
             _pointers([stored[key] for key in SAVED_KEYS]) if stored else None,
             tile_report_pointer('flow_stack_train', tiles, x), b, t, 0,
             s_steps, *drop, forward_passes,
             torch.cuda.current_stream(x.device).cuda_stream)
         _raise_on(err, lib, 'flow_stack_train forward')
-        count_launches(flow_stack_train, 'forward', c, pitch is not None,
-                       s_steps, bf16)
+        count_launches(flow_stack_train, 'forward', shape, ps, s_steps, bf16)
         ctx.save_for_backward(acts, mask, cond, pitch, *stored.values(),
                               *weights)
         ctx.drop, ctx.route, ctx.passes = drop, route, passes
-        # the recompute launches read the split weights again; at bf16 the
-        # pitch term's backward reads w_pitch rounded, as the forward did
+        # the recompute launches read the split weights and the padded
+        # operands again; at bf16 the pitch term's backward reads w_pitch
+        # rounded, as the forward did
         ctx.kernel_weights = kernel_weights if route == 'recompute' else None
+        ctx.kernel_operands = ((kernel_cond_rows, kernel_w_pitch)
+                               if route == 'recompute' else None)
         ctx.w_pitch = w_pitch if bf16 else None
         return acts[s_steps], ld_part.sum(dim=(0, 2))
 
@@ -437,11 +492,13 @@ class _FlowStackTrain(torch.autograd.Function):
         named = dict(zip(keys, weights))
         s_steps, b, t, c = acts.shape[0] - 1, *acts.shape[1:]
         _, n, k, ch, ch2 = named['w_in'].shape
+        shape = FlowShape(c, ch, n, k)
+        ps = 0 if pitch is None else pitch.shape[-1]
         m, c2 = b * t, c // 2
         device = acts.device
         dtype = acts.dtype
         bf16 = dtype == torch.bfloat16
-        bwd = load_train_backward_library(pitch is not None, c, bf16)
+        bwd = load_train_backward_library(ps, shape, bf16)
         stream = torch.cuda.current_stream(device).cuda_stream
 
         def empty(*shape, dtype=torch.float32):
@@ -499,8 +556,9 @@ class _FlowStackTrain(torch.autograd.Function):
             if stored:
                 step_saved = [tensor[s] for tensor in stored]
             else:
-                _recompute(acts[s], mask, cond, ctx.kernel_weights, saved, s,
-                           ctx.drop, pitch, w_pitch)
+                _recompute(acts[s], mask, ctx.kernel_operands[0],
+                           ctx.kernel_weights, saved, s, ctx.drop, pitch,
+                           ctx.kernel_operands[1])
                 step_saved = list(saved.values())
             if pitch is not None:
                 pitch_inputs = [pitch, w_pitch[s]]
@@ -517,8 +575,8 @@ class _FlowStackTrain(torch.autograd.Function):
             err = bwd.glow_flow_train_bwd_step_f32(
                 _pointers(inputs), _pointers(outputs), b, t, c, ch, n, k, s,
                 *ctx.drop, ctx.passes, stream, ctypes.byref(launched))
-            count_launches(flow_stack_train, 'backward', c,
-                           pitch is not None, launched.value, bf16)
+            count_launches(flow_stack_train, 'backward', shape, ps,
+                           launched.value, bf16)
             _raise_on(err, bwd, 'flow_stack_train backward')
             dx_in = dx_bufs[s % 2]
         return (dx_in, None, dcond, dpitch, None, None, None, None, None,
@@ -535,10 +593,11 @@ def _check_cuda_inputs(x, mask, weights, cond, pitch) -> None:
     b, t, c = x.shape
     s_steps, n, k, ch, ch2 = weights['w_in'].shape
     ps = 0 if pitch is None else pitch.shape[-1]
-    check_train_shape('flow_stack_train', c, (n, k, ch, ch2), ps)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f'flow_stack_train: x must be float32 or bfloat16, '
                          f'got {x.dtype} (ROADMAP.md A.5)')
+    check_train_shape('flow_stack_train', c, (n, k, ch, ch2), ps,
+                      x.dtype == torch.bfloat16)
     tensors = {'mask': (mask, (b, t, 1)),
                'ld_const': (weights['ld_const'], (s_steps,)),
                **{key: (weights[key], shape) for key, shape
@@ -574,7 +633,8 @@ def _apply_kernels(x, mask, weights, cond, seed, dropout_rate,
     on the route ``'forward'``, the forward's products) through this
     function, and may have the forward's launches report their tiles into
     ``tiles`` (``coupling.tile_report``).  ``passes`` defaults to
-    :data:`TF32_PASSES`, at bfloat16 to :data:`BF16_PASSES`."""
+    :data:`TF32_PASSES`, at bfloat16 to :data:`BF16_PASSES`; one TF32 pass
+    (forward or backward) is built at the shipped shapes alone."""
     if passes is None:
         passes = BF16_PASSES if x.dtype == torch.bfloat16 else TF32_PASSES
     stack = [weights[key] for key in weight_keys(pitch is not None)]
@@ -588,9 +648,14 @@ def _apply_kernels(x, mask, weights, cond, seed, dropout_rate,
                  'store' if stores_activations(s_steps, b * t, c, ch, n,
                                                x.dtype)
                  else 'recompute')
-    if forward_passes != TF32_PASSES and route != 'forward':
+    shipped = _step_shape(x.shape[-1], stack) in SHIPPED_SHAPES
+    if forward_passes != TF32_PASSES and (route != 'forward' or not shipped):
         raise ValueError('flow_stack_train: one TF32 pass in the forward '
-                         'is for measuring, on the route \'forward\' only')
+                         'is for measuring, on the route \'forward\' only, '
+                         'at the shipped shapes')
+    if passes == 1 and x.dtype == torch.float32 and not shipped:
+        raise ValueError('flow_stack_train: one TF32 pass in the backward '
+                         'is for measuring, at the shipped shapes')
     z, ld = _FlowStackTrain.apply(x, mask, cond, pitch, int(seed),
                                   float(dropout_rate), route, passes,
                                   forward_passes, tiles, *stack)
@@ -625,9 +690,10 @@ def flow_stack_train(x: torch.Tensor, mask: torch.Tensor, weights: Weights,
 # flow step, none where the forward pass stored); and of the backward
 # library's kernels, as its entry counts them: a fixed sequence of
 # backward_launches_per_step(n) per flow step.  The pitch builds' and the
-# 80-channel builds' launches count apart, under the same names with
-# ``_pitch``, ``_c80`` and ``_c80_pitch``, and the bfloat16 builds' with
-# ``_bf16`` before those (``coupling.count_launches``).
+# other shapes' builds' launches count apart, under the same names with
+# ``_pitch``, ``_c80``, ``_c80_pitch``, ``_c200``, ... (``coupling.build_tag``),
+# and the bfloat16 builds' with ``_bf16`` before those
+# (``coupling.count_launches``).
 for _what in ('forward', 'recompute', 'backward'):
     zero_launch_counts(flow_stack_train, _what)
 del _what
@@ -693,14 +759,21 @@ def _wgrad_product(p: torch.Tensor, g: torch.Tensor, mask: torch.Tensor,
     return out
 
 
-@functools.cache
-def load_train_forward_library(pitch: bool = False,
-                               channels: int = SHIPPED_CHANNELS,
+def load_train_forward_library(pitch=False, channels=SHIPPED_CHANNELS,
                                bf16: bool = False) -> ctypes.CDLL:
     """Build (at first use) and load the forward kernel's library for
-    ``channels`` flow channels, its pitch build with ``pitch``, its
-    bfloat16 build with ``bf16``, typed."""
-    lib = load_flow_library('flow_train_fwd.cu', pitch, channels, bf16)
+    ``channels`` (a ``coupling.FlowShape``, or a flow channel count at the
+    shipped WaveNet), its pitch build with ``pitch`` (True, or the
+    operand's width), its bfloat16 build with ``bf16``, typed; held to the
+    geometry it reports (``coupling.geometry`` with ``train``)."""
+    return _load_train_forward(pitch_size(as_shape(channels), pitch),
+                               as_shape(channels), bool(bf16))
+
+
+@functools.cache
+def _load_train_forward(pitch: int, shape: FlowShape,
+                        bf16: bool) -> ctypes.CDLL:
+    lib = load_flow_library('flow_train_fwd.cu', pitch, shape, bf16)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.glow_flow_train_fwd_f32.argtypes = (
         [vp] * (5 + len(WEIGHT_KEYS) + 3)
@@ -713,14 +786,20 @@ def load_train_forward_library(pitch: bool = False,
     return lib
 
 
-@functools.cache
-def load_train_backward_library(pitch: bool = False,
-                                channels: int = SHIPPED_CHANNELS,
+def load_train_backward_library(pitch=False, channels=SHIPPED_CHANNELS,
                                 bf16: bool = False) -> ctypes.CDLL:
     """Build (at first use) and load the backward kernels' library for
-    ``channels`` flow channels, its pitch build with ``pitch``, its
-    bfloat16 build with ``bf16``, typed."""
-    lib = load_flow_library('flow_train_bwd.cu', pitch, channels, bf16)
+    ``channels`` (a ``coupling.FlowShape``, or a flow channel count at the
+    shipped WaveNet), its pitch build with ``pitch`` (True, or the
+    operand's width), its bfloat16 build with ``bf16``, typed."""
+    return _load_train_backward(pitch_size(as_shape(channels), pitch),
+                                as_shape(channels), bool(bf16))
+
+
+@functools.cache
+def _load_train_backward(pitch: int, shape: FlowShape,
+                         bf16: bool) -> ctypes.CDLL:
+    lib = load_flow_library('flow_train_bwd.cu', pitch, shape, bf16)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.glow_flow_train_bwd_step_f32.argtypes = (
         [vp, vp] + [ci] * 8 + [ctypes.c_uint, ctypes.c_float, ci, ci, vp,
@@ -728,6 +807,8 @@ def load_train_backward_library(pitch: bool = False,
     lib.glow_flow_train_bwd_step_f32.restype = ci
     lib.glow_flow_train_bwd_chunks.argtypes = [ci] * 4
     lib.glow_flow_train_bwd_chunks.restype = ci
+    lib.glow_flow_train_bwd_max_reduce.argtypes = []
+    lib.glow_flow_train_bwd_max_reduce.restype = ci
     lib.glow_flow_train_bwd_dgrad_f32.argtypes = [vp] * 5 + [ci] * 8 + [vp]
     lib.glow_flow_train_bwd_dgrad_f32.restype = ci
     lib.glow_flow_train_bwd_wgrad_f32.argtypes = [vp] * 5 + [ci] * 8 + [vp]

@@ -91,3 +91,35 @@ def stack_mask(seed: int, step: int, layer: int, num_layers: int, batch: int,
             + torch.arange(frames, dtype=torch.int64, device=device)[None, :])
     return _mask(rows, cols, cols,
                  layer_salt(seed, step, layer, num_layers), rate)
+
+
+def true_columns(ch: int, ch_pad: int, device=None) -> torch.Tensor:
+    """int64 ``[2·ch_pad]``: the column of the true pre-gate sum ``[2ch]``
+    whose dropout bit each column of a WaveNet padded to ``ch_pad`` draws
+    (two halves ``ch_pad`` wide): ``j`` in the tanh half, ``j − (ch_pad −
+    ch)`` in the sigmoid half; a padded column (zero before and after the
+    dropout) draws whatever its counter gives.  The Python twin of
+    ``csrc/flow_train_fwd.cu::true_column``."""
+    cols = torch.arange(2 * ch_pad, dtype=torch.int64, device=device)
+    return torch.where(cols < ch_pad, cols, cols - (ch_pad - ch))
+
+
+def padded_stack_mask(seed: int, step: int, layer: int, num_layers: int,
+                      batch: int, frames: int, kernel_size: int, ch: int,
+                      ch_pad: int, rate: float, device=None) -> torch.Tensor:
+    """The mask ``[B, T, 2·ch_pad]`` the train forward kernel draws over a
+    WaveNet of ``ch`` channels that its body computes at ``ch_pad``: the
+    counters of :func:`stack_mask` over the true ``2ch``, at each padded
+    column's :func:`true_columns`.  At its true columns it is
+    :func:`stack_mask`'s ``[B, T, 2ch]``."""
+    rows_per_sample = frames + kernel_size - 1
+    rows = (torch.arange(batch, dtype=torch.int64, device=device)[:, None]
+            * rows_per_sample
+            + torch.arange(frames, dtype=torch.int64, device=device)[None, :])
+    elem = ((rows[..., None] & U32) * (2 * ch)
+            + true_columns(ch, ch_pad, device)) & U32
+    salt = layer_salt(seed, step, layer, num_layers)
+    bits = hash_u32(hash_u32((elem + salt) & U32))
+    scale = torch.full((), keep_scale_value(rate), device=device)
+    return torch.where(bits <= keep_threshold(rate), scale,
+                       torch.zeros((), device=device))

@@ -4,7 +4,7 @@ checkout with another checkout's, both built with the same flags side by
 side, each into its own ``glow_tts_tpu_torch/_build``.
 
     python -m glow_tts_tpu_torch.tools.compare_ptxas [--bf16] [--sass]
-        [--shape C,CH,LAYERS,K[,PITCH]] OTHER_CHECKOUT
+        [--shape C,CH,LAYERS,K[,PITCH]] [--source NAME] OTHER_CHECKOUT
 
 ``OTHER_CHECKOUT`` is a directory holding another tree's
 ``glow_tts_tpu_torch`` package (for example ``git archive`` of the
@@ -24,8 +24,10 @@ to the shape's template moves); with ``--sass``
 also when every kernel's machine code (``cuobjdump -sass``, the function's
 name dropped) is the other's.  ``--shape`` prints (does not compare: the
 other checkout may not build it) each flow source's f32 and bf16 build at
-another decoder shape (``ops/coupling.py::build_defines``, ROADMAP B.2).
-Exits 1 if a compared build differs or fails.  Needs ``nvcc``.
+another decoder shape (``ops/coupling.py::build_defines``, ROADMAP B.2),
+the train pair's (#5, #6) among them.  ``--source`` (repeatable) limits
+the run to those sources, for example the train pair's two.  Exits 1 if a
+compared build differs or fails.  Needs ``nvcc``.
 """
 
 from __future__ import annotations
@@ -51,9 +53,8 @@ BF16_BUILDS = tuple(d + ('GLOW_BF16',) for d in F32_BUILDS)
 # tree: printed, not compared (#3, #4 and #2 run flow_ring.cuh's body)
 REDESIGNED_BF16 = ('flow_step.cu', 'flow_stack.cu', 'coupling.cu',
                    'flow_train_fwd.cu', 'flow_train_bwd.cu')
-# the sources built at other decoder shapes (--shape): the deterministic
-# kernels
-SHAPED = ('flow_step.cu', 'coupling.cu', 'flow_stack.cu')
+# the sources built at other decoder shapes (--shape): every flow source
+SHAPED = SOURCES[1:]
 
 
 def compared(source: str, bf16: bool = False) -> tuple:
@@ -123,7 +124,10 @@ def main(argv=None) -> int:
     parser.add_argument('--shape', action='append', default=[],
                         help='C,CH,LAYERS,K[,PITCH]: print the flow '
                         'sources\' builds at this decoder shape')
+    parser.add_argument('--source', action='append', choices=SOURCES,
+                        help='only this source (repeatable; default all)')
     args = parser.parse_args(argv)
+    sources = tuple(args.source or SOURCES)
     other = os.path.abspath(args.other)
     sys.path.insert(0, HERE)
     from glow_tts_tpu_torch.ops.coupling import FlowShape, build_defines
@@ -132,7 +136,7 @@ def main(argv=None) -> int:
         c, ch, n, k, *ps = (int(v) for v in spec.split(','))
         shaped += [build_defines(FlowShape(c, ch, n, k), ps[0] if ps else 0,
                                  bf16) for bf16 in (False, True)]
-    jobs = [(root, source, defines) for source in SOURCES
+    jobs = [(root, source, defines) for source in sources
             for root, defines in [(r, d) for d in compared(source, args.bf16)
                                   for r in (other, HERE)]
             + [(HERE, d) for d in own(source, args.bf16)]
@@ -142,7 +146,7 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(os.cpu_count() or 8) as pool:
         results = dict(zip(jobs, pool.map(lambda job: report(*job), jobs)))
     same = True
-    for source in SOURCES:
+    for source in sources:
         for defines in compared(source, args.bf16):
             theirs, their_lib = results[(other, source, defines)]
             ours, our_lib = results[(HERE, source, defines)]

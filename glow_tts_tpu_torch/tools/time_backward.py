@@ -2,7 +2,7 @@
 the measuring script behind the variants of ``csrc/flow_train_bwd.cu`` and
 ``csrc/flow_train_fwd.cu`` that ``PERF.md`` compares.
 
-    python3 -m glow_tts_tpu_torch.tools.time_backward [passes,passes,...]
+    python3 -m glow_tts_tpu_torch.tools.time_backward [passes,...] [BUILD]
     python3 -m glow_tts_tpu_torch.tools.time_backward bf16 [BUILD,...]
 
 from the repository's root (it borrows ``chip_smoke.py``'s problems and
@@ -13,17 +13,23 @@ bf16`` then the same from this tree, in the order parent, change, change,
 parent: the working directory's package and ``chip_smoke.py`` are the ones
 measured, this file only drives them.
 
-f32 (the first form).  At the shipped width and the training shape (B = 32,
-512 squeezed frames, the synthetic batch's ragged lengths, dropout 0.05) it
-prints, for each number of TF32 passes asked for (default ``3,1``): the
-worst gradient error against autograd of the plain version, the backward's
-time per flow step, and the two GEMMs alone (the k-tap conv's activation
-and weight gradient, and the 1×1 res/skip conv's) with every frame valid
-and with the batch's lengths, beside their error against an f64 product.
+f32 (the first form).  At the training shape (B = 32, 512 squeezed frames,
+the synthetic batch's ragged lengths, dropout 0.05) of the shipped width,
+or of the build ``BUILD`` names (one of ``BUILDS``: ``c160``, the default,
+or a B.2 build), it prints, for each number of TF32 passes asked for
+(default ``3,1``; a B.2 build's 3 alone, one pass being built at the
+shipped shapes): the worst gradient error against autograd of the plain
+version and the backward's time per flow step; and at the shipped width
+the two GEMMs alone (the k-tap conv's activation and weight gradient, and
+the 1×1 res/skip conv's) with every frame valid and with the batch's
+lengths, beside their error against an f64 product.
 
 bf16 (the second form).  For each build asked for (``c160``: the shipped
 YAML's train problem; ``c160_pitch``: GR's; ``c80``: MiniSpeech's;
-``c80_pitch``: GR at Num_Squeeze 1; default all four) on the stack's
+``c80_pitch``: GR at Num_Squeeze 1; default those four; or the B.2
+builds of ``chip_smoke.py::B2_SHAPES``, ROADMAP B.2: ``c200``, 100-bin
+mels, ``c200_pitch``, GR's, ``c16_ch16_l2_k5``, ``c160_ch128_l16_k3``,
+each on ``chip_smoke.py::b2_train_problem``'s operands) on the stack's
 operands as a train step hands them over, rounded to bfloat16: #5's
 storing forward and #6's backward per flow step (CUDA events, mean of two
 runs), the gradients' norm-relative error against the bf16 plain version
@@ -44,6 +50,9 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 BF16_BUILDS = ('c160', 'c160_pitch', 'c80', 'c80_pitch')
+# the B.2 builds (chip_smoke.py::B2_SHAPES' labels), taken by both forms
+B2_BUILDS = ('c200', 'c200_pitch', 'c16_ch16_l2_k5', 'c160_ch128_l16_k3')
+BUILDS = BF16_BUILDS + B2_BUILDS
 # the nine kernels of csrc/flow_train_bwd.cu, as the profiler names them
 # (demangled, in the source's anonymous namespace)
 BWD_KERNELS = ('gemm_nt', 'gemm_nt_tail', 'gemm_tn', 'gemm_pair',
@@ -108,14 +117,34 @@ def bound_ms(moved, flops):
     return max(moved / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOP_PER_S) * 1e3
 
 
+def build_shape(cs, build):
+    """(FlowShape, the pitch operand's width) of a build's name."""
+    from glow_tts_tpu_torch.ops.coupling import FlowShape
+    if build in B2_BUILDS:
+        shape, ps = cs.B2_SHAPES[build]
+        return FlowShape(*shape), ps
+    return (FlowShape(80 if build.startswith('c80') else 160),
+            (1 if build.startswith('c80') else 2) if build.endswith('pitch')
+            else 0)
+
+
 def bf16_problem(cs, build, device):
     """(x, mask, weights, cond, pitch) of a build's train problem at full
-    width, as ``chip_smoke.py``'s bf16 phases make them (f32 operands; the
-    caller rounds x)."""
+    width, as ``chip_smoke.py``'s bf16 and B.2 phases make them (f32
+    operands; the caller rounds x)."""
     from glow_tts_tpu_torch import (TrainCollater, batch_to_device,
                                     load_config, random_state_dict)
     from glow_tts_tpu_torch.text import Tokenizer
     from glow_tts_tpu_torch.training.step import conditioning_inputs
+    if build in B2_BUILDS:
+        config = cs.b2_config(build)
+        batch = (cs.conditioned_batch(config, device, cs.SEED + 261)
+                 if config.uses_gradient_reversal else
+                 batch_to_device(TrainCollater(config, Tokenizer())(
+                     cs.synthetic_items(config, cs.SEED + 262)), device))
+        return cs.b2_train_problem(build, config,
+                                   cs.random_state_dict_of(config), batch,
+                                   device)
     if build == 'c160':
         config = dataclasses.replace(load_config(cs.CONFIG),
                                      compute_dtype='float32')
@@ -182,8 +211,7 @@ def run_bf16(cs, builds, device):
     from glow_tts_tpu_torch.ops import cuda_build
     from glow_tts_tpu_torch.ops.coupling import build_defines
     bf16 = torch.bfloat16
-    libs = [(source, build_defines(80 if name.startswith('c80') else 160,
-                                   name.endswith('pitch'), True))
+    libs = [(source, build_defines(*build_shape(cs, name), True))
             for name in builds
             for source in ('flow_train_fwd.cu', 'flow_train_bwd.cu')]
     with ThreadPoolExecutor(len(libs)) as pool:
@@ -233,7 +261,8 @@ def run_bf16(cs, builds, device):
             b, t, c = x.shape
             _, n, k, ch, _ = weights['w_in'].shape
             lengths = cg._valid_lengths(mask).tolist()
-            lib = cg.load_train_backward_library(pitch is not None, c, True)
+            lib = cg.load_train_backward_library(
+                *build_shape(cs, build)[::-1], True)
             plan = launch_plan(b, t, c, ch, n, k, lengths,
                                0 if pitch is None else pitch.shape[-1],
                                lambda *a: lib.glow_flow_train_bwd_chunks(
@@ -264,34 +293,47 @@ def main(argv):
     print(f'tree {os.getcwd()}')
     if argv and argv[0] == 'bf16':
         builds = argv[1].split(',') if len(argv) > 1 else BF16_BUILDS
-        unknown = set(builds) - set(BF16_BUILDS)
+        unknown = set(builds) - set(BUILDS)
         if unknown:
             sys.exit(f'time_backward: unknown builds {sorted(unknown)}')
         return run_bf16(cs, builds, device)
-    run_f32(cs, argv, device)
+    build = argv[1] if len(argv) > 1 else 'c160'
+    if build not in ('c160',) + B2_BUILDS:
+        sys.exit(f'time_backward: the f32 form takes c160 or a B.2 build '
+                 f'{B2_BUILDS}, got {build}')
+    run_f32(cs, argv[:1], device, build)
 
 
-def run_f32(cs, argv, device):
+def run_f32(cs, argv, device, build='c160'):
     from glow_tts_tpu_torch import (TrainCollater, batch_to_device,
                                     load_config, random_state_dict)
     from glow_tts_tpu_torch.ops import coupling_grad as cg
     from glow_tts_tpu_torch.ops import cuda_build
+    from glow_tts_tpu_torch.ops.coupling import build_defines
     from glow_tts_tpu_torch.text import Tokenizer
-    variants = [int(v) for v in (argv[0] if argv else '3,1').split(',')]
-    cg.load_train_forward_library()
-    cg.load_train_backward_library()
-    for line in cuda_build.ptxas_report('flow_train_bwd.cu'):
+    variants = [int(v) for v in (argv[0] if argv else
+                                 '3,1' if build == 'c160' else '3').split(',')]
+    shape, ps = build_shape(cs, build)
+    cg.load_train_forward_library(ps, shape)
+    cg.load_train_backward_library(ps, shape)
+    for line in cuda_build.ptxas_report('flow_train_bwd.cu',
+                                        build_defines(shape, ps)):
         if 'gemm' in line:
             print(line)
 
-    config = load_config(cs.CONFIG)
-    batch = batch_to_device(
-        TrainCollater(config, Tokenizer())(
-            cs.synthetic_items(config, cs.SEED + 10)), device)
-    model = cs.train_model(random_state_dict(config, cs.SEED), config, device)
-    model.data_dependent_init(batch['mels'], batch['mel_lengths'])
-    x, mask, weights = cs.stack_problem(model, batch, config)
-    del model
+    cond = pitch = None
+    if build in B2_BUILDS:
+        x, mask, weights, cond, pitch = bf16_problem(cs, build, device)
+    else:
+        config = load_config(cs.CONFIG)
+        batch = batch_to_device(
+            TrainCollater(config, Tokenizer())(
+                cs.synthetic_items(config, cs.SEED + 10)), device)
+        model = cs.train_model(random_state_dict(config, cs.SEED), config,
+                               device)
+        model.data_dependent_init(batch['mels'], batch['mel_lengths'])
+        x, mask, weights = cs.stack_problem(model, batch, config)
+        del model
     gen = torch.Generator().manual_seed(cs.SEED + 5)
     dz = torch.randn(x.shape, generator=gen).to(device)
     dld = (0.5 + torch.rand(x.shape[0], generator=gen)).to(device)
@@ -304,14 +346,16 @@ def run_f32(cs, argv, device):
 
     def gradients(fn):
         xl, wl = leaves()
-        z, ld = fn(xl, mask, wl, seed=cs.SEED + 6, dropout_rate=cs.FLOW_RATE)
+        z, ld = fn(xl, mask, wl, cond, pitch, seed=cs.SEED + 6,
+                   dropout_rate=cs.FLOW_RATE)
         (torch.sum(z * dz) + torch.sum(ld * dld)).backward()
         torch.cuda.synchronize()
         return {'x': xl.grad, **{key: leaf.grad for key, leaf in wl.items()}}
 
     def backward_ms(fn):
         xl, wl = leaves()
-        z, ld = fn(xl, mask, wl, seed=cs.SEED, dropout_rate=cs.FLOW_RATE)
+        z, ld = fn(xl, mask, wl, cond, pitch, seed=cs.SEED,
+                   dropout_rate=cs.FLOW_RATE)
         return cs.cuda_ms(lambda: torch.autograd.grad(
             (z, ld), [xl, *wl.values()], (dz, dld), retain_graph=True),
             5, 1) / steps
@@ -330,8 +374,10 @@ def run_f32(cs, argv, device):
     for route in ('store', 'recompute'):
         for passes in variants:
             ms = [t for r, p, t in runs if (r, p) == (route, passes)]
-            print(f'backward per flow step, route {route!r}, '
+            print(f'{build} backward per flow step, route {route!r}, '
                   f'passes={passes}: {sum(ms) / len(ms):.4f} ms')
+    if build != 'c160':
+        return
 
     b, t, ch, k = 32, 512, 192, 5
     gen = torch.Generator().manual_seed(cs.SEED + 12)

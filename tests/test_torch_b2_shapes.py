@@ -4,7 +4,8 @@
 
 * the envelope (``ops/coupling.py::check_envelope``): accepted shapes make
   their build's macros and geometry, others raise naming B.2, and the
-  train kernels (#5, #6) refuse every shape but the shipped two;
+  train kernels (#5, #6) take these shapes too and refuse those over
+  their budget (``tests/test_torch_b2_train.py`` holds the rest);
 * the geometry function against the values the shipped builds had;
 * the padded packers (the float32 body's tensor-core layout, the ring
   body's slices, the copies read as they lie): unpacked through a torch
@@ -128,12 +129,26 @@ def test_shapes_outside_the_envelope_raise_naming_b2(shape):
 
 @pytest.mark.parametrize('label', list(B2_SHAPES))
 def test_the_train_kernels_refuse_other_shapes_naming_b2s_train_half(label):
+    """The train kernels take every B.2 shape (and the shipped two) at
+    both dtypes, with and without the pitch operand; they refuse, naming
+    B.2's train half, the shapes whose saving block is over a block's
+    shared memory (C = 200 at 8 layers of the shipped WaveNet) or whose
+    saved rows their stores do not take (ch 20 at bf16)."""
     c, ch, n, k = B2_SHAPES[label]
-    with pytest.raises(ValueError, match='B.2, the train half'):
-        tc.check_train_shape('flow_stack_train', c, (n, k, ch, 2 * ch))
+    for bf16 in (False, True):
+        for ps in (0, 2):
+            assert tc.check_train_shape('flow_stack_train', c,
+                                        (n, k, ch, 2 * ch), ps,
+                                        bf16) == B2_SHAPES[label]
     for c in tc.BUILT_CHANNELS:
         tc.check_train_shape('flow_stack_train', c, (4, 5, 192, 384),
                              tc.SHIPPED_PITCH_SIZE[c])
+    for (c, ch, n, k), bf16 in (((200, 192, 8, 5), False),
+                                ((200, 192, 8, 5), True),
+                                ((160, 20, 2, 5), True)):
+        with pytest.raises(ValueError, match='B.2, the train half'):
+            tc.check_train_shape('flow_stack_train', c, (n, k, ch, 2 * ch),
+                                 0, bf16)
 
 
 def test_the_geometry_is_the_shipped_builds_constants():

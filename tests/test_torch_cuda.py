@@ -78,7 +78,15 @@ against its plain version on a ragged batch, #4 bit for bit against
 chained #3 launches, #2 bf16 bit for bit against #3 bf16 on an identity,
 the C = 200 bf16 halves read as they lie (8-byte loads) and a view off
 that alignment refused, and each library's geometry equal to
-``ops/coupling.py::geometry``'s.
+``ops/coupling.py::geometry``'s.  #5 and #6 at those builds and at (C
+160, ch 80, 2 layers; the f32 start conv's 80-deep activation gradient
+takes the tail), f32 and bf16 (ROADMAP B.2's train half): against the
+plain version at dropout 0 and 0.05, counted on each build's counters,
+the stored and recomputed routes and two runs bit-equal on a mask with
+holes, the dropout masks of the padded widths element by element (the
+true 2ch's), #5's geometry reported and #6's reduction sized by the
+layers, and a bf16 ch 20 and C = 200 at 8 layers refused naming B.2
+before any launch (the f32 ch 20 taken).
 Needs a GPU and nvcc; skipped without.
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -700,7 +708,9 @@ def test_train_wrapper_refuses_what_the_kernels_do_not_take(device):
                             torch.zeros((2, 8, 2), device=device), seed=0)
     with pytest.raises(ValueError, match='float32'):
         tg.flow_stack_train(x.double(), mask, w, seed=0)
-    with pytest.raises(ValueError, match='built for'):
+    # 96 channels are a train build of their own: the weights of 160 are
+    # not its
+    with pytest.raises(ValueError, match='an_logs'):
         tg.flow_stack_train(x[:, :, :96].contiguous(), mask, w, seed=0)
     with pytest.raises(ValueError, match='cond'):
         tg.flow_stack_train(x, mask, w,
@@ -1825,12 +1835,15 @@ def test_build_defines_of_the_existing_builds_are_unchanged():
         'GLOW_PITCH', 'GLOW_CHANNELS=80', 'GLOW_BF16')
     # the pitch operand is num_squeeze wide, as the JAX package squeezes it
     # (the shipped YAML's 2, MiniSpeech's 1), whatever the flow width; the
-    # train kernels take the width of their build alone
+    # train kernels take any width that divides the channels, in a build
+    # of its own where it is not the 160- or 80-channel build's own
     assert (tc.pitch_width(2), tc.pitch_width(1)) == (2, 1)
     for channels, width in ((160, 1), (80, 2)):
-        with pytest.raises(ValueError, match='B.2'):
-            tc.check_train_shape('flow_stack_train', channels,
-                                 (4, 5, 192, 384), width)
+        tc.check_train_shape('flow_stack_train', channels, (4, 5, 192, 384),
+                             width)
+        assert f'GLOW_PITCH_SIZE={width}' in tc.build_defines(channels, width)
+    with pytest.raises(ValueError, match='B.2'):
+        tc.check_train_shape('flow_stack_train', 160, (4, 5, 192, 384), 3)
     with pytest.raises(ValueError, match='num_squeeze'):
         tc.pitch_width(0)
 
@@ -2587,3 +2600,182 @@ def test_b2_library_geometry_is_pythons(device, shape, ps, source, dtype):
                    **{key: value for key, value in
                       tc.geometry(shape, bf16, ps).items()
                       if key in tc.GEOMETRY_FIELDS}}
+
+
+# --- ROADMAP B.2, the train half: #5 and #6 at other decoder shapes --------
+
+# the B.2 builds, and (C 160, ch 80, 2 layers, k 5): the start conv's
+# activation gradient 80 deep, not a multiple of a slice, at a C that is
+B2_TRAIN_BUILDS = [*B2_BUILDS,
+                   pytest.param((160, 80, 2, 5), 0, id='c160_ch80_l2_k5')]
+
+
+def _b2_train(device, shape, ps, dtype, lengths=B2_LENGTHS, rate=0.05,
+              route=None, holes=(), seed=700):
+    """#5 and #6 of the build at ``shape`` (with a pitch operand ``ps``
+    wide, and cond) on a ragged batch of 2 flow steps through
+    ``flow_stack_train`` (or the forced ``route``), and the plain version
+    at ``dtype`` and at f32: z, the logdet and every gradient of a loss
+    through both, each a dict."""
+    gen = torch.Generator().manual_seed(seed + sum(shape) + ps)
+    w, cond, pitch, x, mask = _b2_problem(gen, device, shape, ps, steps=2,
+                                          lengths=lengths)
+    c, ch, n, _ = shape
+    w['b_in'] = (torch.randn((2, n, 2 * ch), generator=gen) * .1).to(device)
+    for sample, first, end in holes:
+        mask[sample, first:end] = 0
+    x = x * mask
+    zt = torch.randn(x.shape, generator=gen).to(device)
+    wl = torch.arange(1., x.shape[0] + 1.).to(device)
+
+    def kernels(xl, mask, leaves, cl, pl, seed, dropout_rate):
+        return tg._apply_kernels(xl, mask, leaves, cl, seed, dropout_rate,
+                                 route, pitch=pl)
+    results = []
+    for fn, at in ((tg.flow_stack_train if route is None else kernels, dtype),
+                   (tg.flow_stack_train_reference, dtype),
+                   (tg.flow_stack_train_reference, torch.float32)):
+        leaves = {key: v.clone().requires_grad_() for key, v in w.items()}
+        xl = x.to(at).detach().clone().requires_grad_()
+        cl = cond.clone().requires_grad_()
+        pl = None if pitch is None else pitch.clone().requires_grad_()
+        z, ld = fn(xl, mask, leaves, cl, pl, seed=-91, dropout_rate=rate)
+        (torch.sum(z.float() * zt) + 0.7 * torch.sum(ld * wl)).backward()
+        torch.cuda.synchronize()
+        out = {'z': z.detach().float(), 'ld': ld.detach(),
+               'dx': xl.grad.float(), 'dcond': cl.grad,
+               **{f'd{key}': leaf.grad for key, leaf in leaves.items()}}
+        if pl is not None:
+            out['dpitch'] = pl.grad
+        results.append(out)
+    return results
+
+
+def _assert_b2_train_agrees(kernel, plain, plain32, dtype):
+    if dtype == torch.bfloat16:
+        _assert_bf16_train_agrees(kernel, plain, plain32)
+        return
+    assert set(kernel) == set(plain)
+    for key, value in plain.items():
+        assert torch.isfinite(kernel[key]).all(), key
+        assert _rel(kernel[key], value) < REL, (key, _rel(kernel[key], value))
+
+
+@pytest.mark.parametrize('rate', [0.0, 0.05])
+@pytest.mark.parametrize('dtype', B2_DTYPES)
+@pytest.mark.parametrize('shape,ps', B2_TRAIN_BUILDS)
+def test_b2_train_kernels_match_plain(device, shape, ps, dtype, rate):
+    """#5 and #6 of the build at ``shape`` against the plain version (at
+    f32 to REL, at bf16 to the bf16 bars) on a ragged batch with cond (and
+    the pitch operand), counted on the build's own counters: 2 forward
+    launches and 2 x backward_launches_per_step(n) backward kernels."""
+    shape_ = tc.FlowShape(*shape)
+    bf16 = dtype == torch.bfloat16
+    names = {what: f'{what}_{tc.count_suffix(shape_, ps, bf16)}'
+             for what in ('forward', 'recompute', 'backward')}
+    before = {what: getattr(tg.flow_stack_train, name, 0)
+              for what, name in names.items()}
+    results = _b2_train(device, shape, ps, dtype, rate=rate)
+    got = {what: getattr(tg.flow_stack_train, name, 0) - before[what]
+           for what, name in names.items()}
+    assert got == {'forward': 2, 'recompute': 0,
+                   'backward': 2 * tg.backward_launches_per_step(
+                       shape[2], bool(ps))}, got
+    _assert_b2_train_agrees(*results, dtype)
+
+
+@pytest.mark.parametrize('dtype', B2_DTYPES)
+@pytest.mark.parametrize('shape,ps', B2_TRAIN_BUILDS)
+def test_b2_train_routes_and_runs_are_bit_equal(device, shape, ps, dtype):
+    """The stored and the recomputed route, and two runs, give the same
+    bits, on a mask with holes and a sample of length 1."""
+    holes = [(0, 10, 45), (3, 5, 9)]
+    runs = [_b2_train(device, shape, ps, dtype, route=route, holes=holes)[0]
+            for route in ('store', 'recompute', 'store')]
+    for key in runs[0]:
+        assert (runs[0][key] != runs[1][key]).sum().item() == 0, key
+        assert (runs[0][key] != runs[2][key]).sum().item() == 0, key
+
+
+@pytest.mark.parametrize('dtype', B2_DTYPES)
+@pytest.mark.parametrize('shape', [(16, 16, 2, 5), (160, 128, 16, 3),
+                                   (160, 80, 2, 5)])
+def test_b2_train_masks_are_the_true_columns(device, shape, dtype):
+    """At a padded WaveNet (ch 16, 128, 80: the body computes at 64, 128,
+    128) the forward's dropout masks, read element by element through a
+    probe stack whose pre-gate sum is the keep factor itself (w_in = 0,
+    b_in = 1: a dropped element leaves tanh 0 and sigmoid 1/2 in the saved
+    gate halves), are ``dropmask.stack_mask``'s over the true 2ch, which
+    the JAX package draws."""
+    from glow_tts_tpu_torch.ops import dropmask
+    c, ch, n, k = shape
+    gen = torch.Generator().manual_seed(sum(shape))
+    w, _, _, x, mask = _b2_problem(gen, device, shape, 0, steps=2)
+    w['b_in'] = torch.ones((2, n, 2 * ch), device=device)
+    w['w_in'] = torch.zeros_like(w['w_in'])
+    b, t = x.shape[:2]
+    saved = tg._saved_buffers(b * t, c, ch, n, device, dtype=dtype)
+    tg._recompute(x.to(dtype), torch.ones_like(mask), None,
+                  tg._kernel_weights([w[key] for key in tg.WEIGHT_KEYS],
+                                     dtype),
+                  saved, 1, tg._dropout_args(-17, 0.3))
+    ts = saved['ts'].float()
+    kept = torch.cat([ts[..., :ch] != 0, ts[..., ch:] != 0.5],
+                     dim=-1).reshape(n, b, t, 2 * ch)
+    want = torch.stack([dropmask.stack_mask(-17, 1, i, n, b, t, k, 2 * ch,
+                                            0.3, device) != 0
+                        for i in range(n)])
+    assert (kept != want).sum().item() == 0
+
+
+def test_b2_train_depth_tail_gradients_at_ch80(device):
+    """(C 160, ch 80): the start conv's activation gradient is 80 deep, and
+    only a build with the zero-filling tail instantiations computes it;
+    dx (which it reaches) and every gradient hold the f32 bar."""
+    kernel, plain, _ = _b2_train(device, (160, 80, 2, 5), 0, torch.float32,
+                                 lengths=[200, 1, 130])
+    for key in ('dx', 'dw_start', 'dan_logs', 'dmix_t'):
+        assert kernel[key].abs().max() > 0, key
+    _assert_b2_train_agrees(kernel, plain, None, torch.float32)
+
+
+def test_b2_train_refuses_what_no_build_takes(device):
+    """A bf16 WaveNet whose ch is not a multiple of 8 (20), and C = 200 at
+    8 layers of the shipped WaveNet (the saving block over 227 KB), raise
+    naming B.2's train half before any launch; the f32 build takes ch
+    20."""
+    for shape, dtype in (((160, 20, 2, 5), torch.bfloat16),
+                         ((200, 192, 8, 5), torch.float32)):
+        gen = torch.Generator().manual_seed(3)
+        w, cond, _, x, mask = _b2_problem(gen, device, shape, 0, steps=1,
+                                          lengths=[9, 4])
+        w['b_in'] = torch.zeros((1, shape[2], 2 * shape[1]), device=device)
+        before = dict(vars(tg.flow_stack_train))
+        with pytest.raises(ValueError, match='B.2, the train half'):
+            tg.flow_stack_train(x.to(dtype), mask, w, cond, seed=0)
+        assert {key: value for key, value in vars(tg.flow_stack_train).items()
+                if key.endswith('launches')} == {
+            key: value for key, value in before.items()
+            if key.endswith('launches')}
+    kernel, plain, _ = _b2_train(device, (160, 20, 2, 5), 0, torch.float32,
+                                 lengths=[40, 9])
+    _assert_b2_train_agrees(kernel, plain, None, torch.float32)
+
+
+@pytest.mark.parametrize('bf16', [False, True])
+@pytest.mark.parametrize('shape,ps', B2_TRAIN_BUILDS)
+def test_b2_train_library_geometry_is_pythons(device, shape, ps, bf16):
+    """#5's library reports its geometry (the float32 body with the saving
+    stage, whether w_pitch is staged), and it is ``geometry(...,
+    train=True)``'s; #6's takes the build's layers' reduction jobs."""
+    from glow_tts_tpu_torch.ops.cuda_build import load_library
+    shape = tc.FlowShape(*shape)
+    tg.load_train_forward_library(ps, shape, bf16)
+    lib = load_library('flow_train_fwd.cu', tc.build_defines(shape, ps, bf16))
+    assert tc.library_geometry(lib) == {
+        **shape._asdict(), 'pitch_size': ps,
+        **{key: value for key, value in
+           tc.geometry(shape, bf16, ps, train=True).items()
+           if key in tc.GEOMETRY_FIELDS}}
+    bwd = tg.load_train_backward_library(ps, shape, bf16)
+    assert bwd.glow_flow_train_bwd_max_reduce() >= 7 + 5 * shape.n_layers
