@@ -333,7 +333,35 @@ ROUTES = {'fused': 'flow_step', 'modules': 'coupling', 'mega': 'flow_stack'}
 B2_SHAPES = {'c200': ((200, 192, 4, 5), 0),
              'c200_pitch': ((200, 192, 4, 5), 2),
              'c16_ch16_l2_k5': ((16, 16, 2, 5), 0),
-             'c160_ch128_l16_k3': ((160, 128, 16, 3), 0)}
+             'c160_ch128_l16_k3': ((160, 128, 16, 3), 0),
+             # 128-bin mels at Num_Squeeze 2; 100-bin mels at Num_Squeeze 1,
+             # Vanilla and GR (the pitch operand 1 wide); 100-bin mels at 8
+             # layers of the shipped WaveNet (#5 without its saving stage)
+             'c256': ((256, 192, 4, 5), 0),
+             'c100': ((100, 192, 4, 5), 0),
+             'c100_pitch': ((100, 192, 4, 5), 1),
+             'c200_l8': ((200, 192, 8, 5), 0)}
+# what the B.2 phase runs of each build, where it is not every flow source
+# at f32 and bf16 (the sources' counters: FLOW_COUNTERS' names): GR at
+# Num_Squeeze 1, #3 at both dtypes (the init and an eval step under
+# 'fused'; the f32 build also the baseline the bf16 one is timed beside)
+# and a train step at bf16; C = 200 at 8 layers, #3 and a train step at
+# both dtypes
+B2_SOURCES = {'c100_pitch': {'flow_step': ('float32', 'bfloat16'),
+                             'train_fwd': ('bfloat16',),
+                             'train_bwd': ('bfloat16',)},
+              'c200_l8': {'flow_step': ('float32', 'bfloat16'),
+                          'train_fwd': ('float32', 'bfloat16'),
+                          'train_bwd': ('float32', 'bfloat16')}}
+
+
+def b2_builds(label):
+    """{source's counter name: the dtypes ('float32', 'bfloat16') its
+    build runs at} of B.2's ``label`` (B2_SOURCES, else every flow source at
+    both)."""
+    return B2_SOURCES.get(label, {
+        name: ('float32', 'bfloat16') for name in (
+            'flow_step', 'coupling', 'flow_stack', 'train_fwd', 'train_bwd')})
 
 
 def launch_counters():
@@ -4870,7 +4898,8 @@ def check_coupling_identity(step, shapes, cond, label):
             x16[..., :c2], x16[..., c2:], m, w16, cond, p, tiles=tiles),
             tile=tile)
         n_tiles = -(-m.shape[1] // tile)
-        assert tile == geometry(flow_shape, True)['time_tile'], tile
+        assert tile == geometry(flow_shape, True, 0 if p is None
+                                else p.shape[-1])['time_tile'], tile
         assert got['items'] == m.shape[0] * n_tiles, got
         assert got['blocks'] == min(lib.glow_coupling_resident_blocks(
             m.shape[0]), got['items']), got
@@ -5265,7 +5294,23 @@ B2_OVERRIDES = {
     'c160_ch128_l16_k3': ('Vanilla', {'Decoder': {'Affine_Coupling': {
         'Calc_Channels': 128, 'WaveNet': {'Num_Layers': 16,
                                           'Kernel_Size': 3}}}}),
+    # 128-bin mels; 100-bin mels at MiniSpeech's Num_Squeeze 1 (its only
+    # decoder setting the shipped YAML does not share; the encoder keeps
+    # the shipped vocabulary), Vanilla and GR; 100 bins at 8 layers
+    'c256': ('Vanilla', {'Sound': {'Mel_Dim': 128}}),
+    'c100': ('Vanilla', {'Sound': {'Mel_Dim': 100},
+                         'Decoder': {'Num_Squeeze': 1}}),
+    'c100_pitch': ('GR', {'Sound': {'Mel_Dim': 100},
+                          'Decoder': {'Num_Squeeze': 1}}),
+    'c200_l8': ('Vanilla', {'Sound': {'Mel_Dim': 100}, 'Decoder': {
+        'Affine_Coupling': {'WaveNet': {'Num_Layers': 8}}}}),
 }
+# the routes whose init and eval step the B.2 phase runs of a build, where
+# not all three; the builds whose init, eval and serving it holds to the
+# plain versions (each serves B = 32 through an Inferencer under each
+# route, at f32 and bf16)
+B2_ROUTES = {'c100_pitch': ('fused',), 'c200_l8': ('fused',)}
+B2_FULL = ('c200', 'c256', 'c100')
 B2_KERNEL_ITERS = 3            # timed launches a pair (flow_kernel_rows)
 
 
@@ -5344,15 +5389,16 @@ def serve_b2_f32(config, state, items, device, label):
     return by_path
 
 
-# a decoder shape no train build takes (ROADMAP B.2, the train half): 100-bin
-# mels at 8 layers of the shipped WaveNet, whose saving block is 242.7 KB
-B2_REFUSED = ((200, 192, 8, 5), {'Sound': {'Mel_Dim': 100}, 'Decoder': {
-    'Affine_Coupling': {'WaveNet': {'Num_Layers': 8}}}})
+# a decoder shape no train build takes (ROADMAP B.2, the train half): a
+# WaveNet 256 wide, outside every flow kernel's envelope (ch up to 192)
+B2_REFUSED = ((160, 256, 4, 5), {'Decoder': {'Affine_Coupling': {
+    'Calc_Channels': 256}}})
 # the train paths held to the plain path at full width (label, dtype): one
 # step's losses and gradients, then B2_MORE_STEPS more; every other build
 # trains one step through its kernels, counted
 B2_TRAIN_FULL = (('c200', 'float32'), ('c200', 'bfloat16'),
-                 ('c200_pitch', 'bfloat16'))
+                 ('c200_pitch', 'bfloat16'), ('c256', 'bfloat16'),
+                 ('c100', 'float32'))
 B2_MORE_STEPS = 3
 B2_TIMED = 3                   # timed calls of #5 and #6, after a warm-up
 
@@ -5695,22 +5741,23 @@ def random_state_dict_of(config):
 
 def run_b2_shapes_phase(card, device=None):
     """Every flow kernel at decoder shapes besides the shipped two
-    (ROADMAP B.2), each build at f32 and bf16 (B2_SHAPES).  The
-    deterministic ones (#3, #2, #4): each against its plain version at B =
-    32 x T_f = 512, all frames valid and on the eval batch's ragged mask,
-    both directions, #4 bit-equal to 12 chained #3 launches, #2 bf16
-    bit-equal to #3 bf16 on an identity ActNorm and mixing, each timed (by
-    CUDA graph at the decode shape) beside its bound; the ActNorm init and
-    one eval step at B = 32 x 224 tokens x 1024 frames under each route
-    (counted).  The train pair (#5, #6): against their plain versions on
-    the train batch's operands (check_b2_train_kernels), and a train step
-    through them (counted; b2_train_path).  At C = 200 (100-bin mels, the
-    shipped WaveNet) the init and eval are held to the plain versions
-    (loss bars), the train step too (B2_TRAIN_FULL), and an Inferencer
-    serves B = 32 in the 1024 bucket under each route at f32 and bf16; a
-    train step at a shape no train build takes raises B.2's error.
-    Returns the kernels line's rows (by build and dtype) and the launches
-    by path."""
+    (ROADMAP B.2), each build at f32 and bf16 (B2_SHAPES; B2_SOURCES where
+    a build runs less).  The deterministic ones (#3, #2, #4): each against
+    its plain version at B = 32 x T_f = 512, all frames valid and on the
+    eval batch's ragged mask, both directions, #4 bit-equal to 12 chained
+    #3 launches, #2 bf16 bit-equal to #3 bf16 on an identity ActNorm and
+    mixing, each timed (by CUDA graph at the decode shape) beside its
+    bound; the ActNorm init and one eval step at B = 32 x 224 tokens x
+    1024 frames under each route (B2_ROUTES where fewer; counted).  The
+    train pair (#5, #6): against their plain versions on the train batch's
+    operands (check_b2_train_kernels), and a train step through them
+    (counted; b2_train_path).  At B2_FULL's builds (100-bin mels at
+    Num_Squeeze 2 and 1, 128-bin mels at 2; the shipped WaveNet) the init
+    and eval are held to the plain versions (loss bars), the train steps of
+    B2_TRAIN_FULL too, and an Inferencer serves B = 32 in the 1024 bucket
+    under each route at f32 and bf16; a train step at a shape no train
+    build takes raises B.2's error.  Returns the kernels line's rows (by
+    build and dtype) and the launches by path."""
     from glow_tts_tpu_torch import TrainCollater, batch_to_device
     from glow_tts_tpu_torch.models.decoder import squeeze
     from glow_tts_tpu_torch.models.layers import sequence_mask
@@ -5726,6 +5773,7 @@ def run_b2_shapes_phase(card, device=None):
         assert tuple(config_shape(f32)) == shape, (label, config_shape(f32))
         gr = f32.uses_gradient_reversal
         assert (f32.decoder.num_squeeze if gr else 0) == ps, label
+        builds = b2_builds(label)
         state = random_state_dict_of(f32)
         batch = (conditioned_batch(f32, device, SEED + 261) if gr else
                  batch_to_device(TrainCollater(f32, Tokenizer())(
@@ -5736,18 +5784,25 @@ def run_b2_shapes_phase(card, device=None):
         _, eval_mask = squeeze(batch['mels'], sequence_mask(
             batch['mel_lengths'], batch['mels'].shape[1]),
             f32.decoder.num_squeeze)
-        full = label == 'c200'
+        full = label in B2_FULL
         for dtype in (torch.float32, BF16):
             at = 'bfloat16' if dtype == BF16 else 'float32'
+            if at not in builds['flow_step']:
+                continue
             tag = ('_bf16_' if dtype == BF16 else '_') + label
             for name, row in flow_kernel_rows(
                     model, device, eval_mask, f'B.2 {label} {at}', dtype,
-                    pitch=gr, names=('flow_step', 'coupling', 'flow_stack'),
+                    pitch=gr, names=tuple(
+                        name for name in ('flow_step', 'coupling',
+                                          'flow_stack')
+                        if at in builds.get(name, ())),
                     iters=B2_KERNEL_ITERS, graph=True).items():
                 rows[name + tag] = row
             config = dataclasses.replace(f32, compute_dtype=at)
             paths, _ = routes_eval(config, state, batch, device,
-                                   f'B.2 {label} {at}', 1, plain=full)
+                                   f'B.2 {label} {at}', 1,
+                                   routes=B2_ROUTES.get(label, tuple(ROUTES)),
+                                   plain=full)
             by_path.update(paths)
         del model
         # the train pair: against the plain versions on a train step's
@@ -5755,6 +5810,8 @@ def run_b2_shapes_phase(card, device=None):
         problem = b2_train_problem(label, f32, state, batch, device)
         for dtype in (torch.float32, BF16):
             at = 'bfloat16' if dtype == BF16 else 'float32'
+            if at not in builds['train_fwd']:
+                continue
             tag = ('_bf16_' if dtype == BF16 else '_') + label
             fwd_row, bwd_row = check_b2_train_kernels(problem, dtype, label)
             rows['flow_train_fwd' + tag] = fwd_row
@@ -7390,26 +7447,31 @@ def main():
     # pitch instantiation (the pitch operand 2 and 1 wide), at float32 and
     # at bfloat16; one nvcc each, all started together before the first
     # phase
-    flow_loaders = (('flow_step.cu', coupling.load_flow_step_library),
-                    ('coupling.cu', coupling.load_coupling_library),
-                    ('flow_stack.cu', coupling.load_flow_stack_library),
-                    ('flow_train_fwd.cu',
+    flow_loaders = (('flow_step', 'flow_step.cu',
+                     coupling.load_flow_step_library),
+                    ('coupling', 'coupling.cu',
+                     coupling.load_coupling_library),
+                    ('flow_stack', 'flow_stack.cu',
+                     coupling.load_flow_stack_library),
+                    ('train_fwd', 'flow_train_fwd.cu',
                      coupling_grad.load_train_forward_library),
-                    ('flow_train_bwd.cu',
+                    ('train_bwd', 'flow_train_bwd.cu',
                      coupling_grad.load_train_backward_library))
+    b2_sources = {(source, coupling.build_defines(shape, ps, bf16)):
+                  functools.partial(load, ps, shape, bf16)
+                  for label, (shape, ps) in B2_SHAPES.items()
+                  for name, source, load in flow_loaders
+                  for bf16 in (at == 'bfloat16'
+                               for at in b2_builds(label).get(name, ()))}
     sources = {('mas.cu', ()): mas.load_mas_library,
                **{(source, coupling.build_defines(channels, pitch, bf16)):
                   functools.partial(load, pitch, channels, bf16)
                   for bf16 in (False, True) for channels in (160, 80)
                   for pitch in (False, True)
-                  for source, load in flow_loaders},
-               # every flow source at the B.2 shapes, each at f32 and
-               # bf16
-               **{(source, coupling.build_defines(shape, ps, bf16)):
-                  functools.partial(load, ps, shape, bf16)
-                  for bf16 in (False, True)
-                  for shape, ps in B2_SHAPES.values()
-                  for source, load in flow_loaders}}
+                  for _, source, load in flow_loaders},
+               # the flow sources at the B.2 shapes, each at the dtypes the
+               # B.2 phase runs (b2_builds)
+               **b2_sources}
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc each, together
         for build in [pool.submit(load) for load in sources.values()]:
             build.result()
@@ -7424,7 +7486,7 @@ def main():
         start = now
 
     print(f'kernel builds: {len(sources)} libraries built and loaded in '
-          f'{time.perf_counter() - start:.1f} s ({len(B2_SHAPES) * 10} of '
+          f'{time.perf_counter() - start:.1f} s ({len(b2_sources)} of '
           f'them the B.2 shapes\' builds)')
     for source, defines in sources:
         for line in cuda_build.ptxas_report(source, defines):
@@ -7732,15 +7794,18 @@ def main():
                'glow_tts_tpu/ops/coupling_grad.py:195',
                'fused_flow_stack_train (backward)'))),
         # ROADMAP B.2: every flow kernel at other decoder shapes, each a
-        # build of its own at f32 and bf16 (the train pair's rows per flow
-        # step, the forward storing)
+        # build of its own at the dtypes the B.2 phase runs it (the train
+        # pair's rows per flow step, the forward storing), its launches on
+        # its build's counters (named by coupling.build_tag)
         *({'name': f'{name}{tag}', 'route': 'cuda',
            'source': csrc + f'{name}.cu',
            'build': ' '.join(f'-D{d}' for d in defines) or '(shipped)',
            'shape': dict(zip(('channels', 'ch', 'n_layers', 'kernel_size'),
                              shape), pitch_size=ps),
            'replaces': replaces, 'entry': entry,
-           **launches(f'{counter}{tag}'), **b2_rows[f'{name}{tag}'],
+           **launches(counter + build_suffix(channels=shape, pitch=ps,
+                                             bf16=bf16)),
+           **b2_rows[f'{name}{tag}'],
            **ring_body(name, defines), 'library_ms': None}
           for label, (shape, ps) in B2_SHAPES.items()
           for bf16 in (False, True)
@@ -7758,7 +7823,9 @@ def main():
                'fused_flow_stack_train'),
               ('flow_train_bwd', 'train_bwd',
                'glow_tts_tpu/ops/coupling_grad.py:195',
-               'fused_flow_stack_train (backward)')))]}))
+               'fused_flow_stack_train (backward)'))
+          if ('bfloat16' if bf16 else 'float32')
+          in b2_builds(label).get(counter, ()))]}))
     print(f'chip_smoke: {time.perf_counter() - begun:.0f} s in all, the '
           f'kernels\' build included; by phase {json.dumps(phases)}')
     print(card)

@@ -47,6 +47,15 @@ __device__ __forceinline__ void cp_async16(uint32_t smem, const void* gmem,
                "l"(gmem), "r"(bytes));
 }
 
+// 8 bytes from global to shared memory, or 8 zero bytes when !valid (the
+// same rule for gmem); through L1, the one path cp.async has for 8 bytes
+__device__ __forceinline__ void cp_async8(uint32_t smem, const void* gmem,
+                                          bool valid) {
+  const int bytes = valid ? 8 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem),
+               "l"(gmem), "r"(bytes));
+}
+
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"

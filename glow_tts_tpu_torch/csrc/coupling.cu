@@ -36,7 +36,8 @@
 //   the affine the flow step's own code, so that on an identity ActNorm and
 //   mixing its z_b and logdet are flow_step.cu's bit for bit.  x_a (every
 //   row of a tile, with its halo) and x_b (the owned rows) are read 16
-//   bytes at a time through their own strides.  The logdet's sums stay
+//   bytes at a time through their own strides (8 or 4 where a half's rows
+//   are not whole 16-byte chunks: C = 200, C = 100).  The logdet's sums stay
 //   float32.  It has a timed instantiation besides (glow_coupling_timed:
 //   the cycles of each phase of a tile, never launched by coupling).
 //
@@ -83,8 +84,10 @@ __device__ __forceinline__ float coupling_tile(const Tile<S>& tile,
                                                const Params& p) {
   constexpr int C = S::C, C2 = S::C2, TT = S::TT, HALO = S::HALO;
   tile.begin(p.mask);
-  tile.load_columns(p.x_a.data, p.x_a.batch_stride, p.x_a.row_stride, 0, C2);
-  tile.load_columns(p.x_b.data, p.x_b.batch_stride, p.x_b.row_stride, C2, C2);
+  tile.template load_columns<S::HV>(p.x_a.data, p.x_a.batch_stride,
+                                    p.x_a.row_stride, 0, C2);
+  tile.template load_columns<S::HV>(p.x_b.data, p.x_b.batch_stride,
+                                    p.x_b.row_stride, C2, C2);
   __syncthreads();
   const auto pre_gate = step_pre_gate(p.cond, p.pitch, p.w_pitch);
   pre_gate.stage(tile);
@@ -122,7 +125,7 @@ __global__ void __launch_bounds__(kThreads, 1) coupling_kernel(const Params p) {
       logdet = coupling_tile<S, REVERSE>(tile, p);
       ++computed;
     } else {
-      tile.zero_owned(p.z_b, S::C2);
+      tile.template zero_owned<S::HV>(p.z_b, S::C2);
     }
     if (!REVERSE && threadIdx.x == 0)
       p.ld_part[tile.b * p.n_tiles + tile.index] = logdet;
@@ -286,9 +289,11 @@ int glow_coupling_resident_blocks(int B) {
 // Shapes are those of the build's geometry (glow_flow_geometry; w_start,
 // b_start, b_rs, w_end, w_pitch and cond at the WaveNet width ch_pad),
 // w_in and w_rs in the tensor-core layout; the caller checks them, and that the
-// strides and addresses of x_a and x_b are multiples of 16 bytes (4 float32
-// elements, 8 bfloat16), or of 8 bytes in a bfloat16 build whose halves are
-// C/2 = 4 mod 8 wide (RingShape::VEC).
+// strides and addresses of x_a and x_b are multiples of the bytes the build
+// loads of a half's row at a time: 16 (4 float32 elements, 8 bfloat16), or
+// where a half's row is not a multiple of 16 bytes 8 (a float32 half at C/2
+// = 2 mod 4, Shape::HV; a bfloat16 half at C/2 = 4 mod 8) or 4 (a bfloat16
+// half at C/2 = 2 mod 4; RingShape::VEC).
 // pitch and w_pitch are null, or with a GLOW_PITCH build not null
 // (cudaErrorInvalidValue otherwise).  tiles is null, or 5 zeroed ints that
 // receive what the launch did (flow_common.cuh::report_tiles).  x_a, x_b

@@ -114,9 +114,13 @@ struct Shape {
   static constexpr int HPB = CH + 8, GPB = CH + 8;
   // n8 tiles across the 2CH columns of w_in and w_rs, and a warp's share
   static constexpr int NB = CH2 / 8, NT = NB / kWarps;
-  static_assert(C % 8 == 0 && CH % (4 * kWarps) == 0 && KS % 2 == 1 &&
+  static_assert(C % 4 == 0 && CH % (4 * kWarps) == 0 && KS % 2 == 1 &&
                     NB % kWarps == 0 && NT % 2 == 0,
                 "shape");
+  // floats of a half's row (C2 of them) that one load or store of a half
+  // moves: a float4, or a float2 where C2 = 2 mod 4 (C = 100: a half's x_b
+  // starts 8 bytes into a 16-byte chunk)
+  static constexpr int HV = C2 % 4 == 0 ? 4 : 2;
 
   HD static constexpr int layer_lo(int i) { return PAD * (i + 1); }
   HD static constexpr int layer_rows(int i) { return R - 2 * PAD * (i + 1); }
@@ -170,9 +174,10 @@ struct Shape {
 // The shape of this build (ops/coupling.py::build_defines passes each
 // macro that differs from the shipped one): the flow's channel count, the
 // shipped config's 160 (Num_Squeeze 2) unless the build defines another
-// (MiniSpeech's 80, Num_Squeeze 1; 100-bin mels' 200), and the WaveNet's
-// ch 192, 4 layers and k 5 unless it defines others.  C is a multiple of 8
-// up to 256, ch at most 192, k odd, the halo NL (k - 1) / 2 at most 16
+// (MiniSpeech's 80, Num_Squeeze 1; 100-bin mels' 200, or 100 at
+// Num_Squeeze 1; 128-bin mels' 256), and the WaveNet's ch 192, 4 layers and
+// k 5 unless it defines others.  C is a multiple of 4 from 8 to 256, ch at
+// most 192, k odd, the halo NL (k - 1) / 2 at most 16
 // (ops/coupling.py::ENVELOPE; each body's block budget is asserted below
 // and in flow_ring.cuh).
 #ifndef GLOW_CHANNELS
@@ -187,7 +192,8 @@ struct Shape {
 #ifndef GLOW_KSIZE
 #define GLOW_KSIZE 5
 #endif
-static_assert(GLOW_CHANNELS % 8 == 0 && GLOW_CHANNELS <= 256 &&
+static_assert(GLOW_CHANNELS % 4 == 0 && GLOW_CHANNELS >= 8 &&
+                  GLOW_CHANNELS <= 256 &&
                   GLOW_CH >= 1 && GLOW_CH <= 192 && GLOW_LAYERS >= 1 &&
                   GLOW_KSIZE % 2 == 1 &&
                   GLOW_LAYERS * (GLOW_KSIZE - 1) / 2 <= 16,
@@ -218,6 +224,59 @@ constexpr int kSavedCh = GLOW_CH;
 constexpr int kBlockBytes = 232448;
 constexpr int kMaxBatch = 1024;
 
+// Width of GR mode's pitch operand, num_squeeze, as the JAX package
+// squeezes the pitch: GLOW_PITCH_SIZE, which ops/coupling.py::build_defines
+// passes from the config unless it is the 160-channel build's 2 (the
+// shipped Num_Squeeze 2) or the 80-channel build's 1 (MiniSpeech,
+// Num_Squeeze 1).
+#ifndef GLOW_PITCH_SIZE
+#if GLOW_CHANNELS == 160
+#define GLOW_PITCH_SIZE 2
+#elif GLOW_CHANNELS == 80 || !defined(GLOW_PITCH)
+#define GLOW_PITCH_SIZE 1
+#else
+#error "a pitch build of this width names its num_squeeze (GLOW_PITCH_SIZE)"
+#endif
+#endif
+constexpr int kPitchSize = GLOW_PITCH_SIZE;
+
+// Whether this build takes GR's pitch operand (GLOW_PITCH)
+#ifdef GLOW_PITCH
+constexpr bool kPitch = true;
+#else
+constexpr bool kPitch = false;
+#endif
+
+// Whether a block of shape S stages a saving instantiation's gate halves
+// (Shape::SAVE_FLOATS) behind its buffers, so that they leave as whole rows:
+// flow_train_fwd.cu defines GLOW_SAVE_STAGE, and each of its kernels has the
+// stage, saving or not, where the buffers, the stage, the live-tile list of
+// kMaxBatch samples, the static arrays and the pitch rows fit the block
+// (every shape but 3 % of the float32 envelope, ch over 128 at C of 160 or
+// more and a halo of 9 frames or more, such as C = 200 at 8 layers); where
+// they do not, the saving kernel stores each gate half from the epilogue's
+// registers (wavenet_layers).  No stage in every other source.
+// ops/coupling.py::geometry decides the same (train: save_stage).
+template <class S>
+HD constexpr bool stages_saves() {
+#ifdef GLOW_SAVE_STAGE
+  return S::smem_bytes + sizeof(float) * S::SAVE_FLOATS +
+             4 * (2 * kMaxBatch + 1) + S::STATIC_BYTES +
+             4 * (kPitch ? kPitchSize : 0) * S::R <=
+         static_cast<size_t>(kBlockBytes);
+#else
+  return false;
+#endif
+}
+// and its bytes
+template <class S>
+HD constexpr size_t save_stage_bytes() {
+  if constexpr (stages_saves<S>())
+    return sizeof(float) * S::SAVE_FLOATS;
+  else
+    return 0;
+}
+
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
@@ -229,6 +288,9 @@ __device__ __forceinline__ float4 ld_act4(const float* p) {
 __device__ __forceinline__ float4& at4(float* p) {
   return *reinterpret_cast<float4*>(p);
 }
+__device__ __forceinline__ float2 ld_act2(const float* p) {
+  return __ldcg(reinterpret_cast<const float2*>(p));
+}
 // Four activations to device memory; streamed (written once, read much
 // later) with stcs_act4.
 __device__ __forceinline__ void st_act4(float* p, float4 v) { at4(p) = v; }
@@ -236,6 +298,12 @@ __device__ __forceinline__ void stcs_act4(float* p, float4 v) {
   __stcs(reinterpret_cast<float4*>(p), v);
 }
 __device__ __forceinline__ float to_act(float v, float*) { return v; }
+__device__ __forceinline__ void st_act2(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
+}
+__device__ __forceinline__ void stcs_act2(float* p, float2 v) {
+  __stcs(reinterpret_cast<float2*>(p), v);
+}
 
 // The activations' type in device memory, and v rounded to it and held in
 // float32 (the identity in a float32 build).
@@ -263,6 +331,9 @@ __device__ __forceinline__ void stcs_act4(__nv_bfloat16* p, float4 v) {
 }
 __device__ __forceinline__ __nv_bfloat16 to_act(float v, __nv_bfloat16*) {
   return __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void stcs_act2(__nv_bfloat16* p, float2 v) {
+  __stcs(reinterpret_cast<unsigned*>(p), pack_bf16(v.x, v.y));
 }
 #else
 constexpr bool kBf16 = false;
@@ -293,8 +364,12 @@ __device__ __forceinline__ float sigmoidf(float v) {
 // column groups l + 32*j (j < NV) that lie below N/4.  A loads are
 // warp-wide broadcasts, W loads 512-byte coalesced rows that the block's
 // eight warps share through L1.  The epilogue sees (row, first column,
-// four sums) for every owned cell.
-template <int MR, int NV, typename Epilogue>
+// four sums) for every owned cell.  K is a multiple of 4 but for KTAIL (K
+// mod 4) depths past the last whole 4-deep step (the start conv's C/2 = 50
+// at C = 100), which are taken one at a time: A's columns and W's rows past
+// K are never read, so nothing beyond the depth (x_b, the next weight)
+// enters the sums.
+template <int MR, int NV, int KTAIL = 0, typename Epilogue>
 __device__ __forceinline__ void block_gemm(const float* A, int lda, int K,
                                            const float* __restrict__ W,
                                            int ldw, int n_quads,
@@ -314,7 +389,7 @@ __device__ __forceinline__ void block_gemm(const float* A, int lda, int K,
   const float* a_rows = A + warp * MR * lda;
   const float4* w4 = reinterpret_cast<const float4*>(W) + lane;
   const int ldw4 = ldw / 4;
-  for (int k0 = 0; k0 < K; k0 += 4) {
+  for (int k0 = 0; k0 < K - KTAIL; k0 += 4) {
     float4 a[MR];
 #pragma unroll
     for (int r = 0; r < MR; ++r)
@@ -330,6 +405,28 @@ __device__ __forceinline__ void block_gemm(const float* A, int lda, int K,
       for (int r = 0; r < MR; ++r) {
         const float av = kk == 0 ? a[r].x : kk == 1 ? a[r].y
                        : kk == 2 ? a[r].z : a[r].w;
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          acc[r][j][0] = fmaf(av, w[j].x, acc[r][j][0]);
+          acc[r][j][1] = fmaf(av, w[j].y, acc[r][j][1]);
+          acc[r][j][2] = fmaf(av, w[j].z, acc[r][j][2]);
+          acc[r][j][3] = fmaf(av, w[j].w, acc[r][j][3]);
+        }
+      }
+    }
+  }
+  if constexpr (KTAIL != 0) {
+#pragma unroll
+    for (int kk = 0; kk < KTAIL; ++kk) {
+      const int k = K - KTAIL + kk;
+      float4 w[NV];
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+        w[j] = owned[j] ? __ldg(w4 + k * ldw4 + 32 * j)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int r = 0; r < MR; ++r) {
+        const float av = a_rows[r * lda + k];
 #pragma unroll
         for (int j = 0; j < NV; ++j) {
           acc[r][j][0] = fmaf(av, w[j].x, acc[r][j][0]);
@@ -748,16 +845,21 @@ struct Tile {
   }
 
   // Columns [col0, col0 + n) of x get the rows of src [B, T, n] whose
-  // frames lie in [0, T); src's samples lie batch_stride floats apart and
-  // its frames row_stride (multiples of 4, as are col0 and n).
-  template <class E>
+  // frames lie in [0, T), V (4, or 2: a float32 half at C2 = 2 mod 4)
+  // elements a load; src's samples lie batch_stride floats apart and its
+  // frames row_stride (multiples of V, as are col0 and n).
+  template <int V = 4, class E>
   __device__ void load_columns(const E* src, size_t batch_stride,
                                size_t row_stride, int col0, int n) const {
     const E* rows = src + b * batch_stride;
-    for (int i = threadIdx.x; i < S::R * (n / 4); i += kThreads) {
-      const int r = i / (n / 4), c = 4 * (i % (n / 4)), t = t0 + r;
-      if (t >= 0 && t < T)
-        at4(xs + r * S::C + col0 + c) = ld_act4(rows + t * row_stride + c);
+    for (int i = threadIdx.x; i < S::R * (n / V); i += kThreads) {
+      const int r = i / (n / V), c = V * (i % (n / V)), t = t0 + r;
+      if (t >= 0 && t < T) {
+        if constexpr (V == 4)
+          at4(xs + r * S::C + col0 + c) = ld_act4(rows + t * row_stride + c);
+        else
+          at2(xs + r * S::C + col0 + c) = ld_act2(rows + t * row_stride + c);
+      }
     }
   }
 
@@ -770,35 +872,46 @@ struct Tile {
   }
 
   // out[B*T, n] gets the [TT, n] block of the owned frames below T from
-  // rows_c (the owned frames' rows, `pitch` apart).  What is saved for a
-  // backward pass is written once and read much later (190 MB a step), so
-  // it goes out with streaming stores: written the plain way it pushed the
-  // weights out of L2 and cost a step 0.2 ms more.
-  template <class E>
+  // rows_c (the owned frames' rows, `pitch` apart), V (4, or 2: a half at
+  // C2 = 2 mod 4) elements a store.  What is saved for a backward pass is
+  // written once and read much later (190 MB a step), so it goes out with
+  // streaming stores: written the plain way it pushed the weights out of L2
+  // and cost a step 0.2 ms more.
+  template <int V = 4, class E>
   __device__ void store_owned(E* out, const float* rows_c, int pitch,
                               int n) const {
-    for (int i = threadIdx.x; i < S::TT * (n / 4); i += kThreads) {
-      const int r = i / (n / 4), c = 4 * (i % (n / 4));
+    for (int i = threadIdx.x; i < S::TT * (n / V); i += kThreads) {
+      const int r = i / (n / V), c = V * (i % (n / V));
       const int t = t0 + S::HALO + r;
-      if (t < T)
-        stcs_act4(out + (sample + t) * n + c,
-                  *reinterpret_cast<const float4*>(rows_c + r * pitch + c));
+      if (t < T) {
+        if constexpr (V == 4)
+          stcs_act4(out + (sample + t) * n + c,
+                    *reinterpret_cast<const float4*>(rows_c + r * pitch + c));
+        else
+          stcs_act2(out + (sample + t) * n + c,
+                    *reinterpret_cast<const float2*>(rows_c + r * pitch + c));
+      }
     }
   }
 
-  // out[B*T, n] gets zeros at the owned frames below `end` (at most T): a
-  // dead tile's output.
-  template <class E>
+  // out[B*T, n] gets zeros at the owned frames below `end` (at most T), V
+  // (4, or 2: a float32 half at C2 = 2 mod 4) elements a store: a dead
+  // tile's output.
+  template <int V = 4, class E>
   __device__ void zero_owned(E* out, int n, int end) const {
-    for (int i = threadIdx.x; i < S::TT * (n / 4); i += kThreads) {
-      const int t = t0 + S::HALO + i / (n / 4), c = 4 * (i % (n / 4));
-      if (t < end)
-        st_act4(out + (sample + t) * n + c, make_float4(0.f, 0.f, 0.f, 0.f));
+    for (int i = threadIdx.x; i < S::TT * (n / V); i += kThreads) {
+      const int t = t0 + S::HALO + i / (n / V), c = V * (i % (n / V));
+      if (t < end) {
+        if constexpr (V == 4)
+          st_act4(out + (sample + t) * n + c, make_float4(0.f, 0.f, 0.f, 0.f));
+        else
+          st_act2(out + (sample + t) * n + c, make_float2(0.f, 0.f));
+      }
     }
   }
-  template <class E>
+  template <int V = 4, class E>
   __device__ void zero_owned(E* out, int n) const {
-    zero_owned(out, n, T);
+    zero_owned<V>(out, n, T);
   }
 };
 
@@ -883,18 +996,29 @@ __device__ __forceinline__ void wavenet_layers(const Tile<S>& tile,
       gs[r * GP + c] = act_round(th * sg);
 #endif
       if constexpr (SAVE) {
-        // staged as the saved row [tanh, sigmoid], each half SCH wide: a
-        // padded channel's halves are not stored
+        // the saved row [tanh, sigmoid], each half SCH wide (a padded
+        // channel's halves are not stored): staged, or where the block has
+        // no room for the stage, stored from here
         const int own = row - HALO;
         if (own >= 0 && own < TT && (SCH == CH || c < SCH)) {
-          tile.ts[own * S::TSP + c] = th;
-          tile.ts[own * S::TSP + SCH + c] = sg;
+          if constexpr (stages_saves<S>()) {
+            tile.ts[own * S::TSP + c] = th;
+            tile.ts[own * S::TSP + SCH + c] = sg;
+          } else {
+            const int t = tile.t0 + row;
+            if (t < tile.T) {
+              act_t* const out = save.ts + I * frames * 2 * SCH +
+                                 (tile.sample + t) * 2 * SCH;
+              out[c] = to_act(th, out);
+              out[SCH + c] = to_act(sg, out);
+            }
+          }
         }
       }
     });
   }
   __syncthreads();
-  if constexpr (SAVE)
+  if constexpr (SAVE && stages_saves<S>())
     tile.store_owned(save.ts + I * frames * 2 * SCH, tile.ts, S::TSP,
                      2 * SCH);
   if constexpr (I < S::NL - 1) {
@@ -1006,7 +1130,7 @@ __device__ __forceinline__ void coupling_net(const Tile<S>& tile,
   }
 
   // start 1x1 on x_a: h = (x_a . w_start + b_start) * m, all R rows
-  block_gemm<S::mr(R), lane_quads(CH)>(
+  block_gemm<S::mr(R), lane_quads(CH), C2 % 4>(
       xs, C, C2, w.w_start, CH, CH / 4, [&](int r, int col, float4 v) {
         if (r < R)
 #ifdef GLOW_BF16_TILES
@@ -1033,7 +1157,8 @@ __device__ __forceinline__ void coupling_net(const Tile<S>& tile,
         if (r < TT) at4(gs + r * C + col) = add4(v, ldg4(w.b_end + col));
       });
   __syncthreads();
-  if constexpr (SAVE) tile.store_owned(save.logs, gs + C2, C, C2);
+  if constexpr (SAVE)
+    tile.template store_owned<S::HV>(save.logs, gs + C2, C, C2);
 }
 
 // The forward affine on the owned frames after coupling_net: z_b = (mean +
@@ -1093,35 +1218,6 @@ struct BiasPreGate {
     return {cond + (static_cast<size_t>(i) * tile.B + tile.b) * S::CH2};
   }
 };
-
-// Width of GR mode's pitch operand, num_squeeze, as the JAX package
-// squeezes the pitch: GLOW_PITCH_SIZE, which ops/coupling.py::build_defines
-// passes from the config unless it is the 160-channel build's 2 (the
-// shipped Num_Squeeze 2) or the 80-channel build's 1 (MiniSpeech,
-// Num_Squeeze 1).
-#ifndef GLOW_PITCH_SIZE
-#if GLOW_CHANNELS == 160
-#define GLOW_PITCH_SIZE 2
-#elif GLOW_CHANNELS == 80 || !defined(GLOW_PITCH)
-#define GLOW_PITCH_SIZE 1
-#else
-#error "a pitch build of this width names its num_squeeze (GLOW_PITCH_SIZE)"
-#endif
-#endif
-constexpr int kPitchSize = GLOW_PITCH_SIZE;
-
-// The bytes a block of shape S stages a saving instantiation's gate halves
-// in, behind its buffers (Shape::SAVE_FLOATS): flow_train_fwd.cu defines
-// GLOW_SAVE_STAGE, and each of its kernels has the stage, saving or not.
-// 0 in every other source.
-template <class S>
-HD constexpr size_t save_stage_bytes() {
-#ifdef GLOW_SAVE_STAGE
-  return sizeof(float) * S::SAVE_FLOATS;
-#else
-  return 0;
-#endif
-}
 
 // Whether a block of shape S stages a flow step's w_pitch [NL, PS, 2CH]
 // beside its tile's pitch rows [R, PS] (12.4 KB at the shipped shape, 6.2
@@ -1203,13 +1299,11 @@ struct PitchPreGate {
 // when a pitch operand asks for them) takes the pitch operand, any other
 // the bias rows alone, so the Vanilla instantiations are what they were.
 #ifdef GLOW_PITCH
-constexpr bool kPitch = true;
 __device__ __forceinline__ PitchPreGate<kPitchSize> step_pre_gate(
     const float* cond, const float* pitch, const float* w_pitch) {
   return {cond, pitch, w_pitch};
 }
 #else
-constexpr bool kPitch = false;
 __device__ __forceinline__ BiasPreGate step_pre_gate(const float* cond,
                                                      const float*,
                                                      const float*) {

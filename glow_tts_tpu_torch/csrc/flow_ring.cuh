@@ -61,21 +61,27 @@
 // in several copies (slower), a third slot (no faster), the slices staged
 // by every thread's cp.async (no faster).
 //
-// Other decoder shapes (ROADMAP B.2; RingShape<C, CH, NL, KS>, the build's
-// GLOW_CHANNELS, GLOW_LAYERS and GLOW_KSIZE): the WaveNet always computes
-// at 192 channels, ch up to 192 zero-padded (ops/coupling.py::
+// Other decoder shapes (ROADMAP B.2; RingShape<C, CH, NL, KS, TT>, the
+// build's GLOW_CHANNELS, GLOW_LAYERS and GLOW_KSIZE): the WaveNet always
+// computes at 192 channels, ch up to 192 zero-padded (ops/coupling.py::
 // padded_wavenet: weights, biases, conditioning rows and w_pitch; the
 // padded channels stay exact zeros), so the two warpgroups' 96-column
 // halves and a tap's whole 64-deep slices hold at any ch.  A tile owns TT =
 // 64 - 2 halo frames, at most 48 (the f32 buffers of TT rows keep the
-// shipped room).  The mixing's and the end conv's output halves are 96
-// columns, or 2 x 96 where C/2 is over 96 (NWS; the start conv's stay 96).
-// A half's rows are read 16 bytes at a time, or 8 where C/2 = 4 mod 8
-// (VEC: 100-bin mels' C = 200), and the epilogues of the 1x1 convs drop
-// the column pairs past C/2 (ring_past).  w_pitch is staged where the
-// block has room for it, else the epilogue reads it where it lies.  The
-// block fits every shape of the envelope up to C = 192, and C = 200 but for
-// a single layer of 15 taps or more; C = 256 does not (ROADMAP B.2).
+// shipped room), and fewer where the block has no room for them
+// (ring_time_tile: the largest multiple of 8 that fits, 40 at C = 216 ..
+// 256 without a pitch operand, so 128-bin mels' C = 256 takes 13 tiles of
+// a 512-frame sample where 48 frames would take 11).  The mixing's and the
+// end conv's output halves are 96 columns, or 2 x 96 where C/2 is over 96
+// (NWS; the start conv's stay 96).  A half's rows are read 16 bytes at a
+// time, or 8 where C/2 = 4 mod 8 (100-bin mels' C = 200), or 4 where C/2 =
+// 2 mod 4 (C = 100: VEC), a whole row 16 or 8 bytes (XVEC); the start
+// conv's depth is whole 64-deep slices of zero-padded weights (KSTART) and
+// the epilogues of the 1x1 convs drop the column pairs past C/2
+// (ring_past: C/2 is even, so a pair lies within or past it).  w_pitch is
+// staged where the block has room for it, else the epilogue reads it where
+// it lies.  The block fits every shape of the envelope (C a multiple of 4
+// up to 256).
 
 #pragma once
 
@@ -104,20 +110,20 @@ constexpr int kRingDepth = 64, kRingStages = 2;
 // The ring body's shape: C flow channels, the WaveNet at CH = 192 (ch up to
 // 192 padded with zeros: ops/coupling.py::padded_wavenet; the products' two
 // warpgroups take 96-column halves, and a tap's depth is whole 64-deep
-// slices), NL layers of KS taps.
-template <int C_, int CH_, int NL_, int KS_>
+// slices), NL layers of KS taps, TT owned frames a tile (ring_time_tile).
+template <int C_, int CH_, int NL_, int KS_, int TT_>
 struct RingShape {
   static constexpr int C = C_, C2 = C / 2, CH = CH_, CH2 = 2 * CH, NL = NL_,
                        KS = KS_;
   static_assert(CH == 192, "the ring body's WaveNet width: ch padded to 192");
   static constexpr int PAD = (KS - 1) / 2, HALO = NL * PAD;
-  // a tile is one m64 row block with its halo: TT = 64 - 2 HALO owned
-  // frames (48 at the shipped 4 layers of k 5; 32 at the halo of 16), at
-  // most 48 (a smaller halo leaves rows past the halo that no owned row
+  // a tile is one m64 row block with its halo: TT owned frames, at most 64
+  // - 2 HALO (48 at the shipped 4 layers of k 5; 32 at the halo of 16) and
+  // at most 48 (a smaller halo leaves rows past the halo that no owned row
   // reads: the f32 buffers of TT rows, x_b, the skip sum, mean and logs,
   // keep the shipped room)
-  static constexpr int R = 64, TT = R - 2 * HALO < 48 ? R - 2 * HALO : 48;
-  static_assert(TT >= 32 && TT + 2 * HALO <= R && KS % 2 == 1,
+  static constexpr int R = 64, TT = TT_;
+  static_assert(TT >= 32 && TT <= 48 && TT + 2 * HALO <= R && KS % 2 == 1,
                 "a halo of at most 16 frames");
   // a slice's depth (a 128-byte row of B a column, in the 128-byte
   // swizzle), its 16-deep steps, and the ring's slots
@@ -137,15 +143,18 @@ struct RingShape {
   // columns (NWS = 1 up to C/2 = 96, 2 up to 192); the start conv's 192 in
   // two halves of 96; the 384 of a WaveNet product
   static constexpr int NWS = ceil_div(C2, 96);
-  static_assert(C % 8 == 0 && NWS <= 2, "C a multiple of 8, C/2 <= 192");
+  static_assert(C % 4 == 0 && NWS <= 2, "C a multiple of 4, C/2 <= 192");
   static constexpr int N_SMALL = 2 * 96 * NWS, N_START = CH, N_BIG = CH2;
   static constexpr int SMALL_BYTES = 2 * SK * N_SMALL,
                        START_BYTES = 2 * SK * N_START,
                        BIG_BYTES = 2 * SK * N_BIG;
   static_assert(SMALL_BYTES <= BIG_BYTES, "a slice within a slot");
   // bfloat16 elements of a half's row that one load moves: 16 bytes, or 8
-  // where the row (C/2 elements) is not a multiple of 16 bytes (C = 200)
-  static constexpr int VEC = C2 % 8 == 0 ? 8 : 4;
+  // where the row (C/2 elements) is not a multiple of 16 bytes (C = 200),
+  // or 4 where it is not a multiple of 8 (C = 100); and of a whole row (C
+  // elements), 16 bytes or 8
+  static constexpr int VEC = C2 % 8 == 0 ? 8 : C2 % 4 == 0 ? 4 : 2;
+  static constexpr int XVEC = C % 8 == 0 ? 8 : 4;
   // bfloat16 row pitches (elements): an odd number of 16-byte chunks, so
   // an ldmatrix read of 8 rows touches 32 banks
   static constexpr int XP = KMIX + 8, AP = KSTART + 8, HP = CH + 8,
@@ -180,7 +189,30 @@ struct RingShape {
                 "ldmatrix pitches");
 };
 
-using RingBuilt = RingShape<GLOW_CHANNELS, 192, GLOW_LAYERS, GLOW_KSIZE>;
+// The owned frames of a tile at C channels, NL layers of KS taps and a pitch
+// operand PS wide (0: none): TT, the most a 64-row tile with its halo holds
+// (at most 48), where the block (its buffers, the live-tile list of
+// kMaxBatch samples, the static arrays and the 64 pitch rows; w_pitch's
+// stage only where it fits beside them) fits an H100's shared memory, else
+// the largest multiple of 8 below it that fits: 40 at C = 216 .. 256 without
+// pitch, 32 at C = 256 with it (ops/coupling.py::ring_time_tile).
+template <int C, int NL, int KS, int PS,
+          int TT = (64 - NL * (KS - 1) < 48 ? 64 - NL * (KS - 1) : 48)>
+HD constexpr int ring_time_tile() {
+  using S = RingShape<C, 192, NL, KS, TT>;
+  if constexpr (TT <= 32 ||
+                S::smem_bytes + 4 * (2 * kMaxBatch + 1) + S::STATIC_BYTES +
+                        4 * PS * S::R <=
+                    static_cast<size_t>(kBlockBytes)) {
+    return TT;
+  } else {
+    return ring_time_tile<C, NL, KS, PS, (TT - 1) / 8 * 8>();
+  }
+}
+using RingBuilt =
+    RingShape<GLOW_CHANNELS, 192, GLOW_LAYERS, GLOW_KSIZE,
+              ring_time_tile<GLOW_CHANNELS, GLOW_LAYERS, GLOW_KSIZE,
+                             kPitch ? kPitchSize : 0>()>;
 // the buffers, the static arrays, the pitch stage and the live-tile list
 // of a batch of up to kMaxBatch within the 227 KB of a block
 static_assert(RingBuilt::smem_bytes + 4 * (2 * kMaxBatch + 1) +
@@ -556,7 +588,7 @@ __device__ __forceinline__ uint32_t ring_lane_at(int pitch) {
 // a tile
 // ---------------------------------------------------------------------------
 
-// V bfloat16 as one load or store: 16 bytes (8) or 8 bytes (4)
+// V bfloat16 as one load or store: 16 bytes (8), 8 bytes (4) or 4 (2)
 template <int V>
 struct BfVec;
 template <>
@@ -566,6 +598,10 @@ struct BfVec<8> {
 template <>
 struct BfVec<4> {
   using T = uint2;
+};
+template <>
+struct BfVec<2> {
+  using T = uint32_t;
 };
 
 // A block's buffers and the tile it works on: the TT frames from t0 + HALO
@@ -598,7 +634,7 @@ struct RingTile {
 
   // z[B*T, W] (a flow step's C, a coupling's C2) gets zeros at the owned
   // frames below T: a dead tile's output, V elements a store.
-  template <int W = S::C, int V = 8>
+  template <int W = S::C, int V = S::XVEC>
   __device__ void zero_owned(act_t* z) const {
     using Vec = typename BfVec<V>::T;
     for (int i = threadIdx.x; i < S::TT * (W / V); i += kThreads) {
@@ -713,9 +749,8 @@ __device__ __forceinline__ void ring_load_mask(const RingTile<S>& tile,
 
 // V elements of x at frame t0 + r, channel c (a multiple of V), or zeros
 // where the frame lies outside [0, T) or its mask is 0 (rows past a
-// sample's length never reach a valid row, even as NaN): one 16-byte load
-// of 8 bfloat16, or an 8-byte one of 4 (S::VEC where a half's rows are not
-// whole 16-byte chunks)
+// sample's length never reach a valid row, even as NaN): one load of V
+// bfloat16, 16, 8 or 4 bytes (S::XVEC for a whole row, S::VEC for a half's)
 template <class S, int V = 8>
 __device__ __forceinline__ typename BfVec<V>::T ring_x(
     const RingTile<S>& tile, const act_t* x, int r, int c) {
@@ -725,15 +760,16 @@ __device__ __forceinline__ typename BfVec<V>::T ring_x(
   return __ldcg(reinterpret_cast<const Vec*>(x + (tile.sample + t) * S::C +
                                              c));
 }
+
+// The same of rows with strides of their own (ring_coupling_tile's halves:
+// Rows' data, batch_stride and row_stride, the strides in elements and
+// multiples of V, the address 2 V-byte aligned, as ops/coupling.py checks)
 template <class S>
 __device__ __forceinline__ uint4 ring_x8(const RingTile<S>& tile,
                                          const act_t* x, int r, int c) {
   return ring_x<S, 8>(tile, x, r, c);
 }
 
-// The same of rows with strides of their own (ring_coupling_tile's halves:
-// Rows' data, batch_stride and row_stride, the strides in elements and
-// multiples of V, the address 2 V-byte aligned, as ops/coupling.py checks)
 template <class S, int V, class Rows>
 __device__ __forceinline__ typename BfVec<V>::T ring_rows(
     const RingTile<S>& tile, const Rows& x, int r, int c) {
@@ -752,6 +788,9 @@ __device__ __forceinline__ float bf_at(const uint2& u, int e) {
   const uint32_t w = e < 2 ? u.x : u.y;
   return e % 2 ? tf32::bf16_hi(w) : tf32::bf16_lo(w);
 }
+__device__ __forceinline__ float bf_at(const uint32_t& w, int e) {
+  return e % 2 ? tf32::bf16_hi(w) : tf32::bf16_lo(w);
+}
 // V floats rounded to bfloat16, packed as one store
 __device__ __forceinline__ void bf_pack(const float (&v)[8], uint4& out) {
   out = make_uint4(tf32::pack_bf16(v[0], v[1]), tf32::pack_bf16(v[2], v[3]),
@@ -759,6 +798,9 @@ __device__ __forceinline__ void bf_pack(const float (&v)[8], uint4& out) {
 }
 __device__ __forceinline__ void bf_pack(const float (&v)[4], uint2& out) {
   out = make_uint2(tf32::pack_bf16(v[0], v[1]), tf32::pack_bf16(v[2], v[3]));
+}
+__device__ __forceinline__ void bf_pack(const float (&v)[2], uint32_t& out) {
+  out = tf32::pack_bf16(v[0], v[1]);
 }
 
 // x_a's padding to the start conv's depth: zeros in the columns C2 ..
@@ -1013,22 +1055,40 @@ __device__ __forceinline__ float ring_flow_step_tile(
   ring_pad_xa(tile);
   ring_stage(pre_gate, tile);
   if constexpr (!REVERSE) {
-    // the mixing's input: ActNorm, rounded, zero past C
-    for (int i = tid; i < R * (S::KMIX / 8); i += kThreads) {
-      const int r = i / (S::KMIX / 8), c = 8 * (i % (S::KMIX / 8));
-      uint4 out = make_uint4(0, 0, 0, 0);
-      if (c < C) {
-        const uint4 in = ring_x8(tile, x, r, c);
-        float v[8];
+    // the mixing's input: ActNorm, rounded, zero past C, 8 at a time, or 4
+    // where a row is not whole 16-byte chunks (C = 100: XVEC; the loop of
+    // every other width is the one its builds compiled before)
+    if constexpr (S::XVEC == 8) {
+      for (int i = tid; i < R * (S::KMIX / 8); i += kThreads) {
+        const int r = i / (S::KMIX / 8), c = 8 * (i % (S::KMIX / 8));
+        uint4 out = make_uint4(0, 0, 0, 0);
+        if (c < C) {
+          const uint4 in = ring_x8(tile, x, r, c);
+          float v[8];
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-          v[e] = (an_shift[c + e] + an_scale[c + e] * bf_at(in, e)) * m[r];
-        out = make_uint4(tf32::pack_bf16(v[0], v[1]),
-                         tf32::pack_bf16(v[2], v[3]),
-                         tf32::pack_bf16(v[4], v[5]),
-                         tf32::pack_bf16(v[6], v[7]));
+          for (int e = 0; e < 8; ++e)
+            v[e] = (an_shift[c + e] + an_scale[c + e] * bf_at(in, e)) * m[r];
+          out = make_uint4(tf32::pack_bf16(v[0], v[1]),
+                           tf32::pack_bf16(v[2], v[3]),
+                           tf32::pack_bf16(v[4], v[5]),
+                           tf32::pack_bf16(v[6], v[7]));
+        }
+        *reinterpret_cast<uint4*>(g + r * S::XP + c) = out;
       }
-      *reinterpret_cast<uint4*>(g + r * S::XP + c) = out;
+    } else {
+      for (int i = tid; i < R * (S::KMIX / 4); i += kThreads) {
+        const int r = i / (S::KMIX / 4), c = 4 * (i % (S::KMIX / 4));
+        uint2 out = make_uint2(0, 0);
+        if (c < C) {
+          const uint2 in = ring_x<S, 4>(tile, x, r, c);
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            v[e] = (an_shift[c + e] + an_scale[c + e] * bf_at(in, e)) * m[r];
+          bf_pack(v, out);
+        }
+        *reinterpret_cast<uint2*>(g + r * S::XP + c) = out;
+      }
     }
     __syncthreads();
     // [x_a, x_b] = y . mix_t * m: warpgroup 0 makes x_a (rounded; z's first

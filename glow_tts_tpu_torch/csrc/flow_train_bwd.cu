@@ -203,6 +203,31 @@ using act_t = float;
 // (at most 128 registers a thread, 85 KB of shared memory a block)
 constexpr int kMinBlocks = kBf16 ? 2 : 1;
 
+#ifdef GLOW_BF16
+// A GLOW_BF16 build stages its operands' rows 16 bytes (8 elements) a
+// cp.async, as they lie.  Where a row of C elements is not whole 16-byte
+// chunks (C = 4 mod 8, as at C = 100: the C-wide cotangents douts and dyd,
+// y, yd, mix_t and w_end), a build stages every chunk as two 8-byte halves
+// instead, each zero-filled where its own first element lies at or past
+// the depth or width `end` (a half's row of C/2 = 50 is then whole 4-element
+// halves; a half at 48 .. 51 reads yd's columns 50 and 51, which reach only
+// rows of a weight gradient past its depth, never stored).
+constexpr bool kHalfChunks = kChannels % 8 != 0;
+
+// Elements k .. k + 7 of the bf16 row at `row` into smem as two 8-byte
+// halves: half h where row_ok and k + 4 h < end, else zeros (`any`: an
+// address inside the tensor).
+__device__ __forceinline__ void stage_halves(uint32_t smem, const act_t* row,
+                                             int k, bool row_ok, int end,
+                                             const act_t* any) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool ok = row_ok && k + 4 * h < end;
+    bf16mma::cp_async8(smem + 8 * h, ok ? row + k + 4 * h : any, ok);
+  }
+}
+#endif
+
 // ---------------------------------------------------------------------------
 // activation gradients
 // ---------------------------------------------------------------------------
@@ -232,7 +257,8 @@ static_assert((NT_BM / NT_WM) * (NT_BN / NT_WN) == kThreads / 32, "warps");
 // kseg columns, W[tap] is [N, kseg] with row stride ldw and the taps
 // tap_stride apart.  kseg % 32 == 0 (kseg % 4 == 0 with TAIL); N % 2 == 0;
 // lda, ldw % 4 == 0.  In a GLOW_BF16 build A and W are bfloat16 and kseg,
-// lda, ldw % 8 == 0 (any depth: the slice past kseg is zero-filled).
+// lda, ldw % 8 == 0, or % 4 in a kHalfChunks build (any depth: the slice
+// past kseg is zero-filled).
 struct NtArgs {
   const act_t* a;
   const act_t* w;
@@ -282,17 +308,29 @@ __device__ __forceinline__ void gemm_nt_tile(const NtArgs& g,
     for (int i = tid; i < NT_BM * 8; i += kThreads) {
       const int m = i / 8, c = i % 8, k = k0 + 8 * c;
       const int t = t0 + m + shift;
-      const bool ok = t >= 0 && t < len && k < g.kseg;
-      cp_async16(as + sw128(m, c),
-                 ok ? g.a + (sample + t) * g.lda + k : g.a, ok);
+      if constexpr (kHalfChunks) {
+        stage_halves(as + sw128(m, c), g.a + (sample + t) * g.lda, k,
+                     t >= 0 && t < len, g.kseg, g.a);
+      } else {
+        const bool ok = t >= 0 && t < len && k < g.kseg;
+        cp_async16(as + sw128(m, c),
+                   ok ? g.a + (sample + t) * g.lda + k : g.a, ok);
+      }
     }
     const act_t* w_tap = g.w + static_cast<size_t>(tap) * g.tap_stride;
     for (int i = tid; i < NT_BN * 8; i += kThreads) {
       const int n = i / 8, c = i % 8, k = k0 + 8 * c;
-      const bool ok = n0 + n < g.N && k < g.kseg;
-      cp_async16(ws + sw128(n, c),
-                 ok ? w_tap + static_cast<size_t>(n0 + n) * g.ldw + k : w_tap,
-                 ok);
+      if constexpr (kHalfChunks) {
+        stage_halves(ws + sw128(n, c),
+                     w_tap + static_cast<size_t>(n0 + n) * g.ldw, k,
+                     n0 + n < g.N, g.kseg, w_tap);
+      } else {
+        const bool ok = n0 + n < g.N && k < g.kseg;
+        cp_async16(ws + sw128(n, c),
+                   ok ? w_tap + static_cast<size_t>(n0 + n) * g.ldw + k
+                      : w_tap,
+                   ok);
+      }
     }
   };
 
@@ -621,9 +659,12 @@ static_assert((TN_BM / TN_WM) * (TN_BN / TN_WN) == kThreads / 32, "warps");
 
 // part[chunk][kd, n] = sum over the valid frames t of the chunk's samples of
 // P[b*T + t + kd / kseg - pad, kd % kseg] * G[b*T + t, n] (zero when the
-// shifted frame leaves [0, T)).  K = taps * kseg; kseg, N % 4 == 0.  Chunk c
-// holds the samples [c * spc, (c + 1) * spc).  In a GLOW_BF16 build P and G
-// are bfloat16 and kseg, N, ldp, ldg % 8 == 0.
+// shifted frame leaves [0, T)).  K = taps * kseg; N % 4 == 0, kseg even
+// (its last 4-column group may read two columns past it, within the row:
+// the start conv's x_a at C/2 = 2 mod 4, whose rows of dW past kseg are
+// never stored).  Chunk c holds the samples [c * spc, (c + 1) * spc).  In a
+// GLOW_BF16 build P and G are bfloat16 and N, ldp, ldg % 8 == 0, or % 4 in
+// a kHalfChunks build.
 struct TnArgs {
   const act_t* p;
   const act_t* g;
@@ -689,16 +730,28 @@ __device__ __forceinline__ void gemm_tn_tile(const TnArgs& g, int bx, int by,
     for (int i = tid; i < BK * (TN_BM / 8); i += kThreads) {
       const int r = i / (TN_BM / 8), q = 8 * (i % (TN_BM / 8));
       const int t = pr + r + shift;
-      const bool ok =
-          pr + r < len && t >= 0 && t < g.T && c0 + q < g.kseg;
-      cp_async16(smem_u32(ps + r * TN_LDP + q),
-                 ok ? g.p + (sample + t) * g.ldp + c0 + q : g.p, ok);
+      if constexpr (kHalfChunks) {
+        stage_halves(smem_u32(ps + r * TN_LDP + q),
+                     g.p + (sample + t) * g.ldp, c0 + q,
+                     pr + r < len && t >= 0 && t < g.T, g.kseg, g.p);
+      } else {
+        const bool ok =
+            pr + r < len && t >= 0 && t < g.T && c0 + q < g.kseg;
+        cp_async16(smem_u32(ps + r * TN_LDP + q),
+                   ok ? g.p + (sample + t) * g.ldp + c0 + q : g.p, ok);
+      }
     }
     for (int i = tid; i < BK * (TN_BN / 8); i += kThreads) {
       const int r = i / (TN_BN / 8), q = 8 * (i % (TN_BN / 8));
-      const bool ok = pr + r < len && n0 + q < g.N;
-      cp_async16(smem_u32(gs + r * TN_LDG + q),
-                 ok ? g.g + (sample + pr + r) * g.ldg + n0 + q : g.g, ok);
+      if constexpr (kHalfChunks) {
+        stage_halves(smem_u32(gs + r * TN_LDG + q),
+                     g.g + (sample + pr + r) * g.ldg, n0 + q, pr + r < len,
+                     g.N, g.g);
+      } else {
+        const bool ok = pr + r < len && n0 + q < g.N;
+        cp_async16(smem_u32(gs + r * TN_LDG + q),
+                   ok ? g.g + (sample + pr + r) * g.ldg + n0 + q : g.g, ok);
+      }
     }
     pr += BK;
     if (pr >= len) {

@@ -98,8 +98,9 @@
 #ifdef GLOW_BF16
 #define GLOW_BF16_TILES
 #endif
-// every kernel of this source has the saving stage (flow_common.cuh counts
-// it in the block's budget and in whether w_pitch is staged)
+// every kernel of this source has the saving stage where the block has room
+// for it (flow_common.cuh::stages_saves, which counts it in the block's
+// budget and in whether w_pitch is staged)
 #define GLOW_SAVE_STAGE
 
 #include "dropmask.cuh"
@@ -112,6 +113,11 @@ namespace {
 // padded with zeros (ops/coupling.py::padded_wavenet), and stores the saved
 // values at the true ch (kSavedCh), 16 bytes (bf16) or a float4 at a time;
 // ops/coupling.py::train_error refuses the widths these stores do not take.
+// Where the block has no room for the saving stage (flow_common.cuh::
+// stages_saves: C = 200 at 8 layers of the shipped WaveNet, 3 % of the f32
+// envelope), the saving kernels store each gate half from the k-tap conv's
+// epilogue, an element a store, and the block drops the stage; every other
+// build keeps the staged whole-row stores.
 static_assert(kSavedCh % (kBf16 ? 8 : 4) == 0,
               "the saved rows' width (ROADMAP.md B.2)");
 
@@ -228,7 +234,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* const smem = reinterpret_cast<float*>(smem4);
   const LiveTiles items = live_tiles<S>(
       p.mask, p.B, p.T,
-      reinterpret_cast<int*>(smem + S::FLOATS + S::SAVE_FLOATS));
+      reinterpret_cast<int*>(smem + S::FLOATS +
+                             save_stage_bytes<S>() / sizeof(float)));
   int computed = 0;
   for (int item = blockIdx.x; item < items.items; item += gridDim.x) {
     const TileId id = items.at(item);
@@ -269,7 +276,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <class S, Writes WRITES, int PASSES = 3>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = S::smem_bytes + sizeof(float) * S::SAVE_FLOATS +
+  const size_t smem = S::smem_bytes + save_stage_bytes<S>() +
                       sizeof(int) * live_tile_ints(p.B);
   int blocks = 0;
   const cudaError_t err = resident_blocks(

@@ -19,7 +19,8 @@ kernel's pitch instantiation, a library of its own built at the first call
 that has a pitch operand.  The decoder's shape picks the library too
 (:class:`FlowShape`: the flow's channels and the WaveNet's width, layers
 and taps): the shipped config's 160 channels, MiniSpeech's 80, 100-bin
-mels' 200, any shape of the envelope (:func:`check_envelope`; others raise
+mels' 200 (100 at Num_Squeeze 1), 128-bin mels' 256, any shape of the
+envelope (:func:`check_envelope`; others raise
 naming ``ROADMAP.md`` B.2), each built at its first call with its shape's
 macros (:func:`build_defines`) and held at load to the tile geometry
 Python computes for it (:func:`geometry`); each build counts its launches
@@ -28,7 +29,7 @@ width (:func:`padded_wavenet`: zero weights, biases, conditioning rows and
 pitch weights, so the padded channels carry exact zeros), on weights
 padded once where they are packed.  The train kernels
 (``ops/coupling_grad.py``) build for the same shapes, less those whose
-saving block or stored rows they cannot take (:func:`train_error`), each
+stored rows or layer count they cannot take (:func:`train_error`), each
 library reporting its :func:`geometry` with ``train=True``.
 
 Beside each wrapper stands its plain PyTorch version (``*_reference``);
@@ -123,15 +124,19 @@ SHIPPED_SHAPES = tuple(FlowShape(c) for c in BUILT_CHANNELS)
 # the pitch operand's width (num_squeeze) that the 160- and 80-channel
 # builds take without a GLOW_PITCH_SIZE macro (csrc/flow_common.cuh)
 SHIPPED_PITCH_SIZE = {SHIPPED_CHANNELS: 2, 80: 1}
-# the shapes the deterministic kernels (#2, #3, #4) are built for, each at
-# its first use: C a multiple of 8 up to 256 (the bodies' 16-byte loads of
-# a half; 100-bin mels at Num_Squeeze 2 are 200), ch up to 192 (each body's
-# WaveNet width, zero-padded), k odd and a halo of at most 16 frames a side
-# (the ring body's 64-row tile keeps 32 owned frames); the bfloat16 builds
-# besides fit a block at every such shape up to C = 192, and beyond where
-# budget_error finds room (C = 200 but for a single layer of 15 taps or
-# more)
-ENVELOPE = {'channels': 256, 'ch': 192, 'halo': 16}
+# the shapes every flow kernel (#2, #3, #4, and the train pair #5, #6) is
+# built for, each at its first use: C a multiple of 4 up to 256 (two halves
+# of an even width: 100-bin mels at Num_Squeeze 1 are 100, at 2 200; 128-bin
+# mels at 2 are 256), ch up to 192 (each body's WaveNet width,
+# zero-padded), k odd and a halo of at most 16 frames a side (the ring
+# body's 64-row tile keeps 32 owned frames).  Every such build fits a
+# block: the ring body owns fewer frames a tile where its block needs the
+# room (ring_time_tile), #5 stores without its saving stage where that
+# does not fit (geometry with train)
+ENVELOPE = {'channels': 256, 'grain': 4, 'ch': 192, 'halo': 16}
+# the ring body's tile: 64 rows (one m64 block of wgmma) of which at most 48
+# are owned, and at least 32
+RING_ROWS, RING_MAX_TILE, RING_MIN_TILE = 64, 48, 32
 # the shared memory of a block on an H100 (227 KB)
 BLOCK_BYTES = 232448
 # the live-tile list's ints in a block (csrc/flow_common.cuh::live_tiles)
@@ -219,8 +224,9 @@ def envelope_error(shape) -> Optional[str]:
     where one does (:data:`ENVELOPE`)."""
     shape = as_shape(shape)
     c, ch, n, k = shape
-    if c % 8 or not 0 < c <= ENVELOPE['channels']:
-        return f'channels {c}: a multiple of 8 up to {ENVELOPE["channels"]}'
+    if c % ENVELOPE['grain'] or not 8 <= c <= ENVELOPE['channels']:
+        return (f'channels {c}: a multiple of {ENVELOPE["grain"]} from 8 to '
+                f'{ENVELOPE["channels"]}')
     if not 0 < ch <= ENVELOPE['ch']:
         return f'ch {ch}: up to {ENVELOPE["ch"]}'
     if n < 1 or k < 1 or k % 2 == 0:
@@ -301,13 +307,12 @@ def f32_smem_bytes(c: int, ch: int, n: int, k: int, tt: int) -> int:
     return 4 * floats
 
 
-def ring_smem_bytes(c: int, n: int, k: int) -> int:
-    """``RingShape<c, 192, n, k>::smem_bytes`` of ``csrc/flow_ring.cuh``:
-    the ring body's dynamic buffers of a block, the ring and 1 KB to align
-    them included."""
+def ring_smem_bytes(c: int, n: int, k: int, tt: int) -> int:
+    """``RingShape<c, 192, n, k, tt>::smem_bytes`` of ``csrc/flow_ring.cuh``:
+    the ring body's dynamic buffers of a block owning ``tt`` frames a tile,
+    the ring and 1 KB to align them included."""
     pad = (k - 1) // 2
-    tt = min(48, 64 - 2 * n * pad)
-    r, ch, depth = 64, 192, 64
+    r, ch, depth = RING_ROWS, 192, 64
     big = 2 * depth * 2 * ch
     hp = gp = sp = ch + 8
     xp = _round_up(c, depth) + 8
@@ -316,6 +321,28 @@ def ring_smem_bytes(c: int, n: int, k: int) -> int:
     g = 2 * r * max(gp, xp)
     s = max(4 * tt * sp, 2 * r * ap, 4 * tt * c)
     return 2 * big + h + g + s + 4 * tt * (c // 2) + 4 * r + 1024
+
+
+def _besides_buffers(static: int, pitch: int, rows: int) -> int:
+    """A block's shared memory besides its dynamic buffers: the live-tile
+    list of MAX_BATCH samples, the static arrays and the pitch operand's
+    staged rows (w_pitch's stage is counted apart, where it fits)."""
+    return 4 * (2 * MAX_BATCH + 1) + static + 4 * pitch * rows
+
+
+def ring_time_tile(c: int, n: int, k: int, pitch: int = 0) -> int:
+    """The frames a tile of the ring body owns at ``c`` channels, ``n``
+    layers of ``k`` taps and a pitch operand ``pitch`` wide
+    (``csrc/flow_ring.cuh::ring_time_tile``): 64 − 2·halo, at most 48, where
+    the block fits an H100's shared memory with the live-tile list and the
+    pitch rows; else the largest multiple of 8 below it that fits (40 at C
+    = 216 … 256 without a pitch operand), at least 32."""
+    tt = min(RING_MAX_TILE, RING_ROWS - n * (k - 1))
+    while tt > RING_MIN_TILE and (
+            ring_smem_bytes(c, n, k, tt)
+            + _besides_buffers(8 * c + 128, pitch, RING_ROWS) > BLOCK_BYTES):
+        tt = (tt - 1) // 8 * 8
+    return tt
 
 
 def geometry(shape, bf16: bool = False, pitch: int = 0,
@@ -330,11 +357,12 @@ def geometry(shape, bf16: bool = False, pitch: int = 0,
     bfloat16 build keeps h and the gate in bfloat16 over the same buffers)
     with the saving stage of the owned rows' gate halves
     (``Shape::SAVE_FLOATS``, ``4·TT·(2·ch_pad + 4)`` bytes) in
-    ``smem_bytes``.
+    ``smem_bytes`` where the block has room for it (``save_stage``, 0
+    where #5 stores the gate halves straight from its registers).
 
     * ``time_tile``: owned frames of a tile (the float32 body's 32; the
-      ring body's 64 − 2·halo, at most 48, so a tile with its halo is one
-      64-row ``wgmma`` block);
+      ring body's :func:`ring_time_tile`, so a tile with its halo lies in
+      one 64-row ``wgmma`` block);
     * ``ch_pad``: the WaveNet width the body computes at, ``ch`` padded with
       zero weights (float32: to a multiple of 64, the tensor-core tiles'
       grain; ring: 192, the two warpgroups' 96-column halves);
@@ -349,29 +377,30 @@ def geometry(shape, bf16: bool = False, pitch: int = 0,
     c, ch, n, k = as_shape(shape)
     halo = n * (k - 1) // 2
     if bf16 and not train:
-        tt = min(48, 64 - 2 * halo)
+        tt = ring_time_tile(c, n, k, pitch)
         out = {'time_tile': tt, 'ch_pad': 192, 'ring_depth': 64,
                'half_small': 96 * -(-(c // 2) // 96), 'half_big': 192,
-               'smem_bytes': ring_smem_bytes(c, n, k)}
-        # the ActNorm tables; the warps' sums and the ring's barriers
-        static = 8 * c + 128
+               'smem_bytes': ring_smem_bytes(c, n, k, tt), 'save_stage': 0}
+        # the ActNorm tables; the warps' sums and the ring's barriers; the
+        # pitch stage's rows are the 64 of a tile
+        static, rows = 8 * c + 128, RING_ROWS
     else:
         tt, ch_pad = 32, body_width(ch)
+        static, rows = 128, tt + 2 * halo
+        buffers = f32_smem_bytes(c, ch_pad, n, k, tt)
         save = 4 * tt * (2 * ch_pad + 4) if train else 0
+        staged = int(train and buffers + save + _besides_buffers(
+            static, pitch, rows) <= BLOCK_BYTES)
         out = {'time_tile': tt, 'ch_pad': ch_pad, 'ring_depth': 0,
                'half_small': 0, 'half_big': 0,
-               'smem_bytes': f32_smem_bytes(c, ch_pad, n, k, tt) + save}
-        static = 128
-    # the block's shared memory besides the buffers: the live-tile list of
-    # MAX_BATCH samples, the static arrays and the pitch stage (the tile's
-    # pitch rows, and the step's w_pitch where that fits)
-    rows = tt + 2 * halo
-    base = out['smem_bytes'] + 4 * (2 * MAX_BATCH + 1) + static
+               'smem_bytes': buffers + save * staged, 'save_stage': staged}
+    # the block's shared memory besides the buffers (the live-tile list,
+    # the static arrays, the pitch stage: the tile's pitch rows, and the
+    # step's w_pitch where that fits)
+    base = out['smem_bytes'] + _besides_buffers(static, pitch, rows)
     w_stage = 4 * pitch * n * 2 * out['ch_pad']
-    out['stage_w_pitch'] = int(bool(pitch) and base + 4 * pitch * rows
-                               + w_stage <= BLOCK_BYTES)
-    out['block_bytes'] = (base + 4 * pitch * rows
-                          + w_stage * out['stage_w_pitch'])
+    out['stage_w_pitch'] = int(bool(pitch) and base + w_stage <= BLOCK_BYTES)
+    out['block_bytes'] = base + w_stage * out['stage_w_pitch']
     return out
 
 
@@ -1041,7 +1070,7 @@ def _check_launch(name: str, x: torch.Tensor,
     slices of a wider tensor's channels: unit stride along the channels,
     every other stride and the address a multiple of ``load_bytes``, the
     width of the build's loads of a half (:func:`half_load_bytes`: 16
-    bytes, 8 where a bfloat16 half's rows are not a multiple of 16 bytes).
+    bytes, or 8 or 4 where a half's rows are not a multiple of 16 bytes).
     Raises otherwise."""
     views = views or {}
     dtypes = dtypes or {}
@@ -1083,9 +1112,13 @@ def _check_launch(name: str, x: torch.Tensor,
 
 def half_load_bytes(channels: int, bf16: bool) -> int:
     """The bytes a build loads of a half's row at a time (``csrc/
-    flow_ring.cuh::RingShape::VEC``; the float32 body's 16-byte float4):
-    16, or 8 in a bfloat16 build whose halves are C/2 ≡ 4 (mod 8) wide."""
-    return 8 if bf16 and (channels // 2) % 8 else 16
+    flow_ring.cuh::RingShape::VEC``; the float32 body's
+    ``flow_common.cuh::kHalfVec`` floats): the widest of 16, 8 and 4 that
+    divides a half's row of C/2 elements (16 at 160 channels; at bfloat16 8
+    where C/2 ≡ 4 (mod 8), as at C = 200, and 4 where C/2 ≡ 2 (mod 4), as at
+    C = 100, whose float32 halves load 8)."""
+    row = (channels // 2) * (2 if bf16 else 4)
+    return next(size for size in (16, 8, 4) if row % size == 0)
 
 
 def check_shape(name: str, channels: int, w_in_shape: Tuple[int, ...],
@@ -1107,11 +1140,12 @@ def train_error(shape, bf16: bool, pitch: int = 0) -> Optional[str]:
     (:func:`envelope_error`) and a pitch width that divides the channels,
     less what the train builds cannot take: a saved row ``ch`` wide that
     #5 stores and #6 stages 16 bytes at a time (ch a multiple of 4 at
-    float32, of 8 at bfloat16), more than :data:`TRAIN_MAX_LAYERS` layers,
-    and #5's block over an H100's shared memory with its saving stage
-    (:func:`geometry` with ``train``; where w_pitch does not fit beside it
-    the block reads w_pitch from global memory, so only the buffers count:
-    ch 192 at 8 layers of 5 taps and C = 200, for one)."""
+    float32, of 8 at bfloat16) and more than :data:`TRAIN_MAX_LAYERS`
+    layers.  #5's block fits at every such shape: where its saving stage
+    has no room (ch 192 at 8 layers of 5 taps and C = 200, for one) it
+    stores the gate halves from its registers (:func:`geometry` with
+    ``train``: ``save_stage`` 0), and where w_pitch does not fit beside the
+    buffers it reads w_pitch from global memory."""
     shape = as_shape(shape)
     why = envelope_error(shape)
     if why is None and pitch and shape.channels % pitch:
@@ -1125,12 +1159,6 @@ def train_error(shape, bf16: bool, pitch: int = 0) -> Optional[str]:
     if why is None and shape.n_layers > TRAIN_MAX_LAYERS:
         why = (f'{shape.n_layers} layers: the backward adds the gradients '
                f'of at most {TRAIN_MAX_LAYERS} in one launch')
-    if why is None:
-        need = geometry(shape, bf16, pitch, train=True)['block_bytes']
-        if need > BLOCK_BYTES:
-            why = (f'the train forward needs {need} bytes of shared memory '
-                   f'a block with its saving stage, over the {BLOCK_BYTES} '
-                   'of an H100')
     return why
 
 

@@ -51,8 +51,9 @@ channels (``Num_Squeeze: 1``) are a build of both sources of their own
 too (``GLOW_CHANNELS=80``), loaded by the channel count and counted apart
 (``*_c80_launches``); its pitch builds take the pitch operand 1 wide
 (``*_c80_pitch_launches``).  Every other decoder shape the train builds
-take (``ops/coupling.py::train_error``: 100-bin mels' C = 200, another
-WaveNet) is a build of both sources of its own, made at its first use from
+take (``ops/coupling.py::train_error``: 100-bin mels' C = 200, or 100 at
+Num_Squeeze 1, 128-bin mels' 256, another WaveNet) is a build of both
+sources of its own, made at its first use from
 the shape's macros (``coupling.build_defines``) and counted under its
 ``coupling.build_tag`` (``*_c200_launches``, ...).  The forward computes the
 WaveNet at ch padded to a multiple of 64 on zero-padded weights, ``b_in``,

@@ -4,7 +4,8 @@ checkout with another checkout's, both built with the same flags side by
 side, each into its own ``glow_tts_tpu_torch/_build``.
 
     python -m glow_tts_tpu_torch.tools.compare_ptxas [--bf16] [--sass]
-        [--shape C,CH,LAYERS,K[,PITCH]] [--source NAME] OTHER_CHECKOUT
+        [--shape SHAPE] [--compare-shape SHAPE] [--source NAME]
+        OTHER_CHECKOUT
 
 ``OTHER_CHECKOUT`` is a directory holding another tree's
 ``glow_tts_tpu_torch`` package (for example ``git archive`` of the
@@ -25,9 +26,13 @@ also when every kernel's machine code (``cuobjdump -sass``, the function's
 name dropped) is the other's.  ``--shape`` prints (does not compare: the
 other checkout may not build it) each flow source's f32 and bf16 build at
 another decoder shape (``ops/coupling.py::build_defines``, ROADMAP B.2),
-the train pair's (#5, #6) among them.  ``--source`` (repeatable) limits
-the run to those sources, for example the train pair's two.  Exits 1 if a
-compared build differs or fails.  Needs ``nvcc``.
+the train pair's (#5, #6) among them; ``--compare-shape`` compares them
+with the other checkout's, as the shipped builds (for a B.2 build both
+trees take).  A SHAPE is ``C,CH,LAYERS,K[,PITCH]`` or a label of
+``chip_smoke.py::B2_SHAPES`` (``c200``, ``c256``, ``c100_pitch``, ...).
+``--source`` (repeatable) limits the run to those sources, for example the
+train pair's two.  Exits 1 if a compared build differs or fails.  Needs
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -114,6 +119,21 @@ def sass(path: str) -> list:
         .encode()).hexdigest() for body in bodies)
 
 
+def shape_builds(spec: str) -> list:
+    """The f32 and bf16 builds' macros of the decoder shape ``spec``
+    (``C,CH,LAYERS,K[,PITCH]``, or a label of ``chip_smoke.py::B2_SHAPES``
+    in this checkout)."""
+    from glow_tts_tpu_torch.ops.coupling import FlowShape, build_defines
+    if ',' in spec:
+        c, ch, n, k, *ps = (int(v) for v in spec.split(','))
+        shape, pitch = (c, ch, n, k), ps[0] if ps else 0
+    else:
+        import chip_smoke
+        shape, pitch = chip_smoke.B2_SHAPES[spec]
+    return [build_defines(FlowShape(*shape), pitch, bf16)
+            for bf16 in (False, True)]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('other', help='the other checkout\'s root')
@@ -122,22 +142,26 @@ def main(argv=None) -> int:
     parser.add_argument('--sass', action='store_true',
                         help='compare each kernel\'s machine code too')
     parser.add_argument('--shape', action='append', default=[],
-                        help='C,CH,LAYERS,K[,PITCH]: print the flow '
-                        'sources\' builds at this decoder shape')
+                        help='C,CH,LAYERS,K[,PITCH] or a B.2 label: print '
+                        'the flow sources\' builds at this decoder shape')
+    parser.add_argument('--compare-shape', action='append', default=[],
+                        help='as --shape, compared with the other '
+                        'checkout\'s builds')
     parser.add_argument('--source', action='append', choices=SOURCES,
                         help='only this source (repeatable; default all)')
     args = parser.parse_args(argv)
     sources = tuple(args.source or SOURCES)
     other = os.path.abspath(args.other)
     sys.path.insert(0, HERE)
-    from glow_tts_tpu_torch.ops.coupling import FlowShape, build_defines
-    shaped = []
-    for spec in args.shape:
-        c, ch, n, k, *ps = (int(v) for v in spec.split(','))
-        shaped += [build_defines(FlowShape(c, ch, n, k), ps[0] if ps else 0,
-                                 bf16) for bf16 in (False, True)]
+    shaped = [d for spec in args.shape for d in shape_builds(spec)]
+    held = tuple(d for spec in args.compare_shape
+                 for d in shape_builds(spec))
+
+    def builds(source):
+        return compared(source, args.bf16) + (held if source in SHAPED
+                                              else ())
     jobs = [(root, source, defines) for source in sources
-            for root, defines in [(r, d) for d in compared(source, args.bf16)
+            for root, defines in [(r, d) for d in builds(source)
                                   for r in (other, HERE)]
             + [(HERE, d) for d in own(source, args.bf16)]
             + [(HERE, d) for d in (shaped if source in SHAPED else ())]]
@@ -147,7 +171,7 @@ def main(argv=None) -> int:
         results = dict(zip(jobs, pool.map(lambda job: report(*job), jobs)))
     same = True
     for source in sources:
-        for defines in compared(source, args.bf16):
+        for defines in builds(source):
             theirs, their_lib = results[(other, source, defines)]
             ours, our_lib = results[(HERE, source, defines)]
             label = ' '.join([source, *(f'-D{d}' for d in defines)])

@@ -29,7 +29,9 @@ YAML's train problem; ``c160_pitch``: GR's; ``c80``: MiniSpeech's;
 ``c80_pitch``: GR at Num_Squeeze 1; default those four; or the B.2
 builds of ``chip_smoke.py::B2_SHAPES``, ROADMAP B.2: ``c200``, 100-bin
 mels, ``c200_pitch``, GR's, ``c16_ch16_l2_k5``, ``c160_ch128_l16_k3``,
-each on ``chip_smoke.py::b2_train_problem``'s operands) on the stack's
+``c256``, 128-bin mels, ``c100`` and ``c100_pitch``, 100-bin mels at
+Num_Squeeze 1, ``c200_l8``, 100-bin mels at 8 layers, each on
+``chip_smoke.py::b2_train_problem``'s operands) on the stack's
 operands as a train step hands them over, rounded to bfloat16: #5's
 storing forward and #6's backward per flow step (CUDA events, mean of two
 runs), the gradients' norm-relative error against the bf16 plain version
@@ -51,7 +53,8 @@ import torch
 
 BF16_BUILDS = ('c160', 'c160_pitch', 'c80', 'c80_pitch')
 # the B.2 builds (chip_smoke.py::B2_SHAPES' labels), taken by both forms
-B2_BUILDS = ('c200', 'c200_pitch', 'c16_ch16_l2_k5', 'c160_ch128_l16_k3')
+B2_BUILDS = ('c200', 'c200_pitch', 'c16_ch16_l2_k5', 'c160_ch128_l16_k3',
+             'c256', 'c100', 'c100_pitch', 'c200_l8')
 BUILDS = BF16_BUILDS + B2_BUILDS
 # the nine kernels of csrc/flow_train_bwd.cu, as the profiler names them
 # (demangled, in the source's anonymous namespace)

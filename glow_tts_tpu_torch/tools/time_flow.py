@@ -19,7 +19,9 @@ The first form.  For each build asked for (``c160``: the shipped YAML;
 ``c160_pitch``: GR's; ``c80``: MiniSpeech's; ``c80_pitch``: GR at
 Num_Squeeze 1; default all four; or a shape of ROADMAP B.2 where the
 tree's ``chip_smoke.py`` names it in ``B2_SHAPES``: ``c200`` for 100-bin
-mels, ``c200_pitch``, ``c16_ch16_l2_k5``, ``c160_ch128_l16_k3``), on a
+mels, ``c200_pitch``, ``c16_ch16_l2_k5``, ``c160_ch128_l16_k3``, ``c256``
+for 128-bin mels, ``c100`` and ``c100_pitch`` for 100-bin mels at
+Num_Squeeze 1, ``c200_l8``), on a
 model of that config with random
 weights after its ActNorm init: #3, #4 and #2 bf16 in both directions, at
 B = 32 x T = 512 with every frame valid and on the eval batch's ragged

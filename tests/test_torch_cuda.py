@@ -2407,7 +2407,14 @@ def test_f32_convs_ignore_cudnn_tf32(device):
 B2_BUILDS = [pytest.param((200, 192, 4, 5), 0, id='c200'),
              pytest.param((200, 192, 4, 5), 2, id='c200_pitch'),
              pytest.param((16, 16, 2, 5), 0, id='c16_ch16_l2_k5'),
-             pytest.param((160, 128, 16, 3), 0, id='c160_ch128_l16_k3')]
+             pytest.param((160, 128, 16, 3), 0, id='c160_ch128_l16_k3'),
+             # 128-bin mels at Num_Squeeze 2 (the ring's 40-frame tiles),
+             # 100-bin mels at Num_Squeeze 1 (C/2 = 2 mod 4), with GR's
+             # pitch operand 1 wide, and C = 12 at a narrow WaveNet
+             pytest.param((256, 192, 4, 5), 0, id='c256'),
+             pytest.param((100, 192, 4, 5), 0, id='c100'),
+             pytest.param((100, 192, 4, 5), 1, id='c100_pitch1'),
+             pytest.param((12, 16, 2, 3), 0, id='c12_ch16_l2_k3')]
 B2_DTYPES = [pytest.param(torch.float32, id='f32'),
              pytest.param(torch.bfloat16, id='bf16')]
 B2_LENGTHS = [97, 60, 1, 33]
@@ -2552,7 +2559,7 @@ def test_b2_bf16_coupling_is_the_flow_step_on_an_identity(device, shape, ps,
     assert (z[..., :c // 2] != x16[..., :c // 2]).sum().item() == 0
     if not reverse:
         assert (ld != ld_b).sum().item() == 0
-    tile = tc.geometry(tc.FlowShape(*shape), True)['time_tile']
+    tile = tc.geometry(tc.FlowShape(*shape), True, ps)['time_tile']
     items = tc.live_tile_schedule(B2_LENGTHS, x.shape[1], tile)
     got = dict(zip(tc.TILE_COUNTS, tiles.tolist()))
     assert (got['live'], got['items']) == (sum(i[2] for i in items),
@@ -2584,6 +2591,45 @@ def test_b2_bf16_coupling_reads_the_c200_halves_where_they_lie(device):
 
 
 @pytest.mark.parametrize('dtype', B2_DTYPES)
+def test_b2_coupling_reads_the_c100_halves_where_they_lie(device, dtype):
+    """At C = 100 a half's rows are 200 bytes at f32 and 100 at bf16: the
+    build reads them 8 and 4 bytes at a time, so the decoder's own halves
+    of one [B, T, 100] tensor are taken as they lie (x_b starts 8 bytes
+    into a 16-byte chunk) and give what contiguous copies give; a view one
+    element off a load's alignment is refused."""
+    gen = torch.Generator().manual_seed(701)
+    w, cond, _, x, mask = _b2_problem(gen, device, (100, 192, 4, 5), 0,
+                                      steps=1)
+    own = tc.with_kernel_weights(
+        {key: w[key][0] for key in tc.COUPLING_WEIGHT_KEYS}, dtype)
+    xd = x.to(dtype)
+    x_a, x_b = xd[..., :50], xd[..., 50:]
+    assert x_b.data_ptr() % 16 == (8 if dtype == torch.float32 else 4)
+    z_b, ld = tc.coupling(x_a, x_b, mask, own, cond[0])
+    z_c, ld_c = tc.coupling(x_a.contiguous(), x_b.contiguous(), mask, own,
+                            cond[0])
+    torch.cuda.synchronize()
+    assert (z_b != z_c).sum().item() == 0 and torch.equal(ld, ld_c)
+    wide = torch.zeros((x.shape[0], x.shape[1], 102), device=device,
+                       dtype=dtype)
+    with pytest.raises(ValueError, match='aligned to 2'):
+        tc.coupling(wide[..., 1:51], wide[..., 51:101], mask, own, cond[0])
+
+
+@pytest.mark.parametrize('dtype', B2_DTYPES)
+def test_b2_train_depth_tail_gradients_at_c100(device, dtype):
+    """C = 100: the end conv's and the mixing's activation gradients are
+    100 deep (the f32 build's tail instantiations; the bf16 build stages
+    the C-wide rows as 8-byte halves) and the start conv's weight gradient
+    50 (C/2 = 2 mod 4); dx, dw_start, dmix_t and dw_end hold the bars."""
+    kernel, plain, plain32 = _b2_train(device, (100, 192, 4, 5), 0, dtype,
+                                       lengths=[200, 1, 130])
+    for key in ('dx', 'dw_start', 'dan_logs', 'dmix_t', 'dw_end'):
+        assert kernel[key].abs().max() > 0, key
+    _assert_b2_train_agrees(kernel, plain, plain32, dtype)
+
+
+@pytest.mark.parametrize('dtype', B2_DTYPES)
 @pytest.mark.parametrize('source', ['flow_step.cu', 'coupling.cu',
                                     'flow_stack.cu'])
 @pytest.mark.parametrize('shape,ps', B2_BUILDS)
@@ -2605,9 +2651,11 @@ def test_b2_library_geometry_is_pythons(device, shape, ps, source, dtype):
 # --- ROADMAP B.2, the train half: #5 and #6 at other decoder shapes --------
 
 # the B.2 builds, and (C 160, ch 80, 2 layers, k 5): the start conv's
-# activation gradient 80 deep, not a multiple of a slice, at a C that is
+# activation gradient 80 deep, not a multiple of a slice, at a C that is;
+# and C = 200 at 8 layers, whose #5 stores without its saving stage
 B2_TRAIN_BUILDS = [*B2_BUILDS,
-                   pytest.param((160, 80, 2, 5), 0, id='c160_ch80_l2_k5')]
+                   pytest.param((160, 80, 2, 5), 0, id='c160_ch80_l2_k5'),
+                   pytest.param((200, 192, 8, 5), 0, id='c200_l8')]
 
 
 def _b2_train(device, shape, ps, dtype, lengths=B2_LENGTHS, rate=0.05,
@@ -2740,12 +2788,12 @@ def test_b2_train_depth_tail_gradients_at_ch80(device):
 
 
 def test_b2_train_refuses_what_no_build_takes(device):
-    """A bf16 WaveNet whose ch is not a multiple of 8 (20), and C = 200 at
-    8 layers of the shipped WaveNet (the saving block over 227 KB), raise
-    naming B.2's train half before any launch; the f32 build takes ch
-    20."""
+    """A bf16 WaveNet whose ch is not a multiple of 8 (20), and a WaveNet
+    of more layers than the backward's one reduction launch adds (30 of
+    k 1), raise naming B.2's train half before any launch; the f32 build
+    takes ch 20."""
     for shape, dtype in (((160, 20, 2, 5), torch.bfloat16),
-                         ((200, 192, 8, 5), torch.float32)):
+                         ((8, 4, 30, 1), torch.float32)):
         gen = torch.Generator().manual_seed(3)
         w, cond, _, x, mask = _b2_problem(gen, device, shape, 0, steps=1,
                                           lengths=[9, 4])

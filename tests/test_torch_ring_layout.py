@@ -260,10 +260,14 @@ def test_the_twins_constants_are_the_kernels():
         source = f.read()
     depth = int(re.search(r'kRingDepth = (\d+)', source).group(1))
     assert depth == tc.RING_DEPTH and bt.ROW_BYTES == 2 * depth
-    # a tile is one 64-row block with its halo, at most 48 owned frames:
+    # a tile is one 64-row block with its halo, at most 48 owned frames
+    # (ring_time_tile's first candidate, 64 - NL (KS - 1) = 64 - 2 halo):
     # 48 at the shipped halo of 8 (4 layers of k 5)
-    rows, cap = map(int, re.search(
-        r'R = (\d+), TT = R - 2 \* HALO < (\d+)', source).groups())
+    rows = int(re.search(r'R = (\d+), TT = TT_;', source).group(1))
+    first, cap = map(int, re.search(
+        r'int TT = \((\d+) - NL \* \(KS - 1\) < (\d+)', source).groups())
+    assert (rows, first, cap) == (tc.RING_ROWS, tc.RING_ROWS,
+                                  tc.RING_MAX_TILE)
     assert min(cap, rows - 2 * tc.SHIPPED_SHAPE.halo) == tc.RING_TIME_TILE
     # the 1x1s' halves: 96 columns each up to C/2 = 96
     half = int(re.search(r'N_SMALL = 2 \* (\d+) \* NWS', source).group(1))
